@@ -1,38 +1,60 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (``iseg_tpu_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py            # every phase below
+    python3 chip_smoke.py --profile  # and a torch.profiler table of the Swin step
 
-Drives the port's main path, bench.py's headline training configuration:
-ResNet-50 (output stride 16, deep stem, slim stacks, multi-grid) + ASPP(256),
-21 classes, 512x512 input, batch 16, bf16 autocast with fp32 params, SGD
-(momentum 0.9, poly decay), with the loss taken by the fused upsample + CE
-CUDA kernel. Weights are random, from seed 0. Phases, in order; any
+Drives the port's two main paths at full width, with random weights from
+seed 0 and one fixed synthetic batch each:
+
+* ResNet: bench.py's headline training configuration, ResNet-50 (output
+  stride 16, deep stem, slim stacks, multi-grid) + ASPP(256), 21 classes,
+  512x512, batch 16;
+* Swin: ``swin_large`` + ``SemanticFPN(256)``, 19 classes, 512x512, batch 8,
+  default drop-path rate, then served multi-scale + flip + sliding window;
+
+both under bf16 autocast with fp32 params, SGD (momentum 0.9, poly decay),
+the loss taken by the fused upsample + CE CUDA kernels, and Swin's window
+attention by the window-attention CUDA kernels. Phases, in order; any
 failure raises and the script exits non-zero:
 
 1. device: require CUDA; print the card, its power limit, the torch and
-   CUDA versions; build the kernels from ``iseg_tpu_torch/csrc`` in a clean
-   build directory and print the build time and ptxas report;
-2. kernels vs their plain versions at the main-path shapes
-   ([16,32,32,21] logits -> [16,512,512] labels, ~10% ignored), f32 and
-   bf16, with median CUDA-event times;
-3. train: 2 warm-up + 5 timed fused steps on one fixed synthetic batch;
-   losses finite, and the launch counters grew by exactly one forward and
-   one backward kernel launch per step;
-4. fused vs unfused: one unfused step (upsample_logits=True, plain CE) from
-   the same initial weights and dropout draw gives the fused first step's
-   loss; then its timed ms/step;
-5. serve: single-scale inference in eval mode with the trained weights:
-   [16,512,512,21] finite logits, consistent with the fused model's
-   low-resolution logits.
+   CUDA versions; build both kernel sources of ``iseg_tpu_torch/csrc`` in a
+   clean build directory (one nvcc each, started together) and print the
+   build times and ptxas reports;
+2. kernels vs their plain versions at the main paths' shapes, with median
+   CUDA-event times, each kernel's bound on this card, and for window
+   attention ``F.scaled_dot_product_attention`` as a yardstick (timed here,
+   used nowhere in the port): upsample + CE at [16,32,32,21] -> [16,512,512]
+   and [8,128,128,19] -> [8,512,512]; window attention forward and backward
+   at Swin-L's four stage shapes, shifted and unshifted, f32 and bf16;
+3. ResNet train: 2 warm-up + 3 timed fused steps; losses finite, exactly
+   one forward and one backward loss-kernel launch per step;
+4. ResNet fused vs unfused: one unfused step from the same initial weights
+   and dropout draw gives the fused first step's loss; then its ms/step;
+5. ResNet serve: single-scale inference with the trained weights agrees
+   with the fused model's low-resolution logits;
+6. Swin train: 2 warm-up + 5 timed steps; losses finite; per step exactly
+   24 window-attention forward and 24 backward launches and 1 + 1 loss
+   kernel launches; ms/step, img/s, peak memory;
+7. Swin serve, batch 2, trained weights: eval logits with the kernels agree
+   with the same model run on the kernels' plain versions; multi-scale
+   (0.75, 1.0) + flip + sliding window (384x384 crops) gives finite fp32
+   [2,512,512,19] logits; window batch 1 and 2 agree; confusion matrix and
+   mIoU against the synthetic labels count every pixel; forward launches
+   are 24 per model call, and no backward kernel is launched.
 
-The line before the last is a JSON object with one entry per kernel; the
-last line is the contract line ``{"ok": true, "device": {...}}``.
+The launch counters are set to 0 just before each main path (3, 6, 7) and
+read just after; a kernel of a path that was launched no time there fails
+the run. Third line from the end: a JSON object with one entry per kernel;
+then the card's name and power limit; the last line is
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
 import json
+import math
 import shutil
 import statistics
 import subprocess
@@ -41,33 +63,60 @@ import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from iseg_tpu_torch.backbones import get_backbone
+from iseg_tpu_torch.backbones import swin as swin_module
 from iseg_tpu_torch.convert import param_tree
 from iseg_tpu_torch.core.env import EnvConfig, common_env_setup
-from iseg_tpu_torch.core.model import SegManaged
+from iseg_tpu_torch.core.model import SegManaged, SegModelInferenceConfig
 from iseg_tpu_torch.core.optimizer import get_optimizer
 from iseg_tpu_torch.core.train import create_train_state, make_train_step
+from iseg_tpu_torch.metrics import MeanIoU
 from iseg_tpu_torch.nn.blocks import Dropout, set_dropout_generator
-from iseg_tpu_torch.nn.heads import ASPP
+from iseg_tpu_torch.nn.heads import ASPP, SemanticFPN
 from iseg_tpu_torch.ops.kernels import _build
 from iseg_tpu_torch.ops.kernels import upsample_ce as uce
+from iseg_tpu_torch.ops.kernels import window_attention as wa
 from iseg_tpu_torch.ops.resize import resize_image
 
-BATCH, HW, NUM_CLASS, OS = 16, 512, 21, 16
-WARMUP_STEPS, TIMED_STEPS, UNFUSED_TIMED_STEPS = 2, 5, 3
-# kernel vs plain: fp32 loss rtol 1e-5; dsrc max error within 1e-4 (f32) or
-# 1e-2 (bf16: the kernel's gradient is rounded to bf16) of max |dsrc|
-KERNEL_TOL = {torch.float32: (1e-5, 1e-4), torch.bfloat16: (1e-5, 1e-2)}
+HW = 512
+# ResNet path
+R_BATCH, R_CLASSES, R_OS = 16, 21, 16
+R_WARMUP, R_TIMED, R_UNFUSED_TIMED = 2, 3, 2
+# Swin path
+S_BATCH, S_CLASSES, S_OS = 8, 19, 4
+S_WARMUP, S_TIMED, S_SERVE_BATCH = 2, 5, 2
+WINDOW, HEAD_DIM = 7, 32
+# Swin-L at 512x512, batch 8: (stage, window batch, heads, windows per image, blocks)
+WA_STAGES = (("stage0", 2888, 6, 361, 2), ("stage1", 800, 12, 100, 2),
+             ("stage2", 200, 24, 25, 18), ("stage3", 72, 48, 9, 2))
+WA_LAUNCHES_PER_FORWARD = sum(s[4] for s in WA_STAGES)  # 24
+
+# Published peaks of one H100 SXM at its 700 W limit: HBM3 bytes/s, and
+# FLOP/s for fp32 inputs (outside the tensor cores) and bf16 inputs
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
+
+# upsample + CE kernel vs plain: fp32 loss rtol 1e-5; dsrc max error within
+# 1e-4 (f32) or 1e-2 (bf16: the kernel's gradient is rounded to bf16) of max |dsrc|
+UCE_TOL = {torch.float32: (1e-5, 1e-4), torch.bfloat16: (1e-5, 1e-2)}
+# window attention kernel vs plain, max abs error as a share of max(1, max |plain|):
+# f32 differs by summation order (and q scaled before the product); with bf16
+# q/k/v both compute in fp32 from the same bf16 values and round out/dq/dk/dv
+# to bf16 (one ulp is 2^-8 of the value); dbias stays fp32 on both sides
+WA_TOL = {torch.float32: dict(out=1e-4, dbias=1e-4), torch.bfloat16: dict(out=1e-2, dbias=1e-3)}
 # fused vs unfused first-step loss, relative. Both run the same bf16 network
 # with the same cuDNN algorithms (the autotuner's choices are cached per
 # shape); they differ only in the loss: the unfused path upsamples bf16
 # logits and rounds each to bf16 (2^-9 relative), the kernel upsamples in
 # fp32, and those roundings average out over the 4M pixels' mean
 FUSED_UNFUSED_RTOL = 1e-4
-# served logits vs the fused model's low-res logits upsampled by hand: the
-# served path upsamples bf16 logits (bf16 keeps 8 bits), relative to max |logit|
+# served logits vs low-res logits upsampled by hand, or vs the same bf16
+# network on the kernels' plain versions, or window batch 1 vs 2 (other GEMM
+# shapes): bf16 keeps 8 bits, relative to max |logit|
 SERVE_RTOL = 1e-2
+KERNEL_VS_PLAIN_MODEL_RTOL = 2e-2  # 24 blocks of bf16 attention outputs rounded apart
 
 
 def log(msg: str) -> None:
@@ -98,6 +147,20 @@ def cuda_median_ms(fn, reps: int = 20, warmup: int = 3, setup=None) -> float:
     return statistics.median(times)
 
 
+def bound_ms(bytes_moved: float, flops: float, dtype: torch.dtype) -> tuple[float, str]:
+    """The least time the card could take: the larger of bytes over the HBM
+    rate and operations over the peak rate for the inputs' type."""
+    by_bytes = 1e3 * bytes_moved / HBM_BYTES_PER_S
+    by_ops = 1e3 * flops / PEAK_FLOPS[dtype]
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+def dtype_name(dtype: torch.dtype) -> str:
+    return {torch.float32: "f32", torch.bfloat16: "bf16"}[dtype]
+
+
+# ----------------------------------------------------------------- phase 1
+
 def phase_device():
     log("== phase 1: device and kernel build")
     if not torch.cuda.is_available():
@@ -106,23 +169,38 @@ def phase_device():
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"device {torch.cuda.get_device_name(0)}, count {torch.cuda.device_count()}")
     shutil.rmtree(_build.BUILD_DIR, ignore_errors=True)
-    built = uce.build()
-    if not built.compiled:
-        raise RuntimeError("the kernel library was not compiled from a clean build directory")
-    log(f"built {built.path.name} in {built.seconds:.2f} s (nvcc, sm_90a)")
-    log(built.log.strip())
+    t0 = time.perf_counter()
+    _build.load_all([uce.SOURCE, wa.SOURCE])
+    wall = time.perf_counter() - t0
+    for built in (uce.build(), wa.build()):
+        if not built.compiled:
+            raise RuntimeError(f"{built.path.name} was not compiled from a clean build directory")
+        log(f"built {built.path.name} in {built.seconds:.2f} s (nvcc, sm_90a)")
+        log(built.log.strip())
+    log(f"both sources built in parallel in {wall:.2f} s")
 
 
-def phase_kernels(device) -> list[dict]:
-    log("== phase 2: kernels vs plain versions at the main-path shapes")
-    rng = np.random.RandomState(0)
-    h = HW // OS
-    src32 = torch.tensor(rng.randn(BATCH, h, h, NUM_CLASS).astype(np.float32), device=device)
-    labels = rng.randint(0, NUM_CLASS, (BATCH, HW, HW))
-    labels = np.where(rng.rand(BATCH, HW, HW) < 0.1, 255, labels).astype(np.int32)
+# ----------------------------------------------------------------- phase 2
+
+def uce_bound(src, labels, backward: bool) -> tuple[float, str]:
+    """Bytes: src and labels read once, plus the two sums (forward) or the
+    upstream scalar and dsrc (backward). Operations per output pixel and
+    class: 8 for the four-tap interpolation, 4 for the softmax (subtract,
+    exp, add, compare), and in the backward 8 more to scatter to the taps."""
+    pixels, classes = labels.numel(), src.shape[-1]
+    nbytes = src.numel() * src.element_size() + labels.numel() * 4
+    nbytes += (4 + src.numel() * src.element_size()) if backward else 8
+    return bound_ms(nbytes, pixels * classes * (20 if backward else 12), src.dtype)
+
+
+def check_upsample_ce(device, n, h, num_class, seed=0) -> dict:
+    rng = np.random.RandomState(seed)
+    src32 = torch.tensor(rng.randn(n, h, h, num_class).astype(np.float32), device=device)
+    labels = rng.randint(0, num_class, (n, HW, HW))
+    labels = np.where(rng.rand(n, HW, HW) < 0.1, 255, labels).astype(np.int32)
     labels = torch.tensor(labels, device=device)
-    log(f"src {tuple(src32.shape)}, labels {tuple(labels.shape)}, "
-        f"ignored {float((labels == 255).float().mean()):.4f}")
+    shape = f"[{n},{h},{h},{num_class}]->[{n},{HW},{HW}]"
+    log(f"upsample_ce {shape}, ignored {float((labels == 255).float().mean()):.4f}")
 
     rows = {}
     for dtype in (torch.float32, torch.bfloat16):
@@ -138,18 +216,15 @@ def phase_kernels(device) -> list[dict]:
         loss_err = abs(loss_k - loss_r)
         grad_err = float((g_k.float() - g_r.float()).abs().max())
         grad_scale = float(g_r.float().abs().max())
-        loss_rtol, grad_rtol = KERNEL_TOL[dtype]
-        name = str(dtype).replace("torch.", "")
-        log(f"[{name}] loss kernel {loss_k:.7f} plain {loss_r:.7f} "
+        loss_rtol, grad_rtol = UCE_TOL[dtype]
+        name = dtype_name(dtype)
+        log(f"  [{name}] loss kernel {loss_k:.7f} plain {loss_r:.7f} "
             f"abs err {loss_err:.3e} (tol rtol {loss_rtol:g}); dsrc max abs err "
             f"{grad_err:.3e} vs max |dsrc| {grad_scale:.3e} (tol {grad_rtol:g} of it)")
         if not (np.isfinite(loss_k) and loss_err <= loss_rtol * abs(loss_r)):
-            raise AssertionError(f"[{name}] forward kernel disagrees with the plain version")
+            raise AssertionError(f"[{shape} {name}] forward kernel disagrees with the plain version")
         if not grad_err <= grad_rtol * grad_scale:
-            raise AssertionError(f"[{name}] backward kernel disagrees with the plain version")
-
-        def fwd_setup():
-            return src
+            raise AssertionError(f"[{shape} {name}] backward kernel disagrees with the plain version")
 
         def bwd_setup(fn):
             def make():
@@ -162,35 +237,193 @@ def phase_kernels(device) -> list[dict]:
             torch.autograd.grad(loss, s)
 
         with torch.no_grad():
-            fwd_ms = cuda_median_ms(lambda s: uce.upsample_cross_entropy(s, labels),
-                                    setup=fwd_setup)
+            fwd_ms = cuda_median_ms(lambda _: uce.upsample_cross_entropy(src, labels))
             fwd_plain_ms = cuda_median_ms(
-                lambda s: uce.upsample_cross_entropy_reference(s, labels), setup=fwd_setup)
+                lambda _: uce.upsample_cross_entropy_reference(src, labels))
         bwd_ms = cuda_median_ms(run_bwd, setup=bwd_setup(uce.upsample_cross_entropy))
         bwd_plain_ms = cuda_median_ms(run_bwd,
                                       setup=bwd_setup(uce.upsample_cross_entropy_reference))
-        log(f"[{name}] median ms: fwd kernel {fwd_ms:.4f} plain {fwd_plain_ms:.4f}; "
-            f"bwd kernel {bwd_ms:.4f} plain {bwd_plain_ms:.4f}")
-        rows[dtype] = dict(loss_err=loss_err, grad_err=grad_err, fwd_ms=fwd_ms,
-                           fwd_plain_ms=fwd_plain_ms, bwd_ms=bwd_ms,
-                           bwd_plain_ms=bwd_plain_ms)
+        fwd_bound, fwd_by = uce_bound(src, labels, backward=False)
+        bwd_bound, bwd_by = uce_bound(src, labels, backward=True)
+        log(f"  [{name}] median ms: fwd kernel {fwd_ms:.4f} plain {fwd_plain_ms:.4f} bound "
+            f"{fwd_bound:.4f} ({fwd_by}); bwd kernel {bwd_ms:.4f} plain {bwd_plain_ms:.4f} "
+            f"bound {bwd_bound:.4f} ({bwd_by})")
+        rows[name] = {
+            "fwd": dict(shape=f"{shape} {name}", max_abs_err=loss_err, ms=fwd_ms,
+                        plain_ms=fwd_plain_ms, bound_ms=fwd_bound, bound_by=fwd_by,
+                        library_ms=None),
+            "bwd": dict(shape=f"{shape} {name}", max_abs_err=grad_err, ms=bwd_ms,
+                        plain_ms=bwd_plain_ms, bound_ms=bwd_bound, bound_by=bwd_by,
+                        library_ms=None),
+        }
+    return rows
 
-    # the main path feeds the kernels fp32 logits (the model's fp32 cast)
-    f32 = rows[torch.float32]
-    source = "iseg_tpu_torch/csrc/upsample_ce.cu"
+
+def wa_bound(q, bias, mask, backward: bool) -> tuple[float, str]:
+    """Bytes: q, k, v, bias and mask read once and out written once; the
+    backward also reads do and writes dq, dk, dv and dbias. Operations: two
+    N x N x D products forward; five backward (the logits again, dv, dp, dq,
+    dk), 2 N^2 D each per (window, head)."""
+    bnw, h, n, d = q.shape
+    tensors = 7 if backward else 4
+    nbytes = tensors * q.numel() * q.element_size() + 4 * (bias.numel() + mask.numel())
+    nbytes += 4 * bias.numel() if backward else 0
+    flops = (5 if backward else 2) * 2 * n * n * d * bnw * h
+    return bound_ms(nbytes, flops, q.dtype)
+
+
+def check_window_attention(device, stage, bnw, heads, nw, shifted, dtype, seed=0) -> dict:
+    n, d = WINDOW * WINDOW, HEAD_DIM
+    scale = 1.0 / math.sqrt(d)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    # the layouts the Swin block gives: q, k, v are views of the packed qkv
+    # projection, the incoming gradient is token-major
+    qkv = torch.randn((bnw, n, 3, heads, d), generator=gen, device=device).to(dtype)
+    q, k, v = (t.permute(0, 2, 1, 3) for t in qkv.unbind(2))
+    dout = torch.randn((bnw, n, heads, d), generator=gen, device=device).to(dtype)
+    dout = dout.permute(0, 2, 1, 3)
+    bias = 0.1 * torch.randn((heads, n, n), generator=gen, device=device)
+    side = int(math.isqrt(nw)) * WINDOW
+    mask = torch.tensor(swin_module._shift_attn_mask(side, side, WINDOW, WINDOW // 2)
+                        if shifted else np.zeros((1, n, n), np.float32), device=device)
+    name = f"{stage} bnw={bnw} H={heads} N={n} D={d} nW={mask.shape[0]} {dtype_name(dtype)}"
+
+    def leaves_of(bias_arg):
+        # detach() keeps a view's strides, so q, k, v stay packed
+        return [t.detach().requires_grad_(True) for t in (q, k, v)] + \
+            [bias_arg.detach().clone().requires_grad_(True)]
+
+    def run(fn):
+        qq, kk, vv, bb = leaves_of(bias)
+        out = fn(qq, kk, vv, bb, mask, scale)
+        grads = torch.autograd.grad(out, (qq, kk, vv, bb), dout)
+        return [t.detach().float() for t in (out, *grads)]
+
+    got, want = run(wa.window_attention), run(wa.window_attention_reference)
+    torch.cuda.synchronize()
+    errs = {}
+    for key, a, b in zip(("out", "dq", "dk", "dv", "dbias"), got, want):
+        if not bool(torch.isfinite(a).all()):
+            raise AssertionError(f"[{name}] kernel {key} is not finite")
+        errs[key] = float((a - b).abs().max())
+        tol = WA_TOL[dtype]["dbias" if key == "dbias" else "out"] * max(1.0, float(b.abs().max()))
+        if not errs[key] <= tol:
+            raise AssertionError(f"[{name}] kernel {key} disagrees with the plain version: "
+                                 f"max abs err {errs[key]:.3e} > {tol:.3e}")
+    del got, want
+
+    # F.scaled_dot_product_attention with the same additive mask, as a yardstick
+    full_bias = (bias[None] + mask[torch.arange(bnw, device=device) % mask.shape[0]][:, None])
+    full_bias = full_bias.to(dtype).contiguous()
+
+    def sdpa(qq, kk, vv, bb, _mask, _scale):
+        return F.scaled_dot_product_attention(qq, kk, vv, attn_mask=bb, scale=scale)
+
+    def grad_setup(fn, bias_arg):
+        def make():
+            leaves = leaves_of(bias_arg)
+            return leaves, fn(*leaves, mask, scale)
+        return make
+
+    def run_grad(arg):
+        leaves, out = arg
+        torch.autograd.grad(out, leaves, dout)
+
+    reps = dict(reps=10, warmup=2)
+    with torch.no_grad():
+        fwd_ms = cuda_median_ms(lambda _: wa.window_attention(q, k, v, bias, mask, scale), **reps)
+        fwd_plain = cuda_median_ms(
+            lambda _: wa.window_attention_reference(q, k, v, bias, mask, scale), **reps)
+        fwd_lib = cuda_median_ms(lambda _: sdpa(q, k, v, full_bias, None, None), **reps)
+    bwd_ms = cuda_median_ms(run_grad, setup=grad_setup(wa.window_attention, bias), **reps)
+    bwd_plain = cuda_median_ms(run_grad, setup=grad_setup(wa.window_attention_reference, bias),
+                               **reps)
+    bwd_lib = cuda_median_ms(run_grad, setup=grad_setup(sdpa, full_bias), **reps)
+    fwd_bound, fwd_by = wa_bound(q, bias, mask, backward=False)
+    bwd_bound, bwd_by = wa_bound(q, bias, mask, backward=True)
+    bwd_err = max(errs[key] for key in ("dq", "dk", "dv", "dbias"))
+    log(f"  [{name}] max abs err " + " ".join(f"{k} {v:.2e}" for k, v in errs.items())
+        + f"; ms fwd kernel {fwd_ms:.4f} plain {fwd_plain:.4f} sdpa {fwd_lib:.4f} bound "
+        f"{fwd_bound:.4f} ({fwd_by}); bwd kernel {bwd_ms:.4f} plain {bwd_plain:.4f} sdpa "
+        f"{bwd_lib:.4f} bound {bwd_bound:.4f} ({bwd_by})")
+    return {
+        "fwd": dict(shape=name, max_abs_err=errs["out"], ms=fwd_ms, plain_ms=fwd_plain,
+                    bound_ms=fwd_bound, bound_by=fwd_by, library_ms=fwd_lib),
+        "bwd": dict(shape=name, max_abs_err=bwd_err, ms=bwd_ms, plain_ms=bwd_plain,
+                    bound_ms=bwd_bound, bound_by=bwd_by, library_ms=bwd_lib),
+    }
+
+
+def phase_kernels(device) -> list[dict]:
+    log("== phase 2: kernels vs plain versions at the main paths' shapes")
+    resnet = check_upsample_ce(device, R_BATCH, HW // R_OS, R_CLASSES)
+    swin = check_upsample_ce(device, S_BATCH, HW // S_OS, S_CLASSES)
+    log(f"window attention (tol of max(1, max |plain|): {WA_TOL}); dbias err is in max abs err "
+        "of the backward; sdpa is F.scaled_dot_product_attention, a yardstick only")
+    wa_rows = {}
+    for stage, bnw, heads, nw, _ in WA_STAGES:
+        for shifted in (False, True):
+            for dtype in (torch.float32, torch.bfloat16):
+                key = (stage, shifted, dtype)
+                wa_rows[key] = check_window_attention(device, stage, bnw, heads, nw, shifted,
+                                                      dtype)
+                torch.cuda.empty_cache()
+
+    # Top-level numbers: the shape each path launches most. The ResNet path
+    # feeds the loss kernels fp32 logits (the model's fp32 cast); 18 of Swin-L's
+    # 24 blocks are stage 2, under bf16 autocast. "shapes" holds every shape.
+    def entry(name, source, replaces, main, shapes):
+        return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                "launches": None, **main, "shapes": shapes}
+
+    uce_src = "iseg_tpu_torch/csrc/upsample_ce.cu"
+    wa_src = "iseg_tpu_torch/csrc/window_attention.cu"
+    uce_shapes = {d: [rows[dt][d] for rows in (resnet, swin) for dt in ("f32", "bf16")]
+                  for d in ("fwd", "bwd")}
+    wa_shapes = {d: [row[d] for row in wa_rows.values()] for d in ("fwd", "bwd")}
+    wa_main = wa_rows[("stage2", True, torch.bfloat16)]
     return [
-        {"name": "upsample_ce_fwd", "route": "cuda", "source": source,
-         "replaces": "iseg_tpu/ops/pallas/upsample_ce.py:122", "launches": None,
-         "max_abs_err": f32["loss_err"], "ms": f32["fwd_ms"], "plain_ms": f32["fwd_plain_ms"]},
-        {"name": "upsample_ce_bwd", "route": "cuda", "source": source,
-         "replaces": "iseg_tpu/ops/pallas/upsample_ce.py:159", "launches": None,
-         "max_abs_err": f32["grad_err"], "ms": f32["bwd_ms"], "plain_ms": f32["bwd_plain_ms"]},
+        entry("upsample_ce_fwd", uce_src, "iseg_tpu/ops/pallas/upsample_ce.py:122",
+              resnet["f32"]["fwd"], uce_shapes["fwd"]),
+        entry("upsample_ce_bwd", uce_src, "iseg_tpu/ops/pallas/upsample_ce.py:159",
+              resnet["f32"]["bwd"], uce_shapes["bwd"]),
+        entry("window_attention_fwd", wa_src, "iseg_tpu/ops/pallas/window_attention.py:141",
+              wa_main["fwd"], wa_shapes["fwd"]),
+        entry("window_attention_bwd", wa_src, "iseg_tpu/ops/pallas/window_attention.py:161",
+              wa_main["bwd"], wa_shapes["bwd"]),
     ]
 
 
-def build_model(env, fused: bool) -> SegManaged:
-    backbone = get_backbone("resnet50", output_stride=OS)
-    model = SegManaged(num_class=NUM_CLASS, backbone=backbone,
+# ------------------------------------------------------------ launch counts
+
+def reset_launch_counts() -> None:
+    uce.reset_launch_counts()
+    wa.reset_launch_counts()
+
+
+def read_launch_counts() -> dict[str, int]:
+    return {"upsample_ce_fwd": uce.LAUNCH_COUNTS["fwd"], "upsample_ce_bwd": uce.LAUNCH_COUNTS["bwd"],
+            "window_attention_fwd": wa.LAUNCH_COUNTS["fwd"],
+            "window_attention_bwd": wa.LAUNCH_COUNTS["bwd"]}
+
+
+def expect_launches(path: str, got: dict[str, int], want: dict[str, int]) -> None:
+    log(f"kernel launches on the {path} path: {got}")
+    if got != want:
+        raise AssertionError(f"{path} path: expected kernel launches {want}, got {got}")
+
+
+# ------------------------------------------------------------- ResNet path
+
+def synthetic_batch(device, batch, num_class):
+    x = np.random.RandomState(0).rand(batch, HW, HW, 3).astype(np.float32)
+    y = np.random.RandomState(1).randint(0, num_class, (batch, HW, HW)).astype(np.int32)
+    return {"image": torch.tensor(x, device=device), "label": torch.tensor(y, device=device)}
+
+
+def build_resnet_model(env, fused: bool) -> SegManaged:
+    backbone = get_backbone("resnet50", output_stride=R_OS)
+    model = SegManaged(num_class=R_CLASSES, backbone=backbone,
                        head=ASPP(backbone.out_channels, filters=256),
                        upsample_logits=not fused, fuse_upsample_loss=fused)
     return model.to(env.device, memory_format=torch.channels_last)
@@ -204,52 +437,62 @@ def dropout_generator(model) -> torch.Generator:
     return next(iter(gens.values()))
 
 
-def phase_train(env, data):
-    log("== phase 3: train (fused upsample + CE kernel)")
-    model = build_model(env, fused=True)
+def train_steps(state, step_fn, data, warmup, timed, batch):
+    """Run warmup + timed steps with the launch counts set to 0 just
+    before; returns (state, losses, launch counts over all the steps,
+    ms per timed step)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    losses = []
+    t_start = time.perf_counter()
+    for _ in range(warmup):
+        state, parts = step_fn(state, data)
+        losses.append(parts["loss"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(timed):
+        state, parts = step_fn(state, data)
+        losses.append(parts["loss"])
+    # the host's time in the steps' launch calls; these block while the
+    # device's launch queue is full, so it never exceeds the step time by much
+    enqueued = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = read_launch_counts()
+    losses = [float(v) for v in losses]
+    peak = torch.cuda.max_memory_allocated()
+    log(f"losses: {[round(v, 5) for v in losses]}")
+    log(f"warm-up {warmup} steps took {t0 - t_start:.2f} s (cuDNN autotuning included)")
+    log(f"{1000 * dt / timed:.2f} ms/step, {batch * timed / dt:.2f} img/s, "
+        f"peak memory {peak / 2**30:.2f} GiB ({peak} bytes); the host spent "
+        f"{1000 * enqueued / timed:.2f} ms/step in the launch calls")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite training loss: {losses}")
+    return state, losses, launches, 1000 * dt / timed
+
+
+def phase_resnet_train(env, data):
+    log("== phase 3: ResNet train (fused upsample + CE kernels)")
+    model = build_resnet_model(env, fused=True)
     tx, schedule = get_optimizer(param_tree(model), "sgd", learning_rate=0.01,
                                  train_steps=1000)
     state = create_train_state(model, env.generator, tx)
     init_weights = {k: v.detach().clone() for k, v in model.state_dict().items()}
     init_dropout = dropout_generator(model).get_state()
     step_fn = make_train_step(model.build_loss_fn(), compute_dtype=env.compute_dtype)
-
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    uce.reset_launch_counts()
-    losses = []
-    t_start = time.perf_counter()
-    for _ in range(WARMUP_STEPS):
-        state, parts = step_fn(state, data)
-        losses.append(parts["loss"])
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(TIMED_STEPS):
-        state, parts = step_fn(state, data)
-        losses.append(parts["loss"])
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    launches = dict(uce.LAUNCH_COUNTS)
-    losses = [float(v) for v in losses]
-    peak = torch.cuda.max_memory_allocated()
-    steps = WARMUP_STEPS + TIMED_STEPS
-    log(f"losses: {[round(v, 5) for v in losses]}")
-    log(f"warm-up {WARMUP_STEPS} steps took {t0 - t_start:.2f} s (cuDNN autotuning included)")
-    log(f"fused: {1000 * dt / TIMED_STEPS:.2f} ms/step, "
-        f"{BATCH * TIMED_STEPS / dt:.2f} img/s, peak memory {peak / 2**30:.2f} GiB "
-        f"({peak} bytes), lr now {schedule(state.step):.6f}")
-    log(f"kernel launches over {steps} steps: {launches}")
-    if not all(np.isfinite(losses)):
-        raise AssertionError(f"non-finite training loss: {losses}")
-    if launches != {"fwd": steps, "bwd": steps}:
-        raise AssertionError(f"expected {steps} forward and backward kernel launches, "
-                             f"got {launches}")
+    state, losses, launches, _ = train_steps(state, step_fn, data, R_WARMUP, R_TIMED, R_BATCH)
+    log(f"lr now {schedule(state.step):.6f}")
+    steps = R_WARMUP + R_TIMED
+    expect_launches("ResNet train", launches,
+                    {"upsample_ce_fwd": steps, "upsample_ce_bwd": steps,
+                     "window_attention_fwd": 0, "window_attention_bwd": 0})
     return model, init_weights, init_dropout, losses[0], launches
 
 
-def phase_unfused(env, data, init_weights, init_dropout, fused_first_loss):
-    log("== phase 4: fused vs unfused")
-    model = build_model(env, fused=False)
+def phase_resnet_unfused(env, data, init_weights, init_dropout, fused_first_loss):
+    log("== phase 4: ResNet fused vs unfused")
+    model = build_resnet_model(env, fused=False)
     model.load_state_dict(init_weights)
     tx, _ = get_optimizer(param_tree(model), "sgd", learning_rate=0.01, train_steps=1000)
     state = create_train_state(model, None, tx, initialized=True)
@@ -257,54 +500,224 @@ def phase_unfused(env, data, init_weights, init_dropout, fused_first_loss):
     gen.set_state(init_dropout)
     set_dropout_generator(model, gen)
     step_fn = make_train_step(model.build_loss_fn(), compute_dtype=env.compute_dtype)
-    uce.reset_launch_counts()
+    reset_launch_counts()
     state, parts = step_fn(state, data)
     loss = float(parts["loss"])
     rel = abs(loss - fused_first_loss) / abs(fused_first_loss)
     log(f"first-step loss: fused {fused_first_loss:.6f} unfused {loss:.6f} "
         f"rel diff {rel:.3e} (tol {FUSED_UNFUSED_RTOL:g})")
-    if uce.LAUNCH_COUNTS != {"fwd": 0, "bwd": 0}:
+    if any(read_launch_counts().values()):
         raise AssertionError("the unfused path launched the fused kernels")
     if not rel <= FUSED_UNFUSED_RTOL:
         raise AssertionError("fused and unfused first-step losses disagree")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    for _ in range(UNFUSED_TIMED_STEPS):
+    for _ in range(R_UNFUSED_TIMED):
         state, parts = step_fn(state, data)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    log(f"unfused: {1000 * dt / UNFUSED_TIMED_STEPS:.2f} ms/step, "
-        f"{BATCH * UNFUSED_TIMED_STEPS / dt:.2f} img/s, peak memory "
+    log(f"unfused: {1000 * dt / R_UNFUSED_TIMED:.2f} ms/step, "
+        f"{R_BATCH * R_UNFUSED_TIMED / dt:.2f} img/s, peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, loss {float(parts['loss']):.5f}")
     return model
 
 
-def phase_serve(env, data, fused_model, serve_model):
-    log("== phase 5: serve (single-scale inference, trained weights)")
+def check_served_against_low_res(name, logits, low, expect_shape):
+    """Full-resolution served logits against the low-resolution ones of the
+    training model, upsampled by hand."""
+    if tuple(logits.shape) != expect_shape or logits.dtype != torch.float32:
+        raise AssertionError(f"{name}: served logits {tuple(logits.shape)} {logits.dtype}, "
+                             f"expected {expect_shape} float32")
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"{name}: served logits are not finite")
+    up = resize_image(low, (HW, HW), "bilinear")
+    err = float((up - logits).abs().max())
+    scale = float(logits.abs().max())
+    pred = logits.argmax(dim=-1)
+    log(f"{name}: served logits {tuple(logits.shape)}, classes predicted "
+        f"{int(pred.unique().numel())}, max |served - upsampled low-res| {err:.3e} vs "
+        f"max |logit| {scale:.3e} (tol {SERVE_RTOL:g} of it)")
+    if not err <= SERVE_RTOL * scale:
+        raise AssertionError(f"{name}: served logits disagree with the training model's logits")
+
+
+def phase_resnet_serve(env, data, fused_model, serve_model):
+    log("== phase 5: ResNet serve (single-scale inference, trained weights)")
     serve_model.load_state_dict(fused_model.state_dict())
     with torch.autocast("cuda", dtype=env.compute_dtype):
         logits = serve_model.inference(data["image"])
         low = fused_model.inference(data["image"])
-    pred = logits.argmax(dim=-1)
     torch.cuda.synchronize()
-    expect = (BATCH, HW, HW, NUM_CLASS)
-    if tuple(logits.shape) != expect or logits.dtype != torch.float32:
-        raise AssertionError(f"served logits {tuple(logits.shape)} {logits.dtype}, "
-                             f"expected {expect} float32")
-    if not bool(torch.isfinite(logits).all()):
-        raise AssertionError("served logits are not finite")
-    up = resize_image(low, (HW, HW), "bilinear")
-    err = float((up - logits).abs().max())
-    scale = float(logits.abs().max())
-    log(f"served logits {tuple(logits.shape)}, prediction {tuple(pred.shape)}, "
-        f"classes predicted {int(pred.unique().numel())}, max |served - upsampled low-res| "
-        f"{err:.3e} vs max |logit| {scale:.3e} (tol {SERVE_RTOL:g} of it)")
+    check_served_against_low_res("ResNet", logits, low, (R_BATCH, HW, HW, R_CLASSES))
+
+
+# --------------------------------------------------------------- Swin path
+
+def build_swin_model(env, fused: bool) -> SegManaged:
+    backbone = get_backbone("swin_large")
+    model = SegManaged(num_class=S_CLASSES, backbone=backbone,
+                       head=SemanticFPN(backbone.endpoint_channels[-4:], filters=256),
+                       upsample_logits=not fused, fuse_upsample_loss=fused)
+    return model.to(env.device, memory_format=torch.channels_last)
+
+
+def phase_swin_train(env, data, profile: bool):
+    log("== phase 6: Swin-L + SemanticFPN train (window attention + fused loss kernels)")
+    model = build_swin_model(env, fused=True)
+    log(f"parameters: {sum(p.numel() for p in model.parameters()) / 1e6:.1f} M")
+    tx, _ = get_optimizer(param_tree(model), "sgd", learning_rate=0.01, train_steps=1000)
+    state = create_train_state(model, env.generator, tx)
+    step_fn = make_train_step(model.build_loss_fn(), compute_dtype=env.compute_dtype)
+    state, _, launches, step_ms = train_steps(state, step_fn, data, S_WARMUP, S_TIMED, S_BATCH)
+    steps = S_WARMUP + S_TIMED
+    expect_launches("Swin train", launches,
+                    {"upsample_ce_fwd": steps, "upsample_ce_bwd": steps,
+                     "window_attention_fwd": WA_LAUNCHES_PER_FORWARD * steps,
+                     "window_attention_bwd": WA_LAUNCHES_PER_FORWARD * steps})
+    if profile:
+        profile_steps(state, step_fn, data, "Swin-L + SemanticFPN train step", step_ms)
+    return model, launches
+
+
+KERNEL_CLASSES = (
+    ("window attention kernels", ("wa_fwd_kernel", "wa_bwd_kernel", "dbias_reduce_kernel")),
+    ("upsample + CE kernels", ("::fwd_kernel<", "::bwd_kernel<", "::reduce_kernel(")),
+    ("convolutions (cuDNN)", ("cudnn", "fprop", "wgrad", "dgrad", "conv2d", "convolve")),
+    ("matrix products (cuBLAS GEMM: qkv, proj, MLP, merge)",
+     ("nvjet", "gemm", "cutlass", "cublas", "xmma", "gemv", "s16816", "splitK")),
+    ("layer norm", ("layer_norm", "LayerNorm", "GammaBeta")),
+    ("reductions (BN moments, sums)", ("reduce", "welford", "Welford")),
+    ("SGD update (foreach)", ("multi_tensor", "foreach")),
+)
+
+
+def profile_steps(state, step_fn, data, title: str, wall_ms: float, steps: int = 3) -> None:
+    """Self device time by kernel class over ``steps`` steady steps.
+    ``wall_ms`` is the step's wall time measured without the profiler (the
+    profiler's own start-up and bookkeeping slow the host several times
+    over), so the busy share is device time per step over that."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            state, _ = step_fn(state, data)
+        torch.cuda.synchronize()
+    totals = {name: 0.0 for name, _ in KERNEL_CLASSES}
+    totals["elementwise, copies, casts, pads, rolls, gathers"] = 0.0
+    top = []
+    for evt in prof.key_averages():
+        us = getattr(evt, "self_device_time_total", None)
+        if us is None:
+            us = evt.self_cuda_time_total
+        if not us or evt.device_type.name != "CUDA":
+            continue
+        top.append((us, evt.key))
+        for name, needles in KERNEL_CLASSES:
+            if any(n in evt.key for n in needles):
+                totals[name] += us
+                break
+        else:
+            totals["elementwise, copies, casts, pads, rolls, gathers"] += us
+    device_ms = sum(totals.values()) / 1e3 / steps
+    if device_ms <= 0:
+        raise RuntimeError("torch.profiler recorded no device time")
+    log(f"-- profile of the {title} ({steps} steps; torch.profiler, self device time): "
+        f"{device_ms:.3f} ms/step device against {wall_ms:.3f} ms/step wall without the "
+        f"profiler, busy share {device_ms / wall_ms:.4f}")
+    for name, us in sorted(totals.items(), key=lambda kv: -kv[1]):
+        log(f"   {us / 1e3 / steps:10.3f} ms/step  {100 * us / 1e3 / steps / device_ms:6.2f}%  {name}")
+    log("   top kernels:")
+    for us, key in sorted(top, reverse=True)[:30]:
+        log(f"   {us / 1e3 / steps:10.3f} ms/step  {key[:110]}")
+
+
+def phase_swin_serve(env, data, trained):
+    log("== phase 7: Swin serve (multi-scale + flip + sliding window, trained weights)")
+    model = build_swin_model(env, fused=False)
+    model.load_state_dict(trained.state_dict())
+    image, label = data["image"][:S_SERVE_BATCH], data["label"][:S_SERVE_BATCH]
+    expect_shape = (S_SERVE_BATCH, HW, HW, S_CLASSES)
+    forwards = [0]
+    hook = model.register_forward_hook(lambda *_: forwards.__setitem__(0, forwards[0] + 1))
+
+    def serve(config=None):
+        forwards[0] = 0
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        with torch.autocast("cuda", dtype=env.compute_dtype):
+            logits = model.inference(image, config)
+        torch.cuda.synchronize()
+        return logits, forwards[0], read_launch_counts(), 1e3 * (time.perf_counter() - t0)
+
+    # single scale: against the training model's low-res logits, and against
+    # the same network on the kernels' plain versions
+    logits, calls, launches, _ = serve()
+    expect_launches("Swin serve (single scale)", launches,
+                    {"upsample_ce_fwd": 0, "upsample_ce_bwd": 0,
+                     "window_attention_fwd": WA_LAUNCHES_PER_FORWARD * calls,
+                     "window_attention_bwd": 0})
+    with torch.autocast("cuda", dtype=env.compute_dtype):
+        low = trained.inference(image)
+    check_served_against_low_res("Swin", logits, low, expect_shape)
+    kernel_fn = swin_module.window_attention
+    swin_module.window_attention = wa.window_attention_reference
+    try:
+        plain_logits, _, plain_launches, _ = serve()
+    finally:
+        swin_module.window_attention = kernel_fn
+    if any(plain_launches.values()):
+        raise AssertionError("the plain-version run launched a kernel")
+    err = float((logits - plain_logits).abs().max())
+    scale = float(plain_logits.abs().max())
+    log(f"eval logits, kernels vs plain versions in the same bf16 network: max abs diff "
+        f"{err:.3e} vs max |logit| {scale:.3e} (tol {KERNEL_VS_PLAIN_MODEL_RTOL:g} of it)")
+    if not err <= KERNEL_VS_PLAIN_MODEL_RTOL * scale:
+        raise AssertionError("Swin logits with the kernels disagree with the plain versions")
+
+    total = {k: 0 for k in launches}
+    results = {}
+    for window_batch in (1, 2):
+        config = SegModelInferenceConfig(scale_rates=(0.75, 1.0), flip=True,
+                                         sliding_window_crop_size=(384, 384),
+                                         sliding_window_batch=window_batch)
+        logits, calls, launches, ms = serve(config)
+        log(f"window batch {window_batch}: {calls} model calls, {ms:.1f} ms for "
+            f"{S_SERVE_BATCH} images (first call of these shapes: cuDNN autotuning included)")
+        expect_launches(f"Swin serve (multi-scale, window batch {window_batch})", launches,
+                        {"upsample_ce_fwd": 0, "upsample_ce_bwd": 0,
+                         "window_attention_fwd": WA_LAUNCHES_PER_FORWARD * calls,
+                         "window_attention_bwd": 0})
+        if calls == 0:
+            raise AssertionError("the serve path made no model call")
+        if tuple(logits.shape) != expect_shape or logits.dtype != torch.float32:
+            raise AssertionError(f"served logits {tuple(logits.shape)} {logits.dtype}, "
+                                 f"expected {expect_shape} float32")
+        if not bool(torch.isfinite(logits).all()):
+            raise AssertionError("served logits are not finite")
+        results[window_batch] = logits
+        total = {k: total[k] + v for k, v in launches.items()}
+    hook.remove()
+    err = float((results[1] - results[2]).abs().max())
+    scale = float(results[1].abs().max())
+    log(f"sliding window, window batch 1 vs 2: max abs diff {err:.3e} vs max |logit| "
+        f"{scale:.3e} (tol {SERVE_RTOL:g} of it)")
     if not err <= SERVE_RTOL * scale:
-        raise AssertionError("served logits disagree with the fused model's logits")
+        raise AssertionError("window batch 1 and 2 disagree")
+
+    metric = MeanIoU(S_CLASSES)
+    metric.update_state(label, results[1])
+    counted, pixels = metric.total_cm.sum(), label.numel()
+    log(f"confusion matrix counts {counted:.0f} of {pixels} pixels, mIoU {metric.result():.6f} "
+        "(random labels: about 1/(2C-1))")
+    if counted != pixels or not 0.0 <= metric.result() <= 1.0:
+        raise AssertionError("the confusion matrix does not count every pixel once")
+    return total
 
 
-def main() -> int:
+def main(argv: list[str]) -> int:
+    profile = "--profile" in argv
     phase_device()
     env = common_env_setup(EnvConfig(random_seed=0, mixed_precision=True, device="cuda"))
     # time cuDNN's conv algorithms once for the fixed training shapes; the
@@ -314,18 +727,32 @@ def main() -> int:
     device = env.device
     kernels = phase_kernels(device)
 
-    x = np.random.RandomState(0).rand(BATCH, HW, HW, 3).astype(np.float32)
-    y = np.random.RandomState(1).randint(0, NUM_CLASS, (BATCH, HW, HW)).astype(np.int32)
-    data = {"image": torch.tensor(x, device=device), "label": torch.tensor(y, device=device)}
+    data = synthetic_batch(device, R_BATCH, R_CLASSES)
+    fused_model, init_weights, init_dropout, first_loss, by_path = \
+        phase_resnet_train(env, data)
+    paths = {"resnet_train": by_path}
+    serve_model = phase_resnet_unfused(env, data, init_weights, init_dropout, first_loss)
+    phase_resnet_serve(env, data, fused_model, serve_model)
+    del fused_model, serve_model, init_weights, data
+    torch.cuda.empty_cache()
 
-    fused_model, init_weights, init_dropout, first_loss, launches = phase_train(env, data)
+    data = synthetic_batch(device, S_BATCH, S_CLASSES)
+    swin_model, paths["swin_train"] = phase_swin_train(env, data, profile)
+    paths["swin_serve"] = phase_swin_serve(env, data, swin_model)
+
     for k in kernels:
-        k["launches"] = launches["fwd" if k["name"].endswith("fwd") else "bwd"]
-    serve_model = phase_unfused(env, data, init_weights, init_dropout, first_loss)
-    phase_serve(env, data, fused_model, serve_model)
+        k["launches_by_path"] = {path: counts[k["name"]] for path, counts in paths.items()}
+        k["launches"] = sum(k["launches_by_path"].values())
+    on_path = {"resnet_train": ("upsample_ce_fwd", "upsample_ce_bwd"),
+               "swin_train": tuple(k["name"] for k in kernels),
+               "swin_serve": ("window_attention_fwd",)}
+    for path, names in on_path.items():
+        for name in names:
+            if paths[path][name] <= 0:
+                raise AssertionError(f"kernel {name} was never launched on the {path} path")
 
     log(json.dumps({"kernels": kernels}))
-    log(f"card: {card_line()}")
+    log(card_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)
@@ -333,4 +760,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -1,5 +1,6 @@
 """Backbone name registry + dispatch (counterpart of
-``iseg_tpu/backbones/registry.py``). Only the ResNet family is ported."""
+``iseg_tpu/backbones/registry.py``). The ResNet and Swin families are
+ported."""
 
 from __future__ import annotations
 
@@ -7,7 +8,7 @@ from typing import Callable, Optional
 
 _REGISTRY: dict[str, Callable] = {}
 
-_BUILTIN_MODULES = ("resnet",)
+_BUILTIN_MODULES = ("resnet", "swin")
 
 
 def register_backbone(name: str, constructor: Optional[Callable] = None):

@@ -16,6 +16,9 @@ module                flax leaf (layout)               torch tensor (layout)
                       params ``bias``                  ``bias``
 ``BatchNorm``         params ``scale``, ``bias``       ``weight``, ``bias``
                       batch_stats ``mean``, ``var``    ``running_mean``, ``running_var``
+``nn.LayerNorm``      params ``scale``, ``bias``       ``weight``, ``bias``
+``WindowAttention``   params ``relative_position_      the parameter of that name
+                      bias_table`` ``[(2ws-1)^2, H]``  (its index buffer is static)
 ====================  ===============================  ==========================
 
 :func:`load_flax` consumes every leaf on both sides or raises, so a
@@ -32,6 +35,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from iseg_tpu_torch.backbones.swin import WindowAttention
 from iseg_tpu_torch.nn.norm import BatchNorm
 
 _Leaf = tuple[str, str, torch.Tensor, Callable, Callable]
@@ -71,6 +75,12 @@ def _leaves(model: nn.Module) -> Iterator[_Leaf]:
             yield "params", prefix + "bias", m.bias, _same, _same
             yield "batch_stats", prefix + "mean", m.running_mean, _same, _same
             yield "batch_stats", prefix + "var", m.running_var, _same, _same
+        elif isinstance(m, nn.LayerNorm):
+            yield "params", prefix + "scale", m.weight, _same, _same
+            yield "params", prefix + "bias", m.bias, _same, _same
+        elif isinstance(m, WindowAttention):
+            yield ("params", prefix + "relative_position_bias_table",
+                   m.relative_position_bias_table, _same, _same)
         elif (any(True for _ in m.parameters(recurse=False))
               or any(True for _ in m.buffers(recurse=False))):
             raise TypeError(f"no flax mapping for {name or 'the root'} ({type(m).__name__})")

@@ -16,6 +16,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from iseg_tpu_torch.core.inference import inference_with_multi_scales
 from iseg_tpu_torch.losses.cross_entropy import cross_entropy_ignore_label
 from iseg_tpu_torch.nn.conv import Conv2d
 from iseg_tpu_torch.ops.kernels.upsample_ce import upsample_cross_entropy
@@ -24,8 +25,13 @@ from iseg_tpu_torch.ops.resize import resize_image
 
 @dataclasses.dataclass
 class SegModelInferenceConfig:
-    """Inference knobs. Only single-scale inference is ported so far, so
-    any field other than its default raises rather than being ignored."""
+    """Inference knobs, honoured by :meth:`SegBase.inference`.
+
+    ``sliding_window_batch`` folds that many windows into the batch dim per
+    model call; ``flip_in_batch`` folds each scale's (identity, flip) pair
+    into one forward at double batch; both leave the results unchanged.
+    ``use_cpu_cache`` and shape bucketing are not ported: a value other
+    than their default raises rather than being ignored."""
 
     scale_rates: Sequence[float] = (1.0,)
     flip: bool = False
@@ -38,33 +44,46 @@ class SegModelInferenceConfig:
     bucket_pad_value: float = 0.0
 
     def __post_init__(self):
-        for f in dataclasses.fields(self):
-            value = getattr(self, f.name)
-            if (tuple(value) if isinstance(value, list) else value) != f.default:
+        for name in ("use_cpu_cache", "bucket_multiple", "bucket_pad_value"):
+            if getattr(self, name) != type(self).__dataclass_fields__[name].default:
                 raise NotImplementedError(
-                    f"SegModelInferenceConfig.{f.name}: only single-scale inference "
-                    "is ported to iseg_tpu_torch yet")
+                    f"SegModelInferenceConfig.{name} is not ported to iseg_tpu_torch yet")
 
 
 class SegBase(nn.Module):
     """Base of segmentation models: ``forward(x)`` returns logits
     [N, H, W, num_class] or a list/dict of them (main output first)."""
 
-    @torch.no_grad()
-    def inference(self, x: torch.Tensor) -> torch.Tensor:
-        """Single-scale inference in eval mode (the training flag is
-        restored afterwards)."""
-        was_training = self.training
-        self.eval()
-        try:
-            out = self(x)
-        finally:
-            self.train(was_training)
+    def _main_output(self, x: torch.Tensor) -> torch.Tensor:
+        out = self(x)
         if isinstance(out, (list, tuple)):
             out = out[0]
         if isinstance(out, dict):
             out = out["output_0"]
         return out
+
+    @torch.no_grad()
+    def inference(self, x: torch.Tensor,
+                  config: Optional[SegModelInferenceConfig] = None) -> torch.Tensor:
+        """Inference in eval mode (the training flag is restored
+        afterwards): one forward without ``config``; with one, fp32 logits
+        at the input's resolution averaged over its scales and flips, each
+        pass direct or by sliding window. Multi-scale and sliding-window
+        passes need a model whose logits come at its input's resolution
+        (``upsample_logits=True``)."""
+        was_training = self.training
+        self.eval()
+        try:
+            if config is None:
+                return self._main_output(x)
+            return inference_with_multi_scales(
+                self._main_output, x, scale_rates=config.scale_rates, flip=config.flip,
+                flip_in_batch=config.flip_in_batch,
+                sliding_window_crop_size=config.sliding_window_crop_size,
+                sliding_window_stride_rate=config.sliding_window_stride_rate,
+                sliding_window_batch=config.sliding_window_batch)
+        finally:
+            self.train(was_training)
 
 
 def normalize_outputs(outputs) -> dict[str, torch.Tensor]:

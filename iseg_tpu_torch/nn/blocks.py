@@ -1,5 +1,5 @@
 """Reusable blocks (counterpart of ``iseg_tpu/nn/blocks.py``): dropout,
-image-level pooling, head-end block. NCHW in and out."""
+drop-path, image-level pooling, head-end block. NCHW in and out."""
 
 from __future__ import annotations
 
@@ -32,9 +32,30 @@ class Dropout(nn.Module):
         return torch.where(u < keep, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
+class DropPath(nn.Module):
+    """Per-sample stochastic depth: in training each sample of the batch
+    (dim 0) is kept with probability 1 - rate and scaled by 1/keep, or
+    zeroed whole. Identity in eval or at rate 0. The keep mask is drawn
+    from ``generator`` like :class:`Dropout`'s."""
+
+    def __init__(self, rate: float = 0.0, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.rate = rate
+        self.generator = generator
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.rate == 0.0:
+            return x
+        keep = 1.0 - self.rate
+        shape = (x.shape[0],) + (1,) * (x.ndim - 1)
+        u = torch.rand(shape, generator=self.generator, device=x.device)
+        return torch.where(u < keep, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
 def set_dropout_generator(module: nn.Module, generator: Optional[torch.Generator]) -> None:
+    """Set the generator of every :class:`Dropout` and :class:`DropPath`."""
     for m in module.modules():
-        if isinstance(m, Dropout):
+        if isinstance(m, (Dropout, DropPath)):
             m.generator = generator
 
 

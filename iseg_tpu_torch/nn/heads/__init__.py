@@ -1,5 +1,18 @@
 """Segmentation heads."""
 
 from iseg_tpu_torch.nn.heads.aspp import ASPP, AtrousSpatialPyramidPooling
+from iseg_tpu_torch.nn.heads.fpn import (
+    FeaturePyramidNetwork,
+    SemanticFPN,
+    SemanticPyramidNetworkBlockV1,
+    SemanticPyramidNetworkBlockV2,
+)
 
-__all__ = ["ASPP", "AtrousSpatialPyramidPooling"]
+__all__ = [
+    "ASPP",
+    "AtrousSpatialPyramidPooling",
+    "FeaturePyramidNetwork",
+    "SemanticFPN",
+    "SemanticPyramidNetworkBlockV1",
+    "SemanticPyramidNetworkBlockV2",
+]

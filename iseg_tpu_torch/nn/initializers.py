@@ -3,7 +3,8 @@
 flax's ``nn.Conv``/``nn.Dense`` draw their kernel from ``lecun_normal``
 (variance scaling 1.0, fan-in, truncated normal at two standard
 deviations) and start their bias at zero; flax's BatchNorm starts at
-scale 1, bias 0, mean 0, var 1. :func:`initialize` does the same for a
+scale 1, bias 0, mean 0, var 1, its LayerNorm at scale 1, bias 0; Swin's
+relative-position-bias table is normal with std 0.02. :func:`initialize` does the same for a
 whole module tree from an explicit ``torch.Generator``. The values are
 drawn on the CPU and copied to the parameters' device, so a seed gives
 the same weights on every device. (The numbers differ from JAX's for the
@@ -18,6 +19,7 @@ import math
 import torch
 from torch import nn
 
+from iseg_tpu_torch.backbones.swin import WindowAttention
 from iseg_tpu_torch.nn.norm import BatchNorm
 
 # std of a unit normal truncated to [-2, 2] (jax.nn.initializers.variance_scaling)
@@ -52,6 +54,12 @@ def initialize(module: nn.Module, generator: torch.Generator) -> nn.Module:
             m.bias.zero_()
             m.running_mean.zero_()
             m.running_var.fill_(1.0)
+        elif isinstance(m, nn.LayerNorm):
+            m.weight.fill_(1.0)
+            m.bias.zero_()
+        elif isinstance(m, WindowAttention):
+            table = m.relative_position_bias_table
+            table.copy_(torch.empty(table.shape).normal_(0.0, 0.02, generator=generator))
         elif any(True for _ in m.parameters(recurse=False)):
             raise TypeError(f"no initialization rule for {name or 'the root'} "
                             f"({type(m).__name__})")

@@ -9,6 +9,7 @@ the directory. Nothing here runs at import time.
 
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
 import dataclasses
 import hashlib
@@ -76,3 +77,10 @@ def load(source: str) -> Built:
     built = Built(ctypes.CDLL(str(out)), out, compiled, seconds, log)
     _LOADED[source] = built
     return built
+
+
+def load_all(sources: list[str]) -> list[Built]:
+    """:func:`load` every source, one nvcc process per source, all started
+    together (a build's time is then the slowest source's, not the sum)."""
+    with concurrent.futures.ThreadPoolExecutor(max_workers=max(1, len(sources))) as pool:
+        return list(pool.map(load, sources))

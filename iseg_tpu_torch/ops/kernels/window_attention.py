@@ -1,0 +1,209 @@
+"""Fused window attention (Swin): softmax(q k^T * scale + bias + mask) v.
+
+Counterpart of ``iseg_tpu/ops/pallas/window_attention.py``, with its
+signature and layout: ``window_attention(q, k, v, bias, mask, scale)``,
+q/k/v ``[bnw, H, N, D]``, ``bias [H, N, N]`` (learned, gets a gradient),
+``mask [nW, N, N]`` additive, chosen per window as ``window_index % nW``
+(zeros ``[1, N, N]`` when unshifted). On CUDA tensors the forward and the
+backward are the hand-written kernels of
+``iseg_tpu_torch/csrc/window_attention.cu`` (their note says what bounds
+them on the H100); on CPU tensors the plain PyTorch version
+:func:`window_attention_reference` and autograd compute the same function.
+A CUDA tensor never falls back to the plain version: a wrong dtype, shape
+or layout, an ``N``/``D`` a block cannot hold, or a failed launch raises.
+
+Layout: the kernels address q, k, v and the incoming gradient through
+their strides (the head dim must have stride 1), so views of a packed
+``[bnw, N, 3, H, D]`` qkv projection are taken as they are. The output and
+dq/dk/dv come back token-major (``[bnw, H, N, D]`` views of
+``[bnw, N, H, D]`` memory), so the caller's merge of the heads is a view.
+
+Types: q, k, v in float32 or bfloat16 (all alike); bias and mask float32;
+everything is computed in fp32; out, dq, dk, dv in q's dtype, dbias fp32.
+Every output, dbias included, is bitwise repeatable: dbias is summed over
+chunks of windows in a fixed order, with no atomics.
+
+``LAUNCH_COUNTS`` counts kernel launches (``"fwd"``, ``"bwd"``): one per
+launch of each kernel, nowhere else.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+LAUNCH_COUNTS = {"fwd": 0, "bwd": 0}
+
+SOURCE = "window_attention.cu"
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_DOES_NOT_FIT = -1
+
+
+def reset_launch_counts() -> None:
+    for k in LAUNCH_COUNTS:
+        LAUNCH_COUNTS[k] = 0
+
+
+def build():
+    """Compile (if needed) and load the CUDA library; returns the
+    :class:`~iseg_tpu_torch.ops.kernels._build.Built` record."""
+    from iseg_tpu_torch.ops.kernels import _build
+
+    built = _build.load(SOURCE)
+    lib = built.lib
+    if not getattr(lib, "_iseg_bound", False):
+        ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        strides = ctypes.POINTER(ctypes.c_longlong)
+        lib.window_attention_bwd_chunks.argtypes = [i32, i32]
+        lib.window_attention_bwd_chunks.restype = i32
+        lib.window_attention_fwd.argtypes = [ptr] * 6 + [i32] * 6 + [f32, strides, ptr]
+        lib.window_attention_fwd.restype = i32
+        lib.window_attention_bwd.argtypes = [ptr] * 11 + [i32] * 6 + [f32, strides, ptr]
+        lib.window_attention_bwd.restype = i32
+        lib._iseg_bound = True
+    return built
+
+
+def _check_cuda_inputs(q, k, v, bias, mask, dout=None) -> None:
+    named = {"q": q, "k": k, "v": v}
+    if dout is not None:
+        named["dout"] = dout
+    if q.ndim != 4:
+        raise ValueError(f"window_attention kernel: q {tuple(q.shape)} must be [bnw,H,N,D]")
+    bnw, h, n, d = q.shape
+    for name, t in named.items():
+        if t.device != q.device or q.device.type != "cuda":
+            raise ValueError(f"window_attention kernel: {name} on {t.device}; all "
+                             "tensors must be on the same CUDA device")
+        if t.dtype != q.dtype or t.dtype not in _DTYPE_CODES:
+            raise TypeError(f"window_attention kernel takes float32 or bfloat16 q, k, v "
+                            f"of one dtype, got {name} {t.dtype} (q {q.dtype})")
+        if tuple(t.shape) != (bnw, h, n, d):
+            raise ValueError(f"window_attention kernel: {name} {tuple(t.shape)} must "
+                             f"have q's shape {(bnw, h, n, d)}")
+        if d > 1 and t.stride(3) != 1:
+            raise ValueError(f"window_attention kernel: {name}'s head dim must have "
+                             f"stride 1, got strides {t.stride()}")
+    for name, t in (("bias", bias), ("mask", mask)):
+        if t.device != q.device:
+            raise ValueError(f"window_attention kernel: {name} on {t.device}, q on {q.device}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"window_attention kernel takes float32 {name}, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"window_attention kernel takes a contiguous {name}")
+    if tuple(bias.shape) != (h, n, n):
+        raise ValueError(f"window_attention kernel: bias {tuple(bias.shape)} must be "
+                         f"[H,N,N] = {(h, n, n)}")
+    if mask.ndim != 3 or mask.shape[0] < 1 or tuple(mask.shape[1:]) != (n, n):
+        raise ValueError(f"window_attention kernel: mask {tuple(mask.shape)} must be "
+                         f"[nW,N,N] with nW >= 1 and N = {n}")
+    if bnw * h >= 2 ** 31 or max(t.numel() for t in named.values()) >= 2 ** 62:
+        raise ValueError("window_attention kernel: too many (window, head) pairs")
+
+
+def _token_major_empty(q: torch.Tensor) -> torch.Tensor:
+    """Uninitialized [bnw, H, N, D] view of [bnw, N, H, D] memory."""
+    bnw, h, n, d = q.shape
+    return torch.empty((bnw, n, h, d), dtype=q.dtype, device=q.device).permute(0, 2, 1, 3)
+
+
+def _strides(*tensors):
+    values = [s for t in tensors for s in t.stride()[:3]]
+    return (ctypes.c_longlong * len(values))(*values)
+
+
+def _raise_on(err: int, what: str, q: torch.Tensor) -> None:
+    if err == _DOES_NOT_FIT:
+        raise ValueError(f"window_attention {what} kernel: N={q.shape[2]}, D={q.shape[3]} "
+                         "do not fit one thread block's shared memory and registers")
+    if err != 0:
+        raise RuntimeError(f"window_attention {what} kernel launch failed: CUDA error {err}")
+
+
+def _launch_fwd(q, k, v, bias, mask, scale: float) -> torch.Tensor:
+    _check_cuda_inputs(q, k, v, bias, mask)
+    out = _token_major_empty(q)
+    if q.numel() == 0:
+        return out
+    bnw, h, n, d = q.shape
+    lib = build().lib
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = lib.window_attention_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), mask.data_ptr(),
+        out.data_ptr(), _DTYPE_CODES[q.dtype], bnw, h, n, d, mask.shape[0], float(scale),
+        _strides(q, k, v, out), stream)
+    _raise_on(err, "forward", q)
+    LAUNCH_COUNTS["fwd"] += 1
+    return out
+
+
+def _launch_bwd(q, k, v, bias, mask, dout, scale: float):
+    """(dq, dk, dv, dbias) of ``sum(out * dout)``."""
+    _check_cuda_inputs(q, k, v, bias, mask, dout)
+    dq, dk, dv = (_token_major_empty(q) for _ in range(3))
+    if q.numel() == 0:
+        return dq, dk, dv, torch.zeros_like(bias)
+    bnw, h, n, d = q.shape
+    dbias = torch.empty_like(bias)
+    lib = build().lib
+    chunks = lib.window_attention_bwd_chunks(bnw, h)
+    partial = torch.empty((chunks, h, n, n), dtype=torch.float32, device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = lib.window_attention_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), bias.data_ptr(),
+        mask.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), partial.data_ptr(),
+        dbias.data_ptr(), _DTYPE_CODES[q.dtype], bnw, h, n, d, mask.shape[0], float(scale),
+        _strides(q, k, v, dout, dq, dk, dv), stream)
+    _raise_on(err, "backward", q)
+    LAUNCH_COUNTS["bwd"] += 1
+    return dq, dk, dv, dbias
+
+
+class _WindowAttention(torch.autograd.Function):
+    """Forward and backward through the CUDA kernels."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias, mask, scale):
+        ctx.save_for_backward(q, k, v, bias, mask)
+        ctx.scale = scale
+        return _launch_fwd(q, k, v, bias, mask, scale)
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, bias, mask = ctx.saved_tensors
+        if dout.shape[3] > 1 and dout.stride(3) != 1:
+            dout = dout.contiguous()
+        dq, dk, dv, dbias = _launch_bwd(q, k, v, bias, mask, dout, ctx.scale)
+        return dq, dk, dv, dbias, None, None
+
+
+def window_attention_reference(q, k, v, bias, mask, scale):
+    """Plain PyTorch version (same ``[bnw, H, N, D]`` layout): einsum,
+    softmax, einsum, fp32 inside (float64 for float64 inputs), result in
+    q's dtype."""
+    f = torch.promote_types(q.dtype, torch.float32)
+    logits = torch.einsum("bhqd,bhkd->bhqk", q.to(f), k.to(f)) * scale
+    mask_b = mask[torch.arange(q.shape[0], device=mask.device) % mask.shape[0]]
+    logits = logits + bias[None].to(f) + mask_b[:, None].to(f)
+    p = torch.softmax(logits, dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", p, v.to(f)).to(q.dtype)
+
+
+def window_attention(q, k, v, bias, mask, scale):
+    """Fused window attention.
+
+    Args:
+      q, k, v: ``[bnw, H, N, D]`` (window batch, heads, tokens, head dim),
+        float32 or bfloat16.
+      bias: ``[H, N, N]`` float32 relative-position bias (gets a gradient).
+      mask: ``[nW, N, N]`` float32 additive shift mask, selected per window
+        as ``window_index % nW`` (zeros ``[1, N, N]`` when unshifted).
+      scale: attention scale (1/sqrt(D)), a Python float.
+    Returns ``[bnw, H, N, D]`` in q's dtype.
+    """
+    if q.device.type == "cpu":
+        return window_attention_reference(q, k, v, bias, mask, scale)
+    if q.device.type == "cuda":
+        return _WindowAttention.apply(q, k, v, bias, mask, float(scale))
+    raise ValueError(f"window_attention: no kernel for device {q.device}")

@@ -17,6 +17,7 @@ import pytest
 import torch
 
 from iseg_tpu_torch.ops.kernels import upsample_ce as uce
+from iseg_tpu_torch.ops.kernels import window_attention as wa
 
 torch.set_num_threads(1)
 
@@ -111,3 +112,92 @@ def test_cuda_upsample_ce_rejects_wrong_inputs(cuda_device):
         uce.upsample_cross_entropy(src.transpose(1, 2), labels)
     with pytest.raises(ValueError):
         uce.upsample_cross_entropy(src, labels.cpu())
+
+
+# ------------------------------------------------------------ window attention
+
+def _wa_inputs(device, bnw, h, n, d, nw, dtype, seed=0, packed=False):
+    rng = np.random.RandomState(seed)
+    if packed:  # views of one [bnw, N, 3, H, D] projection, as the Swin block gives
+        qkv = torch.tensor(rng.randn(bnw, n, 3, h, d).astype(np.float32), device=device)
+        q, k, v = (t.permute(0, 2, 1, 3) for t in qkv.to(dtype).unbind(2))
+    else:
+        q, k, v = (torch.tensor(rng.randn(bnw, h, n, d).astype(np.float32),
+                                device=device).to(dtype) for _ in range(3))
+    bias = torch.tensor((rng.randn(h, n, n) * 0.1).astype(np.float32), device=device)
+    if nw == 1:
+        mask = torch.zeros((1, n, n), device=device)
+    else:
+        mask = torch.tensor(np.where(rng.rand(nw, n, n) > 0.7, -100.0, 0.0)
+                            .astype(np.float32), device=device)
+    dout = torch.tensor(rng.randn(bnw, h, n, d).astype(np.float32), device=device).to(dtype)
+    return q, k, v, bias, mask, dout
+
+
+def _wa_run(fn, q, k, v, bias, mask, dout, scale):
+    # detach() keeps a view's strides, so packed inputs stay packed
+    q, k, v = (t.detach().requires_grad_(True) for t in (q, k, v))
+    bias = bias.detach().clone().requires_grad_(True)
+    out = fn(q, k, v, bias, mask, scale)
+    grads = torch.autograd.grad(out, (q, k, v, bias), dout)
+    torch.cuda.synchronize()
+    return [t.detach().float().cpu().numpy() for t in (out, *grads)]
+
+
+WA_SHAPES = {
+    # (bnw, H, N, D, nW)
+    "swin_l_stage3_shifted": (72, 48, 49, 32, 9),
+    "swin_l_stage2_unshifted": (200, 24, 49, 32, 1),
+    "small_shifted": (6, 3, 49, 32, 3),
+    "odd_n_d": (5, 2, 20, 24, 1),
+    "ragged_tiles_n10_d30": (3, 2, 10, 30, 2),
+    "window12_n144": (4, 4, 144, 32, 2),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("packed", [False, True], ids=["contiguous", "packed_qkv"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", sorted(WA_SHAPES))
+def test_cuda_window_attention_matches_plain_version(cuda_device, shape, dtype, packed):
+    bnw, h, n, d, nw = WA_SHAPES[shape]
+    args = _wa_inputs(cuda_device, bnw, h, n, d, nw, dtype, packed=packed)
+    scale = 1.0 / np.sqrt(d)
+    wa.reset_launch_counts()
+    got = _wa_run(wa.window_attention, *args, scale)
+    assert wa.LAUNCH_COUNTS == {"fwd": 1, "bwd": 1}
+    want = _wa_run(wa.window_attention_reference, *args, scale)
+    atol = 2e-5 if dtype == torch.float32 else 2e-2
+    for name, a, b in zip(("out", "dq", "dk", "dv"), got, want):
+        np.testing.assert_allclose(a, b, rtol=atol, atol=atol, err_msg=name)
+    db_tol = (2e-5 if dtype == torch.float32 else 1e-3) * max(1.0, np.abs(want[4]).max())
+    np.testing.assert_allclose(got[4], want[4], rtol=0, atol=db_tol, err_msg="dbias")
+
+
+@pytest.mark.cuda
+def test_cuda_window_attention_is_deterministic(cuda_device):
+    args = _wa_inputs(cuda_device, 200, 24, 49, 32, 25, torch.bfloat16)
+    first = _wa_run(wa.window_attention, *args, 0.17)
+    second = _wa_run(wa.window_attention, *args, 0.17)
+    for a, b in zip(first, second):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.cuda
+def test_cuda_window_attention_rejects_wrong_inputs(cuda_device):
+    q, k, v, bias, mask, _ = _wa_inputs(cuda_device, 4, 2, 49, 32, 1, torch.float32)
+    with pytest.raises(TypeError):
+        wa.window_attention(q.half(), k.half(), v.half(), bias, mask, 1.0)
+    with pytest.raises(TypeError):
+        wa.window_attention(q, k, v, bias.bfloat16(), mask, 1.0)
+    with pytest.raises(ValueError):
+        wa.window_attention(q.transpose(2, 3), k.transpose(2, 3), v.transpose(2, 3),
+                            bias, mask, 1.0)
+    with pytest.raises(ValueError):
+        wa.window_attention(q, k, v, bias[:1], mask, 1.0)
+    with pytest.raises(ValueError):
+        wa.window_attention(q, k.cpu(), v, bias, mask, 1.0)
+    big = torch.zeros((1, 1, 400, 32), device=cuda_device)
+    with pytest.raises(ValueError, match="do not fit"):
+        wa.window_attention(big, big, big, torch.zeros((1, 400, 400), device=cuda_device),
+                            torch.zeros((1, 400, 400), device=cuda_device), 1.0)

@@ -108,11 +108,16 @@ def test_torch_cross_entropy_unported_options_raise():
 
 @pytest.mark.parametrize("field,value", [
     ("scale_rates", (0.75, 1.0)), ("flip", True), ("sliding_window_crop_size", (8, 8)),
-    ("bucket_multiple", 32),
+    ("bucket_multiple", 32), ("use_cpu_cache", True), ("bucket_pad_value", 1.0),
 ])
 def test_torch_inference_config_unported_fields_raise(field, value):
-    # only single-scale inference is ported: a knob that would be ignored raises
+    # multi-scale, flip and the sliding window are ported and accepted; the
+    # host-offloaded accumulator and shape bucketing are not: a knob that
+    # would be ignored raises
     TSegModelInferenceConfig(scale_rates=[1.0])  # the default, given as a list
+    if field in ("scale_rates", "flip", "sliding_window_crop_size"):
+        assert getattr(TSegModelInferenceConfig(**{field: value}), field) == value
+        return
     with pytest.raises(NotImplementedError, match=field):
         TSegModelInferenceConfig(**{field: value})
 

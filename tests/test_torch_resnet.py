@@ -91,7 +91,9 @@ def test_torch_resnet_train_endpoints_and_stats_match_jax(name):
 
 def test_torch_registry_has_the_jax_resnets():
     jax_resnets = {n for n in jax_list_backbones() if n.startswith("resnet")}
-    assert set(list_backbones()) == jax_resnets
+    assert {n for n in list_backbones() if n.startswith("resnet")} == jax_resnets
+    # every ported name is one of the JAX package's
+    assert set(list_backbones()) <= set(jax_list_backbones())
 
 
 def test_torch_get_backbone_resnet50_os16_layout():

@@ -1,0 +1,128 @@
+"""The port's window attention against ``iseg_tpu``'s.
+
+The same numpy-seeded inputs (N=49, D=32, ``bnw=6, H=3``, ``nW`` 1 and 3)
+go through the JAX Pallas kernel in interpret mode, the JAX plain
+reference, and the port's ``window_attention`` on CPU tensors (its plain
+version): the output and the gradients of q, k, v and bias. fp32, rtol and
+atol 1e-5 against the JAX reference (the same arithmetic in another
+summation order; values of order 1), and the Pallas kernel within the
+tolerance of its own tests (2e-5 forward, 3e-4 gradients). The CUDA kernel
+against the plain version is the ``cuda``-marked case, which skips without
+a card (more of them in ``tests/test_torch_cuda_kernels.py``).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from iseg_tpu.ops.pallas.window_attention import window_attention as j_window_attention
+from iseg_tpu.ops.pallas.window_attention import (
+    window_attention_reference as j_window_attention_reference,
+)
+from iseg_tpu_torch.ops.kernels import window_attention as twa
+
+torch.set_num_threads(1)
+
+N, D = 49, 32
+SCALE = 1.0 / np.sqrt(D)
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA is not available)")
+    return torch.device("cuda")
+
+
+def _inputs(bnw=6, h=3, nw=1, seed=0):
+    rng = np.random.RandomState(seed)
+    q, k, v = (rng.randn(bnw, h, N, D).astype(np.float32) for _ in range(3))
+    bias = (rng.randn(h, N, N) * 0.1).astype(np.float32)
+    if nw == 1:
+        mask = np.zeros((1, N, N), np.float32)
+    else:
+        mask = np.where(rng.rand(nw, N, N) > 0.7, -100.0, 0.0).astype(np.float32)
+    dout = rng.randn(bnw, h, N, D).astype(np.float32)
+    return q, k, v, bias, mask, dout
+
+
+def _jax_out_and_grads(fn, q, k, v, bias, mask, dout):
+    args = [jnp.asarray(a) for a in (q, k, v, bias)]
+    out, vjp = jax.vjp(lambda q, k, v, b: fn(q, k, v, b, jnp.asarray(mask)), *args)
+    return [np.asarray(a) for a in (out, *vjp(jnp.asarray(dout)))]
+
+
+def _torch_out_and_grads(fn, q, k, v, bias, mask, dout, device="cpu"):
+    q, k, v, bias = (torch.tensor(a, device=device, requires_grad=True)
+                     for a in (q, k, v, bias))
+    out = fn(q, k, v, bias, torch.tensor(mask, device=device), SCALE)
+    grads = torch.autograd.grad(out, (q, k, v, bias), torch.tensor(dout, device=device))
+    return [a.detach().cpu().numpy() for a in (out, *grads)]
+
+
+NAMES = ("out", "dq", "dk", "dv", "dbias")
+
+
+@pytest.mark.parametrize("nw", [1, 3])
+def test_torch_window_attention_matches_jax_reference_and_pallas(nw):
+    data = _inputs(nw=nw, seed=nw)
+    ours = _torch_out_and_grads(twa.window_attention, *data)
+    ref = _jax_out_and_grads(
+        lambda q, k, v, b, m: j_window_attention_reference(q, k, v, b, m, SCALE), *data)
+    pallas = _jax_out_and_grads(
+        lambda q, k, v, b, m: j_window_attention(q, k, v, b, m, SCALE, True), *data)
+    for name, o, r, p in zip(NAMES, ours, ref, pallas):
+        assert o.shape == r.shape and o.dtype == np.float32
+        np.testing.assert_allclose(o, r, rtol=1e-5, atol=1e-5, err_msg=f"{name} vs reference")
+        tol = 2e-5 if name == "out" else 3e-4
+        np.testing.assert_allclose(o, p, rtol=tol, atol=tol, err_msg=f"{name} vs pallas")
+
+
+def test_torch_window_attention_cpu_is_the_plain_version():
+    data = _inputs(nw=3)
+    twa.reset_launch_counts()
+    ours = _torch_out_and_grads(twa.window_attention, *data)
+    plain = _torch_out_and_grads(twa.window_attention_reference, *data)
+    for o, p in zip(ours, plain):
+        np.testing.assert_array_equal(o, p)
+    assert twa.LAUNCH_COUNTS == {"fwd": 0, "bwd": 0}  # no kernel launch on the CPU
+
+
+def test_torch_window_attention_mask_selected_per_window():
+    """Window i gets mask i % nW: where all but the first key are masked,
+    every output row is v's first row."""
+    q, k, v, bias, _, _ = _inputs(bnw=4, h=1)
+    mask = np.stack([np.zeros((N, N)),
+                     np.broadcast_to(np.where(np.arange(N)[None] > 0, -1e9, 0.0), (N, N))])
+    out = twa.window_attention(*(torch.tensor(a) for a in (q, k, v, bias)),
+                               torch.tensor(mask.astype(np.float32)), 1.0).numpy()
+    for w in (1, 3):
+        np.testing.assert_allclose(out[w, 0], np.broadcast_to(v[w, 0, 0], (N, D)),
+                                   rtol=1e-5, atol=1e-5)
+    assert np.abs(out[0, 0] - v[0, 0, 0]).max() > 0.1
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float64])
+def test_torch_window_attention_reference_dtypes(dtype):
+    q, k, v, bias, mask, _ = (torch.tensor(a) for a in _inputs(bnw=2, h=2, nw=2))
+    want = twa.window_attention_reference(q, k, v, bias, mask, SCALE)
+    got = twa.window_attention(q.to(dtype), k.to(dtype), v.to(dtype), bias, mask, SCALE)
+    assert got.dtype == dtype
+    # bf16 keeps 8 bits of q, k, v and of the result; float64 inputs are
+    # computed in float64, not rounded to fp32
+    tol = 3e-2 if dtype == torch.bfloat16 else 1e-6
+    np.testing.assert_allclose(got.double().numpy(), want.double().numpy(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nw", [1, 3])
+def test_torch_window_attention_cuda_kernel_matches_plain_version(cuda_device, nw):
+    data = _inputs(nw=nw)
+    twa.reset_launch_counts()
+    got = _torch_out_and_grads(twa.window_attention, *data, device=cuda_device)
+    assert twa.LAUNCH_COUNTS == {"fwd": 1, "bwd": 1}
+    want = _torch_out_and_grads(twa.window_attention_reference, *data, device=cuda_device)
+    for name, a, b in zip(NAMES, got, want):
+        np.testing.assert_allclose(a, b, rtol=2e-5, atol=2e-5, err_msg=name)
