@@ -2,9 +2,9 @@
 """Smoke run of the PyTorch port (``iseg_tpu_torch``) on one NVIDIA GPU.
 
     python3 chip_smoke.py            # every phase below
-    python3 chip_smoke.py --profile  # and a torch.profiler table of the Swin step
+    python3 chip_smoke.py --profile  # and torch.profiler tables of the Swin and InternImage steps
 
-Drives the port's two main paths at full width, with random weights from
+Drives the port's three main paths at full width, with random weights from
 seed 0 and one fixed synthetic batch each:
 
 * ResNet: bench.py's headline training configuration, ResNet-50 (output
@@ -12,22 +12,30 @@ seed 0 and one fixed synthetic batch each:
   512x512, batch 16;
 * Swin: ``swin_large`` + ``SemanticFPN(256)``, 19 classes, 512x512, batch 8,
   default drop-path rate, then served multi-scale + flip + sliding window;
+* InternImage: ``intern_image_tiny`` (DCNv3, ``dcn_sampling="auto"``, no
+  remat) + ASPP(256), 19 classes, 512x512, batch 8, default drop-path rate,
+  then served the same way;
 
-both under bf16 autocast with fp32 params, SGD (momentum 0.9, poly decay),
-the loss taken by the fused upsample + CE CUDA kernels, and Swin's window
-attention by the window-attention CUDA kernels. Phases, in order; any
-failure raises and the script exits non-zero:
+all under bf16 autocast with fp32 params, SGD (momentum 0.9, poly decay),
+the loss taken by the fused upsample + CE CUDA kernels, Swin's window
+attention by the window-attention CUDA kernels and DCNv3's sampling by the
+dense-local CUDA kernels. Phases, in order; any failure raises and the
+script exits non-zero:
 
 1. device: require CUDA; print the card, its power limit, the torch and
-   CUDA versions; build both kernel sources of ``iseg_tpu_torch/csrc`` in a
+   CUDA versions; build the three kernel sources of ``iseg_tpu_torch/csrc`` in a
    clean build directory (one nvcc each, started together) and print the
    build times and ptxas reports;
 2. kernels vs their plain versions at the main paths' shapes, with median
    CUDA-event times, each kernel's bound on this card, and for window
    attention ``F.scaled_dot_product_attention`` as a yardstick (timed here,
-   used nowhere in the port): upsample + CE at [16,32,32,21] -> [16,512,512]
-   and [8,128,128,19] -> [8,512,512]; window attention forward and backward
-   at Swin-L's four stage shapes, shifted and unshifted, f32 and bf16;
+   used nowhere in the port): upsample + CE at [16,32,32,21] -> [16,512,512],
+   [8,128,128,19] -> [8,512,512] and [8,16,16,19] -> [8,512,512]; window
+   attention forward and backward at Swin-L's four stage shapes, shifted and
+   unshifted, f32 and bf16; dense-local sampling forward and all four
+   gradients at InternImage-T's four stage shapes, in f32 and in the
+   autocast type mix (bf16 values on a transposed view, fp32 offsets, bf16
+   modulation), with offsets drawn beyond the clamp;
 3. ResNet train: 2 warm-up + 3 timed fused steps; losses finite, exactly
    one forward and one backward loss-kernel launch per step;
 4. ResNet fused vs unfused: one unfused step from the same initial weights
@@ -42,9 +50,15 @@ failure raises and the script exits non-zero:
    (0.75, 1.0) + flip + sliding window (384x384 crops) gives finite fp32
    [2,512,512,19] logits; window batch 1 and 2 agree; confusion matrix and
    mIoU against the synthetic labels count every pixel; forward launches
-   are 24 per model call, and no backward kernel is launched.
+   are 24 per model call, and no backward kernel is launched;
+8. InternImage train: 2 warm-up + 5 timed steps; losses finite and falling
+   on the fixed batch; per step exactly 30 dense-local forward and 30
+   backward launches and 1 + 1 loss kernel launches; ms/step, img/s, peak
+   memory;
+9. InternImage serve, batch 2, trained weights: as phase 7, with 30
+   dense-local forward launches per model call and no backward launch.
 
-The launch counters are set to 0 just before each main path (3, 6, 7) and
+The launch counters are set to 0 just before each main path (3, 6, 7, 8, 9) and
 read just after; a kernel of a path that was launched no time there fails
 the run. Third line from the end: a JSON object with one entry per kernel;
 then the card's name and power limit; the last line is
@@ -73,9 +87,11 @@ from iseg_tpu_torch.core.model import SegManaged, SegModelInferenceConfig
 from iseg_tpu_torch.core.optimizer import get_optimizer
 from iseg_tpu_torch.core.train import create_train_state, make_train_step
 from iseg_tpu_torch.metrics import MeanIoU
+from iseg_tpu_torch.nn import dcn as dcn_module
 from iseg_tpu_torch.nn.blocks import Dropout, set_dropout_generator
 from iseg_tpu_torch.nn.heads import ASPP, SemanticFPN
 from iseg_tpu_torch.ops.kernels import _build
+from iseg_tpu_torch.ops.kernels import deform_local as dl
 from iseg_tpu_torch.ops.kernels import upsample_ce as uce
 from iseg_tpu_torch.ops.kernels import window_attention as wa
 from iseg_tpu_torch.ops.resize import resize_image
@@ -92,6 +108,14 @@ WINDOW, HEAD_DIM = 7, 32
 WA_STAGES = (("stage0", 2888, 6, 361, 2), ("stage1", 800, 12, 100, 2),
              ("stage2", 200, 24, 25, 18), ("stage3", 72, 48, 9, 2))
 WA_LAUNCHES_PER_FORWARD = sum(s[4] for s in WA_STAGES)  # 24
+# InternImage path
+I_BATCH, I_CLASSES, I_OS = 8, 19, 32
+I_WARMUP, I_TIMED, I_SERVE_BATCH = 2, 5, 2
+DL_KERNEL, DL_MAX_OFFSET = 3, 2
+# InternImage-T at 512x512, batch 8: (stage, map side, channels, groups, blocks)
+DL_STAGES = (("stage0", 128, 64, 4, 4), ("stage1", 64, 128, 8, 4),
+             ("stage2", 32, 256, 16, 18), ("stage3", 16, 512, 32, 4))
+DL_LAUNCHES_PER_FORWARD = sum(s[4] for s in DL_STAGES)  # 30
 
 # Published peaks of one H100 SXM at its 700 W limit: HBM3 bytes/s, and
 # FLOP/s for fp32 inputs (outside the tensor cores) and bf16 inputs
@@ -106,6 +130,11 @@ UCE_TOL = {torch.float32: (1e-5, 1e-4), torch.bfloat16: (1e-5, 1e-2)}
 # q/k/v both compute in fp32 from the same bf16 values and round out/dq/dk/dv
 # to bf16 (one ulp is 2^-8 of the value); dbias stays fp32 on both sides
 WA_TOL = {torch.float32: dict(out=1e-4, dbias=1e-4), torch.bfloat16: dict(out=1e-2, dbias=1e-3)}
+# dense-local kernel vs plain, max abs error as a share of max(1, max |plain|):
+# in f32 both sum the same products in another order; in the autocast mix both
+# compute in fp32 from the same bf16 values and round out, d_x and d_modulation
+# to bf16 (one ulp is 2^-8 of the value)
+DL_TOL = {"f32": 1e-4, "mixed": 1e-2}
 # fused vs unfused first-step loss, relative. Both run the same bf16 network
 # with the same cuDNN algorithms (the autotuner's choices are cached per
 # shape); they differ only in the loss: the unfused path upsamples bf16
@@ -170,14 +199,14 @@ def phase_device():
         f"device {torch.cuda.get_device_name(0)}, count {torch.cuda.device_count()}")
     shutil.rmtree(_build.BUILD_DIR, ignore_errors=True)
     t0 = time.perf_counter()
-    _build.load_all([uce.SOURCE, wa.SOURCE])
+    _build.load_all([uce.SOURCE, wa.SOURCE, dl.SOURCE])
     wall = time.perf_counter() - t0
-    for built in (uce.build(), wa.build()):
+    for built in (uce.build(), wa.build(), dl.build()):
         if not built.compiled:
             raise RuntimeError(f"{built.path.name} was not compiled from a clean build directory")
         log(f"built {built.path.name} in {built.seconds:.2f} s (nvcc, sm_90a)")
         log(built.log.strip())
-    log(f"both sources built in parallel in {wall:.2f} s")
+    log(f"all sources built in parallel in {wall:.2f} s")
 
 
 # ----------------------------------------------------------------- phase 2
@@ -354,10 +383,130 @@ def check_window_attention(device, stage, bnw, heads, nw, shifted, dtype, seed=0
     }
 
 
+def dl_bound(x, maps, groups: int, corners: int, backward: bool) -> tuple[float, str]:
+    """Bytes: x, the three maps and the output once each; the backward reads
+    the incoming gradient too and writes the four gradients. Operations: one
+    multiply-add per channel of the group for every (pixel, group, tap,
+    corner) that lies in the map with a non-zero weight in this run's data
+    (``corners``); twice that in the backward (the dot products of the map
+    gradients and the weighted sum of d_x)."""
+    flops = 2 * corners * (x.shape[3] // groups) * (2 if backward else 1)
+    map_bytes = sum(m.numel() * m.element_size() for m in maps)
+    nbytes = 2 * x.numel() * x.element_size() + map_bytes
+    if backward:
+        nbytes += x.numel() * x.element_size() + map_bytes
+    return bound_ms(nbytes, flops, x.dtype)
+
+
+def dl_corner_count(x, off_dy, off_dx) -> int:
+    """(pixel, group, tap, corner) quadruples inside the map with a non-zero
+    bilinear weight: the rows this run's offsets make the sampler read."""
+    _, h, w, _ = x.shape
+    k, r = DL_KERNEL, DL_MAX_OFFSET
+    groups = off_dy.shape[3] // (k * k)
+    tap = torch.arange(k, dtype=torch.float32, device=x.device) - (k - 1) // 2
+
+    def axis(off, taps, size, dim):
+        d = off.float().clamp(-r, r) + taps.repeat(groups)
+        lo = torch.floor(d)
+        pos = torch.arange(size, device=x.device).view([-1 if i == dim else 1 for i in range(4)])
+        lo_in = (pos + lo >= 0) & (pos + lo < size)
+        hi_in = (pos + lo + 1 >= 0) & (pos + lo + 1 < size) & (d > lo)
+        return lo_in.long() + hi_in.long()
+
+    rows = axis(off_dy, tap.repeat_interleave(k), h, 1)
+    cols = axis(off_dx, tap.repeat(k), w, 2)
+    return int((rows * cols).sum())
+
+
+def check_deform_local(device, stage, side, channels, groups, mix, seed=0) -> dict:
+    """Forward and the four gradients of the dense-local kernels against
+    their plain versions, with times. ``mix`` is "f32" (everything float32,
+    contiguous) or "mixed", what a DCNv3 layer under bf16 autocast gives in
+    "dense_local_ref" mode: bf16 values as a spatial transpose view, fp32
+    effective offsets, bf16 modulation. Offsets are drawn in +-3 for a clamp
+    of +-2."""
+    k, r, kk = DL_KERNEL, DL_MAX_OFFSET, DL_KERNEL * DL_KERNEL
+    gen = torch.Generator(device=device).manual_seed(seed)
+    shape, mshape = (I_BATCH, side, side, channels), (I_BATCH, side, side, groups * kk)
+    vtype = torch.float32 if mix == "f32" else torch.bfloat16
+    x = torch.randn(shape, generator=gen, device=device).to(vtype)
+    if mix == "mixed":
+        x = x.transpose(1, 2)
+    off_dy = 6.0 * torch.rand(mshape, generator=gen, device=device) - 3.0
+    off_dx = 6.0 * torch.rand(mshape, generator=gen, device=device) - 3.0
+    mod = torch.softmax(torch.randn((I_BATCH, side, side, groups, kk), generator=gen,
+                                    device=device), dim=-1).reshape(mshape).to(vtype)
+    g_out = torch.randn(shape, generator=gen, device=device).to(vtype)
+    name = (f"{stage} x=[{I_BATCH},{side},{side},{channels}] G={groups} K={k} r={r} "
+            f"{'f32' if mix == 'f32' else 'bf16 x^T + f32 offsets + bf16 modulation'}")
+    args = (groups, k, r)
+
+    def leaves():
+        # detach() keeps a view's strides, so x stays a transposed view
+        return [t.detach().requires_grad_(True) for t in (x, off_dy, off_dx, mod)]
+
+    ins = leaves()
+    out = dl.deform_dense_local_flat(*ins, *args)
+    got = [out, *torch.autograd.grad(out, ins, g_out)]
+    want = [dl.deform_dense_local_flat_reference(x, off_dy, off_dx, mod, *args),
+            *dl.deform_dense_local_flat_backward_reference(x, off_dy, off_dx, mod, g_out, *args)]
+    torch.cuda.synchronize()
+    errs = {}
+    for key, a, b in zip(("out", "d_x", "d_off_dy", "d_off_dx", "d_mod"), got, want):
+        if a.dtype != b.dtype or a.shape != b.shape:
+            raise AssertionError(f"[{name}] kernel {key} is {a.dtype} {tuple(a.shape)}, "
+                                 f"plain {b.dtype} {tuple(b.shape)}")
+        a, b = a.detach().float(), b.float()
+        if not bool(torch.isfinite(a).all()):
+            raise AssertionError(f"[{name}] kernel {key} is not finite")
+        errs[key] = float((a - b).abs().max())
+        tol = DL_TOL[mix] * max(1.0, float(b.abs().max()))
+        if not errs[key] <= tol:
+            raise AssertionError(f"[{name}] kernel {key} disagrees with the plain version: "
+                                 f"max abs err {errs[key]:.3e} > {tol:.3e}")
+    del got, want, out, ins
+
+    def grad_setup():
+        ins = leaves()
+        return ins, dl.deform_dense_local_flat(*ins, *args)
+
+    def run_grad(arg):
+        ins, out = arg
+        torch.autograd.grad(out, ins, g_out)
+
+    with torch.no_grad():
+        fwd_ms = cuda_median_ms(lambda _: dl.deform_dense_local_flat(x, off_dy, off_dx, mod, *args),
+                                reps=10, warmup=2)
+        fwd_plain = cuda_median_ms(
+            lambda _: dl.deform_dense_local_flat_reference(x, off_dy, off_dx, mod, *args),
+            reps=3, warmup=1)
+        bwd_plain = cuda_median_ms(
+            lambda _: dl.deform_dense_local_flat_backward_reference(x, off_dy, off_dx, mod,
+                                                                    g_out, *args),
+            reps=3, warmup=1)
+    bwd_ms = cuda_median_ms(run_grad, setup=grad_setup, reps=10, warmup=2)
+    corners = dl_corner_count(x, off_dy, off_dx)
+    fwd_bound, fwd_by = dl_bound(x, (off_dy, off_dx, mod), groups, corners, backward=False)
+    bwd_bound, bwd_by = dl_bound(x, (off_dy, off_dx, mod), groups, corners, backward=True)
+    bwd_err = max(errs[key] for key in ("d_x", "d_off_dy", "d_off_dx", "d_mod"))
+    log(f"  [{name}] max abs err " + " ".join(f"{k_} {v:.2e}" for k_, v in errs.items())
+        + f"; ms fwd kernel {fwd_ms:.4f} plain {fwd_plain:.4f} bound {fwd_bound:.4f} "
+        f"({fwd_by}); bwd kernel {bwd_ms:.4f} plain {bwd_plain:.4f} bound {bwd_bound:.4f} "
+        f"({bwd_by}); {corners} corner rows read")
+    return {
+        "fwd": dict(shape=name, max_abs_err=errs["out"], ms=fwd_ms, plain_ms=fwd_plain,
+                    bound_ms=fwd_bound, bound_by=fwd_by, library_ms=None),
+        "bwd": dict(shape=name, max_abs_err=bwd_err, ms=bwd_ms, plain_ms=bwd_plain,
+                    bound_ms=bwd_bound, bound_by=bwd_by, library_ms=None),
+    }
+
+
 def phase_kernels(device) -> list[dict]:
     log("== phase 2: kernels vs plain versions at the main paths' shapes")
     resnet = check_upsample_ce(device, R_BATCH, HW // R_OS, R_CLASSES)
     swin = check_upsample_ce(device, S_BATCH, HW // S_OS, S_CLASSES)
+    intern = check_upsample_ce(device, I_BATCH, HW // I_OS, I_CLASSES)
     log(f"window attention (tol of max(1, max |plain|): {WA_TOL}); dbias err is in max abs err "
         "of the backward; sdpa is F.scaled_dot_product_attention, a yardstick only")
     wa_rows = {}
@@ -368,20 +517,31 @@ def phase_kernels(device) -> list[dict]:
                 wa_rows[key] = check_window_attention(device, stage, bnw, heads, nw, shifted,
                                                       dtype)
                 torch.cuda.empty_cache()
+    log(f"dense-local sampling (tol of max(1, max |plain|): {DL_TOL}); the backward's max abs "
+        "err is over its four gradients; no single PyTorch call computes this function")
+    dl_rows = {}
+    for stage, side, channels, groups, _ in DL_STAGES:
+        for mix in ("f32", "mixed"):
+            dl_rows[(stage, mix)] = check_deform_local(device, stage, side, channels, groups, mix)
+            torch.cuda.empty_cache()
 
     # Top-level numbers: the shape each path launches most. The ResNet path
     # feeds the loss kernels fp32 logits (the model's fp32 cast); 18 of Swin-L's
-    # 24 blocks are stage 2, under bf16 autocast. "shapes" holds every shape.
+    # 24 blocks are stage 2, under bf16 autocast, and so are 18 of
+    # InternImage-T's 30. "shapes" holds every shape.
     def entry(name, source, replaces, main, shapes):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": None, **main, "shapes": shapes}
 
     uce_src = "iseg_tpu_torch/csrc/upsample_ce.cu"
     wa_src = "iseg_tpu_torch/csrc/window_attention.cu"
-    uce_shapes = {d: [rows[dt][d] for rows in (resnet, swin) for dt in ("f32", "bf16")]
+    dl_src = "iseg_tpu_torch/csrc/deform_local.cu"
+    uce_shapes = {d: [rows[dt][d] for rows in (resnet, swin, intern) for dt in ("f32", "bf16")]
                   for d in ("fwd", "bwd")}
     wa_shapes = {d: [row[d] for row in wa_rows.values()] for d in ("fwd", "bwd")}
     wa_main = wa_rows[("stage2", True, torch.bfloat16)]
+    dl_shapes = {d: [row[d] for row in dl_rows.values()] for d in ("fwd", "bwd")}
+    dl_main = dl_rows[("stage2", "mixed")]
     return [
         entry("upsample_ce_fwd", uce_src, "iseg_tpu/ops/pallas/upsample_ce.py:122",
               resnet["f32"]["fwd"], uce_shapes["fwd"]),
@@ -391,6 +551,10 @@ def phase_kernels(device) -> list[dict]:
               wa_main["fwd"], wa_shapes["fwd"]),
         entry("window_attention_bwd", wa_src, "iseg_tpu/ops/pallas/window_attention.py:161",
               wa_main["bwd"], wa_shapes["bwd"]),
+        entry("deform_local_fwd", dl_src, "iseg_tpu/ops/pallas/deform_local.py:116",
+              dl_main["fwd"], dl_shapes["fwd"]),
+        entry("deform_local_bwd", dl_src, "iseg_tpu/ops/pallas/deform_local.py:146",
+              dl_main["bwd"], dl_shapes["bwd"]),
     ]
 
 
@@ -399,15 +563,19 @@ def phase_kernels(device) -> list[dict]:
 def reset_launch_counts() -> None:
     uce.reset_launch_counts()
     wa.reset_launch_counts()
+    dl.reset_launch_counts()
 
 
 def read_launch_counts() -> dict[str, int]:
     return {"upsample_ce_fwd": uce.LAUNCH_COUNTS["fwd"], "upsample_ce_bwd": uce.LAUNCH_COUNTS["bwd"],
             "window_attention_fwd": wa.LAUNCH_COUNTS["fwd"],
-            "window_attention_bwd": wa.LAUNCH_COUNTS["bwd"]}
+            "window_attention_bwd": wa.LAUNCH_COUNTS["bwd"],
+            "deform_local_fwd": dl.LAUNCH_COUNTS["fwd"], "deform_local_bwd": dl.LAUNCH_COUNTS["bwd"]}
 
 
 def expect_launches(path: str, got: dict[str, int], want: dict[str, int]) -> None:
+    """``want`` names the kernels the path launches; every other count must be 0."""
+    want = {**dict.fromkeys(got, 0), **want}
     log(f"kernel launches on the {path} path: {got}")
     if got != want:
         raise AssertionError(f"{path} path: expected kernel launches {want}, got {got}")
@@ -485,8 +653,7 @@ def phase_resnet_train(env, data):
     log(f"lr now {schedule(state.step):.6f}")
     steps = R_WARMUP + R_TIMED
     expect_launches("ResNet train", launches,
-                    {"upsample_ce_fwd": steps, "upsample_ce_bwd": steps,
-                     "window_attention_fwd": 0, "window_attention_bwd": 0})
+                    {"upsample_ce_fwd": steps, "upsample_ce_bwd": steps})
     return model, init_weights, init_dropout, losses[0], launches
 
 
@@ -582,6 +749,7 @@ def phase_swin_train(env, data, profile: bool):
 
 KERNEL_CLASSES = (
     ("window attention kernels", ("wa_fwd_kernel", "wa_bwd_kernel", "dbias_reduce_kernel")),
+    ("dense-local kernels", ("dl_fwd_kernel", "dl_bwd_maps_kernel", "dl_bwd_x_kernel")),
     ("upsample + CE kernels", ("::fwd_kernel<", "::bwd_kernel<", "::reduce_kernel(")),
     ("convolutions (cuDNN)", ("cudnn", "fprop", "wgrad", "dgrad", "conv2d", "convolve")),
     ("matrix products (cuBLAS GEMM: qkv, proj, MLP, merge)",
@@ -633,12 +801,16 @@ def profile_steps(state, step_fn, data, title: str, wall_ms: float, steps: int =
         log(f"   {us / 1e3 / steps:10.3f} ms/step  {key[:110]}")
 
 
-def phase_swin_serve(env, data, trained):
-    log("== phase 7: Swin serve (multi-scale + flip + sliding window, trained weights)")
-    model = build_swin_model(env, fused=False)
+def phase_serve(env, data, trained, title, build_model, batch, classes, fwd_kernel,
+                launches_per_forward, plain_swap):
+    """Serve with the trained weights. ``fwd_kernel`` names the forward
+    kernel every model call launches ``launches_per_forward`` times;
+    ``plain_swap`` is ``(module, attribute, plain function)``: with the
+    attribute replaced, the network runs on the kernel's plain version."""
+    model = build_model(env, fused=False)
     model.load_state_dict(trained.state_dict())
-    image, label = data["image"][:S_SERVE_BATCH], data["label"][:S_SERVE_BATCH]
-    expect_shape = (S_SERVE_BATCH, HW, HW, S_CLASSES)
+    image, label = data["image"][:batch], data["label"][:batch]
+    expect_shape = (batch, HW, HW, classes)
     forwards = [0]
     hook = model.register_forward_hook(lambda *_: forwards.__setitem__(0, forwards[0] + 1))
 
@@ -654,19 +826,18 @@ def phase_swin_serve(env, data, trained):
     # single scale: against the training model's low-res logits, and against
     # the same network on the kernels' plain versions
     logits, calls, launches, _ = serve()
-    expect_launches("Swin serve (single scale)", launches,
-                    {"upsample_ce_fwd": 0, "upsample_ce_bwd": 0,
-                     "window_attention_fwd": WA_LAUNCHES_PER_FORWARD * calls,
-                     "window_attention_bwd": 0})
+    expect_launches(f"{title} serve (single scale)", launches,
+                    {fwd_kernel: launches_per_forward * calls})
     with torch.autocast("cuda", dtype=env.compute_dtype):
         low = trained.inference(image)
-    check_served_against_low_res("Swin", logits, low, expect_shape)
-    kernel_fn = swin_module.window_attention
-    swin_module.window_attention = wa.window_attention_reference
+    check_served_against_low_res(title, logits, low, expect_shape)
+    module, attribute, plain_fn = plain_swap
+    kernel_fn = getattr(module, attribute)
+    setattr(module, attribute, plain_fn)
     try:
         plain_logits, _, plain_launches, _ = serve()
     finally:
-        swin_module.window_attention = kernel_fn
+        setattr(module, attribute, kernel_fn)
     if any(plain_launches.values()):
         raise AssertionError("the plain-version run launched a kernel")
     err = float((logits - plain_logits).abs().max())
@@ -674,7 +845,7 @@ def phase_swin_serve(env, data, trained):
     log(f"eval logits, kernels vs plain versions in the same bf16 network: max abs diff "
         f"{err:.3e} vs max |logit| {scale:.3e} (tol {KERNEL_VS_PLAIN_MODEL_RTOL:g} of it)")
     if not err <= KERNEL_VS_PLAIN_MODEL_RTOL * scale:
-        raise AssertionError("Swin logits with the kernels disagree with the plain versions")
+        raise AssertionError(f"{title} logits with the kernels disagree with the plain versions")
 
     total = {k: 0 for k in launches}
     results = {}
@@ -684,11 +855,9 @@ def phase_swin_serve(env, data, trained):
                                          sliding_window_batch=window_batch)
         logits, calls, launches, ms = serve(config)
         log(f"window batch {window_batch}: {calls} model calls, {ms:.1f} ms for "
-            f"{S_SERVE_BATCH} images (first call of these shapes: cuDNN autotuning included)")
-        expect_launches(f"Swin serve (multi-scale, window batch {window_batch})", launches,
-                        {"upsample_ce_fwd": 0, "upsample_ce_bwd": 0,
-                         "window_attention_fwd": WA_LAUNCHES_PER_FORWARD * calls,
-                         "window_attention_bwd": 0})
+            f"{batch} images (first call of these shapes: cuDNN autotuning included)")
+        expect_launches(f"{title} serve (multi-scale, window batch {window_batch})", launches,
+                        {fwd_kernel: launches_per_forward * calls})
         if calls == 0:
             raise AssertionError("the serve path made no model call")
         if tuple(logits.shape) != expect_shape or logits.dtype != torch.float32:
@@ -706,7 +875,7 @@ def phase_swin_serve(env, data, trained):
     if not err <= SERVE_RTOL * scale:
         raise AssertionError("window batch 1 and 2 disagree")
 
-    metric = MeanIoU(S_CLASSES)
+    metric = MeanIoU(classes)
     metric.update_state(label, results[1])
     counted, pixels = metric.total_cm.sum(), label.numel()
     log(f"confusion matrix counts {counted:.0f} of {pixels} pixels, mIoU {metric.result():.6f} "
@@ -714,6 +883,53 @@ def phase_swin_serve(env, data, trained):
     if counted != pixels or not 0.0 <= metric.result() <= 1.0:
         raise AssertionError("the confusion matrix does not count every pixel once")
     return total
+
+
+def phase_swin_serve(env, data, trained):
+    log("== phase 7: Swin serve (multi-scale + flip + sliding window, trained weights)")
+    return phase_serve(env, data, trained, "Swin", build_swin_model, S_SERVE_BATCH, S_CLASSES,
+                       "window_attention_fwd", WA_LAUNCHES_PER_FORWARD,
+                       (swin_module, "window_attention", wa.window_attention_reference))
+
+
+# -------------------------------------------------------- InternImage path
+
+def build_intern_model(env, fused: bool) -> SegManaged:
+    backbone = get_backbone("intern_image_tiny", dcn_sampling="auto", remat=False)
+    model = SegManaged(num_class=I_CLASSES, backbone=backbone,
+                       head=ASPP(backbone.out_channels, filters=256),
+                       upsample_logits=not fused, fuse_upsample_loss=fused)
+    return model.to(env.device, memory_format=torch.channels_last)
+
+
+def phase_intern_train(env, data, profile: bool):
+    log("== phase 8: InternImage-T + ASPP train (dense-local + fused loss kernels, no remat)")
+    model = build_intern_model(env, fused=True)
+    log(f"parameters: {sum(p.numel() for p in model.parameters()) / 1e6:.1f} M")
+    tx, _ = get_optimizer(param_tree(model), "sgd", learning_rate=0.01, train_steps=1000)
+    state = create_train_state(model, env.generator, tx)
+    step_fn = make_train_step(model.build_loss_fn(), compute_dtype=env.compute_dtype)
+    state, losses, launches, step_ms = train_steps(state, step_fn, data, I_WARMUP, I_TIMED,
+                                                   I_BATCH)
+    steps = I_WARMUP + I_TIMED
+    expect_launches("InternImage train", launches,
+                    {"upsample_ce_fwd": steps, "upsample_ce_bwd": steps,
+                     "deform_local_fwd": DL_LAUNCHES_PER_FORWARD * steps,
+                     "deform_local_bwd": DL_LAUNCHES_PER_FORWARD * steps})
+    first, last = statistics.mean(losses[:3]), statistics.mean(losses[-3:])
+    log(f"mean loss of the first three steps {first:.5f}, of the last three {last:.5f}")
+    if not last < first:
+        raise AssertionError(f"the loss does not fall on the fixed batch: {losses}")
+    if profile:
+        profile_steps(state, step_fn, data, "InternImage-T + ASPP train step", step_ms)
+    return model, launches
+
+
+def phase_intern_serve(env, data, trained):
+    log("== phase 9: InternImage serve (multi-scale + flip + sliding window, trained weights)")
+    return phase_serve(env, data, trained, "InternImage", build_intern_model, I_SERVE_BATCH,
+                       I_CLASSES, "deform_local_fwd", DL_LAUNCHES_PER_FORWARD,
+                       (dcn_module, "dense_local_flat", dl.deform_dense_local_flat_reference))
 
 
 def main(argv: list[str]) -> int:
@@ -739,13 +955,22 @@ def main(argv: list[str]) -> int:
     data = synthetic_batch(device, S_BATCH, S_CLASSES)
     swin_model, paths["swin_train"] = phase_swin_train(env, data, profile)
     paths["swin_serve"] = phase_swin_serve(env, data, swin_model)
+    del swin_model
+    torch.cuda.empty_cache()
+
+    data = synthetic_batch(device, I_BATCH, I_CLASSES)
+    intern_model, paths["intern_train"] = phase_intern_train(env, data, profile)
+    paths["intern_serve"] = phase_intern_serve(env, data, intern_model)
 
     for k in kernels:
         k["launches_by_path"] = {path: counts[k["name"]] for path, counts in paths.items()}
         k["launches"] = sum(k["launches_by_path"].values())
-    on_path = {"resnet_train": ("upsample_ce_fwd", "upsample_ce_bwd"),
-               "swin_train": tuple(k["name"] for k in kernels),
-               "swin_serve": ("window_attention_fwd",)}
+    loss_kernels = ("upsample_ce_fwd", "upsample_ce_bwd")
+    on_path = {"resnet_train": loss_kernels,
+               "swin_train": loss_kernels + ("window_attention_fwd", "window_attention_bwd"),
+               "swin_serve": ("window_attention_fwd",),
+               "intern_train": loss_kernels + ("deform_local_fwd", "deform_local_bwd"),
+               "intern_serve": ("deform_local_fwd",)}
     for path, names in on_path.items():
         for name in names:
             if paths[path][name] <= 0:

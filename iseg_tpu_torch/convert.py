@@ -19,6 +19,11 @@ module                flax leaf (layout)               torch tensor (layout)
 ``nn.LayerNorm``      params ``scale``, ``bias``       ``weight``, ``bias``
 ``WindowAttention``   params ``relative_position_      the parameter of that name
                       bias_table`` ``[(2ws-1)^2, H]``  (its index buffer is static)
+``InternImageBlock``  params ``gamma1``, ``gamma2``    the parameters of those names
+                      ``[dim]`` (layer scale; absent   (bare parameters of the block)
+                      when ``layer_scale`` is None)
+``DCNv2``             params ``kernel``                the parameters of those names
+                      ``[K*K*C, filters]``, ``bias``
 ====================  ===============================  ==========================
 
 :func:`load_flax` consumes every leaf on both sides or raises, so a
@@ -35,7 +40,9 @@ import numpy as np
 import torch
 from torch import nn
 
+from iseg_tpu_torch.backbones.intern_image import InternImageBlock
 from iseg_tpu_torch.backbones.swin import WindowAttention
+from iseg_tpu_torch.nn.dcn import DCNv2
 from iseg_tpu_torch.nn.norm import BatchNorm
 
 _Leaf = tuple[str, str, torch.Tensor, Callable, Callable]
@@ -81,6 +88,10 @@ def _leaves(model: nn.Module) -> Iterator[_Leaf]:
         elif isinstance(m, WindowAttention):
             yield ("params", prefix + "relative_position_bias_table",
                    m.relative_position_bias_table, _same, _same)
+        elif isinstance(m, (InternImageBlock, DCNv2)):
+            # bare parameters of the module itself, named as in the flax tree
+            for leaf, param in m.named_parameters(recurse=False):
+                yield "params", prefix + leaf, param, _same, _same
         elif (any(True for _ in m.parameters(recurse=False))
               or any(True for _ in m.buffers(recurse=False))):
             raise TypeError(f"no flax mapping for {name or 'the root'} ({type(m).__name__})")

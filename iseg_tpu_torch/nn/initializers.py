@@ -4,8 +4,10 @@ flax's ``nn.Conv``/``nn.Dense`` draw their kernel from ``lecun_normal``
 (variance scaling 1.0, fan-in, truncated normal at two standard
 deviations) and start their bias at zero; flax's BatchNorm starts at
 scale 1, bias 0, mean 0, var 1, its LayerNorm at scale 1, bias 0; Swin's
-relative-position-bias table is normal with std 0.02. :func:`initialize` does the same for a
-whole module tree from an explicit ``torch.Generator``. The values are
+relative-position-bias table is normal with std 0.02; DCN's offset and
+modulation layers start at zero (a deformable conv starts as a plain one)
+and InternImage's layer-scale vectors at their ``layer_scale``.
+:func:`initialize` does the same for a whole module tree from an explicit ``torch.Generator``. The values are
 drawn on the CPU and copied to the parameters' device, so a seed gives
 the same weights on every device. (The numbers differ from JAX's for the
 same seed: a parity test carries JAX's weights over with
@@ -19,7 +21,9 @@ import math
 import torch
 from torch import nn
 
+from iseg_tpu_torch.backbones.intern_image import InternImageBlock
 from iseg_tpu_torch.backbones.swin import WindowAttention
+from iseg_tpu_torch.nn.dcn import DCNv2
 from iseg_tpu_torch.nn.norm import BatchNorm
 
 # std of a unit normal truncated to [-2, 2] (jax.nn.initializers.variance_scaling)
@@ -46,7 +50,10 @@ def initialize(module: nn.Module, generator: torch.Generator) -> nn.Module:
     """
     for name, m in module.named_modules():
         if isinstance(m, (nn.Conv2d, nn.Linear)):
-            lecun_normal_(m.weight, generator)
+            if getattr(m, "zero_init_kernel", False):
+                m.weight.zero_()
+            else:
+                lecun_normal_(m.weight, generator)
             if m.bias is not None:
                 m.bias.zero_()
         elif isinstance(m, BatchNorm):
@@ -60,6 +67,14 @@ def initialize(module: nn.Module, generator: torch.Generator) -> nn.Module:
         elif isinstance(m, WindowAttention):
             table = m.relative_position_bias_table
             table.copy_(torch.empty(table.shape).normal_(0.0, 0.02, generator=generator))
+        elif isinstance(m, InternImageBlock):
+            if m.layer_scale is not None:
+                m.gamma1.fill_(m.layer_scale)
+                m.gamma2.fill_(m.layer_scale)
+        elif isinstance(m, DCNv2):
+            lecun_normal_(m.kernel.t(), generator)  # [filters, K*K*C]: fan-in K*K*C
+            if m.bias is not None:
+                m.bias.zero_()
         elif any(True for _ in m.parameters(recurse=False)):
             raise TypeError(f"no initialization rule for {name or 'the root'} "
                             f"({type(m).__name__})")

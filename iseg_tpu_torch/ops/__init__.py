@@ -1,1 +1,2 @@
-"""Tensor ops (resize) and the hand-written CUDA kernels (``ops.kernels``)."""
+"""Tensor ops (resize, deformable sampling) and the hand-written CUDA kernels
+(``ops.kernels``)."""

@@ -9,13 +9,17 @@ Tolerances: the kernels sum in another order than the plain versions
 (per-pixel online log-sum-exp, block partials, per-footprint gathers), so
 fp32 losses agree to rtol 1e-5 and fp32 gradients to rtol 1e-4 / atol
 1e-6. With bf16 logits both sides read the same bf16 values and compute in
-fp32; the kernel's gradient is then rounded to bf16 (rtol 1e-2).
+fp32; the kernel's gradient is then rounded to bf16 (rtol 1e-2). The
+dense-local kernels sum the same products as their plain versions in
+another order: fp32 atol 2e-5 of max(1, max |plain|); with bf16 values the
+outputs that are rounded to bf16 get 1e-2 of it.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from iseg_tpu_torch.ops.kernels import deform_local as dl
 from iseg_tpu_torch.ops.kernels import upsample_ce as uce
 from iseg_tpu_torch.ops.kernels import window_attention as wa
 
@@ -201,3 +205,151 @@ def test_cuda_window_attention_rejects_wrong_inputs(cuda_device):
     with pytest.raises(ValueError, match="do not fit"):
         wa.window_attention(big, big, big, torch.zeros((1, 400, 400), device=cuda_device),
                             torch.zeros((1, 400, 400), device=cuda_device), 1.0)
+
+
+# ------------------------------------------------------- dense-local sampling
+
+def _dl_inputs(device, b, h, w, groups, gc, k, x_dtype, map_dtypes, seed=0, spread=3.0,
+               transposed=False):
+    """x, off_dy, off_dx, modulation, g_out. Offsets are drawn in +-spread
+    (beyond the clamp), with rows of exact zeros, exact +-r and exact
+    integers, where the gradient conventions show."""
+    rng = np.random.RandomState(seed)
+    kk = k * k
+    shape = (b, w, h, groups * gc) if transposed else (b, h, w, groups * gc)
+    x = torch.tensor(rng.randn(*shape).astype(np.float32), device=device).to(x_dtype)
+    if transposed:
+        x = x.transpose(1, 2)
+    maps = []
+    for i, dtype in enumerate(map_dtypes):
+        if i < 2:
+            a = rng.uniform(-spread, spread, (b, h, w, groups * kk)).astype(np.float32)
+            a[:, 0] = 0.0
+            a[:, 1 % h] = 2.0 if i == 0 else -2.0
+            a[:, 2 % h] = np.round(a[:, 2 % h])
+        else:
+            a = rng.rand(b, h, w, groups * kk).astype(np.float32)
+        maps.append(torch.tensor(a, device=device).to(dtype))
+    g_out = torch.tensor(rng.randn(b, h, w, groups * gc).astype(np.float32),
+                         device=device).to(x_dtype)
+    return (x, *maps, g_out)
+
+
+def _dl_kernel(x, off_dy, off_dx, mod, g_out, groups, k, r):
+    ins = [t.detach().requires_grad_(True) for t in (x, off_dy, off_dx, mod)]
+    out = dl.deform_dense_local_flat(*ins, groups, k, r)
+    grads = torch.autograd.grad(out, ins, g_out)
+    torch.cuda.synchronize()
+    return [out.detach(), *grads]
+
+
+def _dl_plain(x, off_dy, off_dx, mod, g_out, groups, k, r):
+    return [dl.deform_dense_local_flat_reference(x, off_dy, off_dx, mod, groups, k, r),
+            *dl.deform_dense_local_flat_backward_reference(x, off_dy, off_dx, mod, g_out,
+                                                           groups, k, r)]
+
+
+DL_SHAPES = {
+    # (B, H, W, groups, channels per group, K, r)
+    "intern_t_stage3": (8, 16, 16, 32, 16, 3, 2),
+    "intern_t_stage1_b2": (2, 64, 64, 8, 16, 3, 2),
+    "one_group_non_square": (2, 9, 13, 1, 8, 3, 2),
+    "odd_group_width_gc3": (2, 7, 5, 2, 3, 3, 2),
+    "gc6_r1": (1, 6, 8, 4, 6, 3, 1),
+    "gc48_three_chunks": (1, 5, 6, 2, 48, 3, 2),
+    "k5_r1_gc32": (1, 8, 8, 2, 32, 5, 1),
+    "tiny_map_2x2": (3, 2, 2, 2, 4, 3, 2),
+}
+F32, BF16 = torch.float32, torch.bfloat16
+DL_TYPES = {
+    "f32": (F32, (F32, F32, F32)),
+    "autocast_ref_mix": (BF16, (F32, F32, BF16)),
+    "autocast_centered_mix": (BF16, (BF16, BF16, BF16)),
+    "f32_x_bf16_maps": (F32, (BF16, F32, BF16)),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("transposed", [False, True], ids=["contiguous", "transposed_view"])
+@pytest.mark.parametrize("types", sorted(DL_TYPES))
+@pytest.mark.parametrize("shape", sorted(DL_SHAPES))
+def test_cuda_deform_local_matches_plain_version(cuda_device, shape, types, transposed):
+    b, h, w, groups, gc, k, r = DL_SHAPES[shape]
+    x_dtype, map_dtypes = DL_TYPES[types]
+    args = _dl_inputs(cuda_device, b, h, w, groups, gc, k, x_dtype, map_dtypes,
+                      transposed=transposed)
+    dl.reset_launch_counts()
+    got = _dl_kernel(*args, groups, k, r)
+    assert dl.LAUNCH_COUNTS == {"fwd": 1, "bwd": 1}
+    want = _dl_plain(*args, groups, k, r)
+    for name, a, b_ in zip(("out", "d_x", "d_off_dy", "d_off_dx", "d_mod"), got, want):
+        assert a.dtype == b_.dtype and a.shape == b_.shape, name
+        assert a.is_contiguous(), name
+        b_ = b_.float().cpu().numpy()
+        tol = (2e-5 if a.dtype == torch.float32 else 1e-2) * max(1.0, np.abs(b_).max())
+        np.testing.assert_allclose(a.float().cpu().numpy(), b_, rtol=0, atol=tol, err_msg=name)
+
+
+@pytest.mark.cuda
+def test_cuda_deform_local_gradient_conventions(cuda_device):
+    """Integer displacements get no offset gradient (the hat's kink), the
+    clamp passes the gradient at exactly +-r and blocks it beyond."""
+    x, off_dy, off_dx, mod, g_out = _dl_inputs(cuda_device, 2, 8, 8, 2, 8, 3, F32, (F32,) * 3)
+    off_dy[:, 3], off_dx[:, 3] = 2.5, -2.5  # beyond the clamp
+    off_dy[:, 4], off_dx[:, 4] = 1.25, -0.75  # fractional, inside
+    _, _, d_dy, d_dx, _ = _dl_kernel(x, off_dy, off_dx, mod, g_out, 2, 3, 2)
+    for d in (d_dy, d_dx):
+        assert float(d[:, 0].abs().max()) == 0.0  # offset 0: the kink
+        assert float(d[:, 1].abs().max()) == 0.0  # offset +-r: an integer too
+        assert float(d[:, 3].abs().max()) == 0.0  # beyond the clamp
+        assert float(d[:, 4].abs().max()) > 0.0
+    # at +-r the clamp itself passes the gradient: a fractional offset that
+    # is clamped from outside gets none, the same value from inside gets it
+    off_dy[:, 1] = 2.0
+    off_dx[:, 1] = 0.5
+    inside = _dl_kernel(x, off_dy, off_dx, mod, g_out, 2, 3, 2)
+    want = _dl_plain(x, off_dy, off_dx, mod, g_out, 2, 3, 2)
+    np.testing.assert_allclose(inside[3].cpu().numpy(), want[3].cpu().numpy(), atol=2e-5)
+    assert float(inside[3][:, 1].abs().max()) > 0.0
+
+
+@pytest.mark.cuda
+def test_cuda_deform_local_zero_offsets_is_modulated_box_sum(cuda_device):
+    x, off_dy, off_dx, mod, _ = _dl_inputs(cuda_device, 2, 8, 8, 1, 8, 3, F32, (F32,) * 3)
+    off_dy.zero_()
+    off_dx.zero_()
+    mod.fill_(1.0)
+    out = dl.deform_dense_local_flat(x, off_dy, off_dx, mod, 1, 3, 2)
+    box = 9.0 * torch.nn.functional.avg_pool2d(x.permute(0, 3, 1, 2), 3, 1, 1,
+                                               count_include_pad=True).permute(0, 2, 3, 1)
+    np.testing.assert_allclose(out.cpu().numpy(), box.cpu().numpy(), atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_cuda_deform_local_is_deterministic(cuda_device):
+    args = _dl_inputs(cuda_device, 8, 32, 32, 16, 16, 3, BF16, (F32, F32, BF16), transposed=True)
+    first = _dl_kernel(*args, 16, 3, 2)
+    second = _dl_kernel(*args, 16, 3, 2)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_cuda_deform_local_rejects_wrong_inputs(cuda_device):
+    x, off_dy, off_dx, mod, _ = _dl_inputs(cuda_device, 2, 6, 6, 2, 8, 3, F32, (F32,) * 3)
+    with pytest.raises(TypeError):
+        dl.deform_dense_local_flat(x.half(), off_dy, off_dx, mod, 2, 3, 2)
+    with pytest.raises(TypeError):
+        dl.deform_dense_local_flat(x, off_dy.double(), off_dx, mod, 2, 3, 2)
+    with pytest.raises(ValueError):  # channels not contiguous
+        dl.deform_dense_local_flat(x.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1),
+                                   off_dy, off_dx, mod, 2, 3, 2)
+    with pytest.raises(ValueError):  # a map that is a strided view
+        wide = torch.zeros((2, 6, 6, 36), device=cuda_device)
+        dl.deform_dense_local_flat(x, wide[..., ::2], off_dx, mod, 2, 3, 2)
+    with pytest.raises(ValueError):  # C % groups
+        dl.deform_dense_local_flat(x, off_dy, off_dx, mod, 3, 3, 2)
+    with pytest.raises(ValueError):  # map shape
+        dl.deform_dense_local_flat(x, off_dy[..., :9], off_dx, mod, 2, 3, 2)
+    with pytest.raises(ValueError):  # device
+        dl.deform_dense_local_flat(x, off_dy.cpu(), off_dx, mod, 2, 3, 2)

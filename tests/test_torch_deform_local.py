@@ -1,0 +1,208 @@
+"""Dense-local deformable sampling of the port against ``iseg_tpu``.
+
+On the CPU ``iseg_tpu_torch.ops.deform.dense_local_flat`` runs the plain
+versions of the CUDA kernels (forward and hand-written backward). They are
+held against the JAX package's ``dense_local_flat`` (forward and its custom
+VJP), against the one-group ``deform_dense_local`` and against the Pallas
+kernel itself in interpret mode, in fp32 at atol 1e-5 (both sides run the
+same displacement loop; sums differ only in order). Offsets are drawn in
++-3 for a clamp of +-2, with rows of exact zeros (the hat's kink), exact
++-r, exact integers and values beyond +-r, where the gradient conventions
+of the hand-written VJP show. The JAX side is jitted: the unrolled
+displacement loop compiles slowly on the CPU, so shapes are tiny and few.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from iseg_tpu.ops import deform as jdeform
+from iseg_tpu.ops.pallas import deform_local as jpallas
+from iseg_tpu_torch.ops import deform as tdeform
+from iseg_tpu_torch.ops.kernels import deform_local as dl
+
+torch.set_num_threads(1)
+
+ATOL = 1e-5
+
+
+def _inputs(b, h, w, groups, gc, k, r, seed=0):
+    rng = np.random.RandomState(seed)
+    kk = k * k
+    x = rng.randn(b, h, w, groups * gc).astype(np.float32)
+    off_dy = rng.uniform(-(r + 1), r + 1, (b, h, w, groups * kk)).astype(np.float32)
+    off_dx = rng.uniform(-(r + 1), r + 1, (b, h, w, groups * kk)).astype(np.float32)
+    off_dy[:, 0], off_dx[:, 0] = 0.0, 0.0  # the kink of the hat
+    off_dy[:, 1], off_dx[:, 1] = r, -r  # exactly at the clamp
+    off_dy[:, 2] = np.round(off_dy[:, 2])  # integers, some beyond the clamp
+    off_dx[:, 3] = r + 0.5  # beyond the clamp
+    mod = rng.rand(b, h, w, groups * kk).astype(np.float32)
+    g_out = rng.randn(b, h, w, groups * gc).astype(np.float32)
+    return x, off_dy, off_dx, mod, g_out
+
+
+def _jax_out_and_grads(groups, k, r):
+    @jax.jit
+    def run(x, off_dy, off_dx, mod, g_out):
+        out, vjp = jax.vjp(lambda *a: jdeform.dense_local_flat(*a, groups, k, r),
+                           x, off_dy, off_dx, mod)
+        return (out, *vjp(g_out))
+
+    return run
+
+
+def _torch_out_and_grads(x, off_dy, off_dx, mod, g_out, groups, k, r):
+    ins = [torch.tensor(a, requires_grad=True) for a in (x, off_dy, off_dx, mod)]
+    out = tdeform.dense_local_flat(*ins, groups, k, r)
+    grads = torch.autograd.grad(out, ins, torch.tensor(g_out))
+    return [t.detach().numpy() for t in (out, *grads)]
+
+
+CASES = {
+    # (B, H, W, groups, channels per group, K, r)
+    "g1": (1, 6, 5, 1, 4, 3, 2),
+    "g2": (2, 5, 6, 2, 3, 3, 2),
+    "g4": (1, 6, 6, 4, 2, 3, 2),
+    "g2_r1": (1, 5, 5, 2, 4, 3, 1),
+}
+NAMES = ("out", "d_x", "d_off_dy", "d_off_dx", "d_modulation")
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_torch_dense_local_flat_forward_and_gradients_match_jax(case):
+    b, h, w, groups, gc, k, r = CASES[case]
+    data = _inputs(b, h, w, groups, gc, k, r)
+    want = _jax_out_and_grads(groups, k, r)(*data)
+    dl.reset_launch_counts()
+    got = _torch_out_and_grads(*data, groups, k, r)
+    assert dl.LAUNCH_COUNTS == {"fwd": 0, "bwd": 0}  # CPU tensors take the plain versions
+    for name, a, b_ in zip(NAMES, got, want):
+        np.testing.assert_allclose(a, np.asarray(b_), atol=ATOL, rtol=0, err_msg=name)
+    # the conventions themselves: no offset gradient at an integer
+    # displacement (rows 0, 1, 2) nor beyond the clamp (row 3 of dx)
+    for row in (0, 1, 2):
+        assert np.abs(got[2][:, row]).max() == 0.0
+    assert np.abs(got[3][:, 0]).max() == 0.0 and np.abs(got[3][:, 3]).max() == 0.0
+    assert np.abs(got[2][:, 4:]).max() > 0.0 and np.abs(got[3][:, 4:]).max() > 0.0
+
+
+def test_torch_dense_local_gradient_passes_at_the_clamp_edge():
+    """At exactly +-r the clamp passes the gradient in full (autograd of a
+    clamp could halve it); a fractional partner axis makes that visible."""
+    b, h, w, groups, gc, k, r = CASES["g2"]
+    x, off_dy, off_dx, mod, g_out = _inputs(b, h, w, groups, gc, k, r, seed=1)
+    off_dy[:, 1] = r - 0.25  # fractional: d_off_dy lives
+    off_dx[:, 1] = -r  # at the edge: integer displacement, gradient 0 by the kink
+    off_dy[:, 2] = r + 1e-3  # just outside: clamped to an integer, no gradient
+    want = _jax_out_and_grads(groups, k, r)(x, off_dy, off_dx, mod, g_out)
+    got = _torch_out_and_grads(x, off_dy, off_dx, mod, g_out, groups, k, r)
+    for name, a, b_ in zip(NAMES, got, want):
+        np.testing.assert_allclose(a, np.asarray(b_), atol=ATOL, rtol=0, err_msg=name)
+    assert np.abs(got[2][:, 1]).max() > 0.0
+    assert np.abs(got[2][:, 2]).max() == 0.0
+
+
+def test_torch_deform_dense_local_matches_jax_and_the_pallas_kernel():
+    b, h, w, _, c, k, r = 2, 8, 8, 1, 4, 3, 2
+    rng = np.random.RandomState(0)
+    x = rng.rand(b, h, w, c).astype(np.float32)
+    off = rng.uniform(-3, 3, (b, h, w, k * k, 2)).astype(np.float32)
+    mod = rng.rand(b, h, w, k * k).astype(np.float32)
+    got = tdeform.deform_dense_local(torch.tensor(x), torch.tensor(off), torch.tensor(mod),
+                                     kernel_size=k, max_offset=r).numpy()
+    want = jax.jit(lambda *a: jdeform.deform_dense_local(*a, kernel_size=k, max_offset=r))(
+        x, off, mod)
+    np.testing.assert_allclose(got, np.asarray(want), atol=ATOL, rtol=0)
+    pallas = jpallas._dense_local_pallas_impl(jnp.asarray(x), jnp.asarray(off),
+                                              jnp.asarray(mod), k, r, interpret=True)
+    np.testing.assert_allclose(got, np.asarray(pallas), atol=ATOL, rtol=0)
+    # the plain version called directly, and the grouped module-layout entry
+    flat = (torch.tensor(off[..., 0]), torch.tensor(off[..., 1]), torch.tensor(mod))
+    plain = dl.deform_dense_local_flat_reference(torch.tensor(x), *flat, 1, k, r).numpy()
+    np.testing.assert_array_equal(plain, got)
+    grouped = tdeform.deform_dense_local_grouped(
+        torch.tensor(x), torch.tensor(off[:, :, :, None]), torch.tensor(mod[:, :, :, None]),
+        kernel_size=k, max_offset=r).numpy()
+    np.testing.assert_array_equal(grouped, got)
+
+
+def test_torch_dense_local_zero_offsets_is_modulated_box_sum():
+    rng = np.random.RandomState(2)
+    x = torch.tensor(rng.randn(2, 6, 7, 6).astype(np.float32))
+    m = torch.tensor(rng.rand(2, 6, 7, 2 * 9).astype(np.float32))
+    zeros = torch.zeros_like(m)
+    out = tdeform.dense_local_flat(x, zeros, zeros, m, 2, 3, 2)
+    # tap (ty, tx) reads x[p + (ty - 1, tx - 1)] with weight m[g, ty*3 + tx]
+    xp = torch.nn.functional.pad(x, (0, 0, 1, 1, 1, 1))
+    want = torch.zeros_like(x)
+    for ty in range(3):
+        for tx in range(3):
+            wgt = m.reshape(2, 6, 7, 2, 9)[..., ty * 3 + tx].repeat_interleave(3, dim=-1)
+            want += wgt * xp[:, ty:ty + 6, tx:tx + 7]
+    np.testing.assert_allclose(out.numpy(), want.numpy(), atol=ATOL, rtol=0)
+
+
+def test_torch_dense_local_clamps_instead_of_dropping():
+    """Offsets beyond +-r sample at +-r: the result equals that of the
+    clamped offsets, and differs from the unclamped gather."""
+    b, h, w, groups, gc, k, r = CASES["g2"]
+    x, off_dy, off_dx, mod, _ = (torch.tensor(a) for a in _inputs(b, h, w, groups, gc, k, r))
+    out = tdeform.dense_local_flat(x, off_dy, off_dx, mod, groups, k, r)
+    clamped = tdeform.dense_local_flat(x, off_dy.clamp(-r, r), off_dx.clamp(-r, r), mod,
+                                       groups, k, r)
+    np.testing.assert_array_equal(out.numpy(), clamped.numpy())
+    wide = tdeform.dense_local_flat(x, off_dy, off_dx, mod, groups, k, r + 1)
+    assert float((wide - out).abs().max()) > 1e-3
+
+
+def test_torch_dense_local_types_and_float64():
+    b, h, w, groups, gc, k, r = CASES["g2"]
+    data = _inputs(b, h, w, groups, gc, k, r)
+    want = _torch_out_and_grads(*data, groups, k, r)
+    ins = [torch.tensor(a, dtype=torch.float64, requires_grad=True) for a in data[:4]]
+    out = tdeform.dense_local_flat(*ins, groups, k, r)
+    grads = torch.autograd.grad(out, ins, torch.tensor(data[4], dtype=torch.float64))
+    for name, a, b_ in zip(NAMES, (out, *grads), want):
+        assert a.dtype == torch.float64
+        np.testing.assert_allclose(a.detach().numpy(), b_, atol=ATOL, rtol=0, err_msg=name)
+    # the autocast mix: bf16 values and modulation, fp32 offsets; each
+    # gradient comes back in its input's dtype
+    dtypes = (torch.bfloat16, torch.float32, torch.float32, torch.bfloat16)
+    ins = [torch.tensor(a).to(d).requires_grad_(True) for a, d in zip(data[:4], dtypes)]
+    out = tdeform.dense_local_flat(*ins, groups, k, r)
+    grads = torch.autograd.grad(out, ins, torch.tensor(data[4]).bfloat16())
+    assert out.dtype == torch.bfloat16
+    assert tuple(g.dtype for g in grads) == dtypes
+    np.testing.assert_allclose(out.detach().float().numpy(), want[0], atol=0.1, rtol=0.05)
+
+
+def test_torch_dense_local_rejects_wrong_inputs():
+    b, h, w, groups, gc, k, r = CASES["g2"]
+    x, off_dy, off_dx, mod, _ = (torch.tensor(a) for a in _inputs(b, h, w, groups, gc, k, r))
+    with pytest.raises(ValueError, match="divisible"):
+        tdeform.dense_local_flat(x, off_dy, off_dx, mod, 4, k, r)
+    with pytest.raises(ValueError, match="off_dx"):
+        tdeform.dense_local_flat(x, off_dy, off_dx[..., :-1], mod, groups, k, r)
+    with pytest.raises(ValueError, match=r"\[B,H,W,C\]"):
+        tdeform.dense_local_flat(x[0], off_dy, off_dx, mod, groups, k, r)
+    with pytest.raises(ValueError, match="no kernel for device"):
+        meta = [t.to("meta") for t in (x, off_dy, off_dx, mod)]
+        tdeform.dense_local_flat(*meta, groups, k, r)
+    # the CUDA launchers refuse what the kernels cannot address, before any build
+    with pytest.raises(ValueError, match="CUDA"):
+        dl._launch_fwd(x, off_dy, off_dx, mod, groups, k, r)
+
+
+def test_torch_dense_local_vector_width():
+    """The widest 16-byte vector that divides the group's channels and
+    keeps every row aligned."""
+    x = torch.zeros((1, 4, 4, 64), dtype=torch.bfloat16)
+    assert dl.vector_width(x, 4) == 8  # 16 bf16 channels per group
+    assert dl.vector_width(x.float(), 4) == 4  # 16 bytes of float32
+    assert dl.vector_width(x, 16) == 4
+    assert dl.vector_width(x[..., :6], 2) == 1  # 3 channels per group
+    assert dl.vector_width(x[..., :60], 5) == 4  # row stride 64, 12 per group
+    assert dl.vector_width(x.transpose(1, 2), 4) == 8  # a spatial transpose view
+    assert dl.vector_width(x[..., 2:34], 2) == 2  # rows start 4 bytes into a vector
