@@ -2,10 +2,12 @@
 """Smoke run of the PyTorch port (``iseg_tpu_torch``) on one NVIDIA GPU.
 
     python3 chip_smoke.py            # every phase below
-    python3 chip_smoke.py --profile  # and torch.profiler tables of the Swin and InternImage steps
+    python3 chip_smoke.py --profile  # and torch.profiler tables of the Swin and InternImage
+                                     # train steps and of Gemma's beam-4 decode steps
 
-Drives the port's three main paths at full width, with random weights from
-seed 0 and one fixed synthetic batch each:
+Drives the port's four main paths at full width, with random weights from
+seed 0. Three train and serve a segmentation model on one fixed synthetic
+batch each:
 
 * ResNet: bench.py's headline training configuration, ResNet-50 (output
   stride 16, deep stem, slim stacks, multi-grid) + ASPP(256), 21 classes,
@@ -19,11 +21,19 @@ seed 0 and one fixed synthetic batch each:
 all under bf16 autocast with fp32 params, SGD (momentum 0.9, poly decay),
 the loss taken by the fused upsample + CE CUDA kernels, Swin's window
 attention by the window-attention CUDA kernels and DCNv3's sampling by the
-dense-local CUDA kernels. Phases, in order; any failure raises and the
-script exits non-zero:
+dense-local CUDA kernels. The fourth serves a language model:
+
+* Gemma: ``gemma_2b_en`` at its full width and depth (18 layers, hidden
+  2048, 8 heads over 1 KV head, head dim 256, FFN 16384, vocabulary 256000;
+  2.5 B parameters), bf16 parameters and KV cache, built on the card;
+  ``GemmaCausalLM.generate`` at batch 8, prompt 128, ``max_length`` 640,
+  ``segment_len`` 256, with the beam search's per-step cache reorder by the
+  cache-gather CUDA kernel.
+
+Phases, in order; any failure raises and the script exits non-zero:
 
 1. device: require CUDA; print the card, its power limit, the torch and
-   CUDA versions; build the three kernel sources of ``iseg_tpu_torch/csrc`` in a
+   CUDA versions; build the four kernel sources of ``iseg_tpu_torch/csrc`` in a
    clean build directory (one nvcc each, started together) and print the
    build times and ptxas reports;
 2. kernels vs their plain versions at the main paths' shapes, with median
@@ -35,7 +45,12 @@ script exits non-zero:
    unshifted, f32 and bf16; dense-local sampling forward and all four
    gradients at InternImage-T's four stage shapes, in f32 and in the
    autocast type mix (bf16 values on a transposed view, fp32 offsets, bf16
-   modulation), with offsets drawn beyond the clamp;
+   modulation), with offsets drawn beyond the clamp; the beam cache gather,
+   bitwise, at Gemma-2B's active-cache shapes [8, nb, 18, 2, W, 1, 256] bf16
+   (nb 4 and 2, W 256 and 512) and at one odd f32 slab, with the
+   advanced-indexing gather (its plain version), ``torch.take_along_dim``,
+   ``torch.index_select`` of whole rows and ``out.copy_(cache)`` timed
+   beside it;
 3. ResNet train: 2 warm-up + 3 timed fused steps; losses finite, exactly
    one forward and one backward loss-kernel launch per step;
 4. ResNet fused vs unfused: one unfused step from the same initial weights
@@ -56,11 +71,29 @@ script exits non-zero:
    backward launches and 1 + 1 loss kernel launches; ms/step, img/s, peak
    memory;
 9. InternImage serve, batch 2, trained weights: as phase 7, with 30
-   dense-local forward launches per model call and no backward launch.
+   dense-local forward launches per model call and no backward launch;
+10. Gemma serve: (a) a SentencePiece vocabulary built in memory (specials,
+    byte pieces, a few words, unused pieces up to 256000) -> ``GemmaTokenizer``
+    -> ``GemmaCausalLMPreprocessor`` -> ragged prompts -> greedy ``generate``
+    -> ``generate_postprocess`` gives strings that start with their prompts;
+    (b) greedy, beam 2, beam 4 and contrastive (k = 5) requests at the
+    geometry above, one warm-up call each, then timed: prompts preserved,
+    ids in range, tok/s, ms/step, peak memory; exactly ``max_length - start``
+    = 512 cache-gather launches per beam request and none on the others;
+    (c) beam 4 with the gather's plain version swapped in gives the kernel
+    run's tokens exactly; the context-segment decode and the monolithic
+    decode, fed the segmented search's tokens over all 512 steps (the active
+    cache growing from 256 to 512 slots on the way), give logits within 2e-2
+    of max |logit|; beam 4 on the monolithic cache (plain gather of the
+    whole cache, no launch) selects the segmented search's continuations
+    step by step until a bf16 near-tie falls the other way: the step is
+    named and the tie held to 1e-2 of max |logit| in nats, and rows that
+    never part return equal tokens; (d) beam 1 returns greedy's tokens, or
+    parts from them at a near-tie held the same way.
 
-The launch counters are set to 0 just before each main path (3, 6, 7, 8, 9) and
-read just after; a kernel of a path that was launched no time there fails
-the run. Third line from the end: a JSON object with one entry per kernel;
+The launch counters are set to 0 just before each main path (3, 6, 7, 8, 9,
+and each request of 10) and read just after; a kernel of a path that was
+launched no time there fails the run. Third line from the end: a JSON object with one entry per kernel;
 then the card's name and power limit; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -87,10 +120,16 @@ from iseg_tpu_torch.core.model import SegManaged, SegModelInferenceConfig
 from iseg_tpu_torch.core.optimizer import get_optimizer
 from iseg_tpu_torch.core.train import create_train_state, make_train_step
 from iseg_tpu_torch.metrics import MeanIoU
+from iseg_tpu_torch.nlp.gemma import (BeamSampler, ContrastiveSampler, GemmaCausalLM,
+                                      get_preset)
+from iseg_tpu_torch.nlp.gemma import causal_lm as gemma_causal_lm
+from iseg_tpu_torch.nlp.gemma import sp_model
+from iseg_tpu_torch.nlp.gemma.tokenizer import GemmaCausalLMPreprocessor, GemmaTokenizer
 from iseg_tpu_torch.nn import dcn as dcn_module
 from iseg_tpu_torch.nn.blocks import Dropout, set_dropout_generator
 from iseg_tpu_torch.nn.heads import ASPP, SemanticFPN
 from iseg_tpu_torch.ops.kernels import _build
+from iseg_tpu_torch.ops.kernels import cache_gather as cg
 from iseg_tpu_torch.ops.kernels import deform_local as dl
 from iseg_tpu_torch.ops.kernels import upsample_ce as uce
 from iseg_tpu_torch.ops.kernels import window_attention as wa
@@ -116,6 +155,14 @@ DL_KERNEL, DL_MAX_OFFSET = 3, 2
 DL_STAGES = (("stage0", 128, 64, 4, 4), ("stage1", 64, 128, 8, 4),
              ("stage2", 32, 256, 16, 18), ("stage3", 16, 512, 32, 4))
 DL_LAUNCHES_PER_FORWARD = sum(s[4] for s in DL_STAGES)  # 30
+# Gemma path: gemma_2b_en served at batch 8, prompt 128, 512 generated slots
+G_PRESET, G_BATCH, G_PROMPT, G_MAX_LENGTH, G_SEGMENT = "gemma_2b_en", 8, 128, 640, 256
+G_CONTRASTIVE_K = 5
+G_TEXT_PROMPT, G_TEXT_MAX_LENGTH = 24, 56  # the tokenizer round trip, ragged prompts
+# active KV cache of the segmented beam search: [B, nb, layers, 2, W, kv heads, head dim]
+CG_SHAPES = tuple((f"beam{nb} W={w}", (G_BATCH, nb, 18, 2, w, 1, 256), torch.bfloat16)
+                  for nb in (4, 2) for w in (G_SEGMENT, 2 * G_SEGMENT))
+CG_ODD_SHAPE = ("odd slab of 35 floats x 1031", (G_BATCH, 4, 1031, 5, 7), torch.float32)
 
 # Published peaks of one H100 SXM at its 700 W limit: HBM3 bytes/s, and
 # FLOP/s for fp32 inputs (outside the tensor cores) and bf16 inputs
@@ -146,6 +193,28 @@ FUSED_UNFUSED_RTOL = 1e-4
 # shapes): bf16 keeps 8 bits, relative to max |logit|
 SERVE_RTOL = 1e-2
 KERNEL_VS_PLAIN_MODEL_RTOL = 2e-2  # 24 blocks of bf16 attention outputs rounded apart
+# Segmented against monolithic KV cache, the same tokens fed to both, bf16:
+# the attention logits are the same products, but the segmented path sums
+# its values per segment in fp32 and rounds once, the monolithic path takes
+# one product rounded to bf16, so a block's output moves by a bf16 ulp (2^-8
+# of the value) here and there, through 18 blocks; relative to max |logit|.
+# Two SEARCHES on such logits pick the same tokens only until a near-tie
+# between two continuations falls the other way; from there they explore
+# other continuations (with random weights the model mostly repeats its
+# last token, and which token a beam locks onto decides the rest), so whole
+# searches are not held token-equal. They are held to this instead: the two
+# layouts, fed the segmented search's tokens over all 512 steps (the active
+# cache growing from 256 to 512 slots on the way), give logits within
+# GEMMA_LAYOUT_RTOL of max |logit| (measured: 6e-3); and at the first step
+# where two searches select other continuations, every continuation that
+# one of them took and the other did not lies, in the first one's own
+# ranking, within GEMMA_TIE_RTOL of max |logit| (in nats) of the one taken
+# in its place. Two continuations can change places only when they are
+# closer than the layouts' totals are to each other: the step's logit
+# difference plus the scores' drift so far, each a few 1e-3 of max |logit|
+# (measured: swapped continuations at most 1.1e-3 of max |logit| apart)
+GEMMA_LAYOUT_RTOL = 2e-2
+GEMMA_TIE_RTOL = 1e-2
 
 
 def log(msg: str) -> None:
@@ -199,9 +268,9 @@ def phase_device():
         f"device {torch.cuda.get_device_name(0)}, count {torch.cuda.device_count()}")
     shutil.rmtree(_build.BUILD_DIR, ignore_errors=True)
     t0 = time.perf_counter()
-    _build.load_all([uce.SOURCE, wa.SOURCE, dl.SOURCE])
+    _build.load_all([uce.SOURCE, wa.SOURCE, dl.SOURCE, cg.SOURCE])
     wall = time.perf_counter() - t0
-    for built in (uce.build(), wa.build(), dl.build()):
+    for built in (uce.build(), wa.build(), dl.build(), cg.build()):
         if not built.compiled:
             raise RuntimeError(f"{built.path.name} was not compiled from a clean build directory")
         log(f"built {built.path.name} in {built.seconds:.2f} s (nvcc, sm_90a)")
@@ -502,6 +571,64 @@ def check_deform_local(device, stage, side, channels, groups, mix, seed=0) -> di
     }
 
 
+def check_cache_gather(device, name, shape, dtype, seed=0) -> dict:
+    """The cache-gather kernel against its plain version, bitwise, with times.
+    Bound: every byte of cache read once and of out written once, plus the
+    indices; there is no arithmetic. ``library_ms`` is the fastest of the
+    three PyTorch calls that compute the same function: the advanced-indexing
+    gather (which is also the plain version), ``torch.take_along_dim``, and
+    ``torch.index_select`` of whole rows of the ``[B * NB, slab]`` view into
+    a buffer the caller owns, with the flat row indices made beforehand;
+    ``copy_ms`` is ``out.copy_(cache)`` on the same bytes, the copy floor of
+    the library."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    b, nb = shape[:2]
+    cache = torch.randn(shape, generator=gen, device=device).to(dtype)
+    parent = torch.randint(0, nb, (b, nb), generator=gen, device=device)
+    out = torch.empty_like(cache)
+    label = f"{name} cache={list(shape)} {dtype_name(dtype)}"
+
+    got = cg.beam_cache_gather(cache, parent, out=out)
+    want = cg.beam_cache_gather_reference(cache, parent)
+    torch.cuda.synchronize()
+    if got is not out or got.dtype != want.dtype or got.shape != want.shape:
+        raise AssertionError(f"[{label}] the kernel did not fill the buffer it was given")
+    mismatched = int((got.view(torch.uint8) != want.view(torch.uint8)).sum())
+    err = float((got.float() - want.float()).abs().max())
+    if mismatched or err != 0.0:
+        raise AssertionError(f"[{label}] kernel differs from the plain version in "
+                             f"{mismatched} bytes (max abs err {err:.3e}); it must be exact")
+    parent32 = parent.to(torch.int32)
+    if not torch.equal(cg.beam_cache_gather(cache, parent32), want):
+        raise AssertionError(f"[{label}] kernel with int32 indices differs from the plain version")
+    del got, want
+
+    flat = cache.view(b, nb, -1)
+    index = parent[:, :, None].expand(b, nb, flat.shape[2])
+    rows, out_rows = cache.view(b * nb, -1), out.view(b * nb, -1)
+    flat_parent = (torch.arange(b, device=device)[:, None] * nb + parent).reshape(-1)
+    torch.index_select(rows, 0, flat_parent, out=out_rows)
+    if not torch.equal(out, cg.beam_cache_gather_reference(cache, parent)):
+        raise AssertionError(f"[{label}] index_select of whole rows is not the same function")
+    reps = dict(reps=20, warmup=3)
+    ms = cuda_median_ms(lambda _: cg.beam_cache_gather(cache, parent, out=out), **reps)
+    plain_ms = cuda_median_ms(lambda _: cg.beam_cache_gather_reference(cache, parent), **reps)
+    take_ms = cuda_median_ms(lambda _: torch.take_along_dim(flat, index, dim=1), **reps)
+    select_ms = cuda_median_ms(
+        lambda _: torch.index_select(rows, 0, flat_parent, out=out_rows), **reps)
+    copy_ms = cuda_median_ms(lambda _: out.copy_(cache), **reps)
+    nbytes = cache.numel() * cache.element_size()
+    bound, by = bound_ms(2 * nbytes + parent.numel() * parent.element_size(), 0, dtype)
+    log(f"  [{label}] bitwise equal; {nbytes / 1e6:.1f} MB; ms kernel {ms:.4f} plain "
+        f"(advanced indexing) {plain_ms:.4f} take_along_dim {take_ms:.4f} index_select "
+        f"{select_ms:.4f} copy_ {copy_ms:.4f} bound {bound:.4f} ({by}); kernel at "
+        f"{bound / ms:.3f} of its bound, {min(plain_ms, take_ms, select_ms) / ms:.3f}x the "
+        "fastest library call")
+    return dict(shape=label, max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                bound_by=by, library_ms=min(plain_ms, take_ms, select_ms),
+                take_along_dim_ms=take_ms, index_select_ms=select_ms, copy_ms=copy_ms)
+
+
 def phase_kernels(device) -> list[dict]:
     log("== phase 2: kernels vs plain versions at the main paths' shapes")
     resnet = check_upsample_ce(device, R_BATCH, HW // R_OS, R_CLASSES)
@@ -524,11 +651,19 @@ def phase_kernels(device) -> list[dict]:
         for mix in ("f32", "mixed"):
             dl_rows[(stage, mix)] = check_deform_local(device, stage, side, channels, groups, mix)
             torch.cuda.empty_cache()
+    log("beam cache gather (exact: every byte equal); library = the fastest of the "
+        "advanced-indexing gather, torch.take_along_dim and torch.index_select of whole "
+        "rows, timed here and used nowhere on the segmented path")
+    cg_rows = []
+    for name, shape, dtype in (*CG_SHAPES, CG_ODD_SHAPE):
+        cg_rows.append(check_cache_gather(device, name, shape, dtype))
+        torch.cuda.empty_cache()
 
     # Top-level numbers: the shape each path launches most. The ResNet path
     # feeds the loss kernels fp32 logits (the model's fp32 cast); 18 of Swin-L's
     # 24 blocks are stage 2, under bf16 autocast, and so are 18 of
-    # InternImage-T's 30. "shapes" holds every shape.
+    # InternImage-T's 30; Gemma's beam-4 request reorders at W=256 for half of
+    # its steps and at W=512 for the other half. "shapes" holds every shape.
     def entry(name, source, replaces, main, shapes):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": None, **main, "shapes": shapes}
@@ -536,6 +671,7 @@ def phase_kernels(device) -> list[dict]:
     uce_src = "iseg_tpu_torch/csrc/upsample_ce.cu"
     wa_src = "iseg_tpu_torch/csrc/window_attention.cu"
     dl_src = "iseg_tpu_torch/csrc/deform_local.cu"
+    cg_src = "iseg_tpu_torch/csrc/cache_gather.cu"
     uce_shapes = {d: [rows[dt][d] for rows in (resnet, swin, intern) for dt in ("f32", "bf16")]
                   for d in ("fwd", "bwd")}
     wa_shapes = {d: [row[d] for row in wa_rows.values()] for d in ("fwd", "bwd")}
@@ -555,6 +691,8 @@ def phase_kernels(device) -> list[dict]:
               dl_main["fwd"], dl_shapes["fwd"]),
         entry("deform_local_bwd", dl_src, "iseg_tpu/ops/pallas/deform_local.py:146",
               dl_main["bwd"], dl_shapes["bwd"]),
+        entry("cache_gather", cg_src, "iseg_tpu/ops/pallas/cache_gather.py:122",
+              cg_rows[0], cg_rows),
     ]
 
 
@@ -564,13 +702,15 @@ def reset_launch_counts() -> None:
     uce.reset_launch_counts()
     wa.reset_launch_counts()
     dl.reset_launch_counts()
+    cg.reset_launch_counts()
 
 
 def read_launch_counts() -> dict[str, int]:
     return {"upsample_ce_fwd": uce.LAUNCH_COUNTS["fwd"], "upsample_ce_bwd": uce.LAUNCH_COUNTS["bwd"],
             "window_attention_fwd": wa.LAUNCH_COUNTS["fwd"],
             "window_attention_bwd": wa.LAUNCH_COUNTS["bwd"],
-            "deform_local_fwd": dl.LAUNCH_COUNTS["fwd"], "deform_local_bwd": dl.LAUNCH_COUNTS["bwd"]}
+            "deform_local_fwd": dl.LAUNCH_COUNTS["fwd"], "deform_local_bwd": dl.LAUNCH_COUNTS["bwd"],
+            "cache_gather": cg.LAUNCH_COUNTS["gather"]}
 
 
 def expect_launches(path: str, got: dict[str, int], want: dict[str, int]) -> None:
@@ -931,6 +1071,411 @@ def phase_intern_serve(env, data, trained):
                        I_CLASSES, "deform_local_fwd", DL_LAUNCHES_PER_FORWARD,
                        (dcn_module, "dense_local_flat", dl.deform_dense_local_flat_reference))
 
+# -------------------------------------------------------------- Gemma path
+
+GEMMA_WORDS = ("▁the", "▁quick", "▁brown", "▁fox", "▁jumps", "▁over", "▁lazy", "▁dog",
+               "▁a", "▁model", "▁writes", "▁text", "▁on", "▁one", "▁card", "▁beam", "▁search")
+GEMMA_TEXTS = ("the quick brown fox jumps over the lazy dog", "a model writes text",
+               "beam search on one card", "the dog", "a quick model writes the text on a card",
+               "the lazy fox", "one beam", "text over text over text")
+
+
+def build_gemma_tokenizer(vocab_size: int) -> GemmaTokenizer:
+    """A SentencePiece unigram model built in memory, laid out like Gemma's:
+    pad 0, eos 1, bos 2, unk 3, the 256 byte pieces, a few words, and unused
+    pieces up to the model's vocabulary, so that every id the model can emit
+    decodes. It goes through the wire format like a ``.model`` file."""
+    pieces = [sp_model.SentencePiece("<pad>", 0.0, sp_model.CONTROL),
+              sp_model.SentencePiece("<eos>", 0.0, sp_model.CONTROL),
+              sp_model.SentencePiece("<bos>", 0.0, sp_model.CONTROL),
+              sp_model.SentencePiece("<unk>", 0.0, sp_model.UNKNOWN)]
+    pieces += sp_model.build_byte_pieces(-12.0)
+    pieces += [sp_model.SentencePiece(w, -1.0 - 0.1 * i) for i, w in enumerate(GEMMA_WORDS)]
+    pieces += [sp_model.SentencePiece(f"<unused{i}>", 0.0, sp_model.UNUSED)
+               for i in range(vocab_size - len(pieces))]
+    proto = sp_model.SPModelProto(pieces=pieces, model_type=1, unk_id=3, bos_id=2, eos_id=1,
+                                  pad_id=0, byte_fallback=True)
+    backend = sp_model.SentencePieceModel(sp_model.serialize_model_proto(proto))
+    if backend.vocab_size() != vocab_size:
+        raise AssertionError(f"vocabulary of {backend.vocab_size()} pieces, wanted {vocab_size}")
+    return GemmaTokenizer(backend=backend)
+
+
+def gemma_request(lm, name, prompt, lengths, sampler, want_launches, timed=True, trace=None,
+                  **kw):
+    """One ``generate`` call with the launch counts set to 0 just before and
+    read just after; checks shape, dtype, id range, the prompt and the
+    launches. ``trace``: a list that :func:`trace_beam_select` fills during
+    the call. Returns (tokens, launch counts, seconds, peak bytes)."""
+    if trace is not None:
+        trace_beam_select(lm, trace)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        tokens = lm.generate(prompt, lengths, max_length=kw.pop("max_length", G_MAX_LENGTH),
+                             sampler=sampler, segment_len=G_SEGMENT, **kw)
+    finally:
+        if trace is not None:
+            del lm._beam_select
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = read_launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    b, max_length = tokens.shape
+    steps = max_length - int(lengths.min())
+    if tokens.dtype != torch.int32 or b != prompt.shape[0] or tokens.device.type != "cuda":
+        raise AssertionError(f"{name}: tokens {tuple(tokens.shape)} {tokens.dtype} "
+                             f"on {tokens.device}")
+    if int(tokens.min()) < 0 or int(tokens.max()) >= lm.config.vocab_size:
+        raise AssertionError(f"{name}: token ids outside [0, {lm.config.vocab_size})")
+    keep = torch.arange(prompt.shape[1], device=tokens.device)[None] < lengths[:, None]
+    if not torch.equal(tokens[:, :prompt.shape[1]][keep].long(), prompt[keep]):
+        raise AssertionError(f"{name}: the prompt was not preserved")
+    expect_launches(f"Gemma {name}", launches, {"cache_gather": want_launches})
+    if timed:
+        log(f"{name}{' (traced: the re-ranking runs twice)' if trace is not None else ''}: "
+            f"{dt:.3f} s for {b} x {steps} tokens (prefill included), "
+            f"{b * steps / dt:.1f} tok/s, {1e3 * dt / steps:.3f} ms/step, peak memory "
+            f"{peak / 2**30:.2f} GiB ({peak} bytes); distinct generated ids "
+            f"{int(tokens[:, prompt.shape[1]:].unique().numel())}")
+    return tokens, launches, dt, peak
+
+
+def first_difference(a, b, start) -> dict[int, int]:
+    """Row -> first position at which two ``[B, T]`` token tensors differ
+    (rows that are equal throughout are left out)."""
+    differ = (a != b).cpu()
+    first = {int(row): int(differ[row].float().argmax())
+             for row in differ.any(dim=1).nonzero()[:, 0]}
+    if any(step < start for step in first.values()):
+        raise AssertionError(f"rows differ inside the prompt: {first}")
+    return first
+
+
+def check_cache_layouts(lm, name, prompt, tokens, nb: int, other=None) -> float:
+    """The context-segment decode (shared prompt segment + active cache, the
+    segmented beam search's forward) against the monolithic-cache decode at
+    ``B * nb`` rows, both fed ``tokens [B, T]`` over every generated position
+    after one shared prefill; the active cache is G_SEGMENT wide and grows by
+    G_SEGMENT when it is full, as in the search. Holds the logits to GEMMA_LAYOUT_RTOL at
+    every step. ``other [B, T]``: tokens of another program that should have
+    picked the same ones (greedy for beam 1): where a row of it first
+    differs, the two tokens must be a near-tie in the logits that predicted
+    that position (GEMMA_TIE_RTOL). Returns the largest |logit| seen."""
+    b, p = prompt.shape
+    t_end = tokens.shape[1]
+    device = prompt.device
+    first = first_difference(tokens, other, p) if other is not None else {}
+    ties = {}
+    with torch.inference_mode():
+        mono = lm.build_cache(b, t_end)
+        lengths = torch.full((b,), p, dtype=torch.long, device=device)
+        pred, _ = lm._prefill(prompt, lengths, mono)  # predicts position p
+        pred = pred.repeat_interleave(nb, dim=0)
+        context = ((mono[:, :, :, :p].clone(), 0),)
+        mono = mono.repeat_interleave(nb, dim=0)
+        active = lm.build_cache(b * nb, G_SEGMENT)
+        worst = torch.zeros((), device=device)
+        worst_step = torch.zeros((), dtype=torch.long, device=device)
+        top = pred.abs().max()
+        for i in range(p, t_end):
+            for row, at in first.items():
+                if at == i:  # both programs saw the same history up to here
+                    ours, theirs = int(tokens[row, i]), int(other[row, i])
+                    ties[row] = (i, float((pred[row * nb, ours] - pred[row * nb, theirs]).abs()),
+                                 float(pred[row * nb].abs().max()))
+            if i - p == active.shape[3]:  # the segment is full: grow it
+                active = torch.cat([active, lm.build_cache(b * nb, G_SEGMENT)], dim=3)
+            tok = tokens[:, i].long().repeat_interleave(nb)[:, None]
+            pos = torch.full((b * nb, 1), i, dtype=torch.long, device=device)
+            pred, _ = lm.call_with_cache(tok, mono, i, pos)
+            got, _ = lm.call_with_cache(tok, active, i, pos, context=context, cache_offset=p)
+            pred = pred[:, 0]
+            step_top = pred.abs().max()
+            err = (got[:, 0] - pred).abs().max() / step_top
+            worst_step = torch.where(err > worst, i, worst_step)
+            worst = torch.maximum(worst, err)
+            top = torch.maximum(top, step_top)
+    worst, top = float(worst), float(top)
+    log(f"{name}: context-segment vs monolithic decode at {b} x {nb} rows over all "
+        f"{t_end - p} steps (active cache {G_SEGMENT} then {active.shape[3]} wide): max |logit "
+        f"diff| {worst:.3e} of max |logit| at position {int(worst_step)} (tol "
+        f"{GEMMA_LAYOUT_RTOL:g}); largest |logit| {top:.4f}")
+    if not worst <= GEMMA_LAYOUT_RTOL:
+        raise AssertionError(f"{name}: the segmented and the monolithic cache give other logits")
+    if other is not None:
+        log(f"{name}: {b - len(first)} of {b} rows equal over all {t_end - p} generated tokens"
+            + "".join(f"; row {row} parts at position {i}, logit gap {gap:.3e} = "
+                      f"{gap / row_top:.3e} of max |logit|"
+                      for row, (i, gap, row_top) in ties.items()))
+        for row, (i, gap, row_top) in ties.items():
+            if not gap <= GEMMA_TIE_RTOL * row_top:
+                raise AssertionError(f"{name}: row {row} parts at position {i} where the two "
+                                     f"tokens are {gap:.3e} apart: not a near-tie")
+    return top
+
+
+def trace_beam_select(lm, trace: list):
+    """Record, for every beam step of the next request, the ``2 * nb`` best
+    totals (score + log-prob) over the ``nb * V`` continuations and their flat
+    indices, beside what the search itself selected; nothing leaves the
+    card. Valid for requests with no end token and full-length prompts."""
+    select = lm._beam_select
+
+    def traced(next_logits, tokens, scores, *args, **kw):
+        b, nb = scores.shape
+        total = scores[..., None] + torch.log_softmax(next_logits.float(), dim=-1).view(b, nb, -1)
+        vals, idx = torch.topk(total.view(b, -1), 2 * nb, dim=-1)
+        out = select(next_logits, tokens, scores, *args, **kw)
+        trace.append((vals, idx, out[3] * total.shape[-1] + out[4]))
+        return out
+
+    lm._beam_select = traced
+
+
+def check_search_divergence(name, trace_a, trace_b, tokens_a, tokens_b, start, top) -> None:
+    """Two beam searches of one request on logits that differ by bf16
+    rounding (see GEMMA_LAYOUT_RTOL), from their traces. Up to the first step
+    at which a row's selections differ, both hold the same beams; at that
+    step every continuation that one took and the other did not must be a
+    near-tie, in the first one's own ranking, with the one taken in its place
+    (GEMMA_TIE_RTOL of ``top``, the largest |logit|, in nats). Rows that never
+    part must return equal tokens."""
+    vals_a, idx_a, sel_a = (torch.stack(x).cpu() for x in zip(*trace_a))  # [S, B, 2nb | nb]
+    vals_b, idx_b, sel_b = (torch.stack(x).cpu() for x in zip(*trace_b))
+    nb = sel_a.shape[-1]
+    for idx, sel in ((idx_a, sel_a), (idx_b, sel_b)):
+        if not torch.equal(idx[..., :nb].sort(dim=-1).values, sel.sort(dim=-1).values):
+            raise AssertionError(f"{name}: the trace does not hold what the search selected")
+    tol = GEMMA_TIE_RTOL * top
+    same = (sel_a == sel_b).all(dim=-1)  # [S, B]
+    final = first_difference(tokens_a, tokens_b, start)
+    parted, worst = {}, 0.0
+    for row in range(same.shape[1]):
+        steps = (~same[:, row]).nonzero()[:, 0]
+        if not len(steps):
+            if row in final:
+                raise AssertionError(f"{name}: row {row} selected the same continuations at "
+                                     "every step and returned other tokens")
+            continue
+        s = int(steps[0])
+        drift = float((vals_a[:s + 1, row, :nb] - vals_b[:s + 1, row, :nb]).abs().max())
+        gaps = []
+        for vals, mine, theirs in ((vals_a, idx_a, sel_b), (vals_b, idx_b, sel_a)):
+            for j in range(nb):
+                if mine[s, row, j] == theirs[s, row, j]:
+                    continue
+                at = (mine[s, row] == theirs[s, row, j]).nonzero()[:, 0]
+                if not len(at):
+                    raise AssertionError(
+                        f"{name}: row {row}, position {start + s}: a continuation one search "
+                        f"took is not among the other's {mine.shape[-1]} best: not a near-tie")
+                gaps.append(float((vals[s, row, at[0]] - vals[s, row, j]).abs()))
+        parted[row] = (start + s, max(gaps), drift, final.get(row))
+        worst = max(worst, max(gaps))
+    log(f"{name}: {same.shape[1] - len(parted)} of {same.shape[1]} rows select the same "
+        f"continuations at all {same.shape[0]} steps and return equal tokens; near-tie "
+        f"tolerance {tol:.3e} nats ({GEMMA_TIE_RTOL:g} of max |logit| {top:.4f})")
+    for row, (pos, gap, drift, final_pos) in parted.items():
+        log(f"  row {row}: selections part at position {pos}, the continuations swapped lie "
+            f"{gap:.3e} nats apart (scores had drifted {drift:.3e} apart by then); returned "
+            + ("tokens are equal all the same" if final_pos is None
+               else f"tokens first differ at position {final_pos}"))
+    if not worst <= tol:
+        raise AssertionError(f"{name}: searches parted where the continuations were "
+                             f"{worst:.3e} nats apart, tolerance {tol:.3e}")
+
+
+def profile_gemma_decode(lm, prompt, lengths, step_ms: float, steps: int = 24) -> None:
+    """Self device time of the first ``steps`` beam-4 decode steps of a
+    request whose first segment is full (active cache G_SEGMENT wide), by
+    the op that launched each kernel. The profiler starts after the prefill
+    and stops after the ``steps``-th single-token forward; the rest of the
+    segment runs on unprofiled. ``step_ms`` is the timed request's wall time
+    per step without the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], record_shapes=True)
+    prefill, decode = lm._prefill, lm._decode
+    decoded = 0
+
+    def prefill_then_start(*args):
+        result = prefill(*args)
+        torch.cuda.synchronize()
+        prof.start()
+        return result
+
+    def decode_then_stop(*args, **kw):
+        nonlocal decoded
+        result = decode(*args, **kw)
+        decoded += 1
+        if decoded == steps:
+            torch.cuda.synchronize()
+            prof.stop()
+        return result
+
+    lm._prefill, lm._decode = prefill_then_start, decode_then_stop
+    try:
+        lm.generate(prompt, lengths, max_length=G_PROMPT + G_SEGMENT, sampler=BeamSampler(4),
+                    segment_len=G_SEGMENT)
+        torch.cuda.synchronize()
+    finally:
+        del lm._prefill, lm._decode
+    if decoded < steps:
+        raise AssertionError(f"the profiled request took {decoded} decode steps, wanted {steps}")
+    vocab = lm.config.vocab_size
+    classes = {"cache gather kernel": 0.0, "readout (fp32 product with the [V, D] table)": 0.0,
+               "weight products (bf16 F.linear: q, k, v, out, FFN)": 0.0,
+               "attention products (torch.bmm, fp32 out) and softmax": 0.0,
+               "beam re-ranking (log_softmax, top-k, gathers over [B, nb, V])": 0.0,
+               "RMSNorm, RoPE, GELU, residuals, casts, cache writes": 0.0}
+    device_us, kernel_launches, top = 0.0, 0, []
+    for evt in prof.key_averages(group_by_input_shape=True):
+        us = getattr(evt, "self_device_time_total", None)
+        if us is None:
+            us = evt.self_cuda_time_total
+        if not us:
+            continue
+        if evt.device_type.name == "CUDA":  # a kernel: the total, and the gather by name
+            device_us += us
+            kernel_launches += evt.count
+            top.append((us, evt.key))
+            if "gather_kernel" in evt.key and "vectorized" not in evt.key \
+                    and "index" not in evt.key.lower():
+                classes["cache gather kernel"] += us
+            continue
+        shapes = str(evt.input_shapes)
+        if evt.key in ("aten::mm", "aten::addmm", "aten::linear", "aten::matmul"):
+            key = ("readout (fp32 product with the [V, D] table)" if str(vocab) in shapes
+                   else "weight products (bf16 F.linear: q, k, v, out, FFN)")
+        elif evt.key in ("aten::bmm", "aten::_softmax", "aten::softmax"):
+            key = ("beam re-ranking (log_softmax, top-k, gathers over [B, nb, V])"
+                   if str(vocab) in shapes
+                   else "attention products (torch.bmm, fp32 out) and softmax")
+        elif str(vocab) in shapes or evt.key in ("aten::topk", "aten::_log_softmax"):
+            key = "beam re-ranking (log_softmax, top-k, gathers over [B, nb, V])"
+        else:
+            key = "RMSNorm, RoPE, GELU, residuals, casts, cache writes"
+        classes[key] += us
+    if device_us <= 0:
+        raise RuntimeError("torch.profiler recorded no device time")
+    device_ms = device_us / 1e3 / steps
+    log(f"-- profile of {steps} Gemma-2B beam-4 decode steps (batch {G_BATCH}, active cache "
+        f"{G_SEGMENT} wide; torch.profiler, self device time by launching op): "
+        f"{device_ms:.3f} ms/step device against {step_ms:.3f} ms/step wall of the timed "
+        f"request without the profiler, busy share {device_ms / step_ms:.4f}; "
+        f"{kernel_launches / steps:.0f} kernels and copies a step")
+    for name, us in sorted(classes.items(), key=lambda kv: -kv[1]):
+        log(f"   {us / 1e3 / steps:10.3f} ms/step  {100 * us / device_us:6.2f}%  {name}")
+    log("   top kernels:")
+    for us, key in sorted(top, reverse=True)[:25]:
+        log(f"   {us / 1e3 / steps:10.3f} ms/step  {key[:110]}")
+
+
+def phase_gemma_serve(device, profile: bool) -> dict[str, dict[str, int]]:
+    log(f"== phase 10: Gemma serve ({G_PRESET}, full width and depth, bf16, batch {G_BATCH}, "
+        f"prompt {G_PROMPT}, max_length {G_MAX_LENGTH}, segment_len {G_SEGMENT})")
+    cfg = get_preset(G_PRESET)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    lm = GemmaCausalLM(cfg, dtype=torch.bfloat16, param_dtype=torch.bfloat16, device=device)
+    lm.init(torch.Generator(device=device).manual_seed(0)).eval()
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in lm.parameters())
+    log(f"config: {cfg}")
+    log(f"parameters: {n_params / 1e9:.3f} B in bf16, built on the card in "
+        f"{time.perf_counter() - t0:.2f} s; memory held {torch.cuda.memory_allocated() / 2**30:.2f} "
+        f"GiB (the fp32 copy of the embedding table for the readout, "
+        f"{cfg.vocab_size * cfg.hidden_dim * 4 / 2**30:.2f} GiB, is made at the first readout)")
+    if (cfg.num_layers, cfg.hidden_dim, cfg.vocab_size) != (18, 2048, 256000):
+        raise AssertionError("the Gemma path must run at gemma_2b_en's published size")
+
+    # (a) text in, text out, ragged prompts
+    t0 = time.perf_counter()
+    tokenizer = build_gemma_tokenizer(cfg.vocab_size)
+    pre = GemmaCausalLMPreprocessor(tokenizer, sequence_length=G_TEXT_PROMPT)
+    ids, lens = pre(list(GEMMA_TEXTS), for_generation=True)
+    log(f"tokenizer of {cfg.vocab_size} pieces built in {time.perf_counter() - t0:.2f} s; "
+        f"prompt lengths {lens.tolist()} in a buffer of {G_TEXT_PROMPT}")
+    if len(set(lens.tolist())) < 2 or ids[0, 0] != tokenizer.bos_id:
+        raise AssertionError("the text prompts should be ragged and start with <bos>")
+    prompt_t = torch.tensor(ids, device=device, dtype=torch.long)
+    lens_t = torch.tensor(lens, device=device, dtype=torch.long)
+    tokens, _, _, _ = gemma_request(lm, "greedy, text prompts", prompt_t, lens_t, None, 0,
+                                    timed=False, max_length=G_TEXT_MAX_LENGTH)
+    texts = pre.generate_postprocess(tokens.cpu().numpy())
+    for text, want in zip(texts, GEMMA_TEXTS):
+        log(f"  {want!r} -> {text[:100]!r}")
+        if not (isinstance(text, str) and text.startswith(want)):
+            raise AssertionError(f"generated text does not start with its prompt {want!r}")
+    beam_text, launches_text, _, _ = gemma_request(
+        lm, "beam 2, text prompts", prompt_t, lens_t, BeamSampler(2),
+        G_TEXT_MAX_LENGTH - int(lens.min()), timed=False, max_length=G_TEXT_MAX_LENGTH)
+    for text, want in zip(pre.generate_postprocess(beam_text.cpu().numpy()), GEMMA_TEXTS):
+        if not text.startswith(want):
+            raise AssertionError(f"beam text does not start with its prompt {want!r}")
+
+    # (b) the requests, one warm-up call each
+    rng = np.random.RandomState(0)
+    prompt = torch.tensor(rng.randint(4, cfg.vocab_size, (G_BATCH, G_PROMPT)), device=device)
+    lengths = torch.full((G_BATCH,), G_PROMPT, dtype=torch.long, device=device)
+    steps = G_MAX_LENGTH - G_PROMPT
+    requests = (("greedy", None, 0), ("beam 2", BeamSampler(2), steps),
+                ("beam 4", BeamSampler(4), steps),
+                (f"contrastive k={G_CONTRASTIVE_K}", ContrastiveSampler(k=G_CONTRASTIVE_K), 0))
+    results, paths, step_ms = {}, {}, {}
+    seg_trace, mono_trace = [], []
+    for name, sampler, want in requests:
+        # the beam-4 warm-up is the traced run of the segmented search
+        warm, _, _, _ = gemma_request(lm, f"{name} (warm-up)", prompt, lengths, sampler, want,
+                                      timed=False, trace=seg_trace if name == "beam 4" else None)
+        results[name], paths[name], dt, _ = gemma_request(lm, name, prompt, lengths, sampler, want)
+        step_ms[name] = 1e3 * dt / steps
+        if sampler is None or isinstance(sampler, BeamSampler):
+            # greedy and beam search draw nothing: a second call gives the first one's tokens
+            if not torch.equal(warm, results[name]):
+                raise AssertionError(f"{name}: two calls of one request return other tokens")
+        del warm
+        torch.cuda.empty_cache()
+
+    # (c) the same search on the kernel's plain version, and on the monolithic cache
+    kernel_fn = gemma_causal_lm.beam_cache_gather
+
+    def plain_gather(cache, parent, out=None):
+        return out.copy_(cg.beam_cache_gather_reference(cache, parent))
+
+    gemma_causal_lm.beam_cache_gather = plain_gather
+    try:
+        plain_tokens, _, _, _ = gemma_request(lm, "beam 4, plain gather swapped in", prompt,
+                                              lengths, BeamSampler(4), 0)
+    finally:
+        gemma_causal_lm.beam_cache_gather = kernel_fn
+    if not torch.equal(plain_tokens, results["beam 4"]):
+        raise AssertionError("beam 4 with the kernel and with its plain version pick other tokens")
+    log("beam 4: the kernel run and the plain-gather run pick the same tokens exactly")
+    top = check_cache_layouts(lm, "beam 4 tokens", prompt, results["beam 4"], 4)
+    mono, _, _, _ = gemma_request(lm, "beam 4, monolithic cache", prompt, lengths, BeamSampler(4),
+                                  0, cache_policy="monolithic", trace=mono_trace)
+    check_search_divergence("beam 4 segmented vs monolithic", seg_trace, mono_trace,
+                            results["beam 4"], mono, G_PROMPT, top)
+    del mono, plain_tokens, seg_trace, mono_trace
+    torch.cuda.empty_cache()
+
+    # (d) beam 1 is greedy
+    beam1, launches1, _, _ = gemma_request(lm, "beam 1", prompt, lengths, BeamSampler(1), steps)
+    check_cache_layouts(lm, "beam 1 vs greedy", prompt, beam1, 1, other=results["greedy"])
+
+    if profile:
+        profile_gemma_decode(lm, prompt, lengths, step_ms["beam 4"])
+
+    beam = {k: paths["beam 2"][k] + paths["beam 4"][k] + launches1[k] + launches_text[k]
+            for k in launches1}
+    other = {k: paths["greedy"][k] + paths[f"contrastive k={G_CONTRASTIVE_K}"][k]
+             for k in launches1}
+    return {"gemma_beam_serve": beam, "gemma_greedy_contrastive_serve": other}
+
 
 def main(argv: list[str]) -> int:
     profile = "--profile" in argv
@@ -961,6 +1506,10 @@ def main(argv: list[str]) -> int:
     data = synthetic_batch(device, I_BATCH, I_CLASSES)
     intern_model, paths["intern_train"] = phase_intern_train(env, data, profile)
     paths["intern_serve"] = phase_intern_serve(env, data, intern_model)
+    del intern_model, data
+    torch.cuda.empty_cache()
+
+    paths.update(phase_gemma_serve(device, profile))
 
     for k in kernels:
         k["launches_by_path"] = {path: counts[k["name"]] for path, counts in paths.items()}
@@ -970,7 +1519,8 @@ def main(argv: list[str]) -> int:
                "swin_train": loss_kernels + ("window_attention_fwd", "window_attention_bwd"),
                "swin_serve": ("window_attention_fwd",),
                "intern_train": loss_kernels + ("deform_local_fwd", "deform_local_bwd"),
-               "intern_serve": ("deform_local_fwd",)}
+               "intern_serve": ("deform_local_fwd",),
+               "gemma_beam_serve": ("cache_gather",)}
     for path, names in on_path.items():
         for name in names:
             if paths[path][name] <= 0:

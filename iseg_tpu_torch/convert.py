@@ -24,7 +24,22 @@ module                flax leaf (layout)               torch tensor (layout)
                       when ``layer_scale`` is None)
 ``DCNv2``             params ``kernel``                the parameters of those names
                       ``[K*K*C, filters]``, ``bias``
+``QuantDense``        params ``kernel``                ``weight`` ``[prod(features),
+                      ``(*contract, *features)``       prod(contract)]`` (reshape +
+                                                       transpose)
+                      params ``kernel_scale``          buffer ``kernel_scale`` (ones)
+                      ``features``
+``QuantEmbed``        params ``embedding`` ``[V, D]``  ``embedding``
+                      params ``embedding_scale``       buffer ``embedding_scale``
+                      ``[V]``                          (ones)
+``RMSNorm`` (Gemma)   params ``scale``                 ``scale``
 ====================  ===============================  ==========================
+
+A ``GemmaCausalLM`` converts as its backbone (the flax tree of the JAX
+``GemmaCausalLM.init`` is the backbone's: ``token_embedding``, ``layer_i``,
+``final_normalization``). The ``*_scale`` leaves carry the int8 scales of
+the JAX package's quantized serving; the float path keeps them at one and
+does not apply them, and an int8 leaf raises (ROADMAP queue 1 item 26).
 
 :func:`load_flax` consumes every leaf on both sides or raises, so a
 renamed or missing layer cannot pass silently. The same paths key the
@@ -42,8 +57,10 @@ from torch import nn
 
 from iseg_tpu_torch.backbones.intern_image import InternImageBlock
 from iseg_tpu_torch.backbones.swin import WindowAttention
+from iseg_tpu_torch.nlp.gemma.causal_lm import GemmaCausalLM
 from iseg_tpu_torch.nn.dcn import DCNv2
-from iseg_tpu_torch.nn.norm import BatchNorm
+from iseg_tpu_torch.nn.norm import BatchNorm, RMSNorm
+from iseg_tpu_torch.ops.quant import QuantDense, QuantEmbed
 
 _Leaf = tuple[str, str, torch.Tensor, Callable, Callable]
 
@@ -64,8 +81,27 @@ def _same(t):
     return t
 
 
+def _dense_general(m: QuantDense) -> tuple[Callable, Callable]:
+    """(to_flax, from_flax) between ``weight [N, K]`` and the flax kernel
+    ``(*contract, *features)``; from_flax gives None for another shape."""
+    shape = (*m.contract, *m.features)
+
+    def to_flax(t):
+        return t.t().reshape(shape)
+
+    def from_flax(t):
+        if tuple(t.shape) != shape:
+            return None
+        return t.reshape(m.weight.shape[1], m.weight.shape[0]).t()
+
+    from_flax.flax_ndim = len(shape)
+    return to_flax, from_flax
+
+
 def _leaves(model: nn.Module) -> Iterator[_Leaf]:
     """(collection, flax path, tensor, to_flax, from_flax) for every leaf."""
+    if isinstance(model, GemmaCausalLM):
+        model = model.backbone
     for name, m in model.named_modules():
         prefix = name.replace(".", "/")
         prefix = prefix + "/" if prefix else ""
@@ -92,14 +128,26 @@ def _leaves(model: nn.Module) -> Iterator[_Leaf]:
             # bare parameters of the module itself, named as in the flax tree
             for leaf, param in m.named_parameters(recurse=False):
                 yield "params", prefix + leaf, param, _same, _same
+        elif isinstance(m, QuantDense):
+            yield ("params", prefix + "kernel", m.weight, *_dense_general(m))
+            yield "params", prefix + "kernel_scale", m.kernel_scale, _same, _same
+            if m.bias is not None:
+                yield "params", prefix + "bias", m.bias, _same, _same
+        elif isinstance(m, QuantEmbed):
+            yield "params", prefix + "embedding", m.embedding, _same, _same
+            yield "params", prefix + "embedding_scale", m.embedding_scale, _same, _same
+        elif isinstance(m, RMSNorm):
+            yield "params", prefix + "scale", m.scale, _same, _same
         elif (any(True for _ in m.parameters(recurse=False))
               or any(True for _ in m.buffers(recurse=False))):
             raise TypeError(f"no flax mapping for {name or 'the root'} ({type(m).__name__})")
 
 
 def param_tree(model: nn.Module) -> dict[str, torch.Tensor]:
-    """Flat {flax path: parameter} of the model, in module order."""
-    return {path: t for col, path, t, _, _ in _leaves(model) if col == "params"}
+    """Flat {flax path: parameter} of the model, in module order (the
+    buffers that ride in the flax ``params`` collection are left out)."""
+    return {path: t for col, path, t, _, _ in _leaves(model)
+            if col == "params" and isinstance(t, nn.Parameter)}
 
 
 def batch_stats_tree(model: nn.Module) -> dict[str, torch.Tensor]:
@@ -144,7 +192,12 @@ def load_flax(model: nn.Module, variables: Mapping[str, Any]) -> nn.Module:
         if path not in pending[col]:
             raise KeyError(f"flax tree has no {col} leaf {path!r}")
         raw = np.asarray(pending[col].pop(path))
-        value = from_flax(torch.tensor(raw)) if raw.ndim == tensor.ndim else None
+        if raw.dtype == np.int8:
+            raise NotImplementedError(
+                f"{col}/{path} is int8: the int8 serving paths are not in the port yet "
+                "(ROADMAP queue 1 item 26)")
+        flax_ndim = getattr(from_flax, "flax_ndim", tensor.ndim)
+        value = from_flax(torch.tensor(raw)) if raw.ndim == flax_ndim else None
         if value is None or tuple(value.shape) != tuple(tensor.shape):
             raise ValueError(f"{col}/{path}: flax shape {raw.shape} does not map to "
                              f"the module's {tuple(tensor.shape)}")

@@ -2,7 +2,8 @@
 
 :func:`common_env_setup` seeds the host RNGs, picks the device and the
 compute dtype (bf16 under autocast with fp32 params, or fp32), and turns
-TF32 off. cuDNN autotuning (``torch.backends.cudnn.benchmark``) is left
+TF32 off. :func:`resolve_device` is the device rule alone, for modules
+that allocate their parameters where they are built. cuDNN autotuning (``torch.backends.cudnn.benchmark``) is left
 to the caller: it speeds up fixed shapes but makes bf16 sums vary from
 run to run. It raises when CUDA is asked for and absent:
 it never drops to the CPU quietly.
@@ -50,12 +51,21 @@ def set_random_seed(seed: int) -> None:
     os.environ["PYTHONHASHSEED"] = str(seed)
 
 
+def resolve_device(device="cuda") -> torch.device:
+    """``device`` as a ``torch.device``; raises when it names CUDA and no
+    card is there. The port's entry points default to ``"cuda"`` and take the
+    CPU only when the caller names it."""
+    resolved = torch.device(device)
+    if resolved.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {str(device)!r} requested but CUDA is not available "
+                           '(pass device="cpu" to run on the CPU)')
+    return resolved
+
+
 def common_env_setup(config: EnvConfig | None = None, **kwargs) -> Env:
     if config is None:
         config = EnvConfig(**kwargs)
-    device = torch.device(config.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"device {config.device!r} requested but CUDA is not available")
+    device = resolve_device(config.device)
     set_random_seed(config.random_seed)
     # TF32 off: fp32 work stays full fp32, as in the JAX package's fp32 runs
     # (bf16 autocast work is unaffected either way)

@@ -1,0 +1,37 @@
+"""Gemma causal LM: backbone (RoPE + GQA attention, GeGLU FFN, RMSNorm) with
+KV-cache generation, the samplers, and the SentencePiece tokenizer.
+
+Counterpart of ``iseg_tpu/nlp/gemma``. The tensor-parallel layout
+(``get_layout_map``, ``shard_gemma_params``), the pipeline loss and the int8
+serving paths are not in the port yet (ROADMAP queue 1 items 25 and 26).
+"""
+
+from iseg_tpu_torch.nlp.gemma.causal_lm import GemmaCausalLM
+from iseg_tpu_torch.nlp.gemma.config import GEMMA_PRESETS, GemmaConfig, get_preset
+from iseg_tpu_torch.nlp.gemma.model import GemmaBackbone
+from iseg_tpu_torch.nlp.gemma.samplers import (
+    BeamSampler,
+    ContrastiveSampler,
+    GreedySampler,
+    RandomSampler,
+    Sampler,
+    TopKSampler,
+    TopPSampler,
+    get_sampler,
+)
+
+__all__ = [
+    "GemmaConfig",
+    "GEMMA_PRESETS",
+    "get_preset",
+    "GemmaBackbone",
+    "GemmaCausalLM",
+    "Sampler",
+    "GreedySampler",
+    "RandomSampler",
+    "TopKSampler",
+    "TopPSampler",
+    "BeamSampler",
+    "ContrastiveSampler",
+    "get_sampler",
+]

@@ -6,10 +6,16 @@ deviations) and start their bias at zero; flax's BatchNorm starts at
 scale 1, bias 0, mean 0, var 1, its LayerNorm at scale 1, bias 0; Swin's
 relative-position-bias table is normal with std 0.02; DCN's offset and
 modulation layers start at zero (a deformable conv starts as a plain one)
-and InternImage's layer-scale vectors at their ``layer_scale``.
-:func:`initialize` does the same for a whole module tree from an explicit ``torch.Generator``. The values are
-drawn on the CPU and copied to the parameters' device, so a seed gives
-the same weights on every device. (The numbers differ from JAX's for the
+and InternImage's layer-scale vectors at their ``layer_scale``. Gemma's
+``QuantDense`` kernels are ``lecun_normal`` too, its embedding table is
+``variance_scaling(1.0, "fan_in", "normal", out_axis=0)`` (a plain normal
+with std ``1 / sqrt(D)``), its RMSNorm scales start at zero and the int8
+scales it carries at one.
+:func:`initialize` does the same for a whole module tree from an explicit
+``torch.Generator``. The values are drawn in fp32 on the generator's device
+and copied to the parameters' device: a CPU generator gives the same
+weights on every device, and a CUDA generator fills a model of billions of
+parameters on the card in seconds. (The numbers differ from JAX's for the
 same seed: a parity test carries JAX's weights over with
 :mod:`iseg_tpu_torch.convert` instead.)
 """
@@ -24,17 +30,21 @@ from torch import nn
 from iseg_tpu_torch.backbones.intern_image import InternImageBlock
 from iseg_tpu_torch.backbones.swin import WindowAttention
 from iseg_tpu_torch.nn.dcn import DCNv2
-from iseg_tpu_torch.nn.norm import BatchNorm
+from iseg_tpu_torch.nn.norm import BatchNorm, RMSNorm
+from iseg_tpu_torch.ops.quant import QuantDense, QuantEmbed
 
 # std of a unit normal truncated to [-2, 2] (jax.nn.initializers.variance_scaling)
 _TRUNC_STD = 0.87962566103423978
 
 
-def lecun_normal_(tensor: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
-    """Fill an OIHW conv or [out, in] linear weight like flax's lecun_normal."""
-    fan_in = tensor[0].numel()
+def lecun_normal_(tensor: torch.Tensor, generator: torch.Generator,
+                  fan_in: int | None = None) -> torch.Tensor:
+    """Fill an OIHW conv or [out, in] linear weight like flax's lecun_normal
+    (``fan_in`` defaults to the elements of one output row)."""
+    if fan_in is None:
+        fan_in = tensor[0].numel()
     std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
-    values = torch.empty(tensor.shape, dtype=torch.float32)
+    values = torch.empty(tensor.shape, dtype=torch.float32, device=generator.device)
     nn.init.trunc_normal_(values, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)
     with torch.no_grad():
         tensor.copy_(values)
@@ -66,7 +76,8 @@ def initialize(module: nn.Module, generator: torch.Generator) -> nn.Module:
             m.bias.zero_()
         elif isinstance(m, WindowAttention):
             table = m.relative_position_bias_table
-            table.copy_(torch.empty(table.shape).normal_(0.0, 0.02, generator=generator))
+            table.copy_(torch.empty(table.shape, device=generator.device)
+                        .normal_(0.0, 0.02, generator=generator))
         elif isinstance(m, InternImageBlock):
             if m.layer_scale is not None:
                 m.gamma1.fill_(m.layer_scale)
@@ -75,6 +86,24 @@ def initialize(module: nn.Module, generator: torch.Generator) -> nn.Module:
             lecun_normal_(m.kernel.t(), generator)  # [filters, K*K*C]: fan-in K*K*C
             if m.bias is not None:
                 m.bias.zero_()
+        elif isinstance(m, QuantDense):
+            # flax's lecun_normal takes the kernel's second-to-last axis as
+            # the input axis and every axis before it as receptive field, so
+            # for a (*contract, *features) kernel fan_in is everything but
+            # the last feature axis (for query/key/value [D, heads, d] that
+            # is D * heads, not D)
+            lecun_normal_(m.weight, generator, fan_in=m.weight.numel() // m.features[-1])
+            m.kernel_scale.fill_(1.0)
+            if m.bias is not None:
+                m.bias.zero_()
+        elif isinstance(m, QuantEmbed):
+            table = m.embedding
+            std = math.sqrt(1.0 / table.shape[1])
+            table.copy_(torch.empty(table.shape, dtype=torch.float32, device=generator.device)
+                        .normal_(0.0, std, generator=generator))
+            m.embedding_scale.fill_(1.0)
+        elif isinstance(m, RMSNorm):
+            m.scale.zero_()
         elif any(True for _ in m.parameters(recurse=False)):
             raise TypeError(f"no initialization rule for {name or 'the root'} "
                             f"({type(m).__name__})")

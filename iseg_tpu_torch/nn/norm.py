@@ -12,6 +12,9 @@ because it must behave like flax's ``nn.BatchNorm`` with Keras defaults:
   autocast), and the output returns in the input's dtype.
 
 On one card BatchNorm and SyncBatchNorm are the same layer.
+
+:class:`RMSNorm` is Gemma's (``iseg_tpu/nlp/gemma/model.py``); the
+:func:`normalization` factory does not hand it out yet.
 """
 
 from __future__ import annotations
@@ -21,6 +24,8 @@ from typing import Callable
 
 import torch
 from torch import nn
+
+from iseg_tpu_torch.core.env import resolve_device
 
 _DEFAULT_NORM = "sync_batch_norm"
 _BN_MOMENTUM_OVERRIDE: float | None = None
@@ -97,6 +102,25 @@ class BatchNorm(nn.Module):
 
 class SyncBatchNorm(BatchNorm):
     """Cross-replica BN; on one card it is :class:`BatchNorm`."""
+
+
+class RMSNorm(nn.Module):
+    """RMS normalization in fp32 with Gemma's ``(1 + scale)`` convention.
+    The scale is allocated on ``device`` (the card unless the caller names
+    the CPU)."""
+
+    def __init__(self, dim: int, epsilon: float = 1e-6, param_dtype=torch.float32,
+                 device="cuda"):
+        super().__init__()
+        self.epsilon = epsilon
+        self.scale = nn.Parameter(torch.zeros((dim,), dtype=param_dtype,
+                                              device=resolve_device(device)))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.float()
+        var = xf.square().mean(dim=-1, keepdim=True)
+        xf = xf * torch.rsqrt(var + self.epsilon)
+        return (xf * (1.0 + self.scale.float())).to(x.dtype)
 
 
 def normalization(kind: str | None = None, **kwargs) -> Callable[..., nn.Module]:

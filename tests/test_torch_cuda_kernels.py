@@ -12,7 +12,8 @@ fp32 losses agree to rtol 1e-5 and fp32 gradients to rtol 1e-4 / atol
 fp32; the kernel's gradient is then rounded to bf16 (rtol 1e-2). The
 dense-local kernels sum the same products as their plain versions in
 another order: fp32 atol 2e-5 of max(1, max |plain|); with bf16 values the
-outputs that are rounded to bf16 get 1e-2 of it.
+outputs that are rounded to bf16 get 1e-2 of it. The beam cache gather is a
+copy: bitwise equal to its plain version for every dtype and slab size.
 """
 
 import numpy as np
@@ -353,3 +354,130 @@ def test_cuda_deform_local_rejects_wrong_inputs(cuda_device):
         dl.deform_dense_local_flat(x, off_dy[..., :9], off_dx, mod, 2, 3, 2)
     with pytest.raises(ValueError):  # device
         dl.deform_dense_local_flat(x, off_dy.cpu(), off_dx, mod, 2, 3, 2)
+
+
+# ------------------------------------------------------- beam cache gather
+
+CACHE_GATHER_SHAPES = {
+    "beam4_active_cache_bf16": ((2, 4, 18, 2, 64, 1, 256), torch.bfloat16),
+    "beam2_f32": ((3, 2, 2, 2, 40, 2, 64), torch.float32),
+    "odd_slab_35_floats": ((2, 3, 5, 7), torch.float32),  # 140 bytes: 4-byte copies
+    "odd_slab_7_bf16": ((2, 3, 7), torch.bfloat16),  # 14 bytes: 2-byte copies
+    "bytes_13": ((4, 5, 13), torch.uint8),  # 1-byte copies
+    "int64_slab": ((2, 2, 3, 5), torch.int64),
+    "piece_edge_bf16": ((1, 2, 8192 + 8), torch.bfloat16),  # one 16 KB piece and a short one
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("index_dtype", [torch.int32, torch.int64], ids=["i32", "i64"])
+@pytest.mark.parametrize("shape", sorted(CACHE_GATHER_SHAPES))
+def test_cuda_cache_gather_matches_plain_version_bitwise(cuda_device, shape, index_dtype):
+    from iseg_tpu_torch.ops.kernels import cache_gather as cg
+
+    dims, dtype = CACHE_GATHER_SHAPES[shape]
+    rng = np.random.RandomState(0)
+    if dtype.is_floating_point:
+        cache = torch.tensor(rng.randn(*dims).astype(np.float32), device=cuda_device).to(dtype)
+    else:
+        cache = torch.tensor(rng.randint(0, 200, dims), device=cuda_device).to(dtype)
+    parent = torch.tensor(rng.randint(0, dims[1], dims[:2]), device=cuda_device).to(index_dtype)
+    parent[0] = parent[0, 0]  # a parent repeated across a whole row
+    cg.reset_launch_counts()
+    got = cg.beam_cache_gather(cache, parent)
+    spare = torch.empty_like(cache)
+    assert cg.beam_cache_gather(cache, parent, out=spare) is spare
+    torch.cuda.synchronize()
+    assert cg.LAUNCH_COUNTS == {"gather": 2}
+    want = cg.beam_cache_gather_reference(cache, parent)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert torch.equal(got.view(torch.uint8), want.view(torch.uint8))
+    assert torch.equal(spare.view(torch.uint8), want.view(torch.uint8))
+
+
+@pytest.mark.cuda
+def test_cuda_cache_gather_misaligned_base_and_negative_parents(cuda_device):
+    from iseg_tpu_torch.ops.kernels import cache_gather as cg
+
+    storage = torch.randn(2 * 3 * 32 + 1, device=cuda_device)
+    cache = storage[1:].view(2, 3, 32)  # base address 4 bytes off a 16-byte boundary
+    assert cache.data_ptr() % 16 == 4 and cache.is_contiguous()
+    parent = torch.tensor([[-1, 0, -3], [2, 2, 1]], device=cuda_device)
+    got = cg.beam_cache_gather(cache, parent)
+    torch.cuda.synchronize()
+    assert torch.equal(got, cg.beam_cache_gather_reference(cache, parent))
+
+
+@pytest.mark.cuda
+def test_cuda_cache_gather_rejects_wrong_inputs_and_never_falls_back(cuda_device):
+    from iseg_tpu_torch.ops.kernels import cache_gather as cg
+
+    cache = torch.zeros((2, 3, 4, 8), device=cuda_device)
+    parent = torch.zeros((2, 3), dtype=torch.int64, device=cuda_device)
+    cg.reset_launch_counts()
+    with pytest.raises(ValueError, match="overlaps"):
+        cg.beam_cache_gather(cache, parent, out=cache)
+    with pytest.raises(ValueError, match="contiguous"):
+        cg.beam_cache_gather(cache.transpose(2, 3), parent)
+    with pytest.raises(ValueError, match="contiguous"):
+        cg.beam_cache_gather(cache, parent.t().contiguous().t())
+    with pytest.raises(TypeError):
+        cg.beam_cache_gather(cache, parent.to(torch.int16))
+    with pytest.raises(ValueError, match="parent on"):
+        cg.beam_cache_gather(cache, parent.cpu())
+    assert cg.LAUNCH_COUNTS == {"gather": 0}
+    assert cg.beam_cache_gather(cache[:, :, :0], parent).shape == (2, 3, 0, 8)
+    assert cg.LAUNCH_COUNTS == {"gather": 0}  # nothing to copy, nothing launched
+
+
+@pytest.mark.cuda
+def test_cuda_gemma_beam_search_launches_one_gather_per_step(cuda_device):
+    """The segmented beam search on the card: one kernel launch per decode
+    step, none in the other programs, and the tokens of the monolithic
+    search (which reorders by the plain gather)."""
+    from iseg_tpu_torch.nlp.gemma import BeamSampler, ContrastiveSampler, GemmaCausalLM, get_preset
+    from iseg_tpu_torch.ops.kernels import cache_gather as cg
+
+    lm = GemmaCausalLM(get_preset("gemma_test"), device=cuda_device)
+    lm.init(torch.Generator(device=cuda_device).manual_seed(0))
+    prompt = np.array([[5, 9, 3, 7], [11, 2, 0, 0]])
+    lengths = np.array([4, 2])
+    cg.reset_launch_counts()
+    seg = lm.generate(prompt, lengths, max_length=20, sampler=BeamSampler(3), segment_len=4)
+    assert cg.LAUNCH_COUNTS == {"gather": 20 - 2}
+    mono = lm.generate(prompt, lengths, max_length=20, sampler=BeamSampler(3),
+                       cache_policy="monolithic")
+    lm.generate(prompt, lengths, max_length=20)
+    lm.generate(prompt, lengths, max_length=20, sampler=ContrastiveSampler(3, 0.5))
+    assert cg.LAUNCH_COUNTS == {"gather": 20 - 2}
+    assert seg.device.type == "cuda" and torch.equal(seg, mono)
+    assert torch.equal(seg[0, :4].cpu(), torch.tensor(prompt[0], dtype=torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_end_token", [False, True])
+def test_cuda_gemma_ragged_beam_request_gives_the_cpu_paths_tokens(cuda_device, with_end_token):
+    """``samplers.top_k`` breaks exact ties by index on the CPU (the rule the
+    CPU tests hold against JAX) and by ``torch.topk`` on the card. Exact ties
+    arise only among continuations of dead or finished beams, which never
+    reach the result: a ragged-prompt beam request with the same fp32 weights
+    returns the same tokens on both devices, with the segmented and with the
+    monolithic cache."""
+    from iseg_tpu_torch.nlp.gemma import BeamSampler, GemmaCausalLM, get_preset
+
+    cpu = GemmaCausalLM(get_preset("gemma_test"), device="cpu")
+    cpu.init(torch.Generator().manual_seed(0))
+    card = GemmaCausalLM(get_preset("gemma_test"), device=cuda_device)
+    card.load_state_dict(cpu.state_dict())
+    prompt = np.array([[5, 9, 3, 7, 21, 4], [11, 2, 0, 0, 0, 0], [8, 8, 30, 1, 0, 0]])
+    lengths = np.array([6, 2, 4])
+    kw = dict(max_length=24, sampler=BeamSampler(4), segment_len=5)
+    if with_end_token:
+        # a token that the search without an end token really emits
+        kw["end_token_id"] = int(cpu.generate(prompt, lengths, **kw)[1, 10])
+    want = cpu.generate(prompt, lengths, **kw)
+    if with_end_token:
+        assert (want[:, 6:] == 0).any(), "no beam finished: the case tests nothing"
+    for policy in ("segmented", "monolithic"):
+        got = card.generate(prompt, lengths, cache_policy=policy, **kw)
+        assert got.device.type == "cuda" and torch.equal(got.cpu(), want), policy
