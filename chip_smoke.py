@@ -4,6 +4,7 @@
     python3 chip_smoke.py            # every phase below
     python3 chip_smoke.py --profile  # and torch.profiler tables of the Swin and InternImage
                                      # train steps and of Gemma's beam-4 decode steps
+    python3 chip_smoke.py --ab OLD   # OLD's kernels and this tree's, timed in turns
 
 Drives the port's four main paths at full width, with random weights from
 seed 0. Three train and serve a segmentation model on one fixed synthetic
@@ -37,12 +38,15 @@ Phases, in order; any failure raises and the script exits non-zero:
    clean build directory (one nvcc each, started together) and print the
    build times and ptxas reports;
 2. kernels vs their plain versions at the main paths' shapes, with median
-   CUDA-event times, each kernel's bound on this card, and for window
+   CUDA-event times (the host's dispatch of a call is in them where the
+   device waits for it), each kernel's bound on this card, and for window
    attention ``F.scaled_dot_product_attention`` as a yardstick (timed here,
    used nowhere in the port): upsample + CE at [16,32,32,21] -> [16,512,512],
    [8,128,128,19] -> [8,512,512] and [8,16,16,19] -> [8,512,512]; window
    attention forward and backward at Swin-L's four stage shapes, shifted and
-   unshifted, f32 and bf16; dense-local sampling forward and all four
+   unshifted, f32 and bf16 (the bf16 backward on the tensor cores, the f32 one
+   on the CUDA cores), and in bf16 at window 12 (N = 144: ``swin_large_384``'s
+   four stage shapes at the same input); dense-local sampling forward and all four
    gradients at InternImage-T's four stage shapes, in f32 and in the
    autocast type mix (bf16 values on a transposed view, fp32 offsets, bf16
    modulation), with offsets drawn beyond the clamp; the beam cache gather,
@@ -58,7 +62,8 @@ Phases, in order; any failure raises and the script exits non-zero:
 5. ResNet serve: single-scale inference with the trained weights agrees
    with the fused model's low-resolution logits;
 6. Swin train: 2 warm-up + 5 timed steps; losses finite; per step exactly
-   24 window-attention forward and 24 backward launches and 1 + 1 loss
+   24 window-attention forward and 24 tensor-core backward launches (none of
+   the CUDA-core backward: autocast gives bf16 q, k, v) and 1 + 1 loss
    kernel launches; ms/step, img/s, peak memory;
 7. Swin serve, batch 2, trained weights: eval logits with the kernels agree
    with the same model run on the kernels' plain versions; multi-scale
@@ -91,6 +96,17 @@ Phases, in order; any failure raises and the script exits non-zero:
     never part return equal tokens; (d) beam 1 returns greedy's tokens, or
     parts from them at a near-tie held the same way.
 
+``--ab OLD`` runs none of the phases. OLD is another checkout of the repo
+(for example the parent commit's ``git archive`` unpacked into the
+git-ignored ``_checkout/v1``). It runs OLD, this tree, this tree, OLD, each
+in a process of its own with that tree's ``iseg_tpu_torch`` and this file's
+code, so one timer serves both: the bf16 window-attention backward at
+Swin-L's four stage shapes (shifted) with SDPA's backward beside it, the
+cache gather at Gemma-2B's four active-cache shapes with ``index_select``
+beside it, and the Swin train step (2 warm-up + 5 timed steps, then 3
+profiled). The last line holds each number of the four processes, OLD's two
+and this tree's two.
+
 The launch counters are set to 0 just before each main path (3, 6, 7, 8, 9,
 and each request of 10) and read just after; a kernel of a path that was
 launched no time there fails the run. Third line from the end: a JSON object with one entry per kernel;
@@ -102,6 +118,7 @@ from __future__ import annotations
 
 import json
 import math
+import pathlib
 import shutil
 import statistics
 import subprocess
@@ -111,6 +128,9 @@ import time
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+if __name__ == "__main__" and sys.argv[1:2] == ["--ab-child"]:
+    sys.path.insert(0, sys.argv[2])  # that tree's package, timed by this file's code
 
 from iseg_tpu_torch.backbones import get_backbone
 from iseg_tpu_torch.backbones import swin as swin_module
@@ -147,6 +167,10 @@ WINDOW, HEAD_DIM = 7, 32
 WA_STAGES = (("stage0", 2888, 6, 361, 2), ("stage1", 800, 12, 100, 2),
              ("stage2", 200, 24, 25, 18), ("stage3", 72, 48, 9, 2))
 WA_LAUNCHES_PER_FORWARD = sum(s[4] for s in WA_STAGES)  # 24
+# swin_large_384 (window 12, N = 144) at the same input: maps 128/64/32/16
+# padded to 132/72/36/24; (stage, window batch, heads, windows per image)
+WA12_STAGES = (("stage0", 968, 6, 121), ("stage1", 288, 12, 36), ("stage2", 72, 24, 9),
+               ("stage3", 32, 48, 4))
 # InternImage path
 I_BATCH, I_CLASSES, I_OS = 8, 19, 32
 I_WARMUP, I_TIMED, I_SERVE_BATCH = 2, 5, 2
@@ -229,8 +253,12 @@ def card_line() -> str:
 
 
 def cuda_median_ms(fn, reps: int = 20, warmup: int = 3, setup=None) -> float:
-    """Median over ``reps`` of the device time of ``fn()``, by CUDA events.
-    ``setup()`` runs before each rep, outside the timed window."""
+    """Median over ``reps`` of the time between CUDA events recorded just
+    before and just after ``fn(arg)``. Besides the device's work it holds
+    the part of the host's dispatch of the call (Python, autograd, the
+    wrapper's checks) that the device waits for: all of it where the device
+    is idle when the first event is recorded. ``setup()`` runs before each
+    rep, outside the timed window."""
     times = []
     for i in range(warmup + reps):
         arg = setup() if setup is not None else None
@@ -370,34 +398,70 @@ def wa_bound(q, bias, mask, backward: bool) -> tuple[float, str]:
     return bound_ms(nbytes, flops, q.dtype)
 
 
-def check_window_attention(device, stage, bnw, heads, nw, shifted, dtype, seed=0) -> dict:
-    n, d = WINDOW * WINDOW, HEAD_DIM
-    scale = 1.0 / math.sqrt(d)
+def wa_inputs(device, bnw, heads, nw, shifted, dtype, seed=0, window=WINDOW):
+    """q, k, v, dout, bias, mask in the layouts the Swin block gives: q, k, v
+    are views of the packed qkv projection, the incoming gradient is
+    token-major."""
+    n, d = window * window, HEAD_DIM
     gen = torch.Generator(device=device).manual_seed(seed)
-    # the layouts the Swin block gives: q, k, v are views of the packed qkv
-    # projection, the incoming gradient is token-major
     qkv = torch.randn((bnw, n, 3, heads, d), generator=gen, device=device).to(dtype)
     q, k, v = (t.permute(0, 2, 1, 3) for t in qkv.unbind(2))
     dout = torch.randn((bnw, n, heads, d), generator=gen, device=device).to(dtype)
     dout = dout.permute(0, 2, 1, 3)
     bias = 0.1 * torch.randn((heads, n, n), generator=gen, device=device)
-    side = int(math.isqrt(nw)) * WINDOW
-    mask = torch.tensor(swin_module._shift_attn_mask(side, side, WINDOW, WINDOW // 2)
+    side = int(math.isqrt(nw)) * window
+    mask = torch.tensor(swin_module._shift_attn_mask(side, side, window, window // 2)
                         if shifted else np.zeros((1, n, n), np.float32), device=device)
-    name = f"{stage} bnw={bnw} H={heads} N={n} D={d} nW={mask.shape[0]} {dtype_name(dtype)}"
+    return q, k, v, dout, bias, mask
 
-    def leaves_of(bias_arg):
-        # detach() keeps a view's strides, so q, k, v stay packed
-        return [t.detach().requires_grad_(True) for t in (q, k, v)] + \
-            [bias_arg.detach().clone().requires_grad_(True)]
+
+def wa_leaves(q, k, v, bias):
+    # detach() keeps a view's strides, so q, k, v stay packed
+    return [t.detach().requires_grad_(True) for t in (q, k, v)] + \
+        [bias.detach().clone().requires_grad_(True)]
+
+
+def sdpa(q, k, v, full_bias, _mask, scale):
+    """F.scaled_dot_product_attention with the additive bias + mask of every
+    window made beforehand: a yardstick, used nowhere in the port."""
+    return F.scaled_dot_product_attention(q, k, v, attn_mask=full_bias, scale=scale)
+
+
+def wa_backward_ms(fn, q, k, v, dout, bias, mask, scale, **reps) -> float:
+    """Median time of the backward of ``fn`` through autograd; its forward
+    runs before each rep, outside the timed window."""
+    def setup():
+        leaves = wa_leaves(q, k, v, bias)
+        return leaves, fn(*leaves, mask, scale)
+
+    def run_grad(arg):
+        leaves, out = arg
+        torch.autograd.grad(out, leaves, dout)
+
+    return cuda_median_ms(run_grad, setup=setup, **reps)
+
+
+def check_window_attention(device, stage, bnw, heads, nw, shifted, dtype, seed=0,
+                           window=WINDOW) -> dict:
+    q, k, v, dout, bias, mask = wa_inputs(device, bnw, heads, nw, shifted, dtype, seed, window)
+    n, d = q.shape[2:]
+    scale = 1.0 / math.sqrt(d)
+    route = wa.backward_route(dtype, n, d)
+    name = (f"{stage} bnw={bnw} H={heads} N={n} D={d} nW={mask.shape[0]} {dtype_name(dtype)} "
+            f"bwd:{route}")
 
     def run(fn):
-        qq, kk, vv, bb = leaves_of(bias)
+        qq, kk, vv, bb = wa_leaves(q, k, v, bias)
         out = fn(qq, kk, vv, bb, mask, scale)
         grads = torch.autograd.grad(out, (qq, kk, vv, bb), dout)
         return [t.detach().float() for t in (out, *grads)]
 
-    got, want = run(wa.window_attention), run(wa.window_attention_reference)
+    wa.reset_launch_counts()
+    got = run(wa.window_attention)
+    want_counts = {"fwd": 1, "bwd": int(route == "cuda_core"), "bwd_mma": int(route == "mma")}
+    if wa.LAUNCH_COUNTS != want_counts:
+        raise AssertionError(f"[{name}] launches {wa.LAUNCH_COUNTS}, expected {want_counts}")
+    want = run(wa.window_attention_reference)
     torch.cuda.synchronize()
     errs = {}
     for key, a, b in zip(("out", "dq", "dk", "dv", "dbias"), got, want):
@@ -410,33 +474,18 @@ def check_window_attention(device, stage, bnw, heads, nw, shifted, dtype, seed=0
                                  f"max abs err {errs[key]:.3e} > {tol:.3e}")
     del got, want
 
-    # F.scaled_dot_product_attention with the same additive mask, as a yardstick
     full_bias = (bias[None] + mask[torch.arange(bnw, device=device) % mask.shape[0]][:, None])
     full_bias = full_bias.to(dtype).contiguous()
-
-    def sdpa(qq, kk, vv, bb, _mask, _scale):
-        return F.scaled_dot_product_attention(qq, kk, vv, attn_mask=bb, scale=scale)
-
-    def grad_setup(fn, bias_arg):
-        def make():
-            leaves = leaves_of(bias_arg)
-            return leaves, fn(*leaves, mask, scale)
-        return make
-
-    def run_grad(arg):
-        leaves, out = arg
-        torch.autograd.grad(out, leaves, dout)
-
     reps = dict(reps=10, warmup=2)
     with torch.no_grad():
         fwd_ms = cuda_median_ms(lambda _: wa.window_attention(q, k, v, bias, mask, scale), **reps)
         fwd_plain = cuda_median_ms(
             lambda _: wa.window_attention_reference(q, k, v, bias, mask, scale), **reps)
-        fwd_lib = cuda_median_ms(lambda _: sdpa(q, k, v, full_bias, None, None), **reps)
-    bwd_ms = cuda_median_ms(run_grad, setup=grad_setup(wa.window_attention, bias), **reps)
-    bwd_plain = cuda_median_ms(run_grad, setup=grad_setup(wa.window_attention_reference, bias),
+        fwd_lib = cuda_median_ms(lambda _: sdpa(q, k, v, full_bias, None, scale), **reps)
+    bwd_ms = wa_backward_ms(wa.window_attention, q, k, v, dout, bias, mask, scale, **reps)
+    bwd_plain = wa_backward_ms(wa.window_attention_reference, q, k, v, dout, bias, mask, scale,
                                **reps)
-    bwd_lib = cuda_median_ms(run_grad, setup=grad_setup(sdpa, full_bias), **reps)
+    bwd_lib = wa_backward_ms(sdpa, q, k, v, dout, full_bias, mask, scale, **reps)
     fwd_bound, fwd_by = wa_bound(q, bias, mask, backward=False)
     bwd_bound, bwd_by = wa_bound(q, bias, mask, backward=True)
     bwd_err = max(errs[key] for key in ("dq", "dk", "dv", "dbias"))
@@ -447,7 +496,7 @@ def check_window_attention(device, stage, bnw, heads, nw, shifted, dtype, seed=0
     return {
         "fwd": dict(shape=name, max_abs_err=errs["out"], ms=fwd_ms, plain_ms=fwd_plain,
                     bound_ms=fwd_bound, bound_by=fwd_by, library_ms=fwd_lib),
-        "bwd": dict(shape=name, max_abs_err=bwd_err, ms=bwd_ms, plain_ms=bwd_plain,
+        "bwd": dict(shape=name, route=route, max_abs_err=bwd_err, ms=bwd_ms, plain_ms=bwd_plain,
                     bound_ms=bwd_bound, bound_by=bwd_by, library_ms=bwd_lib),
     }
 
@@ -644,6 +693,11 @@ def phase_kernels(device) -> list[dict]:
                 wa_rows[key] = check_window_attention(device, stage, bnw, heads, nw, shifted,
                                                       dtype)
                 torch.cuda.empty_cache()
+    for stage, bnw, heads, nw in WA12_STAGES:
+        for shifted in (False, True):
+            wa_rows[(stage, shifted, "N=144")] = check_window_attention(
+                device, stage, bnw, heads, nw, shifted, torch.bfloat16, window=12)
+            torch.cuda.empty_cache()
     log(f"dense-local sampling (tol of max(1, max |plain|): {DL_TOL}); the backward's max abs "
         "err is over its four gradients; no single PyTorch call computes this function")
     dl_rows = {}
@@ -666,7 +720,8 @@ def phase_kernels(device) -> list[dict]:
     # its steps and at W=512 for the other half. "shapes" holds every shape.
     def entry(name, source, replaces, main, shapes):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                "launches": None, **main, "shapes": shapes}
+                "launches": None, **{k: v for k, v in main.items() if k != "route"},
+                "shapes": shapes}
 
     uce_src = "iseg_tpu_torch/csrc/upsample_ce.cu"
     wa_src = "iseg_tpu_torch/csrc/window_attention.cu"
@@ -709,6 +764,7 @@ def read_launch_counts() -> dict[str, int]:
     return {"upsample_ce_fwd": uce.LAUNCH_COUNTS["fwd"], "upsample_ce_bwd": uce.LAUNCH_COUNTS["bwd"],
             "window_attention_fwd": wa.LAUNCH_COUNTS["fwd"],
             "window_attention_bwd": wa.LAUNCH_COUNTS["bwd"],
+            "window_attention_bwd_mma": wa.LAUNCH_COUNTS["bwd_mma"],
             "deform_local_fwd": dl.LAUNCH_COUNTS["fwd"], "deform_local_bwd": dl.LAUNCH_COUNTS["bwd"],
             "cache_gather": cg.LAUNCH_COUNTS["gather"]}
 
@@ -869,26 +925,32 @@ def build_swin_model(env, fused: bool) -> SegManaged:
     return model.to(env.device, memory_format=torch.channels_last)
 
 
-def phase_swin_train(env, data, profile: bool):
-    log("== phase 6: Swin-L + SemanticFPN train (window attention + fused loss kernels)")
+def swin_train_setup(env):
+    """(model, train state, step function) of the Swin path."""
     model = build_swin_model(env, fused=True)
     log(f"parameters: {sum(p.numel() for p in model.parameters()) / 1e6:.1f} M")
     tx, _ = get_optimizer(param_tree(model), "sgd", learning_rate=0.01, train_steps=1000)
     state = create_train_state(model, env.generator, tx)
-    step_fn = make_train_step(model.build_loss_fn(), compute_dtype=env.compute_dtype)
+    return model, state, make_train_step(model.build_loss_fn(), compute_dtype=env.compute_dtype)
+
+
+def phase_swin_train(env, data, profile: bool):
+    log("== phase 6: Swin-L + SemanticFPN train (window attention + fused loss kernels)")
+    model, state, step_fn = swin_train_setup(env)
     state, _, launches, step_ms = train_steps(state, step_fn, data, S_WARMUP, S_TIMED, S_BATCH)
     steps = S_WARMUP + S_TIMED
     expect_launches("Swin train", launches,
                     {"upsample_ce_fwd": steps, "upsample_ce_bwd": steps,
                      "window_attention_fwd": WA_LAUNCHES_PER_FORWARD * steps,
-                     "window_attention_bwd": WA_LAUNCHES_PER_FORWARD * steps})
+                     "window_attention_bwd_mma": WA_LAUNCHES_PER_FORWARD * steps})
     if profile:
         profile_steps(state, step_fn, data, "Swin-L + SemanticFPN train step", step_ms)
     return model, launches
 
 
 KERNEL_CLASSES = (
-    ("window attention kernels", ("wa_fwd_kernel", "wa_bwd_kernel", "dbias_reduce_kernel")),
+    ("window attention kernels", ("wa_fwd_kernel", "wa_bwd_kernel", "wa_bwd_mma_kernel",
+                                  "dbias_reduce_kernel")),
     ("dense-local kernels", ("dl_fwd_kernel", "dl_bwd_maps_kernel", "dl_bwd_x_kernel")),
     ("upsample + CE kernels", ("::fwd_kernel<", "::bwd_kernel<", "::reduce_kernel(")),
     ("convolutions (cuDNN)", ("cudnn", "fprop", "wgrad", "dgrad", "conv2d", "convolve")),
@@ -900,11 +962,12 @@ KERNEL_CLASSES = (
 )
 
 
-def profile_steps(state, step_fn, data, title: str, wall_ms: float, steps: int = 3) -> None:
+def profile_steps(state, step_fn, data, title: str, wall_ms: float, steps: int = 3) -> dict:
     """Self device time by kernel class over ``steps`` steady steps.
     ``wall_ms`` is the step's wall time measured without the profiler (the
     profiler's own start-up and bookkeeping slow the host several times
-    over), so the busy share is device time per step over that."""
+    over), so the busy share is device time per step over that. Returns the
+    device ms per step in all and of each kernel by name."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -939,6 +1002,7 @@ def profile_steps(state, step_fn, data, title: str, wall_ms: float, steps: int =
     log("   top kernels:")
     for us, key in sorted(top, reverse=True)[:30]:
         log(f"   {us / 1e3 / steps:10.3f} ms/step  {key[:110]}")
+    return {"device_ms": device_ms, "kernels": {key: us / 1e3 / steps for us, key in top}}
 
 
 def phase_serve(env, data, trained, title, build_model, batch, classes, fwd_kernel,
@@ -1477,7 +1541,73 @@ def phase_gemma_serve(device, profile: bool) -> dict[str, dict[str, int]]:
     return {"gemma_beam_serve": beam, "gemma_greedy_contrastive_serve": other}
 
 
+# ------------------------------------------------------- two trees (--ab)
+
+def ab_child() -> dict:
+    """One process of ``--ab``: this file's timings of the package first on
+    the path. It uses only what the parent commit's package has too."""
+    wa.LAUNCH_COUNTS.setdefault("bwd_mma", 0)  # a package from before the tensor-core route
+    device = torch.device("cuda")
+    _build.load_all([uce.SOURCE, wa.SOURCE, cg.SOURCE])
+    row = {"package": str(_build.PACKAGE_DIR)}
+    for stage, bnw, heads, nw, _ in WA_STAGES:
+        q, k, v, dout, bias, mask = wa_inputs(device, bnw, heads, nw, True, torch.bfloat16)
+        scale = 1.0 / math.sqrt(HEAD_DIM)
+        full_bias = (bias[None] + mask[torch.arange(bnw, device=device) % nw][:, None])
+        full_bias = full_bias.bfloat16().contiguous()
+        reps = dict(reps=10, warmup=2)
+        wa.reset_launch_counts()
+        row[f"wa_bwd {stage} ms"] = wa_backward_ms(wa.window_attention, q, k, v, dout, bias,
+                                                   mask, scale, **reps)
+        row[f"wa_bwd {stage} launches"] = {key: wa.LAUNCH_COUNTS[key] for key in ("bwd", "bwd_mma")}
+        row[f"sdpa_bwd {stage} ms"] = wa_backward_ms(sdpa, q, k, v, dout, full_bias, mask, scale,
+                                                     **reps)
+    for name, shape, dtype in CG_SHAPES:
+        got = check_cache_gather(device, name, shape, dtype)
+        row[f"gather {name} ms"] = got["ms"]
+        row[f"index_select {name} ms"] = got["index_select_ms"]
+        torch.cuda.empty_cache()
+    env = common_env_setup(EnvConfig(random_seed=0, mixed_precision=True, device="cuda"))
+    torch.backends.cudnn.benchmark = True
+    data = synthetic_batch(device, S_BATCH, S_CLASSES)
+    _, state, step_fn = swin_train_setup(env)
+    state, _, launches, step_ms = train_steps(state, step_fn, data, S_WARMUP, S_TIMED, S_BATCH)
+    prof = profile_steps(state, step_fn, data, "Swin-L + SemanticFPN train step", step_ms)
+    row.update({"swin step ms": step_ms, "swin step device ms": prof["device_ms"],
+                "swin step wa_bwd ms": sum(ms for key, ms in prof["kernels"].items()
+                                           if "wa_bwd" in key or "dbias_reduce" in key),
+                "swin launches": {key: launches[key] for key in
+                                  ("window_attention_bwd", "window_attention_bwd_mma")}})
+    return row
+
+
+def ab_main(old: str) -> int:
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: CUDA is not available; this script needs an NVIDIA GPU")
+    here = pathlib.Path(__file__).resolve()
+    trees = {"old": str(pathlib.Path(old).resolve()), "new": str(here.parent)}
+    log(f"nvidia-smi: {card_line()}")
+    rows = []
+    for which in ("old", "new", "new", "old"):
+        log(f"== --ab: {which} tree {trees[which]}")
+        proc = subprocess.run([sys.executable, str(here), "--ab-child", trees[which]],
+                              capture_output=True, text=True, timeout=900)
+        log(proc.stdout.rstrip())
+        if proc.returncode != 0:
+            raise RuntimeError(f"--ab process for {trees[which]} failed:\n{proc.stderr[-4000:]}")
+        rows.append((which, json.loads(proc.stdout.rstrip().splitlines()[-1])))
+    log(card_line())
+    print(json.dumps({key: {which: [row[key] for w, row in rows if w == which]
+                            for which in ("old", "new")} for key in rows[0][1]}), flush=True)
+    return 0
+
+
 def main(argv: list[str]) -> int:
+    if argv[:1] == ["--ab"] and len(argv) == 2:
+        return ab_main(argv[1])
+    if argv[:1] == ["--ab-child"]:
+        print(json.dumps(ab_child()), flush=True)
+        return 0
     profile = "--profile" in argv
     phase_device()
     env = common_env_setup(EnvConfig(random_seed=0, mixed_precision=True, device="cuda"))
@@ -1511,12 +1641,20 @@ def main(argv: list[str]) -> int:
 
     paths.update(phase_gemma_serve(device, profile))
 
+    # the window-attention backward has two routes, each with its count
+    routes = {"window_attention_bwd": {"mma": "window_attention_bwd_mma",
+                                       "cuda_core": "window_attention_bwd"}}
     for k in kernels:
-        k["launches_by_path"] = {path: counts[k["name"]] for path, counts in paths.items()}
-        k["launches"] = sum(k["launches_by_path"].values())
+        keys = routes.get(k["name"], {"cuda": k["name"]})
+        by_route = {r: sum(counts[key] for counts in paths.values()) for r, key in keys.items()}
+        if len(keys) > 1:
+            k["launches_by_route"] = by_route
+        k["launches_by_path"] = {path: sum(counts[key] for key in keys.values())
+                                 for path, counts in paths.items()}
+        k["launches"] = sum(by_route.values())
     loss_kernels = ("upsample_ce_fwd", "upsample_ce_bwd")
     on_path = {"resnet_train": loss_kernels,
-               "swin_train": loss_kernels + ("window_attention_fwd", "window_attention_bwd"),
+               "swin_train": loss_kernels + ("window_attention_fwd", "window_attention_bwd_mma"),
                "swin_serve": ("window_attention_fwd",),
                "intern_train": loss_kernels + ("deform_local_fwd", "deform_local_bwd"),
                "intern_serve": ("deform_local_fwd",),

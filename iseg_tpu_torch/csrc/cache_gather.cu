@@ -28,8 +28,13 @@
 // bytes otherwise, chosen by the wrapper, so no slab needs a separate tail),
 // neighbouring threads on neighbouring addresses, four independent loads in
 // flight per thread before the first store, and one block per 16 KB piece so
-// that a cache of a few MB already fills the 132 SMs. TMA bulk copies
-// (cp.async.bulk) are the next step, not taken here.
+// that a cache of a few MB already fills the 132 SMs. At Gemma-2B's
+// active-cache shapes on the H100 it runs near that bound, level with
+// torch.index_select of whole rows at W = 256 and a few per cent behind it
+// at W = 512 (PERF.md). Tried there and not kept, none faster by more than
+// the spread between runs: a ring of TMA bulk copies (cp.async.bulk through shared memory, persistent
+// blocks), persistent blocks of this loop, 2 to 16 loads in flight per
+// thread, and streaming cache hints on the loads and stores.
 //
 // Indices follow PyTorch's indexing for -NB <= parent < NB (a negative index
 // counts from the end). An index outside that range would read outside the

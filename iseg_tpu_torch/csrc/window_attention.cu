@@ -18,25 +18,52 @@
 //
 // What is not kept: the TPU kernel held a window's tiles for all heads in
 // VMEM, looped over heads on the matrix unit, and summed dbias across its
-// sequential grid. Here one thread block owns one (window, head) pair, with
-// q, k, v (and do) and the logits in shared memory as fp32 (35 KB forward,
-// 45 KB backward at N = 49, D = 32), rows padded by one float so that the
-// column walks of q k^T hit distinct banks. All the products are fp32 FMA
-// loops over shared memory with a 4 x 4 register tile per thread. A backward
-// block walks a chunk of consecutive windows for its head and keeps its
-// tiles of ds in registers; the chunk partials go through a second kernel
-// that sums them in a fixed order. So dbias needs no atomics and is bitwise
-// repeatable, like every other output.
+// sequential grid. Here a block owns one head and a chunk of consecutive
+// windows; the dbias of the chunk stays in the block and the chunk partials
+// go through a second kernel that sums them in a fixed order. So dbias needs
+// no atomics and is bitwise repeatable, like every other output.
 //
-// What bounds it on the H100: per pair the forward moves 4 N D elements and
-// does 4 N^2 D flops (N = 49, D = 32: 12.5 KB in bf16 against 307 kflop),
-// about 24 flop/byte, far under the tensor cores' 295 flop/byte but these
-// are CUDA-core FMAs fed from shared memory, so it is bound by instruction
-// issue (FMAs, shared-memory loads, index arithmetic, the softmax), not by
-// device-memory bytes. The register tiles cut the shared-memory words per
-// FMA from two to a half. Tensor-core tiles (mma.sync or wgmma with N padded
-// to 64, p and ds rounded to bf16) are the next step, and would change the
-// fp32-inside contract.
+// Two backward kernels, chosen by the wrapper by dtype and shape:
+//
+// * wa_bwd_mma_kernel, for bf16 q, k, v with D % 16 == 0 and N <= 144 (every
+//   Swin variant: D = 32, N = 49 or 144). All five products run on the
+//   tensor cores (mma.sync m16n8k16, bf16 in, fp32 accumulators; ldmatrix,
+//   .trans for the k, q, do, p^T and ds^T operands), with N padded to 64 or
+//   144: padded keys get -inf before the softmax, padded query rows p = 0,
+//   and neither is read from bias or mask or written out. A warp owns 16
+//   query rows of the logits and keeps its row of p, dp and ds in registers
+//   (softmax and rowsum(dp * p) by quad shuffles); q, k, v and do of the
+//   next window arrive by cp.async (16 bytes a thread, through the views'
+//   strides) while the block computes the current one. bf16 rounding points:
+//   p only as the operand of dv = p^T do, ds only as the operand of dq and
+//   dk; the logits, p, dp, ds and the dbias sums stay fp32, and dbias is
+//   summed from the fp32 ds. At N <= 64 the block's ds sums stay in
+//   registers and the head's bias in shared memory, and each thread loads
+//   its mask values for the next window while the block runs dv and dk; at
+//   N = 144 the ds sums take the shared memory (they do not fit in
+//   registers) and the bias is read through the cache.
+// * wa_bwd_kernel, for float32 and for shapes outside that: fp32 FMA loops
+//   over shared memory with a 4 x 4 register tile per thread, everything in
+//   fp32. Tensor cores would take fp32 operands only as TF32 (10 mantissa
+//   bits) and break the fp32 contract of 1e-4, so fp32 stays here.
+//
+// What bounds them on the H100: per (window, head) the backward moves 7 N D
+// elements (q, k, v, do in; dq, dk, dv out) and does 10 N^2 D flops; at N =
+// 49, D = 32 that is 22 KB in bf16 against 768 kflop, 35 flop/byte, far under
+// the tensor cores' 295 flop/byte: the byte bound is the one to reach. The
+// CUDA-core kernel is bound by instruction issue (FMAs and shared-memory
+// loads). The tensor-core kernel does its products in a few hundred mma
+// instructions a window, so what is left is latency: the chain of five
+// products and four block barriers per window, hidden by several blocks per
+// SM and the prefetch of the next window. Over a Swin-L train step on an
+// H100 80GB HBM3 at 700 W, the tensor-core kernel's 24 launches took about
+// 3 times their byte bound of 0.97 ms and the CUDA-core kernel's 18 times
+// (PERF.md, section 6).
+//
+// The forward (wa_fwd_kernel) is the CUDA-core design: fp32 FMA loops with 4 x
+// 4 register tiles, q, k, v and the logits in shared memory as fp32 (rows
+// padded by one float so that the column walks of q k^T hit distinct banks).
+// It is level with SDPA at window 7 and far behind it at window 12.
 //
 // Tensors are addressed through element strides for (window, head, token);
 // the head dim has stride 1. So q, k, v may be views of the packed qkv
@@ -379,8 +406,385 @@ dbias_reduce_kernel(const float* __restrict__ partial, float* __restrict__ dbias
   dbias[x] = sum;
 }
 
-int windows_per_chunk(int bnw, int H) {
-  const int chunks = max(1, min(bnw, (kBwdTargetBlocks + H - 1) / H));
+// ------------------------------------------- tensor-core backward (bf16)
+
+constexpr int kMmaMaxN = 144;
+constexpr float kLog2e = 1.4426950408889634f;
+// Resident blocks per SM the tensor-core kernel is compiled for at N <= 64:
+// 3 (168 registers a thread) took less time over a Swin-L step than 4 (128
+// registers, more spills) or 2.
+constexpr int kMmaMinBlocks = 3;
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// c += a b for one 16 x 8 x 16 tile: a row-major bf16, b column-major bf16, c fp32
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t bf16x2(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n"); }
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// reductions over the four lanes that hold one accumulator row
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// Fragment layouts (PTX ISA, mma.m16n8k16): lane l holds accumulator rows
+// l/4 and l/4 + 8 of a 16 x 8 tile, columns 2 (l % 4) and 2 (l % 4) + 1.
+// The q, k, v, do tiles in shared memory are bf16 [N][ld] with a row pitch
+// that is an odd multiple of 16 bytes, so the eight rows of an ldmatrix hit
+// distinct banks; each lane names its own row, and a lane whose row is
+// padding (>= N) names a row of zeros instead.
+__device__ __forceinline__ uint32_t row_addr(const __nv_bfloat16* tile,
+                                             const __nv_bfloat16* zero, int row, int N,
+                                             int ld) {
+  return smem_addr(row < N ? tile + row * ld : zero);
+}
+
+// acc[t] (16 x 8 tile t) of A[m0 : m0 + 16, :D] B[:8 kNT, :D]^T
+template <int kNT>
+__device__ __forceinline__ void rows_times_rows_t(const __nv_bfloat16* A,
+                                                  const __nv_bfloat16* B,
+                                                  const __nv_bfloat16* zero, int m0, int N,
+                                                  int D, int ld, float (&acc)[kNT][4]) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int t = 0; t < kNT; ++t) acc[t][0] = acc[t][1] = acc[t][2] = acc[t][3] = 0.f;
+  const uint32_t a_addr = row_addr(A, zero, m0 + (lane & 15), N, ld) + (lane >> 4) * 16;
+  const int b_row = (lane & 7) + ((lane >> 4) << 3), b_col = ((lane >> 3) & 1) * 16;
+  for (int kk = 0; kk < D; kk += 16) {
+    uint32_t a[4];
+    ldsm_x4(a, a_addr + kk * 2);
+#pragma unroll
+    for (int t = 0; t < kNT; t += 2) {
+      uint32_t b[4];
+      ldsm_x4(b, row_addr(B, zero, t * 8 + b_row, N, ld) + b_col + kk * 2);
+      mma_bf16(acc[t], a, b[0], b[1]);
+      mma_bf16(acc[t + 1], a, b[2], b[3]);
+    }
+  }
+}
+
+// acc (16 x 16) of A B[:8 kNT, dc : dc + 16], A's 16 x 8 kNT bf16 fragments in
+// registers (a[s] covers columns 16 s .. 16 s + 15)
+template <int kNT>
+__device__ __forceinline__ void frags_times_rows(const uint32_t (&a)[kNT / 2][4],
+                                                 const __nv_bfloat16* B,
+                                                 const __nv_bfloat16* zero, int N, int ld, int dc,
+                                                 float (&acc)[2][4]) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int t = 0; t < 2; ++t) acc[t][0] = acc[t][1] = acc[t][2] = acc[t][3] = 0.f;
+  const int b_row = (lane & 7) + ((lane >> 3) & 1) * 8, b_col = (dc + (lane >> 4) * 8) * 2;
+#pragma unroll
+  for (int s = 0; s < kNT / 2; ++s) {
+    uint32_t b[4];
+    ldsm_x4_trans(b, row_addr(B, zero, 16 * s + b_row, N, ld) + b_col);
+    mma_bf16(acc[0], a[s], b[0], b[1]);
+    mma_bf16(acc[1], a[s], b[2], b[3]);
+  }
+}
+
+// acc (16 x 16) of T[:kNP, m0 : m0 + 16]^T B[:kNP, dc : dc + 16]; T is the
+// [kNP][lds] p / ds tile
+template <int kNP>
+__device__ __forceinline__ void cols_t_times_rows(const __nv_bfloat16* T, int lds,
+                                                  const __nv_bfloat16* B,
+                                                  const __nv_bfloat16* zero, int N, int ld,
+                                                  int m0, int dc, float (&acc)[2][4]) {
+  const int lane = threadIdx.x & 31, mat = lane >> 3, r = lane & 7;
+#pragma unroll
+  for (int t = 0; t < 2; ++t) acc[t][0] = acc[t][1] = acc[t][2] = acc[t][3] = 0.f;
+  const uint32_t a_addr = smem_addr(T + (r + (mat >> 1) * 8) * lds + m0 + (mat & 1) * 8);
+  const int b_row = r + (mat & 1) * 8, b_col = (dc + (mat >> 1) * 8) * 2;
+#pragma unroll
+  for (int kk = 0; kk < kNP; kk += 16) {
+    uint32_t a[4], b[4];
+    ldsm_x4_trans(a, a_addr + kk * lds * 2);
+    ldsm_x4_trans(b, row_addr(B, zero, kk + b_row, N, ld) + b_col);
+    mma_bf16(acc[0], a, b[0], b[1]);
+    mma_bf16(acc[1], a, b[2], b[3]);
+  }
+}
+
+// rows m0 .. m0 + 15 (those < N), columns dc .. dc + 15 of a token-major
+// output, times mul, rounded to bf16
+__device__ __forceinline__ void store_rows(__nv_bfloat16* base, long long sn, int m0, int dc,
+                                           int N, float mul, const float (&acc)[2][4]) {
+  const int lane = threadIdx.x & 31, r = m0 + (lane >> 2), c = dc + (lane & 3) * 2;
+#pragma unroll
+  for (int t = 0; t < 2; ++t) {
+    if (r < N)
+      *reinterpret_cast<uint32_t*>(base + r * sn + c + t * 8) =
+          bf16x2(acc[t][0] * mul, acc[t][1] * mul);
+    if (r + 8 < N)
+      *reinterpret_cast<uint32_t*>(base + (r + 8) * sn + c + t * 8) =
+          bf16x2(acc[t][2] * mul, acc[t][3] * mul);
+  }
+}
+
+// Shared memory of the tensor-core backward, in bytes: two sets (the window
+// computed and the next one) of the q, k, v, do tiles [N][D + 8] and a row of
+// zeros (bf16), the p / ds tile [kNP][kNP + 8] (bf16), and fp32: at kNP = 64
+// the head's bias [N][N], at kNP = 144 the block's ds sums [kNP][kNP] (there
+// the bias is read through the cache: it would not fit).
+size_t mma_smem_bytes(int N, int D) {
+  const size_t np = N <= 64 ? 64 : kMmaMaxN;
+  return 2 * ((8 * static_cast<size_t>(N) + 1) * (D + 8) + np * (np + 8)) +
+         4 * (np > 64 ? np * np : static_cast<size_t>(N) * N);
+}
+
+// One block per (chunk of windows, head): kNP / 16 warps, each owning 16
+// query rows of the logits and 16 key rows of dk and dv. Per window:
+//   p = softmax(q k^T scale + bias + mask) -> p (bf16) to the p/ds tile
+//   dp = do v^T; ds = p (dp - rowsum(dp p)); dbias sums += ds; dq = ds k scale
+//   dv = p^T do (p^T from the tile)
+//   ds (bf16) to the tile; dk = ds^T q scale
+// with the next window's q, k, v, do on their way by cp.async.
+template <int kNP>
+__global__ void __launch_bounds__(kNP * 2, kNP <= 64 ? kMmaMinBlocks : 1)
+wa_bwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                  const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
+                  const float* __restrict__ bias, const float* __restrict__ mask,
+                  __nv_bfloat16* __restrict__ dq, __nv_bfloat16* __restrict__ dk,
+                  __nv_bfloat16* __restrict__ dv, float* __restrict__ partial, Strides sq,
+                  Strides sk, Strides sv, Strides sdo, Strides sdq, Strides sdk, Strides sdv,
+                  int bnw, int H, int N, int D, int nW, int windows_per_chunk, float scale) {
+  constexpr int kNT = kNP / 8;  // 16 x 8 accumulator tiles across a row of keys
+  constexpr int kThreads = kNP * 2;
+  constexpr bool kSmallWindow = kNP <= 64;  // ds sums in registers, bias in shared memory
+  extern __shared__ __align__(16) unsigned char wa_mma_smem[];
+  const int ld = D + 8, lds = kNP + 8, tile = N * ld;
+  __nv_bfloat16* tiles = reinterpret_cast<__nv_bfloat16*>(wa_mma_smem);
+  __nv_bfloat16* zero = tiles + 2 * 4 * tile;
+  __nv_bfloat16* ps = zero + ld;
+  float* fp32_smem = reinterpret_cast<float*>(ps + kNP * lds);
+  float* sums_smem = fp32_smem;  // [kNT * 4][kThreads], kNP = 144
+  float* bias_smem = fp32_smem;  // [N][N], kNP = 64
+
+  const int lane = threadIdx.x & 31, m0 = (threadIdx.x >> 5) * 16;
+  const int r0 = m0 + (lane >> 2), r1 = r0 + 8, c2 = (lane & 3) * 2;
+  const int chunk = blockIdx.x / H, h = blockIdx.x - chunk * H;
+  const int b_first = chunk * windows_per_chunk;
+  const int b_end = min(bnw, b_first + windows_per_chunk);
+  const float* bias_h = bias + static_cast<int64_t>(h) * N * N;
+
+  for (int e = threadIdx.x; e < ld / 8; e += kThreads)
+    reinterpret_cast<uint4*>(zero)[e] = make_uint4(0u, 0u, 0u, 0u);
+  float sums[kSmallWindow ? kNT : 1][4];
+#pragma unroll
+  for (int t = 0; t < (kSmallWindow ? kNT : 1); ++t)
+    sums[t][0] = sums[t][1] = sums[t][2] = sums[t][3] = 0.f;
+  if constexpr (kSmallWindow) {
+    for (int e = threadIdx.x; e < N * N; e += kThreads) bias_smem[e] = __ldg(bias_h + e);
+  } else {
+    for (int e = 0; e < kNT * 4; ++e) sums_smem[e * kThreads + threadIdx.x] = 0.f;
+  }
+
+  // q, k, v, do of window b -> tile set `stage`: a thread copies 16-byte
+  // piece `col` of rows row0, row0 + row_step, ...
+  const int per_row = D / 8, row_step = kThreads / per_row;
+  const int row0 = threadIdx.x / per_row, col = (threadIdx.x - row0 * per_row) * 8;
+  auto load_tile = [&](const __nv_bfloat16* g, Strides st, int b, __nv_bfloat16* dst) {
+    const __nv_bfloat16* base = g + b * st.b + h * st.h + col;
+    for (int n = row0; n < N && row0 < row_step; n += row_step)
+      cp_async16(smem_addr(dst + n * ld + col), base + n * st.n);
+  };
+  auto load = [&](int b, int stage) {
+    __nv_bfloat16* dst = tiles + stage * 4 * tile;
+    load_tile(q, sq, b, dst);
+    load_tile(k, sk, b, dst + tile);
+    load_tile(v, sv, b, dst + 2 * tile);
+    load_tile(dout, sdo, b, dst + 3 * tile);
+    cp_async_commit();
+  };
+
+  // the mask values at this thread's logits, for the window computed next:
+  // loaded one window ahead, while the block runs the last window's dv and
+  // dk, so that their latency is off the path from q k^T to the softmax
+  float mask_next[kNT][4];
+  auto load_mask = [&](int b) {
+    const float* mask_b = mask + static_cast<int64_t>(b % nW) * N * N;
+#pragma unroll
+    for (int t = 0; t < kNT; ++t)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = e < 2 ? r0 : r1, j = t * 8 + c2 + (e & 1);
+        mask_next[t][e] = i < N && j < N ? __ldg(mask_b + i * N + j) : 0.f;
+      }
+  };
+
+  load(b_first, 0);
+  load_mask(b_first);
+  for (int b = b_first, it = 0; b < b_end; ++b, ++it) {
+    const int cur = it & 1;
+    cp_async_wait_all();
+    __syncthreads();  // the window's tiles are in; every warp is done with the last one
+    if (b + 1 < b_end) load(b + 1, cur ^ 1);
+    const __nv_bfloat16* qs = tiles + cur * 4 * tile;
+    const __nv_bfloat16* ks = qs + tile;
+    const __nv_bfloat16* vs = ks + tile;
+    const __nv_bfloat16* dos = vs + tile;
+
+    // logits and softmax, fp32 in registers
+    float p[kNT][4];
+    rows_times_rows_t<kNT>(qs, ks, zero, m0, N, D, ld, p);
+    float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+    for (int t = 0; t < kNT; ++t)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = e < 2 ? r0 : r1, j = t * 8 + c2 + (e & 1);
+        float x = -INFINITY;
+        if (i < N && j < N) {
+          const float bias_ij = kSmallWindow ? bias_smem[i * N + j] : __ldg(bias_h + i * N + j);
+          x = p[t][e] * scale + bias_ij + mask_next[t][e];
+        }
+        p[t][e] = x;
+        if (e < 2) mx0 = fmaxf(mx0, x);
+        else mx1 = fmaxf(mx1, x);
+      }
+    mx0 = quad_max(mx0);
+    mx1 = quad_max(mx1);
+    // a padded row has no finite logit: its p is 0
+    const float sub0 = (mx0 == -INFINITY ? 0.f : mx0) * kLog2e;
+    const float sub1 = (mx1 == -INFINITY ? 0.f : mx1) * kLog2e;
+    float l0 = 0.f, l1 = 0.f;
+#pragma unroll
+    for (int t = 0; t < kNT; ++t)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        p[t][e] = exp2f(fmaf(p[t][e], kLog2e, -(e < 2 ? sub0 : sub1)));
+        if (e < 2) l0 += p[t][e];
+        else l1 += p[t][e];
+      }
+    l0 = quad_sum(l0);
+    l1 = quad_sum(l1);
+    const float inv0 = l0 > 0.f ? 1.f / l0 : 0.f, inv1 = l1 > 0.f ? 1.f / l1 : 0.f;
+#pragma unroll
+    for (int t = 0; t < kNT; ++t) {
+      p[t][0] *= inv0;
+      p[t][1] *= inv0;
+      p[t][2] *= inv1;
+      p[t][3] *= inv1;
+      *reinterpret_cast<uint32_t*>(ps + r0 * lds + t * 8 + c2) = bf16x2(p[t][0], p[t][1]);
+      *reinterpret_cast<uint32_t*>(ps + r1 * lds + t * 8 + c2) = bf16x2(p[t][2], p[t][3]);
+    }
+
+    // dp = do v^T; ds = p (dp - rowsum(dp p)), fp32; its sums for dbias
+    float ds[kNT][4];
+    rows_times_rows_t<kNT>(dos, vs, zero, m0, N, D, ld, ds);
+    float d0 = 0.f, d1 = 0.f;
+#pragma unroll
+    for (int t = 0; t < kNT; ++t) {
+      d0 = fmaf(p[t][0], ds[t][0], fmaf(p[t][1], ds[t][1], d0));
+      d1 = fmaf(p[t][2], ds[t][2], fmaf(p[t][3], ds[t][3], d1));
+    }
+    d0 = quad_sum(d0);
+    d1 = quad_sum(d1);
+#pragma unroll
+    for (int t = 0; t < kNT; ++t)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        ds[t][e] = p[t][e] * (ds[t][e] - (e < 2 ? d0 : d1));
+        if constexpr (kSmallWindow) sums[t][e] += ds[t][e];
+        else sums_smem[(t * 4 + e) * kThreads + threadIdx.x] += ds[t][e];
+      }
+    // ds rounded to bf16, as the A operand of dq (accumulator tiles 2s and
+    // 2s + 1 are the A fragment of keys 16 s .. 16 s + 15)
+    uint32_t a_ds[kNT / 2][4];
+#pragma unroll
+    for (int s = 0; s < kNT / 2; ++s) {
+      a_ds[s][0] = bf16x2(ds[2 * s][0], ds[2 * s][1]);
+      a_ds[s][1] = bf16x2(ds[2 * s][2], ds[2 * s][3]);
+      a_ds[s][2] = bf16x2(ds[2 * s + 1][0], ds[2 * s + 1][1]);
+      a_ds[s][3] = bf16x2(ds[2 * s + 1][2], ds[2 * s + 1][3]);
+    }
+    if (b + 1 < b_end) load_mask(b + 1);
+
+    float acc[2][4];
+    __nv_bfloat16* dq_w = dq + b * sdq.b + h * sdq.h;
+    for (int dc = 0; dc < D; dc += 16) {
+      frags_times_rows<kNT>(a_ds, ks, zero, N, ld, dc, acc);
+      store_rows(dq_w, sdq.n, m0, dc, N, scale, acc);
+    }
+    __syncthreads();  // every warp's rows of p are in the tile
+
+    __nv_bfloat16* dv_w = dv + b * sdv.b + h * sdv.h;
+    for (int dc = 0; dc < D; dc += 16) {
+      cols_t_times_rows<kNP>(ps, lds, dos, zero, N, ld, m0, dc, acc);
+      store_rows(dv_w, sdv.n, m0, dc, N, 1.f, acc);
+    }
+    __syncthreads();  // every warp is done with p
+#pragma unroll
+    for (int s = 0; s < kNT / 2; ++s) {
+      *reinterpret_cast<uint32_t*>(ps + r0 * lds + 16 * s + c2) = a_ds[s][0];
+      *reinterpret_cast<uint32_t*>(ps + r1 * lds + 16 * s + c2) = a_ds[s][1];
+      *reinterpret_cast<uint32_t*>(ps + r0 * lds + 16 * s + 8 + c2) = a_ds[s][2];
+      *reinterpret_cast<uint32_t*>(ps + r1 * lds + 16 * s + 8 + c2) = a_ds[s][3];
+    }
+    __syncthreads();  // every warp's rows of ds are in the tile
+
+    __nv_bfloat16* dk_w = dk + b * sdk.b + h * sdk.h;
+    for (int dc = 0; dc < D; dc += 16) {
+      cols_t_times_rows<kNP>(ps, lds, qs, zero, N, ld, m0, dc, acc);
+      store_rows(dk_w, sdk.n, m0, dc, N, scale, acc);
+    }
+  }
+
+  float* mine = partial + (static_cast<int64_t>(chunk) * H + h) * N * N;
+#pragma unroll
+  for (int t = 0; t < kNT; ++t)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = e < 2 ? r0 : r1, j = t * 8 + c2 + (e & 1);
+      float sum;
+      if constexpr (kSmallWindow) sum = sums[t][e];
+      else sum = sums_smem[(t * 4 + e) * kThreads + threadIdx.x];
+      if (i < N && j < N) mine[i * N + j] = sum;
+    }
+}
+
+int windows_per_chunk(int bnw, int H, int target_blocks = kBwdTargetBlocks) {
+  const int chunks = max(1, min(bnw, (target_blocks + H - 1) / H));
   return (bnw + chunks - 1) / chunks;
 }
 
@@ -450,6 +854,52 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* dout,
   return -1;
 }
 
+template <int kNP>
+int launch_bwd_mma_sized(const void* q, const void* k, const void* v, const void* dout,
+                         const float* bias, const float* mask, void* dq, void* dk, void* dv,
+                         float* partial, float* dbias, const Strides* s, int bnw, int H, int N,
+                         int D, int nW, int chunks, float scale, cudaStream_t stream) {
+  const int wpc = (bnw + chunks - 1) / chunks;
+  if (chunks < 1 || chunks != (bnw + wpc - 1) / wpc) return -1;
+  const size_t smem = mma_smem_bytes(N, D);
+  if (smem > kMaxDynamicSmem) return -1;
+  using bf16 = __nv_bfloat16;
+  wa_bwd_mma_kernel<kNP><<<chunks * H, kNP * 2, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const bf16*>(dout), bias, mask, static_cast<bf16*>(dq), static_cast<bf16*>(dk),
+      static_cast<bf16*>(dv), partial, s[0], s[1], s[2], s[3], s[4], s[5], s[6], bnw, H, N, D,
+      nW, wpc, scale);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int64_t hnn = static_cast<int64_t>(H) * N * N;
+  const int blocks = static_cast<int>((hnn + kReduceThreads - 1) / kReduceThreads);
+  dbias_reduce_kernel<<<blocks, kReduceThreads, 0, stream>>>(partial, dbias, chunks, hnn);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Chunks of windows for the tensor-core backward: one wave, as many blocks
+// as the card holds at once (SMs times resident blocks per SM), or fewer
+// when there are fewer windows. Returns -1 when the kernel cannot run. It
+// also lets the kernel take all the shared memory a block may have on the
+// current device, which its launches rely on.
+template <int kNP>
+int mma_chunks(int bnw, int H, int N, int D) {
+  const size_t smem = mma_smem_bytes(N, D);
+  if (smem > kMaxDynamicSmem) return -1;
+  auto kernel = wa_bwd_mma_kernel<kNP>;
+  if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           kMaxDynamicSmem) != cudaSuccess)
+    return -1;
+  int device = 0, sms = 0, per_sm = 0;
+  if (cudaGetDevice(&device) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kNP * 2, smem) !=
+          cudaSuccess)
+    return -1;
+  const int wpc = windows_per_chunk(bnw, H, sms * max(1, per_sm));
+  return (bnw + wpc - 1) / wpc;
+}
+
 }  // namespace
 
 // dtype codes: 0 = float32, 1 = bfloat16 (q, k, v, do and the outputs; bias,
@@ -500,6 +950,35 @@ int window_attention_bwd(const void* q, const void* k, const void* v, const void
     return launch_bwd<__nv_bfloat16>(q, k, v, dout, bp, mp, dq, dk, dv, pp, dbp, s, bnw, H, N,
                                      D, nW, scale, st);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The tensor-core backward, bf16 only: N <= 144, D % 16 == 0, every base
+// address a multiple of 16 bytes and every stride of q, k, v, do a multiple
+// of 8 elements (the wrapper checks), and two sets of tiles within a block's
+// shared memory (mma_smem_bytes), else -1. chunks:
+// window_attention_bwd_mma_chunks(bnw, H, N, D), called on the device before
+// its first launch there; scratch: chunks * H * N * N floats.
+int window_attention_bwd_mma_chunks(int bnw, int H, int N, int D) {
+  if (N < 1 || N > kMmaMaxN || D < 16 || D % 16 != 0) return -1;
+  return N <= 64 ? mma_chunks<64>(bnw, H, N, D) : mma_chunks<144>(bnw, H, N, D);
+}
+
+int window_attention_bwd_mma(const void* q, const void* k, const void* v, const void* dout,
+                             const void* bias, const void* mask, void* dq, void* dk, void* dv,
+                             void* partial, void* dbias, int bnw, int H, int N, int D, int nW,
+                             int chunks, float scale, const long long* strides, void* stream) {
+  if (N < 1 || N > kMmaMaxN || D < 16 || D % 16 != 0) return -1;
+  const Strides* s = reinterpret_cast<const Strides*>(strides);
+  const float* bp = static_cast<const float*>(bias);
+  const float* mp = static_cast<const float*>(mask);
+  float* pp = static_cast<float*>(partial);
+  float* dbp = static_cast<float*>(dbias);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (N <= 64)
+    return launch_bwd_mma_sized<64>(q, k, v, dout, bp, mp, dq, dk, dv, pp, dbp, s, bnw, H, N, D,
+                                    nW, chunks, scale, st);
+  return launch_bwd_mma_sized<144>(q, k, v, dout, bp, mp, dq, dk, dv, pp, dbp, s, bnw, H, N, D,
+                                   nW, chunks, scale, st);
 }
 
 }  // extern "C"

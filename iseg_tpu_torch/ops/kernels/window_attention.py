@@ -19,25 +19,44 @@ dq/dk/dv come back token-major (``[bnw, H, N, D]`` views of
 ``[bnw, N, H, D]`` memory), so the caller's merge of the heads is a view.
 
 Types: q, k, v in float32 or bfloat16 (all alike); bias and mask float32;
-everything is computed in fp32; out, dq, dk, dv in q's dtype, dbias fp32.
-Every output, dbias included, is bitwise repeatable: dbias is summed over
-chunks of windows in a fixed order, with no atomics.
+out, dq, dk, dv in q's dtype, dbias fp32. The forward computes in fp32. The
+backward takes one of two kernels by :func:`backward_route`: bfloat16 with
+``D % 16 == 0`` and ``N <= 144``, where its tiles fit (every Swin
+variant), runs on the tensor cores, with p rounded to bf16 as the operand of
+dv and ds as the operand of dq and dk, everything else fp32; float32, and
+any other shape, on the CUDA cores in fp32 (tensor cores would round fp32 operands to TF32). Every
+output, dbias included, is bitwise repeatable: dbias is summed from fp32 ds
+over chunks of windows in a fixed order, with no atomics.
 
-``LAUNCH_COUNTS`` counts kernel launches (``"fwd"``, ``"bwd"``): one per
-launch of each kernel, nowhere else.
+``LAUNCH_COUNTS`` counts kernel launches (``"fwd"``; ``"bwd"`` for the
+CUDA-core backward, ``"bwd_mma"`` for the tensor-core one): one per launch
+of each kernel, nowhere else.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
-LAUNCH_COUNTS = {"fwd": 0, "bwd": 0}
+LAUNCH_COUNTS = {"fwd": 0, "bwd": 0, "bwd_mma": 0}
 
 SOURCE = "window_attention.cu"
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _DOES_NOT_FIT = -1
+MMA_MAX_N = 144
+
+
+def backward_route(dtype: torch.dtype, n: int, d: int) -> str:
+    """The backward kernel for q, k, v of ``dtype`` and shape ``[.., N, D]``:
+    ``"mma"`` (tensor cores) for bfloat16 with ``D % 16 == 0`` and ``N <=
+    144`` where the kernel's tiles fit a block's shared memory (``D <= 128``
+    at ``N <= 64``, ``D <= 32`` above; every Swin variant has ``D = 32``),
+    else ``"cuda_core"``."""
+    if dtype != torch.bfloat16 or d < 16 or d % 16 or not 1 <= n <= MMA_MAX_N:
+        return "cuda_core"
+    return "mma" if d <= (128 if n <= 64 else 32) else "cuda_core"
 
 
 def reset_launch_counts() -> None:
@@ -61,6 +80,10 @@ def build():
         lib.window_attention_fwd.restype = i32
         lib.window_attention_bwd.argtypes = [ptr] * 11 + [i32] * 6 + [f32, strides, ptr]
         lib.window_attention_bwd.restype = i32
+        lib.window_attention_bwd_mma_chunks.argtypes = [i32] * 4
+        lib.window_attention_bwd_mma_chunks.restype = i32
+        lib.window_attention_bwd_mma.argtypes = [ptr] * 11 + [i32] * 6 + [f32, strides, ptr]
+        lib.window_attention_bwd_mma.restype = i32
         lib._iseg_bound = True
     return built
 
@@ -138,6 +161,23 @@ def _launch_fwd(q, k, v, bias, mask, scale: float) -> torch.Tensor:
     return out
 
 
+def _aligned16(t: torch.Tensor) -> torch.Tensor:
+    """``t`` itself where its base address is a multiple of 16 bytes and its
+    window, head and token strides of 8 elements (the tensor-core kernel
+    loads 16-byte pieces), else a contiguous copy, which is."""
+    if t.data_ptr() % 16 == 0 and all(s % 8 == 0 for s in t.stride()[:3]):
+        return t
+    return torch.empty(t.shape, dtype=t.dtype, device=t.device).copy_(t)
+
+
+@functools.lru_cache(maxsize=256)
+def _mma_chunks(device_index: int, bnw: int, h: int, n: int, d: int) -> int:
+    """Chunks of windows of the tensor-core backward on the current device
+    (an occupancy query of the CUDA source), once per device and shape; -1
+    where its tiles do not fit."""
+    return build().lib.window_attention_bwd_mma_chunks(bnw, h, n, d)
+
+
 def _launch_bwd(q, k, v, bias, mask, dout, scale: float):
     """(dq, dk, dv, dbias) of ``sum(out * dout)``."""
     _check_cuda_inputs(q, k, v, bias, mask, dout)
@@ -147,9 +187,23 @@ def _launch_bwd(q, k, v, bias, mask, dout, scale: float):
     bnw, h, n, d = q.shape
     dbias = torch.empty_like(bias)
     lib = build().lib
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    if backward_route(q.dtype, n, d) == "mma":
+        q, k, v, dout = (_aligned16(t) for t in (q, k, v, dout))
+        chunks = _mma_chunks(q.device.index, bnw, h, n, d)
+        if chunks < 1:
+            _raise_on(_DOES_NOT_FIT, "backward (tensor cores)", q)
+        partial = torch.empty((chunks, h, n, n), dtype=torch.float32, device=q.device)
+        err = lib.window_attention_bwd_mma(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), bias.data_ptr(),
+            mask.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), partial.data_ptr(),
+            dbias.data_ptr(), bnw, h, n, d, mask.shape[0], chunks, float(scale),
+            _strides(q, k, v, dout, dq, dk, dv), stream)
+        _raise_on(err, "backward (tensor cores)", q)
+        LAUNCH_COUNTS["bwd_mma"] += 1
+        return dq, dk, dv, dbias
     chunks = lib.window_attention_bwd_chunks(bnw, h)
     partial = torch.empty((chunks, h, n, n), dtype=torch.float32, device=q.device)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
     err = lib.window_attention_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), bias.data_ptr(),
         mask.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), partial.data_ptr(),

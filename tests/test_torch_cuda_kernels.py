@@ -13,7 +13,10 @@ fp32; the kernel's gradient is then rounded to bf16 (rtol 1e-2). The
 dense-local kernels sum the same products as their plain versions in
 another order: fp32 atol 2e-5 of max(1, max |plain|); with bf16 values the
 outputs that are rounded to bf16 get 1e-2 of it. The beam cache gather is a
-copy: bitwise equal to its plain version for every dtype and slab size.
+copy: bitwise equal to its plain version for every dtype and slab size. The
+window-attention backward in bf16 runs on the tensor cores
+(p and ds rounded to bf16 as operands): 1e-2 of max(1, max |plain|), 1e-3
+for dbias.
 """
 
 import numpy as np
@@ -157,6 +160,7 @@ WA_SHAPES = {
     "odd_n_d": (5, 2, 20, 24, 1),
     "ragged_tiles_n10_d30": (3, 2, 10, 30, 2),
     "window12_n144": (4, 4, 144, 32, 2),
+    "n16_d16": (5, 2, 16, 16, 2),
 }
 
 
@@ -170,7 +174,8 @@ def test_cuda_window_attention_matches_plain_version(cuda_device, shape, dtype, 
     scale = 1.0 / np.sqrt(d)
     wa.reset_launch_counts()
     got = _wa_run(wa.window_attention, *args, scale)
-    assert wa.LAUNCH_COUNTS == {"fwd": 1, "bwd": 1}
+    mma = wa.backward_route(dtype, n, d) == "mma"
+    assert wa.LAUNCH_COUNTS == {"fwd": 1, "bwd": int(not mma), "bwd_mma": int(mma)}
     want = _wa_run(wa.window_attention_reference, *args, scale)
     atol = 2e-5 if dtype == torch.float32 else 2e-2
     for name, a, b in zip(("out", "dq", "dk", "dv"), got, want):
@@ -185,6 +190,97 @@ def test_cuda_window_attention_is_deterministic(cuda_device):
     first = _wa_run(wa.window_attention, *args, 0.17)
     second = _wa_run(wa.window_attention, *args, 0.17)
     for a, b in zip(first, second):
+        np.testing.assert_array_equal(a, b)
+
+
+# Swin-L at 512x512 (stage: heads, windows per image at window 7 and at
+# window 12); the tests run one image's windows
+SWIN_L_STAGES = {"stage0": (6, 361, 121), "stage1": (12, 100, 36), "stage2": (24, 25, 9),
+                 "stage3": (48, 9, 4)}
+
+
+def _swin_inputs(device, stage, window, shifted, seed=0):
+    """The layouts the Swin block gives (q, k, v views of one packed
+    projection, a token-major incoming gradient) and its shift mask."""
+    from iseg_tpu_torch.backbones.swin import _shift_attn_mask
+
+    heads, nw7, nw12 = SWIN_L_STAGES[stage]
+    nw = nw7 if window == 7 else nw12
+    n, d = window * window, 32
+    rng = np.random.RandomState(seed)
+    qkv = torch.tensor(rng.randn(nw, n, 3, heads, d).astype(np.float32), device=device)
+    q, k, v = (t.permute(0, 2, 1, 3) for t in qkv.to(torch.bfloat16).unbind(2))
+    dout = torch.tensor(rng.randn(nw, n, heads, d).astype(np.float32), device=device)
+    dout = dout.to(torch.bfloat16).permute(0, 2, 1, 3)
+    bias = torch.tensor((rng.randn(heads, n, n) * 0.1).astype(np.float32), device=device)
+    side = int(np.sqrt(nw)) * window
+    mask = (_shift_attn_mask(side, side, window, window // 2) if shifted
+            else np.zeros((1, n, n), np.float32))
+    return q, k, v, bias, torch.tensor(mask, device=device), dout
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shifted", [False, True], ids=["unshifted", "shifted"])
+@pytest.mark.parametrize("window", [7, 12], ids=["n49", "n144"])
+@pytest.mark.parametrize("stage", sorted(SWIN_L_STAGES))
+def test_cuda_window_attention_tensor_core_backward_at_swin_l_stages(cuda_device, stage, window,
+                                                                     shifted):
+    """bf16 at Swin-L's stage shapes (one image's windows) takes the
+    tensor-core backward, and is held to chip_smoke.py's WA_TOL: 1e-2 of
+    max(1, max |plain|) for out, dq, dk, dv; 1e-3 for dbias."""
+    args = _swin_inputs(cuda_device, stage, window, shifted)
+    scale = 1.0 / np.sqrt(32)
+    wa.reset_launch_counts()
+    got = _wa_run(wa.window_attention, *args, scale)
+    assert wa.LAUNCH_COUNTS == {"fwd": 1, "bwd": 0, "bwd_mma": 1}
+    want = _wa_run(wa.window_attention_reference, *args, scale)
+    for name, a, b in zip(("out", "dq", "dk", "dv", "dbias"), got, want):
+        assert np.isfinite(a).all(), name
+        tol = (1e-3 if name == "dbias" else 1e-2) * max(1.0, np.abs(b).max())
+        np.testing.assert_allclose(a, b, rtol=0, atol=tol, err_msg=name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [7, 12], ids=["n49", "n144"])
+def test_cuda_window_attention_tensor_core_backward_is_bitwise_repeatable(cuda_device, window):
+    args = _swin_inputs(cuda_device, "stage2", window, shifted=True, seed=3)
+    first = _wa_run(wa.window_attention, *args, 0.17)
+    second = _wa_run(wa.window_attention, *args, 0.17)
+    for name, a, b in zip(("out", "dq", "dk", "dv", "dbias"), first, second):
+        np.testing.assert_array_equal(a, b, err_msg=name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,d,route", [(64, 128, "mma"), (144, 48, "cuda_core")])
+def test_cuda_window_attention_bf16_backward_at_the_route_limits(cuda_device, n, d, route):
+    """The widest head dim the tensor-core backward takes at N <= 64 runs
+    there; at N = 144 a head dim above 32 does not fit its tiles and takes
+    the CUDA-core kernel. Both hold to WA_TOL for bf16."""
+    assert wa.backward_route(torch.bfloat16, n, d) == route
+    args = _wa_inputs(cuda_device, 6, 2, n, d, 3, torch.bfloat16, packed=True)
+    wa.reset_launch_counts()
+    got = _wa_run(wa.window_attention, *args, 0.125)
+    assert wa.LAUNCH_COUNTS == {"fwd": 1, "bwd": int(route == "cuda_core"),
+                                "bwd_mma": int(route == "mma")}
+    want = _wa_run(wa.window_attention_reference, *args, 0.125)
+    for name, a, b in zip(("out", "dq", "dk", "dv", "dbias"), got, want):
+        tol = (1e-3 if name == "dbias" else 1e-2) * max(1.0, np.abs(b).max())
+        np.testing.assert_allclose(a, b, rtol=0, atol=tol, err_msg=name)
+
+
+@pytest.mark.cuda
+def test_cuda_window_attention_tensor_core_backward_takes_misaligned_views(cuda_device):
+    """q, k, v, do whose base address or strides do not allow 16-byte loads
+    are copied for the tensor-core kernel; the result is the same."""
+    q, k, v, bias, mask, dout = _wa_inputs(cuda_device, 6, 3, 49, 32, 3, torch.bfloat16)
+    storage = torch.zeros(q.numel() + 1, dtype=torch.bfloat16, device=cuda_device)
+    q_off = storage[1:].view(q.shape).copy_(q)  # 2 bytes off a 16-byte boundary
+    assert q_off.data_ptr() % 16 == 2
+    wa.reset_launch_counts()
+    got = _wa_run(wa.window_attention, q_off, k, v, bias, mask, dout, 0.2)
+    assert wa.LAUNCH_COUNTS["bwd_mma"] == 1
+    want = _wa_run(wa.window_attention, q, k, v, bias, mask, dout, 0.2)
+    for a, b in zip(got, want):
         np.testing.assert_array_equal(a, b)
 
 
@@ -366,6 +462,8 @@ CACHE_GATHER_SHAPES = {
     "bytes_13": ((4, 5, 13), torch.uint8),  # 1-byte copies
     "int64_slab": ((2, 2, 3, 5), torch.int64),
     "piece_edge_bf16": ((1, 2, 8192 + 8), torch.bfloat16),  # one 16 KB piece and a short one
+    "two_16k_pieces_and_16_bytes": ((2, 3, 16384 + 8), torch.bfloat16),
+    "slab_16_bytes": ((64, 4, 8), torch.bfloat16),  # one 16-byte copy a slab
 }
 
 
@@ -428,6 +526,30 @@ def test_cuda_cache_gather_rejects_wrong_inputs_and_never_falls_back(cuda_device
     assert cg.LAUNCH_COUNTS == {"gather": 0}
     assert cg.beam_cache_gather(cache[:, :, :0], parent).shape == (2, 3, 0, 8)
     assert cg.LAUNCH_COUNTS == {"gather": 0}  # nothing to copy, nothing launched
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("index_dtype", [torch.int32, torch.int64], ids=["i32", "i64"])
+@pytest.mark.parametrize("width", [256, 512])
+@pytest.mark.parametrize("beams", [2, 4])
+def test_cuda_cache_gather_at_gemma_shapes_bitwise(cuda_device, beams, width, index_dtype):
+    """Gemma-2B's active cache [8, beams, 18, 2, W, 1, 256] bf16 (151-302 MB),
+    with negative parents and one parent repeated in every row."""
+    from iseg_tpu_torch.ops.kernels import cache_gather as cg
+
+    gen = torch.Generator(device=cuda_device).manual_seed(beams * width)
+    cache = torch.randn((8, beams, 18, 2, width, 1, 256), generator=gen, device=cuda_device)
+    cache = cache.to(torch.bfloat16)
+    parent = torch.randint(-beams, beams, (8, beams), generator=gen, device=cuda_device)
+    parent[:, 1] = parent[:, 0]
+    parent = parent.to(index_dtype)
+    out = torch.empty_like(cache)
+    cg.reset_launch_counts()
+    cg.beam_cache_gather(cache, parent, out=out)
+    torch.cuda.synchronize()
+    assert cg.LAUNCH_COUNTS == {"gather": 1}
+    assert torch.equal(out.view(torch.uint8),
+                       cg.beam_cache_gather_reference(cache, parent).view(torch.uint8))
 
 
 @pytest.mark.cuda

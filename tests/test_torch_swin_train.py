@@ -93,7 +93,8 @@ def test_torch_swin_slice_two_train_steps_match_jax():
         t_state, t_parts = t_step(t_state, t_batch)
         t_losses.append(float(t_parts["loss"]))
     # CPU tensors take the plain versions: no kernel is launched
-    assert upsample_ce.LAUNCH_COUNTS == window_attention.LAUNCH_COUNTS == {"fwd": 0, "bwd": 0}
+    assert upsample_ce.LAUNCH_COUNTS == {"fwd": 0, "bwd": 0}
+    assert not any(window_attention.LAUNCH_COUNTS.values())
     with jax.enable_x64(True):
         variables = jax.tree_util.tree_map(lambda a: jnp.asarray(a, jnp.float64), variables)
         j_tx, _ = jopt.get_optimizer(variables["params"], "sgd", **OPT)

@@ -9,6 +9,9 @@ summation order; values of order 1), and the Pallas kernel within the
 tolerance of its own tests (2e-5 forward, 3e-4 gradients). The CUDA kernel
 against the plain version is the ``cuda``-marked case, which skips without
 a card (more of them in ``tests/test_torch_cuda_kernels.py``).
+
+The tensor-core backward's arithmetic cannot run here; what can is its
+routing rule, and a model of its rounding points held against float64.
 """
 
 import jax
@@ -87,7 +90,7 @@ def test_torch_window_attention_cpu_is_the_plain_version():
     plain = _torch_out_and_grads(twa.window_attention_reference, *data)
     for o, p in zip(ours, plain):
         np.testing.assert_array_equal(o, p)
-    assert twa.LAUNCH_COUNTS == {"fwd": 0, "bwd": 0}  # no kernel launch on the CPU
+    assert not any(twa.LAUNCH_COUNTS.values())  # no kernel launch on the CPU
 
 
 def test_torch_window_attention_mask_selected_per_window():
@@ -122,7 +125,67 @@ def test_torch_window_attention_cuda_kernel_matches_plain_version(cuda_device, n
     data = _inputs(nw=nw)
     twa.reset_launch_counts()
     got = _torch_out_and_grads(twa.window_attention, *data, device=cuda_device)
-    assert twa.LAUNCH_COUNTS == {"fwd": 1, "bwd": 1}
+    assert twa.LAUNCH_COUNTS == {"fwd": 1, "bwd": 1, "bwd_mma": 0}  # fp32: the CUDA cores
     want = _torch_out_and_grads(twa.window_attention_reference, *data, device=cuda_device)
     for name, a, b in zip(NAMES, got, want):
         np.testing.assert_allclose(a, b, rtol=2e-5, atol=2e-5, err_msg=name)
+
+
+@pytest.mark.parametrize("dtype,n,d,route", [
+    (torch.bfloat16, 49, 32, "mma"),  # Swin, window 7
+    (torch.bfloat16, 144, 32, "mma"),  # Swin, window 12
+    (torch.bfloat16, 1, 16, "mma"),
+    (torch.bfloat16, 64, 128, "mma"),  # the widest tiles that fit at N <= 64
+    (torch.bfloat16, 64, 144, "cuda_core"),
+    (torch.bfloat16, 65, 32, "mma"),
+    (torch.bfloat16, 144, 48, "cuda_core"),  # two sets of N = 144 tiles do not fit
+    (torch.bfloat16, 145, 32, "cuda_core"),  # N > 144
+    (torch.bfloat16, 49, 24, "cuda_core"),  # D % 16 != 0
+    (torch.bfloat16, 49, 8, "cuda_core"),
+    (torch.float32, 49, 32, "cuda_core"),  # fp32 would need TF32 on the tensor cores
+    (torch.float32, 144, 32, "cuda_core"),
+    (torch.float64, 49, 32, "cuda_core"),
+])
+def test_torch_window_attention_backward_route(dtype, n, d, route):
+    assert twa.backward_route(dtype, n, d) == route
+
+
+def _bf16_values(a):
+    return torch.tensor(a).bfloat16().float()
+
+
+def _mma_backward_model(q, k, v, bias, mask, dout, scale):
+    """The tensor-core backward's arithmetic on the CPU: logits, p, dp and
+    ds in fp32 from bf16 q, k, v, do; p rounded to bf16 only as the operand
+    of dv, ds only as the operand of dq and dk (fp32 sums of exact
+    products); dbias summed from the fp32 ds."""
+    s = torch.einsum("bhqd,bhkd->bhqk", q, k) * scale
+    s = s + bias[None] + mask[torch.arange(q.shape[0]) % mask.shape[0]][:, None]
+    p = torch.softmax(s, dim=-1)
+    dp = torch.einsum("bhqd,bhkd->bhqk", dout, v)
+    ds = p * (dp - (dp * p).sum(-1, keepdim=True))
+    p16, ds16 = p.bfloat16().float(), ds.bfloat16().float()
+    dv = torch.einsum("bhqk,bhqd->bhkd", p16, dout)
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds16, k) * scale
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds16, q) * scale
+    rounded = [t.bfloat16().float() for t in (dq, dk, dv)]
+    return (*rounded, ds.sum(0))
+
+
+@pytest.mark.parametrize("nw", [1, 3])
+def test_torch_window_attention_mma_rounding_points_within_bf16_tolerance(nw):
+    """At N = 49, D = 32 the rounding points of the tensor-core backward
+    keep dq, dk, dv within 1e-2 of max(1, max |exact|) of float64 autograd
+    of the plain version, and dbias (from fp32 ds) within 1e-3: the
+    tolerances the card's tests hold the kernel to."""
+    q, k, v, bias, mask, dout = _inputs(bnw=12, h=3, nw=nw, seed=10 + nw)
+    q, k, v, dout = (_bf16_values(a) for a in (q, k, v, dout))
+    bias, mask = torch.tensor(bias), torch.tensor(mask)
+    got = _mma_backward_model(q, k, v, bias, mask, dout, SCALE)
+    leaves = [t.double().requires_grad_(True) for t in (q, k, v, bias)]
+    out = twa.window_attention_reference(*leaves, mask.double(), SCALE)
+    want = torch.autograd.grad(out, leaves, dout.double())
+    for name, g, w in zip(("dq", "dk", "dv", "dbias"), got, want):
+        tol = (1e-3 if name == "dbias" else 1e-2) * max(1.0, float(w.abs().max()))
+        err = float((g.double() - w).abs().max())
+        assert err <= tol, f"{name}: {err:.3e} > {tol:.3e}"
