@@ -41,12 +41,19 @@ Phases, in order; any failure raises and the script exits non-zero:
    CUDA-event times (the host's dispatch of a call is in them where the
    device waits for it), each kernel's bound on this card, and for window
    attention ``F.scaled_dot_product_attention`` as a yardstick (timed here,
-   used nowhere in the port): upsample + CE at [16,32,32,21] -> [16,512,512],
-   [8,128,128,19] -> [8,512,512] and [8,16,16,19] -> [8,512,512]; window
-   attention forward and backward at Swin-L's four stage shapes, shifted and
-   unshifted, f32 and bf16 (the bf16 backward on the tensor cores, the f32 one
-   on the CUDA cores), and in bf16 at window 12 (N = 144: ``swin_large_384``'s
-   four stage shapes at the same input); dense-local sampling forward and all four
+   used nowhere in the port); beside the window-attention and dense-local
+   rows and SDPA's, ``device_ms``: torch.profiler's device time per call over
+   the same reps, the device's work alone (where the profiler records no
+   device activity, CUDA events around calls queued behind a device hold;
+   ``device_timer`` in the kernels line names the timer; that second timer,
+   ``held_ms``, runs beside it on every window-attention forward and
+   dense-local backward row). Upsample + CE at [16,32,32,21] ->
+   [16,512,512], [8,128,128,19] -> [8,512,512] and [8,16,16,19] ->
+   [8,512,512]; window attention forward and backward at Swin-L's four stage
+   shapes, shifted and unshifted, f32 and bf16 (bf16 forward and backward on
+   the tensor cores, f32 on the CUDA cores; the route of each is checked),
+   and in bf16 at window 12 (N = 144: ``swin_large_384``'s four stage shapes
+   at the same input); dense-local sampling forward and all four
    gradients at InternImage-T's four stage shapes, in f32 and in the
    autocast type mix (bf16 values on a transposed view, fp32 offsets, bf16
    modulation), with offsets drawn beyond the clamp; the beam cache gather,
@@ -62,15 +69,16 @@ Phases, in order; any failure raises and the script exits non-zero:
 5. ResNet serve: single-scale inference with the trained weights agrees
    with the fused model's low-resolution logits;
 6. Swin train: 2 warm-up + 5 timed steps; losses finite; per step exactly
-   24 window-attention forward and 24 tensor-core backward launches (none of
-   the CUDA-core backward: autocast gives bf16 q, k, v) and 1 + 1 loss
-   kernel launches; ms/step, img/s, peak memory;
+   24 tensor-core window-attention forward and 24 tensor-core backward
+   launches (none of the CUDA-core kernels: autocast gives bf16 q, k, v) and
+   1 + 1 loss kernel launches; ms/step, img/s, peak memory;
 7. Swin serve, batch 2, trained weights: eval logits with the kernels agree
    with the same model run on the kernels' plain versions; multi-scale
    (0.75, 1.0) + flip + sliding window (384x384 crops) gives finite fp32
    [2,512,512,19] logits; window batch 1 and 2 agree; confusion matrix and
-   mIoU against the synthetic labels count every pixel; forward launches
-   are 24 per model call, and no backward kernel is launched;
+   mIoU against the synthetic labels count every pixel; tensor-core forward
+   launches are 24 per model call, and no other window-attention kernel is
+   launched;
 8. InternImage train: 2 warm-up + 5 timed steps; losses finite and falling
    on the fixed batch; per step exactly 30 dense-local forward and 30
    backward launches and 1 + 1 loss kernel launches; ms/step, img/s, peak
@@ -100,12 +108,15 @@ Phases, in order; any failure raises and the script exits non-zero:
 (for example the parent commit's ``git archive`` unpacked into the
 git-ignored ``_checkout/v1``). It runs OLD, this tree, this tree, OLD, each
 in a process of its own with that tree's ``iseg_tpu_torch`` and this file's
-code, so one timer serves both: the bf16 window-attention backward at
-Swin-L's four stage shapes (shifted) with SDPA's backward beside it, the
-cache gather at Gemma-2B's four active-cache shapes with ``index_select``
-beside it, and the Swin train step (2 warm-up + 5 timed steps, then 3
-profiled). The last line holds each number of the four processes, OLD's two
-and this tree's two.
+code, so one timer serves both: the bf16 window-attention forward (both
+timers) and backward at Swin-L's four stage shapes (shifted) with SDPA's
+beside them, the dense-local backward at InternImage-T's four stage shapes
+in the autocast type mix (both timers), the cache gather at Gemma-2B's four
+active-cache shapes with ``index_select`` beside it, and the Swin and
+InternImage train steps (2 warm-up + 5 timed steps each, then 3 profiled:
+the step's device time and its window-attention and dense-local kernels').
+The last line holds each number of the four processes, OLD's two and this
+tree's two.
 
 The launch counters are set to 0 just before each main path (3, 6, 7, 8, 9,
 and each request of 10) and read just after; a kernel of a path that was
@@ -116,6 +127,7 @@ then the card's name and power limit; the last line is
 
 from __future__ import annotations
 
+import functools
 import json
 import math
 import pathlib
@@ -273,6 +285,102 @@ def cuda_median_ms(fn, reps: int = 20, warmup: int = 3, setup=None) -> float:
     return statistics.median(times)
 
 
+DEVICE_TIMERS: set[str] = set()  # the timers that device_ms used in this process
+
+
+def device_ms(fn, reps: int = 10, warmup: int = 2, setup=None) -> float:
+    """torch.profiler's self device time of every kernel and copy that
+    ``fn(arg)`` launches, per call, over ``reps`` calls: the device's work
+    alone, without the host's dispatch that :func:`cuda_median_ms` holds.
+    ``setup()`` runs for every rep before the profiler starts, so what it
+    launches is not counted. Where the profiler records no device activity
+    (its CUPTI tracing is not available to every process), the time is
+    :func:`held_events_ms`'s, and the run says so."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def make():
+        return setup() if setup is not None else None
+
+    for _ in range(warmup):
+        fn(make())
+    if "held_events" in DEVICE_TIMERS:
+        return held_events_ms(fn, reps, make)
+    args = [make() for _ in range(reps)]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for arg in args:
+            fn(arg)
+        torch.cuda.synchronize()
+    del args
+    us = sum(getattr(evt, "self_device_time_total", 0) for evt in prof.key_averages()
+             if evt.device_type.name == "CUDA")
+    if us > 0:
+        DEVICE_TIMERS.add("profiler")
+        return us / 1e3 / reps
+    log("  torch.profiler recorded no device time: device_ms is timed by CUDA events "
+        "around calls queued behind a device hold from here on")
+    DEVICE_TIMERS.add("held_events")
+    return held_events_ms(fn, reps, make)
+
+
+@functools.cache
+def sleep_cycles_per_ms() -> float:
+    """Clock cycles of ``torch.cuda._sleep`` per millisecond on this card."""
+    cycles = 20_000_000
+    torch.cuda._sleep(cycles)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    torch.cuda._sleep(cycles)
+    end.record()
+    end.synchronize()
+    return cycles / start.elapsed_time(end)
+
+
+def held_ms(fn, reps: int = 10, warmup: int = 2, setup=None) -> float:
+    """:func:`held_events_ms` with :func:`device_ms`'s arguments. Phase 2 runs
+    it beside ``device_ms`` on the forward window-attention and backward
+    dense-local rows, so the fallback timer runs, and is compared, in every run."""
+    def make():
+        return setup() if setup is not None else None
+
+    for _ in range(warmup):
+        fn(make())
+    return held_events_ms(fn, reps, make)
+
+
+def held_events_ms(fn, reps: int, make) -> float:
+    """Device time per call of ``fn(make())`` over ``reps`` calls, from two
+    CUDA events around the calls, with a spin kernel queued before the first
+    event that holds the device until the host has queued every call: the
+    calls then run back to back, and the host's dispatch is not in the time.
+    That the hold was long enough is checked (the first event must still be
+    pending when the last call is queued); if it was not, it is made longer
+    and the calls run again on fresh arguments."""
+    hold_ms = 2.0
+    while True:
+        args = [make() for _ in range(reps)]
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        torch.cuda._sleep(int(hold_ms * sleep_cycles_per_ms()))
+        start.record()
+        for arg in args:
+            fn(arg)
+        end.record()
+        held = not start.query()
+        queued_ms = 1e3 * (time.perf_counter() - t0)
+        end.synchronize()
+        del args
+        if held:
+            return start.elapsed_time(end) / reps
+        if hold_ms >= 2000.0:
+            raise RuntimeError(f"the host took {queued_ms:.1f} ms to queue {reps} calls, "
+                               f"longer than a {hold_ms:.0f} ms device hold")
+        hold_ms = min(2000.0, max(2.0 * hold_ms, 2.0 * queued_ms))
+
+
 def bound_ms(bytes_moved: float, flops: float, dtype: torch.dtype) -> tuple[float, str]:
     """The least time the card could take: the larger of bytes over the HBM
     rate and operations over the peak rate for the inputs' type."""
@@ -427,9 +535,9 @@ def sdpa(q, k, v, full_bias, _mask, scale):
     return F.scaled_dot_product_attention(q, k, v, attn_mask=full_bias, scale=scale)
 
 
-def wa_backward_ms(fn, q, k, v, dout, bias, mask, scale, **reps) -> float:
-    """Median time of the backward of ``fn`` through autograd; its forward
-    runs before each rep, outside the timed window."""
+def wa_backward_ms(fn, q, k, v, dout, bias, mask, scale, timer=cuda_median_ms, **reps) -> float:
+    """Time of the backward of ``fn`` through autograd by ``timer``; its
+    forward runs before each rep, outside the timed window."""
     def setup():
         leaves = wa_leaves(q, k, v, bias)
         return leaves, fn(*leaves, mask, scale)
@@ -438,7 +546,7 @@ def wa_backward_ms(fn, q, k, v, dout, bias, mask, scale, **reps) -> float:
         leaves, out = arg
         torch.autograd.grad(out, leaves, dout)
 
-    return cuda_median_ms(run_grad, setup=setup, **reps)
+    return timer(run_grad, setup=setup, **reps)
 
 
 def check_window_attention(device, stage, bnw, heads, nw, shifted, dtype, seed=0,
@@ -446,9 +554,13 @@ def check_window_attention(device, stage, bnw, heads, nw, shifted, dtype, seed=0
     q, k, v, dout, bias, mask = wa_inputs(device, bnw, heads, nw, shifted, dtype, seed, window)
     n, d = q.shape[2:]
     scale = 1.0 / math.sqrt(d)
-    route = wa.backward_route(dtype, n, d)
+    fwd_route, route = wa.forward_route(dtype, n, d), wa.backward_route(dtype, n, d)
+    want_route = "mma" if dtype == torch.bfloat16 else "cuda_core"
     name = (f"{stage} bnw={bnw} H={heads} N={n} D={d} nW={mask.shape[0]} {dtype_name(dtype)} "
-            f"bwd:{route}")
+            f"fwd:{fwd_route} bwd:{route}")
+    if (fwd_route, route) != (want_route, want_route):
+        raise AssertionError(f"[{name}] a Swin shape in {dtype_name(dtype)} must take the "
+                             f"{want_route} routes")
 
     def run(fn):
         qq, kk, vv, bb = wa_leaves(q, k, v, bias)
@@ -458,7 +570,8 @@ def check_window_attention(device, stage, bnw, heads, nw, shifted, dtype, seed=0
 
     wa.reset_launch_counts()
     got = run(wa.window_attention)
-    want_counts = {"fwd": 1, "bwd": int(route == "cuda_core"), "bwd_mma": int(route == "mma")}
+    want_counts = {"fwd": int(fwd_route == "cuda_core"), "fwd_mma": int(fwd_route == "mma"),
+                   "bwd": int(route == "cuda_core"), "bwd_mma": int(route == "mma")}
     if wa.LAUNCH_COUNTS != want_counts:
         raise AssertionError(f"[{name}] launches {wa.LAUNCH_COUNTS}, expected {want_counts}")
     want = run(wa.window_attention_reference)
@@ -482,22 +595,34 @@ def check_window_attention(device, stage, bnw, heads, nw, shifted, dtype, seed=0
         fwd_plain = cuda_median_ms(
             lambda _: wa.window_attention_reference(q, k, v, bias, mask, scale), **reps)
         fwd_lib = cuda_median_ms(lambda _: sdpa(q, k, v, full_bias, None, scale), **reps)
+        fwd_dev = device_ms(lambda _: wa.window_attention(q, k, v, bias, mask, scale), **reps)
+        fwd_lib_dev = device_ms(lambda _: sdpa(q, k, v, full_bias, None, scale), **reps)
+        fwd_held = held_ms(lambda _: wa.window_attention(q, k, v, bias, mask, scale), **reps)
     bwd_ms = wa_backward_ms(wa.window_attention, q, k, v, dout, bias, mask, scale, **reps)
     bwd_plain = wa_backward_ms(wa.window_attention_reference, q, k, v, dout, bias, mask, scale,
                                **reps)
     bwd_lib = wa_backward_ms(sdpa, q, k, v, dout, full_bias, mask, scale, **reps)
+    bwd_dev = wa_backward_ms(wa.window_attention, q, k, v, dout, bias, mask, scale,
+                             timer=device_ms, **reps)
+    bwd_lib_dev = wa_backward_ms(sdpa, q, k, v, dout, full_bias, mask, scale, timer=device_ms,
+                                 **reps)
     fwd_bound, fwd_by = wa_bound(q, bias, mask, backward=False)
     bwd_bound, bwd_by = wa_bound(q, bias, mask, backward=True)
     bwd_err = max(errs[key] for key in ("dq", "dk", "dv", "dbias"))
     log(f"  [{name}] max abs err " + " ".join(f"{k} {v:.2e}" for k, v in errs.items())
-        + f"; ms fwd kernel {fwd_ms:.4f} plain {fwd_plain:.4f} sdpa {fwd_lib:.4f} bound "
-        f"{fwd_bound:.4f} ({fwd_by}); bwd kernel {bwd_ms:.4f} plain {bwd_plain:.4f} sdpa "
-        f"{bwd_lib:.4f} bound {bwd_bound:.4f} ({bwd_by})")
+        + f"; ms fwd kernel {fwd_ms:.4f} (device {fwd_dev:.4f}, held {fwd_held:.4f}) plain "
+        f"{fwd_plain:.4f} sdpa "
+        f"{fwd_lib:.4f} (device {fwd_lib_dev:.4f}) bound {fwd_bound:.4f} ({fwd_by}); bwd kernel "
+        f"{bwd_ms:.4f} (device {bwd_dev:.4f}) plain {bwd_plain:.4f} sdpa {bwd_lib:.4f} (device "
+        f"{bwd_lib_dev:.4f}) bound {bwd_bound:.4f} ({bwd_by})")
     return {
-        "fwd": dict(shape=name, max_abs_err=errs["out"], ms=fwd_ms, plain_ms=fwd_plain,
-                    bound_ms=fwd_bound, bound_by=fwd_by, library_ms=fwd_lib),
-        "bwd": dict(shape=name, route=route, max_abs_err=bwd_err, ms=bwd_ms, plain_ms=bwd_plain,
-                    bound_ms=bwd_bound, bound_by=bwd_by, library_ms=bwd_lib),
+        "fwd": dict(shape=name, route=fwd_route, max_abs_err=errs["out"], ms=fwd_ms,
+                    device_ms=fwd_dev, held_ms=fwd_held, plain_ms=fwd_plain, bound_ms=fwd_bound,
+                    bound_by=fwd_by,
+                    library_ms=fwd_lib, library_device_ms=fwd_lib_dev),
+        "bwd": dict(shape=name, route=route, max_abs_err=bwd_err, ms=bwd_ms, device_ms=bwd_dev,
+                    plain_ms=bwd_plain, bound_ms=bwd_bound, bound_by=bwd_by, library_ms=bwd_lib,
+                    library_device_ms=bwd_lib_dev),
     }
 
 
@@ -537,14 +662,10 @@ def dl_corner_count(x, off_dy, off_dx) -> int:
     return int((rows * cols).sum())
 
 
-def check_deform_local(device, stage, side, channels, groups, mix, seed=0) -> dict:
-    """Forward and the four gradients of the dense-local kernels against
-    their plain versions, with times. ``mix`` is "f32" (everything float32,
-    contiguous) or "mixed", what a DCNv3 layer under bf16 autocast gives in
-    "dense_local_ref" mode: bf16 values as a spatial transpose view, fp32
-    effective offsets, bf16 modulation. Offsets are drawn in +-3 for a clamp
-    of +-2."""
-    k, r, kk = DL_KERNEL, DL_MAX_OFFSET, DL_KERNEL * DL_KERNEL
+def dl_inputs(device, side, channels, groups, mix, seed=0):
+    """x, off_dy, off_dx, modulation, g_out of a dense-local layer at batch
+    I_BATCH (see :func:`check_deform_local` for ``mix``)."""
+    kk = DL_KERNEL * DL_KERNEL
     gen = torch.Generator(device=device).manual_seed(seed)
     shape, mshape = (I_BATCH, side, side, channels), (I_BATCH, side, side, groups * kk)
     vtype = torch.float32 if mix == "f32" else torch.bfloat16
@@ -556,6 +677,18 @@ def check_deform_local(device, stage, side, channels, groups, mix, seed=0) -> di
     mod = torch.softmax(torch.randn((I_BATCH, side, side, groups, kk), generator=gen,
                                     device=device), dim=-1).reshape(mshape).to(vtype)
     g_out = torch.randn(shape, generator=gen, device=device).to(vtype)
+    return x, off_dy, off_dx, mod, g_out
+
+
+def check_deform_local(device, stage, side, channels, groups, mix, seed=0) -> dict:
+    """Forward and the four gradients of the dense-local kernels against
+    their plain versions, with times. ``mix`` is "f32" (everything float32,
+    contiguous) or "mixed", what a DCNv3 layer under bf16 autocast gives in
+    "dense_local_ref" mode: bf16 values as a spatial transpose view, fp32
+    effective offsets, bf16 modulation. Offsets are drawn in +-3 for a clamp
+    of +-2."""
+    k, r = DL_KERNEL, DL_MAX_OFFSET
+    x, off_dy, off_dx, mod, g_out = dl_inputs(device, side, channels, groups, mix, seed)
     name = (f"{stage} x=[{I_BATCH},{side},{side},{channels}] G={groups} K={k} r={r} "
             f"{'f32' if mix == 'f32' else 'bf16 x^T + f32 offsets + bf16 modulation'}")
     args = (groups, k, r)
@@ -604,19 +737,25 @@ def check_deform_local(device, stage, side, channels, groups, mix, seed=0) -> di
                                                                     g_out, *args),
             reps=3, warmup=1)
     bwd_ms = cuda_median_ms(run_grad, setup=grad_setup, reps=10, warmup=2)
+    with torch.no_grad():
+        fwd_dev = device_ms(lambda _: dl.deform_dense_local_flat(x, off_dy, off_dx, mod, *args))
+    bwd_dev = device_ms(run_grad, setup=grad_setup)
+    bwd_held = held_ms(run_grad, setup=grad_setup)
     corners = dl_corner_count(x, off_dy, off_dx)
     fwd_bound, fwd_by = dl_bound(x, (off_dy, off_dx, mod), groups, corners, backward=False)
     bwd_bound, bwd_by = dl_bound(x, (off_dy, off_dx, mod), groups, corners, backward=True)
     bwd_err = max(errs[key] for key in ("d_x", "d_off_dy", "d_off_dx", "d_mod"))
     log(f"  [{name}] max abs err " + " ".join(f"{k_} {v:.2e}" for k_, v in errs.items())
-        + f"; ms fwd kernel {fwd_ms:.4f} plain {fwd_plain:.4f} bound {fwd_bound:.4f} "
-        f"({fwd_by}); bwd kernel {bwd_ms:.4f} plain {bwd_plain:.4f} bound {bwd_bound:.4f} "
-        f"({bwd_by}); {corners} corner rows read")
+        + f"; ms fwd kernel {fwd_ms:.4f} (device {fwd_dev:.4f}) plain {fwd_plain:.4f} bound "
+        f"{fwd_bound:.4f} ({fwd_by}); bwd kernels {bwd_ms:.4f} (device {bwd_dev:.4f}, held "
+        f"{bwd_held:.4f}) plain "
+        f"{bwd_plain:.4f} bound {bwd_bound:.4f} ({bwd_by}); {corners} corner rows read")
     return {
-        "fwd": dict(shape=name, max_abs_err=errs["out"], ms=fwd_ms, plain_ms=fwd_plain,
-                    bound_ms=fwd_bound, bound_by=fwd_by, library_ms=None),
-        "bwd": dict(shape=name, max_abs_err=bwd_err, ms=bwd_ms, plain_ms=bwd_plain,
-                    bound_ms=bwd_bound, bound_by=bwd_by, library_ms=None),
+        "fwd": dict(shape=name, max_abs_err=errs["out"], ms=fwd_ms, device_ms=fwd_dev,
+                    plain_ms=fwd_plain, bound_ms=fwd_bound, bound_by=fwd_by, library_ms=None),
+        "bwd": dict(shape=name, max_abs_err=bwd_err, ms=bwd_ms, device_ms=bwd_dev,
+                    held_ms=bwd_held, plain_ms=bwd_plain, bound_ms=bwd_bound, bound_by=bwd_by,
+                    library_ms=None),
     }
 
 
@@ -713,6 +852,9 @@ def phase_kernels(device) -> list[dict]:
         cg_rows.append(check_cache_gather(device, name, shape, dtype))
         torch.cuda.empty_cache()
 
+    timers = "+".join(sorted(DEVICE_TIMERS))
+    log(f"device_ms timed by: {timers}")
+
     # Top-level numbers: the shape each path launches most. The ResNet path
     # feeds the loss kernels fp32 logits (the model's fp32 cast); 18 of Swin-L's
     # 24 blocks are stage 2, under bf16 autocast, and so are 18 of
@@ -720,7 +862,9 @@ def phase_kernels(device) -> list[dict]:
     # its steps and at W=512 for the other half. "shapes" holds every shape.
     def entry(name, source, replaces, main, shapes):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                "launches": None, **{k: v for k, v in main.items() if k != "route"},
+                "launches": None,
+                **{("kernel_route" if k == "route" else k): v for k, v in main.items()},
+                **({"device_timer": timers} if "device_ms" in main else {}),
                 "shapes": shapes}
 
     uce_src = "iseg_tpu_torch/csrc/upsample_ce.cu"
@@ -763,6 +907,7 @@ def reset_launch_counts() -> None:
 def read_launch_counts() -> dict[str, int]:
     return {"upsample_ce_fwd": uce.LAUNCH_COUNTS["fwd"], "upsample_ce_bwd": uce.LAUNCH_COUNTS["bwd"],
             "window_attention_fwd": wa.LAUNCH_COUNTS["fwd"],
+            "window_attention_fwd_mma": wa.LAUNCH_COUNTS["fwd_mma"],
             "window_attention_bwd": wa.LAUNCH_COUNTS["bwd"],
             "window_attention_bwd_mma": wa.LAUNCH_COUNTS["bwd_mma"],
             "deform_local_fwd": dl.LAUNCH_COUNTS["fwd"], "deform_local_bwd": dl.LAUNCH_COUNTS["bwd"],
@@ -941,7 +1086,7 @@ def phase_swin_train(env, data, profile: bool):
     steps = S_WARMUP + S_TIMED
     expect_launches("Swin train", launches,
                     {"upsample_ce_fwd": steps, "upsample_ce_bwd": steps,
-                     "window_attention_fwd": WA_LAUNCHES_PER_FORWARD * steps,
+                     "window_attention_fwd_mma": WA_LAUNCHES_PER_FORWARD * steps,
                      "window_attention_bwd_mma": WA_LAUNCHES_PER_FORWARD * steps})
     if profile:
         profile_steps(state, step_fn, data, "Swin-L + SemanticFPN train step", step_ms)
@@ -949,8 +1094,8 @@ def phase_swin_train(env, data, profile: bool):
 
 
 KERNEL_CLASSES = (
-    ("window attention kernels", ("wa_fwd_kernel", "wa_bwd_kernel", "wa_bwd_mma_kernel",
-                                  "dbias_reduce_kernel")),
+    ("window attention kernels", ("wa_fwd_kernel", "wa_fwd_mma_kernel", "wa_bwd_kernel",
+                                  "wa_bwd_mma_kernel", "dbias_reduce_kernel")),
     ("dense-local kernels", ("dl_fwd_kernel", "dl_bwd_maps_kernel", "dl_bwd_x_kernel")),
     ("upsample + CE kernels", ("::fwd_kernel<", "::bwd_kernel<", "::reduce_kernel(")),
     ("convolutions (cuDNN)", ("cudnn", "fprop", "wgrad", "dgrad", "conv2d", "convolve")),
@@ -1092,7 +1237,7 @@ def phase_serve(env, data, trained, title, build_model, batch, classes, fwd_kern
 def phase_swin_serve(env, data, trained):
     log("== phase 7: Swin serve (multi-scale + flip + sliding window, trained weights)")
     return phase_serve(env, data, trained, "Swin", build_swin_model, S_SERVE_BATCH, S_CLASSES,
-                       "window_attention_fwd", WA_LAUNCHES_PER_FORWARD,
+                       "window_attention_fwd_mma", WA_LAUNCHES_PER_FORWARD,
                        (swin_module, "window_attention", wa.window_attention_reference))
 
 
@@ -1546,22 +1691,49 @@ def phase_gemma_serve(device, profile: bool) -> dict[str, dict[str, int]]:
 def ab_child() -> dict:
     """One process of ``--ab``: this file's timings of the package first on
     the path. It uses only what the parent commit's package has too."""
-    wa.LAUNCH_COUNTS.setdefault("bwd_mma", 0)  # a package from before the tensor-core route
+    for key in ("fwd_mma", "bwd_mma"):  # a package from before a tensor-core route
+        wa.LAUNCH_COUNTS.setdefault(key, 0)
     device = torch.device("cuda")
-    _build.load_all([uce.SOURCE, wa.SOURCE, cg.SOURCE])
+    _build.load_all([uce.SOURCE, wa.SOURCE, dl.SOURCE, cg.SOURCE])
     row = {"package": str(_build.PACKAGE_DIR)}
+    reps = dict(reps=10, warmup=2)
+    scale = 1.0 / math.sqrt(HEAD_DIM)
     for stage, bnw, heads, nw, _ in WA_STAGES:
         q, k, v, dout, bias, mask = wa_inputs(device, bnw, heads, nw, True, torch.bfloat16)
-        scale = 1.0 / math.sqrt(HEAD_DIM)
         full_bias = (bias[None] + mask[torch.arange(bnw, device=device) % nw][:, None])
         full_bias = full_bias.bfloat16().contiguous()
-        reps = dict(reps=10, warmup=2)
+        wa.reset_launch_counts()
+        with torch.no_grad():
+            row[f"wa_fwd {stage} ms"] = cuda_median_ms(
+                lambda _: wa.window_attention(q, k, v, bias, mask, scale), **reps)
+            row[f"wa_fwd {stage} device ms"] = device_ms(
+                lambda _: wa.window_attention(q, k, v, bias, mask, scale), **reps)
+            row[f"sdpa_fwd {stage} ms"] = cuda_median_ms(
+                lambda _: sdpa(q, k, v, full_bias, None, scale), **reps)
+            row[f"sdpa_fwd {stage} device ms"] = device_ms(
+                lambda _: sdpa(q, k, v, full_bias, None, scale), **reps)
+        row[f"wa_fwd {stage} launches"] = {key: wa.LAUNCH_COUNTS[key] for key in ("fwd", "fwd_mma")}
         wa.reset_launch_counts()
         row[f"wa_bwd {stage} ms"] = wa_backward_ms(wa.window_attention, q, k, v, dout, bias,
                                                    mask, scale, **reps)
         row[f"wa_bwd {stage} launches"] = {key: wa.LAUNCH_COUNTS[key] for key in ("bwd", "bwd_mma")}
         row[f"sdpa_bwd {stage} ms"] = wa_backward_ms(sdpa, q, k, v, dout, full_bias, mask, scale,
                                                      **reps)
+    for stage, side, channels, groups, _ in DL_STAGES:
+        x, off_dy, off_dx, mod, g_out = dl_inputs(device, side, channels, groups, "mixed")
+        args = (groups, DL_KERNEL, DL_MAX_OFFSET)
+
+        def grad_setup():
+            ins = [t.detach().requires_grad_(True) for t in (x, off_dy, off_dx, mod)]
+            return ins, dl.deform_dense_local_flat(*ins, *args)
+
+        def run_grad(arg):
+            ins, out = arg
+            torch.autograd.grad(out, ins, g_out)
+
+        row[f"dl_bwd {stage} ms"] = cuda_median_ms(run_grad, setup=grad_setup, **reps)
+        row[f"dl_bwd {stage} device ms"] = device_ms(run_grad, setup=grad_setup, **reps)
+        torch.cuda.empty_cache()
     for name, shape, dtype in CG_SHAPES:
         got = check_cache_gather(device, name, shape, dtype)
         row[f"gather {name} ms"] = got["ms"]
@@ -1574,10 +1746,29 @@ def ab_child() -> dict:
     state, _, launches, step_ms = train_steps(state, step_fn, data, S_WARMUP, S_TIMED, S_BATCH)
     prof = profile_steps(state, step_fn, data, "Swin-L + SemanticFPN train step", step_ms)
     row.update({"swin step ms": step_ms, "swin step device ms": prof["device_ms"],
+                "swin step wa_fwd ms": sum(ms for key, ms in prof["kernels"].items()
+                                           if "wa_fwd" in key),
                 "swin step wa_bwd ms": sum(ms for key, ms in prof["kernels"].items()
                                            if "wa_bwd" in key or "dbias_reduce" in key),
                 "swin launches": {key: launches[key] for key in
-                                  ("window_attention_bwd", "window_attention_bwd_mma")}})
+                                  ("window_attention_fwd", "window_attention_fwd_mma",
+                                   "window_attention_bwd", "window_attention_bwd_mma")}})
+    del state, step_fn, data, prof
+    torch.cuda.empty_cache()
+    data = synthetic_batch(device, I_BATCH, I_CLASSES)
+    model = build_intern_model(env, fused=True)
+    tx, _ = get_optimizer(param_tree(model), "sgd", learning_rate=0.01, train_steps=1000)
+    state = create_train_state(model, env.generator, tx)
+    step_fn = make_train_step(model.build_loss_fn(), compute_dtype=env.compute_dtype)
+    state, _, launches, step_ms = train_steps(state, step_fn, data, I_WARMUP, I_TIMED, I_BATCH)
+    prof = profile_steps(state, step_fn, data, "InternImage-T + ASPP train step", step_ms)
+    row.update({"intern step ms": step_ms, "intern step device ms": prof["device_ms"],
+                "intern step dl_bwd ms": sum(ms for key, ms in prof["kernels"].items()
+                                             if "dl_bwd_" in key),
+                "intern step dl_bwd_x ms": sum(ms for key, ms in prof["kernels"].items()
+                                               if "dl_bwd_x" in key),
+                "intern launches": {key: launches[key] for key in
+                                    ("deform_local_fwd", "deform_local_bwd")}})
     return row
 
 
@@ -1641,8 +1832,10 @@ def main(argv: list[str]) -> int:
 
     paths.update(phase_gemma_serve(device, profile))
 
-    # the window-attention backward has two routes, each with its count
-    routes = {"window_attention_bwd": {"mma": "window_attention_bwd_mma",
+    # the window-attention forward and backward have two routes each, each with its count
+    routes = {"window_attention_fwd": {"mma": "window_attention_fwd_mma",
+                                       "cuda_core": "window_attention_fwd"},
+              "window_attention_bwd": {"mma": "window_attention_bwd_mma",
                                        "cuda_core": "window_attention_bwd"}}
     for k in kernels:
         keys = routes.get(k["name"], {"cuda": k["name"]})
@@ -1654,8 +1847,9 @@ def main(argv: list[str]) -> int:
         k["launches"] = sum(by_route.values())
     loss_kernels = ("upsample_ce_fwd", "upsample_ce_bwd")
     on_path = {"resnet_train": loss_kernels,
-               "swin_train": loss_kernels + ("window_attention_fwd", "window_attention_bwd_mma"),
-               "swin_serve": ("window_attention_fwd",),
+               "swin_train": loss_kernels + ("window_attention_fwd_mma",
+                                             "window_attention_bwd_mma"),
+               "swin_serve": ("window_attention_fwd_mma",),
                "intern_train": loss_kernels + ("deform_local_fwd", "deform_local_bwd"),
                "intern_serve": ("deform_local_fwd",),
                "gemma_beam_serve": ("cache_gather",)}
@@ -1663,6 +1857,9 @@ def main(argv: list[str]) -> int:
         for name in names:
             if paths[path][name] <= 0:
                 raise AssertionError(f"kernel {name} was never launched on the {path} path")
+    for path in ("swin_train", "swin_serve"):  # bf16 autocast: the tensor-core routes only
+        if paths[path]["window_attention_fwd"] or paths[path]["window_attention_bwd"]:
+            raise AssertionError(f"the {path} path launched a CUDA-core window-attention kernel")
 
     log(json.dumps({"kernels": kernels}))
     log(card_line())

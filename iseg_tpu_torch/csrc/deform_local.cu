@@ -34,13 +34,14 @@
 //                       <g_out[p], x[corner]> over the group's channels are
 //                       reduced over the group's threads by shuffles, and one
 //                       thread writes d_modulation, d_off_dy, d_off_dx.
-//   dl_bwd_x_kernel     d_x as a gather: each input pixel q walks the
-//                       displacement window, recomputes w_o[q - o, g] from
-//                       the maps and accumulates w_o * g_out[q - o]. No
-//                       atomics, every element written once. A thread holds
-//                       up to four vectors of the group's channels, so that
-//                       a group of 16 bf16 channels recomputes its weights
-//                       in one thread only.
+//   dl_bwd_x_kernel     d_x as a tiled gather through shared memory (see
+//                       its note below): a block owns a tile of input
+//                       pixels of one image and one group; each source
+//                       pixel of the tile's halo gets its displacement
+//                       weights computed once, by one thread, into shared
+//                       memory, and each input pixel then sums
+//                       w_o[q - o] * g_out[q - o] over o. No atomics, every
+//                       element written once.
 // Every output is bitwise repeatable: all sums run in a fixed order.
 //
 // Gradient conventions follow the hand-written JAX VJP: d tri/dt = -sign(t)
@@ -52,8 +53,11 @@
 // once (about 81 MB at [8,128,128,64], G = 4, bf16 x) and does about 72
 // FLOPs per output element, so its bound is bytes. The kernels are simple
 // CUDA-core gathers: the forward and the maps backward are limited by the
-// latency of their dependent loads (offset -> address -> row), the d_x
-// gather by instruction issue (49 x 9 hat products per (pixel, group)).
+// latency of their dependent loads (offset -> address -> row). A per-pixel
+// d_x gather would recompute each source pixel's weights from all 9 taps
+// for every one of the 49 pixels it reaches (441 hat products and 1,323
+// scattered map loads per (pixel, group)) and be bound by that issue; the
+// tiled kernel computes them once per block.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -276,62 +280,212 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// d_x[q, g*gc + j] = sum_o w_o[q - o, g] * g_out[q - o, g*gc + j]; d_x is
-// contiguous [B, H, W, C] whatever x's strides are. A thread takes NC
-// neighbouring vectors of V channels at a time (g.chunks counts those sets).
-template <typename T, int V, int NC>
-__global__ void __launch_bounds__(kThreads)
-    dl_bwd_x_kernel(Map off_dy, Map off_dx, Map mod, const T* __restrict__ gout,
-                    T* __restrict__ d_x, Geometry g) {
-  const int64_t tid = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  if (tid >= g.total) return;
-  const Where at(g, tid);
-  const int KK = g.K * g.K;
-  const int half = (g.K - 1) / 2;
-  const int lim = half + g.r;
-  const float r = static_cast<float>(g.r);
-  const int64_t group_off = static_cast<int64_t>(at.grp) * g.gc;
+// d_x[q, g*gc + j] = sum_o w_o[q - o, g] * g_out[q - o, g*gc + j], tiled.
+//
+// A block owns a th x tw tile of input pixels q of one image, for one group.
+// The sources q - o of its sums lie in the tile grown by lim = half + r on
+// every side (the halo). In shared memory:
+//   wsum[o][p]  fp32, the weight w_o[p, g] of every displacement o (span^2 of
+//               them, span = 2 lim + 1) at every halo pixel p: o-major, so
+//               that neighbouring pixels are neighbouring words;
+//   gs[p][c]    the incoming gradient of the halo pixels, `slab` channels of
+//               the group at a time, in its own type; in phase 1 the same
+//               bytes hold each warp's staging rows of the maps.
+// Phase 1: the block clears wsum (16-byte stores); then the thread that
+// owns halo pixel p walks its taps in order, splits each into its <= 2 x 2
+// corners (Tap) and adds m * wy * wx to the corner's displacement, so every
+// weight is the sum over taps in tap order, computed once. With K = 3 a
+// warp first loads its 32 pixels' 9 taps of each map together, consecutive
+// lanes on consecutive taps (a pixel's taps are contiguous), and passes
+// them to their owners through its staging row: with one pixel a lane,
+// every lane would touch a sector of its own per load, and those scattered
+// loads were the larger part of the kernel's time. A halo pixel outside
+// the map keeps zero weights and a zero gradient, so the gather needs no
+// bounds checks.
+// Phase 2, per slab of channels: the block loads the halo's g_out (16-byte
+// vectors; zeros outside the map), then each (q, vector of V channels) sums
+// fmaf(wsum[o][q - o], gs[q - o], acc) over o, y-major, in fp32.
+//
+// The tile: tw = 16 pixels along x, so that a warp's lanes read neighbouring
+// words of wsum and one contiguous run of gs; th the largest of 16, 8, 4,
+// 2, 1 whose shared memory fits two blocks on an SM (kDxSmemBudget), with
+// smaller widths after that for reaches that need them. At InternImage's K
+// = 3, r = 2 (span 7, 49 weights of 196 bytes per halo pixel) and 16 bf16
+// channels per group, a 16 x 16 tile has a 22 x 22 halo: 94,864 bytes of
+// weights and 18,432 of gradient and staging, two blocks of 512 threads per
+// SM; each source pixel's weights are computed 1.9 times (484 / 256),
+// against 49 times in a per-pixel gather. An 8 x 8 tile (196 halo pixels,
+// 3.1 times) would fit four blocks of fewer threads; the larger tile does
+// less redundant work for the same occupancy. fp32 values take 8 x 16 (a
+// 14 x 22 halo) within the same budget.
+struct DxTiling {
+  int th, tw;          // input pixels of a tile
+  int lim, span;       // reach half + r of the displacements, and 2 lim + 1
+  int halo_w, halo;    // halo row length and pixel count
+  int slab;            // channels of g_out per pass, a multiple of V dividing gc
+  int tiles_x, tiles;  // tiles across a row of the map, and per image
+  int threads;
+  size_t w_bytes, smem;
+};
 
-  for (int c = at.t; c < g.chunks; c += g.tpg) {
-    const int64_t chan = group_off + static_cast<int64_t>(c) * (V * NC);
-    float acc[NC][V];
+constexpr int kDxMaxThreads = 512;
+constexpr int kDxMaxSlab = 32;
+constexpr int kDxTaps = 9;  // K = 3: the taps a warp stages together
+// Two blocks per SM: the SM's 228 KB less 1 KB reserved per block, halved
+constexpr size_t kDxSmemBudget = 115712;
+constexpr size_t kDxSmemMax = 232448;  // one block, Hopper's per-block limit
+constexpr size_t kDxStageBytes = kDxMaxThreads / 32 * 32 * kDxTaps * 4;  // 18,432
+
+template <typename T, int V>
+__global__ void __launch_bounds__(kDxMaxThreads, 2)
+    dl_bwd_x_kernel(Map off_dy, Map off_dx, Map mod, const T* __restrict__ gout,
+                    T* __restrict__ d_x, Geometry g, DxTiling t) {
+  extern __shared__ __align__(16) unsigned char dl_smem[];
+  float* wsum = reinterpret_cast<float*>(dl_smem);
+  T* gs = reinterpret_cast<T*>(dl_smem + t.w_bytes);
+  const int b = blockIdx.z, grp = blockIdx.y;
+  const int y0 = (blockIdx.x / t.tiles_x) * t.th, x0 = (blockIdx.x % t.tiles_x) * t.tw;
+  const int KK = g.K * g.K, lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const float r = static_cast<float>(g.r);
+  const int64_t img = static_cast<int64_t>(b) * g.H;
+  // the pixel index of halo pixel hp in the batch, or -1 outside the map
+  auto pixel = [&](int hp) -> int64_t {
+    const int hy = hp / t.halo_w;
+    const int py = y0 - t.lim + hy, px = x0 - t.lim + (hp - hy * t.halo_w);
+    if (hp >= t.halo || py < 0 || py >= g.H || px < 0 || px >= g.W) return -1;
+    return (img + py) * g.W + px;
+  };
+  // the map offset of its taps, or -1
+  auto map_base = [&](int hp) -> int64_t {
+    const int64_t pix = pixel(hp);
+    return pix < 0 ? -1 : (pix * g.G + grp) * KK;
+  };
+
+  // phase 1: the weights of every halo pixel
+  for (int e = threadIdx.x; e < static_cast<int>(t.w_bytes / 16); e += blockDim.x)
+    reinterpret_cast<uint4*>(dl_smem)[e] = make_uint4(0u, 0u, 0u, 0u);
+  __syncthreads();
+  float* stage = reinterpret_cast<float*>(gs) + warp * 32 * kDxTaps;
+  for (int first = warp * 32; first < t.halo; first += blockDim.x) {
+    const int hp = first + lane;
+    const int64_t mine = map_base(hp);
+    float* row = wsum + hp;
+    auto add_tap = [&](int tap, float oy, float ox, float m) {
+      const Tap tp(oy, ox, tap, g.K, r);
 #pragma unroll
-    for (int n = 0; n < NC; ++n)
+      for (int cy = 0; cy < 2; ++cy) {
+        if (tp.wy[cy] == 0.f) continue;
+        const float wy = m * tp.wy[cy];
+        float* line = row + (tp.iy + cy + t.lim) * t.span * t.halo;
 #pragma unroll
-      for (int i = 0; i < V; ++i) acc[n][i] = 0.f;
-    for (int oy = -lim; oy <= lim; ++oy) {
-      const int py = at.py - oy;
-      if (py < 0 || py >= g.H) continue;
-      for (int ox = -lim; ox <= lim; ++ox) {
-        const int px = at.px - ox;
-        if (px < 0 || px >= g.W) continue;
-        const int64_t pix = (static_cast<int64_t>(at.b) * g.H + py) * g.W + px;
-        const int64_t map_base = (pix * g.G + at.grp) * KK;
-        float w = 0.f;
-        for (int tap = 0; tap < KK; ++tap) {
-          const float dy = fminf(fmaxf(off_dy.at(map_base + tap), -r), r) +
-                           static_cast<float>(tap / g.K - half);
-          const float ty = 1.f - fabsf(dy - static_cast<float>(oy));
-          if (ty <= 0.f) continue;
-          const float dx = fminf(fmaxf(off_dx.at(map_base + tap), -r), r) +
-                           static_cast<float>(tap % g.K - half);
-          const float tx = 1.f - fabsf(dx - static_cast<float>(ox));
-          if (tx <= 0.f) continue;
-          w = fmaf(mod.at(map_base + tap) * ty, tx, w);
-        }
-        if (w == 0.f) continue;
-#pragma unroll
-        for (int n = 0; n < NC; ++n) {
-          float gv[V];
-          load_vec<T, V>(gout + pix * g.C + chan + n * V, gv);
-#pragma unroll
-          for (int i = 0; i < V; ++i) acc[n][i] = fmaf(w, gv[i], acc[n][i]);
+        for (int cx = 0; cx < 2; ++cx) {
+          if (tp.wx[cx] == 0.f) continue;
+          float* cell = line + (tp.ix + cx + t.lim) * t.halo;
+          *cell = fmaf(wy, tp.wx[cx], *cell);
         }
       }
+    };
+    if (KK != kDxTaps) {  // uniform over the block
+      for (int tap = 0; tap < KK && mine >= 0; ++tap)
+        add_tap(tap, off_dy.at(mine + tap), off_dx.at(mine + tap), mod.at(mine + tap));
+      continue;
     }
+    // map values of (pixel first + e / 9, tap e % 9), e = i * 32 + lane
+    float oy[kDxTaps], ox[kDxTaps], m[kDxTaps];
+    auto stage_map = [&](const Map& map, float (&dst)[kDxTaps]) {
 #pragma unroll
-    for (int n = 0; n < NC; ++n) store_vec<T, V>(d_x + at.pix * g.C + chan + n * V, acc[n]);
+      for (int i = 0; i < kDxTaps; ++i) {
+        const int e = i * 32 + lane, p = e / kDxTaps;
+        const int64_t base = map_base(first + p);
+        stage[e] = base < 0 ? 0.f : map.at(base + (e - p * kDxTaps));
+      }
+      __syncwarp();
+#pragma unroll
+      for (int tap = 0; tap < kDxTaps; ++tap) dst[tap] = stage[lane * kDxTaps + tap];
+      __syncwarp();
+    };
+    stage_map(off_dy, oy);
+    stage_map(off_dx, ox);
+    stage_map(mod, m);
+    if (mine >= 0) {
+#pragma unroll
+      for (int tap = 0; tap < kDxTaps; ++tap) add_tap(tap, oy[tap], ox[tap], m[tap]);
+    }
   }
+
+  // phase 2, per slab of channels
+  const int nvec = t.slab / V;
+  const int items = t.th * t.tw * nvec;
+  for (int c0 = 0; c0 < g.gc; c0 += t.slab) {
+    const int64_t chan = static_cast<int64_t>(grp) * g.gc + c0;
+    __syncthreads();  // the weights are in (and the staging rows free); the last slab is done
+    for (int e = threadIdx.x; e < t.halo * nvec; e += blockDim.x) {
+      const int hp = e / nvec, vec = e - hp * nvec;
+      const int64_t pix = pixel(hp);
+      Vec<T, V> val;
+      if (pix >= 0) {
+        val = *reinterpret_cast<const Vec<T, V>*>(gout + pix * g.C + chan + vec * V);
+      } else {
+#pragma unroll
+        for (int i = 0; i < V; ++i) val.v[i] = T(0);
+      }
+      *reinterpret_cast<Vec<T, V>*>(gs + hp * t.slab + vec * V) = val;
+    }
+    __syncthreads();
+    for (int e = threadIdx.x; e < items; e += blockDim.x) {
+      const int pix = e / nvec, vec = e - pix * nvec;
+      const int ty = pix / t.tw, tx = pix - ty * t.tw;
+      const int qy = y0 + ty, qx = x0 + tx;
+      if (qy >= g.H || qx >= g.W) continue;
+      float acc[V];
+#pragma unroll
+      for (int i = 0; i < V; ++i) acc[i] = 0.f;
+      // displacement (oi - lim, oj - lim) reads halo pixel (ty + 2 lim - oi, tx + 2 lim - oj)
+      const int hp0 = (ty + 2 * t.lim) * t.halo_w + tx + 2 * t.lim;
+      for (int oi = 0; oi < t.span; ++oi) {
+        for (int oj = 0; oj < t.span; ++oj) {
+          const int hp = hp0 - oi * t.halo_w - oj;
+          const float w = wsum[(oi * t.span + oj) * t.halo + hp];
+          float gv[V];
+          load_vec<T, V>(gs + hp * t.slab + vec * V, gv);
+#pragma unroll
+          for (int i = 0; i < V; ++i) acc[i] = fmaf(w, gv[i], acc[i]);
+        }
+      }
+      store_vec<T, V>(d_x + ((img + qy) * g.W + qx) * g.C + chan + vec * V, acc);
+    }
+  }
+}
+
+// The tile of the d_x kernel for this geometry (see its note); false when
+// not even a 1 x 1 tile's weights fit a block's shared memory.
+bool dx_tiling(const Geometry& g, int vec, int elem_bytes, DxTiling& t) {
+  static const int kTiles[][2] = {{16, 16}, {8, 16}, {4, 16}, {2, 16}, {1, 16}, {4, 8},
+                                  {4, 4},   {2, 4},  {2, 2},  {1, 2},  {1, 1}};
+  t.lim = (g.K - 1) / 2 + g.r;
+  t.span = 2 * t.lim + 1;
+  t.slab = vec;
+  for (int s = vec; s <= g.gc && s <= kDxMaxSlab; s += vec)
+    if (g.gc % s == 0) t.slab = s;
+  static const size_t kBudgets[] = {kDxSmemBudget, kDxSmemMax};
+  for (size_t budget : kBudgets) {
+    for (const auto& tile : kTiles) {
+      t.th = tile[0];
+      t.tw = tile[1];
+      t.halo_w = t.tw + 2 * t.lim;
+      t.halo = (t.th + 2 * t.lim) * t.halo_w;
+      t.w_bytes = (static_cast<size_t>(t.span) * t.span * t.halo * 4 + 15) / 16 * 16;
+      t.smem = t.w_bytes + max(static_cast<size_t>(t.halo) * t.slab * elem_bytes,
+                               g.K * g.K == kDxTaps ? kDxStageBytes : size_t{0});
+      if (t.smem > budget) continue;
+      t.tiles_x = (g.W + t.tw - 1) / t.tw;
+      t.tiles = t.tiles_x * ((g.H + t.th - 1) / t.th);
+      const int work = max(t.halo, t.th * t.tw * (t.slab / vec));
+      t.threads = min(kDxMaxThreads, (work + 31) / 32 * 32);
+      return true;
+    }
+  }
+  return false;
 }
 
 constexpr int kDoesNotFit = -1;
@@ -359,23 +513,21 @@ template <typename T, int V>
 int launch_bwd(const void* x, Map dy, Map dx, Map m, const void* gout, void* d_x,
                MapOut d_dy, MapOut d_dx, MapOut d_m, const Geometry& g,
                cudaStream_t stream) {
+  DxTiling t;
+  if (!dx_tiling(g, V, static_cast<int>(sizeof(T)), t) || g.G > 65535 || g.B > 65535)
+    return kDoesNotFit;
+  auto x_kernel = dl_bwd_x_kernel<T, V>;
+  if (t.smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        x_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(t.smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
   dl_bwd_maps_kernel<T, V><<<blocks_for(g.total), kThreads, 0, stream>>>(
       static_cast<const T*>(x), dy, dx, m, static_cast<const T*>(gout), d_dy, d_dx, d_m, g);
-  cudaError_t err = cudaGetLastError();
+  const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  // the d_x gather: as many vectors per thread (4, 2 or 1) as divide the group
-  Geometry gx = g;
-  const int nc = g.chunks % 4 == 0 ? 4 : (g.chunks % 2 == 0 ? 2 : 1);
-  gx.chunks = g.chunks / nc;
-  set_threads(gx);
-  const T* go = static_cast<const T*>(gout);
-  T* dxp = static_cast<T*>(d_x);
-  if (nc == 4)
-    dl_bwd_x_kernel<T, V, 4><<<blocks_for(gx.total), kThreads, 0, stream>>>(dy, dx, m, go, dxp, gx);
-  else if (nc == 2)
-    dl_bwd_x_kernel<T, V, 2><<<blocks_for(gx.total), kThreads, 0, stream>>>(dy, dx, m, go, dxp, gx);
-  else
-    dl_bwd_x_kernel<T, V, 1><<<blocks_for(gx.total), kThreads, 0, stream>>>(dy, dx, m, go, dxp, gx);
+  x_kernel<<<dim3(t.tiles, g.G, g.B), t.threads, t.smem, stream>>>(
+      dy, dx, m, static_cast<const T*>(gout), static_cast<T*>(d_x), g, t);
   return static_cast<int>(cudaGetLastError());
 }
 

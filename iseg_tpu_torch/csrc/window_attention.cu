@@ -60,10 +60,30 @@
 // 3 times their byte bound of 0.97 ms and the CUDA-core kernel's 18 times
 // (PERF.md, section 6).
 //
-// The forward (wa_fwd_kernel) is the CUDA-core design: fp32 FMA loops with 4 x
-// 4 register tiles, q, k, v and the logits in shared memory as fp32 (rows
-// padded by one float so that the column walks of q k^T hit distinct banks).
-// It is level with SDPA at window 7 and far behind it at window 12.
+// Two forward kernels, chosen by the wrapper by the same rule:
+//
+// * wa_fwd_mma_kernel, for bf16 q, k, v with D % 16 == 0 and N <= 144: the
+//   backward's design with two products. Blocks are persistent over a chunk
+//   of consecutive windows of one head (one wave, sized by the occupancy
+//   query); the head's bias [N, N] sits in shared memory once per block; the
+//   next window's q, k, v arrive by cp.async while the block computes this
+//   one, and at N <= 64 each thread loads the next window's mask values at
+//   its logits into registers during p v. A warp owns 16 query rows: S =
+//   q k^T scale + bias + mask in fp32 accumulators (mma.sync m16n8k16),
+//   padded keys -inf, softmax in registers by quad shuffles, then p v with p
+//   taken straight from the accumulator fragments, rounded to bf16 as the A
+//   operand, and v through ldmatrix.trans. The logits, the softmax and its
+//   sums stay fp32; p is the only value rounded before the output. One block
+//   barrier per window (the tiles of the next window), against three for
+//   the CUDA-core kernel, and no logits tile in shared memory. What is left
+//   is the latency of each warp's chain per window (two products, a softmax,
+//   the loads of bias and mask), at 16 warps per SM at N <= 64 and 9 at 144.
+// * wa_fwd_kernel, for float32 and other shapes: the CUDA-core design, fp32
+//   FMA loops with 4 x 4 register tiles, q, k, v and the logits in shared
+//   memory as fp32 (rows padded by one float so that the column walks of
+//   q k^T hit distinct banks). It is bound by instruction issue, 12.5x its
+//   byte bound over a Swin-L step in bf16 (PERF.md, section 6), and far
+//   behind SDPA at window 12; fp32 stays on it for the reason given above.
 //
 // Tensors are addressed through element strides for (window, head, token);
 // the head dim has stride 1. So q, k, v may be views of the packed qkv
@@ -414,6 +434,9 @@ constexpr float kLog2e = 1.4426950408889634f;
 // 3 (168 registers a thread) took less time over a Swin-L step than 4 (128
 // registers, more spills) or 2.
 constexpr int kMmaMinBlocks = 3;
+// The same for the tensor-core forward at N <= 64 (128 registers); at N =
+// 144 one block of 9 warps fits an SM (the bias alone takes 83 KB).
+constexpr int kFwdMmaMinBlocks = 4;
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -783,6 +806,148 @@ wa_bwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __re
     }
 }
 
+// Shared memory of the tensor-core forward, in bytes: two sets (the window
+// computed and the next one) of the q, k, v tiles [N][D + 8] and a row of
+// zeros (bf16), then the head's bias [N][N] (fp32).
+size_t fwd_mma_smem_bytes(int N, int D) {
+  return 2 * (6 * static_cast<size_t>(N) + 1) * (D + 8) + 4 * static_cast<size_t>(N) * N;
+}
+
+// One block per (chunk of windows, head): kNP / 16 warps, each owning 16
+// query rows. Per window: S = q k^T scale + bias + mask -> softmax -> p
+// (bf16 fragments) -> out = p v, with the next window's q, k, v on their way
+// by cp.async. At N <= 64 each thread loads its mask values of the next
+// window into registers during p v, off the path from q k^T to the softmax;
+// at N = 144 those 72 more registers a thread would spill, which was slower
+// than reading the mask where it is added.
+template <int kNP>
+__global__ void __launch_bounds__(kNP * 2, kNP <= 64 ? kFwdMmaMinBlocks : 1)
+wa_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                  const __nv_bfloat16* __restrict__ v, const float* __restrict__ bias,
+                  const float* __restrict__ mask, __nv_bfloat16* __restrict__ out, Strides sq,
+                  Strides sk, Strides sv, Strides so, int bnw, int H, int N, int D, int nW,
+                  int windows_per_chunk, float scale) {
+  constexpr int kNT = kNP / 8;  // 16 x 8 accumulator tiles across a row of keys
+  constexpr int kThreads = kNP * 2;
+  constexpr bool kMaskAhead = kNP <= 64;
+  extern __shared__ __align__(16) unsigned char wa_mma_smem[];
+  const int ld = D + 8, tile = N * ld;
+  __nv_bfloat16* tiles = reinterpret_cast<__nv_bfloat16*>(wa_mma_smem);
+  __nv_bfloat16* zero = tiles + 2 * 3 * tile;
+  float* bias_smem = reinterpret_cast<float*>(zero + ld);  // [N][N]
+
+  const int lane = threadIdx.x & 31, m0 = (threadIdx.x >> 5) * 16;
+  const int r0 = m0 + (lane >> 2), r1 = r0 + 8, c2 = (lane & 3) * 2;
+  const int chunk = blockIdx.x / H, h = blockIdx.x - chunk * H;
+  const int b_first = chunk * windows_per_chunk;
+  const int b_end = min(bnw, b_first + windows_per_chunk);
+  const float* bias_h = bias + static_cast<int64_t>(h) * N * N;
+
+  for (int e = threadIdx.x; e < ld / 8; e += kThreads)
+    reinterpret_cast<uint4*>(zero)[e] = make_uint4(0u, 0u, 0u, 0u);
+  for (int e = threadIdx.x; e < N * N; e += kThreads) bias_smem[e] = __ldg(bias_h + e);
+
+  // q, k, v of window b -> tile set `stage`: a thread copies 16-byte piece
+  // `col` of rows row0, row0 + row_step, ...
+  const int per_row = D / 8, row_step = kThreads / per_row;
+  const int row0 = threadIdx.x / per_row, col = (threadIdx.x - row0 * per_row) * 8;
+  auto load_tile = [&](const __nv_bfloat16* g, Strides st, int b, __nv_bfloat16* dst) {
+    const __nv_bfloat16* base = g + b * st.b + h * st.h + col;
+    for (int n = row0; n < N && row0 < row_step; n += row_step)
+      cp_async16(smem_addr(dst + n * ld + col), base + n * st.n);
+  };
+  auto load = [&](int b, int stage) {
+    __nv_bfloat16* dst = tiles + stage * 3 * tile;
+    load_tile(q, sq, b, dst);
+    load_tile(k, sk, b, dst + tile);
+    load_tile(v, sv, b, dst + 2 * tile);
+    cp_async_commit();
+  };
+
+  // the mask values at this thread's logits for the window computed next,
+  // loaded during the last window's p v
+  constexpr int kAhead = kMaskAhead ? kNT : 1;
+  float mask_next[kAhead][4];
+  auto load_mask = [&](int b) {
+    const float* mask_b = mask + static_cast<int64_t>(b % nW) * N * N;
+#pragma unroll
+    for (int t = 0; t < kAhead; ++t)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = e < 2 ? r0 : r1, j = t * 8 + c2 + (e & 1);
+        mask_next[t][e] = i < N && j < N ? __ldg(mask_b + i * N + j) : 0.f;
+      }
+  };
+
+  load(b_first, 0);
+  if constexpr (kMaskAhead) load_mask(b_first);
+  for (int b = b_first, it = 0; b < b_end; ++b, ++it) {
+    const int cur = it & 1;
+    cp_async_wait_all();
+    __syncthreads();  // the window's tiles are in; every warp is done with the last one
+    if (b + 1 < b_end) load(b + 1, cur ^ 1);
+    const __nv_bfloat16* qs = tiles + cur * 3 * tile;
+    const __nv_bfloat16* ks = qs + tile;
+    const __nv_bfloat16* vs = ks + tile;
+
+    // logits and softmax, fp32 in registers; a padded key gets -inf, a
+    // padded query row no finite logit, and so p = 0
+    float p[kNT][4];
+    rows_times_rows_t<kNT>(qs, ks, zero, m0, N, D, ld, p);
+    const float* mask_b = mask + static_cast<int64_t>(b % nW) * N * N;
+    float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+    for (int t = 0; t < kNT; ++t)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = e < 2 ? r0 : r1, j = t * 8 + c2 + (e & 1);
+        float x = -INFINITY;
+        if (i < N && j < N) {
+          const float mask_ij = kMaskAhead ? mask_next[kMaskAhead ? t : 0][e]
+                                           : __ldg(mask_b + i * N + j);
+          x = p[t][e] * scale + bias_smem[i * N + j] + mask_ij;
+        }
+        p[t][e] = x;
+        if (e < 2) mx0 = fmaxf(mx0, x);
+        else mx1 = fmaxf(mx1, x);
+      }
+    mx0 = quad_max(mx0);
+    mx1 = quad_max(mx1);
+    const float sub0 = (mx0 == -INFINITY ? 0.f : mx0) * kLog2e;
+    const float sub1 = (mx1 == -INFINITY ? 0.f : mx1) * kLog2e;
+    float l0 = 0.f, l1 = 0.f;
+#pragma unroll
+    for (int t = 0; t < kNT; ++t)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        p[t][e] = exp2f(fmaf(p[t][e], kLog2e, -(e < 2 ? sub0 : sub1)));
+        if (e < 2) l0 += p[t][e];
+        else l1 += p[t][e];
+      }
+    l0 = quad_sum(l0);
+    l1 = quad_sum(l1);
+    const float inv0 = l0 > 0.f ? 1.f / l0 : 0.f, inv1 = l1 > 0.f ? 1.f / l1 : 0.f;
+    // p rounded to bf16 as the A operand of p v (accumulator tiles 2s and
+    // 2s + 1 are the A fragment of keys 16 s .. 16 s + 15)
+    uint32_t a_p[kNT / 2][4];
+#pragma unroll
+    for (int s = 0; s < kNT / 2; ++s) {
+      a_p[s][0] = bf16x2(p[2 * s][0] * inv0, p[2 * s][1] * inv0);
+      a_p[s][1] = bf16x2(p[2 * s][2] * inv1, p[2 * s][3] * inv1);
+      a_p[s][2] = bf16x2(p[2 * s + 1][0] * inv0, p[2 * s + 1][1] * inv0);
+      a_p[s][3] = bf16x2(p[2 * s + 1][2] * inv1, p[2 * s + 1][3] * inv1);
+    }
+    if (kMaskAhead && b + 1 < b_end) load_mask(b + 1);
+
+    float acc[2][4];
+    __nv_bfloat16* out_w = out + b * so.b + h * so.h;
+    for (int dc = 0; dc < D; dc += 16) {
+      frags_times_rows<kNT>(a_p, vs, zero, N, ld, dc, acc);
+      store_rows(out_w, so.n, m0, dc, N, 1.f, acc);
+    }
+  }
+}
+
 int windows_per_chunk(int bnw, int H, int target_blocks = kBwdTargetBlocks) {
   const int chunks = max(1, min(bnw, (target_blocks + H - 1) / H));
   return (bnw + chunks - 1) / chunks;
@@ -877,27 +1042,63 @@ int launch_bwd_mma_sized(const void* q, const void* k, const void* v, const void
   return static_cast<int>(cudaGetLastError());
 }
 
-// Chunks of windows for the tensor-core backward: one wave, as many blocks
-// as the card holds at once (SMs times resident blocks per SM), or fewer
-// when there are fewer windows. Returns -1 when the kernel cannot run. It
-// also lets the kernel take all the shared memory a block may have on the
-// current device, which its launches rely on.
-template <int kNP>
-int mma_chunks(int bnw, int H, int N, int D) {
-  const size_t smem = mma_smem_bytes(N, D);
+// Blocks of a tensor-core kernel the card holds at once (SMs times resident
+// blocks per SM), or -1 when the kernel cannot run. It also lets the kernel
+// take all the shared memory a block may have on the current device, which
+// its launches rely on.
+template <typename K>
+int resident_blocks(K kernel, int threads, size_t smem) {
   if (smem > kMaxDynamicSmem) return -1;
-  auto kernel = wa_bwd_mma_kernel<kNP>;
   if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            kMaxDynamicSmem) != cudaSuccess)
     return -1;
   int device = 0, sms = 0, per_sm = 0;
   if (cudaGetDevice(&device) != cudaSuccess ||
       cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device) != cudaSuccess ||
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kNP * 2, smem) !=
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem) !=
           cudaSuccess)
     return -1;
-  const int wpc = windows_per_chunk(bnw, H, sms * max(1, per_sm));
+  return sms * max(1, per_sm);
+}
+
+// Chunks of windows for the tensor-core backward: about one wave (chunks
+// times H rounded up to the resident blocks), or fewer when there are fewer
+// windows.
+template <int kNP>
+int mma_chunks(int bnw, int H, int N, int D) {
+  const int blocks = resident_blocks(wa_bwd_mma_kernel<kNP>, kNP * 2, mma_smem_bytes(N, D));
+  if (blocks < 1) return -1;
+  const int wpc = windows_per_chunk(bnw, H, blocks);
   return (bnw + wpc - 1) / wpc;
+}
+
+// Chunks of windows for the tensor-core forward: chunks times H at most the
+// resident blocks, so the grid is one wave. Rounding up as the backward does
+// puts a few blocks in a second wave where H does not divide the resident
+// blocks (H = 24 and 48 at N = 144, one block per SM), and the second wave
+// costs as long as the first.
+template <int kNP>
+int fwd_mma_chunks(int bnw, int H, int N, int D) {
+  const int blocks = resident_blocks(wa_fwd_mma_kernel<kNP>, kNP * 2, fwd_mma_smem_bytes(N, D));
+  if (blocks < 1) return -1;
+  const int chunks = max(1, min(bnw, blocks / H));
+  const int wpc = (bnw + chunks - 1) / chunks;
+  return (bnw + wpc - 1) / wpc;
+}
+
+template <int kNP>
+int launch_fwd_mma_sized(const void* q, const void* k, const void* v, const float* bias,
+                         const float* mask, void* out, const Strides* s, int bnw, int H, int N,
+                         int D, int nW, int chunks, float scale, cudaStream_t stream) {
+  const int wpc = (bnw + chunks - 1) / chunks;
+  if (chunks < 1 || chunks != (bnw + wpc - 1) / wpc) return -1;
+  const size_t smem = fwd_mma_smem_bytes(N, D);
+  if (smem > kMaxDynamicSmem) return -1;
+  using bf16 = __nv_bfloat16;
+  wa_fwd_mma_kernel<kNP><<<chunks * H, kNP * 2, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v), bias,
+      mask, static_cast<bf16*>(out), s[0], s[1], s[2], s[3], bnw, H, N, D, nW, wpc, scale);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -929,6 +1130,30 @@ int window_attention_fwd(const void* q, const void* k, const void* v, const void
   if (dtype == 1)
     return launch_fwd<__nv_bfloat16>(q, k, v, bp, mp, out, s, bnw, H, N, D, nW, scale, st);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The tensor-core forward, bf16 only, under the rules of the tensor-core
+// backward below: N <= 144, D % 16 == 0, 16-byte aligned bases and strides
+// of q, k, v that are multiples of 8 elements, and two sets of tiles with
+// the head's bias within a block's shared memory (fwd_mma_smem_bytes), else
+// -1. chunks: window_attention_fwd_mma_chunks(bnw, H, N, D), called on the
+// device before its first launch there. strides: q, k, v, out (12 values).
+int window_attention_fwd_mma_chunks(int bnw, int H, int N, int D) {
+  if (N < 1 || N > kMmaMaxN || D < 16 || D % 16 != 0) return -1;
+  return N <= 64 ? fwd_mma_chunks<64>(bnw, H, N, D) : fwd_mma_chunks<144>(bnw, H, N, D);
+}
+
+int window_attention_fwd_mma(const void* q, const void* k, const void* v, const void* bias,
+                             const void* mask, void* out, int bnw, int H, int N, int D, int nW,
+                             int chunks, float scale, const long long* strides, void* stream) {
+  if (N < 1 || N > kMmaMaxN || D < 16 || D % 16 != 0) return -1;
+  const Strides* s = reinterpret_cast<const Strides*>(strides);
+  const float* bp = static_cast<const float*>(bias);
+  const float* mp = static_cast<const float*>(mask);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (N <= 64)
+    return launch_fwd_mma_sized<64>(q, k, v, bp, mp, out, s, bnw, H, N, D, nW, chunks, scale, st);
+  return launch_fwd_mma_sized<144>(q, k, v, bp, mp, out, s, bnw, H, N, D, nW, chunks, scale, st);
 }
 
 // strides: q, k, v, do, dq, dk, dv (21 values). partial: float scratch of

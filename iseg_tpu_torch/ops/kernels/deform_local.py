@@ -21,7 +21,11 @@ them on the H100); on CPU tensors the plain PyTorch versions below, the
 displacement loops of ``_dense_local_flat_math`` and
 ``_dense_local_flat_bwd_math`` written out, compute the same function and
 the same gradients. A CUDA tensor never falls back to the plain version: a
-wrong device, dtype, shape or layout, or a failed launch, raises.
+wrong device, dtype, shape or layout, or a failed launch, raises. The
+backward's input gradient is a tiled gather that holds a tile's
+displacement weights in shared memory; a reach ``(K - 1) / 2 + max_offset``
+above 7, whose weights would not fit a block even for one pixel, raises
+too.
 
 The backward is hand-written on both devices (the saved tensors are the
 four inputs; the weights are recomputed) and follows the JAX VJP's

@@ -19,6 +19,15 @@ max(sum(valid), 1)`` over pixels with ``label != ignore_label``; a label
 outside ``[0, C)`` that is not ignored has no true class, so its CE is the
 full log-sum-exp; with ``ignore_label == 0`` the classes are NOT shifted
 (unlike :func:`cross_entropy_ignore_label`).
+
+Routing by class count, copied from the reference
+(``iseg_tpu/ops/pallas/upsample_ce.py:233-236``): above ``MAX_FUSED_CLASSES``
+(64) classes, on any device, :func:`upsample_cross_entropy` returns
+:func:`upsample_cross_entropy_reference`, the unfused resize +
+:func:`cross_entropy_ignore_label` with that function's label rules, and
+launches no kernel. This is the reference's dispatch rule, not a fallback:
+at 64 classes or fewer a CUDA tensor takes the kernels, and a fault there
+raises.
 """
 
 from __future__ import annotations
@@ -32,6 +41,7 @@ from iseg_tpu_torch.losses.cross_entropy import cross_entropy_ignore_label
 from iseg_tpu_torch.ops.resize import resize_image
 
 LAUNCH_COUNTS = {"fwd": 0, "bwd": 0}
+MAX_FUSED_CLASSES = 64
 
 SOURCE = "upsample_ce.cu"
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -176,7 +186,12 @@ def upsample_cross_entropy(
         (float32 or bfloat16).
       labels: [N, H, W] (or [N, H, W, 1]) int labels at target resolution.
       target_hw: defaults to the labels' (H, W), and must equal it.
+
+    Above ``MAX_FUSED_CLASSES`` classes this is the unfused
+    :func:`upsample_cross_entropy_reference`, as in the JAX package.
     """
+    if src_logits.shape[-1] > MAX_FUSED_CLASSES:
+        return upsample_cross_entropy_reference(src_logits, labels, target_hw, ignore_label)
     labels = _squeeze_labels(labels, target_hw)
     labels = labels.to(torch.int32)
     if src_logits.device.type == "cpu":

@@ -19,18 +19,22 @@ dq/dk/dv come back token-major (``[bnw, H, N, D]`` views of
 ``[bnw, N, H, D]`` memory), so the caller's merge of the heads is a view.
 
 Types: q, k, v in float32 or bfloat16 (all alike); bias and mask float32;
-out, dq, dk, dv in q's dtype, dbias fp32. The forward computes in fp32. The
-backward takes one of two kernels by :func:`backward_route`: bfloat16 with
-``D % 16 == 0`` and ``N <= 144``, where its tiles fit (every Swin
-variant), runs on the tensor cores, with p rounded to bf16 as the operand of
-dv and ds as the operand of dq and dk, everything else fp32; float32, and
-any other shape, on the CUDA cores in fp32 (tensor cores would round fp32 operands to TF32). Every
-output, dbias included, is bitwise repeatable: dbias is summed from fp32 ds
-over chunks of windows in a fixed order, with no atomics.
+out, dq, dk, dv in q's dtype, dbias fp32. The forward and the backward each
+take one of two kernels, by :func:`forward_route` and
+:func:`backward_route`. bfloat16 with ``D % 16 == 0`` and ``N <= 144``
+(every Swin variant) runs on the tensor cores: the forward with p rounded
+to bf16 as the operand of p v, the backward with p rounded as the operand
+of dv and ds as the operand of dq and dk, everything else fp32. float32,
+and any other shape, runs on the CUDA cores in fp32 (tensor cores would
+round fp32 operands to TF32). Whether a tensor-core kernel's tiles fit a
+block's shared memory is the CUDA source's to decide: a shape on that
+route whose tiles do not fit raises. Every output, dbias included, is
+bitwise repeatable: dbias is summed from fp32 ds over chunks of windows in
+a fixed order, with no atomics.
 
-``LAUNCH_COUNTS`` counts kernel launches (``"fwd"``; ``"bwd"`` for the
-CUDA-core backward, ``"bwd_mma"`` for the tensor-core one): one per launch
-of each kernel, nowhere else.
+``LAUNCH_COUNTS`` counts kernel launches (``"fwd"`` and ``"bwd"`` for the
+CUDA-core kernels, ``"fwd_mma"`` and ``"bwd_mma"`` for the tensor-core
+ones): one per launch of each kernel, nowhere else.
 """
 
 from __future__ import annotations
@@ -40,12 +44,24 @@ import functools
 
 import torch
 
-LAUNCH_COUNTS = {"fwd": 0, "bwd": 0, "bwd_mma": 0}
+LAUNCH_COUNTS = {"fwd": 0, "fwd_mma": 0, "bwd": 0, "bwd_mma": 0}
 
 SOURCE = "window_attention.cu"
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _DOES_NOT_FIT = -1
 MMA_MAX_N = 144
+FWD_MMA_MAX_D = 128
+
+
+def forward_route(dtype: torch.dtype, n: int, d: int) -> str:
+    """The forward kernel for q, k, v of ``dtype`` and shape ``[.., N, D]``:
+    ``"mma"`` (tensor cores) for bfloat16 with ``D % 16 == 0``, ``16 <= D <=
+    128`` and ``N <= 144`` (every Swin variant has ``D = 32``), else
+    ``"cuda_core"``. On the tensor-core route the CUDA source decides whether
+    the tiles fit shared memory, and the launch raises where they do not."""
+    if dtype != torch.bfloat16 or d % 16 or not 16 <= d <= FWD_MMA_MAX_D:
+        return "cuda_core"
+    return "mma" if 1 <= n <= MMA_MAX_N else "cuda_core"
 
 
 def backward_route(dtype: torch.dtype, n: int, d: int) -> str:
@@ -78,6 +94,10 @@ def build():
         lib.window_attention_bwd_chunks.restype = i32
         lib.window_attention_fwd.argtypes = [ptr] * 6 + [i32] * 6 + [f32, strides, ptr]
         lib.window_attention_fwd.restype = i32
+        lib.window_attention_fwd_mma_chunks.argtypes = [i32] * 4
+        lib.window_attention_fwd_mma_chunks.restype = i32
+        lib.window_attention_fwd_mma.argtypes = [ptr] * 6 + [i32] * 6 + [f32, strides, ptr]
+        lib.window_attention_fwd_mma.restype = i32
         lib.window_attention_bwd.argtypes = [ptr] * 11 + [i32] * 6 + [f32, strides, ptr]
         lib.window_attention_bwd.restype = i32
         lib.window_attention_bwd_mma_chunks.argtypes = [i32] * 4
@@ -152,6 +172,18 @@ def _launch_fwd(q, k, v, bias, mask, scale: float) -> torch.Tensor:
     bnw, h, n, d = q.shape
     lib = build().lib
     stream = torch.cuda.current_stream(q.device).cuda_stream
+    if forward_route(q.dtype, n, d) == "mma":
+        q, k, v = (_aligned16(t) for t in (q, k, v))
+        chunks = _mma_chunks("fwd", q.device.index, bnw, h, n, d)
+        if chunks < 1:
+            _raise_on(_DOES_NOT_FIT, "forward (tensor cores)", q)
+        err = lib.window_attention_fwd_mma(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), mask.data_ptr(),
+            out.data_ptr(), bnw, h, n, d, mask.shape[0], chunks, float(scale),
+            _strides(q, k, v, out), stream)
+        _raise_on(err, "forward (tensor cores)", q)
+        LAUNCH_COUNTS["fwd_mma"] += 1
+        return out
     err = lib.window_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), mask.data_ptr(),
         out.data_ptr(), _DTYPE_CODES[q.dtype], bnw, h, n, d, mask.shape[0], float(scale),
@@ -171,11 +203,14 @@ def _aligned16(t: torch.Tensor) -> torch.Tensor:
 
 
 @functools.lru_cache(maxsize=256)
-def _mma_chunks(device_index: int, bnw: int, h: int, n: int, d: int) -> int:
-    """Chunks of windows of the tensor-core backward on the current device
-    (an occupancy query of the CUDA source), once per device and shape; -1
-    where its tiles do not fit."""
-    return build().lib.window_attention_bwd_mma_chunks(bnw, h, n, d)
+def _mma_chunks(which: str, device_index: int, bnw: int, h: int, n: int, d: int) -> int:
+    """Chunks of windows of the tensor-core forward or backward (``which``)
+    on the current device (an occupancy query of the CUDA source), once per
+    kernel, device and shape; -1 where its tiles do not fit."""
+    lib = build().lib
+    query = lib.window_attention_fwd_mma_chunks if which == "fwd" else \
+        lib.window_attention_bwd_mma_chunks
+    return query(bnw, h, n, d)
 
 
 def _launch_bwd(q, k, v, bias, mask, dout, scale: float):
@@ -190,7 +225,7 @@ def _launch_bwd(q, k, v, bias, mask, dout, scale: float):
     stream = torch.cuda.current_stream(q.device).cuda_stream
     if backward_route(q.dtype, n, d) == "mma":
         q, k, v, dout = (_aligned16(t) for t in (q, k, v, dout))
-        chunks = _mma_chunks(q.device.index, bnw, h, n, d)
+        chunks = _mma_chunks("bwd", q.device.index, bnw, h, n, d)
         if chunks < 1:
             _raise_on(_DOES_NOT_FIT, "backward (tensor cores)", q)
         partial = torch.empty((chunks, h, n, n), dtype=torch.float32, device=q.device)

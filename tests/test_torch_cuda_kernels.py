@@ -14,9 +14,9 @@ dense-local kernels sum the same products as their plain versions in
 another order: fp32 atol 2e-5 of max(1, max |plain|); with bf16 values the
 outputs that are rounded to bf16 get 1e-2 of it. The beam cache gather is a
 copy: bitwise equal to its plain version for every dtype and slab size. The
-window-attention backward in bf16 runs on the tensor cores
-(p and ds rounded to bf16 as operands): 1e-2 of max(1, max |plain|), 1e-3
-for dbias.
+window-attention forward and backward in bf16 run on the tensor cores (p,
+and in the backward ds, rounded to bf16 as operands): 1e-2 of max(1, max
+|plain|), 1e-3 for dbias.
 """
 
 import numpy as np
@@ -112,6 +112,24 @@ def test_cuda_upsample_ce_is_deterministic(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("ignore_label", [255, 0])
+def test_cuda_upsample_ce_above_64_classes_is_the_unfused_loss(cuda_device, ignore_label):
+    """Above 64 classes the fused loss is the unfused resize + CE on the
+    card too, as in the JAX package, and launches no kernel."""
+    src, labels = _data(cuda_device, 2, 8, 8, 150, 64, 64, ignore_label=ignore_label)
+    labels[:, :3] = 152  # out of range, not ignored
+    uce.reset_launch_counts()
+    got = _loss_and_grad(uce.upsample_cross_entropy, src, labels, ignore_label=ignore_label)
+    assert uce.LAUNCH_COUNTS == {"fwd": 0, "bwd": 0}
+    want = _loss_and_grad(uce.upsample_cross_entropy_reference, src, labels,
+                          ignore_label=ignore_label)
+    # the unfused backward's bilinear resize sums with atomics on the card,
+    # so two calls agree to rounding, not bitwise
+    np.testing.assert_allclose(got[0], want[0], rtol=1e-6)
+    np.testing.assert_allclose(got[1], want[1], rtol=0, atol=1e-5 * np.abs(want[1]).max())
+
+
+@pytest.mark.cuda
 def test_cuda_upsample_ce_rejects_wrong_inputs(cuda_device):
     src, labels = _data(cuda_device, 2, 4, 4, 5, 16, 16)
     with pytest.raises(TypeError):
@@ -140,6 +158,13 @@ def _wa_inputs(device, bnw, h, n, d, nw, dtype, seed=0, packed=False):
                             .astype(np.float32), device=device)
     dout = torch.tensor(rng.randn(bnw, h, n, d).astype(np.float32), device=device).to(dtype)
     return q, k, v, bias, mask, dout
+
+
+def _wa_counts(dtype, n, d):
+    """The launch counts of one forward and one backward, by route."""
+    fwd, bwd = wa.forward_route(dtype, n, d), wa.backward_route(dtype, n, d)
+    return {"fwd": int(fwd == "cuda_core"), "fwd_mma": int(fwd == "mma"),
+            "bwd": int(bwd == "cuda_core"), "bwd_mma": int(bwd == "mma")}
 
 
 def _wa_run(fn, q, k, v, bias, mask, dout, scale):
@@ -174,8 +199,7 @@ def test_cuda_window_attention_matches_plain_version(cuda_device, shape, dtype, 
     scale = 1.0 / np.sqrt(d)
     wa.reset_launch_counts()
     got = _wa_run(wa.window_attention, *args, scale)
-    mma = wa.backward_route(dtype, n, d) == "mma"
-    assert wa.LAUNCH_COUNTS == {"fwd": 1, "bwd": int(not mma), "bwd_mma": int(mma)}
+    assert wa.LAUNCH_COUNTS == _wa_counts(dtype, n, d)
     want = _wa_run(wa.window_attention_reference, *args, scale)
     atol = 2e-5 if dtype == torch.float32 else 2e-2
     for name, a, b in zip(("out", "dq", "dk", "dv"), got, want):
@@ -232,7 +256,7 @@ def test_cuda_window_attention_tensor_core_backward_at_swin_l_stages(cuda_device
     scale = 1.0 / np.sqrt(32)
     wa.reset_launch_counts()
     got = _wa_run(wa.window_attention, *args, scale)
-    assert wa.LAUNCH_COUNTS == {"fwd": 1, "bwd": 0, "bwd_mma": 1}
+    assert wa.LAUNCH_COUNTS == {"fwd": 0, "fwd_mma": 1, "bwd": 0, "bwd_mma": 1}
     want = _wa_run(wa.window_attention_reference, *args, scale)
     for name, a, b in zip(("out", "dq", "dk", "dv", "dbias"), got, want):
         assert np.isfinite(a).all(), name
@@ -260,8 +284,8 @@ def test_cuda_window_attention_bf16_backward_at_the_route_limits(cuda_device, n,
     args = _wa_inputs(cuda_device, 6, 2, n, d, 3, torch.bfloat16, packed=True)
     wa.reset_launch_counts()
     got = _wa_run(wa.window_attention, *args, 0.125)
-    assert wa.LAUNCH_COUNTS == {"fwd": 1, "bwd": int(route == "cuda_core"),
-                                "bwd_mma": int(route == "mma")}
+    assert wa.LAUNCH_COUNTS == _wa_counts(torch.bfloat16, n, d)
+    assert wa.LAUNCH_COUNTS["bwd_mma"] == int(route == "mma")
     want = _wa_run(wa.window_attention_reference, *args, 0.125)
     for name, a, b in zip(("out", "dq", "dk", "dv", "dbias"), got, want):
         tol = (1e-3 if name == "dbias" else 1e-2) * max(1.0, np.abs(b).max())
@@ -282,6 +306,56 @@ def test_cuda_window_attention_tensor_core_backward_takes_misaligned_views(cuda_
     want = _wa_run(wa.window_attention, q, k, v, bias, mask, dout, 0.2)
     for a, b in zip(got, want):
         np.testing.assert_array_equal(a, b)
+
+
+def _wa_forward(fn, q, k, v, bias, mask, scale):
+    with torch.no_grad():
+        out = fn(q, k, v, bias, mask, scale)
+    torch.cuda.synchronize()
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("packed", [False, True], ids=["contiguous", "packed_qkv"])
+@pytest.mark.parametrize("n,bnw,nw", [(49, 37, 4), (49, 613, 25), (144, 29, 4), (144, 131, 9)],
+                         ids=["n49_bnw37", "n49_bnw613", "n144_bnw29", "n144_bnw131"])
+def test_cuda_window_attention_tensor_core_forward_matches_plain_version(cuda_device, n, bnw,
+                                                                         nw, packed):
+    """The tensor-core forward at window 7 and 12, with window counts that
+    are no multiple of the block's chunk of windows, on contiguous tensors
+    and on views of a packed qkv projection: 1e-2 of max(1, max |plain|)."""
+    assert wa.forward_route(torch.bfloat16, n, 32) == "mma"
+    q, k, v, bias, mask, _ = _wa_inputs(cuda_device, bnw, 3, n, 32, nw, torch.bfloat16,
+                                        packed=packed)
+    wa.reset_launch_counts()
+    got = _wa_forward(wa.window_attention, q, k, v, bias, mask, 0.17)
+    assert wa.LAUNCH_COUNTS == {"fwd": 0, "fwd_mma": 1, "bwd": 0, "bwd_mma": 0}
+    want = _wa_forward(wa.window_attention_reference, q, k, v, bias, mask, 0.17).float()
+    assert got.dtype == torch.bfloat16 and bool(torch.isfinite(got).all())
+    err = float((got.float() - want).abs().max())
+    assert err <= 1e-2 * max(1.0, float(want.abs().max())), err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [7, 12], ids=["n49", "n144"])
+def test_cuda_window_attention_tensor_core_forward_is_bitwise_repeatable(cuda_device, window):
+    q, k, v, bias, mask, _ = _swin_inputs(cuda_device, "stage1", window, shifted=True, seed=4)
+    first = _wa_forward(wa.window_attention, q, k, v, bias, mask, 0.17)
+    second = _wa_forward(wa.window_attention, q, k, v, bias, mask, 0.17)
+    assert torch.equal(first, second)
+
+
+@pytest.mark.cuda
+def test_cuda_window_attention_tensor_core_forward_raises_where_tiles_do_not_fit(cuda_device):
+    """N = 144 with D = 128 takes the tensor-core route, whose tiles do not
+    fit a block's shared memory: the launch raises, nothing falls back."""
+    assert wa.forward_route(torch.bfloat16, 144, 128) == "mma"
+    q = torch.zeros((2, 1, 144, 128), dtype=torch.bfloat16, device=cuda_device)
+    zeros = torch.zeros((1, 144, 144), device=cuda_device)
+    wa.reset_launch_counts()
+    with pytest.raises(ValueError, match="do not fit"):
+        wa.window_attention(q, q, q, zeros, zeros, 1.0)
+    assert not any(wa.LAUNCH_COUNTS.values())
 
 
 @pytest.mark.cuda
@@ -427,6 +501,40 @@ def test_cuda_deform_local_is_deterministic(cuda_device):
     args = _dl_inputs(cuda_device, 8, 32, 32, 16, 16, 3, BF16, (F32, F32, BF16), transposed=True)
     first = _dl_kernel(*args, 16, 3, 2)
     second = _dl_kernel(*args, 16, 3, 2)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+# InternImage-T at 512x512 (map side, groups) per stage, 16 channels per group
+INTERN_T_STAGES = {"stage0": (128, 4), "stage1": (64, 8), "stage2": (32, 16), "stage3": (16, 32)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("types", ["f32", "autocast_ref_mix"])
+@pytest.mark.parametrize("stage", [*sorted(INTERN_T_STAGES), "odd_side_37x23"])
+def test_cuda_deform_local_tiled_dx_at_intern_t_stages(cuda_device, stage, types):
+    """The tiled d_x gather at InternImage-T's four stage geometries (one
+    image) and at odd map sides, against the plain backward, in f32 and in
+    the autocast mix on a transposed view."""
+    side, groups = INTERN_T_STAGES.get(stage, (None, 8))
+    h, w = (side, side) if side else (37, 23)
+    x_dtype, map_dtypes = DL_TYPES[types]
+    args = _dl_inputs(cuda_device, 1, h, w, groups, 16, 3, x_dtype, map_dtypes,
+                      transposed=types != "f32")
+    got = _dl_kernel(*args, groups, 3, 2)[1]
+    want = dl.deform_dense_local_flat_backward_reference(*args, groups, 3, 2)[0]
+    assert got.dtype == want.dtype and got.is_contiguous()
+    tol = (2e-5 if got.dtype == torch.float32 else 1e-2) * max(1.0, float(want.abs().max()))
+    assert float((got.float() - want.float()).abs().max()) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("types", ["f32", "autocast_ref_mix"])
+def test_cuda_deform_local_dx_is_bitwise_repeatable_at_an_odd_side(cuda_device, types):
+    x_dtype, map_dtypes = DL_TYPES[types]
+    args = _dl_inputs(cuda_device, 2, 29, 35, 4, 16, 3, x_dtype, map_dtypes, seed=6)
+    first = _dl_kernel(*args, 4, 3, 2)
+    second = _dl_kernel(*args, 4, 3, 2)
     for a, b in zip(first, second):
         assert torch.equal(a, b)
 

@@ -134,3 +134,26 @@ def test_torch_fused_rejects_mismatched_target_hw():
     src, labels = _data()
     with pytest.raises(ValueError):
         uce.upsample_cross_entropy(torch.tensor(src), torch.tensor(labels), target_hw=(8, 8))
+
+
+@pytest.mark.parametrize("ignore_label", [255, 0])
+@pytest.mark.parametrize("c", [65, 150])
+def test_torch_fused_many_classes_takes_unfused_path_as_jax(c, ignore_label):
+    """Above 64 classes both packages return the unfused resize + CE, with
+    its label rules (ignore_label=0 shifts the classes there), labels >= C
+    included."""
+    src, labels = _data(n=1, h=4, w=6, c=c, hh=8, ww=12, ignore_label=ignore_label)
+    labels[:, :2, :] = c + 3  # out of range, not ignored
+    uce.reset_launch_counts()
+    t_loss, t_grad = _torch_loss_and_grad(uce.upsample_cross_entropy, src, labels,
+                                          ignore_label=ignore_label)
+    assert uce.LAUNCH_COUNTS == {"fwd": 0, "bwd": 0}
+    j_loss, j_grad = _jax_loss_and_grad(jax_uce.upsample_cross_entropy, src, labels,
+                                        ignore_label=ignore_label, interpret=True)
+    # the same unfused function on both sides: the gradient holds the loss's
+    # 1e-5 too (atol for entries that are rounding noise around 0)
+    np.testing.assert_allclose(t_loss, j_loss, rtol=LOSS_RTOL)
+    np.testing.assert_allclose(t_grad, j_grad, rtol=LOSS_RTOL, atol=GRAD_ATOL)
+    r_loss, _ = _torch_loss_and_grad(uce.upsample_cross_entropy_reference, src, labels,
+                                     ignore_label=ignore_label)
+    assert t_loss == r_loss

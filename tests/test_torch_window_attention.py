@@ -10,8 +10,12 @@ tolerance of its own tests (2e-5 forward, 3e-4 gradients). The CUDA kernel
 against the plain version is the ``cuda``-marked case, which skips without
 a card (more of them in ``tests/test_torch_cuda_kernels.py``).
 
-The tensor-core backward's arithmetic cannot run here; what can is its
-routing rule, and a model of its rounding points held against float64.
+The tensor-core kernels' arithmetic cannot run here; what can is their
+routing rules, and models of their rounding points: the backward's held
+against float64, the forward's (p rounded to bf16 before p v, everything
+else fp32) against the JAX Pallas kernel in interpret mode on the same bf16
+inputs, at Swin's N = 49 and 144, shifted and unshifted, within the
+tolerance the card's check uses (1e-2 of max(1, max |JAX|)).
 """
 
 import jax
@@ -125,7 +129,8 @@ def test_torch_window_attention_cuda_kernel_matches_plain_version(cuda_device, n
     data = _inputs(nw=nw)
     twa.reset_launch_counts()
     got = _torch_out_and_grads(twa.window_attention, *data, device=cuda_device)
-    assert twa.LAUNCH_COUNTS == {"fwd": 1, "bwd": 1, "bwd_mma": 0}  # fp32: the CUDA cores
+    # fp32: the CUDA cores, both ways
+    assert twa.LAUNCH_COUNTS == {"fwd": 1, "fwd_mma": 0, "bwd": 1, "bwd_mma": 0}
     want = _torch_out_and_grads(twa.window_attention_reference, *data, device=cuda_device)
     for name, a, b in zip(NAMES, got, want):
         np.testing.assert_allclose(a, b, rtol=2e-5, atol=2e-5, err_msg=name)
@@ -189,3 +194,60 @@ def test_torch_window_attention_mma_rounding_points_within_bf16_tolerance(nw):
         tol = (1e-3 if name == "dbias" else 1e-2) * max(1.0, float(w.abs().max()))
         err = float((g.double() - w).abs().max())
         assert err <= tol, f"{name}: {err:.3e} > {tol:.3e}"
+
+
+@pytest.mark.parametrize("dtype,n,d,route", [
+    (torch.bfloat16, 49, 32, "mma"),  # Swin, window 7
+    (torch.bfloat16, 144, 32, "mma"),  # Swin, window 12
+    (torch.bfloat16, 1, 16, "mma"),
+    (torch.bfloat16, 64, 128, "mma"),  # the widest head dim
+    (torch.bfloat16, 49, 144, "cuda_core"),  # too wide
+    (torch.bfloat16, 145, 32, "cuda_core"),  # N > 144
+    (torch.bfloat16, 49, 24, "cuda_core"),  # D % 16 != 0
+    (torch.bfloat16, 49, 8, "cuda_core"),
+    (torch.bfloat16, 49, 0, "cuda_core"),
+    (torch.float32, 49, 32, "cuda_core"),  # fp32 would need TF32 on the tensor cores
+    (torch.float32, 144, 32, "cuda_core"),
+    (torch.float16, 49, 32, "cuda_core"),
+    (torch.float64, 49, 32, "cuda_core"),
+])
+def test_torch_window_attention_forward_route(dtype, n, d, route):
+    assert twa.forward_route(dtype, n, d) == route
+
+
+def _mma_forward_model(q, k, v, bias, mask, scale):
+    """The tensor-core forward's arithmetic on the CPU: logits and softmax
+    in fp32 from bf16 q, k, v; p rounded to bf16 as the operand of p v (fp32
+    sums of exact products); the output rounded to bf16."""
+    s = torch.einsum("bhqd,bhkd->bhqk", q, k) * scale
+    s = s + bias[None] + mask[torch.arange(q.shape[0]) % mask.shape[0]][:, None]
+    p16 = torch.softmax(s, dim=-1).bfloat16().float()
+    return torch.einsum("bhqk,bhkd->bhqd", p16, v).bfloat16()
+
+
+@pytest.mark.parametrize("shifted", [False, True], ids=["unshifted", "shifted"])
+@pytest.mark.parametrize("window", [7, 12], ids=["n49", "n144"])
+def test_torch_window_attention_mma_forward_rounding_within_bf16_tolerance(window, shifted):
+    """The tensor-core forward's one new rounding point (p to bf16 before
+    p v) keeps the output within 1e-2 of max(1, max |JAX|) of the JAX Pallas
+    kernel (interpret mode) on the same bf16 inputs: the tolerance the card
+    holds the kernel to against its plain version."""
+    from iseg_tpu_torch.backbones.swin import _shift_attn_mask
+
+    n, d, h = window * window, 32, 2
+    side = 2 * window  # four windows per image
+    mask = (_shift_attn_mask(side, side, window, window // 2) if shifted
+            else np.zeros((1, n, n), np.float32))
+    rng = np.random.RandomState(window + int(shifted))
+    bnw = 2 * mask.shape[0] if shifted else 4
+    q, k, v = (_bf16_values(rng.randn(bnw, h, n, d).astype(np.float32)) for _ in range(3))
+    bias = (rng.randn(h, n, n) * 0.1).astype(np.float32)
+    scale = 1.0 / np.sqrt(d)
+    got = _mma_forward_model(q, k, v, torch.tensor(bias), torch.tensor(mask), scale).float()
+    want = j_window_attention(*(jnp.asarray(t.numpy(), jnp.bfloat16) for t in (q, k, v)),
+                              jnp.asarray(bias), jnp.asarray(mask), scale, True)
+    want = np.asarray(want.astype(jnp.float32))
+    tol = 1e-2 * max(1.0, np.abs(want).max())
+    err = float(np.abs(got.numpy() - want).max())
+    assert err <= tol, f"{err:.3e} > {tol:.3e}"
+    assert err > 0.0  # the rounding point is there: the two are not the same arithmetic
