@@ -41,22 +41,28 @@ Phases, in order; any failure raises and the script exits non-zero:
    CUDA-event times (the host's dispatch of a call is in them where the
    device waits for it), each kernel's bound on this card, and for window
    attention ``F.scaled_dot_product_attention`` as a yardstick (timed here,
-   used nowhere in the port); beside the window-attention and dense-local
-   rows and SDPA's, ``device_ms``: torch.profiler's device time per call over
-   the same reps, the device's work alone (where the profiler records no
-   device activity, CUDA events around calls queued behind a device hold;
-   ``device_timer`` in the kernels line names the timer; that second timer,
-   ``held_ms``, runs beside it on every window-attention forward and
-   dense-local backward row). Upsample + CE at [16,32,32,21] ->
-   [16,512,512], [8,128,128,19] -> [8,512,512] and [8,16,16,19] ->
-   [8,512,512]; window attention forward and backward at Swin-L's four stage
+   used nowhere in the port); beside the window-attention, dense-local and
+   upsample + CE rows and SDPA's, ``device_ms``: torch.profiler's device time
+   per call over the same reps, the device's work alone (where the profiler
+   records no device activity, CUDA events around calls queued behind a
+   device hold; ``device_timer`` in the kernels line names the timer; that
+   second timer, ``held_ms``, runs beside it on every window-attention
+   forward, dense-local backward and upsample + CE row). Upsample + CE at
+   [16,32,32,21] -> [16,512,512], [8,128,128,19] -> [8,512,512] and
+   [8,16,16,19] -> [8,512,512], with the backward kernel's own device time
+   (``kernel_device_ms``) and the unfused pair ``F.interpolate`` +
+   ``F.cross_entropy`` timed beside it (``library_pair_ms``: two calls, so
+   ``library_ms`` stays null), and fused against unfused printed at each
+   shape; window attention forward and backward at Swin-L's four stage
    shapes, shifted and unshifted, f32 and bf16 (bf16 forward and backward on
    the tensor cores, f32 on the CUDA cores; the route of each is checked),
    and in bf16 at window 12 (N = 144: ``swin_large_384``'s four stage shapes
    at the same input); dense-local sampling forward and all four
    gradients at InternImage-T's four stage shapes, in f32 and in the
    autocast type mix (bf16 values on a transposed view, fp32 offsets, bf16
-   modulation), with offsets drawn beyond the clamp; the beam cache gather,
+   modulation), with offsets drawn beyond the clamp, and the backward's
+   map-gradient kernel alone beside its own bound (``maps_kernel``); the
+   beam cache gather,
    bitwise, at Gemma-2B's active-cache shapes [8, nb, 18, 2, W, 1, 256] bf16
    (nb 4 and 2, W 256 and 512) and at one odd f32 slab, with the
    advanced-indexing gather (its plain version), ``torch.take_along_dim``,
@@ -111,10 +117,13 @@ in a process of its own with that tree's ``iseg_tpu_torch`` and this file's
 code, so one timer serves both: the bf16 window-attention forward (both
 timers) and backward at Swin-L's four stage shapes (shifted) with SDPA's
 beside them, the dense-local backward at InternImage-T's four stage shapes
-in the autocast type mix (both timers), the cache gather at Gemma-2B's four
-active-cache shapes with ``index_select`` beside it, and the Swin and
-InternImage train steps (2 warm-up + 5 timed steps each, then 3 profiled:
-the step's device time and its window-attention and dense-local kernels').
+in the autocast type mix (all three timers) and its map-gradient kernel
+alone (profiler), the fused loss backward at the three paths' shapes (all
+three timers, and its kernel alone) with the unfused pair's backward beside
+it, the cache gather at Gemma-2B's four active-cache shapes with
+``index_select`` beside it, and the ResNet, Swin and InternImage train steps
+(2 warm-up + 3 or 5 timed steps each, then 3 profiled: the step's device
+time and its loss, window-attention and dense-local kernels').
 The last line holds each number of the four processes, OLD's two and this
 tree's two.
 
@@ -191,6 +200,9 @@ DL_KERNEL, DL_MAX_OFFSET = 3, 2
 DL_STAGES = (("stage0", 128, 64, 4, 4), ("stage1", 64, 128, 8, 4),
              ("stage2", 32, 256, 16, 18), ("stage3", 16, 512, 32, 4))
 DL_LAUNCHES_PER_FORWARD = sum(s[4] for s in DL_STAGES)  # 30
+# the loss kernels' shapes on the three paths: (path, batch, logit side, classes)
+UCE_SHAPES = (("resnet", R_BATCH, HW // R_OS, R_CLASSES), ("swin", S_BATCH, HW // S_OS, S_CLASSES),
+              ("intern", I_BATCH, HW // I_OS, I_CLASSES))
 # Gemma path: gemma_2b_en served at batch 8, prompt 128, 512 generated slots
 G_PRESET, G_BATCH, G_PROMPT, G_MAX_LENGTH, G_SEGMENT = "gemma_2b_en", 8, 128, 640, 256
 G_CONTRASTIVE_K = 5
@@ -296,8 +308,6 @@ def device_ms(fn, reps: int = 10, warmup: int = 2, setup=None) -> float:
     launches is not counted. Where the profiler records no device activity
     (its CUPTI tracing is not available to every process), the time is
     :func:`held_events_ms`'s, and the run says so."""
-    from torch.profiler import ProfilerActivity, profile
-
     def make():
         return setup() if setup is not None else None
 
@@ -305,15 +315,7 @@ def device_ms(fn, reps: int = 10, warmup: int = 2, setup=None) -> float:
         fn(make())
     if "held_events" in DEVICE_TIMERS:
         return held_events_ms(fn, reps, make)
-    args = [make() for _ in range(reps)]
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for arg in args:
-            fn(arg)
-        torch.cuda.synchronize()
-    del args
-    us = sum(getattr(evt, "self_device_time_total", 0) for evt in prof.key_averages()
-             if evt.device_type.name == "CUDA")
+    us = sum(t for t, _ in profiled_device_us(fn, [make() for _ in range(reps)]).values())
     if us > 0:
         DEVICE_TIMERS.add("profiler")
         return us / 1e3 / reps
@@ -321,6 +323,47 @@ def device_ms(fn, reps: int = 10, warmup: int = 2, setup=None) -> float:
         "around calls queued behind a device hold from here on")
     DEVICE_TIMERS.add("held_events")
     return held_events_ms(fn, reps, make)
+
+
+def profiled_device_us(fn, args) -> dict[str, tuple[float, int]]:
+    """torch.profiler's self device time (us) and count of the kernels and
+    copies of each name that ``fn(arg)`` launches over ``args``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for arg in args:
+            fn(arg)
+        torch.cuda.synchronize()
+    return {evt.key: (getattr(evt, "self_device_time_total", 0), evt.count)
+            for evt in prof.key_averages() if evt.device_type.name == "CUDA"}
+
+
+def kernel_device_ms(fn, needle: str, reps: int = 10, warmup: int = 2, setup=None,
+                     tries: int = 3):
+    """torch.profiler's device time per call of the one kernel of ``fn(arg)``
+    whose name holds ``needle``, in a call that launches several. The
+    profiler must record that kernel ``reps`` times: it has been seen to drop
+    records on the card, so a short count is profiled again, up to ``tries``
+    times. None where the profiler records no device activity or keeps
+    dropping records (then only the whole call is timed, by :func:`held_ms`)."""
+    def make():
+        return setup() if setup is not None else None
+
+    for _ in range(warmup):
+        fn(make())
+    for _ in range(tries if "held_events" not in DEVICE_TIMERS else 0):
+        events = profiled_device_us(fn, [make() for _ in range(reps)])
+        mine = [v for key, v in events.items() if needle in key]
+        if not events or not any(t for t, _ in events.values()):
+            break
+        if not mine:
+            raise RuntimeError(f"no kernel named like {needle!r} among {sorted(events)}")
+        if sum(n for _, n in mine) == reps:
+            return sum(t for t, _ in mine) / 1e3 / reps
+        log(f"  torch.profiler kept {sum(n for _, n in mine)} of {reps} launches of {needle!r}; "
+            "profiling again")
+    return None
 
 
 @functools.cache
@@ -427,12 +470,51 @@ def uce_bound(src, labels, backward: bool) -> tuple[float, str]:
     return bound_ms(nbytes, pixels * classes * (20 if backward else 12), src.dtype)
 
 
-def check_upsample_ce(device, n, h, num_class, seed=0) -> dict:
+# the unfused library pair timed beside the loss kernels (two calls, so no
+# "library" call in the contract's sense: library_ms stays null), and the
+# profiler's name of the backward kernel
+UNFUSED_PAIR = "F.interpolate(bilinear, align_corners=False) + F.cross_entropy(ignore_index=255)"
+UCE_BWD_KERNEL = "::bwd_kernel<"
+
+
+def unfused_pair(labels):
+    """``loss(src, labels)`` by the two library calls of UNFUSED_PAIR on
+    NHWC ``src``; the int64 labels are made once, outside the timed calls."""
+    target = labels.long()
+
+    def loss(src, _labels):
+        up = F.interpolate(src.permute(0, 3, 1, 2), size=tuple(target.shape[1:]),
+                           mode="bilinear", align_corners=False)
+        return F.cross_entropy(up, target, ignore_index=255)
+
+    return loss
+
+
+def uce_inputs(device, n, h, num_class, seed=0):
+    """fp32 logits [n, h, h, C] and int32 labels [n, 512, 512], a tenth ignored."""
     rng = np.random.RandomState(seed)
     src32 = torch.tensor(rng.randn(n, h, h, num_class).astype(np.float32), device=device)
     labels = rng.randint(0, num_class, (n, HW, HW))
     labels = np.where(rng.rand(n, HW, HW) < 0.1, 255, labels).astype(np.int32)
-    labels = torch.tensor(labels, device=device)
+    return src32, torch.tensor(labels, device=device)
+
+
+def uce_bwd_setup(fn, src, labels):
+    """A setup for the timers: a fresh leaf and its loss by ``fn``, made
+    outside the timed window, so that :func:`uce_run_bwd` times the backward."""
+    def make():
+        s = src.clone().requires_grad_(True)
+        return s, fn(s, labels)
+    return make
+
+
+def uce_run_bwd(arg):
+    s, loss = arg
+    torch.autograd.grad(loss, s)
+
+
+def check_upsample_ce(device, n, h, num_class, seed=0) -> dict:
+    src32, labels = uce_inputs(device, n, h, num_class, seed)
     shape = f"[{n},{h},{h},{num_class}]->[{n},{HW},{HW}]"
     log(f"upsample_ce {shape}, ignored {float((labels == 255).float().mean()):.4f}")
 
@@ -461,34 +543,43 @@ def check_upsample_ce(device, n, h, num_class, seed=0) -> dict:
             raise AssertionError(f"[{shape} {name}] backward kernel disagrees with the plain version")
 
         def bwd_setup(fn):
-            def make():
-                s = src.clone().requires_grad_(True)
-                return s, fn(s, labels)
-            return make
+            return uce_bwd_setup(fn, src, labels)
 
-        def run_bwd(arg):
-            s, loss = arg
-            torch.autograd.grad(loss, s)
-
+        pair = unfused_pair(labels)
         with torch.no_grad():
             fwd_ms = cuda_median_ms(lambda _: uce.upsample_cross_entropy(src, labels))
             fwd_plain_ms = cuda_median_ms(
                 lambda _: uce.upsample_cross_entropy_reference(src, labels))
-        bwd_ms = cuda_median_ms(run_bwd, setup=bwd_setup(uce.upsample_cross_entropy))
-        bwd_plain_ms = cuda_median_ms(run_bwd,
+            fwd_dev = device_ms(lambda _: uce.upsample_cross_entropy(src, labels))
+            fwd_held = held_ms(lambda _: uce.upsample_cross_entropy(src, labels))
+            fwd_pair = device_ms(lambda _: pair(src, labels))
+        bwd_ms = cuda_median_ms(uce_run_bwd, setup=bwd_setup(uce.upsample_cross_entropy))
+        bwd_plain_ms = cuda_median_ms(uce_run_bwd,
                                       setup=bwd_setup(uce.upsample_cross_entropy_reference))
+        bwd_dev = device_ms(uce_run_bwd, setup=bwd_setup(uce.upsample_cross_entropy))
+        bwd_kernel_dev = kernel_device_ms(uce_run_bwd, UCE_BWD_KERNEL,
+                                          setup=bwd_setup(uce.upsample_cross_entropy))
+        bwd_held = held_ms(uce_run_bwd, setup=bwd_setup(uce.upsample_cross_entropy))
+        bwd_pair = device_ms(uce_run_bwd, setup=bwd_setup(pair))
         fwd_bound, fwd_by = uce_bound(src, labels, backward=False)
         bwd_bound, bwd_by = uce_bound(src, labels, backward=True)
-        log(f"  [{name}] median ms: fwd kernel {fwd_ms:.4f} plain {fwd_plain_ms:.4f} bound "
-            f"{fwd_bound:.4f} ({fwd_by}); bwd kernel {bwd_ms:.4f} plain {bwd_plain_ms:.4f} "
-            f"bound {bwd_bound:.4f} ({bwd_by})")
+        log(f"  [{name}] median ms: fwd kernel {fwd_ms:.4f} (device {fwd_dev:.4f}, held "
+            f"{fwd_held:.4f}) plain {fwd_plain_ms:.4f} bound {fwd_bound:.4f} ({fwd_by}); bwd "
+            f"kernel {bwd_ms:.4f} (device {bwd_dev:.4f}, bwd_kernel alone {bwd_kernel_dev}, held "
+            f"{bwd_held:.4f}) plain {bwd_plain_ms:.4f} bound {bwd_bound:.4f} ({bwd_by})")
+        log(f"  [{name}] device ms, fused against the unfused pair ({UNFUSED_PAIR}): fwd "
+            f"{fwd_dev:.4f} / {fwd_pair:.4f}, bwd {bwd_dev:.4f} / {bwd_pair:.4f}, together "
+            f"{fwd_dev + bwd_dev:.4f} / {fwd_pair + bwd_pair:.4f}: fused "
+            f"{'not slower' if fwd_dev + bwd_dev <= fwd_pair + bwd_pair else 'SLOWER'}")
+        library = dict(library_ms=None, library_pair=UNFUSED_PAIR)
         rows[name] = {
             "fwd": dict(shape=f"{shape} {name}", max_abs_err=loss_err, ms=fwd_ms,
-                        plain_ms=fwd_plain_ms, bound_ms=fwd_bound, bound_by=fwd_by,
-                        library_ms=None),
+                        device_ms=fwd_dev, held_ms=fwd_held, plain_ms=fwd_plain_ms,
+                        bound_ms=fwd_bound, bound_by=fwd_by, library_pair_ms=fwd_pair, **library),
             "bwd": dict(shape=f"{shape} {name}", max_abs_err=grad_err, ms=bwd_ms,
+                        device_ms=bwd_dev, kernel_device_ms=bwd_kernel_dev, held_ms=bwd_held,
                         plain_ms=bwd_plain_ms, bound_ms=bwd_bound, bound_by=bwd_by,
-                        library_ms=None),
+                        library_pair_ms=bwd_pair, **library),
         }
     return rows
 
@@ -641,6 +732,20 @@ def dl_bound(x, maps, groups: int, corners: int, backward: bool) -> tuple[float,
     return bound_ms(nbytes, flops, x.dtype)
 
 
+def dl_maps_bound(x, maps, groups: int, corners: int) -> tuple[float, str]:
+    """The maps kernel of the backward alone (beside :func:`dl_bound`).
+    Bytes: x and the incoming gradient read once, the three maps read and
+    their three gradients written once (2 x + 2 maps). Operations: one
+    multiply-add per channel of the group for every (pixel, group, tap,
+    corner) that lies in the map with a non-zero weight in this run's data."""
+    map_bytes = sum(m.numel() * m.element_size() for m in maps)
+    nbytes = 2 * x.numel() * x.element_size() + 2 * map_bytes
+    return bound_ms(nbytes, 2 * corners * (x.shape[3] // groups), x.dtype)
+
+
+DL_MAPS_KERNEL = "dl_bwd_maps_kernel"
+
+
 def dl_corner_count(x, off_dy, off_dx) -> int:
     """(pixel, group, tap, corner) quadruples inside the map with a non-zero
     bilinear weight: the rows this run's offsets make the sampler read."""
@@ -741,21 +846,25 @@ def check_deform_local(device, stage, side, channels, groups, mix, seed=0) -> di
         fwd_dev = device_ms(lambda _: dl.deform_dense_local_flat(x, off_dy, off_dx, mod, *args))
     bwd_dev = device_ms(run_grad, setup=grad_setup)
     bwd_held = held_ms(run_grad, setup=grad_setup)
+    maps_dev = kernel_device_ms(run_grad, DL_MAPS_KERNEL, setup=grad_setup)
     corners = dl_corner_count(x, off_dy, off_dx)
     fwd_bound, fwd_by = dl_bound(x, (off_dy, off_dx, mod), groups, corners, backward=False)
     bwd_bound, bwd_by = dl_bound(x, (off_dy, off_dx, mod), groups, corners, backward=True)
+    maps_bound, maps_by = dl_maps_bound(x, (off_dy, off_dx, mod), groups, corners)
     bwd_err = max(errs[key] for key in ("d_x", "d_off_dy", "d_off_dx", "d_mod"))
     log(f"  [{name}] max abs err " + " ".join(f"{k_} {v:.2e}" for k_, v in errs.items())
         + f"; ms fwd kernel {fwd_ms:.4f} (device {fwd_dev:.4f}) plain {fwd_plain:.4f} bound "
         f"{fwd_bound:.4f} ({fwd_by}); bwd kernels {bwd_ms:.4f} (device {bwd_dev:.4f}, held "
         f"{bwd_held:.4f}) plain "
-        f"{bwd_plain:.4f} bound {bwd_bound:.4f} ({bwd_by}); {corners} corner rows read")
+        f"{bwd_plain:.4f} bound {bwd_bound:.4f} ({bwd_by}), of it {DL_MAPS_KERNEL} device "
+        f"{maps_dev} bound {maps_bound:.4f} ({maps_by}); {corners} corner rows read")
     return {
         "fwd": dict(shape=name, max_abs_err=errs["out"], ms=fwd_ms, device_ms=fwd_dev,
                     plain_ms=fwd_plain, bound_ms=fwd_bound, bound_by=fwd_by, library_ms=None),
         "bwd": dict(shape=name, max_abs_err=bwd_err, ms=bwd_ms, device_ms=bwd_dev,
                     held_ms=bwd_held, plain_ms=bwd_plain, bound_ms=bwd_bound, bound_by=bwd_by,
-                    library_ms=None),
+                    library_ms=None,
+                    maps_kernel=dict(device_ms=maps_dev, bound_ms=maps_bound, bound_by=maps_by)),
     }
 
 
@@ -819,9 +928,8 @@ def check_cache_gather(device, name, shape, dtype, seed=0) -> dict:
 
 def phase_kernels(device) -> list[dict]:
     log("== phase 2: kernels vs plain versions at the main paths' shapes")
-    resnet = check_upsample_ce(device, R_BATCH, HW // R_OS, R_CLASSES)
-    swin = check_upsample_ce(device, S_BATCH, HW // S_OS, S_CLASSES)
-    intern = check_upsample_ce(device, I_BATCH, HW // I_OS, I_CLASSES)
+    resnet, swin, intern = (check_upsample_ce(device, n, h, classes)
+                            for _, n, h, classes in UCE_SHAPES)
     log(f"window attention (tol of max(1, max |plain|): {WA_TOL}); dbias err is in max abs err "
         "of the backward; sdpa is F.scaled_dot_product_attention, a yardstick only")
     wa_rows = {}
@@ -1688,6 +1796,16 @@ def phase_gemma_serve(device, profile: bool) -> dict[str, dict[str, int]]:
 
 # ------------------------------------------------------- two trees (--ab)
 
+def step_loss_ms(path: str, prof: dict) -> dict:
+    """The loss kernels' device ms per step in a :func:`profile_steps` result:
+    all of them, and the backward alone."""
+    loss = dict(KERNEL_CLASSES)["upsample + CE kernels"]
+    return {f"{path} step loss ms": sum(ms for key, ms in prof["kernels"].items()
+                                        if any(n in key for n in loss)),
+            f"{path} step uce_bwd ms": sum(ms for key, ms in prof["kernels"].items()
+                                           if UCE_BWD_KERNEL in key)}
+
+
 def ab_child() -> dict:
     """One process of ``--ab``: this file's timings of the package first on
     the path. It uses only what the parent commit's package has too."""
@@ -1733,6 +1851,20 @@ def ab_child() -> dict:
 
         row[f"dl_bwd {stage} ms"] = cuda_median_ms(run_grad, setup=grad_setup, **reps)
         row[f"dl_bwd {stage} device ms"] = device_ms(run_grad, setup=grad_setup, **reps)
+        row[f"dl_bwd {stage} held ms"] = held_ms(run_grad, setup=grad_setup, **reps)
+        row[f"dl_bwd_maps {stage} device ms"] = kernel_device_ms(
+            run_grad, DL_MAPS_KERNEL, setup=grad_setup, **reps)
+        torch.cuda.empty_cache()
+    for path, n, h, classes in UCE_SHAPES:
+        src, labels = uce_inputs(device, n, h, classes)
+        setup = uce_bwd_setup(uce.upsample_cross_entropy, src, labels)
+        row[f"uce_bwd {path} ms"] = cuda_median_ms(uce_run_bwd, setup=setup, **reps)
+        row[f"uce_bwd {path} device ms"] = device_ms(uce_run_bwd, setup=setup, **reps)
+        row[f"uce_bwd {path} kernel device ms"] = kernel_device_ms(
+            uce_run_bwd, UCE_BWD_KERNEL, setup=setup, **reps)
+        row[f"uce_bwd {path} held ms"] = held_ms(uce_run_bwd, setup=setup, **reps)
+        row[f"unfused pair bwd {path} device ms"] = device_ms(
+            uce_run_bwd, setup=uce_bwd_setup(unfused_pair(labels), src, labels), **reps)
         torch.cuda.empty_cache()
     for name, shape, dtype in CG_SHAPES:
         got = check_cache_gather(device, name, shape, dtype)
@@ -1741,6 +1873,17 @@ def ab_child() -> dict:
         torch.cuda.empty_cache()
     env = common_env_setup(EnvConfig(random_seed=0, mixed_precision=True, device="cuda"))
     torch.backends.cudnn.benchmark = True
+    data = synthetic_batch(device, R_BATCH, R_CLASSES)
+    model = build_resnet_model(env, fused=True)
+    tx, _ = get_optimizer(param_tree(model), "sgd", learning_rate=0.01, train_steps=1000)
+    state = create_train_state(model, env.generator, tx)
+    step_fn = make_train_step(model.build_loss_fn(), compute_dtype=env.compute_dtype)
+    state, _, _, step_ms = train_steps(state, step_fn, data, R_WARMUP, R_TIMED, R_BATCH)
+    prof = profile_steps(state, step_fn, data, "ResNet-50 + ASPP train step", step_ms)
+    row.update({"resnet step ms": step_ms, "resnet step device ms": prof["device_ms"],
+                **step_loss_ms("resnet", prof)})
+    del model, state, step_fn, data, prof
+    torch.cuda.empty_cache()
     data = synthetic_batch(device, S_BATCH, S_CLASSES)
     _, state, step_fn = swin_train_setup(env)
     state, _, launches, step_ms = train_steps(state, step_fn, data, S_WARMUP, S_TIMED, S_BATCH)
@@ -1767,6 +1910,9 @@ def ab_child() -> dict:
                                              if "dl_bwd_" in key),
                 "intern step dl_bwd_x ms": sum(ms for key, ms in prof["kernels"].items()
                                                if "dl_bwd_x" in key),
+                "intern step dl_bwd_maps ms": sum(ms for key, ms in prof["kernels"].items()
+                                                  if DL_MAPS_KERNEL in key),
+                **step_loss_ms("intern", prof),
                 "intern launches": {key: launches[key] for key in
                                     ("deform_local_fwd", "deform_local_bwd")}})
     return row

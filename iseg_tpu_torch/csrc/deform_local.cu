@@ -30,10 +30,12 @@
 //   dl_fwd_kernel       a few threads per (pixel, group), each over vectors
 //                       of V channels: per tap, the 2 x 2 corner rows of x
 //                       are loaded as 16-byte vectors and accumulated.
-//   dl_bwd_maps_kernel  same mapping; per tap the four dot products
-//                       <g_out[p], x[corner]> over the group's channels are
-//                       reduced over the group's threads by shuffles, and one
-//                       thread writes d_modulation, d_off_dy, d_off_dx.
+//   dl_bwd_maps_kernel  from a halo tile in shared memory (see its note
+//                       below): a block stages x over a tile of pixels grown
+//                       by the corners' reach, the tile's g_out and its three
+//                       maps, then each (pixel, group, tap) has a thread that
+//                       takes its <= 2 x 2 corner dot products from shared
+//                       memory and writes d_modulation, d_off_dy, d_off_dx.
 //   dl_bwd_x_kernel     d_x as a tiled gather through shared memory (see
 //                       its note below): a block owns a tile of input
 //                       pixels of one image and one group; each source
@@ -52,8 +54,12 @@
 // What bounds it on the H100: the forward moves x, out and the three maps
 // once (about 81 MB at [8,128,128,64], G = 4, bf16 x) and does about 72
 // FLOPs per output element, so its bound is bytes. The kernels are simple
-// CUDA-core gathers: the forward and the maps backward are limited by the
-// latency of their dependent loads (offset -> address -> row). A per-pixel
+// CUDA-core gathers: the forward is limited by the latency of its dependent
+// loads (offset -> address -> row). The maps backward was too, with a few
+// threads per (pixel, group) walking the taps in series over rows in device
+// memory; it now stages everything it reads in shared memory first, so its
+// bound is the bytes of the maps it reads and writes (2 x maps + 2 x x of the
+// backward's bytes) and the halo's re-reads from L2. A per-pixel
 // d_x gather would recompute each source pixel's weights from all 9 taps
 // for every one of the 49 pixels it reaches (441 hat products and 1,323
 // scattered map loads per (pixel, group)) and be bound by that issue; the
@@ -211,72 +217,240 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// d_modulation, d_off_dy, d_off_dx. All 32 lanes of a warp stay in the loop
-// (the shuffles need them); a thread past the end works on the last
-// (pixel, group) again and writes nothing.
+// d_modulation, d_off_dy, d_off_dx from a halo tile in shared memory.
+//
+// A block owns a th x tw tile of output pixels of one image and gb
+// consecutive groups (as many as fill 128 bytes of channels, so that a
+// pixel's run of gb * K * K map entries is contiguous). Offsets are
+// clamped to +-r, so every corner a tap can touch lies in the tile grown by
+// lim = half + r on every side, plus one row and one column on the high side
+// (the +1 corner of a displacement of exactly lim, whose weight is 0 but
+// whose dot product is taken). The block stages, by cp.async with zero fill
+// outside the map, x over that halo and the tile's g_out, one padded row per
+// pixel (an odd number of 16-byte units, so that neighbouring pixels'
+// vectors fall on other banks); each thread loads its entries' map values
+// into registers first, so that those loads are in flight with the copies.
+// Each (pixel, group, tap) entry then has a thread of its own: it takes the
+// tap's <= 2 x 2 corner dot products <g_out[p], x[corner]> over the group's
+// channels from shared memory in a fixed order and writes d_modulation,
+// d_off_dy and d_off_dx at the entry (consecutive threads on consecutive
+// entries of a pixel's run). The chain offset -> address -> row ends in
+// shared memory, and a pixel's taps run on threads of their own instead of
+// in series. A thread keeps one (column, group, tap) of the tile and walks
+// its rows, so its index arithmetic is done once; the staging loops walk
+// their indices with carries, and bf16 pairs are unpacked from 32-bit words
+// (GVec). What bounds it: the shared-memory wavefronts of the corner loads,
+// whose rows are data-dependent, so lanes of a quarter-warp meet in a bank
+// about 2.5 times on average, and the map traffic, which the blocks on an SM
+// do not fully overlap with them.
+//
+// The tile: the first of 8 x 8, 4 x 8, 4 x 4, ... 1 x 1 whose threads fit a
+// block and whose shared memory fits three blocks on an SM
+// (kMapsSmemBudget, matching the launch bound), else one block. At
+// InternImage's K = 3, r = 2 (lim 3)
+// with 16 bf16 channels per group, gb = 4: an 8 x 8 tile has a 15 x 15 halo
+// of 144-byte rows, 41,616 bytes with g_out, 288 threads of 8 entries each;
+// fp32 takes gb = 2, the same bytes, and 288 threads of 4 entries.
+struct MapsTiling {
+  int th, tw;          // output pixels of a tile
+  int gb;              // groups per block
+  int lim;             // reach of the corners: half + r (and one more on the high side)
+  int halo_h, halo_w;  // th + 2 lim + 1, tw + 2 lim + 1
+  int px_stride;       // elements of a staged pixel row (gb * gc, padded)
+  int dty;             // tile rows the block's threads cover at once
+  int tiles_x, tiles;  // tiles across a row of the map, and per image
+  int threads;
+  size_t x_bytes, smem;
+};
+
+constexpr int kMapsItems = 8;  // tile rows a thread walks, at most
+constexpr int kMapsMaxThreads = 288;  // and three blocks per SM: at most 75 registers
+// Three blocks per SM: the SM's 228 KB less 1 KB reserved per block, thirded
+constexpr size_t kMapsSmemBudget = 76800;
+
+// BYTES of global memory to shared memory by cp.async, or zeros where !valid
+// (its zero fill: nothing is read, but src must still be an address of the
+// tensor). A two-byte vector goes through registers.
+template <int BYTES>
+__device__ __forceinline__ void stage_async(void* dst, const void* src, bool valid) {
+  if constexpr (BYTES >= 4) {
+    const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(d), "l"(src),
+                 "n"(BYTES), "r"(valid ? BYTES : 0)
+                 : "memory");
+  } else {
+    *static_cast<bf16_bits*>(dst) = valid ? *static_cast<const bf16_bits*>(src) : bf16_bits(0);
+  }
+}
+
+__device__ __forceinline__ void stage_wait_all() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// The digits (a, b, c) of e = (a * nb + b) * nc + c, walked from `first`
+// by a fixed `stride`, with carries instead of a division per step.
+struct Walk3 {
+  int a, b, c, da, db, dc, nb, nc;
+  __device__ __forceinline__ Walk3(int first, int stride, int nb_, int nc_) : nb(nb_), nc(nc_) {
+    c = first % nc;
+    b = first / nc % nb;
+    a = first / nc / nb;
+    dc = stride % nc;
+    db = stride / nc % nb;
+    da = stride / nc / nb;
+  }
+  __device__ __forceinline__ void next() {
+    c += dc;
+    b += db;
+    a += da;
+    if (c >= nc) {
+      c -= nc;
+      ++b;
+    }
+    if (b >= nb) {
+      b -= nb;
+      ++a;
+    }
+  }
+};
+
+// A vector of V channels of g_out in fp32, held for the four corners, and
+// its dot product with a vector of x in channel order.
 template <typename T, int V>
-__global__ void __launch_bounds__(kThreads)
+struct GVec {
+  float v[V];
+  __device__ __forceinline__ explicit GVec(const T* p) { load_vec<T, V>(p, v); }
+  __device__ __forceinline__ float dot(const T* x) const {
+    float xv[V];
+    load_vec<T, V>(x, xv);
+    float d = 0.f;
+#pragma unroll
+    for (int i = 0; i < V; ++i) d = fmaf(v[i], xv[i], d);
+    return d;
+  }
+};
+
+// bfloat16 pairs unpacked from 32-bit words, one operation a value
+template <>
+struct GVec<bf16_bits, 8> {
+  float v[8];
+  __device__ __forceinline__ explicit GVec(const bf16_bits* p) {
+    const uint4 w = *reinterpret_cast<const uint4*>(p);
+    const uint32_t ws[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      v[2 * i] = __uint_as_float(ws[i] << 16);
+      v[2 * i + 1] = __uint_as_float(ws[i] & 0xffff0000u);
+    }
+  }
+  __device__ __forceinline__ float dot(const bf16_bits* x) const {
+    const uint4 w = *reinterpret_cast<const uint4*>(x);
+    const uint32_t ws[4] = {w.x, w.y, w.z, w.w};
+    float d = 0.f;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      d = fmaf(v[2 * i], __uint_as_float(ws[i] << 16), d);
+      d = fmaf(v[2 * i + 1], __uint_as_float(ws[i] & 0xffff0000u), d);
+    }
+    return d;
+  }
+};
+
+template <typename T, int V>
+__global__ void __launch_bounds__(kMapsMaxThreads, 3)
     dl_bwd_maps_kernel(const T* __restrict__ x, Map off_dy, Map off_dx, Map mod,
                        const T* __restrict__ gout, MapOut d_dy, MapOut d_dx, MapOut d_m,
-                       Geometry g) {
-  int64_t tid = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  const bool active = tid < g.total;
-  if (!active) tid = g.total - 1 - (g.tpg - 1 - tid % g.tpg);  // same lane of the last group
-  const Where at(g, tid);
-  const int KK = g.K * g.K;
+                       Geometry g, MapsTiling t) {
+  extern __shared__ __align__(16) unsigned char dl_smem[];
+  T* xs = reinterpret_cast<T*>(dl_smem);
+  T* gs = reinterpret_cast<T*>(dl_smem + t.x_bytes);
+  // the group chunks of a tile are neighbours in the grid, so that the map
+  // sectors they share are read while in L2
+  const int chunks = g.G / t.gb, tile = blockIdx.x / chunks;
+  const int b = blockIdx.y, g0 = (blockIdx.x - tile * chunks) * t.gb;
+  const int y0 = (tile / t.tiles_x) * t.th, x0 = (tile % t.tiles_x) * t.tw;
+  const int KK = g.K * g.K, run = t.gb * KK, nvec = t.gb * g.gc / V;
   const float r = static_cast<float>(g.r);
-  const int64_t map_base = at.pg * KK;
-  const T* xb = x + at.b * g.xs_b + at.grp * g.gc;
-  const T* gb = gout + at.pix * g.C + at.grp * g.gc;
+  // this thread's entry (column tx, group gl, tap) of the tile, at rows
+  // ty0 + i * dty
+  const int k = threadIdx.x % run, q = threadIdx.x / run;
+  const int tx = q % t.tw, ty0 = q / t.tw;
+  const int gl = k / KK, tap = k - gl * KK;
+  const float tap_y = static_cast<float>(tap / g.K - (g.K - 1) / 2);
+  const float tap_x = static_cast<float>(tap % g.K - (g.K - 1) / 2);
+  const int items = (t.th - ty0 + t.dty - 1) / t.dty;  // <= kMapsItems
+  const int64_t row_entries = static_cast<int64_t>(g.W) * g.G * KK;
+  const bool col_in = x0 + tx < g.W;
+  const int64_t e0 = ((static_cast<int64_t>(b) * g.H + y0) * g.W + x0 + tx) * g.G * KK +
+                     static_cast<int64_t>(g0) * KK + k;
 
-  for (int tap = 0; tap < KK; ++tap) {
-    const float oy = off_dy.at(map_base + tap);
-    const float ox = off_dx.at(map_base + tap);
-    const float m = mod.at(map_base + tap);
-    const Tap tp(oy, ox, tap, g.K, r);
-    float s[2][2] = {{0.f, 0.f}, {0.f, 0.f}};  // <g_out, x[corner]> over my channels
-    for (int c = at.t; c < g.chunks; c += g.tpg) {
-      float gv[V];
-      load_vec<T, V>(gb + c * V, gv);
+  float oy[kMapsItems], ox[kMapsItems], om[kMapsItems];
+#pragma unroll
+  for (int i = 0; i < kMapsItems; ++i) {
+    const int ty = ty0 + i * t.dty;
+    const bool in = col_in && i < items && y0 + ty < g.H;
+    const int64_t at = e0 + ty * row_entries;
+    oy[i] = in ? off_dy.at(at) : 0.f;
+    ox[i] = in ? off_dx.at(at) : 0.f;
+    om[i] = in ? mod.at(at) : 0.f;
+  }
+
+  // stage the halo of x and the tile's g_out
+  const T* xb = x + b * g.xs_b + static_cast<int64_t>(g0) * g.gc;
+  for (Walk3 e(threadIdx.x, blockDim.x, t.halo_w, nvec); e.a < t.halo_h; e.next()) {
+    const int py = y0 - t.lim + e.a, px = x0 - t.lim + e.b;
+    const bool in = py >= 0 && py < g.H && px >= 0 && px < g.W;
+    stage_async<sizeof(T) * V>(xs + (e.a * t.halo_w + e.b) * t.px_stride + e.c * V,
+                               in ? xb + py * g.xs_h + px * g.xs_w + e.c * V : xb, in);
+  }
+  const int64_t img = static_cast<int64_t>(b) * g.H;
+  for (Walk3 e(threadIdx.x, blockDim.x, t.tw, nvec); e.a < t.th; e.next()) {
+    const int py = y0 + e.a, px = x0 + e.b;
+    const bool in = py < g.H && px < g.W;
+    const T* from = gout + ((img + py) * g.W + px) * g.C + static_cast<int64_t>(g0) * g.gc;
+    stage_async<sizeof(T) * V>(gs + (e.a * t.tw + e.b) * t.px_stride + e.c * V,
+                               in ? from + e.c * V : gout, in);
+  }
+  stage_wait_all();
+  __syncthreads();
+
+  const int down = t.halo_w * t.px_stride;
+#pragma unroll
+  for (int i = 0; i < kMapsItems; ++i) {
+    const int ty = ty0 + i * t.dty;
+    if (i >= items || y0 + ty >= g.H || !col_in) continue;
+    const float dy = fminf(fmaxf(oy[i], -r), r) + tap_y;
+    const float dx = fminf(fmaxf(ox[i], -r), r) + tap_x;
+    const float fy = floorf(dy), fx = floorf(dx);
+    const float wy1 = dy - fy, wx1 = dx - fx;
+    const float wy0 = 1.f - wy1, wx0 = 1.f - wx1;
+    const T* gp = gs + (ty * t.tw + tx) * t.px_stride + gl * g.gc;
+    const T* xc = xs +
+                  ((ty + t.lim + static_cast<int>(fy)) * t.halo_w + tx + t.lim +
+                   static_cast<int>(fx)) * t.px_stride +
+                  gl * g.gc;
+    float s[2][2] = {{0.f, 0.f}, {0.f, 0.f}};  // <g_out, x[corner]> over the group's channels
+    for (int c = 0; c < g.gc; c += V) {
+      const GVec<T, V> gv(gp + c);
 #pragma unroll
       for (int cy = 0; cy < 2; ++cy) {
-        const int yy = at.py + tp.iy + cy;
-        if (yy < 0 || yy >= g.H) continue;
 #pragma unroll
-        for (int cx = 0; cx < 2; ++cx) {
-          const int xx = at.px + tp.ix + cx;
-          if (xx < 0 || xx >= g.W) continue;
-          float v[V];
-          load_vec<T, V>(xb + yy * g.xs_h + xx * g.xs_w + c * V, v);
-          float dot = 0.f;
-#pragma unroll
-          for (int i = 0; i < V; ++i) dot = fmaf(gv[i], v[i], dot);
-          s[cy][cx] += dot;
-        }
+        for (int cx = 0; cx < 2; ++cx) s[cy][cx] += gv.dot(xc + cy * down + cx * t.px_stride + c);
       }
     }
-    for (int off = g.tpg >> 1; off > 0; off >>= 1) {
-#pragma unroll
-      for (int cy = 0; cy < 2; ++cy)
-#pragma unroll
-        for (int cx = 0; cx < 2; ++cx)
-          s[cy][cx] += __shfl_xor_sync(0xffffffffu, s[cy][cx], off);
-    }
-    if (active && at.t == 0) {
-      // d tri/dt at the two corners of an axis: -1 and +1 when the
-      // displacement is fractional, 0 and 0 when it is an integer
-      const float ky = tp.wy[1] > 0.f ? 1.f : 0.f;
-      const float kx = tp.wx[1] > 0.f ? 1.f : 0.f;
-      const float row0 = tp.wx[0] * s[0][0] + tp.wx[1] * s[0][1];
-      const float row1 = tp.wx[0] * s[1][0] + tp.wx[1] * s[1][1];
-      const float col0 = tp.wy[0] * s[0][0] + tp.wy[1] * s[1][0];
-      const float col1 = tp.wy[0] * s[0][1] + tp.wy[1] * s[1][1];
-      const bool in_y = oy >= -r && oy <= r;
-      const bool in_x = ox >= -r && ox <= r;
-      d_m.set(map_base + tap, tp.wy[0] * row0 + tp.wy[1] * row1);
-      d_dy.set(map_base + tap, in_y ? m * ky * (row1 - row0) : 0.f);
-      d_dx.set(map_base + tap, in_x ? m * kx * (col1 - col0) : 0.f);
-    }
+    // d tri/dt at the two corners of an axis: -1 and +1 when the
+    // displacement is fractional, 0 and 0 when it is an integer
+    const float ky = wy1 > 0.f ? 1.f : 0.f;
+    const float kx = wx1 > 0.f ? 1.f : 0.f;
+    const float row0 = wx0 * s[0][0] + wx1 * s[0][1];
+    const float row1 = wx0 * s[1][0] + wx1 * s[1][1];
+    const float col0 = wy0 * s[0][0] + wy1 * s[1][0];
+    const float col1 = wy0 * s[0][1] + wy1 * s[1][1];
+    const int64_t at = e0 + ty * row_entries;
+    d_m.set(at, wy0 * row0 + wy1 * row1);
+    d_dy.set(at, oy[i] >= -r && oy[i] <= r ? om[i] * ky * (row1 - row0) : 0.f);
+    d_dx.set(at, ox[i] >= -r && ox[i] <= r ? om[i] * kx * (col1 - col0) : 0.f);
   }
 }
 
@@ -488,6 +662,44 @@ bool dx_tiling(const Geometry& g, int vec, int elem_bytes, DxTiling& t) {
   return false;
 }
 
+// The tile of the maps kernel for this geometry (see its note); false when
+// not even a 1 x 1 tile fits a block.
+bool maps_tiling(const Geometry& g, int elem_bytes, MapsTiling& t) {
+  static const int kTiles[][2] = {{8, 8}, {4, 8}, {4, 4}, {2, 4}, {2, 2}, {1, 2}, {1, 1}};
+  t.lim = (g.K - 1) / 2 + g.r;
+  t.gb = 1;
+  for (int d = 1; d <= g.G; ++d)
+    if (g.G % d == 0 && d * g.gc * elem_bytes <= 128) t.gb = d;
+  int row_bytes = (t.gb * g.gc * elem_bytes + 15) / 16 * 16;
+  if ((row_bytes / 16) % 2 == 0) row_bytes += 16;
+  t.px_stride = row_bytes / elem_bytes;
+  const int run = t.gb * g.K * g.K;  // threads of a tile pixel
+  static const size_t kBudgets[] = {kMapsSmemBudget, kDxSmemMax};
+  for (size_t budget : kBudgets) {
+    for (const auto& tile : kTiles) {
+      t.th = tile[0];
+      t.tw = tile[1];
+      if (run * t.tw > kMapsMaxThreads) continue;
+      // the most tile rows at once that divide th and fit the threads
+      t.dty = 1;
+      for (int d = 1; d <= t.th; ++d)
+        if (t.th % d == 0 && run * t.tw * d <= kMapsMaxThreads) t.dty = d;
+      if (t.th / t.dty > kMapsItems) continue;
+      t.halo_h = t.th + 2 * t.lim + 1;
+      t.halo_w = t.tw + 2 * t.lim + 1;
+      t.x_bytes = static_cast<size_t>(t.halo_h) * t.halo_w * row_bytes;
+      t.smem = t.x_bytes + static_cast<size_t>(t.th) * t.tw * row_bytes;
+      if (t.smem > budget) continue;
+      t.tiles_x = (g.W + t.tw - 1) / t.tw;
+      t.tiles = t.tiles_x * ((g.H + t.th - 1) / t.th);
+      if (static_cast<long long>(t.tiles) * (g.G / t.gb) >= (1LL << 31)) return false;
+      t.threads = run * t.tw * t.dty;
+      return true;
+    }
+  }
+  return false;
+}
+
 constexpr int kDoesNotFit = -1;
 
 // Threads per (pixel, group) for g.chunks units of work, and their total.
@@ -514,7 +726,9 @@ int launch_bwd(const void* x, Map dy, Map dx, Map m, const void* gout, void* d_x
                MapOut d_dy, MapOut d_dx, MapOut d_m, const Geometry& g,
                cudaStream_t stream) {
   DxTiling t;
-  if (!dx_tiling(g, V, static_cast<int>(sizeof(T)), t) || g.G > 65535 || g.B > 65535)
+  MapsTiling mt;
+  if (!dx_tiling(g, V, static_cast<int>(sizeof(T)), t) ||
+      !maps_tiling(g, static_cast<int>(sizeof(T)), mt) || g.G > 65535 || g.B > 65535)
     return kDoesNotFit;
   auto x_kernel = dl_bwd_x_kernel<T, V>;
   if (t.smem > 48 * 1024) {
@@ -522,9 +736,15 @@ int launch_bwd(const void* x, Map dy, Map dx, Map m, const void* gout, void* d_x
         x_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(t.smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  dl_bwd_maps_kernel<T, V><<<blocks_for(g.total), kThreads, 0, stream>>>(
-      static_cast<const T*>(x), dy, dx, m, static_cast<const T*>(gout), d_dy, d_dx, d_m, g);
-  const cudaError_t err = cudaGetLastError();
+  auto maps_kernel = dl_bwd_maps_kernel<T, V>;
+  if (mt.smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        maps_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(mt.smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  maps_kernel<<<dim3(mt.tiles * (g.G / mt.gb), g.B), mt.threads, mt.smem, stream>>>(
+      static_cast<const T*>(x), dy, dx, m, static_cast<const T*>(gout), d_dy, d_dx, d_m, g, mt);
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   x_kernel<<<dim3(t.tiles, g.G, g.B), t.threads, t.smem, stream>>>(
       dy, dx, m, static_cast<const T*>(gout), static_cast<T*>(d_x), g, t);

@@ -18,15 +18,30 @@
 //
 // What bounds it on the H100: each call reads N*H*W int32 labels (16 MB at
 // 16x512x512) and the small src (1.4 MB, resident in L2), and does no
-// tensor-core work: it is bound by memory latency and by the per-class
-// exp/FMA work (about 4M pixels x 21 classes). The design answers with one
-// thread per output pixel in the forward (neighbouring lanes share source
-// pixels, so the tap loads are broadcasts), and in the backward with one
-// warp per SOURCE pixel that gathers over its output footprint. The
-// gather recomputes each output pixel's softmax once per tap (4x), but it
-// needs no atomics and no zero-filled fp32 buffer, writes every dsrc
-// element exactly once in the src dtype, and is deterministic, as is the
-// forward (block partials summed by a second pass in a fixed order).
+// tensor-core work; the per-class exp/FMA work (about 4M pixels x 21
+// classes) is the larger cost, so the bound is operations.
+//
+// The forward: one thread per output pixel (neighbouring lanes share source
+// pixels, so the tap loads are broadcasts), block partials summed by a
+// second pass in a fixed order.
+//
+// The backward is a band-tiled separable gather (bwd_kernel). A block owns
+// one image, a band of source rows and a tile of source columns; it walks
+// the output rows that touch the band in order, mixes each row's two source
+// rows once into shared memory, computes every output pixel's softmax once
+// per band (one thread per pixel, its C logits in registers), and applies
+// the transposed interpolation as two fixed-order sums: along x by the
+// thread that owns (source column, class), along y into that thread's
+// register accumulators of the band's rows. What this buys against a gather
+// per source pixel: the softmax is recomputed only where bands overlap,
+// (band + 1) / band times, instead of four times (and twice inside each),
+// the labels are read coalesced about as often, and no lane waits on a zero
+// weight. What bounds it: the issue of those softmaxes (a fused multiply-
+// add, a max, an SFU exponential and a few adds a class, with no bounds
+// checks) and the barriers between the four steps of each pass of output
+// rows. Band and tile are chosen by a cost estimate: the recomputed
+// softmaxes times the waves of the grid. No atomics, every dsrc element
+// written once in the src dtype, bitwise repeatable.
 //
 // Label semantics follow the TPU kernel: a pixel counts when
 // label != ignore_label; a label outside [0, C) that is not ignore_label has
@@ -37,12 +52,14 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <algorithm>
+#include <cmath>
+
 namespace {
 
 constexpr int kFwdThreads = 256;
 constexpr int kReduceThreads = 1024;
-constexpr int kBwdWarps = 8;
-constexpr int kClassChunk = 32;
+constexpr int kDoesNotFit = -1;
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -211,82 +228,6 @@ __global__ void __launch_bounds__(kReduceThreads)
   }
 }
 
-// One warp per source pixel (n, i, j): dsrc[n, i, j, c] =
-//   g * sum over output pixels (y, x) of Rh[y, i] * Rw[x, j] *
-//       (softmax_c(y, x) - [c == label]) * valid(y, x).
-// The footprint bounds are widened by a margin; the weights decide exactly
-// which pixels contribute.
-template <typename T>
-__global__ void __launch_bounds__(kBwdWarps * 32)
-    bwd_kernel(const T* __restrict__ src, const int32_t* __restrict__ labels,
-               const float* __restrict__ g, T* __restrict__ dsrc, int N, int h,
-               int w, int C, int H, int W, float sh, float sw, int ignore_label) {
-  const int lane = threadIdx.x & 31;
-  const int64_t sp = static_cast<int64_t>(blockIdx.x) * kBwdWarps + (threadIdx.x >> 5);
-  if (sp >= static_cast<int64_t>(N) * h * w) return;  // uniform across the warp
-  const int j = static_cast<int>(sp % w);
-  const int64_t t = sp / w;
-  const int i = static_cast<int>(t % h);
-  const int n = static_cast<int>(t / h);
-
-  const float inv_sh = static_cast<float>(H) / static_cast<float>(h);
-  const float inv_sw = static_cast<float>(W) / static_cast<float>(w);
-  const int yb = max(0, static_cast<int>(floorf((i - 0.5f) * inv_sh - 0.5f)) - 1);
-  const int ye = min(H, static_cast<int>(ceilf((i + 1.5f) * inv_sh - 0.5f)) + 2);
-  const int xb = max(0, static_cast<int>(floorf((j - 0.5f) * inv_sw - 0.5f)) - 1);
-  const int xe = min(W, static_cast<int>(ceilf((j + 1.5f) * inv_sw - 0.5f)) + 2);
-  const int nx = xe - xb;
-  const int count = (ye - yb) * nx;
-
-  const float gs = g[0];
-  const T* img = src + static_cast<int64_t>(n) * h * w * C;
-  const int32_t* lab = labels + static_cast<int64_t>(n) * H * W;
-  T* out = dsrc + sp * C;
-
-  for (int c0 = 0; c0 < C; c0 += kClassChunk) {
-    float acc[kClassChunk];
-#pragma unroll
-    for (int cc = 0; cc < kClassChunk; ++cc) acc[cc] = 0.f;
-
-    for (int k = lane; k < count; k += 32) {
-      const int y = yb + k / nx;
-      const int x = xb + k % nx;
-      int y0, y1, x0, x1;
-      float fy, fx;
-      taps(y, sh, h, y0, y1, fy);
-      taps(x, sw, w, x0, x1, fx);
-      const float wy = (y0 == i ? 1.f - fy : 0.f) + (y1 == i ? fy : 0.f);
-      const float wx = (x0 == j ? 1.f - fx : 0.f) + (x1 == j ? fx : 0.f);
-      const float weight = wy * wx;
-      if (weight == 0.f) continue;
-      const int label = lab[static_cast<int64_t>(y) * W + x];
-      if (label == ignore_label) continue;
-      Bilinear<T> b(img, w, C, y0, y1, fy, x0, x1, fx);
-      float m, s;
-      b.max_sum(C, m, s);
-      const float scale = weight * gs / s;
-      const float hot = weight * gs;
-#pragma unroll
-      for (int cc = 0; cc < kClassChunk; ++cc) {
-        const int c = c0 + cc;
-        if (c < C) {
-          float d = expf(b.at(c) - m) * scale;
-          if (c == label) d -= hot;
-          acc[cc] += d;
-        }
-      }
-    }
-
-    float mine = 0.f;
-#pragma unroll
-    for (int cc = 0; cc < kClassChunk; ++cc) {
-      const float v = warp_sum(acc[cc]);
-      if (lane == cc) mine = v;
-    }
-    if (c0 + lane < C) out[c0 + lane] = from_f<T>(mine);
-  }
-}
-
 template <typename T>
 int launch_fwd(const void* src, const int32_t* labels, float2* partials, float* out,
                int N, int h, int w, int C, int H, int W, int ignore_label,
@@ -304,24 +245,314 @@ int launch_fwd(const void* src, const int32_t* labels, float2* partials, float* 
   return static_cast<int>(cudaGetLastError());
 }
 
+// The backward, dsrc[n, i, j, c] = g * sum over output pixels (y, x) of
+//   Rh[y, i] * Rw[x, j] * (softmax_c(y, x) - [c == label]) * valid(y, x),
+// is separable: a block owns one image, a band of `band` source rows and a
+// tile of `tj` source columns (see the note at the top). Once, it finds
+// the output columns whose taps touch the tile and each source column's
+// weights Rw[x, j] over the output columns that reach it (wcol). Then it
+// walks, in order, the output rows whose taps touch the band, `rows` at a
+// time:
+//   1. vertical mix: each row's two source rows, over the tile's columns and
+//      one more on each side, into vrow [rows][tj + 2][CB], in log2 units;
+//      the classes from C to the bucket CB get a logit whose power of 2 is
+//      0, so that step 2 runs without bounds checks;
+//   2. one thread per output pixel (consecutive threads on consecutive x, so
+//      the label loads coalesce) mixes its CB logits from vrow once, keeps
+//      them in registers, and writes p = (softmax - onehot) * valid * g to
+//      pbuf [rows][nx][pst], the exponentials by the SFU (exp2_ftz);
+//   3. every (row, j, c) sums Rw[x, j] * p[x, c] over the fixed range of x
+//      whose taps hit j, in x order, into rsum;
+//   4. the thread that owns (j, c) adds each row's sum times Rh[y, i] to its
+//      register accumulator of each band row i, in y order.
+// Then every owner writes its band's dsrc[n, i, j, c] once, in src's dtype.
+// The output rows and columns are found with the clamped taps arithmetic
+// (first_tap_at_least), never with a closed form.
+constexpr int kBwdThreads = 256;
+constexpr int kMaxBand = 8;
+constexpr int kMaxRows = 16;
+// four blocks per SM: the SM's 228 KB less 1 KB reserved per block, quartered
+constexpr size_t kBwdSmemBudget = 57344;
+constexpr size_t kBwdSmemMax = 232448;  // one block, Hopper's per-block limit
+// logits are mixed in log2 units, e^(l - m) = 2^(l log2 e - m log2 e): the
+// scaling rounds each logit once more, which moves e^(l - m) by about
+// |l - m| 2^-24 relative
+constexpr float kLog2e = 1.4426950408889634f;
+// the logit of a class past C: finite (0 * it is 0), and 2^(it - max) is 0
+constexpr float kNoClass = -1e30f;
+
+// 2^x by the SFU, flushing results below 2^-126 to 0. The softmax divides
+// each term by a sum >= 1 (its largest term is 2^0), so a flushed term
+// changes dsrc by less than 2^-126 * g; the approximation's relative error
+// is about 2^-22, far inside UCE_TOL's 1e-4 of max |dsrc|.
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+struct BwdTiling {
+  int band;     // source rows per block
+  int tj;       // source columns per block; tj * C <= kBwdThreads
+  int tiles_x;  // column tiles across w
+  int rows;     // output rows per pass
+  int nx_cap;   // bound on the output columns a tile's taps touch: (tj + 1) W / w + 3
+  int kx_cap;   // bound on the output columns one source column's taps touch
+  int pst;      // floats per output pixel in pbuf: the class bucket + 1, odd
+  size_t smem;
+};
+
+// The smallest dst in [0, dst_len] whose lower (hi = false) or upper (hi =
+// true) tap is >= target: taps are non-decreasing in dst.
+__device__ __forceinline__ int first_tap_at_least(int target, bool hi, float scale,
+                                                  int src_len, int dst_len) {
+  int lo = 0, up = dst_len;
+  while (lo < up) {
+    const int mid = (lo + up) >> 1;
+    int i0, i1;
+    float frac;
+    taps(mid, scale, src_len, i0, i1, frac);
+    if ((hi ? i1 : i0) >= target)
+      up = mid;
+    else
+      lo = mid + 1;
+  }
+  return lo;
+}
+
+template <typename T, int CB>
+__global__ void __launch_bounds__(kBwdThreads)
+    bwd_kernel(const T* __restrict__ src, const int32_t* __restrict__ labels,
+               const float* __restrict__ g, T* __restrict__ dsrc, int h, int w, int C,
+               int H, int W, float sh, float sw, int ignore_label, BwdTiling t) {
+  extern __shared__ __align__(16) float uce_smem[];
+  const int n = blockIdx.z;
+  const int ib = blockIdx.y * t.band, jb = blockIdx.x * t.tj;
+  const int ie = min(h, ib + t.band), je = min(w, jb + t.tj), tw = je - jb;
+  const int vw = t.tj + 2;  // vrow columns jb - 1 .. jb + tj
+  float* vrow = uce_smem;                      // [rows][vw][CB]
+  float* pbuf = vrow + t.rows * vw * CB;       // [rows][nx_cap][pst]
+  float* rsum = pbuf + t.rows * t.nx_cap * t.pst;  // [rows][tw][C]
+  float* wcol = rsum + t.rows * t.tj * C;      // [tj][kx_cap]
+  float* tfx = wcol + t.tj * t.kx_cap;         // [nx_cap]
+  int* tx0 = reinterpret_cast<int*>(tfx + t.nx_cap);
+  int* tx1 = tx0 + t.nx_cap;
+  int* xs = tx1 + t.nx_cap;  // [tj]: the first output column of each source column
+  int* xn = xs + t.tj;       // [tj]: and their count
+
+  // the output rows and columns whose taps touch the band and the tile
+  const int ylo = first_tap_at_least(ib, true, sh, h, H);
+  const int yhi = first_tap_at_least(ie, false, sh, h, H);
+  const int xlo = first_tap_at_least(jb, true, sw, w, W);
+  const int nx = first_tap_at_least(je, false, sw, w, W) - xlo;  // <= t.nx_cap
+  for (int e = threadIdx.x; e < nx; e += blockDim.x) {
+    int x0, x1;
+    float fx;
+    taps(xlo + e, sw, w, x0, x1, fx);
+    tx0[e] = x0 - jb + 1;  // in vrow's columns
+    tx1[e] = x1 - jb + 1;
+    tfx[e] = fx;
+  }
+  for (int j = threadIdx.x; j < tw; j += blockDim.x) {
+    xs[j] = first_tap_at_least(jb + j, true, sw, w, W) - xlo;
+    xn[j] = first_tap_at_least(jb + j + 1, false, sw, w, W) - xlo - xs[j];  // <= t.kx_cap
+  }
+  __syncthreads();
+  // Rw[x, jb + j] of the output columns x that source column j collects from
+  for (int e = threadIdx.x; e < tw * t.kx_cap; e += blockDim.x) {
+    const int j = e / t.kx_cap, k = e - j * t.kx_cap;
+    float wx = 0.f;
+    if (k < xn[j]) {
+      const int xi = xs[j] + k;
+      wx = (tx0[xi] == j + 1 ? 1.f - tfx[xi] : 0.f) + (tx1[xi] == j + 1 ? tfx[xi] : 0.f);
+    }
+    wcol[e] = wx;
+  }
+
+  const float gs = g[0];
+  const T* img = src + static_cast<int64_t>(n) * h * w * C;
+  const int32_t* lab = labels + static_cast<int64_t>(n) * H * W;
+  const bool owner = threadIdx.x < tw * C;  // of (j, c) = (threadIdx.x / C, threadIdx.x % C)
+  float acc[kMaxBand];
+#pragma unroll
+  for (int b = 0; b < kMaxBand; ++b) acc[b] = 0.f;
+
+  for (int y0 = ylo; y0 < yhi; y0 += t.rows) {
+    const int rows = min(t.rows, yhi - y0);
+    __syncthreads();  // the last pass is done with the buffers
+    // 1. vertical mix, in log2 units; the classes from C to CB get a logit
+    // whose exponential is 0, so that step 2 needs no bounds
+    const int per_row = vw * CB;
+    for (int e = threadIdx.x; e < rows * per_row; e += blockDim.x) {
+      const int r = e / per_row, rest = e - r * per_row;
+      const int cc = rest / CB, c = rest - cc * CB, col = jb - 1 + cc;
+      float v = kNoClass;
+      if (c < C && col >= 0 && col < w) {
+        int a0, a1;
+        float fy;
+        taps(y0 + r, sh, h, a0, a1, fy);
+        const int64_t at = static_cast<int64_t>(col) * C + c;
+        v = ((1.f - fy) * to_f(img[static_cast<int64_t>(a0) * w * C + at]) +
+             fy * to_f(img[static_cast<int64_t>(a1) * w * C + at])) *
+            kLog2e;
+      }
+      vrow[e] = v;
+    }
+    __syncthreads();
+    // 2. one thread per output pixel
+    for (int e = threadIdx.x; e < rows * nx; e += blockDim.x) {
+      const int r = e / nx, xi = e - r * nx;
+      float* pp = pbuf + (r * t.nx_cap + xi) * t.pst;
+      const int label = lab[static_cast<int64_t>(y0 + r) * W + xlo + xi];
+      if (label == ignore_label) {
+#pragma unroll
+        for (int c = 0; c < CB; ++c) pp[c] = 0.f;
+        continue;
+      }
+      const float fx = tfx[xi];
+      const float* v0 = vrow + (r * vw + tx0[xi]) * CB;
+      const float* v1 = vrow + (r * vw + tx1[xi]) * CB;
+      float l[CB];
+      float m = -INFINITY;
+#pragma unroll
+      for (int c = 0; c < CB; ++c) {
+        l[c] = (1.f - fx) * v0[c] + fx * v1[c];
+        m = fmaxf(m, l[c]);
+      }
+      float s = 0.f;
+#pragma unroll
+      for (int c = 0; c < CB; ++c) {
+        l[c] = exp2_ftz(l[c] - m);
+        s += l[c];
+      }
+      const float scale = gs / s;
+#pragma unroll
+      for (int c = 0; c < CB; ++c) pp[c] = l[c] * scale;
+      if (label >= 0 && label < C) pp[label] -= gs;  // the one-hot term
+    }
+    __syncthreads();
+    // 3. the transposed interpolation along x: row sums of every (row, j, c)
+    const int per_rs = tw * C;
+    for (int e = threadIdx.x; e < rows * per_rs; e += blockDim.x) {
+      const int r = e / per_rs, jc = e - r * per_rs;
+      const int j = jc / C, c = jc - j * C;
+      const float* pr = pbuf + (r * t.nx_cap + xs[j]) * t.pst + c;
+      const float* wr = wcol + j * t.kx_cap;
+      float sum = 0.f;
+      for (int k = 0; k < xn[j]; ++k) sum = fmaf(wr[k], pr[k * t.pst], sum);
+      rsum[e] = sum;
+    }
+    __syncthreads();
+    // 4. and along y, into the band's rows, in y order
+    if (owner) {
+      for (int r = 0; r < rows; ++r) {
+        int a0, a1;
+        float fy;
+        taps(y0 + r, sh, h, a0, a1, fy);
+        const float v = rsum[r * per_rs + threadIdx.x];
+#pragma unroll
+        for (int b = 0; b < kMaxBand; ++b) {
+          const int i = ib + b;
+          const float wy = (a0 == i ? 1.f - fy : 0.f) + (a1 == i ? fy : 0.f);
+          acc[b] = fmaf(wy, v, acc[b]);
+        }
+      }
+    }
+  }
+  if (owner) {
+    T* out = dsrc + (static_cast<int64_t>(n) * h * w + jb) * C + threadIdx.x;
+#pragma unroll
+    for (int b = 0; b < kMaxBand; ++b)
+      if (ib + b < ie) out[static_cast<int64_t>(ib + b) * w * C] = from_f<T>(acc[b]);
+  }
+}
+
+// The classes the backward's registers hold (its template's CB): C <= CB.
+int class_bucket(int C) { return C <= 16 ? 16 : C <= 24 ? 24 : C <= 32 ? 32 : 64; }
+
+// The backward's tiling for this shape (see bwd_kernel), or false when not
+// even one output row of a one-column tile fits a block's shared memory.
+// Among bands of 8, 4, 2, 1 source rows and tiles of 1 .. kBwdThreads / C
+// columns it takes the least estimated cost: the softmaxes recomputed where
+// bands and tiles overlap ((band + 1) / band and (tj + 1) / tj of them at an
+// upsampling factor of 2 or more), times the waves the grid takes on the
+// blocks that fit the SMs over the waves it would take if they divided
+// evenly.
+bool bwd_tiling(int N, int h, int w, int C, int W, int sms, BwdTiling& t) {
+  const int cb = class_bucket(C);
+  const int pst = cb + 1;  // odd: neighbouring pixels' classes on other banks
+  const double per_col = static_cast<double>(W) / w;  // output columns per source column
+  const int kx_cap = static_cast<int>(2 * per_col) + 3;
+  const int tj_max = std::min(w, std::max(1, kBwdThreads / C));
+  static const size_t kBudgets[] = {kBwdSmemBudget, kBwdSmemMax};
+  for (size_t budget : kBudgets) {
+    double best = 0.0;
+    for (int cap = tj_max; cap >= 1; --cap) {
+      const int tiles_x = (w + cap - 1) / cap;
+      const int tj = (w + tiles_x - 1) / tiles_x;  // tiles of even width
+      if (tj != cap) continue;
+      const int nx_cap = std::min(W, static_cast<int>((tj + 1) * per_col) + 3);
+      const size_t fixed = (4 * static_cast<size_t>(nx_cap) + 2 * tj + tj * kx_cap) * 4;
+      const size_t per_row = (static_cast<size_t>(tj + 2) * cb +
+                              static_cast<size_t>(nx_cap) * pst + static_cast<size_t>(tj) * C) *
+                             4;
+      if (fixed + per_row > budget) continue;
+      const int rows = static_cast<int>(std::min<size_t>(kMaxRows, (budget - fixed) / per_row));
+      const size_t smem = fixed + rows * per_row;
+      const int per_sm = std::max<int>(1, std::min<size_t>(2048 / kBwdThreads,
+                                                           233472 / (smem + 1024)));
+      for (int band = kMaxBand; band >= 1; band >>= 1) {
+        const double blocks = static_cast<double>(N) * ((h + band - 1) / band) * tiles_x;
+        const double slots = static_cast<double>(sms) * per_sm;
+        const double waves = std::ceil(blocks / slots) / (blocks / slots);
+        const double cost = (band + 1.0) / band * (tj + 1.0) / tj * waves;
+        if (best == 0.0 || cost < best) {
+          best = cost;
+          t = BwdTiling{band, tj, tiles_x, rows, nx_cap, kx_cap, pst, smem};
+        }
+      }
+    }
+    if (best > 0.0) return true;
+  }
+  return false;
+}
+
 template <typename T>
 int launch_bwd(const void* src, const int32_t* labels, const float* g, void* dsrc,
                int N, int h, int w, int C, int H, int W, int ignore_label,
                cudaStream_t stream) {
-  const int64_t total = static_cast<int64_t>(N) * h * w;
-  const int blocks = static_cast<int>((total + kBwdWarps - 1) / kBwdWarps);
+  int device = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  BwdTiling t;
+  if (C > 64 || N > 65535 || !bwd_tiling(N, h, w, C, W, sms, t)) return kDoesNotFit;
+  const dim3 grid(t.tiles_x, (h + t.band - 1) / t.band, N);
+  if (grid.y > 65535) return kDoesNotFit;
+  const int cb = class_bucket(C);
+  auto kernel = cb == 16   ? bwd_kernel<T, 16>
+                : cb == 24 ? bwd_kernel<T, 24>
+                : cb == 32 ? bwd_kernel<T, 32>
+                           : bwd_kernel<T, 64>;
+  if (t.smem > 48 * 1024) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(t.smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
   const float sh = static_cast<float>(h) / static_cast<float>(H);
   const float sw = static_cast<float>(w) / static_cast<float>(W);
-  bwd_kernel<T><<<blocks, kBwdWarps * 32, 0, stream>>>(
-      static_cast<const T*>(src), labels, g, static_cast<T*>(dsrc), N, h, w, C, H,
-      W, sh, sw, ignore_label);
+  kernel<<<grid, kBwdThreads, t.smem, stream>>>(static_cast<const T*>(src), labels, g,
+                                                static_cast<T*>(dsrc), h, w, C, H, W, sh, sw,
+                                                ignore_label, t);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // dtype codes: 0 = float32, 1 = bfloat16. Each function returns the
-// cudaError_t of its launches (0 on success); the caller raises on any other.
+// cudaError_t of its launches (0 on success) or -1; the caller raises on any
+// other value than 0.
 extern "C" {
 
 int upsample_ce_num_partials(long long pixels) {
@@ -345,7 +576,9 @@ int upsample_ce_fwd(const void* src, int dtype, const void* labels, void* partia
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// dsrc (same dtype and shape as src) = g[0] * d(sum CE)/d(src).
+// dsrc (same dtype and shape as src) = g[0] * d(sum CE)/d(src); -1 for a
+// shape whose tiles do not fit (more than 64 classes, or an upsampling factor
+// so large that one output row of a one-column tile overflows shared memory).
 int upsample_ce_bwd(const void* src, int dtype, const void* labels, const void* g,
                     void* dsrc, int N, int h, int w, int C, int H, int W,
                     int ignore_label, void* stream) {

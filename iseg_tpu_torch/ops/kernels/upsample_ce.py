@@ -45,6 +45,7 @@ MAX_FUSED_CLASSES = 64
 
 SOURCE = "upsample_ce.cu"
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_DOES_NOT_FIT = -1
 
 
 def reset_launch_counts() -> None:
@@ -89,6 +90,8 @@ def _check_cuda_inputs(src: torch.Tensor, labels: torch.Tensor) -> None:
 
 
 def _raise_on(err: int, what: str) -> None:
+    if err == _DOES_NOT_FIT:
+        raise ValueError(f"upsample_ce {what} kernel: the shape's tiles do not fit a block")
     if err != 0:
         raise RuntimeError(f"upsample_ce {what} kernel launch failed: CUDA error {err}")
 

@@ -129,6 +129,59 @@ def test_cuda_upsample_ce_above_64_classes_is_the_unfused_loss(cuda_device, igno
     np.testing.assert_allclose(got[1], want[1], rtol=0, atol=1e-5 * np.abs(want[1]).max())
 
 
+# the band-tiled backward at odd shapes: (n, h, w, C, H, W, ignore_label, what)
+UCE_BWD_SHAPES = {
+    "scale4_c21": (2, 13, 11, 21, 52, 44, 255, None),
+    "scale16_c19": (2, 5, 7, 19, 80, 112, 255, None),
+    "scale32_c21": (1, 3, 4, 21, 96, 128, 255, None),
+    "non_integer_33x47_to_512x700": (1, 33, 47, 21, 512, 700, 255, None),
+    "h1_c64": (2, 1, 9, 64, 8, 72, 255, None),
+    "c1": (2, 6, 5, 1, 24, 20, 255, None),
+    "downsample_16_to_10": (2, 16, 16, 7, 10, 10, 255, None),
+    "ignore_label_0_labels_beyond_c": (2, 7, 9, 21, 56, 72, 0, "beyond"),
+    "all_ignored": (1, 5, 6, 19, 40, 48, 255, "all_ignored"),
+}
+
+
+def _uce_bwd_inputs(device, shape):
+    n, h, w, c, hh, ww, ignore_label, what = UCE_BWD_SHAPES[shape]
+    src, labels = _data(device, n, h, w, c, hh, ww, seed=4, ignore_label=ignore_label)
+    if what == "beyond":
+        labels[:, :5] = c + 2  # out of range, not ignored: no true class
+    if what == "all_ignored":
+        labels.fill_(ignore_label)
+    return src, labels, ignore_label
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", sorted(UCE_BWD_SHAPES))
+def test_cuda_upsample_ce_band_tiled_backward_matches_plain_version(cuda_device, shape, dtype):
+    """The band-tiled backward at odd shapes (scales 4, 16 and 32, a
+    non-integer scale, one source row, 1 and 64 classes, downsampling,
+    ignore label 0 with labels >= C, every label ignored), against the plain
+    version, and bitwise equal to itself on a second run."""
+    src, labels, ignore_label = _uce_bwd_inputs(cuda_device, shape)
+    src = src.to(dtype)
+    uce.reset_launch_counts()
+    k_loss, k_grad = _loss_and_grad(uce.upsample_cross_entropy, src, labels,
+                                    ignore_label=ignore_label)
+    again = _loss_and_grad(uce.upsample_cross_entropy, src, labels, ignore_label=ignore_label)
+    assert uce.LAUNCH_COUNTS == {"fwd": 2, "bwd": 2}
+    np.testing.assert_array_equal(k_grad, again[1])
+
+    def plain(s, lab, ignore_label):
+        loss_sum, valid = uce.fused_sums_plain(s, lab, ignore_label)
+        return loss_sum / torch.clamp(valid, min=1.0)
+
+    p_loss, p_grad = _loss_and_grad(plain, src, labels, ignore_label=ignore_label)
+    np.testing.assert_allclose(k_loss, p_loss, rtol=1e-5)
+    rtol = 1e-4 if dtype == torch.float32 else 1e-2
+    np.testing.assert_allclose(k_grad, p_grad, rtol=rtol, atol=1e-6)
+    if UCE_BWD_SHAPES[shape][-1] == "all_ignored":
+        np.testing.assert_array_equal(k_grad, 0.0)
+
+
 @pytest.mark.cuda
 def test_cuda_upsample_ce_rejects_wrong_inputs(cuda_device):
     src, labels = _data(cuda_device, 2, 4, 4, 5, 16, 16)
@@ -537,6 +590,52 @@ def test_cuda_deform_local_dx_is_bitwise_repeatable_at_an_odd_side(cuda_device, 
     second = _dl_kernel(*args, 4, 3, 2)
     for a, b in zip(first, second):
         assert torch.equal(a, b)
+
+
+MAPS_SHAPES = {"13x21_g1": (2, 13, 21, 1, 16), "13x21_g4": (2, 13, 21, 4, 16),
+               "13x21_g16": (1, 13, 21, 16, 16), "intern_t_stage2": (8, 32, 32, 16, 16)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("types", ["f32", "autocast_ref_mix"])
+@pytest.mark.parametrize("shape", sorted(MAPS_SHAPES))
+def test_cuda_deform_local_halo_maps_match_plain_version(cuda_device, shape, types):
+    """The halo-tiled map gradients at odd map sides and groups 1, 4, 16 (a
+    transposed x view in the autocast mix), against the plain backward and
+    bitwise equal to themselves on a second run."""
+    b, h, w, groups, gc = MAPS_SHAPES[shape]
+    x_dtype, map_dtypes = DL_TYPES[types]
+    args = _dl_inputs(cuda_device, b, h, w, groups, gc, 3, x_dtype, map_dtypes,
+                      transposed=types != "f32")
+    got = _dl_kernel(*args, groups, 3, 2)[2:]
+    again = _dl_kernel(*args, groups, 3, 2)[2:]
+    want = dl.deform_dense_local_flat_backward_reference(*args, groups, 3, 2)[1:]
+    for name, a, a2, b_ in zip(("d_off_dy", "d_off_dx", "d_mod"), got, again, want):
+        assert torch.equal(a, a2), name
+        assert a.dtype == b_.dtype and a.is_contiguous(), name
+        tol = (2e-5 if a.dtype == torch.float32 else 1e-2) * max(1.0, float(b_.abs().max()))
+        assert float((a.float() - b_.float()).abs().max()) <= tol, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("types", ["f32", "autocast_ref_mix"])
+def test_cuda_deform_local_nan_outside_the_map_stays_out_of_the_gradients(cuda_device, types):
+    """x as a view into a larger buffer whose border, outside the map, is
+    NaN: the halo outside the map is zero-filled, never read, so no NaN
+    reaches any gradient (a corner outside the map contributes zero)."""
+    b, h, w, groups, gc = 2, 13, 21, 4, 16
+    x_dtype, map_dtypes = DL_TYPES[types]
+    args = list(_dl_inputs(cuda_device, b, h, w, groups, gc, 3, x_dtype, map_dtypes))
+    big = torch.full((b, h + 8, w + 8, groups * gc + 8), float("nan"), device=cuda_device,
+                     dtype=x_dtype)
+    big[:, 4:4 + h, 4:4 + w, :groups * gc] = args[0]
+    args[0] = big[:, 4:4 + h, 4:4 + w, :groups * gc]
+    got = _dl_kernel(*args, groups, 3, 2)
+    want = _dl_plain(args[0].contiguous(), *args[1:], groups, 3, 2)
+    for name, a, b_ in zip(("out", "d_x", "d_off_dy", "d_off_dx", "d_mod"), got, want):
+        assert bool(torch.isfinite(a).all()), name
+        tol = (2e-5 if a.dtype == torch.float32 else 1e-2) * max(1.0, float(b_.abs().max()))
+        assert float((a.float() - b_.float()).abs().max()) <= tol, name
 
 
 @pytest.mark.cuda

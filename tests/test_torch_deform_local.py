@@ -16,7 +16,10 @@ that cannot run here. Its algorithm can: a numpy emulation of it (tiles of
 the map with their halos, each halo pixel's displacement weights summed
 tap by tap into its row, then a fixed-order gather per input pixel, slab by
 slab of channels) is held against ``jax.vjp`` of ``dense_local_flat`` at
-1e-5 in fp32, at map sides that are no multiple of the tile.
+1e-5 in fp32, at map sides that are no multiple of the tile. So is an
+emulation of the map-gradient kernel: x staged over a tile grown by the
+corners' reach (one more row and column on the high side, zeros outside the
+map), each (pixel, group, tap) entry's corner dot products taken from it.
 """
 
 import functools
@@ -298,3 +301,125 @@ def test_torch_tiled_dx_algorithm_matches_jax_vjp(groups, tile):
     (x, off_dy, off_dx, mod, g_out), want = _jax_dx_13x21(groups)
     got = _tiled_dx_emulation(off_dy, off_dx, mod, g_out, groups, 3, 2, th, tw, slab)
     np.testing.assert_allclose(got, want, atol=ATOL, rtol=0)
+
+
+def _halo_maps_emulation(x, off_dy, off_dx, mod, g_out, groups, k, r, th, tw, gb):
+    """d_off_dy, d_off_dx, d_modulation as the CUDA kernel
+    ``dl_bwd_maps_kernel`` computes them, block by block, with its index
+    arithmetic: a block owns a th x tw tile of one image and gb groups; it
+    stages x over the tile grown by lim = half + r on every side and one more
+    row and column on the high side (zeros outside the map: an unstaged
+    corner would be read as NaN here), the tile's g_out and its maps; then
+    each (pixel, group, tap) entry takes its 2 x 2 corner dot products from
+    the staged halo, at halo row ty + lim + floor(d_y) (+1) and column
+    tx + lim + floor(d_x) (+1). Every map entry is written once: NaN marks
+    the unwritten."""
+    b_, h, w, c = x.shape
+    gc, kk, half = c // groups, k * k, (k - 1) // 2
+    lim = half + r
+    halo_h, halo_w = th + 2 * lim + 1, tw + 2 * lim + 1
+    run = gb * kk
+    f32 = np.float32
+    outs = [np.full(off_dy.shape, np.nan, f32) for _ in range(3)]
+    for b in range(b_):
+        for g0 in range(0, groups, gb):
+            chans = slice(g0 * gc, (g0 + gb) * gc)
+            for y0 in range(0, h, th):
+                for x0 in range(0, w, tw):
+                    xs = np.full((halo_h, halo_w, gb * gc), np.nan, f32)
+                    hy, hx = np.meshgrid(np.arange(halo_h), np.arange(halo_w), indexing="ij")
+                    py, px = y0 - lim + hy, x0 - lim + hx
+                    inside = (py >= 0) & (py < h) & (px >= 0) & (px < w)
+                    xs[inside] = x[b, py[inside], px[inside], chans]
+                    xs[~inside] = 0.0
+                    e = np.arange(th * tw * run)
+                    p, kr = np.divmod(e, run)
+                    ty, tx = np.divmod(p, tw)
+                    gl, tap = np.divmod(kr, kk)
+                    qy, qx = y0 + ty, x0 + tx
+                    live = (qy < h) & (qx < w)
+                    p, kr, ty, tx, gl, tap, qy, qx = (a[live] for a in
+                                                      (p, kr, ty, tx, gl, tap, qy, qx))
+                    at = (b, qy, qx, g0 * kk + kr)
+                    oy, ox, m = (a[at] for a in (off_dy, off_dx, mod))
+                    dy = np.clip(oy, -r, r).astype(f32) + (tap // k - half).astype(f32)
+                    dx = np.clip(ox, -r, r).astype(f32) + (tap % k - half).astype(f32)
+                    fy, fx = np.floor(dy), np.floor(dx)
+                    wy, wx = (f32(1) - (dy - fy), dy - fy), (f32(1) - (dx - fx), dx - fx)
+                    iy, ix = fy.astype(int) + ty + lim, fx.astype(int) + tx + lim
+                    assert iy.min() >= 0 and iy.max() + 1 < halo_h
+                    assert ix.min() >= 0 and ix.max() + 1 < halo_w
+                    gv = g_out[b, qy, qx][np.arange(len(gl))[:, None],
+                                          g0 * gc + gl[:, None] * gc + np.arange(gc)]
+                    s = [[None, None], [None, None]]
+                    for cy in range(2):
+                        for cx in range(2):
+                            xv = xs[iy + cy, ix + cx][np.arange(len(gl))[:, None],
+                                                      gl[:, None] * gc + np.arange(gc)]
+                            s[cy][cx] = (gv * xv).sum(axis=1, dtype=f32)
+                    ky, kx = (wy[1] > 0).astype(f32), (wx[1] > 0).astype(f32)
+                    row0 = wx[0] * s[0][0] + wx[1] * s[0][1]
+                    row1 = wx[0] * s[1][0] + wx[1] * s[1][1]
+                    col0 = wy[0] * s[0][0] + wy[1] * s[1][0]
+                    col1 = wy[0] * s[0][1] + wy[1] * s[1][1]
+                    for out, val in zip(outs, (
+                            np.where((oy >= -r) & (oy <= r), m * ky * (row1 - row0), 0.0),
+                            np.where((ox >= -r) & (ox <= r), m * kx * (col1 - col0), 0.0),
+                            wy[0] * row0 + wy[1] * row1)):
+                        assert np.isnan(out[at]).all(), "written twice"
+                        out[at] = val
+    for out in outs:
+        assert not np.isnan(out).any(), "a map entry was never written"
+    return outs
+
+
+def _maps_tiling(groups, gc, elem_bytes, k=3, r=2, budget=76800, max_threads=288, max_rows=8):
+    """``maps_tiling`` of the CUDA source: (th, tw, gb, threads, shared bytes)."""
+    lim = (k - 1) // 2 + r
+    gb = max([1] + [d for d in range(1, groups + 1)
+                    if groups % d == 0 and d * gc * elem_bytes <= 128])
+    row = -(-gb * gc * elem_bytes // 16) * 16
+    row += 16 if (row // 16) % 2 == 0 else 0
+    run = gb * k * k
+    for th, tw in ((8, 8), (4, 8), (4, 4), (2, 4), (2, 2), (1, 2), (1, 1)):
+        if run * tw > max_threads:
+            continue
+        dty = max(d for d in range(1, th + 1) if th % d == 0 and run * tw * d <= max_threads)
+        smem = ((th + 2 * lim + 1) * (tw + 2 * lim + 1) + th * tw) * row
+        if smem <= budget and -(-th // dty) <= max_rows:
+            return th, tw, gb, run * tw * dty, smem
+    raise ValueError("does not fit")
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_maps_13x21(groups):
+    data = _inputs(1, 13, 21, groups, 64 // groups if groups < 16 else 4, 3, 2, seed=7 + groups)
+    return data, [np.asarray(a) for a in _jax_out_and_grads(groups, 3, 2)(*data)[2:]]
+
+
+@pytest.mark.parametrize("tile", [(8, 8, "host"), (8, 16, 1), (3, 5, 1), (4, 4, "all")],
+                         ids=["8x8_host_groups", "8x16_one_group", "3x5_one_group",
+                              "4x4_all_groups"])
+@pytest.mark.parametrize("groups", [1, 4, 16])
+def test_torch_halo_maps_algorithm_matches_jax_vjp(groups, tile):
+    """The halo-tiled map gradients of the CUDA backward, on a 13 x 21 map
+    (no multiple of any tile), with offsets at 0, at +-r (a total
+    displacement of exactly half + r, whose +1 corner lies on the halo's
+    extra row and column), at integers and beyond r: equal to the JAX VJP's
+    d_off_dy, d_off_dx and d_modulation within 1e-5."""
+    th, tw, gb = tile
+    (x, off_dy, off_dx, mod, g_out), want = _jax_maps_13x21(groups)
+    gc = x.shape[3] // groups
+    gb = {"host": _maps_tiling(groups, gc, 4)[2], "all": groups}.get(gb, gb)
+    got = _halo_maps_emulation(x, off_dy, off_dx, mod, g_out, groups, 3, 2, th, tw, gb)
+    for name, a, b in zip(("d_off_dy", "d_off_dx", "d_modulation"), got, want):
+        np.testing.assert_allclose(a, b, atol=ATOL, rtol=0, err_msg=name)
+
+
+def test_torch_maps_tiling_at_intern_t_stages():
+    """The maps kernel's tile at InternImage-T's group width (16 channels):
+    8 x 8 pixels of 4 bf16 or 2 fp32 groups, 288 threads, 41,616 bytes of
+    shared memory: within the three blocks per SM of its launch bound."""
+    for groups in (4, 8, 16, 32):
+        assert _maps_tiling(groups, 16, 2) == (8, 8, 4, 288, 41616)
+        assert _maps_tiling(groups, 16, 4) == (8, 8, 2, 288, 41616)

@@ -10,6 +10,9 @@ bf16 inputs are upcast to fp32 by both sides before any arithmetic, so they
 hold the fp32 tolerance.
 """
 
+import functools
+import math
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -157,3 +160,205 @@ def test_torch_fused_many_classes_takes_unfused_path_as_jax(c, ignore_label):
     r_loss, _ = _torch_loss_and_grad(uce.upsample_cross_entropy_reference, src, labels,
                                      ignore_label=ignore_label)
     assert t_loss == r_loss
+
+
+# ------------------------------------------------ the CUDA backward's algorithm
+#
+# The CUDA backward (``bwd_kernel`` of ``csrc/upsample_ce.cu``) is a
+# band-tiled separable gather that cannot run here. Its index arithmetic can:
+# the numpy emulation below follows it block by block and is held against
+# ``jax.grad`` of the JAX package's fused loss (its Pallas kernels in
+# interpret mode) at the gradient tolerance above, rtol 1e-4 / atol 1e-6
+# (the emulation sums in fp32 in the kernel's order, JAX through float64
+# interpolation matrices in fp32 products).
+
+F32 = np.float32
+BWD_THREADS, MAX_BAND, MAX_ROWS = 256, 8, 16
+BWD_SMEM_BUDGET, BWD_SMEM_MAX, SM_SMEM = 57344, 232448, 233472
+LOG2E = F32(1.4426950408889634)
+
+
+def _taps(dst, scale, src_len):
+    """``taps`` of the CUDA source, in float32: the two clamped source
+    indices and the fraction of output index ``dst``."""
+    pos = (F32(dst) + F32(0.5)) * F32(scale) - F32(0.5)
+    lo = np.floor(pos)
+    frac = F32(pos - lo)
+    lo = int(lo)
+    return min(max(lo, 0), src_len - 1), min(max(lo + 1, 0), src_len - 1), frac
+
+
+def _first_tap_at_least(target, hi, scale, src_len, dst_len):
+    lo, up = 0, dst_len
+    while lo < up:
+        mid = (lo + up) // 2
+        if _taps(mid, scale, src_len)[1 if hi else 0] >= target:
+            up = mid
+        else:
+            lo = mid + 1
+    return lo
+
+
+def _bwd_tiling(n, h, w, c, big_w, sms=132):
+    """``bwd_tiling`` of the CUDA source: (band, tj, tiles_x, rows, nx_cap,
+    kx_cap) of the least estimated cost."""
+    cb = next(b for b in (16, 24, 32, 64) if c <= b)
+    pst = cb + 1
+    per_col = big_w / w
+    kx_cap = int(2 * per_col) + 3
+    for budget in (BWD_SMEM_BUDGET, BWD_SMEM_MAX):
+        best = None
+        for cap in range(min(w, max(1, BWD_THREADS // c)), 0, -1):
+            tiles_x = -(-w // cap)
+            tj = -(-w // tiles_x)
+            if tj != cap:
+                continue
+            nx_cap = min(big_w, int((tj + 1) * per_col) + 3)
+            fixed = (4 * nx_cap + 2 * tj + tj * kx_cap) * 4
+            per_row = ((tj + 2) * cb + nx_cap * pst + tj * c) * 4
+            if fixed + per_row > budget:
+                continue
+            rows = min(MAX_ROWS, (budget - fixed) // per_row)
+            smem = fixed + rows * per_row
+            per_sm = max(1, min(2048 // BWD_THREADS, SM_SMEM // (smem + 1024)))
+            for band in (8, 4, 2, 1):
+                blocks = n * -(-h // band) * tiles_x
+                waves = math.ceil(blocks / (sms * per_sm)) / (blocks / (sms * per_sm))
+                cost = (band + 1.0) / band * (tj + 1.0) / tj * waves
+                if best is None or cost < best[0]:
+                    best = (cost, (band, tj, tiles_x, rows, nx_cap, kx_cap))
+        if best is not None:
+            return best[1]
+    raise ValueError("does not fit")
+
+
+def _band_tiled_bwd_emulation(src, labels, g, ignore_label, band, tj, rows, nx_cap, kx_cap):
+    """dsrc as ``bwd_kernel`` computes it: per block (image, band of source
+    rows, tile of source columns) the output rows and columns that touch it
+    from the clamped taps, and each source column's weights Rw[x, j] over
+    the output columns that reach it; per pass of ``rows`` output rows the
+    vertical mix over the tile's columns and one more on each side (in log2
+    units), one softmax per output pixel (exp2), each (row, column, class)'s
+    sum over its output columns in x order, and the band rows' accumulators
+    in y order. Every element of dsrc is written once: NaN marks the
+    unwritten."""
+    n_, h, w, c = src.shape
+    big_h, big_w = labels.shape[1:]
+    sh, sw = F32(h) / F32(big_h), F32(w) / F32(big_w)
+    dsrc = np.full(src.shape, np.nan, F32)
+    vw = tj + 2
+    for n in range(n_):
+        for ib in range(0, h, band):
+            ie = min(h, ib + band)
+            for jb in range(0, w, tj):
+                je = min(w, jb + tj)
+                ylo = _first_tap_at_least(ib, True, sh, h, big_h)
+                yhi = _first_tap_at_least(ie, False, sh, h, big_h)
+                xlo = _first_tap_at_least(jb, True, sw, w, big_w)
+                nx = _first_tap_at_least(je, False, sw, w, big_w) - xlo
+                assert nx <= nx_cap, (nx, nx_cap)
+                xt = [_taps(xlo + e, sw, w) for e in range(nx)]
+                tx0 = np.array([t[0] - jb + 1 for t in xt], int)
+                tx1 = np.array([t[1] - jb + 1 for t in xt], int)
+                tfx = np.array([t[2] for t in xt], F32)
+                xs = [_first_tap_at_least(jb + j, True, sw, w, big_w) - xlo
+                      for j in range(je - jb)]
+                xn = [_first_tap_at_least(jb + j + 1, False, sw, w, big_w) - xlo - xs[j]
+                      for j in range(je - jb)]
+                assert max(xn) <= kx_cap, (xn, kx_cap)
+                wcol = [np.array([(F32(1) - tfx[xi] if tx0[xi] == j + 1 else F32(0))
+                                  + (tfx[xi] if tx1[xi] == j + 1 else F32(0))
+                                  for xi in range(xs[j], xs[j] + xn[j])], F32)
+                        for j in range(je - jb)]
+                acc = np.zeros((band, je - jb, c), F32)
+                for y0 in range(ylo, yhi, rows):
+                    for y in range(y0, min(y0 + rows, yhi)):
+                        a0, a1, fy = _taps(y, sh, h)
+                        vrow = np.zeros((vw, c), F32)  # columns jb - 1 .. jb + tj
+                        cols = np.arange(jb - 1, jb - 1 + vw)
+                        live = (cols >= 0) & (cols < w)
+                        vrow[live] = ((F32(1) - fy) * src[n, a0, cols[live]]
+                                      + fy * src[n, a1, cols[live]]) * LOG2E
+                        lab = labels[n, y, xlo:xlo + nx]
+                        logit = ((F32(1) - tfx)[:, None] * vrow[tx0]
+                                 + tfx[:, None] * vrow[tx1])
+                        e = np.exp2(logit - logit.max(axis=1, keepdims=True))
+                        p = e * (F32(g) / e.sum(axis=1, keepdims=True))
+                        p[np.arange(nx), np.clip(lab, 0, c - 1)] -= np.where(
+                            (lab >= 0) & (lab < c), F32(g), F32(0))
+                        p[lab == ignore_label] = 0.0
+                        for j in range(je - jb):
+                            s = np.zeros(c, F32)
+                            for k in range(xn[j]):
+                                s = s + wcol[j][k] * p[xs[j] + k]
+                            for b in range(ie - ib):
+                                wy = ((F32(1) - fy if a0 == ib + b else F32(0))
+                                      + (fy if a1 == ib + b else F32(0)))
+                                acc[b, j] = acc[b, j] + wy * s
+                block = dsrc[n, ib:ie, jb:je]
+                assert np.isnan(block).all(), "written twice"
+                dsrc[n, ib:ie, jb:je] = acc[:ie - ib]
+    assert not np.isnan(dsrc).any(), "an element of dsrc was never written"
+    return dsrc
+
+
+BWD_CASES = {
+    # (n, h, w, C, H, W, ignore_label, what else)
+    "scale4_c21": (2, 5, 6, 21, 20, 24, 255, None),
+    "scale16_c19": (1, 3, 4, 19, 48, 64, 255, None),
+    "scale32_c21": (1, 2, 3, 21, 64, 96, 255, None),
+    "non_integer_33x47_to_512x700": (1, 33, 47, 3, 512, 700, 255, None),
+    "h1_c64": (2, 1, 5, 64, 8, 40, 255, None),
+    "c1": (1, 3, 5, 1, 12, 20, 255, None),
+    "downsample_16x16_to_10": (1, 16, 16, 7, 10, 10, 255, None),
+    "ignore_label_0_labels_beyond_c": (1, 4, 4, 5, 16, 16, 0, "beyond"),
+    "all_ignored": (1, 3, 4, 6, 12, 16, 255, "all_ignored"),
+}
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_bwd_case(case):
+    n, h, w, c, big_h, big_w, ignore_label, what = BWD_CASES[case]
+    src, labels = _data(n=n, h=h, w=w, c=c, hh=big_h, ww=big_w, seed=3,
+                        ignore_label=ignore_label)
+    if what == "beyond":
+        labels[:, :3] = c + 2  # out of range, not ignored: no true class
+    if what == "all_ignored":
+        labels[:] = ignore_label
+    _, want = _jax_loss_and_grad(jax_uce.upsample_cross_entropy, src, labels,
+                                 ignore_label=ignore_label, interpret=True)
+    return src, labels, want
+
+
+@pytest.mark.parametrize("tiling", ["host", "ragged"])
+@pytest.mark.parametrize("case", sorted(BWD_CASES))
+def test_torch_band_tiled_bwd_algorithm_matches_jax_grad(case, tiling):
+    """The band-tiled backward of the CUDA loss, emulated, against
+    ``jax.grad`` of the JAX package's fused loss: with the tiling the CUDA
+    host code picks for the shape, and with small bands, column tiles and
+    passes that leave every last one ragged."""
+    n, h, w, c, big_h, big_w, ignore_label, what = BWD_CASES[case]
+    src, labels, want = _jax_bwd_case(case)
+    band, tj, _, rows, nx_cap, kx_cap = _bwd_tiling(n, h, w, c, big_w)
+    if tiling == "ragged":
+        band, tj, rows = min(band, 3), min(tj, 2), 3
+        nx_cap = min(big_w, int((tj + 1) * (big_w / w)) + 3)
+    valid = float((labels != ignore_label).sum())
+    got = _band_tiled_bwd_emulation(src, labels, F32(1.0) / F32(max(valid, 1.0)),
+                                    ignore_label, band, tj, rows, nx_cap, kx_cap)
+    np.testing.assert_allclose(got, want, rtol=GRAD_RTOL, atol=GRAD_ATOL)
+    if what == "all_ignored":
+        np.testing.assert_array_equal(got, 0.0)
+
+
+def test_torch_bwd_tiling_at_the_main_path_shapes():
+    """The host's tiling at the three paths' shapes on an H100 (132 SMs):
+    bands and tiles that keep the recomputed softmaxes under 1.5x, column
+    tiles whose (column, class) owners fit one block, and a grid of whole
+    waves or more than two."""
+    want = {(16, 32, 21): (4, 8), (8, 128, 19): (8, 11), (8, 16, 19): (2, 2)}
+    for (n, h, c), (band_want, tj_want) in want.items():
+        band, tj, tiles_x, rows, nx_cap, kx_cap = _bwd_tiling(n, h, h, c, 512)
+        assert (band, tj) == (band_want, tj_want)
+        assert tj * c <= BWD_THREADS and tiles_x * tj >= h and rows >= 1
+        assert nx_cap >= (tj + 1) * (512 // h) and kx_cap >= 2 * (512 // h)
