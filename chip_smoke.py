@@ -49,8 +49,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    second timer, ``held_ms``, runs beside it on every window-attention
    forward, dense-local backward and upsample + CE row). Upsample + CE at
    [16,32,32,21] -> [16,512,512], [8,128,128,19] -> [8,512,512] and
-   [8,16,16,19] -> [8,512,512], with the backward kernel's own device time
-   (``kernel_device_ms``) and the unfused pair ``F.interpolate`` +
+   [8,16,16,19] -> [8,512,512], with the forward's two kernels' and the
+   backward kernel's own device time (``kernel_device_ms``) and the unfused pair ``F.interpolate`` +
    ``F.cross_entropy`` timed beside it (``library_pair_ms``: two calls, so
    ``library_ms`` stays null), and fused against unfused printed at each
    shape; window attention forward and backward at Swin-L's four stage
@@ -116,14 +116,16 @@ git-ignored ``_checkout/v1``). It runs OLD, this tree, this tree, OLD, each
 in a process of its own with that tree's ``iseg_tpu_torch`` and this file's
 code, so one timer serves both: the bf16 window-attention forward (both
 timers) and backward at Swin-L's four stage shapes (shifted) with SDPA's
-beside them, the dense-local backward at InternImage-T's four stage shapes
-in the autocast type mix (all three timers) and its map-gradient kernel
-alone (profiler), the fused loss backward at the three paths' shapes (all
-three timers, and its kernel alone) with the unfused pair's backward beside
-it, the cache gather at Gemma-2B's four active-cache shapes with
-``index_select`` beside it, and the ResNet, Swin and InternImage train steps
-(2 warm-up + 3 or 5 timed steps each, then 3 profiled: the step's device
-time and its loss, window-attention and dense-local kernels').
+beside them, the dense-local forward and backward at InternImage-T's four
+stage shapes in the autocast type mix (all three timers) and the backward's
+map-gradient kernel alone (profiler), the fused loss forward and backward
+at the three paths' shapes (all three timers, and the forward's two kernels
+and the backward's kernel alone) with the unfused pair's forward and
+backward beside them, the cache gather at Gemma-2B's four active-cache
+shapes with ``index_select`` beside it, and the ResNet, Swin and InternImage
+train steps (2 warm-up + 3 or 5 timed steps each, then 3 profiled: the
+step's device time and its loss kernels', the loss forward's,
+window-attention and dense-local kernels', the dense-local forward's too).
 The last line holds each number of the four processes, OLD's two and this
 tree's two.
 
@@ -475,6 +477,14 @@ def uce_bound(src, labels, backward: bool) -> tuple[float, str]:
 # profiler's name of the backward kernel
 UNFUSED_PAIR = "F.interpolate(bilinear, align_corners=False) + F.cross_entropy(ignore_index=255)"
 UCE_BWD_KERNEL = "::bwd_kernel<"
+UCE_FWD_KERNELS = ("::fwd_kernel<", "::reduce_kernel(")  # the forward's two kernels
+
+
+def uce_fwd_kernels_ms(fn, **reps):
+    """The forward's two kernels' device time per call, each by
+    :func:`kernel_device_ms` (None where the profiler gives none)."""
+    times = [kernel_device_ms(fn, needle, **reps) for needle in UCE_FWD_KERNELS]
+    return None if None in times else sum(times)
 
 
 def unfused_pair(labels):
@@ -551,6 +561,7 @@ def check_upsample_ce(device, n, h, num_class, seed=0) -> dict:
             fwd_plain_ms = cuda_median_ms(
                 lambda _: uce.upsample_cross_entropy_reference(src, labels))
             fwd_dev = device_ms(lambda _: uce.upsample_cross_entropy(src, labels))
+            fwd_kernel_dev = uce_fwd_kernels_ms(lambda _: uce.upsample_cross_entropy(src, labels))
             fwd_held = held_ms(lambda _: uce.upsample_cross_entropy(src, labels))
             fwd_pair = device_ms(lambda _: pair(src, labels))
         bwd_ms = cuda_median_ms(uce_run_bwd, setup=bwd_setup(uce.upsample_cross_entropy))
@@ -563,8 +574,8 @@ def check_upsample_ce(device, n, h, num_class, seed=0) -> dict:
         bwd_pair = device_ms(uce_run_bwd, setup=bwd_setup(pair))
         fwd_bound, fwd_by = uce_bound(src, labels, backward=False)
         bwd_bound, bwd_by = uce_bound(src, labels, backward=True)
-        log(f"  [{name}] median ms: fwd kernel {fwd_ms:.4f} (device {fwd_dev:.4f}, held "
-            f"{fwd_held:.4f}) plain {fwd_plain_ms:.4f} bound {fwd_bound:.4f} ({fwd_by}); bwd "
+        log(f"  [{name}] median ms: fwd kernel {fwd_ms:.4f} (device {fwd_dev:.4f}, its two "
+            f"kernels {fwd_kernel_dev}, held {fwd_held:.4f}) plain {fwd_plain_ms:.4f} bound {fwd_bound:.4f} ({fwd_by}); bwd "
             f"kernel {bwd_ms:.4f} (device {bwd_dev:.4f}, bwd_kernel alone {bwd_kernel_dev}, held "
             f"{bwd_held:.4f}) plain {bwd_plain_ms:.4f} bound {bwd_bound:.4f} ({bwd_by})")
         log(f"  [{name}] device ms, fused against the unfused pair ({UNFUSED_PAIR}): fwd "
@@ -574,7 +585,7 @@ def check_upsample_ce(device, n, h, num_class, seed=0) -> dict:
         library = dict(library_ms=None, library_pair=UNFUSED_PAIR)
         rows[name] = {
             "fwd": dict(shape=f"{shape} {name}", max_abs_err=loss_err, ms=fwd_ms,
-                        device_ms=fwd_dev, held_ms=fwd_held, plain_ms=fwd_plain_ms,
+                        device_ms=fwd_dev, kernel_device_ms=fwd_kernel_dev, held_ms=fwd_held, plain_ms=fwd_plain_ms,
                         bound_ms=fwd_bound, bound_by=fwd_by, library_pair_ms=fwd_pair, **library),
             "bwd": dict(shape=f"{shape} {name}", max_abs_err=grad_err, ms=bwd_ms,
                         device_ms=bwd_dev, kernel_device_ms=bwd_kernel_dev, held_ms=bwd_held,
@@ -844,6 +855,7 @@ def check_deform_local(device, stage, side, channels, groups, mix, seed=0) -> di
     bwd_ms = cuda_median_ms(run_grad, setup=grad_setup, reps=10, warmup=2)
     with torch.no_grad():
         fwd_dev = device_ms(lambda _: dl.deform_dense_local_flat(x, off_dy, off_dx, mod, *args))
+        fwd_held = held_ms(lambda _: dl.deform_dense_local_flat(x, off_dy, off_dx, mod, *args))
     bwd_dev = device_ms(run_grad, setup=grad_setup)
     bwd_held = held_ms(run_grad, setup=grad_setup)
     maps_dev = kernel_device_ms(run_grad, DL_MAPS_KERNEL, setup=grad_setup)
@@ -853,14 +865,14 @@ def check_deform_local(device, stage, side, channels, groups, mix, seed=0) -> di
     maps_bound, maps_by = dl_maps_bound(x, (off_dy, off_dx, mod), groups, corners)
     bwd_err = max(errs[key] for key in ("d_x", "d_off_dy", "d_off_dx", "d_mod"))
     log(f"  [{name}] max abs err " + " ".join(f"{k_} {v:.2e}" for k_, v in errs.items())
-        + f"; ms fwd kernel {fwd_ms:.4f} (device {fwd_dev:.4f}) plain {fwd_plain:.4f} bound "
+        + f"; ms fwd kernel {fwd_ms:.4f} (device {fwd_dev:.4f}, held {fwd_held:.4f}) plain {fwd_plain:.4f} bound "
         f"{fwd_bound:.4f} ({fwd_by}); bwd kernels {bwd_ms:.4f} (device {bwd_dev:.4f}, held "
         f"{bwd_held:.4f}) plain "
         f"{bwd_plain:.4f} bound {bwd_bound:.4f} ({bwd_by}), of it {DL_MAPS_KERNEL} device "
         f"{maps_dev} bound {maps_bound:.4f} ({maps_by}); {corners} corner rows read")
     return {
         "fwd": dict(shape=name, max_abs_err=errs["out"], ms=fwd_ms, device_ms=fwd_dev,
-                    plain_ms=fwd_plain, bound_ms=fwd_bound, bound_by=fwd_by, library_ms=None),
+                    held_ms=fwd_held, plain_ms=fwd_plain, bound_ms=fwd_bound, bound_by=fwd_by, library_ms=None),
         "bwd": dict(shape=name, max_abs_err=bwd_err, ms=bwd_ms, device_ms=bwd_dev,
                     held_ms=bwd_held, plain_ms=bwd_plain, bound_ms=bwd_bound, bound_by=bwd_by,
                     library_ms=None,
@@ -1798,12 +1810,14 @@ def phase_gemma_serve(device, profile: bool) -> dict[str, dict[str, int]]:
 
 def step_loss_ms(path: str, prof: dict) -> dict:
     """The loss kernels' device ms per step in a :func:`profile_steps` result:
-    all of them, and the backward alone."""
+    all of them, the backward alone and the forward's two kernels."""
     loss = dict(KERNEL_CLASSES)["upsample + CE kernels"]
     return {f"{path} step loss ms": sum(ms for key, ms in prof["kernels"].items()
                                         if any(n in key for n in loss)),
             f"{path} step uce_bwd ms": sum(ms for key, ms in prof["kernels"].items()
-                                           if UCE_BWD_KERNEL in key)}
+                                           if UCE_BWD_KERNEL in key),
+            f"{path} step uce_fwd ms": sum(ms for key, ms in prof["kernels"].items()
+                                           if any(n in key for n in UCE_FWD_KERNELS))}
 
 
 def ab_child() -> dict:
@@ -1849,6 +1863,13 @@ def ab_child() -> dict:
             ins, out = arg
             torch.autograd.grad(out, ins, g_out)
 
+        with torch.no_grad():
+            row[f"dl_fwd {stage} ms"] = cuda_median_ms(
+                lambda _: dl.deform_dense_local_flat(x, off_dy, off_dx, mod, *args), **reps)
+            row[f"dl_fwd {stage} device ms"] = device_ms(
+                lambda _: dl.deform_dense_local_flat(x, off_dy, off_dx, mod, *args), **reps)
+            row[f"dl_fwd {stage} held ms"] = held_ms(
+                lambda _: dl.deform_dense_local_flat(x, off_dy, off_dx, mod, *args), **reps)
         row[f"dl_bwd {stage} ms"] = cuda_median_ms(run_grad, setup=grad_setup, **reps)
         row[f"dl_bwd {stage} device ms"] = device_ms(run_grad, setup=grad_setup, **reps)
         row[f"dl_bwd {stage} held ms"] = held_ms(run_grad, setup=grad_setup, **reps)
@@ -1857,6 +1878,16 @@ def ab_child() -> dict:
         torch.cuda.empty_cache()
     for path, n, h, classes in UCE_SHAPES:
         src, labels = uce_inputs(device, n, h, classes)
+        pair = unfused_pair(labels)
+        with torch.no_grad():
+            row[f"uce_fwd {path} ms"] = cuda_median_ms(
+                lambda _: uce.upsample_cross_entropy(src, labels), **reps)
+            row[f"uce_fwd {path} device ms"] = device_ms(
+                lambda _: uce.upsample_cross_entropy(src, labels), **reps)
+            row[f"uce_fwd {path} kernel device ms"] = uce_fwd_kernels_ms(
+                lambda _: uce.upsample_cross_entropy(src, labels), **reps)
+            row[f"unfused pair fwd {path} device ms"] = device_ms(
+                lambda _: pair(src, labels), **reps)
         setup = uce_bwd_setup(uce.upsample_cross_entropy, src, labels)
         row[f"uce_bwd {path} ms"] = cuda_median_ms(uce_run_bwd, setup=setup, **reps)
         row[f"uce_bwd {path} device ms"] = device_ms(uce_run_bwd, setup=setup, **reps)
@@ -1864,7 +1895,7 @@ def ab_child() -> dict:
             uce_run_bwd, UCE_BWD_KERNEL, setup=setup, **reps)
         row[f"uce_bwd {path} held ms"] = held_ms(uce_run_bwd, setup=setup, **reps)
         row[f"unfused pair bwd {path} device ms"] = device_ms(
-            uce_run_bwd, setup=uce_bwd_setup(unfused_pair(labels), src, labels), **reps)
+            uce_run_bwd, setup=uce_bwd_setup(pair, src, labels), **reps)
         torch.cuda.empty_cache()
     for name, shape, dtype in CG_SHAPES:
         got = check_cache_gather(device, name, shape, dtype)
@@ -1906,6 +1937,8 @@ def ab_child() -> dict:
     state, _, launches, step_ms = train_steps(state, step_fn, data, I_WARMUP, I_TIMED, I_BATCH)
     prof = profile_steps(state, step_fn, data, "InternImage-T + ASPP train step", step_ms)
     row.update({"intern step ms": step_ms, "intern step device ms": prof["device_ms"],
+                "intern step dl_fwd ms": sum(ms for key, ms in prof["kernels"].items()
+                                             if "dl_fwd_kernel" in key),
                 "intern step dl_bwd ms": sum(ms for key, ms in prof["kernels"].items()
                                              if "dl_bwd_" in key),
                 "intern step dl_bwd_x ms": sum(ms for key, ms in prof["kernels"].items()

@@ -27,9 +27,13 @@
 // contiguous channels.
 //
 // Kernels:
-//   dl_fwd_kernel       a few threads per (pixel, group), each over vectors
-//                       of V channels: per tap, the 2 x 2 corner rows of x
-//                       are loaded as 16-byte vectors and accumulated.
+//   dl_fwd_kernel       from a halo tile in shared memory (see its note
+//                       below): a block stages x over a tile of pixels grown
+//                       by the corners' reach while its threads load the
+//                       tile's three maps and form each (pixel, group, tap)'s
+//                       corner and weights once; then each (pixel, group,
+//                       vector of V channels) has a thread that sums its
+//                       <= 4 K * K corner rows from shared memory.
 //   dl_bwd_maps_kernel  from a halo tile in shared memory (see its note
 //                       below): a block stages x over a tile of pixels grown
 //                       by the corners' reach, the tile's g_out and its three
@@ -53,17 +57,16 @@
 //
 // What bounds it on the H100: the forward moves x, out and the three maps
 // once (about 81 MB at [8,128,128,64], G = 4, bf16 x) and does about 72
-// FLOPs per output element, so its bound is bytes. The kernels are simple
-// CUDA-core gathers: the forward is limited by the latency of its dependent
-// loads (offset -> address -> row). The maps backward was too, with a few
-// threads per (pixel, group) walking the taps in series over rows in device
-// memory; it now stages everything it reads in shared memory first, so its
-// bound is the bytes of the maps it reads and writes (2 x maps + 2 x x of the
-// backward's bytes) and the halo's re-reads from L2. A per-pixel
-// d_x gather would recompute each source pixel's weights from all 9 taps
-// for every one of the 49 pixels it reaches (441 hat products and 1,323
-// scattered map loads per (pixel, group)) and be bound by that issue; the
-// tiled kernel computes them once per block.
+// FLOPs per output element, so its bound is bytes. The first kernels were
+// simple CUDA-core gathers, limited by the latency of their dependent loads
+// (offset -> address -> row in device memory). The forward and the maps
+// backward now stage everything they read in shared memory first, so their
+// bound is the bytes of the maps (2 x maps + 2 x x of the backward's bytes)
+// and the halo's re-reads from L2. A per-pixel d_x gather would recompute
+// each source pixel's weights from all 9 taps for every one of the 49 pixels
+// it reaches (441 hat products and 1,323 scattered map loads per (pixel,
+// group)) and be bound by that issue; the tiled kernel computes them once
+// per block.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -71,8 +74,6 @@
 #include <stdint.h>
 
 namespace {
-
-constexpr int kThreads = 256;
 
 // bfloat16 travels as its 16 bits, so a vector of them is plain data
 typedef uint16_t bf16_bits;
@@ -136,24 +137,6 @@ struct Geometry {
   int B, H, W, C, G, gc, K, r;
   long long xs_b, xs_h, xs_w;  // element strides of x (its channel stride is 1)
   int chunks;                  // gc / V
-  int tpg;                     // threads per (pixel, group): a power of two <= 32
-  long long total;             // B * H * W * G * tpg threads
-};
-
-// Which (pixel, group, thread-in-group) a thread is.
-struct Where {
-  int t, grp, px, py, b;
-  int64_t pix, pg;
-  __device__ __forceinline__ Where(const Geometry& g, int64_t tid) {
-    t = static_cast<int>(tid % g.tpg);
-    pg = tid / g.tpg;
-    grp = static_cast<int>(pg % g.G);
-    pix = pg / g.G;
-    px = static_cast<int>(pix % g.W);
-    const int64_t rest = pix / g.W;
-    py = static_cast<int>(rest % g.H);
-    b = static_cast<int>(rest / g.H);
-  }
 };
 
 // One tap's clamped displacement split into its lower integer corner and
@@ -175,47 +158,6 @@ struct Tap {
     ix = static_cast<int>(fx);
   }
 };
-
-template <typename T, int V>
-__global__ void __launch_bounds__(kThreads)
-    dl_fwd_kernel(const T* __restrict__ x, Map off_dy, Map off_dx, Map mod,
-                  T* __restrict__ out, Geometry g) {
-  const int64_t tid = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  if (tid >= g.total) return;
-  const Where at(g, tid);
-  const int KK = g.K * g.K;
-  const float r = static_cast<float>(g.r);
-  const int64_t map_base = at.pg * KK;
-  const T* xb = x + at.b * g.xs_b + at.grp * g.gc;
-  T* ob = out + at.pix * g.C + at.grp * g.gc;
-
-  for (int c = at.t; c < g.chunks; c += g.tpg) {
-    float acc[V];
-#pragma unroll
-    for (int i = 0; i < V; ++i) acc[i] = 0.f;
-    for (int tap = 0; tap < KK; ++tap) {
-      const Tap tp(off_dy.at(map_base + tap), off_dx.at(map_base + tap), tap, g.K, r);
-      const float m = mod.at(map_base + tap);
-#pragma unroll
-      for (int cy = 0; cy < 2; ++cy) {
-        const int yy = at.py + tp.iy + cy;
-        const float wy = m * tp.wy[cy];
-        if (yy < 0 || yy >= g.H || tp.wy[cy] == 0.f) continue;
-#pragma unroll
-        for (int cx = 0; cx < 2; ++cx) {
-          const int xx = at.px + tp.ix + cx;
-          if (xx < 0 || xx >= g.W || tp.wx[cx] == 0.f) continue;
-          const float w = wy * tp.wx[cx];
-          float v[V];
-          load_vec<T, V>(xb + yy * g.xs_h + xx * g.xs_w + c * V, v);
-#pragma unroll
-          for (int i = 0; i < V; ++i) acc[i] = fmaf(w, v[i], acc[i]);
-        }
-      }
-    }
-    store_vec<T, V>(ob + c * V, acc);
-  }
-}
 
 // d_modulation, d_off_dy, d_off_dx from a halo tile in shared memory.
 //
@@ -244,20 +186,20 @@ __global__ void __launch_bounds__(kThreads)
 // about 2.5 times on average, and the map traffic, which the blocks on an SM
 // do not fully overlap with them.
 //
-// The tile: the first of 8 x 8, 4 x 8, 4 x 4, ... 1 x 1 whose threads fit a
-// block and whose shared memory fits three blocks on an SM
-// (kMapsSmemBudget, matching the launch bound), else one block. At
-// InternImage's K = 3, r = 2 (lim 3)
-// with 16 bf16 channels per group, gb = 4: an 8 x 8 tile has a 15 x 15 halo
-// of 144-byte rows, 41,616 bytes with g_out, 288 threads of 8 entries each;
-// fp32 takes gb = 2, the same bytes, and 288 threads of 4 entries.
-struct MapsTiling {
+// The tile (halo_tiling, shared with the forward): the first of 8 x 8, 4 x
+// 8, 4 x 4, ... 1 x 1 whose threads fit a block and whose shared memory fits
+// three blocks on an SM (kHaloSmemBudget, matching the launch bounds), else
+// one block. At InternImage's K = 3, r = 2 (lim 3) with 16 bf16 channels per
+// group, gb = 4: an 8 x 8 tile has a 15 x 15 halo of 144-byte rows, 41,616
+// bytes with g_out, 288 threads of 8 entries each; fp32 takes gb = 2, the
+// same bytes, and 288 threads of 4 entries.
+struct HaloTiling {
   int th, tw;          // output pixels of a tile
   int gb;              // groups per block
   int lim;             // reach of the corners: half + r (and one more on the high side)
   int halo_h, halo_w;  // th + 2 lim + 1, tw + 2 lim + 1
-  int px_stride;       // elements of a staged pixel row (gb * gc, padded)
-  int dty;             // tile rows the block's threads cover at once
+  int px_stride;       // elements of a staged pixel row (gb * gc, padded in the maps kernel)
+  int dty;             // tile rows the maps kernel's threads cover at once
   int tiles_x, tiles;  // tiles across a row of the map, and per image
   int threads;
   size_t x_bytes, smem;
@@ -266,7 +208,7 @@ struct MapsTiling {
 constexpr int kMapsItems = 8;  // tile rows a thread walks, at most
 constexpr int kMapsMaxThreads = 288;  // and three blocks per SM: at most 75 registers
 // Three blocks per SM: the SM's 228 KB less 1 KB reserved per block, thirded
-constexpr size_t kMapsSmemBudget = 76800;
+constexpr size_t kHaloSmemBudget = 76800;
 
 // BYTES of global memory to shared memory by cp.async, or zeros where !valid
 // (its zero fill: nothing is read, but src must still be an address of the
@@ -315,6 +257,23 @@ struct Walk3 {
   }
 };
 
+// Stages x of image b, groups g0 .. g0 + gb - 1, over the halo of the tile
+// at (y0, x0) into xs by cp.async (one padded row per halo pixel, zeros
+// outside the map), x addressed through its strides; the caller commits and
+// waits (stage_wait_all).
+template <typename T, int V>
+__device__ __forceinline__ void stage_x_halo(T* xs, const T* __restrict__ x, const Geometry& g,
+                                             const HaloTiling& t, int b, int g0, int y0, int x0) {
+  const int nvec = t.gb * g.gc / V;
+  const T* xb = x + b * g.xs_b + static_cast<int64_t>(g0) * g.gc;
+  for (Walk3 e(threadIdx.x, blockDim.x, t.halo_w, nvec); e.a < t.halo_h; e.next()) {
+    const int py = y0 - t.lim + e.a, px = x0 - t.lim + e.b;
+    const bool in = py >= 0 && py < g.H && px >= 0 && px < g.W;
+    stage_async<sizeof(T) * V>(xs + (e.a * t.halo_w + e.b) * t.px_stride + e.c * V,
+                               in ? xb + py * g.xs_h + px * g.xs_w + e.c * V : xb, in);
+  }
+}
+
 // A vector of V channels of g_out in fp32, held for the four corners, and
 // its dot product with a vector of x in channel order.
 template <typename T, int V>
@@ -357,11 +316,55 @@ struct GVec<bf16_bits, 8> {
   }
 };
 
+// The (pixel column tx, group gl, tap) entry of a halo tile that a thread of
+// the maps kernel or of the forward keeps, at tile rows ty0 + i * dty for i <
+// items (consecutive threads on consecutive entries of a pixel's run of
+// gb * K * K, so that the map loads coalesce): its index arithmetic is done
+// once.
+struct TileEntry {
+  int tx, ty0, dty, gl, tap, items;
+  float tap_y, tap_x;       // the tap's place in the kernel window, from its centre
+  int64_t e0, row_entries;  // the map index at tile row 0, and a map row's entries
+  __device__ __forceinline__ TileEntry(const Geometry& g, const HaloTiling& t, int b, int g0,
+                                       int y0, int x0) {
+    const int KK = g.K * g.K, run = t.gb * KK;
+    const int k = threadIdx.x % run, q = threadIdx.x / run;
+    tx = q % t.tw;
+    ty0 = q / t.tw;
+    dty = t.dty;
+    gl = k / KK;
+    tap = k - gl * KK;
+    tap_y = static_cast<float>(tap / g.K - (g.K - 1) / 2);
+    tap_x = static_cast<float>(tap % g.K - (g.K - 1) / 2);
+    // rows of the tile that lie in the map; the tiling keeps items within
+    // the kernel's register arrays (kMapsItems, kFwdItems)
+    const int rows = min(t.th, g.H - y0);
+    items = x0 + tx < g.W && ty0 < rows ? (rows - ty0 + dty - 1) / dty : 0;
+    row_entries = static_cast<int64_t>(g.W) * g.G * KK;
+    e0 = ((static_cast<int64_t>(b) * g.H + y0) * g.W + x0 + tx) * g.G * KK +
+         static_cast<int64_t>(g0) * KK + k;
+  }
+  // the three map values of every item, all loads issued before any is used
+  // (zeros past the items)
+  template <int N>
+  __device__ __forceinline__ void load(const Map& off_dy, const Map& off_dx, const Map& mod,
+                                       float (&oy)[N], float (&ox)[N], float (&om)[N]) const {
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      const bool in = i < items;
+      const int64_t at = e0 + (ty0 + i * dty) * row_entries;
+      oy[i] = in ? off_dy.at(at) : 0.f;
+      ox[i] = in ? off_dx.at(at) : 0.f;
+      om[i] = in ? mod.at(at) : 0.f;
+    }
+  }
+};
+
 template <typename T, int V>
 __global__ void __launch_bounds__(kMapsMaxThreads, 3)
     dl_bwd_maps_kernel(const T* __restrict__ x, Map off_dy, Map off_dx, Map mod,
                        const T* __restrict__ gout, MapOut d_dy, MapOut d_dx, MapOut d_m,
-                       Geometry g, MapsTiling t) {
+                       Geometry g, HaloTiling t) {
   extern __shared__ __align__(16) unsigned char dl_smem[];
   T* xs = reinterpret_cast<T*>(dl_smem);
   T* gs = reinterpret_cast<T*>(dl_smem + t.x_bytes);
@@ -370,40 +373,14 @@ __global__ void __launch_bounds__(kMapsMaxThreads, 3)
   const int chunks = g.G / t.gb, tile = blockIdx.x / chunks;
   const int b = blockIdx.y, g0 = (blockIdx.x - tile * chunks) * t.gb;
   const int y0 = (tile / t.tiles_x) * t.th, x0 = (tile % t.tiles_x) * t.tw;
-  const int KK = g.K * g.K, run = t.gb * KK, nvec = t.gb * g.gc / V;
+  const int nvec = t.gb * g.gc / V;
   const float r = static_cast<float>(g.r);
-  // this thread's entry (column tx, group gl, tap) of the tile, at rows
-  // ty0 + i * dty
-  const int k = threadIdx.x % run, q = threadIdx.x / run;
-  const int tx = q % t.tw, ty0 = q / t.tw;
-  const int gl = k / KK, tap = k - gl * KK;
-  const float tap_y = static_cast<float>(tap / g.K - (g.K - 1) / 2);
-  const float tap_x = static_cast<float>(tap % g.K - (g.K - 1) / 2);
-  const int items = (t.th - ty0 + t.dty - 1) / t.dty;  // <= kMapsItems
-  const int64_t row_entries = static_cast<int64_t>(g.W) * g.G * KK;
-  const bool col_in = x0 + tx < g.W;
-  const int64_t e0 = ((static_cast<int64_t>(b) * g.H + y0) * g.W + x0 + tx) * g.G * KK +
-                     static_cast<int64_t>(g0) * KK + k;
-
+  const TileEntry en(g, t, b, g0, y0, x0);
   float oy[kMapsItems], ox[kMapsItems], om[kMapsItems];
-#pragma unroll
-  for (int i = 0; i < kMapsItems; ++i) {
-    const int ty = ty0 + i * t.dty;
-    const bool in = col_in && i < items && y0 + ty < g.H;
-    const int64_t at = e0 + ty * row_entries;
-    oy[i] = in ? off_dy.at(at) : 0.f;
-    ox[i] = in ? off_dx.at(at) : 0.f;
-    om[i] = in ? mod.at(at) : 0.f;
-  }
+  en.load(off_dy, off_dx, mod, oy, ox, om);
 
   // stage the halo of x and the tile's g_out
-  const T* xb = x + b * g.xs_b + static_cast<int64_t>(g0) * g.gc;
-  for (Walk3 e(threadIdx.x, blockDim.x, t.halo_w, nvec); e.a < t.halo_h; e.next()) {
-    const int py = y0 - t.lim + e.a, px = x0 - t.lim + e.b;
-    const bool in = py >= 0 && py < g.H && px >= 0 && px < g.W;
-    stage_async<sizeof(T) * V>(xs + (e.a * t.halo_w + e.b) * t.px_stride + e.c * V,
-                               in ? xb + py * g.xs_h + px * g.xs_w + e.c * V : xb, in);
-  }
+  stage_x_halo<T, V>(xs, x, g, t, b, g0, y0, x0);
   const int64_t img = static_cast<int64_t>(b) * g.H;
   for (Walk3 e(threadIdx.x, blockDim.x, t.tw, nvec); e.a < t.th; e.next()) {
     const int py = y0 + e.a, px = x0 + e.b;
@@ -418,18 +395,18 @@ __global__ void __launch_bounds__(kMapsMaxThreads, 3)
   const int down = t.halo_w * t.px_stride;
 #pragma unroll
   for (int i = 0; i < kMapsItems; ++i) {
-    const int ty = ty0 + i * t.dty;
-    if (i >= items || y0 + ty >= g.H || !col_in) continue;
-    const float dy = fminf(fmaxf(oy[i], -r), r) + tap_y;
-    const float dx = fminf(fmaxf(ox[i], -r), r) + tap_x;
+    if (i >= en.items) continue;
+    const int ty = en.ty0 + i * t.dty;
+    const float dy = fminf(fmaxf(oy[i], -r), r) + en.tap_y;
+    const float dx = fminf(fmaxf(ox[i], -r), r) + en.tap_x;
     const float fy = floorf(dy), fx = floorf(dx);
     const float wy1 = dy - fy, wx1 = dx - fx;
     const float wy0 = 1.f - wy1, wx0 = 1.f - wx1;
-    const T* gp = gs + (ty * t.tw + tx) * t.px_stride + gl * g.gc;
+    const T* gp = gs + (ty * t.tw + en.tx) * t.px_stride + en.gl * g.gc;
     const T* xc = xs +
-                  ((ty + t.lim + static_cast<int>(fy)) * t.halo_w + tx + t.lim +
+                  ((ty + t.lim + static_cast<int>(fy)) * t.halo_w + en.tx + t.lim +
                    static_cast<int>(fx)) * t.px_stride +
-                  gl * g.gc;
+                  en.gl * g.gc;
     float s[2][2] = {{0.f, 0.f}, {0.f, 0.f}};  // <g_out, x[corner]> over the group's channels
     for (int c = 0; c < g.gc; c += V) {
       const GVec<T, V> gv(gp + c);
@@ -447,10 +424,133 @@ __global__ void __launch_bounds__(kMapsMaxThreads, 3)
     const float row1 = wx0 * s[1][0] + wx1 * s[1][1];
     const float col0 = wy0 * s[0][0] + wy1 * s[1][0];
     const float col1 = wy0 * s[0][1] + wy1 * s[1][1];
-    const int64_t at = e0 + ty * row_entries;
+    const int64_t at = en.e0 + ty * en.row_entries;
     d_m.set(at, wy0 * row0 + wy1 * row1);
     d_dy.set(at, oy[i] >= -r && oy[i] <= r ? om[i] * ky * (row1 - row0) : 0.f);
     d_dx.set(at, ox[i] >= -r && ox[i] <= r ? om[i] * kx * (col1 - col0) : 0.f);
+  }
+}
+
+// acc += w * x[0 .. V) in fp32; bf16 pairs unpacked from 32-bit words, as in GVec
+template <typename T, int V>
+__device__ __forceinline__ void axpy_vec(float (&acc)[V], float w, const T* x) {
+  if constexpr (sizeof(T) == 2 && V == 8) {
+    const uint4 u = *reinterpret_cast<const uint4*>(x);
+    const uint32_t ws[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      acc[2 * i] = fmaf(w, __uint_as_float(ws[i] << 16), acc[2 * i]);
+      acc[2 * i + 1] = fmaf(w, __uint_as_float(ws[i] & 0xffff0000u), acc[2 * i + 1]);
+    }
+  } else {
+    float v[V];
+    load_vec<T, V>(x, v);
+#pragma unroll
+    for (int i = 0; i < V; ++i) acc[i] = fmaf(w, v[i], acc[i]);
+  }
+}
+
+// The forward from a halo tile in shared memory.
+//
+// A block owns a tile of halo_tiling (th x tw output pixels of one image, gb
+// groups, x over the tile grown by lim = half + r plus one row and column on
+// the high side) and runs the maps kernel's threads, each keeping one
+// (column, group, tap) entry of the tile at up to kFwdItems rows
+// (TileEntry). It
+//   1. loads its entries' three map values into registers, all before the
+//      first is used, so that those loads are in flight together with
+//   2. the cp.async copies of x over the halo (stage_x_halo, shared with the
+//      maps kernel: zeros outside the map);
+//   3. meanwhile forms each entry's Tap once, into a 16-byte record in shared
+//      memory: m * wy0, m * wy1, wx1 and the offset of its lower corner's
+//      row in the staged halo;
+// then, after one barrier, one thread per (pixel, group, vector of V
+// channels) sums its <= 4 K * K corner rows from shared memory, taps in
+// order and corners y-major, w = (m * wy) * wx, and writes out once. The
+// chain offset -> address -> row ends in shared memory, no map value is
+// loaded twice, and the threads of a group's vectors read one record (a
+// broadcast). A corner of zero weight is read like any other: it lies in
+// the halo, and outside the map it is a staged zero.
+//
+// The staged rows are not padded: the eight lanes of a quarter-warp read
+// the eight 16-byte units of a 128-byte row position (groups and vectors of
+// one pixel), each from its own corner pixel, so they fall on eight banks
+// whatever the offsets are. The tile fits four blocks on an SM
+// (kFwdSmemBudget, and 56 registers by the launch bound). At InternImage's K
+// = 3, r = 2 with 16 bf16 channels a group (gb = 4) it is 4 x 8 pixels: an
+// 11 x 15 halo of 128-byte rows (21,120 bytes) and 32 x 36 records
+// (18,432), 288 threads of 4 entries; fp32 (gb = 2) takes 8 x 8, 47,232
+// bytes. What bounds it (ablations on the card, PERF.md §6): the map
+// loads, the gather's issue (with bf16 values an unpack and an FMA a value)
+// and the halo's copies, which add up rather than overlap. Three blocks of 8
+// x 8 tiles, persistent double-buffered blocks, producer and consumer warps,
+// and unrolled or reordered phases were no faster.
+constexpr int kFwdItems = 4;  // tile rows a thread of the forward walks, at most
+constexpr int kFwdBlocksPerSM = 4;
+// Four blocks per SM: the SM's 228 KB less 1 KB reserved per block, quartered
+constexpr size_t kFwdSmemBudget = 57344;
+
+template <typename T, int V>
+__global__ void __launch_bounds__(kMapsMaxThreads, kFwdBlocksPerSM)
+    dl_fwd_kernel(const T* __restrict__ x, Map off_dy, Map off_dx, Map mod,
+                  T* __restrict__ out, Geometry g, HaloTiling t) {
+  extern __shared__ __align__(16) unsigned char dl_smem[];
+  T* xs = reinterpret_cast<T*>(dl_smem);
+  float4* rec = reinterpret_cast<float4*>(dl_smem + t.x_bytes);  // [pixel][group][tap]
+  // the group chunks of a tile are neighbours in the grid, as in the maps kernel
+  const int chunks = g.G / t.gb, tile = blockIdx.x / chunks;
+  const int b = blockIdx.y, g0 = (blockIdx.x - tile * chunks) * t.gb;
+  const int y0 = (tile / t.tiles_x) * t.th, x0 = (tile % t.tiles_x) * t.tw;
+  const int KK = g.K * g.K;
+  const float r = static_cast<float>(g.r);
+
+  // 1. the map values of this thread's entries
+  const TileEntry en(g, t, b, g0, y0, x0);
+  float oy[kFwdItems], ox[kFwdItems], om[kFwdItems];
+  en.load(off_dy, off_dx, mod, oy, ox, om);
+  // 2. x over the halo
+  stage_x_halo<T, V>(xs, x, g, t, b, g0, y0, x0);
+  // 3. each entry's tap record
+  const int k = en.gl * KK + en.tap;
+#pragma unroll
+  for (int i = 0; i < kFwdItems; ++i) {
+    if (i >= en.items) continue;
+    const int ty = en.ty0 + i * t.dty;
+    const float dy = fminf(fmaxf(oy[i], -r), r) + en.tap_y;
+    const float dx = fminf(fmaxf(ox[i], -r), r) + en.tap_x;
+    const float fy = floorf(dy), fx = floorf(dx);
+    const float wy1 = dy - fy, wx1 = dx - fx;
+    const int row = ((ty + t.lim + static_cast<int>(fy)) * t.halo_w + en.tx + t.lim +
+                     static_cast<int>(fx)) * t.px_stride + en.gl * g.gc;
+    rec[((ty * t.tw + en.tx) * t.gb) * KK + k] =
+        make_float4(om[i] * (1.f - wy1), om[i] * wy1, wx1, __int_as_float(row));
+  }
+  stage_wait_all();
+  __syncthreads();
+
+  // the gather: one thread per (pixel, group, vector)
+  const int down = t.halo_w * t.px_stride, units = t.gb * g.chunks;
+  for (Walk3 e(threadIdx.x, blockDim.x, t.tw, units); e.a < t.th; e.next()) {
+    const int py = y0 + e.a, px = x0 + e.b;
+    if (py >= g.H || px >= g.W) continue;
+    const int gl = e.c / g.chunks;
+    const float4* rp = rec + ((e.a * t.tw + e.b) * t.gb + gl) * KK;
+    const T* xv = xs + (e.c - gl * g.chunks) * V;
+    float acc[V];
+#pragma unroll
+    for (int i = 0; i < V; ++i) acc[i] = 0.f;
+    for (int tap = 0; tap < KK; ++tap) {
+      const float4 w = rp[tap];
+      const float wx0 = 1.f - w.z;
+      const T* c00 = xv + __float_as_int(w.w);
+      axpy_vec<T, V>(acc, w.x * wx0, c00);
+      axpy_vec<T, V>(acc, w.x * w.z, c00 + t.px_stride);
+      axpy_vec<T, V>(acc, w.y * wx0, c00 + down);
+      axpy_vec<T, V>(acc, w.y * w.z, c00 + down + t.px_stride);
+    }
+    store_vec<T, V>(out + ((static_cast<int64_t>(b) * g.H + py) * g.W + px) * g.C +
+                        static_cast<int64_t>(g0) * g.gc + e.c * V,
+                    acc);
   }
 }
 
@@ -662,20 +762,28 @@ bool dx_tiling(const Geometry& g, int vec, int elem_bytes, DxTiling& t) {
   return false;
 }
 
-// The tile of the maps kernel for this geometry (see its note); false when
-// not even a 1 x 1 tile fits a block.
-bool maps_tiling(const Geometry& g, int elem_bytes, MapsTiling& t) {
+// The tile of the maps kernel (fwd = false) or of the forward (fwd = true)
+// for this geometry (see the maps kernel's note); false when not even a 1 x 1
+// tile fits a block. Both kernels run the same threads (TileEntry); beside
+// the halo of x, a tile pixel holds its g_out row (maps kernel) or its run of
+// 16-byte tap records (forward).
+bool halo_tiling(const Geometry& g, int elem_bytes, bool fwd, HaloTiling& t) {
   static const int kTiles[][2] = {{8, 8}, {4, 8}, {4, 4}, {2, 4}, {2, 2}, {1, 2}, {1, 1}};
   t.lim = (g.K - 1) / 2 + g.r;
   t.gb = 1;
   for (int d = 1; d <= g.G; ++d)
     if (g.G % d == 0 && d * g.gc * elem_bytes <= 128) t.gb = d;
   int row_bytes = (t.gb * g.gc * elem_bytes + 15) / 16 * 16;
-  if ((row_bytes / 16) % 2 == 0) row_bytes += 16;
+  // the maps kernel pads its rows to an odd number of 16-byte units (see its
+  // note); the forward's gather reads a row's units on consecutive lanes, so
+  // rows of 128 bytes put them on eight banks whatever the corner pixels
+  if (!fwd && (row_bytes / 16) % 2 == 0) row_bytes += 16;
   t.px_stride = row_bytes / elem_bytes;
-  const int run = t.gb * g.K * g.K;  // threads of a tile pixel
-  static const size_t kBudgets[] = {kMapsSmemBudget, kDxSmemMax};
-  for (size_t budget : kBudgets) {
+  const int run = t.gb * g.K * g.K;  // entries of a tile pixel
+  const size_t px_bytes = fwd ? static_cast<size_t>(run) * sizeof(float4) : row_bytes;
+  const size_t budgets[] = {fwd ? kFwdSmemBudget : kHaloSmemBudget, kDxSmemMax};
+  const int items = fwd ? kFwdItems : kMapsItems;
+  for (size_t budget : budgets) {
     for (const auto& tile : kTiles) {
       t.th = tile[0];
       t.tw = tile[1];
@@ -684,16 +792,16 @@ bool maps_tiling(const Geometry& g, int elem_bytes, MapsTiling& t) {
       t.dty = 1;
       for (int d = 1; d <= t.th; ++d)
         if (t.th % d == 0 && run * t.tw * d <= kMapsMaxThreads) t.dty = d;
-      if (t.th / t.dty > kMapsItems) continue;
+      if (t.th / t.dty > items) continue;
+      t.threads = run * t.tw * t.dty;
       t.halo_h = t.th + 2 * t.lim + 1;
       t.halo_w = t.tw + 2 * t.lim + 1;
       t.x_bytes = static_cast<size_t>(t.halo_h) * t.halo_w * row_bytes;
-      t.smem = t.x_bytes + static_cast<size_t>(t.th) * t.tw * row_bytes;
+      t.smem = t.x_bytes + static_cast<size_t>(t.th) * t.tw * px_bytes;
       if (t.smem > budget) continue;
       t.tiles_x = (g.W + t.tw - 1) / t.tw;
       t.tiles = t.tiles_x * ((g.H + t.th - 1) / t.th);
       if (static_cast<long long>(t.tiles) * (g.G / t.gb) >= (1LL << 31)) return false;
-      t.threads = run * t.tw * t.dty;
       return true;
     }
   }
@@ -702,22 +810,20 @@ bool maps_tiling(const Geometry& g, int elem_bytes, MapsTiling& t) {
 
 constexpr int kDoesNotFit = -1;
 
-// Threads per (pixel, group) for g.chunks units of work, and their total.
-void set_threads(Geometry& g) {
-  g.tpg = 1;
-  while (g.tpg * 2 <= g.chunks && g.tpg < 32) g.tpg *= 2;
-  g.total = static_cast<long long>(g.B) * g.H * g.W * g.G * g.tpg;
-}
-
-int blocks_for(long long total) {
-  return static_cast<int>((total + kThreads - 1) / kThreads);
-}
-
 template <typename T, int V>
 int launch_fwd(const void* x, Map dy, Map dx, Map m, void* out, const Geometry& g,
                cudaStream_t stream) {
-  dl_fwd_kernel<T, V><<<blocks_for(g.total), kThreads, 0, stream>>>(
-      static_cast<const T*>(x), dy, dx, m, static_cast<T*>(out), g);
+  HaloTiling t;
+  if (!halo_tiling(g, static_cast<int>(sizeof(T)), true, t) || g.G > 65535 || g.B > 65535)
+    return kDoesNotFit;
+  auto kernel = dl_fwd_kernel<T, V>;
+  if (t.smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(t.smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  kernel<<<dim3(t.tiles * (g.G / t.gb), g.B), t.threads, t.smem, stream>>>(
+      static_cast<const T*>(x), dy, dx, m, static_cast<T*>(out), g, t);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -726,9 +832,9 @@ int launch_bwd(const void* x, Map dy, Map dx, Map m, const void* gout, void* d_x
                MapOut d_dy, MapOut d_dx, MapOut d_m, const Geometry& g,
                cudaStream_t stream) {
   DxTiling t;
-  MapsTiling mt;
+  HaloTiling mt;
   if (!dx_tiling(g, V, static_cast<int>(sizeof(T)), t) ||
-      !maps_tiling(g, static_cast<int>(sizeof(T)), mt) || g.G > 65535 || g.B > 65535)
+      !halo_tiling(g, static_cast<int>(sizeof(T)), false, mt) || g.G > 65535 || g.B > 65535)
     return kDoesNotFit;
   auto x_kernel = dl_bwd_x_kernel<T, V>;
   if (t.smem > 48 * 1024) {
@@ -758,8 +864,7 @@ bool finish_geometry(Geometry& g, int vec, int elem_bytes) {
   g.gc = g.C / g.G;
   if (vec < 1 || g.gc % vec != 0 || vec * elem_bytes > 16) return false;
   g.chunks = g.gc / vec;
-  set_threads(g);
-  return (g.total + kThreads - 1) / kThreads < (1LL << 31);
+  return true;
 }
 
 }  // namespace
@@ -778,7 +883,7 @@ int deform_local_fwd(const void* x, const void* off_dy, const void* off_dx,
                      int m_dtype, int B, int H, int W, int C, int G, int K, int r,
                      long long xs_b, long long xs_h, long long xs_w, int vec,
                      void* stream) {
-  Geometry g{B, H, W, C, G, 0, K, r, xs_b, xs_h, xs_w, 0, 0, 0};
+  Geometry g{B, H, W, C, G, 0, K, r, xs_b, xs_h, xs_w, 0};
   if (!finish_geometry(g, vec, x_dtype == 0 ? 4 : 2)) return kDoesNotFit;
   const Map dy{off_dy, dy_dtype}, dx{off_dx, dx_dtype}, m{mod, m_dtype};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -801,7 +906,7 @@ int deform_local_bwd(const void* x, const void* off_dy, const void* off_dx,
                      int m_dtype, int B, int H, int W, int C, int G, int K, int r,
                      long long xs_b, long long xs_h, long long xs_w, int vec,
                      void* stream) {
-  Geometry g{B, H, W, C, G, 0, K, r, xs_b, xs_h, xs_w, 0, 0, 0};
+  Geometry g{B, H, W, C, G, 0, K, r, xs_b, xs_h, xs_w, 0};
   if (!finish_geometry(g, vec, x_dtype == 0 ? 4 : 2)) return kDoesNotFit;
   const Map dy{off_dy, dy_dtype}, dx{off_dx, dx_dtype}, m{mod, m_dtype};
   const MapOut ddy{d_off_dy, dy_dtype}, ddx{d_off_dx, dx_dtype}, dm{d_mod, m_dtype};

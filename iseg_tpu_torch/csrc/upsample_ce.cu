@@ -12,18 +12,22 @@
 //
 // What is not kept: the TPU kernel fed its matrix unit with dense
 // interpolation matrices and a class-major transpose, and accumulated dsrc
-// across its sequential grid. Here every output pixel forms its two-tap
-// weights in y and in x directly (clamped exactly like _interp_matrix), and
-// reads the four source pixels' C logits, contiguous in NHWC.
+// across its sequential grid. Here the interpolation is separable: each
+// output row's two source rows are mixed once into shared memory, and every
+// output pixel takes its two-tap mix in x from there (taps clamped exactly
+// like _interp_matrix), its C logits contiguous in NHWC.
 //
 // What bounds it on the H100: each call reads N*H*W int32 labels (16 MB at
 // 16x512x512) and the small src (1.4 MB, resident in L2), and does no
 // tensor-core work; the per-class exp/FMA work (about 4M pixels x 21
 // classes) is the larger cost, so the bound is operations.
 //
-// The forward: one thread per output pixel (neighbouring lanes share source
-// pixels, so the tap loads are broadcasts), block partials summed by a
-// second pass in a fixed order.
+// The forward is a row-premixed pass (fwd_kernel, see its note): a block
+// owns a band of output rows and a tile of output columns, mixes each row's
+// two source rows once, and computes each pixel's CE from its C logits in
+// registers (log2 units, ex2.approx.ftz, classes padded to a bucket, no
+// branch per class); block partials are summed by a second pass in a fixed
+// order.
 //
 // The backward is a band-tiled separable gather (bwd_kernel). A block owns
 // one image, a band of source rows and a tile of source columns; it walks
@@ -57,7 +61,6 @@
 
 namespace {
 
-constexpr int kFwdThreads = 256;
 constexpr int kReduceThreads = 1024;
 constexpr int kDoesNotFit = -1;
 
@@ -86,48 +89,6 @@ __device__ __forceinline__ void taps(int dst, float scale, int src_len, int& i0,
   i1 = min(max(l + 1, 0), src_len - 1);
 }
 
-// The four source pixels of an output pixel and their bilinear weights.
-template <typename T>
-struct Bilinear {
-  const T* p00;
-  const T* p01;
-  const T* p10;
-  const T* p11;
-  float w00, w01, w10, w11;
-
-  __device__ __forceinline__ Bilinear(const T* img, int w, int C, int y0, int y1,
-                                      float fy, int x0, int x1, float fx) {
-    p00 = img + (static_cast<int64_t>(y0) * w + x0) * C;
-    p01 = img + (static_cast<int64_t>(y0) * w + x1) * C;
-    p10 = img + (static_cast<int64_t>(y1) * w + x0) * C;
-    p11 = img + (static_cast<int64_t>(y1) * w + x1) * C;
-    w00 = (1.f - fy) * (1.f - fx);
-    w01 = (1.f - fy) * fx;
-    w10 = fy * (1.f - fx);
-    w11 = fy * fx;
-  }
-
-  __device__ __forceinline__ float at(int c) const {
-    return w00 * to_f(p00[c]) + w01 * to_f(p01[c]) + w10 * to_f(p10[c]) +
-           w11 * to_f(p11[c]);
-  }
-
-  // Online max / log-sum-exp over all classes.
-  __device__ __forceinline__ void max_sum(int C, float& m, float& s) const {
-    m = -INFINITY;
-    s = 0.f;
-    for (int c = 0; c < C; ++c) {
-      float v = at(c);
-      if (v > m) {
-        s = s * expf(m - v) + 1.f;
-        m = v;
-      } else {
-        s += expf(v - m);
-      }
-    }
-  }
-};
-
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
@@ -138,62 +99,6 @@ __device__ __forceinline__ double warp_sum(double v) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
   return v;
-}
-
-// One thread per output pixel; each block writes (sum ce, sum valid).
-template <typename T>
-__global__ void __launch_bounds__(kFwdThreads)
-    fwd_kernel(const T* __restrict__ src, const int32_t* __restrict__ labels,
-               float2* __restrict__ partials, int N, int h, int w, int C, int H,
-               int W, float sh, float sw, int ignore_label) {
-  const int64_t total = static_cast<int64_t>(N) * H * W;
-  const int64_t p = static_cast<int64_t>(blockIdx.x) * kFwdThreads + threadIdx.x;
-  float ce = 0.f, valid = 0.f;
-  if (p < total) {
-    const int label = labels[p];
-    if (label != ignore_label) {
-      const int x = static_cast<int>(p % W);
-      const int64_t t = p / W;
-      const int y = static_cast<int>(t % H);
-      const int n = static_cast<int>(t / H);
-      int y0, y1, x0, x1;
-      float fy, fx;
-      taps(y, sh, h, y0, y1, fy);
-      taps(x, sw, w, x0, x1, fx);
-      Bilinear<T> b(src + static_cast<int64_t>(n) * h * w * C, w, C, y0, y1, fy,
-                    x0, x1, fx);
-      float m = -INFINITY, s = 0.f, true_logit = 0.f;
-      for (int c = 0; c < C; ++c) {
-        float v = b.at(c);
-        if (c == label) true_logit = v;
-        if (v > m) {
-          s = s * expf(m - v) + 1.f;
-          m = v;
-        } else {
-          s += expf(v - m);
-        }
-      }
-      ce = logf(s) + m - true_logit;
-      valid = 1.f;
-    }
-  }
-  __shared__ float s_ce[kFwdThreads / 32];
-  __shared__ float s_valid[kFwdThreads / 32];
-  ce = warp_sum(ce);
-  valid = warp_sum(valid);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  if (lane == 0) {
-    s_ce[warp] = ce;
-    s_valid[warp] = valid;
-  }
-  __syncthreads();
-  if (warp == 0) {
-    ce = lane < kFwdThreads / 32 ? s_ce[lane] : 0.f;
-    valid = lane < kFwdThreads / 32 ? s_valid[lane] : 0.f;
-    ce = warp_sum(ce);
-    valid = warp_sum(valid);
-    if (lane == 0) partials[blockIdx.x] = make_float2(ce, valid);
-  }
 }
 
 // Second pass: one block sums the partials in a fixed order (fp64).
@@ -228,23 +133,6 @@ __global__ void __launch_bounds__(kReduceThreads)
   }
 }
 
-template <typename T>
-int launch_fwd(const void* src, const int32_t* labels, float2* partials, float* out,
-               int N, int h, int w, int C, int H, int W, int ignore_label,
-               cudaStream_t stream) {
-  const int64_t total = static_cast<int64_t>(N) * H * W;
-  const int blocks = static_cast<int>((total + kFwdThreads - 1) / kFwdThreads);
-  const float sh = static_cast<float>(h) / static_cast<float>(H);
-  const float sw = static_cast<float>(w) / static_cast<float>(W);
-  fwd_kernel<T><<<blocks, kFwdThreads, 0, stream>>>(
-      static_cast<const T*>(src), labels, partials, N, h, w, C, H, W, sh, sw,
-      ignore_label);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  reduce_kernel<<<1, kReduceThreads, 0, stream>>>(partials, blocks, out);
-  return static_cast<int>(cudaGetLastError());
-}
-
 // The backward, dsrc[n, i, j, c] = g * sum over output pixels (y, x) of
 //   Rh[y, i] * Rw[x, j] * (softmax_c(y, x) - [c == label]) * valid(y, x),
 // is separable: a block owns one image, a band of `band` source rows and a
@@ -272,8 +160,8 @@ constexpr int kBwdThreads = 256;
 constexpr int kMaxBand = 8;
 constexpr int kMaxRows = 16;
 // four blocks per SM: the SM's 228 KB less 1 KB reserved per block, quartered
-constexpr size_t kBwdSmemBudget = 57344;
-constexpr size_t kBwdSmemMax = 232448;  // one block, Hopper's per-block limit
+constexpr size_t kSmemBudget = 57344;
+constexpr size_t kSmemMax = 232448;  // one block, Hopper's per-block limit
 // logits are mixed in log2 units, e^(l - m) = 2^(l log2 e - m log2 e): the
 // scaling rounds each logit once more, which moves e^(l - m) by about
 // |l - m| 2^-24 relative
@@ -484,7 +372,7 @@ bool bwd_tiling(int N, int h, int w, int C, int W, int sms, BwdTiling& t) {
   const double per_col = static_cast<double>(W) / w;  // output columns per source column
   const int kx_cap = static_cast<int>(2 * per_col) + 3;
   const int tj_max = std::min(w, std::max(1, kBwdThreads / C));
-  static const size_t kBudgets[] = {kBwdSmemBudget, kBwdSmemMax};
+  static const size_t kBudgets[] = {kSmemBudget, kSmemMax};
   for (size_t budget : kBudgets) {
     double best = 0.0;
     for (int cap = tj_max; cap >= 1; --cap) {
@@ -548,6 +436,233 @@ int launch_bwd(const void* src, const int32_t* labels, const float* g, void* dsr
   return static_cast<int>(cudaGetLastError());
 }
 
+
+// The forward: a row-premixed pass (fwd_kernel). A block owns `band`
+// consecutive output rows of the batch (a band may run on into the next
+// image) and a tile of `tw` output columns (the whole row at the main paths'
+// W = 512). It walks its rows `rows` at a time:
+//   1. vertical mix: each row's two source rows, over the source columns the
+//      tile's taps touch, into vrow [rows][ncap][CB] in log2 units, the
+//      classes from C to the bucket CB padded with kNoClass (the backward's
+//      step 1);
+//   2. one thread per output pixel (consecutive threads on consecutive x, so
+//      the label loads coalesce) mixes its CB logits from vrow into
+//      registers, takes their max, then the sum of exp2_ftz(l - max) with
+//      no branch per class, and the true logit mixed again from vrow by the
+//      same operations (none for a label outside [0, C): its CE is the
+//      log-sum-exp; a padded class is never read), and adds
+//      lse - true logit in nats to its own sum.
+// Each block writes (sum ce, sum valid) of its pixels, summed in a fixed
+// order, to its partial; reduce_kernel sums the partials in fp64 in a fixed
+// order. No atomics: bitwise repeatable. The grid is about one wave of the
+// blocks that fit the SMs, and never more than kFwdMaxBlocks partials. What
+// bounds it: the SFU's exponentials (one a class and pixel) beside the
+// FMAs, maxima and adds of the same loop.
+constexpr int kFwdThreads = 256;
+constexpr int kFwdMaxRows = 8;
+constexpr int kFwdMaxBlocks = 4096;
+constexpr float kLn2 = 0.6931471805599453f;
+constexpr size_t kFwdSmemMax = kSmemMax - 1024;  // room for the static shared memory
+
+struct FwdTiling {
+  int band;     // output rows of the batch per block
+  int tw;       // output columns per block
+  int tiles_x;  // column tiles across W
+  int bands;    // row bands across N * H
+  int rows;     // output rows mixed per pass
+  int ncap;     // bound on the source columns a tile's taps touch
+  size_t smem;
+};
+
+template <typename T, int CB>
+__global__ void __launch_bounds__(kFwdThreads)
+    fwd_kernel(const T* __restrict__ src, const int32_t* __restrict__ labels,
+               float2* __restrict__ partials, int h, int w, int C, int H, int W, float sh,
+               float sw, int ignore_label, long long rows_total, FwdTiling t) {
+  extern __shared__ __align__(16) float uce_smem[];  // vrow [rows][ncap][CB]
+  const long long rb = static_cast<long long>(blockIdx.y) * t.band;
+  const long long re = min(rows_total, rb + t.band);
+  const int xb = blockIdx.x * t.tw, nx = min(W, xb + t.tw) - xb;
+  // the source columns the tile's taps touch: taps are non-decreasing in x
+  int c_lo, c_hi, unused;
+  float frac;
+  taps(xb, sw, w, c_lo, unused, frac);
+  taps(xb + nx - 1, sw, w, unused, c_hi, frac);
+  const int ncols = c_hi - c_lo + 1;  // <= t.ncap
+
+  float ce = 0.f, valid = 0.f;
+  for (long long r0 = rb; r0 < re; r0 += t.rows) {
+    const int rows = static_cast<int>(min(static_cast<long long>(t.rows), re - r0));
+    __syncthreads();  // the last pass is done with vrow
+    // 1. vertical mix, in log2 units, padded to the bucket
+    for (int r = 0; r < rows; ++r) {
+      const long long row = r0 + r;
+      const int n = static_cast<int>(row / H), y = static_cast<int>(row - static_cast<long long>(n) * H);
+      int a0, a1;
+      float fy;
+      taps(y, sh, h, a0, a1, fy);
+      const T* img = src + static_cast<int64_t>(n) * h * w * C;
+      const T* s0 = img + (static_cast<int64_t>(a0) * w + c_lo) * C;
+      const T* s1 = img + (static_cast<int64_t>(a1) * w + c_lo) * C;
+      float* v = uce_smem + r * t.ncap * CB;
+#pragma unroll 4
+      for (int e = threadIdx.x; e < ncols * CB; e += kFwdThreads) {
+        const int col = e / CB, c = e - col * CB;
+        v[e] = c < C ? ((1.f - fy) * to_f(s0[col * C + c]) + fy * to_f(s1[col * C + c])) * kLog2e
+                     : kNoClass;
+      }
+    }
+    __syncthreads();
+    // 2. one thread per output pixel
+    for (int r = 0; r < rows; ++r) {
+      const int32_t* lab = labels + (r0 + r) * W + xb;
+      const float* v = uce_smem + r * t.ncap * CB;
+      for (int xi = threadIdx.x; xi < nx; xi += kFwdThreads) {
+        const int label = lab[xi];
+        if (label == ignore_label) continue;
+        int x0, x1;
+        float fx;
+        taps(xb + xi, sw, w, x0, x1, fx);
+        const float4* v0 = reinterpret_cast<const float4*>(v + (x0 - c_lo) * CB);
+        const float4* v1 = reinterpret_cast<const float4*>(v + (x1 - c_lo) * CB);
+        float l[CB];
+        float m = -INFINITY;
+#pragma unroll
+        for (int q = 0; q < CB / 4; ++q) {
+          const float4 a = v0[q], b = v1[q];
+          l[4 * q] = (1.f - fx) * a.x + fx * b.x;
+          l[4 * q + 1] = (1.f - fx) * a.y + fx * b.y;
+          l[4 * q + 2] = (1.f - fx) * a.z + fx * b.z;
+          l[4 * q + 3] = (1.f - fx) * a.w + fx * b.w;
+        }
+#pragma unroll
+        for (int c = 0; c < CB; ++c) m = fmaxf(m, l[c]);
+        float s = 0.f;
+#pragma unroll
+        for (int c = 0; c < CB; ++c) s += exp2_ftz(l[c] - m);
+        // the true logit, mixed again from vrow by the same operations (a
+        // label outside [0, C) has none, and never reads a padded class)
+        const bool has_true = label >= 0 && label < C;
+        const float lt = has_true ? (1.f - fx) * v[(x0 - c_lo) * CB + label] +
+                                        fx * v[(x1 - c_lo) * CB + label]
+                                  : 0.f;
+        ce += (log2f(s) + m - lt) * kLn2;
+        valid += 1.f;
+      }
+    }
+  }
+  __shared__ float s_ce[kFwdThreads / 32];
+  __shared__ float s_valid[kFwdThreads / 32];
+  ce = warp_sum(ce);
+  valid = warp_sum(valid);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (lane == 0) {
+    s_ce[warp] = ce;
+    s_valid[warp] = valid;
+  }
+  __syncthreads();
+  if (warp == 0) {
+    ce = lane < kFwdThreads / 32 ? s_ce[lane] : 0.f;
+    valid = lane < kFwdThreads / 32 ? s_valid[lane] : 0.f;
+    ce = warp_sum(ce);
+    valid = warp_sum(valid);
+    if (lane == 0) partials[blockIdx.y * gridDim.x + blockIdx.x] = make_float2(ce, valid);
+  }
+}
+
+// The partials the forward writes for N * H * W output pixels, at most.
+long long fwd_partials(long long pixels) {
+  return std::max(1LL, std::min(pixels, static_cast<long long>(kFwdMaxBlocks)));
+}
+
+// The forward's tiling (see fwd_kernel), or false when one output row of a
+// one-column tile does not fit a block's shared memory. Column tiles of W
+// (up to 2048 columns), halved until a row's mix fits; then up to
+// kFwdMaxRows rows a pass; then bands of rows for about one wave of `slots`
+// blocks (the blocks that fit the SMs at once), within kFwdMaxBlocks.
+bool fwd_tiling(int N, int h, int w, int C, int H, int W, int slots, FwdTiling& t) {
+  const int cb = class_bucket(C);
+  const double per_col = static_cast<double>(w) / W;  // source columns per output column
+  static const size_t kBudgets[] = {kSmemBudget, kFwdSmemMax};
+  for (size_t budget : kBudgets) {
+    for (int tw = std::min(W, 2048);; tw = (tw + 1) / 2) {
+      const int ncap = std::min(w, static_cast<int>((tw - 1) * per_col) + 5);
+      const size_t per_row = static_cast<size_t>(ncap) * cb * 4;
+      if (per_row <= budget) {
+        t.tw = tw;
+        t.ncap = ncap;
+        t.tiles_x = (W + tw - 1) / tw;
+        if (t.tiles_x > kFwdMaxBlocks) return false;
+        const long long rows_total = static_cast<long long>(N) * H;
+        const long long want = std::max(1, slots / t.tiles_x);
+        long long band = (rows_total + want - 1) / want;
+        while ((rows_total + band - 1) / band * t.tiles_x > kFwdMaxBlocks) band *= 2;
+        t.band = static_cast<int>(std::min(band, rows_total));
+        t.bands = static_cast<int>((rows_total + t.band - 1) / t.band);
+        t.rows = static_cast<int>(std::min<size_t>(std::min(kFwdMaxRows, t.band), budget / per_row));
+        t.smem = t.rows * per_row;
+        return true;
+      }
+      if (tw == 1) break;
+    }
+  }
+  return false;
+}
+
+template <typename T, int CB>
+int launch_fwd_cb(const void* src, const int32_t* labels, float2* partials, float* out, int N,
+                  int h, int w, int C, int H, int W, int ignore_label, int sms,
+                  cudaStream_t stream) {
+  auto kernel = fwd_kernel<T, CB>;
+  // the dynamic shared memory a block may take (its static part, the
+  // reduction's 64 bytes, comes on top, past the default 48 KB), then the
+  // blocks of this kernel that fit an SM at the first tiling's shared memory
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(kFwdSmemMax));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  FwdTiling t;
+  if (!fwd_tiling(N, h, w, C, H, W, sms, t)) return kDoesNotFit;
+  int per_sm = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kFwdThreads, t.smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (!fwd_tiling(N, h, w, C, H, W, sms * std::max(per_sm, 1), t)) return kDoesNotFit;
+  const float sh = static_cast<float>(h) / static_cast<float>(H);
+  const float sw = static_cast<float>(w) / static_cast<float>(W);
+  const dim3 grid(t.tiles_x, t.bands);
+  kernel<<<grid, kFwdThreads, t.smem, stream>>>(static_cast<const T*>(src), labels, partials, h,
+                                                w, C, H, W, sh, sw, ignore_label,
+                                                static_cast<long long>(N) * H, t);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  reduce_kernel<<<1, kReduceThreads, 0, stream>>>(partials, t.tiles_x * t.bands, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_fwd(const void* src, const int32_t* labels, float2* partials, float* out, int N,
+               int h, int w, int C, int H, int W, int ignore_label, cudaStream_t stream) {
+  int device = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (C > 64) return kDoesNotFit;
+  switch (class_bucket(C)) {
+    case 16:
+      return launch_fwd_cb<T, 16>(src, labels, partials, out, N, h, w, C, H, W, ignore_label,
+                                  sms, stream);
+    case 24:
+      return launch_fwd_cb<T, 24>(src, labels, partials, out, N, h, w, C, H, W, ignore_label,
+                                  sms, stream);
+    case 32:
+      return launch_fwd_cb<T, 32>(src, labels, partials, out, N, h, w, C, H, W, ignore_label,
+                                  sms, stream);
+    default:
+      return launch_fwd_cb<T, 64>(src, labels, partials, out, N, h, w, C, H, W, ignore_label,
+                                  sms, stream);
+  }
+}
+
 }  // namespace
 
 // dtype codes: 0 = float32, 1 = bfloat16. Each function returns the
@@ -556,10 +671,11 @@ int launch_bwd(const void* src, const int32_t* labels, const float* g, void* dsr
 extern "C" {
 
 int upsample_ce_num_partials(long long pixels) {
-  return static_cast<int>((pixels + kFwdThreads - 1) / kFwdThreads);
+  return static_cast<int>(fwd_partials(pixels));
 }
 
-// out[0] = sum over valid pixels of CE, out[1] = number of valid pixels.
+// out[0] = sum over valid pixels of CE, out[1] = number of valid pixels;
+// -1 for more than 64 classes or a shape whose tiles do not fit.
 // partials: float2[upsample_ce_num_partials(N*H*W)] scratch.
 int upsample_ce_fwd(const void* src, int dtype, const void* labels, void* partials,
                     void* out, int N, int h, int w, int C, int H, int W,

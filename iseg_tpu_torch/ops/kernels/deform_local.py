@@ -21,13 +21,15 @@ them on the H100); on CPU tensors the plain PyTorch versions below, the
 displacement loops of ``_dense_local_flat_math`` and
 ``_dense_local_flat_bwd_math`` written out, compute the same function and
 the same gradients. A CUDA tensor never falls back to the plain version: a
-wrong device, dtype, shape or layout, or a failed launch, raises. Both
-backward kernels work from tiles in shared memory: the input gradient is a
-tiled gather that holds a tile's displacement weights, the map gradients
-take their corner dot products from x staged over a tile grown by the
-corners' reach. A reach ``(K - 1) / 2 + max_offset`` above 7, whose weights
-would not fit a block even for one pixel, raises too, and so do more than
-288 taps a group (K above 16) or a group too wide for a one-pixel tile of x.
+wrong device, dtype, shape or layout, or a failed launch, raises. All
+three kernels work from tiles in shared memory: the forward and the map
+gradients take their corner rows from x staged over a tile grown by the
+corners' reach (the forward forms each tap's corner and weights once, then
+sums the rows per pixel, group and channel vector), the input gradient is a
+tiled gather that holds a tile's displacement weights. A reach
+``(K - 1) / 2 + max_offset`` above 7, whose weights would not fit a block
+even for one pixel, raises too (in the backward), and so do more than 288
+taps a group (K above 16) or a group too wide for a one-pixel tile of x.
 
 The backward is hand-written on both devices (the saved tensors are the
 four inputs; the weights are recomputed) and follows the JAX VJP's

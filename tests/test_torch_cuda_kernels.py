@@ -182,6 +182,36 @@ def test_cuda_upsample_ce_band_tiled_backward_matches_plain_version(cuda_device,
         np.testing.assert_array_equal(k_grad, 0.0)
 
 
+# the row-premixed forward at the three paths' shapes: (n, h, classes) to
+# n x 512 x 512, with labels in [C, bucket) that are not ignored
+UCE_FWD_SHAPES = {"resnet": (16, 32, 21), "swin": (8, 128, 19), "intern": (8, 16, 19)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("path", sorted(UCE_FWD_SHAPES))
+def test_cuda_upsample_ce_row_premixed_forward_at_main_path_shapes(cuda_device, path, dtype):
+    """The forward's sums at the ResNet, Swin and InternImage shapes against
+    the plain sums (loss rtol 1e-5, the valid count exactly), with a row of
+    labels in [C, bucket): they have no true class, so their CE is the
+    log-sum-exp, not a padded logit's. One launch per call, and bitwise equal
+    to itself on a second call."""
+    n, h, c = UCE_FWD_SHAPES[path]
+    src, labels = _data(cuda_device, n, h, h, c, 512, 512, seed=5)
+    src = src.to(dtype)
+    bucket = next(b for b in (16, 24, 32, 64) if c <= b)
+    labels[:, 7] = torch.arange(512, device=cuda_device, dtype=torch.int32) % (bucket - c) + c
+    uce.reset_launch_counts()
+    with torch.no_grad():
+        got = uce._launch_fwd(src, labels, 255)
+        again = uce._launch_fwd(src, labels, 255)
+        want = uce.fused_sums_plain(src, labels, 255)
+    assert uce.LAUNCH_COUNTS == {"fwd": 2, "bwd": 0}
+    assert torch.equal(got, again)
+    np.testing.assert_allclose(float(got[0]), float(want[0]), rtol=1e-5)
+    assert float(got[1]) == float(want[1])
+
+
 @pytest.mark.cuda
 def test_cuda_upsample_ce_rejects_wrong_inputs(cuda_device):
     src, labels = _data(cuda_device, 2, 4, 4, 5, 16, 16)
@@ -590,6 +620,31 @@ def test_cuda_deform_local_dx_is_bitwise_repeatable_at_an_odd_side(cuda_device, 
     second = _dl_kernel(*args, 4, 3, 2)
     for a, b in zip(first, second):
         assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("types", ["f32", "autocast_ref_mix"])
+@pytest.mark.parametrize("stage", [*sorted(INTERN_T_STAGES), "odd_side_37x23", "map_5x3"])
+def test_cuda_deform_local_halo_forward_at_intern_t_stages(cuda_device, stage, types):
+    """The halo-tiled forward at InternImage-T's four stage geometries (two
+    images), at an odd side and at a map smaller than the 8 x 8 tile, in f32
+    and in the autocast mix on a transposed view, against the plain forward;
+    one launch per call, and bitwise equal to itself on a second call."""
+    side, groups = INTERN_T_STAGES.get(stage, (None, 8))
+    h, w = (side, side) if side else {"odd_side_37x23": (37, 23), "map_5x3": (5, 3)}[stage]
+    x_dtype, map_dtypes = DL_TYPES[types]
+    x, off_dy, off_dx, mod, _ = _dl_inputs(cuda_device, 2, h, w, groups, 16, 3, x_dtype,
+                                           map_dtypes, transposed=types != "f32")
+    dl.reset_launch_counts()
+    with torch.no_grad():
+        got = dl.deform_dense_local_flat(x, off_dy, off_dx, mod, groups, 3, 2)
+        again = dl.deform_dense_local_flat(x, off_dy, off_dx, mod, groups, 3, 2)
+        want = dl.deform_dense_local_flat_reference(x, off_dy, off_dx, mod, groups, 3, 2)
+    assert dl.LAUNCH_COUNTS == {"fwd": 2, "bwd": 0}
+    assert torch.equal(got, again)
+    assert got.dtype == want.dtype and got.is_contiguous()
+    tol = (2e-5 if got.dtype == torch.float32 else 1e-2) * max(1.0, float(want.abs().max()))
+    assert float((got.float() - want.float()).abs().max()) <= tol
 
 
 MAPS_SHAPES = {"13x21_g1": (2, 13, 21, 1, 16), "13x21_g4": (2, 13, 21, 4, 16),

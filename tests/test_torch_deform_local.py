@@ -373,19 +373,24 @@ def _halo_maps_emulation(x, off_dy, off_dx, mod, g_out, groups, k, r, th, tw, gb
     return outs
 
 
-def _maps_tiling(groups, gc, elem_bytes, k=3, r=2, budget=76800, max_threads=288, max_rows=8):
-    """``maps_tiling`` of the CUDA source: (th, tw, gb, threads, shared bytes)."""
+def _maps_tiling(groups, gc, elem_bytes, k=3, r=2, fwd=False, max_threads=288):
+    """``halo_tiling`` of the CUDA source, for the maps kernel (three blocks
+    a SM: 76,800 bytes of shared memory, at most 8 tile rows a thread) or
+    with ``fwd`` for the forward (four blocks a SM: 57,344 bytes, at most 4
+    rows a thread, unpadded rows, a 16-byte tap record per entry instead of
+    a g_out row): (th, tw, gb, threads, shared bytes)."""
+    budget, max_rows = (57344, 4) if fwd else (76800, 8)
     lim = (k - 1) // 2 + r
     gb = max([1] + [d for d in range(1, groups + 1)
                     if groups % d == 0 and d * gc * elem_bytes <= 128])
     row = -(-gb * gc * elem_bytes // 16) * 16
-    row += 16 if (row // 16) % 2 == 0 else 0
+    row += 16 if (row // 16) % 2 == 0 and not fwd else 0  # the forward's rows are unpadded
     run = gb * k * k
     for th, tw in ((8, 8), (4, 8), (4, 4), (2, 4), (2, 2), (1, 2), (1, 1)):
         if run * tw > max_threads:
             continue
         dty = max(d for d in range(1, th + 1) if th % d == 0 and run * tw * d <= max_threads)
-        smem = ((th + 2 * lim + 1) * (tw + 2 * lim + 1) + th * tw) * row
+        smem = (th + 2 * lim + 1) * (tw + 2 * lim + 1) * row + th * tw * (run * 16 if fwd else row)
         if smem <= budget and -(-th // dty) <= max_rows:
             return th, tw, gb, run * tw * dty, smem
     raise ValueError("does not fit")
@@ -423,3 +428,112 @@ def test_torch_maps_tiling_at_intern_t_stages():
     for groups in (4, 8, 16, 32):
         assert _maps_tiling(groups, 16, 2) == (8, 8, 4, 288, 41616)
         assert _maps_tiling(groups, 16, 4) == (8, 8, 2, 288, 41616)
+
+
+def _halo_fwd_emulation(x_flat, strides, shape, off_dy, off_dx, mod, groups, k, r, th, tw, gb):
+    """out as the CUDA kernel ``dl_fwd_kernel`` computes it, block by block,
+    with its index arithmetic: a block owns a th x tw tile of one image and
+    gb groups; it stages x, read from the flat buffer through its element
+    strides (b, h, w), over the tile grown by lim = half + r on every side and
+    one more row and column on the high side (zeros outside the map: an
+    unstaged element would be read as NaN here); every (pixel, group, tap)
+    entry of the tile gets its record once: m * wy0, m * wy1, wx1 and its
+    lower corner's halo row and column; then each (pixel, group) sums its
+    corner rows, taps in order and corners y-major, with w = (m * wy) * wx.
+    Every element of out is written once: NaN marks the unwritten."""
+    b_, h, w, c = shape
+    xs_b, xs_h, xs_w = strides
+    gc, kk, half = c // groups, k * k, (k - 1) // 2
+    lim = half + r
+    halo_h, halo_w = th + 2 * lim + 1, tw + 2 * lim + 1
+    run = gb * kk
+    f32 = np.float32
+    out = np.full(shape, np.nan, f32)
+    for b in range(b_):
+        for g0 in range(0, groups, gb):
+            for y0 in range(0, h, th):
+                for x0 in range(0, w, tw):
+                    xs = np.full((halo_h, halo_w, gb * gc), np.nan, f32)
+                    for hy in range(halo_h):
+                        for hx in range(halo_w):
+                            py, px = y0 - lim + hy, x0 - lim + hx
+                            if 0 <= py < h and 0 <= px < w:
+                                at = b * xs_b + py * xs_h + px * xs_w + g0 * gc
+                                xs[hy, hx] = x_flat[at:at + gb * gc]
+                            else:
+                                xs[hy, hx] = 0.0
+                    e = np.arange(th * tw * run)  # the tile's entries, pixel-major
+                    p, kr = np.divmod(e, run)
+                    ty, tx = np.divmod(p, tw)
+                    gl, tap = np.divmod(kr, kk)
+                    qy, qx = y0 + ty, x0 + tx
+                    live = (qy < h) & (qx < w)
+                    ty, tx, gl, tap, qy, qx, kr = (a[live] for a in (ty, tx, gl, tap, qy, qx, kr))
+                    oy, ox, m = (a[b, qy, qx, g0 * kk + kr] for a in (off_dy, off_dx, mod))
+                    dy = np.clip(oy, -r, r).astype(f32) + (tap // k - half).astype(f32)
+                    dx = np.clip(ox, -r, r).astype(f32) + (tap % k - half).astype(f32)
+                    fy, fx = np.floor(dy), np.floor(dx)
+                    wy1, wx1 = dy - fy, dx - fx
+                    rec_y = (m * (f32(1) - wy1), m * wy1)
+                    rec_x = (f32(1) - wx1, wx1)
+                    iy, ix = fy.astype(int) + ty + lim, fx.astype(int) + tx + lim
+                    assert iy.min() >= 0 and iy.max() + 1 < halo_h
+                    assert ix.min() >= 0 and ix.max() + 1 < halo_w
+                    chans = gl[:, None] * gc + np.arange(gc)
+                    for pix in np.unique(ty * tw + tx):
+                        for g in range(gb):
+                            mine = np.nonzero((ty * tw + tx == pix) & (gl == g))[0]
+                            assert list(tap[mine]) == list(range(kk))
+                            acc = np.zeros(gc, f32)
+                            for i in mine:  # taps in order
+                                for cy in range(2):
+                                    for cx in range(2):
+                                        wgt = rec_y[cy][i] * rec_x[cx][i]
+                                        acc = acc + wgt * xs[iy[i] + cy, ix[i] + cx, chans[i]]
+                            i = mine[0]
+                            at = (b, qy[i], qx[i], slice((g0 + g) * gc, (g0 + g + 1) * gc))
+                            assert np.isnan(out[at]).all(), "written twice"
+                            out[at] = acc
+    assert not np.isnan(out).any(), "an element of out was never written"
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_fwd_13x21(groups):
+    data = _inputs(1, 13, 21, groups, 64 // groups if groups < 16 else 4, 3, 2, seed=9 + groups)
+    run = jax.jit(lambda *a: jdeform.dense_local_flat(*a, groups, 3, 2))
+    return data, np.asarray(run(*data[:4]))
+
+
+@pytest.mark.parametrize("layout", ["contiguous", "transposed_view"])
+@pytest.mark.parametrize("tile", [(8, 8, "host"), (3, 5, 1), (4, 4, "all")],
+                         ids=["8x8_host_groups", "3x5_one_group", "4x4_all_groups"])
+@pytest.mark.parametrize("groups", [1, 4, 16])
+def test_torch_halo_forward_algorithm_matches_jax(groups, tile, layout):
+    """The halo-tiled forward of the CUDA kernel, on a 13 x 21 map (no
+    multiple of any tile), with offsets at 0, at +-r (a total displacement
+    of exactly half + r, whose +1 corner lies on the halo's extra row and
+    column), at integers and beyond r, x read through the strides of a
+    contiguous array or of a spatial transpose view: equal to the JAX
+    package's dense_local_flat within 1e-5."""
+    th, tw, gb = tile
+    (x, off_dy, off_dx, mod, _), want = _jax_fwd_13x21(groups)
+    b, h, w, c = x.shape
+    gb = {"host": _maps_tiling(groups, c // groups, 4, fwd=True)[2], "all": groups}.get(gb, gb)
+    if layout == "contiguous":
+        flat, strides = x.ravel(), (h * w * c, w * c, c)
+    else:  # the [B, W, H, C] buffer of which x is the transpose view
+        flat, strides = np.ascontiguousarray(x.transpose(0, 2, 1, 3)).ravel(), (h * w * c, c, h * c)
+    got = _halo_fwd_emulation(flat, strides, x.shape, off_dy, off_dx, mod, groups, 3, 2,
+                              th, tw, gb)
+    np.testing.assert_allclose(got, want, atol=ATOL, rtol=0)
+
+
+def test_torch_forward_tiling_at_intern_t_stages():
+    """The forward's tile at InternImage-T's four stages (16 channels a
+    group): 4 x 8 pixels of 4 bf16 groups (39,552 bytes of shared memory) or
+    8 x 8 pixels of 2 fp32 groups (47,232 bytes), 288 threads of at most 4
+    map entries each: four blocks per SM, as its launch bound asks."""
+    for groups in (4, 8, 16, 32):
+        assert _maps_tiling(groups, 16, 2, fwd=True) == (4, 8, 4, 288, 39552)
+        assert _maps_tiling(groups, 16, 4, fwd=True) == (8, 8, 2, 288, 47232)

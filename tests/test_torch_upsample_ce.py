@@ -362,3 +362,153 @@ def test_torch_bwd_tiling_at_the_main_path_shapes():
         assert (band, tj) == (band_want, tj_want)
         assert tj * c <= BWD_THREADS and tiles_x * tj >= h and rows >= 1
         assert nx_cap >= (tj + 1) * (512 // h) and kx_cap >= 2 * (512 // h)
+
+
+# ------------------------------------------------ the CUDA forward's algorithm
+#
+# The CUDA forward (``fwd_kernel`` of ``csrc/upsample_ce.cu``) is a
+# row-premixed pass that cannot run here. The numpy emulation below follows
+# it block by block (bands of rows of the whole batch, column tiles, passes
+# of rows, the log2-unit vertical mix padded to the class bucket) and is held
+# against the JAX package's fused loss (its Pallas kernel in interpret mode)
+# at LOSS_RTOL, 1e-5.
+
+FWD_THREADS, FWD_MAX_ROWS, FWD_MAX_BLOCKS = 256, 8, 4096
+FWD_SMEM_MAX = BWD_SMEM_MAX - 1024
+NO_CLASS = F32(-1e30)
+LN2 = F32(0.6931471805599453)
+
+
+def _fwd_tiling(n, h, w, c, big_h, big_w, slots):
+    """``fwd_tiling`` of the CUDA source: (band, tw, tiles_x, bands, rows,
+    ncap, shared bytes) for ``slots`` blocks at once on the card."""
+    cb = next(b for b in (16, 24, 32, 64) if c <= b)
+    per_col = w / big_w
+    for budget in (BWD_SMEM_BUDGET, FWD_SMEM_MAX):
+        tw = min(big_w, 2048)
+        while True:
+            ncap = min(w, int((tw - 1) * per_col) + 5)
+            per_row = ncap * cb * 4
+            if per_row <= budget:
+                tiles_x = -(-big_w // tw)
+                rows_total = n * big_h
+                want = max(1, slots // tiles_x)
+                band = -(-rows_total // want)
+                while -(-rows_total // band) * tiles_x > FWD_MAX_BLOCKS:
+                    band *= 2
+                band = min(band, rows_total)
+                rows = min(FWD_MAX_ROWS, band, budget // per_row)
+                return band, tw, tiles_x, -(-rows_total // band), rows, ncap, rows * per_row
+            if tw == 1:
+                break
+            tw = (tw + 1) // 2
+    raise ValueError("does not fit")
+
+
+def _row_premixed_fwd_emulation(src, labels, ignore_label, band, tw, rows, ncap):
+    """(sum of CE over valid pixels, valid count) as ``fwd_kernel`` and
+    ``reduce_kernel`` compute them: per block (a band of rows of the N * H
+    rows of the batch, a tile of output columns) the source columns the
+    tile's taps touch; per pass of ``rows`` rows each row's two source rows
+    mixed in log2 units into vrow, the classes from C to the bucket padded
+    with -1e30; per pixel the two-tap mix in x, its max, the sum of
+    exp2(l - max) over the bucket, the true logit mixed again from vrow
+    only for a label in [0, C), CE = (log2 s + max - true) ln 2; fp32 block partials, summed in
+    float64."""
+    n_, h, w, c = src.shape
+    big_h, big_w = labels.shape[1:]
+    cb = next(b for b in (16, 24, 32, 64) if c <= b)
+    sh, sw = F32(h) / F32(big_h), F32(w) / F32(big_w)
+    rows_total = n_ * big_h
+    partials = []
+    for rb in range(0, rows_total, band):
+        for xb in range(0, big_w, tw):
+            nx = min(big_w, xb + tw) - xb
+            c_lo, c_hi = _taps(xb, sw, w)[0], _taps(xb + nx - 1, sw, w)[1]
+            assert c_hi - c_lo + 1 <= ncap, (c_hi - c_lo + 1, ncap)
+            ce, valid = F32(0), F32(0)
+            for r0 in range(rb, min(rows_total, rb + band), rows):
+                for row in range(r0, min(r0 + rows, rb + band, rows_total)):
+                    n, y = divmod(row, big_h)
+                    a0, a1, fy = _taps(y, sh, h)
+                    vrow = np.full((c_hi - c_lo + 1, cb), NO_CLASS, F32)
+                    cols = slice(c_lo, c_hi + 1)
+                    vrow[:, :c] = ((F32(1) - fy) * src[n, a0, cols] + fy * src[n, a1, cols]) * LOG2E
+                    for xi in range(nx):
+                        label = labels[n, y, xb + xi]
+                        if label == ignore_label:
+                            continue
+                        x0, x1, fx = _taps(xb + xi, sw, w)
+                        lg = (F32(1) - fx) * vrow[x0 - c_lo] + fx * vrow[x1 - c_lo]
+                        m = lg.max()
+                        s = np.exp2(lg - m).sum(dtype=F32)
+                        true = ((F32(1) - fx) * vrow[x0 - c_lo, label] + fx * vrow[x1 - c_lo, label]
+                                if 0 <= label < c else F32(0))
+                        ce = ce + (np.log2(s) + m - true) * LN2
+                        valid = valid + F32(1)
+            partials.append((ce, valid))
+    assert len(partials) <= FWD_MAX_BLOCKS
+    return sum(float(p[0]) for p in partials), sum(float(p[1]) for p in partials)
+
+
+FWD_CASES = {
+    # (n, h, w, C, H, W, ignore_label, what else)
+    "scale4_c21": (2, 5, 6, 21, 20, 24, 255, None),
+    "scale16_c19_labels_in_bucket": (1, 3, 4, 19, 48, 64, 255, "bucket"),
+    "c5_bucket16_labels_in_bucket": (2, 4, 4, 5, 16, 16, 255, "bucket"),
+    "c33_bucket64": (1, 3, 3, 33, 12, 12, 255, "bucket"),
+    "non_integer_7x9_to_50x70": (1, 7, 9, 3, 50, 70, 255, None),
+    "downsample_16x16_to_10": (1, 16, 16, 7, 10, 10, 255, None),
+    "ignore_label_0_labels_beyond_c": (1, 4, 4, 5, 16, 16, 0, "beyond"),
+    "all_ignored": (1, 3, 4, 6, 12, 16, 255, "all_ignored"),
+}
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_fwd_case(case):
+    n, h, w, c, big_h, big_w, ignore_label, what = FWD_CASES[case]
+    src, labels = _data(n=n, h=h, w=w, c=c, hh=big_h, ww=big_w, seed=11,
+                        ignore_label=ignore_label)
+    bucket = next(b for b in (16, 24, 32, 64) if c <= b)
+    if what == "bucket":  # labels in [C, bucket), not ignored: no true class
+        labels[:, 1] = c + np.arange(big_w) % (bucket - c)
+    if what == "beyond":
+        labels[:, :3] = c + 2
+    if what == "all_ignored":
+        labels[:] = ignore_label
+    want, _ = _jax_loss_and_grad(jax_uce.upsample_cross_entropy, src, labels,
+                                 ignore_label=ignore_label, interpret=True)
+    return src, labels, want
+
+
+@pytest.mark.parametrize("tiling", ["host", "ragged"])
+@pytest.mark.parametrize("case", sorted(FWD_CASES))
+def test_torch_row_premixed_fwd_algorithm_matches_jax_loss(case, tiling):
+    """The row-premixed forward of the CUDA loss, emulated, against the JAX
+    package's fused loss: with the tiling the CUDA host code picks for the
+    shape on an H100 (132 SMs, 4 blocks each), and with small bands, column
+    tiles and passes that leave every last one ragged and run bands on
+    across images."""
+    n, h, w, c, big_h, big_w, ignore_label, what = FWD_CASES[case]
+    src, labels, want = _jax_fwd_case(case)
+    band, tw, _, _, rows, ncap, _ = _fwd_tiling(n, h, w, c, big_h, big_w, 132 * 4)
+    if tiling == "ragged":
+        band, tw, rows = 7, 5, 3
+        ncap = min(w, int((tw - 1) * (w / big_w)) + 5)
+    ce, valid = _row_premixed_fwd_emulation(src, labels, ignore_label, band, tw, rows, ncap)
+    assert valid == float((labels != ignore_label).sum())
+    np.testing.assert_allclose(ce / max(valid, 1.0), want, rtol=LOSS_RTOL)
+    if what == "all_ignored":
+        assert (ce, valid) == (0.0, 0.0)
+
+
+def test_torch_fwd_tiling_at_the_main_path_shapes():
+    """The forward's tiling at the three paths' shapes on an H100 (132 SMs;
+    four blocks each of the 24-class kernel's 58 registers and 256 threads):
+    whole 512-column rows, one wave of 512 blocks, each mixing whole passes
+    of rows into at most 48 KB."""
+    want = {(16, 32, 21): (16, 32, 8), (8, 128, 19): (8, 128, 4), (8, 16, 19): (8, 16, 8)}
+    for (n, h, c), (band_want, ncap_want, rows_want) in want.items():
+        band, tw, tiles_x, bands, rows, ncap, smem = _fwd_tiling(n, h, h, c, 512, 512, 132 * 4)
+        assert (band, ncap, rows) == (band_want, ncap_want, rows_want)
+        assert (tw, tiles_x, bands) == (512, 1, 512) and smem <= 49152
