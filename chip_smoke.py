@@ -22,7 +22,8 @@ batch each:
 all under bf16 autocast with fp32 params, SGD (momentum 0.9, poly decay),
 the loss taken by the fused upsample + CE CUDA kernels, Swin's window
 attention by the window-attention CUDA kernels and DCNv3's sampling by the
-dense-local CUDA kernels. The fourth serves a language model:
+dense-local CUDA kernels; Swin also trains in fp32 (phase 6b), its window
+attention then on the split-TF32 kernels. The fourth serves a language model:
 
 * Gemma: ``gemma_2b_en`` at its full width and depth (18 layers, hidden
   2048, 8 heads over 1 KV head, head dim 256, FFN 16384, vocabulary 256000;
@@ -55,9 +56,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``library_ms`` stays null), and fused against unfused printed at each
    shape; window attention forward and backward at Swin-L's four stage
    shapes, shifted and unshifted, f32 and bf16 (bf16 forward and backward on
-   the tensor cores, f32 on the CUDA cores; the route of each is checked),
-   and in bf16 at window 12 (N = 144: ``swin_large_384``'s four stage shapes
-   at the same input); dense-local sampling forward and all four
+   the tensor cores, f32 on the tensor cores in split TF32; the route of each
+   is checked), and at window 12 (N = 144: ``swin_large_384``'s four stage
+   shapes at the same input; there the f32 backward takes the CUDA cores),
+   and the f32 forward at window 12 with 64-wide heads, which takes the
+   CUDA-core forward (its split-TF32 tiles do not fit; bound at the
+   split-TF32 rate, as every f32 row); dense-local sampling forward and all four
    gradients at InternImage-T's four stage shapes, in f32 and in the
    autocast type mix (bf16 values on a transposed view, fp32 offsets, bf16
    modulation), with offsets drawn beyond the clamp, and the backward's
@@ -78,6 +82,13 @@ Phases, in order; any failure raises and the script exits non-zero:
    24 tensor-core window-attention forward and 24 tensor-core backward
    launches (none of the CUDA-core kernels: autocast gives bf16 q, k, v) and
    1 + 1 loss kernel launches; ms/step, img/s, peak memory;
+6b. Swin train in fp32: the same model, batch and data with
+   ``compute_dtype=torch.float32`` (no autocast, fp32 parameters, TF32 off),
+   2 warm-up + 3 timed steps; losses finite; in every step exactly 24
+   split-TF32 window-attention forward and 24 backward launches (none of
+   the CUDA-core or bf16 kernels) and 1 + 1 loss kernel launches; the first
+   step's loss within rtol 1e-4 of the same model, weights and drop-path
+   draws on the plain window attention; ms/step, img/s, peak memory;
 7. Swin serve, batch 2, trained weights: eval logits with the kernels agree
    with the same model run on the kernels' plain versions; multi-scale
    (0.75, 1.0) + flip + sliding window (384x384 crops) gives finite fp32
@@ -116,7 +127,9 @@ git-ignored ``_checkout/v1``). It runs OLD, this tree, this tree, OLD, each
 in a process of its own with that tree's ``iseg_tpu_torch`` and this file's
 code, so one timer serves both: the bf16 window-attention forward (both
 timers) and backward at Swin-L's four stage shapes (shifted) with SDPA's
-beside them, the dense-local forward and backward at InternImage-T's four
+beside them, the fp32 forward and backward there (profiler device time:
+the split-TF32 kernels in this tree, the CUDA-core ones in a tree from
+before them) with SDPA's, the dense-local forward and backward at InternImage-T's four
 stage shapes in the autocast type mix (all three timers) and the backward's
 map-gradient kernel alone (profiler), the fused loss forward and backward
 at the three paths' shapes (all three timers, and the forward's two kernels
@@ -125,12 +138,14 @@ backward beside them, the cache gather at Gemma-2B's four active-cache
 shapes with ``index_select`` beside it, and the ResNet, Swin and InternImage
 train steps (2 warm-up + 3 or 5 timed steps each, then 3 profiled: the
 step's device time and its loss kernels', the loss forward's,
-window-attention and dense-local kernels', the dense-local forward's too).
+window-attention and dense-local kernels', the dense-local forward's too),
+and the fp32 Swin train step (2 + 3, then 3 profiled: its device time and
+its window-attention kernels' time and share).
 The last line holds each number of the four processes, OLD's two and this
 tree's two.
 
-The launch counters are set to 0 just before each main path (3, 6, 7, 8, 9,
-and each request of 10) and read just after; a kernel of a path that was
+The launch counters are set to 0 just before each main path (3, 6, 6b, 7, 8,
+9, and each request of 10) and read just after; a kernel of a path that was
 launched no time there fails the run. Third line from the end: a JSON object with one entry per kernel;
 then the card's name and power limit; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -169,7 +184,7 @@ from iseg_tpu_torch.nlp.gemma import causal_lm as gemma_causal_lm
 from iseg_tpu_torch.nlp.gemma import sp_model
 from iseg_tpu_torch.nlp.gemma.tokenizer import GemmaCausalLMPreprocessor, GemmaTokenizer
 from iseg_tpu_torch.nn import dcn as dcn_module
-from iseg_tpu_torch.nn.blocks import Dropout, set_dropout_generator
+from iseg_tpu_torch.nn.blocks import Dropout, DropPath, set_dropout_generator
 from iseg_tpu_torch.nn.heads import ASPP, SemanticFPN
 from iseg_tpu_torch.ops.kernels import _build
 from iseg_tpu_torch.ops.kernels import cache_gather as cg
@@ -185,6 +200,7 @@ R_WARMUP, R_TIMED, R_UNFUSED_TIMED = 2, 3, 2
 # Swin path
 S_BATCH, S_CLASSES, S_OS = 8, 19, 4
 S_WARMUP, S_TIMED, S_SERVE_BATCH = 2, 5, 2
+S_F32_TIMED = 3  # the fp32 train phase (6b)
 WINDOW, HEAD_DIM = 7, 32
 # Swin-L at 512x512, batch 8: (stage, window batch, heads, windows per image, blocks)
 WA_STAGES = (("stage0", 2888, 6, 361, 2), ("stage1", 800, 12, 100, 2),
@@ -194,6 +210,11 @@ WA_LAUNCHES_PER_FORWARD = sum(s[4] for s in WA_STAGES)  # 24
 # padded to 132/72/36/24; (stage, window batch, heads, windows per image)
 WA12_STAGES = (("stage0", 968, 6, 121), ("stage1", 288, 12, 36), ("stage2", 72, 24, 9),
                ("stage3", 32, 48, 4))
+# fp32 at window 12 with 64-wide heads (Swin-L stage 2's width, 12 heads):
+# the split-TF32 forward's tiles do not fit there, so it runs on the CUDA
+# cores (off every main path); (stage, window batch, heads, windows per
+# image, head dim)
+WA_CUDA_CORE_FWD = ("stage2", 72, 12, 9, 64)
 # InternImage path
 I_BATCH, I_CLASSES, I_OS = 8, 19, 32
 I_WARMUP, I_TIMED, I_SERVE_BATCH = 2, 5, 2
@@ -218,6 +239,9 @@ CG_ODD_SHAPE = ("odd slab of 35 floats x 1031", (G_BATCH, 4, 1031, 5, 7), torch.
 # FLOP/s for fp32 inputs (outside the tensor cores) and bf16 inputs
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
+# fp32 products on the tensor cores in split TF32: three TF32 products (dense
+# TF32 at 495 TFLOP/s) for each fp32 one
+SPLIT_TF32_FLOPS = 495e12 / 3
 
 # upsample + CE kernel vs plain: fp32 loss rtol 1e-5; dsrc max error within
 # 1e-4 (f32) or 1e-2 (bf16: the kernel's gradient is rounded to bf16) of max |dsrc|
@@ -243,6 +267,10 @@ FUSED_UNFUSED_RTOL = 1e-4
 # shapes): bf16 keeps 8 bits, relative to max |logit|
 SERVE_RTOL = 1e-2
 KERNEL_VS_PLAIN_MODEL_RTOL = 2e-2  # 24 blocks of bf16 attention outputs rounded apart
+# fp32 Swin first-step loss, split-TF32 kernels vs the plain window attention:
+# both fp32 (TF32 off elsewhere), apart by the kernels' products (about 2^-21
+# of each, 1e-6 of the outputs) and summation order, through 24 blocks
+F32_KERNEL_VS_PLAIN_RTOL = 1e-4
 # Segmented against monolithic KV cache, the same tokens fed to both, bf16:
 # the attention logits are the same products, but the segmented path sums
 # its values per segment in fp32 and rounds once, the monolithic path takes
@@ -426,11 +454,13 @@ def held_events_ms(fn, reps: int, make) -> float:
         hold_ms = min(2000.0, max(2.0 * hold_ms, 2.0 * queued_ms))
 
 
-def bound_ms(bytes_moved: float, flops: float, dtype: torch.dtype) -> tuple[float, str]:
+def bound_ms(bytes_moved: float, flops: float, dtype: torch.dtype,
+             peak_flops: float | None = None) -> tuple[float, str]:
     """The least time the card could take: the larger of bytes over the HBM
-    rate and operations over the peak rate for the inputs' type."""
+    rate and operations over the peak rate for the inputs' type (or
+    ``peak_flops``)."""
     by_bytes = 1e3 * bytes_moved / HBM_BYTES_PER_S
-    by_ops = 1e3 * flops / PEAK_FLOPS[dtype]
+    by_ops = 1e3 * flops / (peak_flops or PEAK_FLOPS[dtype])
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
@@ -599,20 +629,23 @@ def wa_bound(q, bias, mask, backward: bool) -> tuple[float, str]:
     """Bytes: q, k, v, bias and mask read once and out written once; the
     backward also reads do and writes dq, dk, dv and dbias. Operations: two
     N x N x D products forward; five backward (the logits again, dv, dp, dq,
-    dk), 2 N^2 D each per (window, head)."""
+    dk), 2 N^2 D each per (window, head), at the bf16 tensor rate for bf16
+    and at the split-TF32 rate for fp32 (the least time an fp32-accurate
+    product takes on the card, whichever kernel runs)."""
     bnw, h, n, d = q.shape
     tensors = 7 if backward else 4
     nbytes = tensors * q.numel() * q.element_size() + 4 * (bias.numel() + mask.numel())
     nbytes += 4 * bias.numel() if backward else 0
     flops = (5 if backward else 2) * 2 * n * n * d * bnw * h
-    return bound_ms(nbytes, flops, q.dtype)
+    return bound_ms(nbytes, flops, q.dtype,
+                    SPLIT_TF32_FLOPS if q.dtype == torch.float32 else None)
 
 
-def wa_inputs(device, bnw, heads, nw, shifted, dtype, seed=0, window=WINDOW):
+def wa_inputs(device, bnw, heads, nw, shifted, dtype, seed=0, window=WINDOW, d=HEAD_DIM):
     """q, k, v, dout, bias, mask in the layouts the Swin block gives: q, k, v
     are views of the packed qkv projection, the incoming gradient is
     token-major."""
-    n, d = window * window, HEAD_DIM
+    n = window * window
     gen = torch.Generator(device=device).manual_seed(seed)
     qkv = torch.randn((bnw, n, 3, heads, d), generator=gen, device=device).to(dtype)
     q, k, v = (t.permute(0, 2, 1, 3) for t in qkv.unbind(2))
@@ -651,18 +684,34 @@ def wa_backward_ms(fn, q, k, v, dout, bias, mask, scale, timer=cuda_median_ms, *
     return timer(run_grad, setup=setup, **reps)
 
 
+def swin_routes(dtype: torch.dtype, n: int) -> tuple[str, str]:
+    """The (forward, backward) routes a Swin shape (D = 32) must take: bf16
+    on the tensor cores; fp32 on the tensor cores in split TF32, but for the
+    backward at window 12, whose fp32 tiles do not fit (CUDA cores)."""
+    if dtype == torch.bfloat16:
+        return "mma", "mma"
+    return "tf32x3", "tf32x3" if n <= wa.TF32X3_BWD_MAX_N else "cuda_core"
+
+
+def route_counts(fwd_route: str, bwd_route: str) -> dict[str, int]:
+    """``wa.LAUNCH_COUNTS`` after one forward and one backward on these routes."""
+    counts = dict.fromkeys(wa.LAUNCH_COUNTS, 0)
+    for which, route in (("fwd", fwd_route), ("bwd", bwd_route)):
+        counts[which if route == "cuda_core" else f"{which}_{route}"] = 1
+    return counts
+
+
 def check_window_attention(device, stage, bnw, heads, nw, shifted, dtype, seed=0,
                            window=WINDOW) -> dict:
     q, k, v, dout, bias, mask = wa_inputs(device, bnw, heads, nw, shifted, dtype, seed, window)
     n, d = q.shape[2:]
     scale = 1.0 / math.sqrt(d)
     fwd_route, route = wa.forward_route(dtype, n, d), wa.backward_route(dtype, n, d)
-    want_route = "mma" if dtype == torch.bfloat16 else "cuda_core"
     name = (f"{stage} bnw={bnw} H={heads} N={n} D={d} nW={mask.shape[0]} {dtype_name(dtype)} "
             f"fwd:{fwd_route} bwd:{route}")
-    if (fwd_route, route) != (want_route, want_route):
+    if (fwd_route, route) != swin_routes(dtype, n):
         raise AssertionError(f"[{name}] a Swin shape in {dtype_name(dtype)} must take the "
-                             f"{want_route} routes")
+                             f"routes {swin_routes(dtype, n)}")
 
     def run(fn):
         qq, kk, vv, bb = wa_leaves(q, k, v, bias)
@@ -672,8 +721,7 @@ def check_window_attention(device, stage, bnw, heads, nw, shifted, dtype, seed=0
 
     wa.reset_launch_counts()
     got = run(wa.window_attention)
-    want_counts = {"fwd": int(fwd_route == "cuda_core"), "fwd_mma": int(fwd_route == "mma"),
-                   "bwd": int(route == "cuda_core"), "bwd_mma": int(route == "mma")}
+    want_counts = route_counts(fwd_route, route)
     if wa.LAUNCH_COUNTS != want_counts:
         raise AssertionError(f"[{name}] launches {wa.LAUNCH_COUNTS}, expected {want_counts}")
     want = run(wa.window_attention_reference)
@@ -726,6 +774,47 @@ def check_window_attention(device, stage, bnw, heads, nw, shifted, dtype, seed=0
                     plain_ms=bwd_plain, bound_ms=bwd_bound, bound_by=bwd_by, library_ms=bwd_lib,
                     library_device_ms=bwd_lib_dev),
     }
+
+
+def check_cuda_core_forward(device, stage, bnw, heads, nw, d, seed=0) -> dict:
+    """The CUDA-core forward (fp32 at window 12, head dim ``d``, shifted)
+    against its plain version, with its times; forward only."""
+    dtype = torch.float32
+    q, k, v, _, bias, mask = wa_inputs(device, bnw, heads, nw, True, dtype, seed, 12, d)
+    n = q.shape[2]
+    scale = 1.0 / math.sqrt(d)
+    route = wa.forward_route(dtype, n, d)
+    name = f"{stage} bnw={bnw} H={heads} N={n} D={d} nW={mask.shape[0]} f32 fwd:{route}"
+    if route != "cuda_core":
+        raise AssertionError(f"[{name}] must take the CUDA-core forward")
+    wa.reset_launch_counts()
+    with torch.no_grad():
+        got = wa.window_attention(q, k, v, bias, mask, scale)
+        if wa.LAUNCH_COUNTS != {**dict.fromkeys(wa.LAUNCH_COUNTS, 0), "fwd": 1}:
+            raise AssertionError(f"[{name}] launches {wa.LAUNCH_COUNTS}, expected one of fwd")
+        want = wa.window_attention_reference(q, k, v, bias, mask, scale)
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"[{name}] kernel out is not finite")
+    err = float((got - want).abs().max())
+    tol = WA_TOL[dtype]["out"] * max(1.0, float(want.abs().max()))
+    if not err <= tol:
+        raise AssertionError(f"[{name}] kernel out disagrees with the plain version: max abs "
+                             f"err {err:.3e} > {tol:.3e}")
+    del got, want
+    full_bias = (bias[None] + mask[torch.arange(bnw, device=device) % nw][:, None]).contiguous()
+    reps = dict(reps=10, warmup=2)
+    with torch.no_grad():
+        ms = cuda_median_ms(lambda _: wa.window_attention(q, k, v, bias, mask, scale), **reps)
+        dev = device_ms(lambda _: wa.window_attention(q, k, v, bias, mask, scale), **reps)
+        plain = cuda_median_ms(
+            lambda _: wa.window_attention_reference(q, k, v, bias, mask, scale), **reps)
+        lib = cuda_median_ms(lambda _: sdpa(q, k, v, full_bias, None, scale), **reps)
+        lib_dev = device_ms(lambda _: sdpa(q, k, v, full_bias, None, scale), **reps)
+    bound, by = wa_bound(q, bias, mask, backward=False)
+    log(f"  [{name}] max abs err out {err:.2e}; ms fwd kernel {ms:.4f} (device {dev:.4f}) plain "
+        f"{plain:.4f} sdpa {lib:.4f} (device {lib_dev:.4f}) bound {bound:.4f} ({by})")
+    return dict(shape=name, route=route, max_abs_err=err, ms=ms, device_ms=dev, plain_ms=plain,
+                bound_ms=bound, bound_by=by, library_ms=lib, library_device_ms=lib_dev)
 
 
 def dl_bound(x, maps, groups: int, corners: int, backward: bool) -> tuple[float, str]:
@@ -954,9 +1043,12 @@ def phase_kernels(device) -> list[dict]:
                 torch.cuda.empty_cache()
     for stage, bnw, heads, nw in WA12_STAGES:
         for shifted in (False, True):
-            wa_rows[(stage, shifted, "N=144")] = check_window_attention(
-                device, stage, bnw, heads, nw, shifted, torch.bfloat16, window=12)
-            torch.cuda.empty_cache()
+            for dtype in (torch.float32, torch.bfloat16):
+                wa_rows[(stage, shifted, dtype, "N=144")] = check_window_attention(
+                    device, stage, bnw, heads, nw, shifted, dtype, window=12)
+                torch.cuda.empty_cache()
+    wa_cuda_core_fwd = check_cuda_core_forward(device, *WA_CUDA_CORE_FWD)
+    torch.cuda.empty_cache()
     log(f"dense-local sampling (tol of max(1, max |plain|): {DL_TOL}); the backward's max abs "
         "err is over its four gradients; no single PyTorch call computes this function")
     dl_rows = {}
@@ -993,8 +1085,14 @@ def phase_kernels(device) -> list[dict]:
     cg_src = "iseg_tpu_torch/csrc/cache_gather.cu"
     uce_shapes = {d: [rows[dt][d] for rows in (resnet, swin, intern) for dt in ("f32", "bf16")]
                   for d in ("fwd", "bwd")}
-    wa_shapes = {d: [row[d] for row in wa_rows.values()] for d in ("fwd", "bwd")}
+    # the split-TF32 rows have entries of their own; the bf16 and CUDA-core rows
+    # share the original two
+    wa_shapes = {(d, tf32): [row[d] for row in wa_rows.values()
+                             if (row[d]["route"] == "tf32x3") == tf32]
+                 for d in ("fwd", "bwd") for tf32 in (False, True)}
+    wa_shapes[("fwd", False)].append(wa_cuda_core_fwd)
     wa_main = wa_rows[("stage2", True, torch.bfloat16)]
+    wa_main_f32 = wa_rows[("stage2", True, torch.float32)]
     dl_shapes = {d: [row[d] for row in dl_rows.values()] for d in ("fwd", "bwd")}
     dl_main = dl_rows[("stage2", "mixed")]
     return [
@@ -1003,9 +1101,15 @@ def phase_kernels(device) -> list[dict]:
         entry("upsample_ce_bwd", uce_src, "iseg_tpu/ops/pallas/upsample_ce.py:159",
               resnet["f32"]["bwd"], uce_shapes["bwd"]),
         entry("window_attention_fwd", wa_src, "iseg_tpu/ops/pallas/window_attention.py:141",
-              wa_main["fwd"], wa_shapes["fwd"]),
+              wa_main["fwd"], wa_shapes[("fwd", False)]),
         entry("window_attention_bwd", wa_src, "iseg_tpu/ops/pallas/window_attention.py:161",
-              wa_main["bwd"], wa_shapes["bwd"]),
+              wa_main["bwd"], wa_shapes[("bwd", False)]),
+        entry("window_attention_fwd_tf32x3", wa_src,
+              "iseg_tpu/ops/pallas/window_attention.py:141", wa_main_f32["fwd"],
+              wa_shapes[("fwd", True)]),
+        entry("window_attention_bwd_tf32x3", wa_src,
+              "iseg_tpu/ops/pallas/window_attention.py:161", wa_main_f32["bwd"],
+              wa_shapes[("bwd", True)]),
         entry("deform_local_fwd", dl_src, "iseg_tpu/ops/pallas/deform_local.py:116",
               dl_main["fwd"], dl_shapes["fwd"]),
         entry("deform_local_bwd", dl_src, "iseg_tpu/ops/pallas/deform_local.py:146",
@@ -1030,6 +1134,8 @@ def read_launch_counts() -> dict[str, int]:
             "window_attention_fwd_mma": wa.LAUNCH_COUNTS["fwd_mma"],
             "window_attention_bwd": wa.LAUNCH_COUNTS["bwd"],
             "window_attention_bwd_mma": wa.LAUNCH_COUNTS["bwd_mma"],
+            "window_attention_fwd_tf32x3": wa.LAUNCH_COUNTS["fwd_tf32x3"],
+            "window_attention_bwd_tf32x3": wa.LAUNCH_COUNTS["bwd_tf32x3"],
             "deform_local_fwd": dl.LAUNCH_COUNTS["fwd"], "deform_local_bwd": dl.LAUNCH_COUNTS["bwd"],
             "cache_gather": cg.LAUNCH_COUNTS["gather"]}
 
@@ -1213,9 +1319,93 @@ def phase_swin_train(env, data, profile: bool):
     return model, launches
 
 
+def drop_path_generator(model) -> torch.Generator:
+    """The one generator every DropPath and Dropout of ``model`` draws from."""
+    gens = {id(m.generator): m.generator for m in model.modules()
+            if isinstance(m, (Dropout, DropPath)) and m.rate > 0}
+    if len(gens) != 1:
+        raise RuntimeError(f"expected one drop-path generator, found {len(gens)}")
+    return next(iter(gens.values()))
+
+
+def phase_swin_train_f32(data, profile: bool):
+    log("== phase 6b: Swin-L + SemanticFPN train in fp32 (split-TF32 window attention + fused "
+        "loss kernels)")
+    env = common_env_setup(EnvConfig(random_seed=0, mixed_precision=False, device="cuda"))
+    log(f"env: {env.describe()}")
+    if (env.compute_dtype != torch.float32 or torch.backends.cuda.matmul.allow_tf32
+            or torch.backends.cudnn.allow_tf32):
+        raise AssertionError("phase 6b needs fp32 compute with TF32 off")
+    model, state, step_fn = swin_train_setup(env)
+    if any(t.dtype != torch.float32 for t in model.state_dict().values() if t.is_floating_point()):
+        raise AssertionError("the fp32 Swin model holds parameters that are not float32")
+    # the first step's forward on the plain window attention and on the kernels:
+    # the same weights and drop-path draws (in train mode, no update), then both
+    # restored for the timed steps, whose first loss is held to the plain one
+    init_weights = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    gen = drop_path_generator(model)
+    init_draw = gen.get_state()
+    loss_fn = model.build_loss_fn()
+    model.train()
+
+    def first_forward():
+        gen.set_state(init_draw)
+        with torch.no_grad():
+            logits = model(data["image"])
+            return logits, float(loss_fn(logits, data["label"])[1]["loss"])
+
+    swin_module.window_attention = wa.window_attention_reference
+    try:
+        reset_launch_counts()
+        plain_logits, plain_loss = first_forward()
+        plain_launches = read_launch_counts()
+    finally:
+        swin_module.window_attention = wa.window_attention
+    if any(v for k, v in plain_launches.items() if k.startswith("window_attention")):
+        raise AssertionError("the plain-version run launched a window-attention kernel")
+    logits, _ = first_forward()
+    err = float((logits - plain_logits).abs().max())
+    scale = float(plain_logits.abs().max())
+    log(f"first forward, kernels vs plain window attention: max abs logit diff {err:.3e} vs "
+        f"max |logit| {scale:.3e} (tol {F32_KERNEL_VS_PLAIN_RTOL:g} of it)")
+    if not err <= F32_KERNEL_VS_PLAIN_RTOL * scale:
+        raise AssertionError("fp32 logits with the split-TF32 kernels disagree with the plain "
+                             "version's")
+    del logits, plain_logits
+    model.load_state_dict(init_weights)
+    gen.set_state(init_draw)
+    del init_weights
+
+    per_step = []
+
+    def counted_step(state, batch):
+        before = read_launch_counts()
+        state, parts = step_fn(state, batch)
+        per_step.append({k: v - before[k] for k, v in read_launch_counts().items()})
+        return state, parts
+
+    state, losses, launches, step_ms = train_steps(state, counted_step, data, S_WARMUP,
+                                                   S_F32_TIMED, S_BATCH)
+    for i, got in enumerate(per_step):
+        expect_launches(f"Swin fp32 train (step {i + 1})", got,
+                        {"upsample_ce_fwd": 1, "upsample_ce_bwd": 1,
+                         "window_attention_fwd_tf32x3": WA_LAUNCHES_PER_FORWARD,
+                         "window_attention_bwd_tf32x3": WA_LAUNCHES_PER_FORWARD})
+    rel = abs(losses[0] - plain_loss) / abs(plain_loss)
+    log(f"first-step loss: kernels {losses[0]:.7f} plain window attention {plain_loss:.7f} "
+        f"rel diff {rel:.3e} (tol {F32_KERNEL_VS_PLAIN_RTOL:g})")
+    if not rel <= F32_KERNEL_VS_PLAIN_RTOL:
+        raise AssertionError("the fp32 first-step loss with the split-TF32 kernels disagrees "
+                             "with the plain version's")
+    if profile:
+        profile_steps(state, step_fn, data, "Swin-L + SemanticFPN fp32 train step", step_ms)
+    return launches
+
+
 KERNEL_CLASSES = (
-    ("window attention kernels", ("wa_fwd_kernel", "wa_fwd_mma_kernel", "wa_bwd_kernel",
-                                  "wa_bwd_mma_kernel", "dbias_reduce_kernel")),
+    ("window attention kernels", ("wa_fwd_kernel", "wa_fwd_mma_kernel", "wa_fwd_tf32x3_kernel",
+                                  "wa_bwd_kernel", "wa_bwd_mma_kernel", "wa_bwd_tf32x3_kernel",
+                                  "dbias_reduce_kernel")),
     ("dense-local kernels", ("dl_fwd_kernel", "dl_bwd_maps_kernel", "dl_bwd_x_kernel")),
     ("upsample + CE kernels", ("::fwd_kernel<", "::bwd_kernel<", "::reduce_kernel(")),
     ("convolutions (cuDNN)", ("cudnn", "fprop", "wgrad", "dgrad", "conv2d", "convolve")),
@@ -1823,7 +2013,7 @@ def step_loss_ms(path: str, prof: dict) -> dict:
 def ab_child() -> dict:
     """One process of ``--ab``: this file's timings of the package first on
     the path. It uses only what the parent commit's package has too."""
-    for key in ("fwd_mma", "bwd_mma"):  # a package from before a tensor-core route
+    for key in ("fwd_mma", "bwd_mma", "fwd_tf32x3", "bwd_tf32x3"):  # a package from before a route
         wa.LAUNCH_COUNTS.setdefault(key, 0)
     device = torch.device("cuda")
     _build.load_all([uce.SOURCE, wa.SOURCE, dl.SOURCE, cg.SOURCE])
@@ -1851,6 +2041,22 @@ def ab_child() -> dict:
         row[f"wa_bwd {stage} launches"] = {key: wa.LAUNCH_COUNTS[key] for key in ("bwd", "bwd_mma")}
         row[f"sdpa_bwd {stage} ms"] = wa_backward_ms(sdpa, q, k, v, dout, full_bias, mask, scale,
                                                      **reps)
+        # fp32: the split-TF32 kernels here, the CUDA-core ones in a tree from before
+        # them; SDPA beside them, all on the profiler's device time
+        q, k, v, dout = wa_inputs(device, bnw, heads, nw, True, torch.float32)[:4]
+        full_bias = (bias[None] + mask[torch.arange(bnw, device=device) % nw][:, None]).contiguous()
+        wa.reset_launch_counts()
+        with torch.no_grad():
+            row[f"wa_fwd f32 {stage} device ms"] = device_ms(
+                lambda _: wa.window_attention(q, k, v, bias, mask, scale), **reps)
+            row[f"sdpa_fwd f32 {stage} device ms"] = device_ms(
+                lambda _: sdpa(q, k, v, full_bias, None, scale), **reps)
+        row[f"wa_bwd f32 {stage} device ms"] = wa_backward_ms(
+            wa.window_attention, q, k, v, dout, bias, mask, scale, timer=device_ms, **reps)
+        row[f"sdpa_bwd f32 {stage} device ms"] = wa_backward_ms(
+            sdpa, q, k, v, dout, full_bias, mask, scale, timer=device_ms, **reps)
+        row[f"wa f32 {stage} launches"] = {key: n for key, n in wa.LAUNCH_COUNTS.items() if n}
+        torch.cuda.empty_cache()
     for stage, side, channels, groups, _ in DL_STAGES:
         x, off_dy, off_dx, mod, g_out = dl_inputs(device, side, channels, groups, "mixed")
         args = (groups, DL_KERNEL, DL_MAX_OFFSET)
@@ -1927,6 +2133,19 @@ def ab_child() -> dict:
                 "swin launches": {key: launches[key] for key in
                                   ("window_attention_fwd", "window_attention_fwd_mma",
                                    "window_attention_bwd", "window_attention_bwd_mma")}})
+    del state, step_fn, prof
+    torch.cuda.empty_cache()
+    env32 = common_env_setup(EnvConfig(random_seed=0, mixed_precision=False, device="cuda"))
+    _, state, step_fn = swin_train_setup(env32)
+    state, _, launches, step_ms = train_steps(state, step_fn, data, S_WARMUP, S_F32_TIMED,
+                                              S_BATCH)
+    prof = profile_steps(state, step_fn, data, "Swin-L + SemanticFPN fp32 train step", step_ms)
+    wa_needles = dict(KERNEL_CLASSES)["window attention kernels"]
+    wa_ms = sum(ms for key, ms in prof["kernels"].items() if any(n in key for n in wa_needles))
+    row.update({"swin f32 step ms": step_ms, "swin f32 step device ms": prof["device_ms"],
+                "swin f32 step wa ms": wa_ms, "swin f32 step wa share": wa_ms / prof["device_ms"],
+                "swin f32 launches": {key: n for key, n in launches.items()
+                                      if key.startswith("window_attention") and n}})
     del state, step_fn, data, prof
     torch.cuda.empty_cache()
     data = synthetic_batch(device, I_BATCH, I_CLASSES)
@@ -2002,6 +2221,8 @@ def main(argv: list[str]) -> int:
     paths["swin_serve"] = phase_swin_serve(env, data, swin_model)
     del swin_model
     torch.cuda.empty_cache()
+    paths["swin_train_f32"] = phase_swin_train_f32(data, profile)
+    torch.cuda.empty_cache()
 
     data = synthetic_batch(device, I_BATCH, I_CLASSES)
     intern_model, paths["intern_train"] = phase_intern_train(env, data, profile)
@@ -2011,7 +2232,8 @@ def main(argv: list[str]) -> int:
 
     paths.update(phase_gemma_serve(device, profile))
 
-    # the window-attention forward and backward have two routes each, each with its count
+    # the bf16 window-attention entries count two routes each (tensor cores and
+    # CUDA cores), each with its count; the split-TF32 entries one
     routes = {"window_attention_fwd": {"mma": "window_attention_fwd_mma",
                                        "cuda_core": "window_attention_fwd"},
               "window_attention_bwd": {"mma": "window_attention_bwd_mma",
@@ -2029,6 +2251,8 @@ def main(argv: list[str]) -> int:
                "swin_train": loss_kernels + ("window_attention_fwd_mma",
                                              "window_attention_bwd_mma"),
                "swin_serve": ("window_attention_fwd_mma",),
+               "swin_train_f32": loss_kernels + ("window_attention_fwd_tf32x3",
+                                                 "window_attention_bwd_tf32x3"),
                "intern_train": loss_kernels + ("deform_local_fwd", "deform_local_bwd"),
                "intern_serve": ("deform_local_fwd",),
                "gemma_beam_serve": ("cache_gather",)}
@@ -2036,7 +2260,7 @@ def main(argv: list[str]) -> int:
         for name in names:
             if paths[path][name] <= 0:
                 raise AssertionError(f"kernel {name} was never launched on the {path} path")
-    for path in ("swin_train", "swin_serve"):  # bf16 autocast: the tensor-core routes only
+    for path in ("swin_train", "swin_serve", "swin_train_f32"):  # the tensor-core routes only
         if paths[path]["window_attention_fwd"] or paths[path]["window_attention_bwd"]:
             raise AssertionError(f"the {path} path launched a CUDA-core window-attention kernel")
 

@@ -23,7 +23,7 @@
 // go through a second kernel that sums them in a fixed order. So dbias needs
 // no atomics and is bitwise repeatable, like every other output.
 //
-// Two backward kernels, chosen by the wrapper by dtype and shape:
+// Three backward kernels, chosen by the wrapper by dtype and shape:
 //
 // * wa_bwd_mma_kernel, for bf16 q, k, v with D % 16 == 0 and N <= 144 (every
 //   Swin variant: D = 32, N = 49 or 144). All five products run on the
@@ -42,10 +42,27 @@
 //   its mask values for the next window while the block runs dv and dk; at
 //   N = 144 the ds sums take the shared memory (they do not fit in
 //   registers) and the bias is read through the cache.
-// * wa_bwd_kernel, for float32 and for shapes outside that: fp32 FMA loops
-//   over shared memory with a 4 x 4 register tile per thread, everything in
-//   fp32. Tensor cores would take fp32 operands only as TF32 (10 mantissa
-//   bits) and break the fp32 contract of 1e-4, so fp32 stays here.
+// * wa_bwd_tf32x3_kernel, for float32 q, k, v with D % 8 == 0 and N <= 64
+//   (Swin at window 7): the same design with all five products on the
+//   tensor cores in split TF32 (mma.sync m16n8k8 .tf32). One TF32 product
+//   keeps 10 mantissa bits of each operand (about 1e-3 of the value) and
+//   would break the fp32 contract of 1e-4; the split keeps about 21. Each
+//   fp32 operand value is split where its fragment is loaded, x = hi + lo
+//   with hi = tf32(x) (to nearest) and lo = x - hi truncated to TF32 (a NaN
+//   stays NaN in lo), and each product is summed as
+//   lo hi + hi lo + hi hi into the fp32 accumulators (CUTLASS's 3xTF32;
+//   only lo lo, under 2^-22 of the product, is dropped). Measured on an
+//   H100 against the plain version at Swin-L's four stage shapes: out, dq,
+//   dk, dv within 5.1e-6, dbias 1.9e-5. ldmatrix moves 16-bit elements
+//   only, so every fragment is read by plain 32-bit shared loads from fp32
+//   tiles with a row pitch of 4 mod 8 floats (conflict-free for the
+//   fragment patterns, below). The p and ds tiles are separate, so a
+//   window takes one block barrier after the softmax where the bf16 kernel
+//   takes three. Float32 at N = 144 stays on the CUDA cores: its tiles do
+//   not fit a block (kTf32BwdMaxN).
+// * wa_bwd_kernel, for the other shapes (float32 at N > 64 or D % 8 != 0,
+//   bf16 outside its route): fp32 FMA loops over shared memory with a 4 x 4
+//   register tile per thread, everything in fp32.
 //
 // What bounds them on the H100: per (window, head) the backward moves 7 N D
 // elements (q, k, v, do in; dq, dk, dv out) and does 10 N^2 D flops; at N =
@@ -60,7 +77,21 @@
 // 3 times their byte bound of 0.97 ms and the CUDA-core kernel's 18 times
 // (PERF.md, section 6).
 //
-// Two forward kernels, chosen by the wrapper by the same rule:
+// The split-TF32 kernels are bound by instruction issue: per operand value
+// a 32-bit shared load (bf16 has one ldmatrix for eight), a rounding, a
+// subtract and a mask, and per product three mma where bf16 has one.
+// Ablations on an H100 80GB HBM3 at 700 W (PERF.md, section 6) found the
+// split and the two correction products a minority of the time; the rest
+// is the fp32 tiles' loads, the softmax, the stores and each warp's chain.
+// What took the most off was compiling D = 32 in (every Swin variant; other
+// D % 8 == 0 read D at run time), which folds the fragment addresses into
+// load offsets, and splitting in integer instructions where ptxas expands
+// cvt.rna into a longer sequence. At Swin-L stage 2, shifted, the backward
+// takes about 0.26 ms of device time (4.2x its byte bound of 0.063 ms;
+// SDPA's backward 0.55, the CUDA-core kernel 0.58) and the forward 0.11 ms
+// (3.0x its bound of 0.036; SDPA 0.28, the CUDA-core kernel 0.23).
+//
+// Three forward kernels, chosen by the wrapper by the same rule:
 //
 // * wa_fwd_mma_kernel, for bf16 q, k, v with D % 16 == 0 and N <= 144: the
 //   backward's design with two products. Blocks are persistent over a chunk
@@ -78,12 +109,19 @@
 //   the CUDA-core kernel, and no logits tile in shared memory. What is left
 //   is the latency of each warp's chain per window (two products, a softmax,
 //   the loads of bias and mask), at 16 warps per SM at N <= 64 and 9 at 144.
-// * wa_fwd_kernel, for float32 and other shapes: the CUDA-core design, fp32
-//   FMA loops with 4 x 4 register tiles, q, k, v and the logits in shared
+// * wa_fwd_tf32x3_kernel, for float32 q, k, v with D % 8 == 0, at N <= 64
+//   with D <= 128 and at N <= 144 with D <= 32 (where two sets of fp32
+//   tiles and the bias fit a block): the bf16 forward's design with both
+//   products in split TF32, as the backward above. p v takes p from the accumulator fragments with no
+//   shuffle: the k slots of its A fragment name keys 2t and 2t + 1, the
+//   columns a lane holds of S (see the fragment layouts below).
+// * wa_fwd_kernel, for the other shapes (float32 at N > 64 with D > 32 or
+//   D % 8 != 0, bf16 outside its route): the CUDA-core design, fp32 FMA
+//   loops with 4 x 4 register tiles, q, k, v and the logits in shared
 //   memory as fp32 (rows padded by one float so that the column walks of
 //   q k^T hit distinct banks). It is bound by instruction issue, 12.5x its
 //   byte bound over a Swin-L step in bf16 (PERF.md, section 6), and far
-//   behind SDPA at window 12; fp32 stays on it for the reason given above.
+//   behind SDPA at window 12.
 //
 // Tensors are addressed through element strides for (window, head, token);
 // the head dim has stride 1. So q, k, v may be views of the packed qkv
@@ -584,6 +622,91 @@ __device__ __forceinline__ void store_rows(__nv_bfloat16* base, long long sn, in
   }
 }
 
+// Copies [N][D] tiles of window b, head h into shared memory [N][ld] by
+// cp.async, 16 bytes at a time through the tensor's strides: a thread copies
+// piece `col` of rows row0, row0 + row_step, ... (the caller commits)
+template <typename T>
+struct TileCopy {
+  static constexpr int kPiece = 16 / sizeof(T);  // elements in 16 bytes
+  int row0, row_step, col;
+  __device__ __forceinline__ TileCopy(int threads, int D) {
+    const int per_row = D / kPiece;
+    row_step = threads / per_row;
+    row0 = threadIdx.x / per_row;
+    col = (threadIdx.x - row0 * per_row) * kPiece;
+  }
+  __device__ __forceinline__ void operator()(const T* g, Strides st, int b, int h, int N, int ld,
+                                             T* dst) const {
+    const T* base = g + b * st.b + h * st.h + col;
+    for (int n = row0; n < N && row0 < row_step; n += row_step)
+      cp_async16(smem_addr(dst + n * ld + col), base + n * st.n);
+  }
+};
+
+// The mask values of window b at this thread's logits, in the accumulator
+// layout of key tiles 0 .. kT - 1 (0 past N); r0 is the thread's first row
+template <int kT>
+__device__ __forceinline__ void load_mask_frags(float (&dst)[kT][4], const float* mask, int b,
+                                                int nW, int N, int r0) {
+  const float* mask_b = mask + static_cast<int64_t>(b % nW) * N * N;
+  const int c2 = (threadIdx.x & 3) * 2;
+#pragma unroll
+  for (int t = 0; t < kT; ++t)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = e < 2 ? r0 : r0 + 8, j = t * 8 + c2 + (e & 1);
+      dst[t][e] = i < N && j < N ? __ldg(mask_b + i * N + j) : 0.f;
+    }
+}
+
+// Logits of this warp's 16 query rows, softmax in place: p[t] holds q k^T
+// for key tile t on entry and p = softmax(q k^T scale + bias + mask) on
+// exit, fp32 in registers (in log2 units with exp2). bias_h is the head's
+// [N][N] bias (in shared memory or device memory); `mask_at(t, e)` gives the
+// mask value of element e of tile t. A padded key gets -inf, and a padded
+// query row, with no finite logit, p = 0.
+template <int kNT, typename MaskAt>
+__device__ __forceinline__ void softmax_frags(float (&p)[kNT][4], const float* bias_h,
+                                              MaskAt mask_at, int r0, int N, float scale) {
+  const int c2 = (threadIdx.x & 3) * 2;
+  const int r1 = r0 + 8;
+  float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+  for (int t = 0; t < kNT; ++t)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = e < 2 ? r0 : r1, j = t * 8 + c2 + (e & 1);
+      float x = -INFINITY;
+      if (i < N && j < N) x = p[t][e] * scale + bias_h[i * N + j] + mask_at(t, e);
+      p[t][e] = x;
+      if (e < 2) mx0 = fmaxf(mx0, x);
+      else mx1 = fmaxf(mx1, x);
+    }
+  mx0 = quad_max(mx0);
+  mx1 = quad_max(mx1);
+  const float sub0 = (mx0 == -INFINITY ? 0.f : mx0) * kLog2e;
+  const float sub1 = (mx1 == -INFINITY ? 0.f : mx1) * kLog2e;
+  float l0 = 0.f, l1 = 0.f;
+#pragma unroll
+  for (int t = 0; t < kNT; ++t)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      p[t][e] = exp2f(fmaf(p[t][e], kLog2e, -(e < 2 ? sub0 : sub1)));
+      if (e < 2) l0 += p[t][e];
+      else l1 += p[t][e];
+    }
+  l0 = quad_sum(l0);
+  l1 = quad_sum(l1);
+  const float inv0 = l0 > 0.f ? 1.f / l0 : 0.f, inv1 = l1 > 0.f ? 1.f / l1 : 0.f;
+#pragma unroll
+  for (int t = 0; t < kNT; ++t) {
+    p[t][0] *= inv0;
+    p[t][1] *= inv0;
+    p[t][2] *= inv1;
+    p[t][3] *= inv1;
+  }
+}
+
 // Shared memory of the tensor-core backward, in bytes: two sets (the window
 // computed and the next one) of the q, k, v, do tiles [N][D + 8] and a row of
 // zeros (bf16), the p / ds tile [kNP][kNP + 8] (bf16), and fp32: at kNP = 64
@@ -642,21 +765,14 @@ wa_bwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __re
     for (int e = 0; e < kNT * 4; ++e) sums_smem[e * kThreads + threadIdx.x] = 0.f;
   }
 
-  // q, k, v, do of window b -> tile set `stage`: a thread copies 16-byte
-  // piece `col` of rows row0, row0 + row_step, ...
-  const int per_row = D / 8, row_step = kThreads / per_row;
-  const int row0 = threadIdx.x / per_row, col = (threadIdx.x - row0 * per_row) * 8;
-  auto load_tile = [&](const __nv_bfloat16* g, Strides st, int b, __nv_bfloat16* dst) {
-    const __nv_bfloat16* base = g + b * st.b + h * st.h + col;
-    for (int n = row0; n < N && row0 < row_step; n += row_step)
-      cp_async16(smem_addr(dst + n * ld + col), base + n * st.n);
-  };
+  // q, k, v, do of window b -> tile set `stage`
+  const TileCopy<__nv_bfloat16> copy(kThreads, D);
   auto load = [&](int b, int stage) {
     __nv_bfloat16* dst = tiles + stage * 4 * tile;
-    load_tile(q, sq, b, dst);
-    load_tile(k, sk, b, dst + tile);
-    load_tile(v, sv, b, dst + 2 * tile);
-    load_tile(dout, sdo, b, dst + 3 * tile);
+    copy(q, sq, b, h, N, ld, dst);
+    copy(k, sk, b, h, N, ld, dst + tile);
+    copy(v, sv, b, h, N, ld, dst + 2 * tile);
+    copy(dout, sdo, b, h, N, ld, dst + 3 * tile);
     cp_async_commit();
   };
 
@@ -664,19 +780,9 @@ wa_bwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __re
   // loaded one window ahead, while the block runs the last window's dv and
   // dk, so that their latency is off the path from q k^T to the softmax
   float mask_next[kNT][4];
-  auto load_mask = [&](int b) {
-    const float* mask_b = mask + static_cast<int64_t>(b % nW) * N * N;
-#pragma unroll
-    for (int t = 0; t < kNT; ++t)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int i = e < 2 ? r0 : r1, j = t * 8 + c2 + (e & 1);
-        mask_next[t][e] = i < N && j < N ? __ldg(mask_b + i * N + j) : 0.f;
-      }
-  };
 
   load(b_first, 0);
-  load_mask(b_first);
+  load_mask_frags(mask_next, mask, b_first, nW, N, r0);
   for (int b = b_first, it = 0; b < b_end; ++b, ++it) {
     const int cur = it & 1;
     cp_async_wait_all();
@@ -690,44 +796,10 @@ wa_bwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __re
     // logits and softmax, fp32 in registers
     float p[kNT][4];
     rows_times_rows_t<kNT>(qs, ks, zero, m0, N, D, ld, p);
-    float mx0 = -INFINITY, mx1 = -INFINITY;
-#pragma unroll
-    for (int t = 0; t < kNT; ++t)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int i = e < 2 ? r0 : r1, j = t * 8 + c2 + (e & 1);
-        float x = -INFINITY;
-        if (i < N && j < N) {
-          const float bias_ij = kSmallWindow ? bias_smem[i * N + j] : __ldg(bias_h + i * N + j);
-          x = p[t][e] * scale + bias_ij + mask_next[t][e];
-        }
-        p[t][e] = x;
-        if (e < 2) mx0 = fmaxf(mx0, x);
-        else mx1 = fmaxf(mx1, x);
-      }
-    mx0 = quad_max(mx0);
-    mx1 = quad_max(mx1);
-    // a padded row has no finite logit: its p is 0
-    const float sub0 = (mx0 == -INFINITY ? 0.f : mx0) * kLog2e;
-    const float sub1 = (mx1 == -INFINITY ? 0.f : mx1) * kLog2e;
-    float l0 = 0.f, l1 = 0.f;
-#pragma unroll
-    for (int t = 0; t < kNT; ++t)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        p[t][e] = exp2f(fmaf(p[t][e], kLog2e, -(e < 2 ? sub0 : sub1)));
-        if (e < 2) l0 += p[t][e];
-        else l1 += p[t][e];
-      }
-    l0 = quad_sum(l0);
-    l1 = quad_sum(l1);
-    const float inv0 = l0 > 0.f ? 1.f / l0 : 0.f, inv1 = l1 > 0.f ? 1.f / l1 : 0.f;
+    softmax_frags<kNT>(p, kSmallWindow ? bias_smem : bias_h,
+                       [&](int t, int e) { return mask_next[t][e]; }, r0, N, scale);
 #pragma unroll
     for (int t = 0; t < kNT; ++t) {
-      p[t][0] *= inv0;
-      p[t][1] *= inv0;
-      p[t][2] *= inv1;
-      p[t][3] *= inv1;
       *reinterpret_cast<uint32_t*>(ps + r0 * lds + t * 8 + c2) = bf16x2(p[t][0], p[t][1]);
       *reinterpret_cast<uint32_t*>(ps + r1 * lds + t * 8 + c2) = bf16x2(p[t][2], p[t][3]);
     }
@@ -761,7 +833,7 @@ wa_bwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __re
       a_ds[s][2] = bf16x2(ds[2 * s + 1][0], ds[2 * s + 1][1]);
       a_ds[s][3] = bf16x2(ds[2 * s + 1][2], ds[2 * s + 1][3]);
     }
-    if (b + 1 < b_end) load_mask(b + 1);
+    if (b + 1 < b_end) load_mask_frags(mask_next, mask, b + 1, nW, N, r0);
 
     float acc[2][4];
     __nv_bfloat16* dq_w = dq + b * sdq.b + h * sdq.h;
@@ -847,40 +919,22 @@ wa_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __re
     reinterpret_cast<uint4*>(zero)[e] = make_uint4(0u, 0u, 0u, 0u);
   for (int e = threadIdx.x; e < N * N; e += kThreads) bias_smem[e] = __ldg(bias_h + e);
 
-  // q, k, v of window b -> tile set `stage`: a thread copies 16-byte piece
-  // `col` of rows row0, row0 + row_step, ...
-  const int per_row = D / 8, row_step = kThreads / per_row;
-  const int row0 = threadIdx.x / per_row, col = (threadIdx.x - row0 * per_row) * 8;
-  auto load_tile = [&](const __nv_bfloat16* g, Strides st, int b, __nv_bfloat16* dst) {
-    const __nv_bfloat16* base = g + b * st.b + h * st.h + col;
-    for (int n = row0; n < N && row0 < row_step; n += row_step)
-      cp_async16(smem_addr(dst + n * ld + col), base + n * st.n);
-  };
+  // q, k, v of window b -> tile set `stage`
+  const TileCopy<__nv_bfloat16> copy(kThreads, D);
   auto load = [&](int b, int stage) {
     __nv_bfloat16* dst = tiles + stage * 3 * tile;
-    load_tile(q, sq, b, dst);
-    load_tile(k, sk, b, dst + tile);
-    load_tile(v, sv, b, dst + 2 * tile);
+    copy(q, sq, b, h, N, ld, dst);
+    copy(k, sk, b, h, N, ld, dst + tile);
+    copy(v, sv, b, h, N, ld, dst + 2 * tile);
     cp_async_commit();
   };
 
   // the mask values at this thread's logits for the window computed next,
   // loaded during the last window's p v
-  constexpr int kAhead = kMaskAhead ? kNT : 1;
-  float mask_next[kAhead][4];
-  auto load_mask = [&](int b) {
-    const float* mask_b = mask + static_cast<int64_t>(b % nW) * N * N;
-#pragma unroll
-    for (int t = 0; t < kAhead; ++t)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int i = e < 2 ? r0 : r1, j = t * 8 + c2 + (e & 1);
-        mask_next[t][e] = i < N && j < N ? __ldg(mask_b + i * N + j) : 0.f;
-      }
-  };
+  float mask_next[kMaskAhead ? kNT : 1][4];
 
   load(b_first, 0);
-  if constexpr (kMaskAhead) load_mask(b_first);
+  if constexpr (kMaskAhead) load_mask_frags(mask_next, mask, b_first, nW, N, r0);
   for (int b = b_first, it = 0; b < b_end; ++b, ++it) {
     const int cur = it & 1;
     cp_async_wait_all();
@@ -890,54 +944,25 @@ wa_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __re
     const __nv_bfloat16* ks = qs + tile;
     const __nv_bfloat16* vs = ks + tile;
 
-    // logits and softmax, fp32 in registers; a padded key gets -inf, a
-    // padded query row no finite logit, and so p = 0
+    // logits and softmax, fp32 in registers
     float p[kNT][4];
     rows_times_rows_t<kNT>(qs, ks, zero, m0, N, D, ld, p);
     const float* mask_b = mask + static_cast<int64_t>(b % nW) * N * N;
-    float mx0 = -INFINITY, mx1 = -INFINITY;
-#pragma unroll
-    for (int t = 0; t < kNT; ++t)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int i = e < 2 ? r0 : r1, j = t * 8 + c2 + (e & 1);
-        float x = -INFINITY;
-        if (i < N && j < N) {
-          const float mask_ij = kMaskAhead ? mask_next[kMaskAhead ? t : 0][e]
-                                           : __ldg(mask_b + i * N + j);
-          x = p[t][e] * scale + bias_smem[i * N + j] + mask_ij;
-        }
-        p[t][e] = x;
-        if (e < 2) mx0 = fmaxf(mx0, x);
-        else mx1 = fmaxf(mx1, x);
-      }
-    mx0 = quad_max(mx0);
-    mx1 = quad_max(mx1);
-    const float sub0 = (mx0 == -INFINITY ? 0.f : mx0) * kLog2e;
-    const float sub1 = (mx1 == -INFINITY ? 0.f : mx1) * kLog2e;
-    float l0 = 0.f, l1 = 0.f;
-#pragma unroll
-    for (int t = 0; t < kNT; ++t)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        p[t][e] = exp2f(fmaf(p[t][e], kLog2e, -(e < 2 ? sub0 : sub1)));
-        if (e < 2) l0 += p[t][e];
-        else l1 += p[t][e];
-      }
-    l0 = quad_sum(l0);
-    l1 = quad_sum(l1);
-    const float inv0 = l0 > 0.f ? 1.f / l0 : 0.f, inv1 = l1 > 0.f ? 1.f / l1 : 0.f;
+    softmax_frags<kNT>(p, bias_smem, [&](int t, int e) {
+      if constexpr (kMaskAhead) return mask_next[t][e];
+      return __ldg(mask_b + (e < 2 ? r0 : r1) * N + t * 8 + c2 + (e & 1));
+    }, r0, N, scale);
     // p rounded to bf16 as the A operand of p v (accumulator tiles 2s and
     // 2s + 1 are the A fragment of keys 16 s .. 16 s + 15)
     uint32_t a_p[kNT / 2][4];
 #pragma unroll
     for (int s = 0; s < kNT / 2; ++s) {
-      a_p[s][0] = bf16x2(p[2 * s][0] * inv0, p[2 * s][1] * inv0);
-      a_p[s][1] = bf16x2(p[2 * s][2] * inv1, p[2 * s][3] * inv1);
-      a_p[s][2] = bf16x2(p[2 * s + 1][0] * inv0, p[2 * s + 1][1] * inv0);
-      a_p[s][3] = bf16x2(p[2 * s + 1][2] * inv1, p[2 * s + 1][3] * inv1);
+      a_p[s][0] = bf16x2(p[2 * s][0], p[2 * s][1]);
+      a_p[s][1] = bf16x2(p[2 * s][2], p[2 * s][3]);
+      a_p[s][2] = bf16x2(p[2 * s + 1][0], p[2 * s + 1][1]);
+      a_p[s][3] = bf16x2(p[2 * s + 1][2], p[2 * s + 1][3]);
     }
-    if (kMaskAhead && b + 1 < b_end) load_mask(b + 1);
+    if (kMaskAhead && b + 1 < b_end) load_mask_frags(mask_next, mask, b + 1, nW, N, r0);
 
     float acc[2][4];
     __nv_bfloat16* out_w = out + b * so.b + h * so.h;
@@ -946,6 +971,427 @@ wa_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __re
       store_rows(out_w, so.n, m0, dc, N, 1.f, acc);
     }
   }
+}
+
+// --------------------------- tensor-core forward and backward (fp32, split TF32)
+
+// Resident blocks per SM the split-TF32 kernels are compiled for at N <= 64:
+// the forward's tiles take 52 KB a block at N = 49, D = 32 (four fit an SM),
+// the backward's 101 KB (two fit).
+constexpr int kTf32FwdMinBlocks = 4;
+constexpr int kTf32BwdMinBlocks = 2;
+// The backward's largest N: at N = 144, D = 32 its fp32 tiles take 245 KB
+// even with one set of q, k, v, do (no prefetch), one tile for p and ds, and
+// the ds sums in shared memory (72 a thread do not fit in registers beside p
+// and ds), over a block's 227 KB.
+constexpr int kTf32BwdMaxN = 64;
+// Output columns a warp accumulates at once (four 16 x 8 tiles)
+constexpr int kTf32Cols = 32;
+
+// x rounded to TF32 (10 stored mantissa bits), to nearest, ties away from
+// zero: what cvt.rna.tf32.f32 gives for every finite x (half a TF32 ulp
+// added to the magnitude, the 13 low bits cleared), in two integer
+// instructions, where ptxas expands cvt.rna into a longer sequence. A NaN
+// whose mantissa carries into the sign bit (the GPU's own NaN does) comes
+// out a zero: Split keeps it in lo.
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
+}
+
+// c += a b for one 16 x 8 x 8 tile: a row-major tf32, b column-major tf32, c fp32
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// An fp32 operand fragment split as x = hi + lo: hi = tf32(x), rounded to
+// nearest, and lo = x - hi (exact in fp32, at most half a TF32 ulp of x)
+// truncated to TF32 by one mask. What is left, x - hi - lo, is under 2^-21
+// |x|. A NaN x gives a NaN x - hi, which the mask keeps (its top mantissa
+// bits are set), so every product that takes x is NaN, as in fp32.
+template <int kN>
+struct Split {
+  uint32_t hi[kN], lo[kN];
+  __device__ __forceinline__ void set(int i, float x) {
+    hi[i] = to_tf32(x);
+    lo[i] = __float_as_uint(x - __uint_as_float(hi[i])) & 0xFFFFE000u;
+  }
+};
+
+// c += a b in split TF32 (CUTLASS's 3xTF32): the two correction products
+// lo hi and hi lo first, then hi hi, all into the fp32 accumulators; only
+// lo lo (under 2^-22 of the product) is dropped
+__device__ __forceinline__ void mma_3xtf32(float (&c)[4], const Split<4>& a, const Split<2>& b) {
+  mma_tf32(c, a.lo, b.hi[0], b.hi[1]);
+  mma_tf32(c, a.hi, b.lo[0], b.lo[1]);
+  mma_tf32(c, a.hi, b.hi[0], b.hi[1]);
+}
+
+// Fragment layouts (PTX ISA, mma.m16n8k8 .tf32), lane l, g = l / 4, t = l % 4:
+// A (16 x 8) holds (g, t), (g + 8, t), (g, t + 4), (g + 8, t + 4); B (8 x 8)
+// holds (k = t, n = g), (k = t + 4, n = g); C is mma.m16n8k16's: (g, 2t),
+// (g, 2t + 1), (g + 8, 2t), (g + 8, 2t + 1). A product sums over k, so the
+// k slots may name the summed index in any order that A and B share. Two
+// orders are used: "natural" (slots t, t + 4 are k = t, t + 4) where both
+// operands come from row-major tiles, and "paired" (slots t, t + 4 are k =
+// 2t, 2t + 1) where A is an accumulator fragment: then a lane's C values
+// of one 16 x 8 tile are its A fragment for the next product, with no
+// shuffle and no trip through shared memory. The fp32 tiles have a row
+// pitch ld of 4 mod 8 floats (D + 4 with D % 8 == 0; kNP + 4): the natural
+// loads (row g, column t) and the paired ones (row 2t, column g) then hit
+// 32 distinct banks. Rows past N name a row of zeros.
+__device__ __forceinline__ const float* f32_row(const float* tile, const float* zero, int row,
+                                                int N, int ld) {
+  return row < N ? tile + row * ld : zero;
+}
+
+// acc[j] (16 x 8 tile j) = A[m0 : m0 + 16, :D] B[8j : 8j + 8, :D]^T, natural
+// order; tiles j with 8j >= N (all keys padding) stay 0
+template <int kNT>
+__device__ __forceinline__ void rows_times_rows_t_3x(const float* A, const float* B,
+                                                     const float* zero, int m0, int N, int D,
+                                                     int ld, float (&acc)[kNT][4]) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int j = 0; j < kNT; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+  const float* a0 = f32_row(A, zero, m0 + g, N, ld) + t;
+  const float* a1 = f32_row(A, zero, m0 + g + 8, N, ld) + t;
+#pragma unroll
+  for (int kk = 0; kk < D; kk += 8) {
+    Split<4> a;
+    a.set(0, a0[kk]);
+    a.set(1, a1[kk]);
+    a.set(2, a0[kk + 4]);
+    a.set(3, a1[kk + 4]);
+#pragma unroll
+    for (int j = 0; j < kNT; ++j) {
+      if (j * 8 < N) {
+        const float* bp = f32_row(B, zero, j * 8 + g, N, ld) + kk + t;
+        Split<2> b;
+        b.set(0, bp[0]);
+        b.set(1, bp[4]);
+        mma_3xtf32(acc[j], a, b);
+      }
+    }
+  }
+}
+
+// acc[u] (16 x 8, columns dc + 8u) = P V[:, dc : dc + kTf32Cols], paired
+// order: P's 16 x 8 tiles are the accumulator fragments p[j] (keys 8j ..
+// 8j + 7, whose slots t and t + 4 are keys 8j + 2t and 8j + 2t + 1), V an
+// [N][ld] tile; key tiles at or past N hold p = 0 and are skipped
+template <int kNT>
+__device__ __forceinline__ void frags_times_rows_3x(const float (&p)[kNT][4], const float* V,
+                                                    const float* zero, int N, int D, int ld,
+                                                    int dc, float (&acc)[kTf32Cols / 8][4]) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int u = 0; u < kTf32Cols / 8; ++u) acc[u][0] = acc[u][1] = acc[u][2] = acc[u][3] = 0.f;
+#pragma unroll
+  for (int j = 0; j < kNT; ++j) {
+    if (j * 8 < N) {
+      Split<4> a;
+      a.set(0, p[j][0]);
+      a.set(1, p[j][2]);
+      a.set(2, p[j][1]);
+      a.set(3, p[j][3]);
+      const float* b0 = f32_row(V, zero, j * 8 + 2 * t, N, ld) + dc + g;
+      const float* b1 = f32_row(V, zero, j * 8 + 2 * t + 1, N, ld) + dc + g;
+#pragma unroll
+      for (int u = 0; u < kTf32Cols / 8; ++u) {
+        if (dc + 8 * u < D) {
+          Split<2> b;
+          b.set(0, b0[8 * u]);
+          b.set(1, b1[8 * u]);
+          mma_3xtf32(acc[u], a, b);
+        }
+      }
+    }
+  }
+}
+
+// acc[u] (16 x 8, columns dc + 8u) = T[:, m0 : m0 + 16]^T B[:, dc : dc +
+// kTf32Cols], paired order; T is the [kNP][lds] p or ds tile (queries x
+// keys), B an [N][ld] tile of queries; query tiles at or past N are skipped
+template <int kNP>
+__device__ __forceinline__ void cols_t_times_rows_3x(const float* T, int lds, const float* B,
+                                                     const float* zero, int N, int D, int ld,
+                                                     int m0, int dc,
+                                                     float (&acc)[kTf32Cols / 8][4]) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int u = 0; u < kTf32Cols / 8; ++u) acc[u][0] = acc[u][1] = acc[u][2] = acc[u][3] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < kNP; kk += 8) {
+    if (kk < N) {
+      const float* t0 = T + (kk + 2 * t) * lds + m0 + g;  // query kk + 2t
+      const float* t1 = t0 + lds;                           // query kk + 2t + 1
+      Split<4> a;
+      a.set(0, t0[0]);
+      a.set(1, t0[8]);
+      a.set(2, t1[0]);
+      a.set(3, t1[8]);
+      const float* b0 = f32_row(B, zero, kk + 2 * t, N, ld) + dc + g;
+      const float* b1 = f32_row(B, zero, kk + 2 * t + 1, N, ld) + dc + g;
+#pragma unroll
+      for (int u = 0; u < kTf32Cols / 8; ++u) {
+        if (dc + 8 * u < D) {
+          Split<2> b;
+          b.set(0, b0[8 * u]);
+          b.set(1, b1[8 * u]);
+          mma_3xtf32(acc[u], a, b);
+        }
+      }
+    }
+  }
+}
+
+// rows m0 .. m0 + 15 (those < N), columns dc .. dc + kTf32Cols - 1 (those <
+// D) of an fp32 token-major output, times mul
+__device__ __forceinline__ void store_rows_f32(float* base, long long sn, int m0, int dc, int N,
+                                               int D, float mul,
+                                               const float (&acc)[kTf32Cols / 8][4]) {
+  const int lane = threadIdx.x & 31, r = m0 + (lane >> 2), c = dc + (lane & 3) * 2;
+#pragma unroll
+  for (int u = 0; u < kTf32Cols / 8; ++u) {
+    if (dc + 8 * u >= D) continue;
+    if (r < N)
+      *reinterpret_cast<float2*>(base + r * sn + c + 8 * u) =
+          make_float2(acc[u][0] * mul, acc[u][1] * mul);
+    if (r + 8 < N)
+      *reinterpret_cast<float2*>(base + (r + 8) * sn + c + 8 * u) =
+          make_float2(acc[u][2] * mul, acc[u][3] * mul);
+  }
+}
+
+// Shared memory of the split-TF32 forward, in bytes (fp32): two sets (the
+// window computed and the next one) of the q, k, v tiles [N][D + 4] and a
+// row of zeros, then the head's bias [N][N].
+size_t fwd_tf32_smem_bytes(int N, int D) {
+  return 4 * ((6 * static_cast<size_t>(N) + 1) * (D + 4) + static_cast<size_t>(N) * N);
+}
+
+// The bf16 forward's design (wa_fwd_mma_kernel) for fp32 q, k, v, with
+// both products in split TF32: one block per (chunk of windows, head),
+// kNP / 16 warps, each owning 16 query rows. Per window: S = q k^T
+// (natural order) -> scale + bias + mask -> softmax in registers -> out =
+// p v with p's accumulator fragments as the A operand (paired order), with
+// the next window's q, k, v on their way by cp.async. At N <= 64 each
+// thread loads its mask values of the next window during p v.
+template <int kNP, int kD>
+__global__ void __launch_bounds__(kNP * 2, kNP <= 64 ? kTf32FwdMinBlocks : 1)
+wa_fwd_tf32x3_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, const float* __restrict__ bias,
+                     const float* __restrict__ mask, float* __restrict__ out, Strides sq,
+                     Strides sk, Strides sv, Strides so, int bnw, int H, int N, int d_arg,
+                     int nW, int windows_per_chunk, float scale) {
+  const int D = kD > 0 ? kD : d_arg;
+  constexpr int kNT = kNP / 8;
+  constexpr int kThreads = kNP * 2;
+  constexpr bool kMaskAhead = kNP <= 64;
+  extern __shared__ __align__(16) unsigned char wa_mma_smem[];
+  const int ld = D + 4, tile = N * ld;
+  float* tiles = reinterpret_cast<float*>(wa_mma_smem);
+  float* zero = tiles + 2 * 3 * tile;
+  float* bias_smem = zero + ld;  // [N][N]
+
+  const int lane = threadIdx.x & 31, m0 = (threadIdx.x >> 5) * 16;
+  const int r0 = m0 + (lane >> 2), r1 = r0 + 8, c2 = (lane & 3) * 2;
+  const int chunk = blockIdx.x / H, h = blockIdx.x - chunk * H;
+  const int b_first = chunk * windows_per_chunk;
+  const int b_end = min(bnw, b_first + windows_per_chunk);
+  const float* bias_h = bias + static_cast<int64_t>(h) * N * N;
+
+  for (int e = threadIdx.x; e < ld; e += kThreads) zero[e] = 0.f;
+  for (int e = threadIdx.x; e < N * N; e += kThreads) bias_smem[e] = __ldg(bias_h + e);
+
+  const TileCopy<float> copy(kThreads, D);
+  auto load = [&](int b, int stage) {
+    float* dst = tiles + stage * 3 * tile;
+    copy(q, sq, b, h, N, ld, dst);
+    copy(k, sk, b, h, N, ld, dst + tile);
+    copy(v, sv, b, h, N, ld, dst + 2 * tile);
+    cp_async_commit();
+  };
+
+  float mask_next[kMaskAhead ? kNT : 1][4];
+
+  load(b_first, 0);
+  if constexpr (kMaskAhead) load_mask_frags(mask_next, mask, b_first, nW, N, r0);
+  for (int b = b_first, it = 0; b < b_end; ++b, ++it) {
+    const int cur = it & 1;
+    cp_async_wait_all();
+    __syncthreads();  // the window's tiles are in; every warp is done with the last one
+    if (b + 1 < b_end) load(b + 1, cur ^ 1);
+    if (m0 >= N) continue;  // a warp of padded query rows only
+    const float* qs = tiles + cur * 3 * tile;
+    const float* ks = qs + tile;
+    const float* vs = ks + tile;
+
+    float p[kNT][4];
+    rows_times_rows_t_3x<kNT>(qs, ks, zero, m0, N, D, ld, p);
+    const float* mask_b = mask + static_cast<int64_t>(b % nW) * N * N;
+    softmax_frags<kNT>(p, bias_smem, [&](int t, int e) {
+      if constexpr (kMaskAhead) return mask_next[t][e];
+      return __ldg(mask_b + (e < 2 ? r0 : r1) * N + t * 8 + c2 + (e & 1));
+    }, r0, N, scale);
+    if (kMaskAhead && b + 1 < b_end) load_mask_frags(mask_next, mask, b + 1, nW, N, r0);
+
+    float* out_w = out + b * so.b + h * so.h;
+    for (int dc = 0; dc < D; dc += kTf32Cols) {
+      float acc[kTf32Cols / 8][4];
+      frags_times_rows_3x<kNT>(p, vs, zero, N, D, ld, dc, acc);
+      store_rows_f32(out_w, so.n, m0, dc, N, D, 1.f, acc);
+    }
+  }
+}
+
+// Shared memory of the split-TF32 backward, in bytes (fp32): two sets of
+// the q, k, v, do tiles [N][D + 4] and a row of zeros, the p and ds tiles
+// [kNP][kNP + 4] and the head's bias [N][N].
+size_t bwd_tf32_smem_bytes(int N, int D) {
+  constexpr size_t np = kTf32BwdMaxN;
+  return 4 * ((8 * static_cast<size_t>(N) + 1) * (D + 4) + 2 * np * (np + 4) +
+              static_cast<size_t>(N) * N);
+}
+
+// The bf16 backward's design (wa_bwd_mma_kernel, N <= 64) for fp32 q, k,
+// v, do, with all five products in split TF32. One block per (chunk of
+// windows, head): kNP / 16 warps, each owning 16 query rows of the logits
+// and 16 key rows of dk and dv. Per window:
+//   p = softmax(q k^T scale + bias + mask) -> the p tile
+//   dp = do v^T; ds = p (dp - rowsum(dp p)) -> the ds tile; dbias sums += ds
+//   dq = ds k scale (ds from the accumulator fragments)
+//   one block barrier; dv = p^T do and dk = ds^T q scale from the tiles
+// with the next window's q, k, v, do on their way by cp.async, and each
+// thread's mask values of the next window loaded during dq. Two tiles
+// (p and ds) take one barrier a window where the bf16 kernel's one tile
+// takes three.
+template <int kNP, int kD>
+__global__ void __launch_bounds__(kNP * 2, kTf32BwdMinBlocks)
+wa_bwd_tf32x3_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, const float* __restrict__ dout,
+                     const float* __restrict__ bias, const float* __restrict__ mask,
+                     float* __restrict__ dq, float* __restrict__ dk, float* __restrict__ dv,
+                     float* __restrict__ partial, Strides sq, Strides sk, Strides sv,
+                     Strides sdo, Strides sdq, Strides sdk, Strides sdv, int bnw, int H, int N,
+                     int d_arg, int nW, int windows_per_chunk, float scale) {
+  const int D = kD > 0 ? kD : d_arg;
+  constexpr int kNT = kNP / 8;
+  constexpr int kThreads = kNP * 2;
+  extern __shared__ __align__(16) unsigned char wa_mma_smem[];
+  const int ld = D + 4, lds = kNP + 4, tile = N * ld;
+  float* tiles = reinterpret_cast<float*>(wa_mma_smem);
+  float* zero = tiles + 2 * 4 * tile;
+  float* ps = zero + ld;               // [kNP][lds]
+  float* dss = ps + kNP * lds;         // [kNP][lds]
+  float* bias_smem = dss + kNP * lds;  // [N][N]
+
+  const int lane = threadIdx.x & 31, m0 = (threadIdx.x >> 5) * 16;
+  const int r0 = m0 + (lane >> 2), r1 = r0 + 8, c2 = (lane & 3) * 2;
+  const int chunk = blockIdx.x / H, h = blockIdx.x - chunk * H;
+  const int b_first = chunk * windows_per_chunk;
+  const int b_end = min(bnw, b_first + windows_per_chunk);
+  const float* bias_h = bias + static_cast<int64_t>(h) * N * N;
+  // a warp whose 16 rows are all padding: none of its rows of p or ds is
+  // read (a query tile read starts below N), so it only copies and waits
+  const bool rows = m0 < N;
+
+  for (int e = threadIdx.x; e < ld; e += kThreads) zero[e] = 0.f;
+  for (int e = threadIdx.x; e < N * N; e += kThreads) bias_smem[e] = __ldg(bias_h + e);
+  float sums[kNT][4];
+#pragma unroll
+  for (int j = 0; j < kNT; ++j) sums[j][0] = sums[j][1] = sums[j][2] = sums[j][3] = 0.f;
+
+  const TileCopy<float> copy(kThreads, D);
+  auto load = [&](int b, int stage) {
+    float* dst = tiles + stage * 4 * tile;
+    copy(q, sq, b, h, N, ld, dst);
+    copy(k, sk, b, h, N, ld, dst + tile);
+    copy(v, sv, b, h, N, ld, dst + 2 * tile);
+    copy(dout, sdo, b, h, N, ld, dst + 3 * tile);
+    cp_async_commit();
+  };
+
+  float mask_next[kNT][4];
+
+  load(b_first, 0);
+  load_mask_frags(mask_next, mask, b_first, nW, N, r0);
+  for (int b = b_first, it = 0; b < b_end; ++b, ++it) {
+    const int cur = it & 1;
+    cp_async_wait_all();
+    __syncthreads();  // the window's tiles are in; every warp is done with the last one
+    if (b + 1 < b_end) load(b + 1, cur ^ 1);
+    const float* qs = tiles + cur * 4 * tile;
+    const float* ks = qs + tile;
+    const float* vs = ks + tile;
+    const float* dos = vs + tile;
+
+    if (rows) {
+      float p[kNT][4];
+      rows_times_rows_t_3x<kNT>(qs, ks, zero, m0, N, D, ld, p);
+      softmax_frags<kNT>(p, bias_smem, [&](int j, int e) { return mask_next[j][e]; }, r0, N,
+                         scale);
+#pragma unroll
+      for (int j = 0; j < kNT; ++j) {
+        *reinterpret_cast<float2*>(ps + r0 * lds + j * 8 + c2) = make_float2(p[j][0], p[j][1]);
+        *reinterpret_cast<float2*>(ps + r1 * lds + j * 8 + c2) = make_float2(p[j][2], p[j][3]);
+      }
+
+      float ds[kNT][4];
+      rows_times_rows_t_3x<kNT>(dos, vs, zero, m0, N, D, ld, ds);
+      float d0 = 0.f, d1 = 0.f;
+#pragma unroll
+      for (int j = 0; j < kNT; ++j) {
+        d0 = fmaf(p[j][0], ds[j][0], fmaf(p[j][1], ds[j][1], d0));
+        d1 = fmaf(p[j][2], ds[j][2], fmaf(p[j][3], ds[j][3], d1));
+      }
+      d0 = quad_sum(d0);
+      d1 = quad_sum(d1);
+#pragma unroll
+      for (int j = 0; j < kNT; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          ds[j][e] = p[j][e] * (ds[j][e] - (e < 2 ? d0 : d1));
+          sums[j][e] += ds[j][e];
+        }
+        *reinterpret_cast<float2*>(dss + r0 * lds + j * 8 + c2) = make_float2(ds[j][0], ds[j][1]);
+        *reinterpret_cast<float2*>(dss + r1 * lds + j * 8 + c2) = make_float2(ds[j][2], ds[j][3]);
+      }
+      if (b + 1 < b_end) load_mask_frags(mask_next, mask, b + 1, nW, N, r0);
+
+      float* dq_w = dq + b * sdq.b + h * sdq.h;
+      for (int dc = 0; dc < D; dc += kTf32Cols) {
+        float acc[kTf32Cols / 8][4];
+        frags_times_rows_3x<kNT>(ds, ks, zero, N, D, ld, dc, acc);
+        store_rows_f32(dq_w, sdq.n, m0, dc, N, D, scale, acc);
+      }
+    }
+    __syncthreads();  // every warp's rows of p and ds are in their tiles
+    if (!rows) continue;
+
+    float* dv_w = dv + b * sdv.b + h * sdv.h;
+    float* dk_w = dk + b * sdk.b + h * sdk.h;
+    for (int dc = 0; dc < D; dc += kTf32Cols) {
+      float acc[kTf32Cols / 8][4];
+      cols_t_times_rows_3x<kNP>(ps, lds, dos, zero, N, D, ld, m0, dc, acc);
+      store_rows_f32(dv_w, sdv.n, m0, dc, N, D, 1.f, acc);
+      cols_t_times_rows_3x<kNP>(dss, lds, qs, zero, N, D, ld, m0, dc, acc);
+      store_rows_f32(dk_w, sdk.n, m0, dc, N, D, scale, acc);
+    }
+  }
+
+  float* mine = partial + (static_cast<int64_t>(chunk) * H + h) * N * N;
+#pragma unroll
+  for (int j = 0; j < kNT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = e < 2 ? r0 : r1, col = j * 8 + c2 + (e & 1);
+      if (i < N && col < N) mine[i * N + col] = sums[j][e];
+    }
 }
 
 int windows_per_chunk(int bnw, int H, int target_blocks = kBwdTargetBlocks) {
@@ -1019,20 +1465,36 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* dout,
   return -1;
 }
 
-template <int kNP>
-int launch_bwd_mma_sized(const void* q, const void* k, const void* v, const void* dout,
-                         const float* bias, const float* mask, void* dq, void* dk, void* dv,
-                         float* partial, float* dbias, const Strides* s, int bnw, int H, int N,
-                         int D, int nW, int chunks, float scale, cudaStream_t stream) {
+// A persistent forward (wa_fwd_mma_kernel, wa_fwd_tf32x3_kernel) on `chunks`
+// chunks of windows, as its chunks query gave them; -1 where the chunks or
+// the shared memory do not fit.
+template <typename T, typename K>
+int launch_fwd_chunked(K kernel, int threads, size_t smem, const void* q, const void* k,
+                       const void* v, const float* bias, const float* mask, void* out,
+                       const Strides* s, int bnw, int H, int N, int D, int nW, int chunks,
+                       float scale, cudaStream_t stream) {
   const int wpc = (bnw + chunks - 1) / chunks;
-  if (chunks < 1 || chunks != (bnw + wpc - 1) / wpc) return -1;
-  const size_t smem = mma_smem_bytes(N, D);
-  if (smem > kMaxDynamicSmem) return -1;
-  using bf16 = __nv_bfloat16;
-  wa_bwd_mma_kernel<kNP><<<chunks * H, kNP * 2, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const bf16*>(dout), bias, mask, static_cast<bf16*>(dq), static_cast<bf16*>(dk),
-      static_cast<bf16*>(dv), partial, s[0], s[1], s[2], s[3], s[4], s[5], s[6], bnw, H, N, D,
+  if (chunks < 1 || chunks != (bnw + wpc - 1) / wpc || smem > kMaxDynamicSmem) return -1;
+  kernel<<<chunks * H, threads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), bias, mask,
+      static_cast<T*>(out), s[0], s[1], s[2], s[3], bnw, H, N, D, nW, wpc, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// A chunked backward (wa_bwd_mma_kernel, wa_bwd_tf32x3_kernel) and the
+// dbias reduction over its chunk partials, likewise.
+template <typename T, typename K>
+int launch_bwd_chunked(K kernel, int threads, size_t smem, const void* q, const void* k,
+                       const void* v, const void* dout, const float* bias, const float* mask,
+                       void* dq, void* dk, void* dv, float* partial, float* dbias,
+                       const Strides* s, int bnw, int H, int N, int D, int nW, int chunks,
+                       float scale, cudaStream_t stream) {
+  const int wpc = (bnw + chunks - 1) / chunks;
+  if (chunks < 1 || chunks != (bnw + wpc - 1) / wpc || smem > kMaxDynamicSmem) return -1;
+  kernel<<<chunks * H, threads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const T*>(dout), bias, mask, static_cast<T*>(dq), static_cast<T*>(dk),
+      static_cast<T*>(dv), partial, s[0], s[1], s[2], s[3], s[4], s[5], s[6], bnw, H, N, D,
       nW, wpc, scale);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -1061,44 +1523,41 @@ int resident_blocks(K kernel, int threads, size_t smem) {
   return sms * max(1, per_sm);
 }
 
-// Chunks of windows for the tensor-core backward: about one wave (chunks
-// times H rounded up to the resident blocks), or fewer when there are fewer
-// windows.
-template <int kNP>
-int mma_chunks(int bnw, int H, int N, int D) {
-  const int blocks = resident_blocks(wa_bwd_mma_kernel<kNP>, kNP * 2, mma_smem_bytes(N, D));
+// Chunks of windows for the bf16 backward: about one wave (chunks times H
+// rounded up to the resident blocks), or fewer when there are fewer windows.
+template <typename K>
+int rounded_wave_chunks(K kernel, int threads, size_t smem, int bnw, int H) {
+  const int blocks = resident_blocks(kernel, threads, smem);
   if (blocks < 1) return -1;
   const int wpc = windows_per_chunk(bnw, H, blocks);
   return (bnw + wpc - 1) / wpc;
 }
 
-// Chunks of windows for the tensor-core forward: chunks times H at most the
-// resident blocks, so the grid is one wave. Rounding up as the backward does
-// puts a few blocks in a second wave where H does not divide the resident
-// blocks (H = 24 and 48 at N = 144, one block per SM), and the second wave
-// costs as long as the first.
-template <int kNP>
-int fwd_mma_chunks(int bnw, int H, int N, int D) {
-  const int blocks = resident_blocks(wa_fwd_mma_kernel<kNP>, kNP * 2, fwd_mma_smem_bytes(N, D));
+// Chunks of windows for the forwards and the split-TF32 backward: chunks
+// times H at most the resident blocks, so the grid is one wave. Rounding up
+// as the bf16 backward does puts a few blocks in a second wave where H does
+// not divide the resident blocks (H = 24 and 48 at N = 144 with one block
+// per SM; H = 48 at N = 49 with two), and the second wave costs as long as
+// the first.
+template <typename K>
+int one_wave_chunks(K kernel, int threads, size_t smem, int bnw, int H) {
+  const int blocks = resident_blocks(kernel, threads, smem);
   if (blocks < 1) return -1;
   const int chunks = max(1, min(bnw, blocks / H));
   const int wpc = (bnw + chunks - 1) / chunks;
   return (bnw + wpc - 1) / wpc;
 }
 
-template <int kNP>
-int launch_fwd_mma_sized(const void* q, const void* k, const void* v, const float* bias,
-                         const float* mask, void* out, const Strides* s, int bnw, int H, int N,
-                         int D, int nW, int chunks, float scale, cudaStream_t stream) {
-  const int wpc = (bnw + chunks - 1) / chunks;
-  if (chunks < 1 || chunks != (bnw + wpc - 1) / wpc) return -1;
-  const size_t smem = fwd_mma_smem_bytes(N, D);
-  if (smem > kMaxDynamicSmem) return -1;
-  using bf16 = __nv_bfloat16;
-  wa_fwd_mma_kernel<kNP><<<chunks * H, kNP * 2, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v), bias,
-      mask, static_cast<bf16*>(out), s[0], s[1], s[2], s[3], bnw, H, N, D, nW, wpc, scale);
-  return static_cast<int>(cudaGetLastError());
+// The split-TF32 kernels for a shape: compiled for D = 32 (every Swin
+// variant; its address arithmetic folds into constants), or for any D % 8
+// == 0 read at run time.
+auto fwd_tf32_kernel(int N, int D) {
+  if (N <= 64) return D == 32 ? wa_fwd_tf32x3_kernel<64, 32> : wa_fwd_tf32x3_kernel<64, 0>;
+  return D == 32 ? wa_fwd_tf32x3_kernel<144, 32> : wa_fwd_tf32x3_kernel<144, 0>;
+}
+
+auto bwd_tf32_kernel(int D) {
+  return D == 32 ? wa_bwd_tf32x3_kernel<kTf32BwdMaxN, 32> : wa_bwd_tf32x3_kernel<kTf32BwdMaxN, 0>;
 }
 
 }  // namespace
@@ -1132,28 +1591,48 @@ int window_attention_fwd(const void* q, const void* k, const void* v, const void
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// The tensor-core forward, bf16 only, under the rules of the tensor-core
-// backward below: N <= 144, D % 16 == 0, 16-byte aligned bases and strides
-// of q, k, v that are multiples of 8 elements, and two sets of tiles with
-// the head's bias within a block's shared memory (fwd_mma_smem_bytes), else
-// -1. chunks: window_attention_fwd_mma_chunks(bnw, H, N, D), called on the
-// device before its first launch there. strides: q, k, v, out (12 values).
+// The tensor-core forwards: bf16 (_mma) with D % 16 == 0, fp32 in split
+// TF32 (_tf32x3) with D % 8 == 0; N <= 144, 16-byte aligned bases and
+// strides of q, k, v that are multiples of 16 bytes, and two sets of tiles
+// with the head's bias within a block's shared memory (fwd_mma_smem_bytes,
+// fwd_tf32_smem_bytes), else -1. chunks: the _chunks query of the same
+// name, called on the device before its first launch there. strides: q, k,
+// v, out (12 values).
 int window_attention_fwd_mma_chunks(int bnw, int H, int N, int D) {
   if (N < 1 || N > kMmaMaxN || D < 16 || D % 16 != 0) return -1;
-  return N <= 64 ? fwd_mma_chunks<64>(bnw, H, N, D) : fwd_mma_chunks<144>(bnw, H, N, D);
+  const size_t smem = fwd_mma_smem_bytes(N, D);
+  return N <= 64 ? one_wave_chunks(wa_fwd_mma_kernel<64>, 128, smem, bnw, H)
+                 : one_wave_chunks(wa_fwd_mma_kernel<144>, 288, smem, bnw, H);
 }
 
 int window_attention_fwd_mma(const void* q, const void* k, const void* v, const void* bias,
                              const void* mask, void* out, int bnw, int H, int N, int D, int nW,
                              int chunks, float scale, const long long* strides, void* stream) {
   if (N < 1 || N > kMmaMaxN || D < 16 || D % 16 != 0) return -1;
-  const Strides* s = reinterpret_cast<const Strides*>(strides);
-  const float* bp = static_cast<const float*>(bias);
-  const float* mp = static_cast<const float*>(mask);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (N <= 64)
-    return launch_fwd_mma_sized<64>(q, k, v, bp, mp, out, s, bnw, H, N, D, nW, chunks, scale, st);
-  return launch_fwd_mma_sized<144>(q, k, v, bp, mp, out, s, bnw, H, N, D, nW, chunks, scale, st);
+  using bf16 = __nv_bfloat16;
+  auto kernel = N <= 64 ? wa_fwd_mma_kernel<64> : wa_fwd_mma_kernel<144>;
+  return launch_fwd_chunked<bf16>(kernel, N <= 64 ? 128 : 288, fwd_mma_smem_bytes(N, D), q, k, v,
+                                  static_cast<const float*>(bias), static_cast<const float*>(mask),
+                                  out, reinterpret_cast<const Strides*>(strides), bnw, H, N, D,
+                                  nW, chunks, scale, static_cast<cudaStream_t>(stream));
+}
+
+int window_attention_fwd_tf32x3_chunks(int bnw, int H, int N, int D) {
+  if (N < 1 || N > kMmaMaxN || D < 8 || D % 8 != 0) return -1;
+  return one_wave_chunks(fwd_tf32_kernel(N, D), N <= 64 ? 128 : 288, fwd_tf32_smem_bytes(N, D),
+                         bnw, H);
+}
+
+int window_attention_fwd_tf32x3(const void* q, const void* k, const void* v, const void* bias,
+                                const void* mask, void* out, int bnw, int H, int N, int D, int nW,
+                                int chunks, float scale, const long long* strides, void* stream) {
+  if (N < 1 || N > kMmaMaxN || D < 8 || D % 8 != 0) return -1;
+  return launch_fwd_chunked<float>(fwd_tf32_kernel(N, D), N <= 64 ? 128 : 288,
+                                   fwd_tf32_smem_bytes(N, D), q, k,
+                                   v, static_cast<const float*>(bias),
+                                   static_cast<const float*>(mask), out,
+                                   reinterpret_cast<const Strides*>(strides), bnw, H, N, D, nW,
+                                   chunks, scale, static_cast<cudaStream_t>(stream));
 }
 
 // strides: q, k, v, do, dq, dk, dv (21 values). partial: float scratch of
@@ -1177,15 +1656,18 @@ int window_attention_bwd(const void* q, const void* k, const void* v, const void
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// The tensor-core backward, bf16 only: N <= 144, D % 16 == 0, every base
+// The tensor-core backwards: bf16 (_mma) with N <= 144 and D % 16 == 0,
+// fp32 in split TF32 (_tf32x3) with N <= 64 and D % 8 == 0; every base
 // address a multiple of 16 bytes and every stride of q, k, v, do a multiple
-// of 8 elements (the wrapper checks), and two sets of tiles within a block's
-// shared memory (mma_smem_bytes), else -1. chunks:
-// window_attention_bwd_mma_chunks(bnw, H, N, D), called on the device before
-// its first launch there; scratch: chunks * H * N * N floats.
+// of 16 bytes (the wrapper checks), and two sets of tiles within a block's
+// shared memory (mma_smem_bytes, bwd_tf32_smem_bytes), else -1. chunks: the
+// _chunks query of the same name, called on the device before its first
+// launch there; scratch: chunks * H * N * N floats.
 int window_attention_bwd_mma_chunks(int bnw, int H, int N, int D) {
   if (N < 1 || N > kMmaMaxN || D < 16 || D % 16 != 0) return -1;
-  return N <= 64 ? mma_chunks<64>(bnw, H, N, D) : mma_chunks<144>(bnw, H, N, D);
+  const size_t smem = mma_smem_bytes(N, D);
+  return N <= 64 ? rounded_wave_chunks(wa_bwd_mma_kernel<64>, 128, smem, bnw, H)
+                 : rounded_wave_chunks(wa_bwd_mma_kernel<144>, 288, smem, bnw, H);
 }
 
 int window_attention_bwd_mma(const void* q, const void* k, const void* v, const void* dout,
@@ -1193,17 +1675,34 @@ int window_attention_bwd_mma(const void* q, const void* k, const void* v, const 
                              void* partial, void* dbias, int bnw, int H, int N, int D, int nW,
                              int chunks, float scale, const long long* strides, void* stream) {
   if (N < 1 || N > kMmaMaxN || D < 16 || D % 16 != 0) return -1;
-  const Strides* s = reinterpret_cast<const Strides*>(strides);
-  const float* bp = static_cast<const float*>(bias);
-  const float* mp = static_cast<const float*>(mask);
-  float* pp = static_cast<float*>(partial);
-  float* dbp = static_cast<float*>(dbias);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (N <= 64)
-    return launch_bwd_mma_sized<64>(q, k, v, dout, bp, mp, dq, dk, dv, pp, dbp, s, bnw, H, N, D,
-                                    nW, chunks, scale, st);
-  return launch_bwd_mma_sized<144>(q, k, v, dout, bp, mp, dq, dk, dv, pp, dbp, s, bnw, H, N, D,
-                                   nW, chunks, scale, st);
+  using bf16 = __nv_bfloat16;
+  auto kernel = N <= 64 ? wa_bwd_mma_kernel<64> : wa_bwd_mma_kernel<144>;
+  return launch_bwd_chunked<bf16>(
+      kernel, N <= 64 ? 128 : 288, mma_smem_bytes(N, D), q, k, v, dout,
+      static_cast<const float*>(bias), static_cast<const float*>(mask), dq, dk, dv,
+      static_cast<float*>(partial), static_cast<float*>(dbias),
+      reinterpret_cast<const Strides*>(strides), bnw, H, N, D, nW, chunks, scale,
+      static_cast<cudaStream_t>(stream));
+}
+
+int window_attention_bwd_tf32x3_chunks(int bnw, int H, int N, int D) {
+  if (N < 1 || N > kTf32BwdMaxN || D < 8 || D % 8 != 0) return -1;
+  return one_wave_chunks(bwd_tf32_kernel(D), 2 * kTf32BwdMaxN, bwd_tf32_smem_bytes(N, D), bnw,
+                         H);
+}
+
+int window_attention_bwd_tf32x3(const void* q, const void* k, const void* v, const void* dout,
+                                const void* bias, const void* mask, void* dq, void* dk, void* dv,
+                                void* partial, void* dbias, int bnw, int H, int N, int D, int nW,
+                                int chunks, float scale, const long long* strides,
+                                void* stream) {
+  if (N < 1 || N > kTf32BwdMaxN || D < 8 || D % 8 != 0) return -1;
+  return launch_bwd_chunked<float>(
+      bwd_tf32_kernel(D), 2 * kTf32BwdMaxN, bwd_tf32_smem_bytes(N, D), q, k, v,
+      dout, static_cast<const float*>(bias), static_cast<const float*>(mask), dq, dk, dv,
+      static_cast<float*>(partial), static_cast<float*>(dbias),
+      reinterpret_cast<const Strides*>(strides), bnw, H, N, D, nW, chunks, scale,
+      static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -20,21 +20,32 @@ dq/dk/dv come back token-major (``[bnw, H, N, D]`` views of
 
 Types: q, k, v in float32 or bfloat16 (all alike); bias and mask float32;
 out, dq, dk, dv in q's dtype, dbias fp32. The forward and the backward each
-take one of two kernels, by :func:`forward_route` and
+take one of three kernels, by :func:`forward_route` and
 :func:`backward_route`. bfloat16 with ``D % 16 == 0`` and ``N <= 144``
-(every Swin variant) runs on the tensor cores: the forward with p rounded
-to bf16 as the operand of p v, the backward with p rounded as the operand
-of dv and ds as the operand of dq and dk, everything else fp32. float32,
-and any other shape, runs on the CUDA cores in fp32 (tensor cores would
-round fp32 operands to TF32). Whether a tensor-core kernel's tiles fit a
-block's shared memory is the CUDA source's to decide: a shape on that
-route whose tiles do not fit raises. Every output, dbias included, is
-bitwise repeatable: dbias is summed from fp32 ds over chunks of windows in
-a fixed order, with no atomics.
+(every Swin variant) runs on the tensor cores (``"mma"``): the forward with
+p rounded to bf16 as the operand of p v, the backward with p rounded as the
+operand of dv and ds as the operand of dq and dk, everything else fp32.
+float32 with ``D % 8 == 0`` runs on the tensor cores too (``"tf32x3"``), in
+split TF32: each fp32 operand is split as ``hi + lo`` with ``hi = tf32(x)``
+(to nearest) and ``lo = x - hi`` truncated to TF32, and each product is
+summed as ``lo hi + hi lo + hi hi`` in fp32 accumulators; a NaN stays NaN. The split keeps about 21 bits of each
+operand, so the results stay within the fp32 tolerance of the plain
+version (1e-4 of max(1, max |plain|)), whatever
+``torch.backends.cuda.matmul.allow_tf32`` says: that flag governs PyTorch's
+own matrix products, not these kernels. The float32 routes follow where
+the fp32 tiles fit a block's shared memory: the forward at ``N <= 64``
+(``D <= 128``) and at ``N <= 144`` with ``D <= 32``, the backward at ``N <=
+64`` (``D <= 80``; see the route functions). Every other shape runs on the
+CUDA cores in fp32 (``"cuda_core"``). The CUDA source checks the fit again
+at launch: a shape sent down a tensor-core route whose tiles do not fit
+raises. Every output, dbias included, is bitwise
+repeatable: dbias is summed from fp32 ds over chunks of windows in a fixed
+order, with no atomics.
 
 ``LAUNCH_COUNTS`` counts kernel launches (``"fwd"`` and ``"bwd"`` for the
-CUDA-core kernels, ``"fwd_mma"`` and ``"bwd_mma"`` for the tensor-core
-ones): one per launch of each kernel, nowhere else.
+CUDA-core kernels, ``"fwd_mma"`` and ``"bwd_mma"`` for the bf16
+tensor-core ones, ``"fwd_tf32x3"`` and ``"bwd_tf32x3"`` for the fp32
+tensor-core ones): one per launch of each kernel, nowhere else.
 """
 
 from __future__ import annotations
@@ -44,35 +55,63 @@ import functools
 
 import torch
 
-LAUNCH_COUNTS = {"fwd": 0, "fwd_mma": 0, "bwd": 0, "bwd_mma": 0}
+LAUNCH_COUNTS = {"fwd": 0, "fwd_mma": 0, "fwd_tf32x3": 0, "bwd": 0, "bwd_mma": 0,
+                 "bwd_tf32x3": 0}
 
 SOURCE = "window_attention.cu"
+_TENSOR_CORE_ROUTES = ("mma", "tf32x3")
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _DOES_NOT_FIT = -1
 MMA_MAX_N = 144
 FWD_MMA_MAX_D = 128
+TF32X3_FWD_SMALL_N = 64
+TF32X3_FWD_WIDE_MAX_D = 32
+TF32X3_BWD_MAX_N = 64
+TF32X3_BWD_MAX_D = 80
 
 
 def forward_route(dtype: torch.dtype, n: int, d: int) -> str:
     """The forward kernel for q, k, v of ``dtype`` and shape ``[.., N, D]``:
     ``"mma"`` (tensor cores) for bfloat16 with ``D % 16 == 0``, ``16 <= D <=
-    128`` and ``N <= 144`` (every Swin variant has ``D = 32``), else
-    ``"cuda_core"``. On the tensor-core route the CUDA source decides whether
-    the tiles fit shared memory, and the launch raises where they do not."""
-    if dtype != torch.bfloat16 or d % 16 or not 16 <= d <= FWD_MMA_MAX_D:
+    128`` and ``N <= 144``; ``"tf32x3"`` (tensor cores, split TF32) for
+    float32 with ``D % 8 == 0`` and ``8 <= D <= 128`` at ``N <= 64``, and with
+    ``D <= 32`` at ``64 < N <= 144`` (every Swin variant has ``D = 32``); else
+    ``"cuda_core"``. Float32 above ``N = 64`` with ``D > 32`` stays on the
+    CUDA cores: two sets of fp32 q, k, v tiles (the window computed and the
+    next one) and the head's bias take 235,184 bytes at ``N = 144``, ``D =
+    40``, over a block's 232,448 (227 KB), while the CUDA-core forward holds
+    one set (195,264 bytes at ``D = 64``). On a tensor-core route the CUDA source checks the fit
+    again, and the launch raises where the tiles do not fit (bf16 at N =
+    144 with D = 128)."""
+    if not 1 <= n <= MMA_MAX_N or not 0 < d <= FWD_MMA_MAX_D:
         return "cuda_core"
-    return "mma" if 1 <= n <= MMA_MAX_N else "cuda_core"
+    if dtype == torch.bfloat16 and d % 16 == 0:
+        return "mma"
+    if (dtype == torch.float32 and d % 8 == 0
+            and (n <= TF32X3_FWD_SMALL_N or d <= TF32X3_FWD_WIDE_MAX_D)):
+        return "tf32x3"
+    return "cuda_core"
 
 
 def backward_route(dtype: torch.dtype, n: int, d: int) -> str:
-    """The backward kernel for q, k, v of ``dtype`` and shape ``[.., N, D]``:
+    """The backward kernel for q, k, v of ``dtype`` and shape ``[.., N, D]``,
+    where the tiles fit a block's shared memory (227 KB on the H100):
     ``"mma"`` (tensor cores) for bfloat16 with ``D % 16 == 0`` and ``N <=
-    144`` where the kernel's tiles fit a block's shared memory (``D <= 128``
-    at ``N <= 64``, ``D <= 32`` above; every Swin variant has ``D = 32``),
-    else ``"cuda_core"``."""
-    if dtype != torch.bfloat16 or d < 16 or d % 16 or not 1 <= n <= MMA_MAX_N:
-        return "cuda_core"
-    return "mma" if d <= (128 if n <= 64 else 32) else "cuda_core"
+    144`` (``D <= 128`` at ``N <= 64``, ``D <= 32`` above); ``"tf32x3"``
+    (tensor cores, split TF32) for float32 with ``D % 8 == 0``, ``D <= 80``
+    and ``N <= 64`` (every Swin variant at window 7: N = 49, D = 32); else
+    ``"cuda_core"``. Float32 at ``N > 64`` (window 12, N = 144) stays on the
+    CUDA cores: even with one set of q, k, v, do tiles (no prefetch of the
+    next window) and one tile for p and ds, its fp32 tiles and the ds sums
+    take 245 KB at D = 32, over a block's 227 KB, and the sums (72 a
+    thread) have no room in registers beside p and ds. ``D = 80`` is the
+    widest float32 head dim whose tiles fit at ``N = 64``."""
+    if dtype == torch.bfloat16 and d >= 16 and d % 16 == 0 and 1 <= n <= MMA_MAX_N:
+        return "mma" if d <= (128 if n <= 64 else 32) else "cuda_core"
+    if (dtype == torch.float32 and d % 8 == 0 and 0 < d <= TF32X3_BWD_MAX_D
+            and 1 <= n <= TF32X3_BWD_MAX_N):
+        return "tf32x3"
+    return "cuda_core"
 
 
 def reset_launch_counts() -> None:
@@ -94,16 +133,16 @@ def build():
         lib.window_attention_bwd_chunks.restype = i32
         lib.window_attention_fwd.argtypes = [ptr] * 6 + [i32] * 6 + [f32, strides, ptr]
         lib.window_attention_fwd.restype = i32
-        lib.window_attention_fwd_mma_chunks.argtypes = [i32] * 4
-        lib.window_attention_fwd_mma_chunks.restype = i32
-        lib.window_attention_fwd_mma.argtypes = [ptr] * 6 + [i32] * 6 + [f32, strides, ptr]
-        lib.window_attention_fwd_mma.restype = i32
         lib.window_attention_bwd.argtypes = [ptr] * 11 + [i32] * 6 + [f32, strides, ptr]
         lib.window_attention_bwd.restype = i32
-        lib.window_attention_bwd_mma_chunks.argtypes = [i32] * 4
-        lib.window_attention_bwd_mma_chunks.restype = i32
-        lib.window_attention_bwd_mma.argtypes = [ptr] * 11 + [i32] * 6 + [f32, strides, ptr]
-        lib.window_attention_bwd_mma.restype = i32
+        for route in _TENSOR_CORE_ROUTES:
+            for which, pointers in (("fwd", 6), ("bwd", 11)):
+                chunks = getattr(lib, f"window_attention_{which}_{route}_chunks")
+                chunks.argtypes = [i32] * 4
+                chunks.restype = i32
+                launch = getattr(lib, f"window_attention_{which}_{route}")
+                launch.argtypes = [ptr] * pointers + [i32] * 6 + [f32, strides, ptr]
+                launch.restype = i32
         lib._iseg_bound = True
     return built
 
@@ -172,17 +211,19 @@ def _launch_fwd(q, k, v, bias, mask, scale: float) -> torch.Tensor:
     bnw, h, n, d = q.shape
     lib = build().lib
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    if forward_route(q.dtype, n, d) == "mma":
+    route = forward_route(q.dtype, n, d)
+    if route in _TENSOR_CORE_ROUTES:
+        what = f"forward (tensor cores, {route})"
         q, k, v = (_aligned16(t) for t in (q, k, v))
-        chunks = _mma_chunks("fwd", q.device.index, bnw, h, n, d)
+        chunks = _tensor_core_chunks(f"fwd_{route}", q.device.index, bnw, h, n, d)
         if chunks < 1:
-            _raise_on(_DOES_NOT_FIT, "forward (tensor cores)", q)
-        err = lib.window_attention_fwd_mma(
+            _raise_on(_DOES_NOT_FIT, what, q)
+        err = getattr(lib, f"window_attention_fwd_{route}")(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), mask.data_ptr(),
             out.data_ptr(), bnw, h, n, d, mask.shape[0], chunks, float(scale),
             _strides(q, k, v, out), stream)
-        _raise_on(err, "forward (tensor cores)", q)
-        LAUNCH_COUNTS["fwd_mma"] += 1
+        _raise_on(err, what, q)
+        LAUNCH_COUNTS[f"fwd_{route}"] += 1
         return out
     err = lib.window_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), mask.data_ptr(),
@@ -194,23 +235,21 @@ def _launch_fwd(q, k, v, bias, mask, scale: float) -> torch.Tensor:
 
 
 def _aligned16(t: torch.Tensor) -> torch.Tensor:
-    """``t`` itself where its base address is a multiple of 16 bytes and its
-    window, head and token strides of 8 elements (the tensor-core kernel
-    loads 16-byte pieces), else a contiguous copy, which is."""
-    if t.data_ptr() % 16 == 0 and all(s % 8 == 0 for s in t.stride()[:3]):
+    """``t`` itself where its base address and its window, head and token
+    strides are multiples of 16 bytes (the tensor-core kernels load 16-byte
+    pieces: 8 bf16 or 4 fp32 elements), else a contiguous copy, which is."""
+    if t.data_ptr() % 16 == 0 and all(s * t.element_size() % 16 == 0 for s in t.stride()[:3]):
         return t
     return torch.empty(t.shape, dtype=t.dtype, device=t.device).copy_(t)
 
 
 @functools.lru_cache(maxsize=256)
-def _mma_chunks(which: str, device_index: int, bnw: int, h: int, n: int, d: int) -> int:
-    """Chunks of windows of the tensor-core forward or backward (``which``)
-    on the current device (an occupancy query of the CUDA source), once per
-    kernel, device and shape; -1 where its tiles do not fit."""
-    lib = build().lib
-    query = lib.window_attention_fwd_mma_chunks if which == "fwd" else \
-        lib.window_attention_bwd_mma_chunks
-    return query(bnw, h, n, d)
+def _tensor_core_chunks(which: str, device_index: int, bnw: int, h: int, n: int, d: int) -> int:
+    """Chunks of windows of a tensor-core kernel (``which``: ``"fwd_mma"``,
+    ``"bwd_tf32x3"``, ...) on the current device (an occupancy query of the
+    CUDA source), once per kernel, device and shape; -1 where its tiles do
+    not fit."""
+    return getattr(build().lib, f"window_attention_{which}_chunks")(bnw, h, n, d)
 
 
 def _launch_bwd(q, k, v, bias, mask, dout, scale: float):
@@ -223,19 +262,21 @@ def _launch_bwd(q, k, v, bias, mask, dout, scale: float):
     dbias = torch.empty_like(bias)
     lib = build().lib
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    if backward_route(q.dtype, n, d) == "mma":
+    route = backward_route(q.dtype, n, d)
+    if route in _TENSOR_CORE_ROUTES:
+        what = f"backward (tensor cores, {route})"
         q, k, v, dout = (_aligned16(t) for t in (q, k, v, dout))
-        chunks = _mma_chunks("bwd", q.device.index, bnw, h, n, d)
+        chunks = _tensor_core_chunks(f"bwd_{route}", q.device.index, bnw, h, n, d)
         if chunks < 1:
-            _raise_on(_DOES_NOT_FIT, "backward (tensor cores)", q)
+            _raise_on(_DOES_NOT_FIT, what, q)
         partial = torch.empty((chunks, h, n, n), dtype=torch.float32, device=q.device)
-        err = lib.window_attention_bwd_mma(
+        err = getattr(lib, f"window_attention_bwd_{route}")(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), bias.data_ptr(),
             mask.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), partial.data_ptr(),
             dbias.data_ptr(), bnw, h, n, d, mask.shape[0], chunks, float(scale),
             _strides(q, k, v, dout, dq, dk, dv), stream)
-        _raise_on(err, "backward (tensor cores)", q)
-        LAUNCH_COUNTS["bwd_mma"] += 1
+        _raise_on(err, what, q)
+        LAUNCH_COUNTS[f"bwd_{route}"] += 1
         return dq, dk, dv, dbias
     chunks = lib.window_attention_bwd_chunks(bnw, h)
     partial = torch.empty((chunks, h, n, n), dtype=torch.float32, device=q.device)

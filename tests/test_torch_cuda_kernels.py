@@ -16,7 +16,10 @@ outputs that are rounded to bf16 get 1e-2 of it. The beam cache gather is a
 copy: bitwise equal to its plain version for every dtype and slab size. The
 window-attention forward and backward in bf16 run on the tensor cores (p,
 and in the backward ds, rounded to bf16 as operands): 1e-2 of max(1, max
-|plain|), 1e-3 for dbias.
+|plain|), 1e-3 for dbias. In fp32 they run on the tensor cores in split
+TF32 (hi + lo operands, lo hi + hi lo + hi hi products), which keeps them
+within the fp32 tolerance: 1e-4 of max(1, max |plain|) at Swin-L's shapes,
+rtol and atol 2e-5 at the small ones.
 """
 
 import numpy as np
@@ -243,11 +246,15 @@ def _wa_inputs(device, bnw, h, n, d, nw, dtype, seed=0, packed=False):
     return q, k, v, bias, mask, dout
 
 
-def _wa_counts(dtype, n, d):
-    """The launch counts of one forward and one backward, by route."""
-    fwd, bwd = wa.forward_route(dtype, n, d), wa.backward_route(dtype, n, d)
-    return {"fwd": int(fwd == "cuda_core"), "fwd_mma": int(fwd == "mma"),
-            "bwd": int(bwd == "cuda_core"), "bwd_mma": int(bwd == "mma")}
+def _wa_counts(dtype, n, d, backward=True):
+    """The launch counts of one forward and (unless not ``backward``) one
+    backward, by route."""
+    counts = dict.fromkeys(wa.LAUNCH_COUNTS, 0)
+    for which, route in (("fwd", wa.forward_route(dtype, n, d)),
+                         ("bwd", wa.backward_route(dtype, n, d) if backward else None)):
+        if route is not None:
+            counts[which if route == "cuda_core" else f"{which}_{route}"] = 1
+    return counts
 
 
 def _wa_run(fn, q, k, v, bias, mask, dout, scale):
@@ -306,7 +313,7 @@ SWIN_L_STAGES = {"stage0": (6, 361, 121), "stage1": (12, 100, 36), "stage2": (24
                  "stage3": (48, 9, 4)}
 
 
-def _swin_inputs(device, stage, window, shifted, seed=0):
+def _swin_inputs(device, stage, window, shifted, seed=0, dtype=torch.bfloat16):
     """The layouts the Swin block gives (q, k, v views of one packed
     projection, a token-major incoming gradient) and its shift mask."""
     from iseg_tpu_torch.backbones.swin import _shift_attn_mask
@@ -316,9 +323,9 @@ def _swin_inputs(device, stage, window, shifted, seed=0):
     n, d = window * window, 32
     rng = np.random.RandomState(seed)
     qkv = torch.tensor(rng.randn(nw, n, 3, heads, d).astype(np.float32), device=device)
-    q, k, v = (t.permute(0, 2, 1, 3) for t in qkv.to(torch.bfloat16).unbind(2))
+    q, k, v = (t.permute(0, 2, 1, 3) for t in qkv.to(dtype).unbind(2))
     dout = torch.tensor(rng.randn(nw, n, heads, d).astype(np.float32), device=device)
-    dout = dout.to(torch.bfloat16).permute(0, 2, 1, 3)
+    dout = dout.to(dtype).permute(0, 2, 1, 3)
     bias = torch.tensor((rng.randn(heads, n, n) * 0.1).astype(np.float32), device=device)
     side = int(np.sqrt(nw)) * window
     mask = (_shift_attn_mask(side, side, window, window // 2) if shifted
@@ -339,7 +346,7 @@ def test_cuda_window_attention_tensor_core_backward_at_swin_l_stages(cuda_device
     scale = 1.0 / np.sqrt(32)
     wa.reset_launch_counts()
     got = _wa_run(wa.window_attention, *args, scale)
-    assert wa.LAUNCH_COUNTS == {"fwd": 0, "fwd_mma": 1, "bwd": 0, "bwd_mma": 1}
+    assert wa.LAUNCH_COUNTS == {**dict.fromkeys(wa.LAUNCH_COUNTS, 0), "fwd_mma": 1, "bwd_mma": 1}
     want = _wa_run(wa.window_attention_reference, *args, scale)
     for name, a, b in zip(("out", "dq", "dk", "dv", "dbias"), got, want):
         assert np.isfinite(a).all(), name
@@ -412,7 +419,7 @@ def test_cuda_window_attention_tensor_core_forward_matches_plain_version(cuda_de
                                         packed=packed)
     wa.reset_launch_counts()
     got = _wa_forward(wa.window_attention, q, k, v, bias, mask, 0.17)
-    assert wa.LAUNCH_COUNTS == {"fwd": 0, "fwd_mma": 1, "bwd": 0, "bwd_mma": 0}
+    assert wa.LAUNCH_COUNTS == _wa_counts(torch.bfloat16, n, 32, backward=False)
     want = _wa_forward(wa.window_attention_reference, q, k, v, bias, mask, 0.17).float()
     assert got.dtype == torch.bfloat16 and bool(torch.isfinite(got).all())
     err = float((got.float() - want).abs().max())
@@ -439,6 +446,136 @@ def test_cuda_window_attention_tensor_core_forward_raises_where_tiles_do_not_fit
     with pytest.raises(ValueError, match="do not fit"):
         wa.window_attention(q, q, q, zeros, zeros, 1.0)
     assert not any(wa.LAUNCH_COUNTS.values())
+
+
+def _assert_within_wa_tol_f32(got, want):
+    """chip_smoke.py's WA_TOL for float32: 1e-4 of max(1, max |plain|) for
+    out, dq, dk, dv and dbias."""
+    for name, a, b in zip(("out", "dq", "dk", "dv", "dbias"), got, want):
+        assert np.isfinite(a).all(), name
+        tol = 1e-4 * max(1.0, np.abs(b).max())
+        np.testing.assert_allclose(a, b, rtol=0, atol=tol, err_msg=name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shifted", [False, True], ids=["unshifted", "shifted"])
+@pytest.mark.parametrize("window", [7, 12], ids=["n49", "n144"])
+@pytest.mark.parametrize("stage", sorted(SWIN_L_STAGES))
+def test_cuda_window_attention_split_tf32_at_swin_l_stages(cuda_device, stage, window, shifted):
+    """fp32 at Swin-L's stage shapes (one image's windows) takes the
+    split-TF32 tensor-core forward, and at window 7 the split-TF32 backward
+    (window 12's backward stays on the CUDA cores), within WA_TOL."""
+    args = _swin_inputs(cuda_device, stage, window, shifted, dtype=torch.float32)
+    scale = 1.0 / np.sqrt(32)
+    wa.reset_launch_counts()
+    got = _wa_run(wa.window_attention, *args, scale)
+    n = window * window
+    assert wa.forward_route(torch.float32, n, 32) == "tf32x3"
+    assert wa.backward_route(torch.float32, n, 32) == ("tf32x3" if window == 7 else "cuda_core")
+    assert wa.LAUNCH_COUNTS == _wa_counts(torch.float32, n, 32)
+    want = _wa_run(wa.window_attention_reference, *args, scale)
+    _assert_within_wa_tol_f32(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [7, 12], ids=["n49", "n144"])
+def test_cuda_window_attention_split_tf32_is_bitwise_repeatable(cuda_device, window):
+    args = _swin_inputs(cuda_device, "stage2", window, shifted=True, seed=5, dtype=torch.float32)
+    first = _wa_run(wa.window_attention, *args, 0.17)
+    second = _wa_run(wa.window_attention, *args, 0.17)
+    for name, a, b in zip(("out", "dq", "dk", "dv", "dbias"), first, second):
+        np.testing.assert_array_equal(a, b, err_msg=name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,d", [(64, 80), (16, 8), (20, 24), (144, 32)],
+                         ids=["n64_d80", "n16_d8", "n20_d24", "n144_d32"])
+def test_cuda_window_attention_split_tf32_at_the_route_limits(cuda_device, n, d):
+    """The widest fp32 head dim the split-TF32 backward takes (80 at N =
+    64), the narrowest (8), a head dim that is no multiple of 16, and N =
+    144 (forward only), on views of a packed qkv: WA_TOL."""
+    args = _wa_inputs(cuda_device, 7, 2, n, d, 3, torch.float32, packed=True)
+    wa.reset_launch_counts()
+    got = _wa_run(wa.window_attention, *args, 1.0 / np.sqrt(d))
+    assert wa.LAUNCH_COUNTS == _wa_counts(torch.float32, n, d)
+    assert wa.LAUNCH_COUNTS["fwd_tf32x3"] == 1
+    want = _wa_run(wa.window_attention_reference, *args, 1.0 / np.sqrt(d))
+    _assert_within_wa_tol_f32(got, want)
+
+
+@pytest.mark.cuda
+def test_cuda_window_attention_split_tf32_takes_misaligned_views(cuda_device):
+    """fp32 q, k, v, do whose base address or token stride do not allow
+    16-byte loads are copied for the split-TF32 kernels; a view at a
+    4-element stride is taken as it is; the results are the same."""
+    q, k, v, bias, mask, dout = _wa_inputs(cuda_device, 6, 3, 49, 32, 3, torch.float32)
+    storage = torch.zeros(q.numel() + 1, dtype=torch.float32, device=cuda_device)
+    q_off = storage[1:].view(q.shape).copy_(q)  # 4 bytes off a 16-byte boundary
+    assert q_off.data_ptr() % 16 == 4
+    wide = torch.zeros((6, 3, 49, 36), device=cuda_device)
+    k_wide = wide[..., :32].copy_(k)  # token stride 36 floats: 144 bytes
+    assert wa._aligned16(k_wide) is k_wide and wa._aligned16(q_off) is not q_off
+    wa.reset_launch_counts()
+    got = _wa_run(wa.window_attention, q_off, k_wide, v, bias, mask, dout, 0.2)
+    assert wa.LAUNCH_COUNTS["fwd_tf32x3"] == 1 and wa.LAUNCH_COUNTS["bwd_tf32x3"] == 1
+    want = _wa_run(wa.window_attention, q, k, v, bias, mask, dout, 0.2)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [40, 64])
+def test_cuda_window_attention_f32_forward_at_n144_wide_heads_takes_the_cuda_cores(cuda_device,
+                                                                                    d):
+    """fp32 at N = 144 with a head dim above 32, whose split-TF32 tiles do
+    not fit a block, runs the CUDA-core forward within WA_TOL."""
+    assert wa.forward_route(torch.float32, 144, d) == "cuda_core"
+    q, k, v, bias, mask, _ = _wa_inputs(cuda_device, 7, 2, 144, d, 3, torch.float32,
+                                        packed=True)
+    wa.reset_launch_counts()
+    got = _wa_forward(wa.window_attention, q, k, v, bias, mask, 1.0 / np.sqrt(d))
+    assert wa.LAUNCH_COUNTS == {**dict.fromkeys(wa.LAUNCH_COUNTS, 0), "fwd": 1}
+    want = _wa_forward(wa.window_attention_reference, q, k, v, bias, mask, 1.0 / np.sqrt(d))
+    err = float((got - want).abs().max())
+    assert err <= 1e-4 * max(1.0, float(want.abs().max())), err
+
+
+@pytest.mark.cuda
+def test_cuda_window_attention_split_tf32_raises_where_tiles_do_not_fit(cuda_device,
+                                                                        monkeypatch):
+    """A shape sent down the split-TF32 forward whose tiles do not fit a
+    block's shared memory (N = 144, D = 64; the route function sends it to
+    the CUDA cores) raises at launch: nothing falls back."""
+    monkeypatch.setattr(wa, "forward_route", lambda dtype, n, d: "tf32x3")
+    q = torch.zeros((2, 1, 144, 64), device=cuda_device)
+    zeros = torch.zeros((1, 144, 144), device=cuda_device)
+    wa.reset_launch_counts()
+    with pytest.raises(ValueError, match="do not fit"):
+        wa.window_attention(q, q, q, zeros, zeros, 1.0)
+    assert not any(wa.LAUNCH_COUNTS.values())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [7, 12], ids=["n49", "n144"])
+def test_cuda_window_attention_split_tf32_keeps_nan(cuda_device, window):
+    """A NaN in q, made on the card (0 * inf), reaches out, dq, dk, dv and
+    dbias where it reaches them in the plain version, and every other value
+    stays within WA_TOL."""
+    q, k, v, bias, mask, dout = _swin_inputs(cuda_device, "stage3", window, shifted=False,
+                                             seed=6, dtype=torch.float32)
+    q = q.clone()
+    q[1, 2, 5, 7] = torch.zeros((), device=cuda_device) * torch.tensor(float("inf"),
+                                                                       device=cuda_device)
+    wa.reset_launch_counts()
+    got = _wa_run(wa.window_attention, q, k, v, bias, mask, dout, 0.17)
+    assert wa.LAUNCH_COUNTS["fwd_tf32x3"] == 1
+    want = _wa_run(wa.window_attention_reference, q, k, v, bias, mask, dout, 0.17)
+    for name, a, b in zip(("out", "dq", "dk", "dv", "dbias"), got, want):
+        nan = np.isnan(b)
+        assert nan.any(), name
+        np.testing.assert_array_equal(np.isnan(a), nan, err_msg=name)
+        tol = 1e-4 * max(1.0, np.abs(b[~nan]).max())
+        np.testing.assert_allclose(a[~nan], b[~nan], rtol=0, atol=tol, err_msg=name)
 
 
 @pytest.mark.cuda

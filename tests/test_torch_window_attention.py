@@ -11,12 +11,20 @@ against the plain version is the ``cuda``-marked case, which skips without
 a card (more of them in ``tests/test_torch_cuda_kernels.py``).
 
 The tensor-core kernels' arithmetic cannot run here; what can is their
-routing rules, and models of their rounding points: the backward's held
-against float64, the forward's (p rounded to bf16 before p v, everything
-else fp32) against the JAX Pallas kernel in interpret mode on the same bf16
-inputs, at Swin's N = 49 and 144, shifted and unshifted, within the
-tolerance the card's check uses (1e-2 of max(1, max |JAX|)).
+routing rules, and models of their rounding points: the bf16 backward's
+held against float64, the bf16 forward's (p rounded to bf16 before p v,
+everything else fp32) against the JAX Pallas kernel in interpret mode on
+the same bf16 inputs, at Swin's N = 49 and 144, shifted and unshifted,
+within the tolerance the card's check uses (1e-2 of max(1, max |JAX|)).
+The fp32 kernels' split TF32 (each operand as hi + lo, hi = tf32(x) rounded
+as ``cvt.rna`` rounds, lo = x - hi truncated to TF32; each product as lo hi
++ hi lo + hi hi in fp32) is modelled in numpy, forward and backward, and held against the JAX
+Pallas kernel in interpret mode on fp32 inputs within the card's fp32
+tolerance (1e-4 of max(1, max |JAX|)), beside a model of one TF32 product
+(hi hi alone) that must fall at least 10x further away.
 """
+
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -129,8 +137,9 @@ def test_torch_window_attention_cuda_kernel_matches_plain_version(cuda_device, n
     data = _inputs(nw=nw)
     twa.reset_launch_counts()
     got = _torch_out_and_grads(twa.window_attention, *data, device=cuda_device)
-    # fp32: the CUDA cores, both ways
-    assert twa.LAUNCH_COUNTS == {"fwd": 1, "fwd_mma": 0, "bwd": 1, "bwd_mma": 0}
+    # fp32 at N = 49, D = 32: the tensor cores in split TF32, both ways
+    assert twa.LAUNCH_COUNTS == {**dict.fromkeys(twa.LAUNCH_COUNTS, 0), "fwd_tf32x3": 1,
+                                 "bwd_tf32x3": 1}
     want = _torch_out_and_grads(twa.window_attention_reference, *data, device=cuda_device)
     for name, a, b in zip(NAMES, got, want):
         np.testing.assert_allclose(a, b, rtol=2e-5, atol=2e-5, err_msg=name)
@@ -147,9 +156,15 @@ def test_torch_window_attention_cuda_kernel_matches_plain_version(cuda_device, n
     (torch.bfloat16, 145, 32, "cuda_core"),  # N > 144
     (torch.bfloat16, 49, 24, "cuda_core"),  # D % 16 != 0
     (torch.bfloat16, 49, 8, "cuda_core"),
-    (torch.float32, 49, 32, "cuda_core"),  # fp32 would need TF32 on the tensor cores
-    (torch.float32, 144, 32, "cuda_core"),
+    (torch.float32, 49, 32, "tf32x3"),  # Swin, window 7: split TF32 on the tensor cores
+    (torch.float32, 144, 32, "cuda_core"),  # window 12: the fp32 tiles do not fit
     (torch.float64, 49, 32, "cuda_core"),
+    (torch.float32, 64, 80, "tf32x3"),  # the widest fp32 head dim that fits
+    (torch.float32, 64, 88, "cuda_core"),
+    (torch.float32, 1, 8, "tf32x3"),
+    (torch.float32, 65, 32, "cuda_core"),  # N > 64
+    (torch.float32, 145, 32, "cuda_core"),  # N > 144
+    (torch.float32, 49, 20, "cuda_core"),  # D % 8 != 0
 ])
 def test_torch_window_attention_backward_route(dtype, n, d, route):
     assert twa.backward_route(dtype, n, d) == route
@@ -206,10 +221,18 @@ def test_torch_window_attention_mma_rounding_points_within_bf16_tolerance(nw):
     (torch.bfloat16, 49, 24, "cuda_core"),  # D % 16 != 0
     (torch.bfloat16, 49, 8, "cuda_core"),
     (torch.bfloat16, 49, 0, "cuda_core"),
-    (torch.float32, 49, 32, "cuda_core"),  # fp32 would need TF32 on the tensor cores
-    (torch.float32, 144, 32, "cuda_core"),
+    (torch.float32, 49, 32, "tf32x3"),  # Swin, window 7: split TF32 on the tensor cores
+    (torch.float32, 144, 32, "tf32x3"),  # window 12: the widest head dim that fits there
     (torch.float16, 49, 32, "cuda_core"),
     (torch.float64, 49, 32, "cuda_core"),
+    (torch.float32, 64, 128, "tf32x3"),  # the widest fp32 head dim
+    (torch.float32, 49, 136, "cuda_core"),  # too wide
+    (torch.float32, 1, 8, "tf32x3"),
+    (torch.float32, 145, 32, "cuda_core"),  # N > 144
+    (torch.float32, 49, 20, "cuda_core"),  # D % 8 != 0
+    (torch.float32, 144, 40, "cuda_core"),  # window 12: the fp32 tiles do not fit
+    (torch.float32, 144, 64, "cuda_core"),
+    (torch.float32, 100, 32, "tf32x3"),
 ])
 def test_torch_window_attention_forward_route(dtype, n, d, route):
     assert twa.forward_route(dtype, n, d) == route
@@ -251,3 +274,100 @@ def test_torch_window_attention_mma_forward_rounding_within_bf16_tolerance(windo
     err = float(np.abs(got.numpy() - want).max())
     assert err <= tol, f"{err:.3e} > {tol:.3e}"
     assert err > 0.0  # the rounding point is there: the two are not the same arithmetic
+
+
+def _tf32(x):
+    """float32 ``x`` rounded to TF32 as ``cvt.rna.tf32.f32`` rounds: to
+    nearest, ties away from zero, 10 stored mantissa bits (the low 13 bits
+    of the fp32 pattern cleared)."""
+    bits = np.ascontiguousarray(x, np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _tf32_truncated(x):
+    """float32 ``x`` truncated to TF32: the low 13 bits cleared."""
+    bits = np.ascontiguousarray(x, np.float32).view(np.uint32)
+    return (bits & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def test_torch_window_attention_tf32_rounding_is_to_nearest_ties_away():
+    ulp = 2.0 ** -10  # a TF32 ulp at 1.0
+    x = np.array([1 + ulp / 2, -(1 + ulp / 2), 1 + ulp / 2 - 2.0 ** -23, 1 + 1.5 * ulp,
+                  3 * 2.0 ** -130, 0.0], np.float32)
+    want = np.array([1 + ulp, -(1 + ulp), 1.0, 1 + 2 * ulp, 3 * 2.0 ** -130, 0.0], np.float32)
+    np.testing.assert_array_equal(_tf32(x), want)
+
+
+def test_torch_window_attention_tf32_split_keeps_nan():
+    """A NaN whose rounding carries into the sign bit (the GPU's own NaN,
+    0x7FFFFFFF, and its negative) has a zero hi, but its lo, truncated, stays
+    NaN, and so does every split product that takes it."""
+    x = np.array([0x7FFFFFFF, 0xFFFFFFFF, 0x7FC00000], np.uint32).view(np.float32)
+    hi = _tf32(x)
+    assert not np.isnan(hi[:2]).any()
+    assert np.isnan(_tf32_truncated(x - hi)).all()
+    prod = _split_product("i,i->i", x, np.ones(3, np.float32))
+    assert np.isnan(prod).all()
+
+
+def _split_product(spec, a, b, correction=True):
+    """``einsum(spec, a, b)`` as the split-TF32 kernels compute it: each
+    operand split as ``hi = tf32(x)``, ``lo = x - hi`` truncated, and the product
+    summed as ``lo hi + hi lo + hi hi`` in fp32 (each product of two TF32
+    values is exact in fp32). ``correction=False`` keeps ``hi hi`` alone:
+    one TF32 product."""
+    a_hi, b_hi = _tf32(a), _tf32(b)
+    out = np.einsum(spec, a_hi, b_hi)
+    if correction:
+        a_lo, b_lo = _tf32_truncated(a - a_hi), _tf32_truncated(b - b_hi)
+        out = np.einsum(spec, a_lo, b_hi) + np.einsum(spec, a_hi, b_lo) + out
+    return out.astype(np.float32)
+
+
+def _split_tf32_model(q, k, v, bias, mask, dout, scale, correction=True):
+    """The split-TF32 forward and backward of window attention in numpy
+    (fp32 everywhere else): out, dq, dk, dv, dbias."""
+    mm = functools.partial(_split_product, correction=correction)
+    scale = np.float32(scale)
+    s = mm("bhqd,bhkd->bhqk", q, k) * scale
+    s = s + bias[None] + mask[np.arange(q.shape[0]) % mask.shape[0]][:, None]
+    e = np.exp(s - s.max(-1, keepdims=True))
+    p = e / e.sum(-1, keepdims=True)
+    dp = mm("bhqd,bhkd->bhqk", dout, v)
+    ds = p * (dp - (dp * p).sum(-1, keepdims=True))
+    return (mm("bhqk,bhkd->bhqd", p, v), mm("bhqk,bhkd->bhqd", ds, k) * scale,
+            mm("bhqk,bhqd->bhkd", ds, q) * scale, mm("bhqk,bhqd->bhkd", p, dout), ds.sum(0))
+
+
+@pytest.mark.parametrize("shifted", [False, True], ids=["unshifted", "shifted"])
+@pytest.mark.parametrize("window", [7, 12], ids=["n49", "n144"])
+def test_torch_window_attention_split_tf32_model_matches_pallas(window, shifted):
+    """The split-TF32 arithmetic of the fp32 tensor-core kernels keeps out,
+    dq, dk, dv and dbias within 1e-4 of max(1, max |JAX|) of the JAX Pallas
+    kernel (interpret mode, fp32), and one TF32 product (hi hi alone) lies
+    at least 10x further away on out and dq: the check would catch a kernel
+    that dropped the correction products."""
+    from iseg_tpu_torch.backbones.swin import _shift_attn_mask
+
+    n, d, h = window * window, 32, 2
+    side = 2 * window  # four windows per image
+    mask = (_shift_attn_mask(side, side, window, window // 2) if shifted
+            else np.zeros((1, n, n), np.float32))
+    rng = np.random.RandomState(100 + window + int(shifted))
+    bnw = 2 * mask.shape[0] if shifted else 4
+    q, k, v, dout = (rng.randn(bnw, h, n, d).astype(np.float32) for _ in range(4))
+    bias = (rng.randn(h, n, n) * 0.1).astype(np.float32)
+    scale = 1.0 / np.sqrt(d)
+    want = _jax_out_and_grads(
+        lambda q, k, v, b, m: j_window_attention(q, k, v, b, m, scale, True),
+        q, k, v, bias, mask, dout)
+    split = _split_tf32_model(q, k, v, bias, mask, dout, scale)
+    single = _split_tf32_model(q, k, v, bias, mask, dout, scale, correction=False)
+    for name, got, w, one in zip(NAMES, split, want, single):
+        assert got.dtype == np.float32, name
+        err = float(np.abs(got - w).max())
+        tol = 1e-4 * max(1.0, float(np.abs(w).max()))
+        assert err <= tol, f"{name}: {err:.3e} > {tol:.3e}"
+        if name in ("out", "dq"):
+            err_one = float(np.abs(one - w).max())
+            assert err_one >= 10 * err, f"{name}: hi hi alone {err_one:.3e}, split {err:.3e}"
