@@ -2,13 +2,15 @@
 """Smoke run of the PyTorch port (``iseg_tpu_torch``) on one NVIDIA GPU.
 
     python3 chip_smoke.py            # every phase below
-    python3 chip_smoke.py --profile  # and torch.profiler tables of the Swin and InternImage
-                                     # train steps and of Gemma's beam-4 decode steps
+    python3 chip_smoke.py --profile  # and torch.profiler tables of the resident ResNet step and
+                                     # its input stage, of the Swin and InternImage train
+                                     # steps and of Gemma's beam-4 decode steps
     python3 chip_smoke.py --ab OLD   # OLD's kernels and this tree's, timed in turns
 
 Drives the port's four main paths at full width, with random weights from
 seed 0. Three train and serve a segmentation model on one fixed synthetic
-batch each:
+batch each (the ResNet one also through the training system, from shards
+on the card: phase 5b):
 
 * ResNet: bench.py's headline training configuration, ResNet-50 (output
   stride 16, deep stem, slim stacks, multi-grid) + ASPP(256), 21 classes,
@@ -78,6 +80,29 @@ Phases, in order; any failure raises and the script exits non-zero:
    and dropout draw gives the fused first step's loss; then its ms/step;
 5. ResNet serve: single-scale inference with the trained weights agrees
    with the fused model's low-resolution logits;
+5b. system: the ResNet configuration trained as a user of the library
+   trains it. ``write_shards`` writes 96 synthetic samples at 640x640 (21
+   classes, 157 MB of uint8), ``DeviceResidentDataset`` uploads them, and
+   ``CoreTrain`` trains 3 epochs x 3 steps from them, each step a gather of
+   the batch on the card, the device augment (scale 0.5-2.0 in steps of
+   0.25, 512x512 crop, flip, then the zero-mean normalization) and the
+   step, with ``ModelHelper(max_to_keep=2)`` and a scalar log: exactly 1 + 1
+   loss-kernel launches a step, finite losses, checkpoints at steps 6 and 9
+   only, the event file read back; ms/step and img/s after the first epoch
+   against phase 3's fixed batch, checkpoint save and restore seconds, peak
+   memory. A fresh trainer restores step 9 with every param, BN statistic
+   and momentum buffer equal bit for bit. A run from scratch sends itself
+   SIGTERM before its 5th batch, stops with a checkpoint at step 5, and a
+   fresh trainer resumes it to step 9 on the uninterrupted run's index
+   vectors, exactly, with its losses (rtol 1e-3). The shards streamed from
+   the host (``make_shard_dataset_fn`` + ``device_prefetch``) and the
+   resident path, both without augment, give the same first-step loss
+   (rtol 1e-5). ``evaluate`` over 16 samples at 640x640, batch 2, scales
+   (0.75, 1.0) + flip + 512x512 sliding window, with the variables
+   restored by ``restore_latest_variables``: its confusion matrix counts
+   every labelled pixel, and its mIoU, per-class IoU and confusion matrix
+   equal ``MeanIoU`` over ``SegBase.inference`` logits of the same batches;
+   ms per eval batch;
 6. Swin train: 2 warm-up + 5 timed steps; losses finite; per step exactly
    24 tensor-core window-attention forward and 24 tensor-core backward
    launches (none of the CUDA-core kernels: autocast gives bf16 q, k, v) and
@@ -144,8 +169,9 @@ its window-attention kernels' time and share).
 The last line holds each number of the four processes, OLD's two and this
 tree's two.
 
-The launch counters are set to 0 just before each main path (3, 6, 6b, 7, 8,
-9, and each request of 10) and read just after; a kernel of a path that was
+The launch counters are set to 0 just before each main path (3, 5b's
+uninterrupted run, 6, 6b, 7, 8, 9, and each request of 10) and read just
+after; a kernel of a path that was
 launched no time there fails the run. Third line from the end: a JSON object with one entry per kernel;
 then the card's name and power limit; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -156,11 +182,14 @@ from __future__ import annotations
 import functools
 import json
 import math
+import os
 import pathlib
 import shutil
+import signal
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -172,11 +201,16 @@ if __name__ == "__main__" and sys.argv[1:2] == ["--ab-child"]:
 
 from iseg_tpu_torch.backbones import get_backbone
 from iseg_tpu_torch.backbones import swin as swin_module
-from iseg_tpu_torch.convert import param_tree
+from iseg_tpu_torch.convert import batch_stats_tree, param_tree
+from iseg_tpu_torch.core.checkpoint import ModelHelper
 from iseg_tpu_torch.core.env import EnvConfig, common_env_setup
+from iseg_tpu_torch.core.evaluation import evaluate
 from iseg_tpu_torch.core.model import SegManaged, SegModelInferenceConfig
 from iseg_tpu_torch.core.optimizer import get_optimizer
-from iseg_tpu_torch.core.train import create_train_state, make_train_step
+from iseg_tpu_torch.core.train import CoreTrain, create_train_state, make_train_step
+from iseg_tpu_torch.data.device_augment import DeviceAugmentConfig, make_device_augment
+from iseg_tpu_torch.data.resident import DeviceResidentDataset
+from iseg_tpu_torch.data.shards import ShardReader, make_shard_dataset_fn, write_shards
 from iseg_tpu_torch.metrics import MeanIoU
 from iseg_tpu_torch.nlp.gemma import (BeamSampler, ContrastiveSampler, GemmaCausalLM,
                                       get_preset)
@@ -192,11 +226,17 @@ from iseg_tpu_torch.ops.kernels import deform_local as dl
 from iseg_tpu_torch.ops.kernels import upsample_ce as uce
 from iseg_tpu_torch.ops.kernels import window_attention as wa
 from iseg_tpu_torch.ops.resize import resize_image
+from iseg_tpu_torch.utils.summary import read_event_scalars
 
 HW = 512
 # ResNet path
 R_BATCH, R_CLASSES, R_OS = 16, 21, 16
 R_WARMUP, R_TIMED, R_UNFUSED_TIMED = 2, 3, 2
+# system path (phase 5b): the ResNet configuration trained from shards
+SYS_SAMPLES, SYS_STORE = 96, 640
+SYS_EPOCHS, SYS_STEPS_PER_EPOCH = 3, 3
+SYS_PREEMPT_BATCH = 5  # the preempted run sends itself SIGTERM before drawing this batch
+SYS_EVAL_SAMPLES, SYS_EVAL_BATCH, SYS_EVAL_WINDOW = 16, 2, 512
 # Swin path
 S_BATCH, S_CLASSES, S_OS = 8, 19, 4
 S_WARMUP, S_TIMED, S_SERVE_BATCH = 2, 5, 2
@@ -262,6 +302,15 @@ DL_TOL = {"f32": 1e-4, "mixed": 1e-2}
 # logits and rounds each to bf16 (2^-9 relative), the kernel upsamples in
 # fp32, and those roundings average out over the 4M pixels' mean
 FUSED_UNFUSED_RTOL = 1e-4
+# resumed vs uninterrupted run (phase 5b), each step's loss, relative. The
+# index stream, the augment, the dropout masks and the fused loss kernels
+# are the same bit for bit; a cuDNN weight-gradient algorithm that sums with
+# atomics would differ from run to run, and 2-8 bf16 steps carry that on
+# (0 measured: the autotuner's choices on the H100 summed alike)
+SYS_RESUME_RTOL = 1e-3
+# stream (host shards) vs resident first-step loss without augment: the
+# same images, weights and dropout masks through the same algorithms
+SYS_STREAM_RTOL = 1e-5
 # served logits vs low-res logits upsampled by hand, or vs the same bf16
 # network on the kernels' plain versions, or window batch 1 vs 2 (other GEMM
 # shapes): bf16 keeps 8 bits, relative to max |logit|
@@ -1216,12 +1265,13 @@ def phase_resnet_train(env, data):
     init_weights = {k: v.detach().clone() for k, v in model.state_dict().items()}
     init_dropout = dropout_generator(model).get_state()
     step_fn = make_train_step(model.build_loss_fn(), compute_dtype=env.compute_dtype)
-    state, losses, launches, _ = train_steps(state, step_fn, data, R_WARMUP, R_TIMED, R_BATCH)
+    state, losses, launches, step_ms = train_steps(state, step_fn, data, R_WARMUP, R_TIMED,
+                                                   R_BATCH)
     log(f"lr now {schedule(state.step):.6f}")
     steps = R_WARMUP + R_TIMED
     expect_launches("ResNet train", launches,
                     {"upsample_ce_fwd": steps, "upsample_ce_bwd": steps})
-    return model, init_weights, init_dropout, losses[0], launches
+    return model, init_weights, init_dropout, losses[0], launches, step_ms
 
 
 def phase_resnet_unfused(env, data, init_weights, init_dropout, fused_first_loss):
@@ -1284,6 +1334,333 @@ def phase_resnet_serve(env, data, fused_model, serve_model):
         low = fused_model.inference(data["image"])
     torch.cuda.synchronize()
     check_served_against_low_res("ResNet", logits, low, (R_BATCH, HW, HW, R_CLASSES))
+
+
+# ---------------------------------------------------------- system path
+
+class SyntheticShardSource:
+    """``write_shards`` source of ``n`` samples at ``size``^2: class-coloured
+    rectangles of classes 1..C-1 on a noisy background of class 0, and an
+    ignore-label frame, from numpy seeded by the sample index."""
+
+    def __init__(self, n: int, size: int, num_class: int):
+        self.n, self.size, self.num_class = n, size, num_class
+        self.palette = np.random.RandomState(0).randint(0, 256, (num_class, 3))
+
+    def __len__(self):
+        return self.n
+
+    def __getitem__(self, i):
+        rng = np.random.RandomState(100003 + i)
+        s = self.size
+        image = rng.normal(127.5, 24.0, (s, s, 3))
+        label = np.zeros((s, s), np.int32)
+        for _ in range(3):
+            k = rng.randint(1, self.num_class)
+            y, x = rng.randint(0, s // 2, 2)
+            h, w = rng.randint(s // 8, s // 2, 2)
+            image[y:y + h, x:x + w] = self.palette[k] + rng.normal(0.0, 12.0, (h, w, 3))
+            label[y:y + h, x:x + w] = k
+        label[:8] = label[-8:] = label[:, :8] = label[:, -8:] = 255
+        return np.clip(image, 0, 255).astype(np.float32), label
+
+
+class TimedModelHelper(ModelHelper):
+    """``ModelHelper`` that keeps the seconds of each save."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.save_seconds = []
+
+    def save(self, step, state):
+        t0 = time.perf_counter()
+        super().save(step, state)
+        self.save_seconds.append(time.perf_counter() - t0)
+
+
+def system_trainer(env, checkpoint_dir=None, resident=None, augment=None, log_dir=None):
+    """A ``CoreTrain`` of the ResNet configuration, initialized from seed 0
+    (every trainer starts from the same weights), recording each step's
+    index vector and loss (a tensor: nothing waits for the device)."""
+    model = build_resnet_model(env, fused=True)
+    tx, schedule = get_optimizer(param_tree(model), "sgd", learning_rate=0.01,
+                                 train_steps=1000)
+    helper = (TimedModelHelper(checkpoint_dir, max_to_keep=2)
+              if checkpoint_dir is not None else None)
+    trainer = CoreTrain(env, model, tx, seed=0, checkpoint_manager=helper,
+                        log_every=SYS_STEPS_PER_EPOCH, log_dir=log_dir, lr_schedule=schedule,
+                        device_augment=augment, resident_dataset=resident)
+    trainer.record = {"index": {}, "loss": {}}
+    inner = trainer.train_step
+
+    def recording_step(state, batch):
+        if resident is not None:
+            trainer.record["index"][state.step + 1] = np.asarray(batch).copy()
+        state, parts = inner(state, batch)
+        trainer.record["loss"][state.step] = parts["loss"]
+        return state, parts
+
+    trainer.train_step = recording_step
+    return trainer
+
+
+def zero_mean_augment(cfg):
+    """The device augment followed by the ZERO_MEAN input normalization
+    (0-255 -> [-1, 1]; the mean-pixel fill becomes 0)."""
+    augment = make_device_augment(cfg)
+
+    def fn(generator, images, labels):
+        image, label = augment(generator, images, labels)
+        return image / 127.5 - 1.0, label
+
+    return fn
+
+
+def recorded_losses(trainer, steps) -> list[float]:
+    return [float(trainer.record["loss"][k]) for k in steps]
+
+
+def phase_system(env, fixed_batch_ms: float, profile: bool) -> dict[str, int]:
+    """Phase 5b: write shards, upload them, train with the device augment
+    through ``CoreTrain`` with checkpoints, restore, preempt and resume,
+    stream the same shards, and evaluate to mIoU. Returns the loss-kernel
+    launches of the uninterrupted resident run. ``profile`` adds the device
+    time of a resident step and of its input stage (gather + augment)."""
+    log("== phase 5b: system (shards -> resident dataset -> device augment -> CoreTrain "
+        "-> checkpoints, preemption, resume -> evaluate)")
+    card = card_line()
+
+    def say(msg: str) -> None:  # every number of the phase beside the card
+        log(f"{msg} ({card})")
+
+    steps = SYS_EPOCHS * SYS_STEPS_PER_EPOCH
+    with tempfile.TemporaryDirectory(prefix="iseg_system_") as tmp:
+        shard_dir = os.path.join(tmp, "shards")
+        t0 = time.perf_counter()
+        index = write_shards(SyntheticShardSource(SYS_SAMPLES, SYS_STORE, R_CLASSES), shard_dir,
+                             store_size=(SYS_STORE, SYS_STORE), samples_per_shard=48)
+        say(f"wrote {index['num_samples']} samples at {SYS_STORE}^2 in "
+            f"{len(index['shards'])} shards in {time.perf_counter() - t0:.2f} s")
+        reader = ShardReader(shard_dir)
+        t0 = time.perf_counter()
+        resident = DeviceResidentDataset(reader, device=env.device)
+        say(f"resident dataset: {resident.num_samples} samples, {resident.nbytes()} bytes "
+            f"({resident.nbytes() / 1e6:.1f} MB) on the card, uploaded in "
+            f"{time.perf_counter() - t0:.3f} s")
+        augment = zero_mean_augment(DeviceAugmentConfig(
+            crop_size=(HW, HW), min_scale_factor=0.5, max_scale_factor=2.0,
+            scale_step_size=0.25, flip_prob=0.5))
+        index_fn = resident.index_dataset_fn(R_BATCH, seed=0)
+
+        # uninterrupted resident run: the main path of this phase
+        ckpt_a, log_dir = os.path.join(tmp, "ckpt_a"), os.path.join(tmp, "log")
+        run_a = system_trainer(env, ckpt_a, resident, augment, log_dir)
+        epoch_ends = {}
+
+        def mark(epoch, state):
+            torch.cuda.synchronize()
+            epoch_ends[epoch] = time.perf_counter()
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        history = run_a.train(index_fn, epochs=SYS_EPOCHS, steps_per_epoch=SYS_STEPS_PER_EPOCH,
+                              on_epoch_end=mark)
+        launches = read_launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        expect_launches("system train", launches,
+                        {"upsample_ce_fwd": steps, "upsample_ce_bwd": steps})
+        losses_a = recorded_losses(run_a, range(1, steps + 1))
+        say(f"resident run: losses {[round(v, 5) for v in losses_a]}")
+        if run_a.state.step != steps or not all(np.isfinite(losses_a)):
+            raise AssertionError(f"resident run ended at step {run_a.state.step} with losses "
+                                 f"{losses_a}")
+        # after the first epoch, each epoch's own clock: its steps, from an
+        # idle device to the loss read at its last step (its checkpoint is
+        # written after it)
+        later = history[1:]
+        ms = 1e3 * sum(r["seconds"] for r in later) / sum(r["steps"] for r in later)
+        helper_a = run_a.checkpoint_manager
+        say(f"system resident train: {ms:.2f} ms/step, {R_BATCH * 1e3 / ms:.2f} img/s over "
+            f"epochs 2-{SYS_EPOCHS} (gather + device augment + step; host clock), against "
+            f"{fixed_batch_ms:.2f} ms/step on phase 3's fixed batch in this call; peak memory "
+            f"{peak / 2**30:.2f} GiB ({peak} bytes); checkpoint saves "
+            f"{[round(v, 3) for v in helper_a.save_seconds]} s")
+        if helper_a.all_steps() != [2 * SYS_STEPS_PER_EPOCH, steps]:
+            raise AssertionError(f"checkpoints at {helper_a.all_steps()}, expected the last two "
+                                 "epochs' only (max_to_keep=2)")
+        events = [f for f in os.listdir(log_dir) if f.startswith("events.out.tfevents")]
+        rows = read_event_scalars(os.path.join(log_dir, events[0]))
+        logged = sorted(step for step, tag, _ in rows if tag == "train/loss")
+        say(f"event file: {len(rows)} scalars, train/loss at steps {logged}")
+        if len(events) != 1 or logged != list(range(SYS_STEPS_PER_EPOCH, steps + 1,
+                                                     SYS_STEPS_PER_EPOCH)):
+            raise AssertionError(f"event files {events}, train/loss at {logged}")
+
+        # restore into a fresh trainer: every tensor bitwise
+        fresh = system_trainer(env, ckpt_a, resident, augment)
+        t0 = time.perf_counter()
+        restored_step = fresh.restore()
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        mismatched = [f"{col}/{k}" for col in ("params", "batch_stats")
+                      for k, v in getattr(run_a.state, col).items()
+                      if not torch.equal(v, getattr(fresh.state, col)[k])]
+        mismatched += [f"momentum[{i}]" for i, (a, b) in enumerate(
+            zip(run_a.state.opt_state.trace, fresh.state.opt_state.trace)) if not torch.equal(a, b)]
+        if fresh.state.opt_state.count != run_a.state.opt_state.count:
+            mismatched.append("opt_state.count")
+        say(f"restore: step {restored_step} in {restore_s:.3f} s, "
+            f"{len(run_a.state.params)} params, {len(run_a.state.batch_stats)} batch_stats, "
+            f"{len(run_a.state.opt_state.trace)} momentum buffers; mismatched: "
+            f"{mismatched or 'none'}")
+        if restored_step != steps or mismatched:
+            raise AssertionError("the restored state differs from the saved one")
+        del fresh
+
+        # preempted by SIGTERM before the 5th batch, then resumed
+        ckpt_b = os.path.join(tmp, "ckpt_b")
+        run_b = system_trainer(env, ckpt_b, resident, augment)
+
+        def preempting(epoch):
+            for i, batch in enumerate(index_fn(epoch)):
+                if epoch * SYS_STEPS_PER_EPOCH + i + 1 == SYS_PREEMPT_BATCH:
+                    os.kill(os.getpid(), signal.SIGTERM)
+                yield batch
+
+        run_b.train(preempting, epochs=SYS_EPOCHS, steps_per_epoch=SYS_STEPS_PER_EPOCH)
+        saved = run_b.checkpoint_manager.all_steps()
+        say(f"preempted run returned at step {run_b.state.step}; checkpoints {saved}")
+        if run_b.state.step != SYS_PREEMPT_BATCH or saved[-1] != SYS_PREEMPT_BATCH:
+            raise AssertionError(f"expected a durable checkpoint at step {SYS_PREEMPT_BATCH}")
+        run_c = system_trainer(env, ckpt_b, resident, augment)
+        resumed_from = run_c.restore()
+        reset_launch_counts()
+        run_c.train(index_fn, epochs=SYS_EPOCHS, steps_per_epoch=SYS_STEPS_PER_EPOCH,
+                    initial_epoch=-1)
+        resumed = steps - resumed_from
+        expect_launches("system resume", read_launch_counts(),
+                        {"upsample_ce_fwd": resumed, "upsample_ce_bwd": resumed})
+        consumed = {**run_b.record["index"], **run_c.record["index"]}
+        same_stream = (sorted(consumed) == sorted(run_a.record["index"]) and all(
+            np.array_equal(consumed[k], run_a.record["index"][k]) for k in consumed))
+        tail = range(resumed_from + 1, steps + 1)
+        gaps = [abs(b - a) / abs(a) for a, b in zip(recorded_losses(run_a, tail),
+                                                     recorded_losses(run_c, tail))]
+        head_gaps = [abs(b - a) / abs(a) for a, b in zip(
+            recorded_losses(run_a, range(1, resumed_from + 1)),
+            recorded_losses(run_b, range(1, resumed_from + 1)))]
+        say(f"resume: from step {resumed_from} to {run_c.state.step}; index vectors of steps "
+            f"1-{steps} equal to the uninterrupted run's: {same_stream}; loss rel gaps at steps "
+            f"{list(tail)}: {[f'{g:.3e}' for g in gaps]} (tol {SYS_RESUME_RTOL:g}); steps "
+            f"1-{resumed_from} before the preemption: {[f'{g:.3e}' for g in head_gaps]}")
+        if resumed_from != SYS_PREEMPT_BATCH or run_c.state.step != steps or not same_stream:
+            raise AssertionError("the resumed run did not continue the interrupted stream")
+        if not max(gaps + head_gaps) <= SYS_RESUME_RTOL:
+            raise AssertionError("the resumed run's losses left the uninterrupted run's")
+        if profile:
+            profile_resident_step(run_c, resident, augment, ms)
+        del run_b, run_c
+
+        # stream mode (host shards + device_prefetch) against the resident
+        # path, both without augment, from the same weights: first-step loss
+        stream = system_trainer(env)
+        stream.train(make_shard_dataset_fn(shard_dir, R_BATCH, seed=0), epochs=1,
+                     steps_per_epoch=1)
+        plain_resident = system_trainer(env, resident=resident)
+        plain_resident.train(index_fn, epochs=1, steps_per_epoch=1)
+        a, b = float(stream.record["loss"][1]), float(plain_resident.record["loss"][1])
+        say(f"first-step loss without augment: stream {a:.7f}, resident {b:.7f}, rel diff "
+            f"{abs(a - b) / abs(b):.3e} (tol {SYS_STREAM_RTOL:g})")
+        if not abs(a - b) <= SYS_STREAM_RTOL * abs(b):
+            raise AssertionError("the stream and resident paths disagree on the first step")
+        del stream, plain_resident
+
+        phase_system_evaluate(env, ckpt_a, reader, card)
+        del run_a, resident
+    return launches
+
+
+def profile_resident_step(trainer, resident, augment, wall_ms: float, steps: int = 3) -> None:
+    """Device time of the resident train step, and of its input stage alone
+    (the gather of a batch from the resident tensors + the device augment)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    idx = next(iter(resident.index_batches(R_BATCH)))
+    step = profile_steps(trainer.state, trainer.train_step, idx, "resident train step (gather "
+                         "+ device augment + step)", wall_ms, steps)
+    generator = torch.Generator(device=resident.device).manual_seed(0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            augment(generator, *resident.gather(idx))
+        torch.cuda.synchronize()
+    kernels = [(getattr(e, "self_device_time_total", 0) or e.self_cuda_time_total, e.key)
+               for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    stage_ms = sum(us for us, _ in kernels) / 1e3 / steps
+    log(f"-- input stage alone (gather + device augment, {steps} batches): {stage_ms:.3f} ms "
+        f"device per batch, {100 * stage_ms / step['device_ms']:.2f}% of the step's "
+        f"{step['device_ms']:.3f} ms ({card_line()})")
+    for us, key in sorted(kernels, reverse=True)[:12]:
+        log(f"   {us / 1e3 / steps:10.3f} ms/batch  {key[:110]}")
+
+
+def phase_system_evaluate(env, checkpoint_dir, reader, card) -> None:
+    """``evaluate`` over the first samples of the shards at their store size
+    with the restored variables, against ``MeanIoU`` over
+    ``SegBase.inference`` logits of the same batches."""
+    model = build_resnet_model(env, fused=False)  # logits at the input's resolution
+    variables = ModelHelper(checkpoint_dir).restore_latest_variables(
+        {"params": param_tree(model), "batch_stats": batch_stats_tree(model)})
+    config = SegModelInferenceConfig(scale_rates=(0.75, 1.0), flip=True,
+                                     sliding_window_crop_size=(SYS_EVAL_WINDOW, SYS_EVAL_WINDOW))
+    starts = range(0, SYS_EVAL_SAMPLES, SYS_EVAL_BATCH)
+
+    def batches():
+        for s in starts:
+            image, label = reader.gather(np.arange(s, s + SYS_EVAL_BATCH))
+            yield {"image": image, "label": label}
+
+    results = []
+    for _ in range(2):  # the first call of these shapes includes cuDNN autotuning
+        metric = MeanIoU(R_CLASSES)
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        miou, per_class = evaluate(env, model, variables, batches(), inference_config=config,
+                                   verbose=False, metric=metric)
+        torch.cuda.synchronize()
+        results.append((miou, per_class, metric.total_cm, 1e3 * (time.perf_counter() - t0)))
+        expect_launches("system evaluate", read_launch_counts(), {})
+    with torch.no_grad():
+        for col, tree in (("params", param_tree(model)), ("batch_stats", batch_stats_tree(model))):
+            for k, t in tree.items():
+                t.copy_(variables[col][k])
+    reference = MeanIoU(R_CLASSES)
+    labelled = 0
+    for batch in batches():
+        image = torch.tensor(batch["image"], device=env.device).to(torch.float32)
+        label = torch.tensor(batch["label"], device=env.device)
+        with torch.autocast("cuda", dtype=env.compute_dtype):
+            logits = model.inference(image, config)
+        reference.update_state(label, logits)
+        labelled += int((label != model.ignore_label).sum())
+    miou, per_class, cm, first_ms = results[0]
+    n = len(starts)
+    log(f"evaluate: {SYS_EVAL_SAMPLES} samples at {SYS_STORE}^2, batch {SYS_EVAL_BATCH}, scales "
+        f"(0.75, 1.0) + flip + {SYS_EVAL_WINDOW}^2 sliding window: mIoU {miou:.6f}, confusion "
+        f"matrix counts {cm.sum():.0f} of {labelled} labelled pixels; {first_ms / n:.2f} ms per "
+        f"eval batch on the first call, {results[1][3] / n:.2f} on the second ({card})")
+    log(f"evaluate vs MeanIoU over SegBase.inference: mIoU {miou:.9f} / {reference.result():.9f}, "
+        f"confusion matrices equal: {np.array_equal(cm, reference.total_cm)} ({card})")
+    if cm.sum() != labelled:
+        raise AssertionError("the eval confusion matrix does not count every labelled pixel once")
+    for other_miou, other_per_class, other_cm in ((results[1][:3]),
+                                                  (reference.result(), reference.per_class_iou(),
+                                                   reference.total_cm)):
+        if not (np.array_equal(cm, other_cm) and miou == other_miou
+                and np.array_equal(per_class, other_per_class)):
+            raise AssertionError("evaluate disagrees with MeanIoU over SegBase.inference")
 
 
 # --------------------------------------------------------------- Swin path
@@ -2208,12 +2585,14 @@ def main(argv: list[str]) -> int:
     kernels = phase_kernels(device)
 
     data = synthetic_batch(device, R_BATCH, R_CLASSES)
-    fused_model, init_weights, init_dropout, first_loss, by_path = \
+    fused_model, init_weights, init_dropout, first_loss, by_path, resnet_ms = \
         phase_resnet_train(env, data)
     paths = {"resnet_train": by_path}
     serve_model = phase_resnet_unfused(env, data, init_weights, init_dropout, first_loss)
     phase_resnet_serve(env, data, fused_model, serve_model)
     del fused_model, serve_model, init_weights, data
+    torch.cuda.empty_cache()
+    paths["system_train"] = phase_system(env, resnet_ms, profile)
     torch.cuda.empty_cache()
 
     data = synthetic_batch(device, S_BATCH, S_CLASSES)
@@ -2248,6 +2627,7 @@ def main(argv: list[str]) -> int:
         k["launches"] = sum(by_route.values())
     loss_kernels = ("upsample_ce_fwd", "upsample_ce_bwd")
     on_path = {"resnet_train": loss_kernels,
+               "system_train": loss_kernels,
                "swin_train": loss_kernels + ("window_attention_fwd_mma",
                                              "window_attention_bwd_mma"),
                "swin_serve": ("window_attention_fwd_mma",),

@@ -1,0 +1,158 @@
+"""Evaluation loop (counterpart of ``iseg_tpu/core/evaluation.py``): an
+eval loop with streaming mIoU over multi-scale + flip + sliding-window
+inference.
+
+Parity with the reference's ``evaluations/evaluation.py:19`` ``evaluate``
+(custom loop, per-class IoU report at the end). The sweep runs eagerly
+under ``torch.inference_mode()`` and the env's autocast; ``use_cpu_cache``
+and shape bucketing are not ported and raise in
+``SegModelInferenceConfig``.
+"""
+
+from __future__ import annotations
+
+import itertools
+from typing import Callable, Iterable, Optional
+
+import torch
+from torch import nn
+from torch.func import functional_call
+
+from iseg_tpu_torch.convert import batch_stats_tree, param_tree
+from iseg_tpu_torch.core.inference import inference_with_multi_scales
+from iseg_tpu_torch.core.model import SegModelInferenceConfig
+from iseg_tpu_torch.data.loader import device_prefetch
+from iseg_tpu_torch.losses.cross_entropy import cross_entropy_ignore_label
+from iseg_tpu_torch.metrics.mean_iou import MeanIoU
+
+
+def variables_by_module_name(model: nn.Module, variables: dict) -> dict[str, torch.Tensor]:
+    """Path-keyed ``{"params", "batch_stats"}`` (``convert.param_tree``
+    paths, e.g. ``ModelHelper.restore_latest_variables``) -> ``{module
+    state name: tensor}`` for ``torch.func.functional_call``. A collection
+    left out keeps the module's own tensors; a path the model lacks, or one
+    it has and the collection lacks, raises."""
+    names = {id(t): n for n, t in itertools.chain(model.named_parameters(),
+                                                   model.named_buffers())}
+    out = {}
+    for col, tree in (("params", param_tree(model)), ("batch_stats", batch_stats_tree(model))):
+        given = variables.get(col)
+        if given is None:
+            continue
+        if set(given) != set(tree):
+            raise KeyError(f"{col} paths differ from the model's: missing "
+                           f"{sorted(set(tree) - set(given))[:5]}, unexpected "
+                           f"{sorted(set(given) - set(tree))[:5]}")
+        for path, t in tree.items():
+            out[names[id(t)]] = given[path]
+    return out
+
+
+def make_eval_step(model: nn.Module, inference_config: Optional[SegModelInferenceConfig] = None,
+                   variables: Optional[dict] = None,
+                   compute_dtype: torch.dtype = torch.float32) -> Callable:
+    """``eval_step(images) -> logits``: fp32 logits at the images'
+    resolution, averaged over the config's scales and flips, each pass
+    direct or by sliding window, with the model in eval mode (its training
+    flag is restored after) under ``torch.inference_mode()`` and autocast
+    to ``compute_dtype`` (bf16 or fp16; other types run as they are).
+
+    ``variables`` (path-keyed, see :func:`variables_by_module_name`) are
+    used in place of the model's own weights without writing them into it.
+    Multi-scale and sliding-window passes need logits at the input's
+    resolution (``upsample_logits=True``)."""
+    cfg = inference_config or SegModelInferenceConfig()
+    overrides = variables_by_module_name(model, variables) if variables is not None else None
+
+    def forward(x):
+        out = functional_call(model, overrides, (x,)) if overrides else model(x)
+        if isinstance(out, (list, tuple)):
+            out = out[0]
+        if isinstance(out, dict):
+            out = out["output_0"]
+        return out
+
+    def eval_step(images: torch.Tensor) -> torch.Tensor:
+        was_training = model.training
+        model.eval()
+        try:
+            with torch.inference_mode(), torch.autocast(
+                    images.device.type, dtype=compute_dtype,
+                    enabled=compute_dtype in (torch.bfloat16, torch.float16)):
+                return inference_with_multi_scales(
+                    forward, images, scale_rates=tuple(cfg.scale_rates), flip=cfg.flip,
+                    flip_in_batch=cfg.flip_in_batch,
+                    sliding_window_crop_size=cfg.sliding_window_crop_size,
+                    sliding_window_stride_rate=cfg.sliding_window_stride_rate,
+                    sliding_window_batch=cfg.sliding_window_batch)
+        finally:
+            model.train(was_training)
+
+    return eval_step
+
+
+def evaluate(
+    env,
+    model: nn.Module,
+    variables: Optional[dict],
+    dataset: Iterable[dict],
+    num_class: Optional[int] = None,
+    ignore_label: Optional[int] = None,
+    inference_config: Optional[SegModelInferenceConfig] = None,
+    verbose: bool = True,
+    compute_loss: bool = False,
+    log_dir: Optional[str] = None,
+    log_step: int = 0,
+    metric: Optional[MeanIoU] = None,
+):
+    """Run eval over ``dataset`` yielding ``{"image", "label"}`` host
+    batches (sent to ``env.device``; uint8 images become 0-255 floats);
+    returns ``(mean_iou, per_class_iou)`` (reference ``evaluation.py:19-90``,
+    which also streams a running loss: ``compute_loss``).
+
+    ``variables`` is a path-keyed variables dict, or None for the model's
+    own weights. ``metric`` is the ``MeanIoU`` to accumulate into (a new
+    one when None), for a caller that reads the confusion matrix.
+    ``log_dir`` writes the eval scalars (mIoU, per-class IoU, loss) to a
+    TensorBoard event file + CSV at ``log_step``."""
+    num_class = num_class if num_class is not None else model.num_class
+    ignore_label = ignore_label if ignore_label is not None else model.ignore_label
+    eval_step = make_eval_step(model, inference_config, variables, env.compute_dtype)
+    miou = metric if metric is not None else MeanIoU(num_class, ignore_label)
+
+    n_batches = 0
+    loss_sum = 0.0
+    for batch in device_prefetch(dataset, env.device, size=2):
+        image = batch["image"]
+        if not image.is_floating_point():
+            image = image.to(torch.float32)
+        logits = eval_step(image)
+        miou.update_state(batch["label"], logits)
+        if compute_loss:
+            loss_sum += float(cross_entropy_ignore_label(logits, batch["label"],
+                                                         ignore_label=ignore_label))
+        n_batches += 1
+        if verbose and n_batches % 50 == 0:
+            msg = f"eval batch {n_batches}: running mIoU={miou.result():.4f}"
+            if compute_loss:
+                msg += f" loss={loss_sum / n_batches:.4f}"
+            print(msg, flush=True)
+
+    per_class = miou.per_class_iou()
+    if log_dir is not None:
+        from iseg_tpu_torch.utils.summary import ScalarLogger
+
+        logger = ScalarLogger(log_dir)
+        scalars = {"eval/mean_iou": float(miou.result())}
+        if compute_loss and n_batches:
+            scalars["eval/loss"] = loss_sum / n_batches
+        for i, v in enumerate(per_class):
+            scalars[f"eval/iou_class_{i}"] = float(v)
+        logger.log(scalars, log_step)
+        logger.close()
+    if verbose:
+        print(f"eval done ({n_batches} batches): mIoU={miou.result():.4f}"
+              + (f" loss={loss_sum / max(n_batches, 1):.4f}" if compute_loss else ""))
+        for i, v in enumerate(per_class):
+            print(f"  class {i}: IoU={v:.4f}")
+    return miou.result(), per_class

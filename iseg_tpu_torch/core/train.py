@@ -1,25 +1,55 @@
-"""Training step (counterpart of ``iseg_tpu/core/train.py``, step subset):
-``TrainState``, ``create_train_state``, ``make_train_step``.
+"""Training loop (counterpart of ``iseg_tpu/core/train.py``):
+``TrainState``, ``create_train_state``, ``make_train_step``,
+``make_resident_train_step`` and the host loop ``CoreTrain`` (checkpoints,
+SIGTERM, exact-step resume, callbacks, scalar logs, a profiler window).
 
 PyTorch runs eagerly, so there is no jit: a step is one forward (under
 bf16 autocast when the compute dtype is bf16), one backward, the optimizer
 update applied in place, and the BN running-stat update, which the
-forward makes in training mode. The host loop (``CoreTrain``: checkpoints,
-SIGTERM, resume) is not ported yet.
+forward makes in training mode.
+
+Randomness is a function of the step, as in the JAX package's
+``fold_in(rng, state.step)``: with a ``seed``, the step re-seeds the
+model's dropout generator from ``(seed, dropout stream, step)`` and the
+augment's from ``(seed, augment stream, step)`` before it draws, so step
+``k`` draws the same masks and augment whether or not the run was
+interrupted and resumed.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import Any, Callable, Optional
+import signal
+import time
+from typing import Any, Callable, Iterable, Optional
 
+import numpy as np
 import torch
 from torch import nn
 
 from iseg_tpu_torch.convert import batch_stats_tree, param_tree
 from iseg_tpu_torch.core.optimizer import SGD
+from iseg_tpu_torch.data.loader import device_prefetch, to_device
 from iseg_tpu_torch.nn.blocks import set_dropout_generator
 from iseg_tpu_torch.nn.initializers import initialize
+from iseg_tpu_torch.utils.profiling import StepTimer, profile_trace
+
+# RNG stream tags: a step's generators are seeded from (seed, stream, step),
+# so the dropout masks and the augment never share a stream
+DROPOUT_STREAM = 0x0D0
+AUGMENT_STREAM = 0x0AB6
+
+# "no handler was installed" marker for SIGTERM save/restore — distinct
+# from None, which signal.signal() returns for non-Python handlers
+_UNSET_HANDLER = object()
+
+
+def stream_seed(seed: int, stream: int, step: int) -> int:
+    """63-bit generator seed of ``(seed, stream, step)`` (numpy's
+    ``SeedSequence``: well mixed, the same on every host)."""
+    state = np.random.SeedSequence((seed, stream, step)).generate_state(1, np.uint64)
+    return int(state[0] >> np.uint64(1))
 
 
 @dataclasses.dataclass
@@ -96,19 +126,31 @@ def create_train_state(
     )
 
 
-def make_train_step(loss_fn: Callable, compute_dtype: torch.dtype = torch.float32) -> Callable:
+def make_train_step(loss_fn: Callable, compute_dtype: torch.dtype = torch.float32,
+                    seed: Optional[int] = None) -> Callable:
     """Build ``train_step(state, batch) -> (state, parts)``.
 
     ``loss_fn(outputs, labels) -> (total, parts)`` is typically
     ``model.build_loss_fn()``; ``compute_dtype`` is the env's (bf16 runs
     the forward under autocast). ``batch`` holds ``image`` [N, H, W, 3]
-    float and ``label`` [N, H, W] int.
+    float and ``label`` [N, H, W] int. With ``seed``, every step first
+    re-seeds the model's dropout generator (one generator on the batch's
+    device, set on the model at the first step) from ``(seed,
+    DROPOUT_STREAM, state.step)``; without, dropout draws from the
+    generators the model holds.
     """
+    dropout = None
 
     def train_step(state: TrainState, batch: dict):
+        nonlocal dropout
         model = state.model
         model.train()
         image = batch["image"]
+        if seed is not None:
+            if dropout is None:
+                dropout = torch.Generator(device=image.device)
+                set_dropout_generator(model, dropout)
+            dropout.manual_seed(stream_seed(seed, DROPOUT_STREAM, state.step))
         with torch.autocast(image.device.type, dtype=compute_dtype,
                             enabled=compute_dtype != torch.float32):
             outputs = model(image)
@@ -120,3 +162,314 @@ def make_train_step(loss_fn: Callable, compute_dtype: torch.dtype = torch.float3
         return state, {k: v.detach() for k, v in parts.items()}
 
     return train_step
+
+
+def model_inputs(image: torch.Tensor, label: torch.Tensor, augment_fn: Optional[Callable],
+                 generator: Optional[torch.Generator], seed: int, step: int):
+    """(image, label) of a step: the augment, its generator seeded from
+    ``(seed, AUGMENT_STREAM, step)``; without one, raw 0-255 floats (the
+    uint8 storage of shards is a format detail, not an input contract;
+    normalization belongs to the augment). Labels become int32, the fused
+    loss kernel's type."""
+    if augment_fn is not None:
+        generator.manual_seed(stream_seed(seed, AUGMENT_STREAM, step))
+        image, label = augment_fn(generator, image, label)
+    elif not image.is_floating_point():
+        image = image.to(torch.float32)
+    return image, label.to(torch.int32)
+
+
+def make_resident_train_step(loss_fn: Callable, images: torch.Tensor, labels: torch.Tensor,
+                             augment_fn: Optional[Callable] = None,
+                             compute_dtype: torch.dtype = torch.float32,
+                             seed: int = 0) -> Callable:
+    """``step(state, idx) -> (state, parts)`` for device-resident data
+    (``iseg_tpu_torch.data.resident.DeviceResidentDataset``): one gather of
+    the ``[batch]`` indices from the resident ``images``/``labels``, then
+    ``augment_fn(generator, images_u8, labels) -> (image, label)`` (e.g.
+    ``make_device_augment(cfg)``), then the train step, all on the
+    resident tensors' device. The host ships only the index vector.
+
+    The augment's generator and the dropout are seeded from ``seed`` and
+    ``state.step`` as ``CoreTrain``'s separate gather + augment + step
+    seeds them, so the two paths compute the same step."""
+    body = make_train_step(loss_fn, compute_dtype, seed=seed)
+    generator = torch.Generator(device=images.device) if augment_fn is not None else None
+
+    def step(state: TrainState, idx):
+        idx = to_device(np.asarray(idx, np.int64), images.device)
+        image, label = model_inputs(images.index_select(0, idx), labels.index_select(0, idx),
+                                    augment_fn, generator, seed, state.step)
+        return body(state, {"image": image, "label": label})
+
+    return step
+
+
+class CoreTrain:
+    """Host training loop (reference ``core_train.py:74`` ``.train()``).
+
+    ``dataset_fn(epoch) -> iterable of {"image": [N,H,W,C], "label":
+    [N,H,W]}`` host batches (numpy or CPU tensors), sent to ``env.device``
+    ``prefetch_to_device`` batches ahead through pinned memory; with
+    ``resident_dataset`` it yields ``{"index": [N]}`` instead (see
+    ``DeviceResidentDataset.index_dataset_fn``) and the gather, the augment
+    and the step run on the device.
+
+    ``model`` is on ``env.device``; it is initialized from ``seed`` unless
+    ``initialized`` (weights already loaded, e.g. by
+    ``convert.load_flax``). ``profiler_dir`` is where ``use_profiler``
+    writes its trace. ``grad_accum_every`` > 1 is not ported yet (it needs
+    the optimizer's accumulation wrapper, ROADMAP queue 1 item 19).
+    """
+
+    def __init__(
+        self,
+        env,
+        model: nn.Module,
+        tx: SGD,
+        loss_fn: Optional[Callable] = None,
+        seed: int = 0,
+        checkpoint_manager=None,
+        log_every: int = 50,
+        callbacks: Optional[list] = None,
+        inputs_process: Optional[Callable] = None,
+        device_augment: Optional[Callable] = None,
+        use_profiler: bool = False,
+        profiler_dir: Optional[str] = None,
+        profile_steps: int = 5,
+        prefetch_to_device: int = 2,
+        log_dir: Optional[str] = None,
+        lr_schedule: Optional[Callable] = None,
+        ema_decay: Optional[float] = None,
+        handle_preemption: bool = True,
+        grad_accum_every: int = 1,
+        initialized: bool = False,
+        resident_dataset=None,
+    ):
+        if grad_accum_every != 1:
+            raise NotImplementedError(
+                "grad_accum_every > 1 is not ported to iseg_tpu_torch yet (with_grad_accum, "
+                "ROADMAP queue 1 item 19)")
+        if use_profiler and profiler_dir is None:
+            raise ValueError("use_profiler needs a profiler_dir")
+        self.env = env
+        self.model = model
+        self.seed = seed
+        self.loss_fn = loss_fn or model.build_loss_fn()
+        self.state = create_train_state(
+            model, None if initialized else torch.Generator().manual_seed(seed), tx,
+            ema_decay=ema_decay, initialized=initialized)
+        # device-resident mode: dataset_fn yields {"index": [B]} batches and
+        # the gather + device_augment + step run on the device
+        self.resident_dataset = resident_dataset
+        if resident_dataset is not None:
+            self.train_step = make_resident_train_step(
+                self.loss_fn, resident_dataset.images, resident_dataset.labels,
+                augment_fn=device_augment, compute_dtype=env.compute_dtype, seed=seed)
+        else:
+            self.train_step = make_train_step(self.loss_fn, env.compute_dtype, seed=seed)
+        self.checkpoint_manager = checkpoint_manager
+        self.log_every = log_every
+        self.callbacks = list(callbacks or [])
+        # per-model host batch hook (reference ``core_train.py:198-205``)
+        self.inputs_process = inputs_process
+        # on-device augmentation (iseg_tpu_torch.data.device_augment):
+        # fn(generator, images, labels) -> (images, labels)
+        self.device_augment = device_augment
+        self._augment_generator = (torch.Generator(device=env.device)
+                                   if device_augment is not None else None)
+        # torch.profiler window at 10% of the first epoch (reference
+        # core_train.py:121-126 profile_batch policy)
+        self.use_profiler = use_profiler
+        self.profiler_dir = profiler_dir
+        self.profile_steps = profile_steps
+        self.prefetch_to_device = prefetch_to_device
+        # durable scalar log: TensorBoard event file + CSV under log_dir
+        self.scalar_logger = None
+        if log_dir is not None:
+            from iseg_tpu_torch.utils.summary import ScalarLogger
+
+            self.scalar_logger = ScalarLogger(log_dir)
+        self.lr_schedule = lr_schedule
+        # graceful preemption: SIGTERM sets a flag, the step loop
+        # checkpoints durably at the next step boundary and returns; resume
+        # with initial_epoch=-1 skips the already-applied batches
+        self.handle_preemption = handle_preemption
+        self._preempt_requested = False
+
+    def restore(self) -> int:
+        """Resume from the latest checkpoint if one exists (reference
+        ``modelhelper.py:113`` ``restore_checkpoint``); returns the step."""
+        if self.checkpoint_manager is not None:
+            restored = self.checkpoint_manager.restore_latest(self.state)
+            if restored is not None:
+                self.state = restored
+        return int(self.state.step)
+
+    def train(
+        self,
+        dataset_fn: Callable[[int], Iterable[dict]],
+        epochs: int = 1,
+        steps_per_epoch: Optional[int] = None,
+        initial_epoch: int = 0,
+        on_epoch_end: Optional[Callable] = None,
+    ):
+        """Run the epoch loop (reference ``core_train.py:74-152``); returns
+        one history record per epoch.
+
+        ``initial_epoch=-1`` derives the resume epoch from the restored step
+        count (reference ``core_train.py:107-116``) and skips the batches of
+        that epoch that were already applied; requires ``steps_per_epoch``."""
+        resume_skip = 0
+        if initial_epoch == -1:
+            if not steps_per_epoch:
+                raise ValueError("initial_epoch=-1 requires steps_per_epoch")
+            initial_epoch = self.state.step // steps_per_epoch
+            # mid-epoch checkpoint (preemption save): dataset_fn(epoch) is
+            # epoch-seeded, so the skipped prefix is what the preempted
+            # process consumed
+            resume_skip = self.state.step % steps_per_epoch
+
+        self._preempt_requested = False
+        prev_handler = _UNSET_HANDLER
+        if self.handle_preemption:
+            def _on_preempt(signum, frame):
+                self._preempt_requested = True
+                print(f"preemption signal {signum} received: checkpointing at the next step "
+                      "boundary", flush=True)
+            try:
+                prev_handler = signal.signal(signal.SIGTERM, _on_preempt)
+            except ValueError:
+                pass  # not the main thread; flag-only mode
+
+        try:
+            history = self._train_loop(dataset_fn, epochs, steps_per_epoch, initial_epoch,
+                                       resume_skip, on_epoch_end)
+        finally:
+            # None means the previous handler was installed by non-Python
+            # code: signal.signal cannot re-install it, and leaving
+            # _on_preempt in place would swallow every later SIGTERM, so
+            # fall back to the default action
+            if prev_handler is None:
+                signal.signal(signal.SIGTERM, signal.SIG_DFL)
+            elif prev_handler is not _UNSET_HANDLER:
+                signal.signal(signal.SIGTERM, prev_handler)
+        return history
+
+    def _preempt_checkpoint(self) -> None:
+        """Durable mid-epoch save in response to a preemption notice."""
+        step = self.state.step
+        if self.checkpoint_manager is not None:
+            if step not in set(self.checkpoint_manager.all_steps()):
+                self.checkpoint_manager.save(step, self.state)
+            self.checkpoint_manager.wait()
+        self._close_logger()
+        print(f"preempted: checkpoint durable at step={step}; exiting the train loop",
+              flush=True)
+
+    def _close_logger(self) -> None:
+        if self.scalar_logger is not None:
+            self.scalar_logger.close()
+            self.scalar_logger = None  # a closed writer must not be reused
+
+    def _batches(self, data):
+        if self.resident_dataset is not None:
+            return data  # [B] index vectors; the data are on the device
+        return device_prefetch(data, self.env.device, size=self.prefetch_to_device,
+                               transform=self.inputs_process)
+
+    def _step(self, batch):
+        if self.resident_dataset is not None:
+            return self.train_step(self.state, batch["index"])
+        image, label = model_inputs(batch["image"], batch["label"], self.device_augment,
+                                    self._augment_generator, self.seed, self.state.step)
+        return self.train_step(self.state, {"image": image, "label": label})
+
+    def _train_loop(self, dataset_fn, epochs, steps_per_epoch, initial_epoch, resume_skip,
+                    on_epoch_end):
+        # profiler window start step: 10% into the first epoch
+        profile_start = (max(1, (steps_per_epoch or 10) // 10)
+                         if self.use_profiler else None)
+        trace = contextlib.ExitStack()
+        profiling_from = None  # step_in_epoch at which the open trace started
+
+        history = []
+        for epoch in range(initial_epoch, epochs):
+            for cb in self.callbacks:
+                cb.on_epoch_begin(epoch, self.state)
+            t0 = time.time()
+            step_in_epoch = 0
+            last_parts = {}
+            timer = StepTimer()
+            data = dataset_fn(epoch)
+            if epoch == initial_epoch and resume_skip:
+                # exact-step resume from a mid-epoch save: drop the
+                # already-applied prefix of this epoch's stream on the host
+                data = iter(data)
+                for _ in range(resume_skip):
+                    next(data, None)
+                step_in_epoch = resume_skip
+            for batch in self._batches(data):
+                if (profile_start is not None and epoch == initial_epoch
+                        and step_in_epoch >= profile_start):
+                    # >= not ==: a mid-epoch resume can enter past the start
+                    trace.enter_context(profile_trace(self.profiler_dir))
+                    profiling_from, profile_start = step_in_epoch, None
+                self.state, parts = self._step(batch)
+                # keys in sorted order, as a jitted JAX step returns its dict
+                parts = dict(sorted(parts.items()))
+                last_parts = parts
+                step_in_epoch += 1
+                timer.tick()
+                if self._preempt_requested:
+                    trace.close()
+                    self._preempt_checkpoint()
+                    return history
+                if (profiling_from is not None
+                        and step_in_epoch >= profiling_from + self.profile_steps):
+                    trace.close()
+                    profiling_from = None
+                    print(f"profiler trace written to {self.profiler_dir}", flush=True)
+                if self.log_every and step_in_epoch % self.log_every == 0:
+                    loss = float(parts["loss"])
+                    print(f"epoch {epoch} step {step_in_epoch}: loss={loss:.4f}", flush=True)
+                    if self.scalar_logger is not None:
+                        scalars = {f"train/{k}": float(v) for k, v in parts.items()}
+                        if self.lr_schedule is not None:
+                            scalars["train/learning_rate"] = float(
+                                self.lr_schedule(self.state.step))
+                        summ = timer.summary()
+                        if "mean_s" in summ:
+                            scalars["train/step_seconds"] = summ["mean_s"]
+                        self.scalar_logger.log(scalars, self.state.step)
+                if steps_per_epoch and step_in_epoch >= steps_per_epoch:
+                    break
+            trace.close()  # a window that spilled past the epoch
+            profiling_from = None
+            # epoch-end bookkeeping (reference TimeCallback + CheckpointSaver)
+            dt = time.time() - t0
+            record = {
+                "epoch": epoch,
+                "steps": step_in_epoch,
+                "seconds": dt,
+                **{f"step_{k}": v for k, v in timer.summary().items() if k != "steps"},
+                **{k: float(v) for k, v in last_parts.items()},
+            }
+            history.append(record)
+            print(f"epoch {epoch} done in {dt:.1f}s: {record}", flush=True)
+            if self.scalar_logger is not None:
+                self.scalar_logger.log(
+                    {f"epoch/{k}": float(v) for k, v in record.items()
+                     if isinstance(v, (int, float))}, self.state.step)
+            if self.checkpoint_manager is not None:
+                self.checkpoint_manager.save(self.state.step, self.state)
+            if on_epoch_end is not None:
+                on_epoch_end(epoch, self.state)
+            for cb in self.callbacks:
+                cb.on_epoch_end(epoch, self.state, record)
+        for cb in self.callbacks:
+            cb.on_train_end(self.state)
+        if self.checkpoint_manager is not None:
+            self.checkpoint_manager.wait()  # flush an in-flight async save
+        self._close_logger()
+        return history
