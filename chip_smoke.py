@@ -3,14 +3,16 @@
 
     python3 chip_smoke.py            # every phase below
     python3 chip_smoke.py --profile  # and torch.profiler tables of the resident ResNet step and
-                                     # its input stage, of the Swin and InternImage train
-                                     # steps and of Gemma's beam-4 decode steps
+                                     # its input stage, of the MobileNetV2, Swin and
+                                     # InternImage train steps and of Gemma's beam-4
+                                     # decode steps
     python3 chip_smoke.py --ab OLD   # OLD's kernels and this tree's, timed in turns
 
-Drives the port's four main paths at full width, with random weights from
-seed 0. Three train and serve a segmentation model on one fixed synthetic
+Drives the port's main paths at full width, with random weights from
+seed 0. Four train and serve a segmentation model on one fixed synthetic
 batch each (the ResNet one also through the training system, from shards
-on the card: phase 5b):
+on the card: phase 5b; the MobileNetV2 one also through the example
+scripts: phase 5c):
 
 * ResNet: bench.py's headline training configuration, ResNet-50 (output
   stride 16, deep stem, slim stacks, multi-grid) + ASPP(256), 21 classes,
@@ -20,6 +22,9 @@ on the card: phase 5b):
 * InternImage: ``intern_image_tiny`` (DCNv3, ``dcn_sampling="auto"``, no
   remat) + ASPP(256), 19 classes, 512x512, batch 8, default drop-path rate,
   then served the same way;
+* MobileNetV2: BASELINE config #1, ``mobilenetv2`` (width 1.0, output
+  stride 16, the 1280-wide top conv) + ``SimpleDecoder(256, 48)``, 21
+  classes, 512x512, batch 8, its logits at output stride 4;
 
 all under bf16 autocast with fp32 params, SGD (momentum 0.9, poly decay),
 the loss taken by the fused upsample + CE CUDA kernels, Swin's window
@@ -51,8 +56,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    device hold; ``device_timer`` in the kernels line names the timer; that
    second timer, ``held_ms``, runs beside it on every window-attention
    forward, dense-local backward and upsample + CE row). Upsample + CE at
-   [16,32,32,21] -> [16,512,512], [8,128,128,19] -> [8,512,512] and
-   [8,16,16,19] -> [8,512,512], with the forward's two kernels' and the
+   [16,32,32,21] -> [16,512,512], [8,128,128,19] -> [8,512,512],
+   [8,16,16,19] -> [8,512,512] and [8,128,128,21] -> [8,512,512], with the forward's two kernels' and the
    backward kernel's own device time (``kernel_device_ms``) and the unfused pair ``F.interpolate`` +
    ``F.cross_entropy`` timed beside it (``library_pair_ms``: two calls, so
    ``library_ms`` stays null), and fused against unfused printed at each
@@ -103,6 +108,34 @@ Phases, in order; any failure raises and the script exits non-zero:
    every labelled pixel, and its mIoU, per-class IoU and confusion matrix
    equal ``MeanIoU`` over ``SegBase.inference`` logits of the same batches;
    ms per eval batch;
+5c. examples: (1) the MobileNetV2 step on a fixed batch, 2 warm-up + 5
+   timed fused steps: exactly 1 + 1 loss-kernel launches a step, finite
+   losses, the first step's loss against an unfused step from the same
+   weights (rtol 1e-4), ms/step, img/s, peak memory (``--profile``: device
+   time by kernel class and busy share); (2) ``train_seg.main`` in this
+   process on its synthetic data (config #1, fused loss, 2 epochs x 4
+   steps, eval at (0.75, 1.0) + flip), then rerun to 3 epochs: it resumes
+   at step 8 and ends at 12 with checkpoints 8 and 12, 1 + 1 launches a
+   step, finite losses and mIoU, and its ms/step (host augment included)
+   beside (1)'s; (3) config #2 through the same script (ResNet-50 + ASPP,
+   ``--ohem --fused_loss``, batch 16, 3 steps): no fused-loss launch (OHEM
+   gates the kernels off), finite losses; then each OHEM selector's valid,
+   hard and kept pixels at the seed-0 model's logits (step 1), and on a
+   fixed batch where the selectors choose (at ``min_kept`` 100000 and
+   2000000) its loss on the card against the CPU port's on the same logits
+   and labels (rtol 1e-5); (4) ``evaluate`` of (2)'s checkpoint over eight VOC-like images
+   (500x375, 375x500, 500x333, 480x360, two each; batch 1,
+   ``bucket_multiple`` 32, scales (0.75, 1.0) + flip) and over one
+   1024x2048 image (scales (0.75, 1.0, 1.25) + flip, 512x512 sliding
+   window), each with ``use_cpu_cache`` off and on: equal confusion
+   matrices (or a parted argmax only on a near-tie), ``last_num_programs``
+   equal to ``bucket_stats``' count, ms per image and peak device memory of
+   each way; (5) ``default_image_predict`` over a bucketed batch equals the
+   argmax of ``SegBase.inference`` (``predict_with_dir`` reads and writes
+   PNGs and is held on the CPU); (6) ``verify_drive.main(["--device",
+   "cuda"])``: mIoU > 0.7 and a fresh trainer restores step 100. Steps
+   (2)-(6) meet many input shapes and run on cuDNN's heuristics
+   (``cudnn.benchmark`` off, restored after);
 6. Swin train: 2 warm-up + 5 timed steps; losses finite; per step exactly
    24 tensor-core window-attention forward and 24 tensor-core backward
    launches (none of the CUDA-core kernels: autocast gives bf16 q, k, v) and
@@ -170,7 +203,8 @@ The last line holds each number of the four processes, OLD's two and this
 tree's two.
 
 The launch counters are set to 0 just before each main path (3, 5b's
-uninterrupted run, 6, 6b, 7, 8, 9, and each request of 10) and read just
+uninterrupted run, 5c's fixed-batch steps, its two train_seg runs together
+and its OHEM run, 6, 6b, 7, 8, 9, and each request of 10) and read just
 after; a kernel of a path that was
 launched no time there fails the run. Third line from the end: a JSON object with one entry per kernel;
 then the card's name and power limit; the last line is
@@ -204,13 +238,17 @@ from iseg_tpu_torch.backbones import swin as swin_module
 from iseg_tpu_torch.convert import batch_stats_tree, param_tree
 from iseg_tpu_torch.core.checkpoint import ModelHelper
 from iseg_tpu_torch.core.env import EnvConfig, common_env_setup
-from iseg_tpu_torch.core.evaluation import evaluate
+from iseg_tpu_torch.core.evaluation import bucket_padder, evaluate, make_eval_step
 from iseg_tpu_torch.core.model import SegManaged, SegModelInferenceConfig
 from iseg_tpu_torch.core.optimizer import get_optimizer
+from iseg_tpu_torch.core.predict import default_image_predict
 from iseg_tpu_torch.core.train import CoreTrain, create_train_state, make_train_step
 from iseg_tpu_torch.data.device_augment import DeviceAugmentConfig, make_device_augment
 from iseg_tpu_torch.data.resident import DeviceResidentDataset
 from iseg_tpu_torch.data.shards import ShardReader, make_shard_dataset_fn, write_shards
+from iseg_tpu_torch.examples import train_seg as train_seg_example
+from iseg_tpu_torch.examples import verify_drive as verify_drive_example
+from iseg_tpu_torch.losses import cross_entropy_ignore_label, get_ohem_fn
 from iseg_tpu_torch.metrics import MeanIoU
 from iseg_tpu_torch.nlp.gemma import (BeamSampler, ContrastiveSampler, GemmaCausalLM,
                                       get_preset)
@@ -219,13 +257,14 @@ from iseg_tpu_torch.nlp.gemma import sp_model
 from iseg_tpu_torch.nlp.gemma.tokenizer import GemmaCausalLMPreprocessor, GemmaTokenizer
 from iseg_tpu_torch.nn import dcn as dcn_module
 from iseg_tpu_torch.nn.blocks import Dropout, DropPath, set_dropout_generator
-from iseg_tpu_torch.nn.heads import ASPP, SemanticFPN
+from iseg_tpu_torch.nn.heads import ASPP, SemanticFPN, SimpleDecoder
 from iseg_tpu_torch.ops.kernels import _build
 from iseg_tpu_torch.ops.kernels import cache_gather as cg
 from iseg_tpu_torch.ops.kernels import deform_local as dl
 from iseg_tpu_torch.ops.kernels import upsample_ce as uce
 from iseg_tpu_torch.ops.kernels import window_attention as wa
 from iseg_tpu_torch.ops.resize import resize_image
+from iseg_tpu_torch.utils.buckets import bucket_stats, pad_batch_to_bucket
 from iseg_tpu_torch.utils.summary import read_event_scalars
 
 HW = 512
@@ -263,9 +302,20 @@ DL_KERNEL, DL_MAX_OFFSET = 3, 2
 DL_STAGES = (("stage0", 128, 64, 4, 4), ("stage1", 64, 128, 8, 4),
              ("stage2", 32, 256, 16, 18), ("stage3", 16, 512, 32, 4))
 DL_LAUNCHES_PER_FORWARD = sum(s[4] for s in DL_STAGES)  # 30
-# the loss kernels' shapes on the three paths: (path, batch, logit side, classes)
+# MobileNetV2 + SimpleDecoder path (phase 5c): BASELINE config #1, its logits at
+# the decoder's output stride 4
+M_BATCH, M_CLASSES, M_OS, M_LOGIT_OS = 8, 21, 16, 4
+M_WARMUP, M_TIMED = 2, 5
+EX_STEPS_PER_EPOCH = 4  # train_seg: 2 epochs, then rerun to 3 (resumed at step 8)
+EX_OHEM_STEPS = 3  # config #2 with OHEM through train_seg
+EX_OHEM_FILL_MIN_KEPT = 2_000_000  # more than the hard pixels: the hardest-k fill runs
+EX_EVAL_SIZES = ((500, 375), (375, 500), (500, 333), (480, 360))  # VOC-like (H, W)
+EX_BUCKET = 32
+EX_BIG, EX_BIG_SCALES, EX_BIG_WINDOW = (1024, 2048), (0.75, 1.0, 1.25), 512
+# the loss kernels' shapes on the four paths: (path, batch, logit side, classes)
 UCE_SHAPES = (("resnet", R_BATCH, HW // R_OS, R_CLASSES), ("swin", S_BATCH, HW // S_OS, S_CLASSES),
-              ("intern", I_BATCH, HW // I_OS, I_CLASSES))
+              ("intern", I_BATCH, HW // I_OS, I_CLASSES),
+              ("mbv2", M_BATCH, HW // M_LOGIT_OS, M_CLASSES))
 # Gemma path: gemma_2b_en served at batch 8, prompt 128, 512 generated slots
 G_PRESET, G_BATCH, G_PROMPT, G_MAX_LENGTH, G_SEGMENT = "gemma_2b_en", 8, 128, 640, 256
 G_CONTRASTIVE_K = 5
@@ -308,6 +358,11 @@ FUSED_UNFUSED_RTOL = 1e-4
 # atomics would differ from run to run, and 2-8 bf16 steps carry that on
 # (0 measured: the autotuner's choices on the H100 summed alike)
 SYS_RESUME_RTOL = 1e-3
+# OHEM loss on the card against the CPU port's, the same fp32 logits and
+# labels: the two upsample and take the CE in fp32 in other orders (a few
+# ulps a pixel), and a loss that moves by that can only swap pixels that tie
+# at the selector's threshold, each worth 1e-5 of the mean at 1e5 kept
+OHEM_RTOL = 1e-5
 # stream (host shards) vs resident first-step loss without augment: the
 # same images, weights and dropout masks through the same algorithms
 SYS_STREAM_RTOL = 1e-5
@@ -1078,8 +1133,8 @@ def check_cache_gather(device, name, shape, dtype, seed=0) -> dict:
 
 def phase_kernels(device) -> list[dict]:
     log("== phase 2: kernels vs plain versions at the main paths' shapes")
-    resnet, swin, intern = (check_upsample_ce(device, n, h, classes)
-                            for _, n, h, classes in UCE_SHAPES)
+    resnet, swin, intern, mbv2 = (check_upsample_ce(device, n, h, classes)
+                                  for _, n, h, classes in UCE_SHAPES)
     log(f"window attention (tol of max(1, max |plain|): {WA_TOL}); dbias err is in max abs err "
         "of the backward; sdpa is F.scaled_dot_product_attention, a yardstick only")
     wa_rows = {}
@@ -1132,7 +1187,8 @@ def phase_kernels(device) -> list[dict]:
     wa_src = "iseg_tpu_torch/csrc/window_attention.cu"
     dl_src = "iseg_tpu_torch/csrc/deform_local.cu"
     cg_src = "iseg_tpu_torch/csrc/cache_gather.cu"
-    uce_shapes = {d: [rows[dt][d] for rows in (resnet, swin, intern) for dt in ("f32", "bf16")]
+    uce_shapes = {d: [rows[dt][d] for rows in (resnet, swin, intern, mbv2)
+                      for dt in ("f32", "bf16")]
                   for d in ("fwd", "bwd")}
     # the split-TF32 rows have entries of their own; the bf16 and CUDA-core rows
     # share the original two
@@ -1661,6 +1717,322 @@ def phase_system_evaluate(env, checkpoint_dir, reader, card) -> None:
         if not (np.array_equal(cm, other_cm) and miou == other_miou
                 and np.array_equal(per_class, other_per_class)):
             raise AssertionError("evaluate disagrees with MeanIoU over SegBase.inference")
+
+
+# ----------------------------------------------------- MobileNetV2 + examples
+
+def build_mbv2_model(env, fused: bool) -> SegManaged:
+    backbone = get_backbone("mobilenetv2", output_stride=M_OS)
+    model = SegManaged(num_class=M_CLASSES, backbone=backbone,
+                       head=SimpleDecoder(backbone.endpoint_channels),
+                       upsample_logits=not fused, fuse_upsample_loss=fused)
+    return model.to(env.device, memory_format=torch.channels_last)
+
+
+def phase_mbv2_train(env, profile: bool):
+    """Phase 5c.1: the MobileNetV2 + SimpleDecoder step on a fixed batch,
+    fused, then one unfused step from the same weights. Returns the launch
+    counts and the fused ms/step."""
+    log("-- 5c.1: MobileNetV2 (width 1.0, os16, top conv 1280) + SimpleDecoder(256, 48), "
+        f"{M_CLASSES} classes, {HW}x{HW}, batch {M_BATCH}, bf16 autocast, fused loss")
+    data = synthetic_batch(env.device, M_BATCH, M_CLASSES)
+    model = build_mbv2_model(env, fused=True)
+    tx, _ = get_optimizer(param_tree(model), "sgd", learning_rate=0.01, train_steps=1000,
+                          warmup_steps=5)
+    state = create_train_state(model, env.generator, tx)
+    init_weights = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    step_fn = make_train_step(model.build_loss_fn(), compute_dtype=env.compute_dtype)
+    state, losses, launches, step_ms = train_steps(state, step_fn, data, M_WARMUP, M_TIMED,
+                                                   M_BATCH)
+    steps = M_WARMUP + M_TIMED
+    expect_launches("MobileNetV2 train", launches,
+                    {"upsample_ce_fwd": steps, "upsample_ce_bwd": steps})
+    log(f"MobileNetV2 train: {step_ms:.2f} ms/step, {M_BATCH * 1e3 / step_ms:.2f} img/s "
+        f"({card_line()})")
+    if profile:
+        profile_steps(state, step_fn, data, "MobileNetV2 + SimpleDecoder train step", step_ms)
+
+    unfused = build_mbv2_model(env, fused=False)
+    unfused.load_state_dict(init_weights)
+    u_state = create_train_state(unfused, None, tx, initialized=True)
+    reset_launch_counts()
+    _, parts = make_train_step(unfused.build_loss_fn(), compute_dtype=env.compute_dtype)(
+        u_state, data)
+    loss = float(parts["loss"])
+    rel = abs(loss - losses[0]) / abs(losses[0])
+    log(f"MobileNetV2 first-step loss: fused {losses[0]:.6f} unfused {loss:.6f} rel diff "
+        f"{rel:.3e} (tol {FUSED_UNFUSED_RTOL:g})")
+    if any(read_launch_counts().values()):
+        raise AssertionError("the unfused MobileNetV2 step launched the fused kernels")
+    if not rel <= FUSED_UNFUSED_RTOL:
+        raise AssertionError("MobileNetV2 fused and unfused first-step losses disagree")
+    return launches, step_ms
+
+
+def phase_train_seg(env, tmp: str, fixed_batch_ms: float) -> tuple[dict, str]:
+    """Phase 5c.2: ``train_seg.main`` in this process on its synthetic data,
+    2 epochs x 4 steps, then rerun with 3 epochs: it resumes at step 8 and
+    ends at 12. Returns the launch counts of both runs and the checkpoint
+    directory."""
+    ckpt = os.path.join(tmp, "train_seg")
+    args = ["--backbone", "mobilenetv2", "--head", "simpledecoder", "--crop", str(HW),
+            "--batch", str(M_BATCH), "--steps_per_epoch", str(EX_STEPS_PER_EPOCH),
+            "--fused_loss", "--eval_scales", "0.75,1.0", "--flip_eval", "--ckpt_dir", ckpt]
+    log(f"-- 5c.2: train_seg.main({' '.join(args)} --epochs 2), then --epochs 3")
+    reset_launch_counts()
+    first = train_seg_example.main(args + ["--epochs", "2"])
+    second = train_seg_example.main(args + ["--epochs", "3"])
+    launches = read_launch_counts()
+    steps = 3 * EX_STEPS_PER_EPOCH
+    expect_launches("train_seg", launches, {"upsample_ce_fwd": steps, "upsample_ce_bwd": steps})
+    saved = ModelHelper(ckpt).all_steps()
+    losses = [r["loss"] for r in first["history"] + second["history"]]
+    log(f"train_seg: first run {first['resumed_from']} -> {first['step']}, rerun resumed at "
+        f"{second['resumed_from']} -> {second['step']}; checkpoints {saved}; epoch losses "
+        f"{[round(v, 5) for v in losses]}; mIoU {first['miou']:.4f} then {second['miou']:.4f}")
+    log(f"train_seg: {first['ms_per_step']:.2f} ms/step over epoch 2 of the first run (host "
+        f"augment of {M_BATCH} images + prefetch + step; host clock) against "
+        f"{fixed_batch_ms:.2f} ms/step on 5c.1's fixed batch ({card_line()})")
+    if (first["step"] != 2 * EX_STEPS_PER_EPOCH or second["resumed_from"] != first["step"]
+            or second["step"] != steps or saved != [2 * EX_STEPS_PER_EPOCH, steps]):
+        raise AssertionError("train_seg did not checkpoint and resume at the saved step")
+    if not (all(np.isfinite(losses)) and np.isfinite(second["miou"])):
+        raise AssertionError("train_seg gave non-finite losses or mIoU")
+    return launches, ckpt
+
+
+def ohem_kept(model, logits, labels) -> tuple[int, int, int]:
+    """(valid, hard, kept) pixel counts of ``model``'s OHEM selector on the
+    per-pixel CE of low-res ``logits`` upsampled to the labels: hard are the
+    valid pixels whose true-class probability is below the threshold."""
+    up = resize_image(logits, tuple(labels.shape[1:]), "bilinear")
+    pixel = cross_entropy_ignore_label(up, labels, reduction="none")
+    mask = (labels != 255).to(torch.float32)
+    true_prob = torch.exp(-pixel)  # the true class's probability on the valid pixels
+    kept = get_ohem_fn(model.ohem_thresh, model.ohem_min_kept, model.ohem_ref_exact)(
+        pixel, true_prob, mask)
+    hard = (true_prob < (model.ohem_thresh or 0.0)) & (mask > 0)
+    return int(mask.sum()), int(hard.sum()), int((kept * mask).sum())
+
+
+def ohem_batches(env, model, data):
+    """(title, logits, labels, min_kept, compared with the CPU port): the
+    seed-0 model's logits on ``data`` with a tenth of its labels ignored
+    (every valid pixel is hard there); then a batch where the selectors
+    choose, random logits (x8) whose upsampled argmax is the label but for
+    1% of pixels, a tenth ignored, at the configuration's ``min_kept`` (the
+    hard pixels outnumber it) and at 2,000,000 (the hardest-k fill)."""
+    rng = np.random.RandomState(5)
+    shape = (R_BATCH, HW, HW)
+    ignore = torch.tensor(rng.rand(*shape) < 0.1, device=env.device)
+    with torch.no_grad(), torch.autocast("cuda", dtype=env.compute_dtype):
+        logits = model(data["image"]).float()
+    side = HW // R_OS
+    sharp = torch.tensor(8.0 * rng.randn(R_BATCH, side, side, R_CLASSES).astype(np.float32),
+                         device=env.device)
+    labels = resize_image(sharp, (HW, HW), "bilinear").argmax(-1).to(torch.int32)
+    flip = torch.tensor(rng.rand(*shape) < 0.01, device=env.device)
+    other = torch.tensor(rng.randint(0, R_CLASSES, shape).astype(np.int32), device=env.device)
+    labels = torch.where(flip, other, labels)
+    labels = labels.masked_fill(ignore, 255)
+    title = "random logits x8, labels their argmax but 1%"
+    return (("the seed-0 model's logits", logits, data["label"].masked_fill(ignore, 255),
+             model.ohem_min_kept, False),
+            (title, sharp, labels, model.ohem_min_kept, True),
+            (title, sharp, labels, EX_OHEM_FILL_MIN_KEPT, True))
+
+
+def phase_ohem(env, tmp: str) -> dict[str, int]:
+    """Phase 5c.3: config #2 (ResNet-50 + ASPP with OHEM) through
+    ``train_seg``: OHEM gates the fused loss off. Then each selector's
+    pixel counts at the seed-0 model's logits (step 1), and on a batch where
+    the selectors choose, its loss on the card against the CPU port's on the
+    same logits and labels."""
+    args = ["--backbone", "resnet50", "--head", "aspp", "--ohem", "--fused_loss", "--batch",
+            str(R_BATCH), "--crop", str(HW), "--epochs", "1", "--steps_per_epoch",
+            str(EX_OHEM_STEPS), "--ckpt_dir", os.path.join(tmp, "ohem")]
+    log(f"-- 5c.3: config #2, train_seg.main({' '.join(args)})")
+    reset_launch_counts()
+    out = train_seg_example.main(args)
+    launches = read_launch_counts()
+    expect_launches("train_seg --ohem", launches, {})
+    losses = [r["loss"] for r in out["history"]]
+    log(f"train_seg --ohem: {out['step']} steps, last loss {losses[-1]:.5f}, mIoU "
+        f"{out['miou']:.4f}")
+    if out["step"] != EX_OHEM_STEPS or not all(np.isfinite(losses)):
+        raise AssertionError("the OHEM run did not train to finite losses")
+
+    data = synthetic_batch(env.device, R_BATCH, R_CLASSES)
+    model = train_seg_example.build_model("resnet50", "aspp", R_CLASSES, device=env.device,
+                                          use_ohem=True, upsample_logits=False,
+                                          fuse_upsample_loss=True)
+    create_train_state(model, torch.Generator().manual_seed(0),
+                       get_optimizer(param_tree(model), "sgd")[0])
+    shape = f"[{R_BATCH},{HW // R_OS},{HW // R_OS},{R_CLASSES}] -> [{R_BATCH},{HW},{HW}]"
+    for title, logits, labels, min_kept, compare in ohem_batches(env, model, data):
+        model.ohem_min_kept = min_kept
+        for ref_exact in (False, True):
+            model.ohem_ref_exact = ref_exact
+            name = "ref_exact" if ref_exact else "default"
+            valid, hard, kept = ohem_kept(model, logits, labels)
+            log(f"OHEM {name} (thresh {model.ohem_thresh}, min_kept {model.ohem_min_kept}), "
+                f"{title}, {shape}: {valid} valid pixels, {hard} hard, {kept} kept")
+            if not compare:
+                continue
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            card = float(model.build_loss_fn()(logits, labels)[0])
+            card_ms = 1e3 * (time.perf_counter() - t0)
+            host = float(model.build_loss_fn()(logits.cpu(), labels.cpu())[0])
+            rel = abs(card - host) / abs(host)
+            log(f"OHEM {name} loss: card {card:.7f} CPU port {host:.7f} rel diff {rel:.3e} (tol "
+                f"{OHEM_RTOL:g}); the card's loss (upsample + CE + selector) {card_ms:.2f} ms, "
+                f"host clock ({card_line()})")
+            if not rel <= OHEM_RTOL:
+                raise AssertionError(f"OHEM {name}: the card's loss differs from the CPU port's")
+    return launches
+
+
+def eval_both_ways(env, model, variables, batches, config: dict, title: str) -> None:
+    """``evaluate`` with ``use_cpu_cache`` off, then on: equal confusion
+    matrices (or, where an argmax parts, logits apart by more than that
+    pixel's top-two gap fail), the bucket count, ms per image and peak
+    device memory of each."""
+    results = {}
+    n_images = sum(b["image"].shape[0] for b in batches)
+    for cached in (False, False, True):  # the first call of these shapes autotunes cuDNN
+        cfg = SegModelInferenceConfig(**config, use_cpu_cache=cached)
+        metric = MeanIoU(M_CLASSES)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        miou, _ = evaluate(env, model, variables, batches, inference_config=cfg, verbose=False,
+                           metric=metric)
+        torch.cuda.synchronize()
+        results[cached] = (miou, metric.total_cm, 1e3 * (time.perf_counter() - t0) / n_images,
+                           torch.cuda.max_memory_allocated(), evaluate.last_num_programs)
+    for cached, (miou, cm, ms, peak, programs) in results.items():
+        log(f"{title}, use_cpu_cache={cached}: mIoU {miou:.6f}, {ms:.2f} ms per image, peak "
+            f"device memory {peak / 2**30:.3f} GiB ({peak} bytes), {programs} input shapes "
+            f"({card_line()})")
+    (_, cm_off, _, _, p_off), (_, cm_on, _, _, p_on) = results[False], results[True]
+    if p_off != p_on:
+        raise AssertionError(f"{title}: the two ways saw {p_off} and {p_on} input shapes")
+    if np.array_equal(cm_off, cm_on):
+        log(f"{title}: confusion matrices equal with and without the CPU cache")
+        return
+    # the top-two-gap rule: a parted argmax must sit on a near-tie
+    plain = make_eval_step(model, SegModelInferenceConfig(**config), variables,
+                           env.compute_dtype)
+    cached = make_eval_step(model, SegModelInferenceConfig(**config, use_cpu_cache=True),
+                            variables, env.compute_dtype)
+    pad = (bucket_padder(config["bucket_multiple"], 0.0, 255) if config.get("bucket_multiple")
+           else (lambda b: b))
+    for batch in batches:
+        image = torch.tensor(np.asarray(pad(batch)["image"]), device=env.device)
+        a, b = plain(image).cpu(), cached(image)
+        err = float((a - b).abs().max())
+        top2 = a.topk(2, dim=-1).values
+        gap = top2[..., 0] - top2[..., 1]
+        parted = a.argmax(-1) != b.argmax(-1)
+        worst = float(gap[parted].max()) if bool(parted.any()) else 0.0
+        log(f"{title}: logits max abs diff {err:.3e}; {int(parted.sum())} argmaxes parted, "
+            f"largest top-two gap among them {worst:.3e}")
+        if worst > err:
+            raise AssertionError(f"{title}: the CPU cache changed a prediction beyond a near-tie")
+
+
+def phase_eval_buckets(env, ckpt: str) -> None:
+    """Phase 5c.4: ``evaluate`` of the train_seg model, with buckets and the
+    CPU cache, on VOC-like sizes, then one Cityscapes-size image."""
+    model = build_mbv2_model(env, fused=False)
+    variables = ModelHelper(ckpt).restore_latest_variables(
+        {"params": param_tree(model), "batch_stats": batch_stats_tree(model)})
+    rng = np.random.RandomState(7)
+    voc = []
+    for h, w in EX_EVAL_SIZES * 2:
+        label = rng.randint(0, M_CLASSES, (1, h, w))
+        voc.append({"image": rng.uniform(-1, 1, (1, h, w, 3)).astype(np.float32),
+                    "label": np.where(rng.rand(1, h, w) < 0.1, 255, label).astype(np.int32)})
+    want = len(bucket_stats(EX_EVAL_SIZES, EX_BUCKET))
+    log(f"-- 5c.4: evaluate, {len(voc)} images of sizes {EX_EVAL_SIZES} (two each), batch 1, "
+        f"bucket_multiple {EX_BUCKET} ({want} buckets), scales (0.75, 1.0) + flip")
+    eval_both_ways(env, model, variables, voc, dict(scale_rates=(0.75, 1.0), flip=True,
+                                                    bucket_multiple=EX_BUCKET), "VOC-like eval")
+    for cached in (False, True):
+        evaluate(env, model, variables, voc, verbose=False,
+                 inference_config=SegModelInferenceConfig(scale_rates=(0.75, 1.0), flip=True,
+                                                          bucket_multiple=EX_BUCKET,
+                                                          use_cpu_cache=cached))
+        if evaluate.last_num_programs != want:
+            raise AssertionError(f"last_num_programs {evaluate.last_num_programs}, bucket_stats "
+                                 f"counts {want}")
+    h, w = EX_BIG
+    label = rng.randint(0, M_CLASSES, (1, h, w)).astype(np.int32)
+    big = [{"image": rng.uniform(-1, 1, (1, h, w, 3)).astype(np.float32), "label": label}]
+    log(f"-- 5c.4: evaluate, one {h}x{w} image, scales {EX_BIG_SCALES} + flip, "
+        f"{EX_BIG_WINDOW}x{EX_BIG_WINDOW} sliding window")
+    eval_both_ways(env, model, variables, big,
+                   dict(scale_rates=EX_BIG_SCALES, flip=True,
+                        sliding_window_crop_size=(EX_BIG_WINDOW, EX_BIG_WINDOW)),
+                   f"{h}x{w} sliding eval")
+
+    # predict: default_image_predict over a bucketed batch is the argmax of
+    # SegBase.inference on it
+    images = np.concatenate([voc[0]["image"], voc[len(EX_EVAL_SIZES)]["image"]])  # one size
+    padded, _, _ = pad_batch_to_bucket(images, None, EX_BUCKET)
+    batch = torch.tensor(padded, device=env.device)
+    config = SegModelInferenceConfig(scale_rates=(0.75, 1.0), flip=True)
+    with torch.no_grad():
+        for col, tree in (("params", param_tree(model)), ("batch_stats", batch_stats_tree(model))):
+            for k, t in tree.items():
+                t.copy_(variables[col][k])
+    preds = default_image_predict(model, batch, config, env.compute_dtype)
+    with torch.autocast("cuda", dtype=env.compute_dtype):
+        logits = model.inference(batch, config)
+    equal = bool(torch.equal(preds, logits.argmax(-1).to(torch.int32)))
+    log(f"-- 5c.5: default_image_predict over a bucketed batch {tuple(batch.shape)}: "
+        f"{tuple(preds.shape)} {preds.dtype}, equal to the argmax of SegBase.inference: {equal} "
+        "(predict_with_dir, which reads and writes PNGs, is held on the CPU: no PIL here)")
+    if not equal:
+        raise AssertionError("default_image_predict differs from SegBase.inference's argmax")
+
+
+def phase_examples(env, profile: bool) -> dict[str, dict]:
+    """Phase 5c: BASELINE config #1 and the example scripts."""
+    log("== phase 5c: MobileNetV2 + SimpleDecoder and the example scripts (train_seg, "
+        "config #2 with OHEM, evaluate with buckets and the CPU cache, predict, verify_drive)")
+    t_phase = time.perf_counter()
+    paths = {}
+    paths["mbv2_train"], mbv2_ms = phase_mbv2_train(env, profile)
+    torch.cuda.empty_cache()
+    log(f"(5c.1 done at {time.perf_counter() - t_phase:.1f} s)")
+    # the examples and evaluate meet many input shapes: cuDNN's heuristics,
+    # not an autotuning run per new shape (restored after the phase)
+    benchmark = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = False
+    try:
+        with tempfile.TemporaryDirectory(prefix="iseg_examples_") as tmp:
+            paths["mbv2_train_seg"], ckpt = phase_train_seg(env, tmp, mbv2_ms)
+            torch.cuda.empty_cache()
+            log(f"(5c.2 done at {time.perf_counter() - t_phase:.1f} s)")
+            paths["ohem_train_seg"] = phase_ohem(env, tmp)
+            torch.cuda.empty_cache()
+            log(f"(5c.3 done at {time.perf_counter() - t_phase:.1f} s)")
+            phase_eval_buckets(env, ckpt)
+            torch.cuda.empty_cache()
+            log(f"(5c.4-5 done at {time.perf_counter() - t_phase:.1f} s)")
+        log("-- 5c.6: verify_drive.main(['--device', 'cuda'])")
+        reset_launch_counts()
+        out = verify_drive_example.main(["--device", "cuda"])
+    finally:
+        torch.backends.cudnn.benchmark = benchmark
+    expect_launches("verify_drive", read_launch_counts(), {})
+    log(f"verify_drive: mIoU {out['miou']:.4f} (> 0.7), restored step {out['step']}")
+    if not (out["miou"] > 0.7 and out["step"] == 100):
+        raise AssertionError("verify_drive did not reach mIoU > 0.7 and restore step 100")
+    log(f"phase 5c took {time.perf_counter() - t_phase:.1f} s ({card_line()})")
+    return paths
 
 
 # --------------------------------------------------------------- Swin path
@@ -2594,6 +2966,8 @@ def main(argv: list[str]) -> int:
     torch.cuda.empty_cache()
     paths["system_train"] = phase_system(env, resnet_ms, profile)
     torch.cuda.empty_cache()
+    paths.update(phase_examples(env, profile))
+    torch.cuda.empty_cache()
 
     data = synthetic_batch(device, S_BATCH, S_CLASSES)
     swin_model, paths["swin_train"] = phase_swin_train(env, data, profile)
@@ -2628,6 +3002,8 @@ def main(argv: list[str]) -> int:
     loss_kernels = ("upsample_ce_fwd", "upsample_ce_bwd")
     on_path = {"resnet_train": loss_kernels,
                "system_train": loss_kernels,
+               "mbv2_train": loss_kernels,
+               "mbv2_train_seg": loss_kernels,
                "swin_train": loss_kernels + ("window_attention_fwd_mma",
                                              "window_attention_bwd_mma"),
                "swin_serve": ("window_attention_fwd_mma",),

@@ -4,9 +4,11 @@ inference.
 
 Parity with the reference's ``evaluations/evaluation.py:19`` ``evaluate``
 (custom loop, per-class IoU report at the end). The sweep runs eagerly
-under ``torch.inference_mode()`` and the env's autocast; ``use_cpu_cache``
-and shape bucketing are not ported and raise in
-``SegModelInferenceConfig``.
+under ``torch.inference_mode()`` and the env's autocast. The config's
+``use_cpu_cache`` (one pass per scale and flip, logits summed in pinned host
+memory) and ``bucket_multiple`` (host batches padded up to the bucket grid
+before they are sent to the device) are honoured here, as in the JAX
+package.
 """
 
 from __future__ import annotations
@@ -14,16 +16,18 @@ from __future__ import annotations
 import itertools
 from typing import Callable, Iterable, Optional
 
+import numpy as np
 import torch
 from torch import nn
 from torch.func import functional_call
 
 from iseg_tpu_torch.convert import batch_stats_tree, param_tree
-from iseg_tpu_torch.core.inference import inference_with_multi_scales
+from iseg_tpu_torch.core.inference import inference_with_multi_scales, inference_with_scale
 from iseg_tpu_torch.core.model import SegModelInferenceConfig
 from iseg_tpu_torch.data.loader import device_prefetch
 from iseg_tpu_torch.losses.cross_entropy import cross_entropy_ignore_label
 from iseg_tpu_torch.metrics.mean_iou import MeanIoU
+from iseg_tpu_torch.utils.buckets import pad_batch_to_bucket
 
 
 def variables_by_module_name(model: nn.Module, variables: dict) -> dict[str, torch.Tensor]:
@@ -60,9 +64,19 @@ def make_eval_step(model: nn.Module, inference_config: Optional[SegModelInferenc
     ``variables`` (path-keyed, see :func:`variables_by_module_name`) are
     used in place of the model's own weights without writing them into it.
     Multi-scale and sliding-window passes need logits at the input's
-    resolution (``upsample_logits=True``)."""
+    resolution (``upsample_logits=True``).
+
+    With ``use_cpu_cache`` each (scale, flip) pass's fp32 logits are copied
+    to host memory (pinned, for a CUDA device) and summed there in the JAX
+    package's order, ``acc = l0; acc = acc + l1; ...; acc / count``: the
+    device holds one pass at a time, and the step returns a CPU tensor.
+    ``eval_step.seen_shapes`` collects the distinct input shapes."""
     cfg = inference_config or SegModelInferenceConfig()
     overrides = variables_by_module_name(model, variables) if variables is not None else None
+    seen_shapes: set[tuple[int, ...]] = set()
+    sliding = dict(sliding_window_crop_size=cfg.sliding_window_crop_size,
+                   sliding_window_stride_rate=cfg.sliding_window_stride_rate,
+                   sliding_window_batch=cfg.sliding_window_batch)
 
     def forward(x):
         out = functional_call(model, overrides, (x,)) if overrides else model(x)
@@ -72,23 +86,62 @@ def make_eval_step(model: nn.Module, inference_config: Optional[SegModelInferenc
             out = out["output_0"]
         return out
 
+    def cpu_cache_sweep(images: torch.Tensor) -> torch.Tensor:
+        acc = staging = None
+        count = 0
+        for scale in cfg.scale_rates:
+            for flipped in ((False, True) if cfg.flip else (False,)):
+                logits = inference_with_scale(forward, images, scale, flipped=flipped, **sliding)
+                if acc is None:
+                    acc = _host_buffer(logits)
+                    acc.copy_(logits)
+                else:
+                    if staging is None:
+                        staging = _host_buffer(logits)
+                    staging.copy_(logits)
+                    acc += staging
+                del logits  # the device holds one pass at a time
+                count += 1
+        return acc / count
+
     def eval_step(images: torch.Tensor) -> torch.Tensor:
+        seen_shapes.add(tuple(images.shape))
         was_training = model.training
         model.eval()
         try:
             with torch.inference_mode(), torch.autocast(
                     images.device.type, dtype=compute_dtype,
                     enabled=compute_dtype in (torch.bfloat16, torch.float16)):
+                if cfg.use_cpu_cache:
+                    return cpu_cache_sweep(images)
                 return inference_with_multi_scales(
                     forward, images, scale_rates=tuple(cfg.scale_rates), flip=cfg.flip,
-                    flip_in_batch=cfg.flip_in_batch,
-                    sliding_window_crop_size=cfg.sliding_window_crop_size,
-                    sliding_window_stride_rate=cfg.sliding_window_stride_rate,
-                    sliding_window_batch=cfg.sliding_window_batch)
+                    flip_in_batch=cfg.flip_in_batch, **sliding)
         finally:
             model.train(was_training)
 
+    eval_step.seen_shapes = seen_shapes
     return eval_step
+
+
+def _host_buffer(like: torch.Tensor) -> torch.Tensor:
+    """An empty CPU tensor of ``like``'s shape and dtype, pinned when
+    ``like`` is on a CUDA device (a copy into it is a plain DMA)."""
+    return torch.empty(like.shape, dtype=like.dtype, pin_memory=like.device.type == "cuda")
+
+
+def bucket_padder(multiple: int, pad_value: float, ignore_label: int) -> Callable[[dict], dict]:
+    """Host-batch transform: pad ``image`` (with ``pad_value``, in the space
+    the dataset yields) and ``label`` (with ``ignore_label``) up to the
+    bucket grid of ``multiple``."""
+
+    def pad(batch: dict) -> dict:
+        image, label, _ = pad_batch_to_bucket(
+            np.asarray(batch["image"]), np.asarray(batch["label"]), multiple=multiple,
+            image_pad_value=pad_value, ignore_label=ignore_label)
+        return {**batch, "image": image, "label": label}
+
+    return pad
 
 
 def evaluate(
@@ -114,19 +167,27 @@ def evaluate(
     own weights. ``metric`` is the ``MeanIoU`` to accumulate into (a new
     one when None), for a caller that reads the confusion matrix.
     ``log_dir`` writes the eval scalars (mIoU, per-class IoU, loss) to a
-    TensorBoard event file + CSV at ``log_step``."""
+    TensorBoard event file + CSV at ``log_step``. With the config's
+    ``bucket_multiple`` each host batch is padded up to the bucket grid
+    before it is sent to the device; ``evaluate.last_num_programs`` is then
+    the number of distinct input shapes the eval step saw."""
     num_class = num_class if num_class is not None else model.num_class
     ignore_label = ignore_label if ignore_label is not None else model.ignore_label
     eval_step = make_eval_step(model, inference_config, variables, env.compute_dtype)
     miou = metric if metric is not None else MeanIoU(num_class, ignore_label)
 
+    cfg = inference_config or SegModelInferenceConfig()
+    pad = (bucket_padder(cfg.bucket_multiple, cfg.bucket_pad_value, ignore_label)
+           if cfg.bucket_multiple else None)
+
     n_batches = 0
     loss_sum = 0.0
-    for batch in device_prefetch(dataset, env.device, size=2):
+    for batch in device_prefetch(dataset, env.device, size=2, transform=pad):
         image = batch["image"]
         if not image.is_floating_point():
             image = image.to(torch.float32)
-        logits = eval_step(image)
+        # the CPU-cache sweep returns host logits: back beside the labels
+        logits = eval_step(image).to(env.device)
         miou.update_state(batch["label"], logits)
         if compute_loss:
             loss_sum += float(cross_entropy_ignore_label(logits, batch["label"],
@@ -137,6 +198,9 @@ def evaluate(
             if compute_loss:
                 msg += f" loss={loss_sum / n_batches:.4f}"
             print(msg, flush=True)
+
+    # the distinct padded shapes this eval saw (bucket accounting)
+    evaluate.last_num_programs = len(eval_step.seen_shapes)
 
     per_class = miou.per_class_iou()
     if log_dir is not None:

@@ -18,6 +18,7 @@ from torch import nn
 
 from iseg_tpu_torch.core.inference import inference_with_multi_scales
 from iseg_tpu_torch.losses.cross_entropy import cross_entropy_ignore_label
+from iseg_tpu_torch.losses.ohem import get_ohem_fn
 from iseg_tpu_torch.nn.conv import Conv2d
 from iseg_tpu_torch.ops.kernels.upsample_ce import upsample_cross_entropy
 from iseg_tpu_torch.ops.resize import resize_image
@@ -25,13 +26,21 @@ from iseg_tpu_torch.ops.resize import resize_image
 
 @dataclasses.dataclass
 class SegModelInferenceConfig:
-    """Inference knobs, honoured by :meth:`SegBase.inference`.
+    """Inference knobs. :meth:`SegBase.inference` honours the scales, flip
+    and sliding window; ``use_cpu_cache``, ``bucket_multiple`` and
+    ``bucket_pad_value`` are honoured by
+    :func:`iseg_tpu_torch.core.evaluation.make_eval_step` and ``evaluate``
+    only, as in the JAX package.
 
     ``sliding_window_batch`` folds that many windows into the batch dim per
     model call; ``flip_in_batch`` folds each scale's (identity, flip) pair
     into one forward at double batch; both leave the results unchanged.
-    ``use_cpu_cache`` and shape bucketing are not ported: a value other
-    than their default raises rather than being ignored."""
+    ``use_cpu_cache`` runs one pass per (scale, flip) and sums the passes'
+    fp32 logits in pinned host memory, so the device holds one pass at a
+    time. ``bucket_multiple`` pads each eval batch on the host up to the
+    next multiple of it (images with ``bucket_pad_value``, in the space the
+    dataset yields; labels with the ignore label), so variable-size eval
+    sees a bounded set of shapes."""
 
     scale_rates: Sequence[float] = (1.0,)
     flip: bool = False
@@ -42,12 +51,6 @@ class SegModelInferenceConfig:
     use_cpu_cache: bool = False
     bucket_multiple: Optional[int] = None
     bucket_pad_value: float = 0.0
-
-    def __post_init__(self):
-        for name in ("use_cpu_cache", "bucket_multiple", "bucket_pad_value"):
-            if getattr(self, name) != type(self).__dataclass_fields__[name].default:
-                raise NotImplementedError(
-                    f"SegModelInferenceConfig.{name} is not ported to iseg_tpu_torch yet")
 
 
 class SegBase(nn.Module):
@@ -96,15 +99,21 @@ def normalize_outputs(outputs) -> dict[str, torch.Tensor]:
 
 
 class SegFoundation(SegBase):
-    """Loss plumbing: aux outputs, loss rates, focal switch, class weights,
-    reduction, and the fused upsample + CE kernel."""
+    """Loss plumbing: aux outputs, loss rates, OHEM, focal switch, class
+    weights, reduction, and the fused upsample + CE kernel. OHEM applies to
+    the main output only and gates the fused kernel off."""
 
     def __init__(
         self,
         num_class: int = 21,
         num_aux_loss: int = 0,
         aux_loss_rate: float = 0.4,
-        use_ohem: bool = False,  # OHEM is not ported: True raises
+        use_ohem: bool = False,
+        ohem_thresh: Optional[float] = 0.7,
+        ohem_min_kept: int = 100000,
+        # the reference's ohem_selector bit for bit, quirks included
+        # (losses/ohem.py)
+        ohem_ref_exact: bool = False,
         use_focal_loss: bool = False,
         focal_loss_gamma: float = 2.0,
         focal_loss_alpha: Optional[float] = 0.25,
@@ -122,6 +131,9 @@ class SegFoundation(SegBase):
         self.num_aux_loss = num_aux_loss
         self.aux_loss_rate = aux_loss_rate
         self.use_ohem = use_ohem
+        self.ohem_thresh = ohem_thresh
+        self.ohem_min_kept = ohem_min_kept
+        self.ohem_ref_exact = ohem_ref_exact
         self.use_focal_loss = use_focal_loss
         self.focal_loss_gamma = focal_loss_gamma
         self.focal_loss_alpha = focal_loss_alpha
@@ -137,8 +149,9 @@ class SegFoundation(SegBase):
     def build_loss_fn(self) -> Callable:
         """``loss_fn(outputs, labels) -> (total, parts)`` with parts keyed
         ``output_N_loss`` plus ``loss``."""
-        if self.use_ohem:
-            raise NotImplementedError("OHEM is not ported to iseg_tpu_torch yet")
+        ohem_fn = (get_ohem_fn(self.ohem_thresh, self.ohem_min_kept,
+                               ref_exact=self.ohem_ref_exact)
+                   if self.use_ohem else None)
         weights = self.custom_losses_weights()
         use_fused = (
             self.fuse_upsample_loss
@@ -171,6 +184,7 @@ class SegFoundation(SegBase):
                         use_focal=self.use_focal_loss,
                         focal_gamma=self.focal_loss_gamma,
                         focal_alpha=self.focal_loss_alpha,
+                        ohem_fn=ohem_fn if i == 0 else None,
                         reduction=self.loss_reduction,
                         global_batch_size=self.loss_global_batch_size,
                     )

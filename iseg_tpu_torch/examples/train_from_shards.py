@@ -53,21 +53,12 @@ class _SyntheticDataset:
 
 
 def build_model(backbone: str, head: str, num_class: int, device):
-    """A fused-loss ``SegManaged`` of a registered backbone and a ported
-    head (``aspp``; SimpleDecoder is not ported yet)."""
-    import torch
+    """A fused-loss ``SegManaged`` of a registered backbone and a ported head
+    (``train_seg.build_model``)."""
+    from iseg_tpu_torch.examples import train_seg
 
-    from iseg_tpu_torch.backbones import get_backbone
-    from iseg_tpu_torch.core.model import SegManaged
-    from iseg_tpu_torch.nn.heads import ASPP
-
-    if head != "aspp":
-        raise ValueError(f"head {head!r} is not ported; use 'aspp'")
-    bb = get_backbone(backbone, output_stride=16)
-    model = SegManaged(num_class=num_class, backbone=bb,
-                       head=ASPP(bb.out_channels, filters=256), upsample_logits=False,
-                       fuse_upsample_loss=True)
-    return model.to(device, memory_format=torch.channels_last)
+    return train_seg.build_model(backbone, head, num_class, device=device,
+                                 upsample_logits=False, fuse_upsample_loss=True)
 
 
 def main(argv=None):

@@ -51,10 +51,11 @@ def cross_entropy_ignore_label(
 
     ``reduction``: "valid_mean" (mean over contributing pixels), "sum",
     "none", "all_mean" (divide by the constant N*H*W) or "global_batch"
-    (divide by the constant ``global_batch_size``).
+    (divide by the constant ``global_batch_size``). ``ohem_fn`` (from
+    :func:`iseg_tpu_torch.losses.ohem.get_ohem_fn`) maps the per-pixel
+    losses, true-class probabilities and mask to a 0/1 keep map that
+    multiplies both the mask and the weight map.
     """
-    if ohem_fn is not None:
-        raise NotImplementedError("OHEM is not ported to iseg_tpu_torch yet")
     labels = prepare_labels(labels, logits)
     logits = logits.to(torch.float32)
     if num_classes is None:
@@ -94,6 +95,11 @@ def cross_entropy_ignore_label(
         weight_map = pixel_weights * mask
     else:
         weight_map = mask
+
+    if ohem_fn is not None:
+        kept = ohem_fn(pixel_loss, torch.exp(true_lp), mask)
+        mask = mask * kept
+        weight_map = weight_map * kept
 
     pixel_loss = pixel_loss * mask
 

@@ -7,6 +7,7 @@ from iseg_tpu_torch.nn.heads.fpn import (
     SemanticPyramidNetworkBlockV1,
     SemanticPyramidNetworkBlockV2,
 )
+from iseg_tpu_torch.nn.heads.simpledecoder import SimpleDecoder
 
 __all__ = [
     "ASPP",
@@ -15,4 +16,5 @@ __all__ = [
     "SemanticFPN",
     "SemanticPyramidNetworkBlockV1",
     "SemanticPyramidNetworkBlockV2",
+    "SimpleDecoder",
 ]

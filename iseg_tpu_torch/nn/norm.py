@@ -8,7 +8,8 @@ because it must behave like flax's ``nn.BatchNorm`` with Keras defaults:
 * the running variance is updated with the BIASED batch variance;
 * a batch with one value per channel (the image-pool branch at N=1) is
   allowed in training;
-* the moments are computed in fp32 whatever the compute dtype (under bf16
+* the moments are computed in fp32 or wider (float64 stays float64, as
+  flax promotes with fp32), whatever the compute dtype (under bf16
   autocast), and the output returns in the input's dtype.
 
 On one card BatchNorm and SyncBatchNorm are the same layer.
@@ -79,7 +80,7 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(num_features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        xf = x.to(torch.float32)
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
         if self.training:
             dims = [0] + list(range(2, x.ndim))
             # one fused two-pass reduction; flax's E[x^2] - E[x]^2 gives the

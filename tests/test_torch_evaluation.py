@@ -170,11 +170,21 @@ def test_torch_evaluate_variables_and_images_as_stored(evaluated):
         teval.variables_by_module_name(tm, {"params": {"nope": torch.zeros(1)}})
 
 
-def test_torch_eval_config_still_refuses_cpu_cache_and_buckets():
-    with pytest.raises(NotImplementedError):
-        TConfig(use_cpu_cache=True)
-    with pytest.raises(NotImplementedError):
-        TConfig(bucket_multiple=32)
+def test_torch_eval_config_still_refuses_cpu_cache_and_buckets(evaluated):
+    """The CPU cache and bucketing are ported now, and honoured by
+    ``evaluate`` only: ``SegBase.inference`` ignores them, as JAX's does, and
+    a bucketed, cached evaluate of this already-aligned data equals the
+    plain one (tests/test_torch_buckets.py holds them against JAX)."""
+    config = TConfig(**CONFIG, use_cpu_cache=True, bucket_multiple=32)
+    assert config.use_cpu_cache and config.bucket_multiple == 32
+    image = torch.tensor(next(_dataset())["image"])
+    tm = evaluated["tm"]
+    torch.testing.assert_close(tm.inference(image, config), tm.inference(image, TConfig(**CONFIG)),
+                               rtol=0, atol=0)
+    env = common_env_setup(device="cpu", mixed_precision=False)
+    out = teval.evaluate(env, tm, None, _dataset(), inference_config=config, verbose=False)
+    assert out[0] == evaluated["t_out"][0]
+    assert teval.evaluate.last_num_programs == 1
 
 
 def _labels_logits(seed=0, n=2, hw=8, c=3):

@@ -1,0 +1,204 @@
+"""The port's example scripts (``iseg_tpu_torch/examples``: ``train_seg``,
+``eval_seg``, ``predict_dir``, ``verify_drive``) on ``--device cpu`` at a
+tiny size, and the port's import boundary.
+
+* ``train_seg`` trains MobileNetV2 (0.35, no top conv) + SimpleDecoder on
+  its synthetic data, checkpoints, and a rerun with more epochs resumes at
+  the saved step;
+* ``eval_seg`` over a PNG directory (written with PIL) prints the mIoU that
+  ``evaluate`` gives on the same data and weights (equal);
+* ``predict_dir`` writes one PNG per image at its size, and refuses a
+  checkpoint directory without a checkpoint;
+* unported heads, ``--pretrained``, ``--weights_h5`` and other optimizers
+  raise;
+* a reduced ``verify_drive`` (2 x 3 steps, no mIoU threshold) restores its
+  step (the full drive, with its mIoU > 0.7, runs on the card);
+* no module of ``iseg_tpu_torch`` and no line of ``chip_smoke.py`` imports
+  JAX, flax, optax, TensorFlow or ``iseg_tpu``.
+"""
+
+import json
+import os
+import pathlib
+import re
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from iseg_tpu_torch.convert import batch_stats_tree, param_tree
+from iseg_tpu_torch.core.checkpoint import ModelHelper
+from iseg_tpu_torch.core.env import common_env_setup
+from iseg_tpu_torch.core.evaluation import evaluate
+from iseg_tpu_torch.core.model import SegModelInferenceConfig
+from iseg_tpu_torch.data import StandardAugmentationsPipeline
+from iseg_tpu_torch.data.loader import SegDirectoryDataset, batched_dataset
+from iseg_tpu_torch.examples import eval_seg, predict_dir, train_seg, verify_drive
+
+torch.set_num_threads(1)
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+SMALL = ["--device", "cpu", "--crop", "32", "--batch", "2", "--num_class", "3",
+         "--backbone_kwargs", '{"width_multiplier": 0.35, "include_top_conv": false}']
+
+
+@pytest.fixture(scope="module")
+def trained(tmp_path_factory):
+    ckpt = str(tmp_path_factory.mktemp("train_seg_ckpt"))
+    args = SMALL + ["--steps_per_epoch", "2", "--ckpt_dir", ckpt, "--fused_loss",
+                    "--eval_scales", "0.75,1.0", "--flip_eval"]
+    first = train_seg.main(args + ["--epochs", "2"])
+    steps_after_first = ModelHelper(ckpt).all_steps()
+    second = train_seg.main(args + ["--epochs", "3"])
+    return dict(ckpt=ckpt, first=first, second=second, steps_after_first=steps_after_first)
+
+
+def test_torch_train_seg_trains_checkpoints_and_resumes(trained):
+    first, second = trained["first"], trained["second"]
+    assert first["resumed_from"] == 0 and first["step"] == 4
+    assert trained["steps_after_first"] == [2, 4]
+    assert second["resumed_from"] == 4 and second["step"] == 6
+    assert [r["epoch"] for r in second["history"]] == [2]  # only the new epoch ran
+    assert ModelHelper(trained["ckpt"]).all_steps() == [4, 6]  # max_to_keep=2
+    for out in (first, second):
+        assert 0.0 <= out["miou"] <= 1.0 and len(out["per_class_iou"]) == 3
+        assert all(np.isfinite(r["loss"]) for r in out["history"])
+
+
+@pytest.fixture(scope="module")
+def png_dir(tmp_path_factory):
+    from PIL import Image
+
+    d = tmp_path_factory.mktemp("pngs")
+    (d / "images").mkdir()
+    (d / "labels").mkdir()
+    rng = np.random.RandomState(0)
+    for i, hw in enumerate([(30, 40), (40, 30), (33, 33)]):
+        Image.fromarray(rng.randint(0, 255, (*hw, 3), np.uint8)).save(d / "images" / f"{i}.png")
+        label = rng.randint(0, 3, hw).astype(np.uint8)
+        label[:2] = 255
+        Image.fromarray(label).save(d / "labels" / f"{i}.png")
+    return d
+
+
+def test_torch_eval_seg_prints_the_miou_of_evaluate(trained, png_dir, capsys):
+    args = ["--data_dir", str(png_dir), "--ckpt_dir", trained["ckpt"], "--backbone",
+            "mobilenetv2", "--head", "simpledecoder", "--num_class", "3", "--device", "cpu",
+            "--backbone_kwargs", '{"width_multiplier": 0.35, "include_top_conv": false}',
+            "--scales", "0.75,1.0", "--flip", "--bucket", "16"]
+    result = eval_seg.main(args)
+    printed = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert printed == result and result["images"] == 3
+    assert result["config"] == {"scales": "0.75,1.0", "flip": True, "sliding": None, "bucket": 16}
+
+    env = common_env_setup(device="cpu")
+    model = train_seg.build_model("mobilenetv2", "simpledecoder", 3,
+                                  backbone_kwargs={"width_multiplier": 0.35,
+                                                   "include_top_conv": False}, device="cpu")
+    variables = ModelHelper(trained["ckpt"]).restore_latest_variables(
+        {"params": param_tree(model), "batch_stats": batch_stats_tree(model)})
+    ds = SegDirectoryDataset(str(png_dir / "images"), str(png_dir / "labels"))
+    miou, per_class = evaluate(
+        env, model, variables,
+        batched_dataset(ds, 1, pipeline=StandardAugmentationsPipeline(training=False,
+                                                                      crop_size=None),
+                        drop_remainder=False),
+        inference_config=SegModelInferenceConfig(scale_rates=(0.75, 1.0), flip=True,
+                                                 bucket_multiple=16),
+        verbose=False)
+    assert result["miou"] == round(float(miou), 5)
+    assert result["per_class_iou"] == [round(float(v), 5) for v in per_class]
+    # buckets of 16: (30, 40) -> (32, 48), (40, 30) -> (48, 32), (33, 33) -> (48, 48)
+    assert evaluate.last_num_programs == 3
+
+
+def test_torch_predict_dir_writes_one_png_per_image(png_dir, tmp_path):
+    from PIL import Image
+
+    ckpt = str(tmp_path / "ckpt")
+    common = ["--device", "cpu", "--num_class", "3"]
+    train_seg.main(common + ["--crop", "32", "--batch", "2", "--epochs", "1",
+                             "--steps_per_epoch", "1", "--ckpt_dir", ckpt])
+    out = tmp_path / "preds"
+    written = predict_dir.main(common + ["--input_dir", str(png_dir / "images"), "--output_dir",
+                                         str(out), "--backbone", "mobilenetv2", "--head",
+                                         "simpledecoder", "--ckpt_dir", ckpt, "--batch", "2"])
+    assert sorted(os.path.basename(p) for p in written) == ["0.png", "1.png", "2.png"]
+    for p, hw in zip(sorted(written), [(30, 40), (40, 30), (33, 33)]):
+        with Image.open(p) as im:
+            assert im.mode == "L" and (im.height, im.width) == hw
+            assert np.asarray(im).max() < 3
+    (tmp_path / "empty").mkdir()
+    with pytest.raises(SystemExit, match="no checkpoint"):
+        predict_dir.main(common + ["--input_dir", str(png_dir / "images"), "--output_dir",
+                                   str(tmp_path / "p2"), "--backbone", "mobilenetv2", "--head",
+                                   "simpledecoder", "--ckpt_dir", str(tmp_path / "empty")])
+    assert not (tmp_path / "p2").exists()
+
+
+@pytest.mark.parametrize("extra,error,match", [
+    (["--head", "jpu"], NotImplementedError, "item 20"),
+    (["--head", "fapn"], NotImplementedError, "item 23"),
+    (["--head", "nasfpn"], NotImplementedError, "item 23"),
+    (["--pretrained", "resnet50.h5"], SystemExit, "item 17"),
+    (["--optimizer", "adamw"], SystemExit, "item 19"),
+], ids=["jpu", "fapn", "nasfpn", "pretrained", "adamw"])
+def test_torch_train_seg_unported_options_raise(extra, error, match, tmp_path):
+    with pytest.raises(error, match=match):
+        train_seg.main(SMALL + ["--ckpt_dir", str(tmp_path)] + extra)
+    assert ModelHelper(str(tmp_path)).all_steps() == []
+
+
+def test_torch_eval_seg_refuses_h5_and_missing_checkpoints(png_dir, tmp_path):
+    base = ["--data_dir", str(png_dir), "--device", "cpu", "--backbone", "mobilenetv2",
+            "--head", "simpledecoder", "--num_class", "3"]
+    with pytest.raises(SystemExit, match="item 17"):
+        eval_seg.main(base + ["--weights_h5", "model.h5"])
+    with pytest.raises(SystemExit, match="pass --ckpt_dir"):
+        eval_seg.main(base)
+    with pytest.raises(SystemExit, match="no checkpoint"):
+        eval_seg.main(base + ["--ckpt_dir", str(tmp_path)])
+
+
+def test_torch_verify_drive_reduced_restores_its_step(tmp_path):
+    out = verify_drive.main(["--device", "cpu", "--epochs", "2", "--steps_per_epoch", "3",
+                             "--min_miou", "-1", "--ckpt_dir", str(tmp_path)])
+    assert out["step"] == 6 and 0.0 <= out["miou"] <= 1.0
+    assert ModelHelper(str(tmp_path)).all_steps() == [3, 6]
+    assert all(np.isfinite(out["losses"]))
+    from iseg_tpu_torch.nn import norm
+    assert norm._BN_MOMENTUM_OVERRIDE is None  # the drive's BN momentum does not leak
+
+
+_FORBIDDEN = r"\s*(import|from)\s+(jax|flax|optax|tensorflow|iseg_tpu)(\.|\s|$)"
+
+
+def test_torch_port_imports_no_jax():
+    """No line of the port or of ``chip_smoke.py`` imports JAX, flax, optax,
+    TensorFlow (``data/tf_feeder.py`` imports it inside its functions) or
+    the JAX package; and importing every module of the port, in a fresh
+    interpreter, loads none of them."""
+    files = [*sorted((ROOT / "iseg_tpu_torch").rglob("*.py")), ROOT / "chip_smoke.py"]
+    assert len(files) >= 60
+    for path in files:
+        for line in path.read_text().splitlines():
+            if path.name == "tf_feeder.py" and line.strip() == "import tensorflow as tf":
+                continue  # the lazy import, inside tfrecord_seg_dataset
+            assert not re.match(_FORBIDDEN, line), f"{path}: {line}"
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import iseg_tpu_torch\n"
+        "names = [m.name for m in pkgutil.walk_packages(iseg_tpu_torch.__path__, 'iseg_tpu_torch.')]\n"
+        "for n in names: importlib.import_module(n)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'flax', 'optax', 'tensorflow', 'iseg_tpu'))\n"
+        "print(len(names), bad)\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(ROOT)
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    count, bad = out.stdout.strip().split(" ", 1)
+    assert int(count) >= 60 and bad == "[]", out.stdout

@@ -95,15 +95,15 @@ def test_torch_prepare_labels_and_valid_mask_match_jax():
 
 
 def test_torch_cross_entropy_unported_options_raise():
+    # OHEM is ported (tests/test_torch_ohem.py); aux outputs are not, and a
+    # reduction missing its argument raises
     logits, labels = _data()
-    with pytest.raises(NotImplementedError):
-        tce.cross_entropy_ignore_label(torch.tensor(logits), torch.tensor(labels),
-                                       ohem_fn=lambda *a: None)
     with pytest.raises(ValueError):
         tce.cross_entropy_ignore_label(torch.tensor(logits), torch.tensor(labels),
                                        reduction="global_batch")
     with pytest.raises(NotImplementedError):
-        TSegManaged(num_class=C, use_ohem=True).build_loss_fn()
+        TSegManaged(num_class=C, num_aux_loss=1)
+    TSegManaged(num_class=C, use_ohem=True).build_loss_fn()
 
 
 @pytest.mark.parametrize("field,value", [
@@ -111,15 +111,11 @@ def test_torch_cross_entropy_unported_options_raise():
     ("bucket_multiple", 32), ("use_cpu_cache", True), ("bucket_pad_value", 1.0),
 ])
 def test_torch_inference_config_unported_fields_raise(field, value):
-    # multi-scale, flip and the sliding window are ported and accepted; the
-    # host-offloaded accumulator and shape bucketing are not: a knob that
-    # would be ignored raises
+    # every field is ported and accepted now: multi-scale, flip and the
+    # sliding window by SegBase.inference, the host-offloaded accumulator
+    # and shape bucketing by evaluate (tests/test_torch_buckets.py)
     TSegModelInferenceConfig(scale_rates=[1.0])  # the default, given as a list
-    if field in ("scale_rates", "flip", "sliding_window_crop_size"):
-        assert getattr(TSegModelInferenceConfig(**{field: value}), field) == value
-        return
-    with pytest.raises(NotImplementedError, match=field):
-        TSegModelInferenceConfig(**{field: value})
+    assert getattr(TSegModelInferenceConfig(**{field: value}), field) == value
 
 
 GATE_CASES = {
