@@ -3,9 +3,9 @@
 
     python3 chip_smoke.py            # every phase below
     python3 chip_smoke.py --profile  # and torch.profiler tables of the resident ResNet step and
-                                     # its input stage, of the MobileNetV2, Swin and
-                                     # InternImage train steps and of Gemma's beam-4
-                                     # decode steps
+                                     # its input stage, of the MobileNetV2, Swin,
+                                     # InternImage and HRNet train steps and of Gemma's
+                                     # beam-4 decode steps
     python3 chip_smoke.py --ab OLD   # OLD's kernels and this tree's, timed in turns
 
 Drives the port's main paths at full width, with random weights from
@@ -25,6 +25,9 @@ scripts: phase 5c):
 * MobileNetV2: BASELINE config #1, ``mobilenetv2`` (width 1.0, output
   stride 16, the 1280-wide top conv) + ``SimpleDecoder(256, 48)``, 21
   classes, 512x512, batch 8, its logits at output stride 4;
+* HRNet: BASELINE config #3, ``hrnet_w48`` + ``JPU(512)`` (the os8, os16
+  and os32 branches), 19 classes, 512x512, batch 8, its logits at the JPU's
+  output stride 8 (phase 11);
 
 all under bf16 autocast with fp32 params, SGD (momentum 0.9, poly decay),
 the loss taken by the fused upsample + CE CUDA kernels, Swin's window
@@ -57,7 +60,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    second timer, ``held_ms``, runs beside it on every window-attention
    forward, dense-local backward and upsample + CE row). Upsample + CE at
    [16,32,32,21] -> [16,512,512], [8,128,128,19] -> [8,512,512],
-   [8,16,16,19] -> [8,512,512] and [8,128,128,21] -> [8,512,512], with the forward's two kernels' and the
+   [8,16,16,19] -> [8,512,512], [8,128,128,21] -> [8,512,512] and [8,64,64,19] -> [8,512,512]
+   (HRNet + JPU), with the forward's two kernels' and the
    backward kernel's own device time (``kernel_device_ms``) and the unfused pair ``F.interpolate`` +
    ``F.cross_entropy`` timed beside it (``library_pair_ms``: two calls, so
    ``library_ms`` stays null), and fused against unfused printed at each
@@ -177,7 +181,34 @@ Phases, in order; any failure raises and the script exits non-zero:
     step by step until a bf16 near-tie falls the other way: the step is
     named and the tie held to 1e-2 of max |logit| in nats, and rows that
     never part return equal tokens; (d) beam 1 returns greedy's tokens, or
-    parts from them at a near-tie held the same way.
+    parts from them at a near-tie held the same way;
+11. HRNet (BASELINE config #3): (1) the fixed-batch step as in 5c.1 (SGD
+    poly, 2 warm-up + 5 timed steps, exactly 1 + 1 loss-kernel launches a
+    step, the first step's loss against an unfused step from the same
+    weights at rtol 1e-4, ms/step, img/s, peak memory; ``--profile``: device
+    time by kernel class and busy share); (2) the same model with an aux
+    logits conv on the os32 branch (rate 0.4) through ``CoreTrain``:
+    ``with_grad_accum(get_optimizer(..., "adamw", decay_strategy="cosine",
+    warmup_steps=2, weight_decay=1e-4), every=2)``, EMA 0.999, batch 4 a
+    micro-step, 8 micro-steps: exactly 2 + 2 loss-kernel launches in every
+    micro-step (main output at os8, aux at os32), finite losses, params and
+    EMA kept on the odd micro-steps, the params moved on the even ones
+    (but the first real update, which optax's warmup gives LR 0) and the
+    EMA decayed there by its rule; a run stopped by SIGTERM after
+    micro-step 3 (the accumulator half full) and resumed by a fresh
+    trainer to micro-step 8 equals the uninterrupted run in every param,
+    EMA, BN statistic, accumulator and Adam moment (bit for bit, or rtol
+    1e-5 where cuDNN picked other algorithms, which is then printed); (3)
+    ``train_seg.main`` with ``--backbone hrnet_w48 --head jpu --optimizer
+    adamw --fused_loss``, 1 epoch x 3 steps, eval at scale 1.0: finite loss
+    and mIoU, 1 + 1 launches a step; (4) the sliding-window serve of
+    ``bench.py``'s ``sliding_hrnet`` with (1)'s weights: one 1024x2048 image,
+    512x512 windows at stride 2/3 (18 model calls), bf16, one warm-up then 7
+    timed calls: p50 / min / max seconds (host clock) printed in
+    ``bench.py``'s JSON schema, peak memory, finite fp32 [1,1024,2048,19]
+    logits, window batch 1 and 2 within 2e-2 of max |logit| in fp32 (in bf16
+    they part by the bf16 network's own noise, printed), each bf16 run
+    within 5e-2 of max |logit| of the fp32 run, no kernel launched.
 
 ``--ab OLD`` runs none of the phases. OLD is another checkout of the repo
 (for example the parent commit's ``git archive`` unpacked into the
@@ -204,7 +235,8 @@ tree's two.
 
 The launch counters are set to 0 just before each main path (3, 5b's
 uninterrupted run, 5c's fixed-batch steps, its two train_seg runs together
-and its OHEM run, 6, 6b, 7, 8, 9, and each request of 10) and read just
+and its OHEM run, 6, 6b, 7, 8, 9, each request of 10, 11.1, each micro-step
+of 11.2, its resumed run, 11.3 and 11.4) and read just
 after; a kernel of a path that was
 launched no time there fails the run. Third line from the end: a JSON object with one entry per kernel;
 then the card's name and power limit; the last line is
@@ -240,7 +272,7 @@ from iseg_tpu_torch.core.checkpoint import ModelHelper
 from iseg_tpu_torch.core.env import EnvConfig, common_env_setup
 from iseg_tpu_torch.core.evaluation import bucket_padder, evaluate, make_eval_step
 from iseg_tpu_torch.core.model import SegManaged, SegModelInferenceConfig
-from iseg_tpu_torch.core.optimizer import get_optimizer
+from iseg_tpu_torch.core.optimizer import get_optimizer, with_grad_accum
 from iseg_tpu_torch.core.predict import default_image_predict
 from iseg_tpu_torch.core.train import CoreTrain, create_train_state, make_train_step
 from iseg_tpu_torch.data.device_augment import DeviceAugmentConfig, make_device_augment
@@ -312,10 +344,22 @@ EX_OHEM_FILL_MIN_KEPT = 2_000_000  # more than the hard pixels: the hardest-k fi
 EX_EVAL_SIZES = ((500, 375), (375, 500), (500, 333), (480, 360))  # VOC-like (H, W)
 EX_BUCKET = 32
 EX_BIG, EX_BIG_SCALES, EX_BIG_WINDOW = (1024, 2048), (0.75, 1.0, 1.25), 512
-# the loss kernels' shapes on the four paths: (path, batch, logit side, classes)
+# HRNet path (phase 11): BASELINE config #3, HRNet-W48 + JPU(512), its logits at
+# the JPU's os8, the aux logits at the os32 branch
+H_BATCH, H_CLASSES, H_LOGIT_OS, H_AUX_RATE = 8, 19, 8, 0.4
+H_WARMUP, H_TIMED = 2, 5
+# 11.2: batch 4 a micro-step, a real update every 2, 8 micro-steps, the
+# checkpoint after micro-step 3 (in the middle of an accumulation)
+H_ACCUM_BATCH, H_ACCUM_EVERY, H_ACCUM_STEPS, H_ACCUM_SAVE_AT = 4, 2, 8, 3
+H_TRAIN_SEG_STEPS = 3
+# 11.4: bench.py's sliding_hrnet: 1024x2048, 512x512 windows at stride 2/3
+# (3 x 6 = 18 model calls), one warm-up and 7 timed calls
+H_SLIDE_HW, H_SLIDE_WINDOW, H_SLIDE_REPS, H_SLIDE_CALLS = (1024, 2048), 512, 7, 18
+# the loss kernels' shapes on the five paths: (path, batch, logit side, classes)
 UCE_SHAPES = (("resnet", R_BATCH, HW // R_OS, R_CLASSES), ("swin", S_BATCH, HW // S_OS, S_CLASSES),
               ("intern", I_BATCH, HW // I_OS, I_CLASSES),
-              ("mbv2", M_BATCH, HW // M_LOGIT_OS, M_CLASSES))
+              ("mbv2", M_BATCH, HW // M_LOGIT_OS, M_CLASSES),
+              ("hrnet", H_BATCH, HW // H_LOGIT_OS, H_CLASSES))
 # Gemma path: gemma_2b_en served at batch 8, prompt 128, 512 generated slots
 G_PRESET, G_BATCH, G_PROMPT, G_MAX_LENGTH, G_SEGMENT = "gemma_2b_en", 8, 128, 640, 256
 G_CONTRASTIVE_K = 5
@@ -397,6 +441,21 @@ F32_KERNEL_VS_PLAIN_RTOL = 1e-4
 # (measured: swapped continuations at most 1.1e-3 of max |logit| apart)
 GEMMA_LAYOUT_RTOL = 2e-2
 GEMMA_TIE_RTOL = 1e-2
+# 11.2's resumed run against the uninterrupted one, each tensor's max abs
+# difference over its max |value|: the same batches, weights and kernels,
+# so 0 unless cuDNN picks other weight-gradient algorithms in the two runs
+# (bf16 sums in another order, carried through 5 steps of Adam)
+ACCUM_RESUME_RTOL = 1e-5
+# 11.4's sliding window, window batch 1 against 2, in fp32 (other conv and
+# GEMM shapes: summation order only; 2.5e-6 measured), relative to max
+# |logit|. In bf16 the two part by the bf16 network's own noise: its 18
+# windows of HRNet-W48 + JPU round to bf16 after each of about 100
+# sequential layers, and a bf16 run lies 1.8e-2 - 2.1e-2 of max |logit| from
+# the fp32 run on 11.1's weights (four runs on an H100), so two bf16 runs can
+# part by more than 2e-2 (1.9e-2 - 2.6e-2 measured); each bf16 run is held to
+# the fp32 run instead, at 2.5 times that noise
+SLIDE_BATCH_RTOL = 2e-2
+SLIDE_BF16_RTOL = 5e-2
 
 
 def log(msg: str) -> None:
@@ -1133,8 +1192,8 @@ def check_cache_gather(device, name, shape, dtype, seed=0) -> dict:
 
 def phase_kernels(device) -> list[dict]:
     log("== phase 2: kernels vs plain versions at the main paths' shapes")
-    resnet, swin, intern, mbv2 = (check_upsample_ce(device, n, h, classes)
-                                  for _, n, h, classes in UCE_SHAPES)
+    resnet, swin, intern, mbv2, hrnet = (check_upsample_ce(device, n, h, classes)
+                                         for _, n, h, classes in UCE_SHAPES)
     log(f"window attention (tol of max(1, max |plain|): {WA_TOL}); dbias err is in max abs err "
         "of the backward; sdpa is F.scaled_dot_product_attention, a yardstick only")
     wa_rows = {}
@@ -1187,7 +1246,7 @@ def phase_kernels(device) -> list[dict]:
     wa_src = "iseg_tpu_torch/csrc/window_attention.cu"
     dl_src = "iseg_tpu_torch/csrc/deform_local.cu"
     cg_src = "iseg_tpu_torch/csrc/cache_gather.cu"
-    uce_shapes = {d: [rows[dt][d] for rows in (resnet, swin, intern, mbv2)
+    uce_shapes = {d: [rows[dt][d] for rows in (resnet, swin, intern, mbv2, hrnet)
                       for dt in ("f32", "bf16")]
                   for d in ("fwd", "bwd")}
     # the split-TF32 rows have entries of their own; the bf16 and CUDA-core rows
@@ -2745,6 +2804,371 @@ def phase_gemma_serve(device, profile: bool) -> dict[str, dict[str, int]]:
     return {"gemma_beam_serve": beam, "gemma_greedy_contrastive_serve": other}
 
 
+# ------------------------------------------------------------ HRNet path
+
+def build_hrnet_model(env, fused: bool, aux: bool = False) -> SegManaged:
+    """BASELINE config #3: HRNet-W48 + JPU(512), sized by ``train_seg``'s
+    ``build_head`` (the JPU reads the os8, os16 and os32 branches); with
+    ``aux`` one aux logits conv on the os32 branch (rate 0.4)."""
+    backbone = get_backbone("hrnet_w48")
+    model = SegManaged(num_class=H_CLASSES, backbone=backbone,
+                       head=train_seg_example.build_head("jpu", backbone),
+                       upsample_logits=not fused, fuse_upsample_loss=fused,
+                       num_aux_loss=1 if aux else 0, use_aux_head_endpoints=aux,
+                       aux_loss_rate=H_AUX_RATE)
+    return model.to(env.device, memory_format=torch.channels_last)
+
+
+def phase_hrnet_train(env, profile: bool):
+    """Phase 11.1: the config #3 training geometry on a fixed batch (the JAX
+    package's ``tools/bench_model_mfu.py`` ``hrnet``), fused, then one
+    unfused step from the same weights. Returns the launch counts, the
+    fused ms/step and the trained weights."""
+    log(f"-- 11.1: HRNet-W48 + JPU(512), {H_CLASSES} classes, {HW}x{HW}, batch {H_BATCH}, bf16 "
+        "autocast, SGD poly, fused loss at os8")
+    data = synthetic_batch(env.device, H_BATCH, H_CLASSES)
+    model = build_hrnet_model(env, fused=True)
+    log(f"parameters: {sum(p.numel() for p in model.parameters()) / 1e6:.2f} M")
+    tx, _ = get_optimizer(param_tree(model), "sgd", learning_rate=0.01, train_steps=1000)
+    state = create_train_state(model, env.generator, tx)
+    init_weights = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    step_fn = make_train_step(model.build_loss_fn(), compute_dtype=env.compute_dtype)
+    state, losses, launches, step_ms = train_steps(state, step_fn, data, H_WARMUP, H_TIMED,
+                                                   H_BATCH)
+    steps = H_WARMUP + H_TIMED
+    expect_launches("HRNet train", launches, {"upsample_ce_fwd": steps, "upsample_ce_bwd": steps})
+    log(f"HRNet train: {step_ms:.2f} ms/step, {H_BATCH * 1e3 / step_ms:.2f} img/s ({card_line()})")
+    if profile:
+        profile_steps(state, step_fn, data, "HRNet-W48 + JPU train step", step_ms)
+    trained = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    del state, step_fn, model
+    torch.cuda.empty_cache()
+
+    unfused = build_hrnet_model(env, fused=False)
+    unfused.load_state_dict(init_weights)
+    u_state = create_train_state(unfused, None, tx, initialized=True)
+    reset_launch_counts()
+    _, parts = make_train_step(unfused.build_loss_fn(), compute_dtype=env.compute_dtype)(
+        u_state, data)
+    loss = float(parts["loss"])
+    rel = abs(loss - losses[0]) / abs(losses[0])
+    log(f"HRNet first-step loss: fused {losses[0]:.6f} unfused {loss:.6f} rel diff {rel:.3e} "
+        f"(tol {FUSED_UNFUSED_RTOL:g})")
+    if any(read_launch_counts().values()):
+        raise AssertionError("the unfused HRNet step launched the fused kernels")
+    if not rel <= FUSED_UNFUSED_RTOL:
+        raise AssertionError("HRNet fused and unfused first-step losses disagree")
+    return launches, step_ms, trained
+
+
+class MicroStepProbe:
+    """A ``CoreTrain`` callback, one epoch a micro-step: after each it reads
+    the loss-kernel launches of that micro-step and whether the params and
+    the EMA moved (and by the EMA rule), then sets the counts to 0."""
+
+    def __init__(self, trainer, schedule):
+        self.trainer, self.schedule = trainer, schedule
+        self.records = []
+        self._snapshot()
+
+    def _snapshot(self):
+        s = self.trainer.state
+        self.params = [p.detach().clone() for p in s.params.values()]
+        self.ema = [e.detach().clone() for e in s.ema_params.values()]
+
+    def on_epoch_begin(self, epoch, state):
+        reset_launch_counts()
+
+    def on_epoch_end(self, epoch, state, logs=None):
+        launches = read_launch_counts()
+        params = list(state.params.values())
+        ema = list(state.ema_params.values())
+        moved = any(not torch.equal(a, b) for a, b in zip(self.params, params))
+        ema_moved = any(not torch.equal(a, b) for a, b in zip(self.ema, ema))
+        d = state.ema_decay
+        ema_rule = all(torch.equal(e, old * d + (1.0 - d) * p)
+                       for e, old, p in zip(ema, self.ema, params))
+        update = state.step // H_ACCUM_EVERY - 1  # the real update this micro-step made
+        self.records.append(dict(step=state.step, loss=logs["loss"], launches=launches,
+                                 moved=moved, ema_moved=ema_moved, ema_rule=ema_rule,
+                                 lr=self.schedule(update) if state.step % H_ACCUM_EVERY == 0
+                                 else None))
+        self._snapshot()
+
+    def on_train_end(self, state):
+        pass
+
+
+def hrnet_accum_trainer(env, ckpt=None):
+    """``CoreTrain`` of config #3 with the aux head, AdamW + cosine decay
+    (warmup 2) accumulated over 2 micro-steps and an EMA, initialized from
+    seed 0 (every trainer starts from the same weights)."""
+    model = build_hrnet_model(env, fused=True, aux=True)
+    inner, schedule = get_optimizer(param_tree(model), "adamw", learning_rate=1e-4,
+                                    train_steps=H_ACCUM_STEPS // H_ACCUM_EVERY,
+                                    decay_strategy="cosine", warmup_steps=2, weight_decay=1e-4)
+    trainer = CoreTrain(env, model, with_grad_accum(inner, H_ACCUM_EVERY), seed=0,
+                        checkpoint_manager=(TimedModelHelper(ckpt, max_to_keep=1)
+                                            if ckpt else None),
+                        log_every=0, lr_schedule=schedule, ema_decay=0.999,
+                        grad_accum_every=H_ACCUM_EVERY)
+    return trainer, schedule
+
+
+def accum_batches():
+    rng = np.random.RandomState(11)
+    out = []
+    for _ in range(H_ACCUM_STEPS):
+        label = rng.randint(0, H_CLASSES, (H_ACCUM_BATCH, HW, HW))
+        label = np.where(rng.rand(H_ACCUM_BATCH, HW, HW) < 0.1, 255, label).astype(np.int32)
+        out.append({"image": rng.rand(H_ACCUM_BATCH, HW, HW, 3).astype(np.float32),
+                    "label": label})
+    return out
+
+
+def trainer_tensors(trainer) -> dict[str, torch.Tensor]:
+    s, o = trainer.state, trainer.state.opt_state
+    inner = o.inner_opt_state
+    return {**{f"params/{k}": v for k, v in s.params.items()},
+            **{f"ema/{k}": v for k, v in s.ema_params.items()},
+            **{f"batch_stats/{k}": v for k, v in s.batch_stats.items()},
+            **{f"acc/{i}": v for i, v in enumerate(o.acc_grads)},
+            **{f"mu/{i}": v for i, v in enumerate(inner.mu)},
+            **{f"nu/{i}": v for i, v in enumerate(inner.nu)}}
+
+
+def phase_hrnet_accum(env, tmp: str) -> dict[str, int]:
+    """Phase 11.2: the item-19 path through ``CoreTrain``: aux head, AdamW,
+    cosine decay, gradient accumulation and an EMA; a checkpoint in the
+    middle of an accumulation resumed exactly. The runs take cuDNN's
+    deterministic algorithms (by its heuristics: no autotuning of the
+    micro-batch's shapes), and PyTorch warns in the log of any op that has
+    no deterministic implementation; Adam turns a gradient's last-bit noise
+    near 0 into a whole LR-sized step, so only a repeatable step resumes
+    exactly. Returns the launch counts of the uninterrupted run."""
+    flags = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        return hrnet_accum_runs(env, tmp)
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = flags
+
+
+def hrnet_accum_runs(env, tmp: str) -> dict[str, int]:
+    log(f"-- 11.2: the same model with an aux head on the os32 branch (rate {H_AUX_RATE}), "
+        f"AdamW (lr 1e-4, wd 1e-4) with cosine decay (warmup 2) accumulated every "
+        f"{H_ACCUM_EVERY} micro-steps, EMA 0.999, batch {H_ACCUM_BATCH} a micro-step, "
+        f"{H_ACCUM_STEPS} micro-steps through CoreTrain")
+    batches = accum_batches()
+    full, schedule = hrnet_accum_trainer(env)
+    probe = MicroStepProbe(full, schedule)
+    full.callbacks.append(probe)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    # one epoch a micro-step, so the probe sees each
+    full.train(lambda epoch: iter([batches[epoch]]), epochs=H_ACCUM_STEPS, steps_per_epoch=1)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches = {k: sum(r["launches"][k] for r in probe.records) for k in read_launch_counts()}
+    for r in probe.records:
+        log(f"micro-step {r['step']}: loss {r['loss']:.5f}, launches fwd "
+            f"{r['launches']['upsample_ce_fwd']} bwd {r['launches']['upsample_ce_bwd']}, params "
+            f"{'moved' if r['moved'] else 'kept'}, EMA {'moved' if r['ema_moved'] else 'kept'}"
+            f"{' by its rule' if r['ema_rule'] else ''}"
+            + (f", real update at lr {r['lr']:.3e}" if r["lr"] is not None else ""))
+    log(f"11.2 run: {1e3 * dt / H_ACCUM_STEPS:.2f} ms a micro-step over all {H_ACCUM_STEPS} "
+        f"(the first ones' cuDNN autotuning included; host clock), peak memory "
+        f"{peak / 2**30:.2f} GiB ({peak} bytes) ({card_line()})")
+    o = full.state.opt_state
+    if (full.state.step, o.mini_step, o.gradient_step, o.inner_opt_state.count) != (
+            H_ACCUM_STEPS, 0, H_ACCUM_STEPS // H_ACCUM_EVERY, H_ACCUM_STEPS // H_ACCUM_EVERY):
+        raise AssertionError("the accumulator did not make one real update every "
+                             f"{H_ACCUM_EVERY} micro-steps")
+    for r in probe.records:
+        expect_launches(f"HRNet accumulation micro-step {r['step']}", r["launches"],
+                        {"upsample_ce_fwd": 2, "upsample_ce_bwd": 2})
+        if not np.isfinite(r["loss"]):
+            raise AssertionError(f"non-finite loss at micro-step {r['step']}")
+        real = r["lr"] is not None
+        # a real update moves the params unless the schedule gives it LR 0
+        # (optax's warmup starts at 0) and decays the EMA by its rule; an
+        # accumulating micro-step moves neither
+        if r["moved"] != (real and r["lr"] > 0) or (r["ema_moved"] and not real):
+            raise AssertionError(f"micro-step {r['step']}: params/EMA moved "
+                                 f"{r['moved']}/{r['ema_moved']} on a "
+                                 f"{'real' if real else 'accumulating'} micro-step")
+        if real and not r["ema_rule"]:
+            raise AssertionError(f"micro-step {r['step']}: the EMA is not d * e + (1 - d) * p")
+    want = full.state.step
+    expected = trainer_tensors(full)  # the finished run's own tensors
+    full_losses = [r["loss"] for r in probe.records]
+    del full, probe
+    torch.cuda.empty_cache()
+
+    ckpt = os.path.join(tmp, "accum")
+
+    def preempting(epoch):
+        # two host batches in flight: batch H_ACCUM_SAVE_AT is drawn once
+        # step H_ACCUM_SAVE_AT - 1 has run, and the loop stops after step
+        # H_ACCUM_SAVE_AT, in the middle of an accumulation
+        for i, batch in enumerate(batches):
+            if i == H_ACCUM_SAVE_AT:
+                os.kill(os.getpid(), signal.SIGTERM)
+            yield batch
+
+    first, _ = hrnet_accum_trainer(env, ckpt)
+    first.train(preempting, epochs=1, steps_per_epoch=H_ACCUM_STEPS)
+    mini = first.state.opt_state.mini_step
+    save_s = first.checkpoint_manager.save_seconds
+    del first
+    torch.cuda.empty_cache()
+    resumed, _ = hrnet_accum_trainer(env, ckpt)
+    t0 = time.perf_counter()
+    at = resumed.restore()
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    reset_launch_counts()
+    resumed.train(lambda epoch: iter(batches), epochs=1, steps_per_epoch=H_ACCUM_STEPS,
+                  initial_epoch=-1)
+    resumed_launches = read_launch_counts()
+    got = trainer_tensors(resumed)
+    unequal = [k for k in expected if not torch.equal(expected[k], got[k])]
+    worst = max((float((expected[k].detach().float() - got[k].detach().float()).abs().max()
+                       / max(float(expected[k].detach().float().abs().max()), 1e-30))
+                 for k in unequal), default=0.0)
+    log(f"checkpoint at micro-step {at} (accumulator mini-step {mini}; save "
+        f"{[round(v, 3) for v in save_s]} s, restore {restore_s:.3f} s), resumed to "
+        f"{resumed.state.step}: {len(expected) - len(unequal)} of {len(expected)} tensors "
+        f"(params, EMA, BN statistics, accumulator, Adam moments) equal bit for bit"
+        + (f"; the others within {worst:.3e} of their max (tol rtol {ACCUM_RESUME_RTOL:g}: "
+           "cuDNN chose other algorithms)" if unequal else ""))
+    steps_resumed = H_ACCUM_STEPS - H_ACCUM_SAVE_AT
+    expect_launches("HRNet accumulation, resumed", resumed_launches,
+                    {"upsample_ce_fwd": 2 * steps_resumed, "upsample_ce_bwd": 2 * steps_resumed})
+    if at != H_ACCUM_SAVE_AT or mini != H_ACCUM_SAVE_AT % H_ACCUM_EVERY or resumed.state.step != want:
+        raise AssertionError(f"checkpoint at {at} (mini-step {mini}), resumed to "
+                             f"{resumed.state.step}")
+    if worst > ACCUM_RESUME_RTOL:
+        raise AssertionError(f"the resumed run differs from the uninterrupted one: {unequal[:5]}")
+    log(f"uninterrupted losses {[round(v, 5) for v in full_losses]}")
+    del resumed, got, expected
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_hrnet_train_seg(env, tmp: str) -> dict[str, int]:
+    """Phase 11.3: ``train_seg.main`` with HRNet-W48 + JPU and AdamW."""
+    args = ["--backbone", "hrnet_w48", "--head", "jpu", "--num_class", str(H_CLASSES),
+            "--optimizer", "adamw", "--lr", "1e-4", "--fused_loss", "--crop", str(HW),
+            "--batch", str(H_BATCH), "--epochs", "1", "--steps_per_epoch",
+            str(H_TRAIN_SEG_STEPS), "--eval_scales", "1.0",
+            "--ckpt_dir", os.path.join(tmp, "train_seg_hrnet")]
+    log(f"-- 11.3: train_seg.main({' '.join(args)})")
+    reset_launch_counts()
+    out = train_seg_example.main(args)
+    launches = read_launch_counts()
+    expect_launches("HRNet train_seg", launches, {"upsample_ce_fwd": H_TRAIN_SEG_STEPS,
+                                                  "upsample_ce_bwd": H_TRAIN_SEG_STEPS})
+    loss = out["history"][0]["loss"]
+    log(f"train_seg HRNet: step {out['step']}, last loss {loss:.5f}, mIoU {out['miou']:.4f}")
+    if out["step"] != H_TRAIN_SEG_STEPS or not (np.isfinite(loss) and np.isfinite(out["miou"])):
+        raise AssertionError("train_seg with HRNet + JPU and AdamW did not finish finite")
+    return launches
+
+
+def phase_hrnet_sliding(env, trained) -> None:
+    """Phase 11.4: ``bench.py``'s ``sliding_hrnet`` geometry with 11.1's
+    weights: one 1024x2048 image, 512x512 windows at stride 2/3, bf16."""
+    log(f"-- 11.4: sliding-window serve, one {H_SLIDE_HW[0]}x{H_SLIDE_HW[1]} image, "
+        f"{H_SLIDE_WINDOW}x{H_SLIDE_WINDOW} windows, stride 2/3, bf16 autocast, 11.1's weights")
+    model = build_hrnet_model(env, fused=False)
+    model.load_state_dict(trained)
+    image = torch.tensor(np.random.RandomState(0).rand(1, *H_SLIDE_HW, 3).astype(np.float32),
+                         device=env.device)
+    calls = [0]
+    hook = model.register_forward_hook(lambda *_: calls.__setitem__(0, calls[0] + 1))
+
+    def serve(window_batch, bf16=True):
+        config = SegModelInferenceConfig(sliding_window_crop_size=(H_SLIDE_WINDOW,) * 2,
+                                         sliding_window_batch=window_batch)
+        with torch.autocast("cuda", dtype=env.compute_dtype, enabled=bf16):
+            out = model.inference(image, config)
+        torch.cuda.synchronize()
+        return out
+
+    reset_launch_counts()
+    calls[0] = 0
+    logits = serve(1)  # warm-up: cuDNN autotuning of the window shape
+    warm_calls = calls[0]
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(H_SLIDE_REPS):
+        t0 = time.perf_counter()
+        logits = serve(1)
+        times.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    expect_launches("HRNet sliding-window serve", read_launch_counts(), {})
+    times.sort()
+    p50 = times[len(times) // 2]
+    log(f"sliding window: {warm_calls} model calls a request; p50 {p50:.4f} s, min "
+        f"{times[0]:.4f}, max {times[-1]:.4f} over {H_SLIDE_REPS} calls after one warm-up "
+        f"(host clock, ending in a synchronize); peak memory {peak / 2**30:.2f} GiB ({peak} "
+        f"bytes) ({card_line()})")
+    log(json.dumps({"metric": f"hrnet_w48_jpu_sliding_window_{H_SLIDE_HW[0]}x{H_SLIDE_HW[1]}"
+                              "_eval", "value": round(p50, 4), "unit": "p50_seconds",
+                    "reps": len(times), "min": round(times[0], 4), "max": round(times[-1], 4)}))
+    expect_shape = (1, *H_SLIDE_HW, H_CLASSES)
+    if tuple(logits.shape) != expect_shape or logits.dtype != torch.float32:
+        raise AssertionError(f"sliding-window logits {tuple(logits.shape)} {logits.dtype}, "
+                             f"expected {expect_shape} float32")
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError("sliding-window logits are not finite")
+    if warm_calls != H_SLIDE_CALLS:
+        raise AssertionError(f"{warm_calls} model calls, expected {H_SLIDE_CALLS}")
+    batched = serve(2)
+    f32 = {wb: serve(wb, bf16=False) for wb in (1, 2)}
+    hook.remove()
+
+    def rel(a, b):
+        return float((a - b).abs().max()) / float(b.abs().max())
+
+    batch_f32, batch_bf16 = rel(f32[2], f32[1]), rel(batched, logits)
+    noise = max(rel(logits, f32[1]), rel(batched, f32[1]))
+    log(f"window batch 1 vs 2, max abs diff over max |logit|: fp32 {batch_f32:.3e} (tol "
+        f"{SLIDE_BATCH_RTOL:g}); bf16 {batch_bf16:.3e}, each bf16 run within {noise:.3e} of the "
+        f"fp32 run (tol {SLIDE_BF16_RTOL:g})")
+    if not batch_f32 <= SLIDE_BATCH_RTOL:
+        raise AssertionError("window batch 1 and 2 disagree")
+    if not noise <= SLIDE_BF16_RTOL:
+        raise AssertionError("the bf16 sliding window strays from the fp32 one")
+
+
+def phase_hrnet(env, profile: bool) -> dict[str, dict]:
+    """Phase 11: BASELINE config #3 (HRNet-W48 + JPU)."""
+    log("== phase 11: HRNet (BASELINE config #3): HRNet-W48 + JPU, the item-19 training path, "
+        "train_seg, and the 1024x2048 sliding-window serve")
+    t_phase = time.perf_counter()
+    paths = {}
+    paths["hrnet_train"], step_ms, trained = phase_hrnet_train(env, profile)
+    torch.cuda.empty_cache()
+    log(f"(11.1 done at {time.perf_counter() - t_phase:.1f} s)")
+    with tempfile.TemporaryDirectory(prefix="iseg_hrnet_") as tmp:
+        paths["hrnet_accum"] = phase_hrnet_accum(env, tmp)
+        torch.cuda.empty_cache()
+        log(f"(11.2 done at {time.perf_counter() - t_phase:.1f} s)")
+        paths["hrnet_train_seg"] = phase_hrnet_train_seg(env, tmp)
+        torch.cuda.empty_cache()
+        log(f"(11.3 done at {time.perf_counter() - t_phase:.1f} s)")
+    phase_hrnet_sliding(env, trained)
+    torch.cuda.empty_cache()
+    log(f"phase 11 took {time.perf_counter() - t_phase:.1f} s ({card_line()})")
+    return paths
+
+
 # ------------------------------------------------------- two trees (--ab)
 
 def step_loss_ms(path: str, prof: dict) -> dict:
@@ -2984,6 +3408,9 @@ def main(argv: list[str]) -> int:
     torch.cuda.empty_cache()
 
     paths.update(phase_gemma_serve(device, profile))
+    torch.cuda.empty_cache()
+
+    paths.update(phase_hrnet(env, profile))
 
     # the bf16 window-attention entries count two routes each (tensor cores and
     # CUDA cores), each with its count; the split-TF32 entries one
@@ -3004,6 +3431,9 @@ def main(argv: list[str]) -> int:
                "system_train": loss_kernels,
                "mbv2_train": loss_kernels,
                "mbv2_train_seg": loss_kernels,
+               "hrnet_train": loss_kernels,
+               "hrnet_accum": loss_kernels,
+               "hrnet_train_seg": loss_kernels,
                "swin_train": loss_kernels + ("window_attention_fwd_mma",
                                              "window_attention_bwd_mma"),
                "swin_serve": ("window_attention_fwd_mma",),

@@ -74,8 +74,8 @@ class InternImageBlock(nn.Module):
 class InternImage(nn.Module):
     """NCHW image -> five NCHW endpoints: the os2 stem feature and the four
     stage outputs (os4 to os32; normed unless ``use_post_norm``).
-    ``endpoint_channels`` lists their widths and ``out_channels`` the last
-    one's.
+    ``endpoint_channels`` lists their widths, ``endpoint_strides`` their
+    output strides and ``out_channels`` the last one's width.
 
     ``remat`` recomputes each block in the backward
     (``torch.utils.checkpoint``) instead of keeping its activations; the
@@ -124,6 +124,7 @@ class InternImage(nn.Module):
                 self.add_module(f"stage{s}_norm", nn.LayerNorm(dim, eps=1e-6))
             self.endpoint_channels.append(dim)
         self.out_channels = self.endpoint_channels[-1]
+        self.endpoint_strides = [2] + [4 * 2 ** s for s in range(len(self.depths))]
 
     def _run_block(self, block: InternImageBlock, x: torch.Tensor) -> torch.Tensor:
         if not (self.remat and torch.is_grad_enabled()):

@@ -63,8 +63,8 @@ class MobileNetV2(nn.Module):
     """Input-size-free MobileNetV2 returning endpoints at each stride
     boundary (os 2/4/8/16 taps, then the last feature). An endpoint is
     tapped before each stride-2 block, dilated or not.
-    ``endpoint_channels`` lists the endpoints' widths and ``out_channels``
-    the last one's."""
+    ``endpoint_channels`` lists the endpoints' widths, ``endpoint_strides``
+    their output strides and ``out_channels`` the last one's width."""
 
     def __init__(self, output_stride: int = 32, width_multiplier: float = 1.0,
                  return_endpoints: bool = True, include_top_conv: bool = True,
@@ -74,6 +74,7 @@ class MobileNetV2(nn.Module):
         ch = _make_divisible(32 * width_multiplier)
         self.stem = ConvNormAct(3, ch, kernel_size=3, strides=2, norm=norm, act="relu6")
         self.endpoint_channels = []
+        self.endpoint_strides = []
         self.taps = []  # block indices an endpoint is tapped before
         current_stride, dilation, block_idx = 2, 1, 0
         for t, c, n, s in _MBV2_STAGES:
@@ -83,6 +84,7 @@ class MobileNetV2(nn.Module):
                 if stride > 1:
                     self.taps.append(block_idx)
                     self.endpoint_channels.append(ch)
+                    self.endpoint_strides.append(current_stride)
                     if current_stride >= output_stride:
                         dilation *= stride
                         stride = 1
@@ -99,6 +101,7 @@ class MobileNetV2(nn.Module):
             self.top_conv = ConvNormAct(ch, top, kernel_size=1, norm=norm, act="relu6")
             ch = top
         self.endpoint_channels.append(ch)
+        self.endpoint_strides.append(current_stride)
         self.out_channels = ch
 
     def forward(self, x: torch.Tensor):

@@ -1,6 +1,6 @@
 """Backbone name registry + dispatch (counterpart of
-``iseg_tpu/backbones/registry.py``). The ResNet, Swin, InternImage and
-MobileNetV2 families are ported."""
+``iseg_tpu/backbones/registry.py``). The ResNet, Swin, InternImage,
+MobileNetV2 and HRNet families are ported."""
 
 from __future__ import annotations
 
@@ -8,7 +8,7 @@ from typing import Callable, Optional
 
 _REGISTRY: dict[str, Callable] = {}
 
-_BUILTIN_MODULES = ("resnet", "swin", "intern_image", "mobilenetv2")
+_BUILTIN_MODULES = ("resnet", "swin", "intern_image", "mobilenetv2", "hrnet")
 
 
 def register_backbone(name: str, constructor: Optional[Callable] = None):

@@ -89,7 +89,8 @@ class ResNet(nn.Module):
     """Input-size-free ResNet returning endpoints at os 2/4/8/16/32 (or
     dilated). Submodule names are the flax ones (``stem0``,
     ``stage2_block1``, ...). ``endpoint_channels`` lists the endpoints'
-    widths and ``out_channels`` the last one's."""
+    widths, ``endpoint_strides`` their output strides and ``out_channels``
+    the last one's width."""
 
     def __init__(
         self,
@@ -120,6 +121,8 @@ class ResNet(nn.Module):
             self._stem = ("stem",)
             ch = stem_filters
         self.endpoint_channels = [ch]
+        self.endpoint_strides = [2]
+        x_stride = 4  # after the stem's max-pool
 
         block_cls = BottleneckBlock if use_bottleneck else BasicBlock
         # (name, tap an endpoint before this block)
@@ -159,6 +162,8 @@ class ResNet(nn.Module):
                     shortcut = None
                 if tap:
                     self.endpoint_channels.append(ch)
+                    self.endpoint_strides.append(x_stride)
+                x_stride *= stride
                 name = f"stage{stage_idx}_block{i}"
                 block = block_cls(ch, filters, stride=stride,
                                   dilation=dilation * grid[i % len(grid)],
@@ -167,6 +172,7 @@ class ResNet(nn.Module):
                 self._plan.append((name, tap))
                 ch = block.out_channels
         self.endpoint_channels.append(ch)
+        self.endpoint_strides.append(x_stride)
         self.out_channels = ch
 
     def forward(self, x: torch.Tensor):

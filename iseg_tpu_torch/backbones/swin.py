@@ -180,7 +180,8 @@ class SwinTransformer(nn.Module):
     """NCHW image -> five NCHW endpoints: the patch embedding (os4), the
     ends of stages 0-2 before each merge (os4, os8, os16) and the last
     block's output (os32, no final norm). ``endpoint_channels`` lists their
-    widths and ``out_channels`` the last one's."""
+    widths, ``endpoint_strides`` their output strides and ``out_channels``
+    the last one's width."""
 
     def __init__(self, embed_dim: int = 96, depths: Sequence[int] = (2, 2, 6, 2),
                  num_heads: Sequence[int] = (3, 6, 12, 24), window_size: int = 7,
@@ -208,6 +209,7 @@ class SwinTransformer(nn.Module):
                 block_idx += 1
         self.out_channels = embed_dim * 2 ** (len(self.depths) - 1)
         self.endpoint_channels.append(self.out_channels)
+        self.endpoint_strides = [4] + [4 * 2 ** s for s in range(len(self.depths))]
 
     def forward(self, x: torch.Tensor):
         x = self.patch_norm(self.patch_embed(x).permute(0, 2, 3, 1))

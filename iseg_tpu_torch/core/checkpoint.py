@@ -11,9 +11,12 @@ same directory removes it). ``max_to_keep`` keeps the newest steps.
 
 The file holds ``{"step", "params", "batch_stats", "opt_state",
 "ema_params"?}``: flax-path-keyed CPU tensors (``convert.param_tree``
-paths), the optimizer state's fields (for SGD its step count and momentum
-buffers), and the EMA of the params when the state tracks one. It is read
-back with ``torch.load(weights_only=True)``.
+paths), the optimizer state's fields as nested dicts (SGD's step count and
+momentum buffers; Adam's count, moments and AMSGrad maximum; a
+multi-optimizer's state per group; the accumulator's mini-step, update
+count, running gradient mean and inner state), and the EMA of the params
+when the state tracks one. It is read back with
+``torch.load(weights_only=True)``.
 """
 
 from __future__ import annotations
@@ -32,7 +35,7 @@ _TMP_PREFIX = ".tmp-"
 
 
 def _to_host(value):
-    """Tensors (nested in dicts, lists and tuples) -> CPU copies. CUDA
+    """Tensors (nested in dicts, lists, tuples and dataclasses) -> CPU copies. CUDA
     tensors go through pinned buffers with one synchronize at the end."""
     pending = []
 
@@ -45,6 +48,8 @@ def _to_host(value):
                 pending.append(v.device)
                 return out
             return v.clone()
+        if dataclasses.is_dataclass(v):
+            return {f.name: walk(getattr(v, f.name)) for f in dataclasses.fields(v)}
         if isinstance(v, dict):
             return {k: walk(x) for k, x in v.items()}
         if isinstance(v, (list, tuple)):
@@ -62,8 +67,7 @@ def _snapshot(state) -> dict:
         "step": int(state.step),
         "params": state.params,
         "batch_stats": state.batch_stats,
-        "opt_state": {f.name: getattr(state.opt_state, f.name)
-                      for f in dataclasses.fields(state.opt_state)},
+        "opt_state": state.opt_state,
     }
     if getattr(state, "ema_params", None) is not None:
         out["ema_params"] = state.ema_params
@@ -72,8 +76,17 @@ def _snapshot(state) -> dict:
 
 @torch.no_grad()
 def _copy_into(dst, src, what: str):
-    """Copy ``src`` into ``dst``'s own tensors (same structure); returns
-    what the field should hold afterwards."""
+    """Copy ``src`` into ``dst``'s own tensors (same structure; a dataclass
+    state was saved as the dict of its fields); returns what the field
+    should hold afterwards."""
+    if dataclasses.is_dataclass(dst):
+        fields = [f.name for f in dataclasses.fields(dst)]
+        if not isinstance(src, dict) or sorted(src) != sorted(fields):
+            raise KeyError(f"checkpoint {what} has fields {sorted(src or {})}, the state "
+                           f"{fields}")
+        for name in fields:
+            setattr(dst, name, _copy_into(getattr(dst, name), src[name], f"{what}/{name}"))
+        return dst
     if isinstance(dst, torch.Tensor):
         if not isinstance(src, torch.Tensor) or tuple(src.shape) != tuple(dst.shape):
             raise ValueError(f"checkpoint {what}: saved {getattr(src, 'shape', type(src))}, "
@@ -200,13 +213,7 @@ class ModelHelper:
         state = template_state
         _copy_into(state.params, saved["params"], "params")
         _copy_into(state.batch_stats, saved["batch_stats"], "batch_stats")
-        opt = saved["opt_state"]
-        fields = [f.name for f in dataclasses.fields(state.opt_state)]
-        if sorted(opt) != sorted(fields):
-            raise KeyError(f"checkpoint opt_state has fields {sorted(opt)}, the state {fields}")
-        for name in fields:
-            setattr(state.opt_state, name,
-                    _copy_into(getattr(state.opt_state, name), opt[name], f"opt_state/{name}"))
+        _copy_into(state.opt_state, saved["opt_state"], "opt_state")
         if getattr(state, "ema_params", None) is not None:
             _copy_into(state.ema_params, saved.get("ema_params", saved["params"]), "ema_params")
         state.step = int(saved["step"])

@@ -146,6 +146,16 @@ class SegFoundation(SegBase):
     def custom_losses_weights(self) -> list[float]:
         return [1.0] + [self.aux_loss_rate] * self.num_aux_loss
 
+    def custom_metrics(self):
+        """The default metric set, one ``MeanIoU`` per output keyed
+        ``output_N`` (main output first)."""
+        from iseg_tpu_torch.metrics.builder import SegMetricBuilder
+
+        builder = SegMetricBuilder(self.num_class, self.ignore_label)
+        for _ in range(1 + self.num_aux_loss):
+            builder.add()
+        return builder
+
     def build_loss_fn(self) -> Callable:
         """``loss_fn(outputs, labels) -> (total, parts)`` with parts keyed
         ``output_N_loss`` plus ``loss``."""
@@ -198,13 +208,24 @@ class SegFoundation(SegBase):
 
 
 class SegManaged(SegFoundation):
-    """The assembled model: backbone -> head -> 1x1 logits conv ->
-    (optional) bilinear upsample to input size -> fp32 cast.
+    """The assembled model: backbone -> head -> one 1x1 logits conv per
+    output -> (optional) bilinear upsample to input size -> fp32 cast.
 
-    ``backbone`` and ``head`` are NCHW modules; the logits conv's input
-    width is ``head.out_channels`` (or ``backbone.out_channels`` without a
-    head). Aux outputs and label/image routing into the head are not
-    ported yet and raise.
+    ``backbone`` and ``head`` are NCHW modules. The main logits conv's
+    input width is ``head.out_channels`` (or ``backbone.out_channels``
+    without a head); a head that returns several outputs lists their widths
+    there. With ``num_aux_loss`` > 0 each aux output gets its own logits
+    conv (``logits_conv_1``, ...), and with ``use_aux_head_endpoints`` the
+    aux outputs the head does not return come from the backbone's
+    endpoints, counted from the end: aux output ``k`` reads
+    ``endpoints[-(k + 1)]`` (for HRNet the os32 branch). More than one
+    output returns ``{"output_0": main, "output_1": ...}``.
+
+    Input routing: ``x`` may be the image ``[N, H, W, 3]``, a dict
+    ``{"image", "label"}`` or an ``(image, label)`` tuple; with
+    ``head_use_label_input`` the head is called with ``label=`` (the
+    ``[N, H, W]`` map, or None) and with ``head_use_image_input`` with
+    ``image=`` (the NCHW view of the input image, before any cast).
     """
 
     def __init__(
@@ -219,26 +240,64 @@ class SegManaged(SegFoundation):
         **foundation_kwargs,
     ):
         super().__init__(num_class=num_class, **foundation_kwargs)
-        if (self.num_aux_loss or use_aux_head_endpoints or head_use_label_input
-                or head_use_image_input):
-            raise NotImplementedError(
-                "aux outputs and head input routing are not ported to iseg_tpu_torch yet")
         self.backbone = backbone
         self.head = head
+        self.use_aux_head_endpoints = use_aux_head_endpoints
         self.upsample_logits = upsample_logits
-        feat = head if head is not None else backbone
-        in_ch = feat.out_channels if feat is not None else 3
-        self.logits_conv = Conv2d(in_ch, num_class, 1, bias=True)
+        self.head_use_label_input = head_use_label_input
+        self.head_use_image_input = head_use_image_input
+        widths = self._output_widths()
+        self.logits_conv = Conv2d(widths[0], num_class, 1, bias=True)
+        for i, ch in enumerate(widths[1:], start=1):
+            self.add_module(f"logits_conv_{i}", Conv2d(ch, num_class, 1, bias=True))
+        self.num_outputs = len(widths)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def _output_widths(self) -> list[int]:
+        """Input widths of the logits convs: the head's outputs, then the
+        aux outputs taken from the backbone's endpoints."""
+        feat = self.head if self.head is not None else self.backbone
+        widths = feat.out_channels if feat is not None else 3
+        widths = list(widths) if isinstance(widths, (list, tuple)) else [widths]
+        while self.use_aux_head_endpoints and len(widths) < 1 + self.num_aux_loss:
+            endpoint_channels = getattr(self.backbone, "endpoint_channels", None)
+            if endpoint_channels is None or len(widths) + 1 > len(endpoint_channels):
+                raise ValueError(f"aux output {len(widths)} reads backbone endpoint "
+                                 f"-{len(widths) + 1}, which the backbone does not have")
+            widths.append(endpoint_channels[-(len(widths) + 1)])
+        return widths[: 1 + self.num_aux_loss]
+
+    def forward(self, x):
+        label = None
+        if isinstance(x, dict):
+            label = x.get("label")
+            x = x["image"]
+        elif isinstance(x, (tuple, list)):
+            x, label = x[0], (x[1] if len(x) > 1 else None)
         inputs_hw = (x.shape[1], x.shape[2])
         x = x.permute(0, 3, 1, 2)  # NHWC -> NCHW view (channels_last memory)
         feats = self.backbone(x) if self.backbone is not None else x
         endpoints = feats if isinstance(feats, (list, tuple)) else [feats]
-        h = self.head(endpoints) if self.head is not None else endpoints[-1]
-        logits = self.logits_conv(h)
-        if self.upsample_logits and tuple(logits.shape[2:]) != inputs_hw:
-            logits = F.interpolate(logits, size=inputs_hw, mode="bilinear",
-                                   align_corners=False, antialias=False)
-        # fp32 output cast, NCHW -> NHWC (a view when logits are channels_last)
-        return logits.permute(0, 2, 3, 1).to(torch.float32).contiguous()
+        if self.head is not None:
+            head_kwargs = {}
+            if self.head_use_label_input:
+                head_kwargs["label"] = label
+            if self.head_use_image_input:
+                head_kwargs["image"] = x
+            head_out = self.head(endpoints, **head_kwargs)
+        else:
+            head_out = endpoints[-1]
+        head_outs = list(head_out) if isinstance(head_out, (list, tuple)) else [head_out]
+        while self.use_aux_head_endpoints and len(head_outs) < 1 + self.num_aux_loss:
+            head_outs.append(endpoints[-(len(head_outs) + 1)])
+
+        logits_list = []
+        for i, h in enumerate(head_outs[: self.num_outputs]):
+            logits = self._modules[f"logits_conv_{i}" if i else "logits_conv"](h)
+            if self.upsample_logits and tuple(logits.shape[2:]) != inputs_hw:
+                logits = F.interpolate(logits, size=inputs_hw, mode="bilinear",
+                                       align_corners=False, antialias=False)
+            # fp32 output cast, NCHW -> NHWC (a view when logits are channels_last)
+            logits_list.append(logits.permute(0, 2, 3, 1).to(torch.float32).contiguous())
+        if len(logits_list) == 1:
+            return logits_list[0]
+        return {f"output_{i}": v for i, v in enumerate(logits_list)}

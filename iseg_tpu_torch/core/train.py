@@ -29,7 +29,6 @@ import torch
 from torch import nn
 
 from iseg_tpu_torch.convert import batch_stats_tree, param_tree
-from iseg_tpu_torch.core.optimizer import SGD
 from iseg_tpu_torch.data.loader import device_prefetch, to_device
 from iseg_tpu_torch.nn.blocks import set_dropout_generator
 from iseg_tpu_torch.nn.initializers import initialize
@@ -65,7 +64,7 @@ class TrainState:
     model: nn.Module
     params: dict[str, torch.Tensor]
     batch_stats: dict[str, torch.Tensor]
-    tx: SGD
+    tx: Any  # an optimizer of core/optimizer.py (init / update)
     opt_state: Any
     ema_params: Optional[dict[str, torch.Tensor]] = None
     ema_decay: Optional[float] = None
@@ -74,7 +73,11 @@ class TrainState:
     def apply_gradients(self, grads: dict[str, torch.Tensor]) -> "TrainState":
         updates, self.opt_state = self.tx.update(grads, self.opt_state, self.params)
         torch._foreach_add_(list(self.params.values()), list(updates.values()))
-        if self.ema_params is not None:
+        # under gradient accumulation (with_grad_accum) only every k-th
+        # micro-step applies a real update, and the EMA decays only then
+        # (decay^k per update would shrink its horizon k times): the
+        # accumulator's mini_step is back at 0 exactly when it applied one
+        if self.ema_params is not None and getattr(self.opt_state, "mini_step", 0) == 0:
             d = self.ema_decay
             for e, p in zip(self.ema_params.values(), self.params.values()):
                 e.copy_(e * d + (1.0 - d) * p.to(e.dtype))
@@ -91,7 +94,7 @@ class TrainState:
 def create_train_state(
     model: nn.Module,
     generator: Optional[torch.Generator],
-    tx: SGD,
+    tx,
     ema_decay: Optional[float] = None,
     initialized: bool = False,
 ) -> TrainState:
@@ -218,15 +221,17 @@ class CoreTrain:
     ``model`` is on ``env.device``; it is initialized from ``seed`` unless
     ``initialized`` (weights already loaded, e.g. by
     ``convert.load_flax``). ``profiler_dir`` is where ``use_profiler``
-    writes its trace. ``grad_accum_every`` > 1 is not ported yet (it needs
-    the optimizer's accumulation wrapper, ROADMAP queue 1 item 19).
+    writes its trace. With ``tx = with_grad_accum(inner, every=k)`` pass
+    ``grad_accum_every=k``: a step of this loop is then a micro-step (the
+    state's step counts them), the schedule inside ``tx`` counts real
+    updates, and the logged learning rate reads ``lr_schedule(step // k)``.
     """
 
     def __init__(
         self,
         env,
         model: nn.Module,
-        tx: SGD,
+        tx,
         loss_fn: Optional[Callable] = None,
         seed: int = 0,
         checkpoint_manager=None,
@@ -246,10 +251,6 @@ class CoreTrain:
         initialized: bool = False,
         resident_dataset=None,
     ):
-        if grad_accum_every != 1:
-            raise NotImplementedError(
-                "grad_accum_every > 1 is not ported to iseg_tpu_torch yet (with_grad_accum, "
-                "ROADMAP queue 1 item 19)")
         if use_profiler and profiler_dir is None:
             raise ValueError("use_profiler needs a profiler_dir")
         self.env = env
@@ -291,6 +292,9 @@ class CoreTrain:
 
             self.scalar_logger = ScalarLogger(log_dir)
         self.lr_schedule = lr_schedule
+        # with with_grad_accum(tx, every=k) the schedule inside tx advances
+        # once per k micro-steps: the logged LR indexes it by real updates
+        self.grad_accum_every = max(1, int(grad_accum_every))
         # graceful preemption: SIGTERM sets a flag, the step loop
         # checkpoints durably at the next step boundary and returns; resume
         # with initial_epoch=-1 skips the already-applied batches
@@ -437,7 +441,7 @@ class CoreTrain:
                         scalars = {f"train/{k}": float(v) for k, v in parts.items()}
                         if self.lr_schedule is not None:
                             scalars["train/learning_rate"] = float(
-                                self.lr_schedule(self.state.step))
+                                self.lr_schedule(self.state.step // self.grad_accum_every))
                         summ = timer.summary()
                         if "mean_s" in summ:
                             scalars["train/step_seconds"] = summ["mean_s"]

@@ -1,7 +1,8 @@
 """End-to-end segmentation training example (counterpart of
 ``examples/train_seg.py``).
 
-Covers BASELINE configs #1 and #2: choose backbone, head and crop by flag.
+Covers BASELINE configs #1, #2 and #3: choose backbone, head, optimizer and
+crop by flag.
 With ``--data_dir`` pointing at (images/, labels/) directories it trains on
 real data (reading PNGs needs PIL); without it, a synthetic shapes dataset
 (numpy only) is generated, so the whole pipeline runs anywhere. It trains
@@ -11,14 +12,16 @@ step on a rerun), then evaluates the final weights to mIoU.
 Differences from the JAX example: ``--device`` (default ``cuda``; ``cpu``
 runs here) replaces ``--cpu``; the checkpoint directory defaults to
 ``/tmp/iseg_tpu_torch_ckpt`` (the two packages' checkpoint formats differ);
-the heads ``jpu``, ``fapn`` and ``nasfpn``, ``--pretrained`` and optimizers
-other than ``sgd`` are not ported yet and raise, naming their ROADMAP item.
+the heads ``fapn`` and ``nasfpn`` and ``--pretrained`` are not ported yet
+and raise, naming their ROADMAP item.
 
 Examples:
   python -m iseg_tpu_torch.examples.train_seg --backbone mobilenetv2 --head simpledecoder \\
       --crop 512 --batch 8 --epochs 3
   python -m iseg_tpu_torch.examples.train_seg --backbone resnet50 --head aspp --ohem \\
       --data_dir /data/voc --num_class 21
+  python -m iseg_tpu_torch.examples.train_seg --backbone hrnet_w48 --head jpu --num_class 19 \\
+      --optimizer adamw --lr 1e-4 --fused_loss
   python -m iseg_tpu_torch.examples.train_seg --device cpu --crop 32 --batch 2 --num_class 3 \\
       --backbone_kwargs '{"width_multiplier": 0.35, "include_top_conv": false}' \\
       --epochs 1 --steps_per_epoch 2
@@ -34,8 +37,7 @@ import numpy as np
 
 HEADS = ("simpledecoder", "aspp", "fpn", "jpu", "fapn", "nasfpn")
 # heads of the JAX package that the port does not have yet
-UNPORTED_HEADS = {"jpu": "ROADMAP queue 1 item 20", "fapn": "ROADMAP queue 1 item 23",
-                  "nasfpn": "ROADMAP queue 1 item 23"}
+UNPORTED_HEADS = {"fapn": "ROADMAP queue 1 item 23", "nasfpn": "ROADMAP queue 1 item 23"}
 
 
 def synthetic_dataset(num_samples, crop, num_class, seed=0):
@@ -56,8 +58,11 @@ def synthetic_dataset(num_samples, crop, num_class, seed=0):
 
 
 def build_head(name: str, backbone):
-    """A ported head by flag name, sized from ``backbone``'s endpoints."""
+    """A ported head by flag name, sized from ``backbone``'s endpoints. The
+    pyramid heads are sized by resolution, as their forward picks their
+    inputs (HRNet lists its os4 concat after the os32 branch)."""
     from iseg_tpu_torch.nn import heads
+    from iseg_tpu_torch.nn.heads.common import select_pyramid_levels
 
     if name in UNPORTED_HEADS:
         raise NotImplementedError(f"head {name!r} is not ported to iseg_tpu_torch yet "
@@ -66,8 +71,10 @@ def build_head(name: str, backbone):
         return heads.SimpleDecoder(backbone.endpoint_channels)
     if name == "aspp":
         return heads.ASPP(backbone.out_channels)
-    if name == "fpn":
-        return heads.SemanticFPN(backbone.endpoint_channels[-4:])
+    if name in ("fpn", "jpu"):
+        levels = select_pyramid_levels(backbone.endpoint_channels, backbone.endpoint_strides,
+                                       4 if name == "fpn" else 3)
+        return heads.SemanticFPN(levels) if name == "fpn" else heads.JPU(levels)
     raise ValueError(f"head {name!r} is not ported to iseg_tpu_torch; choose from {HEADS}")
 
 
@@ -123,10 +130,6 @@ def main(argv=None) -> dict:
     if args.pretrained:
         raise SystemExit("--pretrained (h5 ingest) is not ported to iseg_tpu_torch yet "
                          "(ROADMAP queue 1 item 17)")
-    if args.optimizer.lower() != "sgd":
-        raise SystemExit(f"optimizer {args.optimizer!r} is not ported to iseg_tpu_torch yet "
-                         "(ROADMAP queue 1 item 19)")
-
     from iseg_tpu_torch.convert import param_tree
     from iseg_tpu_torch.core.checkpoint import ModelHelper
     from iseg_tpu_torch.core.env import EnvConfig, common_env_setup

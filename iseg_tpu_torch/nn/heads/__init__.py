@@ -7,12 +7,15 @@ from iseg_tpu_torch.nn.heads.fpn import (
     SemanticPyramidNetworkBlockV1,
     SemanticPyramidNetworkBlockV2,
 )
+from iseg_tpu_torch.nn.heads.jpu import JPU, JointPyramidUpsampling
 from iseg_tpu_torch.nn.heads.simpledecoder import SimpleDecoder
 
 __all__ = [
     "ASPP",
     "AtrousSpatialPyramidPooling",
     "FeaturePyramidNetwork",
+    "JPU",
+    "JointPyramidUpsampling",
     "SemanticFPN",
     "SemanticPyramidNetworkBlockV1",
     "SemanticPyramidNetworkBlockV2",

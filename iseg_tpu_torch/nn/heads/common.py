@@ -28,3 +28,21 @@ def select_pyramid_endpoints(endpoints, n: int) -> list:
     if len(ordered) < n:
         return list(endpoints[-n:])
     return [e for _, e in ordered[-n:]]
+
+
+def select_pyramid_levels(channels, strides, n: int) -> list[int]:
+    """:func:`select_pyramid_endpoints`' rule on a backbone's
+    ``endpoint_channels`` and ``endpoint_strides``: the widths of the
+    endpoints that rule will hand a head of ``n`` levels, fine -> coarse,
+    so the head can be built for the tensors it will be fed."""
+    channels, strides = list(channels), list(strides)
+    if len(channels) != len(strides):
+        raise ValueError(f"{len(channels)} endpoint widths but {len(strides)} strides")
+    if len(channels) < n:
+        return channels[-n:]
+    by_stride: dict = {}
+    for ch, s in zip(channels, strides):  # the last one at a resolution wins
+        by_stride[s] = ch
+    if len(by_stride) < n:
+        return channels[-n:]
+    return [by_stride[s] for s in sorted(by_stride)][-n:]

@@ -15,7 +15,9 @@
 
 A torch module fixes its input widths when it is built, so every class
 takes ``in_channels``: the widths of the pyramid levels it will be given,
-fine -> coarse (for a Swin backbone ``backbone.endpoint_channels[-4:]``).
+fine -> coarse: ``select_pyramid_levels(backbone.endpoint_channels,
+backbone.endpoint_strides, 4)`` (``nn/heads/common.py``), the rule by which
+the forward picks them.
 Sizes come from the inputs at run time, never from a factor of 2.
 """
 

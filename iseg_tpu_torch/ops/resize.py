@@ -11,8 +11,10 @@ JAX computes them, so every dtype (int labels included) takes one path.
 
 from __future__ import annotations
 
+import functools
 from typing import Sequence
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -38,15 +40,59 @@ def _resize_nearest(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
     return x
 
 
+@functools.lru_cache(maxsize=256)
+def _linear_matrix(out_len: int, in_len: int, align_corners: bool, dtype: torch.dtype,
+                   device: torch.device) -> torch.Tensor:
+    """``[out, in]`` weights of 1-D linear interpolation, made once per
+    geometry, type and device. ``align_corners``: src = i * (in-1)/(out-1)
+    (the JAX package's ``_align_corners_matrix``); else half-pixel, src =
+    (i + 0.5) * in/out - 0.5 held at 0 from below (``jax.image.resize`` and
+    ``F.interpolate``; no antialias)."""
+    i = np.arange(out_len, dtype=np.float64)
+    if align_corners:
+        src = i * (in_len - 1) / (out_len - 1) if out_len > 1 else np.zeros(out_len)
+    else:
+        src = np.maximum((i + 0.5) * in_len / out_len - 0.5, 0.0)
+    lo = np.minimum(np.floor(src).astype(np.int64), in_len - 1)
+    hi = np.minimum(lo + 1, in_len - 1)
+    frac = src - lo
+    m = np.zeros((out_len, in_len))
+    np.add.at(m, (np.arange(out_len), lo), 1.0 - frac)
+    np.add.at(m, (np.arange(out_len), hi), frac)
+    return torch.tensor(m, dtype=dtype, device=device)
+
+
+def resize_bilinear_matmul(x: torch.Tensor, size: Sequence[int] | int,
+                           align_corners: bool) -> torch.Tensor:
+    """Bilinear NHWC resize as two products with interpolation matrices,
+    one per axis, as the JAX package computes its align-corners resize. Its
+    backward is two more products, so it sums in a fixed order:
+    ``F.interpolate``'s CUDA backward adds with atomics, and a training run
+    through it is not repeatable bit for bit. For a channels_last NCHW
+    tensor's NHWC view both products take their operands without a copy."""
+    h, w = _normalize_size(size)
+    n, in_h, in_w, c = x.shape
+    if (in_h, in_w) == (h, w):
+        return x
+    mh = _linear_matrix(h, in_h, align_corners, x.dtype, x.device)
+    mw = _linear_matrix(w, in_w, align_corners, x.dtype, x.device)
+    y = torch.matmul(mh, x.reshape(n, in_h, in_w * c)).reshape(n * h, in_w, c)
+    return torch.matmul(mw, y).reshape(n, h, w, c)
+
+
 def resize_bilinear_align_corners(x: torch.Tensor, size: Sequence[int] | int) -> torch.Tensor:
     """Bilinear NHWC resize with ``tf.compat.v1.image.resize(...,
-    align_corners=True)`` semantics (src = i * (in-1)/(out-1))."""
-    h, w = _normalize_size(size)
-    if x.shape[1] == h and x.shape[2] == w:
-        return x
-    out = F.interpolate(x.permute(0, 3, 1, 2), size=(h, w), mode="bilinear",
-                        align_corners=True)
-    return out.permute(0, 2, 3, 1)
+    align_corners=True)`` semantics (src = i * (in-1)/(out-1)), by
+    :func:`resize_bilinear_matmul`."""
+    return resize_bilinear_matmul(x, size, align_corners=True)
+
+
+def resize_nchw(x: torch.Tensor, size: Sequence[int] | int,
+                align_corners: bool = False) -> torch.Tensor:
+    """:func:`resize_bilinear_matmul` of an NCHW tensor (a view of it when
+    it is channels_last), returned NCHW."""
+    return resize_bilinear_matmul(x.permute(0, 2, 3, 1), size,
+                                  align_corners).permute(0, 3, 1, 2)
 
 
 def resize_image(

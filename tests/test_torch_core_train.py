@@ -268,8 +268,8 @@ def test_torch_core_train_profiler_window(tmp_path):
 
 
 def test_torch_core_train_refuses_what_is_not_ported():
-    with pytest.raises(NotImplementedError, match="grad_accum_every"):
-        _trainer(grad_accum_every=2)
+    # grad_accum_every is ported (tests/test_torch_grad_accum.py)
+    assert _trainer(grad_accum_every=2).grad_accum_every == 2
     with pytest.raises(ValueError, match="profiler_dir"):
         _trainer(use_profiler=True)
 

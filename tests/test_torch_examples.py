@@ -9,8 +9,9 @@ tiny size, and the port's import boundary.
   ``evaluate`` gives on the same data and weights (equal);
 * ``predict_dir`` writes one PNG per image at its size, and refuses a
   checkpoint directory without a checkpoint;
-* unported heads, ``--pretrained``, ``--weights_h5`` and other optimizers
-  raise;
+* unported heads, ``--pretrained`` and ``--weights_h5`` raise;
+* HRNet-W48 (reduced to one module a stage) trains through ``train_seg``
+  with ``--head jpu --optimizer adamw`` and with ``--head fpn``;
 * a reduced ``verify_drive`` (2 x 3 steps, no mIoU threshold) restores its
   step (the full drive, with its mIoU > 0.7, runs on the card);
 * no module of ``iseg_tpu_torch`` and no line of ``chip_smoke.py`` imports
@@ -139,16 +140,25 @@ def test_torch_predict_dir_writes_one_png_per_image(png_dir, tmp_path):
 
 
 @pytest.mark.parametrize("extra,error,match", [
-    (["--head", "jpu"], NotImplementedError, "item 20"),
     (["--head", "fapn"], NotImplementedError, "item 23"),
     (["--head", "nasfpn"], NotImplementedError, "item 23"),
     (["--pretrained", "resnet50.h5"], SystemExit, "item 17"),
-    (["--optimizer", "adamw"], SystemExit, "item 19"),
-], ids=["jpu", "fapn", "nasfpn", "pretrained", "adamw"])
+], ids=["fapn", "nasfpn", "pretrained"])
 def test_torch_train_seg_unported_options_raise(extra, error, match, tmp_path):
     with pytest.raises(error, match=match):
         train_seg.main(SMALL + ["--ckpt_dir", str(tmp_path)] + extra)
     assert ModelHelper(str(tmp_path)).all_steps() == []
+
+
+@pytest.mark.parametrize("head,optimizer", [("jpu", "adamw"), ("fpn", "sgd")])
+def test_torch_train_seg_runs_hrnet_with_pyramid_heads(head, optimizer, tmp_path):
+    out = train_seg.main(["--device", "cpu", "--crop", "32", "--batch", "2", "--num_class", "3",
+                          "--backbone", "hrnet_w48", "--backbone_kwargs",
+                          '{"stage_modules": [1, 1, 1, 1]}', "--head", head, "--optimizer",
+                          optimizer, "--lr", "1e-3", "--fused_loss", "--epochs", "1",
+                          "--steps_per_epoch", "2", "--ckpt_dir", str(tmp_path)])
+    assert out["step"] == 2 and ModelHelper(str(tmp_path)).all_steps() == [2]
+    assert np.isfinite(out["history"][0]["loss"]) and 0.0 <= out["miou"] <= 1.0
 
 
 def test_torch_eval_seg_refuses_h5_and_missing_checkpoints(png_dir, tmp_path):

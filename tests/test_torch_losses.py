@@ -95,14 +95,13 @@ def test_torch_prepare_labels_and_valid_mask_match_jax():
 
 
 def test_torch_cross_entropy_unported_options_raise():
-    # OHEM is ported (tests/test_torch_ohem.py); aux outputs are not, and a
-    # reduction missing its argument raises
+    # OHEM and aux outputs are ported (tests/test_torch_ohem.py,
+    # tests/test_torch_aux.py); a reduction missing its argument raises
     logits, labels = _data()
     with pytest.raises(ValueError):
         tce.cross_entropy_ignore_label(torch.tensor(logits), torch.tensor(labels),
                                        reduction="global_batch")
-    with pytest.raises(NotImplementedError):
-        TSegManaged(num_class=C, num_aux_loss=1)
+    assert TSegManaged(num_class=C, num_aux_loss=1).custom_losses_weights() == [1.0, 0.4]
     TSegManaged(num_class=C, use_ohem=True).build_loss_fn()
 
 

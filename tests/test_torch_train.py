@@ -131,10 +131,14 @@ def test_torch_weight_decay_mask_matches_jax_on_slice_paths():
 
 
 def test_torch_unported_optimizers_raise():
-    with pytest.raises(NotImplementedError):
-        topt.get_optimizer({}, "adamw")
-    with pytest.raises(NotImplementedError):
-        topt.get_optimizer({}, "sgd", decay_strategy="cosine")
+    # every optimizer and schedule of the JAX package is ported
+    # (tests/test_torch_optimizer.py); unknown names raise as there
+    topt.get_optimizer({}, "adamw")
+    topt.get_optimizer({}, "sgd", decay_strategy="cosine")
+    with pytest.raises(ValueError):
+        topt.get_optimizer({}, "lamb")
+    with pytest.raises(ValueError):
+        topt.get_optimizer({}, "sgd", decay_strategy="exponential")
 
 
 # ------------------------------------------------------------------ the slice
