@@ -5,7 +5,8 @@
     python3 chip_smoke.py --profile  # and torch.profiler tables of the resident ResNet step and
                                      # its input stage, of the MobileNetV2, Swin,
                                      # InternImage and HRNet train steps and of Gemma's
-                                     # beam-4 decode steps
+                                     # beam-4 decode steps (phase 12 always prints its
+                                     # ViT-L and EVA02-L steps' tables)
     python3 chip_smoke.py --ab OLD   # OLD's kernels and this tree's, timed in turns
 
 Drives the port's main paths at full width, with random weights from
@@ -28,12 +29,20 @@ scripts: phase 5c):
 * HRNet: BASELINE config #3, ``hrnet_w48`` + ``JPU(512)`` (the os8, os16
   and os32 branches), 19 classes, 512x512, batch 8, its logits at the JPU's
   output stride 8 (phase 11);
+* ViT-L: BASELINE config #4's ``vit_large_patch16`` (24 blocks, width 1024,
+  16 heads, 1025 tokens at 512x512, the pos-embed resampled 24 -> 32) +
+  ASPP(256), 19 classes, batch 8, its logits at the patch's os16 (phase 12);
 
 all under bf16 autocast with fp32 params, SGD (momentum 0.9, poly decay),
 the loss taken by the fused upsample + CE CUDA kernels, Swin's window
 attention by the window-attention CUDA kernels and DCNv3's sampling by the
 dense-local CUDA kernels; Swin also trains in fp32 (phase 6b), its window
-attention then on the split-TF32 kernels. The fourth serves a language model:
+attention then on the split-TF32 kernels. BASELINE config #5,
+``eva02_large_patch16_512_coco`` (ViT-L with 2-D RoPE, SwiGLU and q/v
+biases) + ASPP(256), 150 classes, batch 4, trains with AdamW and layerwise
+LR decay; above 64 classes its loss is the unfused resize + CE (phase 12).
+Global attention is ``F.scaled_dot_product_attention`` (no TPU kernel
+computes it in the JAX package). Another path serves a language model:
 
 * Gemma: ``gemma_2b_en`` at its full width and depth (18 layers, hidden
   2048, 8 heads over 1 KV head, head dim 256, FFN 16384, vocabulary 256000;
@@ -60,8 +69,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    second timer, ``held_ms``, runs beside it on every window-attention
    forward, dense-local backward and upsample + CE row). Upsample + CE at
    [16,32,32,21] -> [16,512,512], [8,128,128,19] -> [8,512,512],
-   [8,16,16,19] -> [8,512,512], [8,128,128,21] -> [8,512,512] and [8,64,64,19] -> [8,512,512]
-   (HRNet + JPU), with the forward's two kernels' and the
+   [8,16,16,19] -> [8,512,512], [8,128,128,21] -> [8,512,512], [8,64,64,19] -> [8,512,512]
+   (HRNet + JPU) and [8,32,32,19] -> [8,512,512] (ViT-L), with the forward's two kernels' and the
    backward kernel's own device time (``kernel_device_ms``) and the unfused pair ``F.interpolate`` +
    ``F.cross_entropy`` timed beside it (``library_pair_ms``: two calls, so
    ``library_ms`` stays null), and fused against unfused printed at each
@@ -208,7 +217,23 @@ Phases, in order; any failure raises and the script exits non-zero:
     ``bench.py``'s JSON schema, peak memory, finite fp32 [1,1024,2048,19]
     logits, window batch 1 and 2 within 2e-2 of max |logit| in fp32 (in bf16
     they part by the bf16 network's own noise, printed), each bf16 run
-    within 5e-2 of max |logit| of the fp32 run, no kernel launched.
+    within 5e-2 of max |logit| of the fp32 run, no kernel launched;
+12. ViT-L and EVA02-L (BASELINE configs #4 and #5): (1) the ViT-L step on
+    a fixed batch (SGD poly, 2 warm-up + 5 timed steps, exactly 1 + 1
+    loss-kernel launches in every step), ms/step, img/s, peak memory, then
+    3 profiled steps: device ms by kernel class, the top kernels and the
+    busy share; (2) the EVA02-L step the same way (AdamW, decoupled decay
+    0.05, the layerwise LR multipliers 0.9 ** (24 - (i + 1)) over the
+    blocks ``Eva.layer_name_pattern`` names; no fused-loss launch in any
+    step), then one step with
+    patch dropout 0.25: 769 of 1025 tokens through the blocks, a finite
+    loss; (3) both models served with their trained weights by
+    ``SegBase.inference`` at batch 2, scales (0.75, 1.0) + flip, bf16: one
+    warm-up and 7 timed calls (p50 / min / max ms, host clock, printed in
+    ``bench.py``'s JSON schema), 4 model calls a request, finite fp32
+    [2,512,512,C] logits, no kernel launched; then one image's fp32 logits
+    on the card (SDPA) within 1e-3 of max |logit| of the CPU port's (the
+    plain attention) with the same weights.
 
 ``--ab OLD`` runs none of the phases. OLD is another checkout of the repo
 (for example the parent commit's ``git archive`` unpacked into the
@@ -236,7 +261,8 @@ tree's two.
 The launch counters are set to 0 just before each main path (3, 5b's
 uninterrupted run, 5c's fixed-batch steps, its two train_seg runs together
 and its OHEM run, 6, 6b, 7, 8, 9, each request of 10, 11.1, each micro-step
-of 11.2, its resumed run, 11.3 and 11.4) and read just
+of 11.2, its resumed run, 11.3 and 11.4, 12.1 and 12.2 (and each of their
+steps), the patch-dropout step and each serve of 12.3) and read just
 after; a kernel of a path that was
 launched no time there fails the run. Third line from the end: a JSON object with one entry per kernel;
 then the card's name and power limit; the last line is
@@ -250,6 +276,7 @@ import json
 import math
 import os
 import pathlib
+import re
 import shutil
 import signal
 import statistics
@@ -272,7 +299,9 @@ from iseg_tpu_torch.core.checkpoint import ModelHelper
 from iseg_tpu_torch.core.env import EnvConfig, common_env_setup
 from iseg_tpu_torch.core.evaluation import bucket_padder, evaluate, make_eval_step
 from iseg_tpu_torch.core.model import SegManaged, SegModelInferenceConfig
-from iseg_tpu_torch.core.optimizer import get_optimizer, with_grad_accum
+from iseg_tpu_torch.core.optimizer import (Adam, get_optimizer, layerwise_decay_multipliers,
+                                           warmup_poly_decay, weight_decay_mask,
+                                           with_grad_accum)
 from iseg_tpu_torch.core.predict import default_image_predict
 from iseg_tpu_torch.core.train import CoreTrain, create_train_state, make_train_step
 from iseg_tpu_torch.data.device_augment import DeviceAugmentConfig, make_device_augment
@@ -355,11 +384,26 @@ H_TRAIN_SEG_STEPS = 3
 # 11.4: bench.py's sliding_hrnet: 1024x2048, 512x512 windows at stride 2/3
 # (3 x 6 = 18 model calls), one warm-up and 7 timed calls
 H_SLIDE_HW, H_SLIDE_WINDOW, H_SLIDE_REPS, H_SLIDE_CALLS = (1024, 2048), 512, 7, 18
-# the loss kernels' shapes on the five paths: (path, batch, logit side, classes)
+# ViT path (phase 12.1): BASELINE config #4's ViT-L, vit_large_patch16 + ASPP(256) at the
+# Swin path's geometry, its one endpoint and the logits at the patch size's os16
+V_BATCH, V_CLASSES, V_OS = 8, 19, 16
+V_WARMUP, V_TIMED = 2, 5
+# EVA path (phase 12.2): BASELINE config #5 as the JAX package's
+# tools/bench_model_mfu.py has it, eva02_large_patch16_512_coco + ASPP(256), 150
+# classes, batch 4 (the fused loss requested; above 64 classes it is the
+# unfused resize + CE); AdamW with layerwise LR decay 0.9 over the 24 blocks
+E_BATCH, E_CLASSES = 4, 150
+E_WARMUP, E_TIMED = 2, 5
+E_LAYER_DECAY, E_PATCH_DROPOUT = 0.9, 0.25
+# 12.3: both models served at batch 2, scales (0.75, 1.0) + flip (384 and 512 are
+# multiples of the patch), one warm-up and 7 timed calls
+T_SERVE_BATCH, T_SERVE_SCALES, T_SERVE_REPS = 2, (0.75, 1.0), 7
+# the loss kernels' shapes on the six paths: (path, batch, logit side, classes)
 UCE_SHAPES = (("resnet", R_BATCH, HW // R_OS, R_CLASSES), ("swin", S_BATCH, HW // S_OS, S_CLASSES),
               ("intern", I_BATCH, HW // I_OS, I_CLASSES),
               ("mbv2", M_BATCH, HW // M_LOGIT_OS, M_CLASSES),
-              ("hrnet", H_BATCH, HW // H_LOGIT_OS, H_CLASSES))
+              ("hrnet", H_BATCH, HW // H_LOGIT_OS, H_CLASSES),
+              ("vit", V_BATCH, HW // V_OS, V_CLASSES))
 # Gemma path: gemma_2b_en served at batch 8, prompt 128, 512 generated slots
 G_PRESET, G_BATCH, G_PROMPT, G_MAX_LENGTH, G_SEGMENT = "gemma_2b_en", 8, 128, 640, 256
 G_CONTRASTIVE_K = 5
@@ -456,6 +500,10 @@ ACCUM_RESUME_RTOL = 1e-5
 # the fp32 run instead, at 2.5 times that noise
 SLIDE_BATCH_RTOL = 2e-2
 SLIDE_BF16_RTOL = 5e-2
+# 12.3: one image's fp32 logits on the card (SDPA, cuDNN and cuBLAS with TF32
+# off) against the CPU port's (the plain attention) with the same weights,
+# relative to max |logit|: fp32 sums in other orders through 24 blocks
+T_CARD_VS_CPU_RTOL = 1e-3
 
 
 def log(msg: str) -> None:
@@ -1192,8 +1240,8 @@ def check_cache_gather(device, name, shape, dtype, seed=0) -> dict:
 
 def phase_kernels(device) -> list[dict]:
     log("== phase 2: kernels vs plain versions at the main paths' shapes")
-    resnet, swin, intern, mbv2, hrnet = (check_upsample_ce(device, n, h, classes)
-                                         for _, n, h, classes in UCE_SHAPES)
+    resnet, swin, intern, mbv2, hrnet, vit = (check_upsample_ce(device, n, h, classes)
+                                              for _, n, h, classes in UCE_SHAPES)
     log(f"window attention (tol of max(1, max |plain|): {WA_TOL}); dbias err is in max abs err "
         "of the backward; sdpa is F.scaled_dot_product_attention, a yardstick only")
     wa_rows = {}
@@ -1246,7 +1294,7 @@ def phase_kernels(device) -> list[dict]:
     wa_src = "iseg_tpu_torch/csrc/window_attention.cu"
     dl_src = "iseg_tpu_torch/csrc/deform_local.cu"
     cg_src = "iseg_tpu_torch/csrc/cache_gather.cu"
-    uce_shapes = {d: [rows[dt][d] for rows in (resnet, swin, intern, mbv2, hrnet)
+    uce_shapes = {d: [rows[dt][d] for rows in (resnet, swin, intern, mbv2, hrnet, vit)
                       for dt in ("f32", "bf16")]
                   for d in ("fwd", "bwd")}
     # the split-TF32 rows have entries of their own; the bf16 and CUDA-core rows
@@ -1369,6 +1417,23 @@ def train_steps(state, step_fn, data, warmup, timed, batch):
     if not all(np.isfinite(losses)):
         raise AssertionError(f"non-finite training loss: {losses}")
     return state, losses, launches, 1000 * dt / timed
+
+
+def counted_train_steps(state, step_fn, data, warmup, timed, batch, want_per_step, title):
+    """:func:`train_steps` with each step's launches held to ``want_per_step``."""
+    per_step = []
+
+    def counted_step(state, batch_data):
+        before = read_launch_counts()
+        state, parts = step_fn(state, batch_data)
+        per_step.append({k: v - before[k] for k, v in read_launch_counts().items()})
+        return state, parts
+
+    state, losses, launches, step_ms = train_steps(state, counted_step, data, warmup, timed,
+                                                   batch)
+    for i, got in enumerate(per_step):
+        expect_launches(f"{title} (step {i + 1})", got, want_per_step)
+    return state, losses, launches, step_ms
 
 
 def phase_resnet_train(env, data):
@@ -2184,21 +2249,11 @@ def phase_swin_train_f32(data, profile: bool):
     gen.set_state(init_draw)
     del init_weights
 
-    per_step = []
-
-    def counted_step(state, batch):
-        before = read_launch_counts()
-        state, parts = step_fn(state, batch)
-        per_step.append({k: v - before[k] for k, v in read_launch_counts().items()})
-        return state, parts
-
-    state, losses, launches, step_ms = train_steps(state, counted_step, data, S_WARMUP,
-                                                   S_F32_TIMED, S_BATCH)
-    for i, got in enumerate(per_step):
-        expect_launches(f"Swin fp32 train (step {i + 1})", got,
-                        {"upsample_ce_fwd": 1, "upsample_ce_bwd": 1,
-                         "window_attention_fwd_tf32x3": WA_LAUNCHES_PER_FORWARD,
-                         "window_attention_bwd_tf32x3": WA_LAUNCHES_PER_FORWARD})
+    state, losses, launches, step_ms = counted_train_steps(
+        state, step_fn, data, S_WARMUP, S_F32_TIMED, S_BATCH,
+        {"upsample_ce_fwd": 1, "upsample_ce_bwd": 1,
+         "window_attention_fwd_tf32x3": WA_LAUNCHES_PER_FORWARD,
+         "window_attention_bwd_tf32x3": WA_LAUNCHES_PER_FORWARD}, "Swin fp32 train")
     rel = abs(losses[0] - plain_loss) / abs(plain_loss)
     log(f"first-step loss: kernels {losses[0]:.7f} plain window attention {plain_loss:.7f} "
         f"rel diff {rel:.3e} (tol {F32_KERNEL_VS_PLAIN_RTOL:g})")
@@ -2216,12 +2271,14 @@ KERNEL_CLASSES = (
                                   "dbias_reduce_kernel")),
     ("dense-local kernels", ("dl_fwd_kernel", "dl_bwd_maps_kernel", "dl_bwd_x_kernel")),
     ("upsample + CE kernels", ("::fwd_kernel<", "::bwd_kernel<", "::reduce_kernel(")),
+    ("global attention (SDPA: flash / memory-efficient)", ("flash", "fmha", "attention_kernel",
+                                                            "efficient_attention")),
     ("convolutions (cuDNN)", ("cudnn", "fprop", "wgrad", "dgrad", "conv2d", "convolve")),
     ("matrix products (cuBLAS GEMM: qkv, proj, MLP, merge)",
      ("nvjet", "gemm", "cutlass", "cublas", "xmma", "gemv", "s16816", "splitK")),
     ("layer norm", ("layer_norm", "LayerNorm", "GammaBeta")),
     ("reductions (BN moments, sums)", ("reduce", "welford", "Welford")),
-    ("SGD update (foreach)", ("multi_tensor", "foreach")),
+    ("optimizer update (foreach: SGD, Adam)", ("multi_tensor", "foreach")),
 )
 
 
@@ -3169,6 +3226,202 @@ def phase_hrnet(env, profile: bool) -> dict[str, dict]:
     return paths
 
 
+# ------------------------------------------- ViT-L and EVA02-L path (phase 12)
+
+def build_vit_model(env, fused: bool) -> SegManaged:
+    """BASELINE config #4's ViT-L: ``vit_large_patch16`` + ASPP(256) (built
+    by ``train_seg``'s ``build_head``), 19 classes."""
+    backbone = get_backbone("vit_large_patch16")
+    model = SegManaged(num_class=V_CLASSES, backbone=backbone,
+                       head=train_seg_example.build_head("aspp", backbone),
+                       upsample_logits=not fused, fuse_upsample_loss=fused)
+    return model.to(env.device, memory_format=torch.channels_last)
+
+
+def build_eva_model(env, fused: bool) -> SegManaged:
+    """BASELINE config #5: ``eva02_large_patch16_512_coco`` + ASPP(256), 150
+    classes, ``fuse_upsample_loss`` as requested (above 64 classes the loss
+    is the unfused resize + CE)."""
+    backbone = get_backbone("eva02_large_patch16_512_coco")
+    model = SegManaged(num_class=E_CLASSES, backbone=backbone,
+                       head=train_seg_example.build_head("aspp", backbone),
+                       upsample_logits=not fused, fuse_upsample_loss=fused)
+    return model.to(env.device, memory_format=torch.channels_last)
+
+
+def phase_vit_train(env) -> tuple[dict, dict]:
+    """Phase 12.1: ViT-L + ASPP trained on a fixed batch; returns the launch
+    counts and the trained weights."""
+    log(f"-- 12.1: ViT-L/16 + ASPP(256), {V_CLASSES} classes, {HW}x{HW}, batch {V_BATCH}, bf16 "
+        "autocast, SGD poly, fused loss at os16")
+    data = synthetic_batch(env.device, V_BATCH, V_CLASSES)
+    model = build_vit_model(env, fused=True)
+    log(f"parameters: {sum(p.numel() for p in model.parameters()) / 1e6:.2f} M")
+    tx, _ = get_optimizer(param_tree(model), "sgd", learning_rate=0.01, train_steps=1000)
+    state = create_train_state(model, env.generator, tx)
+    step_fn = make_train_step(model.build_loss_fn(), compute_dtype=env.compute_dtype)
+    state, _, launches, step_ms = counted_train_steps(
+        state, step_fn, data, V_WARMUP, V_TIMED, V_BATCH,
+        {"upsample_ce_fwd": 1, "upsample_ce_bwd": 1}, "ViT-L train")
+    log(f"ViT-L train: {step_ms:.2f} ms/step, {V_BATCH * 1e3 / step_ms:.2f} img/s ({card_line()})")
+    profile_steps(state, step_fn, data, "ViT-L/16 + ASPP train step", step_ms)
+    trained = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    return launches, trained
+
+
+def eva_optimizer(model, backbone):
+    """AdamW (decoupled decay 0.05, BN/norm/bias/pos-embed leaves exempt
+    by the weight-decay mask) with the layerwise LR decay of the
+    reference's EVA hook: ``E_LAYER_DECAY ** (24 - (i + 1))`` for block i,
+    1.0 elsewhere."""
+    params = param_tree(model)
+    pattern = re.compile(backbone.layer_name_pattern)
+
+    def layer(path):
+        m = pattern.search(path)
+        return int(m.group(1)) + 1 if m else None
+
+    mults = layerwise_decay_multipliers(params, E_LAYER_DECAY, layer, backbone.depth)
+    last = f"block{backbone.depth - 1}"
+    log(f"layerwise LR multipliers: block0 {mults['backbone/block0/q_proj/kernel']:.6f}, "
+        f"{last} {mults[f'backbone/{last}/q_proj/kernel']:.6f}, patch_embed "
+        f"{mults['backbone/patch_embed/kernel']:.6f}, head {mults['logits_conv/kernel']:.6f}")
+    schedule = warmup_poly_decay(1e-4, 1000, warmup_steps=2)
+    return Adam(schedule, weight_decay=0.05, decay_mask=weight_decay_mask(params),
+                multipliers=mults)
+
+
+def phase_eva_train(env) -> tuple[dict, dict]:
+    """Phase 12.2: EVA02-L + ASPP trained on a fixed batch at 150 classes
+    (no fused-loss launch), then one step with patch dropout."""
+    log(f"-- 12.2: EVA02-L/16 (512 coco) + ASPP(256), {E_CLASSES} classes, {HW}x{HW}, batch "
+        f"{E_BATCH}, bf16 autocast, AdamW with layerwise decay {E_LAYER_DECAY}, "
+        "fuse_upsample_loss=True (above 64 classes: the unfused resize + CE)")
+    data = synthetic_batch(env.device, E_BATCH, E_CLASSES)
+    model = build_eva_model(env, fused=True)
+    backbone = model.backbone
+    log(f"parameters: {sum(p.numel() for p in model.parameters()) / 1e6:.2f} M")
+    state = create_train_state(model, env.generator, eva_optimizer(model, backbone))
+    step_fn = make_train_step(model.build_loss_fn(), compute_dtype=env.compute_dtype)
+    state, _, launches, step_ms = counted_train_steps(
+        state, step_fn, data, E_WARMUP, E_TIMED, E_BATCH, {}, "EVA02-L train")
+    log(f"EVA02-L train: {step_ms:.2f} ms/step, {E_BATCH * 1e3 / step_ms:.2f} img/s "
+        f"({card_line()})")
+    profile_steps(state, step_fn, data, "EVA02-L/16 + ASPP train step", step_ms)
+    trained = {k: v.detach().clone() for k, v in model.state_dict().items()}
+
+    backbone.patch_dropout.rate = E_PATCH_DROPOUT
+    kept = []
+    hook = backbone.patch_dropout.register_forward_hook(
+        lambda _m, _i, out: kept.append((out[0].shape[1], out[1] is not None)))
+    reset_launch_counts()
+    state, parts = step_fn(state, data)
+    loss = float(parts["loss"])
+    hook.remove()
+    backbone.patch_dropout.rate = 0.0
+    tokens = (HW // 16) ** 2
+    want = 1 + int(tokens * (1 - E_PATCH_DROPOUT))
+    log(f"patch dropout {E_PATCH_DROPOUT}: tokens through the blocks {kept} of {1 + tokens} "
+        f"(expected {want}), loss {loss:.6f}")
+    expect_launches("EVA02-L train with patch dropout", read_launch_counts(), {})
+    if kept != [(want, True)] or not np.isfinite(loss):
+        raise AssertionError("the patch-dropout step did not drop tokens or gave a non-finite loss")
+    return launches, trained
+
+
+def phase_transformer_serve(env, title, build_model, trained, classes) -> dict:
+    """Phase 12.3 for one model: ``SegBase.inference`` at batch 2, scales
+    (0.75, 1.0) + flip, after a warm-up; then one image's fp32 logits on the
+    card against the CPU port's."""
+    model = build_model(env, fused=False)
+    model.load_state_dict(trained)
+    image = torch.tensor(np.random.RandomState(2).rand(T_SERVE_BATCH, HW, HW, 3)
+                         .astype(np.float32), device=env.device)
+    config = SegModelInferenceConfig(scale_rates=T_SERVE_SCALES, flip=True)
+    calls = [0]
+    hook = model.register_forward_hook(lambda *_: calls.__setitem__(0, calls[0] + 1))
+
+    def serve():
+        with torch.autocast("cuda", dtype=env.compute_dtype):
+            out = model.inference(image, config)
+        torch.cuda.synchronize()
+        return out
+
+    logits = serve()  # warm-up: cuDNN autotuning of these shapes
+    warm_calls = calls[0]
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    times = []
+    for _ in range(T_SERVE_REPS):
+        t0 = time.perf_counter()
+        logits = serve()
+        times.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    expect_launches(f"{title} serve", read_launch_counts(), {})
+    hook.remove()
+    times.sort()
+    p50 = times[len(times) // 2]
+    log(f"{title} serve: {warm_calls} model calls a request of {T_SERVE_BATCH} images; p50 "
+        f"{1e3 * p50:.2f} ms, min {1e3 * times[0]:.2f}, max {1e3 * times[-1]:.2f} over "
+        f"{T_SERVE_REPS} calls after one warm-up (host clock, ending in a synchronize); peak "
+        f"memory {peak / 2**30:.2f} GiB ({peak} bytes) ({card_line()})")
+    expect_shape = (T_SERVE_BATCH, HW, HW, classes)
+    if tuple(logits.shape) != expect_shape or logits.dtype != torch.float32:
+        raise AssertionError(f"{title} served logits {tuple(logits.shape)} {logits.dtype}, "
+                             f"expected {expect_shape} float32")
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"{title} served logits are not finite")
+    if warm_calls != 2 * len(T_SERVE_SCALES):
+        raise AssertionError(f"{warm_calls} model calls, expected {2 * len(T_SERVE_SCALES)}")
+
+    if torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32:
+        raise AssertionError("the fp32 comparison needs TF32 off")
+    card = model.inference(image[:1])
+    torch.cuda.synchronize()
+    model.to("cpu")
+    t0 = time.perf_counter()
+    cpu = model.inference(image[:1].cpu())
+    cpu_s = time.perf_counter() - t0
+    err = float((card.cpu() - cpu).abs().max())
+    scale = float(cpu.abs().max())
+    log(f"{title} fp32 forward of one image, card (SDPA) vs the CPU port (plain attention, "
+        f"{cpu_s:.1f} s): max abs logit diff {err:.3e} vs max |logit| {scale:.3e} (tol "
+        f"{T_CARD_VS_CPU_RTOL:g} of it)")
+    if not err <= T_CARD_VS_CPU_RTOL * scale:
+        raise AssertionError(f"{title}: the card's fp32 logits disagree with the CPU port's")
+    return {"p50_s": p50, "min_s": times[0], "max_s": times[-1]}
+
+
+def phase_transformers(env) -> dict[str, dict]:
+    """Phase 12: the global-attention transformers of BASELINE configs #4 and #5."""
+    log("== phase 12: ViT-L + ASPP and EVA02-L + ASPP (BASELINE configs #4 and #5): train "
+        "and serve")
+    t_phase = time.perf_counter()
+    paths = {}
+    paths["vit_train"], vit_trained = phase_vit_train(env)
+    torch.cuda.empty_cache()
+    log(f"(12.1 done at {time.perf_counter() - t_phase:.1f} s)")
+    paths["eva_train"], eva_trained = phase_eva_train(env)
+    torch.cuda.empty_cache()
+    log(f"(12.2 done at {time.perf_counter() - t_phase:.1f} s)")
+    log("-- 12.3: serve, batch 2, scales (0.75, 1.0) + flip, bf16 autocast, trained weights")
+    serve = {}
+    for path, title, build_model, trained, classes in (
+            ("vit_serve", "ViT-L", build_vit_model, vit_trained, V_CLASSES),
+            ("eva_serve", "EVA02-L", build_eva_model, eva_trained, E_CLASSES)):
+        reset_launch_counts()
+        serve[title] = phase_transformer_serve(env, title, build_model, trained, classes)
+        paths[path] = read_launch_counts()
+        torch.cuda.empty_cache()
+    for title, row in serve.items():
+        log(json.dumps({"metric": f"{title.lower().replace('-', '_')}_aspp_serve_512x512_b2_"
+                                  "ms075_1_flip", "value": round(1e3 * row["p50_s"], 2),
+                        "unit": "p50_ms", "reps": T_SERVE_REPS,
+                        "min": round(1e3 * row["min_s"], 2), "max": round(1e3 * row["max_s"], 2)}))
+    log(f"phase 12 took {time.perf_counter() - t_phase:.1f} s ({card_line()})")
+    return paths
+
+
 # ------------------------------------------------------- two trees (--ab)
 
 def step_loss_ms(path: str, prof: dict) -> dict:
@@ -3411,6 +3664,9 @@ def main(argv: list[str]) -> int:
     torch.cuda.empty_cache()
 
     paths.update(phase_hrnet(env, profile))
+    torch.cuda.empty_cache()
+
+    paths.update(phase_transformers(env))
 
     # the bf16 window-attention entries count two routes each (tensor cores and
     # CUDA cores), each with its count; the split-TF32 entries one
@@ -3434,6 +3690,10 @@ def main(argv: list[str]) -> int:
                "hrnet_train": loss_kernels,
                "hrnet_accum": loss_kernels,
                "hrnet_train_seg": loss_kernels,
+               "vit_train": loss_kernels,
+               "eva_train": (),  # 150 classes: the unfused loss (asserted 0 launches)
+               "vit_serve": (),
+               "eva_serve": (),
                "swin_train": loss_kernels + ("window_attention_fwd_mma",
                                              "window_attention_bwd_mma"),
                "swin_serve": ("window_attention_fwd_mma",),

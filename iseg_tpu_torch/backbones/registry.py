@@ -1,6 +1,6 @@
 """Backbone name registry + dispatch (counterpart of
 ``iseg_tpu/backbones/registry.py``). The ResNet, Swin, InternImage,
-MobileNetV2 and HRNet families are ported."""
+MobileNetV2, HRNet, ViT and EVA02 families are ported."""
 
 from __future__ import annotations
 
@@ -8,7 +8,7 @@ from typing import Callable, Optional
 
 _REGISTRY: dict[str, Callable] = {}
 
-_BUILTIN_MODULES = ("resnet", "swin", "intern_image", "mobilenetv2", "hrnet")
+_BUILTIN_MODULES = ("resnet", "swin", "intern_image", "mobilenetv2", "hrnet", "vit", "eva")
 
 
 def register_backbone(name: str, constructor: Optional[Callable] = None):

@@ -24,6 +24,11 @@ module                flax leaf (layout)               torch tensor (layout)
                       when ``layer_scale`` is None)
 ``DCNv2``             params ``kernel``                the parameters of those names
                       ``[K*K*C, filters]``, ``bias``
+``Eva``, ViT          params ``pos_embed``             the parameters of those names
+                      ``[1, prefix + grid², C]``,      (bare parameters of the
+                      ``cls_token`` ``[1, 1, C]``      backbone; the SAM ViTs have
+                                                       no class token)
+``SelfAttention2D``   params ``gamma`` ``[]``          the parameter of that name
 ``QuantDense``        params ``kernel``                ``weight`` ``[prod(features),
                       ``(*contract, *features)``       prod(contract)]`` (reshape +
                                                        transpose)
@@ -55,9 +60,12 @@ import numpy as np
 import torch
 from torch import nn
 
+from iseg_tpu_torch.backbones.eva import Eva
 from iseg_tpu_torch.backbones.intern_image import InternImageBlock
 from iseg_tpu_torch.backbones.swin import WindowAttention
+from iseg_tpu_torch.backbones.vit import VisionTransformer
 from iseg_tpu_torch.nlp.gemma.causal_lm import GemmaCausalLM
+from iseg_tpu_torch.nn.attention import SelfAttention2D
 from iseg_tpu_torch.nn.dcn import DCNv2
 from iseg_tpu_torch.nn.norm import BatchNorm, RMSNorm
 from iseg_tpu_torch.ops.quant import QuantDense, QuantEmbed
@@ -124,7 +132,7 @@ def _leaves(model: nn.Module) -> Iterator[_Leaf]:
         elif isinstance(m, WindowAttention):
             yield ("params", prefix + "relative_position_bias_table",
                    m.relative_position_bias_table, _same, _same)
-        elif isinstance(m, (InternImageBlock, DCNv2)):
+        elif isinstance(m, (InternImageBlock, DCNv2, VisionTransformer, Eva, SelfAttention2D)):
             # bare parameters of the module itself, named as in the flax tree
             for leaf, param in m.named_parameters(recurse=False):
                 yield "params", prefix + leaf, param, _same, _same

@@ -1,1 +1,1 @@
-"""Layers: conv blocks, normalization, reusable blocks, heads (NCHW)."""
+"""Layers: conv blocks, normalization, reusable blocks, heads (NCHW); attention (NHWC)."""

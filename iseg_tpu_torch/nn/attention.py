@@ -1,0 +1,216 @@
+"""Attention layers over 2-D feature maps (counterpart of
+``iseg_tpu/nn/attention.py``).
+
+The modules take and return NHWC maps ``[N, H, W, C]``, as the JAX ones do:
+they work on tokens, with their projections over the last axis.
+
+Global attention is no Pallas kernel in the JAX package
+(``jax.nn.dot_product_attention``, XLA), so on the card
+:func:`dot_product_attention` is ``F.scaled_dot_product_attention``; on the
+CPU it is its plain version, :func:`dot_product_attention_reference`
+(einsum products, softmax in ``promote_types(dtype, float32)``), which the
+tests hold against the JAX package. Where the JAX package casts to fp32
+(softmax, attention logits, sampling offsets), the port casts to
+``promote_types(dtype, float32)``: the same for bf16 and fp32, float64 kept
+for float64.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from iseg_tpu_torch.nn.conv import Conv2d
+from iseg_tpu_torch.nn.dcn import _zero_init
+from iseg_tpu_torch.ops.deform import bilinear_gather
+from iseg_tpu_torch.ops.numerics import replace_non_finite
+
+
+def _compute_dtype(dtype: torch.dtype) -> torch.dtype:
+    return torch.promote_types(dtype, torch.float32)
+
+
+def flatten_hw(x: torch.Tensor) -> torch.Tensor:
+    """[N, H, W, C] -> [N, H*W, C]."""
+    return x.reshape(x.shape[0], -1, x.shape[-1])
+
+
+def get_attention(query: torch.Tensor, key: torch.Tensor, apply_scale: bool = False,
+                  numeric_stable: bool = False) -> torch.Tensor:
+    """Attention matrix ``softmax(Q Kᵀ)`` of ``[B, I, C]`` and ``[B, J, C]``
+    (optionally scaled by 1/sqrt(C)); ``numeric_stable`` takes it in
+    ``promote_types(dtype, float32)`` and casts back."""
+    orig_dtype = query.dtype
+    if numeric_stable:
+        query = query.to(_compute_dtype(orig_dtype))
+        key = key.to(query.dtype)
+    logits = torch.einsum("bic,bjc->bij", query, key)
+    if apply_scale:
+        logits = logits / math.sqrt(query.shape[-1])
+    attn = torch.softmax(logits, dim=-1)
+    return attn.to(orig_dtype) if numeric_stable else attn
+
+
+def dot_product_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                    mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain global attention, ``jax.nn.dot_product_attention``'s XLA path:
+    ``[B, T, H, D]`` q and ``[B, S, H, D]`` k, v; logits and softmax in
+    ``promote_types(dtype, float32)``; ``mask`` a boolean broadcastable to
+    ``[B, H, T, S]`` (False: the logit becomes -0.7 of the type's max, so a
+    fully masked row attends uniformly)."""
+    ct = _compute_dtype(q.dtype)
+    logits = torch.einsum("bthd,bshd->bhts", q.to(ct), k.to(ct)) / math.sqrt(q.shape[-1])
+    if mask is not None:
+        logits = logits.masked_fill(~mask, -0.7 * torch.finfo(ct).max)
+    probs = torch.softmax(logits, dim=-1).to(v.dtype)
+    return torch.einsum("bhts,bshd->bthd", probs, v)
+
+
+def sdpa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """:func:`dot_product_attention_reference` by one
+    ``F.scaled_dot_product_attention`` call (the boolean mask as the same
+    additive -0.7 of the type's max)."""
+    if mask is not None:
+        mask = torch.zeros(mask.shape, dtype=q.dtype, device=q.device).masked_fill(
+            ~mask, -0.7 * torch.finfo(q.dtype).max)
+    out = F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                         v.transpose(1, 2), attn_mask=mask)
+    return out.transpose(1, 2)
+
+
+def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          mask: Optional[torch.Tensor] = None,
+                          guard_numerics: bool = False) -> torch.Tensor:
+    """``[B, N, H, D]`` q, k, v -> ``[B, N, H, D]``: :func:`sdpa_attention`
+    on the card, :func:`dot_product_attention_reference` on the CPU;
+    ``guard_numerics`` replaces non-finite outputs."""
+    attend = sdpa_attention if q.is_cuda else dot_product_attention_reference
+    out = attend(q, k, v, mask)
+    return replace_non_finite(out) if guard_numerics else out
+
+
+class MultiHeadSelfAttention2D(nn.Module):
+    """MHSA over an NHWC map: flatten HW -> attention -> restore.
+    ``in_channels`` is the map's width; ``filters`` the inner width
+    (default ``in_channels``), ``out_filters`` the output's."""
+
+    def __init__(self, in_channels: int, num_heads: int = 8, filters: Optional[int] = None,
+                 out_filters: Optional[int] = None, use_bias: bool = True,
+                 guard_numerics: bool = False):
+        super().__init__()
+        inner = filters or in_channels
+        if inner % num_heads:
+            raise ValueError(f"filters {inner} not divisible by heads {num_heads}")
+        self.num_heads, self.inner, self.guard_numerics = num_heads, inner, guard_numerics
+        self.out_channels = out_filters or in_channels
+        self.qkv = nn.Linear(in_channels, 3 * inner, bias=use_bias)
+        self.proj = nn.Linear(inner, self.out_channels, bias=use_bias)
+
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        n, h, w, c = x.shape
+        q, k, v = self.qkv(x.reshape(n, h * w, c)).view(
+            n, h * w, 3, self.num_heads, self.inner // self.num_heads).unbind(2)
+        out = dot_product_attention(q, k, v, mask=mask, guard_numerics=self.guard_numerics)
+        return self.proj(out.reshape(n, h * w, self.inner)).reshape(n, h, w, self.out_channels)
+
+
+class MultiHeadAxialAttention2D(nn.Module):
+    """Axial attention: along H (each column a sequence), then along W
+    (each row), each added to the map."""
+
+    def __init__(self, in_channels: int, num_heads: int = 8, filters: Optional[int] = None,
+                 guard_numerics: bool = False):
+        super().__init__()
+        inner = filters or in_channels
+        if inner % num_heads:
+            raise ValueError(f"filters {inner} not divisible by heads {num_heads}")
+        self.num_heads, self.inner, self.guard_numerics = num_heads, inner, guard_numerics
+        self.out_channels = in_channels
+        for axis in ("h_axis", "w_axis"):
+            self.add_module(f"{axis}_qkv", nn.Linear(in_channels, 3 * inner))
+            self.add_module(f"{axis}_proj", nn.Linear(inner, in_channels))
+
+    def _axial(self, seq: torch.Tensor, axis: str) -> torch.Tensor:
+        b, l, _ = seq.shape
+        q, k, v = self._modules[f"{axis}_qkv"](seq).view(
+            b, l, 3, self.num_heads, self.inner // self.num_heads).unbind(2)
+        out = dot_product_attention(q, k, v, guard_numerics=self.guard_numerics)
+        return self._modules[f"{axis}_proj"](out.reshape(b, l, self.inner))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        n, h, w, c = x.shape
+        xh = self._axial(x.transpose(1, 2).reshape(n * w, h, c), "h_axis")
+        x = x + xh.reshape(n, w, h, c).transpose(1, 2)
+        xw = self._axial(x.reshape(n * h, w, c), "w_axis")
+        return x + xw.reshape(n, h, w, c)
+
+
+class DeformableMultiHeadAttention2D(nn.Module):
+    """Deformable-DETR-style sampled attention: each query predicts
+    ``num_points`` sampling offsets and softmax weights per head; the
+    values are sampled bilinearly there (:func:`bilinear_gather`, heads
+    folded into the batch) and weight-summed, then projected and added to
+    the map. The offset and weight layers start at zero."""
+
+    def __init__(self, in_channels: int, num_heads: int = 8, num_points: int = 4,
+                 filters: Optional[int] = None, offset_scale: float = 1.0):
+        super().__init__()
+        inner = filters or in_channels
+        if inner % num_heads:
+            raise ValueError(f"filters {inner} not divisible by heads {num_heads}")
+        self.num_heads, self.num_points, self.inner = num_heads, num_points, inner
+        self.offset_scale = offset_scale
+        self.out_channels = in_channels
+        self.value = nn.Linear(in_channels, inner)
+        self.offsets = _zero_init(nn.Linear(in_channels, num_heads * num_points * 2))
+        self.weights = _zero_init(nn.Linear(in_channels, num_heads * num_points))
+        self.proj = nn.Linear(inner, in_channels)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        n, h, w, c = x.shape
+        g, p, d = self.num_heads, self.num_points, self.inner // self.num_heads
+        ct = _compute_dtype(x.dtype)
+        value = self.value(x)
+        weights = torch.softmax(self.weights(x).reshape(n, h, w, g, p).to(ct), dim=-1)
+        weights = weights.to(value.dtype)
+        offsets = self.offsets(x).reshape(n, h, w, g, p, 2).to(ct) * self.offset_scale
+        gy, gx = torch.meshgrid(torch.arange(h, dtype=ct, device=x.device),
+                                torch.arange(w, dtype=ct, device=x.device), indexing="ij")
+        coords = torch.stack([gy, gx], -1)[None, :, :, None, None, :] + offsets
+        vg = value.reshape(n, h, w, g, d).permute(0, 3, 1, 2, 4).reshape(n * g, h, w, d)
+        coords = coords.permute(0, 3, 1, 2, 4, 5).reshape(n * g, h * w * p, 2)
+        sampled = bilinear_gather(vg, coords).reshape(n, g, h, w, p, d)
+        out = torch.einsum("nghwpd,nhwgp->nhwgd", sampled, weights).reshape(n, h, w, g * d)
+        return x + self.proj(out)
+
+
+class SelfAttention2D(nn.Module):
+    """Single-head non-local self-attention with 1x1 conv projections
+    (``filters`` defaults to ``max(1, C // 8)``) and a learned scalar gate
+    ``gamma`` that starts at zero."""
+
+    def __init__(self, in_channels: int, filters: Optional[int] = None):
+        super().__init__()
+        inner = filters or max(1, in_channels // 8)
+        self.inner = inner
+        self.out_channels = in_channels
+        self.q = Conv2d(in_channels, inner, 1, bias=True)
+        self.k = Conv2d(in_channels, inner, 1, bias=True)
+        self.v = Conv2d(in_channels, in_channels, 1, bias=True)
+        self.gamma = nn.Parameter(torch.zeros(()))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        n, h, w, c = x.shape
+        xc = x.permute(0, 3, 1, 2)
+        q = self.q(xc).permute(0, 2, 3, 1).reshape(n, h * w, self.inner)
+        k = self.k(xc).permute(0, 2, 3, 1).reshape(n, h * w, self.inner)
+        v = self.v(xc).permute(0, 2, 3, 1).reshape(n, h * w, c)
+        logits = torch.einsum("bic,bjc->bij", q, k).to(_compute_dtype(x.dtype))
+        attn = torch.softmax(logits / math.sqrt(self.inner), dim=-1).to(x.dtype)
+        out = torch.einsum("bij,bjc->bic", attn, v).reshape(n, h, w, c)
+        return x + self.gamma * out

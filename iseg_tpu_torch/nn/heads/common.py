@@ -38,10 +38,12 @@ def select_pyramid_levels(channels, strides, n: int) -> list[int]:
     channels, strides = list(channels), list(strides)
     if len(channels) != len(strides):
         raise ValueError(f"{len(channels)} endpoint widths but {len(strides)} strides")
-    if len(channels) < n:
+    # an endpoint without a stride (EVA's class token) is no map
+    spatial = [(ch, s) for ch, s in zip(channels, strides) if s is not None]
+    if len(spatial) < n:
         return channels[-n:]
     by_stride: dict = {}
-    for ch, s in zip(channels, strides):  # the last one at a resolution wins
+    for ch, s in spatial:  # the last one at a resolution wins
         by_stride[s] = ch
     if len(by_stride) < n:
         return channels[-n:]

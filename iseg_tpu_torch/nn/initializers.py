@@ -4,7 +4,9 @@ flax's ``nn.Conv``/``nn.Dense`` draw their kernel from ``lecun_normal``
 (variance scaling 1.0, fan-in, truncated normal at two standard
 deviations) and start their bias at zero; flax's BatchNorm starts at
 scale 1, bias 0, mean 0, var 1, its LayerNorm at scale 1, bias 0; Swin's
-relative-position-bias table is normal with std 0.02; DCN's offset and
+relative-position-bias table and the ViT and EVA positional embeddings
+are normal with std 0.02, their class tokens and ``SelfAttention2D``'s
+gate start at zero; DCN's offset and
 modulation layers start at zero (a deformable conv starts as a plain one)
 and InternImage's layer-scale vectors at their ``layer_scale``. Gemma's
 ``QuantDense`` kernels are ``lecun_normal`` too, its embedding table is
@@ -27,8 +29,11 @@ import math
 import torch
 from torch import nn
 
+from iseg_tpu_torch.backbones.eva import Eva
 from iseg_tpu_torch.backbones.intern_image import InternImageBlock
 from iseg_tpu_torch.backbones.swin import WindowAttention
+from iseg_tpu_torch.backbones.vit import VisionTransformer
+from iseg_tpu_torch.nn.attention import SelfAttention2D
 from iseg_tpu_torch.nn.dcn import DCNv2
 from iseg_tpu_torch.nn.norm import BatchNorm, RMSNorm
 from iseg_tpu_torch.ops.quant import QuantDense, QuantEmbed
@@ -78,6 +83,13 @@ def initialize(module: nn.Module, generator: torch.Generator) -> nn.Module:
             table = m.relative_position_bias_table
             table.copy_(torch.empty(table.shape, device=generator.device)
                         .normal_(0.0, 0.02, generator=generator))
+        elif isinstance(m, (VisionTransformer, Eva)):
+            m.pos_embed.copy_(torch.empty(m.pos_embed.shape, device=generator.device)
+                              .normal_(0.0, 0.02, generator=generator))
+            if m.cls_token is not None:
+                m.cls_token.zero_()
+        elif isinstance(m, SelfAttention2D):
+            m.gamma.zero_()
         elif isinstance(m, InternImageBlock):
             if m.layer_scale is not None:
                 m.gamma1.fill_(m.layer_scale)

@@ -1,8 +1,14 @@
-"""Image resizing (counterpart of ``iseg_tpu/ops/resize.py``).
+"""Image resizing and positional-embedding resampling (counterpart of
+``iseg_tpu/ops/resize.py``).
 
 NHWC (or HWC) at the boundary, like the JAX package. Bilinear is
 half-pixel ``F.interpolate(align_corners=False, antialias=False)``, which
-is ``jax.image.resize(..., "linear", antialias=False)``. Integer maps and
+is ``jax.image.resize(..., "linear", antialias=False)``. Bicubic is
+``jax.image.resize(..., "bicubic", antialias=False)`` by interpolation
+matrices (:func:`_cubic_matrix`): JAX's cubic is Keys' with a = -0.5 where
+``F.interpolate``'s is a = -0.75, and JAX drops the taps that fall outside
+the input and renormalizes the rest where torch clamps them to the border,
+so no torch resize computes it. Integer maps and
 ``method="nearest"`` sample at half-pixel centres like
 ``jax.image.resize(..., "nearest")``, i.e. torch's ``"nearest-exact"`` and
 not ``"nearest"``; the indices are computed here in float32 exactly as
@@ -62,6 +68,52 @@ def _linear_matrix(out_len: int, in_len: int, align_corners: bool, dtype: torch.
     return torch.tensor(m, dtype=dtype, device=device)
 
 
+def _keys_cubic(x: np.ndarray) -> np.ndarray:
+    """Keys' cubic convolution kernel with a = -0.5 at distances ``x`` >= 0
+    (``jax.image``'s ``_fill_keys_cubic_kernel``)."""
+    near = ((1.5 * x - 2.5) * x) * x + 1.0
+    far = ((-0.5 * x + 2.5) * x - 4.0) * x + 2.0
+    return np.where(x >= 2.0, 0.0, np.where(x >= 1.0, far, near))
+
+
+@functools.lru_cache(maxsize=256)
+def _cubic_matrix(out_len: int, in_len: int, dtype: torch.dtype,
+                  device: torch.device) -> torch.Tensor:
+    """``[out, in]`` weights of ``jax.image.scale_and_translate``'s bicubic
+    resize without antialias: half-pixel sample points, the kernel at the
+    input positions only (taps outside ``[0, in)`` are dropped), each row
+    renormalized to sum 1 (0 where its sum is within 1000 fp32 epsilons of
+    0), and 0 for a sample point outside the input."""
+    src = (np.arange(out_len, dtype=np.float64) + 0.5) * in_len / out_len - 0.5
+    m = _keys_cubic(np.abs(src[:, None] - np.arange(in_len, dtype=np.float64)[None, :]))
+    total = m.sum(axis=1, keepdims=True)
+    m = np.where(np.abs(total) > 1000.0 * np.finfo(np.float32).eps,
+                 m / np.where(total != 0, total, 1.0), 0.0)
+    inside = (src >= -0.5) & (src <= in_len - 0.5)
+    return torch.tensor(np.where(inside[:, None], m, 0.0), dtype=dtype, device=device)
+
+
+def _resize_matmul(x: torch.Tensor, mh: torch.Tensor, mw: torch.Tensor) -> torch.Tensor:
+    """NHWC ``x`` resized by ``[h, in_h]`` and ``[w, in_w]`` interpolation
+    matrices, one product per axis."""
+    n, in_h, in_w, c = x.shape
+    h, w = mh.shape[0], mw.shape[0]
+    y = torch.matmul(mh, x.reshape(n, in_h, in_w * c)).reshape(n * h, in_w, c)
+    return torch.matmul(mw, y).reshape(n, h, w, c)
+
+
+def resize_bicubic_matmul(x: torch.Tensor, size: Sequence[int] | int) -> torch.Tensor:
+    """``jax.image.resize(x, ..., "bicubic", antialias=False)`` of an NHWC
+    tensor, by :func:`_cubic_matrix` on each axis, in ``x``'s type (its
+    backward is two more products, summed in a fixed order)."""
+    h, w = _normalize_size(size)
+    _, in_h, in_w, _ = x.shape
+    if (in_h, in_w) == (h, w):
+        return x
+    return _resize_matmul(x, _cubic_matrix(h, in_h, x.dtype, x.device),
+                          _cubic_matrix(w, in_w, x.dtype, x.device))
+
+
 def resize_bilinear_matmul(x: torch.Tensor, size: Sequence[int] | int,
                            align_corners: bool) -> torch.Tensor:
     """Bilinear NHWC resize as two products with interpolation matrices,
@@ -71,13 +123,11 @@ def resize_bilinear_matmul(x: torch.Tensor, size: Sequence[int] | int,
     through it is not repeatable bit for bit. For a channels_last NCHW
     tensor's NHWC view both products take their operands without a copy."""
     h, w = _normalize_size(size)
-    n, in_h, in_w, c = x.shape
+    _, in_h, in_w, _ = x.shape
     if (in_h, in_w) == (h, w):
         return x
-    mh = _linear_matrix(h, in_h, align_corners, x.dtype, x.device)
-    mw = _linear_matrix(w, in_w, align_corners, x.dtype, x.device)
-    y = torch.matmul(mh, x.reshape(n, in_h, in_w * c)).reshape(n * h, in_w, c)
-    return torch.matmul(mw, y).reshape(n, h, w, c)
+    return _resize_matmul(x, _linear_matrix(h, in_h, align_corners, x.dtype, x.device),
+                          _linear_matrix(w, in_w, align_corners, x.dtype, x.device))
 
 
 def resize_bilinear_align_corners(x: torch.Tensor, size: Sequence[int] | int) -> torch.Tensor:
@@ -102,8 +152,9 @@ def resize_image(
     antialias: bool = False,
     align_corners: bool = False,
 ) -> torch.Tensor:
-    """Resize NHWC (or HWC) images to ``size=(H, W)``: bilinear for float
-    tensors, nearest for integer label maps."""
+    """Resize NHWC (or HWC) images to ``size=(H, W)``: bilinear (or
+    ``method="bicubic"``) for float tensors, nearest for integer label
+    maps."""
     h, w = _normalize_size(size)
     squeeze = x.ndim == 3
     if squeeze:
@@ -113,10 +164,12 @@ def resize_image(
 
     if not torch.is_floating_point(x) or method == "nearest":
         out = _resize_nearest(x, h, w)
-    elif method != "bilinear":
+    elif method not in ("bilinear", "bicubic"):
         raise NotImplementedError(f"resize method {method!r} is not ported yet")
     elif antialias:
         raise NotImplementedError("antialiased resize is not ported yet")
+    elif method == "bicubic":
+        out = resize_bicubic_matmul(x, (h, w))
     elif align_corners:
         out = resize_bilinear_align_corners(x, (h, w))
     elif x.shape[1:3] == (h, w):
@@ -130,3 +183,36 @@ def resize_image(
 def scaled_size(height: int, width: int, scale: float) -> tuple[int, int]:
     """Scale a (H, W) pair: round-half-up per dimension, min 1."""
     return (max(1, int(height * scale + 0.5)), max(1, int(width * scale + 0.5)))
+
+
+def resample_abs_pos_embed(
+    pos_embed: torch.Tensor,
+    new_hw: tuple[int, int],
+    old_hw: tuple[int, int] | None = None,
+    num_prefix_tokens: int = 1,
+) -> torch.Tensor:
+    """Resample a ``[1, N(+prefix), C]`` absolute positional embedding to
+    a ``new_hw`` grid by the bicubic resize above, so ViT-family backbones
+    take any input size; the prefix tokens (the class token) pass through.
+    ``old_hw`` None infers a square grid. The resize runs in
+    ``promote_types(dtype, float32)`` with autocast off and casts back (the
+    JAX package resizes in fp32, also for float64 input)."""
+    if pos_embed.ndim != 3:
+        raise ValueError(f"pos_embed must be [1, N, C], got {tuple(pos_embed.shape)}")
+    grid = pos_embed[:, num_prefix_tokens:]
+    n = grid.shape[1]
+    if old_hw is None:
+        side = int(round(n ** 0.5))
+        if side * side != n:
+            raise ValueError(f"cannot infer square grid from {n} tokens")
+        old_hw = (side, side)
+    if tuple(old_hw) == tuple(new_hw):
+        return pos_embed
+    (oh, ow), (nh, nw), c = old_hw, new_hw, grid.shape[-1]
+    compute = torch.promote_types(grid.dtype, torch.float32)
+    with torch.autocast(grid.device.type, enabled=False):
+        grid = resize_bicubic_matmul(grid.to(compute).reshape(1, oh, ow, c), (nh, nw))
+    grid = grid.reshape(1, nh * nw, c).to(pos_embed.dtype)
+    if num_prefix_tokens:
+        grid = torch.cat([pos_embed[:, :num_prefix_tokens], grid], dim=1)
+    return grid
