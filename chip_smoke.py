@@ -32,6 +32,11 @@ scripts: phase 5c):
 * ViT-L: BASELINE config #4's ``vit_large_patch16`` (24 blocks, width 1024,
   16 heads, 1025 tokens at 512x512, the pos-embed resampled 24 -> 32) +
   ASPP(256), 19 classes, batch 8, its logits at the patch's os16 (phase 12);
+* ConvNeXt-L + FaPN: ``convnext_large`` (os32, drop-path rate 0.4) +
+  ``FAPN()``, 19 classes, Cityscapes' 512x1024 crops, batch 8, its logits at
+  os4, and its 1024x2048 sliding-window eval (phase 13, with one train step
+  each of Xception-65, EfficientNet-B7 + NAS-FPN, MOAT-4, MLP-Mixer-L/16
+  and ConvNeXt-V2-L);
 
 all under bf16 autocast with fp32 params, SGD (momentum 0.9, poly decay),
 the loss taken by the fused upsample + CE CUDA kernels, Swin's window
@@ -70,8 +75,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    forward, dense-local backward and upsample + CE row). Upsample + CE at
    [16,32,32,21] -> [16,512,512], [8,128,128,19] -> [8,512,512],
    [8,16,16,19] -> [8,512,512], [8,128,128,21] -> [8,512,512], [8,64,64,19] -> [8,512,512]
-   (HRNet + JPU) and [8,32,32,19] -> [8,512,512] (ViT-L), with the forward's two kernels' and the
-   backward kernel's own device time (``kernel_device_ms``) and the unfused pair ``F.interpolate`` +
+   (HRNet + JPU), [8,32,32,19] -> [8,512,512] (ViT-L), [8,128,256,19] -> [8,512,1024]
+   (ConvNeXt-L + FaPN) and [16,32,32,21] -> [16,512,512] again (Xception-65 + ASPP),
+   with the forward's two kernels' and the backward kernel's own device time (``kernel_device_ms``) and the unfused pair ``F.interpolate`` +
    ``F.cross_entropy`` timed beside it (``library_pair_ms``: two calls, so
    ``library_ms`` stays null), and fused against unfused printed at each
    shape; window attention forward and backward at Swin-L's four stage
@@ -233,7 +239,28 @@ Phases, in order; any failure raises and the script exits non-zero:
     ``bench.py``'s JSON schema), 4 model calls a request, finite fp32
     [2,512,512,C] logits, no kernel launched; then one image's fp32 logits
     on the card (SDPA) within 1e-3 of max |logit| of the CPU port's (the
-    plain attention) with the same weights.
+    plain attention) with the same weights;
+13. the rest of the backbone zoo and heads: (1) ConvNeXt-L (output stride
+    32, drop-path rate 0.4) + ``FAPN()`` (filters 128, the coarsest level
+    raw; DCNv2 alignment), 19 classes, Cityscapes' 512x1024 crops, batch 8,
+    SGD poly, 2 warm-up + 5 timed steps with exactly 1 + 1 loss-kernel
+    launches in every step (logits at os4: ``[8,128,256,19]`` ->
+    ``[8,512,1024]``), ms/step, img/s, peak memory, then 3 profiled steps
+    (device ms by kernel class, top kernels, busy share); (2) its Cityscapes
+    eval with (1)'s weights: one 1024x2048 image through 512x1024 windows at
+    stride 2/3 (9 model calls), bf16, one warm-up then 5 timed calls: p50 /
+    min / max seconds (host clock) in ``bench.py``'s JSON schema
+    (``convnext_l_fapn_sliding_window_1024x2048_eval``), peak memory, finite
+    fp32 [1,1024,2048,19] logits, no kernel launched; (3) one 256x512 image's
+    fp32 logits on the card (TF32 off) within 1e-5 of max |logit| of the CPU
+    port's, (1)'s weights; (4) Xception-65 (os16) + ASPP(256), 21 classes,
+    512x512, batch 16 (DeepLabV3 on VOC): 1 warm-up + 3 timed steps, 1 + 1
+    launches each; (5) one warm-up and one timed step at 512x512, batch 2,
+    19 classes, each: EfficientNet-B7 (os32) + NAS-FPN(256), MOAT-4 + ASPP,
+    MLP-Mixer-L/16 (built for 512x512) + ASPP, ConvNeXt-V2-L (os32) +
+    SemanticFPN: wall ms, peak memory, finite losses, 1 + 1 launches a step.
+    (4) and (5) take cuDNN's heuristic conv algorithms (no autotuning:
+    their few steps would spend most of their time timing algorithms).
 
 ``--ab OLD`` runs none of the phases. OLD is another checkout of the repo
 (for example the parent commit's ``git archive`` unpacked into the
@@ -262,8 +289,8 @@ The launch counters are set to 0 just before each main path (3, 5b's
 uninterrupted run, 5c's fixed-batch steps, its two train_seg runs together
 and its OHEM run, 6, 6b, 7, 8, 9, each request of 10, 11.1, each micro-step
 of 11.2, its resumed run, 11.3 and 11.4, 12.1 and 12.2 (and each of their
-steps), the patch-dropout step and each serve of 12.3) and read just
-after; a kernel of a path that was
+steps), the patch-dropout step and each serve of 12.3, 13.1, 13.2, 13.4 and
+each model of 13.5, and each of their train steps) and read just after; a kernel of a path that was
 launched no time there fails the run. Third line from the end: a JSON object with one entry per kernel;
 then the card's name and power limit; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -271,6 +298,7 @@ then the card's name and power limit; the last line is
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import json
 import math
@@ -298,6 +326,7 @@ from iseg_tpu_torch.convert import batch_stats_tree, param_tree
 from iseg_tpu_torch.core.checkpoint import ModelHelper
 from iseg_tpu_torch.core.env import EnvConfig, common_env_setup
 from iseg_tpu_torch.core.evaluation import bucket_padder, evaluate, make_eval_step
+from iseg_tpu_torch.core.inference import sliding_window_plan
 from iseg_tpu_torch.core.model import SegManaged, SegModelInferenceConfig
 from iseg_tpu_torch.core.optimizer import (Adam, get_optimizer, layerwise_decay_multipliers,
                                            warmup_poly_decay, weight_decay_mask,
@@ -398,12 +427,40 @@ E_LAYER_DECAY, E_PATCH_DROPOUT = 0.9, 0.25
 # 12.3: both models served at batch 2, scales (0.75, 1.0) + flip (384 and 512 are
 # multiples of the patch), one warm-up and 7 timed calls
 T_SERVE_BATCH, T_SERVE_SCALES, T_SERVE_REPS = 2, (0.75, 1.0), 7
+# ConvNeXt-L + FaPN path (phase 13.1-13.3): Cityscapes' 512x1024 crops, batch 8,
+# 19 classes, logits at FaPN's os4; the eval's one 1024x2048 image through
+# 512x1024 windows (stride 2/3: 3 x 3 windows), 5 timed calls after a warm-up;
+# the card against the CPU port on one 256x512 image in fp32
+C_BATCH, C_CLASSES, C_HW, C_DROP_PATH = 8, 19, (512, 1024), 0.4
+C_WARMUP, C_TIMED = 2, 5
+C_SLIDE_HW, C_SLIDE_WINDOW, C_SLIDE_REPS = (1024, 2048), (512, 1024), 5
+C_CPU_HW = (256, 512)
+# Xception path (phase 13.4): DeepLabV3 on VOC, batch 16, 21 classes, os16
+X_BATCH, X_CLASSES, X_WARMUP, X_TIMED = 16, 21, 1, 3
+# phase 13.5: one full-width train step each at 512x512, batch 2, 19 classes;
+# (path, title, backbone, head, backbone kwargs)
+Z_BATCH, Z_CLASSES = 2, 19
+Z_MODELS = (
+    ("efficientnet_nasfpn_train", "EfficientNet-B7 (os32) + NAS-FPN(256)", "efficientnetb7",
+     "nasfpn", dict(output_stride=32)),
+    ("moat_train", "MOAT-4 + ASPP(256)", "moat4", "aspp", {}),
+    ("mixer_train", "MLP-Mixer-L/16 (built for 512x512) + ASPP(256)", "mlp_mixer_l16", "aspp",
+     dict(input_size=HW)),
+    ("convnext_v2_fpn_train", "ConvNeXt-V2-L (os32) + SemanticFPN(256)", "convnext_v2_large",
+     "fpn", dict(output_stride=32)),
+)
 # the loss kernels' shapes on the six paths: (path, batch, logit side, classes)
 UCE_SHAPES = (("resnet", R_BATCH, HW // R_OS, R_CLASSES), ("swin", S_BATCH, HW // S_OS, S_CLASSES),
               ("intern", I_BATCH, HW // I_OS, I_CLASSES),
               ("mbv2", M_BATCH, HW // M_LOGIT_OS, M_CLASSES),
               ("hrnet", H_BATCH, HW // H_LOGIT_OS, H_CLASSES),
               ("vit", V_BATCH, HW // V_OS, V_CLASSES))
+# the loss kernels' shapes on phase 13's paths, (path, batch, logit h, logit w,
+# classes, label (H, W)): ConvNeXt-L + FaPN's os4 logits of Cityscapes' 512x1024
+# crops (the kernels' first non-square source), and Xception-65 + ASPP's os16
+# logits of VOC's 512x512 crops (the ResNet path's geometry)
+UCE_ZOO_SHAPES = (("convnext_fapn", 8, 128, 256, 19, (512, 1024)),
+                  ("xception", 16, 32, 32, 21, (512, 512)))
 # Gemma path: gemma_2b_en served at batch 8, prompt 128, 512 generated slots
 G_PRESET, G_BATCH, G_PROMPT, G_MAX_LENGTH, G_SEGMENT = "gemma_2b_en", 8, 128, 640, 256
 G_CONTRASTIVE_K = 5
@@ -504,6 +561,10 @@ SLIDE_BF16_RTOL = 5e-2
 # off) against the CPU port's (the plain attention) with the same weights,
 # relative to max |logit|: fp32 sums in other orders through 24 blocks
 T_CARD_VS_CPU_RTOL = 1e-3
+# 13.3: ConvNeXt-L + FaPN's fp32 logits on the card (cuDNN and cuBLAS with TF32
+# off) against the CPU port's, the same weights and image, relative to max
+# |logit|: fp32 sums in other orders
+C_CARD_VS_CPU_RTOL = 1e-5
 
 
 def log(msg: str) -> None:
@@ -741,12 +802,13 @@ def unfused_pair(labels):
     return loss
 
 
-def uce_inputs(device, n, h, num_class, seed=0):
-    """fp32 logits [n, h, h, C] and int32 labels [n, 512, 512], a tenth ignored."""
+def uce_inputs(device, n, h, num_class, seed=0, w=None, out_hw=(HW, HW)):
+    """fp32 logits [n, h, w, C] (w defaults to h) and int32 labels [n, *out_hw],
+    a tenth ignored."""
     rng = np.random.RandomState(seed)
-    src32 = torch.tensor(rng.randn(n, h, h, num_class).astype(np.float32), device=device)
-    labels = rng.randint(0, num_class, (n, HW, HW))
-    labels = np.where(rng.rand(n, HW, HW) < 0.1, 255, labels).astype(np.int32)
+    src32 = torch.tensor(rng.randn(n, h, w or h, num_class).astype(np.float32), device=device)
+    labels = rng.randint(0, num_class, (n, *out_hw))
+    labels = np.where(rng.rand(n, *out_hw) < 0.1, 255, labels).astype(np.int32)
     return src32, torch.tensor(labels, device=device)
 
 
@@ -764,9 +826,9 @@ def uce_run_bwd(arg):
     torch.autograd.grad(loss, s)
 
 
-def check_upsample_ce(device, n, h, num_class, seed=0) -> dict:
-    src32, labels = uce_inputs(device, n, h, num_class, seed)
-    shape = f"[{n},{h},{h},{num_class}]->[{n},{HW},{HW}]"
+def check_upsample_ce(device, n, h, num_class, seed=0, w=None, out_hw=(HW, HW)) -> dict:
+    src32, labels = uce_inputs(device, n, h, num_class, seed, w, out_hw)
+    shape = f"[{n},{h},{w or h},{num_class}]->[{n},{out_hw[0]},{out_hw[1]}]"
     log(f"upsample_ce {shape}, ignored {float((labels == 255).float().mean()):.4f}")
 
     rows = {}
@@ -1242,6 +1304,8 @@ def phase_kernels(device) -> list[dict]:
     log("== phase 2: kernels vs plain versions at the main paths' shapes")
     resnet, swin, intern, mbv2, hrnet, vit = (check_upsample_ce(device, n, h, classes)
                                               for _, n, h, classes in UCE_SHAPES)
+    convnext_fapn, xception = (check_upsample_ce(device, n, h, classes, w=w, out_hw=out_hw)
+                               for _, n, h, w, classes, out_hw in UCE_ZOO_SHAPES)
     log(f"window attention (tol of max(1, max |plain|): {WA_TOL}); dbias err is in max abs err "
         "of the backward; sdpa is F.scaled_dot_product_attention, a yardstick only")
     wa_rows = {}
@@ -1294,7 +1358,8 @@ def phase_kernels(device) -> list[dict]:
     wa_src = "iseg_tpu_torch/csrc/window_attention.cu"
     dl_src = "iseg_tpu_torch/csrc/deform_local.cu"
     cg_src = "iseg_tpu_torch/csrc/cache_gather.cu"
-    uce_shapes = {d: [rows[dt][d] for rows in (resnet, swin, intern, mbv2, hrnet, vit)
+    uce_shapes = {d: [rows[dt][d] for rows in (resnet, swin, intern, mbv2, hrnet, vit,
+                                               convnext_fapn, xception)
                       for dt in ("f32", "bf16")]
                   for d in ("fwd", "bwd")}
     # the split-TF32 rows have entries of their own; the bf16 and CUDA-core rows
@@ -1362,9 +1427,9 @@ def expect_launches(path: str, got: dict[str, int], want: dict[str, int]) -> Non
 
 # ------------------------------------------------------------- ResNet path
 
-def synthetic_batch(device, batch, num_class):
-    x = np.random.RandomState(0).rand(batch, HW, HW, 3).astype(np.float32)
-    y = np.random.RandomState(1).randint(0, num_class, (batch, HW, HW)).astype(np.int32)
+def synthetic_batch(device, batch, num_class, hw=(HW, HW)):
+    x = np.random.RandomState(0).rand(batch, *hw, 3).astype(np.float32)
+    y = np.random.RandomState(1).randint(0, num_class, (batch, *hw)).astype(np.int32)
     return {"image": torch.tensor(x, device=device), "label": torch.tensor(y, device=device)}
 
 
@@ -2273,7 +2338,8 @@ KERNEL_CLASSES = (
     ("upsample + CE kernels", ("::fwd_kernel<", "::bwd_kernel<", "::reduce_kernel(")),
     ("global attention (SDPA: flash / memory-efficient)", ("flash", "fmha", "attention_kernel",
                                                             "efficient_attention")),
-    ("convolutions (cuDNN)", ("cudnn", "fprop", "wgrad", "dgrad", "conv2d", "convolve")),
+    ("convolutions (cuDNN)", ("cudnn", "fprop", "wgrad", "dgrad", "conv2d", "convolve",
+                              "depthwise")),
     ("matrix products (cuBLAS GEMM: qkv, proj, MLP, merge)",
      ("nvjet", "gemm", "cutlass", "cublas", "xmma", "gemv", "s16816", "splitK")),
     ("layer norm", ("layer_norm", "LayerNorm", "GammaBeta")),
@@ -3422,6 +3488,218 @@ def phase_transformers(env) -> dict[str, dict]:
     return paths
 
 
+# ------------------------------------------- the backbone zoo (phase 13)
+
+def build_zoo_model(env, backbone: str, head: str, classes: int, fused: bool = True,
+                    **backbone_kwargs) -> SegManaged:
+    """``SegManaged(backbone + head)`` with the head built as ``train_seg``
+    builds it (at the JAX drivers' defaults), channels_last on the card."""
+    bb = get_backbone(backbone, **backbone_kwargs)
+    model = SegManaged(num_class=classes, backbone=bb,
+                       head=train_seg_example.build_head(head, bb),
+                       upsample_logits=not fused, fuse_upsample_loss=fused)
+    return model.to(env.device, memory_format=torch.channels_last)
+
+
+def build_convnext_fapn(env, fused: bool) -> SegManaged:
+    """13.1's model: ``convnext_large`` at output stride 32, drop-path rate
+    0.4 (the ConvNeXt authors' ConvNeXt-L segmentation rate) + ``FAPN()``
+    (filters 128, the coarsest level raw), 19 classes, logits at os4."""
+    return build_zoo_model(env, "convnext_large", "fapn", C_CLASSES, fused, output_stride=32,
+                           drop_path_rate=C_DROP_PATH)
+
+
+def phase_convnext_fapn_train(env) -> tuple[dict, dict]:
+    """Phase 13.1: ConvNeXt-L + FaPN trained on a fixed batch of Cityscapes'
+    512x1024 crops; returns the launch counts and the trained weights."""
+    log(f"-- 13.1: ConvNeXt-L (os32, drop path {C_DROP_PATH}) + FaPN(128), {C_CLASSES} "
+        f"classes, {C_HW[0]}x{C_HW[1]}, batch {C_BATCH}, bf16 autocast, SGD poly, fused loss "
+        "at os4")
+    data = synthetic_batch(env.device, C_BATCH, C_CLASSES, C_HW)
+    model = build_convnext_fapn(env, fused=True)
+    log(f"parameters: {sum(p.numel() for p in model.parameters()) / 1e6:.2f} M")
+    tx, _ = get_optimizer(param_tree(model), "sgd", learning_rate=0.01, train_steps=1000)
+    state = create_train_state(model, env.generator, tx)
+    step_fn = make_train_step(model.build_loss_fn(), compute_dtype=env.compute_dtype)
+    state, _, launches, step_ms = counted_train_steps(
+        state, step_fn, data, C_WARMUP, C_TIMED, C_BATCH,
+        {"upsample_ce_fwd": 1, "upsample_ce_bwd": 1}, "ConvNeXt-L + FaPN train")
+    log(f"ConvNeXt-L + FaPN train: {step_ms:.2f} ms/step, {C_BATCH * 1e3 / step_ms:.2f} img/s; "
+        f"loss-kernel launches over {C_WARMUP + C_TIMED} steps: fwd "
+        f"{launches['upsample_ce_fwd']}, bwd {launches['upsample_ce_bwd']} ({card_line()})")
+    profile_steps(state, step_fn, data, "ConvNeXt-L + FaPN train step", step_ms)
+    trained = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    return launches, trained
+
+
+def phase_convnext_fapn_sliding(env, trained) -> dict[str, int]:
+    """Phase 13.2: the Cityscapes eval geometry, one 1024x2048 image through
+    512x1024 windows at the default stride (2/3 of the window), bf16, with
+    13.1's weights; p50, min and max over C_SLIDE_REPS calls after a warm-up."""
+    starts, _, _ = sliding_window_plan(C_SLIDE_HW, C_SLIDE_WINDOW)
+    log(f"-- 13.2: sliding-window eval, one {C_SLIDE_HW[0]}x{C_SLIDE_HW[1]} image, "
+        f"{C_SLIDE_WINDOW[0]}x{C_SLIDE_WINDOW[1]} windows at stride 2/3 ({len(starts)} windows), "
+        "bf16 autocast, 13.1's weights")
+    model = build_convnext_fapn(env, fused=False)
+    model.load_state_dict(trained)
+    image = torch.tensor(np.random.RandomState(0).rand(1, *C_SLIDE_HW, 3).astype(np.float32),
+                         device=env.device)
+    calls = [0]
+    hook = model.register_forward_hook(lambda *_: calls.__setitem__(0, calls[0] + 1))
+    config = SegModelInferenceConfig(sliding_window_crop_size=C_SLIDE_WINDOW)
+
+    def serve():
+        with torch.no_grad(), torch.autocast("cuda", dtype=env.compute_dtype):
+            out = model.inference(image, config)
+        torch.cuda.synchronize()
+        return out
+
+    reset_launch_counts()
+    logits = serve()  # warm-up: cuDNN autotuning of the window shape
+    warm_calls = calls[0]
+    hook.remove()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(C_SLIDE_REPS):
+        t0 = time.perf_counter()
+        logits = serve()
+        times.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    launches = read_launch_counts()
+    expect_launches("ConvNeXt-L + FaPN sliding-window eval", launches, {})
+    times.sort()
+    p50 = times[len(times) // 2]
+    log(f"sliding window: {warm_calls} model calls a request; p50 {p50:.4f} s, min "
+        f"{times[0]:.4f}, max {times[-1]:.4f} over {C_SLIDE_REPS} calls after one warm-up "
+        f"(host clock, ending in a synchronize); peak memory {peak / 2**30:.2f} GiB ({peak} "
+        f"bytes) ({card_line()})")
+    log(json.dumps({"metric": f"convnext_l_fapn_sliding_window_{C_SLIDE_HW[0]}x{C_SLIDE_HW[1]}"
+                              "_eval", "value": round(p50, 4), "unit": "p50_seconds",
+                    "reps": len(times), "min": round(times[0], 4), "max": round(times[-1], 4)}))
+    expect_shape = (1, *C_SLIDE_HW, C_CLASSES)
+    if tuple(logits.shape) != expect_shape or logits.dtype != torch.float32:
+        raise AssertionError(f"sliding-window logits {tuple(logits.shape)} {logits.dtype}, "
+                             f"expected {expect_shape} float32")
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError("sliding-window logits are not finite")
+    if warm_calls != len(starts):
+        raise AssertionError(f"{warm_calls} model calls, expected {len(starts)}")
+    return launches
+
+
+def phase_convnext_fapn_card_vs_cpu(env, trained) -> None:
+    """Phase 13.3: one small image's fp32 logits (TF32 off) on the card
+    against the CPU port's, 13.1's weights."""
+    log(f"-- 13.3: ConvNeXt-L + FaPN fp32 forward of one {C_CPU_HW[0]}x{C_CPU_HW[1]} image, card "
+        "against the CPU port, 13.1's weights")
+    if torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32:
+        raise AssertionError("the fp32 comparison needs TF32 off")
+    model = build_convnext_fapn(env, fused=True)
+    model.load_state_dict(trained)
+    image = torch.tensor(np.random.RandomState(3).rand(1, *C_CPU_HW, 3).astype(np.float32))
+    with torch.no_grad():
+        card = model.inference(image.to(env.device)).cpu()
+        model.to("cpu")
+        t0 = time.perf_counter()
+        cpu = model.inference(image)
+        cpu_s = time.perf_counter() - t0
+    err = float((card - cpu).abs().max())
+    scale = float(cpu.abs().max())
+    log(f"ConvNeXt-L + FaPN fp32 logits {tuple(cpu.shape)}, card vs the CPU port ({cpu_s:.1f} s "
+        f"on the CPU): max abs diff {err:.3e} vs max |logit| {scale:.3e}: {err / scale:.3e} of it "
+        f"(tol {C_CARD_VS_CPU_RTOL:g})")
+    if not (np.isfinite(scale) and err <= C_CARD_VS_CPU_RTOL * scale):
+        raise AssertionError("ConvNeXt-L + FaPN: the card's fp32 logits disagree with the CPU "
+                             "port's")
+
+
+@contextlib.contextmanager
+def cudnn_heuristics():
+    """cuDNN's heuristic choice of conv algorithms inside the block, no
+    autotuning: a few steps of a model whose every conv shape is new would
+    spend most of their time timing algorithms (EfficientNet-B7's first
+    step took 73 s with autotuning on an H100)."""
+    before = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.benchmark = before
+
+
+def phase_xception_train(env) -> dict[str, int]:
+    """Phase 13.4: DeepLabV3 on VOC, Xception-65 (os16) + ASPP(256), 21
+    classes, 512x512, batch 16, bf16, a warm-up step and 3 timed ones, with
+    cuDNN's heuristic conv algorithms (no autotuning)."""
+    log(f"-- 13.4: Xception-65 (os16) + ASPP(256), {X_CLASSES} classes, {HW}x{HW}, batch "
+        f"{X_BATCH}, bf16 autocast, SGD poly, fused loss at os16, cuDNN heuristics (no "
+        "autotuning)")
+    data = synthetic_batch(env.device, X_BATCH, X_CLASSES)
+    model = build_zoo_model(env, "xception65", "aspp", X_CLASSES, output_stride=16)
+    log(f"parameters: {sum(p.numel() for p in model.parameters()) / 1e6:.2f} M")
+    tx, _ = get_optimizer(param_tree(model), "sgd", learning_rate=0.01, train_steps=1000)
+    state = create_train_state(model, env.generator, tx)
+    step_fn = make_train_step(model.build_loss_fn(), compute_dtype=env.compute_dtype)
+    with cudnn_heuristics():
+        _, _, launches, step_ms = counted_train_steps(
+            state, step_fn, data, X_WARMUP, X_TIMED, X_BATCH,
+            {"upsample_ce_fwd": 1, "upsample_ce_bwd": 1}, "Xception-65 + ASPP train")
+    log(f"Xception-65 + ASPP train: {step_ms:.2f} ms/step, {X_BATCH * 1e3 / step_ms:.2f} img/s "
+        f"({card_line()})")
+    return launches
+
+
+def phase_zoo_steps(env) -> dict[str, dict]:
+    """Phase 13.5: one warm-up and one timed full-width train step of each
+    other new family at 512x512, batch 2, bf16, 19 classes, fused loss,
+    cuDNN's heuristic conv algorithms (no autotuning)."""
+    paths = {}
+    data = synthetic_batch(env.device, Z_BATCH, Z_CLASSES)
+    for path, title, backbone, head, kw in Z_MODELS:
+        log(f"-- 13.5: {title}, {Z_CLASSES} classes, {HW}x{HW}, batch {Z_BATCH}, bf16 autocast, "
+            "SGD poly, fused loss, cuDNN heuristics (no autotuning)")
+        model = build_zoo_model(env, backbone, head, Z_CLASSES, **kw)
+        log(f"parameters: {sum(p.numel() for p in model.parameters()) / 1e6:.2f} M")
+        tx, _ = get_optimizer(param_tree(model), "sgd", learning_rate=0.01, train_steps=1000)
+        state = create_train_state(model, env.generator, tx)
+        step_fn = make_train_step(model.build_loss_fn(), compute_dtype=env.compute_dtype)
+        with cudnn_heuristics():
+            _, losses, paths[path], step_ms = counted_train_steps(
+                state, step_fn, data, 1, 1, Z_BATCH,
+                {"upsample_ce_fwd": 1, "upsample_ce_bwd": 1}, f"{title} train")
+        peak = torch.cuda.max_memory_allocated()
+        log(f"{title}: the timed step {step_ms:.2f} ms, peak memory {peak / 2**30:.2f} GiB, loss "
+            f"{losses[-1]:.6f} ({card_line()})")
+        del state, step_fn, model
+        torch.cuda.empty_cache()
+    return paths
+
+
+def phase_zoo(env) -> dict[str, dict]:
+    """Phase 13: the rest of the backbone zoo and heads."""
+    log("== phase 13: ConvNeXt-L + FaPN (Cityscapes train and sliding-window eval), "
+        "Xception-65 + ASPP, and one train step of EfficientNet-B7 + NAS-FPN, MOAT-4, "
+        "MLP-Mixer-L/16 and ConvNeXt-V2-L")
+    t_phase = time.perf_counter()
+    paths = {}
+    paths["convnext_fapn_train"], trained = phase_convnext_fapn_train(env)
+    torch.cuda.empty_cache()
+    log(f"(13.1 done at {time.perf_counter() - t_phase:.1f} s)")
+    paths["convnext_fapn_sliding"] = phase_convnext_fapn_sliding(env, trained)
+    torch.cuda.empty_cache()
+    log(f"(13.2 done at {time.perf_counter() - t_phase:.1f} s)")
+    phase_convnext_fapn_card_vs_cpu(env, trained)
+    del trained
+    torch.cuda.empty_cache()
+    log(f"(13.3 done at {time.perf_counter() - t_phase:.1f} s)")
+    paths["xception_train"] = phase_xception_train(env)
+    torch.cuda.empty_cache()
+    log(f"(13.4 done at {time.perf_counter() - t_phase:.1f} s)")
+    paths.update(phase_zoo_steps(env))
+    log(f"phase 13 took {time.perf_counter() - t_phase:.1f} s ({card_line()})")
+    return paths
+
+
 # ------------------------------------------------------- two trees (--ab)
 
 def step_loss_ms(path: str, prof: dict) -> dict:
@@ -3667,6 +3945,9 @@ def main(argv: list[str]) -> int:
     torch.cuda.empty_cache()
 
     paths.update(phase_transformers(env))
+    torch.cuda.empty_cache()
+
+    paths.update(phase_zoo(env))
 
     # the bf16 window-attention entries count two routes each (tensor cores and
     # CUDA cores), each with its count; the split-TF32 entries one
@@ -3694,6 +3975,10 @@ def main(argv: list[str]) -> int:
                "eva_train": (),  # 150 classes: the unfused loss (asserted 0 launches)
                "vit_serve": (),
                "eva_serve": (),
+               "convnext_fapn_train": loss_kernels,
+               "convnext_fapn_sliding": (),  # unfused serve: no kernel (asserted 0 launches)
+               "xception_train": loss_kernels,
+               **{path: loss_kernels for path, *_ in Z_MODELS},
                "swin_train": loss_kernels + ("window_attention_fwd_mma",
                                              "window_attention_bwd_mma"),
                "swin_serve": ("window_attention_fwd_mma",),

@@ -17,6 +17,16 @@ module                flax leaf (layout)               torch tensor (layout)
 ``BatchNorm``         params ``scale``, ``bias``       ``weight``, ``bias``
                       batch_stats ``mean``, ``var``    ``running_mean``, ``running_var``
 ``nn.LayerNorm``      params ``scale``, ``bias``       ``weight``, ``bias``
+``GroupNorm``,        params ``scale``, ``bias``       ``weight``, ``bias`` (over
+``ChannelLayerNorm``, (``ChannelRMSNorm``: ``scale``   dim 1 of NCHW)
+``ChannelRMSNorm``    alone)
+``ConvNeXtBlock``     params ``gamma`` ``[dim]``       the parameter of that name
+                      (layer scale; absent in V2)
+``GlobalResponseNorm`` params ``gamma``, ``beta``      the parameters of those names
+                      ``[C]``
+``MOATAttention``     params ``rel_pos_embed``         the parameter of that name
+                      ``[heads, 2p-1, 2p-1]`` (with
+                      ``use_pos_emb``)
 ``WindowAttention``   params ``relative_position_      the parameter of that name
                       bias_table`` ``[(2ws-1)^2, H]``  (its index buffer is static)
 ``InternImageBlock``  params ``gamma1``, ``gamma2``    the parameters of those names
@@ -40,6 +50,10 @@ module                flax leaf (layout)               torch tensor (layout)
 ``RMSNorm`` (Gemma)   params ``scale``                 ``scale``
 ====================  ===============================  ==========================
 
+An ``nn.Linear`` maps the same whichever axis it mixes: MLP-Mixer's
+token-mixing ``token_fc1``/``token_fc2`` are ``nn.Linear`` over the
+patch axis, their flax kernels ``[tokens, hidden]`` and ``[hidden, tokens]``.
+
 A ``GemmaCausalLM`` converts as its backbone (the flax tree of the JAX
 ``GemmaCausalLM.init`` is the backbone's: ``token_embedding``, ``layer_i``,
 ``final_normalization``). The ``*_scale`` leaves carry the int8 scales of
@@ -60,14 +74,17 @@ import numpy as np
 import torch
 from torch import nn
 
+from iseg_tpu_torch.backbones.convnext import ConvNeXtBlock
 from iseg_tpu_torch.backbones.eva import Eva
 from iseg_tpu_torch.backbones.intern_image import InternImageBlock
+from iseg_tpu_torch.backbones.moat import MOATAttention
 from iseg_tpu_torch.backbones.swin import WindowAttention
 from iseg_tpu_torch.backbones.vit import VisionTransformer
 from iseg_tpu_torch.nlp.gemma.causal_lm import GemmaCausalLM
 from iseg_tpu_torch.nn.attention import SelfAttention2D
+from iseg_tpu_torch.nn.blocks import GlobalResponseNorm
 from iseg_tpu_torch.nn.dcn import DCNv2
-from iseg_tpu_torch.nn.norm import BatchNorm, RMSNorm
+from iseg_tpu_torch.nn.norm import BatchNorm, ChannelLayerNorm, ChannelRMSNorm, GroupNorm, RMSNorm
 from iseg_tpu_torch.ops.quant import QuantDense, QuantEmbed
 
 _Leaf = tuple[str, str, torch.Tensor, Callable, Callable]
@@ -126,13 +143,15 @@ def _leaves(model: nn.Module) -> Iterator[_Leaf]:
             yield "params", prefix + "bias", m.bias, _same, _same
             yield "batch_stats", prefix + "mean", m.running_mean, _same, _same
             yield "batch_stats", prefix + "var", m.running_var, _same, _same
-        elif isinstance(m, nn.LayerNorm):
+        elif isinstance(m, (nn.LayerNorm, GroupNorm, ChannelLayerNorm, ChannelRMSNorm)):
             yield "params", prefix + "scale", m.weight, _same, _same
-            yield "params", prefix + "bias", m.bias, _same, _same
+            if m.bias is not None:
+                yield "params", prefix + "bias", m.bias, _same, _same
         elif isinstance(m, WindowAttention):
             yield ("params", prefix + "relative_position_bias_table",
                    m.relative_position_bias_table, _same, _same)
-        elif isinstance(m, (InternImageBlock, DCNv2, VisionTransformer, Eva, SelfAttention2D)):
+        elif isinstance(m, (InternImageBlock, DCNv2, VisionTransformer, Eva, SelfAttention2D,
+                            ConvNeXtBlock, GlobalResponseNorm, MOATAttention)):
             # bare parameters of the module itself, named as in the flax tree
             for leaf, param in m.named_parameters(recurse=False):
                 yield "params", prefix + leaf, param, _same, _same

@@ -12,8 +12,10 @@ step on a rerun), then evaluates the final weights to mIoU.
 Differences from the JAX example: ``--device`` (default ``cuda``; ``cpu``
 runs here) replaces ``--cpu``; the checkpoint directory defaults to
 ``/tmp/iseg_tpu_torch_ckpt`` (the two packages' checkpoint formats differ);
-the heads ``fapn`` and ``nasfpn`` and ``--pretrained`` are not ported yet
-and raise, naming their ROADMAP item.
+an MLP-Mixer backbone is built for ``--crop`` x ``--crop`` inputs unless
+``--backbone_kwargs`` names its ``input_size`` (the JAX module takes the
+size of its first call); ``--pretrained`` is not ported yet and raises,
+naming its ROADMAP item.
 
 Examples:
   python -m iseg_tpu_torch.examples.train_seg --backbone mobilenetv2 --head simpledecoder \\
@@ -22,6 +24,8 @@ Examples:
       --data_dir /data/voc --num_class 21
   python -m iseg_tpu_torch.examples.train_seg --backbone hrnet_w48 --head jpu --num_class 19 \\
       --optimizer adamw --lr 1e-4 --fused_loss
+  python -m iseg_tpu_torch.examples.train_seg --backbone convnext_large --head fapn \\
+      --output_stride 32 --num_class 19 --fused_loss
   python -m iseg_tpu_torch.examples.train_seg --device cpu --crop 32 --batch 2 --num_class 3 \\
       --backbone_kwargs '{"width_multiplier": 0.35, "include_top_conv": false}' \\
       --epochs 1 --steps_per_epoch 2
@@ -36,8 +40,6 @@ import os
 import numpy as np
 
 HEADS = ("simpledecoder", "aspp", "fpn", "jpu", "fapn", "nasfpn")
-# heads of the JAX package that the port does not have yet
-UNPORTED_HEADS = {"fapn": "ROADMAP queue 1 item 23", "nasfpn": "ROADMAP queue 1 item 23"}
 
 
 def synthetic_dataset(num_samples, crop, num_class, seed=0):
@@ -58,24 +60,24 @@ def synthetic_dataset(num_samples, crop, num_class, seed=0):
 
 
 def build_head(name: str, backbone):
-    """A ported head by flag name, sized from ``backbone``'s endpoints. The
-    pyramid heads are sized by resolution, as their forward picks their
-    inputs (HRNet lists its os4 concat after the os32 branch)."""
+    """A head by flag name at the JAX drivers' defaults, sized from
+    ``backbone``'s endpoints. The pyramid heads are sized by resolution, as
+    their forward picks their inputs (HRNet lists its os4 concat after the
+    os32 branch; ConvNeXt starts with a ``None``)."""
     from iseg_tpu_torch.nn import heads
     from iseg_tpu_torch.nn.heads.common import select_pyramid_levels
 
-    if name in UNPORTED_HEADS:
-        raise NotImplementedError(f"head {name!r} is not ported to iseg_tpu_torch yet "
-                                  f"({UNPORTED_HEADS[name]})")
     if name == "simpledecoder":
         return heads.SimpleDecoder(backbone.endpoint_channels)
     if name == "aspp":
         return heads.ASPP(backbone.out_channels)
-    if name in ("fpn", "jpu"):
-        levels = select_pyramid_levels(backbone.endpoint_channels, backbone.endpoint_strides,
-                                       4 if name == "fpn" else 3)
-        return heads.SemanticFPN(levels) if name == "fpn" else heads.JPU(levels)
-    raise ValueError(f"head {name!r} is not ported to iseg_tpu_torch; choose from {HEADS}")
+    levels = {"fpn": 4, "jpu": 3, "fapn": 4, "nasfpn": 3}
+    if name not in levels:
+        raise ValueError(f"head {name!r} is not ported to iseg_tpu_torch; choose from {HEADS}")
+    widths = select_pyramid_levels(backbone.endpoint_channels, backbone.endpoint_strides,
+                                   levels[name])
+    return {"fpn": heads.SemanticFPN, "jpu": heads.JPU, "fapn": heads.FAPN,
+            "nasfpn": heads.NASFPN}[name](widths)
 
 
 def build_model(backbone: str, head: str, num_class: int, output_stride: int = 16,
@@ -141,8 +143,11 @@ def main(argv=None) -> dict:
 
     env = common_env_setup(EnvConfig(random_seed=0, device=args.device))
     print(f"env: {env.describe()}")
+    backbone_kwargs = json.loads(args.backbone_kwargs)
+    if args.backbone.startswith("mlp_mixer"):  # its token MLPs fix the input size
+        backbone_kwargs.setdefault("input_size", args.crop)
     model = build_model(args.backbone, args.head, args.num_class, args.output_stride,
-                        json.loads(args.backbone_kwargs), env.device, use_ohem=args.ohem,
+                        backbone_kwargs, env.device, use_ohem=args.ohem,
                         upsample_logits=not args.fused_loss,
                         fuse_upsample_loss=args.fused_loss)
     tx, schedule = get_optimizer(

@@ -56,14 +56,21 @@ def get_attention(query: torch.Tensor, key: torch.Tensor, apply_scale: bool = Fa
 
 
 def dot_product_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                                    mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                                    mask: Optional[torch.Tensor] = None,
+                                    bias: Optional[torch.Tensor] = None,
+                                    scale: Optional[float] = None) -> torch.Tensor:
     """Plain global attention, ``jax.nn.dot_product_attention``'s XLA path:
     ``[B, T, H, D]`` q and ``[B, S, H, D]`` k, v; logits and softmax in
-    ``promote_types(dtype, float32)``; ``mask`` a boolean broadcastable to
-    ``[B, H, T, S]`` (False: the logit becomes -0.7 of the type's max, so a
-    fully masked row attends uniformly)."""
+    ``promote_types(dtype, float32)``; the logits scaled by ``scale``
+    (default 1/sqrt(D)), plus ``bias``, a float broadcastable to ``[B, H,
+    T, S]``; ``mask`` a boolean broadcastable to ``[B, H, T, S]`` (False:
+    the logit becomes -0.7 of the type's max, so a fully masked row attends
+    uniformly)."""
     ct = _compute_dtype(q.dtype)
-    logits = torch.einsum("bthd,bshd->bhts", q.to(ct), k.to(ct)) / math.sqrt(q.shape[-1])
+    logits = torch.einsum("bthd,bshd->bhts", q.to(ct), k.to(ct))
+    logits = logits / math.sqrt(q.shape[-1]) if scale is None else logits * scale
+    if bias is not None:
+        logits = logits + bias.to(ct)
     if mask is not None:
         logits = logits.masked_fill(~mask, -0.7 * torch.finfo(ct).max)
     probs = torch.softmax(logits, dim=-1).to(v.dtype)
@@ -71,26 +78,34 @@ def dot_product_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.T
 
 
 def sdpa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                   mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                   mask: Optional[torch.Tensor] = None,
+                   bias: Optional[torch.Tensor] = None,
+                   scale: Optional[float] = None) -> torch.Tensor:
     """:func:`dot_product_attention_reference` by one
     ``F.scaled_dot_product_attention`` call (the boolean mask as the same
-    additive -0.7 of the type's max)."""
+    additive -0.7 of the type's max, added to ``bias`` in q's type)."""
+    attn_mask = None
     if mask is not None:
-        mask = torch.zeros(mask.shape, dtype=q.dtype, device=q.device).masked_fill(
+        attn_mask = torch.zeros(mask.shape, dtype=q.dtype, device=q.device).masked_fill(
             ~mask, -0.7 * torch.finfo(q.dtype).max)
+    if bias is not None:
+        bias = bias.to(q.dtype)
+        attn_mask = bias if attn_mask is None else attn_mask + bias
     out = F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2),
-                                         v.transpose(1, 2), attn_mask=mask)
+                                         v.transpose(1, 2), attn_mask=attn_mask, scale=scale)
     return out.transpose(1, 2)
 
 
 def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           mask: Optional[torch.Tensor] = None,
-                          guard_numerics: bool = False) -> torch.Tensor:
+                          guard_numerics: bool = False,
+                          bias: Optional[torch.Tensor] = None,
+                          scale: Optional[float] = None) -> torch.Tensor:
     """``[B, N, H, D]`` q, k, v -> ``[B, N, H, D]``: :func:`sdpa_attention`
     on the card, :func:`dot_product_attention_reference` on the CPU;
     ``guard_numerics`` replaces non-finite outputs."""
     attend = sdpa_attention if q.is_cuda else dot_product_attention_reference
-    out = attend(q, k, v, mask)
+    out = attend(q, k, v, mask, bias=bias, scale=scale)
     return replace_non_finite(out) if guard_numerics else out
 
 

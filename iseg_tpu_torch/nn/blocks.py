@@ -1,5 +1,9 @@
 """Reusable blocks (counterpart of ``iseg_tpu/nn/blocks.py``): dropout,
-drop-path, image-level pooling, head-end block. NCHW in and out."""
+drop-path, squeeze-excite, image-level pooling, head-end block, a dense
+layer, ConvNeXt-V2's global response norm, gradient scaling and adaptive
+pooling. NCHW in and out, but for :class:`DenseExt` and
+:class:`GlobalResponseNorm`, which work over the last axis (NHWC) as the
+token MLPs they sit in do."""
 
 from __future__ import annotations
 
@@ -8,7 +12,8 @@ from typing import Optional
 import torch
 from torch import nn
 
-from iseg_tpu_torch.nn.conv import ConvNormAct
+from iseg_tpu_torch.nn.conv import Activation, Conv2d, ConvNormAct, _resolve_act
+from iseg_tpu_torch.ops.resize import resize_nchw
 
 
 class Dropout(nn.Module):
@@ -86,3 +91,88 @@ class CommonEndBlock(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.dropout(self.conv(x))
+
+
+class SqueezeExcite(nn.Module):
+    """Squeeze-and-excitation: global mean -> 1x1 conv ``reduce`` (bias) ->
+    ``inner_act`` -> 1x1 conv ``expand`` back to the input's width (bias)
+    -> ``gate_act`` -> scale the input."""
+
+    def __init__(self, in_channels: int, reduction_filters: int, gate_act: Activation = "sigmoid",
+                 inner_act: Activation = "silu"):
+        super().__init__()
+        self.reduce = Conv2d(in_channels, reduction_filters, 1, bias=True)
+        self.expand = Conv2d(reduction_filters, in_channels, 1, bias=True)
+        self.inner_act = _resolve_act(inner_act)
+        self.gate_act = _resolve_act(gate_act)
+        self.out_channels = in_channels
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        s = self.reduce(x.mean(dim=(2, 3), keepdim=True))
+        if self.inner_act is not None:
+            s = self.inner_act(s)
+        s = self.expand(s)
+        if self.gate_act is not None:
+            s = self.gate_act(s)
+        return x * s
+
+
+class DenseExt(nn.Module):
+    """A dense layer over the last axis (flax's ``DenseExt`` wraps one
+    ``nn.Dense``, auto-named ``Dense_0``)."""
+
+    def __init__(self, in_features: int, features: int, use_bias: bool = True):
+        super().__init__()
+        self.Dense_0 = nn.Linear(in_features, features, bias=use_bias)
+        self.out_channels = features
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.Dense_0(x)
+
+
+class GlobalResponseNorm(nn.Module):
+    """ConvNeXt-V2's GRN on an NHWC tensor, in ``promote_types(dtype,
+    float32)``: ``gamma * (x * nx) + beta + x`` with ``gx`` the L2 norm of
+    each channel over the map (plus 1e-12 inside the root) and ``nx = gx /
+    (mean_c gx + epsilon)``; ``gamma`` and ``beta`` start at zero."""
+
+    def __init__(self, channels: int, epsilon: float = 1e-6):
+        super().__init__()
+        self.epsilon = epsilon
+        self.gamma = nn.Parameter(torch.zeros(channels))
+        self.beta = nn.Parameter(torch.zeros(channels))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        gx = torch.sqrt(xf.square().sum(dim=(1, 2), keepdim=True) + 1e-12)
+        nx = gx / (gx.mean(dim=-1, keepdim=True) + self.epsilon)
+        return (self.gamma * (xf * nx) + self.beta + xf).to(x.dtype)
+
+
+class _ScaleGrads(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, scale):
+        ctx.scale = scale
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g * ctx.scale, None
+
+
+def scale_grads(x: torch.Tensor, scale: float) -> torch.Tensor:
+    """Identity forward; the backward multiplies the gradient by ``scale``."""
+    return _ScaleGrads.apply(x, scale)
+
+
+def adaptive_average_pooling_2d(x: torch.Tensor, output_size) -> torch.Tensor:
+    """Average-pool an NCHW map to ``output_size`` (int or (h, w)): the mean
+    of each cell where the sizes divide evenly, else the half-pixel bilinear
+    resize (the JAX package's rule)."""
+    if isinstance(output_size, int):
+        output_size = (output_size, output_size)
+    oh, ow = output_size
+    n, c, h, w = x.shape
+    if h % oh == 0 and w % ow == 0:
+        return x.reshape(n, c, oh, h // oh, ow, w // ow).mean(dim=(3, 5))
+    return resize_nchw(x, (oh, ow))

@@ -8,7 +8,10 @@ relative-position-bias table and the ViT and EVA positional embeddings
 are normal with std 0.02, their class tokens and ``SelfAttention2D``'s
 gate start at zero; DCN's offset and
 modulation layers start at zero (a deformable conv starts as a plain one)
-and InternImage's layer-scale vectors at their ``layer_scale``. Gemma's
+and InternImage's and ConvNeXt's layer-scale vectors at their
+``layer_scale`` (ConvNeXt's ``layer_scale_init``); the factory's group,
+layer and RMS norms at scale 1, bias 0; ConvNeXt-V2's GRN ``gamma`` and
+``beta`` at zero; MOAT's relative-position tables normal with std 0.02. Gemma's
 ``QuantDense`` kernels are ``lecun_normal`` too, its embedding table is
 ``variance_scaling(1.0, "fan_in", "normal", out_axis=0)`` (a plain normal
 with std ``1 / sqrt(D)``), its RMSNorm scales start at zero and the int8
@@ -29,13 +32,16 @@ import math
 import torch
 from torch import nn
 
+from iseg_tpu_torch.backbones.convnext import ConvNeXtBlock
 from iseg_tpu_torch.backbones.eva import Eva
 from iseg_tpu_torch.backbones.intern_image import InternImageBlock
+from iseg_tpu_torch.backbones.moat import MOATAttention
 from iseg_tpu_torch.backbones.swin import WindowAttention
 from iseg_tpu_torch.backbones.vit import VisionTransformer
 from iseg_tpu_torch.nn.attention import SelfAttention2D
+from iseg_tpu_torch.nn.blocks import GlobalResponseNorm
 from iseg_tpu_torch.nn.dcn import DCNv2
-from iseg_tpu_torch.nn.norm import BatchNorm, RMSNorm
+from iseg_tpu_torch.nn.norm import BatchNorm, ChannelLayerNorm, ChannelRMSNorm, GroupNorm, RMSNorm
 from iseg_tpu_torch.ops.quant import QuantDense, QuantEmbed
 
 # std of a unit normal truncated to [-2, 2] (jax.nn.initializers.variance_scaling)
@@ -76,9 +82,21 @@ def initialize(module: nn.Module, generator: torch.Generator) -> nn.Module:
             m.bias.zero_()
             m.running_mean.zero_()
             m.running_var.fill_(1.0)
-        elif isinstance(m, nn.LayerNorm):
+        elif isinstance(m, (nn.LayerNorm, GroupNorm, ChannelLayerNorm, ChannelRMSNorm)):
             m.weight.fill_(1.0)
-            m.bias.zero_()
+            if m.bias is not None:
+                m.bias.zero_()
+        elif isinstance(m, ConvNeXtBlock):
+            if m.gamma is not None:
+                m.gamma.fill_(m.layer_scale_init)
+        elif isinstance(m, GlobalResponseNorm):
+            m.gamma.zero_()
+            m.beta.zero_()
+        elif isinstance(m, MOATAttention):
+            if m.rel_pos_embed is not None:
+                table = m.rel_pos_embed
+                table.copy_(torch.empty(table.shape, device=generator.device)
+                            .normal_(0.0, 0.02, generator=generator))
         elif isinstance(m, WindowAttention):
             table = m.relative_position_bias_table
             table.copy_(torch.empty(table.shape, device=generator.device)

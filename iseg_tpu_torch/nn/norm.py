@@ -14,8 +14,15 @@ because it must behave like flax's ``nn.BatchNorm`` with Keras defaults:
 
 On one card BatchNorm and SyncBatchNorm are the same layer.
 
-:class:`RMSNorm` is Gemma's (``iseg_tpu/nlp/gemma/model.py``); the
-:func:`normalization` factory does not hand it out yet.
+The factory's other kinds normalize over the channels (dim 1) of an NCHW
+tensor, as flax's layers do over the last axis of an NHWC one:
+:class:`GroupNorm` (32 groups, epsilon 1e-5), :class:`ChannelLayerNorm`
+(epsilon 1e-6) and :class:`ChannelRMSNorm` (flax's ``nn.RMSNorm``, epsilon
+1e-6). Like flax they take the moments in ``promote_types(x.dtype,
+float32)`` by E[x^2] - E[x]^2 clamped at 0, and return the input's dtype.
+
+:class:`RMSNorm` is Gemma's (``iseg_tpu/nlp/gemma/model.py``), with its
+``(1 + scale)`` convention; the factory hands out :class:`ChannelRMSNorm`.
 """
 
 from __future__ import annotations
@@ -124,12 +131,91 @@ class RMSNorm(nn.Module):
         return (xf * (1.0 + self.scale.float())).to(x.dtype)
 
 
+def _fast_moments(xf: torch.Tensor, dims, use_mean: bool = True):
+    """flax's ``_compute_stats``: (mean, E[x^2] - mean^2 clamped at 0) over
+    ``dims`` (mean 0 and E[x^2] without ``use_mean``), kept dims."""
+    mean2 = xf.square().mean(dim=dims, keepdim=True)
+    if not use_mean:
+        return torch.zeros_like(mean2), mean2
+    mean = xf.mean(dim=dims, keepdim=True)
+    return mean, torch.clamp(mean2 - mean.square(), min=0.0)
+
+
+class _ChannelNorm(nn.Module):
+    """Scale (and bias) over dim 1; flax's ``scale`` and ``bias``."""
+
+    def __init__(self, num_features: int, epsilon: float, use_bias: bool = True):
+        super().__init__()
+        self.num_features = num_features
+        self.epsilon = epsilon
+        self.weight = nn.Parameter(torch.ones(num_features))
+        self.bias = nn.Parameter(torch.zeros(num_features)) if use_bias else None
+
+    def _normalize(self, x, xf, mean, var):
+        shape = [1, -1] + [1] * (x.ndim - 2)
+        mul = torch.rsqrt(var + self.epsilon) * self.weight.view(shape)
+        y = (xf - mean) * mul
+        if self.bias is not None:
+            y = y + self.bias.view(shape)
+        return y.to(x.dtype)
+
+    def extra_repr(self) -> str:
+        return f"{self.num_features}, epsilon={self.epsilon}"
+
+
+class GroupNorm(_ChannelNorm):
+    """flax's ``nn.GroupNorm``: ``num_groups`` groups of consecutive
+    channels, moments over each group's channels and every spatial dim."""
+
+    def __init__(self, num_features: int, num_groups: int = 32, epsilon: float = 1e-5):
+        if num_groups <= 0 or num_features % num_groups:
+            raise ValueError(f"number of groups ({num_groups}) does not divide the number "
+                             f"of channels ({num_features})")
+        super().__init__(num_features, epsilon)
+        self.num_groups = num_groups
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        mean, var = _fast_moments(xf.reshape(x.shape[0], self.num_groups, -1), [2])
+        # each group's moments repeated over its channels: [N, C, 1, ...]
+        size = x.shape[1] // self.num_groups
+        shape = (x.shape[0], x.shape[1]) + (1,) * (x.ndim - 2)
+        mean = mean.repeat_interleave(size, dim=1).view(shape)
+        var = var.repeat_interleave(size, dim=1).view(shape)
+        return self._normalize(x, xf, mean, var)
+
+
+class ChannelLayerNorm(_ChannelNorm):
+    """flax's ``nn.LayerNorm`` over the channels of an NCHW tensor."""
+
+    def __init__(self, num_features: int, epsilon: float = 1e-6):
+        super().__init__(num_features, epsilon)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        mean, var = _fast_moments(xf, [1])
+        return self._normalize(x, xf, mean, var)
+
+
+class ChannelRMSNorm(_ChannelNorm):
+    """flax's ``nn.RMSNorm`` over the channels of an NCHW tensor: ``x /
+    sqrt(E[x^2] + eps) * scale``, no bias."""
+
+    def __init__(self, num_features: int, epsilon: float = 1e-6):
+        super().__init__(num_features, epsilon, use_bias=False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        mean, var = _fast_moments(xf, [1], use_mean=False)
+        return self._normalize(x, xf, mean, var)
+
+
 def normalization(kind: str | None = None, **kwargs) -> Callable[..., nn.Module]:
     """Factory returning a norm-module constructor taking ``num_features``.
 
-    ``kind`` in {"batch_norm", "sync_batch_norm"} (and their short names);
-    None uses the global default (SyncBN). Group/layer/RMS norm raise until
-    they are ported.
+    ``kind`` in {"batch_norm", "sync_batch_norm", "group_norm",
+    "layer_norm", "rms_norm"} (and their short names); None uses the global
+    default (SyncBN).
     """
     if kind is None:
         kind = _DEFAULT_NORM
@@ -137,8 +223,12 @@ def normalization(kind: str | None = None, **kwargs) -> Callable[..., nn.Module]
         return functools.partial(BatchNorm, **kwargs)
     if kind in ("sync_batch_norm", "syncbn", "sync_bn"):
         return functools.partial(SyncBatchNorm, **kwargs)
-    if kind in ("group_norm", "gn", "layer_norm", "ln", "rms_norm", "rmsn"):
-        raise NotImplementedError(f"normalization {kind!r} is not ported to iseg_tpu_torch yet")
+    if kind in ("group_norm", "gn"):
+        return functools.partial(GroupNorm, **kwargs)
+    if kind in ("layer_norm", "ln"):
+        return functools.partial(ChannelLayerNorm, **kwargs)
+    if kind in ("rms_norm", "rmsn"):
+        return functools.partial(ChannelRMSNorm, **kwargs)
     raise ValueError(f"unknown normalization kind: {kind!r}")
 
 

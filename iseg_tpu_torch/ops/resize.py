@@ -68,6 +68,25 @@ def _linear_matrix(out_len: int, in_len: int, align_corners: bool, dtype: torch.
     return torch.tensor(m, dtype=dtype, device=device)
 
 
+@functools.lru_cache(maxsize=256)
+def _antialias_linear_matrix(out_len: int, in_len: int, dtype: torch.dtype,
+                             device: torch.device) -> torch.Tensor:
+    """``[out, in]`` weights of ``jax.image.scale_and_translate``'s linear
+    resize with antialias: the triangle kernel widened by ``in / out``
+    when downsampling (as it is, upsampling), at half-pixel sample points,
+    each row renormalized to sum 1 (0 where its sum is within 1000 fp32
+    epsilons of 0), and 0 for a sample point outside the input."""
+    inv_scale = in_len / out_len
+    src = (np.arange(out_len, dtype=np.float64) + 0.5) * inv_scale - 0.5
+    dist = np.abs(src[:, None] - np.arange(in_len, dtype=np.float64)[None, :])
+    m = np.maximum(0.0, 1.0 - dist / max(inv_scale, 1.0))
+    total = m.sum(axis=1, keepdims=True)
+    m = np.where(np.abs(total) > 1000.0 * np.finfo(np.float32).eps,
+                 m / np.where(total != 0, total, 1.0), 0.0)
+    inside = (src >= -0.5) & (src <= in_len - 0.5)
+    return torch.tensor(np.where(inside[:, None], m, 0.0), dtype=dtype, device=device)
+
+
 def _keys_cubic(x: np.ndarray) -> np.ndarray:
     """Keys' cubic convolution kernel with a = -0.5 at distances ``x`` >= 0
     (``jax.image``'s ``_fill_keys_cubic_kernel``)."""
@@ -130,6 +149,18 @@ def resize_bilinear_matmul(x: torch.Tensor, size: Sequence[int] | int,
                           _linear_matrix(w, in_w, align_corners, x.dtype, x.device))
 
 
+def resize_bilinear_antialias(x: torch.Tensor, size: Sequence[int] | int) -> torch.Tensor:
+    """``jax.image.resize(x, ..., "bilinear")`` (antialias on, its
+    default) of an NHWC tensor, by :func:`_antialias_linear_matrix` on each
+    axis that changes size."""
+    h, w = _normalize_size(size)
+    _, in_h, in_w, _ = x.shape
+    if (in_h, in_w) == (h, w):
+        return x
+    return _resize_matmul(x, _antialias_linear_matrix(h, in_h, x.dtype, x.device),
+                          _antialias_linear_matrix(w, in_w, x.dtype, x.device))
+
+
 def resize_bilinear_align_corners(x: torch.Tensor, size: Sequence[int] | int) -> torch.Tensor:
     """Bilinear NHWC resize with ``tf.compat.v1.image.resize(...,
     align_corners=True)`` semantics (src = i * (in-1)/(out-1)), by
@@ -166,8 +197,10 @@ def resize_image(
         out = _resize_nearest(x, h, w)
     elif method not in ("bilinear", "bicubic"):
         raise NotImplementedError(f"resize method {method!r} is not ported yet")
+    elif antialias and method == "bicubic":
+        raise NotImplementedError("antialiased bicubic resize is not ported yet")
     elif antialias:
-        raise NotImplementedError("antialiased resize is not ported yet")
+        out = resize_bilinear_antialias(x, (h, w))
     elif method == "bicubic":
         out = resize_bicubic_matmul(x, (h, w))
     elif align_corners:

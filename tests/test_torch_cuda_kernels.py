@@ -79,6 +79,32 @@ def test_cuda_upsample_ce_matches_plain_version(cuda_device, shape, dtype):
     np.testing.assert_allclose(k_grad, r_grad, rtol=rtol, atol=1e-6)
 
 
+# the backbone zoo's paths: ConvNeXt-L + FaPN's os4 logits of 512x1024 crops
+# (the first non-square source on a path), Xception-65 + ASPP's os16 ones of
+# 512x512 crops
+ZOO_SHAPES = {
+    "convnext_fapn_8x128x256x19_to_512x1024": (8, 128, 256, 19, 512, 1024),
+    "xception_16x32x32x21_to_512": (16, 32, 32, 21, 512, 512),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", sorted(ZOO_SHAPES))
+def test_cuda_upsample_ce_matches_plain_version_at_zoo_shapes(cuda_device, shape, dtype):
+    """Loss rtol 1e-5; dsrc within 1e-4 (f32) or 1e-2 (bf16) of max |dsrc|,
+    as ``chip_smoke.py``'s UCE_TOL."""
+    src, labels = _data(cuda_device, *ZOO_SHAPES[shape])
+    src = src.to(dtype)
+    uce.reset_launch_counts()
+    k_loss, k_grad = _loss_and_grad(uce.upsample_cross_entropy, src, labels)
+    assert uce.LAUNCH_COUNTS == {"fwd": 1, "bwd": 1}
+    r_loss, r_grad = _loss_and_grad(uce.upsample_cross_entropy_reference, src, labels)
+    np.testing.assert_allclose(k_loss, r_loss, rtol=1e-5)
+    rtol = 1e-4 if dtype == torch.float32 else 1e-2
+    np.testing.assert_allclose(k_grad, r_grad, rtol=0, atol=rtol * np.abs(r_grad).max())
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("ignore_label", [255, 0])
 def test_cuda_upsample_ce_odd_labels_match_plain_sums(cuda_device, ignore_label):

@@ -139,12 +139,29 @@ def test_torch_predict_dir_writes_one_png_per_image(png_dir, tmp_path):
     assert not (tmp_path / "p2").exists()
 
 
+# convnext_tiny at full width: --backbone_kwargs resets SMALL's MobileNetV2 ones
+ZOO_HEAD = ["--backbone", "convnext_tiny", "--backbone_kwargs", "{}", "--output_stride", "32",
+            "--fused_loss", "--epochs", "1", "--steps_per_epoch", "2"]
+
+
 @pytest.mark.parametrize("extra,error,match", [
-    (["--head", "fapn"], NotImplementedError, "item 23"),
-    (["--head", "nasfpn"], NotImplementedError, "item 23"),
+    (ZOO_HEAD + ["--head", "fapn"], None, None),
+    # NAS-FPN's P7 is os128 and its up-sampling a 2^k repeat: sides must be
+    # multiples of 128 (the eval images are crop + 32 = 160, at scale 0.8)
+    (ZOO_HEAD + ["--head", "nasfpn", "--crop", "128", "--eval_scales", "0.8"], None, None),
     (["--pretrained", "resnet50.h5"], SystemExit, "item 17"),
 ], ids=["fapn", "nasfpn", "pretrained"])
 def test_torch_train_seg_unported_options_raise(extra, error, match, tmp_path):
+    """``--pretrained`` (ROADMAP queue 1 item 17) raises before anything is
+    written. The heads ``fapn`` and ``nasfpn`` raised here until they were
+    ported (item 23): they now train ``convnext_tiny`` for two steps and
+    save the checkpoint of step 2."""
+    if error is None:
+        out = train_seg.main(SMALL + ["--ckpt_dir", str(tmp_path)] + extra)
+        assert out["step"] == 2 and ModelHelper(str(tmp_path)).all_steps() == [2]
+        assert all(np.isfinite(r["loss"]) for r in out["history"])
+        assert 0.0 <= out["miou"] <= 1.0
+        return
     with pytest.raises(error, match=match):
         train_seg.main(SMALL + ["--ckpt_dir", str(tmp_path)] + extra)
     assert ModelHelper(str(tmp_path)).all_steps() == []

@@ -198,8 +198,12 @@ def test_torch_bn_momentum_override_is_read_at_construction():
 
 
 def test_torch_unported_norms_raise():
-    with pytest.raises(NotImplementedError):
-        tnorm.normalization("group_norm")
+    """An unknown kind raises. The group, layer and RMS kinds raised here
+    until they were ported; they now build (``tests/test_torch_zoo_layers.py``
+    holds them against the JAX package)."""
+    assert isinstance(tnorm.normalization("group_norm")(32), tnorm.GroupNorm)
+    assert isinstance(tnorm.normalization("layer_norm")(8), tnorm.ChannelLayerNorm)
+    assert isinstance(tnorm.normalization("rms_norm")(8), tnorm.ChannelRMSNorm)
     with pytest.raises(ValueError):
         tnorm.normalization("nope")
 

@@ -364,6 +364,25 @@ def test_torch_bwd_tiling_at_the_main_path_shapes():
         assert nx_cap >= (tj + 1) * (512 // h) and kx_cap >= 2 * (512 // h)
 
 
+@pytest.mark.parametrize("n,h,w,c,big_h,big_w", [
+    (8, 128, 256, 19, 512, 1024), (16, 32, 32, 21, 512, 512), (2, 128, 128, 19, 512, 512),
+    (2, 64, 64, 19, 512, 512), (2, 32, 32, 19, 512, 512), (2, 16, 16, 19, 512, 512),
+], ids=["convnext_fapn", "xception", "fpn_b2", "nasfpn_b2", "mixer_b2", "moat_b2"])
+def test_torch_kernel_tilings_fit_the_zoo_shapes(n, h, w, c, big_h, big_w):
+    """The backbone zoo's loss shapes (ConvNeXt-L + FaPN's non-square
+    [8,128,256,19] -> [8,512,1024] first) find a tiling in both kernels'
+    host rules, so no shape of those paths raises "the shape's tiles do not
+    fit a block"; the backward's column tiles still cover the source and
+    its (column, class) owners fit one block."""
+    band, tj, tiles_x, rows, nx_cap, kx_cap = _bwd_tiling(n, h, w, c, big_w)
+    assert tj * c <= BWD_THREADS and tiles_x * tj >= w and rows >= 1 and band >= 1
+    assert nx_cap >= (tj + 1) * (big_w // w) and kx_cap >= 2 * (big_w // w)
+    fband, tw, ftiles_x, bands, frows, ncap, smem = _fwd_tiling(n, h, w, c, big_h, big_w,
+                                                                132 * 4)
+    assert ftiles_x * tw >= big_w and bands * fband >= n * big_h and frows >= 1
+    assert smem <= FWD_SMEM_MAX
+
+
 # ------------------------------------------------ the CUDA forward's algorithm
 #
 # The CUDA forward (``fwd_kernel`` of ``csrc/upsample_ce.cu``) is a
