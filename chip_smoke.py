@@ -49,9 +49,10 @@ LR decay; above 64 classes its loss is the unfused resize + CE (phase 12).
 Global attention is ``F.scaled_dot_product_attention`` (no TPU kernel
 computes it in the JAX package). Another path serves a language model:
 
-* Gemma: ``gemma_2b_en`` at its full width and depth (18 layers, hidden
-  2048, 8 heads over 1 KV head, head dim 256, FFN 16384, vocabulary 256000;
-  2.5 B parameters), bf16 parameters and KV cache, built on the card;
+* Gemma: ``gemma_2b_en`` at its full width (hidden 2048, 8 heads over 1 KV
+  head, head dim 256, FFN 16384, vocabulary 256000) with its depth cut from
+  18 to 6 layers (1.185 B parameters), bf16 parameters and KV cache, built on
+  the card;
   ``GemmaCausalLM.generate`` at batch 8, prompt 128, ``max_length`` 640,
   ``segment_len`` 256, with the beam search's per-step cache reorder by the
   cache-gather CUDA kernel.
@@ -93,8 +94,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    modulation), with offsets drawn beyond the clamp, and the backward's
    map-gradient kernel alone beside its own bound (``maps_kernel``); the
    beam cache gather,
-   bitwise, at Gemma-2B's active-cache shapes [8, nb, 18, 2, W, 1, 256] bf16
-   (nb 4 and 2, W 256 and 512) and at one odd f32 slab, with the
+   bitwise, at the Gemma path's active-cache shapes [8, nb, 6, 2, W, 1, 256]
+   bf16 and at Gemma-2B's full depth [8, nb, 18, 2, W, 1, 256] (nb 4 and 2, W
+   256 and 512) and at one odd f32 slab, with the
    advanced-indexing gather (its plain version), ``torch.take_along_dim``,
    ``torch.index_select`` of whole rows and ``out.copy_(cache)`` timed
    beside it;
@@ -260,7 +262,31 @@ Phases, in order; any failure raises and the script exits non-zero:
     MLP-Mixer-L/16 (built for 512x512) + ASPP, ConvNeXt-V2-L (os32) +
     SemanticFPN: wall ms, peak memory, finite losses, 1 + 1 launches a step.
     (4) and (5) take cuDNN's heuristic conv algorithms (no autotuning:
-    their few steps would spend most of their time timing algorithms).
+    their few steps would spend most of their time timing algorithms);
+14. pretrained weights: (1) a flat dict of ResNet-50's published names and
+    shapes (``tests/data/ref_weights/resnet50.txt``, values from seed 0)
+    ingested into phase 3's ResNet-50 os16 + ASPP on the card by
+    ``keras_resnet_name_map``: no backbone leaf unmatched, and one 256x256
+    image's fp32 logits within 1e-5 of max |logit| of the CPU port's ingest
+    of the same dict; (2) ``load_pretrained_backbone("intern_image_tiny")``
+    from InternImage-T's published names and shapes, the offset heads set
+    per stage, calibrated on a seeded batch of 2 at 512x512: stage 0 at r =
+    2, stage 1 at r = 4, stage 2 at r = 6, stage 3 on the gather sampler,
+    the table of blocks per (mode, r) printed; (3) one 512x512 image in
+    fp32: the calibrated backbone (the dense-local kernels at those radii,
+    26 launches) within 1e-5 of each max |output| of the same weights on
+    the gather sampler, the uncalibrated r = 2 model's gap printed; (4) the
+    calibrated model + ASPP(256), 19 classes, batch 8, bf16, SGD poly, fused
+    loss: 2 warm-up + 3 timed steps with exactly 26 + 26 dense-local and
+    1 + 1 loss launches in every step, ms/step, img/s, peak memory, then
+    served as phase 9 serves; (5) the dense-local kernels at stage 2's
+    shape in the autocast type mix at r = 1, 4 and 6 against their plain
+    versions, their rows added to the kernels line; (6) ``label_components``
+    on 8 random-blob 512x512 masks and one 512x512 serpentine, 4- and
+    8-connectivity: labels on the card equal the CPU port's, ms and
+    iterations printed.
+
+Every phase prints its seconds, and the run their sum.
 
 ``--ab OLD`` runs none of the phases. OLD is another checkout of the repo
 (for example the parent commit's ``git archive`` unpacked into the
@@ -280,6 +306,10 @@ shapes with ``index_select`` beside it, and the ResNet, Swin and InternImage
 train steps (2 warm-up + 3 or 5 timed steps each, then 3 profiled: the
 step's device time and its loss kernels', the loss forward's,
 window-attention and dense-local kernels', the dense-local forward's too),
+the dense-local backward and its d_x kernel alone at r = 4 and 6 on stages
+0-2, the InternImage step with phase 14's calibrated sampling (stage 0 at
+r = 2, stage 1 at r = 4, stage 2 at r = 6, stage 3 gathered; random
+weights),
 and the fp32 Swin train step (2 + 3, then 3 profiled: its device time and
 its window-attention kernels' time and share).
 The last line holds each number of the four processes, OLD's two and this
@@ -290,8 +320,9 @@ uninterrupted run, 5c's fixed-batch steps, its two train_seg runs together
 and its OHEM run, 6, 6b, 7, 8, 9, each request of 10, 11.1, each micro-step
 of 11.2, its resumed run, 11.3 and 11.4, 12.1 and 12.2 (and each of their
 steps), the patch-dropout step and each serve of 12.3, 13.1, 13.2, 13.4 and
-each model of 13.5, and each of their train steps) and read just after; a kernel of a path that was
-launched no time there fails the run. Third line from the end: a JSON object with one entry per kernel;
+each model of 13.5, and each of their train steps, 14.3's forward, each train step and
+each serve of 14.4) and read just after; a kernel of a path that was launched no time
+there fails the run. Third line from the end: a JSON object with one entry per kernel;
 then the card's name and power limit; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -299,6 +330,7 @@ then the card's name and power limit; the last line is
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import functools
 import json
 import math
@@ -322,7 +354,7 @@ if __name__ == "__main__" and sys.argv[1:2] == ["--ab-child"]:
 
 from iseg_tpu_torch.backbones import get_backbone
 from iseg_tpu_torch.backbones import swin as swin_module
-from iseg_tpu_torch.convert import batch_stats_tree, param_tree
+from iseg_tpu_torch.convert import batch_stats_tree, param_tree, to_flax
 from iseg_tpu_torch.core.checkpoint import ModelHelper
 from iseg_tpu_torch.core.env import EnvConfig, common_env_setup
 from iseg_tpu_torch.core.evaluation import bucket_padder, evaluate, make_eval_step
@@ -348,6 +380,7 @@ from iseg_tpu_torch.nlp.gemma.tokenizer import GemmaCausalLMPreprocessor, GemmaT
 from iseg_tpu_torch.nn import dcn as dcn_module
 from iseg_tpu_torch.nn.blocks import Dropout, DropPath, set_dropout_generator
 from iseg_tpu_torch.nn.heads import ASPP, SemanticFPN, SimpleDecoder
+from iseg_tpu_torch.nn.initializers import initialize
 from iseg_tpu_torch.ops.kernels import _build
 from iseg_tpu_torch.ops.kernels import cache_gather as cg
 from iseg_tpu_torch.ops.kernels import deform_local as dl
@@ -461,14 +494,39 @@ UCE_SHAPES = (("resnet", R_BATCH, HW // R_OS, R_CLASSES), ("swin", S_BATCH, HW /
 # logits of VOC's 512x512 crops (the ResNet path's geometry)
 UCE_ZOO_SHAPES = (("convnext_fapn", 8, 128, 256, 19, (512, 1024)),
                   ("xception", 16, 32, 32, 21, (512, 512)))
-# Gemma path: gemma_2b_en served at batch 8, prompt 128, 512 generated slots
+# Gemma path: gemma_2b_en at full width, its depth cut from 18 to G_LAYERS layers
+# (phase 10 was the run's dearest path), served at batch 8, prompt 128, 512
+# generated slots
 G_PRESET, G_BATCH, G_PROMPT, G_MAX_LENGTH, G_SEGMENT = "gemma_2b_en", 8, 128, 640, 256
+G_LAYERS = 6
 G_CONTRASTIVE_K = 5
 G_TEXT_PROMPT, G_TEXT_MAX_LENGTH = 24, 56  # the tokenizer round trip, ragged prompts
 # active KV cache of the segmented beam search: [B, nb, layers, 2, W, kv heads, head dim]
+# (the Gemma path's depth, then gemma_2b_en's full depth, which --ab times)
+CG_PATH_SHAPES = tuple((f"beam{nb} W={w} L={G_LAYERS}", (G_BATCH, nb, G_LAYERS, 2, w, 1, 256),
+                        torch.bfloat16) for nb in (4, 2) for w in (G_SEGMENT, 2 * G_SEGMENT))
 CG_SHAPES = tuple((f"beam{nb} W={w}", (G_BATCH, nb, 18, 2, w, 1, 256), torch.bfloat16)
                   for nb in (4, 2) for w in (G_SEGMENT, 2 * G_SEGMENT))
 CG_ODD_SHAPE = ("odd slab of 35 floats x 1031", (G_BATCH, 4, 1031, 5, 7), torch.float32)
+
+# phase 14: pretrained weights. 14.1 holds ResNet-50 os16 + ASPP's fp32 logits on
+# the card to the CPU port's at 256x256; 14.2 calibrates InternImage-T on a batch of
+# 2 at 512x512, its offset heads set per stage (raw bias, kernels scaled down) so
+# that stage s lands on P_EXPECT[s]: the recommended r is ceil(max |effective
+# offset| + 0.5), and the reference's half-pixel base alone spans -1.49 .. 0.49 px
+# on these maps, so no constant bias gives r = 1 (the least is r = 2, at a bias
+# near 0.5); 14.4 trains the calibrated model at batch 8, 19 classes
+REF_WEIGHTS = pathlib.Path(__file__).resolve().parent / "tests" / "data" / "ref_weights"
+P_HEADLINE_HW = 256
+P_CALIB_BATCH = 2
+P_OFFSET_BIAS = (0.5, 2.6, 4.8, 8.0)
+P_OFFSET_KERNEL_SCALE = 0.05
+P_EXPECT = (("dense_local_ref", 2), ("dense_local_ref", 4), ("dense_local_ref", 6),
+            ("gather", None))
+P_BATCH, P_CLASSES, P_WARMUP, P_TIMED = 8, 19, 2, 3
+P_RADII = (1, 4, 6)  # 14.5's kernel rows at stage 2's shape
+AB_DL_RADII = (4, 6)  # --ab's dense-local backward rows at the calibrated radii
+CCL_BATCH, CCL_HW, CCL_SNAKE_RUNS = 8, 512, 9
 
 # Published peaks of one H100 SXM at its 700 W limit: HBM3 bytes/s, and
 # FLOP/s for fp32 inputs (outside the tensor cores) and bf16 inputs
@@ -565,6 +623,15 @@ T_CARD_VS_CPU_RTOL = 1e-3
 # off) against the CPU port's, the same weights and image, relative to max
 # |logit|: fp32 sums in other orders
 C_CARD_VS_CPU_RTOL = 1e-5
+# 14.1: the ingested ResNet-50 + ASPP's fp32 logits on the card (cuDNN with TF32
+# off) against the CPU port's, the same dict, image and head draws: fp32 sums in
+# other orders, relative to max |logit|
+P_CARD_VS_CPU_RTOL = 1e-5
+# 14.3: the calibrated InternImage-T (dense-local kernels) against the same
+# weights on the gather sampler, fp32 on the card, relative to each max |output|:
+# the two sum the same bilinear taps in other orders (the JAX package's own
+# criterion, tests/test_dcn_autocalib.py)
+P_CALIB_VS_GATHER_RTOL = 1e-5
 
 
 def log(msg: str) -> None:
@@ -1119,11 +1186,12 @@ def dl_maps_bound(x, maps, groups: int, corners: int) -> tuple[float, str]:
 DL_MAPS_KERNEL = "dl_bwd_maps_kernel"
 
 
-def dl_corner_count(x, off_dy, off_dx) -> int:
+def dl_corner_count(x, off_dy, off_dx, r: int = DL_MAX_OFFSET) -> int:
     """(pixel, group, tap, corner) quadruples inside the map with a non-zero
-    bilinear weight: the rows this run's offsets make the sampler read."""
+    bilinear weight at clamp ``r``: the rows this run's offsets make the
+    sampler read."""
     _, h, w, _ = x.shape
-    k, r = DL_KERNEL, DL_MAX_OFFSET
+    k = DL_KERNEL
     groups = off_dy.shape[3] // (k * k)
     tap = torch.arange(k, dtype=torch.float32, device=x.device) - (k - 1) // 2
 
@@ -1140,9 +1208,10 @@ def dl_corner_count(x, off_dy, off_dx) -> int:
     return int((rows * cols).sum())
 
 
-def dl_inputs(device, side, channels, groups, mix, seed=0):
+def dl_inputs(device, side, channels, groups, mix, seed=0, spread=DL_MAX_OFFSET + 1):
     """x, off_dy, off_dx, modulation, g_out of a dense-local layer at batch
-    I_BATCH (see :func:`check_deform_local` for ``mix``)."""
+    I_BATCH (see :func:`check_deform_local` for ``mix``), the offsets drawn
+    in +-``spread``."""
     kk = DL_KERNEL * DL_KERNEL
     gen = torch.Generator(device=device).manual_seed(seed)
     shape, mshape = (I_BATCH, side, side, channels), (I_BATCH, side, side, groups * kk)
@@ -1150,23 +1219,25 @@ def dl_inputs(device, side, channels, groups, mix, seed=0):
     x = torch.randn(shape, generator=gen, device=device).to(vtype)
     if mix == "mixed":
         x = x.transpose(1, 2)
-    off_dy = 6.0 * torch.rand(mshape, generator=gen, device=device) - 3.0
-    off_dx = 6.0 * torch.rand(mshape, generator=gen, device=device) - 3.0
+    off_dy = spread * (2.0 * torch.rand(mshape, generator=gen, device=device) - 1.0)
+    off_dx = spread * (2.0 * torch.rand(mshape, generator=gen, device=device) - 1.0)
     mod = torch.softmax(torch.randn((I_BATCH, side, side, groups, kk), generator=gen,
                                     device=device), dim=-1).reshape(mshape).to(vtype)
     g_out = torch.randn(shape, generator=gen, device=device).to(vtype)
     return x, off_dy, off_dx, mod, g_out
 
 
-def check_deform_local(device, stage, side, channels, groups, mix, seed=0) -> dict:
+def check_deform_local(device, stage, side, channels, groups, mix, seed=0,
+                       r: int = DL_MAX_OFFSET) -> dict:
     """Forward and the four gradients of the dense-local kernels against
     their plain versions, with times. ``mix`` is "f32" (everything float32,
     contiguous) or "mixed", what a DCNv3 layer under bf16 autocast gives in
     "dense_local_ref" mode: bf16 values as a spatial transpose view, fp32
-    effective offsets, bf16 modulation. Offsets are drawn in +-3 for a clamp
-    of +-2."""
-    k, r = DL_KERNEL, DL_MAX_OFFSET
-    x, off_dy, off_dx, mod, g_out = dl_inputs(device, side, channels, groups, mix, seed)
+    effective offsets, bf16 modulation. Offsets are drawn in +-(r + 1) for
+    a clamp of +-r."""
+    k = DL_KERNEL
+    x, off_dy, off_dx, mod, g_out = dl_inputs(device, side, channels, groups, mix, seed,
+                                              spread=r + 1)
     name = (f"{stage} x=[{I_BATCH},{side},{side},{channels}] G={groups} K={k} r={r} "
             f"{'f32' if mix == 'f32' else 'bf16 x^T + f32 offsets + bf16 modulation'}")
     args = (groups, k, r)
@@ -1221,7 +1292,7 @@ def check_deform_local(device, stage, side, channels, groups, mix, seed=0) -> di
     bwd_dev = device_ms(run_grad, setup=grad_setup)
     bwd_held = held_ms(run_grad, setup=grad_setup)
     maps_dev = kernel_device_ms(run_grad, DL_MAPS_KERNEL, setup=grad_setup)
-    corners = dl_corner_count(x, off_dy, off_dx)
+    corners = dl_corner_count(x, off_dy, off_dx, r)
     fwd_bound, fwd_by = dl_bound(x, (off_dy, off_dx, mod), groups, corners, backward=False)
     bwd_bound, bwd_by = dl_bound(x, (off_dy, off_dx, mod), groups, corners, backward=True)
     maps_bound, maps_by = dl_maps_bound(x, (off_dy, off_dx, mod), groups, corners)
@@ -1335,7 +1406,7 @@ def phase_kernels(device) -> list[dict]:
         "advanced-indexing gather, torch.take_along_dim and torch.index_select of whole "
         "rows, timed here and used nowhere on the segmented path")
     cg_rows = []
-    for name, shape, dtype in (*CG_SHAPES, CG_ODD_SHAPE):
+    for name, shape, dtype in (*CG_PATH_SHAPES, *CG_SHAPES, CG_ODD_SHAPE):
         cg_rows.append(check_cache_gather(device, name, shape, dtype))
         torch.cuda.empty_cache()
 
@@ -2825,9 +2896,11 @@ def profile_gemma_decode(lm, prompt, lengths, step_ms: float, steps: int = 24) -
 
 
 def phase_gemma_serve(device, profile: bool) -> dict[str, dict[str, int]]:
-    log(f"== phase 10: Gemma serve ({G_PRESET}, full width and depth, bf16, batch {G_BATCH}, "
-        f"prompt {G_PROMPT}, max_length {G_MAX_LENGTH}, segment_len {G_SEGMENT})")
-    cfg = get_preset(G_PRESET)
+    log(f"== phase 10: Gemma serve ({G_PRESET} at full width, {G_LAYERS} of its 18 layers, "
+        f"bf16, batch {G_BATCH}, prompt {G_PROMPT}, max_length {G_MAX_LENGTH}, "
+        f"segment_len {G_SEGMENT})")
+    published = get_preset(G_PRESET)
+    cfg = dataclasses.replace(published, num_layers=G_LAYERS)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     lm = GemmaCausalLM(cfg, dtype=torch.bfloat16, param_dtype=torch.bfloat16, device=device)
@@ -2839,8 +2912,8 @@ def phase_gemma_serve(device, profile: bool) -> dict[str, dict[str, int]]:
         f"{time.perf_counter() - t0:.2f} s; memory held {torch.cuda.memory_allocated() / 2**30:.2f} "
         f"GiB (the fp32 copy of the embedding table for the readout, "
         f"{cfg.vocab_size * cfg.hidden_dim * 4 / 2**30:.2f} GiB, is made at the first readout)")
-    if (cfg.num_layers, cfg.hidden_dim, cfg.vocab_size) != (18, 2048, 256000):
-        raise AssertionError("the Gemma path must run at gemma_2b_en's published size")
+    if (published.num_layers, cfg.hidden_dim, cfg.vocab_size) != (18, 2048, 256000):
+        raise AssertionError("the Gemma path must run at gemma_2b_en's published width")
 
     # (a) text in, text out, ragged prompts
     t0 = time.perf_counter()
@@ -3700,6 +3773,287 @@ def phase_zoo(env) -> dict[str, dict]:
     return paths
 
 
+# ------------------------------------------ pretrained weights (phase 14)
+# (the modules these phases need are imported in them: --ab runs this file's
+# code on trees from before those modules)
+
+def published_weights(inventory: str, seed: int = 0) -> dict[str, np.ndarray]:
+    """A flat ``{name: array}`` of one published checkpoint: the reference's
+    names and shapes from ``tests/data/ref_weights/<inventory>.txt``, the
+    values drawn from ``seed``. Kernels are N(0, 1/fan_in) (a depthwise
+    ``[H, W, C, 1]`` kernel's fan-in is H*W), scales (``gamma*``) and moving
+    variances uniform in [0.5, 1.5), every other vector N(0, 0.02^2)."""
+    rng = np.random.RandomState(seed)
+    out: dict[str, np.ndarray] = {}
+    for line in (REF_WEIGHTS / f"{inventory}.txt").read_text().splitlines():
+        name, dims = line.rsplit(" ", 1)
+        shape = tuple(int(d) for d in dims.split(","))
+        leaf = name.rsplit("/", 1)[-1]
+        if len(shape) >= 2:
+            fan_in = np.prod(shape[:2] if len(shape) == 4 and shape[3] == 1 else shape[:-1])
+            value = rng.standard_normal(shape) / np.sqrt(fan_in)
+        elif leaf.startswith("gamma") or leaf == "moving_variance":
+            value = rng.uniform(0.5, 1.5, shape)
+        else:
+            value = 0.02 * rng.standard_normal(shape)
+        out[name] = value.astype(np.float32)
+    return out
+
+
+def intern_weights_with_offsets(seed: int = 0) -> dict[str, np.ndarray]:
+    """InternImage-T's published weights (:func:`published_weights`) with
+    each stage's offset heads set so that calibration lands on another
+    outcome: the head's bias ``P_OFFSET_BIAS[stage]`` and its kernel scaled
+    by ``P_OFFSET_KERNEL_SCALE`` (the input-dependent part of the offsets a
+    few hundredths of a pixel)."""
+    from iseg_tpu_torch.core.h5_ingest import canonical_ref_name
+
+    weights = published_weights("intern_image_tiny", seed)
+    for name in weights:
+        canon = canonical_ref_name(name, drop_root=True)  # block.{s}/layer.{i}/dcn/offset/bias
+        if "/dcn/offset/" not in canon:
+            continue
+        stage = int(canon.split("/")[0].split(".")[1])
+        if canon.endswith("/bias"):
+            weights[name] = np.full_like(weights[name], P_OFFSET_BIAS[stage])
+        else:
+            weights[name] = weights[name] * P_OFFSET_KERNEL_SCALE
+    return weights
+
+
+def max_rel_err(got, want) -> tuple[float, float]:
+    """Max |got - want| and max |want| over a tensor or a list of them."""
+    got = got if isinstance(got, (list, tuple)) else [got]
+    want = want if isinstance(want, (list, tuple)) else [want]
+    err = max(float((a.float().cpu() - b.float().cpu()).abs().max()) for a, b in zip(got, want))
+    return err, max(float(b.float().abs().max()) for b in want)
+
+
+def phase_headline_ingest(env) -> None:
+    """14.1: ResNet-50 os16 + ASPP (phase 3's model) takes the published
+    ResNet-50 names by ``keras_resnet_name_map`` on the card, and its fp32
+    logits equal the CPU port's ingest of the same dict."""
+    from iseg_tpu_torch.core.h5_ingest import load_h5_weights_by_name
+    from iseg_tpu_torch.core.weight_maps import keras_resnet_name_map
+
+    log("-- 14.1: ResNet-50 os16 + ASPP from the published ResNet-50 names and shapes "
+        "(values from seed 0) by keras_resnet_name_map")
+    weights = published_weights("resnet50")
+    models = {}
+    for device in (env.device, torch.device("cpu")):
+        model = SegManaged(num_class=R_CLASSES, backbone=get_backbone("resnet50", output_stride=R_OS),
+                           head=ASPP(2048, filters=256)).to(device)
+        initialize(model, torch.Generator().manual_seed(0))  # the head's draws, on both devices
+        t0 = time.perf_counter()
+        mapping = keras_resnet_name_map(to_flax(model))
+        _, report = load_h5_weights_by_name(model, weights, name_map=mapping)
+        unmatched = [p for p in report["missing"] if "/backbone/" in p]
+        loaded = [p for p in report["loaded"] if "/backbone/" in p]
+        log(f"  {device.type}: {len(weights)} published weights -> {len(loaded)} backbone "
+            f"leaves loaded, {len(unmatched)} unmatched, {len(report['heuristic_fallback'])} "
+            f"outside the map, in {time.perf_counter() - t0:.2f} s")
+        if unmatched or len(loaded) != len(weights):
+            raise AssertionError(f"ResNet-50 ingest left backbone leaves unmatched: {unmatched[:6]}")
+        models[device.type] = model.eval()
+    image = torch.tensor(np.random.RandomState(0).rand(1, P_HEADLINE_HW, P_HEADLINE_HW, 3),
+                         dtype=torch.float32)
+    with torch.no_grad():
+        card = models["cuda"](image.to(env.device))
+        cpu = models["cpu"](image)
+    err, scale = max_rel_err(card, cpu)
+    log(f"  fp32 logits {tuple(card.shape)} on the card vs the CPU port: max abs diff {err:.3e} "
+        f"vs max |logit| {scale:.3e} (tol {P_CARD_VS_CPU_RTOL:g} of it)")
+    if not (bool(torch.isfinite(card).all()) and err <= P_CARD_VS_CPU_RTOL * scale):
+        raise AssertionError("the ingested ResNet-50's logits on the card disagree with the CPU's")
+
+
+def calibration_table(model) -> dict[tuple[str, int], list[str]]:
+    """Blocks by their pinned (mode, r)."""
+    table: dict[tuple[str, int], list[str]] = {}
+    for block, (mode, r) in sorted(model.dcn_overrides.items()):
+        table.setdefault((mode, r), []).append(block)
+    return table
+
+
+def phase_intern_ingest(env):
+    """14.2 and 14.3: InternImage-T by ``load_pretrained_backbone`` with its
+    DCN calibration on a seeded batch, then the calibrated backbone against
+    the gather-sampled one in fp32."""
+    from iseg_tpu_torch.backbones.pretrained import load_pretrained_backbone
+
+    log(f"-- 14.2: load_pretrained_backbone('intern_image_tiny') from the published names and "
+        f"shapes (offset-head biases {P_OFFSET_BIAS} by stage, kernels x{P_OFFSET_KERNEL_SCALE}), "
+        f"calibrated on a seeded batch of {P_CALIB_BATCH} x {HW}x{HW}")
+    weights = intern_weights_with_offsets()
+    gen = torch.Generator().manual_seed(1)
+    batch = (2.0 * torch.rand((P_CALIB_BATCH, 3, HW, HW), generator=gen) - 1.0).to(env.device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    backbone, report = load_pretrained_backbone("intern_image_tiny", weights, device=env.device,
+                                                calibration_input=batch)
+    torch.cuda.synchronize()
+    log(f"  built, ingested and calibrated in {time.perf_counter() - t0:.2f} s: "
+        f"{len(report['weights']['loaded'])} leaves loaded, "
+        f"{len(report['weights']['missing'])} unmatched")
+    if report["weights"]["missing"]:
+        raise AssertionError(f"InternImage-T ingest left leaves: {report['weights']['missing'][:6]}")
+    calib = report["dcn_calibration"]
+    by_stage = {}
+    for layer, rec in calib.items():
+        by_stage.setdefault(int(layer[5:layer.index("_")]), []).append(rec["max_offset_mag"])
+    for stage, mags in sorted(by_stage.items()):
+        log(f"  stage {stage}: max |effective offset| {min(mags):.4f} - {max(mags):.4f} over "
+            f"{len(mags)} blocks")
+    table = calibration_table(backbone)
+    log("  calibration: " + "; ".join(f"{mode} r={r}: {len(blocks)} blocks ({blocks[0]}..)"
+                                      for (mode, r), blocks in sorted(table.items())))
+    for stage, (mode, r) in enumerate(P_EXPECT):
+        got = {backbone.dcn_overrides[b] for b in backbone.dcn_overrides
+               if b.startswith(f"stage{stage}_")}
+        if {m for m, _ in got} != {mode} or (r is not None and {r_ for _, r_ in got} != {r}):
+            raise AssertionError(f"stage {stage} calibrated to {got}, expected {mode} r={r}")
+
+    log(f"-- 14.3: one {HW}x{HW} image in fp32 (TF32 off): the calibrated backbone (dense-local "
+        "kernels at the calibrated radii) against the same weights on the gather sampler")
+    backbone.eval()  # built in train mode: its drop-path layers would draw
+    gather = backbone.clone(dcn_sampling="gather", dcn_overrides=None)
+    uncalibrated = backbone.clone(dcn_sampling="dense_local_ref", dcn_overrides=None)
+    image = batch[:1]
+    dense_blocks = sum(len(b) for (mode, _), b in table.items() if mode == "dense_local_ref")
+    with torch.no_grad():
+        reset_launch_counts()
+        out = backbone(image)
+        torch.cuda.synchronize()
+        expect_launches("calibrated InternImage-T forward", read_launch_counts(),
+                        {"deform_local_fwd": dense_blocks})
+        ref = gather(image)
+        raw = uncalibrated(image)
+    err, scale = max_rel_err(out, ref)
+    raw_err, _ = max_rel_err(raw, ref)
+    log(f"  calibrated vs gather, over the 5 endpoints: max abs diff {err:.3e} vs max |output| "
+        f"{scale:.3e} (tol {P_CALIB_VS_GATHER_RTOL:g} of it); the uncalibrated r = "
+        f"{DL_MAX_OFFSET} model vs gather: {raw_err:.3e} ({raw_err / scale:.3e} of it)")
+    if not err <= P_CALIB_VS_GATHER_RTOL * scale:
+        raise AssertionError("the calibrated backbone disagrees with the gather sampler")
+    if not raw_err > 1e-3 * scale:
+        raise AssertionError("the r = 2 clamp should part from the gather sampler on these offsets")
+    del gather, uncalibrated, out, ref, raw
+    return backbone, table, dense_blocks
+
+
+def build_calibrated_model(env, backbone, fused: bool) -> SegManaged:
+    """14.4's model: the calibrated InternImage-T + ASPP(256), 19 classes,
+    its head drawn from seed 0."""
+    model = SegManaged(num_class=P_CLASSES, backbone=backbone.clone(),
+                       head=ASPP(backbone.out_channels, filters=256),
+                       upsample_logits=not fused, fuse_upsample_loss=fused)
+    gen = torch.Generator().manual_seed(0)
+    for name, child in model.named_children():
+        if name != "backbone":
+            initialize(child, gen)
+    return model.to(env.device, memory_format=torch.channels_last)
+
+
+def phase_calibrated_train_serve(env, backbone, dense_blocks: int) -> dict[str, dict]:
+    """14.4: the calibrated model trained (bf16 autocast, SGD poly, fused
+    loss) and served as phase 9 serves."""
+    log(f"-- 14.4: calibrated InternImage-T + ASPP(256) train, batch {P_BATCH}, {HW}x{HW}, "
+        f"{P_WARMUP} warm-up + {P_TIMED} timed steps; {dense_blocks} dense-local blocks")
+    data = synthetic_batch(env.device, P_BATCH, P_CLASSES)
+    model = build_calibrated_model(env, backbone, fused=True)
+    tx, _ = get_optimizer(param_tree(model), "sgd", learning_rate=0.01, train_steps=1000)
+    state = create_train_state(model, None, tx, initialized=True)
+    step_fn = make_train_step(model.build_loss_fn(), compute_dtype=env.compute_dtype)
+    state, losses, launches, step_ms = counted_train_steps(
+        state, step_fn, data, P_WARMUP, P_TIMED, P_BATCH,
+        {"upsample_ce_fwd": 1, "upsample_ce_bwd": 1, "deform_local_fwd": dense_blocks,
+         "deform_local_bwd": dense_blocks}, "calibrated InternImage train")
+    log(f"  calibrated step {step_ms:.2f} ms ({card_line()}); phase 8's step runs every block "
+        f"at r = {DL_MAX_OFFSET}")
+    serve = phase_serve(env, data, model, "calibrated InternImage",
+                        lambda env_, fused: build_calibrated_model(env_, backbone, fused),
+                        I_SERVE_BATCH, P_CLASSES, "deform_local_fwd", dense_blocks,
+                        (dcn_module, "dense_local_flat", dl.deform_dense_local_flat_reference))
+    return {"calibrated_intern_train": launches, "calibrated_intern_serve": serve}
+
+
+def phase_radii_rows(device) -> list[dict]:
+    """14.5: the dense-local kernels at stage 2's shape in the autocast type
+    mix at the radii calibration reaches."""
+    log(f"-- 14.5: dense-local kernels at stage 2's shape, r = {P_RADII} (offsets drawn in "
+        f"+-(r + 1); tol of max(1, max |plain|): {DL_TOL})")
+    rows = []
+    for r in P_RADII:
+        rows.append(check_deform_local(device, "stage2", 32, 256, 16, "mixed", r=r))
+        torch.cuda.empty_cache()
+    return rows
+
+
+def serpentine(side: int, runs: int) -> np.ndarray:
+    """Horizontal runs across the map joined at alternate ends: one
+    component whose far end lies ``runs * side`` pixels away."""
+    mask = np.zeros((side, side), bool)
+    rows = np.linspace(0, side - 1, runs).astype(int)
+    for i, y in enumerate(rows):
+        mask[y, :] = True
+        if i + 1 < len(rows):
+            mask[y:rows[i + 1] + 1, side - 1 if i % 2 == 0 else 0] = True
+    return mask
+
+
+def phase_ccl(device) -> None:
+    """14.6: ``label_components`` on the card against the CPU port."""
+    from iseg_tpu_torch.ops.ccl import label_components
+
+    log(f"-- 14.6: label_components on {CCL_BATCH} random-blob {CCL_HW}x{CCL_HW} masks and one "
+        f"{CCL_HW}x{CCL_HW} serpentine of {CCL_SNAKE_RUNS} runs, against the CPU port (exact)")
+    noise = torch.tensor(np.random.RandomState(0).standard_normal((CCL_BATCH, 1, CCL_HW, CCL_HW)),
+                         dtype=torch.float32)
+    smooth = F.avg_pool2d(noise, 15, stride=1, padding=7)[:, 0]
+    cases = {"blobs": smooth > 0.5 * smooth.std(),
+             "serpentine": torch.tensor(serpentine(CCL_HW, CCL_SNAKE_RUNS))}
+    for name, mask in cases.items():
+        for connectivity in (4, 8):
+            want, cpu_iters = label_components(mask, connectivity, return_iterations=True)
+            card_mask = mask.to(device)
+            label_components(card_mask, connectivity)  # warm-up
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got, iters = label_components(card_mask, connectivity, return_iterations=True)
+            torch.cuda.synchronize()
+            ms = 1e3 * (time.perf_counter() - t0)
+            components = int(torch.unique(want).numel()) - 1
+            log(f"  {name} {tuple(mask.shape)}, {connectivity}-connectivity: {components} "
+                f"components, {iters} iterations on the card ({cpu_iters} on the CPU), "
+                f"{ms:.2f} ms ({ms / iters:.4f} ms an iteration)")
+            if not torch.equal(got.cpu(), want):
+                raise AssertionError(f"label_components on the card differs from the CPU: {name}")
+
+
+def phase_pretrained(env) -> tuple[dict[str, dict], list[dict]]:
+    """Phase 14: pretrained-weight ingest with DCN calibration on the card.
+    Returns the launch counts by path and 14.5's kernel rows."""
+    log("== phase 14: pretrained-weight ingest (ResNet-50, InternImage-T with DCN calibration), "
+        "the calibrated model trained and served, dense-local kernels at the calibrated radii, "
+        "connected components")
+    t_phase = time.perf_counter()
+    phase_headline_ingest(env)
+    torch.cuda.empty_cache()
+    log(f"(14.1 done at {time.perf_counter() - t_phase:.1f} s)")
+    backbone, _, dense_blocks = phase_intern_ingest(env)
+    torch.cuda.empty_cache()
+    log(f"(14.3 done at {time.perf_counter() - t_phase:.1f} s)")
+    paths = phase_calibrated_train_serve(env, backbone, dense_blocks)
+    del backbone
+    torch.cuda.empty_cache()
+    log(f"(14.4 done at {time.perf_counter() - t_phase:.1f} s)")
+    rows = phase_radii_rows(env.device)
+    log(f"(14.5 done at {time.perf_counter() - t_phase:.1f} s)")
+    phase_ccl(env.device)
+    log(f"phase 14 took {time.perf_counter() - t_phase:.1f} s ({card_line()})")
+    return paths, rows
+
+
 # ------------------------------------------------------- two trees (--ab)
 
 def step_loss_ms(path: str, prof: dict) -> dict:
@@ -3786,6 +4140,27 @@ def ab_child() -> dict:
         row[f"dl_bwd_maps {stage} device ms"] = kernel_device_ms(
             run_grad, DL_MAPS_KERNEL, setup=grad_setup, **reps)
         torch.cuda.empty_cache()
+    # the backward at the radii phase 14's calibration pins (stage 1 at r = 4,
+    # stage 2 at r = 6) and at r = 6 on every stage with dense-local blocks
+    for stage, side, channels, groups, _ in DL_STAGES[:3]:
+        for r in AB_DL_RADII:
+            x, off_dy, off_dx, mod, g_out = dl_inputs(device, side, channels, groups, "mixed",
+                                                      spread=r + 1)
+            args = (groups, DL_KERNEL, r)
+
+            def grad_setup():
+                ins = [t.detach().requires_grad_(True) for t in (x, off_dy, off_dx, mod)]
+                return ins, dl.deform_dense_local_flat(*ins, *args)
+
+            def run_grad(arg):
+                ins, out = arg
+                torch.autograd.grad(out, ins, g_out)
+
+            row[f"dl_bwd {stage} r={r} device ms"] = device_ms(run_grad, setup=grad_setup,
+                                                               **reps)
+            row[f"dl_bwd_x {stage} r={r} device ms"] = kernel_device_ms(
+                run_grad, "dl_bwd_x_kernel", setup=grad_setup, **reps)
+            torch.cuda.empty_cache()
     for path, n, h, classes in UCE_SHAPES:
         src, labels = uce_inputs(device, n, h, classes)
         pair = unfused_pair(labels)
@@ -3871,6 +4246,33 @@ def ab_child() -> dict:
                 **step_loss_ms("intern", prof),
                 "intern launches": {key: launches[key] for key in
                                     ("deform_local_fwd", "deform_local_bwd")}})
+    del model, state, step_fn, prof
+    torch.cuda.empty_cache()
+    # the same step with phase 14's calibrated sampling (random weights: only
+    # the radii and the gather stage matter to the time)
+    overrides = {f"stage{s}_block{i}": (mode, r if r is not None else 9)
+                 for s, ((mode, r), (*_, blocks)) in enumerate(zip(P_EXPECT, DL_STAGES))
+                 for i in range(blocks)}
+    backbone = get_backbone("intern_image_tiny", dcn_sampling="auto", remat=False,
+                            dcn_overrides=overrides)
+    model = SegManaged(num_class=I_CLASSES, backbone=backbone,
+                       head=ASPP(backbone.out_channels, filters=256),
+                       upsample_logits=False, fuse_upsample_loss=True)
+    model = model.to(env.device, memory_format=torch.channels_last)
+    tx, _ = get_optimizer(param_tree(model), "sgd", learning_rate=0.01, train_steps=1000)
+    state = create_train_state(model, env.generator, tx)
+    step_fn = make_train_step(model.build_loss_fn(), compute_dtype=env.compute_dtype)
+    state, _, launches, step_ms = train_steps(state, step_fn, data, P_WARMUP, P_TIMED, I_BATCH)
+    prof = profile_steps(state, step_fn, data, "calibrated InternImage-T + ASPP train step",
+                         step_ms)
+    row.update({"calibrated intern step ms": step_ms,
+                "calibrated intern step device ms": prof["device_ms"],
+                "calibrated intern step dl_bwd_x ms": sum(
+                    ms for key, ms in prof["kernels"].items() if "dl_bwd_x" in key),
+                "calibrated intern step dl ms": sum(
+                    ms for key, ms in prof["kernels"].items() if "dl_" in key),
+                "calibrated intern launches": {key: launches[key] for key in
+                                               ("deform_local_fwd", "deform_local_bwd")}})
     return row
 
 
@@ -3902,52 +4304,71 @@ def main(argv: list[str]) -> int:
         print(json.dumps(ab_child()), flush=True)
         return 0
     profile = "--profile" in argv
-    phase_device()
+    t_run = time.perf_counter()
+    seconds = {}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        seconds[name] = time.perf_counter() - t0
+        log(f"(phase {name} took {seconds[name]:.1f} s; {time.perf_counter() - t_run:.1f} s "
+            "since the start)")
+        return out
+
+    timed("1", phase_device)
     env = common_env_setup(EnvConfig(random_seed=0, mixed_precision=True, device="cuda"))
     # time cuDNN's conv algorithms once for the fixed training shapes; the
     # choice, and so the bf16 sums after step 1, may differ from run to run
     torch.backends.cudnn.benchmark = True
     log(f"env: {env.describe()}")
     device = env.device
-    kernels = phase_kernels(device)
+    kernels = timed("2", phase_kernels, device)
 
-    data = synthetic_batch(device, R_BATCH, R_CLASSES)
-    fused_model, init_weights, init_dropout, first_loss, by_path, resnet_ms = \
-        phase_resnet_train(env, data)
+    def resnet_phases():
+        data = synthetic_batch(device, R_BATCH, R_CLASSES)
+        fused_model, init_weights, init_dropout, first_loss, by_path, resnet_ms = \
+            phase_resnet_train(env, data)
+        serve_model = phase_resnet_unfused(env, data, init_weights, init_dropout, first_loss)
+        phase_resnet_serve(env, data, fused_model, serve_model)
+        return by_path, resnet_ms
+
+    by_path, resnet_ms = timed("3-5", resnet_phases)
     paths = {"resnet_train": by_path}
-    serve_model = phase_resnet_unfused(env, data, init_weights, init_dropout, first_loss)
-    phase_resnet_serve(env, data, fused_model, serve_model)
-    del fused_model, serve_model, init_weights, data
-    torch.cuda.empty_cache()
-    paths["system_train"] = phase_system(env, resnet_ms, profile)
-    torch.cuda.empty_cache()
-    paths.update(phase_examples(env, profile))
-    torch.cuda.empty_cache()
+    paths["system_train"] = timed("5b", phase_system, env, resnet_ms, profile)
+    paths.update(timed("5c", phase_examples, env, profile))
 
-    data = synthetic_batch(device, S_BATCH, S_CLASSES)
-    swin_model, paths["swin_train"] = phase_swin_train(env, data, profile)
-    paths["swin_serve"] = phase_swin_serve(env, data, swin_model)
-    del swin_model
-    torch.cuda.empty_cache()
-    paths["swin_train_f32"] = phase_swin_train_f32(data, profile)
-    torch.cuda.empty_cache()
+    def swin_phases():
+        data = synthetic_batch(device, S_BATCH, S_CLASSES)
+        swin_model, train = phase_swin_train(env, data, profile)
+        serve = phase_swin_serve(env, data, swin_model)
+        del swin_model
+        torch.cuda.empty_cache()
+        return {"swin_train": train, "swin_serve": serve,
+                "swin_train_f32": phase_swin_train_f32(data, profile)}
 
-    data = synthetic_batch(device, I_BATCH, I_CLASSES)
-    intern_model, paths["intern_train"] = phase_intern_train(env, data, profile)
-    paths["intern_serve"] = phase_intern_serve(env, data, intern_model)
-    del intern_model, data
-    torch.cuda.empty_cache()
+    paths.update(timed("6-7", swin_phases))
 
-    paths.update(phase_gemma_serve(device, profile))
-    torch.cuda.empty_cache()
+    def intern_phases():
+        data = synthetic_batch(device, I_BATCH, I_CLASSES)
+        intern_model, train = phase_intern_train(env, data, profile)
+        return {"intern_train": train, "intern_serve": phase_intern_serve(env, data, intern_model)}
 
-    paths.update(phase_hrnet(env, profile))
-    torch.cuda.empty_cache()
+    paths.update(timed("8-9", intern_phases))
+    paths.update(timed("10", phase_gemma_serve, device, profile))
+    paths.update(timed("11", phase_hrnet, env, profile))
+    paths.update(timed("12", phase_transformers, env))
+    paths.update(timed("13", phase_zoo, env))
+    pretrained_paths, radii_rows = timed("14", phase_pretrained, env)
+    paths.update(pretrained_paths)
+    log("phase seconds: " + json.dumps({k: round(v, 1) for k, v in seconds.items()})
+        + f"; {time.perf_counter() - t_run:.1f} s in all ({card_line()})")
 
-    paths.update(phase_transformers(env))
-    torch.cuda.empty_cache()
-
-    paths.update(phase_zoo(env))
+    # 14.5's rows at the calibrated radii join the dense-local entries' shapes
+    for k in kernels:
+        if k["name"] in ("deform_local_fwd", "deform_local_bwd"):
+            k["shapes"].extend(row[k["name"].rsplit("_", 1)[1]] for row in radii_rows)
 
     # the bf16 window-attention entries count two routes each (tensor cores and
     # CUDA cores), each with its count; the split-TF32 entries one
@@ -3986,6 +4407,9 @@ def main(argv: list[str]) -> int:
                                                  "window_attention_bwd_tf32x3"),
                "intern_train": loss_kernels + ("deform_local_fwd", "deform_local_bwd"),
                "intern_serve": ("deform_local_fwd",),
+               "calibrated_intern_train": loss_kernels + ("deform_local_fwd",
+                                                          "deform_local_bwd"),
+               "calibrated_intern_serve": ("deform_local_fwd",),
                "gemma_beam_serve": ("cache_gather",)}
     for path, names in on_path.items():
         for name in names:

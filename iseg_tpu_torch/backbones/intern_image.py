@@ -81,7 +81,8 @@ class InternImage(nn.Module):
     (``torch.utils.checkpoint``) instead of keeping its activations; the
     recompute draws the same drop-path masks. ``dcn_overrides`` maps a block
     name (``"stage{S}_block{I}"``) to its own ``(sampling,
-    max_local_offset)``."""
+    max_local_offset)``; :meth:`clone` rebuilds the backbone with other
+    arguments (flax's ``Module.clone``), as DCN calibration does."""
 
     def __init__(self, channels: int = 64, depths: Sequence[int] = (4, 4, 18, 4),
                  groups: Sequence[int] = (4, 8, 16, 32), mlp_ratio: float = 4.0,
@@ -91,6 +92,12 @@ class InternImage(nn.Module):
                  dcn_overrides: Optional[Mapping[str, tuple]] = None,
                  return_endpoints: bool = True):
         super().__init__()
+        self.config = dict(channels=channels, depths=tuple(depths), groups=tuple(groups),
+                           mlp_ratio=mlp_ratio, drop_path_rate=drop_path_rate,
+                           layer_scale=layer_scale, use_post_norm=use_post_norm, remat=remat,
+                           dcn_sampling=dcn_sampling, dcn_max_local_offset=dcn_max_local_offset,
+                           dcn_overrides=dcn_overrides, return_endpoints=return_endpoints)
+        self.dcn_overrides = dict(dcn_overrides) if dcn_overrides else None
         self.depths = tuple(depths)
         self.use_post_norm = use_post_norm
         self.remat = remat
@@ -125,6 +132,20 @@ class InternImage(nn.Module):
             self.endpoint_channels.append(dim)
         self.out_channels = self.endpoint_channels[-1]
         self.endpoint_strides = [2] + [4 * 2 ** s for s in range(len(self.depths))]
+
+    @torch.no_grad()
+    def clone(self, **changes) -> "InternImage":
+        """A new InternImage built with this one's arguments and ``changes``
+        (for example ``dcn_overrides``), holding copies of this one's
+        parameters and buffers on their devices, in their dtypes and memory
+        formats, in this one's train or eval mode, its drop-path layers
+        drawing from the same generators."""
+        new = InternImage(**{**self.config, **changes})
+        new.load_state_dict({k: v.clone() for k, v in self.state_dict().items()}, assign=True)
+        for mine, theirs in zip(new.modules(), self.modules()):
+            if isinstance(mine, DropPath):
+                mine.generator = theirs.generator
+        return new.train(self.training)
 
     def _run_block(self, block: InternImageBlock, x: torch.Tensor) -> torch.Tensor:
         if not (self.remat and torch.is_grad_enabled()):

@@ -559,16 +559,21 @@ __global__ void __launch_bounds__(kMapsMaxThreads, kFwdBlocksPerSM)
 // A block owns a th x tw tile of input pixels q of one image, for one group.
 // The sources q - o of its sums lie in the tile grown by lim = half + r on
 // every side (the halo). In shared memory:
-//   wsum[o][p]  fp32, the weight w_o[p, g] of every displacement o (span^2 of
-//               them, span = 2 lim + 1) at every halo pixel p: o-major, so
-//               that neighbouring pixels are neighbouring words;
+//   wsum[o][q]  fp32, the weight w_o[q - o, g] that tile pixel q takes from
+//               its source q - o, for every displacement o (span^2 of them,
+//               span = 2 lim + 1): o-major, so that neighbouring tile pixels
+//               are neighbouring words. Only the (o, q) pairs of the tile are
+//               held, span^2 th tw words: holding w_o at every halo pixel
+//               instead (span^2 times the halo) left no tile but 1 x 1
+//               within a block at r = 6, 30 times slower than r = 4;
 //   gs[p][c]    the incoming gradient of the halo pixels, `slab` channels of
 //               the group at a time, in its own type; in phase 1 the same
 //               bytes hold each warp's staging rows of the maps.
 // Phase 1: the block clears wsum (16-byte stores); then the thread that
 // owns halo pixel p walks its taps in order, splits each into its <= 2 x 2
-// corners (Tap) and adds m * wy * wx to the corner's displacement, so every
-// weight is the sum over taps in tap order, computed once. With K = 3 a
+// corners (Tap) and adds m * wy * wx to the corner's displacement o at the
+// tile pixel q = p + o (skipped where q lies outside the tile), so every
+// weight is the sum over p's taps in tap order, computed once. With K = 3 a
 // warp first loads its 32 pixels' 9 taps of each map together, consecutive
 // lanes on consecutive taps (a pixel's taps are contiguous), and passes
 // them to their owners through its staging row: with one pixel a lane,
@@ -584,14 +589,13 @@ __global__ void __launch_bounds__(kMapsMaxThreads, kFwdBlocksPerSM)
 // words of wsum and one contiguous run of gs; th the largest of 16, 8, 4,
 // 2, 1 whose shared memory fits two blocks on an SM (kDxSmemBudget), with
 // smaller widths after that for reaches that need them. At InternImage's K
-// = 3, r = 2 (span 7, 49 weights of 196 bytes per halo pixel) and 16 bf16
-// channels per group, a 16 x 16 tile has a 22 x 22 halo: 94,864 bytes of
+// = 3, r = 2 (span 7, 49 weights of 196 bytes per tile pixel) and 16 bf16
+// channels per group, a 16 x 16 tile has a 22 x 22 halo: 50,176 bytes of
 // weights and 18,432 of gradient and staging, two blocks of 512 threads per
-// SM; each source pixel's weights are computed 1.9 times (484 / 256),
-// against 49 times in a per-pixel gather. An 8 x 8 tile (196 halo pixels,
-// 3.1 times) would fit four blocks of fewer threads; the larger tile does
-// less redundant work for the same occupancy. fp32 values take 8 x 16 (a
-// 14 x 22 halo) within the same budget.
+// SM; each source pixel's taps are read 1.9 times (484 / 256), against 49
+// times in a per-pixel gather. fp32 values take the same tile. At r = 6
+// (span 15, 225 weights of 900 bytes per tile pixel) a 4 x 16 tile fits
+// two blocks (57,600 bytes of weights).
 struct DxTiling {
   int th, tw;          // input pixels of a tile
   int lim, span;       // reach half + r of the displacements, and 2 lim + 1
@@ -640,21 +644,27 @@ __global__ void __launch_bounds__(kDxMaxThreads, 2)
     reinterpret_cast<uint4*>(dl_smem)[e] = make_uint4(0u, 0u, 0u, 0u);
   __syncthreads();
   float* stage = reinterpret_cast<float*>(gs) + warp * 32 * kDxTaps;
+  const int tile_px = t.th * t.tw;
   for (int first = warp * 32; first < t.halo; first += blockDim.x) {
     const int hp = first + lane;
     const int64_t mine = map_base(hp);
-    float* row = wsum + hp;
+    // halo pixel (hy, hx) is tile pixel (hy - lim, hx - lim); displacement
+    // index (oi, oj) = (o_y + lim, o_x + lim) lands on tile pixel
+    // (hy + oi - 2 lim, hx + oj - 2 lim)
+    const int hy = hp / t.halo_w, hx = hp - hy * t.halo_w;
     auto add_tap = [&](int tap, float oy, float ox, float m) {
       const Tap tp(oy, ox, tap, g.K, r);
 #pragma unroll
       for (int cy = 0; cy < 2; ++cy) {
-        if (tp.wy[cy] == 0.f) continue;
+        const int oi = tp.iy + cy + t.lim, qy = hy + oi - 2 * t.lim;
+        if (tp.wy[cy] == 0.f || qy < 0 || qy >= t.th) continue;
         const float wy = m * tp.wy[cy];
-        float* line = row + (tp.iy + cy + t.lim) * t.span * t.halo;
+        float* line = wsum + oi * t.span * tile_px + qy * t.tw;
 #pragma unroll
         for (int cx = 0; cx < 2; ++cx) {
-          if (tp.wx[cx] == 0.f) continue;
-          float* cell = line + (tp.ix + cx + t.lim) * t.halo;
+          const int oj = tp.ix + cx + t.lim, qx = hx + oj - 2 * t.lim;
+          if (tp.wx[cx] == 0.f || qx < 0 || qx >= t.tw) continue;
+          float* cell = line + oj * tile_px + qx;
           *cell = fmaf(wy, tp.wx[cx], *cell);
         }
       }
@@ -719,7 +729,7 @@ __global__ void __launch_bounds__(kDxMaxThreads, 2)
       for (int oi = 0; oi < t.span; ++oi) {
         for (int oj = 0; oj < t.span; ++oj) {
           const int hp = hp0 - oi * t.halo_w - oj;
-          const float w = wsum[(oi * t.span + oj) * t.halo + hp];
+          const float w = wsum[(oi * t.span + oj) * tile_px + pix];
           float gv[V];
           load_vec<T, V>(gs + hp * t.slab + vec * V, gv);
 #pragma unroll
@@ -748,7 +758,7 @@ bool dx_tiling(const Geometry& g, int vec, int elem_bytes, DxTiling& t) {
       t.tw = tile[1];
       t.halo_w = t.tw + 2 * t.lim;
       t.halo = (t.th + 2 * t.lim) * t.halo_w;
-      t.w_bytes = (static_cast<size_t>(t.span) * t.span * t.halo * 4 + 15) / 16 * 16;
+      t.w_bytes = (static_cast<size_t>(t.span) * t.span * t.th * t.tw * 4 + 15) / 16 * 16;
       t.smem = t.w_bytes + max(static_cast<size_t>(t.halo) * t.slab * elem_bytes,
                                g.K * g.K == kDxTaps ? kDxStageBytes : size_t{0});
       if (t.smem > budget) continue;

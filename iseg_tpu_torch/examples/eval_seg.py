@@ -5,8 +5,10 @@ flip, sliding window, shape buckets). Reading PNGs needs PIL.
 
 Differences from the JAX example: ``--device`` (default ``cuda``; ``cpu``
 runs here) replaces ``--cpu``, and there is no device count to fit to the
-batch (one card); ``--weights_h5`` is not ported yet (ROADMAP queue 1 item
-17) and raises.
+batch (one card). ``--weights_h5`` takes a flat full-model ``.h5`` keyed by
+flax path (``save_h5_weights`` of either package writes one; reading it
+needs h5py), matched by the heuristic name matcher; an unmatched parameter
+stops the run.
 
 Examples:
   # VOC val, multi-scale + flip
@@ -35,7 +37,7 @@ def parse_args(argv=None):
     p.add_argument("--ignore_label", type=int, default=255)
     p.add_argument("--ckpt_dir", default=None, help="checkpoint dir written by train_seg")
     p.add_argument("--weights_h5", default=None,
-                   help="full-model flat .h5 (not ported yet: ROADMAP queue 1 item 17)")
+                   help="full-model flat .h5 keyed by flax path")
     p.add_argument("--batch", type=int, default=1)
     p.add_argument("--scales", default="1.0")
     p.add_argument("--flip", action="store_true")
@@ -51,10 +53,7 @@ def parse_args(argv=None):
 def main(argv=None) -> dict:
     """Evaluate and print one JSON line; returns the same dict."""
     args = parse_args(argv)
-    if args.weights_h5 and not args.ckpt_dir:
-        raise SystemExit("--weights_h5 (h5 ingest) is not ported to iseg_tpu_torch yet "
-                         "(ROADMAP queue 1 item 17)")
-    if not args.ckpt_dir:
+    if not (args.ckpt_dir or args.weights_h5):
         raise SystemExit("pass --ckpt_dir or --weights_h5")
 
     from iseg_tpu_torch.convert import batch_stats_tree, param_tree
@@ -69,12 +68,20 @@ def main(argv=None) -> dict:
     model = build_model(args.backbone, args.head, args.num_class, args.output_stride,
                         json.loads(args.backbone_kwargs), env.device,
                         ignore_label=args.ignore_label)
-    helper = ModelHelper(args.ckpt_dir)
-    variables = helper.restore_latest_variables(
-        {"params": param_tree(model), "batch_stats": batch_stats_tree(model)})
-    if variables is None:
-        raise SystemExit(f"no checkpoint found in {args.ckpt_dir}")
-    print(f"restored step {helper.all_steps()[-1]} from {args.ckpt_dir}")
+    variables = {"params": param_tree(model), "batch_stats": batch_stats_tree(model)}
+    if args.ckpt_dir:
+        helper = ModelHelper(args.ckpt_dir)
+        variables = helper.restore_latest_variables(variables)
+        if variables is None:
+            raise SystemExit(f"no checkpoint found in {args.ckpt_dir}")
+        print(f"restored step {helper.all_steps()[-1]} from {args.ckpt_dir}")
+    else:
+        from iseg_tpu_torch.core.h5_ingest import load_h5_weights_by_name
+
+        _, report = load_h5_weights_by_name(model, args.weights_h5)
+        print(f"ingested {len(report['loaded'])} weights, {len(report['missing'])} unmatched")
+        if report["missing"]:
+            raise SystemExit(f"unmatched: {report['missing'][:6]}")
 
     config = SegModelInferenceConfig(
         scale_rates=tuple(float(s) for s in args.scales.split(",")),

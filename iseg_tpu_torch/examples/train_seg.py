@@ -14,8 +14,11 @@ runs here) replaces ``--cpu``; the checkpoint directory defaults to
 ``/tmp/iseg_tpu_torch_ckpt`` (the two packages' checkpoint formats differ);
 an MLP-Mixer backbone is built for ``--crop`` x ``--crop`` inputs unless
 ``--backbone_kwargs`` names its ``input_size`` (the JAX module takes the
-size of its first call); ``--pretrained`` is not ported yet and raises,
-naming its ROADMAP item.
+size of its first call). ``--pretrained`` takes a published backbone
+weight file (``.h5``, ``.keras`` or a TF checkpoint; reading one needs h5py
+or TensorFlow) and fills the backbone by its family's name map; the head
+keeps its seeded initialization, and a backbone parameter left unmatched
+stops the run before it trains.
 
 Examples:
   python -m iseg_tpu_torch.examples.train_seg --backbone mobilenetv2 --head simpledecoder \\
@@ -94,6 +97,33 @@ def build_model(backbone: str, head: str, num_class: int, output_stride: int = 1
     return model.to(device, memory_format=torch.channels_last)
 
 
+def ingest_pretrained(model, backbone: str, weights) -> dict:
+    """Initialize ``model`` (a ``SegManaged``) from seed 0 as ``CoreTrain``
+    would, then fill its backbone from ``weights`` (a path or a flat
+    ``{name: array}`` mapping) by the family's name map; the head keeps its
+    initialization. Raises ``SystemExit`` when a backbone parameter finds
+    no weight, so a run never trains from a partial ingest. Returns the
+    ingest report."""
+    import torch
+
+    from iseg_tpu_torch.backbones.pretrained import name_map_for
+    from iseg_tpu_torch.convert import to_flax
+    from iseg_tpu_torch.core.h5_ingest import load_h5_weights_by_name
+    from iseg_tpu_torch.nn.initializers import initialize
+
+    initialize(model, torch.Generator().manual_seed(0))
+    map_fn = name_map_for(backbone)
+    mapping = map_fn(to_flax(model)) if map_fn is not None else None
+    _, report = load_h5_weights_by_name(model, weights, name_map=mapping)
+    backbone_missing = [m for m in report["missing"] if "/backbone/" in m]
+    print(f"pretrained ingest: {len(report['loaded'])} loaded, "
+          f"{len(backbone_missing)} backbone params unmatched")
+    if backbone_missing:
+        raise SystemExit("unmatched backbone params, refusing to silently train from "
+                         f"partial init: {backbone_missing[:6]}")
+    return report
+
+
 def parse_args(argv=None):
     p = argparse.ArgumentParser()
     p.add_argument("--backbone", default="mobilenetv2")
@@ -115,8 +145,7 @@ def parse_args(argv=None):
     p.add_argument("--data_dir", default=None,
                    help="dir with images/ and labels/ subdirs; synthetic if unset")
     p.add_argument("--pretrained", default=None,
-                   help="published backbone weight file (not ported yet: ROADMAP queue 1 "
-                        "item 17)")
+                   help="published backbone weight file (.h5, .keras or TF checkpoint)")
     p.add_argument("--ckpt_dir", default="/tmp/iseg_tpu_torch_ckpt")
     p.add_argument("--eval_scales", default="1.0")
     p.add_argument("--flip_eval", action="store_true")
@@ -129,9 +158,6 @@ def main(argv=None) -> dict:
     per-class IoU and the host-clock ms/step of the epochs after this run's
     first (host batch preparation and augment included)."""
     args = parse_args(argv)
-    if args.pretrained:
-        raise SystemExit("--pretrained (h5 ingest) is not ported to iseg_tpu_torch yet "
-                         "(ROADMAP queue 1 item 17)")
     from iseg_tpu_torch.convert import param_tree
     from iseg_tpu_torch.core.checkpoint import ModelHelper
     from iseg_tpu_torch.core.env import EnvConfig, common_env_setup
@@ -150,6 +176,8 @@ def main(argv=None) -> dict:
                         backbone_kwargs, env.device, use_ohem=args.ohem,
                         upsample_logits=not args.fused_loss,
                         fuse_upsample_loss=args.fused_loss)
+    if args.pretrained:
+        ingest_pretrained(model, args.backbone, args.pretrained)
     tx, schedule = get_optimizer(
         param_tree(model), args.optimizer, learning_rate=args.lr,
         train_steps=args.epochs * args.steps_per_epoch,
@@ -191,7 +219,7 @@ def main(argv=None) -> dict:
 
     trainer = CoreTrain(env, model, tx,
                         checkpoint_manager=ModelHelper(args.ckpt_dir, max_to_keep=2),
-                        log_every=10, lr_schedule=schedule)
+                        log_every=10, lr_schedule=schedule, initialized=bool(args.pretrained))
     resumed = trainer.restore()
     history = trainer.train(dataset_fn, epochs=args.epochs, steps_per_epoch=args.steps_per_epoch,
                             # exact-step resume: the epoch (and the consumed

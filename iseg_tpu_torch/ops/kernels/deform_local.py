@@ -26,10 +26,11 @@ three kernels work from tiles in shared memory: the forward and the map
 gradients take their corner rows from x staged over a tile grown by the
 corners' reach (the forward forms each tap's corner and weights once, then
 sums the rows per pixel, group and channel vector), the input gradient is a
-tiled gather that holds a tile's displacement weights. A reach
-``(K - 1) / 2 + max_offset`` above 7, whose weights would not fit a block
-even for one pixel, raises too (in the backward), and so do more than 288
-taps a group (K above 16) or a group too wide for a one-pixel tile of x.
+tiled gather that holds the displacement weights of its tile's pixels. A
+reach ``(K - 1) / 2 + max_offset`` whose tiles would not fit a block even
+for one pixel raises too, and so do more than 288 taps a group (K above 16)
+or a group too wide for a one-pixel tile of x. DCN calibration pins radii
+up to 6 (reach 7 at K = 3).
 
 The backward is hand-written on both devices (the saved tensors are the
 four inputs; the weights are recomputed) and follows the JAX VJP's

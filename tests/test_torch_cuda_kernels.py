@@ -856,6 +856,41 @@ def test_cuda_deform_local_nan_outside_the_map_stays_out_of_the_gradients(cuda_d
         assert float((a.float() - b_.float()).abs().max()) <= tol, name
 
 
+# the radii DCN calibration pins (r = 1 ... 6) and one beyond, at InternImage-T's
+# stage 0 and stage 2 geometries (one image) and at an odd side
+DL_RADII_SHAPES = {"stage0": (1, 128, 128, 4), "stage2": (2, 32, 32, 16),
+                   "odd_side_37x23": (1, 37, 23, 8)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("types", ["f32", "autocast_ref_mix"])
+@pytest.mark.parametrize("r", [1, 3, 4, 5, 6, 7])
+@pytest.mark.parametrize("shape", sorted(DL_RADII_SHAPES))
+def test_cuda_deform_local_matches_plain_version_at_calibrated_radii(cuda_device, shape, r,
+                                                                     types):
+    """The forward and all four gradients at every clamp radius calibration
+    can pin, offsets drawn in +-(r + 1), against the plain versions; the
+    d_x kernel holds only its tile's weights, so its tiles stay 4 x 16 or
+    larger up to r = 7 (at r = 6 it ran 1 x 1 tiles before, 14 - 58 ms at
+    InternImage-T's stages on an H100); bitwise equal to itself on a second
+    run."""
+    b, h, w, groups = DL_RADII_SHAPES[shape]
+    x_dtype, map_dtypes = DL_TYPES[types]
+    args = _dl_inputs(cuda_device, b, h, w, groups, 16, 3, x_dtype, map_dtypes,
+                      spread=r + 1.0, transposed=types != "f32")
+    dl.reset_launch_counts()
+    got = _dl_kernel(*args, groups, 3, r)
+    again = _dl_kernel(*args, groups, 3, r)
+    assert dl.LAUNCH_COUNTS == {"fwd": 2, "bwd": 2}
+    want = _dl_plain(*args, groups, 3, r)
+    for name, a, a2, b_ in zip(("out", "d_x", "d_off_dy", "d_off_dx", "d_mod"), got, again,
+                               want):
+        assert torch.equal(a, a2), name
+        assert a.dtype == b_.dtype and a.is_contiguous(), name
+        tol = (2e-5 if a.dtype == torch.float32 else 1e-2) * max(1.0, float(b_.abs().max()))
+        assert float((a.float() - b_.float()).abs().max()) <= tol, name
+
+
 @pytest.mark.cuda
 def test_cuda_deform_local_rejects_wrong_inputs(cuda_device):
     x, off_dy, off_dx, mod, _ = _dl_inputs(cuda_device, 2, 6, 6, 2, 8, 3, F32, (F32,) * 3)

@@ -9,7 +9,9 @@ tiny size, and the port's import boundary.
   ``evaluate`` gives on the same data and weights (equal);
 * ``predict_dir`` writes one PNG per image at its size, and refuses a
   checkpoint directory without a checkpoint;
-* unported heads, ``--pretrained`` and ``--weights_h5`` raise;
+* ``--pretrained`` and ``--weights_h5`` stop before anything is written
+  when a weight file leaves a parameter unmatched (their ingest is held
+  against the JAX drivers in ``test_torch_pretrained.py``);
 * HRNet-W48 (reduced to one module a stage) trains through ``train_seg``
   with ``--head jpu --optimizer adamw`` and with ``--head fpn``;
 * a reduced ``verify_drive`` (2 x 3 steps, no mIoU threshold) restores its
@@ -149,13 +151,22 @@ ZOO_HEAD = ["--backbone", "convnext_tiny", "--backbone_kwargs", "{}", "--output_
     # NAS-FPN's P7 is os128 and its up-sampling a 2^k repeat: sides must be
     # multiples of 128 (the eval images are crop + 32 = 160, at scale 0.8)
     (ZOO_HEAD + ["--head", "nasfpn", "--crop", "128", "--eval_scales", "0.8"], None, None),
-    (["--pretrained", "resnet50.h5"], SystemExit, "item 17"),
+    (["--pretrained", "PARTIAL_H5"], SystemExit, "unmatched backbone params"),
 ], ids=["fapn", "nasfpn", "pretrained"])
 def test_torch_train_seg_unported_options_raise(extra, error, match, tmp_path):
-    """``--pretrained`` (ROADMAP queue 1 item 17) raises before anything is
-    written. The heads ``fapn`` and ``nasfpn`` raised here until they were
-    ported (item 23): they now train ``convnext_tiny`` for two steps and
-    save the checkpoint of step 2."""
+    """``--pretrained`` with a weight file that leaves backbone parameters
+    unmatched (here it holds one weight) stops before anything is written
+    (it raised for any file until the ingest was ported, item 17). The
+    heads ``fapn`` and ``nasfpn`` raised here until they were ported (item
+    23): they now train ``convnext_tiny`` for two steps and save the
+    checkpoint of step 2."""
+    if "PARTIAL_H5" in extra:
+        h5py = pytest.importorskip("h5py")
+        partial = tmp_path / "partial.h5"
+        with h5py.File(partial, "w") as f:
+            f.create_dataset("Conv1/kernel", data=np.zeros((3, 3, 3, 16), np.float32))
+        extra = [str(partial) if a == "PARTIAL_H5" else a for a in extra]
+        tmp_path = tmp_path / "ckpt"
     if error is None:
         out = train_seg.main(SMALL + ["--ckpt_dir", str(tmp_path)] + extra)
         assert out["step"] == 2 and ModelHelper(str(tmp_path)).all_steps() == [2]
@@ -181,8 +192,12 @@ def test_torch_train_seg_runs_hrnet_with_pyramid_heads(head, optimizer, tmp_path
 def test_torch_eval_seg_refuses_h5_and_missing_checkpoints(png_dir, tmp_path):
     base = ["--data_dir", str(png_dir), "--device", "cpu", "--backbone", "mobilenetv2",
             "--head", "simpledecoder", "--num_class", "3"]
-    with pytest.raises(SystemExit, match="item 17"):
-        eval_seg.main(base + ["--weights_h5", "model.h5"])
+    h5py = pytest.importorskip("h5py")
+    partial = tmp_path / "partial.h5"
+    with h5py.File(partial, "w") as f:
+        f.create_dataset("params/logits_conv/bias", data=np.zeros((3,), np.float32))
+    with pytest.raises(SystemExit, match="unmatched"):
+        eval_seg.main(base + ["--weights_h5", str(partial)])
     with pytest.raises(SystemExit, match="pass --ckpt_dir"):
         eval_seg.main(base)
     with pytest.raises(SystemExit, match="no checkpoint"):
@@ -204,15 +219,17 @@ _FORBIDDEN = r"\s*(import|from)\s+(jax|flax|optax|tensorflow|iseg_tpu)(\.|\s|$)"
 
 def test_torch_port_imports_no_jax():
     """No line of the port or of ``chip_smoke.py`` imports JAX, flax, optax,
-    TensorFlow (``data/tf_feeder.py`` imports it inside its functions) or
-    the JAX package; and importing every module of the port, in a fresh
-    interpreter, loads none of them."""
+    TensorFlow (``data/tf_feeder.py`` and ``core/h5_ingest.py`` import it
+    inside the functions that read TF records and TF checkpoints) or the JAX
+    package; and importing every module of the port, in a fresh interpreter,
+    loads none of them."""
     files = [*sorted((ROOT / "iseg_tpu_torch").rglob("*.py")), ROOT / "chip_smoke.py"]
     assert len(files) >= 60
     for path in files:
         for line in path.read_text().splitlines():
-            if path.name == "tf_feeder.py" and line.strip() == "import tensorflow as tf":
-                continue  # the lazy import, inside tfrecord_seg_dataset
+            if (path.name in ("tf_feeder.py", "h5_ingest.py")
+                    and line.strip() == "import tensorflow as tf"):
+                continue  # the lazy imports, in tfrecord_seg_dataset and read_tf_checkpoint_weights
             assert not re.match(_FORBIDDEN, line), f"{path}: {line}"
     code = (
         "import importlib, pkgutil, sys\n"
