@@ -284,7 +284,40 @@ Phases, in order; any failure raises and the script exits non-zero:
     versions, their rows added to the kernels line; (6) ``label_components``
     on 8 random-blob 512x512 masks and one 512x512 serpentine, 4- and
     8-connectivity: labels on the card equal the CPU port's, ms and
-    iterations printed.
+    iterations printed;
+15. data parallelism, each rank a process spawned here (``rank_main``,
+    joined with a time limit; a rank that fails or hangs fails the phase and
+    the others are killed): (1) phase 3's ResNet configuration from seed-0
+    weights over a global batch of 16 at world size 2, both ranks on this
+    card over gloo, SyncBN, the fused loss and SGD poly; the batch's two
+    halves have 50% and 5% of their pixels ignored (a mean of the halves'
+    own means is printed beside the global loss); in fp32 (TF32 off) the
+    first DP loss within rtol 1e-5 of one process's on the whole batch, the
+    state after steps 1 and 3 within fixed bounds (``DP_STATE_RTOL``, max
+    |diff| over max |value|) of one process's whose BatchNorm takes its
+    moments with SyncBN's arithmetic, while the same steps with a fault
+    planted (the loss as the mean of the ranks' means; SyncBN's backward
+    without its all-reduce) lie past the step-1 bound, the two ranks'
+    states equal bit for bit (sha256) after every step, 1 + 1 loss-kernel
+    launches a rank a step; then 3 bf16 steps' ms/step, two processes
+    sharing one card (not a scaling number); (2) world size 1 on NCCL
+    through ``common_env_setup(initialize_distributed=True)``: two bf16
+    steps equal the steps without a group bit for bit, and ``shard_fsdp``'s
+    steps the DP steps (first loss equal, params within 1e-6 of max
+    |param|); (3) ``DeviceResidentDataset(mesh=)`` over 96 shards at 640^2,
+    48 a rank: the first fp32 resident step (device augment) within rtol
+    1e-5 of world size 1's; (4) sharded ``evaluate`` (8 images, 4 a rank)
+    gives world size 1's confusion matrix (its logits within every top-two
+    gap), and ``inference_with_sliding_window_sharded`` on one 1024x2048
+    image (512x512 windows at stride 2/3, 9 a rank) lies within 1e-5 of
+    max |logit| of the unsharded window; gloo's host-staged collectives are
+    counted and printed;
+F1. fixed-order resizes: under cuDNN's deterministic algorithms and
+    PyTorch's deterministic mode, two runs of 3 steps each of the Swin-L +
+    SemanticFPN, EVA02-L + ASPP (AdamW, 150 classes, the unfused loss; its
+    attention on SDPA's math backend, since cuDNN's attention backward adds
+    in no fixed order) and MobileNetV2 + SimpleDecoder steps end with equal
+    states bit for bit; each step's ms printed.
 
 Every phase prints its seconds, and the run their sum.
 
@@ -313,7 +346,7 @@ weights),
 and the fp32 Swin train step (2 + 3, then 3 profiled: its device time and
 its window-attention kernels' time and share).
 The last line holds each number of the four processes, OLD's two and this
-tree's two.
+tree's two. ``--ab OLD --only f1`` times phase F1's three steps alone.
 
 The launch counters are set to 0 just before each main path (3, 5b's
 uninterrupted run, 5c's fixed-batch steps, its two train_seg runs together
@@ -321,7 +354,7 @@ and its OHEM run, 6, 6b, 7, 8, 9, each request of 10, 11.1, each micro-step
 of 11.2, its resumed run, 11.3 and 11.4, 12.1 and 12.2 (and each of their
 steps), the patch-dropout step and each serve of 12.3, 13.1, 13.2, 13.4 and
 each model of 13.5, and each of their train steps, 14.3's forward, each train step and
-each serve of 14.4) and read just after; a kernel of a path that was launched no time
+each serve of 14.4, and in each rank of 15.1 each step) and read just after; a kernel of a path that was launched no time
 there fails the run. Third line from the end: a JSON object with one entry per kernel;
 then the card's name and power limit; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -332,10 +365,12 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import functools
+import hashlib
 import json
 import math
 import os
 import pathlib
+import pickle
 import re
 import shutil
 import signal
@@ -344,6 +379,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import traceback
 
 import numpy as np
 import torch
@@ -358,13 +394,14 @@ from iseg_tpu_torch.convert import batch_stats_tree, param_tree, to_flax
 from iseg_tpu_torch.core.checkpoint import ModelHelper
 from iseg_tpu_torch.core.env import EnvConfig, common_env_setup
 from iseg_tpu_torch.core.evaluation import bucket_padder, evaluate, make_eval_step
-from iseg_tpu_torch.core.inference import sliding_window_plan
+from iseg_tpu_torch.core.inference import inference_with_sliding_window, sliding_window_plan
 from iseg_tpu_torch.core.model import SegManaged, SegModelInferenceConfig
 from iseg_tpu_torch.core.optimizer import (Adam, get_optimizer, layerwise_decay_multipliers,
                                            warmup_poly_decay, weight_decay_mask,
                                            with_grad_accum)
 from iseg_tpu_torch.core.predict import default_image_predict
-from iseg_tpu_torch.core.train import CoreTrain, create_train_state, make_train_step
+from iseg_tpu_torch.core.train import (CoreTrain, create_train_state, make_resident_train_step,
+                                       make_train_step)
 from iseg_tpu_torch.data.device_augment import DeviceAugmentConfig, make_device_augment
 from iseg_tpu_torch.data.resident import DeviceResidentDataset
 from iseg_tpu_torch.data.shards import ShardReader, make_shard_dataset_fn, write_shards
@@ -527,6 +564,30 @@ P_BATCH, P_CLASSES, P_WARMUP, P_TIMED = 8, 19, 2, 3
 P_RADII = (1, 4, 6)  # 14.5's kernel rows at stage 2's shape
 AB_DL_RADII = (4, 6)  # --ab's dense-local backward rows at the calibrated radii
 CCL_BATCH, CCL_HW, CCL_SNAKE_RUNS = 8, 512, 9
+
+# phase 15: data parallelism. 15.1's global batch (phase 3's) over 2 ranks, the
+# ignore-pixel shares of its two halves, its steps; 15.4's eval batch; the ranks'
+# time limit (spawn, build and work), after which they are killed
+DP_BATCH, DP_IGNORE, DP_STEPS, EVAL_DP_BATCH = 16, (0.5, 0.05), 3, 8
+DP_TIMEOUT_S = 420
+# 15.1: the fp32 DP state after steps 1 and DP_STEPS against world size 1's, max
+# |diff| over max |value|. World size 1's BatchNorm takes its moments with
+# SyncBN's arithmetic at world size 2 (fast_variance_batchnorm(2)); the convs'
+# sums still run in other orders at batch 8 and 16, and on this unnormalized
+# random batch the network amplifies that rounding from step to step. After
+# step 1 DP lies 3.5e-5 off and each fault of DP_FAULTS (planted_fault), run
+# the same way, 3.1e-3-4.2e-3 (NVIDIA H100 80GB HBM3, 700 W): the bound sits
+# between, and each fault must lie past it. After DP_STEPS the amplified
+# rounding (1.1e-2) reaches the faults' distance (1.7e-2-2.6e-2): that bound
+# catches only a run that drifts off
+DP_STATE_RTOL = {1: 3e-4, DP_STEPS: 5e-2}
+DP_FAULTS = ("rank_means", "bn_backward_local")
+# 15.2: the FSDP step against the DP step at world size 1 (the same products;
+# FSDP2 all-gathers copies of the parameters and reduces the gradients over one
+# rank), max |diff| over max |param|
+FSDP_RTOL = 1e-6
+# phase F1: steps of each run (two runs of each path)
+F1_STEPS = 3
 
 # Published peaks of one H100 SXM at its 700 W limit: HBM3 bytes/s, and
 # FLOP/s for fp32 inputs (outside the tensor cores) and bf16 inputs
@@ -4056,6 +4117,607 @@ def phase_pretrained(env) -> tuple[dict[str, dict], list[dict]]:
 
 # ------------------------------------------------------- two trees (--ab)
 
+# ----------------------------------------------------------------- phase 15
+
+def params_digest(state) -> str:
+    """sha256 of every parameter and BN statistic's bytes, in path order:
+    two ranks hold the same state bit for bit when their digests agree."""
+    h = hashlib.sha256()
+    for tree in (state.params, state.batch_stats):
+        for k in sorted(tree):
+            t = tree[k].detach()
+            t = t.full_tensor() if hasattr(t, "full_tensor") else t
+            h.update(t.reshape(-1).view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def dp_batch(device=None):
+    """Phase 15.1's global batch of DP_BATCH at 512x512: the first half
+    (rank 0's at world size 2) has DP_IGNORE[0] of its pixels ignored, the
+    second half DP_IGNORE[1]."""
+    rng = np.random.RandomState(15)
+    image = rng.rand(DP_BATCH, HW, HW, 3).astype(np.float32)
+    label = rng.randint(0, R_CLASSES, (DP_BATCH, HW, HW))
+    share = np.where(np.arange(DP_BATCH) < DP_BATCH // 2, *DP_IGNORE)[:, None, None]
+    label = np.where(rng.rand(DP_BATCH, HW, HW) < share, 255, label).astype(np.int32)
+    if device is None:
+        return {"image": image, "label": label}
+    return {"image": torch.tensor(image, device=device),
+            "label": torch.tensor(label, device=device)}
+
+
+def dp_trainer(env, mesh, compute_dtype):
+    """Phase 3's configuration from seed-0 weights: (state, step)."""
+    model = build_resnet_model(env, fused=True)
+    tx, _ = get_optimizer(param_tree(model), "sgd", learning_rate=0.01, train_steps=1000)
+    state = create_train_state(model, torch.Generator().manual_seed(0), tx)
+    return state, make_train_step(model.build_loss_fn(), compute_dtype=compute_dtype, seed=0,
+                                  mesh=mesh)
+
+
+def state_arrays(state) -> dict[str, np.ndarray]:
+    """Copies of the params and BN statistics, keyed by path."""
+    return {**{f"params/{k}": v.detach().cpu().numpy().copy() for k, v in state.params.items()},
+            **{f"batch_stats/{k}": v.detach().cpu().numpy().copy()
+               for k, v in state.batch_stats.items()}}
+
+
+def counted_step(step, state, batch):
+    """One step and its loss-kernel launches."""
+    before = dict(uce.LAUNCH_COUNTS)
+    state, parts = step(state, batch)
+    torch.cuda.synchronize()
+    return state, parts, {k: uce.LAUNCH_COUNTS[k] - before[k] for k in before}
+
+
+def rank_dp2(env, out: str, shard_dir: str) -> dict:
+    """One rank of phases 15.1, 15.3 and 15.4 (world size 2, gloo, cuda:0)."""
+    from iseg_tpu_torch.core.inference import inference_with_sliding_window_sharded
+    from iseg_tpu_torch.parallel.collectives import HOST_STAGED, barrier
+    from iseg_tpu_torch.parallel.mesh import shard_batch
+
+    mesh, rank = env.mesh, env.rank
+    res = {"rank": rank, "device": str(env.device)}
+    # 15.1: fp32 steps, each followed by a digest of the whole state
+    local = shard_batch(mesh, dp_batch(env.device))
+    state, step = dp_trainer(env, mesh, torch.float32)
+    res["losses"], res["digests"], res["launches"] = [], [], []
+    for i in range(DP_STEPS):
+        state, parts, launches = counted_step(step, state, local)
+        res["losses"].append(float(parts["loss"]))
+        res["digests"].append(params_digest(state))
+        res["launches"].append(launches)
+        if rank == 0 and i + 1 in DP_STATE_RTOL:
+            with open(os.path.join(out, f"dp_state_{i + 1}.pkl"), "wb") as f:
+                pickle.dump(state_arrays(state), f)
+    # the negative controls: the same fp32 steps with a fault planted
+    for fault in DP_FAULTS:
+        bad, bad_step = dp_trainer(env, mesh, torch.float32)
+        with planted_fault(fault):
+            for i in range(DP_STEPS):
+                bad, _, _ = counted_step(bad_step, bad, local)
+                if rank == 0 and i + 1 in DP_STATE_RTOL:
+                    with open(os.path.join(out, f"dp_{fault}_{i + 1}.pkl"), "wb") as f:
+                        pickle.dump(state_arrays(bad), f)
+        del bad, bad_step
+    # bf16 steps, timed: two processes share the one card
+    step16 = make_train_step(state.model.build_loss_fn(), compute_dtype=torch.bfloat16,
+                             seed=0, mesh=mesh)
+    state, _, _ = counted_step(step16, state, local)
+    barrier()
+    t0 = time.perf_counter()
+    for _ in range(DP_STEPS):
+        state, parts, launches = counted_step(step16, state, local)
+        res["launches"].append(launches)
+    barrier()
+    res["bf16_ms"] = 1e3 * (time.perf_counter() - t0) / DP_STEPS
+    res["bf16_loss"] = float(parts["loss"])
+    del state, step, step16, local
+    torch.cuda.empty_cache()
+
+    # 15.3: the resident dataset sharded over the two ranks
+    resident = DeviceResidentDataset(ShardReader(shard_dir), device=env.device, mesh=mesh)
+    res["resident"] = {"row_start": resident.row_start, "rows": len(resident.images),
+                       "num_samples": resident.num_samples}
+    res["resident_loss"] = resident_step_loss(env, resident, mesh)
+    del resident
+    torch.cuda.empty_cache()
+
+    # 15.4: sharded evaluate and sliding window, fp32
+    model = eval_model(env)
+    metric = MeanIoU(R_CLASSES)
+    evaluate(env, model, None, [eval_batch()], verbose=False, metric=metric)
+    res["cm"] = metric.total_cm
+    local_images = shard_batch(mesh, eval_batch())["image"]
+    res["eval_logits"] = make_eval_step(model)(
+        torch.tensor(local_images, device=env.device)).cpu().numpy()
+    with torch.inference_mode():
+        image = torch.tensor(window_image(), device=env.device)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        window = inference_with_sliding_window_sharded(model, image, (HW, HW), mesh)
+        torch.cuda.synchronize()
+        res["window_s"] = time.perf_counter() - t0
+    if rank == 0:
+        np.save(os.path.join(out, "window.npy"), window.cpu().numpy())
+    res["host_staged"] = dict(HOST_STAGED)
+    return res
+
+
+def rank_nccl1(env, out: str, shard_dir: str) -> dict:
+    """Phase 15.2 (world size 1, NCCL): the bf16 step through the process
+    group against the same step without one, and the FSDP step."""
+    from iseg_tpu_torch.parallel.fsdp import shard_fsdp
+
+    data = dp_batch(env.device)
+    res = {}
+    for name, mesh in (("no_group", None), ("nccl", env.mesh)):
+        state, step = dp_trainer(env, mesh, torch.bfloat16)
+        losses, digests = [], []
+        for _ in range(2):
+            state, parts, _ = counted_step(step, state, data)
+            losses.append(float(parts["loss"]))
+            digests.append(params_digest(state))
+        res[name] = {"losses": losses, "digests": digests}
+        if mesh is not None:
+            dp_params = {k: v.detach().clone() for k, v in state.params.items()}
+        del state, step
+    model = build_resnet_model(env, fused=True)
+    initialize(model, torch.Generator().manual_seed(0))
+    shard_fsdp(model, env.mesh)
+    tx, _ = get_optimizer(param_tree(model), "sgd", learning_rate=0.01, train_steps=1000)
+    state = create_train_state(model, None, tx, initialized=True)
+    step = make_train_step(model.build_loss_fn(), compute_dtype=torch.bfloat16, seed=0,
+                           mesh=env.mesh)
+    losses = []
+    for _ in range(2):
+        state, parts, _ = counted_step(step, state, data)
+        losses.append(float(parts["loss"]))
+    top = max(float(v.abs().max()) for v in dp_params.values())
+    err = max(float((v.full_tensor() - dp_params[k]).abs().max())
+              for k, v in state.params.items())
+    res["fsdp"] = {"losses": losses, "max_err": err, "top": top,
+                   "sharded": sum(1 for v in state.params.values()
+                                  if any(type(p).__name__ == "Shard" for p in v.placements)),
+                   "leaves": len(state.params)}
+    del state, step, model
+    # CoreTrain on the group (its preemption vote an all-reduce on the card):
+    # the same two steps from host batches
+    model = build_resnet_model(env, fused=True)
+    tx, _ = get_optimizer(param_tree(model), "sgd", learning_rate=0.01, train_steps=1000)
+    trainer = CoreTrain(dataclasses.replace(env, compute_dtype=torch.bfloat16), model, tx,
+                        seed=0, log_every=0, prefetch_to_device=1)
+    digests = []
+    history = trainer.train(lambda epoch: iter([dp_batch()]), epochs=2,
+                            on_epoch_end=lambda epoch, st: digests.append(params_digest(st)))
+    res["coretrain"] = {"digests": digests, "losses": [h["loss"] for h in history]}
+    return res
+
+
+def rank_main(rank: int, world: int, backend: str, store: str, out: str, task: str,
+              shard_dir: str) -> None:
+    """A spawned rank of phase 15: sets its process group up by
+    ``common_env_setup``, runs ``task`` and pickles the result to ``out``."""
+    from iseg_tpu_torch.core.env import common_env_clean
+
+    try:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+        env = common_env_setup(EnvConfig(
+            random_seed=0, mixed_precision=False, device="cuda", initialize_distributed=True,
+            backend=backend, init_method=f"file://{store}", num_processes=world,
+            process_id=rank))
+        result = {"dp2": rank_dp2, "nccl1": rank_nccl1}[task](env, out, shard_dir)
+        with open(os.path.join(out, f"{task}-{rank}.pkl"), "wb") as f:
+            pickle.dump(result, f)
+    except BaseException:
+        with open(os.path.join(out, f"{task}-{rank}.err"), "w") as f:
+            f.write(traceback.format_exc())
+        raise
+    finally:
+        common_env_clean()
+
+
+def spawn_ranks(task: str, world: int, backend: str, out: str, shard_dir: str,
+                timeout: float = DP_TIMEOUT_S) -> list[dict]:
+    """Run ``task`` on ``world`` spawned ranks; every rank must finish within
+    ``timeout`` seconds (the rest are killed) and succeed."""
+    store = os.path.join(out, f"{task}.store")
+    ctx = torch.multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=rank_main, args=(r, world, backend, store, out, task, shard_dir))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.perf_counter() + timeout
+    try:
+        for p in procs:
+            p.join(max(1.0, deadline - time.perf_counter()))
+    finally:
+        alive = [p for p in procs if p.is_alive()]
+        for p in alive:
+            p.kill()
+            p.join(10)
+    failed = []
+    for r, p in enumerate(procs):
+        err = os.path.join(out, f"{task}-{r}.err")
+        if p.exitcode != 0:
+            why = open(err).read()[-4000:] if os.path.exists(err) else (
+                f"no result within {timeout:.0f} s (killed)" if p in alive
+                else f"exit code {p.exitcode}")
+            failed.append(f"rank {r}: {why}")
+    if failed:
+        raise AssertionError(f"phase 15 {task} failed:\n" + "\n".join(failed))
+    results = []
+    for r in range(world):
+        with open(os.path.join(out, f"{task}-{r}.pkl"), "rb") as f:
+            results.append(pickle.load(f))
+    return results
+
+
+def resident_step_loss(env, resident, mesh) -> float:
+    """First-step fp32 loss of a resident step over the first global batch
+    of epoch 0, with phase 5b's device augment."""
+    model = build_resnet_model(env, fused=True)
+    tx, _ = get_optimizer(param_tree(model), "sgd", learning_rate=0.01, train_steps=1000)
+    state = create_train_state(model, torch.Generator().manual_seed(0), tx)
+    augment = zero_mean_augment(DeviceAugmentConfig(
+        crop_size=(HW, HW), min_scale_factor=0.5, max_scale_factor=2.0, scale_step_size=0.25,
+        flip_prob=0.5))
+    step = make_resident_train_step(model.build_loss_fn(), resident.images, resident.labels,
+                                    augment_fn=augment, compute_dtype=torch.float32, seed=0,
+                                    mesh=mesh, row_start=resident.row_start)
+    idx = next(iter(resident.index_batches(R_BATCH, epoch=0, seed=0)))
+    _, parts = step(state, idx)
+    return float(parts["loss"])
+
+
+def eval_model(env):
+    model = build_resnet_model(env, fused=False)
+    initialize(model, torch.Generator().manual_seed(0))
+    return model.eval()
+
+
+def eval_batch():
+    rng = np.random.RandomState(16)
+    label = rng.randint(0, R_CLASSES, (EVAL_DP_BATCH, HW, HW))
+    label = np.where(rng.rand(EVAL_DP_BATCH, HW, HW) < 0.1, 255, label).astype(np.int32)
+    return {"image": rng.rand(EVAL_DP_BATCH, HW, HW, 3).astype(np.float32), "label": label}
+
+
+def window_image():
+    return np.random.RandomState(17).rand(1, 1024, 2048, 3).astype(np.float32)
+
+
+def phase_distributed(env) -> dict[str, dict[str, int]]:
+    """Phase 15: data parallelism (see the module note). Returns the
+    loss-kernel launches of 15.1's steps on both ranks."""
+    log("== phase 15: data parallelism (process groups, SyncBN, global losses, fixed-order "
+        "gradient all-reduce, FSDP, the sharded resident dataset, evaluate and window)")
+    card = card_line()
+    flags = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        with tempfile.TemporaryDirectory(prefix="iseg_dp_") as tmp:
+            return distributed_runs(env, tmp, card)
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = flags
+
+
+@contextlib.contextmanager
+def fast_variance_batchnorm(parts: int = 1):
+    """BatchNorm's training moments as SyncBN takes them at world size
+    ``parts``, inside the block: the sum and sum of squares of each of
+    ``parts`` equal slices of the batch, added in rank order, then E[x^2] -
+    E[x]^2 (flax's fast variance) instead of a two-pass variance."""
+    from iseg_tpu_torch.nn.norm import BatchNorm
+
+    two_pass = BatchNorm.forward
+
+    def forward(self, x):
+        if not self.training:
+            return two_pass(self, x)
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        dims = [0] + list(range(2, x.ndim))
+        sums = None
+        for part in xf.chunk(parts):
+            mine = torch.cat([part.sum(dim=dims), part.square().sum(dim=dims)])
+            sums = mine if sums is None else sums + mine
+        c, n = x.shape[1], float(x.numel() // x.shape[1])
+        mean = sums[:c] / n
+        var = torch.clamp(sums[c:] / n - mean.square(), min=0.0)
+        return self._normalize(x, xf, mean, var, update=True)
+
+    BatchNorm.forward = forward
+    try:
+        yield
+    finally:
+        BatchNorm.forward = two_pass
+
+
+@contextlib.contextmanager
+def planted_fault(name: str):
+    """One of 15.1's negative controls, planted in this process for the
+    block: ``rank_means``, each rank's loss its own valid-pixel mean (the
+    step then averages the ranks' means); ``bn_backward_local``, SyncBN's
+    backward without the all-reduce of its two gradient sums."""
+    from iseg_tpu_torch.nn import norm
+
+    if name == "rank_means":
+        target, attr = uce, "global_valid_mean"
+        fault = lambda total, count: total / torch.clamp(count, min=1.0)  # noqa: E731
+    elif name == "bn_backward_local":
+        target, attr = norm._AllReduceSum, "backward"
+        fault = staticmethod(lambda ctx, grad: (grad.contiguous().clone(), None))
+    else:
+        raise ValueError(f"no planted fault named {name!r}")
+    saved = vars(target)[attr]
+    setattr(target, attr, fault)
+    try:
+        yield
+    finally:
+        setattr(target, attr, saved)
+
+
+def max_rel(got: dict, want: dict) -> tuple[float, str]:
+    """max |got - want| over every tensor, over max |want| (and its tensor)."""
+    top = max(float(np.abs(v).max()) for v in want.values())
+    worst = max(want, key=lambda k: float(np.abs(got[k] - want[k]).max()))
+    return float(np.abs(got[worst] - want[worst]).max()) / top, worst
+
+
+def distributed_runs(env, tmp: str, card: str) -> dict[str, dict[str, int]]:
+    t_phase = time.perf_counter()
+    f32 = dataclasses.replace(env, compute_dtype=torch.float32)
+    shard_dir = os.path.join(tmp, "shards")
+    write_shards(SyntheticShardSource(SYS_SAMPLES, SYS_STORE, R_CLASSES), shard_dir,
+                 store_size=(SYS_STORE, SYS_STORE), samples_per_shard=48)
+
+    # world size 1 without a process group: the references, in this process
+    data = dp_batch(env.device)
+    state, step = dp_trainer(f32, None, torch.float32)
+    with torch.no_grad():  # each half's own mean loss, the initial weights in eval mode
+        half = DP_BATCH // 2
+        state.model.eval()
+        logits = state.model(data["image"])
+        state.model.train()
+        halves_mean = float(np.mean([
+            float(uce.upsample_cross_entropy(logits[i * half:(i + 1) * half],
+                                             data["label"][i * half:(i + 1) * half]))
+            for i in (0, 1)]))
+        del logits
+    # world size 1's runs: the port's own BatchNorm (two-pass variance), and
+    # with SyncBN's arithmetic at world size 2 (the reference of the state)
+    one_states, one_losses = {}, {}
+    for variance, patch in (("two-pass", contextlib.nullcontext),
+                            ("SyncBN's", functools.partial(fast_variance_batchnorm, 2))):
+        with patch():
+            state, step = dp_trainer(f32, None, torch.float32)
+            one_states[variance], one_losses[variance] = {}, []
+            for i in range(DP_STEPS):
+                state, parts, _ = counted_step(step, state, data)
+                one_losses[variance].append(float(parts["loss"]))
+                if i + 1 in DP_STATE_RTOL:
+                    one_states[variance][i + 1] = state_arrays(state)
+        del state, step
+    del data
+    ref_states, ref_losses = one_states["SyncBN's"], one_losses["SyncBN's"]
+    ref_resident = resident_step_loss(f32, DeviceResidentDataset(ShardReader(shard_dir),
+                                                                 device=env.device), None)
+    model = eval_model(f32)
+    ref_metric = MeanIoU(R_CLASSES)
+    evaluate(f32, model, None, [eval_batch()], verbose=False, metric=ref_metric)
+    ref_logits = make_eval_step(model)(torch.tensor(eval_batch()["image"],
+                                                    device=env.device)).cpu().numpy()
+    with torch.inference_mode():
+        ref_window = inference_with_sliding_window(
+            model, torch.tensor(window_image(), device=env.device), (HW, HW)).cpu().numpy()
+    del model
+    torch.cuda.empty_cache()
+    log(f"15: world-size-1 references took {time.perf_counter() - t_phase:.1f} s")
+
+    # 15.2: NCCL at world size 1
+    t0 = time.perf_counter()
+    (one,) = spawn_ranks("nccl1", 1, "nccl", tmp, shard_dir)
+    log(f"-- 15.2: NCCL, world size 1 ({time.perf_counter() - t0:.1f} s with the spawn): "
+        f"bf16 losses without a group {one['no_group']['losses']}, through the NCCL group "
+        f"{one['nccl']['losses']}; FSDP {one['fsdp']['losses']}, {one['fsdp']['sharded']} of "
+        f"{one['fsdp']['leaves']} leaves sharded, params within "
+        f"{one['fsdp']['max_err'] / one['fsdp']['top']:.3g} of max |param| of the DP step "
+        f"({card})")
+    if one["no_group"] != one["nccl"]:
+        raise AssertionError("15.2: the step through an NCCL group of one differs from the "
+                             "step without a group")
+    if one["fsdp"]["losses"][0] != one["nccl"]["losses"][0] or not np.isclose(
+            one["fsdp"]["losses"][1], one["nccl"]["losses"][1], rtol=1e-6, atol=0):
+        raise AssertionError(f"15.2: FSDP losses {one['fsdp']['losses']} vs DP "
+                             f"{one['nccl']['losses']}")
+    if one["fsdp"]["max_err"] > FSDP_RTOL * one["fsdp"]["top"] or not one["fsdp"]["sharded"]:
+        raise AssertionError(f"15.2: FSDP params off the DP step's: {one['fsdp']}")
+    log(f"15.2: CoreTrain on the NCCL group of one, two steps from host batches: losses "
+        f"{one['coretrain']['losses']}; its states equal the DP step's bit for bit: "
+        f"{one['coretrain']['digests'] == one['nccl']['digests']}")
+    if one["coretrain"]["digests"] != one["nccl"]["digests"]:
+        raise AssertionError("15.2: CoreTrain's steps on the NCCL group differ from the DP step's")
+
+    # 15.1, 15.3, 15.4: world size 2 over gloo, both ranks on this card
+    t0 = time.perf_counter()
+    ranks = spawn_ranks("dp2", 2, "gloo", tmp, shard_dir)
+    spawn_s = time.perf_counter() - t0
+    r0, r1 = ranks
+    labels = dp_batch()["label"]
+    valid = [(labels[i * DP_BATCH // 2:(i + 1) * DP_BATCH // 2] != 255).sum() for i in (0, 1)]
+    log(f"-- 15.1: ResNet-50 os16 + ASPP(256), global batch {DP_BATCH} over 2 ranks on one "
+        f"card (gloo), fp32 (TF32 off), ignore shares {DP_IGNORE} of the two halves "
+        f"({valid[0]} and {valid[1]} valid pixels): DP losses {r0['losses']} (rank 1 "
+        f"{r1['losses']}), world size 1 {ref_losses} (two-pass BatchNorm "
+        f"{one_losses['two-pass']})")
+    if r0["losses"] != r1["losses"] or r0["digests"] != r1["digests"]:
+        raise AssertionError("15.1: the two ranks' losses or states differ after a step: "
+                             f"{r0['digests']} vs {r1['digests']}")
+    for variance, losses in one_losses.items():
+        if not np.isclose(r0["losses"][0], losses[0], rtol=1e-5, atol=0):
+            raise AssertionError(f"15.1: first DP loss {r0['losses'][0]} vs {losses[0]} "
+                                 f"({variance} BatchNorm)")
+    def load(name):
+        with open(os.path.join(tmp, name), "rb") as f:
+            return pickle.load(f)
+
+    for k in sorted(ref_states):
+        err, worst = max_rel(load(f"dp_state_{k}.pkl"), ref_states[k])
+        faults = {name: max_rel(load(f"dp_{name}_{k}.pkl"), ref_states[k])[0]
+                  for name in DP_FAULTS}
+        plain = max_rel(load(f"dp_state_{k}.pkl"), one_states["two-pass"][k])[0]
+        log(f"15.1: after step {k} the DP params and BN statistics lie within {err:.3g} of max "
+            f"|value| of world size 1's with SyncBN's arithmetic (worst: {worst}), bound "
+            f"{DP_STATE_RTOL[k]:g}; with a fault planted: "
+            + ", ".join(f"{n} {v:.3g}" for n, v in faults.items())
+            + f"; DP against world size 1's two-pass BatchNorm {plain:.3g}")
+        if err > DP_STATE_RTOL[k]:
+            raise AssertionError(f"15.1: DP state {err:.3g} off world size 1's after step {k} "
+                                 f"({worst}), above {DP_STATE_RTOL[k]:g}")
+        missed = [n for n, v in faults.items() if v <= DP_STATE_RTOL[k]]
+        if k == 1 and missed:
+            raise AssertionError(f"15.1: planted faults {missed} stayed within the step-1 bound "
+                                 f"{DP_STATE_RTOL[1]:g}: {faults}")
+    log("15.1: the two ranks' states equal bit for bit after every step")
+    for r in ranks:
+        for i, got in enumerate(r["launches"]):
+            if got != {"fwd": 1, "bwd": 1}:
+                raise AssertionError(f"15.1: rank {r['rank']} step {i + 1} launched {got} "
+                                     "loss kernels, not 1 + 1")
+    log(f"15.1: bf16, {DP_STEPS} timed steps: {r0['bf16_ms']:.2f} ms/step at batch "
+        f"{DP_BATCH // 2} a rank, TWO PROCESSES SHARING ONE CARD over gloo (host-staged "
+        f"all-reduces): not a scaling number ({card})")
+
+    log(f"15.1: a mean of the two halves' own mean losses would be {halves_mean:.6f} "
+        f"against the global loss {ref_losses[0]:.6f} at step 1 (gap "
+        f"{halves_mean - ref_losses[0]:+.6f}): the ranks' losses are scaled to the global "
+        "valid-pixel count")
+
+    # 15.3
+    log(f"-- 15.3: resident dataset with mesh=: rank 0 {r0['resident']}, rank 1 "
+        f"{r1['resident']}; first fp32 resident step loss {r0['resident_loss']:.7f} (rank 1 "
+        f"{r1['resident_loss']:.7f}) vs world size 1 {ref_resident:.7f}")
+    half = SYS_SAMPLES // 2
+    if r0["resident"]["rows"] != half or r1["resident"]["row_start"] != half:
+        raise AssertionError("15.3: the ranks do not hold one half of the shards each")
+    if not np.isclose(r0["resident_loss"], ref_resident, rtol=1e-5, atol=0):
+        raise AssertionError(f"15.3: resident DP loss {r0['resident_loss']} vs {ref_resident}")
+
+    # 15.4
+    got_logits = np.concatenate([r0["eval_logits"], r1["eval_logits"]])
+    diff = float(np.abs(got_logits - ref_logits).max())
+    top2 = np.sort(ref_logits, axis=-1)
+    gap = float((top2[..., -1] - top2[..., -2])[eval_batch()["label"] != 255].min())
+    log(f"-- 15.4: sharded evaluate: logits within {diff:.3g} of world size 1's, least "
+        f"top-two gap {gap:.3g}; confusion matrices equal: "
+        f"{bool(np.array_equal(r0['cm'], ref_metric.total_cm))}")
+    if diff < gap:
+        for r in ranks:
+            if not np.array_equal(r["cm"], ref_metric.total_cm):
+                raise AssertionError("15.4: sharded evaluate's confusion matrix differs")
+    elif not np.array_equal(np.argmax(got_logits, -1), np.argmax(ref_logits, -1)):
+        raise AssertionError("15.4: logits moved past a near-tie: argmax differs")
+    window = np.load(os.path.join(tmp, "window.npy"))
+    werr = float(np.abs(window - ref_window).max()) / float(np.abs(ref_window).max())
+    log(f"15.4: sharded sliding window on 1x1024x2048 (512x512 windows, stride 2/3, 9 a "
+        f"rank): {werr:.3g} of max |logit| from the unsharded window, {r0['window_s']:.2f} s "
+        f"on two processes sharing the card ({card})")
+    if werr > 1e-5:
+        raise AssertionError(f"15.4: sharded window {werr:.3g} off the unsharded one")
+    staged = {k: r0["host_staged"][k] + r1["host_staged"][k] for k in r0["host_staged"]}
+    log(f"15: gloo host-staged collectives of CUDA tensors: {staged}; the ranks' spawn and "
+        f"work took {spawn_s:.1f} s")
+    counts = dict.fromkeys(read_launch_counts(), 0)
+    counts["upsample_ce_fwd"] = sum(c["fwd"] for r in ranks for c in r["launches"])
+    counts["upsample_ce_bwd"] = sum(c["bwd"] for r in ranks for c in r["launches"])
+    return {"dp_train": counts}
+
+
+# ----------------------------------------------------------------- F1 on the card
+
+def f1_setups(env) -> dict:
+    """The three paths whose resizes took ``F.interpolate`` before fault F1
+    was closed: {name: (build() -> (state, step), batch, classes, context of
+    the runs)}. EVA02-L's runs take SDPA's math backend: cuDNN's attention
+    backward adds in no fixed order (PyTorch warns so in deterministic mode),
+    which is another matter than F1's resizes."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+
+    def swin():
+        model = build_swin_model(env, fused=True)
+        tx, _ = get_optimizer(param_tree(model), "sgd", learning_rate=0.01, train_steps=1000)
+        state = create_train_state(model, torch.Generator().manual_seed(0), tx)
+        return state, make_train_step(model.build_loss_fn(), env.compute_dtype, seed=0)
+
+    def eva():
+        model = build_eva_model(env, fused=True)
+        state = create_train_state(model, torch.Generator().manual_seed(0),
+                                   eva_optimizer(model, model.backbone))
+        return state, make_train_step(model.build_loss_fn(), env.compute_dtype, seed=0)
+
+    def mbv2():
+        model = build_mbv2_model(env, fused=True)
+        tx, _ = get_optimizer(param_tree(model), "sgd", learning_rate=0.01, train_steps=1000)
+        state = create_train_state(model, torch.Generator().manual_seed(0), tx)
+        return state, make_train_step(model.build_loss_fn(), env.compute_dtype, seed=0)
+
+    return {"Swin-L + SemanticFPN": (swin, S_BATCH, S_CLASSES, contextlib.nullcontext),
+            "EVA02-L + ASPP (AdamW, 150 classes, unfused loss; SDPA math backend)":
+                (eva, E_BATCH, E_CLASSES, lambda: sdpa_kernel(SDPBackend.MATH)),
+            "MobileNetV2 + SimpleDecoder": (mbv2, M_BATCH, M_CLASSES, contextlib.nullcontext)}
+
+
+@contextlib.contextmanager
+def deterministic_algorithms():
+    """cuDNN's deterministic algorithms (by its heuristics) and PyTorch's
+    deterministic mode, warning of any op without one, as phase 11.2."""
+    flags = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = flags
+
+
+def f1_run(build, data, steps: int = F1_STEPS) -> tuple[str, list[float], list[float]]:
+    """(state digest, losses, ms of each step) of ``steps`` steps from seed 0."""
+    state, step = build()
+    losses, ms = [], []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, parts = step(state, data)
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+        losses.append(float(parts["loss"]))
+    digest = params_digest(state)
+    del state, step
+    torch.cuda.empty_cache()
+    return digest, losses, ms
+
+
+def phase_f1_repeat(env) -> None:
+    """Fault F1 on the card: two runs of each path from the same weights
+    and batch end with the same state bit for bit."""
+    log("== phase F1: fixed-order resizes (interpolation matrices, no F.interpolate): two "
+        f"runs of {F1_STEPS} steps each end equal bit for bit")
+    card = card_line()
+    with deterministic_algorithms():
+        for name, (build, batch, classes, context) in f1_setups(env).items():
+            data = synthetic_batch(env.device, batch, classes)
+            with context():
+                runs = [f1_run(build, data) for _ in range(2)]
+            log(f"F1 {name}: losses {runs[0][1]} and {runs[1][1]}; ms per step "
+                f"{[round(v, 2) for v in runs[0][2]]} and {[round(v, 2) for v in runs[1][2]]} "
+                f"(deterministic algorithms, the first step builds) ({card})")
+            if runs[0][0] != runs[1][0] or runs[0][1] != runs[1][1]:
+                raise AssertionError(f"F1: two runs of {name} end in different states")
+            del data
+
+
 def step_loss_ms(path: str, prof: dict) -> dict:
     """The loss kernels' device ms per step in a :func:`profile_steps` result:
     all of them, the backward alone and the forward's two kernels."""
@@ -4068,7 +4730,22 @@ def step_loss_ms(path: str, prof: dict) -> dict:
                                            if any(n in key for n in UCE_FWD_KERNELS))}
 
 
-def ab_child() -> dict:
+def ab_f1_row() -> dict:
+    """``--ab OLD --only f1``: one warm-up and F1_STEPS timed steps of each
+    path of phase F1, in its deterministic mode."""
+    env = common_env_setup(EnvConfig(random_seed=0, mixed_precision=True, device="cuda"))
+    row = {}
+    with deterministic_algorithms():
+        for name, (build, batch, classes, context) in f1_setups(env).items():
+            with context():
+                digest, _, ms = f1_run(build, synthetic_batch(env.device, batch, classes),
+                                       steps=1 + F1_STEPS)
+            row[f"F1 {name} ms/step"] = statistics.median(ms[1:])
+            row[f"F1 {name} state sha256"] = digest
+    return row
+
+
+def ab_child(only: str | None = None) -> dict:
     """One process of ``--ab``: this file's timings of the package first on
     the path. It uses only what the parent commit's package has too."""
     for key in ("fwd_mma", "bwd_mma", "fwd_tf32x3", "bwd_tf32x3"):  # a package from before a route
@@ -4076,6 +4753,8 @@ def ab_child() -> dict:
     device = torch.device("cuda")
     _build.load_all([uce.SOURCE, wa.SOURCE, dl.SOURCE, cg.SOURCE])
     row = {"package": str(_build.PACKAGE_DIR)}
+    if only == "f1":
+        return {**row, **ab_f1_row()}
     reps = dict(reps=10, warmup=2)
     scale = 1.0 / math.sqrt(HEAD_DIM)
     for stage, bnw, heads, nw, _ in WA_STAGES:
@@ -4276,7 +4955,7 @@ def ab_child() -> dict:
     return row
 
 
-def ab_main(old: str) -> int:
+def ab_main(old: str, only: str | None = None) -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available; this script needs an NVIDIA GPU")
     here = pathlib.Path(__file__).resolve()
@@ -4285,7 +4964,8 @@ def ab_main(old: str) -> int:
     rows = []
     for which in ("old", "new", "new", "old"):
         log(f"== --ab: {which} tree {trees[which]}")
-        proc = subprocess.run([sys.executable, str(here), "--ab-child", trees[which]],
+        proc = subprocess.run([sys.executable, str(here), "--ab-child", trees[which],
+                               *(["--only", only] if only else [])],
                               capture_output=True, text=True, timeout=900)
         log(proc.stdout.rstrip())
         if proc.returncode != 0:
@@ -4298,10 +4978,11 @@ def ab_main(old: str) -> int:
 
 
 def main(argv: list[str]) -> int:
-    if argv[:1] == ["--ab"] and len(argv) == 2:
-        return ab_main(argv[1])
+    only = argv[argv.index("--only") + 1] if "--only" in argv else None
+    if argv[:1] == ["--ab"] and len(argv) in (2, 4):
+        return ab_main(argv[1], only)
     if argv[:1] == ["--ab-child"]:
-        print(json.dumps(ab_child()), flush=True)
+        print(json.dumps(ab_child(only)), flush=True)
         return 0
     profile = "--profile" in argv
     t_run = time.perf_counter()
@@ -4362,6 +5043,8 @@ def main(argv: list[str]) -> int:
     paths.update(timed("13", phase_zoo, env))
     pretrained_paths, radii_rows = timed("14", phase_pretrained, env)
     paths.update(pretrained_paths)
+    paths.update(timed("15", phase_distributed, env))
+    timed("F1", phase_f1_repeat, env)
     log("phase seconds: " + json.dumps({k: round(v, 1) for k, v in seconds.items()})
         + f"; {time.perf_counter() - t_run:.1f} s in all ({card_line()})")
 
@@ -4410,7 +5093,8 @@ def main(argv: list[str]) -> int:
                "calibrated_intern_train": loss_kernels + ("deform_local_fwd",
                                                           "deform_local_bwd"),
                "calibrated_intern_serve": ("deform_local_fwd",),
-               "gemma_beam_serve": ("cache_gather",)}
+               "gemma_beam_serve": ("cache_gather",),
+               "dp_train": loss_kernels}
     for path, names in on_path.items():
         for name in names:
             if paths[path][name] <= 0:

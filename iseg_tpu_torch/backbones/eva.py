@@ -28,6 +28,7 @@ from iseg_tpu_torch.nn.attention import dot_product_attention
 from iseg_tpu_torch.nn.blocks import Dropout, DropPath
 from iseg_tpu_torch.nn.conv import Conv2d
 from iseg_tpu_torch.ops.resize import resample_abs_pos_embed
+from iseg_tpu_torch.parallel.collectives import global_rows
 
 
 def build_rope_2d(gh: int, gw: int, head_dim: int) -> tuple[np.ndarray, np.ndarray]:
@@ -94,7 +95,8 @@ class PatchDropout(Dropout):
         """Sorted ``[batch, num_keep]`` indices of the kept tokens among
         ``num_tokens`` (prefix excluded)."""
         num_keep = max(1, int(num_tokens * (1.0 - self.rate)))
-        noise = torch.rand((batch, num_tokens), generator=self.generator, device=device)
+        rows, mine = global_rows(batch)
+        noise = torch.rand((rows, num_tokens), generator=self.generator, device=device)[mine]
         return torch.sort(torch.argsort(noise, dim=-1)[:, :num_keep], dim=-1).values
 
     def forward(self, x: torch.Tensor):

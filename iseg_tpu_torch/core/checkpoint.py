@@ -30,6 +30,8 @@ from typing import Any, Optional
 
 import torch
 
+from iseg_tpu_torch.parallel.mesh import process_rank_and_count
+
 STATE_FILE = "state.pt"
 _TMP_PREFIX = ".tmp-"
 
@@ -127,13 +129,26 @@ class ModelHelper:
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
         os.makedirs(self.checkpoint_dir, exist_ok=True)
-        for name in os.listdir(self.checkpoint_dir):  # left by a killed write
-            if name.startswith(_TMP_PREFIX):
-                shutil.rmtree(os.path.join(self.checkpoint_dir, name), ignore_errors=True)
+        if process_rank_and_count()[0] == 0:
+            for name in os.listdir(self.checkpoint_dir):  # left by a killed write
+                if name.startswith(_TMP_PREFIX):
+                    shutil.rmtree(os.path.join(self.checkpoint_dir, name), ignore_errors=True)
 
     def save(self, step: int, state: Any) -> None:
         """Save the train state (step, params, batch_stats, opt_state, and
-        ema_params when tracked) as checkpoint ``step``."""
+        ema_params when tracked) as checkpoint ``step``.
+
+        In a process group of several ranks (data parallelism: every rank
+        holds the same state) rank 0 writes it and every rank returns after
+        a barrier that follows the write, so any rank may restore it next;
+        the write is then synchronous."""
+        rank, world = process_rank_and_count()
+        if world > 1:
+            if rank == 0:
+                self.wait()
+                self._write(step, _snapshot(state))
+            torch.distributed.barrier()
+            return
         self.wait()
         snapshot = _snapshot(state)
         if not self.async_save:

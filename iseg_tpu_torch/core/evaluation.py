@@ -8,7 +8,10 @@ under ``torch.inference_mode()`` and the env's autocast. The config's
 ``use_cpu_cache`` (one pass per scale and flip, logits summed in pinned host
 memory) and ``bucket_multiple`` (host batches padded up to the bucket grid
 before they are sent to the device) are honoured here, as in the JAX
-package.
+package. On a process group (``env.mesh``) every rank reads the whole
+dataset and evaluates its slice of every global batch (``shard_batch``);
+the confusion counts are all-reduced in int64, the loss is the global
+valid-pixel mean, and rank 0 alone prints and writes the log.
 """
 
 from __future__ import annotations
@@ -27,6 +30,8 @@ from iseg_tpu_torch.core.model import SegModelInferenceConfig
 from iseg_tpu_torch.data.loader import device_prefetch
 from iseg_tpu_torch.losses.cross_entropy import cross_entropy_ignore_label
 from iseg_tpu_torch.metrics.mean_iou import MeanIoU
+from iseg_tpu_torch.parallel import collectives
+from iseg_tpu_torch.parallel.mesh import DATA_AXIS, axis_group, axis_rank, shard_batch
 from iseg_tpu_torch.utils.buckets import pad_batch_to_bucket
 
 
@@ -179,10 +184,18 @@ def evaluate(
     cfg = inference_config or SegModelInferenceConfig()
     pad = (bucket_padder(cfg.bucket_multiple, cfg.bucket_pad_value, ignore_label)
            if cfg.bucket_multiple else None)
+    mesh = getattr(env, "mesh", None)
+    lead = axis_rank(mesh, DATA_AXIS) == 0  # rank 0 alone prints and logs
+    transform = pad
+    if mesh is not None:
+        # each rank evaluates its slice of every global batch
+        def transform(batch):
+            return shard_batch(mesh, pad(batch) if pad is not None else batch)
+        base_cm = miou.total_cm.copy()
 
     n_batches = 0
     loss_sum = 0.0
-    for batch in device_prefetch(dataset, env.device, size=2, transform=pad):
+    for batch in device_prefetch(dataset, env.device, size=2, transform=transform):
         image = batch["image"]
         if not image.is_floating_point():
             image = image.to(torch.float32)
@@ -190,10 +203,13 @@ def evaluate(
         logits = eval_step(image).to(env.device)
         miou.update_state(batch["label"], logits)
         if compute_loss:
-            loss_sum += float(cross_entropy_ignore_label(logits, batch["label"],
-                                                         ignore_label=ignore_label))
+            # on a group each rank's share of the global valid-pixel mean
+            # (``losses.base.global_valid_mean``); the ranks' mean below is it
+            with collectives.data_parallel(mesh):
+                loss_sum += float(cross_entropy_ignore_label(logits, batch["label"],
+                                                             ignore_label=ignore_label))
         n_batches += 1
-        if verbose and n_batches % 50 == 0:
+        if verbose and lead and n_batches % 50 == 0:
             msg = f"eval batch {n_batches}: running mIoU={miou.result():.4f}"
             if compute_loss:
                 msg += f" loss={loss_sum / n_batches:.4f}"
@@ -201,9 +217,18 @@ def evaluate(
 
     # the distinct padded shapes this eval saw (bucket accounting)
     evaluate.last_num_programs = len(eval_step.seen_shapes)
+    if mesh is not None:
+        # the ranks' confusion counts, summed exactly in int64
+        group = axis_group(mesh, DATA_AXIS)
+        mine = torch.as_tensor(np.rint(miou.total_cm - base_cm).astype(np.int64),
+                               device=collectives.comm_device(group))
+        miou.total_cm = base_cm + collectives.all_reduce_values(mine, group=group).cpu().numpy()
+        loss_sum = float(collectives.all_reduce_values(
+            torch.tensor([loss_sum], dtype=torch.float64,
+                         device=collectives.comm_device(group)), "mean", group))
 
     per_class = miou.per_class_iou()
-    if log_dir is not None:
+    if log_dir is not None and lead:
         from iseg_tpu_torch.utils.summary import ScalarLogger
 
         logger = ScalarLogger(log_dir)
@@ -214,7 +239,7 @@ def evaluate(
             scalars[f"eval/iou_class_{i}"] = float(v)
         logger.log(scalars, log_step)
         logger.close()
-    if verbose:
+    if verbose and lead:
         print(f"eval done ({n_batches} batches): mIoU={miou.result():.4f}"
               + (f" loss={loss_sum / max(n_batches, 1):.4f}" if compute_loss else ""))
         for i, v in enumerate(per_class):

@@ -1,6 +1,6 @@
-"""Inference engine: single-scale, multi-scale + flip, sliding-window
-(counterpart of ``iseg_tpu/core/inference.py``; the device-sharded sliding
-window is not ported).
+"""Inference engine: single-scale, multi-scale + flip, sliding-window,
+and the sliding window sharded over the ranks of a data-parallel mesh
+(counterpart of ``iseg_tpu/core/inference.py``).
 
 Images and logits are NHWC like the model's boundary. ``apply_fn(images)
 -> logits`` must return logits at its input's resolution. The window-start
@@ -53,12 +53,12 @@ def sliding_window_plan(
     return starts, counts, (wh, ww)
 
 
-def _chunk_weighted_starts(starts: np.ndarray, wb: int) -> np.ndarray:
+def _chunk_weighted_starts(starts: np.ndarray, wb: int, multiple: int = 1) -> np.ndarray:
     """[K, 2] window starts -> [K'/wb, wb, 3] (y, x, weight) chunks, padded
     with zero-weight sentinel windows at (0, 0) so K' is a multiple of
-    ``wb``."""
+    ``wb * multiple`` (``multiple`` > 1 for a sweep sharded over ranks)."""
     kk = len(starts)
-    pad = (-kk) % wb
+    pad = (-kk) % (wb * multiple)
     return np.concatenate(
         [np.c_[starts, np.ones((kk, 1), np.int32)], np.zeros((pad, 3), np.int32)],
         axis=0,
@@ -87,8 +87,18 @@ def inference_with_sliding_window(
         return apply_fn(images)
 
     wb = max(1, min(int(window_batch), len(starts)))
+    canvas = _sweep(apply_fn, images, _chunk_weighted_starts(starts, wb), (wh, ww))
+    return canvas / torch.as_tensor(counts, device=canvas.device)[None]
+
+
+def _sweep(apply_fn, images, chunks, window_hw) -> torch.Tensor:
+    """fp32 canvas of the weighted logits of ``chunks`` ([k, wb, 3] (y, x,
+    weight)) of windows of ``window_hw``, each chunk one model call."""
+    n, h, w, _ = images.shape
+    wh, ww = window_hw
+    wb = chunks.shape[1]
     canvas = None
-    for chunk in _chunk_weighted_starts(starts, wb):
+    for chunk in chunks:
         wins = [images[:, y : y + wh, x : x + ww] for y, x, _ in chunk]
         logits = apply_fn(torch.cat(wins, dim=0) if wb > 1 else wins[0]).to(torch.float32)
         if canvas is None:
@@ -96,6 +106,38 @@ def inference_with_sliding_window(
                                  device=logits.device)
         for i, (y, x, weight) in enumerate(chunk):
             canvas[:, y : y + wh, x : x + ww] += logits[i * n : (i + 1) * n] * float(weight)
+    return canvas
+
+
+def inference_with_sliding_window_sharded(
+    apply_fn: Callable[[torch.Tensor], torch.Tensor],
+    images: torch.Tensor,
+    crop_size: tuple[int, int],
+    mesh,
+    stride_rate: float = 2.0 / 3.0,
+    axis: str = "data",
+    window_batch: int = 1,
+) -> torch.Tensor:
+    """Sliding window with the window plan split over the ranks of
+    ``mesh``'s ``axis``: every rank holds the whole ``images``, the plan is
+    padded with zero-weight sentinel windows to a multiple of ranks x
+    ``window_batch`` and cut into one contiguous block of chunks a rank;
+    each rank sums its windows' logits on an fp32 canvas, the canvases are
+    all-reduced and divided by the overlap counts. Every rank returns the
+    logits. Without a mesh it is :func:`inference_with_sliding_window`'s
+    sweep over the whole plan."""
+    from iseg_tpu_torch.parallel.collectives import all_reduce_
+    from iseg_tpu_torch.parallel.mesh import axis_group, axis_rank, axis_size
+
+    n, h, w, _ = images.shape
+    starts, counts, (wh, ww) = sliding_window_plan((h, w), crop_size, stride_rate)
+    n_dev = axis_size(mesh, axis)
+    wb = max(1, min(int(window_batch), -(-len(starts) // n_dev)))
+    chunks = _chunk_weighted_starts(starts, wb, multiple=n_dev)
+    per = len(chunks) // n_dev
+    r = axis_rank(mesh, axis)
+    canvas = _sweep(apply_fn, images, chunks[r * per:(r + 1) * per], (wh, ww))
+    all_reduce_(canvas, axis_group(mesh, axis))
     return canvas / torch.as_tensor(counts, device=canvas.device)[None]
 
 

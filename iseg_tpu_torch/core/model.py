@@ -13,7 +13,6 @@ import dataclasses
 from typing import Callable, Optional, Sequence
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from iseg_tpu_torch.core.inference import inference_with_multi_scales
@@ -21,7 +20,7 @@ from iseg_tpu_torch.losses.cross_entropy import cross_entropy_ignore_label
 from iseg_tpu_torch.losses.ohem import get_ohem_fn
 from iseg_tpu_torch.nn.conv import Conv2d
 from iseg_tpu_torch.ops.kernels.upsample_ce import upsample_cross_entropy
-from iseg_tpu_torch.ops.resize import resize_image
+from iseg_tpu_torch.ops.resize import resize_bilinear_matmul, resize_image
 
 
 @dataclasses.dataclass
@@ -293,11 +292,12 @@ class SegManaged(SegFoundation):
         logits_list = []
         for i, h in enumerate(head_outs[: self.num_outputs]):
             logits = self._modules[f"logits_conv_{i}" if i else "logits_conv"](h)
-            if self.upsample_logits and tuple(logits.shape[2:]) != inputs_hw:
-                logits = F.interpolate(logits, size=inputs_hw, mode="bilinear",
-                                       align_corners=False, antialias=False)
-            # fp32 output cast, NCHW -> NHWC (a view when logits are channels_last)
-            logits_list.append(logits.permute(0, 2, 3, 1).to(torch.float32).contiguous())
+            # NCHW -> NHWC (a view when logits are channels_last), the
+            # half-pixel upsample by interpolation matrices, the fp32 cast
+            logits = logits.permute(0, 2, 3, 1)
+            if self.upsample_logits:
+                logits = resize_bilinear_matmul(logits, inputs_hw, align_corners=False)
+            logits_list.append(logits.to(torch.float32).contiguous())
         if len(logits_list) == 1:
             return logits_list[0]
         return {f"output_{i}": v for i, v in enumerate(logits_list)}

@@ -8,6 +8,18 @@ bf16 autocast when the compute dtype is bf16), one backward, the optimizer
 update applied in place, and the BN running-stat update, which the
 forward makes in training mode.
 
+Data parallelism (``mesh=``, one process a card over a process group)
+follows the JAX package's one GSPMD program over the global batch: each
+rank steps its slice of it, SyncBN and the losses take their moments and
+denominators over the global batch (``parallel.collectives``), and the
+gradients are averaged over the ranks by flat all-reduces of fixed buckets
+in the parameters' order, so every rank applies the same update and holds
+the same parameters bit for bit. FSDP (``parallel.fsdp.shard_fsdp``) is
+the same step: FSDP2 reduces the sharded parameters' gradients and the
+step averages the replicated ones (the state holds those as replicated
+``DTensor`` views, ``fsdp.replicated_view``). Without a mesh nothing of
+this runs.
+
 Randomness is a function of the step, as in the JAX package's
 ``fold_in(rng, state.step)``: with a ``seed``, the step re-seeds the
 model's dropout generator from ``(seed, dropout stream, step)`` and the
@@ -30,8 +42,12 @@ from torch import nn
 
 from iseg_tpu_torch.convert import batch_stats_tree, param_tree
 from iseg_tpu_torch.data.loader import device_prefetch, to_device
+from iseg_tpu_torch.data.resident import sharded_gather
 from iseg_tpu_torch.nn.blocks import set_dropout_generator
 from iseg_tpu_torch.nn.initializers import initialize
+from iseg_tpu_torch.parallel import collectives
+from iseg_tpu_torch.parallel.fsdp import fsdp_mesh, is_dtensor, replicated_view
+from iseg_tpu_torch.parallel.mesh import DATA_AXIS, axis_group, axis_rank, shard_batch
 from iseg_tpu_torch.utils.profiling import StepTimer, profile_trace
 
 # RNG stream tags: a step's generators are seeded from (seed, stream, step),
@@ -112,6 +128,9 @@ def create_train_state(
             raise ValueError("create_train_state needs a generator to initialize the model")
         initialize(model, generator)
     params = param_tree(model)
+    mesh = fsdp_mesh(model)
+    if mesh is not None:  # FSDP: the replicated leaves as DTensor views too
+        params = {k: v if is_dtensor(v) else replicated_view(v, mesh) for k, v in params.items()}
     device = next(iter(params.values())).device
     if generator is not None:
         seed = int(torch.randint(0, 2 ** 62, (1,), generator=generator))
@@ -129,8 +148,53 @@ def create_train_state(
     )
 
 
+# bytes of one gradient all-reduce: few collectives, and a bounded extra copy
+GRAD_BUCKET_BYTES = 32 << 20
+
+
+def average_gradients(grads: list, group, bucket_bytes: int = GRAD_BUCKET_BYTES) -> list:
+    """The ranks' mean of each gradient, as new tensors: consecutive
+    gradients of one dtype and device are flattened into buckets of about
+    ``bucket_bytes``, in list order, each summed by one all-reduce and
+    divided by the rank count. The order and the buckets are the same on
+    every rank, and an all-reduce leaves one result on all of them."""
+    d = collectives.world_size(group)
+    out = list(grads)
+    i = 0
+    while i < len(grads):
+        j, size = i, 0
+        while j < len(grads) and (j == i or (
+                grads[j].dtype == grads[i].dtype and grads[j].device == grads[i].device
+                and size + grads[j].numel() * grads[j].element_size() <= bucket_bytes)):
+            size += grads[j].numel() * grads[j].element_size()
+            j += 1
+        flat = torch.cat([g.reshape(-1) for g in grads[i:j]])
+        collectives.all_reduce_(flat, group)
+        flat.div_(d)
+        offset = 0
+        for k in range(i, j):
+            n = grads[k].numel()
+            out[k] = flat[offset:offset + n].view(grads[k].shape)
+            offset += n
+        i = j
+    return out
+
+
+def _backward_gradients(loss: torch.Tensor, params: list) -> list:
+    """``d loss / d params`` from ``.grad`` after a ``backward()``: an FSDP
+    model's gradients come through FSDP2's hooks, which only ``backward()``
+    runs."""
+    for p in params:
+        p.grad = None
+    loss.backward()
+    grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in params]
+    for p in params:
+        p.grad = None
+    return grads
+
+
 def make_train_step(loss_fn: Callable, compute_dtype: torch.dtype = torch.float32,
-                    seed: Optional[int] = None) -> Callable:
+                    seed: Optional[int] = None, mesh=None) -> Callable:
     """Build ``train_step(state, batch) -> (state, parts)``.
 
     ``loss_fn(outputs, labels) -> (total, parts)`` is typically
@@ -141,8 +205,14 @@ def make_train_step(loss_fn: Callable, compute_dtype: torch.dtype = torch.float3
     device, set on the model at the first step) from ``(seed,
     DROPOUT_STREAM, state.step)``; without, dropout draws from the
     generators the model holds.
+
+    With ``mesh`` (a ``DeviceMesh``, ``env.mesh``) ``batch`` is this rank's
+    part of the global batch and the step is data parallel over the mesh's
+    data axis (see the module note); ``parts`` are then the global batch's
+    (the ranks' mean). An FSDP-sharded model needs the mesh.
     """
     dropout = None
+    group = axis_group(mesh, DATA_AXIS)
 
     def train_step(state: TrainState, batch: dict):
         nonlocal dropout
@@ -154,15 +224,36 @@ def make_train_step(loss_fn: Callable, compute_dtype: torch.dtype = torch.float3
                 dropout = torch.Generator(device=image.device)
                 set_dropout_generator(model, dropout)
             dropout.manual_seed(stream_seed(seed, DROPOUT_STREAM, state.step))
-        with torch.autocast(image.device.type, dtype=compute_dtype,
-                            enabled=compute_dtype != torch.float32):
-            outputs = model(image)
-        loss, parts = loss_fn(outputs, batch["label"])
         params = list(state.params.values())
-        grads = torch.autograd.grad(loss, params, allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g for g, p in zip(grads, params)]
+        sharded_over = fsdp_mesh(model)
+        if sharded_over is not None:
+            if mesh is None:
+                raise ValueError("an FSDP-sharded model trains with make_train_step(..., mesh=)")
+            # the sharded parameters, as registered between steps (during the
+            # forward and backward FSDP2 registers the gathered ones)
+            live = list(param_tree(model).values())
+        with collectives.data_parallel(mesh):
+            with torch.autocast(image.device.type, dtype=compute_dtype,
+                                enabled=compute_dtype != torch.float32):
+                outputs = model(image)
+            loss, parts = loss_fn(outputs, batch["label"])
+            if sharded_over is None:
+                grads = torch.autograd.grad(loss, params, allow_unused=True)
+                grads = [torch.zeros_like(p) if g is None else g for g, p in zip(grads, params)]
+            else:
+                grads = _backward_gradients(loss, live)
+        parts = {k: v.detach() for k, v in parts.items()}
+        if mesh is not None:
+            # FSDP2 averaged the sharded leaves' gradients; the rest here
+            plain = [k for k, g in enumerate(grads) if not is_dtensor(g)]
+            for k, g in zip(plain, average_gradients([grads[k] for k in plain], group)):
+                grads[k] = g if sharded_over is None else replicated_view(g, sharded_over)
+            names = sorted(parts)
+            mean = collectives.all_reduce_values(
+                torch.stack([parts[k].to(torch.float64) for k in names]), "mean", group)
+            parts = {k: mean[i].to(parts[k].dtype) for i, k in enumerate(names)}
         state.apply_gradients(dict(zip(state.params, grads)))
-        return state, {k: v.detach() for k, v in parts.items()}
+        return state, parts
 
     return train_step
 
@@ -185,7 +276,8 @@ def model_inputs(image: torch.Tensor, label: torch.Tensor, augment_fn: Optional[
 def make_resident_train_step(loss_fn: Callable, images: torch.Tensor, labels: torch.Tensor,
                              augment_fn: Optional[Callable] = None,
                              compute_dtype: torch.dtype = torch.float32,
-                             seed: int = 0) -> Callable:
+                             seed: int = 0, mesh=None, row_start: Optional[int] = None
+                             ) -> Callable:
     """``step(state, idx) -> (state, parts)`` for device-resident data
     (``iseg_tpu_torch.data.resident.DeviceResidentDataset``): one gather of
     the ``[batch]`` indices from the resident ``images``/``labels``, then
@@ -195,14 +287,28 @@ def make_resident_train_step(loss_fn: Callable, images: torch.Tensor, labels: to
 
     The augment's generator and the dropout are seeded from ``seed`` and
     ``state.step`` as ``CoreTrain``'s separate gather + augment + step
-    seeds them, so the two paths compute the same step."""
-    body = make_train_step(loss_fn, compute_dtype, seed=seed)
+    seeds them, so the two paths compute the same step.
+
+    With ``mesh`` the step is data parallel (:func:`make_train_step`). With
+    ``row_start`` too, ``images``/``labels`` are this rank's partition of a
+    sample-sharded dataset (``DeviceResidentDataset(mesh=)``), holding the
+    global rows from ``row_start`` on, and ``idx`` is the GLOBAL batch's
+    index vector: each rank gathers the rows it holds (the others zero), one
+    all-reduce of the uint8 batch assembles it on every rank, and each rank
+    steps its slice (``shard_batch``). Without ``row_start`` each rank's
+    ``idx`` indexes its own data and gives its own slice of the batch."""
+    body = make_train_step(loss_fn, compute_dtype, seed=seed, mesh=mesh)
     generator = torch.Generator(device=images.device) if augment_fn is not None else None
 
     def step(state: TrainState, idx):
         idx = to_device(np.asarray(idx, np.int64), images.device)
-        image, label = model_inputs(images.index_select(0, idx), labels.index_select(0, idx),
-                                    augment_fn, generator, seed, state.step)
+        with collectives.data_parallel(mesh):
+            if row_start is None:
+                image, label = images.index_select(0, idx), labels.index_select(0, idx)
+            else:
+                image, label = shard_batch(mesh, list(sharded_gather(
+                    images, labels, idx, row_start, axis_group(mesh, DATA_AXIS))))
+            image, label = model_inputs(image, label, augment_fn, generator, seed, state.step)
         return body(state, {"image": image, "label": label})
 
     return step
@@ -225,6 +331,21 @@ class CoreTrain:
     ``grad_accum_every=k``: a step of this loop is then a micro-step (the
     state's step counts them), the schedule inside ``tx`` counts real
     updates, and the logged learning rate reads ``lr_schedule(step // k)``.
+
+    On a process group (``env.mesh`` set by ``common_env_setup(
+    initialize_distributed=True)``) the steps are data parallel: each
+    process's ``dataset_fn`` yields its LOCAL batch, this rank's part of the
+    global batch, which is taken as it is (the JAX package's rule on several
+    processes; ``make_shard_dataset_fn`` partitions by rank by default, and
+    the global batch of a step is the ranks' batches in rank order); every
+    rank starts from the same seeded weights; ``ModelHelper`` writes from
+    rank 0 behind a barrier and every rank restores; a SIGTERM on any rank
+    stops every rank after the same step (the ranks agree on it by a
+    non-blocking all-reduce issued after each step and read after the next,
+    so the host never waits on the card for it: the stop comes one step
+    after the signal is seen); rank 0 alone writes the scalar log. A
+    resident dataset built with ``mesh=`` serves global index vectors that
+    every rank gathers by ``data.resident.sharded_gather``.
     """
 
     def __init__(
@@ -254,6 +375,7 @@ class CoreTrain:
         if use_profiler and profiler_dir is None:
             raise ValueError("use_profiler needs a profiler_dir")
         self.env = env
+        self.mesh = getattr(env, "mesh", None)
         self.model = model
         self.seed = seed
         self.loss_fn = loss_fn or model.build_loss_fn()
@@ -266,9 +388,11 @@ class CoreTrain:
         if resident_dataset is not None:
             self.train_step = make_resident_train_step(
                 self.loss_fn, resident_dataset.images, resident_dataset.labels,
-                augment_fn=device_augment, compute_dtype=env.compute_dtype, seed=seed)
+                augment_fn=device_augment, compute_dtype=env.compute_dtype, seed=seed,
+                mesh=self.mesh, row_start=getattr(resident_dataset, "row_start", None))
         else:
-            self.train_step = make_train_step(self.loss_fn, env.compute_dtype, seed=seed)
+            self.train_step = make_train_step(self.loss_fn, env.compute_dtype, seed=seed,
+                                              mesh=self.mesh)
         self.checkpoint_manager = checkpoint_manager
         self.log_every = log_every
         self.callbacks = list(callbacks or [])
@@ -287,7 +411,7 @@ class CoreTrain:
         self.prefetch_to_device = prefetch_to_device
         # durable scalar log: TensorBoard event file + CSV under log_dir
         self.scalar_logger = None
-        if log_dir is not None:
+        if log_dir is not None and axis_rank(self.mesh, DATA_AXIS) == 0:
             from iseg_tpu_torch.utils.summary import ScalarLogger
 
             self.scalar_logger = ScalarLogger(log_dir)
@@ -300,6 +424,7 @@ class CoreTrain:
         # with initial_epoch=-1 skips the already-applied batches
         self.handle_preemption = handle_preemption
         self._preempt_requested = False
+        self._preempt_vote = None  # the ranks' agreement in flight (on a group)
 
     def restore(self) -> int:
         """Resume from the latest checkpoint if one exists (reference
@@ -335,6 +460,7 @@ class CoreTrain:
             resume_skip = self.state.step % steps_per_epoch
 
         self._preempt_requested = False
+        self._preempt_vote = None
         prev_handler = _UNSET_HANDLER
         if self.handle_preemption:
             def _on_preempt(signum, frame):
@@ -349,6 +475,7 @@ class CoreTrain:
         try:
             history = self._train_loop(dataset_fn, epochs, steps_per_epoch, initial_epoch,
                                        resume_skip, on_epoch_end)
+            self._settle_vote()
         finally:
             # None means the previous handler was installed by non-Python
             # code: signal.signal cannot re-install it, and leaving
@@ -379,14 +506,34 @@ class CoreTrain:
     def _batches(self, data):
         if self.resident_dataset is not None:
             return data  # [B] index vectors; the data are on the device
+        # on a group each host batch is this process's local batch, as it is
         return device_prefetch(data, self.env.device, size=self.prefetch_to_device,
                                transform=self.inputs_process)
+
+    def _preempted(self) -> bool:
+        """The preemption flag; on a group, true on every rank after the
+        same step when any rank had it one step earlier: each step casts
+        this rank's flag into a non-blocking all-reduce and reads the vote
+        cast after the step before."""
+        if self.mesh is None:
+            return self._preempt_requested
+        previous, self._preempt_vote = self._preempt_vote, collectives.AnyRankVote(
+            self._preempt_requested, group=axis_group(self.mesh, DATA_AXIS))
+        return previous is not None and previous.result()
+
+    def _settle_vote(self) -> None:
+        """Wait for the vote in flight (every rank holds one, cast after the
+        same step), so no collective outlives the loop."""
+        if self._preempt_vote is not None:
+            self._preempt_vote.result()
+            self._preempt_vote = None
 
     def _step(self, batch):
         if self.resident_dataset is not None:
             return self.train_step(self.state, batch["index"])
-        image, label = model_inputs(batch["image"], batch["label"], self.device_augment,
-                                    self._augment_generator, self.seed, self.state.step)
+        with collectives.data_parallel(self.mesh):  # the augment draws the global batch's
+            image, label = model_inputs(batch["image"], batch["label"], self.device_augment,
+                                        self._augment_generator, self.seed, self.state.step)
         return self.train_step(self.state, {"image": image, "label": label})
 
     def _train_loop(self, dataset_fn, epochs, steps_per_epoch, initial_epoch, resume_skip,
@@ -425,7 +572,7 @@ class CoreTrain:
                 last_parts = parts
                 step_in_epoch += 1
                 timer.tick()
-                if self._preempt_requested:
+                if self._preempted():
                     trace.close()
                     self._preempt_checkpoint()
                     return history

@@ -32,6 +32,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from iseg_tpu_torch.parallel.collectives import global_rows
+
 
 @dataclasses.dataclass(frozen=True)
 class DeviceAugmentConfig:
@@ -65,6 +67,12 @@ class AugmentParams:
     erase_side: Optional[torch.Tensor] = None  # [n] float32
     erase_origin: Optional[torch.Tensor] = None  # [n, 2] int64 (top, left)
     erase_noise: Optional[torch.Tensor] = None  # [n, ch, cw, C] float32 in [0, 255)
+
+    def rows(self, index) -> "AugmentParams":
+        """The params of the samples ``index`` selects."""
+        return AugmentParams(**{f.name: (None if getattr(self, f.name) is None
+                                         else getattr(self, f.name)[index])
+                                for f in dataclasses.fields(self)})
 
     def to(self, device) -> "AugmentParams":
         return AugmentParams(**{f.name: (None if getattr(self, f.name) is None
@@ -188,7 +196,11 @@ def make_device_augment(cfg: Optional[DeviceAugmentConfig] = None):
     cfg = cfg or DeviceAugmentConfig()
 
     def augment(generator: torch.Generator, images: torch.Tensor, labels: torch.Tensor):
-        params = sample_augment_params(generator, images.shape[0], cfg, channels=images.shape[-1])
+        # under data parallelism: this rank's rows of the global batch's draws
+        rows, mine = global_rows(images.shape[0])
+        params = sample_augment_params(generator, rows, cfg, channels=images.shape[-1])
+        if rows != images.shape[0]:
+            params = params.rows(mine)
         return apply_augment(images, labels, params, cfg)
 
     return augment

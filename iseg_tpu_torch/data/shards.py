@@ -218,12 +218,14 @@ def make_shard_dataset_fn(
 ):
     """``dataset_fn(epoch)`` for ``CoreTrain.train`` backed by shards.
 
-    ``process_index``/``num_processes`` default to one process: the port
-    has no process grid yet (ROADMAP queue 1 item 25), so a pod partition
-    is asked for explicitly."""
+    ``process_index``/``num_processes`` default to the process group's rank
+    and size (one process without a group): each process then yields its
+    own partition, its local batch, which ``CoreTrain`` takes as it is."""
+    from iseg_tpu_torch.data.resident import resolve_process_grid
+
     reader = ShardReader(shard_dir)
-    pi = 0 if process_index is None else process_index
-    np_ = 1 if num_processes is None else num_processes
+    pi, np_ = resolve_process_grid("auto" if process_index is None else process_index,
+                                   "auto" if num_processes is None else num_processes)
 
     def dataset_fn(epoch: int) -> Iterator[dict]:
         return shard_batches(

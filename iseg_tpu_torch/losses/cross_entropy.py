@@ -5,6 +5,12 @@ Logits are NHWC ``[N, H, W, C]``; everything is computed in fp32. The true
 class is picked by a comparison-reduce, as in the JAX package, so a label
 outside ``[0, C)`` that is not ``ignore_label`` picks nothing (its CE is 0
 while it still counts in the ``valid_mean`` denominator).
+
+Under an active data-parallel group (``parallel.collectives.data_parallel``)
+each reduction divides by its GLOBAL denominator, as the JAX package's loss
+over a GSPMD-sharded batch does: ``valid_mean`` by the all-reduced weight
+sum, ``global_batch`` by the global batch it is given, ``all_mean`` by the
+global N*H*W; OHEM selects over the global batch (``losses/ohem.py``).
 """
 
 from __future__ import annotations
@@ -14,7 +20,8 @@ from typing import Callable, Optional, Sequence
 import torch
 import torch.nn.functional as F
 
-from iseg_tpu_torch.losses.base import prepare_labels, valid_mask
+from iseg_tpu_torch.losses.base import global_valid_mean, prepare_labels, valid_mask
+from iseg_tpu_torch.parallel.collectives import active_group, world_size
 
 
 def softmax_focal_loss(
@@ -105,19 +112,26 @@ def cross_entropy_ignore_label(
 
     if reduction == "none":
         return pixel_loss
+    # under data parallelism over d ranks each rank returns d times its
+    # share of the global loss, so that the mean over the ranks (the step
+    # averages the gradients) is the loss over the global batch
+    group = active_group()
+    d = world_size(group)
     total = pixel_loss.sum()
     if reduction == "sum":
-        return total
+        return total if d == 1 else total * float(d)
     if reduction == "all_mean":
+        # every rank holds n / d images: d * total / (d * numel) is total / numel
         return total / float(pixel_loss.numel())
     if reduction == "global_batch":
         if global_batch_size is None:
             raise ValueError(
                 "reduction='global_batch' requires global_batch_size "
                 "(total images per step across all replicas)")
-        return total / float(global_batch_size)
+        return total / float(global_batch_size) if d == 1 else \
+            total * float(d) / float(global_batch_size)
     if reduction != "valid_mean":
         raise ValueError(
             f"unknown reduction {reduction!r}: expected none/sum/"
             "all_mean/global_batch/valid_mean")
-    return total / torch.clamp(weight_map.sum(), min=1.0)
+    return global_valid_mean(total, weight_map.sum())

@@ -18,6 +18,10 @@ Two selectors:
   the pixels whose loss is strictly above the loss at rank
   ``min(min_kept * batch, n - 1)``.
 
+Under an active data-parallel group both select over the global batch
+(:func:`_over_global_batch`), as the JAX package's selector over a
+GSPMD-sharded batch does.
+
 The keep map is built from comparisons under ``torch.no_grad()``: no
 gradient flows through the selection. Nothing here reads a value back to
 the host.
@@ -28,6 +32,8 @@ from __future__ import annotations
 from typing import Callable
 
 import torch
+
+from iseg_tpu_torch.parallel.collectives import active_group, all_gather, rank, world_size
 
 
 def _hardest_k(values: torch.Tensor, k: int) -> torch.Tensor:
@@ -86,4 +92,25 @@ def get_ohem_fn(thresh: float | None = 0.7, min_kept: int = 100000,
         kept = torch.where(n_hard >= k, hard, hard | topk_mask)
         return kept.to(losses.dtype).reshape(losses.shape)
 
-    return ohem_ref if ref_exact else ohem
+    return _over_global_batch(ohem_ref if ref_exact else ohem)
+
+
+def _over_global_batch(select: Callable) -> Callable:
+    """``select`` over the global batch under an active data-parallel group:
+    every rank all-gathers the ranks' losses, probabilities and masks (rank
+    order is the global batch's order, so a flat index is the JAX package's
+    global one and ties go to the lower global index), selects over all of
+    them and keeps its own rows. Without a group, ``select`` itself."""
+    @torch.no_grad()
+    def over_global(losses: torch.Tensor, true_probs: torch.Tensor,
+                    mask: torch.Tensor) -> torch.Tensor:
+        group = active_group()
+        if world_size(group) == 1:
+            return select(losses, true_probs, mask)
+        n = losses.shape[0]
+        kept = select(all_gather(losses.detach(), group), all_gather(true_probs.detach(), group),
+                      all_gather(mask, group))
+        r = rank(group)
+        return kept[r * n:(r + 1) * n]
+
+    return over_global

@@ -3,7 +3,7 @@ KV-cache generation, the samplers, and the SentencePiece tokenizer.
 
 Counterpart of ``iseg_tpu/nlp/gemma``. The tensor-parallel layout
 (``get_layout_map``, ``shard_gemma_params``), the pipeline loss and the int8
-serving paths are not in the port yet (ROADMAP queue 1 items 25 and 26).
+serving paths are not in the port yet (ROADMAP queue 1 items 25b and 26).
 """
 
 from iseg_tpu_torch.nlp.gemma.causal_lm import GemmaCausalLM

@@ -5,7 +5,7 @@ Counterpart of ``iseg_tpu/nlp/gemma/model.py``, with its layouts: hidden
 states ``[B, T, D]``, heads ``[B, T, H, d]``, and the KV cache as one stack
 ``[B, L, 2, S, kv_heads, head_dim]`` that threads through the blocks. The
 sequence-parallel arguments of the JAX modules (``seq_axis``, ``data_axis``,
-``sp_mode``) are not here (ROADMAP queue 1 item 25).
+``sp_mode``) are not here (ROADMAP queue 1 item 25b).
 
 What differs from the JAX package, which is functional:
 

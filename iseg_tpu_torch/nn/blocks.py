@@ -14,6 +14,7 @@ from torch import nn
 
 from iseg_tpu_torch.nn.conv import Activation, Conv2d, ConvNormAct, _resolve_act
 from iseg_tpu_torch.ops.resize import resize_nchw
+from iseg_tpu_torch.parallel.collectives import global_rows
 
 
 class Dropout(nn.Module):
@@ -22,6 +23,8 @@ class Dropout(nn.Module):
 
     ``generator`` must live on the input's device; None draws from torch's
     default generator. :func:`set_dropout_generator` sets it on a tree.
+    Under data parallelism a rank's mask is its rows of the global batch's
+    (``parallel.collectives.global_rows``).
     """
 
     def __init__(self, rate: float, generator: Optional[torch.Generator] = None):
@@ -33,7 +36,9 @@ class Dropout(nn.Module):
         if not self.training or self.rate == 0.0:
             return x
         keep = 1.0 - self.rate
-        u = torch.rand(x.shape, generator=self.generator, device=x.device)
+        rows, mine = global_rows(x.shape[0])
+        u = torch.rand((rows,) + tuple(x.shape[1:]), generator=self.generator,
+                       device=x.device)[mine]
         return torch.where(u < keep, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
@@ -52,8 +57,9 @@ class DropPath(nn.Module):
         if not self.training or self.rate == 0.0:
             return x
         keep = 1.0 - self.rate
-        shape = (x.shape[0],) + (1,) * (x.ndim - 1)
-        u = torch.rand(shape, generator=self.generator, device=x.device)
+        rows, mine = global_rows(x.shape[0])
+        u = torch.rand((rows,) + (1,) * (x.ndim - 1), generator=self.generator,
+                       device=x.device)[mine]
         return torch.where(u < keep, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
 

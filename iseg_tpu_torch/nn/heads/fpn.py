@@ -26,20 +26,18 @@ from __future__ import annotations
 from typing import Sequence
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from iseg_tpu_torch.nn.conv import ConvNormAct
 from iseg_tpu_torch.nn.heads.common import select_pyramid_endpoints
 from iseg_tpu_torch.ops.numerics import replace_non_finite
+from iseg_tpu_torch.ops.resize import resize_nchw
 
 
 def _resize(x: torch.Tensor, hw: tuple[int, int]) -> torch.Tensor:
-    """Half-pixel bilinear resize of an NCHW map (no antialias)."""
-    if tuple(x.shape[2:]) == tuple(hw):
-        return x
-    return F.interpolate(x, size=tuple(hw), mode="bilinear", align_corners=False,
-                         antialias=False)
+    """Half-pixel bilinear resize of an NCHW map (no antialias), by
+    interpolation matrices: a backward in a fixed order."""
+    return resize_nchw(x, hw)
 
 
 class FeaturePyramidNetwork(nn.Module):

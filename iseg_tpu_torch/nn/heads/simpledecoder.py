@@ -6,15 +6,15 @@ from __future__ import annotations
 from typing import Sequence
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from iseg_tpu_torch.nn.conv import ConvNormAct
+from iseg_tpu_torch.ops.resize import resize_nchw
 
 
 class SimpleDecoder(nn.Module):
     """Project a low-level endpoint, upsample the high-level feature to it
-    (half-pixel bilinear), concat ``[high, low]``, refine with two 3x3
+    (half-pixel bilinear, by interpolation matrices), concat ``[high, low]``, refine with two 3x3
     convs. ``in_channels`` are the backbone's endpoint widths
     (``backbone.endpoint_channels``); ``out_channels`` is ``filters``."""
 
@@ -37,8 +37,7 @@ class SimpleDecoder(nn.Module):
         high = endpoints[-1]
         low = self.low_level_project(endpoints[min(self.low_level_index, len(endpoints) - 1)])
         if tuple(high.shape[2:]) != tuple(low.shape[2:]):
-            high = F.interpolate(high, size=tuple(low.shape[2:]), mode="bilinear",
-                                 align_corners=False, antialias=False)
+            high = resize_nchw(high, tuple(low.shape[2:]))
         x = torch.cat([high, low.to(high.dtype)], dim=1)
         if high.is_contiguous(memory_format=torch.channels_last):
             x = x.contiguous(memory_format=torch.channels_last)

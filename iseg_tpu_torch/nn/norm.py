@@ -12,7 +12,16 @@ because it must behave like flax's ``nn.BatchNorm`` with Keras defaults:
   flax promotes with fp32), whatever the compute dtype (under bf16
   autocast), and the output returns in the input's dtype.
 
-On one card BatchNorm and SyncBatchNorm are the same layer.
+:class:`SyncBatchNorm` takes its moments over the GLOBAL batch when a
+data-parallel group is active (``parallel.collectives.data_parallel``,
+entered by ``make_train_step(..., mesh=)``), as flax's BatchNorm does
+over a GSPMD-sharded batch: the per-channel sum, sum of squares and count
+are all-reduced in ``promote_types(dtype, float32)``, the batch is
+normalized with the global biased variance E[x^2] - E[x]^2, and the
+running stats take that mean and variance. Its backward all-reduces the
+gradients of the two sums. With no group, or one rank, it is
+:class:`BatchNorm` bit for bit. :class:`BatchNorm` itself stays per rank
+(the reference's unsynchronized BN under MirroredStrategy).
 
 The factory's other kinds normalize over the channels (dim 1) of an NCHW
 tensor, as flax's layers do over the last axis of an NHWC one:
@@ -34,6 +43,7 @@ import torch
 from torch import nn
 
 from iseg_tpu_torch.core.env import resolve_device
+from iseg_tpu_torch.parallel.collectives import active_group, world_size
 
 _DEFAULT_NORM = "sync_batch_norm"
 _BN_MOMENTUM_OVERRIDE: float | None = None
@@ -88,17 +98,22 @@ class BatchNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         xf = x.to(torch.promote_types(x.dtype, torch.float32))
-        if self.training:
-            dims = [0] + list(range(2, x.ndim))
-            # one fused two-pass reduction; flax's E[x^2] - E[x]^2 gives the
-            # same moments up to rounding (and no better parity in the tests)
-            var, mean = torch.var_mean(xf, dim=dims, correction=0)
+        if not self.training:
+            return self._normalize(x, xf, self.running_mean, self.running_var)
+        dims = [0] + list(range(2, x.ndim))
+        # one fused two-pass reduction; flax's E[x^2] - E[x]^2 gives the
+        # same moments up to rounding (and no better parity in the tests)
+        var, mean = torch.var_mean(xf, dim=dims, correction=0)
+        return self._normalize(x, xf, mean, var, update=True)
+
+    def _normalize(self, x, xf, mean, var, update: bool = False) -> torch.Tensor:
+        """``xf`` normalized by ``mean``/``var`` ([C]), returned in ``x``'s
+        dtype; ``update`` moves the running stats toward them first."""
+        if update:
             with torch.no_grad():
                 m = self.momentum
                 self.running_mean.copy_(m * self.running_mean + (1.0 - m) * mean)
                 self.running_var.copy_(m * self.running_var + (1.0 - m) * var)
-        else:
-            mean, var = self.running_mean, self.running_var
         shape = [1, -1] + [1] * (x.ndim - 2)
         mul = torch.rsqrt(var + self.epsilon) * self.weight
         y = (xf - mean.view(shape)) * mul.view(shape) + self.bias.view(shape)
@@ -108,8 +123,46 @@ class BatchNorm(nn.Module):
         return f"{self.num_features}, momentum={self.momentum}, epsilon={self.epsilon}"
 
 
+class _AllReduceSum(torch.autograd.Function):
+    """Sum over the ranks of the active group; its backward is the same
+    sum of the incoming gradient (every rank's loss reads the global
+    sums)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        out = x.clone()
+        torch.distributed.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.contiguous().clone()
+        torch.distributed.all_reduce(grad, group=ctx.group)
+        return grad, None
+
+
 class SyncBatchNorm(BatchNorm):
-    """Cross-replica BN; on one card it is :class:`BatchNorm`."""
+    """Cross-replica BN (reference ``layers/syncbn.py:20``): global
+    moments over the active data-parallel group (see the module note);
+    :class:`BatchNorm` without one."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        group = active_group()
+        if not self.training or world_size(group) == 1:
+            return super().forward(x)
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        dims = [0] + list(range(2, x.ndim))
+        count = torch.full((1,), float(x.numel() // x.shape[1]), dtype=xf.dtype,
+                           device=x.device)
+        # [sum, sum of squares, count] of this rank's values, summed over ranks
+        sums = _AllReduceSum.apply(
+            torch.cat([xf.sum(dim=dims), xf.square().sum(dim=dims), count]), group)
+        c = x.shape[1]
+        n = sums[2 * c]
+        mean = sums[:c] / n
+        var = torch.clamp(sums[c:2 * c] / n - mean.square(), min=0.0)
+        return self._normalize(x, xf, mean, var, update=True)
 
 
 class RMSNorm(nn.Module):

@@ -15,7 +15,8 @@ launch of each kernel, nowhere else, so a run can show that it went
 through the kernels.
 
 Semantics kept from the TPU kernel: the loss is ``sum(ce * valid) /
-max(sum(valid), 1)`` over pixels with ``label != ignore_label``; a label
+max(sum(valid), 1)`` over pixels with ``label != ignore_label`` (over the
+global batch under data parallelism: ``losses.base.global_valid_mean``); a label
 outside ``[0, C)`` that is not ignored has no true class, so its CE is the
 full log-sum-exp; with ``ignore_label == 0`` the classes are NOT shifted
 (unlike :func:`cross_entropy_ignore_label`).
@@ -37,6 +38,7 @@ from typing import Optional
 
 import torch
 
+from iseg_tpu_torch.losses.base import global_valid_mean
 from iseg_tpu_torch.losses.cross_entropy import cross_entropy_ignore_label
 from iseg_tpu_torch.ops.resize import resize_image
 
@@ -203,7 +205,7 @@ def upsample_cross_entropy(
         loss_sum, valid = _FusedSums.apply(src_logits, labels.contiguous(), int(ignore_label))
     else:
         raise ValueError(f"upsample_cross_entropy: no kernel for device {src_logits.device}")
-    return loss_sum / torch.clamp(valid, min=1.0)
+    return global_valid_mean(loss_sum, valid)
 
 
 def upsample_cross_entropy_reference(src_logits, labels, target_hw=None,

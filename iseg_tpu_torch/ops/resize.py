@@ -2,8 +2,11 @@
 ``iseg_tpu/ops/resize.py``).
 
 NHWC (or HWC) at the boundary, like the JAX package. Bilinear is
-half-pixel ``F.interpolate(align_corners=False, antialias=False)``, which
-is ``jax.image.resize(..., "linear", antialias=False)``. Bicubic is
+half-pixel without antialias, ``jax.image.resize(..., "linear",
+antialias=False)``, by interpolation matrices (:func:`_linear_matrix`):
+the same values as ``F.interpolate(align_corners=False)``, but a backward
+that sums in a fixed order where ``F.interpolate``'s CUDA backward adds
+with atomics, so a training run through it repeats bit for bit. Bicubic is
 ``jax.image.resize(..., "bicubic", antialias=False)`` by interpolation
 matrices (:func:`_cubic_matrix`): JAX's cubic is Keys' with a = -0.5 where
 ``F.interpolate``'s is a = -0.75, and JAX drops the taps that fall outside
@@ -22,7 +25,6 @@ from typing import Sequence
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 
 def _normalize_size(size) -> tuple[int, int]:
@@ -46,6 +48,14 @@ def _resize_nearest(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
     return x
 
 
+def _const(m: np.ndarray, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """A cached interpolation matrix as a normal tensor, also when first
+    made under ``torch.inference_mode()`` (an inference tensor could not
+    take part in a later training step's autograd)."""
+    with torch.inference_mode(False):
+        return torch.tensor(m, dtype=dtype, device=device)
+
+
 @functools.lru_cache(maxsize=256)
 def _linear_matrix(out_len: int, in_len: int, align_corners: bool, dtype: torch.dtype,
                    device: torch.device) -> torch.Tensor:
@@ -53,19 +63,36 @@ def _linear_matrix(out_len: int, in_len: int, align_corners: bool, dtype: torch.
     geometry, type and device. ``align_corners``: src = i * (in-1)/(out-1)
     (the JAX package's ``_align_corners_matrix``); else half-pixel, src =
     (i + 0.5) * in/out - 0.5 held at 0 from below (``jax.image.resize`` and
-    ``F.interpolate``; no antialias)."""
+    ``F.interpolate``; no antialias), by :func:`_half_pixel_linear`."""
+    if not align_corners:
+        return _const(_half_pixel_linear(out_len, in_len, dtype), dtype, device)
     i = np.arange(out_len, dtype=np.float64)
-    if align_corners:
-        src = i * (in_len - 1) / (out_len - 1) if out_len > 1 else np.zeros(out_len)
-    else:
-        src = np.maximum((i + 0.5) * in_len / out_len - 0.5, 0.0)
+    src = i * (in_len - 1) / (out_len - 1) if out_len > 1 else np.zeros(out_len)
     lo = np.minimum(np.floor(src).astype(np.int64), in_len - 1)
     hi = np.minimum(lo + 1, in_len - 1)
     frac = src - lo
     m = np.zeros((out_len, in_len))
     np.add.at(m, (np.arange(out_len), lo), 1.0 - frac)
     np.add.at(m, (np.arange(out_len), hi), frac)
-    return torch.tensor(m, dtype=dtype, device=device)
+    return _const(m, dtype, device)
+
+
+def _half_pixel_linear(out_len: int, in_len: int, dtype: torch.dtype) -> np.ndarray:
+    """``[out, in]`` weights of ``jax.image.resize(..., "linear",
+    antialias=False)``, computed as ``jax.image``'s ``compute_weight_mat``
+    computes them: in float64 for float64, else in fp32 arithmetic (its
+    weights' type), the triangle kernel at half-pixel sample points, each
+    row renormalized to sum 1 (which holds the border samples at the edge
+    pixel), and 0 for a sample point outside the input."""
+    ft = np.float64 if dtype == torch.float64 else np.float32
+    inv_scale = ft(1.0 / (out_len / in_len))  # a Python float there, rounded once
+    src = (np.arange(out_len, dtype=ft) + ft(0.5)) * inv_scale - ft(0.5)
+    m = np.maximum(ft(0.0), ft(1.0) - np.abs(src[:, None] - np.arange(in_len, dtype=ft)[None, :]))
+    total = m.sum(axis=1, keepdims=True, dtype=ft)
+    m = np.where(np.abs(total) > ft(1000.0 * np.finfo(np.float32).eps),
+                 m / np.where(total != 0, total, ft(1.0)), ft(0.0))
+    inside = (src >= ft(-0.5)) & (src <= ft(in_len - 0.5))
+    return np.where(inside[:, None], m, ft(0.0))
 
 
 @functools.lru_cache(maxsize=256)
@@ -84,7 +111,7 @@ def _antialias_linear_matrix(out_len: int, in_len: int, dtype: torch.dtype,
     m = np.where(np.abs(total) > 1000.0 * np.finfo(np.float32).eps,
                  m / np.where(total != 0, total, 1.0), 0.0)
     inside = (src >= -0.5) & (src <= in_len - 0.5)
-    return torch.tensor(np.where(inside[:, None], m, 0.0), dtype=dtype, device=device)
+    return _const(np.where(inside[:, None], m, 0.0), dtype, device)
 
 
 def _keys_cubic(x: np.ndarray) -> np.ndarray:
@@ -109,7 +136,7 @@ def _cubic_matrix(out_len: int, in_len: int, dtype: torch.dtype,
     m = np.where(np.abs(total) > 1000.0 * np.finfo(np.float32).eps,
                  m / np.where(total != 0, total, 1.0), 0.0)
     inside = (src >= -0.5) & (src <= in_len - 0.5)
-    return torch.tensor(np.where(inside[:, None], m, 0.0), dtype=dtype, device=device)
+    return _const(np.where(inside[:, None], m, 0.0), dtype, device)
 
 
 def _resize_matmul(x: torch.Tensor, mh: torch.Tensor, mw: torch.Tensor) -> torch.Tensor:
@@ -203,13 +230,8 @@ def resize_image(
         out = resize_bilinear_antialias(x, (h, w))
     elif method == "bicubic":
         out = resize_bicubic_matmul(x, (h, w))
-    elif align_corners:
-        out = resize_bilinear_align_corners(x, (h, w))
-    elif x.shape[1:3] == (h, w):
-        out = x
     else:
-        out = F.interpolate(x.permute(0, 3, 1, 2), size=(h, w), mode="bilinear",
-                            align_corners=False, antialias=False).permute(0, 2, 3, 1)
+        out = resize_bilinear_matmul(x, (h, w), align_corners=align_corners)
     return out[0] if squeeze else out
 
 

@@ -225,6 +225,8 @@ def test_torch_port_imports_no_jax():
     loads none of them."""
     files = [*sorted((ROOT / "iseg_tpu_torch").rglob("*.py")), ROOT / "chip_smoke.py"]
     assert len(files) >= 60
+    assert {"mesh.py", "collectives.py", "fsdp.py"} <= {
+        p.name for p in files if p.parent.name == "parallel"}
     for path in files:
         for line in path.read_text().splitlines():
             if (path.name in ("tf_feeder.py", "h5_ingest.py")
@@ -238,6 +240,7 @@ def test_torch_port_imports_no_jax():
         "for n in names: importlib.import_module(n)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'flax', 'optax', 'tensorflow', 'iseg_tpu'))\n"
+        "assert 'iseg_tpu_torch.parallel.fsdp' in names\n"
         "print(len(names), bad)\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = str(ROOT)

@@ -83,11 +83,18 @@ def test_torch_resident_from_arrays_matches_jax():
 
 
 def test_torch_resident_refuses_what_is_not_ported(shard_dir):
+    # pod partitions and mesh= are ported (tests/test_torch_parallel_data.py);
+    # what stays refused: a mesh without a process group, and tensor
+    # parallelism (ROADMAP item 25b)
+    from iseg_tpu_torch.parallel.mesh import create_mesh
+
+    with pytest.raises(RuntimeError, match="process group"):
+        create_mesh()
+    with pytest.raises(NotImplementedError, match="item 25b"):
+        create_mesh(model_parallelism=2)
     reader = tshards.ShardReader(shard_dir)
-    with pytest.raises(NotImplementedError, match="item 25"):
-        tres.DeviceResidentDataset(reader, device="cpu", mesh=object())
-    with pytest.raises(NotImplementedError, match="item 25"):
-        tres.DeviceResidentDataset(reader, device="cpu", process_index=1, num_processes=2)
+    ds = tres.DeviceResidentDataset(reader, device="cpu", process_index=1, num_processes=2)
+    assert ds.num_samples == len(reader) // 2
 
 
 def test_torch_resident_capacity_check(shard_dir):
