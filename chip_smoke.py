@@ -318,6 +318,27 @@ F1. fixed-order resizes: under cuDNN's deterministic algorithms and
     attention on SDPA's math backend, since cuDNN's attention backward adds
     in no fixed order) and MobileNetV2 + SimpleDecoder steps end with equal
     states bit for bit; each step's ms printed.
+16. the language model's distribution, two ranks spawned here on this card
+    over gloo (``rank_lm``; correctness runs, not scaling numbers): (1)
+    tensor-parallel serving of ``gemma_7b_en`` at full width and depth (28
+    layers, 8.54 B parameters, bf16) at model parallelism 2, each rank
+    seeding its shard of the same full weights (``init_seeded_shard``): a
+    greedy and a beam-4 request (batch 4, prompt 128, ``max_length`` 256),
+    the ranks' tokens equal, one cache-gather launch a decode step a rank,
+    the prefill logits within 2e-2 of max |logit| of world size 1 (here,
+    beforehand), ms/step and tok/s, host-staged collectives; the gather at
+    the rank's cache shape against its plain version, bitwise; (2) sequence
+    parallelism of ``gemma_2b_en`` (bf16, batch 2 x T 2048, seq axis 2),
+    allgather and ring: ``score``, the loss and every gradient leaf against
+    world size 1 within ``SP_SCORE_RTOL`` / ``SP_GRAD_RTOL`` (about twice
+    the bf16 run's own distance from fp32, measured and printed), one
+    rotation a layer in a ring forward; (3) the pipeline-parallel loss of
+    ``gemma_2b_en`` (fp32, 2 stages of 9 layers, 4 microbatches, batch 8 x T
+    512, layers recomputed in the backward): loss, every gradient and one
+    SGD step within 1e-4 of one process's, every leaf a rank holds (its
+    stage's layers and the shared ones) given its gradient; (4) the MoE layer (hidden 2048, 8 experts of d_ff 2048,
+    k 2, 4096 tokens, fp32) with its experts over the two ranks, output and
+    gradients within 1e-5 of world size 1.
 
 Every phase prints its seconds, and the run their sum.
 
@@ -354,7 +375,7 @@ and its OHEM run, 6, 6b, 7, 8, 9, each request of 10, 11.1, each micro-step
 of 11.2, its resumed run, 11.3 and 11.4, 12.1 and 12.2 (and each of their
 steps), the patch-dropout step and each serve of 12.3, 13.1, 13.2, 13.4 and
 each model of 13.5, and each of their train steps, 14.3's forward, each train step and
-each serve of 14.4, and in each rank of 15.1 each step) and read just after; a kernel of a path that was launched no time
+each serve of 14.4, in each rank of 15.1 each step, and in each rank of 16.1 each request) and read just after; a kernel of a path that was launched no time
 there fails the run. Third line from the end: a JSON object with one entry per kernel;
 then the card's name and power limit; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -588,6 +609,37 @@ DP_FAULTS = ("rank_means", "bn_backward_local")
 FSDP_RTOL = 1e-6
 # phase F1: steps of each run (two runs of each path)
 F1_STEPS = 3
+# phase 16: the language-model half of distribution, two ranks on this card over
+# gloo (correctness runs). 16.1: tensor-parallel serving of gemma_7b_en at full
+# width and depth (28 layers, 8.54 B parameters, bf16), model parallelism 2,
+# batch-4 requests of 128-token prompts to max_length 256, greedy and beam 4.
+# Its prefill logits against world size 1's on the same weights, relative to
+# max |logit|: the two sum the heads' and the FFN's partial products in other
+# orders and round to bf16 at other points (GEMMA_LAYOUT_RTOL's argument;
+# measured 8.3e-3)
+TP_PRESET, TP_LAYERS = "gemma_7b_en", 28
+TP_BATCH, TP_PROMPT, TP_MAX_LENGTH, TP_BEAMS = 4, 128, 256, 4
+TP_LOGIT_RTOL = 2e-2  # GEMMA_LAYOUT_RTOL
+# 16.2: gemma_2b_en at full width and depth, bf16, batch 2 x T 2048 over a
+# sequence axis of 2; score and the loss's gradient against world size 1 bf16
+# (no SP) on the same weights, max |diff| over max |value| (the gradient's: of
+# its worst leaf). The bounds sit at about twice the bf16 run's own distance
+# from the fp32 run on the same weights (score 5.5e-3, worst gradient leaf
+# 2.8e-2), which the phase measures and prints; SP measured score 0 / 4.8e-3
+# and gradient 1.3e-2 / 2.3e-2 (allgather / ring; NVIDIA H100 80GB HBM3, 700 W)
+SP_PRESET, SP_BATCH, SP_T = "gemma_2b_en", 2, 2048
+SP_SCORE_RTOL, SP_GRAD_RTOL = 1e-2, 5e-2
+# 16.3: gemma_2b_en fp32 (TF32 off), 2 stages of 9 layers, 4 microbatches,
+# batch 8 x T 512; the loss, every gradient and one SGD step (lr PP_LR) against
+# one process's: fp32 sums in other orders (microbatch GEMM shapes; measured
+# 7.8e-6 of the worst leaf's max |grad|)
+PP_BATCH, PP_T, PP_MICRO, PP_LR = 8, 512, 4, 0.1
+PP_RTOL = 1e-4
+# 16.4: the MoE layer, hidden 2048, 8 experts of d_ff 2048, k 2, 4096 tokens,
+# fp32, its experts over 2 ranks, against world size 1 (measured 2.6e-7)
+EP_DIM, EP_EXPERTS, EP_FF, EP_K, EP_TOKENS = 2048, 8, 2048, 2, 4096
+EP_RTOL = 1e-5
+LM_TIMEOUT_S = 480
 
 # Published peaks of one H100 SXM at its 700 W limit: HBM3 bytes/s, and
 # FLOP/s for fp32 inputs (outside the tensor cores) and bf16 inputs
@@ -4296,7 +4348,7 @@ def rank_nccl1(env, out: str, shard_dir: str) -> dict:
 
 def rank_main(rank: int, world: int, backend: str, store: str, out: str, task: str,
               shard_dir: str) -> None:
-    """A spawned rank of phase 15: sets its process group up by
+    """A spawned rank of phase 15 or 16: sets its process group up by
     ``common_env_setup``, runs ``task`` and pickles the result to ``out``."""
     from iseg_tpu_torch.core.env import common_env_clean
 
@@ -4306,7 +4358,8 @@ def rank_main(rank: int, world: int, backend: str, store: str, out: str, task: s
             random_seed=0, mixed_precision=False, device="cuda", initialize_distributed=True,
             backend=backend, init_method=f"file://{store}", num_processes=world,
             process_id=rank))
-        result = {"dp2": rank_dp2, "nccl1": rank_nccl1}[task](env, out, shard_dir)
+        result = {"dp2": rank_dp2, "nccl1": rank_nccl1, "lm2": rank_lm}[task](env, out,
+                                                                             shard_dir)
         with open(os.path.join(out, f"{task}-{rank}.pkl"), "wb") as f:
             pickle.dump(result, f)
     except BaseException:
@@ -4345,7 +4398,7 @@ def spawn_ranks(task: str, world: int, backend: str, out: str, shard_dir: str,
                 else f"exit code {p.exitcode}")
             failed.append(f"rank {r}: {why}")
     if failed:
-        raise AssertionError(f"phase 15 {task} failed:\n" + "\n".join(failed))
+        raise AssertionError(f"ranks of {task} failed:\n" + "\n".join(failed))
     results = []
     for r in range(world):
         with open(os.path.join(out, f"{task}-{r}.pkl"), "rb") as f:
@@ -4977,6 +5030,430 @@ def ab_main(old: str, only: str | None = None) -> int:
     return 0
 
 
+# ------------------------------------------------ phase 16: LM distribution
+
+def lm_prompt(vocab: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """16.1's requests: TP_BATCH random prompts of TP_PROMPT ids (seeded)."""
+    rng = np.random.RandomState(16)
+    ids = torch.tensor(rng.randint(1, vocab, (TP_BATCH, TP_PROMPT)))
+    return ids, torch.full((TP_BATCH,), TP_PROMPT)
+
+
+def lm_tokens(vocab: int, batch: int, seq: int, seed: int) -> torch.Tensor:
+    return torch.tensor(np.random.RandomState(seed).randint(1, vocab, (batch, seq)))
+
+
+def tp_config():
+    return dataclasses.replace(get_preset(TP_PRESET), num_layers=TP_LAYERS)
+
+
+def seeded_lm(device, config, dtype, mesh=None, **parallel):
+    """A Gemma LM on ``device`` with this rank's shard of the seed-16 weights
+    (``layout.init_seeded_shard``: every model parallelism the same full
+    weights)."""
+    from iseg_tpu_torch.nlp.gemma import GemmaCausalLM
+    from iseg_tpu_torch.nlp.gemma.layout import init_seeded_shard
+
+    lm = GemmaCausalLM(config, dtype=dtype, param_dtype=dtype, device=device, mesh=mesh,
+                       **parallel)
+    return init_seeded_shard(lm, 16)
+
+
+def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """max |got - want| over max |want|, in fp32."""
+    want = want.float()
+    return float((got.float() - want).abs().max() / want.abs().max().clamp_min(1e-30))
+
+
+def grads_rel(got: dict, want: dict) -> tuple[float, str]:
+    """The worst leaf's max |diff| over its max |want|, and that leaf."""
+    return max((rel_err(got[k], want[k]), k) for k in want)
+
+
+def lm_tp(env, out: str) -> dict:
+    """16.1 on one rank: ``gemma_7b_en`` at model parallelism 2, a greedy and
+    a beam-4 request, timed; the prefill logits for the parent."""
+    from iseg_tpu_torch.nlp.gemma import BeamSampler
+    from iseg_tpu_torch.parallel.collectives import HOST_STAGED, reset_host_staged
+    from iseg_tpu_torch.parallel.mesh import MODEL_AXIS, create_mesh
+
+    mesh = create_mesh(model_parallelism=2)
+    cfg = tp_config()
+    t0 = time.perf_counter()
+    lm = seeded_lm(env.device, cfg, torch.bfloat16, mesh, model_axis=MODEL_AXIS)
+    torch.cuda.synchronize()
+    res = {"load_s": time.perf_counter() - t0,
+           "params": sum(p.numel() for p in lm.parameters()),
+           "cache_shape": None}
+    prompt, lengths = (a.to(env.device) for a in lm_prompt(cfg.vocab_size))
+    with torch.inference_mode():
+        logits, _ = lm._prefill(prompt, lengths, lm.build_cache(TP_BATCH, TP_PROMPT))
+    res["prefill_logits"] = logits.float().cpu().numpy()
+    steps = TP_MAX_LENGTH - TP_PROMPT
+    for name, sampler in (("greedy", None), ("beam4", BeamSampler(TP_BEAMS))):
+        reset_launch_counts()
+        reset_host_staged()
+        torch.distributed.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tokens = lm.generate(prompt, lengths, max_length=TP_MAX_LENGTH, sampler=sampler)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        torch.distributed.barrier()
+        rows = TP_BATCH * (TP_BEAMS if sampler is not None else 1)
+        res[name] = {"tokens": tokens.cpu().numpy(), "s": dt, "ms_step": 1e3 * dt / steps,
+                     "tok_s": TP_BATCH * steps / dt, "rows": rows,
+                     "launches": read_launch_counts(), "staged": dict(HOST_STAGED)}
+    # the active cache the beam search reorders: [B, nb, L, 2, W, local kv heads, d]
+    res["cache_shape"] = (TP_BATCH, TP_BEAMS, cfg.num_layers, 2, TP_MAX_LENGTH - TP_PROMPT,
+                          lm.kv_heads, cfg.head_dim)
+    del lm
+    torch.cuda.empty_cache()
+    return res
+
+
+def lm_reference_in_turn(env, fn):
+    """Run ``fn()`` on each rank in turn (the others wait at a barrier of the
+    whole group), so only one rank holds a full model's activations at a
+    time."""
+    out = None
+    for r in range(env.world_size):
+        if env.rank == r:
+            out = fn()
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+        torch.distributed.barrier()
+    return out
+
+
+def named_grads(lm) -> dict:
+    return {n: p.grad for n, p in lm.named_parameters()}
+
+
+def lm_sp(env) -> dict:
+    """16.2 on one rank: ``gemma_2b_en`` bf16 at T = SP_T over a seq axis of 2,
+    ``score`` and the loss's gradient in both modes, against world size 1 on
+    the same weights without SP (on rank 0), and the fp32 world-size-1 run
+    that measures the bf16 run's own noise."""
+    from iseg_tpu_torch.parallel import collectives as C
+    from iseg_tpu_torch.parallel.mesh import create_mesh
+
+    cfg = get_preset(SP_PRESET)
+    mesh = create_mesh(model_parallelism=2)
+    ids = lm_tokens(cfg.vocab_size, SP_BATCH, SP_T, 17).to(env.device)
+    weights = torch.ones(ids.shape, device=env.device)
+
+    def one_process(dtype):
+        lm = seeded_lm(env.device, cfg, dtype)
+        with torch.no_grad():
+            score = lm.score(ids)
+        loss = lm.next_token_loss(ids, weights)
+        loss.backward()
+        out = score, loss.item(), named_grads(lm)
+        del lm, loss
+        return out
+
+    refs = None
+    if env.rank == 0:
+        score32, _, grads32 = one_process(torch.float32)
+        score16, loss16, grads16 = one_process(torch.bfloat16)
+        noise = {"score": rel_err(score16, score32), "grad": grads_rel(grads16, grads32)[0]}
+        del grads32
+        torch.cuda.empty_cache()
+        refs = score16, loss16, grads16, score32, noise
+    torch.distributed.barrier()
+    res = {}
+    for mode in ("allgather", "ring"):
+        lm = seeded_lm(env.device, cfg, torch.bfloat16, mesh, seq_axis="model", sp_mode=mode)
+        local_ids, local_w = lm.shard_tokens(ids), lm.shard_tokens(weights)
+        C.reset_host_staged()
+        with torch.no_grad():
+            score = lm.score(local_ids)
+        calls = dict(C.CALLS)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = lm.next_token_loss(local_ids, local_w)
+        loss.backward()
+        torch.cuda.synchronize()
+        fwd_bwd_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        lm.reduce_gradients()
+        torch.cuda.synchronize()
+        reduce_s = time.perf_counter() - t0
+        # the ranks' slices in rank order (the last one is one shorter)
+        padded = F.pad(score, (0, SP_T // 2 - score.shape[1]))
+        score_all = C.all_gather(padded.t().contiguous(), lm.parallel.seq_group).t()
+        score_all = score_all[:, :SP_T - 1]
+        row = {"loss": loss.item(), "calls": calls, "fwd_bwd_s": fwd_bwd_s,
+               "grad_reduce_s": reduce_s, "staged": dict(C.HOST_STAGED)}
+        if env.rank == 0:
+            score16, loss16, grads16, score32, noise = refs
+            row["score_err"] = rel_err(score_all, score16)
+            row["score_err_f32"] = rel_err(score_all, score32)
+            row["grad_err"], row["grad_leaf"] = grads_rel(named_grads(lm), grads16)
+            row["ref_loss"], row["noise"] = loss16, noise
+        res[mode] = row
+        del lm, loss
+        torch.cuda.empty_cache()
+    del refs
+    torch.cuda.empty_cache()
+    return res
+
+
+def flax_params_and_grads(lm) -> tuple[dict, dict]:
+    """The model's parameters and their gradients, flat by flax path in the
+    flax layout (views, no copy)."""
+    from iseg_tpu_torch.convert import _leaves
+
+    leaves = [(path, t, fn) for col, path, t, fn, _ in _leaves(lm)
+              if col == "params" and isinstance(t, torch.nn.Parameter)]
+    return ({path: fn(t.detach()) for path, t, fn in leaves},
+            {path: fn(t.grad) for path, t, fn in leaves})
+
+
+def lm_pp(env) -> dict:
+    """16.3 on one rank: ``gemma_2b_en`` fp32, 2 stages of 9 layers, 4
+    microbatches, batch 8 x T 512 (each layer recomputed in the backward):
+    the loss, every gradient and one SGD step against one process's on the
+    same weights. The one-process run goes on each rank in turn; each keeps
+    the leaves it owns (its stage's layers, stacked, and the shared ones),
+    which are then its pipeline parameters."""
+    from iseg_tpu_torch.nlp.gemma.pipeline import make_pp_loss_fn
+    from iseg_tpu_torch.parallel import collectives as C
+    from iseg_tpu_torch.parallel.mesh import axis_rank, create_mesh
+
+    cfg = get_preset(SP_PRESET)
+    mesh = create_mesh(model_parallelism=2, axis_names=("data", "stage"))
+    stage = axis_rank(mesh, "stage")
+    lps = cfg.num_layers // 2
+    layers = range(stage * lps, (stage + 1) * lps)
+    ids = lm_tokens(cfg.vocab_size, PP_BATCH, PP_T, 18).to(env.device)
+    weights = torch.tensor(np.random.RandomState(19).rand(PP_BATCH, PP_T) > 0.1,
+                           dtype=torch.float32, device=env.device)
+
+    def reference():
+        lm = seeded_lm(env.device, cfg, torch.float32)
+        loss = lm.next_token_loss(ids, weights)
+        loss.backward()
+        params, grads = flax_params_and_grads(lm)
+        inner = sorted({k.split("/", 1)[1] for k in params if k.startswith("layer_0/")})
+
+        def stacked(tree):
+            return {k: torch.stack([tree[f"layer_{i}/{k}"] for i in layers]) for k in inner}
+
+        shared = [k for k in params if not k.startswith("layer_")]
+        out = (loss.item(), stacked(params), stacked(grads),
+               {k: params[k].clone() for k in shared}, {k: grads[k].clone() for k in shared})
+        del lm, loss, params, grads
+        return out
+
+    ref_loss, stage_p, stage_g, shared_p, shared_g = lm_reference_in_turn(env, reference)
+    from iseg_tpu_torch.convert import unflatten
+
+    mine = unflatten({k: v.requires_grad_() for k, v in stage_p.items()})
+    shared = unflatten({k: v.requires_grad_() for k, v in shared_p.items()})
+    loss_fn = make_pp_loss_fn(cfg, mesh, num_microbatches=PP_MICRO, remat=True)
+    C.reset_host_staged()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss = loss_fn(mine, shared, ids, weights)
+    loss.backward()
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    got = {**{("stage", k): (v, v.grad) for k, v in stage_p.items()},
+           **{("shared", k): (v, v.grad) for k, v in shared_p.items()}}
+    want = {**{("stage", k): g for k, g in stage_g.items()},
+            **{("shared", k): g for k, g in shared_g.items()}}
+    # every leaf the rank holds (its stage's stacked layers and the shared
+    # ones) must receive its gradient through the functional_call views
+    missing = ["/".join(key) for key, (_, g) in got.items() if g is None]
+    worst, worst_leaf, sgd_err = 0.0, "", 0.0
+    with torch.no_grad():
+        for key, (p, g) in got.items():
+            if g is None:
+                continue
+            err = rel_err(g, want[key])
+            if err > worst:
+                worst, worst_leaf = err, "/".join(key)
+            # one SGD step on each side from the same parameters
+            sgd_err = max(sgd_err, rel_err(p - PP_LR * g, p - PP_LR * want[key]))
+    return {"stage": stage, "loss": loss.item(), "ref_loss": ref_loss, "grad_err": worst,
+            "grad_leaf": worst_leaf, "sgd_err": sgd_err,
+            "owned_layers": [f"layer_{i}" for i in layers], "leaves": len(got),
+            "missing_grads": missing,
+            "layer_leaves": tuple(stage_p["attention/query/kernel"].shape),
+            "step_s": step_s, "calls": dict(C.CALLS), "staged": dict(C.HOST_STAGED),
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+
+def lm_ep(env) -> dict:
+    """16.4 on one rank: the MoE layer at hidden 2048, 8 experts of d_ff 2048,
+    k = 2, 4096 tokens, fp32, its experts over 2 ranks, against world size 1
+    on the same weights (each rank computes it)."""
+    from iseg_tpu_torch.nn.moe import MoEFeedForward, shard_experts
+    from iseg_tpu_torch.nn.initializers import initialize
+    from iseg_tpu_torch.parallel.mesh import create_mesh
+
+    mesh = create_mesh(model_parallelism=2, axis_names=("data", "expert"))
+    kw = dict(k=EP_K, capacity_factor=1.25, device=env.device)
+    full = MoEFeedForward(EP_DIM, EP_EXPERTS, EP_FF, **kw)
+    initialize(full, torch.Generator(device=env.device).manual_seed(20))
+    x = torch.randn(EP_TOKENS, EP_DIM, generator=torch.Generator(device=env.device)
+                    .manual_seed(21), device=env.device)
+
+    def run(moe):
+        xx = x.clone().requires_grad_()
+        y, aux = moe(xx)
+        (((y - xx) ** 2).mean() + 0.01 * aux).backward()
+        return y.detach(), float(aux), xx.grad, {n: p.grad for n, p in moe.named_parameters()}
+
+    y1, aux1, dx1, g1 = run(full)
+    ep = MoEFeedForward(EP_DIM, EP_EXPERTS, EP_FF, expert_axis="expert", mesh=mesh, **kw)
+    with torch.no_grad():
+        for name, value in shard_experts({n: p for n, p in full.named_parameters()},
+                                         mesh, "expert").items():
+            getattr(ep, name).copy_(value)
+    y2, aux2, dx2, g2 = run(ep)
+    lo = ep.first_expert
+    want = {"router": g1["router"], "w1": g1["w1"][lo:lo + ep.local_experts],
+            "w2": g1["w2"][lo:lo + ep.local_experts]}
+    return {"y_err": rel_err(y2, y1), "aux": (aux2, aux1), "dx_err": rel_err(dx2, dx1),
+            "grad_err": grads_rel(g2, want), "local_experts": ep.local_experts}
+
+
+def rank_lm(env, out: str, shard_dir: str) -> dict:
+    """Phase 16 on one rank (world size 2, gloo, one card): 16.1-16.4, each
+    subphase's seconds."""
+    del shard_dir
+    res, seconds = {}, {}
+    for name, fn in (("tp", lambda: lm_tp(env, out)), ("sp", lambda: lm_sp(env)),
+                     ("pp", lambda: lm_pp(env)), ("ep", lambda: lm_ep(env))):
+        t0 = time.perf_counter()
+        res[name] = fn()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        seconds[name] = time.perf_counter() - t0
+    res["seconds"] = seconds
+    return res
+
+
+def phase_lm_distributed(env) -> tuple[dict[str, dict[str, int]], dict]:
+    """Phase 16: the language-model half of distribution (see the module
+    note). Returns the TP beam request's launches (rank 0) and the cache
+    gather's row at 16.1's local cache shape."""
+    log("== phase 16: tensor-parallel Gemma serving, sequence parallelism (allgather and "
+        "ring), the pipeline-parallel loss and expert parallelism, two ranks on this card over "
+        "gloo (correctness runs, not scaling numbers)")
+    card = card_line()
+    t_phase = time.perf_counter()
+    cfg = tp_config()
+    # 16.1's reference: world size 1, the same seeded weights, one prefill
+    t0 = time.perf_counter()
+    lm = seeded_lm(env.device, cfg, torch.bfloat16)
+    prompt, lengths = (a.to(env.device) for a in lm_prompt(cfg.vocab_size))
+    with torch.inference_mode():
+        ref_logits, _ = lm._prefill(prompt, lengths, lm.build_cache(TP_BATCH, TP_PROMPT))
+    ref_logits = ref_logits.float().cpu()
+    n_params = sum(p.numel() for p in lm.parameters())
+    del lm
+    torch.cuda.empty_cache()
+    log(f"16.1 world-size-1 reference: {TP_PRESET} at {cfg.num_layers} layers, "
+        f"{n_params / 1e9:.3f} B parameters bf16, seeded and prefilled in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    with tempfile.TemporaryDirectory(prefix="iseg_lm_") as tmp:
+        ranks = spawn_ranks("lm2", 2, "gloo", tmp, tmp, timeout=LM_TIMEOUT_S)
+
+    # 16.1
+    tp = [r["tp"] for r in ranks]
+    steps = TP_MAX_LENGTH - TP_PROMPT
+    for name in ("greedy", "beam4"):
+        if not np.array_equal(tp[0][name]["tokens"], tp[1][name]["tokens"]):
+            raise AssertionError(f"16.1 {name}: the two ranks' token streams differ")
+        toks = tp[0][name]["tokens"]
+        if toks.shape != (TP_BATCH, TP_MAX_LENGTH) or not np.array_equal(
+                toks[:, :TP_PROMPT], prompt.cpu().numpy()):
+            raise AssertionError(f"16.1 {name}: tokens {toks.shape}, or the prompt was lost")
+        want = steps if name == "beam4" else 0
+        for r, row in enumerate(tp):
+            if row[name]["launches"] != {**dict.fromkeys(row[name]["launches"], 0),
+                                         "cache_gather": want}:
+                raise AssertionError(f"16.1 {name} rank {r}: launches {row[name]['launches']}, "
+                                     f"want {want} cache_gather launches (one a decode step)")
+        log(f"16.1 {name}: {TP_BATCH} requests x {steps} tokens ({tp[0][name]['rows']} rows), "
+            + "; ".join(f"rank {r} {row[name]['ms_step']:.2f} ms/step {row[name]['tok_s']:.1f} "
+                        f"tok/s, host-staged {row[name]['staged']}"
+                        for r, row in enumerate(tp))
+            + f"; tokens equal on both ranks; cache_gather launches {want} a rank "
+            f"(two processes on one card over gloo, not a scaling number; {card})")
+    for r, row in enumerate(tp):
+        err = rel_err(torch.tensor(row["prefill_logits"]), ref_logits)
+        log(f"16.1 rank {r} prefill logits vs world size 1: {err:.3e} of max |logit| "
+            f"(bound {TP_LOGIT_RTOL}); shard of {row['params'] / 1e9:.3f} B parameters "
+            f"seeded in {row['load_s']:.1f} s")
+        if not err <= TP_LOGIT_RTOL:
+            raise AssertionError(f"16.1 rank {r}: prefill logits {err:.3e} of max |logit| from "
+                                 f"world size 1 (bound {TP_LOGIT_RTOL})")
+    cache_shape = tuple(tp[0]["cache_shape"])
+    log(f"16.1 the beam reorder's local cache {list(cache_shape)}: the kernel against its "
+        "plain version")
+    cg_row = check_cache_gather(env.device, "TP rank beam4", cache_shape, torch.bfloat16)
+
+    # 16.2
+    sp = ranks[0]["sp"]
+    for mode in ("allgather", "ring"):
+        row = sp[mode]
+        noise = row["noise"]
+        log(f"16.2 {mode}: loss {row['loss']:.6f} (world size 1: {row['ref_loss']:.6f}); score "
+            f"{row['score_err']:.3e} and gradient {row['grad_err']:.3e} ({row['grad_leaf']}) of "
+            f"max |value| from world size 1 bf16 (bounds {SP_SCORE_RTOL}, {SP_GRAD_RTOL}); "
+            f"score from fp32: {row['score_err_f32']:.3e} (world size 1 bf16 from fp32: score "
+            f"{noise['score']:.3e}, gradient {noise['grad']:.3e}); fwd+bwd {row['fwd_bwd_s']:.2f} "
+            f"s, gradient all-reduce {row['grad_reduce_s']:.2f} s; calls {row['calls']}, "
+            f"host-staged {row['staged']} ({card})")
+        if not (row["score_err"] <= SP_SCORE_RTOL and row["grad_err"] <= SP_GRAD_RTOL):
+            raise AssertionError(f"16.2 {mode}: score {row['score_err']:.3e} / gradient "
+                                 f"{row['grad_err']:.3e} past the bounds")
+        if not math.isclose(row["loss"], row["ref_loss"], rel_tol=SP_SCORE_RTOL):
+            raise AssertionError(f"16.2 {mode}: loss {row['loss']} vs {row['ref_loss']}")
+    n_layers = get_preset(SP_PRESET).num_layers
+    if sp["ring"]["calls"]["ppermute"] != n_layers + 1:  # n - 1 = 1 a layer, + score's shift
+        raise AssertionError(f"16.2 ring: {sp['ring']['calls']['ppermute']} rotations in one "
+                             f"forward, want {n_layers} (one a layer) + 1")
+
+    # 16.3
+    for r, row in enumerate(rr["pp"] for rr in ranks):
+        log(f"16.3 stage {row['stage']}: loss {row['loss']:.7f} (one process {row['ref_loss']:.7f});"
+            f" worst gradient {row['grad_err']:.3e} of max |grad| ({row['grad_leaf']}), SGD "
+            f"step {row['sgd_err']:.3e} (bound {PP_RTOL}); {row['leaves']} leaves, layers "
+            f"{row['owned_layers'][0]}..{row['owned_layers'][-1]} (stacked {row['layer_leaves']}); "
+            f"fwd+bwd {row['step_s']:.2f} s, peak {row['peak_gib']:.1f} GiB; "
+            f"calls {row['calls']}, host-staged {row['staged']} ({card})")
+        if row["missing_grads"]:
+            raise AssertionError(f"16.3 rank {r}: no gradient reached {row['missing_grads']}")
+        if not (row["grad_err"] <= PP_RTOL and row["sgd_err"] <= PP_RTOL
+                and math.isclose(row["loss"], row["ref_loss"], rel_tol=PP_RTOL)):
+            raise AssertionError(f"16.3 rank {r}: past the bound {PP_RTOL}")
+        if row["calls"]["ppermute"] != 2 * (PP_MICRO + 2 - 2):
+            raise AssertionError(f"16.3 rank {r}: {row['calls']['ppermute']} rotations, want "
+                                 f"{PP_MICRO} forward and as many backward")
+
+    # 16.4
+    for r, row in enumerate(rr["ep"] for rr in ranks):
+        aux_err = abs(row["aux"][0] - row["aux"][1]) / abs(row["aux"][1])
+        log(f"16.4 rank {r} ({row['local_experts']} experts): output {row['y_err']:.3e}, input "
+            f"gradient {row['dx_err']:.3e}, weight gradients {row['grad_err'][0]:.3e} "
+            f"({row['grad_err'][1]}) of max |value| from world size 1, aux {aux_err:.3e} "
+            f"(bound {EP_RTOL}; {card})")
+        if not max(row["y_err"], row["dx_err"], row["grad_err"][0], aux_err) <= EP_RTOL:
+            raise AssertionError(f"16.4 rank {r}: past the bound {EP_RTOL}")
+
+    log("16 subphase seconds (rank 0): " + json.dumps(
+        {k: round(v, 1) for k, v in ranks[0]["seconds"].items()})
+        + f"; {time.perf_counter() - t_phase:.1f} s in all")
+    return {"tp_beam_serve": tp[0]["beam4"]["launches"]}, cg_row
+
+
 def main(argv: list[str]) -> int:
     only = argv[argv.index("--only") + 1] if "--only" in argv else None
     if argv[:1] == ["--ab"] and len(argv) in (2, 4):
@@ -5045,6 +5522,8 @@ def main(argv: list[str]) -> int:
     paths.update(pretrained_paths)
     paths.update(timed("15", phase_distributed, env))
     timed("F1", phase_f1_repeat, env)
+    lm_paths, tp_cache_gather_row = timed("16", phase_lm_distributed, env)
+    paths.update(lm_paths)
     log("phase seconds: " + json.dumps({k: round(v, 1) for k, v in seconds.items()})
         + f"; {time.perf_counter() - t_run:.1f} s in all ({card_line()})")
 
@@ -5052,6 +5531,8 @@ def main(argv: list[str]) -> int:
     for k in kernels:
         if k["name"] in ("deform_local_fwd", "deform_local_bwd"):
             k["shapes"].extend(row[k["name"].rsplit("_", 1)[1]] for row in radii_rows)
+        if k["name"] == "cache_gather":  # 16.1's local cache on each TP rank
+            k["shapes"].append(tp_cache_gather_row)
 
     # the bf16 window-attention entries count two routes each (tensor cores and
     # CUDA cores), each with its count; the split-TF32 entries one
@@ -5094,6 +5575,7 @@ def main(argv: list[str]) -> int:
                                                           "deform_local_bwd"),
                "calibrated_intern_serve": ("deform_local_fwd",),
                "gemma_beam_serve": ("cache_gather",),
+               "tp_beam_serve": ("cache_gather",),
                "dp_train": loss_kernels}
     for path, names in on_path.items():
         for name in names:

@@ -48,6 +48,10 @@ module                flax leaf (layout)               torch tensor (layout)
                       params ``embedding_scale``       buffer ``embedding_scale``
                       ``[V]``                          (ones)
 ``RMSNorm`` (Gemma)   params ``scale``                 ``scale``
+``MoEFeedForward``    params ``router`` ``[D, E]``,    the parameters of those names
+                      ``w1`` ``[E, D, F]``, ``w2``     (an expert-parallel layer
+                      ``[E, F, D]``                    holds its experts' rows:
+                                                       ``moe.shard_experts``)
 ====================  ===============================  ==========================
 
 An ``nn.Linear`` maps the same whichever axis it mixes: MLP-Mixer's
@@ -84,6 +88,7 @@ from iseg_tpu_torch.nlp.gemma.causal_lm import GemmaCausalLM
 from iseg_tpu_torch.nn.attention import SelfAttention2D
 from iseg_tpu_torch.nn.blocks import GlobalResponseNorm
 from iseg_tpu_torch.nn.dcn import DCNv2
+from iseg_tpu_torch.nn.moe import MoEFeedForward
 from iseg_tpu_torch.nn.norm import BatchNorm, ChannelLayerNorm, ChannelRMSNorm, GroupNorm, RMSNorm
 from iseg_tpu_torch.ops.quant import QuantDense, QuantEmbed
 
@@ -151,7 +156,7 @@ def _leaves(model: nn.Module) -> Iterator[_Leaf]:
             yield ("params", prefix + "relative_position_bias_table",
                    m.relative_position_bias_table, _same, _same)
         elif isinstance(m, (InternImageBlock, DCNv2, VisionTransformer, Eva, SelfAttention2D,
-                            ConvNeXtBlock, GlobalResponseNorm, MOATAttention)):
+                            ConvNeXtBlock, GlobalResponseNorm, MOATAttention, MoEFeedForward)):
             # bare parameters of the module itself, named as in the flax tree
             for leaf, param in m.named_parameters(recurse=False):
                 yield "params", prefix + leaf, param, _same, _same
@@ -206,11 +211,34 @@ def unflatten(flat: Mapping[str, Any]) -> dict[str, Any]:
     return out
 
 
+def module_params_from_flax(model: nn.Module, params: Mapping[str, Any]) -> dict[str, Any]:
+    """``{parameter name: tensor}`` of ``model`` from a flax ``params`` tree
+    of torch tensors, by :func:`load_flax`'s rules but without a copy: the
+    reshapes and transposes are views, so the result feeds
+    ``torch.func.functional_call`` and gradients land on the flax-layout
+    leaves (the pipeline's staged trees)."""
+    flat = flatten(params)
+    names = {id(p): n for n, p in model.named_parameters()}
+    out = {}
+    for col, path, tensor, _, from_flax in _leaves(model):
+        if col != "params" or id(tensor) not in names:
+            continue
+        if path not in flat:
+            raise KeyError(f"flax tree has no params leaf {path!r}")
+        value = from_flax(flat[path])
+        if value is None or tuple(value.shape) != tuple(tensor.shape):
+            raise ValueError(f"params/{path}: flax shape {tuple(flat[path].shape)} does not map "
+                             f"to the module's {tuple(tensor.shape)}")
+        out[names[id(tensor)]] = value
+    return out
+
+
 @torch.no_grad()
 def load_flax(model: nn.Module, variables: Mapping[str, Any]) -> nn.Module:
     """Fill ``model`` in place from a flax ``{"params", "batch_stats"}`` tree
-    of numpy (or array-like) leaves. Raises on a missing or unconsumed leaf
-    and on a shape mismatch."""
+    of numpy (or array-like) leaves, or torch tensors (copied from where they
+    are: a card's leaves never pass through the host). Raises on a missing
+    or unconsumed leaf and on a shape mismatch."""
     unknown = set(variables) - {"params", "batch_stats"}
     if unknown:
         raise KeyError(f"unexpected variable collections: {sorted(unknown)}")
@@ -218,13 +246,16 @@ def load_flax(model: nn.Module, variables: Mapping[str, Any]) -> nn.Module:
     for col, path, tensor, _, from_flax in _leaves(model):
         if path not in pending[col]:
             raise KeyError(f"flax tree has no {col} leaf {path!r}")
-        raw = np.asarray(pending[col].pop(path))
-        if raw.dtype == np.int8:
+        raw = pending[col].pop(path)
+        if not isinstance(raw, torch.Tensor):
+            raw = np.asarray(raw)
+        if raw.dtype in (np.int8, torch.int8):
             raise NotImplementedError(
                 f"{col}/{path} is int8: the int8 serving paths are not in the port yet "
                 "(ROADMAP queue 1 item 26)")
         flax_ndim = getattr(from_flax, "flax_ndim", tensor.ndim)
-        value = from_flax(torch.tensor(raw)) if raw.ndim == flax_ndim else None
+        raw = raw if isinstance(raw, torch.Tensor) else torch.tensor(raw)
+        value = from_flax(raw) if raw.ndim == flax_ndim else None
         if value is None or tuple(value.shape) != tuple(tensor.shape):
             raise ValueError(f"{col}/{path}: flax shape {raw.shape} does not map to "
                              f"the module's {tuple(tensor.shape)}")

@@ -16,7 +16,8 @@ environment ``torchrun`` sets (``MASTER_ADDR``/``MASTER_PORT``,
 ``WORLD_SIZE``, ``RANK``, ``LOCAL_RANK``); ``init_method`` (a
 ``file://`` or ``tcp://`` URL) overrides the coordinator. The device
 becomes ``cuda:{LOCAL_RANK}`` on a card, and the env carries the
-``("data", "model")`` mesh over the ranks. :func:`common_env_clean`
+``("data", "model")`` mesh over the ranks, ``model_parallelism`` ranks
+along ``model`` (Gemma's tensor parallelism) and the rest along ``data``. :func:`common_env_clean`
 destroys the group.
 """
 
@@ -45,9 +46,9 @@ class EnvConfig:
     process_id: int | None = None  # else RANK
     backend: str | None = None  # else nccl on a card, gloo on the CPU
     init_method: str | None = None  # e.g. "file:///path/store"; overrides the coordinator
-    # the data axis's size; None is every process (it must be)
+    # the number of devices; None is every process (it must be)
     num_devices: int | None = None
-    model_parallelism: int = 1  # tensor parallelism is ROADMAP item 25b
+    model_parallelism: int = 1  # ranks along the mesh's model axis
 
 
 @dataclasses.dataclass
@@ -100,7 +101,7 @@ def init_distributed(config: EnvConfig, device: torch.device) -> torch.device:
         raise ValueError(f"process id {rank} outside a world of {world} processes")
     if config.num_devices is not None and config.num_devices != world:
         raise ValueError(f"num_devices={config.num_devices} but {world} processes: the port "
-                         "runs one process a device, every one on the data axis")
+                         "runs one process a device")
     if device.type == "cuda":
         local = int(os.environ.get("LOCAL_RANK", rank % max(1, torch.cuda.device_count())))
         device = torch.device("cuda", local)
@@ -126,14 +127,15 @@ def init_distributed(config: EnvConfig, device: torch.device) -> torch.device:
 def common_env_setup(config: EnvConfig | None = None, **kwargs) -> Env:
     if config is None:
         config = EnvConfig(**kwargs)
-    if config.model_parallelism != 1:
-        raise NotImplementedError("model_parallelism > 1 (tensor parallelism) is ROADMAP "
-                                  "item 25b")
     device = resolve_device(config.device)
     mesh = None
     if config.initialize_distributed:
         device = init_distributed(config, device)
-        mesh = create_mesh(device_type="cuda" if dist.get_backend() == "nccl" else "cpu")
+        mesh = create_mesh(model_parallelism=config.model_parallelism,
+                           device_type="cuda" if dist.get_backend() == "nccl" else "cpu")
+    elif config.model_parallelism != 1:
+        raise ValueError(f"model_parallelism={config.model_parallelism} needs a process group "
+                         "(initialize_distributed=True), one process a device")
     set_random_seed(config.random_seed)
     # TF32 off: fp32 work stays full fp32, as in the JAX package's fp32 runs
     # (bf16 autocast work is unaffected either way)

@@ -1,14 +1,16 @@
 """Gemma causal LM: backbone (RoPE + GQA attention, GeGLU FFN, RMSNorm) with
-KV-cache generation, the samplers, and the SentencePiece tokenizer.
+KV-cache generation, the samplers, and the SentencePiece tokenizer; tensor
+and sequence parallelism (``model.GemmaParallel``), the tensor-parallel
+layout (:mod:`.layout`) and the pipeline-parallel loss (:mod:`.pipeline`).
 
-Counterpart of ``iseg_tpu/nlp/gemma``. The tensor-parallel layout
-(``get_layout_map``, ``shard_gemma_params``), the pipeline loss and the int8
-serving paths are not in the port yet (ROADMAP queue 1 items 25b and 26).
+Counterpart of ``iseg_tpu/nlp/gemma``. The int8 serving paths are not in the
+port yet (ROADMAP queue 1 item 26).
 """
 
 from iseg_tpu_torch.nlp.gemma.causal_lm import GemmaCausalLM
 from iseg_tpu_torch.nlp.gemma.config import GEMMA_PRESETS, GemmaConfig, get_preset
-from iseg_tpu_torch.nlp.gemma.model import GemmaBackbone
+from iseg_tpu_torch.nlp.gemma.layout import get_layout_map, shard_gemma_params
+from iseg_tpu_torch.nlp.gemma.model import GemmaBackbone, GemmaParallel
 from iseg_tpu_torch.nlp.gemma.samplers import (
     BeamSampler,
     ContrastiveSampler,
@@ -26,6 +28,9 @@ __all__ = [
     "get_preset",
     "GemmaBackbone",
     "GemmaCausalLM",
+    "GemmaParallel",
+    "get_layout_map",
+    "shard_gemma_params",
     "Sampler",
     "GreedySampler",
     "RandomSampler",

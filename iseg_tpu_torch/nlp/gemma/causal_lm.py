@@ -28,6 +28,15 @@ is a Python loop of eager calls, so what it does per step is kept small:
 The order inside a beam step is the JAX package's: pick parents, reorder
 the token histories, gather the active cache, then run the forward that
 writes slot ``i``.
+
+Distributed (``model.GemmaParallel``): under tensor parallelism every rank
+runs the same program on its heads; the logits are all-gathered, so the
+ranks pick the same tokens (greedy and beam are deterministic, the random
+samplers draw from generators seeded alike), and each rank's beam reorder
+gathers its own local KV cache through the same kernel. Under sequence
+parallelism the full-sequence forwards (``forward``, :meth:`score`,
+:meth:`next_token_loss`) take this rank's slice of the sequence
+(:meth:`shard_tokens`); decode ignores it.
 """
 
 from __future__ import annotations
@@ -41,11 +50,24 @@ from torch import nn
 from iseg_tpu_torch.core.env import resolve_device
 from iseg_tpu_torch.nlp.gemma import samplers as S
 from iseg_tpu_torch.nlp.gemma.config import GemmaConfig
-from iseg_tpu_torch.nlp.gemma.model import GemmaBackbone
+from iseg_tpu_torch.nlp.gemma.model import GemmaBackbone, GemmaParallel
 from iseg_tpu_torch.nn.initializers import initialize
 from iseg_tpu_torch.ops.kernels.cache_gather import beam_cache_gather
+from iseg_tpu_torch.parallel import collectives as C
 
 _NEG_INF = -1e9  # a dead beam's score and a masked continuation's log-prob
+
+
+def masked_nll_sums(logits: torch.Tensor, targets: torch.Tensor,
+                    weights: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(sum of weights * -log p(target), sum of weights)`` of logits ``[B,
+    T, V]`` against targets and weights ``[B, T]``, in fp32: the two sums of
+    the masked next-token loss (:meth:`GemmaCausalLM.next_token_loss`, the
+    pipeline's loss)."""
+    lp = torch.log_softmax(logits.float(), dim=-1)
+    nll = -torch.gather(lp, 2, targets[..., None].long())[..., 0]
+    w = weights.float()
+    return (nll * w).sum(), w.sum()
 
 
 class GemmaCausalLM(nn.Module):
@@ -58,15 +80,25 @@ class GemmaCausalLM(nn.Module):
     CPU only when the caller passes ``device="cpu"``. They are not
     initialized: fill them with :meth:`init` (random, from a generator) or
     :func:`iseg_tpu_torch.convert.load_flax`.
+
+    ``mesh`` with ``model_axis``: tensor parallelism over that axis (load
+    this rank's shard of full weights, ``layout.shard_gemma_params``).
+    ``seq_axis`` / ``data_axis`` / ``sp_mode``: sequence parallelism of the
+    full-sequence forwards, as in the JAX package (``"allgather"`` or
+    ``"ring"``).
     """
 
     def __init__(self, config: GemmaConfig, dtype=None, param_dtype=torch.float32,
-                 device="cuda"):
+                 device="cuda", mesh=None, model_axis: Optional[str] = None,
+                 seq_axis: Optional[str] = None, data_axis: Optional[str] = None,
+                 sp_mode: str = "allgather"):
         super().__init__()
         self.config = config
         self.dtype = dtype
+        self.parallel = GemmaParallel(mesh, model_axis=model_axis, seq_axis=seq_axis,
+                                      data_axis=data_axis, sp_mode=sp_mode)
         self.backbone = GemmaBackbone(config, dtype=dtype, param_dtype=param_dtype,
-                                      device=resolve_device(device))
+                                      device=resolve_device(device), parallel=self.parallel)
 
     # -- setup ------------------------------------------------------------
     @property
@@ -75,15 +107,26 @@ class GemmaCausalLM(nn.Module):
 
     def init(self, generator: torch.Generator) -> "GemmaCausalLM":
         """Random weights the way flax draws them, from ``generator``; the
-        values are drawn on the generator's device."""
+        values are drawn on the generator's device. A tensor-parallel model
+        takes its shard of full weights instead (``layout.shard_gemma_params``):
+        drawn at the local shapes, the fan-ins would be the shards'."""
+        if self.parallel.mp > 1:
+            raise ValueError("a tensor-parallel GemmaCausalLM loads its shard of full weights "
+                             "(layout.shard_gemma_params + convert.load_flax)")
         initialize(self, generator)
         return self
 
+    @property
+    def kv_heads(self) -> int:
+        """KV heads this rank holds (all of them without tensor parallelism)."""
+        return self.backbone.layer_0.attention.kv_heads
+
     def build_cache(self, batch: int, max_length: int) -> torch.Tensor:
-        """Zeros ``[B, layers, 2, max_len, kv_heads, head_dim]``."""
+        """Zeros ``[B, layers, 2, max_len, kv_heads, head_dim]`` (this rank's
+        KV heads under tensor parallelism)."""
         cfg = self.config
         return torch.zeros(
-            (batch, cfg.num_layers, 2, max_length, cfg.num_kv_heads, cfg.head_dim),
+            (batch, cfg.num_layers, 2, max_length, self.kv_heads, cfg.head_dim),
             dtype=self.dtype or torch.float32, device=self.device)
 
     # -- forward ----------------------------------------------------------
@@ -336,7 +379,7 @@ class GemmaCausalLM(nn.Module):
         ends.append(max_length)
 
         def buffers(width, old=None):
-            shape = (b, nb, cfg.num_layers, 2, width, cfg.num_kv_heads, cfg.head_dim)
+            shape = (b, nb, cfg.num_layers, 2, width, self.kv_heads, cfg.head_dim)
             active = torch.zeros(shape, dtype=caches_p.dtype, device=caches_p.device)
             if old is not None:
                 active[:, :, :, :, :old.shape[4]] = old
@@ -432,7 +475,7 @@ class GemmaCausalLM(nn.Module):
         slot_pos = torch.arange(max_length, device=device)
         if shared_context:
             # every element is written by the candidate forward (slot 0)
-            slot = torch.empty((b * kc, cfg.num_layers, 2, 1, cfg.num_kv_heads, cfg.head_dim),
+            slot = torch.empty((b * kc, cfg.num_layers, 2, 1, self.kv_heads, cfg.head_dim),
                                dtype=caches.dtype, device=device)
 
         for i in range(start, max_length):
@@ -479,8 +522,70 @@ class GemmaCausalLM(nn.Module):
             next_logits = logits_k.view(b, kc, -1)[rows, best]
         return tokens
 
+    # -- full-sequence forwards under sequence parallelism ----------------
+    def shard_tokens(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's block of a global ``[B, T, ...]`` array under sequence
+        parallelism: rows over ``data_axis``, positions over ``seq_axis``
+        (the array itself without it)."""
+        par = self.parallel
+        if par.dp > 1:
+            n = x.shape[0] // par.dp
+            x = x[par.data_rank * n:(par.data_rank + 1) * n]
+        if par.sp > 1:
+            if x.shape[1] % par.sp:
+                raise ValueError(f"sequence length {x.shape[1]} is not divisible by the "
+                                 f"{par.seq_axis}-axis size {par.sp}")
+            n = x.shape[1] // par.sp
+            x = x[:, par.seq_rank * n:(par.seq_rank + 1) * n]
+        return x
+
+    def _targets(self, token_ids: torch.Tensor) -> torch.Tensor:
+        """The next token of each position of this rank's slice; under
+        sequence parallelism the last one is the next rank's first token
+        (the last rank's last position has none: its column is junk)."""
+        nxt = token_ids[:, :1]
+        if self.parallel.sp > 1:
+            nxt = C.ppermute_shift(nxt.contiguous(), self.parallel.seq_group, shift=-1)
+        return torch.cat([token_ids[:, 1:], nxt], dim=1).long()
+
+    def _has_last_position(self) -> bool:
+        par = self.parallel
+        return par.sp == 1 or par.seq_rank == par.sp - 1
+
     def score(self, token_ids: torch.Tensor) -> torch.Tensor:
-        """Per-token log-likelihood of ``token_ids``: ``[B, T - 1]``."""
+        """Per-token log-likelihood of ``token_ids``: ``[B, T - 1]``. Under
+        sequence parallelism ``token_ids`` is this rank's slice, and the
+        ranks' results concatenated in rank order are the whole ``[B, T -
+        1]`` (the last rank's slice is one shorter)."""
         log_probs = torch.log_softmax(self(token_ids), dim=-1)
-        target = token_ids[:, 1:].long()
-        return torch.gather(log_probs[:, :-1], 2, target[..., None])[..., 0]
+        ll = torch.gather(log_probs, 2, self._targets(token_ids)[..., None])[..., 0]
+        return ll[:, :-1] if self._has_last_position() else ll
+
+    def next_token_loss(self, token_ids: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
+        """Mean next-token negative log-likelihood over the positions whose
+        TARGET has a nonzero weight (``weights[:, 1:]``), the loss of the
+        JAX package's SP and PP tests. Under sequence parallelism both are
+        this rank's slices and the loss is the global one on every rank (its
+        gradient with respect to the replicated parameters is this rank's
+        share: sum them over the axes with :meth:`reduce_gradients`)."""
+        par = self.parallel
+        logits, targets = self(token_ids), self._targets(token_ids)
+        w = torch.cat([weights[:, 1:], weights[:, :1]], dim=1).float()
+        if par.sp > 1:
+            w[:, -1:] = C.ppermute_shift(weights[:, :1].float().contiguous(), par.seq_group,
+                                         shift=-1)
+        if self._has_last_position():
+            w[:, -1] = 0.0  # no next token
+        total, count = masked_nll_sums(logits, targets, w)
+        for group in (par.seq_group, par.data_group):
+            if group is not None:
+                total = C.reduce_from(total, group)
+                count = C.all_reduce_values(count, group=group)
+        return total / torch.clamp(count, min=1.0)
+
+    def reduce_gradients(self) -> None:
+        """Sum the parameters' gradients over the sequence and data axes
+        (each rank's backward of :meth:`next_token_loss` holds its share)."""
+        params = [p for p in self.parameters() if p.grad is not None]
+        for group in (self.parallel.seq_group, self.parallel.data_group):
+            C.all_reduce_grads(params, group)

@@ -15,7 +15,8 @@ layer and RMS norms at scale 1, bias 0; ConvNeXt-V2's GRN ``gamma`` and
 ``QuantDense`` kernels are ``lecun_normal`` too, its embedding table is
 ``variance_scaling(1.0, "fan_in", "normal", out_axis=0)`` (a plain normal
 with std ``1 / sqrt(D)``), its RMSNorm scales start at zero and the int8
-scales it carries at one.
+scales it carries at one. The MoE layer's router and experts are
+``lecun_normal`` (the expert axis counts as receptive field).
 :func:`initialize` does the same for a whole module tree from an explicit
 ``torch.Generator``. The values are drawn in fp32 on the generator's device
 and copied to the parameters' device: a CPU generator gives the same
@@ -41,6 +42,7 @@ from iseg_tpu_torch.backbones.vit import VisionTransformer
 from iseg_tpu_torch.nn.attention import SelfAttention2D
 from iseg_tpu_torch.nn.blocks import GlobalResponseNorm
 from iseg_tpu_torch.nn.dcn import DCNv2
+from iseg_tpu_torch.nn.moe import MoEFeedForward
 from iseg_tpu_torch.nn.norm import BatchNorm, ChannelLayerNorm, ChannelRMSNorm, GroupNorm, RMSNorm
 from iseg_tpu_torch.ops.quant import QuantDense, QuantEmbed
 
@@ -134,6 +136,13 @@ def initialize(module: nn.Module, generator: torch.Generator) -> nn.Module:
             m.embedding_scale.fill_(1.0)
         elif isinstance(m, RMSNorm):
             m.scale.zero_()
+        elif isinstance(m, MoEFeedForward):
+            # lecun_normal of [D, E], [E, D, d_ff], [E, d_ff, D]: fan_in is
+            # the input axis times the receptive field (the expert axis)
+            dim = m.router.shape[0]
+            lecun_normal_(m.router, generator, fan_in=dim)
+            lecun_normal_(m.w1, generator, fan_in=m.num_experts * dim)
+            lecun_normal_(m.w2, generator, fan_in=m.num_experts * m.d_ff)
         elif any(True for _ in m.parameters(recurse=False)):
             raise TypeError(f"no initialization rule for {name or 'the root'} "
                             f"({type(m).__name__})")

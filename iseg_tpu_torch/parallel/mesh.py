@@ -5,11 +5,14 @@ The JAX package runs one GSPMD program over a ``("data", "model")``
 ``jax.sharding.Mesh``. The port runs one process per card (``torchrun
 --nproc_per_node=N``, or ``mp.spawn``), so a mesh is a
 ``torch.distributed.device_mesh.DeviceMesh`` over the ranks of the
-process group, with the same axis names. Vision training is pure data
-parallelism (``model`` of size 1): every rank holds the whole model and a
-slice of the global batch. The placements :func:`batch_sharding` and
-:func:`replicated_sharding` are the DTensor ones, ``Shard(0)`` and
-``Replicate()``.
+process group, with the same axis names and the same grid: rank ``r`` sits
+at data ``r // model_parallelism``, model ``r % model_parallelism``. Vision
+training is pure data parallelism (``model`` of size 1): every rank holds
+the whole model and a slice of the global batch. Gemma's tensor, sequence
+and pipeline parallelism and the experts of ``nn/moe.py`` take their groups
+from the mesh's axes (:func:`axis_group`). The placements
+:func:`batch_sharding` and :func:`replicated_sharding` are the DTensor ones,
+``Shard(0)`` and ``Replicate()``.
 
 Without a process group there is no mesh: every function here is then
 the identity over one rank (``mesh=None``).
@@ -45,20 +48,17 @@ def create_mesh(devices: Optional[Sequence[int]] = None, model_parallelism: int 
                 axis_names: tuple[str, str] = (DATA_AXIS, MODEL_AXIS),
                 device_type: Optional[str] = None):
     """A ``(data, model)`` ``DeviceMesh`` over the ranks of the process
-    group (or the given ``devices``, a sequence of ranks), the data axis
-    taking all of them. Its device type is the backend's: ``cuda`` under
-    NCCL, or under gloo when this rank's current device is a card and
-    ``device_type`` says so; ``cpu`` otherwise.
+    group (or the given ``devices``, a sequence of ranks): the ranks in
+    order, reshaped ``[n // model_parallelism, model_parallelism]``, as the
+    JAX package reshapes its devices. ``axis_names`` renames the two axes
+    (``("data", "stage")`` for a pipeline). Its device type is the
+    backend's: ``cuda`` under NCCL, or under gloo when this rank's current
+    device is a card and ``device_type`` says so; ``cpu`` otherwise.
 
-    ``model_parallelism`` > 1 (tensor parallelism over ``model``) is
-    ROADMAP item 25b and raises here. Raises without a process group
+    Raises without a process group
     (``common_env_setup(initialize_distributed=True)`` starts one)."""
     from torch.distributed.device_mesh import DeviceMesh
 
-    if model_parallelism != 1:
-        raise NotImplementedError(
-            f"model_parallelism={model_parallelism}: tensor parallelism over the model axis "
-            "is ROADMAP item 25b; the port's mesh is pure data parallelism for now")
     if not process_group_active():
         raise RuntimeError("create_mesh needs a process group: call "
                            "common_env_setup(initialize_distributed=True) first")
@@ -72,19 +72,38 @@ def create_mesh(devices: Optional[Sequence[int]] = None, model_parallelism: int 
     return DeviceMesh(device_type, grid, mesh_dim_names=tuple(axis_names))
 
 
+def _axis_index(mesh, axis: str) -> int:
+    """Position of ``axis`` among ``mesh``'s axes; raises for an axis the
+    mesh does not have, as the JAX package does for an unknown mesh axis."""
+    names = tuple(mesh.mesh_dim_names or ())
+    if axis not in names:
+        raise ValueError(f"the mesh has no axis {axis!r}; its axes are {names}")
+    return names.index(axis)
+
+
 def axis_size(mesh, axis: str = DATA_AXIS) -> int:
-    """Size of ``axis`` of ``mesh`` (1 without a mesh)."""
-    return 1 if mesh is None else int(mesh.size(mesh.mesh_dim_names.index(axis)))
+    """Size of ``axis`` of ``mesh`` (1 without a mesh). Raises for an axis
+    the mesh does not have."""
+    return 1 if mesh is None else int(mesh.size(_axis_index(mesh, axis)))
 
 
 def axis_rank(mesh, axis: str = DATA_AXIS) -> int:
-    """This rank's coordinate along ``axis`` (0 without a mesh)."""
-    return 0 if mesh is None else int(mesh.get_local_rank(axis))
+    """This rank's coordinate along ``axis`` (0 without a mesh). Raises for
+    an axis the mesh does not have."""
+    if mesh is None:
+        return 0
+    _axis_index(mesh, axis)
+    return int(mesh.get_local_rank(axis))
 
 
 def axis_group(mesh, axis: str = DATA_AXIS):
-    """The process group of ``axis`` (None without a mesh)."""
-    return None if mesh is None else mesh.get_group(axis)
+    """The process group of ``axis``: the ranks that share every other
+    coordinate with this one, ordered along ``axis`` (None without a mesh).
+    Raises for an axis the mesh does not have."""
+    if mesh is None:
+        return None
+    _axis_index(mesh, axis)
+    return mesh.get_group(axis)
 
 
 def batch_sharding(mesh=None, ndim: int = 1, axis: str = DATA_AXIS) -> list:

@@ -102,7 +102,8 @@ def test_torch_parallel_collectives(ranks):
         np.testing.assert_array_equal(got["scatter"], (both[0] + both[1])[3 * r:3 * (r + 1)])
         assert got["global_batch"] == 16 and got["any"] == (True, False)
         assert got["rows"] == (6, slice(3 * r, 3 * (r + 1)))
-        assert got["staged"] == {"all_gather": 0, "reduce_scatter": 0}  # CPU tensors
+        assert got["staged"] == {"all_gather": 0, "reduce_scatter": 0,
+                                 "ppermute": 0}  # CPU tensors
         world, rank, batch, summed, gathered = got["alone"]
         assert (world, rank, batch) == (1, 0, 8)
         np.testing.assert_array_equal(summed, x[r])

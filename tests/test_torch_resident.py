@@ -83,14 +83,14 @@ def test_torch_resident_from_arrays_matches_jax():
 
 
 def test_torch_resident_refuses_what_is_not_ported(shard_dir):
-    # pod partitions and mesh= are ported (tests/test_torch_parallel_data.py);
-    # what stays refused: a mesh without a process group, and tensor
-    # parallelism (ROADMAP item 25b)
+    # pod partitions and mesh= are ported (tests/test_torch_parallel_data.py),
+    # and so are meshes with a model axis (tests/test_torch_lm_tp.py); what
+    # stays refused: a mesh without a process group, of any shape
     from iseg_tpu_torch.parallel.mesh import create_mesh
 
     with pytest.raises(RuntimeError, match="process group"):
         create_mesh()
-    with pytest.raises(NotImplementedError, match="item 25b"):
+    with pytest.raises(RuntimeError, match="process group"):
         create_mesh(model_parallelism=2)
     reader = tshards.ShardReader(shard_dir)
     ds = tres.DeviceResidentDataset(reader, device="cpu", process_index=1, num_processes=2)
