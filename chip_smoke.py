@@ -85,10 +85,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    shapes, shifted and unshifted, f32 and bf16 (bf16 forward and backward on
    the tensor cores, f32 on the tensor cores in split TF32; the route of each
    is checked), and at window 12 (N = 144: ``swin_large_384``'s four stage
-   shapes at the same input; there the f32 backward takes the CUDA cores),
-   and the f32 forward at window 12 with 64-wide heads, which takes the
-   CUDA-core forward (its split-TF32 tiles do not fit; bound at the
-   split-TF32 rate, as every f32 row); dense-local sampling forward and all four
+   shapes at the same input; the f32 backward there is the split-TF32 kernel
+   that forms each warp's query rows, then its keys, from the forward's
+   lse), the f32 forward at window 12 with 64-wide heads (the same N > 64
+   split-TF32 forward), and the CUDA-core forward and backward at window 12 with a head
+   dim that is no multiple of 8 (D = 36; every f32 row bound at the
+   split-TF32 rate); dense-local sampling forward and all four
    gradients at InternImage-T's four stage shapes, in f32 and in the
    autocast type mix (bf16 values on a transposed view, fp32 offsets, bf16
    modulation), with offsets drawn beyond the clamp, and the backward's
@@ -168,8 +170,22 @@ Phases, in order; any failure raises and the script exits non-zero:
    the CUDA-core or bf16 kernels) and 1 + 1 loss kernel launches; the first
    step's loss within rtol 1e-4 of the same model, weights and drop-path
    draws on the plain window attention; ms/step, img/s, peak memory;
-7. Swin serve, batch 2, trained weights: eval logits with the kernels agree
-   with the same model run on the kernels' plain versions; multi-scale
+6c. ``swin_large_384`` (window 12, N = 144) + ``SemanticFPN(256)`` trained in
+   fp32 as 6b, the same batch and data: in every step exactly 24 split-TF32
+   window-attention forward and 24 backward launches (the backward the
+   window-12 kernel), none of the CUDA-core or bf16 kernels, 1 + 1 loss
+   kernel launches; the first step's loss within rtol 1e-4 of the same model,
+   weights and drop-path draws on the plain window attention; ms/step, img/s,
+   peak memory (``--ab OLD --only wa12`` times the step and its window
+   attention against OLD's);
+7. Swin serve, batch 2, trained weights: the bf16 single-scale logits with
+   the kernels lie within max(2 x the bf16 network's own distance, 2e-2) of
+   max |logit| from the same weights served in fp32 on the plain versions
+   (TF32 off; the bf16 serve on the plain versions gives the noise), and a
+   planted fault (the kernels' forward with the shift mask dropped) lies
+   beyond that bound; the distance of the kernel run repeated, of the plain
+   run on cuDNN's heuristics and the trained weights' sums are printed
+   beside it (fault F2: what spreads the distance between calls); multi-scale
    (0.75, 1.0) + flip + sliding window (384x384 crops) gives finite fp32
    [2,512,512,19] logits; window batch 1 and 2 agree; confusion matrix and
    mIoU against the synthetic labels count every pixel; tensor-core forward
@@ -180,7 +196,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    backward launches and 1 + 1 loss kernel launches; ms/step, img/s, peak
    memory;
 9. InternImage serve, batch 2, trained weights: as phase 7, with 30
-   dense-local forward launches per model call and no backward launch;
+   dense-local forward launches per model call and no backward launch; the
+   planted fault there (and in 14.4's serve): the kernels' offsets with
+   their two axes swapped;
 10. Gemma serve: (a) a SentencePiece vocabulary built in memory (specials,
     byte pieces, a few words, unused pieces up to 256000) -> ``GemmaTokenizer``
     -> ``GemmaCausalLMPreprocessor`` -> ragged prompts -> greedy ``generate``
@@ -365,7 +383,12 @@ the dense-local backward and its d_x kernel alone at r = 4 and 6 on stages
 r = 2, stage 1 at r = 4, stage 2 at r = 6, stage 3 gathered; random
 weights),
 and the fp32 Swin train step (2 + 3, then 3 profiled: its device time and
-its window-attention kernels' time and share).
+its window-attention kernels' time and share). ``--ab OLD --only wa12``
+times the fp32 window attention at window 12 instead (``swin_large_384``'s
+four stage shapes, shifted, forward and backward, and the forward at D = 64;
+SDPA beside each; profiler device time) and phase 6c's fp32 step (2 + 3,
+then 3 profiled: ms/step, device time, the window attention's time and
+share, peak memory).
 The last line holds each number of the four processes, OLD's two and this
 tree's two. ``--ab OLD --only f1`` times phase F1's three steps alone.
 
@@ -470,11 +493,15 @@ WA_LAUNCHES_PER_FORWARD = sum(s[4] for s in WA_STAGES)  # 24
 # padded to 132/72/36/24; (stage, window batch, heads, windows per image)
 WA12_STAGES = (("stage0", 968, 6, 121), ("stage1", 288, 12, 36), ("stage2", 72, 24, 9),
                ("stage3", 32, 48, 4))
-# fp32 at window 12 with 64-wide heads (Swin-L stage 2's width, 12 heads):
-# the split-TF32 forward's tiles do not fit there, so it runs on the CUDA
-# cores (off every main path); (stage, window batch, heads, windows per
-# image, head dim)
-WA_CUDA_CORE_FWD = ("stage2", 72, 12, 9, 64)
+# fp32 at window 12 with 64-wide heads (Swin-L stage 2's width, 12 heads): the
+# split-TF32 forward above N = 64, off every main path; forward only (the
+# backward's tiles fit no kernel at D = 64, N = 144); (stage, window batch,
+# heads, windows per image, head dim)
+WA_WIDE_FWD = ("stage2", 72, 12, 9, 64)
+# fp32 at window 12 with a head dim that is no multiple of 8: the CUDA-core
+# forward and backward, which keep every shape the tensor-core routes do not
+# take (off every main path)
+WA_CUDA_CORE = ("stage2", 72, 12, 9, 36)
 # InternImage path
 I_BATCH, I_CLASSES, I_OS = 8, 19, 32
 I_WARMUP, I_TIMED, I_SERVE_BATCH = 2, 5, 2
@@ -686,7 +713,16 @@ SYS_STREAM_RTOL = 1e-5
 # network on the kernels' plain versions, or window batch 1 vs 2 (other GEMM
 # shapes): bf16 keeps 8 bits, relative to max |logit|
 SERVE_RTOL = 1e-2
-KERNEL_VS_PLAIN_MODEL_RTOL = 2e-2  # 24 blocks of bf16 attention outputs rounded apart
+# Phases 7 and 9: the bf16 single-scale serve with the kernels against the same
+# weights served in fp32 on the plain versions (TF32 off), relative to the fp32
+# run's max |logit|. The bf16 network on the plain versions lies some distance
+# from that fp32 run (its own noise, which the phase measures and prints); the
+# kernel run is held to SERVE_NOISE_MULT times that noise, and never below
+# KERNEL_VS_PLAIN_MODEL_RTOL (2e-2: 24 blocks of bf16 attention outputs rounded
+# apart). A planted fault in the kernels' inputs (SERVE_FAULTS) must fail the
+# same bound in every run
+SERVE_NOISE_MULT = 2.0
+KERNEL_VS_PLAIN_MODEL_RTOL = 2e-2
 # fp32 Swin first-step loss, split-TF32 kernels vs the plain window attention:
 # both fp32 (TF32 off elsewhere), apart by the kernels' products (about 2^-21
 # of each, 1e-6 of the outputs) and summation order, through 24 blocks
@@ -1138,43 +1174,50 @@ def wa_backward_ms(fn, q, k, v, dout, bias, mask, scale, timer=cuda_median_ms, *
 
 
 def swin_routes(dtype: torch.dtype, n: int) -> tuple[str, str]:
-    """The (forward, backward) routes a Swin shape (D = 32) must take: bf16
-    on the tensor cores; fp32 on the tensor cores in split TF32, but for the
-    backward at window 12, whose fp32 tiles do not fit (CUDA cores)."""
-    if dtype == torch.bfloat16:
-        return "mma", "mma"
-    return "tf32x3", "tf32x3" if n <= wa.TF32X3_BWD_MAX_N else "cuda_core"
+    """The (forward, backward) routes a Swin shape (D = 32, N = 49 or 144)
+    must take: bf16 on the tensor cores, fp32 on the tensor cores in split
+    TF32."""
+    del n  # both windows take the same routes
+    return ("mma", "mma") if dtype == torch.bfloat16 else ("tf32x3", "tf32x3")
 
 
-def route_counts(fwd_route: str, bwd_route: str) -> dict[str, int]:
-    """``wa.LAUNCH_COUNTS`` after one forward and one backward on these routes."""
+def route_counts(fwd_route: str, bwd_route: str | None) -> dict[str, int]:
+    """``wa.LAUNCH_COUNTS`` after one forward and (unless ``bwd_route`` is
+    None) one backward on these routes."""
     counts = dict.fromkeys(wa.LAUNCH_COUNTS, 0)
     for which, route in (("fwd", fwd_route), ("bwd", bwd_route)):
-        counts[which if route == "cuda_core" else f"{which}_{route}"] = 1
+        if route is not None:
+            counts[which if route == "cuda_core" else f"{which}_{route}"] = 1
     return counts
 
 
 def check_window_attention(device, stage, bnw, heads, nw, shifted, dtype, seed=0,
-                           window=WINDOW) -> dict:
-    q, k, v, dout, bias, mask = wa_inputs(device, bnw, heads, nw, shifted, dtype, seed, window)
-    n, d = q.shape[2:]
+                           window=WINDOW, d=HEAD_DIM, routes=None, backward=True) -> dict:
+    """The kernels at one shape against their plain version (out, and with
+    ``backward`` dq, dk, dv, dbias), with their times, SDPA's and the bound.
+    ``routes``: the (forward, backward) routes the shape must take, Swin's
+    by default."""
+    q, k, v, dout, bias, mask = wa_inputs(device, bnw, heads, nw, shifted, dtype, seed, window, d)
+    n = q.shape[2]
     scale = 1.0 / math.sqrt(d)
     fwd_route, route = wa.forward_route(dtype, n, d), wa.backward_route(dtype, n, d)
     name = (f"{stage} bnw={bnw} H={heads} N={n} D={d} nW={mask.shape[0]} {dtype_name(dtype)} "
-            f"fwd:{fwd_route} bwd:{route}")
-    if (fwd_route, route) != swin_routes(dtype, n):
-        raise AssertionError(f"[{name}] a Swin shape in {dtype_name(dtype)} must take the "
-                             f"routes {swin_routes(dtype, n)}")
+            f"fwd:{fwd_route}" + (f" bwd:{route}" if backward else ""))
+    want_routes = routes or swin_routes(dtype, n)
+    if (fwd_route, route)[:1 + backward] != tuple(want_routes)[:1 + backward]:
+        raise AssertionError(f"[{name}] must take the routes {want_routes}")
 
     def run(fn):
         qq, kk, vv, bb = wa_leaves(q, k, v, bias)
         out = fn(qq, kk, vv, bb, mask, scale)
+        if not backward:
+            return [out.detach().float()]
         grads = torch.autograd.grad(out, (qq, kk, vv, bb), dout)
         return [t.detach().float() for t in (out, *grads)]
 
     wa.reset_launch_counts()
     got = run(wa.window_attention)
-    want_counts = route_counts(fwd_route, route)
+    want_counts = route_counts(fwd_route, route if backward else None)
     if wa.LAUNCH_COUNTS != want_counts:
         raise AssertionError(f"[{name}] launches {wa.LAUNCH_COUNTS}, expected {want_counts}")
     want = run(wa.window_attention_reference)
@@ -1201,73 +1244,33 @@ def check_window_attention(device, stage, bnw, heads, nw, shifted, dtype, seed=0
         fwd_dev = device_ms(lambda _: wa.window_attention(q, k, v, bias, mask, scale), **reps)
         fwd_lib_dev = device_ms(lambda _: sdpa(q, k, v, full_bias, None, scale), **reps)
         fwd_held = held_ms(lambda _: wa.window_attention(q, k, v, bias, mask, scale), **reps)
-    bwd_ms = wa_backward_ms(wa.window_attention, q, k, v, dout, bias, mask, scale, **reps)
-    bwd_plain = wa_backward_ms(wa.window_attention_reference, q, k, v, dout, bias, mask, scale,
-                               **reps)
-    bwd_lib = wa_backward_ms(sdpa, q, k, v, dout, full_bias, mask, scale, **reps)
-    bwd_dev = wa_backward_ms(wa.window_attention, q, k, v, dout, bias, mask, scale,
-                             timer=device_ms, **reps)
-    bwd_lib_dev = wa_backward_ms(sdpa, q, k, v, dout, full_bias, mask, scale, timer=device_ms,
-                                 **reps)
     fwd_bound, fwd_by = wa_bound(q, bias, mask, backward=False)
-    bwd_bound, bwd_by = wa_bound(q, bias, mask, backward=True)
-    bwd_err = max(errs[key] for key in ("dq", "dk", "dv", "dbias"))
-    log(f"  [{name}] max abs err " + " ".join(f"{k} {v:.2e}" for k, v in errs.items())
-        + f"; ms fwd kernel {fwd_ms:.4f} (device {fwd_dev:.4f}, held {fwd_held:.4f}) plain "
-        f"{fwd_plain:.4f} sdpa "
-        f"{fwd_lib:.4f} (device {fwd_lib_dev:.4f}) bound {fwd_bound:.4f} ({fwd_by}); bwd kernel "
-        f"{bwd_ms:.4f} (device {bwd_dev:.4f}) plain {bwd_plain:.4f} sdpa {bwd_lib:.4f} (device "
-        f"{bwd_lib_dev:.4f}) bound {bwd_bound:.4f} ({bwd_by})")
-    return {
-        "fwd": dict(shape=name, route=fwd_route, max_abs_err=errs["out"], ms=fwd_ms,
-                    device_ms=fwd_dev, held_ms=fwd_held, plain_ms=fwd_plain, bound_ms=fwd_bound,
-                    bound_by=fwd_by,
-                    library_ms=fwd_lib, library_device_ms=fwd_lib_dev),
-        "bwd": dict(shape=name, route=route, max_abs_err=bwd_err, ms=bwd_ms, device_ms=bwd_dev,
-                    plain_ms=bwd_plain, bound_ms=bwd_bound, bound_by=bwd_by, library_ms=bwd_lib,
-                    library_device_ms=bwd_lib_dev),
-    }
-
-
-def check_cuda_core_forward(device, stage, bnw, heads, nw, d, seed=0) -> dict:
-    """The CUDA-core forward (fp32 at window 12, head dim ``d``, shifted)
-    against its plain version, with its times; forward only."""
-    dtype = torch.float32
-    q, k, v, _, bias, mask = wa_inputs(device, bnw, heads, nw, True, dtype, seed, 12, d)
-    n = q.shape[2]
-    scale = 1.0 / math.sqrt(d)
-    route = wa.forward_route(dtype, n, d)
-    name = f"{stage} bnw={bnw} H={heads} N={n} D={d} nW={mask.shape[0]} f32 fwd:{route}"
-    if route != "cuda_core":
-        raise AssertionError(f"[{name}] must take the CUDA-core forward")
-    wa.reset_launch_counts()
-    with torch.no_grad():
-        got = wa.window_attention(q, k, v, bias, mask, scale)
-        if wa.LAUNCH_COUNTS != {**dict.fromkeys(wa.LAUNCH_COUNTS, 0), "fwd": 1}:
-            raise AssertionError(f"[{name}] launches {wa.LAUNCH_COUNTS}, expected one of fwd")
-        want = wa.window_attention_reference(q, k, v, bias, mask, scale)
-    if not bool(torch.isfinite(got).all()):
-        raise AssertionError(f"[{name}] kernel out is not finite")
-    err = float((got - want).abs().max())
-    tol = WA_TOL[dtype]["out"] * max(1.0, float(want.abs().max()))
-    if not err <= tol:
-        raise AssertionError(f"[{name}] kernel out disagrees with the plain version: max abs "
-                             f"err {err:.3e} > {tol:.3e}")
-    del got, want
-    full_bias = (bias[None] + mask[torch.arange(bnw, device=device) % nw][:, None]).contiguous()
-    reps = dict(reps=10, warmup=2)
-    with torch.no_grad():
-        ms = cuda_median_ms(lambda _: wa.window_attention(q, k, v, bias, mask, scale), **reps)
-        dev = device_ms(lambda _: wa.window_attention(q, k, v, bias, mask, scale), **reps)
-        plain = cuda_median_ms(
-            lambda _: wa.window_attention_reference(q, k, v, bias, mask, scale), **reps)
-        lib = cuda_median_ms(lambda _: sdpa(q, k, v, full_bias, None, scale), **reps)
-        lib_dev = device_ms(lambda _: sdpa(q, k, v, full_bias, None, scale), **reps)
-    bound, by = wa_bound(q, bias, mask, backward=False)
-    log(f"  [{name}] max abs err out {err:.2e}; ms fwd kernel {ms:.4f} (device {dev:.4f}) plain "
-        f"{plain:.4f} sdpa {lib:.4f} (device {lib_dev:.4f}) bound {bound:.4f} ({by})")
-    return dict(shape=name, route=route, max_abs_err=err, ms=ms, device_ms=dev, plain_ms=plain,
-                bound_ms=bound, bound_by=by, library_ms=lib, library_device_ms=lib_dev)
+    row = {"fwd": dict(shape=name, route=fwd_route, max_abs_err=errs["out"], ms=fwd_ms,
+                       device_ms=fwd_dev, held_ms=fwd_held, plain_ms=fwd_plain,
+                       bound_ms=fwd_bound, bound_by=fwd_by, library_ms=fwd_lib,
+                       library_device_ms=fwd_lib_dev)}
+    msg = (f"  [{name}] max abs err " + " ".join(f"{k} {v:.2e}" for k, v in errs.items())
+           + f"; ms fwd kernel {fwd_ms:.4f} (device {fwd_dev:.4f}, held {fwd_held:.4f}) plain "
+           f"{fwd_plain:.4f} sdpa {fwd_lib:.4f} (device {fwd_lib_dev:.4f}) bound {fwd_bound:.4f} "
+           f"({fwd_by})")
+    if backward:
+        bwd_ms = wa_backward_ms(wa.window_attention, q, k, v, dout, bias, mask, scale, **reps)
+        bwd_plain = wa_backward_ms(wa.window_attention_reference, q, k, v, dout, bias, mask,
+                                   scale, **reps)
+        bwd_lib = wa_backward_ms(sdpa, q, k, v, dout, full_bias, mask, scale, **reps)
+        bwd_dev = wa_backward_ms(wa.window_attention, q, k, v, dout, bias, mask, scale,
+                                 timer=device_ms, **reps)
+        bwd_lib_dev = wa_backward_ms(sdpa, q, k, v, dout, full_bias, mask, scale,
+                                     timer=device_ms, **reps)
+        bwd_bound, bwd_by = wa_bound(q, bias, mask, backward=True)
+        bwd_err = max(errs[key] for key in ("dq", "dk", "dv", "dbias"))
+        row["bwd"] = dict(shape=name, route=route, max_abs_err=bwd_err, ms=bwd_ms,
+                          device_ms=bwd_dev, plain_ms=bwd_plain, bound_ms=bwd_bound,
+                          bound_by=bwd_by, library_ms=bwd_lib, library_device_ms=bwd_lib_dev)
+        msg += (f"; bwd kernel {bwd_ms:.4f} (device {bwd_dev:.4f}) plain {bwd_plain:.4f} sdpa "
+                f"{bwd_lib:.4f} (device {bwd_lib_dev:.4f}) bound {bwd_bound:.4f} ({bwd_by})")
+    log(msg)
+    return row
 
 
 def dl_bound(x, maps, groups: int, corners: int, backward: bool) -> tuple[float, str]:
@@ -1506,7 +1509,12 @@ def phase_kernels(device) -> list[dict]:
                 wa_rows[(stage, shifted, dtype, "N=144")] = check_window_attention(
                     device, stage, bnw, heads, nw, shifted, dtype, window=12)
                 torch.cuda.empty_cache()
-    wa_cuda_core_fwd = check_cuda_core_forward(device, *WA_CUDA_CORE_FWD)
+    stage, bnw, heads, nw, d = WA_WIDE_FWD
+    wa_wide_fwd = check_window_attention(device, stage, bnw, heads, nw, True, torch.float32,
+                                         window=12, d=d, routes=("tf32x3",), backward=False)
+    stage, bnw, heads, nw, d = WA_CUDA_CORE
+    wa_cuda_core = check_window_attention(device, stage, bnw, heads, nw, True, torch.float32,
+                                          window=12, d=d, routes=("cuda_core", "cuda_core"))
     torch.cuda.empty_cache()
     log(f"dense-local sampling (tol of max(1, max |plain|): {DL_TOL}); the backward's max abs "
         "err is over its four gradients; no single PyTorch call computes this function")
@@ -1546,14 +1554,20 @@ def phase_kernels(device) -> list[dict]:
                                                convnext_fapn, xception)
                       for dt in ("f32", "bf16")]
                   for d in ("fwd", "bwd")}
-    # the split-TF32 rows have entries of their own; the bf16 and CUDA-core rows
-    # share the original two
-    wa_shapes = {(d, tf32): [row[d] for row in wa_rows.values()
-                             if (row[d]["route"] == "tf32x3") == tf32]
-                 for d in ("fwd", "bwd") for tf32 in (False, True)}
-    wa_shapes[("fwd", False)].append(wa_cuda_core_fwd)
+    # the split-TF32 rows have entries of their own (the N > 64 kernels, which
+    # phase 6c runs, apart); the bf16 and CUDA-core rows share the original two
+    def wa_kernel(d, route, window12):
+        if route != "tf32x3":
+            return d
+        return f"{d}_tf32x3_large" if window12 else f"{d}_tf32x3"
+
+    wa_shapes = {}
+    for key, row in (*wa_rows.items(), (("N=144",), wa_wide_fwd), (("N=144",), wa_cuda_core)):
+        for d, shape in row.items():
+            wa_shapes.setdefault(wa_kernel(d, shape["route"], "N=144" in key), []).append(shape)
     wa_main = wa_rows[("stage2", True, torch.bfloat16)]
     wa_main_f32 = wa_rows[("stage2", True, torch.float32)]
+    wa_main_f32_w12 = wa_rows[("stage2", True, torch.float32, "N=144")]
     dl_shapes = {d: [row[d] for row in dl_rows.values()] for d in ("fwd", "bwd")}
     dl_main = dl_rows[("stage2", "mixed")]
     return [
@@ -1562,15 +1576,21 @@ def phase_kernels(device) -> list[dict]:
         entry("upsample_ce_bwd", uce_src, "iseg_tpu/ops/pallas/upsample_ce.py:159",
               resnet["f32"]["bwd"], uce_shapes["bwd"]),
         entry("window_attention_fwd", wa_src, "iseg_tpu/ops/pallas/window_attention.py:141",
-              wa_main["fwd"], wa_shapes[("fwd", False)]),
+              wa_main["fwd"], wa_shapes["fwd"]),
         entry("window_attention_bwd", wa_src, "iseg_tpu/ops/pallas/window_attention.py:161",
-              wa_main["bwd"], wa_shapes[("bwd", False)]),
+              wa_main["bwd"], wa_shapes["bwd"]),
         entry("window_attention_fwd_tf32x3", wa_src,
               "iseg_tpu/ops/pallas/window_attention.py:141", wa_main_f32["fwd"],
-              wa_shapes[("fwd", True)]),
+              wa_shapes["fwd_tf32x3"]),
         entry("window_attention_bwd_tf32x3", wa_src,
               "iseg_tpu/ops/pallas/window_attention.py:161", wa_main_f32["bwd"],
-              wa_shapes[("bwd", True)]),
+              wa_shapes["bwd_tf32x3"]),
+        entry("window_attention_fwd_tf32x3_large", wa_src,
+              "iseg_tpu/ops/pallas/window_attention.py:141", wa_main_f32_w12["fwd"],
+              wa_shapes["fwd_tf32x3_large"]),
+        entry("window_attention_bwd_tf32x3_large", wa_src,
+              "iseg_tpu/ops/pallas/window_attention.py:161", wa_main_f32_w12["bwd"],
+              wa_shapes["bwd_tf32x3_large"]),
         entry("deform_local_fwd", dl_src, "iseg_tpu/ops/pallas/deform_local.py:116",
               dl_main["fwd"], dl_shapes["fwd"]),
         entry("deform_local_bwd", dl_src, "iseg_tpu/ops/pallas/deform_local.py:146",
@@ -2410,17 +2430,18 @@ def phase_examples(env, profile: bool) -> dict[str, dict]:
 
 # --------------------------------------------------------------- Swin path
 
-def build_swin_model(env, fused: bool) -> SegManaged:
-    backbone = get_backbone("swin_large")
+def build_swin_model(env, fused: bool, backbone: str = "swin_large") -> SegManaged:
+    backbone = get_backbone(backbone)
     model = SegManaged(num_class=S_CLASSES, backbone=backbone,
                        head=SemanticFPN(backbone.endpoint_channels[-4:], filters=256),
                        upsample_logits=not fused, fuse_upsample_loss=fused)
     return model.to(env.device, memory_format=torch.channels_last)
 
 
-def swin_train_setup(env):
-    """(model, train state, step function) of the Swin path."""
-    model = build_swin_model(env, fused=True)
+def swin_train_setup(env, backbone: str = "swin_large"):
+    """(model, train state, step function) of the Swin path (``backbone``:
+    ``swin_large``, or ``swin_large_384`` for phase 6c)."""
+    model = build_swin_model(env, fused=True, backbone=backbone)
     log(f"parameters: {sum(p.numel() for p in model.parameters()) / 1e6:.1f} M")
     tx, _ = get_optimizer(param_tree(model), "sgd", learning_rate=0.01, train_steps=1000)
     state = create_train_state(model, env.generator, tx)
@@ -2450,15 +2471,18 @@ def drop_path_generator(model) -> torch.Generator:
     return next(iter(gens.values()))
 
 
-def phase_swin_train_f32(data, profile: bool):
-    log("== phase 6b: Swin-L + SemanticFPN train in fp32 (split-TF32 window attention + fused "
-        "loss kernels)")
+def phase_swin_train_f32(data, profile: bool, backbone: str = "swin_large"):
+    """Phase 6b (``swin_large``, window 7) or 6c (``swin_large_384``, window
+    12): the fp32 step on the split-TF32 window-attention kernels."""
+    phase = "6b" if backbone == "swin_large" else "6c"
+    log(f"== phase {phase}: {backbone} + SemanticFPN train in fp32 (split-TF32 window attention "
+        "+ fused loss kernels)")
     env = common_env_setup(EnvConfig(random_seed=0, mixed_precision=False, device="cuda"))
     log(f"env: {env.describe()}")
     if (env.compute_dtype != torch.float32 or torch.backends.cuda.matmul.allow_tf32
             or torch.backends.cudnn.allow_tf32):
-        raise AssertionError("phase 6b needs fp32 compute with TF32 off")
-    model, state, step_fn = swin_train_setup(env)
+        raise AssertionError(f"phase {phase} needs fp32 compute with TF32 off")
+    model, state, step_fn = swin_train_setup(env, backbone)
     if any(t.dtype != torch.float32 for t in model.state_dict().values() if t.is_floating_point()):
         raise AssertionError("the fp32 Swin model holds parameters that are not float32")
     # the first step's forward on the plain window attention and on the kernels:
@@ -2502,7 +2526,7 @@ def phase_swin_train_f32(data, profile: bool):
         state, step_fn, data, S_WARMUP, S_F32_TIMED, S_BATCH,
         {"upsample_ce_fwd": 1, "upsample_ce_bwd": 1,
          "window_attention_fwd_tf32x3": WA_LAUNCHES_PER_FORWARD,
-         "window_attention_bwd_tf32x3": WA_LAUNCHES_PER_FORWARD}, "Swin fp32 train")
+         "window_attention_bwd_tf32x3": WA_LAUNCHES_PER_FORWARD}, f"{backbone} fp32 train")
     rel = abs(losses[0] - plain_loss) / abs(plain_loss)
     log(f"first-step loss: kernels {losses[0]:.7f} plain window attention {plain_loss:.7f} "
         f"rel diff {rel:.3e} (tol {F32_KERNEL_VS_PLAIN_RTOL:g})")
@@ -2510,14 +2534,15 @@ def phase_swin_train_f32(data, profile: bool):
         raise AssertionError("the fp32 first-step loss with the split-TF32 kernels disagrees "
                              "with the plain version's")
     if profile:
-        profile_steps(state, step_fn, data, "Swin-L + SemanticFPN fp32 train step", step_ms)
+        profile_steps(state, step_fn, data, f"{backbone} + SemanticFPN fp32 train step", step_ms)
     return launches
 
 
 KERNEL_CLASSES = (
     ("window attention kernels", ("wa_fwd_kernel", "wa_fwd_mma_kernel", "wa_fwd_tf32x3_kernel",
-                                  "wa_bwd_kernel", "wa_bwd_mma_kernel", "wa_bwd_tf32x3_kernel",
-                                  "dbias_reduce_kernel")),
+                                  "wa_fwd_tf32x3_large_kernel", "wa_bwd_kernel",
+                                  "wa_bwd_mma_kernel", "wa_bwd_tf32x3_kernel",
+                                  "wa_bwd_tf32x3_large_kernel", "dbias_reduce_kernel")),
     ("dense-local kernels", ("dl_fwd_kernel", "dl_bwd_maps_kernel", "dl_bwd_x_kernel")),
     ("upsample + CE kernels", ("::fwd_kernel<", "::bwd_kernel<", "::reduce_kernel(")),
     ("global attention (SDPA: flash / memory-efficient)", ("flash", "fmha", "attention_kernel",
@@ -2575,51 +2600,102 @@ def profile_steps(state, step_fn, data, title: str, wall_ms: float, steps: int =
     return {"device_ms": device_ms, "kernels": {key: us / 1e3 / steps for us, key in top}}
 
 
+def check_kernels_against_fp32(title, serve, logits, plain_fn, fault, model, fwd_kernel,
+                               launches_per_forward) -> dict:
+    """Fault F2's check. ``logits``: the bf16 single-scale serve on the
+    kernels. The same weights served in fp32 on the plain versions (TF32
+    off) are the reference; the bf16 serve on the plain versions measures
+    the bf16 network's own distance from it (the noise); the kernel run must
+    lie within max(SERVE_NOISE_MULT x noise, KERNEL_VS_PLAIN_MODEL_RTOL) of
+    max |reference logit|, and the run with the planted fault beyond it.
+    Printed beside them, for what spreads the distance from call to call: the
+    trained weights' sums, the kernel run repeated, and the plain run on
+    cuDNN's heuristics instead of its autotuned convolutions."""
+    if torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32:
+        raise AssertionError("the fp32 reference serve needs TF32 off")
+    ref, _, ref_launches, _ = serve(fn=plain_fn, autocast=False)
+    plain, _, plain_launches, _ = serve(fn=plain_fn)
+    if any(ref_launches.values()) or any(plain_launches.values()):
+        raise AssertionError("a plain-version run launched a kernel")
+    again, _, _, _ = serve()
+    with cudnn_heuristics():
+        plain_heuristic, _, _, _ = serve(fn=plain_fn)
+    description, fault_fn = fault
+    faulty, calls, fault_launches, _ = serve(fn=fault_fn)
+    expect_launches(f"{title} serve with the planted fault", fault_launches,
+                    {fwd_kernel: launches_per_forward * calls})
+    scale = float(ref.abs().max())
+
+    def dist(a, b):
+        return float((a - b).abs().max()) / scale
+
+    with torch.no_grad():
+        weights = [p.detach().double() for p in model.parameters()]
+        w_sum = float(sum(w.sum() for w in weights))
+        w_sq = float(sum((w * w).sum() for w in weights))
+    got = {"kernels": dist(logits, ref), "noise": dist(plain, ref), "fault": dist(faulty, ref),
+           "kernels_vs_plain": dist(logits, plain), "repeat": dist(again, logits),
+           "cudnn_heuristics": dist(plain_heuristic, plain)}
+    bound = max(SERVE_NOISE_MULT * got["noise"], KERNEL_VS_PLAIN_MODEL_RTOL)
+    log(f"{title} single-scale logits against the fp32 serve on the plain versions (max |logit| "
+        f"{scale:.4e}), max abs diff over it: bf16 kernels {got['kernels']:.3e}, bf16 plain "
+        f"versions {got['noise']:.3e} (the noise); bound max({SERVE_NOISE_MULT:g} x noise, "
+        f"{KERNEL_VS_PLAIN_MODEL_RTOL:g}) = {bound:.3e}; planted fault ({description}) "
+        f"{got['fault']:.3e}. Beside them: kernels vs bf16 plain {got['kernels_vs_plain']:.3e}, "
+        f"the kernel run repeated {got['repeat']:.3e}, the bf16 plain run on cuDNN's heuristics "
+        f"vs autotuned {got['cudnn_heuristics']:.3e}; trained weights sum {w_sum:.9e}, sum of "
+        f"squares {w_sq:.9e}; bf16 max |logit| {float(logits.abs().max()):.4e}")
+    if not got["kernels"] <= bound:
+        raise AssertionError(f"{title} logits with the kernels lie {got['kernels']:.3e} of max "
+                             f"|logit| from the fp32 serve, beyond {bound:.3e}")
+    if not got["fault"] > bound:
+        raise AssertionError(f"{title}: the planted fault ({description}) lies "
+                             f"{got['fault']:.3e} from the fp32 serve, within the bound "
+                             f"{bound:.3e}: the check cannot tell it apart")
+    return got
+
+
 def phase_serve(env, data, trained, title, build_model, batch, classes, fwd_kernel,
-                launches_per_forward, plain_swap):
+                launches_per_forward, plain_swap, fault):
     """Serve with the trained weights. ``fwd_kernel`` names the forward
     kernel every model call launches ``launches_per_forward`` times;
     ``plain_swap`` is ``(module, attribute, plain function)``: with the
-    attribute replaced, the network runs on the kernel's plain version."""
+    attribute replaced, the network runs on the kernel's plain version;
+    ``fault`` is ``(description, function)``: the kernel with a planted fault
+    in its inputs, swapped in the same way, whose run must fail the
+    kernels-vs-fp32 check."""
     model = build_model(env, fused=False)
     model.load_state_dict(trained.state_dict())
     image, label = data["image"][:batch], data["label"][:batch]
     expect_shape = (batch, HW, HW, classes)
     forwards = [0]
     hook = model.register_forward_hook(lambda *_: forwards.__setitem__(0, forwards[0] + 1))
+    module, attribute, plain_fn = plain_swap
+    kernel_fn = getattr(module, attribute)
 
-    def serve(config=None):
+    def serve(config=None, fn=None, autocast=True):
         forwards[0] = 0
         reset_launch_counts()
-        t0 = time.perf_counter()
-        with torch.autocast("cuda", dtype=env.compute_dtype):
-            logits = model.inference(image, config)
-        torch.cuda.synchronize()
+        setattr(module, attribute, fn or kernel_fn)
+        try:
+            t0 = time.perf_counter()
+            with torch.autocast("cuda", dtype=env.compute_dtype, enabled=autocast):
+                logits = model.inference(image, config)
+            torch.cuda.synchronize()
+        finally:
+            setattr(module, attribute, kernel_fn)
         return logits, forwards[0], read_launch_counts(), 1e3 * (time.perf_counter() - t0)
 
     # single scale: against the training model's low-res logits, and against
-    # the same network on the kernels' plain versions
+    # the same weights served in fp32 on the kernels' plain versions
     logits, calls, launches, _ = serve()
     expect_launches(f"{title} serve (single scale)", launches,
                     {fwd_kernel: launches_per_forward * calls})
     with torch.autocast("cuda", dtype=env.compute_dtype):
         low = trained.inference(image)
     check_served_against_low_res(title, logits, low, expect_shape)
-    module, attribute, plain_fn = plain_swap
-    kernel_fn = getattr(module, attribute)
-    setattr(module, attribute, plain_fn)
-    try:
-        plain_logits, _, plain_launches, _ = serve()
-    finally:
-        setattr(module, attribute, kernel_fn)
-    if any(plain_launches.values()):
-        raise AssertionError("the plain-version run launched a kernel")
-    err = float((logits - plain_logits).abs().max())
-    scale = float(plain_logits.abs().max())
-    log(f"eval logits, kernels vs plain versions in the same bf16 network: max abs diff "
-        f"{err:.3e} vs max |logit| {scale:.3e} (tol {KERNEL_VS_PLAIN_MODEL_RTOL:g} of it)")
-    if not err <= KERNEL_VS_PLAIN_MODEL_RTOL * scale:
-        raise AssertionError(f"{title} logits with the kernels disagree with the plain versions")
+    check_kernels_against_fp32(title, serve, logits, plain_fn, fault, model, fwd_kernel,
+                               launches_per_forward)
 
     total = {k: 0 for k in launches}
     results = {}
@@ -2661,9 +2737,13 @@ def phase_serve(env, data, trained, title, build_model, batch, classes, fwd_kern
 
 def phase_swin_serve(env, data, trained):
     log("== phase 7: Swin serve (multi-scale + flip + sliding window, trained weights)")
+    def mask_dropped(q, k, v, bias, mask, scale):
+        return wa.window_attention(q, k, v, bias, torch.zeros_like(mask[:1]), scale)
+
     return phase_serve(env, data, trained, "Swin", build_swin_model, S_SERVE_BATCH, S_CLASSES,
                        "window_attention_fwd_mma", WA_LAUNCHES_PER_FORWARD,
-                       (swin_module, "window_attention", wa.window_attention_reference))
+                       (swin_module, "window_attention", wa.window_attention_reference),
+                       ("the kernels' forward with the shift mask dropped", mask_dropped))
 
 
 # -------------------------------------------------------- InternImage path
@@ -2703,7 +2783,19 @@ def phase_intern_serve(env, data, trained):
     log("== phase 9: InternImage serve (multi-scale + flip + sliding window, trained weights)")
     return phase_serve(env, data, trained, "InternImage", build_intern_model, I_SERVE_BATCH,
                        I_CLASSES, "deform_local_fwd", DL_LAUNCHES_PER_FORWARD,
-                       (dcn_module, "dense_local_flat", dl.deform_dense_local_flat_reference))
+                       (dcn_module, "dense_local_flat", dl.deform_dense_local_flat_reference),
+                       offsets_swapped_fault())
+
+
+def offsets_swapped_fault():
+    """The planted fault of the dense-local serves (phases 9 and 14.4): the
+    kernels fed the offsets with their two axes swapped."""
+    kernel_fn = dcn_module.dense_local_flat
+
+    def axes_swapped(x, off_dy, off_dx, modulation, *args):
+        return kernel_fn(x, off_dx, off_dy, modulation, *args)
+
+    return "the kernels' offsets with their two axes swapped", axes_swapped
 
 # -------------------------------------------------------------- Gemma path
 
@@ -4086,7 +4178,8 @@ def phase_calibrated_train_serve(env, backbone, dense_blocks: int) -> dict[str, 
     serve = phase_serve(env, data, model, "calibrated InternImage",
                         lambda env_, fused: build_calibrated_model(env_, backbone, fused),
                         I_SERVE_BATCH, P_CLASSES, "deform_local_fwd", dense_blocks,
-                        (dcn_module, "dense_local_flat", dl.deform_dense_local_flat_reference))
+                        (dcn_module, "dense_local_flat", dl.deform_dense_local_flat_reference),
+                        offsets_swapped_fault())
     return {"calibrated_intern_train": launches, "calibrated_intern_serve": serve}
 
 
@@ -4798,6 +4891,57 @@ def ab_f1_row() -> dict:
     return row
 
 
+def ab_wa12_row(device) -> dict:
+    """``--ab OLD --only wa12``: fp32 window attention at window 12 (Swin-L-384's
+    four stage shapes, shifted, forward and backward, and the forward at D =
+    64), SDPA beside it, all by the profiler's device time; then phase 6c's
+    fp32 step (2 + 3 steps, profiled): ms/step, device ms, the window
+    attention's device ms and share, its launches."""
+    reps = dict(reps=10, warmup=2)
+    row = {}
+    shapes = [(stage, bnw, heads, nw, HEAD_DIM) for stage, bnw, heads, nw in WA12_STAGES]
+    for stage, bnw, heads, nw, d in (*shapes, ("D=64 " + WA_WIDE_FWD[0], *WA_WIDE_FWD[1:])):
+        scale = 1.0 / math.sqrt(d)
+        q, k, v, dout, bias, mask = wa_inputs(device, bnw, heads, nw, True, torch.float32,
+                                              window=12, d=d)
+        full_bias = (bias[None] + mask[torch.arange(bnw, device=device) % nw][:, None]).contiguous()
+        wa.reset_launch_counts()
+        with torch.no_grad():
+            row[f"wa_fwd f32 w12 {stage} device ms"] = device_ms(
+                lambda _: wa.window_attention(q, k, v, bias, mask, scale), **reps)
+            row[f"sdpa_fwd f32 w12 {stage} device ms"] = device_ms(
+                lambda _: sdpa(q, k, v, full_bias, None, scale), **reps)
+        if d == HEAD_DIM:
+            row[f"wa_bwd f32 w12 {stage} device ms"] = wa_backward_ms(
+                wa.window_attention, q, k, v, dout, bias, mask, scale, timer=device_ms, **reps)
+            row[f"sdpa_bwd f32 w12 {stage} device ms"] = wa_backward_ms(
+                sdpa, q, k, v, dout, full_bias, mask, scale, timer=device_ms, **reps)
+        row[f"wa f32 w12 {stage} launches"] = {key: n for key, n in wa.LAUNCH_COUNTS.items() if n}
+        del q, k, v, dout, bias, mask, full_bias
+        torch.cuda.empty_cache()
+    env32 = common_env_setup(EnvConfig(random_seed=0, mixed_precision=False, device="cuda"))
+    torch.backends.cudnn.benchmark = True
+    data = synthetic_batch(device, S_BATCH, S_CLASSES)
+    _, state, step_fn = swin_train_setup(env32, "swin_large_384")
+    state, _, launches, step_ms = train_steps(state, step_fn, data, S_WARMUP, S_F32_TIMED,
+                                              S_BATCH)
+    prof = profile_steps(state, step_fn, data, "swin_large_384 + SemanticFPN fp32 train step",
+                         step_ms)
+    kernels = prof["kernels"].items()
+    wa_needles = dict(KERNEL_CLASSES)["window attention kernels"]
+    wa_ms = sum(ms for key, ms in kernels if any(n in key for n in wa_needles))
+    row.update({"swin384 f32 step ms": step_ms, "swin384 f32 step device ms": prof["device_ms"],
+                "swin384 f32 step wa ms": wa_ms,
+                "swin384 f32 step wa share": wa_ms / prof["device_ms"],
+                "swin384 f32 step wa_fwd ms": sum(ms for key, ms in kernels if "wa_fwd" in key),
+                "swin384 f32 step wa_bwd ms": sum(ms for key, ms in kernels
+                                                  if "wa_bwd" in key or "dbias_reduce" in key),
+                "swin384 f32 peak GiB": torch.cuda.max_memory_allocated() / 2**30,
+                "swin384 f32 launches": {key: n for key, n in launches.items()
+                                         if key.startswith("window_attention") and n}})
+    return row
+
+
 def ab_child(only: str | None = None) -> dict:
     """One process of ``--ab``: this file's timings of the package first on
     the path. It uses only what the parent commit's package has too."""
@@ -4808,6 +4952,8 @@ def ab_child(only: str | None = None) -> dict:
     row = {"package": str(_build.PACKAGE_DIR)}
     if only == "f1":
         return {**row, **ab_f1_row()}
+    if only == "wa12":
+        return {**row, **ab_wa12_row(device)}
     reps = dict(reps=10, warmup=2)
     scale = 1.0 / math.sqrt(HEAD_DIM)
     for stage, bnw, heads, nw, _ in WA_STAGES:
@@ -5507,6 +5653,9 @@ def main(argv: list[str]) -> int:
                 "swin_train_f32": phase_swin_train_f32(data, profile)}
 
     paths.update(timed("6-7", swin_phases))
+    paths["swin384_train_f32"] = timed(
+        "6c", lambda: phase_swin_train_f32(synthetic_batch(device, S_BATCH, S_CLASSES), profile,
+                                           "swin_large_384"))
 
     def intern_phases():
         data = synthetic_batch(device, I_BATCH, I_CLASSES)
@@ -5535,18 +5684,28 @@ def main(argv: list[str]) -> int:
             k["shapes"].append(tp_cache_gather_row)
 
     # the bf16 window-attention entries count two routes each (tensor cores and
-    # CUDA cores), each with its count; the split-TF32 entries one
+    # CUDA cores), each with its count; the split-TF32 entries one, shared by
+    # two kernels each: the N > 64 ones run on phase 6c's path alone, the N <=
+    # 64 ones on the others
     routes = {"window_attention_fwd": {"mma": "window_attention_fwd_mma",
                                        "cuda_core": "window_attention_fwd"},
               "window_attention_bwd": {"mma": "window_attention_bwd_mma",
-                                       "cuda_core": "window_attention_bwd"}}
+                                       "cuda_core": "window_attention_bwd"},
+              "window_attention_fwd_tf32x3_large": {"cuda": "window_attention_fwd_tf32x3"},
+              "window_attention_bwd_tf32x3_large": {"cuda": "window_attention_bwd_tf32x3"}}
+    window12 = "swin384_train_f32"
+    runs_on = {f"window_attention_{d}_tf32x3{large}": (lambda path, large=large:
+                                                        (path == window12) == bool(large))
+               for d in ("fwd", "bwd") for large in ("", "_large")}
     for k in kernels:
         keys = routes.get(k["name"], {"cuda": k["name"]})
-        by_route = {r: sum(counts[key] for counts in paths.values()) for r, key in keys.items()}
+        mine = {path: counts for path, counts in paths.items()
+                if runs_on.get(k["name"], lambda _: True)(path)}
+        by_route = {r: sum(counts[key] for counts in mine.values()) for r, key in keys.items()}
         if len(keys) > 1:
             k["launches_by_route"] = by_route
         k["launches_by_path"] = {path: sum(counts[key] for key in keys.values())
-                                 for path, counts in paths.items()}
+                                 for path, counts in mine.items()}
         k["launches"] = sum(by_route.values())
     loss_kernels = ("upsample_ce_fwd", "upsample_ce_bwd")
     on_path = {"resnet_train": loss_kernels,
@@ -5569,6 +5728,8 @@ def main(argv: list[str]) -> int:
                "swin_serve": ("window_attention_fwd_mma",),
                "swin_train_f32": loss_kernels + ("window_attention_fwd_tf32x3",
                                                  "window_attention_bwd_tf32x3"),
+               "swin384_train_f32": loss_kernels + ("window_attention_fwd_tf32x3",
+                                                    "window_attention_bwd_tf32x3"),
                "intern_train": loss_kernels + ("deform_local_fwd", "deform_local_bwd"),
                "intern_serve": ("deform_local_fwd",),
                "calibrated_intern_train": loss_kernels + ("deform_local_fwd",
@@ -5581,7 +5742,8 @@ def main(argv: list[str]) -> int:
         for name in names:
             if paths[path][name] <= 0:
                 raise AssertionError(f"kernel {name} was never launched on the {path} path")
-    for path in ("swin_train", "swin_serve", "swin_train_f32"):  # the tensor-core routes only
+    # the tensor-core routes only
+    for path in ("swin_train", "swin_serve", "swin_train_f32", "swin384_train_f32"):
         if paths[path]["window_attention_fwd"] or paths[path]["window_attention_bwd"]:
             raise AssertionError(f"the {path} path launched a CUDA-core window-attention kernel")
 

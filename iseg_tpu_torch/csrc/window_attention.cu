@@ -23,7 +23,7 @@
 // go through a second kernel that sums them in a fixed order. So dbias needs
 // no atomics and is bitwise repeatable, like every other output.
 //
-// Three backward kernels, chosen by the wrapper by dtype and shape:
+// Four backward kernels, chosen by the wrapper by dtype and shape:
 //
 // * wa_bwd_mma_kernel, for bf16 q, k, v with D % 16 == 0 and N <= 144 (every
 //   Swin variant: D = 32, N = 49 or 144). All five products run on the
@@ -42,9 +42,9 @@
 //   its mask values for the next window while the block runs dv and dk; at
 //   N = 144 the ds sums take the shared memory (they do not fit in
 //   registers) and the bias is read through the cache.
-// * wa_bwd_tf32x3_kernel, for float32 q, k, v with D % 8 == 0 and N <= 64
-//   (Swin at window 7): the same design with all five products on the
-//   tensor cores in split TF32 (mma.sync m16n8k8 .tf32). One TF32 product
+// * wa_bwd_tf32x3_kernel, for float32 q, k, v with D % 8 == 0, D <= 80 and
+//   N <= 64 (Swin at window 7): the same design with all five products on
+//   the tensor cores in split TF32 (mma.sync m16n8k8 .tf32). One TF32 product
 //   keeps 10 mantissa bits of each operand (about 1e-3 of the value) and
 //   would break the fp32 contract of 1e-4; the split keeps about 21. Each
 //   fp32 operand value is split where its fragment is loaded, x = hi + lo
@@ -58,11 +58,25 @@
 //   tiles with a row pitch of 4 mod 8 floats (conflict-free for the
 //   fragment patterns, below). The p and ds tiles are separate, so a
 //   window takes one block barrier after the softmax where the bf16 kernel
-//   takes three. Float32 at N = 144 stays on the CUDA cores: its tiles do
-//   not fit a block (kTf32BwdMaxN).
-// * wa_bwd_kernel, for the other shapes (float32 at N > 64 or D % 8 != 0,
-//   bf16 outside its route): fp32 FMA loops over shared memory with a 4 x 4
-//   register tile per thread, everything in fp32.
+//   takes three.
+// * wa_bwd_tf32x3_large_kernel, for float32 with D % 8 == 0, D <= 56 and 64
+//   < N <= 144 (Swin at window 12): the N <= 64 kernel's p and ds tiles
+//   would take 170 KB at N = 144, so no warp reads another's p or ds. In
+//   two passes a window, split by ownership, a warp forms its 16 query rows'
+//   dq, then (after one block barrier) its 16 keys' dk, dv and dbias sums,
+//   from registers, as FlashAttention-2's backward: p from the lse its
+//   forward kept, delta = rowsum(do out), each pass walking its 144 columns
+//   a pair of 16 x 8 tiles at a time (seven split-TF32 products a window
+//   where the N <= 64 kernel has five). The dbias sums take one
+//   shared-memory slot per thread and logit, summed over the chunk's windows
+//   in order. A first version that held a whole row of p and ds (144 floats
+//   a lane) spilled: a block of 9 warps gets at most 168 registers a thread
+//   (3 warps share one of the SM's four 16K-register sub-partitions), and
+//   it ran no faster than the CUDA cores.
+// * wa_bwd_kernel, for the other shapes (D % 8 != 0, float32 past its
+//   limits, bf16 outside its route): fp32 FMA loops over shared memory with
+//   a 4 x 4 register tile per thread, everything in fp32; at N = 144 its
+//   tiles fit a block up to D = 59.
 //
 // What bounds them on the H100: per (window, head) the backward moves 7 N D
 // elements (q, k, v, do in; dq, dk, dv out) and does 10 N^2 D flops; at N =
@@ -77,21 +91,25 @@
 // 3 times their byte bound of 0.97 ms and the CUDA-core kernel's 18 times
 // (PERF.md, section 6).
 //
-// The split-TF32 kernels are bound by instruction issue: per operand value
-// a 32-bit shared load (bf16 has one ldmatrix for eight), a rounding, a
-// subtract and a mask, and per product three mma where bf16 has one.
-// Ablations on an H100 80GB HBM3 at 700 W (PERF.md, section 6) found the
-// split and the two correction products a minority of the time; the rest
-// is the fp32 tiles' loads, the softmax, the stores and each warp's chain.
-// What took the most off was compiling D = 32 in (every Swin variant; other
-// D % 8 == 0 read D at run time), which folds the fragment addresses into
-// load offsets, and splitting in integer instructions where ptxas expands
-// cvt.rna into a longer sequence. At Swin-L stage 2, shifted, the backward
-// takes about 0.26 ms of device time (4.2x its byte bound of 0.063 ms;
-// SDPA's backward 0.55, the CUDA-core kernel 0.58) and the forward 0.11 ms
-// (3.0x its bound of 0.036; SDPA 0.28, the CUDA-core kernel 0.23).
+// The split-TF32 kernels are bound by instruction issue and latency: per
+// operand value a 32-bit shared load (bf16 has one ldmatrix for eight), a
+// rounding, a subtract and a mask, and per product three mma where bf16 has
+// one. Ablations on an H100 80GB HBM3 at 700 W (PERF.md, section 6) found
+// the split and the two correction products a minority of the time; the
+// rest is the fp32 tiles' loads, the softmax, the stores and each warp's
+// chain. What took the most off was compiling D = 32 in (every Swin
+// variant; other D % 8 == 0 read D at run time), which folds the fragment
+// addresses into load offsets, and splitting in integer instructions where
+// ptxas expands cvt.rna into a longer sequence. At Swin-L stage 2, shifted,
+// the N <= 64 backward takes about 0.26 ms of device time (4.2x its byte
+// bound of 0.063 ms; SDPA's backward 0.55, the CUDA-core kernel 0.58) and
+// the forward 0.11 ms (3.0x its bound of 0.036; SDPA 0.28). At window 12
+// (swin_large_384's stage shapes, shifted) the large backward takes 2.57 /
+// 1.58 / 0.87 / 0.92 ms at stages 0-3, 10-15x its bound at the split-TF32
+// rate, against the CUDA-core kernel's 4.57 / 2.84 / 1.44 / 1.25 and SDPA's
+// 3.98 / 2.38 / 1.20 / 1.08 (PERF.md, section 6, PR 18).
 //
-// Three forward kernels, chosen by the wrapper by the same rule:
+// Four forward kernels, chosen by the wrapper by the same rule:
 //
 // * wa_fwd_mma_kernel, for bf16 q, k, v with D % 16 == 0 and N <= 144: the
 //   backward's design with two products. Blocks are persistent over a chunk
@@ -109,19 +127,22 @@
 //   the CUDA-core kernel, and no logits tile in shared memory. What is left
 //   is the latency of each warp's chain per window (two products, a softmax,
 //   the loads of bias and mask), at 16 warps per SM at N <= 64 and 9 at 144.
-// * wa_fwd_tf32x3_kernel, for float32 q, k, v with D % 8 == 0, at N <= 64
-//   with D <= 128 and at N <= 144 with D <= 32 (where two sets of fp32
-//   tiles and the bias fit a block): the bf16 forward's design with both
-//   products in split TF32, as the backward above. p v takes p from the accumulator fragments with no
-//   shuffle: the k slots of its A fragment name keys 2t and 2t + 1, the
+// * wa_fwd_tf32x3_kernel, for float32 q, k, v with D % 8 == 0, D <= 128 and
+//   N <= 64: the bf16 forward's design with both products in split TF32,
+//   as the backward above. p v takes p from the accumulator fragments with
+//   no shuffle: the k slots of its A fragment name keys 2t and 2t + 1, the
 //   columns a lane holds of S (see the fragment layouts below).
-// * wa_fwd_kernel, for the other shapes (float32 at N > 64 with D > 32 or
-//   D % 8 != 0, bf16 outside its route): the CUDA-core design, fp32 FMA
-//   loops with 4 x 4 register tiles, q, k, v and the logits in shared
-//   memory as fp32 (rows padded by one float so that the column walks of
-//   q k^T hit distinct banks). It is bound by instruction issue, 12.5x its
-//   byte bound over a Swin-L step in bf16 (PERF.md, section 6), and far
-//   behind SDPA at window 12.
+// * wa_fwd_tf32x3_large_kernel, for float32 with D % 8 == 0, D <= 128 and
+//   64 < N <= 144: an online softmax over pairs of key tiles, q held in
+//   registers, k and v in shared memory (its note below says why); it
+//   writes each row's lse for the backward. At D = 64 (bnw = 72, H = 12) it
+//   takes 0.25 ms against SDPA's 0.32 and the CUDA-core kernel's 1.02.
+// * wa_fwd_kernel, for the other shapes (D % 8 != 0, bf16 outside its
+//   route): the CUDA-core design, fp32 FMA loops with 4 x 4 register tiles,
+//   q, k, v and the logits in shared memory as fp32 (rows padded by one
+//   float so that the column walks of q k^T hit distinct banks). It is
+//   bound by instruction issue, 12.5x its byte bound over a Swin-L step in
+//   bf16 (PERF.md, section 6), and far behind SDPA at window 12.
 //
 // Tensors are addressed through element strides for (window, head, token);
 // the head dim has stride 1. So q, k, v may be views of the packed qkv
@@ -980,11 +1001,15 @@ wa_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __re
 // the backward's 101 KB (two fit).
 constexpr int kTf32FwdMinBlocks = 4;
 constexpr int kTf32BwdMinBlocks = 2;
-// The backward's largest N: at N = 144, D = 32 its fp32 tiles take 245 KB
-// even with one set of q, k, v, do (no prefetch), one tile for p and ds, and
-// the ds sums in shared memory (72 a thread do not fit in registers beside p
-// and ds), over a block's 227 KB.
-constexpr int kTf32BwdMaxN = 64;
+// The route limits of the split-TF32 kernels (the wrapper's forward_route and
+// backward_route hold the same numbers): the forward takes D <= 128 at any N
+// <= 144; the backward D <= 80 at N <= 64 (its p and ds tiles and two sets of
+// q, k, v, do fit a block there) and D <= 56 at 64 < N <= 144 (the
+// row-then-key backward's one set of q, k, v, do and its dbias sums fit).
+constexpr int kTf32MaxD = 128;
+constexpr int kTf32BwdSmallN = 64;
+constexpr int kTf32BwdSmallMaxD = 80;
+constexpr int kTf32BwdLargeMaxD = 56;
 // Output columns a warp accumulates at once (four 16 x 8 tiles)
 constexpr int kTf32Cols = 32;
 
@@ -1167,39 +1192,49 @@ __device__ __forceinline__ void store_rows_f32(float* base, long long sn, int m0
   }
 }
 
-// Shared memory of the split-TF32 forward, in bytes (fp32): two sets (the
-// window computed and the next one) of the q, k, v tiles [N][D + 4] and a
-// row of zeros, then the head's bias [N][N].
+// The rows' lse (log2 units, as softmax_frags gives it) of window b, head h
+// into lse [bnw, H, N], where the caller asked for it (lse not null): what the
+// window-12 backward recomputes p from
+__device__ __forceinline__ void store_lse(float* lse, int b, int h, int H, int N, int r0,
+                                          float lse0, float lse1) {
+  if (lse == nullptr || (threadIdx.x & 3) != 0) return;
+  float* row = lse + (static_cast<int64_t>(b) * H + h) * N;
+  if (r0 < N) row[r0] = lse0;
+  if (r0 + 8 < N) row[r0 + 8] = lse1;
+}
+
+// Shared memory of the split-TF32 forward at N <= 64, in bytes (fp32): two
+// sets (the window computed and the next one) of the q, k, v tiles [N][D +
+// 4] and a row of zeros, then the head's bias [N][N].
 size_t fwd_tf32_smem_bytes(int N, int D) {
   return 4 * ((6 * static_cast<size_t>(N) + 1) * (D + 4) + static_cast<size_t>(N) * N);
 }
 
-// The bf16 forward's design (wa_fwd_mma_kernel) for fp32 q, k, v, with
-// both products in split TF32: one block per (chunk of windows, head),
-// kNP / 16 warps, each owning 16 query rows. Per window: S = q k^T
-// (natural order) -> scale + bias + mask -> softmax in registers -> out =
-// p v with p's accumulator fragments as the A operand (paired order), with
-// the next window's q, k, v on their way by cp.async. At N <= 64 each
-// thread loads its mask values of the next window during p v.
-template <int kNP, int kD>
-__global__ void __launch_bounds__(kNP * 2, kNP <= 64 ? kTf32FwdMinBlocks : 1)
+// The bf16 forward's design (wa_fwd_mma_kernel) for fp32 q, k, v at N <= 64,
+// with both products in split TF32: one block per (chunk of windows, head),
+// 4 warps, each owning 16 query rows. Per window: S = q k^T (natural order)
+// -> scale + bias + mask -> softmax in registers -> out = p v with p's
+// accumulator fragments as the A operand (paired order), with the next
+// window's q, k, v on their way by cp.async and each thread's mask values of
+// the next window loaded during p v.
+template <int kD>
+__global__ void __launch_bounds__(128, kTf32FwdMinBlocks)
 wa_fwd_tf32x3_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, const float* __restrict__ bias,
                      const float* __restrict__ mask, float* __restrict__ out, Strides sq,
                      Strides sk, Strides sv, Strides so, int bnw, int H, int N, int d_arg,
                      int nW, int windows_per_chunk, float scale) {
   const int D = kD > 0 ? kD : d_arg;
-  constexpr int kNT = kNP / 8;
-  constexpr int kThreads = kNP * 2;
-  constexpr bool kMaskAhead = kNP <= 64;
+  constexpr int kNT = 64 / 8;
+  constexpr int kThreads = 128;
   extern __shared__ __align__(16) unsigned char wa_mma_smem[];
   const int ld = D + 4, tile = N * ld;
   float* tiles = reinterpret_cast<float*>(wa_mma_smem);
   float* zero = tiles + 2 * 3 * tile;
   float* bias_smem = zero + ld;  // [N][N]
 
-  const int lane = threadIdx.x & 31, m0 = (threadIdx.x >> 5) * 16;
-  const int r0 = m0 + (lane >> 2), r1 = r0 + 8, c2 = (lane & 3) * 2;
+  const int m0 = (threadIdx.x >> 5) * 16;
+  const int r0 = m0 + ((threadIdx.x & 31) >> 2);
   const int chunk = blockIdx.x / H, h = blockIdx.x - chunk * H;
   const int b_first = chunk * windows_per_chunk;
   const int b_end = min(bnw, b_first + windows_per_chunk);
@@ -1217,10 +1252,10 @@ wa_fwd_tf32x3_kernel(const float* __restrict__ q, const float* __restrict__ k,
     cp_async_commit();
   };
 
-  float mask_next[kMaskAhead ? kNT : 1][4];
+  float mask_next[kNT][4];
 
   load(b_first, 0);
-  if constexpr (kMaskAhead) load_mask_frags(mask_next, mask, b_first, nW, N, r0);
+  load_mask_frags(mask_next, mask, b_first, nW, N, r0);
   for (int b = b_first, it = 0; b < b_end; ++b, ++it) {
     const int cur = it & 1;
     cp_async_wait_all();
@@ -1233,12 +1268,9 @@ wa_fwd_tf32x3_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
     float p[kNT][4];
     rows_times_rows_t_3x<kNT>(qs, ks, zero, m0, N, D, ld, p);
-    const float* mask_b = mask + static_cast<int64_t>(b % nW) * N * N;
-    softmax_frags<kNT>(p, bias_smem, [&](int t, int e) {
-      if constexpr (kMaskAhead) return mask_next[t][e];
-      return __ldg(mask_b + (e < 2 ? r0 : r1) * N + t * 8 + c2 + (e & 1));
-    }, r0, N, scale);
-    if (kMaskAhead && b + 1 < b_end) load_mask_frags(mask_next, mask, b + 1, nW, N, r0);
+    softmax_frags<kNT>(p, bias_smem, [&](int t, int e) { return mask_next[t][e]; }, r0, N,
+                       scale);
+    if (b + 1 < b_end) load_mask_frags(mask_next, mask, b + 1, nW, N, r0);
 
     float* out_w = out + b * so.b + h * so.h;
     for (int dc = 0; dc < D; dc += kTf32Cols) {
@@ -1249,11 +1281,273 @@ wa_fwd_tf32x3_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-// Shared memory of the split-TF32 backward, in bytes (fp32): two sets of
-// the q, k, v, do tiles [N][D + 4] and a row of zeros, the p and ds tiles
-// [kNP][kNP + 4] and the head's bias [N][N].
+// Raw fp32 A-operand values of rows m0 + g and m0 + g + 8 of an [N][ld] tile
+// (rows past N read as zeros), kKK steps of 8 columns: a[c] = A[r][8c + t],
+// A[r + 8][8c + t], A[r][8c + t + 4], A[r + 8][8c + t + 4] (natural order)
+template <int kKK>
+__device__ __forceinline__ void load_a_rows(const float* tile, const float* zero, int m0, int N,
+                                            int D, int ld, float (&a)[kKK][4]) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const float* a0 = f32_row(tile, zero, m0 + g, N, ld) + t;
+  const float* a1 = f32_row(tile, zero, m0 + g + 8, N, ld) + t;
+#pragma unroll
+  for (int c = 0; c < kKK; ++c) {
+    const bool in = c * 8 < D;
+    a[c][0] = in ? a0[8 * c] : 0.f;
+    a[c][1] = in ? a1[8 * c] : 0.f;
+    a[c][2] = in ? a0[8 * c + 4] : 0.f;
+    a[c][3] = in ? a1[8 * c + 4] : 0.f;
+  }
+}
+
+// acc[u] (16 x 8 tiles j0 and j0 + 1) = A B[8 (j0 + u) : +8, :D]^T in split TF32,
+// A's raw values in registers (load_a_rows), B an [N][ld] tile (rows past N
+// are zeros): two independent accumulator chains
+template <int kKK>
+__device__ __forceinline__ void pair_times_rows_t_3x(const float (&a)[kKK][4], const float* B,
+                                                     const float* zero, int j0, int N, int D,
+                                                     int ld, float (&acc)[2][4]) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int u = 0; u < 2; ++u) acc[u][0] = acc[u][1] = acc[u][2] = acc[u][3] = 0.f;
+  const float* b0 = f32_row(B, zero, j0 * 8 + g, N, ld) + t;
+  const float* b1 = f32_row(B, zero, j0 * 8 + 8 + g, N, ld) + t;
+#pragma unroll
+  for (int c = 0; c < kKK; ++c) {
+    if (c * 8 < D) {
+      Split<4> sa;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) sa.set(i, a[c][i]);
+      Split<2> x, y;
+      x.set(0, b0[8 * c]);
+      x.set(1, b0[8 * c + 4]);
+      y.set(0, b1[8 * c]);
+      y.set(1, b1[8 * c + 4]);
+      mma_3xtf32(acc[0], sa, x);
+      mma_3xtf32(acc[1], sa, y);
+    }
+  }
+}
+
+// acc[w][u] (16 x 8, columns 32 w + 8 u) += F B[8 j : 8 j + 8, :D], paired
+// order: F is the 16 x 8 accumulator fragment of tile j (its slots t and t +
+// 4 name rows 8j + 2t and 8j + 2t + 1 of B)
+template <int kDC>
+__device__ __forceinline__ void frag_times_rows_3x(const float (&f)[4], const float* B,
+                                                   const float* zero, int j, int N, int D, int ld,
+                                                   float (&acc)[kDC][kTf32Cols / 8][4]) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  Split<4> a;
+  a.set(0, f[0]);
+  a.set(1, f[2]);
+  a.set(2, f[1]);
+  a.set(3, f[3]);
+  const float* b0 = f32_row(B, zero, j * 8 + 2 * t, N, ld) + g;
+  const float* b1 = f32_row(B, zero, j * 8 + 2 * t + 1, N, ld) + g;
+#pragma unroll
+  for (int w = 0; w < kDC; ++w)
+#pragma unroll
+    for (int u = 0; u < kTf32Cols / 8; ++u) {
+      const int col = w * kTf32Cols + 8 * u;
+      if (col < D) {
+        Split<2> b;
+        b.set(0, b0[col]);
+        b.set(1, b1[col]);
+        mma_3xtf32(acc[w][u], a, b);
+      }
+    }
+}
+
+// bias + mask at the logits this lane holds of key tiles j0, j0 + 1 (rows r0,
+// r0 + 8 are queries), or with `keys` of query tiles j0, j0 + 1 (rows r0, r0
+// + 8 are keys; the logit of query i and key j is at [i][j]); 0 past N
+__device__ __forceinline__ void load_bias_mask(float (&bm)[2][4], const float* bias_h,
+                                               const float* mask_b, int j0, int r0, int N,
+                                               bool keys) {
+  const int c2 = (threadIdx.x & 3) * 2;
+#pragma unroll
+  for (int u = 0; u < 2; ++u)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int row = e < 2 ? r0 : r0 + 8, col = (j0 + u) * 8 + c2 + (e & 1);
+      const int at = keys ? col * N + row : row * N + col;
+      bm[u][e] = row < N && col < N ? __ldg(bias_h + at) + __ldg(mask_b + at) : 0.f;
+    }
+}
+
+// Shared memory of the split-TF32 forward at 64 < N <= 144, in bytes (fp32):
+// kv_stages sets of the k and v tiles [N][D + 4] and a row of zeros.
+__host__ __device__ constexpr size_t fwd_tf32_large_smem_bytes(int N, int D, int kv_stages) {
+  return 4 * ((2 * static_cast<size_t>(kv_stages) * N + 1) * (D + 4));
+}
+
+// Two sets of k and v (the next window's on its way) where they fit a block
+// (D <= 96 at N = 144), else one; 0 where one does not fit
+__host__ __device__ constexpr int fwd_tf32_large_kv_stages(int N, int D) {
+  return fwd_tf32_large_smem_bytes(N, D, 2) <= kMaxDynamicSmem   ? 2
+         : fwd_tf32_large_smem_bytes(N, D, 1) <= kMaxDynamicSmem ? 1
+                                                                 : 0;
+}
+
+// The split-TF32 forward for 64 < N <= 144 (Swin at window 12): one warp a
+// 16 query rows, with an online softmax, as FlashAttention-2's forward. Two
+// sets of fp32 q, k, v tiles and the head's bias, as the N <= 64 kernel keeps
+// them, would take 235,008 + 82,944 bytes at N = 144, D = 64, over a block's
+// 232,448; and a whole row of logits a lane (72 floats at N = 144) beside them
+// would spill, since a block of 9 warps puts 3 on one of the SM's four
+// 16,384-register sub-partitions: 168 registers a thread at most. So a warp
+// holds its q fragments in registers (read from device memory: no other warp
+// needs them), the block keeps k and v in shared memory (the next window's on
+// its way by cp.async where two sets fit), and a warp walks the keys a pair
+// of 16 x 8 tiles at a time: s = q k^T (split TF32) + scale, bias and mask
+// (read through the cache a pair ahead of their use), the running row max
+// and sum, the output rescaled where the max grows, then out += p v with p's
+// accumulator fragments as the A operand. It writes each row's lse (log2
+// units) where the caller asks, for the backward.
+template <int kD>
+__global__ void __launch_bounds__(2 * kMmaMaxN, 1)
+wa_fwd_tf32x3_large_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                           const float* __restrict__ v, const float* __restrict__ bias,
+                           const float* __restrict__ mask, float* __restrict__ out, Strides sq,
+                           Strides sk, Strides sv, Strides so, int bnw, int H, int N, int d_arg,
+                           int nW, int windows_per_chunk, float scale, float* __restrict__ lse) {
+  const int D = kD > 0 ? kD : d_arg;
+  constexpr int kKK = (kD > 0 ? kD : kTf32MaxD) / 8;
+  constexpr int kDC = (kKK * 8 + kTf32Cols - 1) / kTf32Cols;
+  constexpr int kThreads = 2 * kMmaMaxN;
+  const int kv_stages = fwd_tf32_large_kv_stages(N, D);
+  extern __shared__ __align__(16) unsigned char wa_mma_smem[];
+  const int ld = D + 4, tile = N * ld;
+  float* kv_tiles = reinterpret_cast<float*>(wa_mma_smem);  // [kv_stages][k, v][N][ld]
+  float* zero = kv_tiles + 2 * kv_stages * tile;
+
+  const int lane = threadIdx.x & 31, m0 = (threadIdx.x >> 5) * 16;
+  const int g = lane >> 2, t = lane & 3;
+  const int r0 = m0 + g, r1 = r0 + 8, c2 = t * 2;
+  const int chunk = blockIdx.x / H, h = blockIdx.x - chunk * H;
+  const int b_first = chunk * windows_per_chunk;
+  const int b_end = min(bnw, b_first + windows_per_chunk);
+  const float* bias_h = bias + static_cast<int64_t>(h) * N * N;
+
+  for (int e = threadIdx.x; e < ld; e += kThreads) zero[e] = 0.f;
+
+  const TileCopy<float> copy(kThreads, D);
+  auto load_kv = [&](int b, int stage) {
+    float* dst = kv_tiles + stage * 2 * tile;
+    copy(k, sk, b, h, N, ld, dst);
+    copy(v, sv, b, h, N, ld, dst + tile);
+    cp_async_commit();
+  };
+
+  load_kv(b_first, 0);
+  for (int b = b_first, it = 0; b < b_end; ++b, ++it) {
+    const int cur = kv_stages == 2 ? (it & 1) : 0;
+    // q of this warp's rows (rows past N repeat row N - 1: never stored)
+    float aq[kKK][4];
+    {
+      const float* qw = q + b * sq.b + h * sq.h;
+      const float* a0 = qw + min(r0, N - 1) * sq.n + t;
+      const float* a1 = qw + min(r1, N - 1) * sq.n + t;
+#pragma unroll
+      for (int c = 0; c < kKK; ++c) {
+        const bool in = m0 < N && c * 8 < D;
+        aq[c][0] = in ? __ldg(a0 + 8 * c) : 0.f;
+        aq[c][1] = in ? __ldg(a1 + 8 * c) : 0.f;
+        aq[c][2] = in ? __ldg(a0 + 8 * c + 4) : 0.f;
+        aq[c][3] = in ? __ldg(a1 + 8 * c + 4) : 0.f;
+      }
+    }
+    cp_async_wait_all();
+    __syncthreads();  // the window's k, v are in; every warp is done with the last ones
+    if (kv_stages == 2 && b + 1 < b_end) load_kv(b + 1, cur ^ 1);
+    if (m0 < N) {
+      const float* ks = kv_tiles + cur * 2 * tile;
+      const float* vs = ks + tile;
+      const float* mask_b = mask + static_cast<int64_t>(b % nW) * N * N;
+      float acc[kDC][kTf32Cols / 8][4] = {};
+      float mx0 = -INFINITY, mx1 = -INFINITY, l0 = 0.f, l1 = 0.f;
+      float bm[2][4];
+      load_bias_mask(bm, bias_h, mask_b, 0, r0, N, false);
+      for (int j0 = 0; j0 * 8 < N; j0 += 2) {
+        float x[2][4], bm_next[2][4];
+        if ((j0 + 2) * 8 < N) load_bias_mask(bm_next, bias_h, mask_b, j0 + 2, r0, N, false);
+        pair_times_rows_t_3x<kKK>(aq, ks, zero, j0, N, D, ld, x);
+        float tmax0 = -INFINITY, tmax1 = -INFINITY;
+#pragma unroll
+        for (int u = 0; u < 2; ++u)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int col = (j0 + u) * 8 + c2 + (e & 1);
+            const bool in = (e < 2 ? r0 : r1) < N && col < N;
+            x[u][e] = in ? x[u][e] * scale + bm[u][e] : -INFINITY;
+            if (e < 2) tmax0 = fmaxf(tmax0, x[u][e]);
+            else tmax1 = fmaxf(tmax1, x[u][e]);
+          }
+        const float new0 = fmaxf(mx0, quad_max(tmax0)), new1 = fmaxf(mx1, quad_max(tmax1));
+        const float sub0 = (new0 == -INFINITY ? 0.f : new0) * kLog2e;
+        const float sub1 = (new1 == -INFINITY ? 0.f : new1) * kLog2e;
+        const float corr0 = mx0 == -INFINITY ? 0.f : exp2f(fmaf(mx0, kLog2e, -sub0));
+        const float corr1 = mx1 == -INFINITY ? 0.f : exp2f(fmaf(mx1, kLog2e, -sub1));
+        mx0 = new0;
+        mx1 = new1;
+        l0 *= corr0;
+        l1 *= corr1;
+#pragma unroll
+        for (int u = 0; u < 2; ++u)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            x[u][e] = exp2f(fmaf(x[u][e], kLog2e, -(e < 2 ? sub0 : sub1)));
+            if (e < 2) l0 += x[u][e];
+            else l1 += x[u][e];
+          }
+#pragma unroll
+        for (int w = 0; w < kDC; ++w)
+#pragma unroll
+          for (int u = 0; u < kTf32Cols / 8; ++u) {
+            acc[w][u][0] *= corr0;
+            acc[w][u][1] *= corr0;
+            acc[w][u][2] *= corr1;
+            acc[w][u][3] *= corr1;
+          }
+        frag_times_rows_3x<kDC>(x[0], vs, zero, j0, N, D, ld, acc);
+        if ((j0 + 1) * 8 < N) frag_times_rows_3x<kDC>(x[1], vs, zero, j0 + 1, N, D, ld, acc);
+#pragma unroll
+        for (int u = 0; u < 2; ++u)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) bm[u][e] = bm_next[u][e];
+      }
+      l0 = quad_sum(l0);
+      l1 = quad_sum(l1);
+      const float inv0 = l0 > 0.f ? 1.f / l0 : 0.f, inv1 = l1 > 0.f ? 1.f / l1 : 0.f;
+      const float sub0 = (mx0 == -INFINITY ? 0.f : mx0) * kLog2e;
+      const float sub1 = (mx1 == -INFINITY ? 0.f : mx1) * kLog2e;
+      store_lse(lse, b, h, H, N, r0, l0 == 0.f ? INFINITY : sub0 + log2f(l0),
+                l1 == 0.f ? INFINITY : sub1 + log2f(l1));
+      float* out_w = out + b * so.b + h * so.h;
+#pragma unroll
+      for (int w = 0; w < kDC; ++w) {
+#pragma unroll
+        for (int u = 0; u < kTf32Cols / 8; ++u) {
+          acc[w][u][0] *= inv0;
+          acc[w][u][1] *= inv0;
+          acc[w][u][2] *= inv1;
+          acc[w][u][3] *= inv1;
+        }
+        if (w * kTf32Cols < D) store_rows_f32(out_w, so.n, m0, w * kTf32Cols, N, D, 1.f, acc[w]);
+      }
+    }
+    if (kv_stages == 1 && b + 1 < b_end) {
+      __syncthreads();  // every warp is done with this window's k, v
+      load_kv(b + 1, 0);
+    }
+  }
+}
+
+// Shared memory of the split-TF32 backward at N <= 64, in bytes (fp32): two
+// sets of the q, k, v, do tiles [N][D + 4] and a row of zeros, the p and ds
+// tiles [kNP][kNP + 4] and the head's bias [N][N].
 size_t bwd_tf32_smem_bytes(int N, int D) {
-  constexpr size_t np = kTf32BwdMaxN;
+  constexpr size_t np = kTf32BwdSmallN;
   return 4 * ((8 * static_cast<size_t>(N) + 1) * (D + 4) + 2 * np * (np + 4) +
               static_cast<size_t>(N) * N);
 }
@@ -1394,6 +1688,232 @@ wa_bwd_tf32x3_kernel(const float* __restrict__ q, const float* __restrict__ k,
     }
 }
 
+// Shared memory of the split-TF32 backward at 64 < N <= 144, in bytes
+// (fp32): kv_stages sets of the k and v tiles [N][D + 4], one set of the q
+// and do tiles, a row of zeros, each query row's lse and delta [2][144] and
+// the block's dbias sums [144 * 144] (one slot per thread and logit).
+__host__ __device__ constexpr size_t bwd_tf32_large_smem_bytes(int N, int D, int kv_stages) {
+  return 4 * ((2 * static_cast<size_t>(kv_stages) + 2) * N * (D + 4) + (D + 4) + 2 * kMmaMaxN +
+              static_cast<size_t>(kMmaMaxN) * kMmaMaxN);
+}
+
+__host__ __device__ constexpr int bwd_tf32_large_kv_stages(int N, int D) {
+  return bwd_tf32_large_smem_bytes(N, D, 2) <= kMaxDynamicSmem   ? 2
+         : bwd_tf32_large_smem_bytes(N, D, 1) <= kMaxDynamicSmem ? 1
+                                                                 : 0;
+}
+
+// The split-TF32 backward for 64 < N <= 144 (Swin at window 12), where the
+// N <= 64 kernel's p and ds tiles, which let other warps form dv = p^T do
+// and dk = ds^T q, would take 170 KB alone. Here each warp forms what it
+// owns from registers, in two passes a window with one block barrier
+// between them, and no atomics. The forward kept each row's lse (log2 units)
+// and its output, so delta = rowsum(do out) and no pass needs a whole row of
+// p at once: each walks its 144 columns a pair of 16 x 8 tiles at a time.
+//   rows: warp w owns query rows 16w .. 16w + 15 (q and do held in
+//     registers): per pair of key tiles, s = q k^T and dp = do v^T; p =
+//     exp2((s scale + bias + mask) log2(e) - lse); ds = p (dp - delta); dq
+//     += ds k. Each row's lse and delta go to shared memory.
+//   keys: warp w owns keys 16w .. 16w + 15 (k and v held): per pair of query
+//     tiles, s^T = k q^T and dp^T = v do^T; p^T from the rows' lse; ds^T =
+//     p^T (dp^T - delta); dv += p^T do; dk += ds^T q; ds^T added to the
+//     block's dbias sums, one shared-memory slot per thread and logit, so
+//     each sum runs over the chunk's windows in order.
+// Seven products a window where the N <= 64 kernel has five, all in split
+// TF32; bias and mask are read through the cache one pair of tiles ahead of
+// their use. One set of q, k, v, do sits in shared memory; the next window's
+// k and v arrive by cp.async during this one where a second set fits (D <=
+// 32 at N = 144), its q and do after the window.
+template <int kD>
+__global__ void __launch_bounds__(2 * kMmaMaxN, 1)
+wa_bwd_tf32x3_large_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                           const float* __restrict__ v, const float* __restrict__ dout,
+                           const float* __restrict__ bias, const float* __restrict__ mask,
+                           float* __restrict__ dq, float* __restrict__ dk, float* __restrict__ dv,
+                           float* __restrict__ partial, Strides sq, Strides sk, Strides sv,
+                           Strides sdo, Strides sdq, Strides sdk, Strides sdv, int bnw, int H,
+                           int N, int d_arg, int nW, int windows_per_chunk, float scale,
+                           const float* __restrict__ out, const float* __restrict__ lse,
+                           Strides so) {
+  const int D = kD > 0 ? kD : d_arg;
+  constexpr int kKK = (kD > 0 ? kD : kTf32BwdLargeMaxD) / 8;    // steps of 8 in D
+  constexpr int kDC = (kKK * 8 + kTf32Cols - 1) / kTf32Cols;   // output column blocks
+  constexpr int kNT = kMmaMaxN / 8;
+  constexpr int kThreads = 2 * kMmaMaxN;
+  const int kv_stages = bwd_tf32_large_kv_stages(N, D);
+  extern __shared__ __align__(16) unsigned char wa_mma_smem[];
+  const int ld = D + 4, tile = N * ld;
+  float* kv_tiles = reinterpret_cast<float*>(wa_mma_smem);  // [kv_stages][k, v][N][ld]
+  float* qs = kv_tiles + 2 * kv_stages * tile;
+  float* dos = qs + tile;
+  float* zero = dos + tile;
+  float* lse_s = zero + ld;                  // [kMmaMaxN]
+  float* delta_s = lse_s + kMmaMaxN;         // [kMmaMaxN]
+  float* sums = delta_s + kMmaMaxN;          // [kNT * 4][kThreads]
+
+  const int lane = threadIdx.x & 31, m0 = (threadIdx.x >> 5) * 16;
+  const int r0 = m0 + (lane >> 2), r1 = r0 + 8, c2 = (lane & 3) * 2;
+  const int chunk = blockIdx.x / H, h = blockIdx.x - chunk * H;
+  const int b_first = chunk * windows_per_chunk;
+  const int b_end = min(bnw, b_first + windows_per_chunk);
+  const float* bias_h = bias + static_cast<int64_t>(h) * N * N;
+  // a warp whose 16 rows (and keys) are all padding only copies and waits
+  const bool rows = m0 < N;
+
+  for (int e = threadIdx.x; e < ld; e += kThreads) zero[e] = 0.f;
+  for (int e = 0; e < kNT * 4; ++e) sums[e * kThreads + threadIdx.x] = 0.f;
+
+  const TileCopy<float> copy(kThreads, D);
+  auto load_kv = [&](int b, int stage) {
+    float* dst = kv_tiles + stage * 2 * tile;
+    copy(k, sk, b, h, N, ld, dst);
+    copy(v, sv, b, h, N, ld, dst + tile);
+  };
+  auto load_qdo = [&](int b) {
+    copy(q, sq, b, h, N, ld, qs);
+    copy(dout, sdo, b, h, N, ld, dos);
+  };
+
+  load_kv(b_first, 0);
+  load_qdo(b_first);
+  cp_async_commit();
+  for (int b = b_first, it = 0; b < b_end; ++b, ++it) {
+    const int cur = kv_stages == 2 ? (it & 1) : 0;
+    cp_async_wait_all();
+    __syncthreads();  // the window's tiles are in
+    if (kv_stages == 2 && b + 1 < b_end) {
+      load_kv(b + 1, cur ^ 1);
+      cp_async_commit();
+    }
+    const float* ks = kv_tiles + cur * 2 * tile;
+    const float* vs = ks + tile;
+    const float* mask_b = mask + static_cast<int64_t>(b % nW) * N * N;
+
+    // rows: ds and dq of this warp's query rows
+    if (rows) {
+      // delta = rowsum(do out) and lse of rows r0, r1 (padding: 0 and +inf)
+      const float* out_w = out + b * so.b + h * so.h;
+      float d0 = 0.f, d1 = 0.f;
+      for (int d = lane & 3; d < D; d += 4) {
+        if (r0 < N) d0 = fmaf(dos[r0 * ld + d], __ldg(out_w + r0 * so.n + d), d0);
+        if (r1 < N) d1 = fmaf(dos[r1 * ld + d], __ldg(out_w + r1 * so.n + d), d1);
+      }
+      d0 = quad_sum(d0);
+      d1 = quad_sum(d1);
+      const float* lse_w = lse + (static_cast<int64_t>(b) * H + h) * N;
+      const float l0 = r0 < N ? __ldg(lse_w + r0) : INFINITY;
+      const float l1 = r1 < N ? __ldg(lse_w + r1) : INFINITY;
+      if ((lane & 3) == 0) {
+        lse_s[r0] = l0;
+        lse_s[r1] = l1;
+        delta_s[r0] = d0;
+        delta_s[r1] = d1;
+      }
+      float aq[kKK][4], ado[kKK][4];
+      load_a_rows<kKK>(qs, zero, m0, N, D, ld, aq);
+      load_a_rows<kKK>(dos, zero, m0, N, D, ld, ado);
+      float acc[kDC][kTf32Cols / 8][4] = {};
+      float bm[2][4];
+      load_bias_mask(bm, bias_h, mask_b, 0, r0, N, false);
+      for (int j0 = 0; j0 * 8 < N; j0 += 2) {
+        float s[2][4], dp[2][4], bm_next[2][4];
+        if ((j0 + 2) * 8 < N) load_bias_mask(bm_next, bias_h, mask_b, j0 + 2, r0, N, false);
+        pair_times_rows_t_3x<kKK>(aq, ks, zero, j0, N, D, ld, s);
+        pair_times_rows_t_3x<kKK>(ado, vs, zero, j0, N, D, ld, dp);
+#pragma unroll
+        for (int u = 0; u < 2; ++u)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int col = (j0 + u) * 8 + c2 + (e & 1);
+            const float lse_r = e < 2 ? l0 : l1, delta_r = e < 2 ? d0 : d1;
+            float ds = 0.f;
+            if ((e < 2 ? r0 : r1) < N && col < N) {
+              const float p = exp2f(fmaf(s[u][e] * scale + bm[u][e], kLog2e, -lse_r));
+              ds = p * (dp[u][e] - delta_r);
+            }
+            s[u][e] = ds;
+          }
+        frag_times_rows_3x<kDC>(s[0], ks, zero, j0, N, D, ld, acc);
+        if ((j0 + 1) * 8 < N) frag_times_rows_3x<kDC>(s[1], ks, zero, j0 + 1, N, D, ld, acc);
+#pragma unroll
+        for (int u = 0; u < 2; ++u)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) bm[u][e] = bm_next[u][e];
+      }
+      float* dq_w = dq + b * sdq.b + h * sdq.h;
+#pragma unroll
+      for (int w = 0; w < kDC; ++w)
+        if (w * kTf32Cols < D) store_rows_f32(dq_w, sdq.n, m0, w * kTf32Cols, N, D, scale, acc[w]);
+    }
+    __syncthreads();  // every query row's lse and delta are in
+
+    // keys: dv, dk and the dbias sums of this warp's keys (rows r0, r1 of the
+    // accumulator tiles are keys; tile j's columns are queries)
+    if (rows) {
+      float ak[kKK][4], av[kKK][4];
+      load_a_rows<kKK>(ks, zero, m0, N, D, ld, ak);
+      load_a_rows<kKK>(vs, zero, m0, N, D, ld, av);
+      float acc_v[kDC][kTf32Cols / 8][4] = {}, acc_k[kDC][kTf32Cols / 8][4] = {};
+      float bm[2][4];
+      load_bias_mask(bm, bias_h, mask_b, 0, r0, N, true);
+      for (int j0 = 0; j0 * 8 < N; j0 += 2) {
+        float st[2][4], dpt[2][4], bm_next[2][4];
+        if ((j0 + 2) * 8 < N) load_bias_mask(bm_next, bias_h, mask_b, j0 + 2, r0, N, true);
+        pair_times_rows_t_3x<kKK>(ak, qs, zero, j0, N, D, ld, st);
+        pair_times_rows_t_3x<kKK>(av, dos, zero, j0, N, D, ld, dpt);
+#pragma unroll
+        for (int u = 0; u < 2; ++u)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int i = (j0 + u) * 8 + c2 + (e & 1), j = e < 2 ? r0 : r1;
+            float p = 0.f, ds = 0.f;
+            if (i < N && j < N) {
+              p = exp2f(fmaf(st[u][e] * scale + bm[u][e], kLog2e, -lse_s[i]));
+              ds = p * (dpt[u][e] - delta_s[i]);
+            }
+            if (j0 + u < kNT) sums[((j0 + u) * 4 + e) * kThreads + threadIdx.x] += ds;
+            st[u][e] = p;
+            dpt[u][e] = ds;
+          }
+        frag_times_rows_3x<kDC>(st[0], dos, zero, j0, N, D, ld, acc_v);
+        frag_times_rows_3x<kDC>(dpt[0], qs, zero, j0, N, D, ld, acc_k);
+        if ((j0 + 1) * 8 < N) {
+          frag_times_rows_3x<kDC>(st[1], dos, zero, j0 + 1, N, D, ld, acc_v);
+          frag_times_rows_3x<kDC>(dpt[1], qs, zero, j0 + 1, N, D, ld, acc_k);
+        }
+#pragma unroll
+        for (int u = 0; u < 2; ++u)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) bm[u][e] = bm_next[u][e];
+      }
+      float* dv_w = dv + b * sdv.b + h * sdv.h;
+      float* dk_w = dk + b * sdk.b + h * sdk.h;
+#pragma unroll
+      for (int w = 0; w < kDC; ++w)
+        if (w * kTf32Cols < D) {
+          store_rows_f32(dv_w, sdv.n, m0, w * kTf32Cols, N, D, 1.f, acc_v[w]);
+          store_rows_f32(dk_w, sdk.n, m0, w * kTf32Cols, N, D, scale, acc_k[w]);
+        }
+    }
+    if (b + 1 < b_end) {
+      __syncthreads();  // every warp is done with this window's q, do (and k, v)
+      if (kv_stages == 1) load_kv(b + 1, 0);
+      load_qdo(b + 1);
+      cp_async_commit();
+    }
+  }
+
+  if (!rows) return;
+  float* mine = partial + (static_cast<int64_t>(chunk) * H + h) * N * N;
+#pragma unroll
+  for (int t = 0; t < kNT; ++t)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = t * 8 + c2 + (e & 1), j = e < 2 ? r0 : r1;
+      if (i < N && j < N) mine[i * N + j] = sums[(t * 4 + e) * kThreads + threadIdx.x];
+    }
+}
+
 int windows_per_chunk(int bnw, int H, int target_blocks = kBwdTargetBlocks) {
   const int chunks = max(1, min(bnw, (target_blocks + H - 1) / H));
   return (bnw + chunks - 1) / chunks;
@@ -1468,34 +1988,34 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* dout,
 // A persistent forward (wa_fwd_mma_kernel, wa_fwd_tf32x3_kernel) on `chunks`
 // chunks of windows, as its chunks query gave them; -1 where the chunks or
 // the shared memory do not fit.
-template <typename T, typename K>
+template <typename T, typename K, typename... Extra>
 int launch_fwd_chunked(K kernel, int threads, size_t smem, const void* q, const void* k,
                        const void* v, const float* bias, const float* mask, void* out,
                        const Strides* s, int bnw, int H, int N, int D, int nW, int chunks,
-                       float scale, cudaStream_t stream) {
+                       float scale, cudaStream_t stream, Extra... extra) {
   const int wpc = (bnw + chunks - 1) / chunks;
   if (chunks < 1 || chunks != (bnw + wpc - 1) / wpc || smem > kMaxDynamicSmem) return -1;
   kernel<<<chunks * H, threads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), bias, mask,
-      static_cast<T*>(out), s[0], s[1], s[2], s[3], bnw, H, N, D, nW, wpc, scale);
+      static_cast<T*>(out), s[0], s[1], s[2], s[3], bnw, H, N, D, nW, wpc, scale, extra...);
   return static_cast<int>(cudaGetLastError());
 }
 
 // A chunked backward (wa_bwd_mma_kernel, wa_bwd_tf32x3_kernel) and the
 // dbias reduction over its chunk partials, likewise.
-template <typename T, typename K>
+template <typename T, typename K, typename... Extra>
 int launch_bwd_chunked(K kernel, int threads, size_t smem, const void* q, const void* k,
                        const void* v, const void* dout, const float* bias, const float* mask,
                        void* dq, void* dk, void* dv, float* partial, float* dbias,
                        const Strides* s, int bnw, int H, int N, int D, int nW, int chunks,
-                       float scale, cudaStream_t stream) {
+                       float scale, cudaStream_t stream, Extra... extra) {
   const int wpc = (bnw + chunks - 1) / chunks;
   if (chunks < 1 || chunks != (bnw + wpc - 1) / wpc || smem > kMaxDynamicSmem) return -1;
   kernel<<<chunks * H, threads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(dout), bias, mask, static_cast<T*>(dq), static_cast<T*>(dk),
       static_cast<T*>(dv), partial, s[0], s[1], s[2], s[3], s[4], s[5], s[6], bnw, H, N, D,
-      nW, wpc, scale);
+      nW, wpc, scale, extra...);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const int64_t hnn = static_cast<int64_t>(H) * N * N;
@@ -1549,15 +2069,67 @@ int one_wave_chunks(K kernel, int threads, size_t smem, int bnw, int H) {
 }
 
 // The split-TF32 kernels for a shape: compiled for D = 32 (every Swin
-// variant; its address arithmetic folds into constants), or for any D % 8
-// == 0 read at run time.
-auto fwd_tf32_kernel(int N, int D) {
-  if (N <= 64) return D == 32 ? wa_fwd_tf32x3_kernel<64, 32> : wa_fwd_tf32x3_kernel<64, 0>;
-  return D == 32 ? wa_fwd_tf32x3_kernel<144, 32> : wa_fwd_tf32x3_kernel<144, 0>;
+// variant; its address arithmetic folds into constants) and, for the N > 64
+// forward, D = 64 (whose q fragments and output then fit its registers), or
+// for any D % 8 == 0 read at run time. fwd_tf32_fits and
+// bwd_tf32_fits hold the route limits (kTf32MaxD, kTf32BwdSmallMaxD,
+// kTf32BwdLargeMaxD) and the shared-memory fit.
+size_t fwd_tf32_smem(int N, int D) {
+  return N > 64 ? fwd_tf32_large_smem_bytes(N, D, fwd_tf32_large_kv_stages(N, D))
+                : fwd_tf32_smem_bytes(N, D);
 }
 
-auto bwd_tf32_kernel(int D) {
-  return D == 32 ? wa_bwd_tf32x3_kernel<kTf32BwdMaxN, 32> : wa_bwd_tf32x3_kernel<kTf32BwdMaxN, 0>;
+bool fwd_tf32_fits(int N, int D) {
+  return N >= 1 && N <= kMmaMaxN && D >= 8 && D % 8 == 0 && D <= kTf32MaxD &&
+         (N > 64 ? fwd_tf32_large_kv_stages(N, D) > 0
+                 : fwd_tf32_smem_bytes(N, D) <= kMaxDynamicSmem);
+}
+
+auto fwd_tf32_small_kernel(int D) {
+  return D == 32 ? wa_fwd_tf32x3_kernel<32> : wa_fwd_tf32x3_kernel<0>;
+}
+
+auto fwd_tf32_large_kernel(int D) {
+  return D == 32   ? wa_fwd_tf32x3_large_kernel<32>
+         : D == 64 ? wa_fwd_tf32x3_large_kernel<64>
+                   : wa_fwd_tf32x3_large_kernel<0>;
+}
+
+// The chunks query's kernel (its occupancy is what matters there)
+int fwd_tf32_chunks(int N, int D, int bnw, int H) {
+  return N <= 64 ? one_wave_chunks(fwd_tf32_small_kernel(D), 128, fwd_tf32_smem(N, D), bnw, H)
+                 : one_wave_chunks(fwd_tf32_large_kernel(D), 2 * kMmaMaxN, fwd_tf32_smem(N, D),
+                                   bnw, H);
+}
+
+size_t bwd_tf32_smem(int N, int D) {
+  return N <= kTf32BwdSmallN
+             ? bwd_tf32_smem_bytes(N, D)
+             : bwd_tf32_large_smem_bytes(N, D, bwd_tf32_large_kv_stages(N, D));
+}
+
+bool bwd_tf32_fits(int N, int D) {
+  if (N < 1 || N > kMmaMaxN || D < 8 || D % 8 != 0) return false;
+  if (N <= kTf32BwdSmallN)
+    return D <= kTf32BwdSmallMaxD && bwd_tf32_smem_bytes(N, D) <= kMaxDynamicSmem;
+  return D <= kTf32BwdLargeMaxD && bwd_tf32_large_kv_stages(N, D) > 0;
+}
+
+auto bwd_tf32_small_kernel(int D) {
+  return D == 32 ? wa_bwd_tf32x3_kernel<kTf32BwdSmallN, 32>
+                 : wa_bwd_tf32x3_kernel<kTf32BwdSmallN, 0>;
+}
+
+auto bwd_tf32_large_kernel(int D) {
+  return D == 32 ? wa_bwd_tf32x3_large_kernel<32> : wa_bwd_tf32x3_large_kernel<0>;
+}
+
+int bwd_tf32_chunks(int N, int D, int bnw, int H) {
+  return N <= kTf32BwdSmallN
+             ? one_wave_chunks(bwd_tf32_small_kernel(D), 2 * kTf32BwdSmallN, bwd_tf32_smem(N, D),
+                               bnw, H)
+             : one_wave_chunks(bwd_tf32_large_kernel(D), 2 * kMmaMaxN, bwd_tf32_smem(N, D), bnw,
+                               H);
 }
 
 }  // namespace
@@ -1618,21 +2190,28 @@ int window_attention_fwd_mma(const void* q, const void* k, const void* v, const 
 }
 
 int window_attention_fwd_tf32x3_chunks(int bnw, int H, int N, int D) {
-  if (N < 1 || N > kMmaMaxN || D < 8 || D % 8 != 0) return -1;
-  return one_wave_chunks(fwd_tf32_kernel(N, D), N <= 64 ? 128 : 288, fwd_tf32_smem_bytes(N, D),
-                         bnw, H);
+  if (!fwd_tf32_fits(N, D)) return -1;
+  return fwd_tf32_chunks(N, D, bnw, H);
 }
 
+// lse: float [bnw, H, N], the rows' log2-sum-exp2 (what the window-12
+// backward reads), or null where no backward follows; the N <= 64 forward
+// writes none (its backward computes its own softmax).
 int window_attention_fwd_tf32x3(const void* q, const void* k, const void* v, const void* bias,
-                                const void* mask, void* out, int bnw, int H, int N, int D, int nW,
-                                int chunks, float scale, const long long* strides, void* stream) {
-  if (N < 1 || N > kMmaMaxN || D < 8 || D % 8 != 0) return -1;
-  return launch_fwd_chunked<float>(fwd_tf32_kernel(N, D), N <= 64 ? 128 : 288,
-                                   fwd_tf32_smem_bytes(N, D), q, k,
-                                   v, static_cast<const float*>(bias),
-                                   static_cast<const float*>(mask), out,
-                                   reinterpret_cast<const Strides*>(strides), bnw, H, N, D, nW,
-                                   chunks, scale, static_cast<cudaStream_t>(stream));
+                                const void* mask, void* out, void* lse, int bnw, int H, int N,
+                                int D, int nW, int chunks, float scale, const long long* strides,
+                                void* stream) {
+  if (!fwd_tf32_fits(N, D)) return -1;
+  const Strides* s = reinterpret_cast<const Strides*>(strides);
+  const float* bp = static_cast<const float*>(bias);
+  const float* mp = static_cast<const float*>(mask);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (N <= 64)
+    return launch_fwd_chunked<float>(fwd_tf32_small_kernel(D), 128, fwd_tf32_smem(N, D), q, k, v,
+                                     bp, mp, out, s, bnw, H, N, D, nW, chunks, scale, st);
+  return launch_fwd_chunked<float>(fwd_tf32_large_kernel(D), 2 * kMmaMaxN, fwd_tf32_smem(N, D),
+                                   q, k, v, bp, mp, out, s, bnw, H, N, D, nW, chunks, scale, st,
+                                   static_cast<float*>(lse));
 }
 
 // strides: q, k, v, do, dq, dk, dv (21 values). partial: float scratch of
@@ -1657,12 +2236,12 @@ int window_attention_bwd(const void* q, const void* k, const void* v, const void
 }
 
 // The tensor-core backwards: bf16 (_mma) with N <= 144 and D % 16 == 0,
-// fp32 in split TF32 (_tf32x3) with N <= 64 and D % 8 == 0; every base
-// address a multiple of 16 bytes and every stride of q, k, v, do a multiple
-// of 16 bytes (the wrapper checks), and two sets of tiles within a block's
-// shared memory (mma_smem_bytes, bwd_tf32_smem_bytes), else -1. chunks: the
-// _chunks query of the same name, called on the device before its first
-// launch there; scratch: chunks * H * N * N floats.
+// fp32 in split TF32 (_tf32x3) with D % 8 == 0 within its limits
+// (bwd_tf32_fits); every base address a multiple of 16 bytes and every
+// stride of q, k, v, do a multiple of 16 bytes (the wrapper checks), and the
+// tiles within a block's shared memory (mma_smem_bytes, bwd_tf32_smem), else
+// -1. chunks: the _chunks query of the same name, called on the device
+// before its first launch there; scratch: chunks * H * N * N floats.
 int window_attention_bwd_mma_chunks(int bnw, int H, int N, int D) {
   if (N < 1 || N > kMmaMaxN || D < 16 || D % 16 != 0) return -1;
   const size_t smem = mma_smem_bytes(N, D);
@@ -1686,23 +2265,34 @@ int window_attention_bwd_mma(const void* q, const void* k, const void* v, const 
 }
 
 int window_attention_bwd_tf32x3_chunks(int bnw, int H, int N, int D) {
-  if (N < 1 || N > kTf32BwdMaxN || D < 8 || D % 8 != 0) return -1;
-  return one_wave_chunks(bwd_tf32_kernel(D), 2 * kTf32BwdMaxN, bwd_tf32_smem_bytes(N, D), bnw,
-                         H);
+  if (!bwd_tf32_fits(N, D)) return -1;
+  return bwd_tf32_chunks(N, D, bnw, H);
 }
 
+// The split-TF32 backward also takes the forward's output and lse (fwd_tf32x3
+// with lse); at N <= 64 it reads neither (they may be null). strides: q, k,
+// v, do, dq, dk, dv, out (24 values).
 int window_attention_bwd_tf32x3(const void* q, const void* k, const void* v, const void* dout,
-                                const void* bias, const void* mask, void* dq, void* dk, void* dv,
-                                void* partial, void* dbias, int bnw, int H, int N, int D, int nW,
-                                int chunks, float scale, const long long* strides,
-                                void* stream) {
-  if (N < 1 || N > kTf32BwdMaxN || D < 8 || D % 8 != 0) return -1;
-  return launch_bwd_chunked<float>(
-      bwd_tf32_kernel(D), 2 * kTf32BwdMaxN, bwd_tf32_smem_bytes(N, D), q, k, v,
-      dout, static_cast<const float*>(bias), static_cast<const float*>(mask), dq, dk, dv,
-      static_cast<float*>(partial), static_cast<float*>(dbias),
-      reinterpret_cast<const Strides*>(strides), bnw, H, N, D, nW, chunks, scale,
-      static_cast<cudaStream_t>(stream));
+                                const void* bias, const void* mask, const void* out,
+                                const void* lse, void* dq, void* dk, void* dv, void* partial,
+                                void* dbias, int bnw, int H, int N, int D, int nW, int chunks,
+                                float scale, const long long* strides, void* stream) {
+  if (!bwd_tf32_fits(N, D)) return -1;
+  const Strides* s = reinterpret_cast<const Strides*>(strides);
+  const float* bp = static_cast<const float*>(bias);
+  const float* mp = static_cast<const float*>(mask);
+  float* pp = static_cast<float*>(partial);
+  float* dbp = static_cast<float*>(dbias);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (N <= kTf32BwdSmallN)
+    return launch_bwd_chunked<float>(bwd_tf32_small_kernel(D), 2 * kTf32BwdSmallN,
+                                     bwd_tf32_smem(N, D), q, k, v, dout, bp, mp, dq, dk, dv, pp,
+                                     dbp, s, bnw, H, N, D, nW, chunks, scale, st);
+  if (out == nullptr || lse == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_bwd_chunked<float>(bwd_tf32_large_kernel(D), 2 * kMmaMaxN, bwd_tf32_smem(N, D), q,
+                                   k, v, dout, bp, mp, dq, dk, dv, pp, dbp, s, bnw, H, N, D, nW,
+                                   chunks, scale, st, static_cast<const float*>(out),
+                                   static_cast<const float*>(lse), s[7]);
 }
 
 }  // extern "C"

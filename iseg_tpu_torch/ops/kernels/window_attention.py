@@ -33,12 +33,16 @@ operand, so the results stay within the fp32 tolerance of the plain
 version (1e-4 of max(1, max |plain|)), whatever
 ``torch.backends.cuda.matmul.allow_tf32`` says: that flag governs PyTorch's
 own matrix products, not these kernels. The float32 routes follow where
-the fp32 tiles fit a block's shared memory: the forward at ``N <= 64``
-(``D <= 128``) and at ``N <= 144`` with ``D <= 32``, the backward at ``N <=
-64`` (``D <= 80``; see the route functions). Every other shape runs on the
-CUDA cores in fp32 (``"cuda_core"``). The CUDA source checks the fit again
-at launch: a shape sent down a tensor-core route whose tiles do not fit
-raises. Every output, dbias included, is bitwise
+the fp32 tiles fit a block's shared memory: the forward at every ``N <=
+144`` with ``D <= 128`` (above ``N = 64`` with an online softmax, q held in
+registers and only k and v in shared memory, and the rows' lse kept for
+the backward), the backward at ``N <= 64`` with ``D <= 80`` and at ``64 < N
+<= 144`` with ``D <= 56`` (window 12: each warp forms its query rows' dq,
+then its keys' dk, dv and dbias, with p from the forward's lse and delta =
+rowsum(do out); see the route functions). Every other shape runs on the
+CUDA cores in fp32 (``"cuda_core"``). The CUDA source checks the same
+limits and the fit again at launch: a shape sent down a tensor-core route
+whose tiles do not fit raises. Every output, dbias included, is bitwise
 repeatable: dbias is summed from fp32 ds over chunks of windows in a fixed
 order, with no atomics.
 
@@ -64,31 +68,29 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _DOES_NOT_FIT = -1
 MMA_MAX_N = 144
 FWD_MMA_MAX_D = 128
-TF32X3_FWD_SMALL_N = 64
-TF32X3_FWD_WIDE_MAX_D = 32
-TF32X3_BWD_MAX_N = 64
-TF32X3_BWD_MAX_D = 80
+TF32X3_BWD_SMALL_N = 64
+TF32X3_BWD_SMALL_MAX_D = 80
+TF32X3_BWD_LARGE_MAX_D = 56
 
 
 def forward_route(dtype: torch.dtype, n: int, d: int) -> str:
     """The forward kernel for q, k, v of ``dtype`` and shape ``[.., N, D]``:
     ``"mma"`` (tensor cores) for bfloat16 with ``D % 16 == 0``, ``16 <= D <=
     128`` and ``N <= 144``; ``"tf32x3"`` (tensor cores, split TF32) for
-    float32 with ``D % 8 == 0`` and ``8 <= D <= 128`` at ``N <= 64``, and with
-    ``D <= 32`` at ``64 < N <= 144`` (every Swin variant has ``D = 32``); else
-    ``"cuda_core"``. Float32 above ``N = 64`` with ``D > 32`` stays on the
-    CUDA cores: two sets of fp32 q, k, v tiles (the window computed and the
-    next one) and the head's bias take 235,184 bytes at ``N = 144``, ``D =
-    40``, over a block's 232,448 (227 KB), while the CUDA-core forward holds
-    one set (195,264 bytes at ``D = 64``). On a tensor-core route the CUDA source checks the fit
+    float32 with ``D % 8 == 0``, ``8 <= D <= 128`` and ``N <= 144``; else
+    ``"cuda_core"``. Float32 above ``N = 64`` takes the split-TF32 forward
+    with an online softmax: two sets of fp32 q, k, v tiles and the head's
+    bias (235,008 + 82,944 bytes at ``N = 144``, ``D = 64``) would not fit a
+    block's 232,448, so each warp holds its q rows in registers, read from
+    device memory, and the block keeps k and v (two sets up to ``D = 96``,
+    one above). On a tensor-core route the CUDA source checks the fit
     again, and the launch raises where the tiles do not fit (bf16 at N =
     144 with D = 128)."""
     if not 1 <= n <= MMA_MAX_N or not 0 < d <= FWD_MMA_MAX_D:
         return "cuda_core"
     if dtype == torch.bfloat16 and d % 16 == 0:
         return "mma"
-    if (dtype == torch.float32 and d % 8 == 0
-            and (n <= TF32X3_FWD_SMALL_N or d <= TF32X3_FWD_WIDE_MAX_D)):
+    if dtype == torch.float32 and d % 8 == 0:
         return "tf32x3"
     return "cuda_core"
 
@@ -98,19 +100,21 @@ def backward_route(dtype: torch.dtype, n: int, d: int) -> str:
     where the tiles fit a block's shared memory (227 KB on the H100):
     ``"mma"`` (tensor cores) for bfloat16 with ``D % 16 == 0`` and ``N <=
     144`` (``D <= 128`` at ``N <= 64``, ``D <= 32`` above); ``"tf32x3"``
-    (tensor cores, split TF32) for float32 with ``D % 8 == 0``, ``D <= 80``
-    and ``N <= 64`` (every Swin variant at window 7: N = 49, D = 32); else
-    ``"cuda_core"``. Float32 at ``N > 64`` (window 12, N = 144) stays on the
-    CUDA cores: even with one set of q, k, v, do tiles (no prefetch of the
-    next window) and one tile for p and ds, its fp32 tiles and the ds sums
-    take 245 KB at D = 32, over a block's 227 KB, and the sums (72 a
-    thread) have no room in registers beside p and ds. ``D = 80`` is the
-    widest float32 head dim whose tiles fit at ``N = 64``."""
+    (tensor cores, split TF32) for float32 with ``D % 8 == 0`` and ``N <=
+    144``, ``D <= 80`` at ``N <= 64`` (every Swin variant at window 7: N =
+    49, D = 32) and ``D <= 56`` above (window 12: N = 144, D = 32); else
+    ``"cuda_core"``. Above ``N = 64`` the float32 backward keeps no p or ds
+    tile (they alone would take 170,496 bytes at N = 144): each warp forms
+    its 16 query rows' dq, then its 16 keys' dk, dv and dbias sums, from
+    registers. Its one set of q, k, v, do tiles and the block's dbias sums
+    (82,944 bytes) fit a block up to ``D = 56``. ``D = 80`` is the widest
+    float32 head dim whose tiles fit at ``N = 64``."""
     if dtype == torch.bfloat16 and d >= 16 and d % 16 == 0 and 1 <= n <= MMA_MAX_N:
         return "mma" if d <= (128 if n <= 64 else 32) else "cuda_core"
-    if (dtype == torch.float32 and d % 8 == 0 and 0 < d <= TF32X3_BWD_MAX_D
-            and 1 <= n <= TF32X3_BWD_MAX_N):
-        return "tf32x3"
+    if dtype == torch.float32 and d % 8 == 0 and 0 < d and 1 <= n <= MMA_MAX_N:
+        small = n <= TF32X3_BWD_SMALL_N
+        if d <= (TF32X3_BWD_SMALL_MAX_D if small else TF32X3_BWD_LARGE_MAX_D):
+            return "tf32x3"
     return "cuda_core"
 
 
@@ -136,7 +140,9 @@ def build():
         lib.window_attention_bwd.argtypes = [ptr] * 11 + [i32] * 6 + [f32, strides, ptr]
         lib.window_attention_bwd.restype = i32
         for route in _TENSOR_CORE_ROUTES:
-            for which, pointers in (("fwd", 6), ("bwd", 11)):
+            # the split-TF32 forward also writes lse; its backward reads out and lse
+            for which, pointers in (("fwd", 6 + (route == "tf32x3")),
+                                    ("bwd", 11 + 2 * (route == "tf32x3"))):
                 chunks = getattr(lib, f"window_attention_{which}_{route}_chunks")
                 chunks.argtypes = [i32] * 4
                 chunks.restype = i32
@@ -203,35 +209,50 @@ def _raise_on(err: int, what: str, q: torch.Tensor) -> None:
         raise RuntimeError(f"window_attention {what} kernel launch failed: CUDA error {err}")
 
 
-def _launch_fwd(q, k, v, bias, mask, scale: float) -> torch.Tensor:
+def keeps_lse(dtype: torch.dtype, n: int, d: int) -> bool:
+    """Whether the backward for this shape reads the forward's output and
+    lse: the float32 split-TF32 backward above ``N = 64``."""
+    return n > TF32X3_BWD_SMALL_N and backward_route(dtype, n, d) == "tf32x3"
+
+
+def _launch_fwd(q, k, v, bias, mask, scale: float, with_lse: bool = False):
+    """(out, lse): lse ``[bnw, H, N]`` fp32 (the rows' log2-sum-exp2 of the
+    logits, in log2 units) where ``with_lse``, else None."""
     _check_cuda_inputs(q, k, v, bias, mask)
     out = _token_major_empty(q)
-    if q.numel() == 0:
-        return out
     bnw, h, n, d = q.shape
+    lse = torch.empty((bnw, h, n), dtype=torch.float32, device=q.device) if with_lse else None
+    if q.numel() == 0:
+        return out, lse
     lib = build().lib
     stream = torch.cuda.current_stream(q.device).cuda_stream
     route = forward_route(q.dtype, n, d)
+    if with_lse and route != "tf32x3":
+        raise ValueError(f"window_attention forward: lse is written by the split-TF32 forward, "
+                         f"not by the {route!r} route")
     if route in _TENSOR_CORE_ROUTES:
         what = f"forward (tensor cores, {route})"
         q, k, v = (_aligned16(t) for t in (q, k, v))
         chunks = _tensor_core_chunks(f"fwd_{route}", q.device.index, bnw, h, n, d)
         if chunks < 1:
             _raise_on(_DOES_NOT_FIT, what, q)
+        pointers = [q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), mask.data_ptr(),
+                    out.data_ptr()]
+        if route == "tf32x3":
+            pointers.append(lse.data_ptr() if with_lse else None)
         err = getattr(lib, f"window_attention_fwd_{route}")(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), mask.data_ptr(),
-            out.data_ptr(), bnw, h, n, d, mask.shape[0], chunks, float(scale),
+            *pointers, bnw, h, n, d, mask.shape[0], chunks, float(scale),
             _strides(q, k, v, out), stream)
         _raise_on(err, what, q)
         LAUNCH_COUNTS[f"fwd_{route}"] += 1
-        return out
+        return out, lse
     err = lib.window_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), mask.data_ptr(),
         out.data_ptr(), _DTYPE_CODES[q.dtype], bnw, h, n, d, mask.shape[0], float(scale),
         _strides(q, k, v, out), stream)
     _raise_on(err, "forward", q)
     LAUNCH_COUNTS["fwd"] += 1
-    return out
+    return out, lse
 
 
 def _aligned16(t: torch.Tensor) -> torch.Tensor:
@@ -252,8 +273,9 @@ def _tensor_core_chunks(which: str, device_index: int, bnw: int, h: int, n: int,
     return getattr(build().lib, f"window_attention_{which}_chunks")(bnw, h, n, d)
 
 
-def _launch_bwd(q, k, v, bias, mask, dout, scale: float):
-    """(dq, dk, dv, dbias) of ``sum(out * dout)``."""
+def _launch_bwd(q, k, v, bias, mask, dout, scale: float, out=None, lse=None):
+    """(dq, dk, dv, dbias) of ``sum(out * dout)``; ``out`` and ``lse`` are
+    the forward's (:func:`keeps_lse` shapes need them)."""
     _check_cuda_inputs(q, k, v, bias, mask, dout)
     dq, dk, dv = (_token_major_empty(q) for _ in range(3))
     if q.numel() == 0:
@@ -270,11 +292,20 @@ def _launch_bwd(q, k, v, bias, mask, dout, scale: float):
         if chunks < 1:
             _raise_on(_DOES_NOT_FIT, what, q)
         partial = torch.empty((chunks, h, n, n), dtype=torch.float32, device=q.device)
+        pointers = [q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), bias.data_ptr(),
+                    mask.data_ptr()]
+        views = [q, k, v, dout, dq, dk, dv]
+        if route == "tf32x3":
+            if keeps_lse(q.dtype, n, d) and (out is None or lse is None):
+                raise ValueError("window_attention backward: the split-TF32 backward at "
+                                 f"N = {n} needs the forward's output and lse")
+            pointers += [None if out is None else out.data_ptr(),
+                         None if lse is None else lse.data_ptr()]
+            views.append(dq if out is None else out)  # out's strides (unused without it)
         err = getattr(lib, f"window_attention_bwd_{route}")(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), bias.data_ptr(),
-            mask.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), partial.data_ptr(),
+            *pointers, dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), partial.data_ptr(),
             dbias.data_ptr(), bnw, h, n, d, mask.shape[0], chunks, float(scale),
-            _strides(q, k, v, dout, dq, dk, dv), stream)
+            _strides(*views), stream)
         _raise_on(err, what, q)
         LAUNCH_COUNTS[f"bwd_{route}"] += 1
         return dq, dk, dv, dbias
@@ -295,16 +326,19 @@ class _WindowAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, bias, mask, scale):
-        ctx.save_for_backward(q, k, v, bias, mask)
+        # the window-12 split-TF32 backward reads the output and the rows' lse
+        with_lse = any(ctx.needs_input_grad[:4]) and keeps_lse(q.dtype, *q.shape[2:])
+        out, lse = _launch_fwd(q, k, v, bias, mask, scale, with_lse)
+        ctx.save_for_backward(q, k, v, bias, mask, *((out, lse) if with_lse else ()))
         ctx.scale = scale
-        return _launch_fwd(q, k, v, bias, mask, scale)
+        return out
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v, bias, mask = ctx.saved_tensors
+        q, k, v, bias, mask, *kept = ctx.saved_tensors
         if dout.shape[3] > 1 and dout.stride(3) != 1:
             dout = dout.contiguous()
-        dq, dk, dv, dbias = _launch_bwd(q, k, v, bias, mask, dout, ctx.scale)
+        dq, dk, dv, dbias = _launch_bwd(q, k, v, bias, mask, dout, ctx.scale, *kept)
         return dq, dk, dv, dbias, None, None
 
 

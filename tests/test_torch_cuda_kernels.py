@@ -489,15 +489,15 @@ def _assert_within_wa_tol_f32(got, want):
 @pytest.mark.parametrize("stage", sorted(SWIN_L_STAGES))
 def test_cuda_window_attention_split_tf32_at_swin_l_stages(cuda_device, stage, window, shifted):
     """fp32 at Swin-L's stage shapes (one image's windows) takes the
-    split-TF32 tensor-core forward, and at window 7 the split-TF32 backward
-    (window 12's backward stays on the CUDA cores), within WA_TOL."""
+    split-TF32 tensor-core forward and backward (at window 12 the backward
+    that forms each warp's query rows, then its keys), within WA_TOL."""
     args = _swin_inputs(cuda_device, stage, window, shifted, dtype=torch.float32)
     scale = 1.0 / np.sqrt(32)
     wa.reset_launch_counts()
     got = _wa_run(wa.window_attention, *args, scale)
     n = window * window
     assert wa.forward_route(torch.float32, n, 32) == "tf32x3"
-    assert wa.backward_route(torch.float32, n, 32) == ("tf32x3" if window == 7 else "cuda_core")
+    assert wa.backward_route(torch.float32, n, 32) == "tf32x3"
     assert wa.LAUNCH_COUNTS == _wa_counts(torch.float32, n, 32)
     want = _wa_run(wa.window_attention_reference, *args, scale)
     _assert_within_wa_tol_f32(got, want)
@@ -514,12 +514,15 @@ def test_cuda_window_attention_split_tf32_is_bitwise_repeatable(cuda_device, win
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,d", [(64, 80), (16, 8), (20, 24), (144, 32)],
-                         ids=["n64_d80", "n16_d8", "n20_d24", "n144_d32"])
+@pytest.mark.parametrize("n,d", [(64, 80), (16, 8), (20, 24), (144, 32), (144, 56), (65, 56),
+                                 (100, 40)],
+                         ids=["n64_d80", "n16_d8", "n20_d24", "n144_d32", "n144_d56", "n65_d56",
+                              "n100_d40"])
 def test_cuda_window_attention_split_tf32_at_the_route_limits(cuda_device, n, d):
-    """The widest fp32 head dim the split-TF32 backward takes (80 at N =
-    64), the narrowest (8), a head dim that is no multiple of 16, and N =
-    144 (forward only), on views of a packed qkv: WA_TOL."""
+    """The widest fp32 head dim the split-TF32 backward takes at N <= 64
+    (80) and above (56: one set of k and v, no prefetch), the narrowest (8),
+    a head dim that is no multiple of 16, N = 144 (Swin's window 12), the
+    first N above 64 and a ragged N, on views of a packed qkv: WA_TOL."""
     args = _wa_inputs(cuda_device, 7, 2, n, d, 3, torch.float32, packed=True)
     wa.reset_launch_counts()
     got = _wa_run(wa.window_attention, *args, 1.0 / np.sqrt(d))
@@ -550,35 +553,92 @@ def test_cuda_window_attention_split_tf32_takes_misaligned_views(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [40, 64])
-def test_cuda_window_attention_f32_forward_at_n144_wide_heads_takes_the_cuda_cores(cuda_device,
-                                                                                    d):
-    """fp32 at N = 144 with a head dim above 32, whose split-TF32 tiles do
-    not fit a block, runs the CUDA-core forward within WA_TOL."""
-    assert wa.forward_route(torch.float32, 144, d) == "cuda_core"
+@pytest.mark.parametrize("d", [40, 64, 96, 104, 128])
+def test_cuda_window_attention_f32_forward_at_n144_wide_heads_takes_split_tf32(cuda_device, d):
+    """fp32 at N = 144 with a head dim above 32 runs the N > 64 split-TF32
+    forward (q in registers; two sets of k and v up to D = 96, one above)
+    within WA_TOL, on views of a packed qkv."""
+    assert wa.forward_route(torch.float32, 144, d) == "tf32x3"
     q, k, v, bias, mask, _ = _wa_inputs(cuda_device, 7, 2, 144, d, 3, torch.float32,
                                         packed=True)
     wa.reset_launch_counts()
     got = _wa_forward(wa.window_attention, q, k, v, bias, mask, 1.0 / np.sqrt(d))
-    assert wa.LAUNCH_COUNTS == {**dict.fromkeys(wa.LAUNCH_COUNTS, 0), "fwd": 1}
+    assert wa.LAUNCH_COUNTS == {**dict.fromkeys(wa.LAUNCH_COUNTS, 0), "fwd_tf32x3": 1}
     want = _wa_forward(wa.window_attention_reference, q, k, v, bias, mask, 1.0 / np.sqrt(d))
     err = float((got - want).abs().max())
     assert err <= 1e-4 * max(1.0, float(want.abs().max())), err
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("d", [36, 44])
+def test_cuda_window_attention_f32_at_n144_odd_head_dims_takes_the_cuda_cores(cuda_device, d):
+    """fp32 at N = 144 with a head dim that is no multiple of 8 runs the
+    CUDA-core forward and backward within WA_TOL."""
+    assert wa.forward_route(torch.float32, 144, d) == "cuda_core"
+    assert wa.backward_route(torch.float32, 144, d) == "cuda_core"
+    args = _wa_inputs(cuda_device, 5, 2, 144, d, 3, torch.float32, packed=True)
+    wa.reset_launch_counts()
+    got = _wa_run(wa.window_attention, *args, 1.0 / np.sqrt(d))
+    assert wa.LAUNCH_COUNTS == {**dict.fromkeys(wa.LAUNCH_COUNTS, 0), "fwd": 1, "bwd": 1}
+    want = _wa_run(wa.window_attention_reference, *args, 1.0 / np.sqrt(d))
+    _assert_within_wa_tol_f32(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which,n,d", [("fwd", 144, 136), ("bwd", 144, 64), ("bwd", 64, 88)],
+                         ids=["fwd_n144_d136", "bwd_n144_d64", "bwd_n64_d88"])
 def test_cuda_window_attention_split_tf32_raises_where_tiles_do_not_fit(cuda_device,
-                                                                        monkeypatch):
-    """A shape sent down the split-TF32 forward whose tiles do not fit a
-    block's shared memory (N = 144, D = 64; the route function sends it to
-    the CUDA cores) raises at launch: nothing falls back."""
-    monkeypatch.setattr(wa, "forward_route", lambda dtype, n, d: "tf32x3")
-    q = torch.zeros((2, 1, 144, 64), device=cuda_device)
-    zeros = torch.zeros((1, 144, 144), device=cuda_device)
+                                                                        monkeypatch, which, n, d):
+    """A shape sent down a split-TF32 kernel past its limits (the forward
+    above D = 128; the backward above D = 56 at N > 64 and above D = 80 at N
+    <= 64, where its tiles do not fit a block; the route functions send them
+    to the CUDA cores) raises at launch: nothing falls back."""
+    monkeypatch.setattr(wa, f"{'forward' if which == 'fwd' else 'backward'}_route",
+                        lambda dtype, n, d: "tf32x3")
+    q = torch.zeros((2, 1, n, d), device=cuda_device, requires_grad=which == "bwd")
+    zeros = torch.zeros((1, n, n), device=cuda_device)
     wa.reset_launch_counts()
     with pytest.raises(ValueError, match="do not fit"):
-        wa.window_attention(q, q, q, zeros, zeros, 1.0)
-    assert not any(wa.LAUNCH_COUNTS.values())
+        if which == "fwd":
+            wa.window_attention(q, q, q, zeros, zeros, 1.0)
+        else:
+            wa.window_attention(q, q, q, zeros, zeros, 1.0).sum().backward()
+    assert not wa.LAUNCH_COUNTS[f"{which}_tf32x3"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stage", ["stage0", "stage3"])
+def test_cuda_window_attention_split_tf32_window12_backward_is_bitwise_repeatable(cuda_device,
+                                                                                  stage):
+    """The window-12 split-TF32 backward (several windows a chunk at stage
+    0, so the dbias sums and the next window's k and v carry across windows)
+    gives the same bits twice, dbias included."""
+    args = _swin_inputs(cuda_device, stage, 12, shifted=True, seed=7, dtype=torch.float32)
+    wa.reset_launch_counts()
+    first = _wa_run(wa.window_attention, *args, 0.17)
+    assert wa.LAUNCH_COUNTS["bwd_tf32x3"] == 1
+    second = _wa_run(wa.window_attention, *args, 0.17)
+    for name, a, b in zip(("out", "dq", "dk", "dv", "dbias"), first, second):
+        np.testing.assert_array_equal(a, b, err_msg=name)
+
+
+@pytest.mark.cuda
+def test_cuda_window_attention_split_tf32_window12_takes_misaligned_views(cuda_device):
+    """At N = 144, fp32 q, k, v, do whose base address or token stride do
+    not allow 16-byte loads are copied for the split-TF32 kernels; a view at
+    a 4-element stride is taken as it is; the results are the same."""
+    q, k, v, bias, mask, dout = _wa_inputs(cuda_device, 5, 2, 144, 32, 3, torch.float32)
+    storage = torch.zeros(dout.numel() + 1, dtype=torch.float32, device=cuda_device)
+    dout_off = storage[1:].view(dout.shape).copy_(dout)  # 4 bytes off a 16-byte boundary
+    wide = torch.zeros((5, 2, 144, 36), device=cuda_device)
+    v_wide = wide[..., :32].copy_(v)  # token stride 36 floats: 144 bytes
+    assert wa._aligned16(v_wide) is v_wide and wa._aligned16(dout_off) is not dout_off
+    wa.reset_launch_counts()
+    got = _wa_run(wa.window_attention, q, k, v_wide, bias, mask, dout_off, 0.2)
+    assert wa.LAUNCH_COUNTS["fwd_tf32x3"] == 1 and wa.LAUNCH_COUNTS["bwd_tf32x3"] == 1
+    want = _wa_run(wa.window_attention, q, k, v, bias, mask, dout, 0.2)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
 
 
 @pytest.mark.cuda
@@ -594,7 +654,7 @@ def test_cuda_window_attention_split_tf32_keeps_nan(cuda_device, window):
                                                                        device=cuda_device)
     wa.reset_launch_counts()
     got = _wa_run(wa.window_attention, q, k, v, bias, mask, dout, 0.17)
-    assert wa.LAUNCH_COUNTS["fwd_tf32x3"] == 1
+    assert wa.LAUNCH_COUNTS["fwd_tf32x3"] == 1 and wa.LAUNCH_COUNTS["bwd_tf32x3"] == 1
     want = _wa_run(wa.window_attention_reference, q, k, v, bias, mask, dout, 0.17)
     for name, a, b in zip(("out", "dq", "dk", "dv", "dbias"), got, want):
         nan = np.isnan(b)

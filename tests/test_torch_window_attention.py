@@ -21,7 +21,11 @@ as ``cvt.rna`` rounds, lo = x - hi truncated to TF32; each product as lo hi
 + hi lo + hi hi in fp32) is modelled in numpy, forward and backward, and held against the JAX
 Pallas kernel in interpret mode on fp32 inputs within the card's fp32
 tolerance (1e-4 of max(1, max |JAX|)), beside a model of one TF32 product
-(hi hi alone) that must fall at least 10x further away.
+(hi hi alone) that must fall at least 10x further away. The window-12 fp32
+backward's order of work (the forward's output and each row's lse; each
+query row's delta, p from lse, ds and dq; then each key's p^T from lse,
+ds^T, dv, dk and the dbias sums) is written out in PyTorch and held against float64 autograd of the plain
+version (1e-12) and, in fp32, against the JAX Pallas kernel (1e-4).
 """
 
 import functools
@@ -157,14 +161,19 @@ def test_torch_window_attention_cuda_kernel_matches_plain_version(cuda_device, n
     (torch.bfloat16, 49, 24, "cuda_core"),  # D % 16 != 0
     (torch.bfloat16, 49, 8, "cuda_core"),
     (torch.float32, 49, 32, "tf32x3"),  # Swin, window 7: split TF32 on the tensor cores
-    (torch.float32, 144, 32, "cuda_core"),  # window 12: the fp32 tiles do not fit
+    (torch.float32, 144, 32, "tf32x3"),  # window 12: rows, then keys, from registers
     (torch.float64, 49, 32, "cuda_core"),
-    (torch.float32, 64, 80, "tf32x3"),  # the widest fp32 head dim that fits
+    (torch.float32, 64, 80, "tf32x3"),  # the widest fp32 head dim that fits at N <= 64
     (torch.float32, 64, 88, "cuda_core"),
     (torch.float32, 1, 8, "tf32x3"),
-    (torch.float32, 65, 32, "cuda_core"),  # N > 64
+    (torch.float32, 65, 32, "tf32x3"),  # the first N of the window-12 kernel
     (torch.float32, 145, 32, "cuda_core"),  # N > 144
     (torch.float32, 49, 20, "cuda_core"),  # D % 8 != 0
+    (torch.float32, 144, 56, "tf32x3"),  # the widest head dim of the window-12 kernel
+    (torch.float32, 144, 64, "cuda_core"),  # just past it
+    (torch.float32, 65, 56, "tf32x3"),
+    (torch.float32, 65, 80, "cuda_core"),  # the N <= 64 limit no longer holds above 64
+    (torch.float32, 144, 36, "cuda_core"),  # D % 8 != 0 at window 12
 ])
 def test_torch_window_attention_backward_route(dtype, n, d, route):
     assert twa.backward_route(dtype, n, d) == route
@@ -230,12 +239,48 @@ def test_torch_window_attention_mma_rounding_points_within_bf16_tolerance(nw):
     (torch.float32, 1, 8, "tf32x3"),
     (torch.float32, 145, 32, "cuda_core"),  # N > 144
     (torch.float32, 49, 20, "cuda_core"),  # D % 8 != 0
-    (torch.float32, 144, 40, "cuda_core"),  # window 12: the fp32 tiles do not fit
-    (torch.float32, 144, 64, "cuda_core"),
+    (torch.float32, 144, 40, "tf32x3"),  # window 12, wide heads: q from device memory
+    (torch.float32, 144, 64, "tf32x3"),
     (torch.float32, 100, 32, "tf32x3"),
+    (torch.float32, 144, 128, "tf32x3"),  # the widest head dim at window 12
+    (torch.float32, 144, 136, "cuda_core"),  # just past it
+    (torch.float32, 65, 40, "tf32x3"),  # the first N of the wide forward
+    (torch.float32, 144, 60, "cuda_core"),  # D % 8 != 0 at window 12
 ])
 def test_torch_window_attention_forward_route(dtype, n, d, route):
     assert twa.forward_route(dtype, n, d) == route
+
+
+@pytest.mark.parametrize("dtype,n,d,keeps", [
+    (torch.float32, 144, 32, True),  # window 12: the rows-then-keys backward reads out and lse
+    (torch.float32, 65, 56, True),
+    (torch.float32, 49, 32, False),  # window 7: the N <= 64 backward computes its softmax
+    (torch.float32, 144, 64, False),  # the CUDA-core backward
+    (torch.bfloat16, 144, 32, False),
+])
+def test_torch_window_attention_keeps_lse_only_for_the_window12_f32_backward(dtype, n, d, keeps):
+    assert twa.keeps_lse(dtype, n, d) == keeps
+
+
+def test_torch_window_attention_source_defines_every_bound_function():
+    """Every C function the wrapper binds (``build``) is defined in the CUDA
+    source with the argument count it is bound with (the library is only
+    compiled on the card, so a missing or reshaped entry point would show
+    there first)."""
+    import re
+    from pathlib import Path
+
+    src = (Path(twa.__file__).resolve().parents[2] / "csrc" / twa.SOURCE).read_text()
+    names = {"window_attention_bwd_chunks": 2, "window_attention_fwd": 15,
+             "window_attention_bwd": 20, "window_attention_fwd_mma": 15,
+             "window_attention_bwd_mma": 20, "window_attention_fwd_tf32x3": 16,
+             "window_attention_bwd_tf32x3": 22}
+    names.update({f"window_attention_{w}_{r}_chunks": 4 for w in ("fwd", "bwd")
+                  for r in ("mma", "tf32x3")})
+    for name, count in names.items():
+        found = re.search(rf"\nint {name}\(([^)]*)\)", src)
+        assert found, name
+        assert len(found.group(1).split(",")) == count, (name, found.group(1))
 
 
 def _mma_forward_model(q, k, v, bias, mask, scale):
@@ -371,3 +416,97 @@ def test_torch_window_attention_split_tf32_model_matches_pallas(window, shifted)
         if name in ("out", "dq"):
             err_one = float(np.abs(one - w).max())
             assert err_one >= 10 * err, f"{name}: hi hi alone {err_one:.3e}, split {err:.3e}"
+
+
+LOG2E = 1.4426950408889634
+
+
+def _rows_then_keys_backward(q, k, v, bias, mask, dout, scale):
+    """The window-12 split-TF32 backward's order of work, in the input's
+    dtype (exact products: the split TF32 is modelled above). The forward
+    keeps out = p v and each row's lse, the log2-sum-exp2 of its logits in
+    log2 units. Then per query row: delta = rowsum(do out); s = q k^T scale +
+    bias + mask, p = exp2(s log2(e) - lse), dp = do v^T, ds = p (dp - delta),
+    dq = ds k scale; then per key: s^T = k q^T scale + bias^T + mask^T, p^T =
+    exp2(s^T log2(e) - lse), dp^T = v do^T, ds^T = p^T (dp^T - delta), dv =
+    p^T do, dk = ds^T q scale; dbias = ds^T summed over the windows in order,
+    transposed."""
+    mask_b = mask[torch.arange(q.shape[0]) % mask.shape[0]][:, None]
+    # forward: out and lse
+    s = torch.einsum("bhqd,bhkd->bhqk", q, k) * scale + bias[None] + mask_b
+    x = s * LOG2E
+    top = x.amax(-1, keepdim=True)
+    total = torch.exp2(x - top).sum(-1, keepdim=True)
+    lse = top + torch.log2(total)  # [bnw, H, N, 1]
+    out = torch.einsum("bhqk,bhkd->bhqd", torch.exp2(x - lse), v)
+    # rows
+    delta = (dout * out).sum(-1, keepdim=True)
+    s = torch.einsum("bhqd,bhkd->bhqk", q, k) * scale + bias[None] + mask_b
+    p = torch.exp2(s * LOG2E - lse)
+    dp = torch.einsum("bhqd,bhkd->bhqk", dout, v)
+    ds = p * (dp - delta)
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, k) * scale
+    # keys: [bnw, H, key, query]
+    st = (torch.einsum("bhkd,bhqd->bhkq", k, q) * scale + bias[None].transpose(-1, -2)
+          + mask_b.transpose(-1, -2))
+    pt = torch.exp2(st * LOG2E - lse.transpose(-1, -2))
+    dpt = torch.einsum("bhkd,bhqd->bhkq", v, dout)
+    dst = pt * (dpt - delta.transpose(-1, -2))
+    dv = torch.einsum("bhkq,bhqd->bhkd", pt, dout)
+    dk = torch.einsum("bhkq,bhqd->bhkd", dst, q) * scale
+    dbias = torch.zeros_like(bias)
+    for w in range(q.shape[0]):
+        dbias = dbias + dst[w].transpose(-1, -2)
+    return dq, dk, dv, dbias
+
+
+def _window12_inputs(shifted, seed, dtype=np.float32):
+    from iseg_tpu_torch.backbones.swin import _shift_attn_mask
+
+    window, d, h = 12, 32, 2
+    n = window * window
+    side = 2 * window  # four windows per image
+    mask = (_shift_attn_mask(side, side, window, window // 2) if shifted
+            else np.zeros((1, n, n), np.float32))
+    rng = np.random.RandomState(300 + seed + int(shifted))
+    bnw = 2 * mask.shape[0] if shifted else 4
+    q, k, v, dout = (rng.randn(bnw, h, n, d).astype(dtype) for _ in range(4))
+    bias = (rng.randn(h, n, n) * 0.1).astype(dtype)
+    return q, k, v, bias, mask.astype(dtype), dout, 1.0 / np.sqrt(d)
+
+
+@pytest.mark.parametrize("shifted", [False, True], ids=["unshifted", "shifted"])
+def test_torch_window_attention_rows_then_keys_backward_matches_autograd_f64(shifted):
+    """In float64 the rows-then-keys order gives autograd's dq, dk, dv and
+    dbias of the plain version within 1e-12 of max(1, max |autograd|): p
+    recomputed from the forward's lse and delta = rowsum(do out) are the
+    same function."""
+    q, k, v, bias, mask, dout, scale = (torch.tensor(a) if isinstance(a, np.ndarray) else a
+                                        for a in _window12_inputs(shifted, 0, np.float64))
+    got = _rows_then_keys_backward(q, k, v, bias, mask, dout, scale)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v, bias)]
+    out = twa.window_attention_reference(*leaves, mask, scale)
+    want = torch.autograd.grad(out, leaves, dout)
+    for name, g, w in zip(("dq", "dk", "dv", "dbias"), got, want):
+        assert g.dtype == torch.float64, name
+        err = float((g - w).abs().max())
+        tol = 1e-12 * max(1.0, float(w.abs().max()))
+        assert err <= tol, f"{name}: {err:.3e} > {tol:.3e}"
+
+
+@pytest.mark.parametrize("shifted", [False, True], ids=["unshifted", "shifted"])
+def test_torch_window_attention_rows_then_keys_backward_matches_pallas(shifted):
+    """In fp32 the rows-then-keys order keeps dq, dk, dv and dbias within
+    1e-4 of max(1, max |JAX|) of the JAX Pallas kernel's gradients
+    (interpret mode, fp32) at N = 144: the card's fp32 tolerance."""
+    q, k, v, bias, mask, dout, scale = _window12_inputs(shifted, 1)
+    want = _jax_out_and_grads(
+        lambda q, k, v, b, m: j_window_attention(q, k, v, b, m, scale, True),
+        q, k, v, bias, mask, dout)[1:]
+    got = _rows_then_keys_backward(*(torch.tensor(a) for a in (q, k, v, bias, mask, dout)),
+                                   np.float32(scale))
+    for name, g, w in zip(("dq", "dk", "dv", "dbias"), got, want):
+        assert g.dtype == torch.float32, name
+        err = float(np.abs(g.numpy() - w).max())
+        tol = 1e-4 * max(1.0, float(np.abs(w).max()))
+        assert err <= tol, f"{name}: {err:.3e} > {tol:.3e}"
