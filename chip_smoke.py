@@ -204,7 +204,8 @@ Phases, in order; any failure raises and the script exits non-zero:
     -> ``GemmaCausalLMPreprocessor`` -> ragged prompts -> greedy ``generate``
     -> ``generate_postprocess`` gives strings that start with their prompts;
     (b) greedy, beam 2, beam 4 and contrastive (k = 5) requests at the
-    geometry above, one warm-up call each, then timed: prompts preserved,
+    geometry above, one warm-up call each (the contrastive one 8 steps
+    long), then timed: prompts preserved,
     ids in range, tok/s, ms/step, peak memory; exactly ``max_length - start``
     = 512 cache-gather launches per beam request and none on the others;
     (c) beam 4 with the gather's plain version swapped in gives the kernel
@@ -341,7 +342,7 @@ F1. fixed-order resizes: under cuDNN's deterministic algorithms and
     tensor-parallel serving of ``gemma_7b_en`` at full width and depth (28
     layers, 8.54 B parameters, bf16) at model parallelism 2, each rank
     seeding its shard of the same full weights (``init_seeded_shard``): a
-    greedy and a beam-4 request (batch 4, prompt 128, ``max_length`` 256),
+    greedy and a beam-4 request (batch 4, prompt 128, ``max_length`` 192),
     the ranks' tokens equal, one cache-gather launch a decode step a rank,
     the prefill logits within 2e-2 of max |logit| of world size 1 (here,
     beforehand), ms/step and tok/s, host-staged collectives; the gather at
@@ -357,6 +358,32 @@ F1. fixed-order resizes: under cuDNN's deterministic algorithms and
     stage's layers and the shared ones) given its gradient; (4) the MoE layer (hidden 2048, 8 experts of d_ff 2048,
     k 2, 4096 tokens, fp32) with its experts over the two ranks, output and
     gradients within 1e-5 of world size 1.
+17. int8 serving and the serving export: (1) phase 10's model (``gemma_2b_en``
+    at full width, 6 layers, bf16, seed 0) quantized on the card both ways
+    (``quantize_tree``: weight-only; ``quantize_dense_tree``: W8A8) and
+    loaded by ``load_flax``; batch 8, prompt 128, greedy and beam 4 to
+    ``max_length`` 256 (phase 10's 640 cut to fit the run's time), each
+    after an 8-step warm-up, for the bf16 model and both int8 ones: tok/s,
+    ms/step, peak memory and resident weight bytes; one cache-gather launch
+    a beam decode step and none in greedy; the prompts kept; the
+    weight-only greedy tokens equal to those of the same weights explicitly
+    dequantized into a bf16 model; W8A8's prefill logits within 4x the
+    weight-only model's distance from the bf16 run (the int8 weights' own
+    noise, in max |logit|), the same with a planted fault (each product's
+    weight scales in reverse column order) beyond it; ``torch._int_mm``'s
+    device time at the decode products' shapes (8 and 32 rows) beside bf16
+    ``F.linear`` and the whole W8A8 product. (2) Swin-L + SemanticFPN (19
+    classes, 512x512, seed-17 weights) exported by ``export_inference``
+    with scales (0.75, 1.0) + flip under bf16 autocast, batch-polymorphic;
+    a fresh process that imports no backbone, head or model code loads it
+    and serves batches 1 and 2: exactly 48 tensor-core window-attention
+    launches a serve (24 a forward, one forward a scale) and nothing else,
+    logits within 2e-2 of max |logit| of the live bf16 serve; export and
+    load seconds, artifact MB, serve p50 against the live serve's; then the
+    example driver ``examples/export_serving.py`` exports MobileNetV2 +
+    SimpleDecoder (512x512, 21 classes) with and without ``--int8`` and
+    serves each artifact (two PNGs when PIL is there): the int8 artifact
+    below 0.75 of the float one.
 
 Every phase prints its seconds, and the run their sum.
 
@@ -398,8 +425,9 @@ and its OHEM run, 6, 6b, 7, 8, 9, each request of 10, 11.1, each micro-step
 of 11.2, its resumed run, 11.3 and 11.4, 12.1 and 12.2 (and each of their
 steps), the patch-dropout step and each serve of 12.3, 13.1, 13.2, 13.4 and
 each model of 13.5, and each of their train steps, 14.3's forward, each train step and
-each serve of 14.4, in each rank of 15.1 each step, and in each rank of 16.1 each request) and read just after; a kernel of a path that was launched no time
-there fails the run. Third line from the end: a JSON object with one entry per kernel;
+each serve of 14.4, in each rank of 15.1 each step, in each rank of 16.1 each request,
+each request of 17.1 and each serve of 17.2 in its serving process) and read just after;
+a kernel of a path that was launched no time there fails the run. Third line from the end: a JSON object with one entry per kernel;
 then the card's name and power limit; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -434,10 +462,11 @@ if __name__ == "__main__" and sys.argv[1:2] == ["--ab-child"]:
 
 from iseg_tpu_torch.backbones import get_backbone
 from iseg_tpu_torch.backbones import swin as swin_module
-from iseg_tpu_torch.convert import batch_stats_tree, param_tree, to_flax
+from iseg_tpu_torch.convert import batch_stats_tree, flax_tree, load_flax, param_tree, to_flax
 from iseg_tpu_torch.core.checkpoint import ModelHelper
 from iseg_tpu_torch.core.env import EnvConfig, common_env_setup
 from iseg_tpu_torch.core.evaluation import bucket_padder, evaluate, make_eval_step
+from iseg_tpu_torch.core.export import export_inference
 from iseg_tpu_torch.core.inference import inference_with_sliding_window, sliding_window_plan
 from iseg_tpu_torch.core.model import SegManaged, SegModelInferenceConfig
 from iseg_tpu_torch.core.optimizer import (Adam, get_optimizer, layerwise_decay_multipliers,
@@ -449,6 +478,7 @@ from iseg_tpu_torch.core.train import (CoreTrain, create_train_state, make_resid
 from iseg_tpu_torch.data.device_augment import DeviceAugmentConfig, make_device_augment
 from iseg_tpu_torch.data.resident import DeviceResidentDataset
 from iseg_tpu_torch.data.shards import ShardReader, make_shard_dataset_fn, write_shards
+from iseg_tpu_torch.examples import export_serving as export_serving_example
 from iseg_tpu_torch.examples import train_seg as train_seg_example
 from iseg_tpu_torch.examples import verify_drive as verify_drive_example
 from iseg_tpu_torch.losses import cross_entropy_ignore_label, get_ohem_fn
@@ -467,6 +497,7 @@ from iseg_tpu_torch.ops.kernels import cache_gather as cg
 from iseg_tpu_torch.ops.kernels import deform_local as dl
 from iseg_tpu_torch.ops.kernels import upsample_ce as uce
 from iseg_tpu_torch.ops.kernels import window_attention as wa
+from iseg_tpu_torch.ops import quant as quant_module
 from iseg_tpu_torch.ops.resize import resize_image
 from iseg_tpu_torch.utils.buckets import bucket_stats, pad_batch_to_bucket
 from iseg_tpu_torch.utils.summary import read_event_scalars
@@ -639,13 +670,14 @@ F1_STEPS = 3
 # phase 16: the language-model half of distribution, two ranks on this card over
 # gloo (correctness runs). 16.1: tensor-parallel serving of gemma_7b_en at full
 # width and depth (28 layers, 8.54 B parameters, bf16), model parallelism 2,
-# batch-4 requests of 128-token prompts to max_length 256, greedy and beam 4.
+# batch-4 requests of 128-token prompts to max_length 192 (256 before phase 17 needed
+# the time), greedy and beam 4.
 # Its prefill logits against world size 1's on the same weights, relative to
 # max |logit|: the two sum the heads' and the FFN's partial products in other
 # orders and round to bf16 at other points (GEMMA_LAYOUT_RTOL's argument;
 # measured 8.3e-3)
 TP_PRESET, TP_LAYERS = "gemma_7b_en", 28
-TP_BATCH, TP_PROMPT, TP_MAX_LENGTH, TP_BEAMS = 4, 128, 256, 4
+TP_BATCH, TP_PROMPT, TP_MAX_LENGTH, TP_BEAMS = 4, 128, 192, 4
 TP_LOGIT_RTOL = 2e-2  # GEMMA_LAYOUT_RTOL
 # 16.2: gemma_2b_en at full width and depth, bf16, batch 2 x T 2048 over a
 # sequence axis of 2; score and the loss's gradient against world size 1 bf16
@@ -667,6 +699,31 @@ PP_RTOL = 1e-4
 EP_DIM, EP_EXPERTS, EP_FF, EP_K, EP_TOKENS = 2048, 8, 2048, 2, 4096
 EP_RTOL = 1e-5
 LM_TIMEOUT_S = 480
+# phase 17.1: int8 serving of phase 10's model (gemma_2b_en at full width, G_LAYERS
+# layers, bf16, seed 0), weight-only and W8A8, batch 8, prompt 128, greedy and beam
+# 4 to max_length Q_MAX_LENGTH (cut from phase 10's 640 to fit the run's time).
+# W8A8's prefill logits must lie within Q_W8A8_NOISE_MULT x the weight-only
+# model's distance from the bf16 run (the int8 weights' own rounding, measured in
+# the same run), relative to max |logit|; the planted fault (each product's
+# weight scales applied to the columns in reverse order) must lie beyond
+Q_MAX_LENGTH, Q_BEAMS = 256, 4
+Q_W8A8_NOISE_MULT = 4.0
+# rows of the decode products: greedy (batch 8, padded to 17 for torch._int_mm)
+# and beam 4 (32); (name, K, N) of gemma_2b_en's products
+Q_ROWS = (G_BATCH, G_BATCH * Q_BEAMS)
+Q_PRODUCTS = (("query", 2048, 2048), ("key", 2048, 256), ("attention_output", 2048, 2048),
+              ("gating_ffw", 2048, 16384), ("ffw_linear", 16384, 2048),
+              ("readout", 2048, 256000))
+# phase 17.2: the Swin path's model (swin_large + SemanticFPN(256), 19 classes,
+# 512x512, seed-17 weights) exported with scales (0.75, 1.0) + flip under bf16
+# autocast, batch-polymorphic, served in a fresh process at batches 1 and 2. Its
+# logits against the live bf16 serve's: the same ops under the same autocast, but
+# the flip pairs at double batch and another process's cuDNN algorithms
+# (KERNEL_VS_PLAIN_MODEL_RTOL's argument)
+X_SCALES, X_BATCH, X_SERVE_REPS = (0.75, 1.0), 2, 5
+X_ARTIFACT_RTOL = 2e-2
+X_EXAMPLE_SIZE, X_EXAMPLE_CLASSES = 512, 21  # the example driver: MobileNetV2 + SimpleDecoder
+X_TIMEOUT_S = 300
 
 # Published peaks of one H100 SXM at its 700 W limit: HBM3 bytes/s, and
 # FLOP/s for fp32 inputs (outside the tensor cores) and bf16 inputs
@@ -3156,9 +3213,12 @@ def phase_gemma_serve(device, profile: bool) -> dict[str, dict[str, int]]:
     results, paths, step_ms = {}, {}, {}
     seg_trace, mono_trace = [], []
     for name, sampler, want in requests:
-        # the beam-4 warm-up is the traced run of the segmented search
+        # the beam-4 warm-up is the traced run of the segmented search; the
+        # contrastive one is 8 steps long (no check reads it: run time)
+        short = isinstance(sampler, ContrastiveSampler)
         warm, _, _, _ = gemma_request(lm, f"{name} (warm-up)", prompt, lengths, sampler, want,
-                                      timed=False, trace=seg_trace if name == "beam 4" else None)
+                                      timed=False, trace=seg_trace if name == "beam 4" else None,
+                                      **({"max_length": G_PROMPT + 8} if short else {}))
         results[name], paths[name], dt, _ = gemma_request(lm, name, prompt, lengths, sampler, want)
         step_ms[name] = 1e3 * dt / steps
         if sampler is None or isinstance(sampler, BeamSampler):
@@ -5600,6 +5660,323 @@ def phase_lm_distributed(env) -> tuple[dict[str, dict[str, int]], dict]:
     return {"tp_beam_serve": tp[0]["beam4"]["launches"]}, cg_row
 
 
+# ------------------------------------------------------------------ phase 17
+
+def resident_bytes(module) -> int:
+    """Bytes of the module's parameters and buffers: what stays on the card
+    between calls."""
+    return sum(t.numel() * t.element_size() for t in (*module.parameters(), *module.buffers()))
+
+
+def int8_requests(lm, name, prompt, lengths) -> dict[str, dict]:
+    """A short warm-up, then one timed greedy and one timed beam-4 request to
+    ``Q_MAX_LENGTH`` (launch counts set to 0 just before each and read just
+    after, by :func:`gemma_request`)."""
+    steps = Q_MAX_LENGTH - G_PROMPT
+    rows = {}
+    for search, sampler, want in (("greedy", None, 0), ("beam 4", BeamSampler(Q_BEAMS), steps)):
+        _, warm, _, _ = gemma_request(lm, f"{name} {search} (warm-up)", prompt, lengths, sampler,
+                                      8 if want else 0, timed=False, max_length=G_PROMPT + 8)
+        tokens, launches, dt, peak = gemma_request(lm, f"{name} {search}", prompt, lengths,
+                                                   sampler, want, max_length=Q_MAX_LENGTH)
+        rows[search] = {"tokens": tokens, "launches": launches, "warm_launches": warm,
+                        "ms_step": 1e3 * dt / steps, "tok_s": G_BATCH * steps / dt, "peak": peak}
+    return rows
+
+
+def prefill_logits(lm, prompt, lengths) -> torch.Tensor:
+    with torch.inference_mode():
+        logits, _ = lm._prefill(prompt, lengths, lm.build_cache(*prompt.shape))
+    return logits.float()
+
+
+def int8_product_rows(device, card: str) -> None:
+    """``torch._int_mm``'s device time at the decode products' shapes beside
+    bf16 ``F.linear`` and beside the whole W8A8 product (row quantize,
+    ``_int_mm``, epilogue)."""
+    gen = torch.Generator(device=device).manual_seed(3)
+    for name, k, n in Q_PRODUCTS:
+        w = torch.randn((n, k), generator=gen, device=device).to(torch.bfloat16)
+        w_q = torch.randint(-127, 127, (n, k), generator=gen, device=device, dtype=torch.int8)
+        w_scale = torch.rand(n, generator=gen, device=device) * 1e-2
+        for m in Q_ROWS:
+            x = torch.randn((m, k), generator=gen, device=device).to(torch.bfloat16)
+            x_q = torch.randint(-127, 127, (max(m, quant_module.INT_MM_MIN_ROWS), k),
+                                generator=gen, device=device, dtype=torch.int8)
+            int_mm = device_ms(lambda _: torch._int_mm(x_q, w_q.t()), reps=5)
+            w8a8 = device_ms(lambda _: quant_module.dynamic_int8_dot(x, w_q.t(), w_scale), reps=5)
+            linear = device_ms(lambda _: F.linear(x, w), reps=5)
+            log(f"17.1 {name} product M={m} (torch._int_mm takes {x_q.shape[0]} rows) K={k} "
+                f"N={n}: torch._int_mm {int_mm:.4f} ms, the whole W8A8 product {w8a8:.4f} ms, "
+                f"bf16 F.linear {linear:.4f} ms (device time; {card})")
+        del w, w_q
+
+
+def phase_int8_gemma(device) -> dict[str, dict[str, int]]:
+    """17.1: int8 serving of phase 10's model, weight-only and W8A8, against
+    the bf16 model in the same run (see the module note)."""
+    log(f"== phase 17.1: int8 Gemma serve ({G_PRESET} at full width, {G_LAYERS} layers, "
+        f"batch {G_BATCH}, prompt {G_PROMPT}, max_length {Q_MAX_LENGTH}), weight-only and W8A8")
+    card = card_line()
+    cfg = dataclasses.replace(get_preset(G_PRESET), num_layers=G_LAYERS)
+    rng = np.random.RandomState(0)
+    prompt = torch.tensor(rng.randint(4, cfg.vocab_size, (G_BATCH, G_PROMPT)), device=device)
+    lengths = torch.full((G_BATCH,), G_PROMPT, dtype=torch.long, device=device)
+
+    def build():
+        return GemmaCausalLM(cfg, dtype=torch.bfloat16, param_dtype=torch.bfloat16,
+                             device=device).eval()
+
+    lm = build().init(torch.Generator(device=device).manual_seed(0))
+    rows = {"bf16": int8_requests(lm, "bf16", prompt, lengths)}
+    resident = {"bf16": resident_bytes(lm)}
+    kept = lm.backbone.token_embedding._table_f32
+    log(f"17.1 the bf16 model's readout keeps an fp32 copy of the table beside its weights: "
+        f"{0 if kept is None else kept.numel() * kept.element_size()} bytes")
+    logits = {"bf16": prefill_logits(lm, prompt, lengths)}
+    # quantize on the card, both ways, from the model's flax-layout tree
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = flax_tree(lm)["params"]
+    trees = {"weight-only": quant_module.quantize_tree(params),
+             "W8A8": quant_module.quantize_dense_tree(params)}
+    torch.cuda.synchronize()
+    quantize_s = time.perf_counter() - t0
+    del lm, params
+    torch.cuda.empty_cache()
+    log(f"17.1 both int8 trees made on the card in {quantize_s:.2f} s")
+
+    models = {}
+    for scheme, tree in trees.items():
+        models[scheme] = load_flax(build(), {"params": tree})
+        torch.cuda.empty_cache()
+        resident[scheme] = resident_bytes(models[scheme])
+        rows[scheme] = int8_requests(models[scheme], scheme, prompt, lengths)
+        logits[scheme] = prefill_logits(models[scheme], prompt, lengths)
+    # the weight-only model against the same weights explicitly dequantized
+    dense = load_flax(build(), {"params": quant_module.dequantize_tree(trees["weight-only"])})
+    dense_tokens, _, _, _ = gemma_request(dense, "bf16, weight-only tree dequantized", prompt,
+                                          lengths, None, 0, timed=False, max_length=Q_MAX_LENGTH)
+    del dense, trees
+    torch.cuda.empty_cache()
+    if not torch.equal(dense_tokens, rows["weight-only"]["greedy"]["tokens"]):
+        raise AssertionError("17.1 weight-only greedy tokens differ from the explicitly "
+                             "dequantized model's")
+    log("17.1 weight-only greedy tokens equal those of the same weights dequantized")
+    # W8A8's prefill logits against the bf16 run, beside the weight-only noise
+    true_dot = quant_module.dynamic_int8_dot
+
+    def reversed_scales(x2, w_q, w_scale):
+        return true_dot(x2, w_q, w_scale.flip(0))
+
+    quant_module.dynamic_int8_dot = reversed_scales
+    try:
+        fault = prefill_logits(models["W8A8"], prompt, lengths)
+    finally:
+        quant_module.dynamic_int8_dot = true_dot
+    err = {k: rel_err(v, logits["bf16"]) for k, v in logits.items() if k != "bf16"}
+    err["fault"] = rel_err(fault, logits["bf16"])
+    bound = Q_W8A8_NOISE_MULT * err["weight-only"]
+    log(f"17.1 prefill logits against the bf16 model's, max |diff| over max |logit| "
+        f"{float(logits['bf16'].abs().max()):.4e}: weight-only {err['weight-only']:.3e} (the "
+        f"noise), W8A8 {err['W8A8']:.3e}, bound {Q_W8A8_NOISE_MULT:g} x noise = {bound:.3e}; "
+        f"planted fault (each product's weight scales applied to the columns in reverse "
+        f"order) {err['fault']:.3e} ({card})")
+    if not err["W8A8"] <= bound:
+        raise AssertionError(f"17.1 W8A8 prefill logits {err['W8A8']:.3e} of max |logit| from "
+                             f"bf16, beyond {bound:.3e}")
+    if not err["fault"] > bound:
+        raise AssertionError(f"17.1 the planted fault lies {err['fault']:.3e} from bf16, "
+                             f"within the bound {bound:.3e}: the check cannot tell it apart")
+    for scheme, row in rows.items():
+        for search, r in row.items():
+            log(f"17.1 {scheme} {search}: {r['tok_s']:.1f} tok/s, {r['ms_step']:.3f} ms/step, "
+                f"peak memory {r['peak'] / 2**30:.3f} GiB ({r['peak']} bytes); weights resident "
+                f"{resident[scheme] / 2**30:.3f} GiB ({resident[scheme]} bytes; {card})")
+    del models
+    torch.cuda.empty_cache()
+    int8_product_rows(device, card)
+    keys = rows["bf16"]["greedy"]["launches"]
+    return {"gemma_int8_beam_serve": {k: sum(rows[s]["beam 4"][w][k] for s in ("weight-only", "W8A8")
+                                              for w in ("launches", "warm_launches"))
+                                      for k in keys},
+            "gemma_int8_greedy_serve": {k: sum(rows[s]["greedy"]["launches"][k]
+                                               for s in ("weight-only", "W8A8")) for k in keys}}
+
+
+X_CHILD = r"""
+import importlib.abc, json, statistics, sys, time, traceback
+
+first_imports = {}
+
+
+class FirstImport(importlib.abc.MetaPathFinder):
+    # records where each module of the package was first imported from
+    def find_spec(self, name, path, target=None):
+        if name.startswith("iseg_tpu") and name not in first_imports:
+            first_imports[name] = [line for line in traceback.format_stack()[:-1]
+                                   if "<frozen importlib" not in line]
+        return None
+
+
+sys.meta_path.insert(0, FirstImport())
+import numpy as np
+import torch
+from iseg_tpu_torch.core.export import load_exported
+from iseg_tpu_torch.ops.kernels import deform_local as dl
+from iseg_tpu_torch.ops.kernels import window_attention as wa
+
+path, images, out, reps = sys.argv[1], sys.argv[2], sys.argv[3], int(sys.argv[4])
+t0 = time.perf_counter()
+serve = load_exported(path)
+res = {"load_s": time.perf_counter() - t0, "launches": {}}
+x = torch.tensor(np.load(images), device="cuda")
+serve(x)  # the first call: the kernel library's load, cuDNN's first choices
+torch.cuda.synchronize()
+for b in (1, 2):
+    wa.reset_launch_counts()
+    dl.reset_launch_counts()
+    y = serve(x[:b])
+    torch.cuda.synchronize()
+    res["launches"][b] = {**{f"window_attention_{k}": v for k, v in wa.LAUNCH_COUNTS.items()},
+                          **{f"deform_local_{k}": v for k, v in dl.LAUNCH_COUNTS.items()}}
+    np.save(f"{out}/logits_{b}.npy", y.cpu().numpy())
+ms = []
+for _ in range(reps):
+    t0 = time.perf_counter()
+    serve(x)
+    torch.cuda.synchronize()
+    ms.append(1e3 * (time.perf_counter() - t0))
+res["p50_ms"] = statistics.median(ms)
+res["modules"] = sorted(m for m in sys.modules if m.startswith("iseg_tpu"))
+res["first_imports"] = first_imports
+print(json.dumps(res))
+"""
+
+
+def phase_export(env) -> dict[str, dict[str, int]]:
+    """17.2: the exported Swin-L serving artifact in a fresh process, then the
+    example driver (see the module note)."""
+    log(f"== phase 17.2: export Swin-L + SemanticFPN (scales {X_SCALES} + flip, bf16 autocast, "
+        "batch-polymorphic) and serve it in a process without model code")
+    card = card_line()
+    model = build_swin_model(env, fused=False)
+    initialize(model, torch.Generator(device=env.device).manual_seed(17))
+    model.eval()
+    images = torch.tensor(np.random.RandomState(17).rand(X_BATCH, HW, HW, 3).astype(np.float32),
+                          device=env.device)
+    # the artifact's computation: each flip pair at double batch
+    config = SegModelInferenceConfig(scale_rates=X_SCALES, flip=True, flip_in_batch=True)
+
+    def live(x):
+        with torch.inference_mode(), torch.autocast("cuda", dtype=torch.bfloat16):
+            out = model.inference(x, config)
+        torch.cuda.synchronize()
+        return out
+
+    live_logits = {b: live(images[:b]) for b in (1, 2)}
+    live_ms = []
+    for _ in range(X_SERVE_REPS):
+        t0 = time.perf_counter()
+        live(images)
+        live_ms.append(1e3 * (time.perf_counter() - t0))
+    with tempfile.TemporaryDirectory(prefix="iseg_export_") as tmp:
+        artifact = os.path.join(tmp, "swin_large.pt2")
+        t0 = time.perf_counter()
+        blob = export_inference(model, None, (HW, HW), scale_rates=X_SCALES, flip=True,
+                                compute_dtype=torch.bfloat16, path=artifact)
+        export_s = time.perf_counter() - t0
+        del model
+        torch.cuda.empty_cache()
+        np.save(os.path.join(tmp, "images.npy"), images.cpu().numpy())
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-c", X_CHILD, artifact, os.path.join(tmp, "images.npy"), tmp,
+             str(X_SERVE_REPS)], capture_output=True, text=True, timeout=X_TIMEOUT_S,
+            env={**os.environ, "PYTHONPATH": str(pathlib.Path(__file__).resolve().parent)})
+        child_s = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"17.2 the serving process failed:\n{proc.stderr[-4000:]}")
+        res = json.loads(proc.stdout.strip().splitlines()[-1])
+        served = {b: torch.tensor(np.load(os.path.join(tmp, f"logits_{b}.npy")))
+                  for b in (1, 2)}
+    model_code = [m for m in res["modules"] if m.startswith((
+        "iseg_tpu_torch.backbones", "iseg_tpu_torch.nn", "iseg_tpu_torch.convert",
+        "iseg_tpu_torch.core.model", "iseg_tpu_torch.core.inference"))]
+    if model_code:
+        raise AssertionError(f"17.2 the serving process imported model code: {model_code}")
+    log(f"17.2 the serving process imported {res['modules']} of the package")
+    for name in res["modules"]:
+        if not name.startswith(("iseg_tpu_torch.core.export", "iseg_tpu_torch.ops.kernels")):
+            where = [" ".join(line.split()) for line in res["first_imports"].get(name, [])[-3:]]
+            log(f"17.2   {name} first imported from: {where}")
+    calls = len(X_SCALES)  # one forward a scale: each flip pair at double batch
+    path_counts = dict.fromkeys(read_launch_counts(), 0)
+    for b in (1, 2):
+        got = {**dict.fromkeys(read_launch_counts(), 0), **res["launches"][str(b)]}
+        expect_launches(f"exported Swin-L serve (batch {b})", got,
+                        {"window_attention_fwd_mma": WA_LAUNCHES_PER_FORWARD * calls})
+        path_counts = {k: path_counts[k] + got[k] for k in path_counts}
+        logits, want = served[b], live_logits[b].cpu()
+        if tuple(logits.shape) != (b, HW, HW, S_CLASSES) or logits.dtype != torch.float32:
+            raise AssertionError(f"17.2 served logits {tuple(logits.shape)} {logits.dtype}")
+        if not bool(torch.isfinite(logits).all()):
+            raise AssertionError("17.2 served logits are not finite")
+        err = rel_err(logits, want)
+        log(f"17.2 batch {b}: the artifact's logits lie {err:.3e} of max |logit| "
+            f"{float(want.abs().max()):.4e} from the live bf16 serve's (bound {X_ARTIFACT_RTOL})")
+        if not err <= X_ARTIFACT_RTOL:
+            raise AssertionError(f"17.2 batch {b}: artifact vs live {err:.3e} > {X_ARTIFACT_RTOL}")
+    log(f"17.2 export {export_s:.1f} s, artifact {len(blob) / 1e6:.1f} MB, load "
+        f"{res['load_s']:.1f} s (the serving process took {child_s:.1f} s in all); serve of "
+        f"{X_BATCH} images p50 {res['p50_ms']:.1f} ms from the artifact, "
+        f"{statistics.median(live_ms):.1f} ms live ({X_SERVE_REPS} calls each; {card})")
+
+    # the example driver: MobileNetV2 + SimpleDecoder, float and int8 weights
+    with tempfile.TemporaryDirectory(prefix="iseg_export_example_") as tmp:
+        serve_args = []
+        try:
+            from PIL import Image
+
+            os.makedirs(os.path.join(tmp, "imgs"))
+            for i, (h, w) in enumerate(((375, 500), (480, 360))):
+                Image.fromarray(np.random.RandomState(i).randint(0, 256, (h, w, 3), np.uint8)
+                                ).save(os.path.join(tmp, "imgs", f"{i}.png"))
+            serve_args = ["--input", os.path.join(tmp, "imgs")]
+        except ImportError:
+            log("17.2 no PIL on this machine: the example serves one zero image")
+        sizes = {}
+        for int8 in (False, True):
+            path = os.path.join(tmp, f"mbv2{'_int8' if int8 else ''}.pt2")
+            common = ["--size", str(X_EXAMPLE_SIZE), "--num_class", str(X_EXAMPLE_CLASSES)]
+            made = export_serving_example.main(common + ["--out", path]
+                                               + (["--int8"] if int8 else []))
+            served = export_serving_example.main(common + ["--serve", path] + serve_args)
+            if any(shape != (1, X_EXAMPLE_SIZE, X_EXAMPLE_SIZE)
+                   for shape in served["shapes"].values()):
+                raise AssertionError(f"17.2 example serve shapes {served['shapes']}")
+            sizes[int8] = made["bytes"]
+            log(f"17.2 example {'int8' if int8 else 'float'}: {made['bytes'] / 1e6:.1f} MB, "
+                f"export {made['export_s']:.1f} s, load {served['load_s']:.1f} s, served "
+                f"{len(served['shapes'])} image(s) ({card})")
+    ratio = sizes[True] / sizes[False]
+    log(f"17.2 example int8 artifact / float artifact = {ratio:.3f} (must be < 0.75)")
+    if not ratio < 0.75:
+        raise AssertionError(f"17.2 the int8 artifact is {ratio:.3f} of the float one")
+    return {"swin_export_serve": path_counts}
+
+
+def phase_int8_export(env) -> dict[str, dict[str, int]]:
+    """Phase 17: 17.1 and 17.2, each one's seconds."""
+    t0 = time.perf_counter()
+    paths = phase_int8_gemma(env.device)
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    paths.update(phase_export(env))
+    log(f"17 subphase seconds: 17.1 {t1 - t0:.1f}, 17.2 {time.perf_counter() - t1:.1f}")
+    return paths
+
+
 def main(argv: list[str]) -> int:
     only = argv[argv.index("--only") + 1] if "--only" in argv else None
     if argv[:1] == ["--ab"] and len(argv) in (2, 4):
@@ -5673,6 +6050,7 @@ def main(argv: list[str]) -> int:
     timed("F1", phase_f1_repeat, env)
     lm_paths, tp_cache_gather_row = timed("16", phase_lm_distributed, env)
     paths.update(lm_paths)
+    paths.update(timed("17", phase_int8_export, env))
     log("phase seconds: " + json.dumps({k: round(v, 1) for k, v in seconds.items()})
         + f"; {time.perf_counter() - t_run:.1f} s in all ({card_line()})")
 
@@ -5737,13 +6115,16 @@ def main(argv: list[str]) -> int:
                "calibrated_intern_serve": ("deform_local_fwd",),
                "gemma_beam_serve": ("cache_gather",),
                "tp_beam_serve": ("cache_gather",),
+               "gemma_int8_beam_serve": ("cache_gather",),
+               "swin_export_serve": ("window_attention_fwd_mma",),
                "dp_train": loss_kernels}
     for path, names in on_path.items():
         for name in names:
             if paths[path][name] <= 0:
                 raise AssertionError(f"kernel {name} was never launched on the {path} path")
     # the tensor-core routes only
-    for path in ("swin_train", "swin_serve", "swin_train_f32", "swin384_train_f32"):
+    for path in ("swin_train", "swin_serve", "swin_train_f32", "swin384_train_f32",
+                 "swin_export_serve"):
         if paths[path]["window_attention_fwd"] or paths[path]["window_attention_bwd"]:
             raise AssertionError(f"the {path} path launched a CUDA-core window-attention kernel")
 

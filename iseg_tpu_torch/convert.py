@@ -61,8 +61,23 @@ patch axis, their flax kernels ``[tokens, hidden]`` and ``[hidden, tokens]``.
 A ``GemmaCausalLM`` converts as its backbone (the flax tree of the JAX
 ``GemmaCausalLM.init`` is the backbone's: ``token_embedding``, ``layer_i``,
 ``final_normalization``). The ``*_scale`` leaves carry the int8 scales of
-the JAX package's quantized serving; the float path keeps them at one and
-does not apply them, and an int8 leaf raises (ROADMAP queue 1 item 26).
+the JAX package's quantized serving (:mod:`iseg_tpu_torch.ops.quant`); the
+float path keeps them at one and does not apply them. int8 leaves load into
+``QuantDense`` and ``QuantEmbed`` as int8 (the module's weight is replaced):
+
+* W8A8 (``quantize_dense_tree``): an int8 ``kernel`` or ``embedding``
+  array, with its real ``kernel_scale`` (shape ``features``, per output
+  channel: ``(H, Dh)`` for a ``QuantDense((H, Dh))``) or ``embedding_scale``
+  (``[V]``, per row) beside it;
+* weight-only (``quantize_tree``): a ``QTensor`` ``(q, scale)`` leaf, its
+  scale over the last flax axis: ``Dh`` alone for that ``(D, H, Dh)``
+  kernel, ``D`` (per column) for the ``[V, D]`` table; kept as the
+  module's ``weight_scale`` buffer in that shape.
+
+A ``QTensor`` anywhere else (a conv kernel, a ``kernel_scale`` of 4096
+values or more) is dequantized into the float tensor, as the JAX package's
+``dequantize_tree`` would give it to the model. :func:`flax_tree` and
+:func:`to_flax` give the int8 leaves back in the same forms.
 
 :func:`load_flax` consumes every leaf on both sides or raises, so a
 renamed or missing layer cannot pass silently. The same paths key the
@@ -90,7 +105,7 @@ from iseg_tpu_torch.nn.blocks import GlobalResponseNorm
 from iseg_tpu_torch.nn.dcn import DCNv2
 from iseg_tpu_torch.nn.moe import MoEFeedForward
 from iseg_tpu_torch.nn.norm import BatchNorm, ChannelLayerNorm, ChannelRMSNorm, GroupNorm, RMSNorm
-from iseg_tpu_torch.ops.quant import QuantDense, QuantEmbed
+from iseg_tpu_torch.ops.quant import QTensor, QuantDense, QuantEmbed, dequantize
 
 _Leaf = tuple[str, str, torch.Tensor, Callable, Callable]
 
@@ -233,32 +248,73 @@ def module_params_from_flax(model: nn.Module, params: Mapping[str, Any]) -> dict
     return out
 
 
+def _int8_slots(model: nn.Module) -> dict[str, nn.Module]:
+    """{flax path of a ``kernel`` / ``embedding``: the ``QuantDense`` /
+    ``QuantEmbed`` that can hold it as int8}."""
+    if isinstance(model, GemmaCausalLM):
+        model = model.backbone
+    out = {}
+    for name, m in model.named_modules():
+        prefix = name.replace(".", "/")
+        prefix = prefix + "/" if prefix else ""
+        if isinstance(m, QuantDense):
+            out[prefix + "kernel"] = m
+        elif isinstance(m, QuantEmbed):
+            out[prefix + "embedding"] = m
+    return out
+
+
+def _is_qtensor(leaf) -> bool:
+    """A ``QTensor`` of either package (numpy, JAX or torch parts)."""
+    return isinstance(leaf, tuple) and hasattr(leaf, "q") and hasattr(leaf, "scale")
+
+
+def _torch_leaf(raw) -> torch.Tensor:
+    if isinstance(raw, torch.Tensor):
+        return raw
+    raw = np.asarray(raw)
+    if raw.dtype.name == "bfloat16":  # ml_dtypes' bfloat16 (JAX's): exact through fp32
+        return torch.tensor(raw.astype(np.float32)).to(torch.bfloat16)
+    return torch.tensor(raw)
+
+
 @torch.no_grad()
 def load_flax(model: nn.Module, variables: Mapping[str, Any]) -> nn.Module:
     """Fill ``model`` in place from a flax ``{"params", "batch_stats"}`` tree
     of numpy (or array-like) leaves, or torch tensors (copied from where they
-    are: a card's leaves never pass through the host). Raises on a missing
-    or unconsumed leaf and on a shape mismatch."""
+    are: a card's leaves never pass through the host). int8 leaves load as
+    the module note says. Raises on a missing or unconsumed leaf and on a
+    shape mismatch."""
     unknown = set(variables) - {"params", "batch_stats"}
     if unknown:
         raise KeyError(f"unexpected variable collections: {sorted(unknown)}")
     pending = {col: flatten(variables.get(col, {})) for col in ("params", "batch_stats")}
+    slots = _int8_slots(model)
+    dequant_dtype = getattr(model, "dtype", None) or torch.bfloat16
     for col, path, tensor, _, from_flax in _leaves(model):
         if path not in pending[col]:
             raise KeyError(f"flax tree has no {col} leaf {path!r}")
         raw = pending[col].pop(path)
-        if not isinstance(raw, torch.Tensor):
-            raw = np.asarray(raw)
-        if raw.dtype in (np.int8, torch.int8):
-            raise NotImplementedError(
-                f"{col}/{path} is int8: the int8 serving paths are not in the port yet "
-                "(ROADMAP queue 1 item 26)")
+        scale = None
+        if _is_qtensor(raw):
+            raw, scale = _torch_leaf(raw.q), _torch_leaf(raw.scale)
+        raw = _torch_leaf(raw)
+        int8 = raw.dtype == torch.int8
         flax_ndim = getattr(from_flax, "flax_ndim", tensor.ndim)
-        raw = raw if isinstance(raw, torch.Tensor) else torch.tensor(raw)
         value = from_flax(raw) if raw.ndim == flax_ndim else None
         if value is None or tuple(value.shape) != tuple(tensor.shape):
-            raise ValueError(f"{col}/{path}: flax shape {raw.shape} does not map to "
+            raise ValueError(f"{col}/{path}: flax shape {tuple(raw.shape)} does not map to "
                              f"the module's {tuple(tensor.shape)}")
+        if int8 and path in slots and col == "params":
+            # weight-only with a scale over the last flax axis, else W8A8
+            # (its scale is the sibling *_scale leaf, loaded on its own)
+            slots[path].set_int8(value, weight_scale=scale)
+            continue
+        if scale is not None:
+            value = from_flax(dequantize(raw, scale, dequant_dtype))
+        elif int8:
+            raise TypeError(f"{col}/{path} is int8, and only a QuantDense kernel or a "
+                            "QuantEmbed table holds int8")
         tensor.copy_(value)
     left = [f"{col}/{p}" for col, rest in pending.items() for p in rest]
     if left:
@@ -267,10 +323,35 @@ def load_flax(model: nn.Module, variables: Mapping[str, Any]) -> nn.Module:
 
 
 @torch.no_grad()
+def flax_tree(model: nn.Module) -> dict[str, dict[str, Any]]:
+    """The model's weights as a flax ``{"params", "batch_stats"}`` tree of
+    torch tensors where they are, in their own dtypes (views where the
+    layout change is one): the trees :mod:`iseg_tpu_torch.ops.quant`
+    quantizes. int8 leaves come back as :func:`load_flax` takes them."""
+    slots = _int8_slots(model)
+    flat: dict[str, dict[str, Any]] = {"params": {}, "batch_stats": {}}
+    for col, path, tensor, to_flax_fn, _ in _leaves(model):
+        value = to_flax_fn(tensor.detach())
+        owner = slots.get(path)
+        if value.dtype == torch.int8 and owner is not None and owner.weight_scale is not None:
+            value = QTensor(value, owner.weight_scale)
+        flat[col][path] = value
+    return {col: unflatten(leaves) for col, leaves in flat.items()}
+
+
 def to_flax(model: nn.Module) -> dict[str, dict[str, Any]]:
     """The model's weights as a flax ``{"params", "batch_stats"}`` tree of
-    float32 numpy arrays."""
-    flat: dict[str, dict[str, np.ndarray]] = {"params": {}, "batch_stats": {}}
-    for col, path, tensor, to_flax_fn, _ in _leaves(model):
-        flat[col][path] = to_flax_fn(tensor.detach().float().cpu()).contiguous().numpy()
-    return {col: unflatten(leaves) for col, leaves in flat.items()}
+    float32 numpy arrays (int8 leaves stay int8, weight-only ones a
+    ``QTensor`` of int8 and float32 numpy arrays)."""
+
+    def host(t: torch.Tensor) -> np.ndarray:
+        t = t.cpu() if t.dtype == torch.int8 else t.float().cpu()
+        return t.contiguous().numpy()
+
+    def leaf(v):
+        return QTensor(host(v.q), host(v.scale)) if isinstance(v, QTensor) else host(v)
+
+    def walk(node):
+        return {k: walk(v) for k, v in node.items()} if isinstance(node, dict) else leaf(node)
+
+    return walk(flax_tree(model))

@@ -3,8 +3,11 @@ KV-cache generation, the samplers, and the SentencePiece tokenizer; tensor
 and sequence parallelism (``model.GemmaParallel``), the tensor-parallel
 layout (:mod:`.layout`) and the pipeline-parallel loss (:mod:`.pipeline`).
 
-Counterpart of ``iseg_tpu/nlp/gemma``. The int8 serving paths are not in the
-port yet (ROADMAP queue 1 item 26).
+Counterpart of ``iseg_tpu/nlp/gemma``. int8 serving, weight-only and W8A8,
+loads a quantized tree into the model (``ops.quant.quantize_tree`` or
+``quantize_dense_tree`` of ``convert.flax_tree(lm)["params"]``, then
+``convert.load_flax``); :mod:`.quant` is the JAX package's alias of the
+weight-only quantizer.
 """
 
 from iseg_tpu_torch.nlp.gemma.causal_lm import GemmaCausalLM

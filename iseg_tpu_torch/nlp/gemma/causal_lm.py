@@ -29,6 +29,14 @@ The order inside a beam step is the JAX package's: pick parents, reorder
 the token histories, gather the active cache, then run the forward that
 writes slot ``i``.
 
+int8 serving is transparent, as in the JAX package: a model loaded with a
+weight-only tree (``ops.quant.quantize_tree``) holds int8 + scales and
+dequantizes each weight, to ``dtype`` or bfloat16, in the layer that uses it,
+for the prefill and every decode step (the JAX package's
+``_dense_variables`` behind an optimization barrier); one loaded with a
+W8A8 tree (``quantize_dense_tree``) runs its products in int8. No dense
+copy of the weights stays resident between steps.
+
 Distributed (``model.GemmaParallel``): under tensor parallelism every rank
 runs the same program on its heads; the logits are all-gathered, so the
 ranks pick the same tokens (greedy and beam are deterministic, the random

@@ -50,6 +50,10 @@ contiguous; the maps and the incoming gradient are contiguous. Every
 output of both kernels is bitwise repeatable: all sums run in a fixed
 order, without atomics.
 
+Where no gradient is recorded (serving, ``torch.export``) the forward is
+the operator ``iseg::dense_local_fwd`` (:func:`dense_local_fwd`); with a
+gradient, the autograd Function of the two kernels.
+
 ``LAUNCH_COUNTS`` counts kernel launches (``"fwd"``, ``"bwd"``): one per
 launch of each kernel, nowhere else.
 """
@@ -325,6 +329,23 @@ class _DenseLocalFlat(torch.autograd.Function):
         return (*grads, None, None, None)
 
 
+@torch.library.custom_op("iseg::dense_local_fwd", mutates_args=())
+def dense_local_fwd(x: torch.Tensor, off_dy: torch.Tensor, off_dx: torch.Tensor,
+                    modulation: torch.Tensor, groups: int, kernel_size: int,
+                    max_offset: int) -> torch.Tensor:
+    """The inference forward as one operator, ``iseg::dense_local_fwd``:
+    the kernel on CUDA tensors (its checks, which read the tensors'
+    addresses, run here), the plain version on CPU tensors.
+    :func:`deform_dense_local_flat` calls it where no gradient is recorded,
+    so ``torch.export`` traces it as one node (by its fake below)."""
+    return _forward(x, off_dy, off_dx, modulation, groups, kernel_size, max_offset)
+
+
+@dense_local_fwd.register_fake
+def _dense_local_fwd_fake(x, off_dy, off_dx, modulation, groups, kernel_size, max_offset):
+    return torch.empty(x.shape, dtype=x.dtype, device=x.device)
+
+
 def deform_dense_local_flat(x, off_dy, off_dx, modulation, groups, kernel_size=3,
                             max_offset=2):
     """Grouped dense-local sampling (see the module docstring).
@@ -338,5 +359,10 @@ def deform_dense_local_flat(x, off_dy, off_dx, modulation, groups, kernel_size=3
     """
     groups, kernel_size, max_offset = int(groups), int(kernel_size), int(max_offset)
     _check_inputs(x, off_dy, off_dx, modulation, groups, kernel_size, max_offset)
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"dense_local_flat: no kernel for device {x.device}")
+    if not (torch.is_grad_enabled()
+            and any(t.requires_grad for t in (x, off_dy, off_dx, modulation))):
+        return dense_local_fwd(x, off_dy, off_dx, modulation, groups, kernel_size, max_offset)
     return _DenseLocalFlat.apply(x, off_dy, off_dx, modulation, groups, kernel_size,
                                  max_offset)

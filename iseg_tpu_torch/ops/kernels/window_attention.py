@@ -46,6 +46,10 @@ whose tiles do not fit raises. Every output, dbias included, is bitwise
 repeatable: dbias is summed from fp32 ds over chunks of windows in a fixed
 order, with no atomics.
 
+Where no gradient is recorded (serving, ``torch.export``) the forward is
+the operator ``iseg::window_attention_fwd`` (:func:`window_attention_fwd`);
+with a gradient, the autograd Function of the two kernels.
+
 ``LAUNCH_COUNTS`` counts kernel launches (``"fwd"`` and ``"bwd"`` for the
 CUDA-core kernels, ``"fwd_mma"`` and ``"bwd_mma"`` for the bf16
 tensor-core ones, ``"fwd_tf32x3"`` and ``"bwd_tf32x3"`` for the fp32
@@ -354,6 +358,29 @@ def window_attention_reference(q, k, v, bias, mask, scale):
     return torch.einsum("bhqk,bhkd->bhqd", p, v.to(f)).to(q.dtype)
 
 
+@torch.library.custom_op("iseg::window_attention_fwd", mutates_args=())
+def window_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: torch.Tensor,
+                         mask: torch.Tensor, scale: float) -> torch.Tensor:
+    """The inference forward as one operator, ``iseg::window_attention_fwd``:
+    the kernel on CUDA tensors (its checks, which read the tensors'
+    addresses, run here), the plain version on CPU tensors; the output is
+    token-major on both. :func:`window_attention` calls it where no gradient
+    is recorded, so ``torch.export`` traces it as one node (by its fake
+    below) and an exported artifact launches the kernel when served."""
+    if q.device.type == "cuda":
+        return _launch_fwd(q, k, v, bias, mask, scale)[0]
+    return _token_major_empty(q).copy_(window_attention_reference(q, k, v, bias, mask, scale))
+
+
+@window_attention_fwd.register_fake
+def _window_attention_fwd_fake(q, k, v, bias, mask, scale):
+    return _token_major_empty(q)
+
+
+def _records_grad(*tensors: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
 def window_attention(q, k, v, bias, mask, scale):
     """Fused window attention.
 
@@ -366,8 +393,10 @@ def window_attention(q, k, v, bias, mask, scale):
       scale: attention scale (1/sqrt(D)), a Python float.
     Returns ``[bnw, H, N, D]`` in q's dtype.
     """
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"window_attention: no kernel for device {q.device}")
+    if not _records_grad(q, k, v, bias):
+        return window_attention_fwd(q, k, v, bias, mask, float(scale))
     if q.device.type == "cpu":
         return window_attention_reference(q, k, v, bias, mask, scale)
-    if q.device.type == "cuda":
-        return _WindowAttention.apply(q, k, v, bias, mask, float(scale))
-    raise ValueError(f"window_attention: no kernel for device {q.device}")
+    return _WindowAttention.apply(q, k, v, bias, mask, float(scale))

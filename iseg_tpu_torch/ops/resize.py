@@ -1,21 +1,28 @@
 """Image resizing and positional-embedding resampling (counterpart of
 ``iseg_tpu/ops/resize.py``).
 
-NHWC (or HWC) at the boundary, like the JAX package. Bilinear is
-half-pixel without antialias, ``jax.image.resize(..., "linear",
-antialias=False)``, by interpolation matrices (:func:`_linear_matrix`):
-the same values as ``F.interpolate(align_corners=False)``, but a backward
-that sums in a fixed order where ``F.interpolate``'s CUDA backward adds
-with atomics, so a training run through it repeats bit for bit. Bicubic is
-``jax.image.resize(..., "bicubic", antialias=False)`` by interpolation
-matrices (:func:`_cubic_matrix`): JAX's cubic is Keys' with a = -0.5 where
-``F.interpolate``'s is a = -0.75, and JAX drops the taps that fall outside
-the input and renormalizes the rest where torch clamps them to the border,
-so no torch resize computes it. Integer maps and
-``method="nearest"`` sample at half-pixel centres like
+NHWC (or HWC) at the boundary, like the JAX package. :func:`resize_image`
+takes every method of ``jax.image.resize``: ``linear`` / ``bilinear``,
+``cubic`` / ``bicubic``, ``lanczos3``, ``lanczos5``, each with or without
+``antialias``, and ``nearest``. The float methods are products with one
+``[out, in]`` interpolation matrix per axis that changes size, built by
+:func:`_scale_matrix` as ``jax.image.scale_and_translate`` builds its
+weights: the method's kernel at half-pixel sample points, widened by
+``in / out`` when antialiasing a downsample, each row renormalized (0 where
+its sum is within 1000 fp32 epsilons of 0), 0 for a sample point outside
+the input, in fp32 arithmetic (float64 for float64, the JAX package's x64
+mode). Products with matrices sum in a fixed order forward and backward,
+where ``F.interpolate``'s CUDA backward adds with atomics, so a training run
+through them repeats bit for bit. No torch resize computes these
+functions: JAX's cubic is Keys' with a = -0.5 (torch's a = -0.75) and drops
+the taps outside the input and renormalizes (torch clamps to the border);
+non-antialiased bilinear equals ``F.interpolate(align_corners=False)``.
+Integer maps and ``method="nearest"`` sample at half-pixel centres like
 ``jax.image.resize(..., "nearest")``, i.e. torch's ``"nearest-exact"`` and
-not ``"nearest"``; the indices are computed here in float32 exactly as
-JAX computes them, so every dtype (int labels included) takes one path.
+not ``"nearest"``; the indices are computed here in float32 exactly as JAX
+computes them, so every dtype (int labels included) takes one path.
+``align_corners=True`` (bilinear only) is the JAX package's align-corners
+resize (src = i * (in-1)/(out-1)).
 """
 
 from __future__ import annotations
@@ -56,16 +63,56 @@ def _const(m: np.ndarray, dtype: torch.dtype, device: torch.device) -> torch.Ten
         return torch.tensor(m, dtype=dtype, device=device)
 
 
-@functools.lru_cache(maxsize=256)
-def _linear_matrix(out_len: int, in_len: int, align_corners: bool, dtype: torch.dtype,
-                   device: torch.device) -> torch.Tensor:
-    """``[out, in]`` weights of 1-D linear interpolation, made once per
-    geometry, type and device. ``align_corners``: src = i * (in-1)/(out-1)
-    (the JAX package's ``_align_corners_matrix``); else half-pixel, src =
-    (i + 0.5) * in/out - 0.5 held at 0 from below (``jax.image.resize`` and
-    ``F.interpolate``; no antialias), by :func:`_half_pixel_linear`."""
-    if not align_corners:
-        return _const(_half_pixel_linear(out_len, in_len, dtype), dtype, device)
+def _triangle(x: np.ndarray) -> np.ndarray:
+    return np.maximum(0, 1 - np.abs(x))
+
+
+def _keys_cubic(x: np.ndarray) -> np.ndarray:
+    """Keys' cubic convolution kernel with a = -0.5 at distances ``x`` >= 0
+    (``jax.image``'s ``_fill_keys_cubic_kernel``)."""
+    out = ((1.5 * x - 2.5) * x) * x + 1.0
+    out = np.where(x >= 1.0, ((-0.5 * x + 2.5) * x - 4.0) * x + 2.0, out)
+    return np.where(x >= 2.0, 0.0, out).astype(x.dtype)
+
+
+def _lanczos(radius: float):
+    def kernel(x: np.ndarray) -> np.ndarray:
+        y = radius * np.sin(np.pi * x) * np.sin(np.pi * x / radius)
+        out = np.where(x > 1e-3, y / np.where(x != 0, np.pi ** 2 * x ** 2, 1), 1)
+        return np.where(x > radius, 0.0, out).astype(x.dtype)
+    return kernel
+
+
+_KERNELS = {"linear": _triangle, "cubic": _keys_cubic, "lanczos3": _lanczos(3.0),
+            "lanczos5": _lanczos(5.0)}
+# jax.image.ResizeMethod.from_string's names
+_METHODS = {"linear": "linear", "bilinear": "linear", "trilinear": "linear",
+            "triangle": "linear", "cubic": "cubic", "bicubic": "cubic", "tricubic": "cubic",
+            "lanczos3": "lanczos3", "lanczos5": "lanczos5"}
+
+
+def _scale_matrix(out_len: int, in_len: int, kernel: str, antialias: bool,
+                  dtype: torch.dtype) -> np.ndarray:
+    """``[out, in]`` weights of ``jax.image.scale_and_translate``'s resize
+    along one axis (``compute_weight_mat``), in its arithmetic: float64 for
+    float64, else fp32 (its weights' type), the scale a Python float
+    rounded once."""
+    ft = np.float64 if dtype == torch.float64 else np.float32
+    inv_scale = ft(1.0 / (out_len / in_len))
+    kernel_scale = max(inv_scale, ft(1.0)) if antialias else ft(1.0)
+    src = (np.arange(out_len, dtype=ft) + ft(0.5)) * inv_scale - ft(0.5)
+    dist = np.abs(src[:, None] - np.arange(in_len, dtype=ft)[None, :]) / kernel_scale
+    m = _KERNELS[kernel](dist)
+    total = m.sum(axis=1, keepdims=True, dtype=ft)
+    m = np.where(np.abs(total) > ft(1000.0 * np.finfo(np.float32).eps),
+                 m / np.where(total != 0, total, ft(1.0)), ft(0.0))
+    inside = (src >= ft(-0.5)) & (src <= ft(in_len - 0.5))
+    return np.where(inside[:, None], m, ft(0.0))
+
+
+def _align_corners_matrix(out_len: int, in_len: int) -> np.ndarray:
+    """``[out, in]`` weights of linear interpolation at src = i * (in-1)/(out-1)
+    (the JAX package's ``_align_corners_matrix``)."""
     i = np.arange(out_len, dtype=np.float64)
     src = i * (in_len - 1) / (out_len - 1) if out_len > 1 else np.zeros(out_len)
     lo = np.minimum(np.floor(src).astype(np.int64), in_len - 1)
@@ -74,118 +121,52 @@ def _linear_matrix(out_len: int, in_len: int, align_corners: bool, dtype: torch.
     m = np.zeros((out_len, in_len))
     np.add.at(m, (np.arange(out_len), lo), 1.0 - frac)
     np.add.at(m, (np.arange(out_len), hi), frac)
-    return _const(m, dtype, device)
-
-
-def _half_pixel_linear(out_len: int, in_len: int, dtype: torch.dtype) -> np.ndarray:
-    """``[out, in]`` weights of ``jax.image.resize(..., "linear",
-    antialias=False)``, computed as ``jax.image``'s ``compute_weight_mat``
-    computes them: in float64 for float64, else in fp32 arithmetic (its
-    weights' type), the triangle kernel at half-pixel sample points, each
-    row renormalized to sum 1 (which holds the border samples at the edge
-    pixel), and 0 for a sample point outside the input."""
-    ft = np.float64 if dtype == torch.float64 else np.float32
-    inv_scale = ft(1.0 / (out_len / in_len))  # a Python float there, rounded once
-    src = (np.arange(out_len, dtype=ft) + ft(0.5)) * inv_scale - ft(0.5)
-    m = np.maximum(ft(0.0), ft(1.0) - np.abs(src[:, None] - np.arange(in_len, dtype=ft)[None, :]))
-    total = m.sum(axis=1, keepdims=True, dtype=ft)
-    m = np.where(np.abs(total) > ft(1000.0 * np.finfo(np.float32).eps),
-                 m / np.where(total != 0, total, ft(1.0)), ft(0.0))
-    inside = (src >= ft(-0.5)) & (src <= ft(in_len - 0.5))
-    return np.where(inside[:, None], m, ft(0.0))
+    return m
 
 
 @functools.lru_cache(maxsize=256)
-def _antialias_linear_matrix(out_len: int, in_len: int, dtype: torch.dtype,
-                             device: torch.device) -> torch.Tensor:
-    """``[out, in]`` weights of ``jax.image.scale_and_translate``'s linear
-    resize with antialias: the triangle kernel widened by ``in / out``
-    when downsampling (as it is, upsampling), at half-pixel sample points,
-    each row renormalized to sum 1 (0 where its sum is within 1000 fp32
-    epsilons of 0), and 0 for a sample point outside the input."""
-    inv_scale = in_len / out_len
-    src = (np.arange(out_len, dtype=np.float64) + 0.5) * inv_scale - 0.5
-    dist = np.abs(src[:, None] - np.arange(in_len, dtype=np.float64)[None, :])
-    m = np.maximum(0.0, 1.0 - dist / max(inv_scale, 1.0))
-    total = m.sum(axis=1, keepdims=True)
-    m = np.where(np.abs(total) > 1000.0 * np.finfo(np.float32).eps,
-                 m / np.where(total != 0, total, 1.0), 0.0)
-    inside = (src >= -0.5) & (src <= in_len - 0.5)
-    return _const(np.where(inside[:, None], m, 0.0), dtype, device)
+def _interp_matrix(out_len: int, in_len: int, kernel: str, antialias: bool,
+                   dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """:func:`_scale_matrix` (``kernel`` ``"align_corners"``:
+    :func:`_align_corners_matrix`) as a tensor, made once per geometry,
+    method, type and device."""
+    if kernel == "align_corners":
+        return _const(_align_corners_matrix(out_len, in_len), dtype, device)
+    return _const(_scale_matrix(out_len, in_len, kernel, antialias, dtype), dtype, device)
 
 
-def _keys_cubic(x: np.ndarray) -> np.ndarray:
-    """Keys' cubic convolution kernel with a = -0.5 at distances ``x`` >= 0
-    (``jax.image``'s ``_fill_keys_cubic_kernel``)."""
-    near = ((1.5 * x - 2.5) * x) * x + 1.0
-    far = ((-0.5 * x + 2.5) * x - 4.0) * x + 2.0
-    return np.where(x >= 2.0, 0.0, np.where(x >= 1.0, far, near))
-
-
-@functools.lru_cache(maxsize=256)
-def _cubic_matrix(out_len: int, in_len: int, dtype: torch.dtype,
-                  device: torch.device) -> torch.Tensor:
-    """``[out, in]`` weights of ``jax.image.scale_and_translate``'s bicubic
-    resize without antialias: half-pixel sample points, the kernel at the
-    input positions only (taps outside ``[0, in)`` are dropped), each row
-    renormalized to sum 1 (0 where its sum is within 1000 fp32 epsilons of
-    0), and 0 for a sample point outside the input."""
-    src = (np.arange(out_len, dtype=np.float64) + 0.5) * in_len / out_len - 0.5
-    m = _keys_cubic(np.abs(src[:, None] - np.arange(in_len, dtype=np.float64)[None, :]))
-    total = m.sum(axis=1, keepdims=True)
-    m = np.where(np.abs(total) > 1000.0 * np.finfo(np.float32).eps,
-                 m / np.where(total != 0, total, 1.0), 0.0)
-    inside = (src >= -0.5) & (src <= in_len - 0.5)
-    return _const(np.where(inside[:, None], m, 0.0), dtype, device)
-
-
-def _resize_matmul(x: torch.Tensor, mh: torch.Tensor, mw: torch.Tensor) -> torch.Tensor:
-    """NHWC ``x`` resized by ``[h, in_h]`` and ``[w, in_w]`` interpolation
-    matrices, one product per axis."""
+def _resize_matmul(x: torch.Tensor, size, kernel: str, antialias: bool = False) -> torch.Tensor:
+    """NHWC ``x`` resized to ``size`` by one product with an interpolation
+    matrix per axis that changes size (H first, then W)."""
     n, in_h, in_w, c = x.shape
-    h, w = mh.shape[0], mw.shape[0]
-    y = torch.matmul(mh, x.reshape(n, in_h, in_w * c)).reshape(n * h, in_w, c)
-    return torch.matmul(mw, y).reshape(n, h, w, c)
+    h, w = _normalize_size(size)
+    if h != in_h:
+        mh = _interp_matrix(h, in_h, kernel, antialias, x.dtype, x.device)
+        x = torch.matmul(mh, x.reshape(n, in_h, in_w * c)).reshape(n, h, in_w, c)
+    if w != in_w:
+        mw = _interp_matrix(w, in_w, kernel, antialias, x.dtype, x.device)
+        x = torch.matmul(mw, x.reshape(n * h, in_w, c)).reshape(n, h, w, c)
+    return x
 
 
 def resize_bicubic_matmul(x: torch.Tensor, size: Sequence[int] | int) -> torch.Tensor:
     """``jax.image.resize(x, ..., "bicubic", antialias=False)`` of an NHWC
-    tensor, by :func:`_cubic_matrix` on each axis, in ``x``'s type (its
-    backward is two more products, summed in a fixed order)."""
-    h, w = _normalize_size(size)
-    _, in_h, in_w, _ = x.shape
-    if (in_h, in_w) == (h, w):
-        return x
-    return _resize_matmul(x, _cubic_matrix(h, in_h, x.dtype, x.device),
-                          _cubic_matrix(w, in_w, x.dtype, x.device))
+    tensor, in ``x``'s type (its backward is two more products, summed in a
+    fixed order)."""
+    return _resize_matmul(x, size, "cubic")
 
 
 def resize_bilinear_matmul(x: torch.Tensor, size: Sequence[int] | int,
                            align_corners: bool) -> torch.Tensor:
-    """Bilinear NHWC resize as two products with interpolation matrices,
-    one per axis, as the JAX package computes its align-corners resize. Its
-    backward is two more products, so it sums in a fixed order:
-    ``F.interpolate``'s CUDA backward adds with atomics, and a training run
-    through it is not repeatable bit for bit. For a channels_last NCHW
-    tensor's NHWC view both products take their operands without a copy."""
-    h, w = _normalize_size(size)
-    _, in_h, in_w, _ = x.shape
-    if (in_h, in_w) == (h, w):
-        return x
-    return _resize_matmul(x, _linear_matrix(h, in_h, align_corners, x.dtype, x.device),
-                          _linear_matrix(w, in_w, align_corners, x.dtype, x.device))
-
-
-def resize_bilinear_antialias(x: torch.Tensor, size: Sequence[int] | int) -> torch.Tensor:
-    """``jax.image.resize(x, ..., "bilinear")`` (antialias on, its
-    default) of an NHWC tensor, by :func:`_antialias_linear_matrix` on each
-    axis that changes size."""
-    h, w = _normalize_size(size)
-    _, in_h, in_w, _ = x.shape
-    if (in_h, in_w) == (h, w):
-        return x
-    return _resize_matmul(x, _antialias_linear_matrix(h, in_h, x.dtype, x.device),
-                          _antialias_linear_matrix(w, in_w, x.dtype, x.device))
+    """Bilinear NHWC resize as products with interpolation matrices, one per
+    axis, as the JAX package computes its align-corners resize
+    (``align_corners``) or as ``jax.image.resize(..., "linear",
+    antialias=False)`` (half-pixel). Its backward is more products, so it
+    sums in a fixed order: ``F.interpolate``'s CUDA backward adds with
+    atomics, and a training run through it is not repeatable bit for bit.
+    For a channels_last NCHW tensor's NHWC view both products take their
+    operands without a copy."""
+    return _resize_matmul(x, size, "align_corners" if align_corners else "linear")
 
 
 def resize_bilinear_align_corners(x: torch.Tensor, size: Sequence[int] | int) -> torch.Tensor:
@@ -210,9 +191,8 @@ def resize_image(
     antialias: bool = False,
     align_corners: bool = False,
 ) -> torch.Tensor:
-    """Resize NHWC (or HWC) images to ``size=(H, W)``: bilinear (or
-    ``method="bicubic"``) for float tensors, nearest for integer label
-    maps."""
+    """Resize NHWC (or HWC) images to ``size=(H, W)`` by any method of
+    ``jax.image.resize`` (integer maps by nearest), in ``x``'s type."""
     h, w = _normalize_size(size)
     squeeze = x.ndim == 3
     if squeeze:
@@ -222,16 +202,12 @@ def resize_image(
 
     if not torch.is_floating_point(x) or method == "nearest":
         out = _resize_nearest(x, h, w)
-    elif method not in ("bilinear", "bicubic"):
-        raise NotImplementedError(f"resize method {method!r} is not ported yet")
-    elif antialias and method == "bicubic":
-        raise NotImplementedError("antialiased bicubic resize is not ported yet")
-    elif antialias:
-        out = resize_bilinear_antialias(x, (h, w))
-    elif method == "bicubic":
-        out = resize_bicubic_matmul(x, (h, w))
+    elif align_corners and method == "bilinear":
+        out = resize_bilinear_matmul(x, (h, w), align_corners=True)
+    elif method in _METHODS:
+        out = _resize_matmul(x, (h, w), _METHODS[method], antialias)
     else:
-        out = resize_bilinear_matmul(x, (h, w), align_corners=align_corners)
+        raise ValueError(f"Unknown resize method {method!r}")
     return out[0] if squeeze else out
 
 

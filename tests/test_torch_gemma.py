@@ -171,20 +171,34 @@ def test_torch_gemma_quant_embed_bf16_table_readout():
 
 
 def test_torch_gemma_int8_weights_raise():
+    """int8 weights set by hand (a QuantDense weight, a QuantEmbed table)
+    and an int8 kernel loaded by ``load_flax`` compute the JAX package's
+    values: the W8A8 product, the rows and the readout."""
+    rng = np.random.RandomState(5)
+    q = rng.randint(-127, 128, (4, 8)).astype(np.int8)  # [N, K], weight's layout
+    x = rng.randn(2, 8).astype(np.float32)
     dense = QuantDense(8, 4, device="cpu")
-    dense.weight = torch.nn.Parameter(torch.zeros((4, 8), dtype=torch.int8), requires_grad=False)
-    with pytest.raises(NotImplementedError, match="item 26"):
-        dense(torch.zeros(2, 8))
+    dense.weight = torch.nn.Parameter(torch.tensor(q), requires_grad=False)
+    jdense = jax_quant.QuantDense(4)
+    jvars = {"params": {"kernel": jnp.asarray(q.T), "kernel_scale": jnp.ones(4)}}
+    want = np.asarray(jdense.apply(jvars, jnp.asarray(x)))
+    np.testing.assert_array_equal(dense(torch.tensor(x)).numpy(), want)
+    table = rng.randint(-127, 128, (16, 8)).astype(np.int8)
     embed = QuantEmbed(16, 8, device="cpu")
-    embed.embedding = torch.nn.Parameter(torch.zeros((16, 8), dtype=torch.int8),
-                                         requires_grad=False)
-    with pytest.raises(NotImplementedError, match="item 26"):
-        embed(torch.zeros(2, dtype=torch.long))
-    with pytest.raises(NotImplementedError, match="item 26"):
-        embed.attend(torch.zeros(2, 8))
-    with pytest.raises(NotImplementedError, match="item 26"):
-        convert.load_flax(QuantDense(8, 4, device="cpu"), {"params": {
-            "kernel": np.zeros((8, 4), np.int8), "kernel_scale": np.ones(4, np.float32)}})
+    embed.embedding = torch.nn.Parameter(torch.tensor(table), requires_grad=False)
+    jembed = jax_quant.QuantEmbed(16, 8)
+    jvars_e = {"params": {"embedding": jnp.asarray(table), "embedding_scale": jnp.ones(16)}}
+    ids = np.array([3, 11])
+    np.testing.assert_array_equal(embed(torch.tensor(ids)).numpy(),
+                                  np.asarray(jembed.apply(jvars_e, jnp.asarray(ids))))
+    np.testing.assert_array_equal(
+        embed.attend(torch.tensor(x)).numpy(),
+        np.asarray(jembed.apply(jvars_e, jnp.asarray(x), method=jax_quant.QuantEmbed.attend)))
+    loaded = convert.load_flax(QuantDense(8, 4, device="cpu"), {"params": {
+        "kernel": q.T, "kernel_scale": np.full(4, 0.5, np.float32)}})
+    jvars["params"]["kernel_scale"] = jnp.full(4, 0.5)
+    np.testing.assert_array_equal(loaded(torch.tensor(x)).numpy(),
+                                  np.asarray(jdense.apply(jvars, jnp.asarray(x))))
 
 
 # -- weights carried across ----------------------------------------------------
