@@ -87,10 +87,15 @@ Phases, in order; any failure raises and the script exits non-zero:
    is checked), and at window 12 (N = 144: ``swin_large_384``'s four stage
    shapes at the same input; the f32 backward there is the split-TF32 kernel
    that forms each warp's query rows, then its keys, from the forward's
-   lse), the f32 forward at window 12 with 64-wide heads (the same N > 64
-   split-TF32 forward), and the CUDA-core forward and backward at window 12 with a head
-   dim that is no multiple of 8 (D = 36; every f32 row bound at the
-   split-TF32 rate); dense-local sampling forward and all four
+   lse), the streaming kernels (every f32 and bf16 shape with D <= 128 that
+   the tensor-core routes do not take) at window 12 with 64-wide heads in f32
+   (behind the N > 64 split-TF32 forward) and bf16 (behind the tensor-core
+   forward), bf16 D = 128 there, f32 D = 36 there (no multiple of 8), window
+   16 (N = 256: phase 6d's stage 0 and 2 shapes) in both types and bf16
+   window 7 with D = 24, each route asserted and each run repeated bit for
+   bit, and the CUDA-core forward and backward at heads wider than 128 (D =
+   136, N = 49), the shapes they keep (every f32 row bound at the split-TF32
+   rate); dense-local sampling forward and all four
    gradients at InternImage-T's four stage shapes, in f32 and in the
    autocast type mix (bf16 values on a transposed view, fp32 offsets, bf16
    modulation), with offsets drawn beyond the clamp, and the backward's
@@ -101,7 +106,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    256 and 512) and at one odd f32 slab, with the
    advanced-indexing gather (its plain version), ``torch.take_along_dim``,
    ``torch.index_select`` of whole rows and ``out.copy_(cache)`` timed
-   beside it;
+   beside it (the kernel, ``index_select`` and ``copy_`` also by the
+   profiler's device time, without the host's dispatch);
 3. ResNet train: 2 warm-up + 3 timed fused steps; losses finite, exactly
    one forward and one backward loss-kernel launch per step;
 4. ResNet fused vs unfused: one unfused step from the same initial weights
@@ -178,6 +184,16 @@ Phases, in order; any failure raises and the script exits non-zero:
    weights and drop-path draws on the plain window attention; ms/step, img/s,
    peak memory (``--ab OLD --only wa12`` times the step and its window
    attention against OLD's);
+6d. Swin-L's widths (192, depths (2, 2, 18, 2), heads (6, 12, 24, 48)) at
+   window 16 (N = 256, D = 32: Swin V2's window) + ``SemanticFPN(256)``, the
+   Swin path's batch, data and bf16 autocast, SGD poly: one eval-mode bf16
+   forward at batch 2 on the streaming kernels within max(2 x the bf16 plain
+   run's distance, 2e-2) of max |logit| of the same weights in fp32 on the
+   plain window attention; 2 warm-up + 3 timed steps with exactly 24
+   streaming forward and 24 streaming backward launches in every step (no
+   other window-attention kernel) and 1 + 1 loss launches; ms/step, peak
+   memory, and one profiled step: the streaming kernels' device ms and
+   share;
 7. Swin serve, batch 2, trained weights: the bf16 single-scale logits with
    the kernels lie within max(2 x the bf16 network's own distance, 2e-2) of
    max |logit| from the same weights served in fp32 on the plain versions
@@ -418,10 +434,14 @@ then 3 profiled: ms/step, device time, the window attention's time and
 share, peak memory).
 The last line holds each number of the four processes, OLD's two and this
 tree's two. ``--ab OLD --only f1`` times phase F1's three steps alone.
+``--ab OLD --only stream`` times phase 2's streaming rows (forward and
+backward, SDPA beside each, profiler device time): the D = 36 pair, which a
+tree from before the streaming kernels runs on its CUDA-core kernels, and
+the rows where such a tree raises, which it records as raised.
 
 The launch counters are set to 0 just before each main path (3, 5b's
 uninterrupted run, 5c's fixed-batch steps, its two train_seg runs together
-and its OHEM run, 6, 6b, 7, 8, 9, each request of 10, 11.1, each micro-step
+and its OHEM run, 6, 6b, 6c, 6d (each step), 7, 8, 9, each request of 10, 11.1, each micro-step
 of 11.2, its resumed run, 11.3 and 11.4, 12.1 and 12.2 (and each of their
 steps), the patch-dropout step and each serve of 12.3, 13.1, 13.2, 13.4 and
 each model of 13.5, and each of their train steps, 14.3's forward, each train step and
@@ -524,15 +544,34 @@ WA_LAUNCHES_PER_FORWARD = sum(s[4] for s in WA_STAGES)  # 24
 # padded to 132/72/36/24; (stage, window batch, heads, windows per image)
 WA12_STAGES = (("stage0", 968, 6, 121), ("stage1", 288, 12, 36), ("stage2", 72, 24, 9),
                ("stage3", 32, 48, 4))
-# fp32 at window 12 with 64-wide heads (Swin-L stage 2's width, 12 heads): the
-# split-TF32 forward above N = 64, off every main path; forward only (the
-# backward's tiles fit no kernel at D = 64, N = 144); (stage, window batch,
-# heads, windows per image, head dim)
-WA_WIDE_FWD = ("stage2", 72, 12, 9, 64)
-# fp32 at window 12 with a head dim that is no multiple of 8: the CUDA-core
-# forward and backward, which keep every shape the tensor-core routes do not
-# take (off every main path)
-WA_CUDA_CORE = ("stage2", 72, 12, 9, 36)
+# The streaming kernels' rows (off the paths above; window 16 is phase 6d's):
+# (stage, window batch, heads, windows per image, window, head dim, dtype,
+# (forward route, backward route)). fp32 at window 12 with 64-wide heads
+# (Swin-L stage 2's width, 12 heads): the split-TF32 forward above N = 64 and
+# the streaming backward; bf16 there: the tensor-core forward and the
+# streaming backward; bf16 at D = 128, whose tensor-core tiles fit no block;
+# fp32 at window 12 with a head dim that is no multiple of 8 (D = 36, the
+# pair --ab --only stream times against the parent's CUDA-core kernels);
+# window 16 (N = 256, Swin V2's geometry) at stages 0 and 2 of the 512x512,
+# batch-8 input; bf16 at window 7 with D = 24 (no multiple of 16)
+WA_STREAM_ROWS = (
+    ("stage2", 72, 12, 9, 12, 64, torch.float32, ("tf32x3", "stream")),
+    ("stage2", 72, 12, 9, 12, 64, torch.bfloat16, ("mma", "stream")),
+    ("stage2", 72, 6, 9, 12, 128, torch.bfloat16, ("stream", "stream")),
+    ("stage2", 72, 12, 9, 12, 36, torch.float32, ("stream", "stream")),
+    ("stage0", 512, 6, 64, 16, 32, torch.float32, ("stream", "stream")),
+    ("stage0", 512, 6, 64, 16, 32, torch.bfloat16, ("stream", "stream")),
+    ("stage2", 32, 24, 4, 16, 32, torch.float32, ("stream", "stream")),
+    ("stage2", 32, 24, 4, 16, 32, torch.bfloat16, ("stream", "stream")),
+    ("stage2", 200, 24, 25, 7, 24, torch.bfloat16, ("stream", "stream")),
+)
+# heads wider than 128: the CUDA-core forward and backward, the one shape
+# class they keep (off every main path)
+WA_CUDA_CORE = ("stage2", 200, 2, 25, 7, 136, torch.float32, ("cuda_core", "cuda_core"))
+# phase 6d: Swin-L's widths (192, depths (2, 2, 18, 2), heads (6, 12, 24, 48))
+# at window 16 (N = 256, D = 32) + SemanticFPN(256), the Swin path's batch and
+# data, bf16 autocast: every window attention on the streaming kernels
+S16_WINDOW, S16_WARMUP, S16_TIMED = 16, 2, 3
 # InternImage path
 I_BATCH, I_CLASSES, I_OS = 8, 19, 32
 I_WARMUP, I_TIMED, I_SERVE_BATCH = 2, 5, 2
@@ -919,25 +958,29 @@ def kernel_device_ms(fn, needle: str, reps: int = 10, warmup: int = 2, setup=Non
     """torch.profiler's device time per call of the one kernel of ``fn(arg)``
     whose name holds ``needle``, in a call that launches several. The
     profiler must record that kernel ``reps`` times: it has been seen to drop
-    records on the card, so a short count is profiled again, up to ``tries``
-    times. None where the profiler records no device activity or keeps
-    dropping records (then only the whole call is timed, by :func:`held_ms`)."""
+    records on the card, a few or all of one kernel's, so a short count is
+    profiled again, up to ``tries`` times. None where the profiler records no
+    device activity or keeps dropping records (then only the whole call is
+    timed, by :func:`held_ms`); a kernel it never records among the call's
+    others in any try raises (a needle that names no kernel)."""
     def make():
         return setup() if setup is not None else None
 
     for _ in range(warmup):
         fn(make())
+    seen, events = False, {}
     for _ in range(tries if "held_events" not in DEVICE_TIMERS else 0):
         events = profiled_device_us(fn, [make() for _ in range(reps)])
         mine = [v for key, v in events.items() if needle in key]
         if not events or not any(t for t, _ in events.values()):
-            break
-        if not mine:
-            raise RuntimeError(f"no kernel named like {needle!r} among {sorted(events)}")
+            return None
+        seen = seen or bool(mine)
         if sum(n for _, n in mine) == reps:
             return sum(t for t, _ in mine) / 1e3 / reps
         log(f"  torch.profiler kept {sum(n for _, n in mine)} of {reps} launches of {needle!r}; "
             "profiling again")
+    if events and not seen:
+        raise RuntimeError(f"no kernel named like {needle!r} among {sorted(events)}")
     return None
 
 
@@ -1249,11 +1292,13 @@ def route_counts(fwd_route: str, bwd_route: str | None) -> dict[str, int]:
 
 
 def check_window_attention(device, stage, bnw, heads, nw, shifted, dtype, seed=0,
-                           window=WINDOW, d=HEAD_DIM, routes=None, backward=True) -> dict:
+                           window=WINDOW, d=HEAD_DIM, routes=None, backward=True,
+                           repeat=False) -> dict:
     """The kernels at one shape against their plain version (out, and with
     ``backward`` dq, dk, dv, dbias), with their times, SDPA's and the bound.
     ``routes``: the (forward, backward) routes the shape must take, Swin's
-    by default."""
+    by default; ``repeat``: a second kernel run must equal the first bit for
+    bit."""
     q, k, v, dout, bias, mask = wa_inputs(device, bnw, heads, nw, shifted, dtype, seed, window, d)
     n = q.shape[2]
     scale = 1.0 / math.sqrt(d)
@@ -1277,6 +1322,12 @@ def check_window_attention(device, stage, bnw, heads, nw, shifted, dtype, seed=0
     want_counts = route_counts(fwd_route, route if backward else None)
     if wa.LAUNCH_COUNTS != want_counts:
         raise AssertionError(f"[{name}] launches {wa.LAUNCH_COUNTS}, expected {want_counts}")
+    if repeat:
+        again = run(wa.window_attention)
+        for key, a, b in zip(("out", "dq", "dk", "dv", "dbias"), got, again):
+            if not torch.equal(a, b):
+                raise AssertionError(f"[{name}] kernel {key} differs from run to run")
+        del again
     want = run(wa.window_attention_reference)
     torch.cuda.synchronize()
     errs = {}
@@ -1307,6 +1358,7 @@ def check_window_attention(device, stage, bnw, heads, nw, shifted, dtype, seed=0
                        bound_ms=fwd_bound, bound_by=fwd_by, library_ms=fwd_lib,
                        library_device_ms=fwd_lib_dev)}
     msg = (f"  [{name}] max abs err " + " ".join(f"{k} {v:.2e}" for k, v in errs.items())
+           + ("; bitwise repeatable" if repeat else "")
            + f"; ms fwd kernel {fwd_ms:.4f} (device {fwd_dev:.4f}, held {fwd_held:.4f}) plain "
            f"{fwd_plain:.4f} sdpa {fwd_lib:.4f} (device {fwd_lib_dev:.4f}) bound {fwd_bound:.4f} "
            f"({fwd_by})")
@@ -1532,16 +1584,26 @@ def check_cache_gather(device, name, shape, dtype, seed=0) -> dict:
     select_ms = cuda_median_ms(
         lambda _: torch.index_select(rows, 0, flat_parent, out=out_rows), **reps)
     copy_ms = cuda_median_ms(lambda _: out.copy_(cache), **reps)
+    # the device's work alone (profiler): is the gap to index_select on the
+    # device or in the host's dispatch, which the CUDA events above hold?
+    dev_reps = dict(reps=20, warmup=3)
+    kernel_dev = device_ms(lambda _: cg.beam_cache_gather(cache, parent, out=out), **dev_reps)
+    select_dev = device_ms(
+        lambda _: torch.index_select(rows, 0, flat_parent, out=out_rows), **dev_reps)
+    copy_dev = device_ms(lambda _: out.copy_(cache), **dev_reps)
     nbytes = cache.numel() * cache.element_size()
     bound, by = bound_ms(2 * nbytes + parent.numel() * parent.element_size(), 0, dtype)
     log(f"  [{label}] bitwise equal; {nbytes / 1e6:.1f} MB; ms kernel {ms:.4f} plain "
         f"(advanced indexing) {plain_ms:.4f} take_along_dim {take_ms:.4f} index_select "
         f"{select_ms:.4f} copy_ {copy_ms:.4f} bound {bound:.4f} ({by}); kernel at "
         f"{bound / ms:.3f} of its bound, {min(plain_ms, take_ms, select_ms) / ms:.3f}x the "
-        "fastest library call")
+        f"fastest library call; device ms kernel {kernel_dev:.4f} index_select "
+        f"{select_dev:.4f} copy_ {copy_dev:.4f}")
     return dict(shape=label, max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
                 bound_by=by, library_ms=min(plain_ms, take_ms, select_ms),
-                take_along_dim_ms=take_ms, index_select_ms=select_ms, copy_ms=copy_ms)
+                take_along_dim_ms=take_ms, index_select_ms=select_ms, copy_ms=copy_ms,
+                device_ms=kernel_dev, index_select_device_ms=select_dev,
+                copy_device_ms=copy_dev)
 
 
 def phase_kernels(device) -> list[dict]:
@@ -1566,12 +1628,18 @@ def phase_kernels(device) -> list[dict]:
                 wa_rows[(stage, shifted, dtype, "N=144")] = check_window_attention(
                     device, stage, bnw, heads, nw, shifted, dtype, window=12)
                 torch.cuda.empty_cache()
-    stage, bnw, heads, nw, d = WA_WIDE_FWD
-    wa_wide_fwd = check_window_attention(device, stage, bnw, heads, nw, True, torch.float32,
-                                         window=12, d=d, routes=("tf32x3",), backward=False)
-    stage, bnw, heads, nw, d = WA_CUDA_CORE
-    wa_cuda_core = check_window_attention(device, stage, bnw, heads, nw, True, torch.float32,
-                                          window=12, d=d, routes=("cuda_core", "cuda_core"))
+    log("streaming kernels (every f32 / bf16 shape with D <= 128 that the tensor-core "
+        "routes do not take; each bitwise repeatable)")
+    wa_stream = []
+    for stage, bnw, heads, nw, window, d, dtype, routes in WA_STREAM_ROWS:
+        t0 = time.perf_counter()
+        wa_stream.append(check_window_attention(device, stage, bnw, heads, nw, True, dtype,
+                                                window=window, d=d, routes=routes, repeat=True))
+        log(f"  ({time.perf_counter() - t0:.1f} s)")
+        torch.cuda.empty_cache()
+    stage, bnw, heads, nw, window, d, dtype, routes = WA_CUDA_CORE
+    wa_cuda_core = check_window_attention(device, stage, bnw, heads, nw, True, dtype,
+                                          window=window, d=d, routes=routes)
     torch.cuda.empty_cache()
     log(f"dense-local sampling (tol of max(1, max |plain|): {DL_TOL}); the backward's max abs "
         "err is over its four gradients; no single PyTorch call computes this function")
@@ -1612,19 +1680,26 @@ def phase_kernels(device) -> list[dict]:
                       for dt in ("f32", "bf16")]
                   for d in ("fwd", "bwd")}
     # the split-TF32 rows have entries of their own (the N > 64 kernels, which
-    # phase 6c runs, apart); the bf16 and CUDA-core rows share the original two
+    # phase 6c runs, apart), and so have the streaming rows; the bf16 and
+    # CUDA-core rows share the original two
     def wa_kernel(d, route, window12):
+        if route == "stream":
+            return f"{d}_stream"
         if route != "tf32x3":
             return d
         return f"{d}_tf32x3_large" if window12 else f"{d}_tf32x3"
 
     wa_shapes = {}
-    for key, row in (*wa_rows.items(), (("N=144",), wa_wide_fwd), (("N=144",), wa_cuda_core)):
+    for key, row in (*wa_rows.items(), *((("N=144",), r) for r in wa_stream),
+                     (("N=49",), wa_cuda_core)):
         for d, shape in row.items():
             wa_shapes.setdefault(wa_kernel(d, shape["route"], "N=144" in key), []).append(shape)
     wa_main = wa_rows[("stage2", True, torch.bfloat16)]
     wa_main_f32 = wa_rows[("stage2", True, torch.float32)]
     wa_main_f32_w12 = wa_rows[("stage2", True, torch.float32, "N=144")]
+    wa_main_stream = wa_stream[WA_STREAM_ROWS.index(
+        next(r for r in WA_STREAM_ROWS if r[0] == "stage2" and r[4] == S16_WINDOW
+             and r[6] == torch.bfloat16))]
     dl_shapes = {d: [row[d] for row in dl_rows.values()] for d in ("fwd", "bwd")}
     dl_main = dl_rows[("stage2", "mixed")]
     return [
@@ -1648,6 +1723,12 @@ def phase_kernels(device) -> list[dict]:
         entry("window_attention_bwd_tf32x3_large", wa_src,
               "iseg_tpu/ops/pallas/window_attention.py:161", wa_main_f32_w12["bwd"],
               wa_shapes["bwd_tf32x3_large"]),
+        entry("window_attention_fwd_stream", wa_src,
+              "iseg_tpu/ops/pallas/window_attention.py:141", wa_main_stream["fwd"],
+              wa_shapes["fwd_stream"]),
+        entry("window_attention_bwd_stream", wa_src,
+              "iseg_tpu/ops/pallas/window_attention.py:161", wa_main_stream["bwd"],
+              wa_shapes["bwd_stream"]),
         entry("deform_local_fwd", dl_src, "iseg_tpu/ops/pallas/deform_local.py:116",
               dl_main["fwd"], dl_shapes["fwd"]),
         entry("deform_local_bwd", dl_src, "iseg_tpu/ops/pallas/deform_local.py:146",
@@ -1674,6 +1755,8 @@ def read_launch_counts() -> dict[str, int]:
             "window_attention_bwd_mma": wa.LAUNCH_COUNTS["bwd_mma"],
             "window_attention_fwd_tf32x3": wa.LAUNCH_COUNTS["fwd_tf32x3"],
             "window_attention_bwd_tf32x3": wa.LAUNCH_COUNTS["bwd_tf32x3"],
+            "window_attention_fwd_stream": wa.LAUNCH_COUNTS["fwd_stream"],
+            "window_attention_bwd_stream": wa.LAUNCH_COUNTS["bwd_stream"],
             "deform_local_fwd": dl.LAUNCH_COUNTS["fwd"], "deform_local_bwd": dl.LAUNCH_COUNTS["bwd"],
             "cache_gather": cg.LAUNCH_COUNTS["gather"]}
 
@@ -2595,11 +2678,97 @@ def phase_swin_train_f32(data, profile: bool, backbone: str = "swin_large"):
     return launches
 
 
+def build_swin16_model(env) -> SegManaged:
+    """Swin-L's widths at window 16 (no registered variant has it) +
+    SemanticFPN(256), the Swin path's head and fused loss."""
+    backbone = swin_module.SwinTransformer(embed_dim=192, depths=(2, 2, 18, 2),
+                                           num_heads=(6, 12, 24, 48), window_size=S16_WINDOW)
+    model = SegManaged(num_class=S_CLASSES, backbone=backbone,
+                       head=SemanticFPN(backbone.endpoint_channels[-4:], filters=256),
+                       upsample_logits=False, fuse_upsample_loss=True)
+    return model.to(env.device, memory_format=torch.channels_last)
+
+
+def check_swin16_logits(env, model, images) -> dict:
+    """Phase 7's check of the kernels' logits: one single-scale forward in
+    bf16 on the kernels against the same weights in fp32 on the plain window
+    attention (TF32 off); the bf16 forward on the plain version gives the
+    noise; the kernel run must lie within max(SERVE_NOISE_MULT x noise,
+    KERNEL_VS_PLAIN_MODEL_RTOL) of max |reference logit|."""
+    if torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32:
+        raise AssertionError("the fp32 reference forward needs TF32 off")
+    model.eval()
+
+    def forward(fn, autocast):
+        reset_launch_counts()
+        swin_module.window_attention = fn
+        try:
+            with torch.no_grad(), torch.autocast("cuda", dtype=env.compute_dtype,
+                                                 enabled=autocast):
+                logits = model.inference(images)
+            torch.cuda.synchronize()
+        finally:
+            swin_module.window_attention = wa.window_attention
+        return logits.float(), read_launch_counts()
+
+    ref, ref_launches = forward(wa.window_attention_reference, False)
+    plain, plain_launches = forward(wa.window_attention_reference, True)
+    kernels, launches = forward(wa.window_attention, True)
+    model.train()
+    if any(ref_launches.values()) or any(plain_launches.values()):
+        raise AssertionError("a plain-version forward launched a kernel")
+    expect_launches("Swin window-16 forward", launches,
+                    {"window_attention_fwd_stream": WA_LAUNCHES_PER_FORWARD})
+    if not bool(torch.isfinite(kernels).all()):
+        raise AssertionError("window-16 logits with the kernels are not finite")
+    scale = float(ref.abs().max())
+    got = {"kernels": float((kernels - ref).abs().max()) / scale,
+           "noise": float((plain - ref).abs().max()) / scale}
+    bound = max(SERVE_NOISE_MULT * got["noise"], KERNEL_VS_PLAIN_MODEL_RTOL)
+    log(f"window-16 single-scale logits against fp32 on the plain version (max |logit| "
+        f"{scale:.4e}), max abs diff over it: bf16 kernels {got['kernels']:.3e}, bf16 plain "
+        f"{got['noise']:.3e} (the noise); bound max({SERVE_NOISE_MULT:g} x noise, "
+        f"{KERNEL_VS_PLAIN_MODEL_RTOL:g}) = {bound:.3e}")
+    if not got["kernels"] <= bound:
+        raise AssertionError(f"window-16 logits with the kernels lie {got['kernels']:.3e} of max "
+                             f"|logit| from the fp32 forward, beyond {bound:.3e}")
+    return got
+
+
+def phase_swin16_train(env, data):
+    """Phase 6d: Swin-L's widths at window 16 trained in bf16, every window
+    attention on the streaming kernels."""
+    log("== phase 6d: Swin-L widths at window 16 (N = 256, D = 32) + SemanticFPN train, bf16 "
+        "(streaming window-attention kernels + fused loss kernels)")
+    model = build_swin16_model(env)
+    log(f"parameters: {sum(p.numel() for p in model.parameters()) / 1e6:.1f} M")
+    tx, _ = get_optimizer(param_tree(model), "sgd", learning_rate=0.01, train_steps=1000)
+    state = create_train_state(model, env.generator, tx)
+    step_fn = make_train_step(model.build_loss_fn(), compute_dtype=env.compute_dtype)
+    check_swin16_logits(env, model, data["image"][:S_SERVE_BATCH])
+    state, _, launches, step_ms = counted_train_steps(
+        state, step_fn, data, S16_WARMUP, S16_TIMED, S_BATCH,
+        {"upsample_ce_fwd": 1, "upsample_ce_bwd": 1,
+         "window_attention_fwd_stream": WA_LAUNCHES_PER_FORWARD,
+         "window_attention_bwd_stream": WA_LAUNCHES_PER_FORWARD}, "Swin window-16 train")
+    peak = torch.cuda.max_memory_allocated()
+    prof = profile_steps(state, step_fn, data, "Swin-L window-16 + SemanticFPN bf16 train step",
+                         step_ms, steps=1)
+    kernels = prof["kernels"].items()
+    fwd_ms = sum(ms for key, ms in kernels if "wa_fwd_stream" in key)
+    bwd_ms = sum(ms for key, ms in kernels if "wa_bwd_stream" in key or "dbias_reduce" in key)
+    log(f"window 16: {step_ms:.2f} ms/step, peak {peak / 2**30:.2f} GiB; streaming kernels "
+        f"(one profiled step) forward {fwd_ms:.3f} + backward {bwd_ms:.3f} ms of "
+        f"{prof['device_ms']:.3f} ms device, share {(fwd_ms + bwd_ms) / prof['device_ms']:.4f}")
+    return launches
+
+
 KERNEL_CLASSES = (
     ("window attention kernels", ("wa_fwd_kernel", "wa_fwd_mma_kernel", "wa_fwd_tf32x3_kernel",
-                                  "wa_fwd_tf32x3_large_kernel", "wa_bwd_kernel",
-                                  "wa_bwd_mma_kernel", "wa_bwd_tf32x3_kernel",
-                                  "wa_bwd_tf32x3_large_kernel", "dbias_reduce_kernel")),
+                                  "wa_fwd_tf32x3_large_kernel", "wa_fwd_stream_kernel",
+                                  "wa_bwd_kernel", "wa_bwd_mma_kernel", "wa_bwd_tf32x3_kernel",
+                                  "wa_bwd_tf32x3_large_kernel", "wa_bwd_stream_kernel",
+                                  "dbias_reduce_kernel")),
     ("dense-local kernels", ("dl_fwd_kernel", "dl_bwd_maps_kernel", "dl_bwd_x_kernel")),
     ("upsample + CE kernels", ("::fwd_kernel<", "::bwd_kernel<", "::reduce_kernel(")),
     ("global attention (SDPA: flash / memory-efficient)", ("flash", "fmha", "attention_kernel",
@@ -4960,7 +5129,8 @@ def ab_wa12_row(device) -> dict:
     reps = dict(reps=10, warmup=2)
     row = {}
     shapes = [(stage, bnw, heads, nw, HEAD_DIM) for stage, bnw, heads, nw in WA12_STAGES]
-    for stage, bnw, heads, nw, d in (*shapes, ("D=64 " + WA_WIDE_FWD[0], *WA_WIDE_FWD[1:])):
+    stage, bnw, heads, nw, _, d = WA_STREAM_ROWS[0][:6]  # fp32 at window 12, D = 64
+    for stage, bnw, heads, nw, d in (*shapes, ("D=64 " + stage, bnw, heads, nw, d)):
         scale = 1.0 / math.sqrt(d)
         q, k, v, dout, bias, mask = wa_inputs(device, bnw, heads, nw, True, torch.float32,
                                               window=12, d=d)
@@ -5002,11 +5172,51 @@ def ab_wa12_row(device) -> dict:
     return row
 
 
+def ab_stream_row(device) -> dict:
+    """``--ab OLD --only stream``: phase 2's streaming rows (WA_STREAM_ROWS:
+    the D = 36 pair, which a tree from before the streaming kernels runs on
+    its CUDA-core kernels, and the rows where such a tree raises), forward
+    and backward, SDPA beside each, all by the profiler's device time; where
+    a tree raises, the row holds what it raised."""
+    reps = dict(reps=10, warmup=2)
+    row = {}
+    for stage, bnw, heads, nw, window, d, dtype, _ in WA_STREAM_ROWS:
+        key = f"{stage} N={window * window} D={d} {dtype_name(dtype)}"
+        scale = 1.0 / math.sqrt(d)
+        q, k, v, dout, bias, mask = wa_inputs(device, bnw, heads, nw, True, dtype, window=window,
+                                              d=d)
+        full_bias = (bias[None] + mask[torch.arange(bnw, device=device) % nw][:, None])
+        full_bias = full_bias.to(dtype).contiguous()
+        for which in ("fwd", "bwd"):
+            wa.reset_launch_counts()
+            try:
+                if which == "fwd":
+                    with torch.no_grad():
+                        row[f"wa_fwd {key} device ms"] = device_ms(
+                            lambda _: wa.window_attention(q, k, v, bias, mask, scale), **reps)
+                else:
+                    row[f"wa_bwd {key} device ms"] = wa_backward_ms(
+                        wa.window_attention, q, k, v, dout, bias, mask, scale, timer=device_ms,
+                        **reps)
+            except (ValueError, RuntimeError) as err:
+                row[f"wa_{which} {key} device ms"] = f"raised: {err}"
+                log(f"  wa_{which} {key} raised: {err}")
+            row[f"wa_{which} {key} launches"] = {n: c for n, c in wa.LAUNCH_COUNTS.items() if c}
+        with torch.no_grad():
+            row[f"sdpa_fwd {key} device ms"] = device_ms(
+                lambda _: sdpa(q, k, v, full_bias, None, scale), **reps)
+        row[f"sdpa_bwd {key} device ms"] = wa_backward_ms(
+            sdpa, q, k, v, dout, full_bias, mask, scale, timer=device_ms, **reps)
+        del q, k, v, dout, bias, mask, full_bias
+        torch.cuda.empty_cache()
+    return row
+
+
 def ab_child(only: str | None = None) -> dict:
     """One process of ``--ab``: this file's timings of the package first on
     the path. It uses only what the parent commit's package has too."""
-    for key in ("fwd_mma", "bwd_mma", "fwd_tf32x3", "bwd_tf32x3"):  # a package from before a route
-        wa.LAUNCH_COUNTS.setdefault(key, 0)
+    for key in ("fwd_mma", "bwd_mma", "fwd_tf32x3", "bwd_tf32x3", "fwd_stream", "bwd_stream"):
+        wa.LAUNCH_COUNTS.setdefault(key, 0)  # a package from before a route
     device = torch.device("cuda")
     _build.load_all([uce.SOURCE, wa.SOURCE, dl.SOURCE, cg.SOURCE])
     row = {"package": str(_build.PACKAGE_DIR)}
@@ -5014,6 +5224,8 @@ def ab_child(only: str | None = None) -> dict:
         return {**row, **ab_f1_row()}
     if only == "wa12":
         return {**row, **ab_wa12_row(device)}
+    if only == "stream":
+        return {**row, **ab_stream_row(device)}
     reps = dict(reps=10, warmup=2)
     scale = 1.0 / math.sqrt(HEAD_DIM)
     for stage, bnw, heads, nw, _ in WA_STAGES:
@@ -6033,6 +6245,8 @@ def main(argv: list[str]) -> int:
     paths["swin384_train_f32"] = timed(
         "6c", lambda: phase_swin_train_f32(synthetic_batch(device, S_BATCH, S_CLASSES), profile,
                                            "swin_large_384"))
+    paths["swin16_train"] = timed(
+        "6d", lambda: phase_swin16_train(env, synthetic_batch(device, S_BATCH, S_CLASSES)))
 
     def intern_phases():
         data = synthetic_batch(device, I_BATCH, I_CLASSES)
@@ -6108,6 +6322,8 @@ def main(argv: list[str]) -> int:
                                                  "window_attention_bwd_tf32x3"),
                "swin384_train_f32": loss_kernels + ("window_attention_fwd_tf32x3",
                                                     "window_attention_bwd_tf32x3"),
+               "swin16_train": loss_kernels + ("window_attention_fwd_stream",
+                                               "window_attention_bwd_stream"),
                "intern_train": loss_kernels + ("deform_local_fwd", "deform_local_bwd"),
                "intern_serve": ("deform_local_fwd",),
                "calibrated_intern_train": loss_kernels + ("deform_local_fwd",
@@ -6124,7 +6340,7 @@ def main(argv: list[str]) -> int:
                 raise AssertionError(f"kernel {name} was never launched on the {path} path")
     # the tensor-core routes only
     for path in ("swin_train", "swin_serve", "swin_train_f32", "swin384_train_f32",
-                 "swin_export_serve"):
+                 "swin16_train", "swin_export_serve"):
         if paths[path]["window_attention_fwd"] or paths[path]["window_attention_bwd"]:
             raise AssertionError(f"the {path} path launched a CUDA-core window-attention kernel")
 

@@ -23,7 +23,7 @@
 // go through a second kernel that sums them in a fixed order. So dbias needs
 // no atomics and is bitwise repeatable, like every other output.
 //
-// Four backward kernels, chosen by the wrapper by dtype and shape:
+// Five backward kernels, chosen by the wrapper by dtype and shape:
 //
 // * wa_bwd_mma_kernel, for bf16 q, k, v with D % 16 == 0 and N <= 144 (every
 //   Swin variant: D = 32, N = 49 or 144). All five products run on the
@@ -73,10 +73,13 @@
 //   a lane) spilled: a block of 9 warps gets at most 168 registers a thread
 //   (3 warps share one of the SM's four 16K-register sub-partitions), and
 //   it ran no faster than the CUDA cores.
-// * wa_bwd_kernel, for the other shapes (D % 8 != 0, float32 past its
-//   limits, bf16 outside its route): fp32 FMA loops over shared memory with
-//   a 4 x 4 register tile per thread, everything in fp32; at N = 144 its
-//   tiles fit a block up to D = 59.
+// * wa_bwd_stream_kernel, for every other float32 or bf16 shape
+//   with D <= 128: the window-12 kernel's order with the window streamed
+//   through shared memory, so no N is too large (its note is below).
+// * wa_bwd_kernel, for heads wider than 128 (no window attention of either
+//   package has them): fp32 FMA loops over shared memory with a 4 x 4
+//   register tile per thread, everything in fp32; it raises where its tiles
+//   do not fit a block (at N = 144, above D = 59).
 //
 // What bounds them on the H100: per (window, head) the backward moves 7 N D
 // elements (q, k, v, do in; dq, dk, dv out) and does 10 N^2 D flops; at N =
@@ -109,7 +112,7 @@
 // rate, against the CUDA-core kernel's 4.57 / 2.84 / 1.44 / 1.25 and SDPA's
 // 3.98 / 2.38 / 1.20 / 1.08 (PERF.md, section 6, PR 18).
 //
-// Four forward kernels, chosen by the wrapper by the same rule:
+// Five forward kernels, chosen by the wrapper by the same rule:
 //
 // * wa_fwd_mma_kernel, for bf16 q, k, v with D % 16 == 0 and N <= 144: the
 //   backward's design with two products. Blocks are persistent over a chunk
@@ -137,12 +140,19 @@
 //   registers, k and v in shared memory (its note below says why); it
 //   writes each row's lse for the backward. At D = 64 (bnw = 72, H = 12) it
 //   takes 0.25 ms against SDPA's 0.32 and the CUDA-core kernel's 1.02.
-// * wa_fwd_kernel, for the other shapes (D % 8 != 0, bf16 outside its
-//   route): the CUDA-core design, fp32 FMA loops with 4 x 4 register tiles,
-//   q, k, v and the logits in shared memory as fp32 (rows padded by one
-//   float so that the column walks of q k^T hit distinct banks). It is
+// * wa_fwd_stream_kernel, for every other float32 or bf16 shape
+//   with D <= 128 (bf16 N = 144 past D = 64, whose tiles and bias the mma
+//   kernel cannot hold, among them): k and v streamed through shared memory,
+//   an online softmax (its note is below).
+// * wa_fwd_kernel, for heads wider than 128: the CUDA-core design, fp32 FMA
+//   loops with 4 x 4 register tiles, q, k, v and the logits in shared memory
+//   as fp32 (rows padded by one float so that the column walks of q k^T hit
+//   distinct banks); it raises where its tiles do not fit a block. It was
 //   bound by instruction issue, 12.5x its byte bound over a Swin-L step in
 //   bf16 (PERF.md, section 6), and far behind SDPA at window 12.
+//
+// The mma and split-TF32 forwards write each row's lse where the caller
+// asks (softmax_frags gives it): the streaming backward reads it after them.
 //
 // Tensors are addressed through element strides for (window, head, token);
 // the head dim has stride 1. So q, k, v may be views of the packed qkv
@@ -680,15 +690,28 @@ __device__ __forceinline__ void load_mask_frags(float (&dst)[kT][4], const float
     }
 }
 
+// The rows' lse (log2 units, as softmax_frags gives it) of window b, head h
+// into lse [bnw, H, N], where the caller asked for it (lse not null): what the
+// window-12 and streaming backwards recompute p from
+__device__ __forceinline__ void store_lse(float* lse, int b, int h, int H, int N, int r0,
+                                          float lse0, float lse1) {
+  if (lse == nullptr || (threadIdx.x & 3) != 0) return;
+  float* row = lse + (static_cast<int64_t>(b) * H + h) * N;
+  if (r0 < N) row[r0] = lse0;
+  if (r0 + 8 < N) row[r0 + 8] = lse1;
+}
+
 // Logits of this warp's 16 query rows, softmax in place: p[t] holds q k^T
 // for key tile t on entry and p = softmax(q k^T scale + bias + mask) on
 // exit, fp32 in registers (in log2 units with exp2). bias_h is the head's
 // [N][N] bias (in shared memory or device memory); `mask_at(t, e)` gives the
 // mask value of element e of tile t. A padded key gets -inf, and a padded
-// query row, with no finite logit, p = 0.
+// query row, with no finite logit, p = 0. Where lse2 is given, the two rows'
+// lse (log2 units; +inf for a row with no finite logit) go there.
 template <int kNT, typename MaskAt>
 __device__ __forceinline__ void softmax_frags(float (&p)[kNT][4], const float* bias_h,
-                                              MaskAt mask_at, int r0, int N, float scale) {
+                                              MaskAt mask_at, int r0, int N, float scale,
+                                              float* lse2 = nullptr) {
   const int c2 = (threadIdx.x & 3) * 2;
   const int r1 = r0 + 8;
   float mx0 = -INFINITY, mx1 = -INFINITY;
@@ -718,6 +741,10 @@ __device__ __forceinline__ void softmax_frags(float (&p)[kNT][4], const float* b
     }
   l0 = quad_sum(l0);
   l1 = quad_sum(l1);
+  if (lse2 != nullptr) {
+    lse2[0] = l0 > 0.f ? sub0 + log2f(l0) : INFINITY;
+    lse2[1] = l1 > 0.f ? sub1 + log2f(l1) : INFINITY;
+  }
   const float inv0 = l0 > 0.f ? 1.f / l0 : 0.f, inv1 = l1 > 0.f ? 1.f / l1 : 0.f;
 #pragma unroll
   for (int t = 0; t < kNT; ++t) {
@@ -913,13 +940,13 @@ size_t fwd_mma_smem_bytes(int N, int D) {
 // window into registers during p v, off the path from q k^T to the softmax;
 // at N = 144 those 72 more registers a thread would spill, which was slower
 // than reading the mask where it is added.
-template <int kNP>
+template <int kNP, bool kLse>
 __global__ void __launch_bounds__(kNP * 2, kNP <= 64 ? kFwdMmaMinBlocks : 1)
 wa_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                   const __nv_bfloat16* __restrict__ v, const float* __restrict__ bias,
                   const float* __restrict__ mask, __nv_bfloat16* __restrict__ out, Strides sq,
                   Strides sk, Strides sv, Strides so, int bnw, int H, int N, int D, int nW,
-                  int windows_per_chunk, float scale) {
+                  int windows_per_chunk, float scale, float* __restrict__ lse) {
   constexpr int kNT = kNP / 8;  // 16 x 8 accumulator tiles across a row of keys
   constexpr int kThreads = kNP * 2;
   constexpr bool kMaskAhead = kNP <= 64;
@@ -969,10 +996,12 @@ wa_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __re
     float p[kNT][4];
     rows_times_rows_t<kNT>(qs, ks, zero, m0, N, D, ld, p);
     const float* mask_b = mask + static_cast<int64_t>(b % nW) * N * N;
+    float row_lse[2];
     softmax_frags<kNT>(p, bias_smem, [&](int t, int e) {
       if constexpr (kMaskAhead) return mask_next[t][e];
       return __ldg(mask_b + (e < 2 ? r0 : r1) * N + t * 8 + c2 + (e & 1));
-    }, r0, N, scale);
+    }, r0, N, scale, kLse ? row_lse : nullptr);
+    if constexpr (kLse) store_lse(lse, b, h, H, N, r0, row_lse[0], row_lse[1]);
     // p rounded to bf16 as the A operand of p v (accumulator tiles 2s and
     // 2s + 1 are the A fragment of keys 16 s .. 16 s + 15)
     uint32_t a_p[kNT / 2][4];
@@ -1192,17 +1221,6 @@ __device__ __forceinline__ void store_rows_f32(float* base, long long sn, int m0
   }
 }
 
-// The rows' lse (log2 units, as softmax_frags gives it) of window b, head h
-// into lse [bnw, H, N], where the caller asked for it (lse not null): what the
-// window-12 backward recomputes p from
-__device__ __forceinline__ void store_lse(float* lse, int b, int h, int H, int N, int r0,
-                                          float lse0, float lse1) {
-  if (lse == nullptr || (threadIdx.x & 3) != 0) return;
-  float* row = lse + (static_cast<int64_t>(b) * H + h) * N;
-  if (r0 < N) row[r0] = lse0;
-  if (r0 + 8 < N) row[r0 + 8] = lse1;
-}
-
 // Shared memory of the split-TF32 forward at N <= 64, in bytes (fp32): two
 // sets (the window computed and the next one) of the q, k, v tiles [N][D +
 // 4] and a row of zeros, then the head's bias [N][N].
@@ -1223,7 +1241,7 @@ wa_fwd_tf32x3_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, const float* __restrict__ bias,
                      const float* __restrict__ mask, float* __restrict__ out, Strides sq,
                      Strides sk, Strides sv, Strides so, int bnw, int H, int N, int d_arg,
-                     int nW, int windows_per_chunk, float scale) {
+                     int nW, int windows_per_chunk, float scale, float* __restrict__ lse) {
   const int D = kD > 0 ? kD : d_arg;
   constexpr int kNT = 64 / 8;
   constexpr int kThreads = 128;
@@ -1268,8 +1286,10 @@ wa_fwd_tf32x3_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
     float p[kNT][4];
     rows_times_rows_t_3x<kNT>(qs, ks, zero, m0, N, D, ld, p);
+    float row_lse[2];
     softmax_frags<kNT>(p, bias_smem, [&](int t, int e) { return mask_next[t][e]; }, r0, N,
-                       scale);
+                       scale, row_lse);
+    store_lse(lse, b, h, H, N, r0, row_lse[0], row_lse[1]);
     if (b + 1 < b_end) load_mask_frags(mask_next, mask, b + 1, nW, N, r0);
 
     float* out_w = out + b * so.b + h * so.h;
@@ -1914,6 +1934,921 @@ wa_bwd_tf32x3_large_kernel(const float* __restrict__ q, const float* __restrict_
     }
 }
 
+// ------------------- streaming forward and backward (f32 and bf16, any N, D <= 128)
+
+// The streaming kernels take every float32 and bfloat16 shape with D <= 128
+// that the routes above do not: a head dim that is no multiple of 8 (f32) or
+// 16 (bf16), bf16 N = 144 with D > 64 (the tensor-core forward) or D > 32
+// (the backward), f32 at N = 144 past the backward's D = 56, and every N >
+// 144 (windows 13 and up). Every kernel above keeps a whole window in shared
+// memory, so 227 KB caps its N and D; these bring the window through shared
+// memory a tile of 48 or 64 rows at a time (stream_tile_rows) and keep no N
+// x N tile, so no N is too large.
+//
+// Forward (wa_fwd_stream_kernel), FlashAttention-2's order: one block per
+// (chunk of windows, head), persistent over the chunk; a warp owns 16 query
+// rows (a block has ceil(N / 16) warps, up to stream_max_warps, and walks the
+// rows in rounds past that). Its q fragments sit in registers, the head dim
+// zero-padded to Dp (a multiple of 16 in bf16, 8 in f32). The block brings k
+// and v a tile at a time by cp.async, double-buffered (the next tile arrives
+// while the block computes this one), with zero fill past N and past D; in
+// f32 up to D = 64 the block splits each tile into its TF32 halves once
+// (split_stage), so no warp splits a k or v value again. Per 16 keys a warp
+// forms s = q k^T (mma.sync: m16n8k16 bf16, or m16n8k8 in split TF32 for
+// f32), adds scale and bias + mask (read through the cache, two floats a
+// load), keeps an online softmax in fp32 registers (the output rescaled once
+// per softmax step of up to 64 keys, 32 at D > 64) and adds p v with p taken
+// straight from the accumulator fragments (rounded to bf16 as the operand in
+// bf16). It stores the real D columns of out and each row's lse (log2 units)
+// where the caller asks.
+//
+// Backward (wa_bwd_stream_kernel), the window-12 kernel's rows-then-keys order
+// (wa_bwd_tf32x3_large_kernel) streamed: per window, first the query rows
+// (each warp holds q and do of its 16 rows, delta and the forward's lse; per
+// tile of k and v: s = q k^T, dp = do v^T, p = exp2((s scale + bias + mask)
+// log2(e) - lse), ds = p (dp - delta), dq += ds k), then the keys (each warp
+// holds k and v of its 16 keys; per tile of q and do: s^T, dp^T, p^T from
+// the rows' lse and delta kept in shared memory, ds^T, dv += p^T do, dk +=
+// ds^T q, and ds^T into the chunk's dbias sums). delta = rowsum(do out) in
+// f32; in bf16 rowsum(p dp), from a first pass over the keys, since out is
+// rounded to bf16 (2^-9), which put dbias at twice its 1e-3 tolerance. Seven
+// products a window (eight in bf16), no atomics: the dbias sums of a chunk
+// are one slot per thread and logit in shared memory where they fit (f32 N
+// <= 144, bf16 N <= 196 at D <= 32), else the chunk's partial in device
+// memory, which the thread that owns the logit reads and writes, window
+// after window; dbias_reduce_kernel sums the chunk partials in a fixed
+// order. Every output is written once and is bitwise repeatable. Rounding
+// points in bf16 are the tensor-core backward's: p only as the operand of
+// dv, ds only as the operand of dq and dk, dbias from fp32 ds.
+//
+// What bounds them on the H100 (tools/ablate_window_attention.py, PERF.md
+// section 6): far from the bytes, at 7-35x their byte or split-TF32
+// bound, by instruction issue and latency with one block of 9-16 warps an
+// SM: in f32 the split (each operand value split, three products for one),
+// then the bias and mask reads at every logit (8 bytes a logit a pass from
+// L2, where SDPA reads a 2-byte pre-summed bias); at N = 256 also the dbias
+// partial's reads and writes in L2. A thread of a 9-warp block gets at most
+// 168 registers (3 warps share one of the SM's four 16K-register
+// sub-partitions), and the f32 backward's q, do (k, v) fragments and its two
+// accumulators spill there.
+
+constexpr int kStreamRows = 64;  // the most keys (or queries) of a tile through shared memory
+
+// Rows of a streaming tile for a window of N tokens: 48 or 64, whichever pads
+// the last tile less (64 on a tie). Window 12 (N = 144) takes three full
+// tiles of 48: with 64 its last tile held 16 keys, a step too short to hide
+// the next tile's copy (tiles of 64 took the f32 D = 36 backward 3.5% longer,
+// tools/ablate_window_attention.py)
+__host__ __device__ constexpr int stream_tile_rows(int N) {
+  return (N + 47) / 48 * 48 - N < (N + 63) / 64 * 64 - N ? 48 : 64;
+}
+
+// Warps a streaming block may have, by the head-dim bucket its kernel is
+// compiled for: 65,536 registers over 32 x warps threads, one block an SM
+// (128 registers a thread at D <= 32, 168 at D <= 64: 9 warps put 3 on one
+// of the SM's four 16K-register sub-partitions; 255 at D <= 128). Nine warps
+// hold Swin's window 12 (N = 144) in one round
+__host__ __device__ constexpr int stream_max_warps(int kDMax) {
+  return kDMax <= 32 ? 16 : kDMax <= 64 ? 9 : 8;
+}
+
+// The head dim padded to a product step: 16 in bf16 (m16n8k16), 8 in f32 (m16n8k8)
+template <typename T>
+__host__ __device__ constexpr int stream_dp(int D) {
+  return sizeof(T) == 2 ? (D + 15) / 16 * 16 : (D + 7) / 8 * 8;
+}
+
+// Row pitch of a shared tile: Dp plus 16 bytes, an odd multiple of 16 bytes
+// in bf16 (ldmatrix rows on distinct banks) and 4 mod 8 floats in f32 (the
+// fragment loads on 32 distinct banks)
+template <typename T>
+__host__ __device__ constexpr int stream_ld(int D) {
+  return stream_dp<T>(D) + 16 / static_cast<int>(sizeof(T));
+}
+
+// mma_bf16 without volatile: the streaming kernels' independent products
+// (s and dp, the 16-key groups) may then interleave
+__device__ __forceinline__ void mma_bf16_free(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                              uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void cp_async16_zfill(uint32_t dst, const void* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(bytes));
+}
+
+// Rows row0 .. row0 + rows - 1 of one (window, head) [N][D] operand into a
+// shared [kStreamRows][ld] tile, zeros past N and from D to Dp: by
+// cp.async, 16 bytes a piece, where `vec` (16-byte aligned rows with D a
+// multiple of a piece), else element by element (the caller commits)
+template <typename T>
+__device__ __forceinline__ void stream_tile(const T* base, long long sn, int row0, int rows, int N,
+                                            int D, bool vec, T* dst) {
+  const int Dp = stream_dp<T>(D), ld = stream_ld<T>(D);
+  if (vec) {
+    constexpr int kPiece = 16 / sizeof(T);
+    const int pieces = Dp / kPiece;
+    for (int e = threadIdx.x; e < rows * pieces; e += blockDim.x) {
+      const int row = e / pieces, col = (e - row * pieces) * kPiece, r = row0 + row;
+      const bool in = r < N && col < D;
+      cp_async16_zfill(smem_addr(dst + row * ld + col), in ? base + r * sn + col : base,
+                       in ? 16 : 0);
+    }
+  } else {
+    for (int e = threadIdx.x; e < rows * Dp; e += blockDim.x) {
+      const int row = e / Dp, col = e - row * Dp, r = row0 + row;
+      dst[row * ld + col] = r < N && col < D ? base[r * sn + col] : from_f<T>(0.f);
+    }
+  }
+}
+
+// A warp's 16 rows m0 .. m0 + 15 of a [N][D] operand (through its token
+// stride) as A fragments in registers, zeros past N and past D: bf16 pairs
+// for m16n8k16 (a[c] covers columns 16c .. 16c + 15), or fp32 values in the
+// natural order of the split-TF32 m16n8k8 (a[c]: columns 8c + t and 8c + t + 4)
+template <typename T, int kDMax>
+struct RowFrags;
+
+template <int kDMax>
+struct RowFrags<__nv_bfloat16, kDMax> {
+  static constexpr int kSteps = kDMax / 16;
+  uint32_t a[kSteps][4];
+  __device__ __forceinline__ void load(const __nv_bfloat16* base, long long sn, int m0, int N,
+                                       int D) {
+    const int lane = threadIdx.x & 31, r0 = m0 + (lane >> 2), r1 = r0 + 8, t = lane & 3;
+    auto x = [&](int r, int d) {
+      return r < N && d < D ? __bfloat162float(base[r * sn + d]) : 0.f;
+    };
+#pragma unroll
+    for (int c = 0; c < kSteps; ++c) {
+      const int d = 16 * c + 2 * t;
+      a[c][0] = bf16x2(x(r0, d), x(r0, d + 1));
+      a[c][1] = bf16x2(x(r1, d), x(r1, d + 1));
+      a[c][2] = bf16x2(x(r0, d + 8), x(r0, d + 9));
+      a[c][3] = bf16x2(x(r1, d + 8), x(r1, d + 9));
+    }
+  }
+};
+
+template <int kDMax>
+struct RowFrags<float, kDMax> {
+  static constexpr int kSteps = kDMax / 8;
+  float a[kSteps][4];
+  __device__ __forceinline__ void load(const float* base, long long sn, int m0, int N, int D) {
+    const int lane = threadIdx.x & 31, r0 = m0 + (lane >> 2), r1 = r0 + 8, t = lane & 3;
+    auto x = [&](int r, int d) { return r < N && d < D ? base[r * sn + d] : 0.f; };
+#pragma unroll
+    for (int c = 0; c < kSteps; ++c) {
+      const int d = 8 * c + t;
+      a[c][0] = x(r0, d);
+      a[c][1] = x(r1, d);
+      a[c][2] = x(r0, d + 4);
+      a[c][3] = x(r1, d + 4);
+    }
+  }
+};
+
+// s[u] (16 x 8: the warp's 16 rows by tile rows row0 + 8u .. row0 + 8u + 7)
+// = A B^T over the padded head dim, A in registers, B a shared tile. In f32,
+// kTwoChains sums the even and the odd steps of the head dim into two
+// accumulators, two chains of dependent products where one would be twice
+// as long: the forward takes them; the backward, short of registers, does not
+// (each choice was 5% and 2% faster there, tools/ablate_window_attention.py)
+template <bool kTwoChains = true, int kDMax>
+__device__ __forceinline__ void frags_times_tile_t(const RowFrags<__nv_bfloat16, kDMax>& f,
+                                                   const __nv_bfloat16* tile, int ld, int row0,
+                                                   int Dp, float (&s)[2][4]) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int u = 0; u < 2; ++u) s[u][0] = s[u][1] = s[u][2] = s[u][3] = 0.f;
+  const uint32_t addr = smem_addr(tile + (row0 + (lane & 7) + ((lane >> 4) << 3)) * ld) +
+                        ((lane >> 3) & 1) * 16;
+#pragma unroll
+  for (int c = 0; c < kDMax / 16; ++c)
+    if (16 * c < Dp) {
+      uint32_t b[4];
+      ldsm_x4(b, addr + c * 32);
+      mma_bf16_free(s[0], f.a[c], b[0], b[1]);
+      mma_bf16_free(s[1], f.a[c], b[2], b[3]);
+    }
+}
+
+template <bool kTwoChains = true, int kDMax>
+__device__ __forceinline__ void frags_times_tile_t(const RowFrags<float, kDMax>& f,
+                                                   const float* tile, int ld, int row0, int Dp,
+                                                   float (&s)[2][4]) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  float odd[2][4];
+#pragma unroll
+  for (int u = 0; u < 2; ++u) {
+    s[u][0] = s[u][1] = s[u][2] = s[u][3] = 0.f;
+    odd[u][0] = odd[u][1] = odd[u][2] = odd[u][3] = 0.f;
+  }
+  const float* b0 = tile + (row0 + g) * ld + t;
+  const float* b1 = b0 + 8 * ld;
+#pragma unroll
+  for (int c = 0; c < kDMax / 8; ++c)
+    if (8 * c < Dp) {
+      Split<4> sa;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) sa.set(i, f.a[c][i]);
+      Split<2> x, y;
+      x.set(0, b0[8 * c]);
+      x.set(1, b0[8 * c + 4]);
+      y.set(0, b1[8 * c]);
+      y.set(1, b1[8 * c + 4]);
+      float (&dst)[2][4] = kTwoChains && c % 2 == 1 ? odd : s;
+      mma_3xtf32(dst[0], sa, x);
+      mma_3xtf32(dst[1], sa, y);
+    }
+  if constexpr (kTwoChains) {
+#pragma unroll
+    for (int u = 0; u < 2; ++u)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[u][e] += odd[u][e];
+  }
+}
+
+// An fp32 tile split once into its TF32 halves ([kStreamRows][ld] each), as
+// Split splits an operand: every warp that reads the tile reads the halves
+// and splits nothing
+struct SplitTile {
+  const uint32_t* hi;
+  const uint32_t* lo;
+};
+
+// Whether the streaming kernels split their fp32 tiles once in shared memory
+// (D <= 64: the halves fit beside the raw tiles and the backward's sums)
+template <typename T>
+__host__ __device__ constexpr bool stream_presplit(int D) {
+  return sizeof(T) == 4 && D <= 64;
+}
+
+// The first `count` floats of the stage's two raw fp32 tiles (contiguous,
+// `tile` floats apart) into split [2 tiles][hi, lo][tile], four values a
+// thread at a time
+__device__ __forceinline__ void split_stage(const float* raw, uint32_t* split, int tile,
+                                            int count) {
+  for (int w = 0; w < 2; ++w)
+    for (int e = threadIdx.x * 4; e < count; e += blockDim.x * 4) {
+      const float4 x = *reinterpret_cast<const float4*>(raw + w * tile + e);
+      Split<4> sx;
+      sx.set(0, x.x);
+      sx.set(1, x.y);
+      sx.set(2, x.z);
+      sx.set(3, x.w);
+      *reinterpret_cast<uint4*>(split + 2 * w * tile + e) =
+          make_uint4(sx.hi[0], sx.hi[1], sx.hi[2], sx.hi[3]);
+      *reinterpret_cast<uint4*>(split + (2 * w + 1) * tile + e) =
+          make_uint4(sx.lo[0], sx.lo[1], sx.lo[2], sx.lo[3]);
+    }
+}
+
+// Tile `which` (0 or 1) of a stage: the raw tile, or its split halves
+template <bool kSplit, typename T>
+__device__ __forceinline__ auto stage_tile(const T* stage, const uint32_t* split, int tile,
+                                           int which) {
+  if constexpr (kSplit) {
+    return SplitTile{split + 2 * which * tile, split + (2 * which + 1) * tile};
+  } else {
+    return stage + which * tile;
+  }
+}
+
+template <bool kTwoChains = true, int kDMax>
+__device__ __forceinline__ void frags_times_tile_t(const RowFrags<float, kDMax>& f, SplitTile tile,
+                                                   int ld, int row0, int Dp, float (&s)[2][4]) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  float odd[2][4];
+#pragma unroll
+  for (int u = 0; u < 2; ++u) {
+    s[u][0] = s[u][1] = s[u][2] = s[u][3] = 0.f;
+    odd[u][0] = odd[u][1] = odd[u][2] = odd[u][3] = 0.f;
+  }
+  const int o0 = (row0 + g) * ld + t, o1 = o0 + 8 * ld;
+#pragma unroll
+  for (int c = 0; c < kDMax / 8; ++c)
+    if (8 * c < Dp) {
+      Split<4> sa;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) sa.set(i, f.a[c][i]);
+      Split<2> x, y;
+      x.hi[0] = tile.hi[o0 + 8 * c];
+      x.lo[0] = tile.lo[o0 + 8 * c];
+      x.hi[1] = tile.hi[o0 + 8 * c + 4];
+      x.lo[1] = tile.lo[o0 + 8 * c + 4];
+      y.hi[0] = tile.hi[o1 + 8 * c];
+      y.lo[0] = tile.lo[o1 + 8 * c];
+      y.hi[1] = tile.hi[o1 + 8 * c + 4];
+      y.lo[1] = tile.lo[o1 + 8 * c + 4];
+      float (&dst)[2][4] = kTwoChains && c % 2 == 1 ? odd : s;
+      mma_3xtf32(dst[0], sa, x);
+      mma_3xtf32(dst[1], sa, y);
+    }
+  if constexpr (kTwoChains) {
+#pragma unroll
+    for (int u = 0; u < 2; ++u)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[u][e] += odd[u][e];
+  }
+}
+
+template <int kW>
+__device__ __forceinline__ void pair_times_tile(const float (&s)[2][4], SplitTile tile, int ld,
+                                                int row0, int Dp, float (&acc)[kW][4]) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int u = 0; u < 2; ++u) {
+    Split<4> a;
+    a.set(0, s[u][0]);
+    a.set(1, s[u][2]);
+    a.set(2, s[u][1]);
+    a.set(3, s[u][3]);
+    const int o0 = (row0 + 8 * u + 2 * t) * ld + g, o1 = o0 + ld;
+#pragma unroll
+    for (int w = 0; w < kW; ++w)
+      if (8 * w < Dp) {
+        Split<2> b;
+        b.hi[0] = tile.hi[o0 + 8 * w];
+        b.lo[0] = tile.lo[o0 + 8 * w];
+        b.hi[1] = tile.hi[o1 + 8 * w];
+        b.lo[1] = tile.lo[o1 + 8 * w];
+        mma_3xtf32(acc[w], a, b);
+      }
+  }
+}
+
+// acc[w] (16 x 8, columns 8w .. 8w + 7) += P B[row0 .. row0 + 15][:Dp]: P
+// the 16 x 16 accumulator pair s, whose columns name tile rows row0 ..; in
+// bf16 P is rounded to bf16 as the A operand, in f32 split (paired order)
+template <int kW>
+__device__ __forceinline__ void pair_times_tile(const float (&s)[2][4], const __nv_bfloat16* tile,
+                                                int ld, int row0, int Dp, float (&acc)[kW][4]) {
+  const int lane = threadIdx.x & 31;
+  const uint32_t a[4] = {bf16x2(s[0][0], s[0][1]), bf16x2(s[0][2], s[0][3]),
+                         bf16x2(s[1][0], s[1][1]), bf16x2(s[1][2], s[1][3])};
+  const uint32_t addr = smem_addr(tile + (row0 + (lane & 7) + ((lane >> 3) & 1) * 8) * ld) +
+                        (lane >> 4) * 16;
+#pragma unroll
+  for (int w = 0; w < kW / 2; ++w)
+    if (16 * w < Dp) {
+      uint32_t b[4];
+      ldsm_x4_trans(b, addr + w * 32);
+      mma_bf16_free(acc[2 * w], a, b[0], b[1]);
+      mma_bf16_free(acc[2 * w + 1], a, b[2], b[3]);
+    }
+}
+
+template <int kW>
+__device__ __forceinline__ void pair_times_tile(const float (&s)[2][4], const float* tile, int ld,
+                                                int row0, int Dp, float (&acc)[kW][4]) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int u = 0; u < 2; ++u) {
+    Split<4> a;
+    a.set(0, s[u][0]);
+    a.set(1, s[u][2]);
+    a.set(2, s[u][1]);
+    a.set(3, s[u][3]);
+    const float* b0 = tile + (row0 + 8 * u + 2 * t) * ld + g;
+    const float* b1 = b0 + ld;
+#pragma unroll
+    for (int w = 0; w < kW; ++w)
+      if (8 * w < Dp) {
+        Split<2> b;
+        b.set(0, b0[8 * w]);
+        b.set(1, b1[8 * w]);
+        mma_3xtf32(acc[w], a, b);
+      }
+  }
+}
+
+__device__ __forceinline__ void store_pair(float* p, float x0, float x1, bool two) {
+  if (two && (reinterpret_cast<uintptr_t>(p) & 7) == 0) {
+    *reinterpret_cast<float2*>(p) = make_float2(x0, x1);
+  } else {
+    p[0] = x0;
+    if (two) p[1] = x1;
+  }
+}
+
+__device__ __forceinline__ void store_pair(__nv_bfloat16* p, float x0, float x1, bool two) {
+  if (two && (reinterpret_cast<uintptr_t>(p) & 3) == 0) {
+    *reinterpret_cast<uint32_t*>(p) = bf16x2(x0, x1);
+  } else {
+    p[0] = __float2bfloat16(x0);
+    if (two) p[1] = __float2bfloat16(x1);
+  }
+}
+
+// rows m0 .. m0 + 15 (those < N), columns < D of a token-major output, times mul
+template <typename T, int kW>
+__device__ __forceinline__ void store_acc_rows(T* base, long long sn, int m0, int N, int D,
+                                               float mul, const float (&acc)[kW][4]) {
+  const int lane = threadIdx.x & 31, r0 = m0 + (lane >> 2), t = lane & 3;
+#pragma unroll
+  for (int w = 0; w < kW; ++w) {
+    const int c = 8 * w + 2 * t;
+    if (c >= D) continue;
+    if (r0 < N) store_pair(base + r0 * sn + c, acc[w][0] * mul, acc[w][1] * mul, c + 1 < D);
+    if (r0 + 8 < N)
+      store_pair(base + (r0 + 8) * sn + c, acc[w][2] * mul, acc[w][3] * mul, c + 1 < D);
+  }
+}
+
+// bias + mask at the logits this lane holds of a 16 x 16 pair: rows r0, r0 +
+// 8 by columns c0 .. c0 + 15 (with `keys`, the rows are keys and the columns
+// queries: the logit of query i and key j is at [i][j]); 0 past N. Both come
+// through the cache, loaded before the group's products. (The head's bias
+// held in shared memory was slower at N = 144: its rows, 144 floats apart,
+// put four lanes on a bank; loading a group ahead cost registers and spills
+// and was slower too.)
+__device__ __forceinline__ void stream_bias_mask(float (&bm)[2][4], const float* bias_h,
+                                                 const float* mask_b, int c0, int r0, int N,
+                                                 bool keys) {
+  const int c = c0 + (threadIdx.x & 3) * 2;
+  if (!keys && N % 2 == 0) {  // a lane's two columns of a row: one 8-byte load each
+#pragma unroll
+    for (int u = 0; u < 2; ++u)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int row = r0 + 8 * half, col = c + 8 * u;
+        float2 x = make_float2(0.f, 0.f);
+        if (row < N && col < N) {
+          const float2 bv = __ldg(reinterpret_cast<const float2*>(bias_h + row * N + col));
+          const float2 mv = __ldg(reinterpret_cast<const float2*>(mask_b + row * N + col));
+          x = make_float2(bv.x + mv.x, bv.y + mv.y);
+        }
+        bm[u][2 * half] = x.x;
+        bm[u][2 * half + 1] = x.y;
+      }
+    return;
+  }
+#pragma unroll
+  for (int u = 0; u < 2; ++u)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int row = e < 2 ? r0 : r0 + 8, col = c + 8 * u + (e & 1);
+      const int at = keys ? col * N + row : row * N + col;
+      bm[u][e] = row < N && col < N ? __ldg(bias_h + at) + __ldg(mask_b + at) : 0.f;
+    }
+}
+
+// Shared memory of the streaming kernels, in bytes. Both keep two sets (the
+// tile computed and the next one) of two tiles [kStreamRows][ld] (k and v;
+// the backward's keys pass q and do) and, in f32 up to D = 64, the split
+// halves of the tiles computed; the backward also the rows' lse and delta
+// and, where they fit, the chunk's dbias sums. A tile of 48 rows keeps the
+// stride of 64: a stride of stream_tile_rows(N) x ld cost the f32 backward
+// registers it spilled (0.75 -> 0.88 ms at N = 144, D = 36).
+template <typename T>
+__host__ __device__ constexpr size_t fwd_stream_smem(int D) {
+  return (stream_presplit<T>(D) ? 8 : 4) * static_cast<size_t>(kStreamRows) * stream_ld<T>(D) *
+         sizeof(T);
+}
+
+// One block per (chunk of windows, head), blockDim.x / 32 warps of 16 query
+// rows each; the block's steps run over the chunk's windows, each window's
+// rounds of rows and each round's key tiles, with the next step's k and v
+// tiles on their way by cp.async during this one.
+template <typename T, int kDMax>
+__global__ void __launch_bounds__(32 * stream_max_warps(kDMax), 1)
+wa_fwd_stream_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                     const float* __restrict__ bias, const float* __restrict__ mask,
+                     T* __restrict__ out, Strides sq, Strides sk, Strides sv, Strides so,
+                     int bnw, int H, int N, int D, int nW, int windows_per_chunk, float scale,
+                     float* __restrict__ lse, int vec) {
+  constexpr int kW = kDMax / 8;                 // 8-column tiles of the output
+  constexpr int kGroups = kDMax <= 64 ? 4 : 2;  // 16-key groups a softmax step
+  constexpr bool kPresplit = stream_presplit<T>(kDMax);
+  extern __shared__ __align__(16) unsigned char wa_mma_smem[];
+  const int Dp = stream_dp<T>(D), ld = stream_ld<T>(D), tile = kStreamRows * ld;
+  const int tile_rows = stream_tile_rows(N);
+  T* tiles = reinterpret_cast<T*>(wa_mma_smem);  // [2 stages][k, v][kStreamRows][ld]
+  uint32_t* split = reinterpret_cast<uint32_t*>(tiles + 4 * tile);  // [k, v][hi, lo], kPresplit
+  const int warps = blockDim.x >> 5, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int t = lane & 3;
+  const int row_tiles = (N + 15) / 16, rounds = (row_tiles + warps - 1) / warps;
+  const int key_tiles = (N + tile_rows - 1) / tile_rows, per_window = rounds * key_tiles;
+  const int chunk = blockIdx.x / H, h = blockIdx.x - chunk * H;
+  const int b_first = chunk * windows_per_chunk;
+  const int steps = max(0, min(bnw, b_first + windows_per_chunk) - b_first) * per_window;
+  const float* bias_h = bias + static_cast<int64_t>(h) * N * N;
+
+  auto load = [&](int step) {
+    const int b = b_first + step / per_window, row0 = step % key_tiles * tile_rows;
+    T* dst = tiles + (step & 1) * 2 * tile;
+    stream_tile(k + b * sk.b + h * sk.h, sk.n, row0, tile_rows, N, D, vec, dst);
+    stream_tile(v + b * sv.b + h * sv.h, sv.n, row0, tile_rows, N, D, vec, dst + tile);
+    cp_async_commit();
+  };
+
+  RowFrags<T, kDMax> fq;
+  float acc[kW][4];
+  float mx0 = -INFINITY, mx1 = -INFINITY, l0 = 0.f, l1 = 0.f;
+  if (steps > 0) load(0);
+  for (int step = 0; step < steps; ++step) {
+    cp_async_wait_all();
+    __syncthreads();  // this step's tiles are in; every warp is done with the last step's
+    if (step + 1 < steps) load(step + 1);
+    if constexpr (kPresplit) {
+      split_stage(reinterpret_cast<const float*>(tiles + (step & 1) * 2 * tile), split, tile,
+                  tile_rows * ld);
+      __syncthreads();
+    }
+    const int b = b_first + step / per_window, in_window = step % per_window;
+    const int kt = in_window % key_tiles, m0 = (warp + in_window / key_tiles * warps) * 16;
+    if (m0 >= N) continue;  // no rows of this warp in this round
+    const int r0 = m0 + (lane >> 2), r1 = r0 + 8;
+    if (kt == 0) {
+      fq.load(q + b * sq.b + h * sq.h, sq.n, m0, N, D);
+#pragma unroll
+      for (int w = 0; w < kW; ++w) acc[w][0] = acc[w][1] = acc[w][2] = acc[w][3] = 0.f;
+      mx0 = mx1 = -INFINITY;
+      l0 = l1 = 0.f;
+    }
+    const float* mask_b = mask + static_cast<int64_t>(b % nW) * N * N;
+    const auto ks = stage_tile<kPresplit>(tiles + (step & 1) * 2 * tile, split, tile, 0);
+    const auto vs = stage_tile<kPresplit>(tiles + (step & 1) * 2 * tile, split, tile, 1);
+    const int key0 = kt * tile_rows;
+    for (int k0 = 0; k0 < tile_rows && key0 + k0 < N; k0 += 16 * kGroups) {
+      float s[kGroups][2][4];
+      float tmax0 = -INFINITY, tmax1 = -INFINITY;
+#pragma unroll
+      for (int gi = 0; gi < kGroups; ++gi) {
+        const int key = key0 + k0 + 16 * gi;  // the group's first key
+        const bool in = k0 + 16 * gi < tile_rows && key < N;
+        float bm[2][4];
+        if (in) {
+          stream_bias_mask(bm, bias_h, mask_b, key, r0, N, false);
+          frags_times_tile_t(fq, ks, ld, k0 + 16 * gi, Dp, s[gi]);
+        }
+#pragma unroll
+        for (int u = 0; u < 2; ++u)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int i = e < 2 ? r0 : r1, j = key + 8 * u + 2 * t + (e & 1);
+            float x = -INFINITY;
+            if (in && i < N && j < N) x = s[gi][u][e] * scale + bm[u][e];
+            s[gi][u][e] = x;
+            if (e < 2) tmax0 = fmaxf(tmax0, x);
+            else tmax1 = fmaxf(tmax1, x);
+          }
+      }
+      const float new0 = fmaxf(mx0, quad_max(tmax0)), new1 = fmaxf(mx1, quad_max(tmax1));
+      const float sub0 = (new0 == -INFINITY ? 0.f : new0) * kLog2e;
+      const float sub1 = (new1 == -INFINITY ? 0.f : new1) * kLog2e;
+      const float corr0 = exp2f(fmaf(mx0, kLog2e, -sub0)), corr1 = exp2f(fmaf(mx1, kLog2e, -sub1));
+      mx0 = new0;
+      mx1 = new1;
+      l0 *= corr0;
+      l1 *= corr1;
+#pragma unroll
+      for (int w = 0; w < kW; ++w) {
+        acc[w][0] *= corr0;
+        acc[w][1] *= corr0;
+        acc[w][2] *= corr1;
+        acc[w][3] *= corr1;
+      }
+#pragma unroll
+      for (int gi = 0; gi < kGroups; ++gi)
+#pragma unroll
+        for (int u = 0; u < 2; ++u)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            s[gi][u][e] = exp2f(fmaf(s[gi][u][e], kLog2e, -(e < 2 ? sub0 : sub1)));
+            if (e < 2) l0 += s[gi][u][e];
+            else l1 += s[gi][u][e];
+          }
+#pragma unroll
+      for (int gi = 0; gi < kGroups; ++gi)
+        if (k0 + 16 * gi < tile_rows && key0 + k0 + 16 * gi < N)
+          pair_times_tile(s[gi], vs, ld, k0 + 16 * gi, Dp, acc);
+    }
+    if (kt == key_tiles - 1) {
+      const float sum0 = quad_sum(l0), sum1 = quad_sum(l1);
+      const float inv0 = sum0 > 0.f ? 1.f / sum0 : 0.f, inv1 = sum1 > 0.f ? 1.f / sum1 : 0.f;
+      store_lse(lse, b, h, H, N, r0,
+                sum0 > 0.f ? (mx0 == -INFINITY ? 0.f : mx0) * kLog2e + log2f(sum0) : INFINITY,
+                sum1 > 0.f ? (mx1 == -INFINITY ? 0.f : mx1) * kLog2e + log2f(sum1) : INFINITY);
+#pragma unroll
+      for (int w = 0; w < kW; ++w) {
+        acc[w][0] *= inv0;
+        acc[w][1] *= inv0;
+        acc[w][2] *= inv1;
+        acc[w][3] *= inv1;
+      }
+      store_acc_rows(out + b * so.b + h * so.h, so.n, m0, N, D, 1.f, acc);
+    }
+  }
+}
+
+// Blocks of a streaming kernel: ceil(N / 16) row tiles over at most
+// stream_max_warps warps, in as few rounds as that allows
+__host__ __device__ constexpr int stream_warps(int N, int D) {
+  const int row_tiles = (N + 15) / 16, most = stream_max_warps(D <= 32 ? 32 : D <= 64 ? 64 : 128);
+  const int rounds = (row_tiles + most - 1) / most;
+  return (row_tiles + rounds - 1) / rounds;
+}
+
+// The backward's dbias sums a block keeps in shared memory, in floats: one
+// slot per thread for each (round, 16-query group, logit of the thread's
+// accumulator pair)
+__host__ __device__ constexpr size_t bwd_stream_sums(int N, int D) {
+  const int row_tiles = (N + 15) / 16, warps = stream_warps(N, D);
+  const int rounds = (row_tiles + warps - 1) / warps;
+  return static_cast<size_t>(rounds) * row_tiles * 8 * 32 * warps;
+}
+
+// The backward's tiles and the rows' lse and delta
+template <typename T>
+__host__ __device__ constexpr size_t bwd_stream_base(int N, int D) {
+  return fwd_stream_smem<T>(D) + 2 * 4 * static_cast<size_t>((N + 15) / 16 * 16);
+}
+
+template <typename T>
+__host__ __device__ constexpr bool bwd_stream_sums_in_smem(int N, int D) {
+  return bwd_stream_base<T>(N, D) + 4 * bwd_stream_sums(N, D) <= kMaxDynamicSmem;
+}
+
+template <typename T>
+__host__ __device__ constexpr size_t bwd_stream_smem(int N, int D) {
+  return bwd_stream_base<T>(N, D) + (bwd_stream_sums_in_smem<T>(N, D) ? 4 * bwd_stream_sums(N, D) : 0);
+}
+
+// One block per (chunk of windows, head), blockDim.x / 32 warps. Per window,
+// steps over rounds x key tiles for the rows (warp w: query rows of row tile
+// w + round x warps), then over rounds x query tiles for the keys (warp w:
+// keys of that row tile); each step's two tiles arrive by cp.async during
+// the step before. The dbias sums sit in shared memory where they fit
+// (bwd_stream_sums_in_smem), else in the chunk's partial in device memory.
+template <typename T, int kDMax>
+__global__ void __launch_bounds__(32 * stream_max_warps(kDMax), 1)
+wa_bwd_stream_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                     const T* __restrict__ dout, const float* __restrict__ bias,
+                     const float* __restrict__ mask, T* __restrict__ dq, T* __restrict__ dk,
+                     T* __restrict__ dv, float* __restrict__ partial, Strides sq, Strides sk,
+                     Strides sv, Strides sdo, Strides sdq, Strides sdk, Strides sdv, int bnw,
+                     int H, int N, int D, int nW, int windows_per_chunk, float scale,
+                     const T* __restrict__ out, const float* __restrict__ lse, Strides so,
+                     int vec) {
+  constexpr int kW = kDMax / 8;
+  // bf16: a first pass over the keys forms delta = rowsum(p dp) in fp32 (do
+  // out would read the output rounded to bf16, 2^-9 off, which dbias's 1e-3
+  // does not allow); f32: delta = rowsum(do out) and one pass
+  constexpr int kRowPasses = sizeof(T) == 2 ? 2 : 1;
+  constexpr bool kPresplit = stream_presplit<T>(kDMax);
+  extern __shared__ __align__(16) unsigned char wa_mma_smem[];
+  const int Dp = stream_dp<T>(D), ld = stream_ld<T>(D), tile = kStreamRows * ld;
+  const int tile_rows = stream_tile_rows(N), tiles_n = (N + tile_rows - 1) / tile_rows;
+  const int warps = blockDim.x >> 5, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int t = lane & 3;
+  const int row_tiles = (N + 15) / 16, rounds = (row_tiles + warps - 1) / warps;
+  const int row_steps = rounds * kRowPasses * tiles_n, per_window = row_steps + rounds * tiles_n;
+  T* tiles = reinterpret_cast<T*>(wa_mma_smem);  // [2 stages][k, v or q, do][kStreamRows][ld]
+  uint32_t* split = reinterpret_cast<uint32_t*>(tiles + 4 * tile);  // [2][hi, lo], kPresplit
+  float* lse_s = reinterpret_cast<float*>(tiles + (kPresplit ? 8 : 4) * tile);  // [row_tiles * 16]
+  float* delta_s = lse_s + row_tiles * 16;                    // [row_tiles * 16]
+  const bool sums_smem = bwd_stream_sums_in_smem<T>(N, D);
+  float* sums = delta_s + row_tiles * 16;  // [rounds][row_tiles][8][blockDim.x], sums_smem
+  const int chunk = blockIdx.x / H, h = blockIdx.x - chunk * H;
+  const int b_first = chunk * windows_per_chunk;
+  const int steps = max(0, min(bnw, b_first + windows_per_chunk) - b_first) * per_window;
+  const float* bias_h = bias + static_cast<int64_t>(h) * N * N;
+  float* partial_w = partial + (static_cast<int64_t>(chunk) * H + h) * N * N;
+
+  if (sums_smem)
+    for (int e = threadIdx.x; e < rounds * row_tiles * 8 * static_cast<int>(blockDim.x);
+         e += blockDim.x)
+      sums[e] = 0.f;
+
+  auto load = [&](int step) {
+    const int b = b_first + step / per_window, r = step % per_window;
+    const int row0 = (r < row_steps ? r : r - row_steps) % tiles_n * tile_rows;
+    T* dst = tiles + (step & 1) * 2 * tile;
+    if (r < row_steps) {  // the rows' steps: k and v
+      stream_tile(k + b * sk.b + h * sk.h, sk.n, row0, tile_rows, N, D, vec, dst);
+      stream_tile(v + b * sv.b + h * sv.h, sv.n, row0, tile_rows, N, D, vec, dst + tile);
+    } else {  // the keys' steps: q and do
+      stream_tile(q + b * sq.b + h * sq.h, sq.n, row0, tile_rows, N, D, vec, dst);
+      stream_tile(dout + b * sdo.b + h * sdo.h, sdo.n, row0, tile_rows, N, D, vec, dst + tile);
+    }
+    cp_async_commit();
+  };
+
+  // q and do (rows), or k and v (keys), of the warp's 16 rows; dq (rows), or
+  // dv and dk (keys)
+  RowFrags<T, kDMax> fa, fb;
+  float acc0[kW][4], acc1[kW][4];
+  float lse0 = 0.f, lse1 = 0.f, delta0 = 0.f, delta1 = 0.f;
+  if (steps > 0) load(0);
+  for (int step = 0; step < steps; ++step) {
+    cp_async_wait_all();
+    __syncthreads();  // this step's tiles are in; every warp is done with the last step's
+    if (step + 1 < steps) load(step + 1);
+    if constexpr (kPresplit) {
+      split_stage(reinterpret_cast<const float*>(tiles + (step & 1) * 2 * tile), split, tile,
+                  tile_rows * ld);
+      __syncthreads();
+    }
+    const int b = b_first + step / per_window, r = step % per_window;
+    const bool keys = r >= row_steps;
+    const int rk = keys ? r - row_steps : r, tt = rk % tiles_n;
+    const int round = keys ? rk / tiles_n : rk / (kRowPasses * tiles_n);
+    const bool last_pass = keys || rk / tiles_n % kRowPasses == kRowPasses - 1;
+    const int m0 = (warp + round * warps) * 16;
+    if (m0 >= N) continue;  // no rows of this warp in this round
+    const int r0 = m0 + (lane >> 2), r1 = r0 + 8, row0 = tt * tile_rows;
+    const float* mask_b = mask + static_cast<int64_t>(b % nW) * N * N;
+    // k (rows) or q (keys), and v (rows) or do (keys)
+    const auto ts0 = stage_tile<kPresplit>(tiles + (step & 1) * 2 * tile, split, tile, 0);
+    const auto ts1 = stage_tile<kPresplit>(tiles + (step & 1) * 2 * tile, split, tile, 1);
+    if (!keys && !last_pass) {  // bf16: delta = rowsum(p dp), fp32
+      if (tt == 0) {
+        fa.load(q + b * sq.b + h * sq.h, sq.n, m0, N, D);
+        fb.load(dout + b * sdo.b + h * sdo.h, sdo.n, m0, N, D);
+        const float* lse_w = lse + (static_cast<int64_t>(b) * H + h) * N;
+        lse0 = r0 < N ? __ldg(lse_w + r0) : INFINITY;
+        lse1 = r1 < N ? __ldg(lse_w + r1) : INFINITY;
+        delta0 = delta1 = 0.f;
+      }
+#pragma unroll
+      for (int gi = 0; gi < kStreamRows / 16; ++gi) {
+        const int key = row0 + 16 * gi;
+        if (16 * gi >= tile_rows || key >= N) break;
+        float s[2][4], dp[2][4], bm[2][4];
+        stream_bias_mask(bm, bias_h, mask_b, key, r0, N, false);
+        frags_times_tile_t<false>(fa, ts0, ld, 16 * gi, Dp, s);
+        frags_times_tile_t<false>(fb, ts1, ld, 16 * gi, Dp, dp);
+#pragma unroll
+        for (int u = 0; u < 2; ++u)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int i = e < 2 ? r0 : r1, j = key + 8 * u + 2 * t + (e & 1);
+            if (i < N && j < N) {
+              const float x = s[u][e] * scale + bm[u][e];
+              const float p = exp2f(fmaf(x, kLog2e, -(e < 2 ? lse0 : lse1)));
+              if (e < 2) delta0 = fmaf(p, dp[u][e], delta0);
+              else delta1 = fmaf(p, dp[u][e], delta1);
+            }
+          }
+      }
+      if (tt == tiles_n - 1) {
+        delta0 = quad_sum(delta0);
+        delta1 = quad_sum(delta1);
+        if (t == 0) {
+          lse_s[r0] = lse0;
+          lse_s[r1] = lse1;
+          delta_s[r0] = delta0;
+          delta_s[r1] = delta1;
+        }
+      }
+    } else if (!keys) {
+      if (tt == 0) {
+#pragma unroll
+        for (int w = 0; w < kW; ++w) acc0[w][0] = acc0[w][1] = acc0[w][2] = acc0[w][3] = 0.f;
+      }
+      if (kRowPasses == 1 && tt == 0) {
+        fa.load(q + b * sq.b + h * sq.h, sq.n, m0, N, D);
+        fb.load(dout + b * sdo.b + h * sdo.h, sdo.n, m0, N, D);
+        // delta = rowsum(do out) and lse of rows r0, r1 (past N: 0 and +inf)
+        const T* do_w = dout + b * sdo.b + h * sdo.h;
+        const T* out_w = out + b * so.b + h * so.h;
+        float d0 = 0.f, d1 = 0.f;
+        for (int d = t; d < D; d += 4) {
+          if (r0 < N) d0 = fmaf(to_f(do_w[r0 * sdo.n + d]), to_f(out_w[r0 * so.n + d]), d0);
+          if (r1 < N) d1 = fmaf(to_f(do_w[r1 * sdo.n + d]), to_f(out_w[r1 * so.n + d]), d1);
+        }
+        delta0 = quad_sum(d0);
+        delta1 = quad_sum(d1);
+        const float* lse_w = lse + (static_cast<int64_t>(b) * H + h) * N;
+        lse0 = r0 < N ? __ldg(lse_w + r0) : INFINITY;
+        lse1 = r1 < N ? __ldg(lse_w + r1) : INFINITY;
+        if (t == 0) {
+          lse_s[r0] = lse0;
+          lse_s[r1] = lse1;
+          delta_s[r0] = delta0;
+          delta_s[r1] = delta1;
+        }
+      }
+#pragma unroll
+      for (int gi = 0; gi < kStreamRows / 16; ++gi) {
+        const int key = row0 + 16 * gi;
+        if (16 * gi >= tile_rows || key >= N) break;
+        float s[2][4], dp[2][4], bm[2][4];
+        stream_bias_mask(bm, bias_h, mask_b, key, r0, N, false);
+        frags_times_tile_t<false>(fa, ts0, ld, 16 * gi, Dp, s);
+        frags_times_tile_t<false>(fb, ts1, ld, 16 * gi, Dp, dp);
+#pragma unroll
+        for (int u = 0; u < 2; ++u)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int i = e < 2 ? r0 : r1, j = key + 8 * u + 2 * t + (e & 1);
+            float ds = 0.f;
+            if (i < N && j < N) {
+              const float x = s[u][e] * scale + bm[u][e];
+              const float p = exp2f(fmaf(x, kLog2e, -(e < 2 ? lse0 : lse1)));
+              ds = p * (dp[u][e] - (e < 2 ? delta0 : delta1));
+            }
+            s[u][e] = ds;
+          }
+        pair_times_tile(s, ts0, ld, 16 * gi, Dp, acc0);  // dq += ds k
+      }
+      if (tt == tiles_n - 1) store_acc_rows(dq + b * sdq.b + h * sdq.h, sdq.n, m0, N, D, scale, acc0);
+    } else {
+      // rows r0, r1 of the accumulator tiles are keys, their columns queries
+      if (tt == 0) {
+        fa.load(k + b * sk.b + h * sk.h, sk.n, m0, N, D);
+        fb.load(v + b * sv.b + h * sv.h, sv.n, m0, N, D);
+#pragma unroll
+        for (int w = 0; w < kW; ++w) {
+          acc0[w][0] = acc0[w][1] = acc0[w][2] = acc0[w][3] = 0.f;
+          acc1[w][0] = acc1[w][1] = acc1[w][2] = acc1[w][3] = 0.f;
+        }
+      }
+#pragma unroll
+      for (int gi = 0; gi < kStreamRows / 16; ++gi) {
+        const int query = row0 + 16 * gi;
+        if (16 * gi >= tile_rows || query >= N) break;
+        float st[2][4], dpt[2][4], bm[2][4];
+        stream_bias_mask(bm, bias_h, mask_b, query, r0, N, true);
+        frags_times_tile_t<false>(fa, ts0, ld, 16 * gi, Dp, st);
+        frags_times_tile_t<false>(fb, ts1, ld, 16 * gi, Dp, dpt);
+        float* slot = sums + static_cast<size_t>((round * row_tiles + query / 16) * 8) * blockDim.x +
+                      threadIdx.x;
+#pragma unroll
+        for (int u = 0; u < 2; ++u)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int i = query + 8 * u + 2 * t + (e & 1), j = e < 2 ? r0 : r1;
+            float p = 0.f, ds = 0.f;
+            if (i < N && j < N) {
+              const float x = st[u][e] * scale + bm[u][e];
+              p = exp2f(fmaf(x, kLog2e, -lse_s[i]));
+              ds = p * (dpt[u][e] - delta_s[i]);
+              if (!sums_smem) {
+                float* at = partial_w + i * N + j;  // this thread's alone in the launch
+                *at = b == b_first ? ds : *at + ds;
+              }
+            }
+            if (sums_smem) slot[(u * 4 + e) * blockDim.x] += ds;
+            st[u][e] = p;
+            dpt[u][e] = ds;
+          }
+        pair_times_tile(st, ts1, ld, 16 * gi, Dp, acc0);   // dv += p^T do
+        pair_times_tile(dpt, ts0, ld, 16 * gi, Dp, acc1);  // dk += ds^T q
+      }
+      if (tt == tiles_n - 1) {
+        store_acc_rows(dv + b * sdv.b + h * sdv.h, sdv.n, m0, N, D, 1.f, acc0);
+        store_acc_rows(dk + b * sdk.b + h * sdk.h, sdk.n, m0, N, D, scale, acc1);
+      }
+    }
+  }
+
+  if (!sums_smem) return;
+  for (int round = 0; round < rounds; ++round) {
+    const int m0 = (warp + round * warps) * 16;
+    if (m0 >= N) break;
+    for (int qg = 0; qg < row_tiles; ++qg) {
+      const float* slot =
+          sums + static_cast<size_t>((round * row_tiles + qg) * 8) * blockDim.x + threadIdx.x;
+#pragma unroll
+      for (int u = 0; u < 2; ++u)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = qg * 16 + 8 * u + 2 * t + (e & 1), j = m0 + (lane >> 2) + (e < 2 ? 0 : 8);
+          if (i < N && j < N) partial_w[i * N + j] = slot[(u * 4 + e) * blockDim.x];
+        }
+    }
+  }
+}
+
+// The streaming kernels are compiled for head dims up to 32, 64 and 128, and
+// in f32 also 40 (D = 36 and the like: the 64 build's registers spill there)
+template <typename T>
+auto fwd_stream_kernel(int D) {
+  auto kernel = D <= 32 ? wa_fwd_stream_kernel<T, 32>
+                        : D <= 64 ? wa_fwd_stream_kernel<T, 64> : wa_fwd_stream_kernel<T, 128>;
+  if constexpr (sizeof(T) == 4)
+    if (D > 32 && D <= 40) kernel = wa_fwd_stream_kernel<T, 40>;
+  return kernel;
+}
+
+template <typename T>
+auto bwd_stream_kernel(int D) {
+  auto kernel = D <= 32 ? wa_bwd_stream_kernel<T, 32>
+                        : D <= 64 ? wa_bwd_stream_kernel<T, 64> : wa_bwd_stream_kernel<T, 128>;
+  if constexpr (sizeof(T) == 4)
+    if (D > 32 && D <= 40) kernel = wa_bwd_stream_kernel<T, 40>;
+  return kernel;
+}
+
+bool stream_fits(int N, int D) { return N >= 1 && D >= 1 && D <= 128; }
+
 int windows_per_chunk(int bnw, int H, int target_blocks = kBwdTargetBlocks) {
   const int chunks = max(1, min(bnw, (target_blocks + H - 1) / H));
   return (bnw + chunks - 1) / chunks;
@@ -2168,25 +3103,36 @@ int window_attention_fwd(const void* q, const void* k, const void* v, const void
 // strides of q, k, v that are multiples of 16 bytes, and two sets of tiles
 // with the head's bias within a block's shared memory (fwd_mma_smem_bytes,
 // fwd_tf32_smem_bytes), else -1. chunks: the _chunks query of the same
-// name, called on the device before its first launch there. strides: q, k,
-// v, out (12 values).
+// name, called on the device before its first launch there. lse: as for
+// _tf32x3 below (the _mma forward writes it at N > 64 only, and refuses it
+// below). strides: q, k, v, out (12 values).
 int window_attention_fwd_mma_chunks(int bnw, int H, int N, int D) {
   if (N < 1 || N > kMmaMaxN || D < 16 || D % 16 != 0) return -1;
   const size_t smem = fwd_mma_smem_bytes(N, D);
-  return N <= 64 ? one_wave_chunks(wa_fwd_mma_kernel<64>, 128, smem, bnw, H)
-                 : one_wave_chunks(wa_fwd_mma_kernel<144>, 288, smem, bnw, H);
+  if (N <= 64) return one_wave_chunks(wa_fwd_mma_kernel<64, false>, 128, smem, bnw, H);
+  // both N = 144 builds (with and without lse) get their shared-memory limit here
+  return min(one_wave_chunks(wa_fwd_mma_kernel<144, false>, 288, smem, bnw, H),
+             one_wave_chunks(wa_fwd_mma_kernel<144, true>, 288, smem, bnw, H));
 }
 
 int window_attention_fwd_mma(const void* q, const void* k, const void* v, const void* bias,
-                             const void* mask, void* out, int bnw, int H, int N, int D, int nW,
-                             int chunks, float scale, const long long* strides, void* stream) {
+                             const void* mask, void* out, void* lse, int bnw, int H, int N, int D,
+                             int nW, int chunks, float scale, const long long* strides,
+                             void* stream) {
   if (N < 1 || N > kMmaMaxN || D < 16 || D % 16 != 0) return -1;
+  if (N <= 64 && lse != nullptr) return static_cast<int>(cudaErrorInvalidValue);
   using bf16 = __nv_bfloat16;
-  auto kernel = N <= 64 ? wa_fwd_mma_kernel<64> : wa_fwd_mma_kernel<144>;
+  // lse only where asked, in its own build, and not at N <= 64, where no
+  // backward reads it: computing it cost that forward 11% (phase 2, the
+  // Swin-L rows)
+  auto kernel = N <= 64 ? wa_fwd_mma_kernel<64, false>
+                        : lse != nullptr ? wa_fwd_mma_kernel<144, true>
+                                         : wa_fwd_mma_kernel<144, false>;
   return launch_fwd_chunked<bf16>(kernel, N <= 64 ? 128 : 288, fwd_mma_smem_bytes(N, D), q, k, v,
                                   static_cast<const float*>(bias), static_cast<const float*>(mask),
                                   out, reinterpret_cast<const Strides*>(strides), bnw, H, N, D,
-                                  nW, chunks, scale, static_cast<cudaStream_t>(stream));
+                                  nW, chunks, scale, static_cast<cudaStream_t>(stream),
+                                  static_cast<float*>(lse));
 }
 
 int window_attention_fwd_tf32x3_chunks(int bnw, int H, int N, int D) {
@@ -2194,9 +3140,8 @@ int window_attention_fwd_tf32x3_chunks(int bnw, int H, int N, int D) {
   return fwd_tf32_chunks(N, D, bnw, H);
 }
 
-// lse: float [bnw, H, N], the rows' log2-sum-exp2 (what the window-12
-// backward reads), or null where no backward follows; the N <= 64 forward
-// writes none (its backward computes its own softmax).
+// lse: float [bnw, H, N], the rows' log2-sum-exp2 (what the window-12 and
+// streaming backwards read), or null where no such backward follows.
 int window_attention_fwd_tf32x3(const void* q, const void* k, const void* v, const void* bias,
                                 const void* mask, void* out, void* lse, int bnw, int H, int N,
                                 int D, int nW, int chunks, float scale, const long long* strides,
@@ -2208,7 +3153,8 @@ int window_attention_fwd_tf32x3(const void* q, const void* k, const void* v, con
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (N <= 64)
     return launch_fwd_chunked<float>(fwd_tf32_small_kernel(D), 128, fwd_tf32_smem(N, D), q, k, v,
-                                     bp, mp, out, s, bnw, H, N, D, nW, chunks, scale, st);
+                                     bp, mp, out, s, bnw, H, N, D, nW, chunks, scale, st,
+                                     static_cast<float*>(lse));
   return launch_fwd_chunked<float>(fwd_tf32_large_kernel(D), 2 * kMmaMaxN, fwd_tf32_smem(N, D),
                                    q, k, v, bp, mp, out, s, bnw, H, N, D, nW, chunks, scale, st,
                                    static_cast<float*>(lse));
@@ -2293,6 +3239,91 @@ int window_attention_bwd_tf32x3(const void* q, const void* k, const void* v, con
                                    k, v, dout, bp, mp, dq, dk, dv, pp, dbp, s, bnw, H, N, D, nW,
                                    chunks, scale, st, static_cast<const float*>(out),
                                    static_cast<const float*>(lse), s[7]);
+}
+
+// The streaming kernels: float32 (dtype 0) or bfloat16 (1) q, k, v with 1 <=
+// D <= 128 at any N >= 1, through any strides (vec: every base address and
+// window, head and token stride of q, k, v (and do) a multiple of 16 bytes,
+// and D of one 16-byte piece, so the tiles arrive by cp.async; else element
+// by element), else -1. chunks: the _chunks query of the same name, called
+// on the device before its first launch there. The forward writes each
+// row's lse where lse is not null; the backward reads the forward's out and
+// lse (neither may be null). strides: q, k, v, out (12 values) forward; q,
+// k, v, do, dq, dk, dv, out (24 values) backward; scratch: chunks * H * N *
+// N floats.
+int window_attention_fwd_stream_chunks(int bnw, int H, int N, int D, int dtype) {
+  if (!stream_fits(N, D)) return -1;
+  const int threads = 32 * stream_warps(N, D);
+  if (dtype == 0)
+    return one_wave_chunks(fwd_stream_kernel<float>(D), threads, fwd_stream_smem<float>(D),
+                           bnw, H);
+  if (dtype == 1)
+    return one_wave_chunks(fwd_stream_kernel<__nv_bfloat16>(D), threads,
+                           fwd_stream_smem<__nv_bfloat16>(D), bnw, H);
+  return -1;
+}
+
+int window_attention_fwd_stream(const void* q, const void* k, const void* v, const void* bias,
+                                const void* mask, void* out, void* lse, int dtype, int bnw, int H,
+                                int N, int D, int nW, int chunks, float scale,
+                                const long long* strides, int vec, void* stream) {
+  if (!stream_fits(N, D)) return -1;
+  const Strides* s = reinterpret_cast<const Strides*>(strides);
+  const float* bp = static_cast<const float*>(bias);
+  const float* mp = static_cast<const float*>(mask);
+  float* lp = static_cast<float*>(lse);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int threads = 32 * stream_warps(N, D);
+  if (dtype == 0)
+    return launch_fwd_chunked<float>(fwd_stream_kernel<float>(D), threads,
+                                     fwd_stream_smem<float>(D), q, k, v, bp, mp, out, s, bnw, H,
+                                     N, D, nW, chunks, scale, st, lp, vec);
+  if (dtype == 1)
+    return launch_fwd_chunked<__nv_bfloat16>(fwd_stream_kernel<__nv_bfloat16>(D), threads,
+                                             fwd_stream_smem<__nv_bfloat16>(D), q, k, v, bp, mp,
+                                             out, s, bnw, H, N, D, nW, chunks, scale, st, lp, vec);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+int window_attention_bwd_stream_chunks(int bnw, int H, int N, int D, int dtype) {
+  if (!stream_fits(N, D)) return -1;
+  const int threads = 32 * stream_warps(N, D);
+  if (dtype == 0)
+    return one_wave_chunks(bwd_stream_kernel<float>(D), threads, bwd_stream_smem<float>(N, D),
+                           bnw, H);
+  if (dtype == 1)
+    return one_wave_chunks(bwd_stream_kernel<__nv_bfloat16>(D), threads,
+                           bwd_stream_smem<__nv_bfloat16>(N, D), bnw, H);
+  return -1;
+}
+
+int window_attention_bwd_stream(const void* q, const void* k, const void* v, const void* dout,
+                                const void* bias, const void* mask, const void* out,
+                                const void* lse, void* dq, void* dk, void* dv, void* partial,
+                                void* dbias, int dtype, int bnw, int H, int N, int D, int nW,
+                                int chunks, float scale, const long long* strides, int vec,
+                                void* stream) {
+  if (!stream_fits(N, D)) return -1;
+  if (out == nullptr || lse == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  const Strides* s = reinterpret_cast<const Strides*>(strides);
+  const float* bp = static_cast<const float*>(bias);
+  const float* mp = static_cast<const float*>(mask);
+  const float* lp = static_cast<const float*>(lse);
+  float* pp = static_cast<float*>(partial);
+  float* dbp = static_cast<float*>(dbias);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int threads = 32 * stream_warps(N, D);
+  if (dtype == 0)
+    return launch_bwd_chunked<float>(
+        bwd_stream_kernel<float>(D), threads, bwd_stream_smem<float>(N, D), q, k, v, dout, bp, mp,
+        dq, dk, dv, pp, dbp, s, bnw, H, N, D, nW, chunks, scale, st,
+        static_cast<const float*>(out), lp, s[7], vec);
+  if (dtype == 1)
+    return launch_bwd_chunked<__nv_bfloat16>(
+        bwd_stream_kernel<__nv_bfloat16>(D), threads, bwd_stream_smem<__nv_bfloat16>(N, D), q, k,
+        v, dout, bp, mp, dq, dk, dv, pp, dbp, s, bnw, H, N, D, nW, chunks, scale, st,
+        static_cast<const __nv_bfloat16*>(out), lp, s[7], vec);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // extern "C"

@@ -23,9 +23,12 @@ PACKAGE_DIR = pathlib.Path(__file__).resolve().parents[2]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 
+# --split-compile=0: nvcc compiles a source's kernels on all the host's cores
+# (window_attention.cu in about half the time one core takes)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "--split-compile=0",
 )
 
 

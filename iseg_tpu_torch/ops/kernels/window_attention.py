@@ -20,31 +20,38 @@ dq/dk/dv come back token-major (``[bnw, H, N, D]`` views of
 
 Types: q, k, v in float32 or bfloat16 (all alike); bias and mask float32;
 out, dq, dk, dv in q's dtype, dbias fp32. The forward and the backward each
-take one of three kernels, by :func:`forward_route` and
+take one of four kernels, by :func:`forward_route` and
 :func:`backward_route`. bfloat16 with ``D % 16 == 0`` and ``N <= 144``
-(every Swin variant) runs on the tensor cores (``"mma"``): the forward with
-p rounded to bf16 as the operand of p v, the backward with p rounded as the
-operand of dv and ds as the operand of dq and dk, everything else fp32.
-float32 with ``D % 8 == 0`` runs on the tensor cores too (``"tf32x3"``), in
-split TF32: each fp32 operand is split as ``hi + lo`` with ``hi = tf32(x)``
-(to nearest) and ``lo = x - hi`` truncated to TF32, and each product is
-summed as ``lo hi + hi lo + hi hi`` in fp32 accumulators; a NaN stays NaN. The split keeps about 21 bits of each
+(every Swin variant) runs on the tensor cores (``"mma"``) where its tiles fit
+a block: the forward with p rounded to bf16 as the operand of p v, the
+backward with p rounded as the operand of dv and ds as the operand of dq and
+dk, everything else fp32. float32 with ``D % 8 == 0`` runs on the tensor
+cores too (``"tf32x3"``), in split TF32: each fp32 operand is split as ``hi +
+lo`` with ``hi = tf32(x)`` (to nearest) and ``lo = x - hi`` truncated to
+TF32, and each product is summed as ``lo hi + hi lo + hi hi`` in fp32
+accumulators; a NaN stays NaN. The split keeps about 21 bits of each
 operand, so the results stay within the fp32 tolerance of the plain
 version (1e-4 of max(1, max |plain|)), whatever
 ``torch.backends.cuda.matmul.allow_tf32`` says: that flag governs PyTorch's
 own matrix products, not these kernels. The float32 routes follow where
 the fp32 tiles fit a block's shared memory: the forward at every ``N <=
 144`` with ``D <= 128`` (above ``N = 64`` with an online softmax, q held in
-registers and only k and v in shared memory, and the rows' lse kept for
-the backward), the backward at ``N <= 64`` with ``D <= 80`` and at ``64 < N
-<= 144`` with ``D <= 56`` (window 12: each warp forms its query rows' dq,
-then its keys' dk, dv and dbias, with p from the forward's lse and delta =
-rowsum(do out); see the route functions). Every other shape runs on the
-CUDA cores in fp32 (``"cuda_core"``). The CUDA source checks the same
-limits and the fit again at launch: a shape sent down a tensor-core route
-whose tiles do not fit raises. Every output, dbias included, is bitwise
-repeatable: dbias is summed from fp32 ds over chunks of windows in a fixed
-order, with no atomics.
+registers and only k and v in shared memory), the backward at ``N <= 64``
+with ``D <= 80`` and at ``64 < N <= 144`` with ``D <= 56`` (window 12: each
+warp forms its query rows' dq, then its keys' dk, dv and dbias, with p from
+the forward's lse and delta = rowsum(do out); see the route functions).
+Every other float32 or bfloat16 shape with ``D <= 128`` runs on the
+streaming kernels (``"stream"``): the same tensor-core products (bf16, or
+split TF32 for float32) with the window brought through shared memory 48
+or 64 keys (or queries) at a time, so no ``N`` is too large; the backward there
+is the rows-then-keys order, and reads the forward's output and lse. Only
+``D > 128`` runs on the CUDA cores in fp32 (``"cuda_core"``; no window
+attention of either package has heads that wide), and raises where its
+tiles do not fit a block. The CUDA source checks the route limits and the
+fit again at launch: a shape sent down a route whose tiles do not fit
+raises. Every output, dbias included, is bitwise repeatable: dbias is
+summed from fp32 ds over chunks of windows in a fixed order, with no
+atomics.
 
 Where no gradient is recorded (serving, ``torch.export``) the forward is
 the operator ``iseg::window_attention_fwd`` (:func:`window_attention_fwd`);
@@ -53,7 +60,8 @@ with a gradient, the autograd Function of the two kernels.
 ``LAUNCH_COUNTS`` counts kernel launches (``"fwd"`` and ``"bwd"`` for the
 CUDA-core kernels, ``"fwd_mma"`` and ``"bwd_mma"`` for the bf16
 tensor-core ones, ``"fwd_tf32x3"`` and ``"bwd_tf32x3"`` for the fp32
-tensor-core ones): one per launch of each kernel, nowhere else.
+tensor-core ones, ``"fwd_stream"`` and ``"bwd_stream"`` for the streaming
+ones): one per launch of each kernel, nowhere else.
 """
 
 from __future__ import annotations
@@ -63,63 +71,79 @@ import functools
 
 import torch
 
-LAUNCH_COUNTS = {"fwd": 0, "fwd_mma": 0, "fwd_tf32x3": 0, "bwd": 0, "bwd_mma": 0,
-                 "bwd_tf32x3": 0}
+LAUNCH_COUNTS = {"fwd": 0, "fwd_mma": 0, "fwd_tf32x3": 0, "fwd_stream": 0, "bwd": 0,
+                 "bwd_mma": 0, "bwd_tf32x3": 0, "bwd_stream": 0}
 
 SOURCE = "window_attention.cu"
 _TENSOR_CORE_ROUTES = ("mma", "tf32x3")
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _DOES_NOT_FIT = -1
 MMA_MAX_N = 144
-FWD_MMA_MAX_D = 128
+STREAM_MAX_D = 128
 TF32X3_BWD_SMALL_N = 64
 TF32X3_BWD_SMALL_MAX_D = 80
 TF32X3_BWD_LARGE_MAX_D = 56
+MAX_DYNAMIC_SMEM = 232448  # bytes a block may have on the H100 (227 KB)
+
+
+def _fwd_mma_fits(n: int, d: int) -> bool:
+    """Whether the bf16 tensor-core forward's tiles fit a block: two sets of
+    bf16 q, k, v tiles ``[N][D + 8]`` and a row of zeros, and the head's fp32
+    bias ``[N][N]`` (the CUDA source's ``fwd_mma_smem_bytes``; bf16 N = 144
+    fits up to D = 64)."""
+    return 2 * (6 * n + 1) * (d + 8) + 4 * n * n <= MAX_DYNAMIC_SMEM
 
 
 def forward_route(dtype: torch.dtype, n: int, d: int) -> str:
     """The forward kernel for q, k, v of ``dtype`` and shape ``[.., N, D]``:
     ``"mma"`` (tensor cores) for bfloat16 with ``D % 16 == 0``, ``16 <= D <=
-    128`` and ``N <= 144``; ``"tf32x3"`` (tensor cores, split TF32) for
-    float32 with ``D % 8 == 0``, ``8 <= D <= 128`` and ``N <= 144``; else
-    ``"cuda_core"``. Float32 above ``N = 64`` takes the split-TF32 forward
-    with an online softmax: two sets of fp32 q, k, v tiles and the head's
-    bias (235,008 + 82,944 bytes at ``N = 144``, ``D = 64``) would not fit a
-    block's 232,448, so each warp holds its q rows in registers, read from
-    device memory, and the block keeps k and v (two sets up to ``D = 96``,
-    one above). On a tensor-core route the CUDA source checks the fit
-    again, and the launch raises where the tiles do not fit (bf16 at N =
-    144 with D = 128)."""
-    if not 1 <= n <= MMA_MAX_N or not 0 < d <= FWD_MMA_MAX_D:
+    128``, ``N <= 144`` and tiles that fit a block (:func:`_fwd_mma_fits`);
+    ``"tf32x3"`` (tensor cores, split TF32) for float32 with ``D % 8 == 0``,
+    ``8 <= D <= 128`` and ``N <= 144``; every other float32 or bfloat16 shape
+    with ``D <= 128`` ``"stream"`` (tensor cores, k and v brought through
+    shared memory a tile at a time); else ``"cuda_core"``. Float32 above ``N
+    = 64`` takes the split-TF32 forward with an online softmax: two sets of
+    fp32 q, k, v tiles and the head's bias (235,008 + 82,944 bytes at ``N =
+    144``, ``D = 64``) would not fit a block's 232,448, so each warp holds its
+    q rows in registers, read from device memory, and the block keeps k and
+    v (two sets up to ``D = 96``, one above)."""
+    if not 0 < d <= STREAM_MAX_D or dtype not in _DTYPE_CODES:
         return "cuda_core"
-    if dtype == torch.bfloat16 and d % 16 == 0:
-        return "mma"
-    if dtype == torch.float32 and d % 8 == 0:
-        return "tf32x3"
-    return "cuda_core"
+    if 1 <= n <= MMA_MAX_N:
+        if dtype == torch.bfloat16 and d % 16 == 0 and _fwd_mma_fits(n, d):
+            return "mma"
+        if dtype == torch.float32 and d % 8 == 0:
+            return "tf32x3"
+    return "stream"
 
 
 def backward_route(dtype: torch.dtype, n: int, d: int) -> str:
-    """The backward kernel for q, k, v of ``dtype`` and shape ``[.., N, D]``,
-    where the tiles fit a block's shared memory (227 KB on the H100):
-    ``"mma"`` (tensor cores) for bfloat16 with ``D % 16 == 0`` and ``N <=
-    144`` (``D <= 128`` at ``N <= 64``, ``D <= 32`` above); ``"tf32x3"``
-    (tensor cores, split TF32) for float32 with ``D % 8 == 0`` and ``N <=
-    144``, ``D <= 80`` at ``N <= 64`` (every Swin variant at window 7: N =
-    49, D = 32) and ``D <= 56`` above (window 12: N = 144, D = 32); else
+    """The backward kernel for q, k, v of ``dtype`` and shape ``[.., N, D]``:
+    where the window's tiles fit a block's shared memory (227 KB on the
+    H100), ``"mma"`` (tensor cores) for bfloat16 with ``D % 16 == 0`` and
+    ``N <= 144`` (``D <= 128`` at ``N <= 64``, ``D <= 32`` above) and
+    ``"tf32x3"`` (tensor cores, split TF32) for float32 with ``D % 8 == 0``
+    and ``N <= 144``, ``D <= 80`` at ``N <= 64`` (every Swin variant at window
+    7: N = 49, D = 32) and ``D <= 56`` above (window 12: N = 144, D = 32);
+    every other float32 or bfloat16 shape with ``D <= 128`` ``"stream"``; else
     ``"cuda_core"``. Above ``N = 64`` the float32 backward keeps no p or ds
     tile (they alone would take 170,496 bytes at N = 144): each warp forms
     its 16 query rows' dq, then its 16 keys' dk, dv and dbias sums, from
     registers. Its one set of q, k, v, do tiles and the block's dbias sums
     (82,944 bytes) fit a block up to ``D = 56``. ``D = 80`` is the widest
-    float32 head dim whose tiles fit at ``N = 64``."""
-    if dtype == torch.bfloat16 and d >= 16 and d % 16 == 0 and 1 <= n <= MMA_MAX_N:
-        return "mma" if d <= (128 if n <= 64 else 32) else "cuda_core"
-    if dtype == torch.float32 and d % 8 == 0 and 0 < d and 1 <= n <= MMA_MAX_N:
+    float32 head dim whose tiles fit at ``N = 64``. The streaming backward
+    runs the same rows-then-keys order with the window brought through
+    shared memory a tile at a time."""
+    if not 0 < d <= STREAM_MAX_D or dtype not in _DTYPE_CODES:
+        return "cuda_core"
+    if 1 <= n <= MMA_MAX_N:
+        if dtype == torch.bfloat16 and d >= 16 and d % 16 == 0 and d <= (128 if n <= 64 else 32):
+            return "mma"
         small = n <= TF32X3_BWD_SMALL_N
-        if d <= (TF32X3_BWD_SMALL_MAX_D if small else TF32X3_BWD_LARGE_MAX_D):
+        if dtype == torch.float32 and d % 8 == 0 and d <= (
+                TF32X3_BWD_SMALL_MAX_D if small else TF32X3_BWD_LARGE_MAX_D):
             return "tf32x3"
-    return "cuda_core"
+    return "stream"
 
 
 def reset_launch_counts() -> None:
@@ -144,15 +168,21 @@ def build():
         lib.window_attention_bwd.argtypes = [ptr] * 11 + [i32] * 6 + [f32, strides, ptr]
         lib.window_attention_bwd.restype = i32
         for route in _TENSOR_CORE_ROUTES:
-            # the split-TF32 forward also writes lse; its backward reads out and lse
-            for which, pointers in (("fwd", 6 + (route == "tf32x3")),
-                                    ("bwd", 11 + 2 * (route == "tf32x3"))):
+            # both forwards also write lse; the split-TF32 backward reads out and lse
+            for which, pointers in (("fwd", 7), ("bwd", 11 + 2 * (route == "tf32x3"))):
                 chunks = getattr(lib, f"window_attention_{which}_{route}_chunks")
                 chunks.argtypes = [i32] * 4
                 chunks.restype = i32
                 launch = getattr(lib, f"window_attention_{which}_{route}")
                 launch.argtypes = [ptr] * pointers + [i32] * 6 + [f32, strides, ptr]
                 launch.restype = i32
+        for which, pointers in (("fwd", 7), ("bwd", 13)):
+            chunks = getattr(lib, f"window_attention_{which}_stream_chunks")
+            chunks.argtypes = [i32] * 5
+            chunks.restype = i32
+            launch = getattr(lib, f"window_attention_{which}_stream")
+            launch.argtypes = [ptr] * pointers + [i32] * 7 + [f32, strides, i32, ptr]
+            launch.restype = i32
         lib._iseg_bound = True
     return built
 
@@ -215,8 +245,13 @@ def _raise_on(err: int, what: str, q: torch.Tensor) -> None:
 
 def keeps_lse(dtype: torch.dtype, n: int, d: int) -> bool:
     """Whether the backward for this shape reads the forward's output and
-    lse: the float32 split-TF32 backward above ``N = 64``."""
-    return n > TF32X3_BWD_SMALL_N and backward_route(dtype, n, d) == "tf32x3"
+    lse: the float32 split-TF32 backward above ``N = 64`` and the streaming
+    backward. The forwards of those shapes write lse when asked: the
+    split-TF32 and streaming ones at every N, the bf16 tensor-core one above
+    ``N = 64`` (below it every bf16 backward is the tensor-core one, which
+    reads none)."""
+    route = backward_route(dtype, n, d)
+    return route == "stream" or (route == "tf32x3" and n > TF32X3_BWD_SMALL_N)
 
 
 def _launch_fwd(q, k, v, bias, mask, scale: float, with_lse: bool = False):
@@ -231,21 +266,30 @@ def _launch_fwd(q, k, v, bias, mask, scale: float, with_lse: bool = False):
     lib = build().lib
     stream = torch.cuda.current_stream(q.device).cuda_stream
     route = forward_route(q.dtype, n, d)
-    if with_lse and route != "tf32x3":
-        raise ValueError(f"window_attention forward: lse is written by the split-TF32 forward, "
-                         f"not by the {route!r} route")
+    if with_lse and (route == "cuda_core" or (route == "mma" and n <= TF32X3_BWD_SMALL_N)):
+        raise ValueError(f"window_attention forward: the {route!r} forward writes no lse at N = {n}")
+    lse_ptr = lse.data_ptr() if with_lse else None
+    if route == "stream":
+        what = "forward (streaming)"
+        chunks = _stream_chunks("fwd", q.device.index, q.dtype, bnw, h, n, d)
+        if chunks < 1:
+            _raise_on(_DOES_NOT_FIT, what, q)
+        err = lib.window_attention_fwd_stream(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), mask.data_ptr(),
+            out.data_ptr(), lse_ptr, _DTYPE_CODES[q.dtype], bnw, h, n, d, mask.shape[0], chunks,
+            float(scale), _strides(q, k, v, out), int(_vec16(q, k, v)), stream)
+        _raise_on(err, what, q)
+        LAUNCH_COUNTS["fwd_stream"] += 1
+        return out, lse
     if route in _TENSOR_CORE_ROUTES:
         what = f"forward (tensor cores, {route})"
         q, k, v = (_aligned16(t) for t in (q, k, v))
         chunks = _tensor_core_chunks(f"fwd_{route}", q.device.index, bnw, h, n, d)
         if chunks < 1:
             _raise_on(_DOES_NOT_FIT, what, q)
-        pointers = [q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), mask.data_ptr(),
-                    out.data_ptr()]
-        if route == "tf32x3":
-            pointers.append(lse.data_ptr() if with_lse else None)
         err = getattr(lib, f"window_attention_fwd_{route}")(
-            *pointers, bnw, h, n, d, mask.shape[0], chunks, float(scale),
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), mask.data_ptr(),
+            out.data_ptr(), lse_ptr, bnw, h, n, d, mask.shape[0], chunks, float(scale),
             _strides(q, k, v, out), stream)
         _raise_on(err, what, q)
         LAUNCH_COUNTS[f"fwd_{route}"] += 1
@@ -257,6 +301,16 @@ def _launch_fwd(q, k, v, bias, mask, scale: float, with_lse: bool = False):
     _raise_on(err, "forward", q)
     LAUNCH_COUNTS["fwd"] += 1
     return out, lse
+
+
+def _vec16(*tensors: torch.Tensor) -> bool:
+    """Whether the streaming kernels may copy these tensors' rows by
+    cp.async in 16-byte pieces: every base address and window, head and
+    token stride a multiple of 16 bytes, and the head dim of whole pieces."""
+    size = tensors[0].element_size()
+    return tensors[0].shape[3] * size % 16 == 0 and all(
+        t.data_ptr() % 16 == 0 and all(s * size % 16 == 0 for s in t.stride()[:3])
+        for t in tensors)
 
 
 def _aligned16(t: torch.Tensor) -> torch.Tensor:
@@ -277,6 +331,15 @@ def _tensor_core_chunks(which: str, device_index: int, bnw: int, h: int, n: int,
     return getattr(build().lib, f"window_attention_{which}_chunks")(bnw, h, n, d)
 
 
+@functools.lru_cache(maxsize=256)
+def _stream_chunks(which: str, device_index: int, dtype: torch.dtype, bnw: int, h: int, n: int,
+                   d: int) -> int:
+    """Chunks of windows of a streaming kernel (``which``: ``"fwd"`` or
+    ``"bwd"``), as :func:`_tensor_core_chunks`."""
+    return getattr(build().lib, f"window_attention_{which}_stream_chunks")(
+        bnw, h, n, d, _DTYPE_CODES[dtype])
+
+
 def _launch_bwd(q, k, v, bias, mask, dout, scale: float, out=None, lse=None):
     """(dq, dk, dv, dbias) of ``sum(out * dout)``; ``out`` and ``lse`` are
     the forward's (:func:`keeps_lse` shapes need them)."""
@@ -289,6 +352,24 @@ def _launch_bwd(q, k, v, bias, mask, dout, scale: float, out=None, lse=None):
     lib = build().lib
     stream = torch.cuda.current_stream(q.device).cuda_stream
     route = backward_route(q.dtype, n, d)
+    if keeps_lse(q.dtype, n, d) and (out is None or lse is None):
+        raise ValueError(f"window_attention backward: the {route!r} backward at N = {n}, "
+                         f"D = {d} needs the forward's output and lse")
+    if route == "stream":
+        what = "backward (streaming)"
+        chunks = _stream_chunks("bwd", q.device.index, q.dtype, bnw, h, n, d)
+        if chunks < 1:
+            _raise_on(_DOES_NOT_FIT, what, q)
+        partial = torch.empty((chunks, h, n, n), dtype=torch.float32, device=q.device)
+        err = lib.window_attention_bwd_stream(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), bias.data_ptr(),
+            mask.data_ptr(), out.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), partial.data_ptr(), dbias.data_ptr(), _DTYPE_CODES[q.dtype], bnw, h,
+            n, d, mask.shape[0], chunks, float(scale), _strides(q, k, v, dout, dq, dk, dv, out),
+            int(_vec16(q, k, v, dout)), stream)
+        _raise_on(err, what, q)
+        LAUNCH_COUNTS["bwd_stream"] += 1
+        return dq, dk, dv, dbias
     if route in _TENSOR_CORE_ROUTES:
         what = f"backward (tensor cores, {route})"
         q, k, v, dout = (_aligned16(t) for t in (q, k, v, dout))
@@ -300,9 +381,6 @@ def _launch_bwd(q, k, v, bias, mask, dout, scale: float, out=None, lse=None):
                     mask.data_ptr()]
         views = [q, k, v, dout, dq, dk, dv]
         if route == "tf32x3":
-            if keeps_lse(q.dtype, n, d) and (out is None or lse is None):
-                raise ValueError("window_attention backward: the split-TF32 backward at "
-                                 f"N = {n} needs the forward's output and lse")
             pointers += [None if out is None else out.data_ptr(),
                          None if lse is None else lse.data_ptr()]
             views.append(dq if out is None else out)  # out's strides (unused without it)
@@ -330,7 +408,7 @@ class _WindowAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, bias, mask, scale):
-        # the window-12 split-TF32 backward reads the output and the rows' lse
+        # the window-12 split-TF32 and the streaming backward read the output and lse
         with_lse = any(ctx.needs_input_grad[:4]) and keeps_lse(q.dtype, *q.shape[2:])
         out, lse = _launch_fwd(q, k, v, bias, mask, scale, with_lse)
         ctx.save_for_backward(q, k, v, bias, mask, *((out, lse) if with_lse else ()))

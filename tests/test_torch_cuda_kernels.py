@@ -391,11 +391,11 @@ def test_cuda_window_attention_tensor_core_backward_is_bitwise_repeatable(cuda_d
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,d,route", [(64, 128, "mma"), (144, 48, "cuda_core")])
+@pytest.mark.parametrize("n,d,route", [(64, 128, "mma"), (144, 48, "stream")])
 def test_cuda_window_attention_bf16_backward_at_the_route_limits(cuda_device, n, d, route):
     """The widest head dim the tensor-core backward takes at N <= 64 runs
     there; at N = 144 a head dim above 32 does not fit its tiles and takes
-    the CUDA-core kernel. Both hold to WA_TOL for bf16."""
+    the streaming kernel. Both hold to WA_TOL for bf16."""
     assert wa.backward_route(torch.bfloat16, n, d) == route
     args = _wa_inputs(cuda_device, 6, 2, n, d, 3, torch.bfloat16, packed=True)
     wa.reset_launch_counts()
@@ -463,15 +463,21 @@ def test_cuda_window_attention_tensor_core_forward_is_bitwise_repeatable(cuda_de
 
 @pytest.mark.cuda
 def test_cuda_window_attention_tensor_core_forward_raises_where_tiles_do_not_fit(cuda_device):
-    """N = 144 with D = 128 takes the tensor-core route, whose tiles do not
-    fit a block's shared memory: the launch raises, nothing falls back."""
-    assert wa.forward_route(torch.bfloat16, 144, 128) == "mma"
-    q = torch.zeros((2, 1, 144, 128), dtype=torch.bfloat16, device=cuda_device)
-    zeros = torch.zeros((1, 144, 144), device=cuda_device)
+    """N = 144 with D = 128: the tensor-core forward's tiles do not fit a
+    block's shared memory, so its chunks query refuses the shape, and the
+    router, which mirrors that rule, sends it to the streaming forward,
+    which computes it (WA_TOL for bf16): no f32 or bf16 shape with D <= 128
+    raises."""
+    assert not wa._fwd_mma_fits(144, 128) and wa._fwd_mma_fits(144, 64)
+    assert wa._tensor_core_chunks("fwd_mma", cuda_device.index or 0, 2, 1, 144, 128) == -1
+    assert wa.forward_route(torch.bfloat16, 144, 128) == "stream"
+    q, k, v, bias, mask, _ = _wa_inputs(cuda_device, 3, 2, 144, 128, 3, torch.bfloat16)
     wa.reset_launch_counts()
-    with pytest.raises(ValueError, match="do not fit"):
-        wa.window_attention(q, q, q, zeros, zeros, 1.0)
-    assert not any(wa.LAUNCH_COUNTS.values())
+    got = _wa_forward(wa.window_attention, q, k, v, bias, mask, 0.09)
+    assert wa.LAUNCH_COUNTS == {**dict.fromkeys(wa.LAUNCH_COUNTS, 0), "fwd_stream": 1}
+    want = _wa_forward(wa.window_attention_reference, q, k, v, bias, mask, 0.09).float()
+    err = float((got.float() - want).abs().max())
+    assert err <= 1e-2 * max(1.0, float(want.abs().max())), err
 
 
 def _assert_within_wa_tol_f32(got, want):
@@ -572,14 +578,16 @@ def test_cuda_window_attention_f32_forward_at_n144_wide_heads_takes_split_tf32(c
 @pytest.mark.cuda
 @pytest.mark.parametrize("d", [36, 44])
 def test_cuda_window_attention_f32_at_n144_odd_head_dims_takes_the_cuda_cores(cuda_device, d):
-    """fp32 at N = 144 with a head dim that is no multiple of 8 runs the
-    CUDA-core forward and backward within WA_TOL."""
-    assert wa.forward_route(torch.float32, 144, d) == "cuda_core"
-    assert wa.backward_route(torch.float32, 144, d) == "cuda_core"
+    """fp32 at N = 144 with a head dim that is no multiple of 8 runs within
+    WA_TOL: on the streaming forward and backward since they exist (the
+    CUDA-core kernels keep only heads wider than 128)."""
+    assert wa.forward_route(torch.float32, 144, d) == "stream"
+    assert wa.backward_route(torch.float32, 144, d) == "stream"
     args = _wa_inputs(cuda_device, 5, 2, 144, d, 3, torch.float32, packed=True)
     wa.reset_launch_counts()
     got = _wa_run(wa.window_attention, *args, 1.0 / np.sqrt(d))
-    assert wa.LAUNCH_COUNTS == {**dict.fromkeys(wa.LAUNCH_COUNTS, 0), "fwd": 1, "bwd": 1}
+    assert wa.LAUNCH_COUNTS == {**dict.fromkeys(wa.LAUNCH_COUNTS, 0), "fwd_stream": 1,
+                                "bwd_stream": 1}
     want = _wa_run(wa.window_attention_reference, *args, 1.0 / np.sqrt(d))
     _assert_within_wa_tol_f32(got, want)
 
@@ -592,7 +600,8 @@ def test_cuda_window_attention_split_tf32_raises_where_tiles_do_not_fit(cuda_dev
     """A shape sent down a split-TF32 kernel past its limits (the forward
     above D = 128; the backward above D = 56 at N > 64 and above D = 80 at N
     <= 64, where its tiles do not fit a block; the route functions send them
-    to the CUDA cores) raises at launch: nothing falls back."""
+    to the streaming kernels, or above D = 128 the CUDA cores) raises at
+    launch: nothing falls back."""
     monkeypatch.setattr(wa, f"{'forward' if which == 'fwd' else 'backward'}_route",
                         lambda dtype, n, d: "tf32x3")
     q = torch.zeros((2, 1, n, d), device=cuda_device, requires_grad=which == "bwd")
@@ -678,7 +687,9 @@ def test_cuda_window_attention_rejects_wrong_inputs(cuda_device):
         wa.window_attention(q, k, v, bias[:1], mask, 1.0)
     with pytest.raises(ValueError):
         wa.window_attention(q, k.cpu(), v, bias, mask, 1.0)
-    big = torch.zeros((1, 1, 400, 32), device=cuda_device)
+    # heads wider than 128 take the CUDA-core kernels, whose window at N = 400
+    # fits no block (at D <= 128 the streaming kernels take any N)
+    big = torch.zeros((1, 1, 400, 136), device=cuda_device)
     with pytest.raises(ValueError, match="do not fit"):
         wa.window_attention(big, big, big, torch.zeros((1, 400, 400), device=cuda_device),
                             torch.zeros((1, 400, 400), device=cuda_device), 1.0)
@@ -1123,3 +1134,78 @@ def test_cuda_gemma_ragged_beam_request_gives_the_cpu_paths_tokens(cuda_device, 
     for policy in ("segmented", "monolithic"):
         got = card.generate(prompt, lengths, cache_policy=policy, **kw)
         assert got.device.type == "cuda" and torch.equal(got.cpu(), want), policy
+
+
+# The streaming kernels' rows (phase 2 of chip_smoke.py), at a few windows:
+# (bnw, H, N, D, nW, dtype); the forward of the D = 64 rows is a tensor-core
+# one (it writes the lse the streaming backward reads)
+STREAM_SHAPES = {
+    "f32_n144_d36": (9, 3, 144, 36, 3, torch.float32),
+    "f32_n144_d64": (9, 3, 144, 64, 3, torch.float32),
+    "bf16_n144_d64": (9, 3, 144, 64, 3, torch.bfloat16),
+    "bf16_n144_d128": (9, 2, 144, 128, 3, torch.bfloat16),
+    "f32_n256_d32": (8, 2, 256, 32, 4, torch.float32),
+    "bf16_n256_d32": (8, 3, 256, 32, 4, torch.bfloat16),
+    "bf16_n49_d24": (12, 3, 49, 24, 4, torch.bfloat16),
+    "f32_n324_d20": (4, 2, 324, 20, 2, torch.float32),  # rows in rounds, unaligned rows
+    "bf16_n5_d3": (5, 2, 5, 3, 1, torch.bfloat16),  # odd D: element copies and stores
+}
+
+
+def _assert_within_wa_tol(got, want, dtype):
+    """chip_smoke.py's WA_TOL: 1e-4 of max(1, max |plain|) in f32; in bf16
+    1e-2 for out, dq, dk, dv and 1e-3 for dbias."""
+    for name, a, b in zip(("out", "dq", "dk", "dv", "dbias"), got, want):
+        assert np.isfinite(a).all(), name
+        rel = 1e-4 if dtype == torch.float32 else 1e-3 if name == "dbias" else 1e-2
+        np.testing.assert_allclose(a, b, rtol=0, atol=rel * max(1.0, np.abs(b).max()),
+                                   err_msg=name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("packed", [False, True], ids=["contiguous", "packed_qkv"])
+@pytest.mark.parametrize("shape", sorted(STREAM_SHAPES))
+def test_cuda_window_attention_streaming_matches_plain_version(cuda_device, shape, packed):
+    """The streaming backward (and forward where the tensor-core forwards
+    do not take the shape) against the plain version, on contiguous tensors
+    and on strided views of a packed qkv projection: WA_TOL."""
+    bnw, h, n, d, nw, dtype = STREAM_SHAPES[shape]
+    assert wa.backward_route(dtype, n, d) == "stream" and wa.keeps_lse(dtype, n, d)
+    args = _wa_inputs(cuda_device, bnw, h, n, d, nw, dtype, packed=packed)
+    wa.reset_launch_counts()
+    got = _wa_run(wa.window_attention, *args, 1.0 / np.sqrt(d))
+    assert wa.LAUNCH_COUNTS == _wa_counts(dtype, n, d)
+    want = _wa_run(wa.window_attention_reference, *args, 1.0 / np.sqrt(d))
+    _assert_within_wa_tol(got, want, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ["f32_n144_d36", "bf16_n256_d32", "f32_n324_d20"])
+def test_cuda_window_attention_streaming_is_bitwise_repeatable(cuda_device, shape):
+    """dbias from the sums in shared memory (N = 144) and from the chunk
+    partials in device memory (N = 256, 324), and every other output, equal
+    bit for bit from run to run."""
+    bnw, h, n, d, nw, dtype = STREAM_SHAPES[shape]
+    args = _wa_inputs(cuda_device, 3 * bnw, h, n, d, nw, dtype, seed=6, packed=True)
+    first = _wa_run(wa.window_attention, *args, 0.17)
+    second = _wa_run(wa.window_attention, *args, 0.17)
+    for name, a, b in zip(("out", "dq", "dk", "dv", "dbias"), first, second):
+        np.testing.assert_array_equal(a, b, err_msg=name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_cuda_window_attention_streaming_takes_misaligned_views(cuda_device, dtype):
+    """q, k, v, do whose base address does not allow 16-byte copies are
+    copied element by element into the same tiles: the result is the same,
+    bit for bit."""
+    q, k, v, bias, mask, dout = _wa_inputs(cuda_device, 8, 2, 256, 32, 4, dtype)
+    storage = torch.zeros(q.numel() + 1, dtype=dtype, device=cuda_device)
+    q_off = storage[1:].view(q.shape).copy_(q)
+    assert q_off.data_ptr() % 16 != 0
+    wa.reset_launch_counts()
+    got = _wa_run(wa.window_attention, q_off, k, v, bias, mask, dout, 0.2)
+    assert wa.LAUNCH_COUNTS["bwd_stream"] == 1
+    want = _wa_run(wa.window_attention, q, k, v, bias, mask, dout, 0.2)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)

@@ -25,7 +25,10 @@ tolerance (1e-4 of max(1, max |JAX|)), beside a model of one TF32 product
 backward's order of work (the forward's output and each row's lse; each
 query row's delta, p from lse, ds and dq; then each key's p^T from lse,
 ds^T, dv, dk and the dbias sums) is written out in PyTorch and held against float64 autograd of the plain
-version (1e-12) and, in fp32, against the JAX Pallas kernel (1e-4).
+version (1e-12) and, in fp32, against the JAX Pallas kernel (1e-4). So is the streaming kernels' (tiles of
+48 or 64 keys, the online softmax, the zero-padded head dim, rows then keys, dbias summed in chunk order)
+at N = 144 and 256; the route grid holds that no float32 or bfloat16 head dim up to 128 reaches the CUDA
+cores.
 """
 
 import functools
@@ -154,26 +157,29 @@ def test_torch_window_attention_cuda_kernel_matches_plain_version(cuda_device, n
     (torch.bfloat16, 144, 32, "mma"),  # Swin, window 12
     (torch.bfloat16, 1, 16, "mma"),
     (torch.bfloat16, 64, 128, "mma"),  # the widest tiles that fit at N <= 64
-    (torch.bfloat16, 64, 144, "cuda_core"),
+    (torch.bfloat16, 64, 144, "cuda_core"),  # D > 128: the CUDA cores
     (torch.bfloat16, 65, 32, "mma"),
-    (torch.bfloat16, 144, 48, "cuda_core"),  # two sets of N = 144 tiles do not fit
-    (torch.bfloat16, 145, 32, "cuda_core"),  # N > 144
-    (torch.bfloat16, 49, 24, "cuda_core"),  # D % 16 != 0
-    (torch.bfloat16, 49, 8, "cuda_core"),
+    (torch.bfloat16, 144, 48, "stream"),  # two sets of N = 144 tiles do not fit
+    (torch.bfloat16, 145, 32, "stream"),  # N > 144
+    (torch.bfloat16, 49, 24, "stream"),  # D % 16 != 0
+    (torch.bfloat16, 49, 8, "stream"),
     (torch.float32, 49, 32, "tf32x3"),  # Swin, window 7: split TF32 on the tensor cores
     (torch.float32, 144, 32, "tf32x3"),  # window 12: rows, then keys, from registers
     (torch.float64, 49, 32, "cuda_core"),
     (torch.float32, 64, 80, "tf32x3"),  # the widest fp32 head dim that fits at N <= 64
-    (torch.float32, 64, 88, "cuda_core"),
+    (torch.float32, 64, 88, "stream"),
     (torch.float32, 1, 8, "tf32x3"),
     (torch.float32, 65, 32, "tf32x3"),  # the first N of the window-12 kernel
-    (torch.float32, 145, 32, "cuda_core"),  # N > 144
-    (torch.float32, 49, 20, "cuda_core"),  # D % 8 != 0
+    (torch.float32, 145, 32, "stream"),  # N > 144
+    (torch.float32, 49, 20, "stream"),  # D % 8 != 0
     (torch.float32, 144, 56, "tf32x3"),  # the widest head dim of the window-12 kernel
-    (torch.float32, 144, 64, "cuda_core"),  # just past it
+    (torch.float32, 144, 64, "stream"),  # just past it
     (torch.float32, 65, 56, "tf32x3"),
-    (torch.float32, 65, 80, "cuda_core"),  # the N <= 64 limit no longer holds above 64
-    (torch.float32, 144, 36, "cuda_core"),  # D % 8 != 0 at window 12
+    (torch.float32, 65, 80, "stream"),  # the N <= 64 limit no longer holds above 64
+    (torch.float32, 144, 36, "stream"),  # D % 8 != 0 at window 12
+    (torch.float32, 256, 32, "stream"),  # window 16
+    (torch.bfloat16, 144, 128, "stream"),
+    (torch.float32, 144, 136, "cuda_core"),  # D > 128
 ])
 def test_torch_window_attention_backward_route(dtype, n, d, route):
     assert twa.backward_route(dtype, n, d) == route
@@ -226,9 +232,9 @@ def test_torch_window_attention_mma_rounding_points_within_bf16_tolerance(nw):
     (torch.bfloat16, 1, 16, "mma"),
     (torch.bfloat16, 64, 128, "mma"),  # the widest head dim
     (torch.bfloat16, 49, 144, "cuda_core"),  # too wide
-    (torch.bfloat16, 145, 32, "cuda_core"),  # N > 144
-    (torch.bfloat16, 49, 24, "cuda_core"),  # D % 16 != 0
-    (torch.bfloat16, 49, 8, "cuda_core"),
+    (torch.bfloat16, 145, 32, "stream"),  # N > 144
+    (torch.bfloat16, 49, 24, "stream"),  # D % 16 != 0
+    (torch.bfloat16, 49, 8, "stream"),
     (torch.bfloat16, 49, 0, "cuda_core"),
     (torch.float32, 49, 32, "tf32x3"),  # Swin, window 7: split TF32 on the tensor cores
     (torch.float32, 144, 32, "tf32x3"),  # window 12: the widest head dim that fits there
@@ -237,15 +243,19 @@ def test_torch_window_attention_mma_rounding_points_within_bf16_tolerance(nw):
     (torch.float32, 64, 128, "tf32x3"),  # the widest fp32 head dim
     (torch.float32, 49, 136, "cuda_core"),  # too wide
     (torch.float32, 1, 8, "tf32x3"),
-    (torch.float32, 145, 32, "cuda_core"),  # N > 144
-    (torch.float32, 49, 20, "cuda_core"),  # D % 8 != 0
+    (torch.float32, 145, 32, "stream"),  # N > 144
+    (torch.float32, 49, 20, "stream"),  # D % 8 != 0
     (torch.float32, 144, 40, "tf32x3"),  # window 12, wide heads: q from device memory
     (torch.float32, 144, 64, "tf32x3"),
     (torch.float32, 100, 32, "tf32x3"),
     (torch.float32, 144, 128, "tf32x3"),  # the widest head dim at window 12
     (torch.float32, 144, 136, "cuda_core"),  # just past it
     (torch.float32, 65, 40, "tf32x3"),  # the first N of the wide forward
-    (torch.float32, 144, 60, "cuda_core"),  # D % 8 != 0 at window 12
+    (torch.float32, 144, 60, "stream"),  # D % 8 != 0 at window 12
+    (torch.bfloat16, 144, 64, "mma"),  # the widest bf16 tiles that fit at N = 144
+    (torch.bfloat16, 144, 80, "stream"),
+    (torch.bfloat16, 144, 128, "stream"),  # the tensor-core tiles do not fit a block
+    (torch.bfloat16, 256, 32, "stream"),  # window 16
 ])
 def test_torch_window_attention_forward_route(dtype, n, d, route):
     assert twa.forward_route(dtype, n, d) == route
@@ -255,7 +265,7 @@ def test_torch_window_attention_forward_route(dtype, n, d, route):
     (torch.float32, 144, 32, True),  # window 12: the rows-then-keys backward reads out and lse
     (torch.float32, 65, 56, True),
     (torch.float32, 49, 32, False),  # window 7: the N <= 64 backward computes its softmax
-    (torch.float32, 144, 64, False),  # the CUDA-core backward
+    (torch.float32, 144, 64, True),  # the streaming backward reads them too
     (torch.bfloat16, 144, 32, False),
 ])
 def test_torch_window_attention_keeps_lse_only_for_the_window12_f32_backward(dtype, n, d, keeps):
@@ -272,9 +282,11 @@ def test_torch_window_attention_source_defines_every_bound_function():
 
     src = (Path(twa.__file__).resolve().parents[2] / "csrc" / twa.SOURCE).read_text()
     names = {"window_attention_bwd_chunks": 2, "window_attention_fwd": 15,
-             "window_attention_bwd": 20, "window_attention_fwd_mma": 15,
+             "window_attention_bwd": 20, "window_attention_fwd_mma": 16,
              "window_attention_bwd_mma": 20, "window_attention_fwd_tf32x3": 16,
-             "window_attention_bwd_tf32x3": 22}
+             "window_attention_bwd_tf32x3": 22, "window_attention_fwd_stream": 18,
+             "window_attention_bwd_stream": 24, "window_attention_fwd_stream_chunks": 5,
+             "window_attention_bwd_stream_chunks": 5}
     names.update({f"window_attention_{w}_{r}_chunks": 4 for w in ("fwd", "bwd")
                   for r in ("mma", "tf32x3")})
     for name, count in names.items():
@@ -510,3 +522,169 @@ def test_torch_window_attention_rows_then_keys_backward_matches_pallas(shifted):
         err = float(np.abs(g.numpy() - w).max())
         tol = 1e-4 * max(1.0, float(np.abs(w).max()))
         assert err <= tol, f"{name}: {err:.3e} > {tol:.3e}"
+
+
+def _tile_rows(n):
+    """The CUDA source's ``stream_tile_rows``: 48 or 64 rows a tile, whichever
+    pads the window's last tile less (64 on a tie)."""
+    return 48 if -n % 48 < -n % 64 else 64
+
+
+def _streaming_steps(n, step):
+    """The key ranges of the streaming forward's softmax steps: tiles of
+    ``_tile_rows(n)`` keys, each walked ``step`` keys at a time."""
+    rows = _tile_rows(n)
+    return [slice(t0 + k0, min(n, t0 + k0 + step, t0 + rows))
+            for t0 in range(0, n, rows) for k0 in range(0, rows, step) if t0 + k0 < n]
+
+
+def _streaming_forward(q, k, v, bias, mask, scale, step):
+    """The streaming forward's arithmetic (``wa_fwd_stream_kernel``), exact
+    products: the head dim zero-padded to a multiple of 8, keys in tiles of
+    48 or 64 walked ``step`` at a time (64 at D <= 64, 32 above) with an
+    online softmax in log2 units (running max, the sum and the output
+    rescaled by exp2 of the max's change), the output divided by the sum at
+    the end, and each row's lse = max + log2(sum)."""
+    bnw, h, n, d = q.shape
+    pad = (-d) % 8
+    q, k, v = (torch.nn.functional.pad(t, (0, pad)) for t in (q, k, v))
+    mask_b = mask[torch.arange(bnw) % mask.shape[0]][:, None]
+    top = torch.full((bnw, h, n, 1), -torch.inf, dtype=q.dtype)
+    total = torch.zeros((bnw, h, n, 1), dtype=q.dtype)
+    acc = torch.zeros_like(q)
+    for keys in _streaming_steps(n, step):
+        s = (torch.einsum("bhqd,bhkd->bhqk", q, k[:, :, keys]) * scale + bias[None][..., keys]
+             + mask_b[..., keys])
+        x = s * LOG2E
+        new = torch.maximum(top, x.amax(-1, keepdim=True))
+        corr = torch.exp2(top - new)
+        p = torch.exp2(x - new)
+        total = total * corr + p.sum(-1, keepdim=True)
+        acc = acc * corr + torch.einsum("bhqk,bhkd->bhqd", p, v[:, :, keys])
+        top = new
+    return (acc / total)[..., :d], top + torch.log2(total)
+
+
+def _streaming_backward(q, k, v, bias, mask, dout, out, lse, scale, windows_per_chunk):
+    """The streaming backward's order of work (``wa_bwd_stream_kernel``),
+    exact products, the head dim zero-padded as the forward pads it: the
+    query rows' delta = rowsum(do out), then per key tile (48 or 64 keys), p
+    from the forward's lse, ds = p (dp - delta) and dq += ds k; then per
+    query tile, p^T, ds^T, dv += p^T do and dk += ds^T q; dbias = ds^T summed
+    over each chunk's windows in order, then over the chunks in order."""
+    bnw, h, n, d = q.shape
+    pad = (-d) % 8
+    q, k, v, dout, out = (torch.nn.functional.pad(t, (0, pad)) for t in (q, k, v, dout, out))
+    mask_b = mask[torch.arange(bnw) % mask.shape[0]][:, None]
+    delta = (dout * out).sum(-1, keepdim=True)
+    dq = torch.zeros_like(q)
+    rows = _tile_rows(n)
+    for k0 in range(0, n, rows):
+        keys = slice(k0, min(n, k0 + rows))
+        s = (torch.einsum("bhqd,bhkd->bhqk", q, k[:, :, keys]) * scale + bias[None][..., keys]
+             + mask_b[..., keys])
+        p = torch.exp2(s * LOG2E - lse)
+        dp = torch.einsum("bhqd,bhkd->bhqk", dout, v[:, :, keys])
+        dq = dq + torch.einsum("bhqk,bhkd->bhqd", p * (dp - delta), k[:, :, keys])
+    dk, dv = torch.zeros_like(k), torch.zeros_like(v)
+    dst = torch.zeros((bnw, h, n, n), dtype=q.dtype)  # [window, head, key, query]
+    bias_t, mask_t = bias[None].transpose(-1, -2), mask_b.transpose(-1, -2)
+    for q0 in range(0, n, rows):
+        queries = slice(q0, min(n, q0 + rows))
+        st = (torch.einsum("bhkd,bhqd->bhkq", k, q[:, :, queries]) * scale
+              + bias_t[..., queries] + mask_t[..., queries])
+        pt = torch.exp2(st * LOG2E - lse[:, :, queries].transpose(-1, -2))
+        dpt = torch.einsum("bhkd,bhqd->bhkq", v, dout[:, :, queries])
+        dst[..., queries] = pt * (dpt - delta[:, :, queries].transpose(-1, -2))
+        dv = dv + torch.einsum("bhkq,bhqd->bhkd", pt, dout[:, :, queries])
+        dk = dk + torch.einsum("bhkq,bhqd->bhkd", dst[..., queries], q[:, :, queries])
+    dbias = torch.zeros_like(bias)
+    for c0 in range(0, bnw, windows_per_chunk):
+        part = torch.zeros_like(bias)
+        for w in range(c0, min(bnw, c0 + windows_per_chunk)):
+            part = part + dst[w].transpose(-1, -2)
+        dbias = dbias + part
+    return dq[..., :d] * scale, dk[..., :d] * scale, dv[..., :d], dbias
+
+
+def _streaming_inputs(window, d, shifted, seed, dtype):
+    from iseg_tpu_torch.backbones.swin import _shift_attn_mask
+
+    n, h = window * window, 2
+    side = 2 * window  # four windows per image
+    mask = (_shift_attn_mask(side, side, window, window // 2) if shifted
+            else np.zeros((1, n, n), np.float32))
+    rng = np.random.RandomState(500 + seed + 7 * window + d + int(shifted))
+    bnw = 2 * mask.shape[0] if shifted else 3
+    q, k, v, dout = (rng.randn(bnw, h, n, d).astype(dtype) for _ in range(4))
+    bias = (rng.randn(h, n, n) * 0.1).astype(dtype)
+    return q, k, v, bias, mask.astype(dtype), dout, 1.0 / np.sqrt(d)
+
+
+STREAMING_SHAPES = [(12, 36), (12, 64), (16, 32)]  # (window, head dim): N 144, 144, 256
+
+
+def _streaming_out_and_grads(q, k, v, bias, mask, dout, scale):
+    step = 64 if q.shape[3] <= 64 else 32
+    out, lse = _streaming_forward(q, k, v, bias, mask, scale, step)
+    return (out, *_streaming_backward(q, k, v, bias, mask, dout, out, lse, scale, 2))
+
+
+@pytest.mark.parametrize("shifted", [False, True], ids=["unshifted", "shifted"])
+@pytest.mark.parametrize("window,d", STREAMING_SHAPES, ids=["n144_d36", "n144_d64", "n256_d32"])
+def test_torch_window_attention_streaming_kernels_match_autograd_f64(window, d, shifted):
+    """In float64 the streaming kernels' order of work (key tiles, the online
+    softmax, the zero-padded head dim, the lse, rows then keys, dbias summed
+    in chunk order) gives the plain version's output and autograd's dq, dk,
+    dv and dbias within 1e-12 of max(1, max |autograd|)."""
+    torch.set_num_threads(1)
+    data = [torch.tensor(a) if isinstance(a, np.ndarray) else a
+            for a in _streaming_inputs(window, d, shifted, 0, np.float64)]
+    q, k, v, bias, mask, dout, scale = data
+    got = _streaming_out_and_grads(q, k, v, bias, mask, dout, scale)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v, bias)]
+    out = twa.window_attention_reference(*leaves, mask, scale)
+    want = (out.detach(), *torch.autograd.grad(out, leaves, dout))
+    for name, g, w in zip(NAMES, got, want):
+        assert g.dtype == torch.float64 and g.shape == w.shape, name
+        err = float((g - w).abs().max())
+        tol = 1e-12 * max(1.0, float(w.abs().max()))
+        assert err <= tol, f"{name}: {err:.3e} > {tol:.3e}"
+
+
+@pytest.mark.parametrize("shifted", [False, True], ids=["unshifted", "shifted"])
+@pytest.mark.parametrize("window,d", STREAMING_SHAPES, ids=["n144_d36", "n144_d64", "n256_d32"])
+def test_torch_window_attention_streaming_kernels_match_pallas(window, d, shifted):
+    """In fp32 the streaming kernels' order of work keeps out, dq, dk, dv and
+    dbias within 1e-4 of max(1, max |JAX|) of the JAX Pallas kernel
+    (interpret mode, fp32): the card's fp32 tolerance."""
+    torch.set_num_threads(1)
+    q, k, v, bias, mask, dout, scale = _streaming_inputs(window, d, shifted, 1, np.float32)
+    want = _jax_out_and_grads(
+        lambda q, k, v, b, m: j_window_attention(q, k, v, b, m, scale, True),
+        q, k, v, bias, mask, dout)
+    got = _streaming_out_and_grads(*(torch.tensor(a) for a in (q, k, v, bias, mask, dout)),
+                                   np.float32(scale))
+    for name, g, w in zip(NAMES, got, want):
+        assert g.dtype == torch.float32, name
+        err = float(np.abs(g.numpy() - w).max())
+        tol = 1e-4 * max(1.0, float(np.abs(w).max()))
+        assert err <= tol, f"{name}: {err:.3e} > {tol:.3e}"
+
+
+@pytest.mark.parametrize("n", [1, 49, 64, 65, 144, 145, 196, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_torch_window_attention_route_grid_has_no_cuda_core_shape(dtype, n):
+    """No float32 or bfloat16 shape with D <= 128 routes to the CUDA-core
+    kernels, and every backward that reads the forward's lse follows a
+    forward that writes it (every route but the CUDA cores')."""
+    torch.set_num_threads(1)
+    for d in (8, 20, 24, 32, 36, 56, 60, 64, 80, 88, 128):
+        fwd, bwd = twa.forward_route(dtype, n, d), twa.backward_route(dtype, n, d)
+        assert "cuda_core" not in (fwd, bwd), (dtype, n, d, fwd, bwd)
+        if twa.keeps_lse(dtype, n, d):  # the mma forward writes lse above N = 64 only
+            assert fwd in ("tf32x3", "stream") or (fwd == "mma" and n > 64), (dtype, n, d, fwd)
+        if bwd == "stream":
+            assert twa.keeps_lse(dtype, n, d), (dtype, n, d)
+        if fwd == "mma":
+            assert twa._fwd_mma_fits(n, d), (n, d)
