@@ -46,23 +46,34 @@ attention then on the split-TF32 kernels. BASELINE config #5,
 ``eva02_large_patch16_512_coco`` (ViT-L with 2-D RoPE, SwiGLU and q/v
 biases) + ASPP(256), 150 classes, batch 4, trains with AdamW and layerwise
 LR decay; above 64 classes its loss is the unfused resize + CE (phase 12).
-Global attention is ``F.scaled_dot_product_attention`` (no TPU kernel
-computes it in the JAX package). Another path serves a language model:
+Global attention (no TPU kernel computes it in the JAX package) that records
+a gradient, as in the ViT-L, EVA02-L and MOAT train steps, runs on the
+window-attention kernels' streaming pair, one window per batch row, built
+without a bias and a mask (a fixed-order backward); where none is recorded
+(serving) it is ``F.scaled_dot_product_attention``. Another path serves a language model:
 
 * Gemma: ``gemma_2b_en`` at its full width (hidden 2048, 8 heads over 1 KV
   head, head dim 256, FFN 16384, vocabulary 256000) with its depth cut from
   18 to 6 layers (1.185 B parameters), bf16 parameters and KV cache, built on
   the card;
-  ``GemmaCausalLM.generate`` at batch 8, prompt 128, ``max_length`` 640,
+  ``GemmaCausalLM.generate`` at batch 8, prompt 128, ``max_length`` 384,
   ``segment_len`` 256, with the beam search's per-step cache reorder by the
   cache-gather CUDA kernel.
 
-Phases, in order; any failure raises and the script exits non-zero:
+Phases, by number; any failure raises and the script exits non-zero. They
+run in this order: 1, 3-5, 5b, 5c, 1b, 2, then 6 onwards. Phases 3-5, 5b,
+5c, 11 and 13 take cuDNN's heuristic conv algorithms (``cudnn.benchmark``
+off: autotuning took 25-33 s of each of these models' few steps); the
+others autotune.
 
 1. device: require CUDA; print the card, its power limit, the torch and
-   CUDA versions; build the four kernel sources of ``iseg_tpu_torch/csrc`` in a
-   clean build directory (one nvcc each, started together) and print the
-   build times and ptxas reports;
+   CUDA versions; in a clean build directory, start ``window_attention.cu``'s
+   nvcc (the longest build) on a thread of its own, then build the other
+   three kernel sources of ``iseg_tpu_torch/csrc`` (one nvcc each, started
+   together) and print their build times and ptxas reports; phases 3-5c,
+   which launch no window-attention kernel, run while it builds;
+1b. wait for the ``window_attention.cu`` build and print its time and ptxas
+   report;
 2. kernels vs their plain versions at the main paths' shapes, with median
    CUDA-event times (the host's dispatch of a call is in them where the
    device waits for it), each kernel's bound on this card, and for window
@@ -95,7 +106,13 @@ Phases, in order; any failure raises and the script exits non-zero:
    window 7 with D = 24, each route asserted and each run repeated bit for
    bit, and the CUDA-core forward and backward at heads wider than 128 (D =
    136, N = 49), the shapes they keep (every f32 row bound at the split-TF32
-   rate); dense-local sampling forward and all four
+   rate); the streaming pair built without a bias and a mask, as global
+   attention with a gradient runs it (one window per batch row, q, k, v
+   views of the packed projection), at ViT-L's [8,16,1025,64] in bf16 and
+   f32, EVA02-L's patch-dropped [4,16,769,64] and MOAT-4's stage 2
+   [2,32,1024,32] in bf16, each run repeated bit for bit, SDPA beside each, and SDPA at ViT-L's shape under
+   ``torch.use_deterministic_algorithms(True)`` (whether its backward runs
+   there and repeats bit for bit: a yardstick); dense-local sampling forward and all four
    gradients at InternImage-T's four stage shapes, in f32 and in the
    autocast type mix (bf16 values on a transposed view, fp32 offsets, bf16
    modulation), with offsets drawn beyond the clamp, and the backward's
@@ -160,8 +177,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    matrices (or a parted argmax only on a near-tie), ``last_num_programs``
    equal to ``bucket_stats``' count, ms per image and peak device memory of
    each way; (5) ``default_image_predict`` over a bucketed batch equals the
-   argmax of ``SegBase.inference`` (``predict_with_dir`` reads and writes
-   PNGs and is held on the CPU); (6) ``verify_drive.main(["--device",
+   argmax of ``SegBase.inference``, and ``predict_with_dir`` over a
+   directory of 3 seeded 375x500 PNGs writes label PNGs that, read back,
+   equal ``default_image_predict``'s argmax of the same padded batch (where
+   PIL imports; else one line says it did not run); (6) ``verify_drive.main(["--device",
    "cuda"])``: mIoU > 0.7 and a fresh trainer restores step 100. Steps
    (2)-(6) meet many input shapes and run on cuDNN's heuristics
    (``cudnn.benchmark`` off, restored after);
@@ -223,10 +242,10 @@ Phases, in order; any failure raises and the script exits non-zero:
     geometry above, one warm-up call each (the contrastive one 8 steps
     long), then timed: prompts preserved,
     ids in range, tok/s, ms/step, peak memory; exactly ``max_length - start``
-    = 512 cache-gather launches per beam request and none on the others;
+    = 256 cache-gather launches per beam request and none on the others;
     (c) beam 4 with the gather's plain version swapped in gives the kernel
     run's tokens exactly; the context-segment decode and the monolithic
-    decode, fed the segmented search's tokens over all 512 steps (the active
+    decode, fed the segmented search's tokens over all 256 steps (the active
     cache growing from 256 to 512 slots on the way), give logits within 2e-2
     of max |logit|; beam 4 on the monolithic cache (plain gather of the
     whole cache, no launch) selects the segmented search's continuations
@@ -255,7 +274,7 @@ Phases, in order; any failure raises and the script exits non-zero:
     adamw --fused_loss``, 1 epoch x 3 steps, eval at scale 1.0: finite loss
     and mIoU, 1 + 1 launches a step; (4) the sliding-window serve of
     ``bench.py``'s ``sliding_hrnet`` with (1)'s weights: one 1024x2048 image,
-    512x512 windows at stride 2/3 (18 model calls), bf16, one warm-up then 7
+    512x512 windows at stride 2/3 (18 model calls), bf16, one warm-up then 3
     timed calls: p50 / min / max seconds (host clock) printed in
     ``bench.py``'s JSON schema, peak memory, finite fp32 [1,1024,2048,19]
     logits, window batch 1 and 2 within 2e-2 of max |logit| in fp32 (in bf16
@@ -263,12 +282,14 @@ Phases, in order; any failure raises and the script exits non-zero:
     within 5e-2 of max |logit| of the fp32 run, no kernel launched;
 12. ViT-L and EVA02-L (BASELINE configs #4 and #5): (1) the ViT-L step on
     a fixed batch (SGD poly, 2 warm-up + 5 timed steps, exactly 1 + 1
-    loss-kernel launches in every step), ms/step, img/s, peak memory, then
+    loss-kernel launches and 24 + 24 launches of the bias-free streaming
+    window-attention pair, its global attention, in every step), ms/step,
+    img/s, peak memory, then
     3 profiled steps: device ms by kernel class, the top kernels and the
     busy share; (2) the EVA02-L step the same way (AdamW, decoupled decay
     0.05, the layerwise LR multipliers 0.9 ** (24 - (i + 1)) over the
-    blocks ``Eva.layer_name_pattern`` names; no fused-loss launch in any
-    step), then one step with
+    blocks ``Eva.layer_name_pattern`` names; no fused-loss launch and 24 +
+    24 global-attention launches in every step), then one step with
     patch dropout 0.25: 769 of 1025 tokens through the blocks, a finite
     loss; (3) both models served with their trained weights by
     ``SegBase.inference`` at batch 2, scales (0.75, 1.0) + flip, bf16: one
@@ -295,7 +316,8 @@ Phases, in order; any failure raises and the script exits non-zero:
     launches each; (5) one warm-up and one timed step at 512x512, batch 2,
     19 classes, each: EfficientNet-B7 (os32) + NAS-FPN(256), MOAT-4 + ASPP,
     MLP-Mixer-L/16 (built for 512x512) + ASPP, ConvNeXt-V2-L (os32) +
-    SemanticFPN: wall ms, peak memory, finite losses, 1 + 1 launches a step.
+    SemanticFPN: wall ms, peak memory, finite losses, 1 + 1 launches a step
+    (and MOAT-4's 30 + 30 global-attention launches, one pair a MOAT block).
     (4) and (5) take cuDNN's heuristic conv algorithms (no autotuning:
     their few steps would spend most of their time timing algorithms);
 14. pretrained weights: (1) a flat dict of ResNet-50's published names and
@@ -347,23 +369,29 @@ Phases, in order; any failure raises and the script exits non-zero:
     image (512x512 windows at stride 2/3, 9 a rank) lies within 1e-5 of
     max |logit| of the unsharded window; gloo's host-staged collectives are
     counted and printed;
-F1. fixed-order resizes: under cuDNN's deterministic algorithms and
-    PyTorch's deterministic mode, two runs of 3 steps each of the Swin-L +
-    SemanticFPN, EVA02-L + ASPP (AdamW, 150 classes, the unfused loss; its
-    attention on SDPA's math backend, since cuDNN's attention backward adds
-    in no fixed order) and MobileNetV2 + SimpleDecoder steps end with equal
-    states bit for bit; each step's ms printed.
+F1. fixed-order resizes and global-attention backwards: under cuDNN's
+    deterministic algorithms and PyTorch's deterministic mode, two runs of 3
+    steps each of the Swin-L + SemanticFPN, ViT-L + ASPP (batch 8),
+    EVA02-L + ASPP (AdamW, 150 classes, the unfused loss, patch dropout
+    0.25), MOAT-4 + ASPP (batch 2, with its relative-position bias) and
+    MobileNetV2 + SimpleDecoder steps end with equal states and losses bit
+    for bit, the global attention's backward on the window-attention
+    kernels (no SDPA backend is chosen); each step's ms printed. Phase 16.3
+    runs its pipeline-parallel train step twice the same way: the losses
+    and every gradient equal bit for bit.
 16. the language model's distribution, two ranks spawned here on this card
     over gloo (``rank_lm``; correctness runs, not scaling numbers): (1)
-    tensor-parallel serving of ``gemma_7b_en`` at full width and depth (28
-    layers, 8.54 B parameters, bf16) at model parallelism 2, each rank
+    tensor-parallel serving of ``gemma_7b_en`` at full width, its depth cut
+    from 28 to 7 layers (bf16) at model parallelism 2, each rank
     seeding its shard of the same full weights (``init_seeded_shard``): a
     greedy and a beam-4 request (batch 4, prompt 128, ``max_length`` 192),
     the ranks' tokens equal, one cache-gather launch a decode step a rank,
     the prefill logits within 2e-2 of max |logit| of world size 1 (here,
     beforehand), ms/step and tok/s, host-staged collectives; the gather at
     the rank's cache shape against its plain version, bitwise; (2) sequence
-    parallelism of ``gemma_2b_en`` (bf16, batch 2 x T 2048, seq axis 2),
+    parallelism of ``gemma_2b_en`` (9 of its 18 layers, bf16, batch 2 x T
+    2048, seq axis 2; its train step takes the grouped products at head dim
+    256, a fixed order),
     allgather and ring: ``score``, the loss and every gradient leaf against
     world size 1 within ``SP_SCORE_RTOL`` / ``SP_GRAD_RTOL`` (about twice
     the bf16 run's own distance from fp32, measured and printed), one
@@ -378,7 +406,7 @@ F1. fixed-order resizes: under cuDNN's deterministic algorithms and
     at full width, 6 layers, bf16, seed 0) quantized on the card both ways
     (``quantize_tree``: weight-only; ``quantize_dense_tree``: W8A8) and
     loaded by ``load_flax``; batch 8, prompt 128, greedy and beam 4 to
-    ``max_length`` 256 (phase 10's 640 cut to fit the run's time), each
+    ``max_length`` 256 (phase 10's 384 cut to fit the run's time), each
     after an 8-step warm-up, for the bf16 model and both int8 ones: tok/s,
     ms/step, peak memory and resident weight bytes; one cache-gather launch
     a beam decode step and none in greedy; the prompts kept; the
@@ -388,12 +416,13 @@ F1. fixed-order resizes: under cuDNN's deterministic algorithms and
     noise, in max |logit|), the same with a planted fault (each product's
     weight scales in reverse column order) beyond it; ``torch._int_mm``'s
     device time at the decode products' shapes (8 and 32 rows) beside bf16
-    ``F.linear`` and the whole W8A8 product. (2) Swin-L + SemanticFPN (19
-    classes, 512x512, seed-17 weights) exported by ``export_inference``
+    ``F.linear`` and the whole W8A8 product. (2) Swin-L's widths and window
+    at depths (2, 2, 6, 2) + SemanticFPN (19 classes, 512x512, seed-17
+    weights) exported by ``export_inference``
     with scales (0.75, 1.0) + flip under bf16 autocast, batch-polymorphic;
     a fresh process that imports no backbone, head or model code loads it
-    and serves batches 1 and 2: exactly 48 tensor-core window-attention
-    launches a serve (24 a forward, one forward a scale) and nothing else,
+    and serves batches 1 and 2: exactly 24 tensor-core window-attention
+    launches a serve (12 a forward, one forward a scale) and nothing else,
     logits within 2e-2 of max |logit| of the live bf16 serve; export and
     load seconds, artifact MB, serve p50 against the live serve's; then the
     example driver ``examples/export_serving.py`` exports MobileNetV2 +
@@ -433,7 +462,9 @@ SDPA beside each; profiler device time) and phase 6c's fp32 step (2 + 3,
 then 3 profiled: ms/step, device time, the window attention's time and
 share, peak memory).
 The last line holds each number of the four processes, OLD's two and this
-tree's two. ``--ab OLD --only f1`` times phase F1's three steps alone.
+tree's two. ``--ab OLD --only f1`` times phase F1's five steps alone (a
+tree without the kernel route for global attention runs EVA02-L on SDPA's
+math backend and ViT-L and MOAT-4 on the default SDPA, as it did).
 ``--ab OLD --only stream`` times phase 2's streaming rows (forward and
 backward, SDPA beside each, profiler device time): the D = 36 pair, which a
 tree from before the streaming kernels runs on its CUDA-core kernels, and
@@ -492,10 +523,11 @@ from iseg_tpu_torch.core.model import SegManaged, SegModelInferenceConfig
 from iseg_tpu_torch.core.optimizer import (Adam, get_optimizer, layerwise_decay_multipliers,
                                            warmup_poly_decay, weight_decay_mask,
                                            with_grad_accum)
-from iseg_tpu_torch.core.predict import default_image_predict
+from iseg_tpu_torch.core.predict import default_image_predict, predict_with_dir
 from iseg_tpu_torch.core.train import (CoreTrain, create_train_state, make_resident_train_step,
                                        make_train_step)
 from iseg_tpu_torch.data.device_augment import DeviceAugmentConfig, make_device_augment
+from iseg_tpu_torch.data.input_norm import get_mean_pixel, normalize_input
 from iseg_tpu_torch.data.resident import DeviceResidentDataset
 from iseg_tpu_torch.data.shards import ShardReader, make_shard_dataset_fn, write_shards
 from iseg_tpu_torch.examples import export_serving as export_serving_example
@@ -519,7 +551,7 @@ from iseg_tpu_torch.ops.kernels import upsample_ce as uce
 from iseg_tpu_torch.ops.kernels import window_attention as wa
 from iseg_tpu_torch.ops import quant as quant_module
 from iseg_tpu_torch.ops.resize import resize_image
-from iseg_tpu_torch.utils.buckets import bucket_stats, pad_batch_to_bucket
+from iseg_tpu_torch.utils.buckets import bucket_hw, bucket_stats, pad_batch_to_bucket
 from iseg_tpu_torch.utils.summary import read_event_scalars
 
 HW = 512
@@ -568,6 +600,21 @@ WA_STREAM_ROWS = (
 # heads wider than 128: the CUDA-core forward and backward, the one shape
 # class they keep (off every main path)
 WA_CUDA_CORE = ("stage2", 200, 2, 25, 7, 136, torch.float32, ("cuda_core", "cuda_core"))
+# global attention with a gradient (the ViT-L, EVA02-L and MOAT train steps):
+# the streaming pair built without a mask, one window per batch row,
+# q, k, v views of the packed qkv projection. (title, batch, heads, tokens,
+# head dim, dtype[, with MOAT's relative bias]): ViT-L's 1025 tokens at batch
+# 8 in both types, EVA02-L's 769 after patch dropout 0.25 at batch 4, MOAT-4's
+# stage 2 (32 x 32 tokens, 32 heads of 32) at batch 2 without its relative
+# bias (phase 13.5's) and with it (phase F1's: the kernels built with the bias
+# alone)
+GA_ROWS = (
+    ("ViT-L", 8, 16, 1025, 64, torch.bfloat16),
+    ("ViT-L", 8, 16, 1025, 64, torch.float32),
+    ("EVA02-L patch dropout", 4, 16, 769, 64, torch.bfloat16),
+    ("MOAT-4 stage 2", 2, 32, 1024, 32, torch.bfloat16),
+    ("MOAT-4 stage 2, relative-position bias", 2, 32, 1024, 32, torch.bfloat16, True),
+)
 # phase 6d: Swin-L's widths (192, depths (2, 2, 18, 2), heads (6, 12, 24, 48))
 # at window 16 (N = 256, D = 32) + SemanticFPN(256), the Swin path's batch and
 # data, bf16 autocast: every window attention on the streaming kernels
@@ -590,6 +637,9 @@ EX_OHEM_FILL_MIN_KEPT = 2_000_000  # more than the hard pixels: the hardest-k fi
 EX_EVAL_SIZES = ((500, 375), (375, 500), (500, 333), (480, 360))  # VOC-like (H, W)
 EX_BUCKET = 32
 EX_BIG, EX_BIG_SCALES, EX_BIG_WINDOW = (1024, 2048), (0.75, 1.0, 1.25), 512
+# 5c.5: predict_with_dir over a directory of this many seeded RGB PNGs of one
+# VOC-like size (H, W), in one batch
+EX_PREDICT_IMAGES, EX_PREDICT_HW = 3, (375, 500)
 # HRNet path (phase 11): BASELINE config #3, HRNet-W48 + JPU(512), its logits at
 # the JPU's os8, the aux logits at the os32 branch
 H_BATCH, H_CLASSES, H_LOGIT_OS, H_AUX_RATE = 8, 19, 8, 0.4
@@ -599,12 +649,16 @@ H_WARMUP, H_TIMED = 2, 5
 H_ACCUM_BATCH, H_ACCUM_EVERY, H_ACCUM_STEPS, H_ACCUM_SAVE_AT = 4, 2, 8, 3
 H_TRAIN_SEG_STEPS = 3
 # 11.4: bench.py's sliding_hrnet: 1024x2048, 512x512 windows at stride 2/3
-# (3 x 6 = 18 model calls), one warm-up and 7 timed calls
-H_SLIDE_HW, H_SLIDE_WINDOW, H_SLIDE_REPS, H_SLIDE_CALLS = (1024, 2048), 512, 7, 18
+# (3 x 6 = 18 model calls), one warm-up and 3 timed calls (7 before the run's
+# time went to phase F1's new paths)
+H_SLIDE_HW, H_SLIDE_WINDOW, H_SLIDE_REPS, H_SLIDE_CALLS = (1024, 2048), 512, 3, 18
 # ViT path (phase 12.1): BASELINE config #4's ViT-L, vit_large_patch16 + ASPP(256) at the
 # Swin path's geometry, its one endpoint and the logits at the patch size's os16
 V_BATCH, V_CLASSES, V_OS = 8, 19, 16
 V_WARMUP, V_TIMED = 2, 5
+# the global attentions of a ViT-L or EVA02-L step (24 blocks), each one
+# forward and one backward launch of the bias-free streaming pair
+T_GLOBAL_PER_STEP = {"window_attention_fwd_global": 24, "window_attention_bwd_global": 24}
 # EVA path (phase 12.2): BASELINE config #5 as the JAX package's
 # tools/bench_model_mfu.py has it, eva02_large_patch16_512_coco + ASPP(256), 150
 # classes, batch 4 (the fused loss requested; above 64 classes it is the
@@ -650,9 +704,10 @@ UCE_SHAPES = (("resnet", R_BATCH, HW // R_OS, R_CLASSES), ("swin", S_BATCH, HW /
 UCE_ZOO_SHAPES = (("convnext_fapn", 8, 128, 256, 19, (512, 1024)),
                   ("xception", 16, 32, 32, 21, (512, 512)))
 # Gemma path: gemma_2b_en at full width, its depth cut from 18 to G_LAYERS layers
-# (phase 10 was the run's dearest path), served at batch 8, prompt 128, 512
-# generated slots
-G_PRESET, G_BATCH, G_PROMPT, G_MAX_LENGTH, G_SEGMENT = "gemma_2b_en", 8, 128, 640, 256
+# (phase 10 was the run's dearest path), served at batch 8, prompt 128, 256
+# generated slots (512 until the run neared its time limit; the active cache
+# still grows from 256 to 512 slots halfway)
+G_PRESET, G_BATCH, G_PROMPT, G_MAX_LENGTH, G_SEGMENT = "gemma_2b_en", 8, 128, 384, 256
 G_LAYERS = 6
 G_CONTRASTIVE_K = 5
 G_TEXT_PROMPT, G_TEXT_MAX_LENGTH = 24, 56  # the tokenizer round trip, ragged prompts
@@ -708,17 +763,20 @@ FSDP_RTOL = 1e-6
 F1_STEPS = 3
 # phase 16: the language-model half of distribution, two ranks on this card over
 # gloo (correctness runs). 16.1: tensor-parallel serving of gemma_7b_en at full
-# width and depth (28 layers, 8.54 B parameters, bf16), model parallelism 2,
+# width, its depth cut from 28 to 7 layers (14 when the global-attention kernels'
+# build and phase F1's ViT-L, EVA02-L and MOAT-4 runs needed the time; 7 when the
+# run neared its time limit), bf16, model
+# parallelism 2,
 # batch-4 requests of 128-token prompts to max_length 192 (256 before phase 17 needed
 # the time), greedy and beam 4.
 # Its prefill logits against world size 1's on the same weights, relative to
 # max |logit|: the two sum the heads' and the FFN's partial products in other
 # orders and round to bf16 at other points (GEMMA_LAYOUT_RTOL's argument;
 # measured 8.3e-3)
-TP_PRESET, TP_LAYERS = "gemma_7b_en", 28
+TP_PRESET, TP_LAYERS = "gemma_7b_en", 7
 TP_BATCH, TP_PROMPT, TP_MAX_LENGTH, TP_BEAMS = 4, 128, 192, 4
 TP_LOGIT_RTOL = 2e-2  # GEMMA_LAYOUT_RTOL
-# 16.2: gemma_2b_en at full width and depth, bf16, batch 2 x T 2048 over a
+# 16.2: gemma_2b_en at full width, SP_LAYERS of its 18 layers, bf16, batch 2 x T 2048 over a
 # sequence axis of 2; score and the loss's gradient against world size 1 bf16
 # (no SP) on the same weights, max |diff| over max |value| (the gradient's: of
 # its worst leaf). The bounds sit at about twice the bf16 run's own distance
@@ -726,6 +784,7 @@ TP_LOGIT_RTOL = 2e-2  # GEMMA_LAYOUT_RTOL
 # 2.8e-2), which the phase measures and prints; SP measured score 0 / 4.8e-3
 # and gradient 1.3e-2 / 2.3e-2 (allgather / ring; NVIDIA H100 80GB HBM3, 700 W)
 SP_PRESET, SP_BATCH, SP_T = "gemma_2b_en", 2, 2048
+SP_LAYERS = 9  # depth cut from 18 (as 16.3's stages) when phase F1's new paths needed the time
 SP_SCORE_RTOL, SP_GRAD_RTOL = 1e-2, 5e-2
 # 16.3: gemma_2b_en fp32 (TF32 off), 2 stages of 9 layers, 4 microbatches,
 # batch 8 x T 512; the loss, every gradient and one SGD step (lr PP_LR) against
@@ -740,7 +799,7 @@ EP_RTOL = 1e-5
 LM_TIMEOUT_S = 480
 # phase 17.1: int8 serving of phase 10's model (gemma_2b_en at full width, G_LAYERS
 # layers, bf16, seed 0), weight-only and W8A8, batch 8, prompt 128, greedy and beam
-# 4 to max_length Q_MAX_LENGTH (cut from phase 10's 640 to fit the run's time).
+# 4 to max_length Q_MAX_LENGTH (cut from phase 10's 384 to fit the run's time).
 # W8A8's prefill logits must lie within Q_W8A8_NOISE_MULT x the weight-only
 # model's distance from the bf16 run (the int8 weights' own rounding, measured in
 # the same run), relative to max |logit|; the planted fault (each product's
@@ -753,13 +812,16 @@ Q_ROWS = (G_BATCH, G_BATCH * Q_BEAMS)
 Q_PRODUCTS = (("query", 2048, 2048), ("key", 2048, 256), ("attention_output", 2048, 2048),
               ("gating_ffw", 2048, 16384), ("ffw_linear", 16384, 2048),
               ("readout", 2048, 256000))
-# phase 17.2: the Swin path's model (swin_large + SemanticFPN(256), 19 classes,
-# 512x512, seed-17 weights) exported with scales (0.75, 1.0) + flip under bf16
+# phase 17.2: the Swin path's model at swin_large's widths and window with its
+# depth cut to X_DEPTHS (stage 2 from 18 blocks to 6 when the run neared its time
+# limit: export and load scale with the blocks) + SemanticFPN(256), 19 classes,
+# 512x512, seed-17 weights, exported with scales (0.75, 1.0) + flip under bf16
 # autocast, batch-polymorphic, served in a fresh process at batches 1 and 2. Its
 # logits against the live bf16 serve's: the same ops under the same autocast, but
 # the flip pairs at double batch and another process's cuDNN algorithms
 # (KERNEL_VS_PLAIN_MODEL_RTOL's argument)
 X_SCALES, X_BATCH, X_SERVE_REPS = (0.75, 1.0), 2, 5
+X_DEPTHS = (2, 2, 6, 2)
 X_ARTIFACT_RTOL = 2e-2
 X_EXAMPLE_SIZE, X_EXAMPLE_CLASSES = 512, 21  # the example driver: MobileNetV2 + SimpleDecoder
 X_TIMEOUT_S = 300
@@ -833,7 +895,7 @@ F32_KERNEL_VS_PLAIN_RTOL = 1e-4
 # other continuations (with random weights the model mostly repeats its
 # last token, and which token a beam locks onto decides the rest), so whole
 # searches are not held token-equal. They are held to this instead: the two
-# layouts, fed the segmented search's tokens over all 512 steps (the active
+# layouts, fed the segmented search's tokens over all 256 steps (the active
 # cache growing from 256 to 512 slots on the way), give logits within
 # GEMMA_LAYOUT_RTOL of max |logit| (measured: 6e-3); and at the first step
 # where two searches select other continuations, every continuation that
@@ -1067,14 +1129,31 @@ def phase_device():
         f"device {torch.cuda.get_device_name(0)}, count {torch.cuda.device_count()}")
     shutil.rmtree(_build.BUILD_DIR, ignore_errors=True)
     t0 = time.perf_counter()
-    _build.load_all([uce.SOURCE, wa.SOURCE, dl.SOURCE, cg.SOURCE])
-    wall = time.perf_counter() - t0
-    for built in (uce.build(), wa.build(), dl.build(), cg.build()):
+    # the longest build (window_attention.cu, about 100 s) goes on beside
+    # phases 3-5c, which launch none of its kernels; phase 1b waits for it
+    pending = _build.load_later([wa.SOURCE])
+    _build.load_all([uce.SOURCE, dl.SOURCE, cg.SOURCE])
+    log_builds((uce.build(), dl.build(), cg.build()))
+    log(f"three sources built in parallel in {time.perf_counter() - t0:.2f} s; "
+        f"{wa.SOURCE} builds on beside phases 3-5c (their host times share the CPU with nvcc)")
+    return pending, t0
+
+
+def log_builds(builds) -> None:
+    for built in builds:
         if not built.compiled:
             raise RuntimeError(f"{built.path.name} was not compiled from a clean build directory")
         log(f"built {built.path.name} in {built.seconds:.2f} s (nvcc, sm_90a)")
         log(built.log.strip())
-    log(f"all sources built in parallel in {wall:.2f} s")
+
+
+def phase_build_wait(pending, t0: float) -> None:
+    log(f"== phase 1b: wait for the {wa.SOURCE} build")
+    t_wait = time.perf_counter()
+    pending.result()
+    log_builds([wa.build()])
+    log(f"waited {time.perf_counter() - t_wait:.2f} s; all sources built "
+        f"{time.perf_counter() - t0:.2f} s after the build started")
 
 
 # ----------------------------------------------------------------- phase 2
@@ -1223,8 +1302,9 @@ def wa_bound(q, bias, mask, backward: bool) -> tuple[float, str]:
     product takes on the card, whichever kernel runs)."""
     bnw, h, n, d = q.shape
     tensors = 7 if backward else 4
-    nbytes = tensors * q.numel() * q.element_size() + 4 * (bias.numel() + mask.numel())
-    nbytes += 4 * bias.numel() if backward else 0
+    operands = [t for t in (bias, mask) if t is not None]  # global attention may have neither
+    nbytes = tensors * q.numel() * q.element_size() + 4 * sum(t.numel() for t in operands)
+    nbytes += 4 * bias.numel() if backward and bias is not None else 0
     flops = (5 if backward else 2) * 2 * n * n * d * bnw * h
     return bound_ms(nbytes, flops, q.dtype,
                     SPLIT_TF32_FLOPS if q.dtype == torch.float32 else None)
@@ -1380,6 +1460,178 @@ def check_window_attention(device, stage, bnw, heads, nw, shifted, dtype, seed=0
                 f"{bwd_lib:.4f} (device {bwd_lib_dev:.4f}) bound {bwd_bound:.4f} ({bwd_by})")
     log(msg)
     return row
+
+
+def ga_inputs(device, b, heads, t, d, dtype, seed=0):
+    """q, k, v [B, H, T, D] views of a packed [B, T, 3, H, D] projection (as
+    the ViT and EVA blocks give) and the incoming gradient, token-major."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    qkv = torch.randn((b, t, 3, heads, d), generator=gen, device=device).to(dtype)
+    q, k, v = (x.permute(0, 2, 1, 3) for x in qkv.unbind(2))
+    dout = torch.randn((b, t, heads, d), generator=gen, device=device).to(dtype)
+    return q, k, v, dout.permute(0, 2, 1, 3)
+
+
+def ga_backward_ms(fn, q, k, v, dout, timer=cuda_median_ms, **reps) -> float:
+    """Time of the backward of ``fn(q, k, v)`` through autograd by ``timer``;
+    its forward runs before each rep, outside the timed window."""
+    def setup():
+        leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
+        return leaves, fn(*leaves)
+
+    return timer(lambda arg: torch.autograd.grad(arg[1], arg[0], dout), setup=setup, **reps)
+
+
+def check_global_attention(device, title, b, heads, t, d, dtype, with_bias=False) -> dict:
+    """Global attention as the train steps run it (one window per batch row,
+    no mask; ``with_bias``: a learned ``[H, T, T]`` fp32 bias, as MOAT's
+    relative-position bias, which takes a gradient): the streaming pair built
+    without a mask (and without a bias where there is none) against its plain
+    version, forward and backward, each run twice bit for bit, with its
+    times, the plain version's, SDPA's (the library call computing the same
+    function, used nowhere on this route) and the bound. With a bias, also
+    the device time of the pair built with both operands on the same call
+    with a zero ``[1, T, T]`` mask: what the stand-in the bias-only form
+    replaced cost."""
+    q, k, v, dout = ga_inputs(device, b, heads, t, d, dtype)
+    bias = None
+    if with_bias:
+        gen = torch.Generator(device=device).manual_seed(1)
+        bias = 0.1 * torch.randn((heads, t, t), generator=gen, device=device)
+    scale = 1.0 / math.sqrt(d)
+    name = (f"{title} [B={b},H={heads},T={t},D={d}] {dtype_name(dtype)} "
+            + ("bias [H,T,T], no mask" if with_bias else "no bias, no mask"))
+    for route in (wa.forward_route(dtype, t, d, False), wa.backward_route(dtype, t, d, False)):
+        if route != "stream":
+            raise AssertionError(f"[{name}] must take the streaming kernels, not {route!r}")
+
+    def kernel(qq, kk, vv, bb=None, mask=None):
+        return wa.window_attention(qq, kk, vv, bb, mask, scale)
+
+    def plain(qq, kk, vv, bb=None):
+        return wa.window_attention_reference(qq, kk, vv, bb, None, scale)
+
+    def library(qq, kk, vv, bb=None):
+        attn_mask = None if bb is None else bb.to(dtype)[None]
+        return F.scaled_dot_product_attention(qq, kk, vv, attn_mask=attn_mask, scale=scale)
+
+    def leaves():
+        return [x.detach().requires_grad_(True) for x in (q, k, v)] + (
+            [] if bias is None else [bias.detach().clone().requires_grad_(True)])
+
+    def run(fn):
+        args = leaves()
+        out = fn(*args)
+        return [x.detach().float() for x in (out, *torch.autograd.grad(out, args, dout))]
+
+    def backward_ms(fn, timer=cuda_median_ms):
+        def setup():
+            args = leaves()
+            return args, fn(*args)
+
+        return timer(lambda arg: torch.autograd.grad(arg[1], arg[0], dout), setup=setup, **reps)
+
+    keys = ("out", "dq", "dk", "dv") + (("dbias",) if with_bias else ())
+    wa.reset_launch_counts()
+    got = run(kernel)
+    want_counts = {**dict.fromkeys(wa.LAUNCH_COUNTS, 0), "fwd_global": 1, "bwd_global": 1}
+    if wa.LAUNCH_COUNTS != want_counts:
+        raise AssertionError(f"[{name}] launches {wa.LAUNCH_COUNTS}, expected {want_counts}")
+    again = run(kernel)
+    for key, a, c in zip(keys, got, again):
+        if not torch.equal(a, c):
+            raise AssertionError(f"[{name}] kernel {key} differs from run to run")
+    del again
+    want = run(plain)
+    torch.cuda.synchronize()
+    errs = {}
+    for key, a, c in zip(keys, got, want):
+        if not bool(torch.isfinite(a).all()):
+            raise AssertionError(f"[{name}] kernel {key} is not finite")
+        errs[key] = float((a - c).abs().max())
+        tol = WA_TOL[dtype]["dbias" if key == "dbias" else "out"] * max(1.0, float(c.abs().max()))
+        if not errs[key] <= tol:
+            raise AssertionError(f"[{name}] kernel {key} disagrees with the plain version: "
+                                 f"max abs err {errs[key]:.3e} > {tol:.3e}")
+    del got, want
+    reps = dict(reps=10, warmup=2)
+    args = (q, k, v) + (() if bias is None else (bias,))
+    with torch.no_grad():
+        fwd_ms = cuda_median_ms(lambda _: kernel(*args), **reps)
+        fwd_plain = cuda_median_ms(lambda _: plain(*args), **reps)
+        fwd_lib = cuda_median_ms(lambda _: library(*args), **reps)
+        fwd_dev = device_ms(lambda _: kernel(*args), **reps)
+        fwd_lib_dev = device_ms(lambda _: library(*args), **reps)
+        fwd_held = held_ms(lambda _: kernel(*args), **reps)
+    bwd_ms = backward_ms(kernel)
+    bwd_plain = backward_ms(plain)
+    bwd_lib = backward_ms(library)
+    bwd_dev = backward_ms(kernel, timer=device_ms)
+    bwd_lib_dev = backward_ms(library, timer=device_ms)
+    fwd_bound, fwd_by = wa_bound(q, bias, None, backward=False)
+    bwd_bound, bwd_by = wa_bound(q, bias, None, backward=True)
+    bwd_err = max(errs[key] for key in keys[1:])
+    stand_in = ""
+    if with_bias:
+        zero_mask = torch.zeros((1, t, t), dtype=torch.float32, device=device)
+
+        def both(qq, kk, vv, bb):
+            return kernel(qq, kk, vv, bb, zero_mask)
+
+        with torch.no_grad():
+            both_fwd = device_ms(lambda _: both(*args), **reps)
+        both_bwd = backward_ms(both, timer=device_ms)
+        stand_in = (f"; with a zero [1,T,T] mask standing in (both operands) device fwd "
+                    f"{both_fwd:.4f} bwd {both_bwd:.4f}")
+    log(f"  [{name}] max abs err " + " ".join(f"{k} {v:.2e}" for k, v in errs.items())
+        + f"; bitwise repeatable; ms fwd kernel {fwd_ms:.4f} (device {fwd_dev:.4f}, held "
+        f"{fwd_held:.4f}) plain {fwd_plain:.4f} sdpa {fwd_lib:.4f} (device {fwd_lib_dev:.4f}) "
+        f"bound {fwd_bound:.4f} ({fwd_by}); bwd kernel {bwd_ms:.4f} (device {bwd_dev:.4f}) plain "
+        f"{bwd_plain:.4f} sdpa {bwd_lib:.4f} (device {bwd_lib_dev:.4f}) bound {bwd_bound:.4f} "
+        f"({bwd_by})" + stand_in)
+    return {"fwd": dict(shape=name, route="stream", max_abs_err=errs["out"], ms=fwd_ms,
+                        device_ms=fwd_dev, held_ms=fwd_held, plain_ms=fwd_plain,
+                        bound_ms=fwd_bound, bound_by=fwd_by, library_ms=fwd_lib,
+                        library_device_ms=fwd_lib_dev),
+            "bwd": dict(shape=name, route="stream", max_abs_err=bwd_err, ms=bwd_ms,
+                        device_ms=bwd_dev, plain_ms=bwd_plain, bound_ms=bwd_bound,
+                        bound_by=bwd_by, library_ms=bwd_lib, library_device_ms=bwd_lib_dev)}
+
+
+def check_deterministic_sdpa(device) -> None:
+    """A yardstick for a later change, used nowhere in the port: SDPA at
+    ViT-L's shape (bf16, no mask) under ``torch.use_deterministic_algorithms
+    (True)`` without ``warn_only``: whether its backward runs there, its
+    forward and backward device ms, and whether two backwards equal bit for
+    bit."""
+    title, b, heads, t, d, dtype = GA_ROWS[0]
+    q, k, v, dout = ga_inputs(device, b, heads, t, d, dtype, seed=1)
+
+    def library(qq, kk, vv):
+        return F.scaled_dot_product_attention(qq, kk, vv)
+
+    def grads():
+        leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
+        out = library(*leaves)
+        return [x.detach() for x in torch.autograd.grad(out, leaves, dout)]
+
+    reps = dict(reps=10, warmup=2)
+    torch.use_deterministic_algorithms(True)
+    try:
+        first, second = grads(), grads()
+        with torch.no_grad():
+            fwd_dev = device_ms(lambda _: library(q, k, v), **reps)
+        bwd_dev = ga_backward_ms(library, q, k, v, dout, timer=device_ms, **reps)
+        repeats = all(torch.equal(a, c) for a, c in zip(first, second))
+        log(f"  [deterministic SDPA, {title} [B={b},H={heads},T={t},D={d}] "
+            f"{dtype_name(dtype)}] torch.use_deterministic_algorithms(True): fwd device "
+            f"{fwd_dev:.4f} ms, bwd device {bwd_dev:.4f} ms; two backwards equal bit for bit: "
+            f"{repeats} ({card_line()})")
+    except RuntimeError as e:
+        log(f"  [deterministic SDPA, {title}] torch.use_deterministic_algorithms(True): the "
+            f"backward raises: {str(e).splitlines()[0][:300]}")
+    finally:
+        torch.use_deterministic_algorithms(False)
 
 
 def dl_bound(x, maps, groups: int, corners: int, backward: bool) -> tuple[float, str]:
@@ -1641,6 +1893,17 @@ def phase_kernels(device) -> list[dict]:
     wa_cuda_core = check_window_attention(device, stage, bnw, heads, nw, True, dtype,
                                           window=window, d=d, routes=routes)
     torch.cuda.empty_cache()
+    log("global attention with a gradient: the streaming pair without a mask (and without a "
+        "bias where there is none), one window per batch row; sdpa is "
+        "F.scaled_dot_product_attention at the same shape, a yardstick only")
+    ga_rows = []
+    for row in GA_ROWS:
+        t0 = time.perf_counter()
+        ga_rows.append(check_global_attention(device, *row))
+        log(f"  ({time.perf_counter() - t0:.1f} s)")
+        torch.cuda.empty_cache()
+    check_deterministic_sdpa(device)
+    torch.cuda.empty_cache()
     log(f"dense-local sampling (tol of max(1, max |plain|): {DL_TOL}); the backward's max abs "
         "err is over its four gradients; no single PyTorch call computes this function")
     dl_rows = {}
@@ -1729,6 +1992,15 @@ def phase_kernels(device) -> list[dict]:
         entry("window_attention_bwd_stream", wa_src,
               "iseg_tpu/ops/pallas/window_attention.py:161", wa_main_stream["bwd"],
               wa_shapes["bwd_stream"]),
+        # the same kernels built without a bias and a mask, for global attention
+        # with a gradient (jax.nn.dot_product_attention in the JAX package,
+        # iseg_tpu/nn/attention.py:58: XLA, no Pallas kernel)
+        entry("window_attention_fwd_global", wa_src,
+              "iseg_tpu/ops/pallas/window_attention.py:141", ga_rows[0]["fwd"],
+              [row["fwd"] for row in ga_rows]),
+        entry("window_attention_bwd_global", wa_src,
+              "iseg_tpu/ops/pallas/window_attention.py:161", ga_rows[0]["bwd"],
+              [row["bwd"] for row in ga_rows]),
         entry("deform_local_fwd", dl_src, "iseg_tpu/ops/pallas/deform_local.py:116",
               dl_main["fwd"], dl_shapes["fwd"]),
         entry("deform_local_bwd", dl_src, "iseg_tpu/ops/pallas/deform_local.py:146",
@@ -1757,6 +2029,8 @@ def read_launch_counts() -> dict[str, int]:
             "window_attention_bwd_tf32x3": wa.LAUNCH_COUNTS["bwd_tf32x3"],
             "window_attention_fwd_stream": wa.LAUNCH_COUNTS["fwd_stream"],
             "window_attention_bwd_stream": wa.LAUNCH_COUNTS["bwd_stream"],
+            "window_attention_fwd_global": wa.LAUNCH_COUNTS["fwd_global"],
+            "window_attention_bwd_global": wa.LAUNCH_COUNTS["bwd_global"],
             "deform_local_fwd": dl.LAUNCH_COUNTS["fwd"], "deform_local_bwd": dl.LAUNCH_COUNTS["bwd"],
             "cache_gather": cg.LAUNCH_COUNTS["gather"]}
 
@@ -1819,7 +2093,8 @@ def train_steps(state, step_fn, data, warmup, timed, batch):
     losses = [float(v) for v in losses]
     peak = torch.cuda.max_memory_allocated()
     log(f"losses: {[round(v, 5) for v in losses]}")
-    log(f"warm-up {warmup} steps took {t0 - t_start:.2f} s (cuDNN autotuning included)")
+    tuning = "autotuning" if torch.backends.cudnn.benchmark else "heuristics"
+    log(f"warm-up {warmup} steps took {t0 - t_start:.2f} s (cuDNN {tuning})")
     log(f"{1000 * dt / timed:.2f} ms/step, {batch * timed / dt:.2f} img/s, "
         f"peak memory {peak / 2**30:.2f} GiB ({peak} bytes); the host spent "
         f"{1000 * enqueued / timed:.2f} ms/step in the launch calls")
@@ -2525,10 +2800,50 @@ def phase_eval_buckets(env, ckpt: str) -> None:
         logits = model.inference(batch, config)
     equal = bool(torch.equal(preds, logits.argmax(-1).to(torch.int32)))
     log(f"-- 5c.5: default_image_predict over a bucketed batch {tuple(batch.shape)}: "
-        f"{tuple(preds.shape)} {preds.dtype}, equal to the argmax of SegBase.inference: {equal} "
-        "(predict_with_dir, which reads and writes PNGs, is held on the CPU: no PIL here)")
+        f"{tuple(preds.shape)} {preds.dtype}, equal to the argmax of SegBase.inference: {equal}")
     if not equal:
         raise AssertionError("default_image_predict differs from SegBase.inference's argmax")
+    check_predict_with_dir(env, model, config)
+
+
+def check_predict_with_dir(env, model, config) -> None:
+    """5c.5's ``predict_with_dir`` on the card, where PIL imports: a
+    directory of seeded RGB PNGs predicted to label PNGs, read back and held
+    equal to ``default_image_predict``'s argmax of the same images, padded
+    with the mean pixel to the bucket and normalized as the function pads
+    them."""
+    try:
+        from PIL import Image
+    except ImportError:
+        log("-- 5c.5: predict_with_dir not run: PIL does not import here")
+        return
+    rng = np.random.RandomState(11)
+    h, w = EX_PREDICT_HW
+    pixels = rng.randint(0, 256, (EX_PREDICT_IMAGES, h, w, 3)).astype(np.uint8)
+    with tempfile.TemporaryDirectory(prefix="iseg_predict_") as tmp:
+        src, dst = os.path.join(tmp, "images"), os.path.join(tmp, "labels")
+        os.makedirs(src)
+        for i, image in enumerate(pixels):
+            Image.fromarray(image).save(os.path.join(src, f"img_{i}.png"))
+        t0 = time.perf_counter()
+        written = predict_with_dir(model, src, dst, batch_size=EX_PREDICT_IMAGES,
+                                   pad_multiple=EX_BUCKET, inference_config=config,
+                                   verbose=False, compute_dtype=env.compute_dtype)
+        seconds = time.perf_counter() - t0
+        got = np.stack([np.asarray(Image.open(os.path.join(dst, f"img_{i}.png")))
+                        for i in range(EX_PREDICT_IMAGES)])
+    bh, bw = bucket_hw(h, w, EX_BUCKET)
+    batch = np.empty((EX_PREDICT_IMAGES, bh, bw, 3), np.float32)
+    batch[:] = get_mean_pixel()
+    batch[:, :h, :w] = pixels
+    want = default_image_predict(model, torch.tensor(normalize_input(batch), device=env.device),
+                                 config, env.compute_dtype)[:, :h, :w].cpu().numpy()
+    equal = got.shape == want.shape and bool((got.astype(np.int64) == want).all())
+    log(f"-- 5c.5: predict_with_dir over {len(written)} PNGs of {h}x{w} (bucket {bh}x{bw}, one "
+        f"batch, {seconds:.2f} s): label PNGs {got.shape} {got.dtype}, equal to "
+        f"default_image_predict's argmax on the card: {equal}")
+    if len(written) != EX_PREDICT_IMAGES or not equal:
+        raise AssertionError("predict_with_dir's PNGs differ from default_image_predict's argmax")
 
 
 def phase_examples(env, profile: bool) -> dict[str, dict]:
@@ -3835,7 +4150,7 @@ def phase_vit_train(env) -> tuple[dict, dict]:
     step_fn = make_train_step(model.build_loss_fn(), compute_dtype=env.compute_dtype)
     state, _, launches, step_ms = counted_train_steps(
         state, step_fn, data, V_WARMUP, V_TIMED, V_BATCH,
-        {"upsample_ce_fwd": 1, "upsample_ce_bwd": 1}, "ViT-L train")
+        {"upsample_ce_fwd": 1, "upsample_ce_bwd": 1, **T_GLOBAL_PER_STEP}, "ViT-L train")
     log(f"ViT-L train: {step_ms:.2f} ms/step, {V_BATCH * 1e3 / step_ms:.2f} img/s ({card_line()})")
     profile_steps(state, step_fn, data, "ViT-L/16 + ASPP train step", step_ms)
     trained = {k: v.detach().clone() for k, v in model.state_dict().items()}
@@ -3877,7 +4192,7 @@ def phase_eva_train(env) -> tuple[dict, dict]:
     state = create_train_state(model, env.generator, eva_optimizer(model, backbone))
     step_fn = make_train_step(model.build_loss_fn(), compute_dtype=env.compute_dtype)
     state, _, launches, step_ms = counted_train_steps(
-        state, step_fn, data, E_WARMUP, E_TIMED, E_BATCH, {}, "EVA02-L train")
+        state, step_fn, data, E_WARMUP, E_TIMED, E_BATCH, T_GLOBAL_PER_STEP, "EVA02-L train")
     log(f"EVA02-L train: {step_ms:.2f} ms/step, {E_BATCH * 1e3 / step_ms:.2f} img/s "
         f"({card_line()})")
     profile_steps(state, step_fn, data, "EVA02-L/16 + ASPP train step", step_ms)
@@ -3896,7 +4211,7 @@ def phase_eva_train(env) -> tuple[dict, dict]:
     want = 1 + int(tokens * (1 - E_PATCH_DROPOUT))
     log(f"patch dropout {E_PATCH_DROPOUT}: tokens through the blocks {kept} of {1 + tokens} "
         f"(expected {want}), loss {loss:.6f}")
-    expect_launches("EVA02-L train with patch dropout", read_launch_counts(), {})
+    expect_launches("EVA02-L train with patch dropout", read_launch_counts(), T_GLOBAL_PER_STEP)
     if kept != [(want, True)] or not np.isfinite(loss):
         raise AssertionError("the patch-dropout step did not drop tokens or gave a non-finite loss")
     return launches, trained
@@ -4170,10 +4485,16 @@ def phase_zoo_steps(env) -> dict[str, dict]:
         tx, _ = get_optimizer(param_tree(model), "sgd", learning_rate=0.01, train_steps=1000)
         state = create_train_state(model, env.generator, tx)
         step_fn = make_train_step(model.build_loss_fn(), compute_dtype=env.compute_dtype)
+        # MOAT's attention blocks: global attention with a gradient, each one
+        # forward and one backward launch of the bias-free streaming pair
+        attention = sum(getattr(m, "use_attention", False) for m in model.backbone.modules())
+        want = {"upsample_ce_fwd": 1, "upsample_ce_bwd": 1}
+        if attention:
+            want.update(window_attention_fwd_global=attention,
+                        window_attention_bwd_global=attention)
         with cudnn_heuristics():
             _, losses, paths[path], step_ms = counted_train_steps(
-                state, step_fn, data, 1, 1, Z_BATCH,
-                {"upsample_ce_fwd": 1, "upsample_ce_bwd": 1}, f"{title} train")
+                state, step_fn, data, 1, 1, Z_BATCH, want, f"{title} train")
         peak = torch.cuda.max_memory_allocated()
         log(f"{title}: the timed step {step_ms:.2f} ms, peak memory {peak / 2**30:.2f} GiB, loss "
             f"{losses[-1]:.6f} ({card_line()})")
@@ -5011,36 +5332,53 @@ def distributed_runs(env, tmp: str, card: str) -> dict[str, dict[str, int]]:
 # ----------------------------------------------------------------- F1 on the card
 
 def f1_setups(env) -> dict:
-    """The three paths whose resizes took ``F.interpolate`` before fault F1
-    was closed: {name: (build() -> (state, step), batch, classes, context of
-    the runs)}. EVA02-L's runs take SDPA's math backend: cuDNN's attention
-    backward adds in no fixed order (PyTorch warns so in deterministic mode),
-    which is another matter than F1's resizes."""
+    """The paths phase F1 runs twice: {name: (build() -> (state, step), batch,
+    classes, context of the runs)}. Swin-L's and MobileNetV2's resizes took
+    ``F.interpolate`` before fault F1 was closed; ViT-L's, EVA02-L's and
+    MOAT-4's global attention took cuDNN's or FlashAttention's backward,
+    which adds in no fixed order, before fault F4 was: they now record
+    their gradient through the window-attention kernels' streaming pair.
+    MOAT-4 runs with its relative-position bias (``use_pos_emb``), whose
+    gradient the kernels form. A tree without that route (``--ab``'s older
+    one) runs EVA02-L under SDPA's math backend, as it did, and ViT-L and
+    MOAT-4 under the default SDPA."""
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
+    from iseg_tpu_torch.nn import attention as attention_module
 
-    def swin():
-        model = build_swin_model(env, fused=True)
-        tx, _ = get_optimizer(param_tree(model), "sgd", learning_rate=0.01, train_steps=1000)
-        state = create_train_state(model, torch.Generator().manual_seed(0), tx)
-        return state, make_train_step(model.build_loss_fn(), env.compute_dtype, seed=0)
+    kernel_route = hasattr(attention_module, "kernel_attention")
+
+    def sgd_setup(build_model):
+        def build():
+            model = build_model()
+            tx, _ = get_optimizer(param_tree(model), "sgd", learning_rate=0.01, train_steps=1000)
+            state = create_train_state(model, torch.Generator().manual_seed(0), tx)
+            return state, make_train_step(model.build_loss_fn(), env.compute_dtype, seed=0)
+
+        return build
 
     def eva():
         model = build_eva_model(env, fused=True)
+        model.backbone.patch_dropout.rate = E_PATCH_DROPOUT
         state = create_train_state(model, torch.Generator().manual_seed(0),
                                    eva_optimizer(model, model.backbone))
         return state, make_train_step(model.build_loss_fn(), env.compute_dtype, seed=0)
 
-    def mbv2():
-        model = build_mbv2_model(env, fused=True)
-        tx, _ = get_optimizer(param_tree(model), "sgd", learning_rate=0.01, train_steps=1000)
-        state = create_train_state(model, torch.Generator().manual_seed(0), tx)
-        return state, make_train_step(model.build_loss_fn(), env.compute_dtype, seed=0)
+    def moat():
+        return build_zoo_model(env, "moat4", "aspp", Z_CLASSES, use_pos_emb=True)
 
-    return {"Swin-L + SemanticFPN": (swin, S_BATCH, S_CLASSES, contextlib.nullcontext),
-            "EVA02-L + ASPP (AdamW, 150 classes, unfused loss; SDPA math backend)":
-                (eva, E_BATCH, E_CLASSES, lambda: sdpa_kernel(SDPBackend.MATH)),
-            "MobileNetV2 + SimpleDecoder": (mbv2, M_BATCH, M_CLASSES, contextlib.nullcontext)}
+    plain = contextlib.nullcontext
+    eva_context = plain if kernel_route else (lambda: sdpa_kernel(SDPBackend.MATH))
+    return {"Swin-L + SemanticFPN": (sgd_setup(lambda: build_swin_model(env, fused=True)),
+                                     S_BATCH, S_CLASSES, plain),
+            "ViT-L + ASPP": (sgd_setup(lambda: build_vit_model(env, fused=True)), V_BATCH,
+                             V_CLASSES, plain),
+            f"EVA02-L + ASPP (AdamW, 150 classes, unfused loss, patch dropout "
+            f"{E_PATCH_DROPOUT})": (eva, E_BATCH, E_CLASSES, eva_context),
+            "MOAT-4 + ASPP (relative-position bias)": (sgd_setup(moat), Z_BATCH, Z_CLASSES,
+                                                       plain),
+            "MobileNetV2 + SimpleDecoder": (sgd_setup(lambda: build_mbv2_model(env, fused=True)),
+                                            M_BATCH, M_CLASSES, plain)}
 
 
 @contextlib.contextmanager
@@ -5057,8 +5395,12 @@ def deterministic_algorithms():
         torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = flags
 
 
-def f1_run(build, data, steps: int = F1_STEPS) -> tuple[str, list[float], list[float]]:
-    """(state digest, losses, ms of each step) of ``steps`` steps from seed 0."""
+def f1_run(build, data, steps: int = F1_STEPS,
+           digest: bool = True) -> tuple[str | list[torch.Tensor], list[float], list[float]]:
+    """(state digest, losses, ms of each step) of ``steps`` steps from seed 0;
+    without ``digest`` a copy of every parameter and BN statistic on the card
+    in place of the digest (phase F1 compares two runs there: hashing the
+    four large models' states on the host cost the run about 15 s)."""
     state, step = build()
     losses, ms = [], []
     for _ in range(steps):
@@ -5068,29 +5410,34 @@ def f1_run(build, data, steps: int = F1_STEPS) -> tuple[str, list[float], list[f
         torch.cuda.synchronize()
         ms.append(1e3 * (time.perf_counter() - t0))
         losses.append(float(parts["loss"]))
-    digest = params_digest(state)
+    end = params_digest(state) if digest else [
+        tree[k].detach().clone() for tree in (state.params, state.batch_stats) for k in sorted(tree)]
     del state, step
     torch.cuda.empty_cache()
-    return digest, losses, ms
+    return end, losses, ms
 
 
 def phase_f1_repeat(env) -> None:
-    """Fault F1 on the card: two runs of each path from the same weights
-    and batch end with the same state bit for bit."""
-    log("== phase F1: fixed-order resizes (interpolation matrices, no F.interpolate): two "
-        f"runs of {F1_STEPS} steps each end equal bit for bit")
+    """Faults F1 and F4 on the card: two runs of each path from the same
+    weights and batch end with the same state bit for bit."""
+    log("== phase F1: fixed-order resizes (interpolation matrices, no F.interpolate) and "
+        "global-attention backwards (the window-attention kernels, no SDPA): two runs of "
+        f"{F1_STEPS} steps each end equal bit for bit")
     card = card_line()
     with deterministic_algorithms():
         for name, (build, batch, classes, context) in f1_setups(env).items():
             data = synthetic_batch(env.device, batch, classes)
             with context():
-                runs = [f1_run(build, data) for _ in range(2)]
+                runs = [f1_run(build, data, digest=False) for _ in range(2)]
             log(f"F1 {name}: losses {runs[0][1]} and {runs[1][1]}; ms per step "
                 f"{[round(v, 2) for v in runs[0][2]]} and {[round(v, 2) for v in runs[1][2]]} "
                 f"(deterministic algorithms, the first step builds) ({card})")
-            if runs[0][0] != runs[1][0] or runs[0][1] != runs[1][1]:
+            (first, losses_1, _), (second, losses_2, _) = runs
+            if (losses_1 != losses_2 or len(first) != len(second)
+                    or not all(torch.equal(a, b) for a, b in zip(first, second))):
                 raise AssertionError(f"F1: two runs of {name} end in different states")
-            del data
+            del data, runs, first, second
+            torch.cuda.empty_cache()
 
 
 def step_loss_ms(path: str, prof: dict) -> dict:
@@ -5107,7 +5454,10 @@ def step_loss_ms(path: str, prof: dict) -> dict:
 
 def ab_f1_row() -> dict:
     """``--ab OLD --only f1``: one warm-up and F1_STEPS timed steps of each
-    path of phase F1, in its deterministic mode."""
+    path of phase F1, in its deterministic mode (a tree without the kernel
+    route for global attention runs EVA02-L under SDPA's math backend and
+    ViT-L and MOAT-4 under the default SDPA: the difference is the cost of
+    the exact resume)."""
     env = common_env_setup(EnvConfig(random_seed=0, mixed_precision=True, device="cuda"))
     row = {}
     with deterministic_algorithms():
@@ -5215,7 +5565,8 @@ def ab_stream_row(device) -> dict:
 def ab_child(only: str | None = None) -> dict:
     """One process of ``--ab``: this file's timings of the package first on
     the path. It uses only what the parent commit's package has too."""
-    for key in ("fwd_mma", "bwd_mma", "fwd_tf32x3", "bwd_tf32x3", "fwd_stream", "bwd_stream"):
+    for key in ("fwd_mma", "bwd_mma", "fwd_tf32x3", "bwd_tf32x3", "fwd_stream", "bwd_stream",
+                "fwd_global", "bwd_global"):
         wa.LAUNCH_COUNTS.setdefault(key, 0)  # a package from before a route
     device = torch.device("cuda")
     _build.load_all([uce.SOURCE, wa.SOURCE, dl.SOURCE, cg.SOURCE])
@@ -5556,7 +5907,7 @@ def lm_sp(env) -> dict:
     from iseg_tpu_torch.parallel import collectives as C
     from iseg_tpu_torch.parallel.mesh import create_mesh
 
-    cfg = get_preset(SP_PRESET)
+    cfg = dataclasses.replace(get_preset(SP_PRESET), num_layers=SP_LAYERS)
     mesh = create_mesh(model_parallelism=2)
     ids = lm_tokens(cfg.vocab_size, SP_BATCH, SP_T, 17).to(env.device)
     weights = torch.ones(ids.shape, device=env.device)
@@ -5671,13 +6022,31 @@ def lm_pp(env) -> dict:
     mine = unflatten({k: v.requires_grad_() for k, v in stage_p.items()})
     shared = unflatten({k: v.requires_grad_() for k, v in shared_p.items()})
     loss_fn = make_pp_loss_fn(cfg, mesh, num_microbatches=PP_MICRO, remat=True)
-    C.reset_host_staged()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    loss = loss_fn(mine, shared, ids, weights)
-    loss.backward()
-    torch.cuda.synchronize()
-    step_s = time.perf_counter() - t0
+    leaves = {**{("stage", k): v for k, v in stage_p.items()},
+              **{("shared", k): v for k, v in shared_p.items()}}
+    # the train step twice from the same parameters (phase F1's check: both end
+    # bit for bit equal), under deterministic_algorithms() as F1's steps
+    runs = []
+    with deterministic_algorithms():
+        for _ in range(2):
+            for v in leaves.values():
+                v.grad = None
+            C.reset_host_staged()
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            loss = loss_fn(mine, shared, ids, weights)
+            loss.backward()
+            torch.cuda.synchronize()
+            # on the host: a second set of a stage's gradients does not fit
+            # beside the two ranks' steps on the one card
+            runs.append((loss.item(), {key: v.grad.cpu() for key, v in leaves.items()
+                                       if v.grad is not None}, time.perf_counter() - t0,
+                         dict(C.CALLS), dict(C.HOST_STAGED)))
+    (loss_1, grads_1, step_s, calls, staged), (loss_2, grads_2, step_2_s, *_) = runs
+    repeat_equal = loss_1 == loss_2 and grads_1.keys() == grads_2.keys() and all(
+        torch.equal(grads_1[key], grads_2[key]) for key in grads_1)
+    del runs, grads_1, grads_2
     got = {**{("stage", k): (v, v.grad) for k, v in stage_p.items()},
            **{("shared", k): (v, v.grad) for k, v in shared_p.items()}}
     want = {**{("stage", k): g for k, g in stage_g.items()},
@@ -5695,12 +6064,13 @@ def lm_pp(env) -> dict:
                 worst, worst_leaf = err, "/".join(key)
             # one SGD step on each side from the same parameters
             sgd_err = max(sgd_err, rel_err(p - PP_LR * g, p - PP_LR * want[key]))
-    return {"stage": stage, "loss": loss.item(), "ref_loss": ref_loss, "grad_err": worst,
+    return {"stage": stage, "loss": loss_2, "ref_loss": ref_loss, "grad_err": worst,
             "grad_leaf": worst_leaf, "sgd_err": sgd_err,
             "owned_layers": [f"layer_{i}" for i in layers], "leaves": len(got),
             "missing_grads": missing,
             "layer_leaves": tuple(stage_p["attention/query/kernel"].shape),
-            "step_s": step_s, "calls": dict(C.CALLS), "staged": dict(C.HOST_STAGED),
+            "step_s": step_s, "step_2_s": step_2_s, "repeat_equal": repeat_equal,
+            "repeat_losses": (loss_1, loss_2), "calls": calls, "staged": staged,
             "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
 
 
@@ -5834,7 +6204,7 @@ def phase_lm_distributed(env) -> tuple[dict[str, dict[str, int]], dict]:
                                  f"{row['grad_err']:.3e} past the bounds")
         if not math.isclose(row["loss"], row["ref_loss"], rel_tol=SP_SCORE_RTOL):
             raise AssertionError(f"16.2 {mode}: loss {row['loss']} vs {row['ref_loss']}")
-    n_layers = get_preset(SP_PRESET).num_layers
+    n_layers = SP_LAYERS
     if sp["ring"]["calls"]["ppermute"] != n_layers + 1:  # n - 1 = 1 a layer, + score's shift
         raise AssertionError(f"16.2 ring: {sp['ring']['calls']['ppermute']} rotations in one "
                              f"forward, want {n_layers} (one a layer) + 1")
@@ -5847,6 +6217,12 @@ def phase_lm_distributed(env) -> tuple[dict[str, dict[str, int]], dict]:
             f"{row['owned_layers'][0]}..{row['owned_layers'][-1]} (stacked {row['layer_leaves']}); "
             f"fwd+bwd {row['step_s']:.2f} s, peak {row['peak_gib']:.1f} GiB; "
             f"calls {row['calls']}, host-staged {row['staged']} ({card})")
+        log(f"F1 (16.3) stage {row['stage']}: two runs of the pipeline-parallel train step "
+            f"(deterministic algorithms; {row['step_s']:.2f} s and {row['step_2_s']:.2f} s), "
+            f"losses {row['repeat_losses'][0]!r} and {row['repeat_losses'][1]!r}, every gradient "
+            f"equal bit for bit: {row['repeat_equal']}")
+        if not row["repeat_equal"]:
+            raise AssertionError(f"16.3 rank {r}: two runs of the PP step end apart")
         if row["missing_grads"]:
             raise AssertionError(f"16.3 rank {r}: no gradient reached {row['missing_grads']}")
         if not (row["grad_err"] <= PP_RTOL and row["sgd_err"] <= PP_RTOL
@@ -6069,10 +6445,16 @@ print(json.dumps(res))
 def phase_export(env) -> dict[str, dict[str, int]]:
     """17.2: the exported Swin-L serving artifact in a fresh process, then the
     example driver (see the module note)."""
-    log(f"== phase 17.2: export Swin-L + SemanticFPN (scales {X_SCALES} + flip, bf16 autocast, "
-        "batch-polymorphic) and serve it in a process without model code")
+    log(f"== phase 17.2: export Swin-L's widths at depths {X_DEPTHS} + SemanticFPN (scales "
+        f"{X_SCALES} + flip, bf16 autocast, batch-polymorphic) and serve it in a process "
+        "without model code")
     card = card_line()
-    model = build_swin_model(env, fused=False)
+    backbone = swin_module.SwinTransformer(embed_dim=192, depths=X_DEPTHS,
+                                           num_heads=(6, 12, 24, 48), window_size=7)
+    model = SegManaged(num_class=S_CLASSES, backbone=backbone,
+                       head=SemanticFPN(backbone.endpoint_channels[-4:], filters=256),
+                       upsample_logits=True, fuse_upsample_loss=False)
+    model = model.to(env.device, memory_format=torch.channels_last)
     initialize(model, torch.Generator(device=env.device).manual_seed(17))
     model.eval()
     images = torch.tensor(np.random.RandomState(17).rand(X_BATCH, HW, HW, 3).astype(np.float32),
@@ -6127,7 +6509,7 @@ def phase_export(env) -> dict[str, dict[str, int]]:
     for b in (1, 2):
         got = {**dict.fromkeys(read_launch_counts(), 0), **res["launches"][str(b)]}
         expect_launches(f"exported Swin-L serve (batch {b})", got,
-                        {"window_attention_fwd_mma": WA_LAUNCHES_PER_FORWARD * calls})
+                        {"window_attention_fwd_mma": sum(X_DEPTHS) * calls})
         path_counts = {k: path_counts[k] + got[k] for k in path_counts}
         logits, want = served[b], live_logits[b].cpu()
         if tuple(logits.shape) != (b, HW, HW, S_CLASSES) or logits.dtype != torch.float32:
@@ -6210,14 +6592,21 @@ def main(argv: list[str]) -> int:
             "since the start)")
         return out
 
-    timed("1", phase_device)
+    pending_build = timed("1", phase_device)
     env = common_env_setup(EnvConfig(random_seed=0, mixed_precision=True, device="cuda"))
     # time cuDNN's conv algorithms once for the fixed training shapes; the
     # choice, and so the bf16 sums after step 1, may differ from run to run
     torch.backends.cudnn.benchmark = True
     log(f"env: {env.describe()}")
     device = env.device
-    kernels = timed("2", phase_kernels, device)
+
+    def on_heuristics(fn):
+        """``fn`` on cuDNN's heuristic conv algorithms: autotuning took 25-33 s
+        a model of these phases, whose few steps time nothing that needs it."""
+        def run(*args):
+            with cudnn_heuristics():
+                return fn(*args)
+        return run
 
     def resnet_phases():
         data = synthetic_batch(device, R_BATCH, R_CLASSES)
@@ -6227,10 +6616,12 @@ def main(argv: list[str]) -> int:
         phase_resnet_serve(env, data, fused_model, serve_model)
         return by_path, resnet_ms
 
-    by_path, resnet_ms = timed("3-5", resnet_phases)
+    by_path, resnet_ms = timed("3-5", on_heuristics(resnet_phases))
     paths = {"resnet_train": by_path}
-    paths["system_train"] = timed("5b", phase_system, env, resnet_ms, profile)
-    paths.update(timed("5c", phase_examples, env, profile))
+    paths["system_train"] = timed("5b", on_heuristics(phase_system), env, resnet_ms, profile)
+    paths.update(timed("5c", on_heuristics(phase_examples), env, profile))
+    timed("1b", phase_build_wait, *pending_build)
+    kernels = timed("2", phase_kernels, device)
 
     def swin_phases():
         data = synthetic_batch(device, S_BATCH, S_CLASSES)
@@ -6255,9 +6646,9 @@ def main(argv: list[str]) -> int:
 
     paths.update(timed("8-9", intern_phases))
     paths.update(timed("10", phase_gemma_serve, device, profile))
-    paths.update(timed("11", phase_hrnet, env, profile))
+    paths.update(timed("11", on_heuristics(phase_hrnet), env, profile))
     paths.update(timed("12", phase_transformers, env))
-    paths.update(timed("13", phase_zoo, env))
+    paths.update(timed("13", on_heuristics(phase_zoo), env))
     pretrained_paths, radii_rows = timed("14", phase_pretrained, env)
     paths.update(pretrained_paths)
     paths.update(timed("15", phase_distributed, env))
@@ -6300,6 +6691,7 @@ def main(argv: list[str]) -> int:
                                  for path, counts in mine.items()}
         k["launches"] = sum(by_route.values())
     loss_kernels = ("upsample_ce_fwd", "upsample_ce_bwd")
+    global_kernels = ("window_attention_fwd_global", "window_attention_bwd_global")
     on_path = {"resnet_train": loss_kernels,
                "system_train": loss_kernels,
                "mbv2_train": loss_kernels,
@@ -6307,14 +6699,15 @@ def main(argv: list[str]) -> int:
                "hrnet_train": loss_kernels,
                "hrnet_accum": loss_kernels,
                "hrnet_train_seg": loss_kernels,
-               "vit_train": loss_kernels,
-               "eva_train": (),  # 150 classes: the unfused loss (asserted 0 launches)
+               "vit_train": loss_kernels + global_kernels,
+               "eva_train": global_kernels,  # 150 classes: the unfused loss (0 launches)
                "vit_serve": (),
                "eva_serve": (),
                "convnext_fapn_train": loss_kernels,
                "convnext_fapn_sliding": (),  # unfused serve: no kernel (asserted 0 launches)
                "xception_train": loss_kernels,
                **{path: loss_kernels for path, *_ in Z_MODELS},
+               "moat_train": loss_kernels + global_kernels,
                "swin_train": loss_kernels + ("window_attention_fwd_mma",
                                              "window_attention_bwd_mma"),
                "swin_serve": ("window_attention_fwd_mma",),

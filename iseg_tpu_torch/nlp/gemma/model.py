@@ -31,7 +31,11 @@ What differs from the JAX package, which is functional:
   given;
 * the full-sequence branch at ``T >= DPA_MIN_SEQLEN`` is
   ``F.scaled_dot_product_attention`` (in the JAX package it is
-  ``jax.nn.dot_product_attention``, a library call too);
+  ``jax.nn.dot_product_attention``, a library call too) where no gradient is
+  recorded. A call on the card that records one (a train step) takes the
+  grouped products of the short branch instead, whose sums run in a fixed
+  order, so two runs of a step end bit for bit equal as in the JAX package
+  (SDPA's cuDNN and flash backwards do not);
 * attention logits and value sums that the JAX einsums ask for in fp32 from
   bf16 operands (``preferred_element_type``) come from ``torch.bmm(...,
   out_dtype=torch.float32)`` on CUDA, which reads the bf16 cache as it is
@@ -53,6 +57,7 @@ from torch import nn
 from iseg_tpu_torch.core.env import resolve_device
 from iseg_tpu_torch.nlp.gemma.config import GemmaConfig
 from iseg_tpu_torch.nn.norm import RMSNorm
+from iseg_tpu_torch.ops.kernels.window_attention import _records_grad
 from iseg_tpu_torch.ops.quant import QuantDense, QuantEmbed
 from iseg_tpu_torch.parallel import collectives as C
 from iseg_tpu_torch.parallel.mesh import axis_group, axis_rank, axis_size
@@ -153,13 +158,15 @@ def causal_mask(t: int, positions: torch.Tensor, kv_len: Optional[int] = None) -
 
 def _bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``a [N, M, K] @ b [N, K, P]`` with an fp32 result, without an fp32
-    copy of a low-precision operand on the card."""
+    copy of a low-precision operand on the card where no gradient is
+    recorded (``out_dtype`` has no derivative: a train step takes the
+    copies)."""
     if a.dtype != b.dtype:
         common = torch.promote_types(a.dtype, b.dtype)
         a, b = a.to(common), b.to(common)
     if a.dtype == torch.float32:
         return torch.bmm(a, b)
-    if a.device.type == "cuda":
+    if a.device.type == "cuda" and not _records_grad(a, b):
         return torch.bmm(a, b, out_dtype=torch.float32)
     return torch.bmm(a.float(), b.float())
 
@@ -256,7 +263,11 @@ class GemmaAttention(nn.Module):
                 k, v = cache[:, li, 0], cache[:, li, 1]
             # the branch follows the global sequence length, as in the JAX
             # package (whose traced shapes are global)
-            if t * (par.sp if sp else 1) >= DPA_MIN_SEQLEN:
+            full = t * (par.sp if sp else 1) >= DPA_MIN_SEQLEN
+            # a train step on the card takes the grouped products: SDPA's
+            # backward does not add in a fixed order
+            fixed_order = q.is_cuda and _records_grad(q, k, v)
+            if full and not fixed_order:
                 out = F.scaled_dot_product_attention(
                     q.transpose(1, 2), k.to(q.dtype).transpose(1, 2),
                     v.to(q.dtype).transpose(1, 2), attn_mask=mask, scale=1.0,

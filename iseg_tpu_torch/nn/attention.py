@@ -5,11 +5,21 @@ The modules take and return NHWC maps ``[N, H, W, C]``, as the JAX ones do:
 they work on tokens, with their projections over the last axis.
 
 Global attention is no Pallas kernel in the JAX package
-(``jax.nn.dot_product_attention``, XLA), so on the card
-:func:`dot_product_attention` is ``F.scaled_dot_product_attention``; on the
-CPU it is its plain version, :func:`dot_product_attention_reference`
-(einsum products, softmax in ``promote_types(dtype, float32)``), which the
-tests hold against the JAX package. Where the JAX package casts to fp32
+(``jax.nn.dot_product_attention``, XLA). :func:`dot_product_attention` takes
+one of four routes (:func:`attention_route`): on the card, a call that
+records a gradient goes through the hand-written window-attention kernels
+(:func:`kernel_attention`: one window per batch row, the streaming kernels
+without a bias or a mask where it has none), whose backward adds in a fixed
+order, so two runs of a train step end bit for bit equal, as in the JAX
+package (cuDNN's and FlashAttention's backwards do not); such a call at a
+shape the kernels are not built for (a head dim above 128, a type other than
+float32 and bfloat16) takes the plain version in one type
+(:func:`plain_attention`), whose cuBLAS products add in a fixed order too; a
+call that records none (serving, ``torch.export``) is
+``F.scaled_dot_product_attention``; on the CPU it is the plain version,
+:func:`dot_product_attention_reference` (einsum products, softmax in
+``promote_types(dtype, float32)``), which the tests hold against the JAX
+package. Where the JAX package casts to fp32
 (softmax, attention logits, sampling offsets), the port casts to
 ``promote_types(dtype, float32)``: the same for bf16 and fp32, float64 kept
 for float64.
@@ -27,6 +37,8 @@ from torch import nn
 from iseg_tpu_torch.nn.conv import Conv2d
 from iseg_tpu_torch.nn.dcn import _zero_init
 from iseg_tpu_torch.ops.deform import bilinear_gather
+from iseg_tpu_torch.ops.kernels.window_attention import (_records_grad, forward_route,
+                                                         window_attention)
 from iseg_tpu_torch.ops.numerics import replace_non_finite
 
 
@@ -96,15 +108,157 @@ def sdpa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.transpose(1, 2)
 
 
+def _as_4d(t: torch.Tensor) -> torch.Tensor:
+    return t.reshape((1,) * (4 - t.ndim) + tuple(t.shape))
+
+
+def _one_dtype(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.dtype:
+    """The type q, k and v are attended in: under autocast the autocast
+    type (the one SDPA computes in), else their promoted type."""
+    if torch.is_autocast_enabled(q.device.type):
+        return torch.get_autocast_dtype(q.device.type)
+    return torch.promote_types(torch.promote_types(q.dtype, k.dtype), v.dtype)
+
+
+def plain_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    mask: Optional[torch.Tensor] = None,
+                    bias: Optional[torch.Tensor] = None,
+                    scale: Optional[float] = None) -> torch.Tensor:
+    """:func:`dot_product_attention_reference` with q, k and v in one type
+    (:func:`_one_dtype`) and autocast off inside, so that the logits and the
+    softmax are in ``promote_types(type, float32)`` and the mask's fill fits
+    them; the result is in that one type."""
+    ct = _one_dtype(q, k, v)
+    with torch.autocast(q.device.type, enabled=False):
+        return dot_product_attention_reference(q.to(ct), k.to(ct), v.to(ct), mask, bias, scale)
+
+
+def kernel_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     mask: Optional[torch.Tensor] = None,
+                     bias: Optional[torch.Tensor] = None,
+                     scale: Optional[float] = None) -> torch.Tensor:
+    """:func:`dot_product_attention_reference`'s function through
+    :func:`~iseg_tpu_torch.ops.kernels.window_attention.window_attention`
+    (the kernels on the card, their plain version on the CPU), laid out as
+    one window per batch row: q, k, v ``[B, T, H, D]`` (k, v ``[B, S, H,
+    D]``) become ``[B, H, T, D]`` views, in one type (under autocast the
+    autocast type, as SDPA computes; else their promoted type). A float
+    ``bias`` that records a gradient and does not vary with B (MOAT's ``[1,
+    H, S, S]``) is the kernel's ``[H, N, N]`` bias, and takes its gradient;
+    any other additive term (a bias that needs none, a boolean ``mask`` as
+    the same -0.7 of the type's max that the reference fills) is the
+    kernel's ``[nW, N, N]`` mask, nW = B where it varies with the batch row.
+    A term that varies by head folds the heads into the window axis (bnw = B
+    H, one head); a gradient-taking bias that varies with B folds them into
+    the head axis instead (bnw = 1, B H heads, every term in the bias). T
+    != S pads the shorter side to N = max(T, S) with zeros, the padded keys
+    masked with -inf and the padded query rows dropped. A row that the mask
+    masks whole attends uniformly, as the reference's: its query, its bias
+    row and its additive terms enter as zeros, so that its logits are 0 and
+    nothing takes a gradient there (the reference replaces those logits; an
+    additive mask alone would pass a gradient through them, and a row of
+    fills alone would overflow the kernels' log2 scaling to -inf, and their
+    softmax to NaN)."""
+    b, t, h, d = q.shape
+    s = k.shape[1]
+    ct = _one_dtype(q, k, v)
+    lt = _compute_dtype(ct)  # the logits' type: the bias's and the mask's
+    scale = 1.0 / math.sqrt(d) if scale is None else float(scale)
+    n = max(t, s)
+    grad_bias, extra = None, None  # [b or 1, h or 1, T, S] each
+    if bias is not None:
+        bias4 = _as_4d(bias).to(lt)
+        if _records_grad(bias):
+            grad_bias = bias4
+        else:
+            extra = bias4
+    if mask is not None:
+        m4 = _as_4d(mask)
+        fill = torch.zeros(m4.shape, dtype=lt, device=q.device).masked_fill(
+            ~m4, -0.7 * torch.finfo(lt).max)
+        whole = ~m4.any(-1, keepdim=True)  # [b or 1, h or 1, T, 1]: rows masked whole
+        extra = torch.where(whole, 0, fill if extra is None else extra + fill)
+        q = q.masked_fill(whole.permute(0, 2, 1, 3), 0)
+        if grad_bias is not None:
+            grad_bias = torch.where(whole, 0, grad_bias)
+    if s < n and extra is None:
+        extra = torch.zeros((1, 1, t, s), dtype=lt, device=q.device)
+    terms = []
+    for term, pad in ((grad_bias, 0.0), (extra, -math.inf)):
+        if term is not None:
+            term = term.expand(*term.shape[:2], t, s)
+            if s < n or t < n:  # padded keys masked, padded query rows zero
+                term = F.pad(term, (0, n - s, 0, n - t), value=pad if s < n else 0.0)
+        terms.append(term)
+    grad_bias, extra = terms
+
+    def heads_first(x, length):
+        x = x.to(ct).permute(0, 2, 1, 3)
+        if x.stride(-1) != 1:
+            x = x.contiguous()
+        return F.pad(x, (0, 0, 0, n - length)) if length < n else x
+
+    qh, kh, vh = heads_first(q, t), heads_first(k, s), heads_first(v, s)
+    varies_b = [x is not None and x.shape[0] > 1 for x in (grad_bias, extra)]
+    varies_h = [x is not None and x.shape[1] > 1 for x in (grad_bias, extra)]
+    if grad_bias is not None and (varies_b[0] or (varies_b[1] and varies_h[1])):
+        # B H heads of one window: every term in the bias, which takes the gradient
+        full = grad_bias if extra is None else grad_bias + extra
+        kb = full.expand(b, h, n, n).reshape(b * h, n, n).contiguous()
+        qh, kh, vh = (x.reshape(1, b * h, n, d) for x in (qh, kh, vh))
+        out = window_attention(qh, kh, vh, kb, None, scale)
+    elif grad_bias is None and varies_h[1]:
+        # B H windows of one head: the terms as the mask, one a window
+        km = extra.expand(b, h, n, n).reshape(b * h, n, n).contiguous()
+        qh, kh, vh = (x.reshape(b * h, 1, n, d) for x in (qh, kh, vh))
+        out = window_attention(qh, kh, vh, None, km, scale)
+    else:
+        kb = km = None
+        if grad_bias is not None:
+            full = grad_bias if extra is None or not varies_h[1] else grad_bias + extra
+            kb = full[0].expand(h, n, n).contiguous()
+            if varies_h[1]:
+                extra = None  # in the bias
+        if extra is not None:
+            km = extra[:, 0].contiguous()
+        out = window_attention(qh, kh, vh, kb, km, scale)
+    return out.reshape(b, h, n, d)[:, :, :t].permute(0, 2, 1, 3)
+
+
+def attention_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    bias: Optional[torch.Tensor] = None) -> str:
+    """The route of :func:`dot_product_attention`. On the card, a call that
+    records a gradient (of q, k, v or ``bias``) takes ``"kernel"``
+    (:func:`kernel_attention`) where the streaming kernels are built for its
+    type and head dim (float32 or bfloat16, ``D <= 128``), else ``"fixed"``
+    (:func:`plain_attention`); one that records none ``"sdpa"``
+    (:func:`sdpa_attention`). On the CPU ``"plain"``
+    (:func:`dot_product_attention_reference`)."""
+    if not q.is_cuda:
+        return "plain"
+    if not _records_grad(q, k, v, bias):
+        return "sdpa"
+    n = max(q.shape[1], k.shape[1])
+    built = forward_route(_one_dtype(q, k, v), n, q.shape[-1], False) == "stream"
+    return "kernel" if built else "fixed"
+
+
+_ROUTES = {"kernel": kernel_attention, "fixed": plain_attention, "sdpa": sdpa_attention,
+           "plain": dot_product_attention_reference}
+
+
 def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           mask: Optional[torch.Tensor] = None,
                           guard_numerics: bool = False,
                           bias: Optional[torch.Tensor] = None,
                           scale: Optional[float] = None) -> torch.Tensor:
-    """``[B, N, H, D]`` q, k, v -> ``[B, N, H, D]``: :func:`sdpa_attention`
-    on the card, :func:`dot_product_attention_reference` on the CPU;
+    """``[B, N, H, D]`` q, k, v -> ``[B, N, H, D]`` by :func:`attention_route`:
+    on the card where a gradient is recorded the window-attention kernels
+    (or, at a shape they are not built for, :func:`plain_attention`), both
+    with a fixed-order backward; :func:`sdpa_attention` on the card
+    otherwise; :func:`dot_product_attention_reference` on the CPU;
     ``guard_numerics`` replaces non-finite outputs."""
-    attend = sdpa_attention if q.is_cuda else dot_product_attention_reference
+    attend = _ROUTES[attention_route(q, k, v, bias)]
     out = attend(q, k, v, mask, bias=bias, scale=scale)
     return replace_non_finite(out) if guard_numerics else out
 

@@ -4,7 +4,9 @@ Each source is compiled on first use into a shared library with a plain C
 interface, for ``sm_90a`` (Hopper), under ``iseg_tpu_torch/_build/`` (listed
 in ``.gitignore``). The library's file name carries a hash of the source and
 the flags, so an edited source builds anew and an unchanged one loads from
-the directory. Nothing here runs at import time.
+the directory. A source is built by one thread at a time: a :func:`load` of a
+source whose build is under way waits for it. Nothing here runs at import
+time.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ import os
 import pathlib
 import shutil
 import subprocess
+import threading
 import time
 
 PACKAGE_DIR = pathlib.Path(__file__).resolve().parents[2]
@@ -42,6 +45,8 @@ class Built:
 
 
 _LOADED: dict[str, Built] = {}
+_LOCKS: dict[str, threading.Lock] = {}
+_LOCKS_LOCK = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -59,8 +64,15 @@ def _nvcc() -> str:
 
 def load(source: str) -> Built:
     """Compile ``csrc/<source>`` if needed and return the loaded library."""
-    if source in _LOADED:
+    with _LOCKS_LOCK:
+        lock = _LOCKS.setdefault(source, threading.Lock())
+    with lock:
+        if source not in _LOADED:
+            _LOADED[source] = _compile_and_load(source)
         return _LOADED[source]
+
+
+def _compile_and_load(source: str) -> Built:
     src = CSRC_DIR / source
     digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
     out = BUILD_DIR / f"{src.stem}_{digest.hexdigest()[:16]}.so"
@@ -77,9 +89,7 @@ def load(source: str) -> Built:
             raise RuntimeError(f"nvcc failed ({proc.returncode}) for {src}:\n{log}")
         os.replace(tmp, out)
         compiled = True
-    built = Built(ctypes.CDLL(str(out)), out, compiled, seconds, log)
-    _LOADED[source] = built
-    return built
+    return Built(ctypes.CDLL(str(out)), out, compiled, seconds, log)
 
 
 def load_all(sources: list[str]) -> list[Built]:
@@ -87,3 +97,14 @@ def load_all(sources: list[str]) -> list[Built]:
     together (a build's time is then the slowest source's, not the sum)."""
     with concurrent.futures.ThreadPoolExecutor(max_workers=max(1, len(sources))) as pool:
         return list(pool.map(load, sources))
+
+
+def load_later(sources: list[str]) -> concurrent.futures.Future:
+    """Start :func:`load_all` of ``sources`` on a thread of its own and
+    return its future (the caller goes on meanwhile; nvcc runs outside the
+    interpreter's lock)."""
+    pool = concurrent.futures.ThreadPoolExecutor(max_workers=1)
+    try:
+        return pool.submit(load_all, sources)
+    finally:
+        pool.shutdown(wait=False)

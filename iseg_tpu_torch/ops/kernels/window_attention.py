@@ -53,6 +53,18 @@ raises. Every output, dbias included, is bitwise repeatable: dbias is
 summed from fp32 ds over chunks of windows in a fixed order, with no
 atomics.
 
+Global attention (``nn/attention.py``'s route for a call that records a
+gradient on the card) is the same function with one window per batch row,
+and may lack the bias, the mask or both (``bias=None``, ``mask=None``). A
+call without a mask takes the streaming kernels at every ``N`` and ``D <=
+128``, built without the mask and, where the call has none, without the
+bias, so no ``[H, N, N]`` zero bias or ``[1, N, N]`` zero mask is read and
+no dbias is formed without a bias (``dbias`` is None then). A call with a
+mask alone takes the kernels of a call with both, a zero ``[H, N, N]`` bias
+standing in, whose gradient is dropped: the streaming kernels are not built
+for that form, which no path sends (:func:`_stand_in`). Either way the
+backward adds in the same fixed order as the windowed one's.
+
 Where no gradient is recorded (serving, ``torch.export``) the forward is
 the operator ``iseg::window_attention_fwd`` (:func:`window_attention_fwd`);
 with a gradient, the autograd Function of the two kernels.
@@ -61,18 +73,21 @@ with a gradient, the autograd Function of the two kernels.
 CUDA-core kernels, ``"fwd_mma"`` and ``"bwd_mma"`` for the bf16
 tensor-core ones, ``"fwd_tf32x3"`` and ``"bwd_tf32x3"`` for the fp32
 tensor-core ones, ``"fwd_stream"`` and ``"bwd_stream"`` for the streaming
-ones): one per launch of each kernel, nowhere else.
+ones with a bias and a mask, ``"fwd_global"`` and ``"bwd_global"`` for the
+streaming ones built without a mask, with a bias or without): one per launch
+of each kernel, nowhere else.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Optional
 
 import torch
 
-LAUNCH_COUNTS = {"fwd": 0, "fwd_mma": 0, "fwd_tf32x3": 0, "fwd_stream": 0, "bwd": 0,
-                 "bwd_mma": 0, "bwd_tf32x3": 0, "bwd_stream": 0}
+LAUNCH_COUNTS = {"fwd": 0, "fwd_mma": 0, "fwd_tf32x3": 0, "fwd_stream": 0, "fwd_global": 0,
+                 "bwd": 0, "bwd_mma": 0, "bwd_tf32x3": 0, "bwd_stream": 0, "bwd_global": 0}
 
 SOURCE = "window_attention.cu"
 _TENSOR_CORE_ROUTES = ("mma", "tf32x3")
@@ -94,7 +109,7 @@ def _fwd_mma_fits(n: int, d: int) -> bool:
     return 2 * (6 * n + 1) * (d + 8) + 4 * n * n <= MAX_DYNAMIC_SMEM
 
 
-def forward_route(dtype: torch.dtype, n: int, d: int) -> str:
+def forward_route(dtype: torch.dtype, n: int, d: int, with_mask: bool = True) -> str:
     """The forward kernel for q, k, v of ``dtype`` and shape ``[.., N, D]``:
     ``"mma"`` (tensor cores) for bfloat16 with ``D % 16 == 0``, ``16 <= D <=
     128``, ``N <= 144`` and tiles that fit a block (:func:`_fwd_mma_fits`);
@@ -106,9 +121,14 @@ def forward_route(dtype: torch.dtype, n: int, d: int) -> str:
     fp32 q, k, v tiles and the head's bias (235,008 + 82,944 bytes at ``N =
     144``, ``D = 64``) would not fit a block's 232,448, so each warp holds its
     q rows in registers, read from device memory, and the block keeps k and
-    v (two sets up to ``D = 96``, one above)."""
+    v (two sets up to ``D = 96``, one above). A call without a mask
+    (``with_mask=False``: global attention, with a bias or without) takes
+    ``"stream"`` at every ``N``, else nothing (``"cuda_core"``, which needs
+    both operands, raises)."""
     if not 0 < d <= STREAM_MAX_D or dtype not in _DTYPE_CODES:
         return "cuda_core"
+    if not with_mask:
+        return "stream"
     if 1 <= n <= MMA_MAX_N:
         if dtype == torch.bfloat16 and d % 16 == 0 and _fwd_mma_fits(n, d):
             return "mma"
@@ -117,7 +137,7 @@ def forward_route(dtype: torch.dtype, n: int, d: int) -> str:
     return "stream"
 
 
-def backward_route(dtype: torch.dtype, n: int, d: int) -> str:
+def backward_route(dtype: torch.dtype, n: int, d: int, with_mask: bool = True) -> str:
     """The backward kernel for q, k, v of ``dtype`` and shape ``[.., N, D]``:
     where the window's tiles fit a block's shared memory (227 KB on the
     H100), ``"mma"`` (tensor cores) for bfloat16 with ``D % 16 == 0`` and
@@ -133,9 +153,12 @@ def backward_route(dtype: torch.dtype, n: int, d: int) -> str:
     (82,944 bytes) fit a block up to ``D = 56``. ``D = 80`` is the widest
     float32 head dim whose tiles fit at ``N = 64``. The streaming backward
     runs the same rows-then-keys order with the window brought through
-    shared memory a tile at a time."""
+    shared memory a tile at a time. ``with_mask`` as in
+    :func:`forward_route`."""
     if not 0 < d <= STREAM_MAX_D or dtype not in _DTYPE_CODES:
         return "cuda_core"
+    if not with_mask:
+        return "stream"
     if 1 <= n <= MMA_MAX_N:
         if dtype == torch.bfloat16 and d >= 16 and d % 16 == 0 and d <= (128 if n <= 64 else 32):
             return "mma"
@@ -178,7 +201,7 @@ def build():
                 launch.restype = i32
         for which, pointers in (("fwd", 7), ("bwd", 13)):
             chunks = getattr(lib, f"window_attention_{which}_stream_chunks")
-            chunks.argtypes = [i32] * 5
+            chunks.argtypes = [i32] * 7
             chunks.restype = i32
             launch = getattr(lib, f"window_attention_{which}_stream")
             launch.argtypes = [ptr] * pointers + [i32] * 7 + [f32, strides, i32, ptr]
@@ -207,21 +230,38 @@ def _check_cuda_inputs(q, k, v, bias, mask, dout=None) -> None:
         if d > 1 and t.stride(3) != 1:
             raise ValueError(f"window_attention kernel: {name}'s head dim must have "
                              f"stride 1, got strides {t.stride()}")
+    if mask is None and forward_route(q.dtype, n, d, False) != "stream":
+        raise ValueError(f"window_attention kernel: without a mask only the streaming kernels "
+                         f"run (float32 or bfloat16, D <= {STREAM_MAX_D}); got {q.dtype}, "
+                         f"D = {d}")
     for name, t in (("bias", bias), ("mask", mask)):
+        if t is None:
+            continue
         if t.device != q.device:
             raise ValueError(f"window_attention kernel: {name} on {t.device}, q on {q.device}")
         if t.dtype != torch.float32:
             raise TypeError(f"window_attention kernel takes float32 {name}, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"window_attention kernel takes a contiguous {name}")
-    if tuple(bias.shape) != (h, n, n):
+    if bias is not None and tuple(bias.shape) != (h, n, n):
         raise ValueError(f"window_attention kernel: bias {tuple(bias.shape)} must be "
                          f"[H,N,N] = {(h, n, n)}")
-    if mask.ndim != 3 or mask.shape[0] < 1 or tuple(mask.shape[1:]) != (n, n):
+    if mask is not None and (mask.ndim != 3 or mask.shape[0] < 1
+                             or tuple(mask.shape[1:]) != (n, n)):
         raise ValueError(f"window_attention kernel: mask {tuple(mask.shape)} must be "
                          f"[nW,N,N] with nW >= 1 and N = {n}")
     if bnw * h >= 2 ** 31 or max(t.numel() for t in named.values()) >= 2 ** 62:
         raise ValueError("window_attention kernel: too many (window, head) pairs")
+
+
+def _stand_in(q: torch.Tensor, bias, mask):
+    """(bias, mask) with a zero ``[H, N, N]`` bias (fp32, on q's device)
+    standing in where a mask comes alone: the streaming kernels are built
+    with both operands, with the bias alone and with neither."""
+    if bias is not None or mask is None:
+        return bias, mask
+    n = q.shape[2]
+    return torch.zeros((q.shape[1], n, n), dtype=torch.float32, device=q.device), mask
 
 
 def _token_major_empty(q: torch.Tensor) -> torch.Tensor:
@@ -249,7 +289,8 @@ def keeps_lse(dtype: torch.dtype, n: int, d: int) -> bool:
     backward. The forwards of those shapes write lse when asked: the
     split-TF32 and streaming ones at every N, the bf16 tensor-core one above
     ``N = 64`` (below it every bf16 backward is the tensor-core one, which
-    reads none)."""
+    reads none). A call without a mask always streams: its backward reads
+    them too."""
     route = backward_route(dtype, n, d)
     return route == "stream" or (route == "tf32x3" and n > TF32X3_BWD_SMALL_N)
 
@@ -257,6 +298,7 @@ def keeps_lse(dtype: torch.dtype, n: int, d: int) -> bool:
 def _launch_fwd(q, k, v, bias, mask, scale: float, with_lse: bool = False):
     """(out, lse): lse ``[bnw, H, N]`` fp32 (the rows' log2-sum-exp2 of the
     logits, in log2 units) where ``with_lse``, else None."""
+    bias, mask = _stand_in(q, bias, mask)
     _check_cuda_inputs(q, k, v, bias, mask)
     out = _token_major_empty(q)
     bnw, h, n, d = q.shape
@@ -265,21 +307,23 @@ def _launch_fwd(q, k, v, bias, mask, scale: float, with_lse: bool = False):
         return out, lse
     lib = build().lib
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    route = forward_route(q.dtype, n, d)
+    windowed = mask is not None  # and a bias, or one standing in
+    route = forward_route(q.dtype, n, d) if windowed else "stream"  # else checked above
     if with_lse and (route == "cuda_core" or (route == "mma" and n <= TF32X3_BWD_SMALL_N)):
         raise ValueError(f"window_attention forward: the {route!r} forward writes no lse at N = {n}")
     lse_ptr = lse.data_ptr() if with_lse else None
     if route == "stream":
         what = "forward (streaming)"
-        chunks = _stream_chunks("fwd", q.device.index, q.dtype, bnw, h, n, d)
+        chunks = _stream_chunks("fwd", q.device.index, q.dtype, bnw, h, n, d, bias is not None,
+                                mask is not None)
         if chunks < 1:
             _raise_on(_DOES_NOT_FIT, what, q)
         err = lib.window_attention_fwd_stream(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), mask.data_ptr(),
-            out.data_ptr(), lse_ptr, _DTYPE_CODES[q.dtype], bnw, h, n, d, mask.shape[0], chunks,
-            float(scale), _strides(q, k, v, out), int(_vec16(q, k, v)), stream)
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias), _ptr(mask), out.data_ptr(),
+            lse_ptr, _DTYPE_CODES[q.dtype], bnw, h, n, d, 1 if mask is None else mask.shape[0],
+            chunks, float(scale), _strides(q, k, v, out), int(_vec16(q, k, v)), stream)
         _raise_on(err, what, q)
-        LAUNCH_COUNTS["fwd_stream"] += 1
+        LAUNCH_COUNTS["fwd_stream" if windowed else "fwd_global"] += 1
         return out, lse
     if route in _TENSOR_CORE_ROUTES:
         what = f"forward (tensor cores, {route})"
@@ -301,6 +345,11 @@ def _launch_fwd(q, k, v, bias, mask, scale: float, with_lse: bool = False):
     _raise_on(err, "forward", q)
     LAUNCH_COUNTS["fwd"] += 1
     return out, lse
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    """``t``'s address, or None (a null pointer) for an absent operand."""
+    return None if t is None else t.data_ptr()
 
 
 def _vec16(*tensors: torch.Tensor) -> bool:
@@ -333,43 +382,50 @@ def _tensor_core_chunks(which: str, device_index: int, bnw: int, h: int, n: int,
 
 @functools.lru_cache(maxsize=256)
 def _stream_chunks(which: str, device_index: int, dtype: torch.dtype, bnw: int, h: int, n: int,
-                   d: int) -> int:
+                   d: int, has_bias: bool, has_mask: bool) -> int:
     """Chunks of windows of a streaming kernel (``which``: ``"fwd"`` or
-    ``"bwd"``), as :func:`_tensor_core_chunks`."""
+    ``"bwd"``; built with or without a bias and a mask), as
+    :func:`_tensor_core_chunks`."""
     return getattr(build().lib, f"window_attention_{which}_stream_chunks")(
-        bnw, h, n, d, _DTYPE_CODES[dtype])
+        bnw, h, n, d, _DTYPE_CODES[dtype], int(has_bias), int(has_mask))
 
 
 def _launch_bwd(q, k, v, bias, mask, dout, scale: float, out=None, lse=None):
     """(dq, dk, dv, dbias) of ``sum(out * dout)``; ``out`` and ``lse`` are
-    the forward's (:func:`keeps_lse` shapes need them)."""
+    the forward's (:func:`keeps_lse` shapes need them); dbias None without
+    a bias."""
+    given_bias = bias is not None
+    bias, mask = _stand_in(q, bias, mask)
     _check_cuda_inputs(q, k, v, bias, mask, dout)
     dq, dk, dv = (_token_major_empty(q) for _ in range(3))
     if q.numel() == 0:
-        return dq, dk, dv, torch.zeros_like(bias)
+        return dq, dk, dv, torch.zeros_like(bias) if given_bias else None
     bnw, h, n, d = q.shape
-    dbias = torch.empty_like(bias)
+    dbias = None if bias is None else torch.empty_like(bias)
     lib = build().lib
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    route = backward_route(q.dtype, n, d)
-    if keeps_lse(q.dtype, n, d) and (out is None or lse is None):
+    windowed = mask is not None  # and a bias, or one standing in
+    route = backward_route(q.dtype, n, d) if windowed else "stream"  # else checked above
+    if (not windowed or keeps_lse(q.dtype, n, d)) and (out is None or lse is None):
         raise ValueError(f"window_attention backward: the {route!r} backward at N = {n}, "
                          f"D = {d} needs the forward's output and lse")
     if route == "stream":
         what = "backward (streaming)"
-        chunks = _stream_chunks("bwd", q.device.index, q.dtype, bnw, h, n, d)
+        chunks = _stream_chunks("bwd", q.device.index, q.dtype, bnw, h, n, d, bias is not None,
+                                mask is not None)
         if chunks < 1:
             _raise_on(_DOES_NOT_FIT, what, q)
-        partial = torch.empty((chunks, h, n, n), dtype=torch.float32, device=q.device)
+        partial = None if bias is None else torch.empty((chunks, h, n, n), dtype=torch.float32,
+                                                        device=q.device)
         err = lib.window_attention_bwd_stream(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), bias.data_ptr(),
-            mask.data_ptr(), out.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), partial.data_ptr(), dbias.data_ptr(), _DTYPE_CODES[q.dtype], bnw, h,
-            n, d, mask.shape[0], chunks, float(scale), _strides(q, k, v, dout, dq, dk, dv, out),
-            int(_vec16(q, k, v, dout)), stream)
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), _ptr(bias), _ptr(mask),
+            out.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            _ptr(partial), _ptr(dbias), _DTYPE_CODES[q.dtype], bnw, h, n, d,
+            1 if mask is None else mask.shape[0], chunks, float(scale),
+            _strides(q, k, v, dout, dq, dk, dv, out), int(_vec16(q, k, v, dout)), stream)
         _raise_on(err, what, q)
-        LAUNCH_COUNTS["bwd_stream"] += 1
-        return dq, dk, dv, dbias
+        LAUNCH_COUNTS["bwd_stream" if windowed else "bwd_global"] += 1
+        return dq, dk, dv, dbias if given_bias else None
     if route in _TENSOR_CORE_ROUTES:
         what = f"backward (tensor cores, {route})"
         q, k, v, dout = (_aligned16(t) for t in (q, k, v, dout))
@@ -390,7 +446,7 @@ def _launch_bwd(q, k, v, bias, mask, dout, scale: float, out=None, lse=None):
             _strides(*views), stream)
         _raise_on(err, what, q)
         LAUNCH_COUNTS[f"bwd_{route}"] += 1
-        return dq, dk, dv, dbias
+        return dq, dk, dv, dbias if given_bias else None
     chunks = lib.window_attention_bwd_chunks(bnw, h)
     partial = torch.empty((chunks, h, n, n), dtype=torch.float32, device=q.device)
     err = lib.window_attention_bwd(
@@ -400,7 +456,7 @@ def _launch_bwd(q, k, v, bias, mask, dout, scale: float, out=None, lse=None):
         _strides(q, k, v, dout, dq, dk, dv), stream)
     _raise_on(err, "backward", q)
     LAUNCH_COUNTS["bwd"] += 1
-    return dq, dk, dv, dbias
+    return dq, dk, dv, dbias if given_bias else None
 
 
 class _WindowAttention(torch.autograd.Function):
@@ -409,7 +465,8 @@ class _WindowAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, bias, mask, scale):
         # the window-12 split-TF32 and the streaming backward read the output and lse
-        with_lse = any(ctx.needs_input_grad[:4]) and keeps_lse(q.dtype, *q.shape[2:])
+        with_lse = any(ctx.needs_input_grad[:4]) and (
+            mask is None or keeps_lse(q.dtype, *q.shape[2:]))
         out, lse = _launch_fwd(q, k, v, bias, mask, scale, with_lse)
         ctx.save_for_backward(q, k, v, bias, mask, *((out, lse) if with_lse else ()))
         ctx.scale = scale
@@ -427,18 +484,22 @@ class _WindowAttention(torch.autograd.Function):
 def window_attention_reference(q, k, v, bias, mask, scale):
     """Plain PyTorch version (same ``[bnw, H, N, D]`` layout): einsum,
     softmax, einsum, fp32 inside (float64 for float64 inputs), result in
-    q's dtype."""
+    q's dtype; ``bias`` and ``mask`` may each be None (no such term)."""
     f = torch.promote_types(q.dtype, torch.float32)
     logits = torch.einsum("bhqd,bhkd->bhqk", q.to(f), k.to(f)) * scale
-    mask_b = mask[torch.arange(q.shape[0], device=mask.device) % mask.shape[0]]
-    logits = logits + bias[None].to(f) + mask_b[:, None].to(f)
+    if bias is not None:
+        logits = logits + bias[None].to(f)
+    if mask is not None:
+        mask_b = mask[torch.arange(q.shape[0], device=mask.device) % mask.shape[0]]
+        logits = logits + mask_b[:, None].to(f)
     p = torch.softmax(logits, dim=-1)
     return torch.einsum("bhqk,bhkd->bhqd", p, v.to(f)).to(q.dtype)
 
 
 @torch.library.custom_op("iseg::window_attention_fwd", mutates_args=())
-def window_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: torch.Tensor,
-                         mask: torch.Tensor, scale: float) -> torch.Tensor:
+def window_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         bias: Optional[torch.Tensor], mask: Optional[torch.Tensor],
+                         scale: float) -> torch.Tensor:
     """The inference forward as one operator, ``iseg::window_attention_fwd``:
     the kernel on CUDA tensors (its checks, which read the tensors'
     addresses, run here), the plain version on CPU tensors; the output is
@@ -455,8 +516,8 @@ def _window_attention_fwd_fake(q, k, v, bias, mask, scale):
     return _token_major_empty(q)
 
 
-def _records_grad(*tensors: torch.Tensor) -> bool:
-    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+def _records_grad(*tensors: Optional[torch.Tensor]) -> bool:
+    return torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors)
 
 
 def window_attention(q, k, v, bias, mask, scale):
@@ -465,9 +526,11 @@ def window_attention(q, k, v, bias, mask, scale):
     Args:
       q, k, v: ``[bnw, H, N, D]`` (window batch, heads, tokens, head dim),
         float32 or bfloat16.
-      bias: ``[H, N, N]`` float32 relative-position bias (gets a gradient).
+      bias: ``[H, N, N]`` float32 relative-position bias (gets a gradient),
+        or None.
       mask: ``[nW, N, N]`` float32 additive shift mask, selected per window
-        as ``window_index % nW`` (zeros ``[1, N, N]`` when unshifted).
+        as ``window_index % nW`` (zeros ``[1, N, N]`` when unshifted), or
+        None. A call without either takes the streaming kernels.
       scale: attention scale (1/sqrt(D)), a Python float.
     Returns ``[bnw, H, N, D]`` in q's dtype.
     """

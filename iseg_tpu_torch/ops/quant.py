@@ -23,8 +23,10 @@ The int8 x int8 -> int32 product of :func:`dynamic_int8_dot` is
 an XLA ``dot_general`` with ``preferred_element_type=int32``, not a Pallas
 kernel, so like the other plain products of the JAX package it is a
 library call here. On CUDA ``torch._int_mm`` needs more than 16 rows and
-``K``, ``N`` multiples of 8: fewer rows are padded with zero rows (their
-outputs are dropped), and other ``K``, ``N`` raise.
+``K``, ``N`` multiples of 8: :func:`padded_int_mm` pads fewer rows with
+zero rows and ``K``, ``N`` with zeros up to multiples of 8, and the padded
+outputs are dropped; zeros add nothing to the exact int32 sums, so any ``K``
+and ``N`` give the JAX function's values bit for bit.
 
 The layers allocate their weights on ``device`` when they are built (a
 model of billions of parameters is built on the card): ``"cuda"`` by
@@ -44,6 +46,15 @@ from torch import nn
 from iseg_tpu_torch.core.env import resolve_device
 
 INT_MM_MIN_ROWS = 17  # torch._int_mm on CUDA: "self.size(0) needs to be greater than 16"
+INT_MM_MULTIPLE = 8  # torch._int_mm on CUDA: K and N multiples of 8
+
+
+def _over_127(x: torch.Tensor) -> torch.Tensor:
+    """``x / 127`` by a true division on every device: PyTorch's CUDA
+    kernel multiplies by the reciprocal of a Python-scalar divisor, which
+    can land an ulp away from the CPU's quotient and the JAX package's, and
+    move a rounded int8 value; a tensor divisor divides."""
+    return x / x.new_full((), 127.0)
 
 
 class QTensor(NamedTuple):
@@ -75,7 +86,7 @@ def quantize_tree(params, min_size: int = 4096, dtype: torch.dtype = torch.bfloa
             absmax = wf.abs().amax(dim=tuple(range(w.ndim - 1)))
             # the scale is rounded to its storage type FIRST, so quantizing and
             # dequantizing share it (the error stays within half a step)
-            scale = (absmax.clamp_min(1e-8) / 127.0).to(dtype)
+            scale = _over_127(absmax.clamp_min(1e-8)).to(dtype)
             q = torch.clamp(torch.round(wf / scale.float()), -127, 127)
             return QTensor(q.to(torch.int8), scale)
         return w.to(dtype) if w.is_floating_point() else w
@@ -113,20 +124,36 @@ def is_quantized(params) -> bool:
 # W8A8: int8 weights and per-row dynamically quantized activations
 # ---------------------------------------------------------------------------
 
+def padded_int_mm(x_q: torch.Tensor, w_q: torch.Tensor) -> torch.Tensor:
+    """``torch._int_mm`` of ``x_q [M, K]`` and ``w_q [K, N]`` padded with
+    zeros to what it takes on CUDA: at least 17 rows, ``K`` (``x_q``'s
+    columns and ``w_q``'s rows) and ``N`` (``w_q``'s columns) multiples of 8;
+    the padded outputs are dropped. The padded terms are zeros in exact int32
+    sums, so the ``[M, N]`` result is the unpadded product's. A column-major
+    ``w_q`` (the layers pass their ``[N, K]`` weight transposed) stays
+    column-major. Runs on any device."""
+    m, k = x_q.shape
+    n = w_q.shape[1]
+    kp = -(-k // INT_MM_MULTIPLE) * INT_MM_MULTIPLE
+    np_ = -(-n // INT_MM_MULTIPLE) * INT_MM_MULTIPLE
+    if kp != k or m < INT_MM_MIN_ROWS:
+        x_q = F.pad(x_q, (0, kp - k, 0, max(0, INT_MM_MIN_ROWS - m)))
+    if kp != k or np_ != n:
+        if w_q.stride(0) == 1 and w_q.stride(1) != 1:
+            w_q = F.pad(w_q.t(), (0, kp - k, 0, np_ - n)).t()
+        else:
+            w_q = F.pad(w_q, (0, np_ - n, 0, kp - k))
+    return torch._int_mm(x_q, w_q)[:m, :n]
+
+
 def int8_matmul(x_q: torch.Tensor, w_q: torch.Tensor) -> torch.Tensor:
-    """``[M, K] int8 @ [K, N] int8 -> [M, N] int32`` by ``torch._int_mm``.
-    On CUDA fewer than 17 rows are padded with zero rows (a decode step at
-    batch 8 has 8), whose outputs are dropped; the sums are exact integers
+    """``[M, K] int8 @ [K, N] int8 -> [M, N] int32`` by ``torch._int_mm``,
+    through :func:`padded_int_mm` on CUDA (a decode step at batch 8 has 8
+    rows, EVA02-L's SwiGLU width is 2730); the sums are exact integers
     either way."""
-    m = x_q.shape[0]
     if x_q.device.type == "cuda":
-        k, n = w_q.shape
-        if k % 8 or n % 8:
-            raise ValueError(f"int8 product on CUDA: K = {k} and N = {n} must be multiples "
-                             "of 8 (torch._int_mm)")
-        if m < INT_MM_MIN_ROWS:
-            x_q = torch.cat([x_q, x_q.new_zeros((INT_MM_MIN_ROWS - m, x_q.shape[1]))])
-    return torch._int_mm(x_q, w_q)[:m]
+        return padded_int_mm(x_q, w_q)
+    return torch._int_mm(x_q, w_q)
 
 
 def dynamic_int8_dot(x2: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor) -> torch.Tensor:
@@ -137,7 +164,7 @@ def dynamic_int8_dot(x2: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor)
     the product is int8 x int8 -> int32, so the epilogue ``acc * sx *
     w_scale`` (in that order) gives the JAX function's values bit for bit."""
     xf = x2.float()
-    sx = xf.abs().amax(dim=-1, keepdim=True).clamp_min(1e-8) / 127.0
+    sx = _over_127(xf.abs().amax(dim=-1, keepdim=True).clamp_min(1e-8))
     x_q = torch.clamp(torch.round(xf / sx), -127, 127).to(torch.int8)
     acc = int8_matmul(x_q, w_q)
     return acc.float() * sx * w_scale.float()[None, :]
@@ -335,7 +362,7 @@ def quantize_dense_tree(params, dtype: torch.dtype = torch.bfloat16):
 
     def quantized(w, reduce_axes, scale_shape):
         wf = _as_tensor(w).float()
-        scale = wf.abs().amax(dim=reduce_axes).clamp_min(1e-8) / 127.0
+        scale = _over_127(wf.abs().amax(dim=reduce_axes).clamp_min(1e-8))
         q = torch.clamp(torch.round(wf / scale.view(scale_shape)), -127, 127)
         return q.to(torch.int8), scale
 

@@ -1209,3 +1209,187 @@ def test_cuda_window_attention_streaming_takes_misaligned_views(cuda_device, dty
     want = _wa_run(wa.window_attention, q, k, v, bias, mask, dout, 0.2)
     for a, b in zip(got, want):
         np.testing.assert_array_equal(a, b)
+
+
+# ------------------------------------- global attention (no bias, no mask)
+
+# (B, H, T, D, dtype): ViT-L's T (1024 patches and the class token) at its
+# head dim, and an odd T, with few batch rows and heads
+GLOBAL_SHAPES = {
+    "f32_t1025_d64": (2, 4, 1025, 64, torch.float32),
+    "bf16_t1025_d64": (2, 4, 1025, 64, torch.bfloat16),
+    "f32_t37_d64": (3, 2, 37, 64, torch.float32),
+    "bf16_t37_d64": (3, 2, 37, 64, torch.bfloat16),
+}
+
+
+def _global_run(fn, q, k, v, dout, scale, bias=None, mask=None):
+    q, k, v = (t.detach().requires_grad_(True) for t in (q, k, v))
+    leaves = [q, k, v]
+    if bias is not None:
+        bias = bias.detach().clone().requires_grad_(True)
+        leaves.append(bias)
+    out = fn(q, k, v, bias, mask, scale)
+    grads = torch.autograd.grad(out, leaves, dout)
+    torch.cuda.synchronize()
+    return [t.detach().float().cpu().numpy() for t in (out, *grads)]
+
+
+def _global_inputs(device, shape, seed=0):
+    b, h, t, d, dtype = GLOBAL_SHAPES[shape]
+    q, k, v, bias, _, dout = _wa_inputs(device, b, h, t, d, 1, dtype, seed=seed, packed=True)
+    mask = torch.tensor(np.where(np.random.RandomState(seed).rand(b, t, t) > 0.8, -100.0, 0.0)
+                        .astype(np.float32), device=device)
+    return q, k, v, dout, bias, mask, dtype
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["no_bias_no_mask", "bias_only", "mask_only"])
+@pytest.mark.parametrize("shape", sorted(GLOBAL_SHAPES))
+def test_cuda_global_attention_streaming_matches_plain_version(cuda_device, shape, form):
+    """The streaming pair built without a bias and a mask and built with
+    the bias alone, one window per batch row, on views of a packed qkv
+    projection, and a call with a mask alone (the kernels of a call with
+    both, a zero bias standing in): forward and backward against the plain
+    version, WA_TOL."""
+    q, k, v, dout, bias, mask, dtype = _global_inputs(cuda_device, shape)
+    bias = bias if form == "bias_only" else None
+    mask = mask if form == "mask_only" else None
+    scale = 1.0 / np.sqrt(q.shape[-1])
+    wa.reset_launch_counts()
+    got = _global_run(wa.window_attention, q, k, v, dout, scale, bias, mask)
+    n, d = q.shape[2:]
+    assert wa.LAUNCH_COUNTS == (
+        _wa_counts(dtype, n, d) if form == "mask_only" else
+        {**dict.fromkeys(wa.LAUNCH_COUNTS, 0), "fwd_global": 1, "bwd_global": 1})
+    want = _global_run(wa.window_attention_reference, q, k, v, dout, scale, bias, mask)
+    if bias is None:  # no dbias: the tolerance check's fifth output
+        got.append(np.zeros(1))
+        want.append(np.zeros(1))
+    _assert_within_wa_tol(got, want, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ["f32_t1025_d64", "bf16_t1025_d64"])
+def test_cuda_global_attention_streaming_is_bitwise_repeatable(cuda_device, shape):
+    """The bias-free pair's forward and backward equal bit for bit from run
+    to run (the fixed order the train steps' exact resume rests on)."""
+    q, k, v, dout, _, _, _ = _global_inputs(cuda_device, shape, seed=7)
+    first = _global_run(wa.window_attention, q, k, v, dout, 0.125)
+    second = _global_run(wa.window_attention, q, k, v, dout, 0.125)
+    for name, a, b in zip(("out", "dq", "dk", "dv"), first, second):
+        np.testing.assert_array_equal(a, b, err_msg=name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("masked", [False, True])
+def test_cuda_dot_product_attention_with_a_gradient_takes_the_kernels(cuda_device, masked):
+    """``dot_product_attention`` on the card: with a gradient through the
+    bias-free streaming pair, or with a boolean per-batch mask through the
+    pair built with both operands (the mask as its additive mask, a zero
+    bias standing in), within WA_TOL of the plain version; without one,
+    SDPA and no launch."""
+    from iseg_tpu_torch.nn import attention as tattn
+
+    rng = np.random.RandomState(8)
+    q, k, v, w = (torch.tensor(rng.randn(2, 197, 4, 64).astype(np.float32),
+                               device=cuda_device).to(torch.bfloat16) for _ in range(4))
+    mask = torch.tensor(rng.rand(2, 1, 197, 197) < 0.8, device=cuda_device) if masked else None
+    wa.reset_launch_counts()
+    runs = []
+    for fn in (tattn.dot_product_attention, tattn.dot_product_attention_reference):
+        leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        out = fn(*leaves, mask)
+        runs.append([t.float().cpu().numpy()
+                     for t in (out.detach(), *torch.autograd.grad(out, leaves, w))])
+    form = "stream" if masked else "global"
+    assert wa.LAUNCH_COUNTS == {**dict.fromkeys(wa.LAUNCH_COUNTS, 0), f"fwd_{form}": 1,
+                                f"bwd_{form}": 1}
+    _assert_within_wa_tol(runs[0] + [np.zeros(1)], runs[1] + [np.zeros(1)], torch.bfloat16)
+    wa.reset_launch_counts()
+    with torch.no_grad():
+        tattn.dot_product_attention(q, k, v, mask)
+    assert not any(wa.LAUNCH_COUNTS.values())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_cuda_dot_product_attention_whole_masked_row_is_uniform(cuda_device, dtype):
+    """A boolean mask that masks rows whole (per batch row and per head),
+    with a gradient on the card: the kernels' forward and q, k, v gradients
+    are finite and within WA_TOL of the plain version, whose masked-whole
+    rows attend uniformly."""
+    from iseg_tpu_torch.nn import attention as tattn
+
+    rng = np.random.RandomState(12)
+    q, k, v, w = (torch.tensor(rng.randn(2, 197, 4, 64).astype(np.float32),
+                               device=cuda_device).to(dtype) for _ in range(4))
+    for shape in ((2, 1, 197, 197), (2, 4, 197, 197)):
+        mask = rng.rand(*shape) < 0.8
+        mask[0, 0, :5] = False  # rows masked whole
+        mask[1, -1, 100] = False
+        mask = torch.tensor(mask, device=cuda_device)
+        runs = []
+        for fn in (tattn.dot_product_attention, tattn.dot_product_attention_reference):
+            leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+            out = fn(*leaves, mask)
+            runs.append([t.float().cpu().numpy()
+                         for t in (out.detach(), *torch.autograd.grad(out, leaves, w))])
+        for got in runs[0]:
+            assert np.isfinite(got).all()
+        _assert_within_wa_tol(runs[0] + [np.zeros(1)], runs[1] + [np.zeros(1)], dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["d136", "float64"])
+def test_cuda_dot_product_attention_at_shapes_the_kernels_lack(cuda_device, case):
+    """With a gradient on the card, a head dim above 128 and float64 take
+    the plain version in one type (no kernel launch, no error), equal to the
+    reference, and repeat bit for bit."""
+    from iseg_tpu_torch.nn import attention as tattn
+
+    d, dtype = (136, torch.float32) if case == "d136" else (64, torch.float64)
+    rng = np.random.RandomState(13)
+    q, k, v, w = (torch.tensor(rng.randn(2, 77, 4, d), dtype=dtype, device=cuda_device)
+                  for _ in range(4))
+    mask = torch.tensor(rng.rand(2, 1, 77, 77) < 0.8, device=cuda_device)
+    wa.reset_launch_counts()
+    runs = []
+    for fn in (tattn.dot_product_attention, tattn.dot_product_attention,
+               tattn.dot_product_attention_reference):
+        leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        out = fn(*leaves, mask)
+        runs.append([t.cpu() for t in (out.detach(), *torch.autograd.grad(out, leaves, w))])
+    assert not any(wa.LAUNCH_COUNTS.values())
+    for a, b, c in zip(*runs):
+        assert torch.equal(a, b)
+        torch.testing.assert_close(a, c, rtol=0, atol=1e-5 * float(c.abs().max()))
+
+
+# ------------------------------------------------------- W8A8 at any K, N
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,n", [(2730, 1001), (21, 13)])
+def test_cuda_w8a8_at_any_k_and_n_equals_the_cpu_bitwise(cuda_device, k, n):
+    """``int8_matmul`` (zero-padded to torch._int_mm's multiples of 8 on the
+    card) and a W8A8 ``QuantDense`` forward at EVA02-L's SwiGLU width and at
+    odd widths: equal to the CPU's results bit for bit."""
+    from iseg_tpu_torch import convert
+    from iseg_tpu_torch.ops import quant as tq
+
+    rng = np.random.RandomState(k + n)
+    x_q = torch.tensor(rng.randint(-127, 128, (8, k)).astype(np.int8))
+    w_q = torch.tensor(rng.randint(-127, 128, (n, k)).astype(np.int8)).t()
+    got = tq.int8_matmul(x_q.to(cuda_device), w_q.to(cuda_device))
+    assert tuple(got.shape) == (8, n)
+    assert torch.equal(got.cpu(), tq.int8_matmul(x_q, w_q))
+    tree = tq.quantize_dense_tree({"kernel": torch.tensor(rng.randn(k, n).astype(np.float32)),
+                                   "kernel_scale": torch.ones(n)})
+    x = torch.tensor(rng.randn(3, 5, k).astype(np.float32))
+    outs = []
+    for device in ("cpu", cuda_device):
+        dense = tq.QuantDense(k, n, dtype=torch.float32, device=device)
+        convert.load_flax(dense, {"params": tree})
+        assert dense.weight.dtype == torch.int8
+        outs.append(dense(x.to(device)).cpu())
+    assert torch.equal(outs[0], outs[1])

@@ -259,3 +259,60 @@ def test_torch_quant_int8_refusals():
         {"kernel": torch.randn(8, 16), "kernel_scale": torch.ones(16)})})
     with pytest.raises(ValueError, match="W8A8"):
         dense.dense_weight()
+
+
+@pytest.mark.parametrize("k,n", [(21, 13), (2730, 1001), (64, 64)])
+def test_torch_quant_padded_int_mm_bitwise(monkeypatch, k, n):
+    """``padded_int_mm`` (CUDA's padding, run on the CPU): the padded product
+    equals ``x.int() @ w.int()``, with the layers' column-major weight too,
+    and ``dynamic_int8_dot`` through it equals the JAX function bit for bit
+    (EVA02-L's SwiGLU width 2730, a vocabulary of 1001, odd widths)."""
+    rng = np.random.RandomState(k + n)
+    x_q = torch.tensor(rng.randint(-127, 128, (8, k)).astype(np.int8))
+    w_q = torch.tensor(rng.randint(-127, 128, (k, n)).astype(np.int8))
+    want = x_q.int() @ w_q.int()
+    for w in (w_q, w_q.t().contiguous().t()):
+        got = tq.padded_int_mm(x_q, w)
+        assert got.dtype == torch.int32 and tuple(got.shape) == (8, n)
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+    x = (rng.randn(8, k) * 3).astype(np.float32)
+    w_scale = (rng.rand(n) * 0.02 + 1e-3).astype(np.float32)
+    monkeypatch.setattr(tq, "int8_matmul", tq.padded_int_mm)
+    got = tq.dynamic_int8_dot(torch.tensor(x), w_q, torch.tensor(w_scale))
+    jwant = jq.dynamic_int8_dot(jnp.asarray(x), jnp.asarray(w_q.numpy()), jnp.asarray(w_scale))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(jwant))
+
+
+# widths that are no multiples of 8: every W8A8 product's K or N (the readout's
+# N = 509) takes padded_int_mm's padding
+ODD_WIDTHS = dict(vocab_size=509, num_layers=2, num_heads=3, num_kv_heads=1, hidden_dim=44,
+                  intermediate_dim=90, head_dim=12)
+
+
+def test_torch_quant_w8a8_odd_widths_greedy_tokens_equal_jax(monkeypatch):
+    """A W8A8 greedy decode of a narrow custom ``GemmaConfig`` whose widths
+    are no multiples of 8, every int8 product through ``padded_int_mm``: the
+    tokens equal the JAX package's."""
+    from iseg_tpu_torch.nlp.gemma import GemmaConfig
+
+    jlm = JaxLM(jax_config.GemmaConfig(**ODD_WIDTHS), dtype=jnp.float32)
+    variables = jax.jit(lambda: jlm.init(jax.random.PRNGKey(3), batch=1, seq=8))()
+    jtree = jq.quantize_dense_tree(jax.tree_util.tree_map(np.asarray, variables["params"]))
+    lm = GemmaCausalLM(GemmaConfig(**ODD_WIDTHS), dtype=torch.float32, device="cpu")
+    convert.load_flax(lm, {"params": jax.tree_util.tree_map(np.asarray, jtree)})
+    assert lm.backbone.layer_0.ffw_linear.weight.dtype == torch.int8
+    padded = []
+
+    def padded_int_mm(x_q, w_q):
+        padded.append((x_q.shape[1] % 8 != 0) or (w_q.shape[1] % 8 != 0))
+        return tq.padded_int_mm(x_q, w_q)
+
+    monkeypatch.setattr(tq, "int8_matmul", padded_int_mm)
+    rng = np.random.RandomState(6)
+    prompt = rng.randint(4, 509, (3, 6))
+    lengths = np.array([6, 4, 5])
+    want = np.asarray(jlm.generate({"params": jtree}, jnp.asarray(prompt), jnp.asarray(lengths),
+                                   max_length=14))
+    got = lm.eval().generate(torch.tensor(prompt), torch.tensor(lengths), max_length=14)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert padded and all(padded)
