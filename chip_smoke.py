@@ -47,10 +47,12 @@ attention then on the split-TF32 kernels. BASELINE config #5,
 biases) + ASPP(256), 150 classes, batch 4, trains with AdamW and layerwise
 LR decay; above 64 classes its loss is the unfused resize + CE (phase 12).
 Global attention (no TPU kernel computes it in the JAX package) that records
-a gradient, as in the ViT-L, EVA02-L and MOAT train steps, runs on the
-window-attention kernels' streaming pair, one window per batch row, built
-without a bias and a mask (a fixed-order backward); where none is recorded
-(serving) it is ``F.scaled_dot_product_attention``. Another path serves a language model:
+a gradient, as in the ViT-L, EVA02-L and MOAT train steps, runs in bf16
+without a bias and a mask on the global-attention kernel pair
+(``csrc/global_attention.cu``: blocks over query and key tiles, a
+split fixed-order backward), and with MOAT's relative bias on the
+window-attention kernels' streaming pair, one window per batch row; where
+none is recorded (serving) it is ``F.scaled_dot_product_attention``. Another path serves a language model:
 
 * Gemma: ``gemma_2b_en`` at its full width (hidden 2048, 8 heads over 1 KV
   head, head dim 256, FFN 16384, vocabulary 256000) with its depth cut from
@@ -69,9 +71,10 @@ others autotune.
 1. device: require CUDA; print the card, its power limit, the torch and
    CUDA versions; in a clean build directory, start ``window_attention.cu``'s
    nvcc (the longest build) on a thread of its own, then build the other
-   three kernel sources of ``iseg_tpu_torch/csrc`` (one nvcc each, started
-   together) and print their build times and ptxas reports; phases 3-5c,
-   which launch no window-attention kernel, run while it builds;
+   four kernel sources of ``iseg_tpu_torch/csrc`` (one nvcc each, started
+   together; ``global_attention.cu`` among them) and print their build
+   times and ptxas reports; phases 3-5c, which launch no window-attention
+   or global-attention kernel, run while it builds;
 1b. wait for the ``window_attention.cu`` build and print its time and ptxas
    report;
 2. kernels vs their plain versions at the main paths' shapes, with median
@@ -112,7 +115,13 @@ others autotune.
    f32, EVA02-L's patch-dropped [4,16,769,64] and MOAT-4's stage 2
    [2,32,1024,32] in bf16, each run repeated bit for bit, SDPA beside each, and SDPA at ViT-L's shape under
    ``torch.use_deterministic_algorithms(True)`` (whether its backward runs
-   there and repeats bit for bit: a yardstick); dense-local sampling forward and all four
+   there and repeats bit for bit: a yardstick); the global-attention kernel
+   pair (the route of bf16 global attention with a gradient and without a
+   bias and a mask) at the same bf16 rows without a bias (ViT-L, EVA02-L
+   patch-dropped, MOAT-4 stage 2) on [B, T, H, D] views of the packed
+   projection, against its plain version, each run repeated bit for bit,
+   with SDPA and SDPA under deterministic algorithms beside each (device
+   time, yardsticks); dense-local sampling forward and all four
    gradients at InternImage-T's four stage shapes, in f32 and in the
    autocast type mix (bf16 values on a transposed view, fp32 offsets, bf16
    modulation), with offsets drawn beyond the clamp, and the backward's
@@ -282,8 +291,8 @@ others autotune.
     within 5e-2 of max |logit| of the fp32 run, no kernel launched;
 12. ViT-L and EVA02-L (BASELINE configs #4 and #5): (1) the ViT-L step on
     a fixed batch (SGD poly, 2 warm-up + 5 timed steps, exactly 1 + 1
-    loss-kernel launches and 24 + 24 launches of the bias-free streaming
-    window-attention pair, its global attention, in every step), ms/step,
+    loss-kernel launches and 24 + 24 launches of the global-attention
+    kernel pair, its global attention, in every step), ms/step,
     img/s, peak memory, then
     3 profiled steps: device ms by kernel class, the top kernels and the
     busy share; (2) the EVA02-L step the same way (AdamW, decoupled decay
@@ -317,7 +326,8 @@ others autotune.
     19 classes, each: EfficientNet-B7 (os32) + NAS-FPN(256), MOAT-4 + ASPP,
     MLP-Mixer-L/16 (built for 512x512) + ASPP, ConvNeXt-V2-L (os32) +
     SemanticFPN: wall ms, peak memory, finite losses, 1 + 1 launches a step
-    (and MOAT-4's 30 + 30 global-attention launches, one pair a MOAT block).
+    (and MOAT-4's 30 + 30 launches of the global-attention pair, one a MOAT
+    block each way).
     (4) and (5) take cuDNN's heuristic conv algorithms (no autotuning:
     their few steps would spend most of their time timing algorithms);
 14. pretrained weights: (1) a flat dict of ResNet-50's published names and
@@ -375,8 +385,10 @@ F1. fixed-order resizes and global-attention backwards: under cuDNN's
     EVA02-L + ASPP (AdamW, 150 classes, the unfused loss, patch dropout
     0.25), MOAT-4 + ASPP (batch 2, with its relative-position bias) and
     MobileNetV2 + SimpleDecoder steps end with equal states and losses bit
-    for bit, the global attention's backward on the window-attention
-    kernels (no SDPA backend is chosen); each step's ms printed. Phase 16.3
+    for bit, the global attention's backward on the global-attention pair
+    (ViT-L and EVA02-L: 24 + 24 launches a step, none of the streaming
+    pair) or, with MOAT-4's bias, on the window-attention kernels'
+    streaming pair (no SDPA backend is chosen); each step's ms printed. Phase 16.3
     runs its pipeline-parallel train step twice the same way: the losses
     and every gradient equal bit for bit.
 16. the language model's distribution, two ranks spawned here on this card
@@ -489,6 +501,7 @@ import contextlib
 import dataclasses
 import functools
 import hashlib
+import importlib.util
 import json
 import math
 import os
@@ -553,6 +566,10 @@ from iseg_tpu_torch.ops import quant as quant_module
 from iseg_tpu_torch.ops.resize import resize_image
 from iseg_tpu_torch.utils.buckets import bucket_hw, bucket_stats, pad_batch_to_bucket
 from iseg_tpu_torch.utils.summary import read_event_scalars
+
+# the global-attention kernels; an older tree that --ab times may lack them
+GA_MODULE = "iseg_tpu_torch.ops.kernels.global_attention"
+ga = importlib.import_module(GA_MODULE) if importlib.util.find_spec(GA_MODULE) else None
 
 HW = 512
 # ResNet path
@@ -657,8 +674,8 @@ H_SLIDE_HW, H_SLIDE_WINDOW, H_SLIDE_REPS, H_SLIDE_CALLS = (1024, 2048), 512, 3, 
 V_BATCH, V_CLASSES, V_OS = 8, 19, 16
 V_WARMUP, V_TIMED = 2, 5
 # the global attentions of a ViT-L or EVA02-L step (24 blocks), each one
-# forward and one backward launch of the bias-free streaming pair
-T_GLOBAL_PER_STEP = {"window_attention_fwd_global": 24, "window_attention_bwd_global": 24}
+# forward and one backward launch of the global-attention kernel pair
+T_GLOBAL_PER_STEP = {"global_attention_fwd": 24, "global_attention_bwd": 24}
 # EVA path (phase 12.2): BASELINE config #5 as the JAX package's
 # tools/bench_model_mfu.py has it, eva02_large_patch16_512_coco + ASPP(256), 150
 # classes, batch 4 (the fused loss requested; above 64 classes it is the
@@ -1132,9 +1149,9 @@ def phase_device():
     # the longest build (window_attention.cu, about 100 s) goes on beside
     # phases 3-5c, which launch none of its kernels; phase 1b waits for it
     pending = _build.load_later([wa.SOURCE])
-    _build.load_all([uce.SOURCE, dl.SOURCE, cg.SOURCE])
-    log_builds((uce.build(), dl.build(), cg.build()))
-    log(f"three sources built in parallel in {time.perf_counter() - t0:.2f} s; "
+    _build.load_all([uce.SOURCE, dl.SOURCE, cg.SOURCE, ga.SOURCE])
+    log_builds((uce.build(), dl.build(), cg.build(), ga.build()))
+    log(f"four sources built in parallel in {time.perf_counter() - t0:.2f} s; "
         f"{wa.SOURCE} builds on beside phases 3-5c (their host times share the CPU with nvcc)")
     return pending, t0
 
@@ -1634,6 +1651,114 @@ def check_deterministic_sdpa(device) -> None:
         torch.use_deterministic_algorithms(False)
 
 
+def deterministic_sdpa_device_ms(q, k, v, dout, reps) -> tuple[float, float] | None:
+    """(forward, backward) device ms of SDPA on ``[B, H, T, D]`` q, k, v under
+    ``torch.use_deterministic_algorithms(True)`` (a yardstick, used nowhere in
+    the port), or None where its backward raises there."""
+    def library(qq, kk, vv):
+        return F.scaled_dot_product_attention(qq, kk, vv)
+
+    torch.use_deterministic_algorithms(True)
+    try:
+        with torch.no_grad():
+            fwd = device_ms(lambda _: library(q, k, v), **reps)
+        return fwd, ga_backward_ms(library, q, k, v, dout, timer=device_ms, **reps)
+    except RuntimeError:
+        return None
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def check_global_kernel(device, title, b, heads, t, d, dtype) -> dict:
+    """Global attention as the bf16 train steps run it without a bias and a
+    mask: the global-attention kernel pair on ``[B, T, H, D]`` views of the
+    packed projection against its plain version (fp32 inside), forward and
+    backward, run twice bit for bit, one forward and one backward launch of
+    the pair and none of the window-attention kernels; with its times, the
+    plain version's, SDPA's (the library call computing the same function,
+    used nowhere on this route), deterministic SDPA's and the bound (that of
+    the same function on the streaming pair, ``wa_bound``)."""
+    qh, kh, vh, douth = ga_inputs(device, b, heads, t, d, dtype)  # [B, H, T, D] views
+    q, k, v, dout = (x.permute(0, 2, 1, 3) for x in (qh, kh, vh, douth))  # [B, T, H, D]
+    scale = 1.0 / math.sqrt(d)
+    name = f"{title} [B={b},H={heads},T={t},D={d}] {dtype_name(dtype)} no bias, no mask"
+    if not ga.takes(dtype, b, heads, t, t, d) or not all(ga.aligned(x) for x in (q, k, v)):
+        raise AssertionError(f"[{name}] must take the global-attention kernels as it is")
+
+    def kernel(qq, kk, vv):
+        return ga.global_attention(qq, kk, vv, scale)
+
+    def plain(qq, kk, vv):
+        return ga.global_attention_reference(qq, kk, vv, scale)
+
+    def library(qq, kk, vv):
+        return F.scaled_dot_product_attention(qq, kk, vv, scale=scale)
+
+    def run(fn):
+        args = [x.detach().requires_grad_(True) for x in (q, k, v)]
+        out = fn(*args)
+        return [x.detach().float() for x in (out, *torch.autograd.grad(out, args, dout))]
+
+    keys = ("out", "dq", "dk", "dv")
+    ga.reset_launch_counts()
+    wa.reset_launch_counts()
+    got = run(kernel)
+    if ga.LAUNCH_COUNTS != {"fwd": 1, "bwd": 1} or any(wa.LAUNCH_COUNTS.values()):
+        raise AssertionError(f"[{name}] launches {ga.LAUNCH_COUNTS} of the pair and "
+                             f"{wa.LAUNCH_COUNTS} of the window-attention kernels; expected one "
+                             "forward and one backward of the pair alone")
+    again = run(kernel)
+    for key, a, c in zip(keys, got, again):
+        if not torch.equal(a, c):
+            raise AssertionError(f"[{name}] kernel {key} differs from run to run")
+    del again
+    want = run(plain)
+    torch.cuda.synchronize()
+    errs = {}
+    for key, a, c in zip(keys, got, want):
+        if not bool(torch.isfinite(a).all()):
+            raise AssertionError(f"[{name}] kernel {key} is not finite")
+        errs[key] = float((a - c).abs().max())
+        tol = WA_TOL[dtype]["out"] * max(1.0, float(c.abs().max()))
+        if not errs[key] <= tol:
+            raise AssertionError(f"[{name}] kernel {key} disagrees with the plain version: "
+                                 f"max abs err {errs[key]:.3e} > {tol:.3e}")
+    del got, want
+    reps = dict(reps=10, warmup=2)
+    with torch.no_grad():
+        fwd_ms = cuda_median_ms(lambda _: kernel(q, k, v), **reps)
+        fwd_plain = cuda_median_ms(lambda _: plain(q, k, v), **reps)
+        fwd_lib = cuda_median_ms(lambda _: library(qh, kh, vh), **reps)
+        fwd_dev = device_ms(lambda _: kernel(q, k, v), **reps)
+        fwd_lib_dev = device_ms(lambda _: library(qh, kh, vh), **reps)
+        fwd_held = held_ms(lambda _: kernel(q, k, v), **reps)
+    bwd_ms = ga_backward_ms(kernel, q, k, v, dout, **reps)
+    bwd_plain = ga_backward_ms(plain, q, k, v, dout, **reps)
+    bwd_lib = ga_backward_ms(library, qh, kh, vh, douth, **reps)
+    bwd_dev = ga_backward_ms(kernel, q, k, v, dout, timer=device_ms, **reps)
+    bwd_lib_dev = ga_backward_ms(library, qh, kh, vh, douth, timer=device_ms, **reps)
+    det = deterministic_sdpa_device_ms(qh, kh, vh, douth, reps)
+    det_fwd, det_bwd = det if det is not None else (None, None)
+    fwd_bound, fwd_by = wa_bound(qh, None, None, backward=False)
+    bwd_bound, bwd_by = wa_bound(qh, None, None, backward=True)
+    det_msg = ("deterministic sdpa backward raises" if det is None else
+               f"deterministic sdpa device fwd {det_fwd:.4f} bwd {det_bwd:.4f}")
+    log(f"  [{name}] max abs err " + " ".join(f"{k} {v:.2e}" for k, v in errs.items())
+        + f"; bitwise repeatable; ms fwd kernel {fwd_ms:.4f} (device {fwd_dev:.4f}, held "
+        f"{fwd_held:.4f}) plain {fwd_plain:.4f} sdpa {fwd_lib:.4f} (device {fwd_lib_dev:.4f}) "
+        f"bound {fwd_bound:.4f} ({fwd_by}); bwd kernel {bwd_ms:.4f} (device {bwd_dev:.4f}) plain "
+        f"{bwd_plain:.4f} sdpa {bwd_lib:.4f} (device {bwd_lib_dev:.4f}) bound {bwd_bound:.4f} "
+        f"({bwd_by}); {det_msg} ({card_line()})")
+    return {"fwd": dict(shape=name, route="global", max_abs_err=errs["out"], ms=fwd_ms,
+                        device_ms=fwd_dev, held_ms=fwd_held, plain_ms=fwd_plain,
+                        bound_ms=fwd_bound, bound_by=fwd_by, library_ms=fwd_lib,
+                        library_device_ms=fwd_lib_dev, deterministic_library_device_ms=det_fwd),
+            "bwd": dict(shape=name, route="global", max_abs_err=max(errs[k] for k in keys[1:]),
+                        ms=bwd_ms, device_ms=bwd_dev, plain_ms=bwd_plain, bound_ms=bwd_bound,
+                        bound_by=bwd_by, library_ms=bwd_lib, library_device_ms=bwd_lib_dev,
+                        deterministic_library_device_ms=det_bwd)}
+
+
 def dl_bound(x, maps, groups: int, corners: int, backward: bool) -> tuple[float, str]:
     """Bytes: x, the three maps and the output once each; the backward reads
     the incoming gradient too and writes the four gradients. Operations: one
@@ -1904,6 +2029,16 @@ def phase_kernels(device) -> list[dict]:
         torch.cuda.empty_cache()
     check_deterministic_sdpa(device)
     torch.cuda.empty_cache()
+    log("global attention with a gradient in bf16 without a bias and a mask: the "
+        "global-attention kernel pair (the route the ViT-L, EVA02-L and MOAT-4 train steps "
+        "take); sdpa as above, deterministic sdpa under torch.use_deterministic_algorithms(True)")
+    gk_rows = []
+    for row in GA_ROWS:
+        if row[5] == torch.bfloat16 and not row[6:]:
+            t0 = time.perf_counter()
+            gk_rows.append(check_global_kernel(device, *row))
+            log(f"  ({time.perf_counter() - t0:.1f} s)")
+            torch.cuda.empty_cache()
     log(f"dense-local sampling (tol of max(1, max |plain|): {DL_TOL}); the backward's max abs "
         "err is over its four gradients; no single PyTorch call computes this function")
     dl_rows = {}
@@ -1938,6 +2073,7 @@ def phase_kernels(device) -> list[dict]:
     wa_src = "iseg_tpu_torch/csrc/window_attention.cu"
     dl_src = "iseg_tpu_torch/csrc/deform_local.cu"
     cg_src = "iseg_tpu_torch/csrc/cache_gather.cu"
+    ga_src = "iseg_tpu_torch/csrc/global_attention.cu"
     uce_shapes = {d: [rows[dt][d] for rows in (resnet, swin, intern, mbv2, hrnet, vit,
                                                convnext_fapn, xception)
                       for dt in ("f32", "bf16")]
@@ -2001,6 +2137,13 @@ def phase_kernels(device) -> list[dict]:
         entry("window_attention_bwd_global", wa_src,
               "iseg_tpu/ops/pallas/window_attention.py:161", ga_rows[0]["bwd"],
               [row["bwd"] for row in ga_rows]),
+        # the global-attention pair that took bf16 global attention without a
+        # bias and a mask over from them (no Pallas kernel: XLA's
+        # jax.nn.dot_product_attention, iseg_tpu/nn/attention.py:58)
+        entry("global_attention_fwd", ga_src, "iseg_tpu/nn/attention.py:58", gk_rows[0]["fwd"],
+              [row["fwd"] for row in gk_rows]),
+        entry("global_attention_bwd", ga_src, "iseg_tpu/nn/attention.py:58", gk_rows[0]["bwd"],
+              [row["bwd"] for row in gk_rows]),
         entry("deform_local_fwd", dl_src, "iseg_tpu/ops/pallas/deform_local.py:116",
               dl_main["fwd"], dl_shapes["fwd"]),
         entry("deform_local_bwd", dl_src, "iseg_tpu/ops/pallas/deform_local.py:146",
@@ -2017,6 +2160,8 @@ def reset_launch_counts() -> None:
     wa.reset_launch_counts()
     dl.reset_launch_counts()
     cg.reset_launch_counts()
+    if ga is not None:
+        ga.reset_launch_counts()
 
 
 def read_launch_counts() -> dict[str, int]:
@@ -2031,6 +2176,8 @@ def read_launch_counts() -> dict[str, int]:
             "window_attention_bwd_stream": wa.LAUNCH_COUNTS["bwd_stream"],
             "window_attention_fwd_global": wa.LAUNCH_COUNTS["fwd_global"],
             "window_attention_bwd_global": wa.LAUNCH_COUNTS["bwd_global"],
+            "global_attention_fwd": ga.LAUNCH_COUNTS["fwd"] if ga is not None else 0,
+            "global_attention_bwd": ga.LAUNCH_COUNTS["bwd"] if ga is not None else 0,
             "deform_local_fwd": dl.LAUNCH_COUNTS["fwd"], "deform_local_bwd": dl.LAUNCH_COUNTS["bwd"],
             "cache_gather": cg.LAUNCH_COUNTS["gather"]}
 
@@ -3079,6 +3226,8 @@ def phase_swin16_train(env, data):
 
 
 KERNEL_CLASSES = (
+    ("global-attention kernels", ("ga_fwd_kernel", "ga_bwd_delta_kernel", "ga_bwd_dkdv_kernel",
+                                  "ga_bwd_dq_kernel")),
     ("window attention kernels", ("wa_fwd_kernel", "wa_fwd_mma_kernel", "wa_fwd_tf32x3_kernel",
                                   "wa_fwd_tf32x3_large_kernel", "wa_fwd_stream_kernel",
                                   "wa_bwd_kernel", "wa_bwd_mma_kernel", "wa_bwd_tf32x3_kernel",
@@ -4485,13 +4634,13 @@ def phase_zoo_steps(env) -> dict[str, dict]:
         tx, _ = get_optimizer(param_tree(model), "sgd", learning_rate=0.01, train_steps=1000)
         state = create_train_state(model, env.generator, tx)
         step_fn = make_train_step(model.build_loss_fn(), compute_dtype=env.compute_dtype)
-        # MOAT's attention blocks: global attention with a gradient, each one
-        # forward and one backward launch of the bias-free streaming pair
+        # MOAT's attention blocks (no relative bias here): global attention
+        # with a gradient, each one forward and one backward launch of the
+        # global-attention kernel pair
         attention = sum(getattr(m, "use_attention", False) for m in model.backbone.modules())
         want = {"upsample_ce_fwd": 1, "upsample_ce_bwd": 1}
         if attention:
-            want.update(window_attention_fwd_global=attention,
-                        window_attention_bwd_global=attention)
+            want.update(global_attention_fwd=attention, global_attention_bwd=attention)
         with cudnn_heuristics():
             _, losses, paths[path], step_ms = counted_train_steps(
                 state, step_fn, data, 1, 1, Z_BATCH, want, f"{title} train")
@@ -5417,27 +5566,59 @@ def f1_run(build, data, steps: int = F1_STEPS,
     return end, losses, ms
 
 
-def phase_f1_repeat(env) -> None:
+# phase F1's paths whose global attention the launch counts hold: ViT-L and
+# EVA02-L on the global-attention pair (24 blocks a step, two runs), MOAT-4
+# with its relative bias on the window-attention kernels' streaming pair
+# built with the bias alone. {path name prefix: (paths key, the kernels it
+# launches, how often each (None: at least once), the kernels it must not)}
+GLOBAL_PAIR = ("global_attention_fwd", "global_attention_bwd")
+STREAMING_GLOBAL = ("window_attention_fwd_global", "window_attention_bwd_global")
+F1_ATTENTION = {
+    "ViT-L": ("f1_vit_train", GLOBAL_PAIR, 2 * F1_STEPS * 24, STREAMING_GLOBAL),
+    "EVA02-L": ("f1_eva_train", GLOBAL_PAIR, 2 * F1_STEPS * 24, STREAMING_GLOBAL),
+    "MOAT-4": ("f1_moat_bias_train", STREAMING_GLOBAL, None, GLOBAL_PAIR),
+}
+
+
+def phase_f1_repeat(env) -> dict[str, dict[str, int]]:
     """Faults F1 and F4 on the card: two runs of each path from the same
-    weights and batch end with the same state bit for bit."""
+    weights and batch end with the same state bit for bit. Returns the
+    launch counts of the paths in ``F1_ATTENTION`` (both runs): ViT-L and
+    EVA02-L launch the global-attention pair 24 times a step each way and
+    none of the streaming one; MOAT-4, with its bias, the streaming pair
+    and none of the new one."""
     log("== phase F1: fixed-order resizes (interpolation matrices, no F.interpolate) and "
-        "global-attention backwards (the window-attention kernels, no SDPA): two runs of "
-        f"{F1_STEPS} steps each end equal bit for bit")
+        "global-attention backwards (the global-attention kernels, or the window-attention "
+        f"kernels with a bias; no SDPA): two runs of {F1_STEPS} steps each end equal bit for bit")
     card = card_line()
+    paths = {}
     with deterministic_algorithms():
         for name, (build, batch, classes, context) in f1_setups(env).items():
             data = synthetic_batch(env.device, batch, classes)
+            reset_launch_counts()
             with context():
                 runs = [f1_run(build, data, digest=False) for _ in range(2)]
+            counts = read_launch_counts()
             log(f"F1 {name}: losses {runs[0][1]} and {runs[1][1]}; ms per step "
                 f"{[round(v, 2) for v in runs[0][2]]} and {[round(v, 2) for v in runs[1][2]]} "
-                f"(deterministic algorithms, the first step builds) ({card})")
+                f"(deterministic algorithms, the first step builds); attention launches "
+                f"{ {key: n for key, n in counts.items() if 'attention' in key and n} } ({card})")
             (first, losses_1, _), (second, losses_2, _) = runs
             if (losses_1 != losses_2 or len(first) != len(second)
                     or not all(torch.equal(a, b) for a, b in zip(first, second))):
                 raise AssertionError(f"F1: two runs of {name} end in different states")
+            for prefix, (path, kernels, times, others) in F1_ATTENTION.items():
+                if not name.startswith(prefix):
+                    continue
+                paths[path] = counts
+                if (any(counts[key] != times if times else counts[key] <= 0 for key in kernels)
+                        or any(counts[key] for key in others)):
+                    raise AssertionError(f"F1 {name}: attention launches {counts}; expected "
+                                         f"{times or 'some'} of each of {kernels} and none of "
+                                         f"{others}")
             del data, runs, first, second
             torch.cuda.empty_cache()
+    return paths
 
 
 def step_loss_ms(path: str, prof: dict) -> dict:
@@ -5569,7 +5750,8 @@ def ab_child(only: str | None = None) -> dict:
                 "fwd_global", "bwd_global"):
         wa.LAUNCH_COUNTS.setdefault(key, 0)  # a package from before a route
     device = torch.device("cuda")
-    _build.load_all([uce.SOURCE, wa.SOURCE, dl.SOURCE, cg.SOURCE])
+    _build.load_all([uce.SOURCE, wa.SOURCE, dl.SOURCE, cg.SOURCE]
+                    + ([ga.SOURCE] if ga is not None else []))
     row = {"package": str(_build.PACKAGE_DIR)}
     if only == "f1":
         return {**row, **ab_f1_row()}
@@ -6652,7 +6834,7 @@ def main(argv: list[str]) -> int:
     pretrained_paths, radii_rows = timed("14", phase_pretrained, env)
     paths.update(pretrained_paths)
     paths.update(timed("15", phase_distributed, env))
-    timed("F1", phase_f1_repeat, env)
+    paths.update(timed("F1", phase_f1_repeat, env))
     lm_paths, tp_cache_gather_row = timed("16", phase_lm_distributed, env)
     paths.update(lm_paths)
     paths.update(timed("17", phase_int8_export, env))
@@ -6691,7 +6873,7 @@ def main(argv: list[str]) -> int:
                                  for path, counts in mine.items()}
         k["launches"] = sum(by_route.values())
     loss_kernels = ("upsample_ce_fwd", "upsample_ce_bwd")
-    global_kernels = ("window_attention_fwd_global", "window_attention_bwd_global")
+    global_kernels = GLOBAL_PAIR
     on_path = {"resnet_train": loss_kernels,
                "system_train": loss_kernels,
                "mbv2_train": loss_kernels,
@@ -6708,6 +6890,9 @@ def main(argv: list[str]) -> int:
                "xception_train": loss_kernels,
                **{path: loss_kernels for path, *_ in Z_MODELS},
                "moat_train": loss_kernels + global_kernels,
+               "f1_vit_train": loss_kernels + global_kernels,
+               "f1_eva_train": global_kernels,
+               "f1_moat_bias_train": loss_kernels + STREAMING_GLOBAL,
                "swin_train": loss_kernels + ("window_attention_fwd_mma",
                                              "window_attention_bwd_mma"),
                "swin_serve": ("window_attention_fwd_mma",),

@@ -1,0 +1,827 @@
+// Global attention forward and backward for Hopper (sm_90a): softmax(q k^T
+// scale) v over whole sequences, bf16 in and out, fp32 accumulators. Built
+// by iseg_tpu_torch/ops/kernels/_build.py with nvcc into a shared library
+// with a plain C interface, loaded with ctypes.
+//
+// Replaces no Pallas kernel: global attention is XLA's in the JAX package
+// (jax.nn.dot_product_attention, iseg_tpu/nn/attention.py:58; the ViT block
+// at iseg_tpu/backbones/vit.py:43, EVA's at iseg_tpu/backbones/eva.py:126).
+// On the card it succeeds, for bf16 global attention that records a
+// gradient without a bias or a mask (the ViT-L, EVA02-L and bias-free MOAT
+// train steps), the window-attention kernels' streaming pair
+// (window_attention.cu, wa_fwd_stream_kernel / wa_bwd_stream_kernel with one
+// window per batch row), whose backward was the port's first fixed-order
+// one. This pair keeps that property: no output element is written by two
+// blocks, no atomics, every sum runs in one order, so two runs are equal
+// bit for bit (cuDNN's and FlashAttention's backwards add dq in no fixed
+// order).
+//
+// Per (batch row b, head h), with q [T, D] and k, v [S, D]:
+//   p   = softmax(q k^T scale)                (fp32, exp2 units)
+//   out = p v;  lse = log2 sum exp2(q k^T scale log2(e))   (per query row)
+// and, given do:
+//   delta = rowsum(do * out)
+//   p     = exp2(q k^T scale log2(e) - lse);  ds = p (do v^T - delta)
+//   dv = p^T do;  dk = ds^T q scale;  dq = ds k scale
+//
+// What bounds it on the H100: the products. At ViT-L's [8, 16, 1025, 64]
+// the forward does two T x S x D products a (b, h), 34.4 GFLOP against 8.4
+// MB moved (about 4,100 flop per byte, far above the tensor cores' 295), and
+// the backward five (85.9 GFLOP against 14.7 MB): 0.0348 ms and 0.0870 ms at
+// 989 TFLOP/s (chip_smoke.py's wa_bound for these shapes). The streaming
+// pair it replaces ran one block per (batch row, head): 128 blocks on 132
+// SMs, each walking all 1025 rows with at most 9 warps, so most of the
+// card's warp slots stayed empty and each block's chain of products was
+// latency bound. This design puts the parallelism in the tiles:
+//
+// * ga_fwd_kernel: one block of 4 warps per (query tile, b h),
+//   FlashAttention-2's forward. A warp owns 16 query rows (32 at D <= 32,
+//   two m-tiles sharing each k and v fragment) and holds them in registers
+//   as mma.sync m16n8k16 A fragments; the block streams k and v through
+//   shared memory 64 keys at a time (128 at D <= 32) in a two-stage ring
+//   (cp.async, zero fill past S and past D; one block barrier a tile), forms
+//   s = q k^T, keeps an online softmax in fp32 registers in exp2 units (keys
+//   past S masked to -inf; the row maxima of the raw logits, scaled once, so
+//   p is one fused multiply-add and one ex2.approx a logit; a row's
+//   reference max moves only where the tile's exceeds it by more than 8 in
+//   log2 units, so most tiles rescale nothing) and adds p v with p taken
+//   straight from the accumulators, rounded to bf16 as the A operand. A last
+//   tile of no more than half its keys (ViT-L's 1025th) takes a step over
+//   half of them. It writes out and each row's lse (log2 units). ViT-L: 17 x
+//   128 = 2,176 blocks of 64 rows, four an SM, where the streaming pair had
+//   128.
+// * ga_bwd_delta_kernel: delta = rowsum(do * out) in fp32 from the bf16 out
+//   the forward wrote (8 lanes a row). Out is rounded to bf16 (2^-9), which
+//   moves delta by about 2^-9 of |do| |out|; ds = p (dp - delta) then moves
+//   by p times that, which stays far inside the bf16 tolerance of 1e-2 of
+//   max |plain| (the streaming kernels formed rowsum(p dp) instead only
+//   because their dbias is held to 1e-3, and this pair has no bias).
+// * ga_bwd_dkdv_kernel: one block of 4 warps per (64-key tile, b h); a
+//   warp holds its 16 keys' k and v as A fragments, walks every 64-row query
+//   tile in order (q, do, lse and delta through a two-stage ring), recomputes
+//   s^T = k q^T and dp^T = v do^T, p^T from lse and ds^T, and accumulates dv
+//   += p^T do and dk += ds^T q in registers; it writes each once.
+// * ga_bwd_dq_kernel: one block of 4 warps per (64-row query tile, b h); a
+//   warp holds its rows' q and do, walks every 64-key tile in order,
+//   recomputes s and dp, and accumulates dq += ds k; it writes once.
+//   Both backward kernels are compiled for three resident blocks an SM at D
+//   <= 64 (at most 168 registers a thread).
+//
+// The split backward recomputes s and dp in both passes (seven products
+// where a backward with atomics has five) in exchange for the fixed order.
+// Measured on an H100 80GB HBM3 at 700 W at ViT-L's shape (chip_smoke.py
+// phase 2; PERF.md section 6): the forward about 0.17-0.18 ms of device time
+// (5x its bound; SDPA 0.12), the backward about 0.52 ms (6x its bound; SDPA's
+// deterministic backward 0.62-0.64), against the streaming pair's 0.61 and
+// 2.03. What is left is each warp's chain a tile: the products on mma.sync,
+// the softmax's ALU work and its exponentials (at D = 64 the special-function
+// unit's 16 a clock an SM take about as long as the products), with 12-16
+// warps an SM to hide it; tools/ablate_global_attention.py times the layout
+// choices below.
+// Rounding points are those of the window-attention tensor-core kernels: p
+// only as the operand of p v and of dv, ds only as the operand of dq and dk;
+// the logits, the softmax, its sums and delta stay fp32.
+//
+// Padding: rows past T and keys past S are read as zeros (cp.async zero
+// fill, or zero fragments). In the forward the padded keys' logits become
+// -inf. In the backward a padded query row has zero q, do, lse and delta (so
+// its p^T and ds^T columns are finite and meet zero rows of q and do), and a
+// padded key's p is set to 0 in the dq pass (its logit is 0, and exp2(-lse)
+// may overflow); padded rows and keys are never stored.
+//
+// The kernels are compiled for head dims up to 32, 64 and 128 (kD); a head
+// dim D that is a multiple of 8 below its bucket is zero-padded to kD in
+// registers and shared memory. q, k, v, do are read and out, dq, dk, dv
+// written through their element strides in the [B, T, H, D] layout (the head
+// dim contiguous, every stride and base 16-byte aligned: the wrapper checks),
+// so q, k and v may be views of a packed qkv projection.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+#include <type_traits>
+
+namespace {
+
+typedef __nv_bfloat16 bf16;
+
+constexpr int kRows = 64;  // keys (or query rows) of a streamed tile
+constexpr float kLog2e = 1.4426950408889634f;
+
+// element strides of a [B, T, H, D] tensor (the head dim has stride 1)
+struct Strides {
+  long long b, t, h;
+};
+
+// Row pitch of a shared tile in elements: kD plus 16 bytes, an odd multiple
+// of 16 bytes, so the eight rows of an ldmatrix land on distinct banks
+template <int kD>
+__host__ __device__ constexpr int tile_ld() {
+  return kD + 8;
+}
+
+template <int kD, int kR = kRows>
+__host__ __device__ constexpr int tile_elems() {
+  return kR * tile_ld<kD>();
+}
+
+// Every kernel runs blocks of kWarps warps; a warp owns 16 query rows (or
+// keys) of the block's tile, a forward warp 16 fwd_mtiles rows. Each kernel's
+// tiles of the other side stream through a ring of kStages shared-memory
+// stages: one arrives while the block computes another.
+constexpr int kWarps = 4;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kStages = 2;
+
+// The forward's layout by head dim (tools/ablate_global_attention.py timed
+// the alternatives at phase 2's rows): at D <= 64 one 16-row m-tile a warp,
+// 64-key tiles and four blocks an SM (at most 128 registers a thread); at D
+// <= 32 two m-tiles a warp, which share each k and v fragment, and 128-key
+// tiles, which spread each softmax step's fixed work (row maxima by
+// shuffles, the output's rescale) over more keys
+template <int kD>
+__host__ __device__ constexpr int fwd_mtiles() {
+  return kD <= 32 ? 2 : 1;
+}
+template <int kD>
+__host__ __device__ constexpr int fwd_keys() {
+  return kD <= 32 ? 128 : 64;
+}
+template <int kD>
+__host__ __device__ constexpr int fwd_min_blocks() {
+  return kD == 64 ? 4 : 1;
+}
+// Resident blocks an SM the backward kernels are compiled for: three at D
+// <= 64 (at most 168 registers a thread)
+template <int kD>
+__host__ __device__ constexpr int bwd_min_blocks() {
+  return kD <= 64 ? 3 : 1;
+}
+
+// How far (log2 units) a row's max may grow past the reference the forward
+// subtracts before it moves the reference and rescales the row's sums: p
+// then stays below 2^8 (finite in fp32 and as a bf16 operand), and most
+// steps after the first few rescale nothing. out = o / l and lse = ref +
+// log2(l) are the same function at any reference.
+constexpr float kRescaleSlack = 8.f;
+
+// Columns of a streamed tile the backward kernels take at once: 64, or 32
+// at kD = 128, where the accumulators of a whole tile would spill
+template <int kD>
+__host__ __device__ constexpr int sub_cols() {
+  return kD <= 64 ? 64 : 32;
+}
+
+// 2^x for the softmax: the special-function unit's approximation (2 ulp,
+// subnormal results flushed to 0), as exp2f compiles under fast math
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// c += a b for one 16 x 8 x 16 tile: a row-major bf16, b column-major bf16,
+// c fp32 (not volatile: independent products may interleave)
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t bf16x2(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+__device__ __forceinline__ void cp_async16_zfill(uint32_t dst, const void* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(bytes));
+}
+
+__device__ __forceinline__ void cp_async4_zfill(uint32_t dst, const void* src, int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
+               "r"(bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n"); }
+
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+
+// reductions over the four lanes that hold one accumulator row
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// Rows row0 .. row0 + kR - 1 of one (b, h) [N][D] operand into a shared
+// [kR][tile_ld] tile by cp.async, 16 bytes a piece, zeros past N and from D
+// to kD, by the block's threads (the caller commits)
+template <int kD, int kR = kRows>
+__device__ __forceinline__ void copy_tile(const bf16* base, long long st, int row0, int N, int D,
+                                          bf16* dst) {
+  constexpr int kPieces = kD / 8, kLd = tile_ld<kD>();
+#pragma unroll
+  for (int e = threadIdx.x; e < kR * kPieces; e += kThreads) {
+    const int row = e / kPieces, col = (e - row * kPieces) * 8, r = row0 + row;
+    const bool in = r < N && col < D;
+    cp_async16_zfill(smem_addr(dst + row * kLd + col), in ? base + r * st + col : base,
+                     in ? 16 : 0);
+  }
+}
+
+// Entries row0 .. row0 + 63 of two fp32 rows (the backward's lse and delta of
+// one (b, h)) into shared [kRows] arrays, zeros past N: one of the block's
+// 2 kRows threads each
+__device__ __forceinline__ void copy_rows_f32(const float* a, const float* b, int row0, int N,
+                                              float* dst_a, float* dst_b) {
+  static_assert(kThreads == 2 * kRows, "one thread an entry");
+  const int x = threadIdx.x & (kRows - 1), r = row0 + x;
+  const float* src = threadIdx.x < kRows ? a : b;
+  float* dst = threadIdx.x < kRows ? dst_a : dst_b;
+  cp_async4_zfill(smem_addr(dst + x), r < N ? src + r : src, r < N ? 4 : 0);
+}
+
+// A warp's 16 rows m0 .. m0 + 15 of a [N][D] operand (through its token
+// stride) as m16n8k16 A fragments in registers (a[c] covers columns 16c ..
+// 16c + 15), zeros past N and past D
+template <int kD>
+__device__ __forceinline__ void load_frags(const bf16* base, long long st, int m0, int N, int D,
+                                           uint32_t (&a)[kD / 16][4]) {
+  const int lane = threadIdx.x & 31, r0 = m0 + (lane >> 2), r1 = r0 + 8, c2 = (lane & 3) * 2;
+  auto pair = [&](int r, int d) -> uint32_t {
+    return r < N && d < D ? *reinterpret_cast<const uint32_t*>(base + r * st + d) : 0u;
+  };
+#pragma unroll
+  for (int c = 0; c < kD / 16; ++c) {
+    const int d = 16 * c + c2;
+    a[c][0] = pair(r0, d);
+    a[c][1] = pair(r1, d);
+    a[c][2] = pair(r0, d + 8);
+    a[c][3] = pair(r1, d + 8);
+  }
+}
+
+// Accumulator tiles 2s and 2s + 1 (16 x 8 each, fp32) as the bf16 A fragment
+// of one 16 x 16 step: the accumulator layout of two neighbouring tiles is
+// the A layout of m16n8k16
+template <int kN>
+__device__ __forceinline__ void acc_to_frags(const float (&x)[kN][4], uint32_t (&a)[kN / 2][4]) {
+#pragma unroll
+  for (int s = 0; s < kN / 2; ++s) {
+    a[s][0] = bf16x2(x[2 * s][0], x[2 * s][1]);
+    a[s][1] = bf16x2(x[2 * s][2], x[2 * s][3]);
+    a[s][2] = bf16x2(x[2 * s + 1][0], x[2 * s + 1][1]);
+    a[s][3] = bf16x2(x[2 * s + 1][2], x[2 * s + 1][3]);
+  }
+}
+
+// Rows m0 + g and m0 + g + 8 (those < N), columns < D of a [N][D] bf16
+// output (through its token stride), times mul
+template <int kD>
+__device__ __forceinline__ void store_acc(bf16* base, long long st, int m0, int N, int D,
+                                          const float (&acc)[kD / 8][4], float mul0, float mul1) {
+  const int lane = threadIdx.x & 31, r0 = m0 + (lane >> 2), r1 = r0 + 8, c2 = (lane & 3) * 2;
+#pragma unroll
+  for (int j = 0; j < kD / 8; ++j) {
+    const int d = 8 * j + c2;
+    if (d >= D) continue;
+    if (r0 < N)
+      *reinterpret_cast<uint32_t*>(base + r0 * st + d) = bf16x2(acc[j][0] * mul0, acc[j][1] * mul0);
+    if (r1 < N)
+      *reinterpret_cast<uint32_t*>(base + r1 * st + d) = bf16x2(acc[j][2] * mul1, acc[j][3] * mul1);
+  }
+}
+
+// s[m][n] (16 x 8: m-tile m of the warp's rows by tile rows row0 + 8n ..
+// row0 + 8n + 7) = A_m B^T over kD: kM m-tiles of 16 rows as A fragments in
+// registers, B a shared tile of rows of tile_ld whose fragments are loaded
+// once for all of them
+template <int kD, int kM, int kN>
+__device__ __forceinline__ void mtiles_times_tile_t(const uint32_t (&a)[kM][kD / 16][4],
+                                                    const bf16* tile, int row0,
+                                                    float (&s)[kM][kN][4]) {
+  constexpr int kLd = tile_ld<kD>();
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int m = 0; m < kM; ++m)
+#pragma unroll
+    for (int n = 0; n < kN; ++n) s[m][n][0] = s[m][n][1] = s[m][n][2] = s[m][n][3] = 0.f;
+  const uint32_t base =
+      smem_addr(tile + (row0 + (lane & 7) + ((lane >> 4) << 3)) * kLd) + ((lane >> 3) & 1) * 16;
+#pragma unroll
+  for (int n = 0; n < kN; n += 2)
+#pragma unroll
+    for (int c = 0; c < kD / 16; ++c) {
+      uint32_t b[4];
+      ldsm_x4(b, base + n * 8 * kLd * 2 + c * 32);
+#pragma unroll
+      for (int m = 0; m < kM; ++m) {
+        mma_bf16(s[m][n], a[m][c], b[0], b[1]);
+        mma_bf16(s[m][n + 1], a[m][c], b[2], b[3]);
+      }
+    }
+}
+
+// acc[m][j] (16 x 8: m-tile m by columns 8j .. 8j + 7) += A_m B: A_m the
+// 16 x 16 kS bf16 fragments of m-tile m (a[m][s] covers tile rows row0 + 16s
+// .. row0 + 16s + 15), B those rows of a shared tile through
+// ldmatrix.trans, its fragments loaded once for all kM m-tiles
+template <int kD, int kM, int kS>
+__device__ __forceinline__ void mtiles_times_tile(const uint32_t (&a)[kM][kS][4], const bf16* tile,
+                                                  int row0, float (&acc)[kM][kD / 8][4]) {
+  constexpr int kLd = tile_ld<kD>();
+  const int lane = threadIdx.x & 31;
+  const uint32_t base =
+      smem_addr(tile + (row0 + (lane & 7) + ((lane >> 3) & 1) * 8) * kLd) + (lane >> 4) * 16;
+#pragma unroll
+  for (int s = 0; s < kS; ++s)
+#pragma unroll
+    for (int c = 0; c < kD / 16; ++c) {
+      uint32_t b[4];
+      ldsm_x4_trans(b, base + 16 * s * kLd * 2 + c * 32);
+#pragma unroll
+      for (int m = 0; m < kM; ++m) {
+        mma_bf16(acc[m][2 * c], a[m][s], b[0], b[1]);
+        mma_bf16(acc[m][2 * c + 1], a[m][s], b[2], b[3]);
+      }
+    }
+}
+
+// ------------------------------------------------------------------ forward
+
+// One block per (query tile, b h): kWarps warps of 16 fwd_mtiles rows. k and
+// v come through a ring of shared [fwd_keys][tile_ld] tiles; per tile a warp
+// forms s = q k^T for each of its m-tiles, updates their online softmax and
+// adds p v, each k and v fragment loaded once for its m-tiles.
+// The scale is positive (the wrapper checks), so the row maxima are taken of
+// the raw logits and scaled once, and p = exp2(s scale log2(e) - max) is one
+// fused multiply-add and one ex2 a logit.
+template <int kD>
+__global__ void __launch_bounds__(kThreads, fwd_min_blocks<kD>())
+ga_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+              const bf16* __restrict__ v, bf16* __restrict__ out, float* __restrict__ lse, int H,
+              int T, int S, int D, float scale_log2, Strides sq, Strides sk, Strides sv,
+              Strides so) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* ring = reinterpret_cast<bf16*>(smem_raw);  // [kStages][k, v][kRows][tile_ld]
+  constexpr int kKeys = fwd_keys<kD>(), kN = kKeys / 8, kTile = tile_elems<kD, kKeys>();
+  constexpr int kM = fwd_mtiles<kD>();
+  const int bh = blockIdx.y, b = bh / H, h = bh - b * H;
+  const int lane = threadIdx.x & 31, c2 = (lane & 3) * 2;
+  const int m0 = (blockIdx.x * kWarps + (threadIdx.x >> 5)) * 16 * kM;
+  const bf16* qb = q + b * sq.b + h * sq.h;
+  const bf16* kb = k + b * sk.b + h * sk.h;
+  const bf16* vb = v + b * sv.b + h * sv.h;
+  const int tiles = (S + kKeys - 1) / kKeys;
+  auto load = [&](int t) {  // key tile t into its stage (nothing past the last), one group
+    if (t < tiles) {
+      bf16* stage = ring + (t % kStages) * 2 * kTile;
+      copy_tile<kD, kKeys>(kb, sk.t, t * kKeys, S, D, stage);
+      copy_tile<kD, kKeys>(vb, sv.t, t * kKeys, S, D, stage + kTile);
+    }
+    cp_async_commit();
+  };
+
+#pragma unroll
+  for (int t = 0; t < kStages - 1; ++t) load(t);
+  uint32_t qa[kM][kD / 16][4];
+#pragma unroll
+  for (int m = 0; m < kM; ++m) load_frags<kD>(qb, sq.t, m0 + 16 * m, T, D, qa[m]);
+
+  float o[kM][kD / 8][4];
+  float mx[kM][2], l[kM][2];  // rows g, g + 8: reference max (log2 units), this lane's sum
+#pragma unroll
+  for (int m = 0; m < kM; ++m) {
+#pragma unroll
+    for (int j = 0; j < kD / 8; ++j) o[m][j][0] = o[m][j][1] = o[m][j][2] = o[m][j][3] = 0.f;
+    mx[m][0] = mx[m][1] = -INFINITY;
+    l[m][0] = l[m][1] = 0.f;
+  }
+
+  // one softmax step over the first 8 kNT keys of tile t (at stage kt)
+  auto step = [&](const bf16* kt, int t, auto n_tiles) {
+    constexpr int kNT = decltype(n_tiles)::value;
+    float s[kM][kNT][4];
+    mtiles_times_tile_t<kD, kM, kNT>(qa, kt, 0, s);
+    const bool ragged = t * kKeys + 8 * kNT > S;
+    uint32_t pa[kM][kNT / 2][4];
+#pragma unroll
+    for (int m = 0; m < kM; ++m) {
+      float tm0 = -INFINITY, tm1 = -INFINITY;
+#pragma unroll
+      for (int n = 0; n < kNT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          if (ragged && t * kKeys + 8 * n + c2 + (e & 1) >= S) s[m][n][e] = -INFINITY;
+          if (e < 2) tm0 = fmaxf(tm0, s[m][n][e]);
+          else tm1 = fmaxf(tm1, s[m][n][e]);
+        }
+      // every step holds a key below S, so the step's maxima are finite; a
+      // row's reference max moves (and its sums are rescaled) only where the
+      // step's max exceeds it by more than the slack, and in a warp only
+      // when some row's does
+      const float top0 = quad_max(tm0) * scale_log2, top1 = quad_max(tm1) * scale_log2;
+      const bool grow0 = top0 > mx[m][0] + kRescaleSlack;
+      const bool grow1 = top1 > mx[m][1] + kRescaleSlack;
+      if (__any_sync(0xffffffffu, grow0 || grow1)) {
+        const float new0 = grow0 ? top0 : mx[m][0], new1 = grow1 ? top1 : mx[m][1];
+        const float alpha0 = fast_exp2(mx[m][0] - new0), alpha1 = fast_exp2(mx[m][1] - new1);
+        mx[m][0] = new0;
+        mx[m][1] = new1;
+        l[m][0] *= alpha0;
+        l[m][1] *= alpha1;
+#pragma unroll
+        for (int j = 0; j < kD / 8; ++j) {
+          o[m][j][0] *= alpha0;
+          o[m][j][1] *= alpha0;
+          o[m][j][2] *= alpha1;
+          o[m][j][3] *= alpha1;
+        }
+      }
+      const float ref0 = mx[m][0], ref1 = mx[m][1];
+#pragma unroll
+      for (int n = 0; n < kNT; ++n) {
+        s[m][n][0] = fast_exp2(fmaf(s[m][n][0], scale_log2, -ref0));
+        s[m][n][1] = fast_exp2(fmaf(s[m][n][1], scale_log2, -ref0));
+        s[m][n][2] = fast_exp2(fmaf(s[m][n][2], scale_log2, -ref1));
+        s[m][n][3] = fast_exp2(fmaf(s[m][n][3], scale_log2, -ref1));
+        l[m][0] += s[m][n][0] + s[m][n][1];
+        l[m][1] += s[m][n][2] + s[m][n][3];
+      }
+      acc_to_frags<kNT>(s[m], pa[m]);
+    }
+    mtiles_times_tile<kD, kM, kNT / 2>(pa, kt + kTile, 0, o);
+  };
+
+  for (int t = 0; t < tiles; ++t) {
+    cp_async_wait<kStages - 2>();  // tile t has arrived
+    __syncthreads();  // for every thread, and every warp is done with tile t - 1
+    load(t + kStages - 1);  // into tile t - 1's stage
+    const bf16* kt = ring + (t % kStages) * 2 * kTile;
+    // a last tile that holds no more than half its keys (ViT-L's 1025th)
+    // takes the step over half the keys
+    if (S - t * kKeys <= kKeys / 2)
+      step(kt, t, std::integral_constant<int, kN / 2>());
+    else
+      step(kt, t, std::integral_constant<int, kN>());
+  }
+
+#pragma unroll
+  for (int m = 0; m < kM; ++m) {
+    const float l0 = quad_sum(l[m][0]), l1 = quad_sum(l[m][1]);
+    const int r0 = m0 + 16 * m + (lane >> 2);
+    store_acc<kD>(out + b * so.b + h * so.h, so.t, m0 + 16 * m, T, D, o[m], 1.f / l0, 1.f / l1);
+    if ((lane & 3) == 0) {
+      float* row = lse + static_cast<long long>(bh) * T;
+      if (r0 < T) row[r0] = mx[m][0] + log2f(l0);
+      if (r0 + 8 < T) row[r0 + 8] = mx[m][1] + log2f(l1);
+    }
+  }
+}
+
+// ----------------------------------------------------------------- backward
+
+constexpr int kDeltaThreads = 256;
+
+// delta[b, h, t] = sum_d do[b, t, h, d] out[b, t, h, d]: fp32 products and
+// sums of the bf16 values, 8 lanes a row (16 bytes each a step), rows in (b,
+// t, h) order, each sum in one fixed order
+__global__ void __launch_bounds__(kDeltaThreads)
+ga_bwd_delta_kernel(const bf16* __restrict__ out, const bf16* __restrict__ dout,
+                    float* __restrict__ delta, int B, int H, int T, int D, Strides so,
+                    Strides sd) {
+  const long long row = (static_cast<long long>(blockIdx.x) * kDeltaThreads + threadIdx.x) >> 3;
+  const int sub = threadIdx.x & 7;
+  const bool in = row < static_cast<long long>(B) * T * H;
+  const int h = static_cast<int>(row % H);
+  const long long bt = row / H;
+  const int t = static_cast<int>(bt % T), b = static_cast<int>(bt / T);
+  float sum = 0.f;
+  if (in) {
+    const bf16* o = out + b * so.b + t * so.t + h * so.h;
+    const bf16* g = dout + b * sd.b + t * sd.t + h * sd.h;
+    for (int c = sub * 8; c < D; c += 64) {
+      const uint4 x = *reinterpret_cast<const uint4*>(o + c);
+      const uint4 y = *reinterpret_cast<const uint4*>(g + c);
+      const uint32_t xs[4] = {x.x, x.y, x.z, x.w}, ys[4] = {y.x, y.y, y.z, y.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&xs[i]));
+        const float2 d = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&ys[i]));
+        sum = fmaf(a.x, d.x, sum);
+        sum = fmaf(a.y, d.y, sum);
+      }
+    }
+  }
+  sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+  sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+  sum += __shfl_xor_sync(0xffffffffu, sum, 4);
+  if (in && sub == 0) delta[(static_cast<long long>(b) * H + h) * T + t] = sum;
+}
+
+// One block per (64-key tile, b h): kWarps warps of 16 keys, each holding its
+// keys' k and v as A fragments. Per query tile (q, do, lse, delta through a
+// two-stage ring), in order, kSub columns at a time: s^T = k q^T, dp^T = v
+// do^T, p^T = exp2(s^T scale log2(e) - lse), ds^T = p^T (dp^T - delta), dv +=
+// p^T do, dk += ds^T q. dk (times scale) and dv are written once.
+template <int kD>
+__global__ void __launch_bounds__(kThreads, bwd_min_blocks<kD>())
+ga_bwd_dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                   const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                   const float* __restrict__ lse, const float* __restrict__ delta,
+                   bf16* __restrict__ dk, bf16* __restrict__ dv, int H, int T, int S, int D,
+                   float scale, float scale_log2, Strides sq, Strides sk, Strides sv, Strides sd,
+                   Strides sdk, Strides sdv) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  constexpr int kTile = tile_elems<kD>(), kSub = sub_cols<kD>(), kN = kSub / 8;
+  bf16* ring = reinterpret_cast<bf16*>(smem_raw);  // [kStages][q, do][kRows][tile_ld]
+  float* rows = reinterpret_cast<float*>(ring + kStages * 2 * kTile);  // [kStages][lse, delta][kRows]
+  const int bh = blockIdx.y, b = bh / H, h = bh - b * H;
+  const int lane = threadIdx.x & 31, c2 = (lane & 3) * 2;
+  const int n0 = blockIdx.x * kRows + (threadIdx.x >> 5) * 16;
+  const bf16* qb = q + b * sq.b + h * sq.h;
+  const bf16* gb = dout + b * sd.b + h * sd.h;
+  const float* lse_bh = lse + static_cast<long long>(bh) * T;
+  const float* delta_bh = delta + static_cast<long long>(bh) * T;
+  const int tiles = (T + kRows - 1) / kRows;
+  auto load = [&](int t) {  // query tile t into its stage (nothing past the last), one group
+    if (t < tiles) {
+      bf16* stage = ring + (t % kStages) * 2 * kTile;
+      float* stage_rows = rows + (t % kStages) * 2 * kRows;
+      copy_tile<kD>(qb, sq.t, t * kRows, T, D, stage);
+      copy_tile<kD>(gb, sd.t, t * kRows, T, D, stage + kTile);
+      copy_rows_f32(lse_bh, delta_bh, t * kRows, T, stage_rows, stage_rows + kRows);
+    }
+    cp_async_commit();
+  };
+
+#pragma unroll
+  for (int t = 0; t < kStages - 1; ++t) load(t);
+  uint32_t ka[1][kD / 16][4], va[1][kD / 16][4];  // one 16-key m-tile a warp
+  load_frags<kD>(k + b * sk.b + h * sk.h, sk.t, n0, S, D, ka[0]);
+  load_frags<kD>(v + b * sv.b + h * sv.h, sv.t, n0, S, D, va[0]);
+
+  float dk_acc[1][kD / 8][4], dv_acc[1][kD / 8][4];
+#pragma unroll
+  for (int j = 0; j < kD / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[0][j][e] = dv_acc[0][j][e] = 0.f;
+
+  for (int t = 0; t < tiles; ++t) {
+    cp_async_wait<kStages - 2>();  // tile t has arrived
+    __syncthreads();  // for every thread, and every warp is done with tile t - 1
+    load(t + kStages - 1);  // into tile t - 1's stage
+    const int stage = t % kStages;
+    const bf16* qt = ring + stage * 2 * kTile;
+    const bf16* gt = qt + kTile;
+    const float* lse_t = rows + stage * 2 * kRows;
+    const float* delta_t = lse_t + kRows;
+#pragma unroll
+    for (int col0 = 0; col0 < kRows; col0 += kSub) {
+      float st[1][kN][4], dpt[1][kN][4];
+      mtiles_times_tile_t<kD, 1, kN>(ka, qt, col0, st);
+      mtiles_times_tile_t<kD, 1, kN>(va, gt, col0, dpt);
+#pragma unroll
+      for (int n = 0; n < kN; ++n) {
+        const float2 l = *reinterpret_cast<const float2*>(lse_t + col0 + 8 * n + c2);
+        const float2 dl = *reinterpret_cast<const float2*>(delta_t + col0 + 8 * n + c2);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float p = fast_exp2(fmaf(st[0][n][e], scale_log2, -((e & 1) ? l.y : l.x)));
+          st[0][n][e] = p;
+          dpt[0][n][e] = p * (dpt[0][n][e] - ((e & 1) ? dl.y : dl.x));
+        }
+      }
+      uint32_t pa[1][kN / 2][4], dsa[1][kN / 2][4];
+      acc_to_frags<kN>(st[0], pa[0]);
+      acc_to_frags<kN>(dpt[0], dsa[0]);
+      mtiles_times_tile<kD, 1, kN / 2>(pa, gt, col0, dv_acc);
+      mtiles_times_tile<kD, 1, kN / 2>(dsa, qt, col0, dk_acc);
+    }
+  }
+
+  store_acc<kD>(dk + b * sdk.b + h * sdk.h, sdk.t, n0, S, D, dk_acc[0], scale, scale);
+  store_acc<kD>(dv + b * sdv.b + h * sdv.h, sdv.t, n0, S, D, dv_acc[0], 1.f, 1.f);
+}
+
+// One block per (64-row query tile, b h): kWarps warps of 16 rows, each holding
+// its rows' q and do as A fragments and their lse and delta. Per key tile (k
+// and v through a two-stage ring), in order, kSub keys at a time: s = q k^T,
+// dp = do v^T, p = exp2(s scale log2(e) - lse), ds = p (dp - delta), dq += ds
+// k. dq (times scale) is written once.
+template <int kD>
+__global__ void __launch_bounds__(kThreads, bwd_min_blocks<kD>())
+ga_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                 const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                 const float* __restrict__ lse, const float* __restrict__ delta,
+                 bf16* __restrict__ dq, int H, int T, int S, int D, float scale,
+                 float scale_log2, Strides sq, Strides sk, Strides sv, Strides sd,
+                 Strides sdq) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  constexpr int kTile = tile_elems<kD>(), kSub = sub_cols<kD>(), kN = kSub / 8;
+  bf16* ring = reinterpret_cast<bf16*>(smem_raw);  // [kStages][k, v][kRows][tile_ld]
+  const int bh = blockIdx.y, b = bh / H, h = bh - b * H;
+  const int lane = threadIdx.x & 31, c2 = (lane & 3) * 2;
+  const int m0 = blockIdx.x * kRows + (threadIdx.x >> 5) * 16;
+  const bf16* kb = k + b * sk.b + h * sk.h;
+  const bf16* vb = v + b * sv.b + h * sv.h;
+  const int tiles = (S + kRows - 1) / kRows;
+  auto load = [&](int t) {  // key tile t into its stage (nothing past the last), one group
+    if (t < tiles) {
+      bf16* stage = ring + (t % kStages) * 2 * kTile;
+      copy_tile<kD>(kb, sk.t, t * kRows, S, D, stage);
+      copy_tile<kD>(vb, sv.t, t * kRows, S, D, stage + kTile);
+    }
+    cp_async_commit();
+  };
+
+#pragma unroll
+  for (int t = 0; t < kStages - 1; ++t) load(t);
+  uint32_t qa[1][kD / 16][4], ga[1][kD / 16][4];  // one 16-row m-tile a warp
+  load_frags<kD>(q + b * sq.b + h * sq.h, sq.t, m0, T, D, qa[0]);
+  load_frags<kD>(dout + b * sd.b + h * sd.h, sd.t, m0, T, D, ga[0]);
+  // a padded row's q and do are zero: its lse and delta may be too
+  const int r0 = m0 + (lane >> 2), r1 = r0 + 8;
+  const long long row = static_cast<long long>(bh) * T;
+  const float lse0 = r0 < T ? lse[row + r0] : 0.f, lse1 = r1 < T ? lse[row + r1] : 0.f;
+  const float delta0 = r0 < T ? delta[row + r0] : 0.f, delta1 = r1 < T ? delta[row + r1] : 0.f;
+
+  float dq_acc[1][kD / 8][4];
+#pragma unroll
+  for (int j = 0; j < kD / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dq_acc[0][j][e] = 0.f;
+
+  for (int t = 0; t < tiles; ++t) {
+    cp_async_wait<kStages - 2>();  // tile t has arrived
+    __syncthreads();  // for every thread, and every warp is done with tile t - 1
+    load(t + kStages - 1);  // into tile t - 1's stage
+    const bf16* kt = ring + (t % kStages) * 2 * kTile;
+    const bool ragged = (t + 1) * kRows > S;
+#pragma unroll
+    for (int col0 = 0; col0 < kRows; col0 += kSub) {
+      float s[1][kN][4], dp[1][kN][4];
+      mtiles_times_tile_t<kD, 1, kN>(qa, kt, col0, s);
+      mtiles_times_tile_t<kD, 1, kN>(ga, kt + kTile, col0, dp);
+#pragma unroll
+      for (int n = 0; n < kN; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const bool upper = e >= 2;
+          float p = fast_exp2(fmaf(s[0][n][e], scale_log2, -(upper ? lse1 : lse0)));
+          // a padded key's logit is 0, and exp2(-lse) may overflow
+          if (ragged && t * kRows + col0 + 8 * n + c2 + (e & 1) >= S) p = 0.f;
+          dp[0][n][e] = p * (dp[0][n][e] - (upper ? delta1 : delta0));
+        }
+      uint32_t dsa[1][kN / 2][4];
+      acc_to_frags<kN>(dp[0], dsa[0]);
+      mtiles_times_tile<kD, 1, kN / 2>(dsa, kt, col0, dq_acc);
+    }
+  }
+
+  store_acc<kD>(dq + b * sdq.b + h * sdq.h, sdq.t, m0, T, D, dq_acc[0], scale, scale);
+}
+
+// ------------------------------------------------------------------- launch
+
+// Shared memory of the forward and the dq kernel (k and v tiles) and of the
+// dk / dv kernel (q and do tiles, and the rows' lse and delta), in bytes
+template <int kD, int kR = kRows>
+constexpr size_t ring_bytes(bool rows) {
+  return kStages * (2 * tile_elems<kD, kR>() * sizeof(bf16) + (rows ? 2 * kR * sizeof(float) : 0));
+}
+
+template <typename K>
+cudaError_t allow_smem(K kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes));
+}
+
+Strides strides_at(const long long* s, int i) { return Strides{s[3 * i], s[3 * i + 1], s[3 * i + 2]}; }
+
+template <int kD>
+int launch_fwd(const bf16* q, const bf16* k, const bf16* v, bf16* out, float* lse, int B, int H,
+               int T, int S, int D, float scale, const long long* st, cudaStream_t stream) {
+  const size_t smem = ring_bytes<kD, fwd_keys<kD>()>(false);
+  cudaError_t err = allow_smem(ga_fwd_kernel<kD>, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  constexpr int kBlockRows = 16 * fwd_mtiles<kD>() * kWarps;
+  const dim3 grid((T + kBlockRows - 1) / kBlockRows, B * H);
+  ga_fwd_kernel<kD><<<grid, kThreads, smem, stream>>>(
+      q, k, v, out, lse, H, T, S, D, scale * kLog2e, strides_at(st, 0), strides_at(st, 1),
+      strides_at(st, 2), strides_at(st, 3));
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int kD>
+int launch_bwd(const bf16* q, const bf16* k, const bf16* v, const bf16* out, const bf16* dout,
+               const float* lse, float* delta, bf16* dq, bf16* dk, bf16* dv, int B, int H, int T,
+               int S, int D, float scale, const long long* st, cudaStream_t stream) {
+  // strides: q, k, v, out, dout, dq, dk, dv
+  const long long rows = static_cast<long long>(B) * T * H;
+  const unsigned delta_blocks = static_cast<unsigned>((rows * 8 + kDeltaThreads - 1) / kDeltaThreads);
+  ga_bwd_delta_kernel<<<delta_blocks, kDeltaThreads, 0, stream>>>(
+      out, dout, delta, B, H, T, D, strides_at(st, 3), strides_at(st, 4));
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+
+  const size_t smem_kv = ring_bytes<kD>(true);
+  err = allow_smem(ga_bwd_dkdv_kernel<kD>, smem_kv);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  ga_bwd_dkdv_kernel<kD><<<dim3((S + kRows - 1) / kRows, B * H), kThreads, smem_kv, stream>>>(
+      q, k, v, dout, lse, delta, dk, dv, H, T, S, D, scale, scale * kLog2e, strides_at(st, 0),
+      strides_at(st, 1), strides_at(st, 2), strides_at(st, 4), strides_at(st, 6),
+      strides_at(st, 7));
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+
+  const size_t smem_q = ring_bytes<kD>(false);
+  err = allow_smem(ga_bwd_dq_kernel<kD>, smem_q);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  ga_bwd_dq_kernel<kD><<<dim3((T + kRows - 1) / kRows, B * H), kThreads, smem_q, stream>>>(
+      q, k, v, dout, lse, delta, dq, H, T, S, D, scale, scale * kLog2e, strides_at(st, 0),
+      strides_at(st, 1), strides_at(st, 2), strides_at(st, 4), strides_at(st, 5));
+  return static_cast<int>(cudaGetLastError());
+}
+
+constexpr int kBadShape = -1;
+
+bool shape_ok(int B, int H, int T, int S, int D) {
+  return B >= 1 && H >= 1 && T >= 1 && S >= 1 && D >= 8 && D <= 128 && D % 8 == 0 &&
+         static_cast<long long>(B) * H <= 65535;
+}
+
+}  // namespace
+
+extern "C" {
+
+// q [B, T, H, D], k and v [B, S, H, D] bf16 through their element strides
+// (strides: 3 per tensor, (b, t, h), for q, k, v, out; the head dim has
+// stride 1; every base and stride 16-byte aligned); out [B, T, H, D] bf16,
+// lse [B, H, T] fp32 (log2 units). 8 <= D <= 128 with D % 8 == 0, B H <=
+// 65535. Returns 0, kBadShape, or the CUDA error of the launch.
+int global_attention_fwd(const void* q, const void* k, const void* v, void* out, float* lse,
+                         int B, int H, int T, int S, int D, float scale, const long long* strides,
+                         void* stream) {
+  if (!shape_ok(B, H, T, S, D)) return kBadShape;
+  auto run = [&](auto launch) {
+    return launch(static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+                  static_cast<const bf16*>(v), static_cast<bf16*>(out), lse, B, H, T, S, D, scale,
+                  strides, static_cast<cudaStream_t>(stream));
+  };
+  if (D <= 32) return run(launch_fwd<32>);
+  if (D <= 64) return run(launch_fwd<64>);
+  return run(launch_fwd<128>);
+}
+
+// The backward of global_attention_fwd: out and lse are its outputs, dout
+// the incoming gradient, delta [B, H, T] fp32 scratch; dq [B, T, H, D], dk
+// and dv [B, S, H, D] bf16 (strides: q, k, v, out, dout, dq, dk, dv). Three
+// launches on the stream: delta, dk and dv, dq.
+int global_attention_bwd(const void* q, const void* k, const void* v, const void* out,
+                         const void* dout, const float* lse, float* delta, void* dq, void* dk,
+                         void* dv, int B, int H, int T, int S, int D, float scale,
+                         const long long* strides, void* stream) {
+  if (!shape_ok(B, H, T, S, D)) return kBadShape;
+  auto run = [&](auto launch) {
+    return launch(static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+                  static_cast<const bf16*>(v), static_cast<const bf16*>(out),
+                  static_cast<const bf16*>(dout), lse, delta, static_cast<bf16*>(dq),
+                  static_cast<bf16*>(dk), static_cast<bf16*>(dv), B, H, T, S, D, scale, strides,
+                  static_cast<cudaStream_t>(stream));
+  };
+  if (D <= 32) return run(launch_bwd<32>);
+  if (D <= 64) return run(launch_bwd<64>);
+  return run(launch_bwd<128>);
+}
+
+}  // extern "C"

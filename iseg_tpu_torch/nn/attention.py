@@ -6,16 +6,21 @@ they work on tokens, with their projections over the last axis.
 
 Global attention is no Pallas kernel in the JAX package
 (``jax.nn.dot_product_attention``, XLA). :func:`dot_product_attention` takes
-one of four routes (:func:`attention_route`): on the card, a call that
-records a gradient goes through the hand-written window-attention kernels
-(:func:`kernel_attention`: one window per batch row, the streaming kernels
-without a bias or a mask where it has none), whose backward adds in a fixed
+one of five routes (:func:`attention_route`). On the card, a call that
+records a gradient takes a hand-written pair whose backward adds in a fixed
 order, so two runs of a train step end bit for bit equal, as in the JAX
-package (cuDNN's and FlashAttention's backwards do not); such a call at a
-shape the kernels are not built for (a head dim above 128, a type other than
-float32 and bfloat16) takes the plain version in one type
-(:func:`plain_attention`), whose cuBLAS products add in a fixed order too; a
-call that records none (serving, ``torch.export``) is
+package (cuDNN's and FlashAttention's backwards do not): in bfloat16 (or
+under bf16 autocast) with no bias and no mask and a head dim the kernels
+are built for, the global-attention kernels (:func:`global_kernel_attention`,
+``ops/kernels/global_attention.py``: blocks over query and key tiles, a
+split backward with no atomics; ViT-L's and EVA02-L's blocks, MOAT's
+without its relative bias); with a bias, a mask or in float32, the
+window-attention kernels (:func:`kernel_attention`: one window per batch
+row, the streaming kernels built without a mask, and without a bias where
+there is none); at a shape neither is built for (a head dim above 128, a
+type other than float32 and bfloat16) the plain version in one type
+(:func:`plain_attention`), whose cuBLAS products add in a fixed order too.
+A call that records none (serving, ``torch.export``) is
 ``F.scaled_dot_product_attention``; on the CPU it is the plain version,
 :func:`dot_product_attention_reference` (einsum products, softmax in
 ``promote_types(dtype, float32)``), which the tests hold against the JAX
@@ -37,6 +42,7 @@ from torch import nn
 from iseg_tpu_torch.nn.conv import Conv2d
 from iseg_tpu_torch.nn.dcn import _zero_init
 from iseg_tpu_torch.ops.deform import bilinear_gather
+from iseg_tpu_torch.ops.kernels import global_attention as ga
 from iseg_tpu_torch.ops.kernels.window_attention import (_records_grad, forward_route,
                                                          window_attention)
 from iseg_tpu_torch.ops.numerics import replace_non_finite
@@ -225,25 +231,56 @@ def kernel_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.reshape(b, h, n, d)[:, :, :t].permute(0, 2, 1, 3)
 
 
+def global_kernel_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                            mask: Optional[torch.Tensor] = None,
+                            bias: Optional[torch.Tensor] = None,
+                            scale: Optional[float] = None) -> torch.Tensor:
+    """:func:`dot_product_attention_reference`'s function without a bias and
+    a mask through
+    :func:`~iseg_tpu_torch.ops.kernels.global_attention.global_attention`
+    (the kernels on the card, their plain version on the CPU): q, k, v
+    ``[B, T, H, D]`` (k, v ``[B, S, H, D]``) in one type (:func:`_one_dtype`)
+    and their own layout, views of a packed projection taken as they are
+    (a copy only where a base or stride is not 16-byte aligned)."""
+    if mask is not None or bias is not None:
+        raise ValueError("global_kernel_attention takes no mask and no bias; "
+                         "kernel_attention does")
+    ct = _one_dtype(q, k, v)
+    q, k, v = (x.to(ct) for x in (q, k, v))
+    if q.is_cuda:
+        q, k, v = (ga.as_aligned(x) for x in (q, k, v))
+    return ga.global_attention(q, k, v, scale)
+
+
 def attention_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    bias: Optional[torch.Tensor] = None) -> str:
+                    bias: Optional[torch.Tensor] = None,
+                    mask: Optional[torch.Tensor] = None) -> str:
     """The route of :func:`dot_product_attention`. On the card, a call that
-    records a gradient (of q, k, v or ``bias``) takes ``"kernel"``
-    (:func:`kernel_attention`) where the streaming kernels are built for its
-    type and head dim (float32 or bfloat16, ``D <= 128``), else ``"fixed"``
-    (:func:`plain_attention`); one that records none ``"sdpa"``
+    records a gradient (of q, k, v or ``bias``) takes ``"global"``
+    (:func:`global_kernel_attention`) where it has no bias and no mask and
+    the global-attention kernels are built for its type and shape
+    (bfloat16, by autocast or by q, k and v; ``D % 8 == 0``, ``D <= 128``:
+    ``ga.takes``); else ``"kernel"`` (:func:`kernel_attention`) where the
+    streaming window-attention kernels are built for its type and head dim
+    (float32 or bfloat16, ``D <= 128``); else ``"fixed"``
+    (:func:`plain_attention`). One that records none takes ``"sdpa"``
     (:func:`sdpa_attention`). On the CPU ``"plain"``
     (:func:`dot_product_attention_reference`)."""
     if not q.is_cuda:
         return "plain"
     if not _records_grad(q, k, v, bias):
         return "sdpa"
-    n = max(q.shape[1], k.shape[1])
-    built = forward_route(_one_dtype(q, k, v), n, q.shape[-1], False) == "stream"
+    ct = _one_dtype(q, k, v)
+    b, t, h, d = q.shape
+    if bias is None and mask is None and ga.takes(ct, b, h, t, k.shape[1], d):
+        return "global"
+    n = max(t, k.shape[1])
+    built = forward_route(ct, n, d, False) == "stream"
     return "kernel" if built else "fixed"
 
 
-_ROUTES = {"kernel": kernel_attention, "fixed": plain_attention, "sdpa": sdpa_attention,
+_ROUTES = {"global": global_kernel_attention, "kernel": kernel_attention,
+           "fixed": plain_attention, "sdpa": sdpa_attention,
            "plain": dot_product_attention_reference}
 
 
@@ -253,12 +290,13 @@ def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           bias: Optional[torch.Tensor] = None,
                           scale: Optional[float] = None) -> torch.Tensor:
     """``[B, N, H, D]`` q, k, v -> ``[B, N, H, D]`` by :func:`attention_route`:
-    on the card where a gradient is recorded the window-attention kernels
-    (or, at a shape they are not built for, :func:`plain_attention`), both
-    with a fixed-order backward; :func:`sdpa_attention` on the card
-    otherwise; :func:`dot_product_attention_reference` on the CPU;
-    ``guard_numerics`` replaces non-finite outputs."""
-    attend = _ROUTES[attention_route(q, k, v, bias)]
+    on the card where a gradient is recorded the global-attention kernels
+    (bf16, no bias, no mask), the window-attention kernels (or, at a shape
+    neither is built for, :func:`plain_attention`), each with a fixed-order
+    backward; :func:`sdpa_attention` on the card otherwise;
+    :func:`dot_product_attention_reference` on the CPU; ``guard_numerics``
+    replaces non-finite outputs."""
+    attend = _ROUTES[attention_route(q, k, v, bias, mask)]
     out = attend(q, k, v, mask, bias=bias, scale=scale)
     return replace_non_finite(out) if guard_numerics else out
 

@@ -1,0 +1,271 @@
+"""Global attention with a gradient on the card: softmax(q k^T scale) v over
+whole sequences, ``[B, T, H, D]`` q and ``[B, S, H, D]`` k, v.
+
+No Pallas kernel computes this in the JAX package: there global attention
+is ``jax.nn.dot_product_attention`` (XLA, ``iseg_tpu/nn/attention.py:58``).
+On CUDA tensors the forward and the backward are the hand-written kernels
+of ``iseg_tpu_torch/csrc/global_attention.cu`` (its note says what bounds
+them on the H100 and how the design answers it): bf16 q, k, v, out and
+gradients, fp32 accumulators, head dims that are multiples of 8 up to 128,
+read and written through their strides (the head dim contiguous, every
+base and stride 16-byte aligned), so q, k and v may be views of a packed
+qkv projection. The backward is split, with no atomics: delta = rowsum(do
+out), then dk and dv by key tile, then dq by query tile, each walking the
+other side's tiles in one fixed order, so two runs are equal bit for bit.
+On CPU tensors :func:`global_attention` is the plain PyTorch version
+(:func:`global_attention_reference` and autograd). A CUDA tensor never
+falls back to it: a wrong dtype, head dim, layout or device, or a failed
+launch, raises.
+
+Beside the function, the kernels' arithmetic in PyTorch, which the CPU
+tests hold against ``jax.nn.dot_product_attention`` and its VJP:
+:func:`global_attention_forward_reference` (out and the rows' lse, in log2
+units) and :func:`global_attention_backward_reference` (the three passes
+from lse, in the kernels' tile order).
+
+``nn/attention.py`` routes bf16 global attention that records a gradient
+on the card, with no bias and no mask, here (``attention_route``'s
+``"global"``). ``LAUNCH_COUNTS`` counts ``"fwd"`` (one per forward launch)
+and ``"bwd"`` (one per backward, whatever its three launches), nowhere
+else.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Optional
+
+import torch
+
+LAUNCH_COUNTS = {"fwd": 0, "bwd": 0}
+
+SOURCE = "global_attention.cu"
+TILE = 64  # query rows (or keys) of a block and of a streamed tile
+MAX_D = 128
+MAX_HEAD_ROWS = 65535  # B H: the grid's second dimension
+_BAD_SHAPE = -1
+_LOG2E = math.log2(math.e)
+
+
+def takes(dtype: torch.dtype, b: int, h: int, t: int, s: int, d: int) -> bool:
+    """Whether the kernels are built for q ``[b, t, h, d]`` and k, v ``[b, s,
+    h, d]`` of ``dtype``: bfloat16, ``d`` a multiple of 8 up to 128, at least
+    one query and one key, ``b h <= 65535``."""
+    return (dtype == torch.bfloat16 and 8 <= d <= MAX_D and d % 8 == 0 and t >= 1 and s >= 1
+            and 1 <= b * h <= MAX_HEAD_ROWS)
+
+
+def reset_launch_counts() -> None:
+    for k in LAUNCH_COUNTS:
+        LAUNCH_COUNTS[k] = 0
+
+
+def build():
+    """Compile (if needed) and load the CUDA library; returns the
+    :class:`~iseg_tpu_torch.ops.kernels._build.Built` record."""
+    from iseg_tpu_torch.ops.kernels import _build
+
+    built = _build.load(SOURCE)
+    lib = built.lib
+    if not getattr(lib, "_iseg_bound", False):
+        ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        strides = ctypes.POINTER(ctypes.c_longlong)
+        lib.global_attention_fwd.argtypes = [ptr] * 5 + [i32] * 5 + [f32, strides, ptr]
+        lib.global_attention_fwd.restype = i32
+        lib.global_attention_bwd.argtypes = [ptr] * 10 + [i32] * 5 + [f32, strides, ptr]
+        lib.global_attention_bwd.restype = i32
+        lib._iseg_bound = True
+    return built
+
+
+def aligned(t: torch.Tensor) -> bool:
+    """Whether the kernels may read or write ``t`` ``[B, T, H, D]`` as it is:
+    the head dim contiguous and whole 16-byte pieces, the base address and
+    the batch, token and head strides multiples of 16 bytes."""
+    size = t.element_size()
+    return (t.stride(3) == 1 and t.shape[3] * size % 16 == 0 and t.data_ptr() % 16 == 0
+            and all(s * size % 16 == 0 for s in t.stride()[:3]))
+
+
+def as_aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` itself where :func:`aligned`, else a contiguous copy, which is
+    (a contiguous tensor at an odd offset of its storage included)."""
+    return t if aligned(t) else torch.empty(t.shape, dtype=t.dtype, device=t.device).copy_(t)
+
+
+def _check_cuda_inputs(q, k, v, **more) -> None:
+    if q.ndim != 4 or k.ndim != 4 or v.ndim != 4:
+        raise ValueError(f"global_attention kernel: q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)} must be [B,T,H,D] and [B,S,H,D]")
+    b, t, h, d = q.shape
+    s = k.shape[1]
+    if tuple(k.shape) != (b, s, h, d) or tuple(v.shape) != (b, s, h, d):
+        raise ValueError(f"global_attention kernel: k {tuple(k.shape)} and v {tuple(v.shape)} "
+                         f"must both be [B,S,H,D] with q's B, H, D {(b, h, d)}")
+    named = {"q": q, "k": k, "v": v, **more}
+    for name, x in named.items():
+        if x.device != q.device or q.device.type != "cuda":
+            raise ValueError(f"global_attention kernel: {name} on {x.device}; all tensors "
+                             "must be on the same CUDA device")
+        if x.dtype != torch.bfloat16:
+            raise TypeError(f"global_attention kernel takes bfloat16 tensors, got {name} "
+                            f"{x.dtype}")
+        if not aligned(x):
+            raise ValueError(f"global_attention kernel: {name} (shape {tuple(x.shape)}, strides "
+                             f"{x.stride()}) must have a contiguous head dim and 16-byte "
+                             "aligned base and strides")
+    if not takes(q.dtype, b, h, t, s, d):
+        raise ValueError(f"global_attention kernel: no kernel for B={b}, H={h}, T={t}, S={s}, "
+                         f"D={d} (D a multiple of 8 up to {MAX_D}, T, S >= 1, B H <= "
+                         f"{MAX_HEAD_ROWS})")
+
+
+def _strides(*tensors):
+    values = [s for t in tensors for s in t.stride()[:3]]
+    return (ctypes.c_longlong * len(values))(*values)
+
+
+def _raise_on(err: int, what: str, q: torch.Tensor) -> None:
+    if err == _BAD_SHAPE:
+        raise ValueError(f"global_attention {what} kernel: no kernel for the shape "
+                         f"{tuple(q.shape)}")
+    if err != 0:
+        raise RuntimeError(f"global_attention {what} kernel launch failed: CUDA error {err}")
+
+
+def _launch_fwd(q, k, v, scale: float):
+    """(out ``[B, T, H, D]`` contiguous, lse ``[B, H, T]`` fp32, log2 units)."""
+    _check_cuda_inputs(q, k, v)
+    if not 0 < scale < math.inf:
+        raise ValueError(f"global_attention kernel takes a positive finite scale, got {scale}")
+    b, t, h, d = q.shape
+    out = torch.empty((b, t, h, d), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
+    err = build().lib.global_attention_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(), b, h, t,
+        k.shape[1], d, float(scale), _strides(q, k, v, out),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _raise_on(err, "forward", q)
+    LAUNCH_COUNTS["fwd"] += 1
+    return out, lse
+
+
+def _launch_bwd(q, k, v, out, lse, dout, scale: float):
+    """(dq, dk, dv), each contiguous in its input's shape."""
+    _check_cuda_inputs(q, k, v, out=out, dout=dout)
+    b, t, h, d = q.shape
+    if tuple(out.shape) != tuple(q.shape) or tuple(dout.shape) != tuple(q.shape):
+        raise ValueError(f"global_attention backward: out {tuple(out.shape)} and dout "
+                         f"{tuple(dout.shape)} must have q's shape {tuple(q.shape)}")
+    if lse.dtype != torch.float32 or tuple(lse.shape) != (b, h, t) or not lse.is_contiguous():
+        raise ValueError(f"global_attention backward: lse must be contiguous fp32 [B,H,T] = "
+                         f"{(b, h, t)}, got {lse.dtype} {tuple(lse.shape)}")
+    dq = torch.empty((b, t, h, d), dtype=q.dtype, device=q.device)
+    dk, dv = (torch.empty(k.shape, dtype=q.dtype, device=q.device) for _ in range(2))
+    delta = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
+    err = build().lib.global_attention_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h, t,
+        k.shape[1], d, float(scale), _strides(q, k, v, out, dout, dq, dk, dv),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _raise_on(err, "backward", q)
+    LAUNCH_COUNTS["bwd"] += 1
+    return dq, dk, dv
+
+
+class _GlobalAttention(torch.autograd.Function):
+    """Forward and backward through the CUDA kernels; the forward saves out
+    and lse, which the backward reads."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale):
+        out, lse = _launch_fwd(q, k, v, scale)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.scale = scale
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = _launch_bwd(q, k, v, out, lse, as_aligned(dout), ctx.scale)
+        return dq, dk, dv, None
+
+
+def _scale(q: torch.Tensor, scale: Optional[float]) -> float:
+    return 1.0 / math.sqrt(q.shape[-1]) if scale is None else float(scale)
+
+
+def global_attention_reference(q, k, v, scale: Optional[float] = None) -> torch.Tensor:
+    """The plain function: ``softmax(q k^T scale) v`` per (batch row, head),
+    fp32 inside (float64 for float64 inputs), the result in q's dtype."""
+    f = torch.promote_types(q.dtype, torch.float32)
+    logits = torch.einsum("bthd,bshd->bhts", q.to(f), k.to(f)) * _scale(q, scale)
+    p = torch.softmax(logits, dim=-1)
+    return torch.einsum("bhts,bshd->bthd", p, v.to(f)).to(q.dtype)
+
+
+def global_attention_forward_reference(q, k, v, scale: Optional[float] = None):
+    """The forward kernel's function: (out in q's dtype, lse ``[B, H, T]``:
+    each row's log2-sum-exp2 of the logits in log2 units, ``logits scale
+    log2(e)``), fp32 inside (float64 for float64)."""
+    f = torch.promote_types(q.dtype, torch.float32)
+    logits2 = torch.einsum("bthd,bshd->bhts", q.to(f), k.to(f)) * (_scale(q, scale) * _LOG2E)
+    lse = torch.logsumexp(logits2 / _LOG2E, dim=-1) * _LOG2E
+    p = torch.exp2(logits2 - lse[..., None])
+    return torch.einsum("bhts,bshd->bthd", p, v.to(f)).to(q.dtype), lse
+
+
+def global_attention_backward_reference(q, k, v, out, lse, dout, scale: Optional[float] = None,
+                                        tile: int = TILE):
+    """The backward kernels' three passes in PyTorch, in their order: delta =
+    rowsum(dout out); dk and dv by key tile, each walking the query tiles in
+    order; dq by query tile, each walking the key tiles in order; p from
+    ``lse`` (log2 units). fp32 inside (float64 for float64); (dq, dk, dv) in
+    q's dtype."""
+    f = torch.promote_types(q.dtype, torch.float32)
+    c = _scale(q, scale) * _LOG2E
+    qf, kf, vf, gf = (x.to(f) for x in (q, k, v, dout))
+    lse = lse.to(f)
+    delta = (gf * out.to(f)).sum(-1).permute(0, 2, 1)  # [B, H, T]
+    t, s = q.shape[1], k.shape[1]
+    dk, dv = torch.zeros_like(kf), torch.zeros_like(vf)
+    for j in range(0, s, tile):
+        kj, vj = kf[:, j:j + tile], vf[:, j:j + tile]
+        for i in range(0, t, tile):
+            qi, gi = qf[:, i:i + tile], gf[:, i:i + tile]
+            pt = torch.exp2(torch.einsum("bshd,bthd->bhst", kj, qi) * c
+                            - lse[:, :, None, i:i + tile])
+            dst = pt * (torch.einsum("bshd,bthd->bhst", vj, gi) - delta[:, :, None, i:i + tile])
+            dv[:, j:j + tile] += torch.einsum("bhst,bthd->bshd", pt, gi)
+            dk[:, j:j + tile] += torch.einsum("bhst,bthd->bshd", dst, qi)
+    dk = dk * _scale(q, scale)
+    dq = torch.zeros_like(qf)
+    for i in range(0, t, tile):
+        qi, gi = qf[:, i:i + tile], gf[:, i:i + tile]
+        for j in range(0, s, tile):
+            kj, vj = kf[:, j:j + tile], vf[:, j:j + tile]
+            p = torch.exp2(torch.einsum("bthd,bshd->bhts", qi, kj) * c - lse[:, :, i:i + tile, None])
+            ds = p * (torch.einsum("bthd,bshd->bhts", gi, vj) - delta[:, :, i:i + tile, None])
+            dq[:, i:i + tile] += torch.einsum("bhts,bshd->bthd", ds, kj)
+    dq = dq * _scale(q, scale)
+    return tuple(x.to(q.dtype) for x in (dq, dk, dv))
+
+
+def global_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     scale: Optional[float] = None) -> torch.Tensor:
+    """Global attention ``softmax(q k^T scale) v``.
+
+    Args:
+      q: ``[B, T, H, D]``; k, v: ``[B, S, H, D]``. On the card bfloat16 with
+        ``D % 8 == 0``, ``D <= 128``, the head dim contiguous and bases and
+        strides 16-byte aligned (:func:`as_aligned` makes a copy that is).
+      scale: the logits' scale, default 1/sqrt(D); positive on the card (the
+        forward takes the rows' maxima of the unscaled logits).
+    Returns ``[B, T, H, D]`` in q's dtype (contiguous on the card).
+    """
+    if q.device.type == "cpu":
+        return global_attention_reference(q, k, v, scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"global_attention: no kernel for device {q.device}")
+    return _GlobalAttention.apply(q, k, v, _scale(q, scale))

@@ -19,7 +19,9 @@ and in the backward ds, rounded to bf16 as operands): 1e-2 of max(1, max
 |plain|), 1e-3 for dbias. In fp32 they run on the tensor cores in split
 TF32 (hi + lo operands, lo hi + hi lo + hi hi products), which keeps them
 within the fp32 tolerance: 1e-4 of max(1, max |plain|) at Swin-L's shapes,
-rtol and atol 2e-5 at the small ones.
+rtol and atol 2e-5 at the small ones. The global-attention pair (bf16, p
+and ds rounded to bf16 as operands) is held to the same bf16 tolerance,
+1e-2 of max(1, max |plain|), and its two runs to each other bit for bit.
 """
 
 import numpy as np
@@ -27,6 +29,7 @@ import pytest
 import torch
 
 from iseg_tpu_torch.ops.kernels import deform_local as dl
+from iseg_tpu_torch.ops.kernels import global_attention as ga
 from iseg_tpu_torch.ops.kernels import upsample_ce as uce
 from iseg_tpu_torch.ops.kernels import window_attention as wa
 
@@ -1284,11 +1287,11 @@ def test_cuda_global_attention_streaming_is_bitwise_repeatable(cuda_device, shap
 @pytest.mark.cuda
 @pytest.mark.parametrize("masked", [False, True])
 def test_cuda_dot_product_attention_with_a_gradient_takes_the_kernels(cuda_device, masked):
-    """``dot_product_attention`` on the card: with a gradient through the
-    bias-free streaming pair, or with a boolean per-batch mask through the
-    pair built with both operands (the mask as its additive mask, a zero
-    bias standing in), within WA_TOL of the plain version; without one,
-    SDPA and no launch."""
+    """``dot_product_attention`` on the card: with a gradient and no mask
+    through the global-attention pair (no window-attention launch), or with
+    a boolean per-batch mask through the window-attention pair built with
+    both operands (the mask as its additive mask, a zero bias standing in),
+    within WA_TOL of the plain version; without one, SDPA and no launch."""
     from iseg_tpu_torch.nn import attention as tattn
 
     rng = np.random.RandomState(8)
@@ -1296,20 +1299,140 @@ def test_cuda_dot_product_attention_with_a_gradient_takes_the_kernels(cuda_devic
                                device=cuda_device).to(torch.bfloat16) for _ in range(4))
     mask = torch.tensor(rng.rand(2, 1, 197, 197) < 0.8, device=cuda_device) if masked else None
     wa.reset_launch_counts()
+    ga.reset_launch_counts()
     runs = []
     for fn in (tattn.dot_product_attention, tattn.dot_product_attention_reference):
         leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
         out = fn(*leaves, mask)
         runs.append([t.float().cpu().numpy()
                      for t in (out.detach(), *torch.autograd.grad(out, leaves, w))])
-    form = "stream" if masked else "global"
-    assert wa.LAUNCH_COUNTS == {**dict.fromkeys(wa.LAUNCH_COUNTS, 0), f"fwd_{form}": 1,
-                                f"bwd_{form}": 1}
+    if masked:
+        assert wa.LAUNCH_COUNTS == {**dict.fromkeys(wa.LAUNCH_COUNTS, 0), "fwd_stream": 1,
+                                    "bwd_stream": 1}
+        assert ga.LAUNCH_COUNTS == {"fwd": 0, "bwd": 0}
+    else:
+        assert not any(wa.LAUNCH_COUNTS.values())
+        assert ga.LAUNCH_COUNTS == {"fwd": 1, "bwd": 1}
     _assert_within_wa_tol(runs[0] + [np.zeros(1)], runs[1] + [np.zeros(1)], torch.bfloat16)
     wa.reset_launch_counts()
+    ga.reset_launch_counts()
     with torch.no_grad():
         tattn.dot_product_attention(q, k, v, mask)
+    assert not any(wa.LAUNCH_COUNTS.values()) and not any(ga.LAUNCH_COUNTS.values())
+
+
+# ------------------------------------- the global-attention kernel pair (bf16)
+
+# (B, H, T, S, D): ViT-L's, EVA02-L's patch-dropped and MOAT-4 stage 2's
+# shapes (phase 2 of chip_smoke.py's GA rows), ragged T against the 64-row
+# tiles, T != S both ways, and head dims below their bucket and at 128
+GA_SHAPES = {
+    "vit_l_8x16x1025x64": (8, 16, 1025, 1025, 64),
+    "eva02_l_4x16x769x64": (4, 16, 769, 769, 64),
+    "moat4_2x32x1024x32": (2, 32, 1024, 1024, 32),
+    "t65_d64": (3, 2, 65, 65, 64),
+    "t130_d64": (3, 2, 130, 130, 64),
+    "t130_d32": (2, 3, 130, 130, 32),
+    "t1_d64": (2, 2, 1, 1, 64),
+    "t70_s200_d64": (2, 2, 70, 200, 64),
+    "t200_s70_d32": (2, 2, 200, 70, 32),
+    "t97_d24": (2, 3, 97, 97, 24),
+    "t97_d128": (2, 3, 97, 97, 128),
+    "t97_d40": (2, 3, 97, 97, 40),
+}
+
+
+def _ga_inputs(device, shape, seed=0):
+    """q, k, v as views of packed projections ([B, T, H, D] each, as ViT's
+    block gives them; k and v packed together where S != T) and the incoming
+    gradient, bf16."""
+    b, h, t, s, d = GA_SHAPES[shape]
+    rng = np.random.RandomState(seed)
+    if s == t:
+        q, k, v = torch.tensor(rng.randn(b, t, 3, h, d).astype(np.float32),
+                               device=device).to(torch.bfloat16).unbind(2)
+    else:
+        q = torch.tensor(rng.randn(b, t, h, d).astype(np.float32), device=device)
+        k, v = torch.tensor(rng.randn(b, s, 2, h, d).astype(np.float32),
+                            device=device).to(torch.bfloat16).unbind(2)
+        q = q.to(torch.bfloat16)
+    dout = torch.tensor(rng.randn(b, t, h, d).astype(np.float32), device=device)
+    return q, k, v, dout.to(torch.bfloat16)
+
+
+def _ga_run(fn, q, k, v, dout):
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    out = fn(*leaves)
+    grads = torch.autograd.grad(out, leaves, dout)
+    torch.cuda.synchronize()
+    return [t.detach().float().cpu().numpy() for t in (out, *grads)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", sorted(GA_SHAPES))
+def test_cuda_global_attention_kernels_match_plain_version(cuda_device, shape):
+    """The global-attention pair against its plain version (fp32 inside),
+    forward and backward, within WA_TOL[bfloat16] (1e-2 of max(1, max
+    |plain|)): one forward and one backward of the pair, none of the
+    window-attention kernels."""
+    q, k, v, dout = _ga_inputs(cuda_device, shape)
+    ga.reset_launch_counts()
+    wa.reset_launch_counts()
+    got = _ga_run(ga.global_attention, q, k, v, dout)
+    assert ga.LAUNCH_COUNTS == {"fwd": 1, "bwd": 1}
     assert not any(wa.LAUNCH_COUNTS.values())
+    want = _ga_run(ga.global_attention_reference, q, k, v, dout)
+    _assert_within_wa_tol(got + [np.zeros(1)], want + [np.zeros(1)], torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ["vit_l_8x16x1025x64", "t130_d32", "t70_s200_d64"])
+def test_cuda_global_attention_kernels_are_bitwise_repeatable(cuda_device, shape):
+    """Two runs of the pair's forward and backward equal bit for bit (no
+    atomics: each output element is written by one block, each sum in one
+    order)."""
+    q, k, v, dout = _ga_inputs(cuda_device, shape, seed=3)
+    first = _ga_run(ga.global_attention, q, k, v, dout)
+    second = _ga_run(ga.global_attention, q, k, v, dout)
+    for name, a, b in zip(("out", "dq", "dk", "dv"), first, second):
+        np.testing.assert_array_equal(a, b, err_msg=name)
+
+
+@pytest.mark.cuda
+def test_cuda_global_attention_kernels_lse_and_passes(cuda_device):
+    """The forward's lse against the plain forward's, and the backward
+    against the plain three passes fed the kernel's own out and lse."""
+    q, k, v, dout = _ga_inputs(cuda_device, "t130_d64", seed=5)
+    out, lse = ga._launch_fwd(q, k, v, 0.125)
+    want_out, want_lse = ga.global_attention_forward_reference(q, k, v, 0.125)
+    torch.testing.assert_close(lse, want_lse, rtol=0, atol=1e-3)
+    _assert_within_wa_tol([out.float().cpu().numpy()] + [np.zeros(1)] * 4,
+                          [want_out.float().cpu().numpy()] + [np.zeros(1)] * 4, torch.bfloat16)
+    got = ga._launch_bwd(q, k, v, out, lse, dout, 0.125)
+    want = ga.global_attention_backward_reference(q.float(), k.float(), v.float(), out, lse,
+                                                  dout, 0.125)
+    _assert_within_wa_tol([np.zeros(1)] + [x.float().cpu().numpy() for x in got] + [np.zeros(1)],
+                          [np.zeros(1)] + [x.float().cpu().numpy() for x in want] + [np.zeros(1)],
+                          torch.bfloat16)
+
+
+@pytest.mark.cuda
+def test_cuda_global_attention_kernels_raise_on_what_they_do_not_take(cuda_device):
+    """float32, a head dim of no whole 16-byte pieces, a misaligned view, a
+    scale that is not positive: the wrapper raises, and launches nothing."""
+    q, k, v, _ = _ga_inputs(cuda_device, "t65_d64")
+    ga.reset_launch_counts()
+    with pytest.raises(TypeError):
+        ga.global_attention(q.float(), k.float(), v.float())
+    odd = torch.zeros(q.numel() + 1, dtype=q.dtype, device=cuda_device)[1:].view(q.shape)
+    with pytest.raises(ValueError, match="aligned"):
+        ga.global_attention(odd, k, v)
+    narrow = q[..., :60]
+    with pytest.raises(ValueError):
+        ga.global_attention(narrow, k[..., :60], v[..., :60])
+    with pytest.raises(ValueError, match="positive"):
+        ga.global_attention(q, k, v, scale=-0.125)
+    assert ga.LAUNCH_COUNTS == {"fwd": 0, "bwd": 0}
 
 
 @pytest.mark.cuda

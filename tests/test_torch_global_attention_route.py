@@ -231,15 +231,32 @@ def test_torch_global_attention_route(on_card, grad):
 
 
 def test_torch_global_kernel_route_without_bias_or_mask_is_streaming():
-    """The kernels' route for a call without a bias and a mask: the streaming
-    kernels at every N and D <= 128 (ViT-L's T = 1025, EVA02-L's patch-dropped
-    769), nothing above."""
+    """The route of a call without a bias and a mask that records a gradient
+    on the card (``is_cuda`` mocked): bf16 with a head dim of whole 16-byte
+    pieces up to 128 takes the global-attention kernels (``"global"``, at
+    ViT-L's T = 1025 and EVA02-L's patch-dropped 769 too); f32, and bf16 at
+    any other head dim up to 128, the streaming window-attention kernels
+    (``"kernel"``), which take every N at D <= 128 without a mask; nothing
+    above."""
     for dtype in (torch.float32, torch.bfloat16):
         for n in (49, 144, 769, 1025, 4096):
             for d in (24, 32, 64, 128):
                 assert twa.forward_route(dtype, n, d, False) == "stream"
                 assert twa.backward_route(dtype, n, d, False) == "stream"
         assert twa.forward_route(dtype, 1025, 256, False) == "cuda_core"
+    with mock.patch.object(torch.Tensor, "is_cuda", new_callable=mock.PropertyMock,
+                           return_value=True):
+        for dtype in (torch.float32, torch.bfloat16):
+            for n in (49, 769, 1025):
+                for d in (20, 24, 32, 64, 128, 256):
+                    q = torch.zeros(1, n, 2, d, dtype=dtype, requires_grad=True)
+                    route = tattn.attention_route(q, q, q)
+                    if d > 128:
+                        assert route == "fixed"
+                    elif dtype == torch.bfloat16 and d % 8 == 0:
+                        assert route == "global"
+                    else:
+                        assert route == "kernel"
 
 
 def test_torch_eva_block_bf16_within_twice_jax_bf16_noise():
