@@ -48,11 +48,11 @@ biases) + ASPP(256), 150 classes, batch 4, trains with AdamW and layerwise
 LR decay; above 64 classes its loss is the unfused resize + CE (phase 12).
 Global attention (no TPU kernel computes it in the JAX package) that records
 a gradient, as in the ViT-L, EVA02-L and MOAT train steps, runs in bf16
-without a bias and a mask on the global-attention kernel pair
+without a mask on the global-attention kernel pair
 (``csrc/global_attention.cu``: blocks over query and key tiles, a
-split fixed-order backward), and with MOAT's relative bias on the
-window-attention kernels' streaming pair, one window per batch row; where
-none is recorded (serving) it is ``F.scaled_dot_product_attention``. Another path serves a language model:
+split fixed-order backward), with MOAT's relative bias on its bias form
+(dbias summed over the batch rows in a fixed order); where none is
+recorded (serving) it is ``F.scaled_dot_product_attention``. Another path serves a language model:
 
 * Gemma: ``gemma_2b_en`` at its full width (hidden 2048, 8 heads over 1 KV
   head, head dim 256, FFN 16384, vocabulary 256000) with its depth cut from
@@ -117,11 +117,12 @@ others autotune.
    ``torch.use_deterministic_algorithms(True)`` (whether its backward runs
    there and repeats bit for bit: a yardstick); the global-attention kernel
    pair (the route of bf16 global attention with a gradient and without a
-   bias and a mask) at the same bf16 rows without a bias (ViT-L, EVA02-L
-   patch-dropped, MOAT-4 stage 2) on [B, T, H, D] views of the packed
-   projection, against its plain version, each run repeated bit for bit,
-   with SDPA and SDPA under deterministic algorithms beside each (device
-   time, yardsticks); dense-local sampling forward and all four
+   mask) at the same bf16 rows (ViT-L, EVA02-L patch-dropped, MOAT-4 stage
+   2, and its bias form at MOAT-4 stage 2 with the relative bias, dbias to
+   1e-3, the streaming pair's bias-alone build timed beside it) on [B, T, H,
+   D] views of the packed projection, against its plain version, each run
+   repeated bit for bit, with SDPA and SDPA under deterministic algorithms
+   beside each (device time, yardsticks; the bias as SDPA's additive mask); dense-local sampling forward and all four
    gradients at InternImage-T's four stage shapes, in f32 and in the
    autocast type mix (bf16 values on a transposed view, fp32 offsets, bf16
    modulation), with offsets drawn beyond the clamp, and the backward's
@@ -386,22 +387,22 @@ F1. fixed-order resizes and global-attention backwards: under cuDNN's
     0.25), MOAT-4 + ASPP (batch 2, with its relative-position bias) and
     MobileNetV2 + SimpleDecoder steps end with equal states and losses bit
     for bit, the global attention's backward on the global-attention pair
-    (ViT-L and EVA02-L: 24 + 24 launches a step, none of the streaming
-    pair) or, with MOAT-4's bias, on the window-attention kernels'
-    streaming pair (no SDPA backend is chosen); each step's ms printed. Phase 16.3
+    (ViT-L and EVA02-L: 24 + 24 launches a step; MOAT-4 with its bias: 30 +
+    30 of the pair's bias form; none of the streaming pair, no SDPA
+    backend chosen); each step's ms printed. Phase 16.3
     runs its pipeline-parallel train step twice the same way: the losses
     and every gradient equal bit for bit.
 16. the language model's distribution, two ranks spawned here on this card
     over gloo (``rank_lm``; correctness runs, not scaling numbers): (1)
     tensor-parallel serving of ``gemma_7b_en`` at full width, its depth cut
-    from 28 to 7 layers (bf16) at model parallelism 2, each rank
+    from 28 to 4 layers (bf16) at model parallelism 2, each rank
     seeding its shard of the same full weights (``init_seeded_shard``): a
     greedy and a beam-4 request (batch 4, prompt 128, ``max_length`` 192),
     the ranks' tokens equal, one cache-gather launch a decode step a rank,
     the prefill logits within 2e-2 of max |logit| of world size 1 (here,
     beforehand), ms/step and tok/s, host-staged collectives; the gather at
     the rank's cache shape against its plain version, bitwise; (2) sequence
-    parallelism of ``gemma_2b_en`` (9 of its 18 layers, bf16, batch 2 x T
+    parallelism of ``gemma_2b_en`` (6 of its 18 layers, bf16, batch 2 x T
     2048, seq axis 2; its train step takes the grouped products at head dim
     256, a fixed order),
     allgather and ring: ``score``, the loss and every gradient leaf against
@@ -429,7 +430,7 @@ F1. fixed-order resizes and global-attention backwards: under cuDNN's
     weight scales in reverse column order) beyond it; ``torch._int_mm``'s
     device time at the decode products' shapes (8 and 32 rows) beside bf16
     ``F.linear`` and the whole W8A8 product. (2) Swin-L's widths and window
-    at depths (2, 2, 6, 2) + SemanticFPN (19 classes, 512x512, seed-17
+    at depths (2, 2, 2, 2) + SemanticFPN (19 classes, 512x512, seed-17
     weights) exported by ``export_inference``
     with scales (0.75, 1.0) + flip under bf16 autocast, batch-polymorphic;
     a fresh process that imports no backbone, head or model code loads it
@@ -617,14 +618,15 @@ WA_STREAM_ROWS = (
 # heads wider than 128: the CUDA-core forward and backward, the one shape
 # class they keep (off every main path)
 WA_CUDA_CORE = ("stage2", 200, 2, 25, 7, 136, torch.float32, ("cuda_core", "cuda_core"))
-# global attention with a gradient (the ViT-L, EVA02-L and MOAT train steps):
-# the streaming pair built without a mask, one window per batch row,
-# q, k, v views of the packed qkv projection. (title, batch, heads, tokens,
-# head dim, dtype[, with MOAT's relative bias]): ViT-L's 1025 tokens at batch
-# 8 in both types, EVA02-L's 769 after patch dropout 0.25 at batch 4, MOAT-4's
-# stage 2 (32 x 32 tokens, 32 heads of 32) at batch 2 without its relative
-# bias (phase 13.5's) and with it (phase F1's: the kernels built with the bias
-# alone)
+# global attention with a gradient (the ViT-L, EVA02-L and MOAT train steps),
+# q, k, v views of the packed qkv projection: the streaming pair built
+# without a mask, one window per batch row, at every row; the
+# global-attention pair at the bf16 rows (with its bias form at MOAT's
+# biased row). (title, batch, heads, tokens, head dim, dtype[, with MOAT's
+# relative bias]): ViT-L's 1025 tokens at batch 8 in both types, EVA02-L's
+# 769 after patch dropout 0.25 at batch 4, MOAT-4's stage 2 (32 x 32 tokens,
+# 32 heads of 32) at batch 2 without its relative bias (phase 13.5's) and
+# with it (phase F1's)
 GA_ROWS = (
     ("ViT-L", 8, 16, 1025, 64, torch.bfloat16),
     ("ViT-L", 8, 16, 1025, 64, torch.float32),
@@ -780,9 +782,9 @@ FSDP_RTOL = 1e-6
 F1_STEPS = 3
 # phase 16: the language-model half of distribution, two ranks on this card over
 # gloo (correctness runs). 16.1: tensor-parallel serving of gemma_7b_en at full
-# width, its depth cut from 28 to 7 layers (14 when the global-attention kernels'
+# width, its depth cut from 28 to 4 layers (14 when the global-attention kernels'
 # build and phase F1's ViT-L, EVA02-L and MOAT-4 runs needed the time; 7 when the
-# run neared its time limit), bf16, model
+# run neared its time limit; 4 when the bias form's phase-2 row and build did), bf16, model
 # parallelism 2,
 # batch-4 requests of 128-token prompts to max_length 192 (256 before phase 17 needed
 # the time), greedy and beam 4.
@@ -790,7 +792,7 @@ F1_STEPS = 3
 # max |logit|: the two sum the heads' and the FFN's partial products in other
 # orders and round to bf16 at other points (GEMMA_LAYOUT_RTOL's argument;
 # measured 8.3e-3)
-TP_PRESET, TP_LAYERS = "gemma_7b_en", 7
+TP_PRESET, TP_LAYERS = "gemma_7b_en", 4
 TP_BATCH, TP_PROMPT, TP_MAX_LENGTH, TP_BEAMS = 4, 128, 192, 4
 TP_LOGIT_RTOL = 2e-2  # GEMMA_LAYOUT_RTOL
 # 16.2: gemma_2b_en at full width, SP_LAYERS of its 18 layers, bf16, batch 2 x T 2048 over a
@@ -801,7 +803,8 @@ TP_LOGIT_RTOL = 2e-2  # GEMMA_LAYOUT_RTOL
 # 2.8e-2), which the phase measures and prints; SP measured score 0 / 4.8e-3
 # and gradient 1.3e-2 / 2.3e-2 (allgather / ring; NVIDIA H100 80GB HBM3, 700 W)
 SP_PRESET, SP_BATCH, SP_T = "gemma_2b_en", 2, 2048
-SP_LAYERS = 9  # depth cut from 18 (as 16.3's stages) when phase F1's new paths needed the time
+SP_LAYERS = 6  # depth cut from 18 to 9 when phase F1's new paths needed the time, to 6 when
+#                the global-attention pair's bias form did
 SP_SCORE_RTOL, SP_GRAD_RTOL = 1e-2, 5e-2
 # 16.3: gemma_2b_en fp32 (TF32 off), 2 stages of 9 layers, 4 microbatches,
 # batch 8 x T 512; the loss, every gradient and one SGD step (lr PP_LR) against
@@ -831,14 +834,15 @@ Q_PRODUCTS = (("query", 2048, 2048), ("key", 2048, 256), ("attention_output", 20
               ("readout", 2048, 256000))
 # phase 17.2: the Swin path's model at swin_large's widths and window with its
 # depth cut to X_DEPTHS (stage 2 from 18 blocks to 6 when the run neared its time
-# limit: export and load scale with the blocks) + SemanticFPN(256), 19 classes,
+# limit: export and load scale with the blocks; to 2 when the global-attention
+# pair's bias form added its phase-2 row and build) + SemanticFPN(256), 19 classes,
 # 512x512, seed-17 weights, exported with scales (0.75, 1.0) + flip under bf16
 # autocast, batch-polymorphic, served in a fresh process at batches 1 and 2. Its
 # logits against the live bf16 serve's: the same ops under the same autocast, but
 # the flip pairs at double batch and another process's cuDNN algorithms
 # (KERNEL_VS_PLAIN_MODEL_RTOL's argument)
 X_SCALES, X_BATCH, X_SERVE_REPS = (0.75, 1.0), 2, 5
-X_DEPTHS = (2, 2, 6, 2)
+X_DEPTHS = (2, 2, 2, 2)
 X_ARTIFACT_RTOL = 2e-2
 X_EXAMPLE_SIZE, X_EXAMPLE_CLASSES = 512, 21  # the example driver: MobileNetV2 + SimpleDecoder
 X_TIMEOUT_S = 300
@@ -1529,8 +1533,7 @@ def check_global_attention(device, title, b, heads, t, d, dtype, with_bias=False
         return wa.window_attention_reference(qq, kk, vv, bb, None, scale)
 
     def library(qq, kk, vv, bb=None):
-        attn_mask = None if bb is None else bb.to(dtype)[None]
-        return F.scaled_dot_product_attention(qq, kk, vv, attn_mask=attn_mask, scale=scale)
+        return sdpa_with_bias(qq, kk, vv, bb, scale)
 
     def leaves():
         return [x.detach().requires_grad_(True) for x in (q, k, v)] + (
@@ -1651,62 +1654,104 @@ def check_deterministic_sdpa(device) -> None:
         torch.use_deterministic_algorithms(False)
 
 
-def deterministic_sdpa_device_ms(q, k, v, dout, reps) -> tuple[float, float] | None:
-    """(forward, backward) device ms of SDPA on ``[B, H, T, D]`` q, k, v under
-    ``torch.use_deterministic_algorithms(True)`` (a yardstick, used nowhere in
-    the port), or None where its backward raises there."""
-    def library(qq, kk, vv):
-        return F.scaled_dot_product_attention(qq, kk, vv)
+def sdpa_with_bias(qq, kk, vv, bb=None, scale=None):
+    """SDPA on ``[B, H, T, D]`` q, k, v with an ``[H, T, S]`` fp32 bias (or
+    none) as its additive mask in q's type, which takes the bias's
+    gradient."""
+    attn_mask = None if bb is None else bb.to(qq.dtype)[None]
+    return F.scaled_dot_product_attention(qq, kk, vv, attn_mask=attn_mask, scale=scale)
+
+
+def deterministic_sdpa_device_ms(q, k, v, dout, reps, bias=None):
+    """(forward, backward) device ms of SDPA on ``[B, H, T, D]`` q, k, v
+    (with ``bias``, ``[H, T, S]``, as its additive mask and a gradient for
+    it, if given) under ``torch.use_deterministic_algorithms(True)`` (a
+    yardstick, used nowhere in the port), or None where its backward raises
+    there."""
+    args = (q, k, v) + (() if bias is None else (bias,))
+
+    def setup():
+        leaves = [x.detach().requires_grad_(True) for x in args]
+        return leaves, sdpa_with_bias(*leaves)
 
     torch.use_deterministic_algorithms(True)
     try:
         with torch.no_grad():
-            fwd = device_ms(lambda _: library(q, k, v), **reps)
-        return fwd, ga_backward_ms(library, q, k, v, dout, timer=device_ms, **reps)
+            fwd = device_ms(lambda _: sdpa_with_bias(*args), **reps)
+        return fwd, device_ms(lambda arg: torch.autograd.grad(arg[1], arg[0], dout), setup=setup,
+                              **reps)
     except RuntimeError:
         return None
     finally:
         torch.use_deterministic_algorithms(False)
 
 
-def check_global_kernel(device, title, b, heads, t, d, dtype) -> dict:
-    """Global attention as the bf16 train steps run it without a bias and a
-    mask: the global-attention kernel pair on ``[B, T, H, D]`` views of the
-    packed projection against its plain version (fp32 inside), forward and
-    backward, run twice bit for bit, one forward and one backward launch of
-    the pair and none of the window-attention kernels; with its times, the
-    plain version's, SDPA's (the library call computing the same function,
-    used nowhere on this route), deterministic SDPA's and the bound (that of
-    the same function on the streaming pair, ``wa_bound``)."""
+def check_global_kernel(device, title, b, heads, t, d, dtype, with_bias=False) -> dict:
+    """Global attention as the bf16 train steps run it without a mask: the
+    global-attention kernel pair on ``[B, T, H, D]`` views of the packed
+    projection (``with_bias``: its bias form, with MOAT's ``[H, T, T]`` fp32
+    relative bias, which takes its gradient) against its plain version (fp32
+    inside), forward and backward (dbias to WA_TOL's dbias tolerance), run
+    twice bit for bit, one forward and one backward launch of the pair's
+    form and none of the other form or the window-attention kernels; with
+    its times, the plain version's, SDPA's (the library call computing the
+    same function, with the bias as its additive mask, used nowhere on this
+    route), deterministic SDPA's and the bound (that of the same function on
+    the streaming pair, ``wa_bound``: the bias read once and dbias written
+    once). With a bias also the streaming pair's bias-alone build on the same
+    call (the route it replaces)."""
     qh, kh, vh, douth = ga_inputs(device, b, heads, t, d, dtype)  # [B, H, T, D] views
     q, k, v, dout = (x.permute(0, 2, 1, 3) for x in (qh, kh, vh, douth))  # [B, T, H, D]
+    bias = None
+    if with_bias:
+        gen = torch.Generator(device=device).manual_seed(1)
+        bias = 0.1 * torch.randn((heads, t, t), generator=gen, device=device)
     scale = 1.0 / math.sqrt(d)
-    name = f"{title} [B={b},H={heads},T={t},D={d}] {dtype_name(dtype)} no bias, no mask"
-    if not ga.takes(dtype, b, heads, t, t, d) or not all(ga.aligned(x) for x in (q, k, v)):
+    name = (f"{title} [B={b},H={heads},T={t},D={d}] {dtype_name(dtype)} "
+            + ("bias [H,T,T], no mask" if with_bias else "no bias, no mask"))
+    if (not ga.takes(dtype, b, heads, t, t, d, None if bias is None else tuple(bias.shape))
+            or not all(ga.aligned(x) for x in (q, k, v))):
         raise AssertionError(f"[{name}] must take the global-attention kernels as it is")
+    extra = () if bias is None else (bias,)
 
-    def kernel(qq, kk, vv):
-        return ga.global_attention(qq, kk, vv, scale)
+    def kernel(qq, kk, vv, bb=None):
+        return ga.global_attention(qq, kk, vv, scale, bb)
 
-    def plain(qq, kk, vv):
-        return ga.global_attention_reference(qq, kk, vv, scale)
+    def plain(qq, kk, vv, bb=None):
+        return ga.global_attention_reference(qq, kk, vv, scale, bb)
 
-    def library(qq, kk, vv):
-        return F.scaled_dot_product_attention(qq, kk, vv, scale=scale)
+    def library(qq, kk, vv, bb=None):
+        return sdpa_with_bias(qq, kk, vv, bb, scale)
+
+    def streaming(qq, kk, vv, bb=None):
+        return wa.window_attention(qq, kk, vv, bb, None, scale)
+
+    def leaves(args):
+        return [x.detach().requires_grad_(True) for x in args[:3]] + [
+            x.detach().clone().requires_grad_(True) for x in args[3:]]
 
     def run(fn):
-        args = [x.detach().requires_grad_(True) for x in (q, k, v)]
+        args = leaves((q, k, v) + extra)
         out = fn(*args)
         return [x.detach().float() for x in (out, *torch.autograd.grad(out, args, dout))]
 
-    keys = ("out", "dq", "dk", "dv")
+    def backward_ms(fn, args, grad, timer=cuda_median_ms):
+        def setup():
+            ls = leaves(args)
+            return ls, fn(*ls)
+
+        return timer(lambda arg: torch.autograd.grad(arg[1], arg[0], grad), setup=setup, **reps)
+
+    keys = ("out", "dq", "dk", "dv") + (("dbias",) if with_bias else ())
+    form = {"fwd": 0, "bwd": 0, "fwd_bias": 0, "bwd_bias": 0,
+            **({"fwd_bias": 1, "bwd_bias": 1} if with_bias else {"fwd": 1, "bwd": 1})}
     ga.reset_launch_counts()
     wa.reset_launch_counts()
     got = run(kernel)
-    if ga.LAUNCH_COUNTS != {"fwd": 1, "bwd": 1} or any(wa.LAUNCH_COUNTS.values()):
+    if ga.LAUNCH_COUNTS != form or any(wa.LAUNCH_COUNTS.values()):
         raise AssertionError(f"[{name}] launches {ga.LAUNCH_COUNTS} of the pair and "
-                             f"{wa.LAUNCH_COUNTS} of the window-attention kernels; expected one "
-                             "forward and one backward of the pair alone")
+                             f"{wa.LAUNCH_COUNTS} of the window-attention kernels; expected "
+                             f"{form} of the pair alone")
     again = run(kernel)
     for key, a, c in zip(keys, got, again):
         if not torch.equal(a, c):
@@ -1719,44 +1764,54 @@ def check_global_kernel(device, title, b, heads, t, d, dtype) -> dict:
         if not bool(torch.isfinite(a).all()):
             raise AssertionError(f"[{name}] kernel {key} is not finite")
         errs[key] = float((a - c).abs().max())
-        tol = WA_TOL[dtype]["out"] * max(1.0, float(c.abs().max()))
+        tol = WA_TOL[dtype]["dbias" if key == "dbias" else "out"] * max(1.0, float(c.abs().max()))
         if not errs[key] <= tol:
             raise AssertionError(f"[{name}] kernel {key} disagrees with the plain version: "
                                  f"max abs err {errs[key]:.3e} > {tol:.3e}")
     del got, want
     reps = dict(reps=10, warmup=2)
+    args, args_h = (q, k, v) + extra, (qh, kh, vh) + extra
     with torch.no_grad():
-        fwd_ms = cuda_median_ms(lambda _: kernel(q, k, v), **reps)
-        fwd_plain = cuda_median_ms(lambda _: plain(q, k, v), **reps)
-        fwd_lib = cuda_median_ms(lambda _: library(qh, kh, vh), **reps)
-        fwd_dev = device_ms(lambda _: kernel(q, k, v), **reps)
-        fwd_lib_dev = device_ms(lambda _: library(qh, kh, vh), **reps)
-        fwd_held = held_ms(lambda _: kernel(q, k, v), **reps)
-    bwd_ms = ga_backward_ms(kernel, q, k, v, dout, **reps)
-    bwd_plain = ga_backward_ms(plain, q, k, v, dout, **reps)
-    bwd_lib = ga_backward_ms(library, qh, kh, vh, douth, **reps)
-    bwd_dev = ga_backward_ms(kernel, q, k, v, dout, timer=device_ms, **reps)
-    bwd_lib_dev = ga_backward_ms(library, qh, kh, vh, douth, timer=device_ms, **reps)
-    det = deterministic_sdpa_device_ms(qh, kh, vh, douth, reps)
+        fwd_ms = cuda_median_ms(lambda _: kernel(*args), **reps)
+        fwd_plain = cuda_median_ms(lambda _: plain(*args), **reps)
+        fwd_lib = cuda_median_ms(lambda _: library(*args_h), **reps)
+        fwd_dev = device_ms(lambda _: kernel(*args), **reps)
+        fwd_lib_dev = device_ms(lambda _: library(*args_h), **reps)
+        fwd_held = held_ms(lambda _: kernel(*args), **reps)
+    bwd_ms = backward_ms(kernel, args, dout)
+    bwd_plain = backward_ms(plain, args, dout)
+    bwd_lib = backward_ms(library, args_h, douth)
+    bwd_dev = backward_ms(kernel, args, dout, timer=device_ms)
+    bwd_lib_dev = backward_ms(library, args_h, douth, timer=device_ms)
+    det = deterministic_sdpa_device_ms(qh, kh, vh, douth, reps, bias)
     det_fwd, det_bwd = det if det is not None else (None, None)
-    fwd_bound, fwd_by = wa_bound(qh, None, None, backward=False)
-    bwd_bound, bwd_by = wa_bound(qh, None, None, backward=True)
+    fwd_bound, fwd_by = wa_bound(qh, bias, None, backward=False)
+    bwd_bound, bwd_by = wa_bound(qh, bias, None, backward=True)
     det_msg = ("deterministic sdpa backward raises" if det is None else
                f"deterministic sdpa device fwd {det_fwd:.4f} bwd {det_bwd:.4f}")
+    stream = {}
+    if with_bias:
+        with torch.no_grad():
+            stream["fwd"] = device_ms(lambda _: streaming(*args_h), **reps)
+        stream["bwd"] = backward_ms(streaming, args_h, douth, timer=device_ms)
+        det_msg += (f"; the streaming pair's bias-alone build device fwd {stream['fwd']:.4f} "
+                    f"bwd {stream['bwd']:.4f}")
     log(f"  [{name}] max abs err " + " ".join(f"{k} {v:.2e}" for k, v in errs.items())
         + f"; bitwise repeatable; ms fwd kernel {fwd_ms:.4f} (device {fwd_dev:.4f}, held "
         f"{fwd_held:.4f}) plain {fwd_plain:.4f} sdpa {fwd_lib:.4f} (device {fwd_lib_dev:.4f}) "
         f"bound {fwd_bound:.4f} ({fwd_by}); bwd kernel {bwd_ms:.4f} (device {bwd_dev:.4f}) plain "
         f"{bwd_plain:.4f} sdpa {bwd_lib:.4f} (device {bwd_lib_dev:.4f}) bound {bwd_bound:.4f} "
         f"({bwd_by}); {det_msg} ({card_line()})")
+    more = {d: ({"streaming_device_ms": stream[d]} if stream else {}) for d in ("fwd", "bwd")}
     return {"fwd": dict(shape=name, route="global", max_abs_err=errs["out"], ms=fwd_ms,
                         device_ms=fwd_dev, held_ms=fwd_held, plain_ms=fwd_plain,
                         bound_ms=fwd_bound, bound_by=fwd_by, library_ms=fwd_lib,
-                        library_device_ms=fwd_lib_dev, deterministic_library_device_ms=det_fwd),
+                        library_device_ms=fwd_lib_dev, deterministic_library_device_ms=det_fwd,
+                        **more["fwd"]),
             "bwd": dict(shape=name, route="global", max_abs_err=max(errs[k] for k in keys[1:]),
                         ms=bwd_ms, device_ms=bwd_dev, plain_ms=bwd_plain, bound_ms=bwd_bound,
                         bound_by=bwd_by, library_ms=bwd_lib, library_device_ms=bwd_lib_dev,
-                        deterministic_library_device_ms=det_bwd)}
+                        deterministic_library_device_ms=det_bwd, **more["bwd"])}
 
 
 def dl_bound(x, maps, groups: int, corners: int, backward: bool) -> tuple[float, str]:
@@ -2029,14 +2084,15 @@ def phase_kernels(device) -> list[dict]:
         torch.cuda.empty_cache()
     check_deterministic_sdpa(device)
     torch.cuda.empty_cache()
-    log("global attention with a gradient in bf16 without a bias and a mask: the "
-        "global-attention kernel pair (the route the ViT-L, EVA02-L and MOAT-4 train steps "
-        "take); sdpa as above, deterministic sdpa under torch.use_deterministic_algorithms(True)")
-    gk_rows = []
+    log("global attention with a gradient in bf16 without a mask: the global-attention "
+        "kernel pair, and its bias form with MOAT's relative bias (the route the ViT-L, "
+        "EVA02-L and MOAT-4 train steps take); sdpa as above (with the bias as its additive "
+        "mask), deterministic sdpa under torch.use_deterministic_algorithms(True)")
+    gk_rows, gk_bias_rows = [], []
     for row in GA_ROWS:
-        if row[5] == torch.bfloat16 and not row[6:]:
+        if row[5] == torch.bfloat16:
             t0 = time.perf_counter()
-            gk_rows.append(check_global_kernel(device, *row))
+            (gk_bias_rows if row[6:] else gk_rows).append(check_global_kernel(device, *row))
             log(f"  ({time.perf_counter() - t0:.1f} s)")
             torch.cuda.empty_cache()
     log(f"dense-local sampling (tol of max(1, max |plain|): {DL_TOL}); the backward's max abs "
@@ -2122,28 +2178,29 @@ def phase_kernels(device) -> list[dict]:
         entry("window_attention_bwd_tf32x3_large", wa_src,
               "iseg_tpu/ops/pallas/window_attention.py:161", wa_main_f32_w12["bwd"],
               wa_shapes["bwd_tf32x3_large"]),
+        # the streaming entries hold two routes: window 16 and, built without
+        # a mask, global attention with a gradient in f32, or with a mask or a
+        # batch-varying bias (jax.nn.dot_product_attention in the JAX package,
+        # iseg_tpu/nn/attention.py:58: XLA, no Pallas kernel), whose rows
+        # follow
         entry("window_attention_fwd_stream", wa_src,
               "iseg_tpu/ops/pallas/window_attention.py:141", wa_main_stream["fwd"],
-              wa_shapes["fwd_stream"]),
+              wa_shapes["fwd_stream"] + [row["fwd"] for row in ga_rows]),
         entry("window_attention_bwd_stream", wa_src,
               "iseg_tpu/ops/pallas/window_attention.py:161", wa_main_stream["bwd"],
-              wa_shapes["bwd_stream"]),
-        # the same kernels built without a bias and a mask, for global attention
-        # with a gradient (jax.nn.dot_product_attention in the JAX package,
-        # iseg_tpu/nn/attention.py:58: XLA, no Pallas kernel)
-        entry("window_attention_fwd_global", wa_src,
-              "iseg_tpu/ops/pallas/window_attention.py:141", ga_rows[0]["fwd"],
-              [row["fwd"] for row in ga_rows]),
-        entry("window_attention_bwd_global", wa_src,
-              "iseg_tpu/ops/pallas/window_attention.py:161", ga_rows[0]["bwd"],
-              [row["bwd"] for row in ga_rows]),
+              wa_shapes["bwd_stream"] + [row["bwd"] for row in ga_rows]),
         # the global-attention pair that took bf16 global attention without a
-        # bias and a mask over from them (no Pallas kernel: XLA's
-        # jax.nn.dot_product_attention, iseg_tpu/nn/attention.py:58)
+        # mask over from them, bias-free and in its bias form (no Pallas
+        # kernel: XLA's jax.nn.dot_product_attention, iseg_tpu/nn/attention.py:58,
+        # and MOAT's biased einsum, iseg_tpu/backbones/moat.py:69-88)
         entry("global_attention_fwd", ga_src, "iseg_tpu/nn/attention.py:58", gk_rows[0]["fwd"],
               [row["fwd"] for row in gk_rows]),
         entry("global_attention_bwd", ga_src, "iseg_tpu/nn/attention.py:58", gk_rows[0]["bwd"],
               [row["bwd"] for row in gk_rows]),
+        entry("global_attention_fwd_bias", ga_src, "iseg_tpu/backbones/moat.py:70",
+              gk_bias_rows[0]["fwd"], [row["fwd"] for row in gk_bias_rows]),
+        entry("global_attention_bwd_bias", ga_src, "iseg_tpu/backbones/moat.py:70",
+              gk_bias_rows[0]["bwd"], [row["bwd"] for row in gk_bias_rows]),
         entry("deform_local_fwd", dl_src, "iseg_tpu/ops/pallas/deform_local.py:116",
               dl_main["fwd"], dl_shapes["fwd"]),
         entry("deform_local_bwd", dl_src, "iseg_tpu/ops/pallas/deform_local.py:146",
@@ -2176,8 +2233,8 @@ def read_launch_counts() -> dict[str, int]:
             "window_attention_bwd_stream": wa.LAUNCH_COUNTS["bwd_stream"],
             "window_attention_fwd_global": wa.LAUNCH_COUNTS["fwd_global"],
             "window_attention_bwd_global": wa.LAUNCH_COUNTS["bwd_global"],
-            "global_attention_fwd": ga.LAUNCH_COUNTS["fwd"] if ga is not None else 0,
-            "global_attention_bwd": ga.LAUNCH_COUNTS["bwd"] if ga is not None else 0,
+            **{f"global_attention_{key}": ga.LAUNCH_COUNTS.get(key, 0) if ga is not None else 0
+               for key in ("fwd", "bwd", "fwd_bias", "bwd_bias")},
             "deform_local_fwd": dl.LAUNCH_COUNTS["fwd"], "deform_local_bwd": dl.LAUNCH_COUNTS["bwd"],
             "cache_gather": cg.LAUNCH_COUNTS["gather"]}
 
@@ -3227,7 +3284,7 @@ def phase_swin16_train(env, data):
 
 KERNEL_CLASSES = (
     ("global-attention kernels", ("ga_fwd_kernel", "ga_bwd_delta_kernel", "ga_bwd_dkdv_kernel",
-                                  "ga_bwd_dq_kernel")),
+                                  "ga_bwd_dq_kernel", "ga_bwd_dbias_kernel")),
     ("window attention kernels", ("wa_fwd_kernel", "wa_fwd_mma_kernel", "wa_fwd_tf32x3_kernel",
                                   "wa_fwd_tf32x3_large_kernel", "wa_fwd_stream_kernel",
                                   "wa_bwd_kernel", "wa_bwd_mma_kernel", "wa_bwd_tf32x3_kernel",
@@ -5486,9 +5543,9 @@ def f1_setups(env) -> dict:
     ``F.interpolate`` before fault F1 was closed; ViT-L's, EVA02-L's and
     MOAT-4's global attention took cuDNN's or FlashAttention's backward,
     which adds in no fixed order, before fault F4 was: they now record
-    their gradient through the window-attention kernels' streaming pair.
-    MOAT-4 runs with its relative-position bias (``use_pos_emb``), whose
-    gradient the kernels form. A tree without that route (``--ab``'s older
+    their gradient through the global-attention kernels. MOAT-4 runs with
+    its relative-position bias (``use_pos_emb``), whose gradient the pair's
+    bias form forms. A tree without that route (``--ab``'s older
     one) runs EVA02-L under SDPA's math backend, as it did, and ViT-L and
     MOAT-4 under the default SDPA."""
     from torch.nn.attention import SDPBackend, sdpa_kernel
@@ -5568,15 +5625,18 @@ def f1_run(build, data, steps: int = F1_STEPS,
 
 # phase F1's paths whose global attention the launch counts hold: ViT-L and
 # EVA02-L on the global-attention pair (24 blocks a step, two runs), MOAT-4
-# with its relative bias on the window-attention kernels' streaming pair
-# built with the bias alone. {path name prefix: (paths key, the kernels it
-# launches, how often each (None: at least once), the kernels it must not)}
+# with its relative bias on the pair's bias form (30 blocks a step, two
+# runs). {path name prefix: (paths key, the kernels it launches, how often
+# each (None: at least once), the kernels it must not)}
 GLOBAL_PAIR = ("global_attention_fwd", "global_attention_bwd")
+GLOBAL_BIAS_PAIR = ("global_attention_fwd_bias", "global_attention_bwd_bias")
 STREAMING_GLOBAL = ("window_attention_fwd_global", "window_attention_bwd_global")
 F1_ATTENTION = {
-    "ViT-L": ("f1_vit_train", GLOBAL_PAIR, 2 * F1_STEPS * 24, STREAMING_GLOBAL),
-    "EVA02-L": ("f1_eva_train", GLOBAL_PAIR, 2 * F1_STEPS * 24, STREAMING_GLOBAL),
-    "MOAT-4": ("f1_moat_bias_train", STREAMING_GLOBAL, None, GLOBAL_PAIR),
+    "ViT-L": ("f1_vit_train", GLOBAL_PAIR, 2 * F1_STEPS * 24, STREAMING_GLOBAL + GLOBAL_BIAS_PAIR),
+    "EVA02-L": ("f1_eva_train", GLOBAL_PAIR, 2 * F1_STEPS * 24,
+                STREAMING_GLOBAL + GLOBAL_BIAS_PAIR),
+    "MOAT-4": ("f1_moat_bias_train", GLOBAL_BIAS_PAIR, 2 * F1_STEPS * 30,
+               STREAMING_GLOBAL + GLOBAL_PAIR),
 }
 
 
@@ -5584,12 +5644,12 @@ def phase_f1_repeat(env) -> dict[str, dict[str, int]]:
     """Faults F1 and F4 on the card: two runs of each path from the same
     weights and batch end with the same state bit for bit. Returns the
     launch counts of the paths in ``F1_ATTENTION`` (both runs): ViT-L and
-    EVA02-L launch the global-attention pair 24 times a step each way and
-    none of the streaming one; MOAT-4, with its bias, the streaming pair
-    and none of the new one."""
+    EVA02-L launch the global-attention pair 24 times a step each way,
+    MOAT-4 with its bias the pair's bias form 30 times, and none of them the
+    streaming pair or the other form."""
     log("== phase F1: fixed-order resizes (interpolation matrices, no F.interpolate) and "
-        "global-attention backwards (the global-attention kernels, or the window-attention "
-        f"kernels with a bias; no SDPA): two runs of {F1_STEPS} steps each end equal bit for bit")
+        "global-attention backwards (the global-attention kernels, with MOAT-4's bias their "
+        f"bias form; no SDPA): two runs of {F1_STEPS} steps each end equal bit for bit")
     card = card_line()
     paths = {}
     with deterministic_algorithms():
@@ -5638,15 +5698,31 @@ def ab_f1_row() -> dict:
     path of phase F1, in its deterministic mode (a tree without the kernel
     route for global attention runs EVA02-L under SDPA's math backend and
     ViT-L and MOAT-4 under the default SDPA: the difference is the cost of
-    the exact resume)."""
+    the exact resume); MOAT-4's step also profiled (device ms and the
+    attention kernels' share)."""
     env = common_env_setup(EnvConfig(random_seed=0, mixed_precision=True, device="cuda"))
     row = {}
+    classes_of = dict(KERNEL_CLASSES)
+    attention = (classes_of["global-attention kernels"] + classes_of["window attention kernels"]
+                 + classes_of["global attention (SDPA: flash / memory-efficient)"])
     with deterministic_algorithms():
         for name, (build, batch, classes, context) in f1_setups(env).items():
+            data = synthetic_batch(env.device, batch, classes)
             with context():
-                digest, _, ms = f1_run(build, synthetic_batch(env.device, batch, classes),
-                                       steps=1 + F1_STEPS)
-            row[f"F1 {name} ms/step"] = statistics.median(ms[1:])
+                digest, _, ms = f1_run(build, data, steps=1 + F1_STEPS)
+                row[f"F1 {name} ms/step"] = statistics.median(ms[1:])
+                if name.startswith("MOAT-4"):  # its device time and the attention's share
+                    state, step = build()
+                    state, _ = step(state, data)
+                    prof = profile_steps(state, step, data, f"F1 {name} step",
+                                         row[f"F1 {name} ms/step"])
+                    attn = sum(t for key, t in prof["kernels"].items()
+                               if any(n in key for n in attention))
+                    row[f"F1 {name} device ms"] = prof["device_ms"]
+                    row[f"F1 {name} attention device ms"] = attn
+                    row[f"F1 {name} attention share"] = attn / prof["device_ms"]
+                    del state, step, prof
+                    torch.cuda.empty_cache()
             row[f"F1 {name} state sha256"] = digest
     return row
 
@@ -5749,6 +5825,9 @@ def ab_child(only: str | None = None) -> dict:
     for key in ("fwd_mma", "bwd_mma", "fwd_tf32x3", "bwd_tf32x3", "fwd_stream", "bwd_stream",
                 "fwd_global", "bwd_global"):
         wa.LAUNCH_COUNTS.setdefault(key, 0)  # a package from before a route
+    if ga is not None:
+        for key in ("fwd_bias", "bwd_bias"):
+            ga.LAUNCH_COUNTS.setdefault(key, 0)
     device = torch.device("cuda")
     _build.load_all([uce.SOURCE, wa.SOURCE, dl.SOURCE, cg.SOURCE]
                     + ([ga.SOURCE] if ga is not None else []))
@@ -6849,13 +6928,18 @@ def main(argv: list[str]) -> int:
             k["shapes"].append(tp_cache_gather_row)
 
     # the bf16 window-attention entries count two routes each (tensor cores and
-    # CUDA cores), each with its count; the split-TF32 entries one, shared by
+    # CUDA cores), each with its count, and so do the streaming entries (window
+    # 16 and global attention, which no path of this run takes since the
+    # global-attention pair's bias form); the split-TF32 entries one, shared by
     # two kernels each: the N > 64 ones run on phase 6c's path alone, the N <=
     # 64 ones on the others
     routes = {"window_attention_fwd": {"mma": "window_attention_fwd_mma",
                                        "cuda_core": "window_attention_fwd"},
               "window_attention_bwd": {"mma": "window_attention_bwd_mma",
                                        "cuda_core": "window_attention_bwd"},
+              **{f"window_attention_{d}_stream": {"window": f"window_attention_{d}_stream",
+                                                  "global": f"window_attention_{d}_global"}
+                 for d in ("fwd", "bwd")},
               "window_attention_fwd_tf32x3_large": {"cuda": "window_attention_fwd_tf32x3"},
               "window_attention_bwd_tf32x3_large": {"cuda": "window_attention_bwd_tf32x3"}}
     window12 = "swin384_train_f32"
@@ -6892,7 +6976,7 @@ def main(argv: list[str]) -> int:
                "moat_train": loss_kernels + global_kernels,
                "f1_vit_train": loss_kernels + global_kernels,
                "f1_eva_train": global_kernels,
-               "f1_moat_bias_train": loss_kernels + STREAMING_GLOBAL,
+               "f1_moat_bias_train": loss_kernels + GLOBAL_BIAS_PAIR,
                "swin_train": loss_kernels + ("window_attention_fwd_mma",
                                              "window_attention_bwd_mma"),
                "swin_serve": ("window_attention_fwd_mma",),

@@ -1,14 +1,19 @@
 // Global attention forward and backward for Hopper (sm_90a): softmax(q k^T
-// scale) v over whole sequences, bf16 in and out, fp32 accumulators. Built
+// scale + bias[h]) v over whole sequences, bf16 in and out, fp32
+// accumulators, the bias (if any) an fp32 [H, T, S] shared by every batch
+// row, and in the backward its gradient summed over the batch. Built
 // by iseg_tpu_torch/ops/kernels/_build.py with nvcc into a shared library
 // with a plain C interface, loaded with ctypes.
 //
 // Replaces no Pallas kernel: global attention is XLA's in the JAX package
 // (jax.nn.dot_product_attention, iseg_tpu/nn/attention.py:58; the ViT block
 // at iseg_tpu/backbones/vit.py:43, EVA's at iseg_tpu/backbones/eva.py:126).
-// On the card it succeeds, for bf16 global attention that records a
-// gradient without a bias or a mask (the ViT-L, EVA02-L and bias-free MOAT
-// train steps), the window-attention kernels' streaming pair
+// MOAT's relative-position bias is an einsum plus a gathered table there
+// (iseg_tpu/backbones/moat.py:69-88). On the card this pair succeeds, for
+// bf16 global attention that records a gradient without a mask and with a
+// bias that does not vary with the batch row or none (the ViT-L, EVA02-L and
+// MOAT train steps, MOAT's with its bias), the window-attention kernels'
+// streaming pair
 // (window_attention.cu, wa_fwd_stream_kernel / wa_bwd_stream_kernel with one
 // window per batch row), whose backward was the port's first fixed-order
 // one. This pair keeps that property: no output element is written by two
@@ -16,13 +21,14 @@
 // bit for bit (cuDNN's and FlashAttention's backwards add dq in no fixed
 // order).
 //
-// Per (batch row b, head h), with q [T, D] and k, v [S, D]:
-//   p   = softmax(q k^T scale)                (fp32, exp2 units)
-//   out = p v;  lse = log2 sum exp2(q k^T scale log2(e))   (per query row)
+// Per (batch row b, head h), with q [T, D], k, v [S, D] and bias [T, S]
+// (zero without one):
+//   x   = (q k^T + bias / scale) scale log2(e)   (the logits in log2 units)
+//   p   = exp2(x - max);  out = p v / rowsum(p);  lse = log2 rowsum exp2(x)
 // and, given do:
 //   delta = rowsum(do * out)
-//   p     = exp2(q k^T scale log2(e) - lse);  ds = p (do v^T - delta)
-//   dv = p^T do;  dk = ds^T q scale;  dq = ds k scale
+//   p     = exp2(x - lse);  ds = p (do v^T - delta)
+//   dv = p^T do;  dk = ds^T q scale;  dq = ds k scale;  dbias[h] = sum_b ds
 //
 // What bounds it on the H100: the products. At ViT-L's [8, 16, 1025, 64]
 // the forward does two T x S x D products a (b, h), 34.4 GFLOP against 8.4
@@ -67,6 +73,45 @@
 //   Both backward kernels are compiled for three resident blocks an SM at D
 //   <= 64 (at most 168 registers a thread).
 //
+// The bias form (each kernel built with kBias; the bias-free build keeps its
+// code). What it adds is bytes: MOAT-4's stage-2 bias [32, 1024, 1024] is 128
+// MiB, 8x q, k, v and out together, so the forward becomes bound by reading
+// it (0.045 ms at 3.35 TB/s) and the backward by reading it in each pass
+// and writing dbias. Measured on an H100 80GB HBM3 at 700 W at that shape
+// (PERF.md section 6, rows 3*b / 4*b): the forward 0.096 ms of device time
+// (SDPA with the bias 0.153), the backward 0.461 (0.769; dq 0.199, dbias
+// 0.140, dk / dv 0.114), against the streaming pair's 0.50 and 1.60. Its
+// answers:
+// * The bias enters as s + bias / scale before the (unchanged) row maxima,
+//   so the maximum is taken over the biased logits and p stays one fused
+//   multiply-add and one ex2 a logit; the slack trick holds as it was. The
+//   bias must be finite (a row whose tile is all -inf would give NaN).
+// * It is read as a tile of the block's 64 query rows by the step's 64 keys,
+//   through the cp.async ring beside k and v (18 KB a stage), zero-filled
+//   past T and S (a padded key's logit still ends at -inf or at p = 0). The
+//   forward takes one m-tile a warp and 64-key tiles at every D (two m-tiles
+//   and 128 keys at D <= 32 would make a stage 64 KB), three blocks an SM at
+//   D <= 64. Rows read along the keys (forward, dq, dbias) have a pitch of
+//   72 floats, so a half warp's float2 reads hit 32 distinct banks; dk / dv
+//   read s^T down the columns, one float at a time, at a pitch of 68.
+// * The grid runs (b, tile, h) with b fastest, so the B blocks that read
+//   one bias tile run side by side and it comes from HBM about once.
+// * dbias (ga_bwd_dbias_kernel, launched only when the bias records a
+//   gradient): one block of 4 warps per (64-row query tile, 64-key tile, h)
+//   holds its 64 x 64 tile of sums in registers and walks the batch rows in
+//   increasing order (q, do, k, v, lse and delta of each through a two-stage
+//   ring), recomputing s and dp for its tile: dbias[h] = ds_0 + ds_1 + ...,
+//   written once, no atomics, no partials in device memory. It costs two
+//   products a batch row (the dq pass's own) against the 2 B + 1 passes of
+//   [B, H, T, S] fp32 partials and their reduction (256 MiB written and
+//   read again at MOAT's batch 2). ds is the logit's gradient: dbias is not
+//   scaled like dk and dq.
+// * delta = rowsum(p dp), formed by a first walk of the dq kernel over the
+//   key tiles (two products a tile more), which then runs first: rowsum(do
+//   out) from the bf16 out moved ds by p times about 2^-9 |do| |out|, and
+//   dbias, held to 1e-3 of max(1, max |plain|), missed it (2.02e-3 against
+//   1.82e-3 at a [2, 70, 2, 64] call with 200 keys on the H100).
+//
 // The split backward recomputes s and dp in both passes (seven products
 // where a backward with atomics has five) in exchange for the fixed order.
 // Measured on an H100 80GB HBM3 at 700 W at ViT-L's shape (chip_smoke.py
@@ -83,8 +128,8 @@
 // the logits, the softmax, its sums and delta stay fp32.
 //
 // Padding: rows past T and keys past S are read as zeros (cp.async zero
-// fill, or zero fragments). In the forward the padded keys' logits become
-// -inf. In the backward a padded query row has zero q, do, lse and delta (so
+// fill, or zero fragments; the bias tile likewise). In the forward the
+// padded keys' logits become -inf. In the backward a padded query row has zero q, do, lse and delta (so
 // its p^T and ds^T columns are finite and meet zero rows of q and do), and a
 // padded key's p is set to 0 in the dq pass (its logit is 0, and exp2(-lse)
 // may overflow); padded rows and keys are never stored.
@@ -94,7 +139,9 @@
 // registers and shared memory. q, k, v, do are read and out, dq, dk, dv
 // written through their element strides in the [B, T, H, D] layout (the head
 // dim contiguous, every stride and base 16-byte aligned: the wrapper checks),
-// so q, k and v may be views of a packed qkv projection.
+// so q, k and v may be views of a packed qkv projection. The bias and dbias
+// are [H, T, ldb] fp32 with a row stride ldb >= S, a multiple of 4 (16-byte
+// rows), the base 16-byte aligned.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -140,24 +187,56 @@ constexpr int kStages = 2;
 // 64-key tiles and four blocks an SM (at most 128 registers a thread); at D
 // <= 32 two m-tiles a warp, which share each k and v fragment, and 128-key
 // tiles, which spread each softmax step's fixed work (row maxima by
-// shuffles, the output's rescale) over more keys
-template <int kD>
+// shuffles, the output's rescale) over more keys. The bias form takes one
+// m-tile and 64 keys at every D and three blocks an SM at D <= 64 (a stage
+// holds the 64 x 64 fp32 bias tile too)
+template <int kD, bool kBias>
 __host__ __device__ constexpr int fwd_mtiles() {
-  return kD <= 32 ? 2 : 1;
+  return kD <= 32 && !kBias ? 2 : 1;
 }
-template <int kD>
+template <int kD, bool kBias>
 __host__ __device__ constexpr int fwd_keys() {
-  return kD <= 32 ? 128 : 64;
+  return kD <= 32 && !kBias ? 128 : 64;
 }
-template <int kD>
+template <int kD, bool kBias>
 __host__ __device__ constexpr int fwd_min_blocks() {
-  return kD == 64 ? 4 : 1;
+  return kBias ? (kD <= 64 ? 3 : 1) : (kD == 64 ? 4 : 1);
 }
 // Resident blocks an SM the backward kernels are compiled for: three at D
 // <= 64 (at most 168 registers a thread)
 template <int kD>
 __host__ __device__ constexpr int bwd_min_blocks() {
   return kD <= 64 ? 3 : 1;
+}
+// ... and the dbias kernel (its ring holds q, do, k and v of a batch row)
+template <int kD>
+__host__ __device__ constexpr int dbias_min_blocks() {
+  return kD <= 32 ? 3 : kD <= 64 ? 2 : 1;
+}
+
+// Row pitch (floats) of a shared fp32 bias tile of kRows query rows by kRows
+// keys: read along its rows as float2 at (row g, column 2c) (the forward, dq
+// and dbias), 72 floats put a half warp's pieces on 32 distinct banks; read
+// down its columns one float at a time (dk and dv's s^T), 68 floats do
+constexpr int kBiasPitchRows = kRows + 8;
+constexpr int kBiasPitchCols = kRows + 4;
+
+// The block's (tile, batch row, head). The bias-free kernels take (tile, b
+// h) from (blockIdx.x, blockIdx.y); the bias form (b, tile, h) from (x, y,
+// z), so that the B blocks that read one bias tile run next to each other
+struct BlockPos {
+  int tile, b, h;
+};
+
+template <bool kBias>
+__device__ __forceinline__ BlockPos block_pos(int H) {
+  if constexpr (kBias) {
+    return {static_cast<int>(blockIdx.y), static_cast<int>(blockIdx.x),
+            static_cast<int>(blockIdx.z)};
+  } else {
+    const int bh = blockIdx.y, b = bh / H;
+    return {static_cast<int>(blockIdx.x), b, bh - b * H};
+  }
 }
 
 // How far (log2 units) a row's max may grow past the reference the forward
@@ -269,6 +348,64 @@ __device__ __forceinline__ void copy_rows_f32(const float* a, const float* b, in
   cp_async4_zfill(smem_addr(dst + x), r < N ? src + r : src, r < N ? 4 : 0);
 }
 
+// Rows row0 .. row0 + kRows - 1 and keys col0 .. col0 + kRows - 1 of one
+// head's [T][ldb] fp32 bias into a shared [kRows][kPitch] tile by cp.async,
+// 16 bytes a piece, zeros past T and S, by the block's threads (the caller
+// commits)
+template <int kPitch>
+__device__ __forceinline__ void copy_bias_tile(const float* base, long long ldb, int row0,
+                                               int col0, int T, int S, float* dst) {
+  constexpr int kPieces = kRows / 4;
+#pragma unroll
+  for (int e = threadIdx.x; e < kRows * kPieces; e += kThreads) {
+    const int row = e / kPieces, col = (e - row * kPieces) * 4, r = row0 + row, c = col0 + col;
+    const int bytes = r < T && c < S ? 4 * min(4, S - c) : 0;
+    cp_async16_zfill(smem_addr(dst + row * kPitch + col), bytes ? base + r * ldb + c : base,
+                     bytes);
+  }
+}
+
+// s (a warp's 16 rows by 8 kN keys, accumulator layout) += bias times mul:
+// bt points at the lane's (row g, key c2) of a [rows][kBiasPitchRows] tile
+template <int kN>
+__device__ __forceinline__ void add_bias_rows(const float* bt, float mul, float (&s)[kN][4]) {
+#pragma unroll
+  for (int n = 0; n < kN; ++n) {
+    const float2 x = *reinterpret_cast<const float2*>(bt + 8 * n);
+    const float2 y = *reinterpret_cast<const float2*>(bt + 8 * kBiasPitchRows + 8 * n);
+    s[n][0] = fmaf(x.x, mul, s[n][0]);
+    s[n][1] = fmaf(x.y, mul, s[n][1]);
+    s[n][2] = fmaf(y.x, mul, s[n][2]);
+    s[n][3] = fmaf(y.y, mul, s[n][3]);
+  }
+}
+
+// s^T (a warp's 16 keys by 8 kN query rows, accumulator layout) += bias
+// times mul: bt points at the lane's (query row c2, key g) of a [query
+// rows][kBiasPitchCols] tile
+template <int kN>
+__device__ __forceinline__ void add_bias_cols(const float* bt, float mul, float (&st)[kN][4]) {
+#pragma unroll
+  for (int n = 0; n < kN; ++n) {
+    const float* x = bt + 8 * n * kBiasPitchCols;
+    st[n][0] = fmaf(x[0], mul, st[n][0]);
+    st[n][1] = fmaf(x[kBiasPitchCols], mul, st[n][1]);
+    st[n][2] = fmaf(x[8], mul, st[n][2]);
+    st[n][3] = fmaf(x[kBiasPitchCols + 8], mul, st[n][3]);
+  }
+}
+
+// A warp's 16 rows row0 .. row0 + 15 of a shared [kRows][tile_ld] tile as
+// m16n8k16 A fragments (ldmatrix: lanes 0-15 address the rows' first 8
+// columns of each 16, lanes 16-31 the next 8)
+template <int kD>
+__device__ __forceinline__ void smem_frags(const bf16* tile, int row0, uint32_t (&a)[kD / 16][4]) {
+  const int lane = threadIdx.x & 31;
+  const uint32_t base = smem_addr(tile + (row0 + (lane & 15)) * tile_ld<kD>()) + (lane >> 4) * 16;
+#pragma unroll
+  for (int c = 0; c < kD / 16; ++c) ldsm_x4(a[c], base + c * 32);
+}
+
 // A warp's 16 rows m0 .. m0 + 15 of a [N][D] operand (through its token
 // stride) as m16n8k16 A fragments in registers (a[c] covers columns 16c ..
 // 16c + 15), zeros past N and past D
@@ -378,34 +515,43 @@ __device__ __forceinline__ void mtiles_times_tile(const uint32_t (&a)[kM][kS][4]
 // ------------------------------------------------------------------ forward
 
 // One block per (query tile, b h): kWarps warps of 16 fwd_mtiles rows. k and
-// v come through a ring of shared [fwd_keys][tile_ld] tiles; per tile a warp
-// forms s = q k^T for each of its m-tiles, updates their online softmax and
-// adds p v, each k and v fragment loaded once for its m-tiles.
-// The scale is positive (the wrapper checks), so the row maxima are taken of
-// the raw logits and scaled once, and p = exp2(s scale log2(e) - max) is one
-// fused multiply-add and one ex2 a logit.
-template <int kD>
-__global__ void __launch_bounds__(kThreads, fwd_min_blocks<kD>())
+// v come through a ring of shared [fwd_keys][tile_ld] tiles (with kBias the
+// tile's [kRows][kBiasPitchRows] fp32 bias beside them); per tile a warp
+// forms s = q k^T (+ bias / scale) for each of its m-tiles, updates their
+// online softmax and adds p v, each k and v fragment loaded once for its
+// m-tiles. The scale is positive (the wrapper checks), so the row maxima are
+// taken of the unscaled logits and scaled once, and p = exp2(s scale log2(e)
+// - max) is one fused multiply-add and one ex2 a logit.
+template <int kD, bool kBias>
+__global__ void __launch_bounds__(kThreads, fwd_min_blocks<kD, kBias>())
 ga_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-              const bf16* __restrict__ v, bf16* __restrict__ out, float* __restrict__ lse, int H,
-              int T, int S, int D, float scale_log2, Strides sq, Strides sk, Strides sv,
-              Strides so) {
+              const bf16* __restrict__ v, const float* __restrict__ bias,
+              bf16* __restrict__ out, float* __restrict__ lse, int H, int T, int S, int D,
+              long long ldb, float scale_log2, float inv_scale, Strides sq, Strides sk,
+              Strides sv, Strides so) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* ring = reinterpret_cast<bf16*>(smem_raw);  // [kStages][k, v][kRows][tile_ld]
-  constexpr int kKeys = fwd_keys<kD>(), kN = kKeys / 8, kTile = tile_elems<kD, kKeys>();
-  constexpr int kM = fwd_mtiles<kD>();
-  const int bh = blockIdx.y, b = bh / H, h = bh - b * H;
-  const int lane = threadIdx.x & 31, c2 = (lane & 3) * 2;
-  const int m0 = (blockIdx.x * kWarps + (threadIdx.x >> 5)) * 16 * kM;
+  constexpr int kKeys = fwd_keys<kD, kBias>(), kN = kKeys / 8, kTile = tile_elems<kD, kKeys>();
+  constexpr int kM = fwd_mtiles<kD, kBias>(), kBiasTile = kRows * kBiasPitchRows;
+  float* bias_ring = reinterpret_cast<float*>(ring + kStages * 2 * kTile);  // [kStages][kBiasTile]
+  const BlockPos pos = block_pos<kBias>(H);
+  const int b = pos.b, h = pos.h, bh = b * H + h;
+  const int lane = threadIdx.x & 31, c2 = (lane & 3) * 2, warp = threadIdx.x >> 5;
+  const int row0 = pos.tile * kWarps * 16 * kM;  // the block's first query row
+  const int m0 = row0 + warp * 16 * kM;
   const bf16* qb = q + b * sq.b + h * sq.h;
   const bf16* kb = k + b * sk.b + h * sk.h;
   const bf16* vb = v + b * sv.b + h * sv.h;
+  const float* bias_h = kBias ? bias + static_cast<long long>(h) * T * ldb : nullptr;
   const int tiles = (S + kKeys - 1) / kKeys;
   auto load = [&](int t) {  // key tile t into its stage (nothing past the last), one group
     if (t < tiles) {
       bf16* stage = ring + (t % kStages) * 2 * kTile;
       copy_tile<kD, kKeys>(kb, sk.t, t * kKeys, S, D, stage);
       copy_tile<kD, kKeys>(vb, sv.t, t * kKeys, S, D, stage + kTile);
+      if constexpr (kBias)
+        copy_bias_tile<kBiasPitchRows>(bias_h, ldb, row0, t * kKeys, T, S,
+                                       bias_ring + (t % kStages) * kBiasTile);
     }
     cp_async_commit();
   };
@@ -426,11 +572,14 @@ ga_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     l[m][0] = l[m][1] = 0.f;
   }
 
-  // one softmax step over the first 8 kNT keys of tile t (at stage kt)
-  auto step = [&](const bf16* kt, int t, auto n_tiles) {
+  // one softmax step over the first 8 kNT keys of tile t (at stage kt, its
+  // bias at bt)
+  auto step = [&](const bf16* kt, const float* bt, int t, auto n_tiles) {
     constexpr int kNT = decltype(n_tiles)::value;
     float s[kM][kNT][4];
     mtiles_times_tile_t<kD, kM, kNT>(qa, kt, 0, s);
+    if constexpr (kBias)
+      add_bias_rows<kNT>(bt + (warp * 16 + (lane >> 2)) * kBiasPitchRows + c2, inv_scale, s[0]);
     const bool ragged = t * kKeys + 8 * kNT > S;
     uint32_t pa[kM][kNT / 2][4];
 #pragma unroll
@@ -444,7 +593,8 @@ ga_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
           if (e < 2) tm0 = fmaxf(tm0, s[m][n][e]);
           else tm1 = fmaxf(tm1, s[m][n][e]);
         }
-      // every step holds a key below S, so the step's maxima are finite; a
+      // every step holds a key below S (and the bias is finite), so the
+      // step's maxima are finite; a
       // row's reference max moves (and its sums are rescaled) only where the
       // step's max exceeds it by more than the slack, and in a warp only
       // when some row's does
@@ -486,12 +636,13 @@ ga_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     __syncthreads();  // for every thread, and every warp is done with tile t - 1
     load(t + kStages - 1);  // into tile t - 1's stage
     const bf16* kt = ring + (t % kStages) * 2 * kTile;
+    const float* bt = bias_ring + (t % kStages) * kBiasTile;  // read with kBias only
     // a last tile that holds no more than half its keys (ViT-L's 1025th)
     // takes the step over half the keys
     if (S - t * kKeys <= kKeys / 2)
-      step(kt, t, std::integral_constant<int, kN / 2>());
+      step(kt, bt, t, std::integral_constant<int, kN / 2>());
     else
-      step(kt, t, std::integral_constant<int, kN>());
+      step(kt, bt, t, std::integral_constant<int, kN>());
   }
 
 #pragma unroll
@@ -548,29 +699,35 @@ ga_bwd_delta_kernel(const bf16* __restrict__ out, const bf16* __restrict__ dout,
 }
 
 // One block per (64-key tile, b h): kWarps warps of 16 keys, each holding its
-// keys' k and v as A fragments. Per query tile (q, do, lse, delta through a
-// two-stage ring), in order, kSub columns at a time: s^T = k q^T, dp^T = v
+// keys' k and v as A fragments. Per query tile (q, do, lse, delta and with
+// kBias the [query rows][kBiasPitchCols] bias tile through a two-stage ring),
+// in order, kSub columns at a time: s^T = k q^T (+ bias^T / scale), dp^T = v
 // do^T, p^T = exp2(s^T scale log2(e) - lse), ds^T = p^T (dp^T - delta), dv +=
 // p^T do, dk += ds^T q. dk (times scale) and dv are written once.
-template <int kD>
+template <int kD, bool kBias>
 __global__ void __launch_bounds__(kThreads, bwd_min_blocks<kD>())
 ga_bwd_dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                    const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                   const float* __restrict__ lse, const float* __restrict__ delta,
-                   bf16* __restrict__ dk, bf16* __restrict__ dv, int H, int T, int S, int D,
-                   float scale, float scale_log2, Strides sq, Strides sk, Strides sv, Strides sd,
-                   Strides sdk, Strides sdv) {
+                   const float* __restrict__ bias, const float* __restrict__ lse,
+                   const float* __restrict__ delta, bf16* __restrict__ dk, bf16* __restrict__ dv,
+                   int H, int T, int S, int D, long long ldb, float scale, float scale_log2,
+                   float inv_scale, Strides sq, Strides sk, Strides sv, Strides sd, Strides sdk,
+                   Strides sdv) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   constexpr int kTile = tile_elems<kD>(), kSub = sub_cols<kD>(), kN = kSub / 8;
+  constexpr int kBiasTile = kRows * kBiasPitchCols;
   bf16* ring = reinterpret_cast<bf16*>(smem_raw);  // [kStages][q, do][kRows][tile_ld]
   float* rows = reinterpret_cast<float*>(ring + kStages * 2 * kTile);  // [kStages][lse, delta][kRows]
-  const int bh = blockIdx.y, b = bh / H, h = bh - b * H;
-  const int lane = threadIdx.x & 31, c2 = (lane & 3) * 2;
-  const int n0 = blockIdx.x * kRows + (threadIdx.x >> 5) * 16;
+  float* bias_ring = rows + kStages * 2 * kRows;  // [kStages][kBiasTile] with kBias
+  const BlockPos pos = block_pos<kBias>(H);
+  const int b = pos.b, h = pos.h, bh = b * H + h;
+  const int lane = threadIdx.x & 31, c2 = (lane & 3) * 2, warp = threadIdx.x >> 5;
+  const int key0 = pos.tile * kRows, n0 = key0 + warp * 16;
   const bf16* qb = q + b * sq.b + h * sq.h;
   const bf16* gb = dout + b * sd.b + h * sd.h;
   const float* lse_bh = lse + static_cast<long long>(bh) * T;
   const float* delta_bh = delta + static_cast<long long>(bh) * T;
+  const float* bias_h = kBias ? bias + static_cast<long long>(h) * T * ldb : nullptr;
   const int tiles = (T + kRows - 1) / kRows;
   auto load = [&](int t) {  // query tile t into its stage (nothing past the last), one group
     if (t < tiles) {
@@ -579,6 +736,9 @@ ga_bwd_dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       copy_tile<kD>(qb, sq.t, t * kRows, T, D, stage);
       copy_tile<kD>(gb, sd.t, t * kRows, T, D, stage + kTile);
       copy_rows_f32(lse_bh, delta_bh, t * kRows, T, stage_rows, stage_rows + kRows);
+      if constexpr (kBias)
+        copy_bias_tile<kBiasPitchCols>(bias_h, ldb, t * kRows, key0, T, S,
+                                       bias_ring + (t % kStages) * kBiasTile);
     }
     cp_async_commit();
   };
@@ -604,10 +764,14 @@ ga_bwd_dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const bf16* gt = qt + kTile;
     const float* lse_t = rows + stage * 2 * kRows;
     const float* delta_t = lse_t + kRows;
+    const float* bias_t = bias_ring + stage * kBiasTile;  // read with kBias only
 #pragma unroll
     for (int col0 = 0; col0 < kRows; col0 += kSub) {
       float st[1][kN][4], dpt[1][kN][4];
       mtiles_times_tile_t<kD, 1, kN>(ka, qt, col0, st);
+      if constexpr (kBias)
+        add_bias_cols<kN>(bias_t + (col0 + c2) * kBiasPitchCols + warp * 16 + (lane >> 2),
+                          inv_scale, st[0]);
       mtiles_times_tile_t<kD, 1, kN>(va, gt, col0, dpt);
 #pragma unroll
       for (int n = 0; n < kN; ++n) {
@@ -633,32 +797,42 @@ ga_bwd_dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 // One block per (64-row query tile, b h): kWarps warps of 16 rows, each holding
-// its rows' q and do as A fragments and their lse and delta. Per key tile (k
-// and v through a two-stage ring), in order, kSub keys at a time: s = q k^T,
+// its rows' q and do as A fragments and their lse and delta. Per key tile (k,
+// v and with kBias the [query rows][kBiasPitchRows] bias tile through a
+// two-stage ring), in order, kSub keys at a time: s = q k^T (+ bias / scale),
 // dp = do v^T, p = exp2(s scale log2(e) - lse), ds = p (dp - delta), dq += ds
-// k. dq (times scale) is written once.
-template <int kD>
+// k. dq (times scale) is written once. With kBias a first walk over the key
+// tiles forms delta = rowsum(p dp) and writes it (the dk / dv and dbias
+// kernels run after this one).
+template <int kD, bool kBias>
 __global__ void __launch_bounds__(kThreads, bwd_min_blocks<kD>())
 ga_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                 const float* __restrict__ lse, const float* __restrict__ delta,
-                 bf16* __restrict__ dq, int H, int T, int S, int D, float scale,
-                 float scale_log2, Strides sq, Strides sk, Strides sv, Strides sd,
-                 Strides sdq) {
+                 const float* __restrict__ bias, const float* __restrict__ lse,
+                 float* __restrict__ delta, bf16* __restrict__ dq, int H, int T, int S,
+                 int D, long long ldb, float scale, float scale_log2, float inv_scale,
+                 Strides sq, Strides sk, Strides sv, Strides sd, Strides sdq) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   constexpr int kTile = tile_elems<kD>(), kSub = sub_cols<kD>(), kN = kSub / 8;
+  constexpr int kBiasTile = kRows * kBiasPitchRows;
   bf16* ring = reinterpret_cast<bf16*>(smem_raw);  // [kStages][k, v][kRows][tile_ld]
-  const int bh = blockIdx.y, b = bh / H, h = bh - b * H;
-  const int lane = threadIdx.x & 31, c2 = (lane & 3) * 2;
-  const int m0 = blockIdx.x * kRows + (threadIdx.x >> 5) * 16;
+  float* bias_ring = reinterpret_cast<float*>(ring + kStages * 2 * kTile);  // with kBias
+  const BlockPos pos = block_pos<kBias>(H);
+  const int b = pos.b, h = pos.h, bh = b * H + h;
+  const int lane = threadIdx.x & 31, c2 = (lane & 3) * 2, warp = threadIdx.x >> 5;
+  const int row0 = pos.tile * kRows, m0 = row0 + warp * 16;
   const bf16* kb = k + b * sk.b + h * sk.h;
   const bf16* vb = v + b * sv.b + h * sv.h;
+  const float* bias_h = kBias ? bias + static_cast<long long>(h) * T * ldb : nullptr;
   const int tiles = (S + kRows - 1) / kRows;
   auto load = [&](int t) {  // key tile t into its stage (nothing past the last), one group
     if (t < tiles) {
       bf16* stage = ring + (t % kStages) * 2 * kTile;
       copy_tile<kD>(kb, sk.t, t * kRows, S, D, stage);
       copy_tile<kD>(vb, sv.t, t * kRows, S, D, stage + kTile);
+      if constexpr (kBias)
+        copy_bias_tile<kBiasPitchRows>(bias_h, ldb, row0, t * kRows, T, S,
+                                       bias_ring + (t % kStages) * kBiasTile);
     }
     cp_async_commit();
   };
@@ -670,9 +844,69 @@ ga_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   load_frags<kD>(dout + b * sd.b + h * sd.h, sd.t, m0, T, D, ga[0]);
   // a padded row's q and do are zero: its lse and delta may be too
   const int r0 = m0 + (lane >> 2), r1 = r0 + 8;
-  const long long row = static_cast<long long>(bh) * T;
+  const long long row = static_cast<long long>(bh) * T;  // lse and delta [B, H, T]
   const float lse0 = r0 < T ? lse[row + r0] : 0.f, lse1 = r1 < T ? lse[row + r1] : 0.f;
-  const float delta0 = r0 < T ? delta[row + r0] : 0.f, delta1 = r1 < T ? delta[row + r1] : 0.f;
+
+  // every key tile in order through the ring (its first tiles already asked
+  // for): body(t, the k and v tile, the bias tile)
+  auto walk = [&](auto body) {
+    for (int t = 0; t < tiles; ++t) {
+      cp_async_wait<kStages - 2>();  // tile t has arrived
+      __syncthreads();  // for every thread, and every warp is done with tile t - 1
+      load(t + kStages - 1);  // into tile t - 1's stage
+      body(t, ring + (t % kStages) * 2 * kTile, bias_ring + (t % kStages) * kBiasTile);
+    }
+  };
+  // p (in s) and dp of kSub keys from col0 of key tile t; a padded key's p
+  // is 0 (its logit is 0, and exp2(-lse) may overflow)
+  auto p_and_dp = [&](int t, const bf16* kt, const float* bt, int col0, float (&s)[1][kN][4],
+                      float (&dp)[1][kN][4]) {
+    mtiles_times_tile_t<kD, 1, kN>(qa, kt, col0, s);
+    if constexpr (kBias)
+      add_bias_rows<kN>(bt + (warp * 16 + (lane >> 2)) * kBiasPitchRows + col0 + c2, inv_scale,
+                        s[0]);
+    mtiles_times_tile_t<kD, 1, kN>(ga, kt + kTile, col0, dp);
+    const bool ragged = (t + 1) * kRows > S;
+#pragma unroll
+    for (int n = 0; n < kN; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float p = fast_exp2(fmaf(s[0][n][e], scale_log2, -(e >= 2 ? lse1 : lse0)));
+        if (ragged && t * kRows + col0 + 8 * n + c2 + (e & 1) >= S) p = 0.f;
+        s[0][n][e] = p;
+      }
+  };
+
+  float delta0, delta1;
+  if constexpr (kBias) {
+    // delta = rowsum(p dp) over the key tiles in order (this lane's columns,
+    // then the row's four lanes), written for the dk / dv and dbias passes
+    float sum0 = 0.f, sum1 = 0.f;
+    walk([&](int t, const bf16* kt, const float* bt) {
+#pragma unroll
+      for (int col0 = 0; col0 < kRows; col0 += kSub) {
+        float s[1][kN][4], dp[1][kN][4];
+        p_and_dp(t, kt, bt, col0, s, dp);
+#pragma unroll
+        for (int n = 0; n < kN; ++n) {
+          sum0 = fmaf(s[0][n][1], dp[0][n][1], fmaf(s[0][n][0], dp[0][n][0], sum0));
+          sum1 = fmaf(s[0][n][3], dp[0][n][3], fmaf(s[0][n][2], dp[0][n][2], sum1));
+        }
+      }
+    });
+    delta0 = quad_sum(sum0);
+    delta1 = quad_sum(sum1);
+    if ((lane & 3) == 0) {
+      if (r0 < T) delta[row + r0] = delta0;
+      if (r1 < T) delta[row + r1] = delta1;
+    }
+    __syncthreads();  // every warp is done with the ring before it is filled again
+#pragma unroll
+    for (int t = 0; t < kStages - 1; ++t) load(t);
+  } else {
+    delta0 = r0 < T ? delta[row + r0] : 0.f;
+    delta1 = r1 < T ? delta[row + r1] : 0.f;
+  }
 
   float dq_acc[1][kD / 8][4];
 #pragma unroll
@@ -680,43 +914,126 @@ ga_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
     for (int e = 0; e < 4; ++e) dq_acc[0][j][e] = 0.f;
 
-  for (int t = 0; t < tiles; ++t) {
-    cp_async_wait<kStages - 2>();  // tile t has arrived
-    __syncthreads();  // for every thread, and every warp is done with tile t - 1
-    load(t + kStages - 1);  // into tile t - 1's stage
-    const bf16* kt = ring + (t % kStages) * 2 * kTile;
-    const bool ragged = (t + 1) * kRows > S;
+  walk([&](int t, const bf16* kt, const float* bt) {
 #pragma unroll
     for (int col0 = 0; col0 < kRows; col0 += kSub) {
       float s[1][kN][4], dp[1][kN][4];
-      mtiles_times_tile_t<kD, 1, kN>(qa, kt, col0, s);
-      mtiles_times_tile_t<kD, 1, kN>(ga, kt + kTile, col0, dp);
+      p_and_dp(t, kt, bt, col0, s, dp);
 #pragma unroll
       for (int n = 0; n < kN; ++n)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const bool upper = e >= 2;
-          float p = fast_exp2(fmaf(s[0][n][e], scale_log2, -(upper ? lse1 : lse0)));
-          // a padded key's logit is 0, and exp2(-lse) may overflow
-          if (ragged && t * kRows + col0 + 8 * n + c2 + (e & 1) >= S) p = 0.f;
-          dp[0][n][e] = p * (dp[0][n][e] - (upper ? delta1 : delta0));
-        }
+        for (int e = 0; e < 4; ++e)
+          dp[0][n][e] = s[0][n][e] * (dp[0][n][e] - (e >= 2 ? delta1 : delta0));
       uint32_t dsa[1][kN / 2][4];
       acc_to_frags<kN>(dp[0], dsa[0]);
       mtiles_times_tile<kD, 1, kN / 2>(dsa, kt, col0, dq_acc);
     }
-  }
+  });
 
   store_acc<kD>(dq + b * sdq.b + h * sdq.h, sdq.t, m0, T, D, dq_acc[0], scale, scale);
+}
+
+// One block per (64-row query tile, 64-key tile, h): kWarps warps of 16 rows,
+// each holding its rows' dbias sums (16 x 64, accumulator layout) in
+// registers. Per batch row b, in increasing order (q, do, k, v, lse and delta
+// of b through a two-stage ring; the block's bias tile read once): s = q k^T +
+// bias / scale, dp = do v^T, p = exp2(s scale log2(e) - lse), ds = p (dp -
+// delta), dbias += ds. dbias is written once: sum_b ds in the order b = 0, 1,
+// ..., B - 1, whichever block runs when.
+template <int kD>
+__global__ void __launch_bounds__(kThreads, dbias_min_blocks<kD>())
+ga_bwd_dbias_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                    const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                    const float* __restrict__ bias, const float* __restrict__ lse,
+                    const float* __restrict__ delta, float* __restrict__ dbias, int B, int H,
+                    int T, int S, int D, long long ldb, float scale_log2, float inv_scale,
+                    Strides sq, Strides sk, Strides sv, Strides sd) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  constexpr int kTile = tile_elems<kD>(), kN = kRows / 8;
+  bf16* ring = reinterpret_cast<bf16*>(smem_raw);  // [kStages][q, do, k, v][kRows][tile_ld]
+  float* rows = reinterpret_cast<float*>(ring + kStages * 4 * kTile);  // [kStages][lse, delta][kRows]
+  float* bias_t = rows + kStages * 2 * kRows;  // [kRows][kBiasPitchRows]
+  const int key0 = blockIdx.x * kRows, row0 = blockIdx.y * kRows, h = blockIdx.z;
+  const int lane = threadIdx.x & 31, g = lane >> 2, c2 = (lane & 3) * 2, warp = threadIdx.x >> 5;
+  const long long head = static_cast<long long>(h) * T * ldb;
+  auto load = [&](int bb) {  // batch row bb into its stage (nothing past the last), one group
+    if (bb < B) {
+      bf16* stage = ring + (bb % kStages) * 4 * kTile;
+      float* stage_rows = rows + (bb % kStages) * 2 * kRows;
+      const long long bh = static_cast<long long>(bb) * H + h;
+      copy_tile<kD>(q + bb * sq.b + h * sq.h, sq.t, row0, T, D, stage);
+      copy_tile<kD>(dout + bb * sd.b + h * sd.h, sd.t, row0, T, D, stage + kTile);
+      copy_tile<kD>(k + bb * sk.b + h * sk.h, sk.t, key0, S, D, stage + 2 * kTile);
+      copy_tile<kD>(v + bb * sv.b + h * sv.h, sv.t, key0, S, D, stage + 3 * kTile);
+      copy_rows_f32(lse + bh * T, delta + bh * T, row0, T, stage_rows, stage_rows + kRows);
+    }
+    cp_async_commit();
+  };
+
+  copy_bias_tile<kBiasPitchRows>(bias + head, ldb, row0, key0, T, S, bias_t);  // in b = 0's group
+#pragma unroll
+  for (int bb = 0; bb < kStages - 1; ++bb) load(bb);
+  float acc[kN][4];
+#pragma unroll
+  for (int n = 0; n < kN; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  const bool ragged = key0 + kRows > S;
+  const int r = warp * 16 + g;  // the lane's first row in the tile
+
+  for (int bb = 0; bb < B; ++bb) {
+    cp_async_wait<kStages - 2>();  // batch row bb has arrived
+    __syncthreads();  // for every thread, and every warp is done with row bb - 1
+    load(bb + kStages - 1);  // into row bb - 1's stage
+    const bf16* stage = ring + (bb % kStages) * 4 * kTile;
+    const float* stage_rows = rows + (bb % kStages) * 2 * kRows;
+    uint32_t qa[1][kD / 16][4], ga[1][kD / 16][4];
+    smem_frags<kD>(stage, warp * 16, qa[0]);
+    smem_frags<kD>(stage + kTile, warp * 16, ga[0]);
+    float s[1][kN][4], dp[1][kN][4];
+    mtiles_times_tile_t<kD, 1, kN>(qa, stage + 2 * kTile, 0, s);
+    add_bias_rows<kN>(bias_t + r * kBiasPitchRows + c2, inv_scale, s[0]);
+    mtiles_times_tile_t<kD, 1, kN>(ga, stage + 3 * kTile, 0, dp);
+    const float lse0 = stage_rows[r], lse1 = stage_rows[r + 8];
+    const float delta0 = stage_rows[kRows + r], delta1 = stage_rows[kRows + r + 8];
+#pragma unroll
+    for (int n = 0; n < kN; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const bool upper = e >= 2;
+        float p = fast_exp2(fmaf(s[0][n][e], scale_log2, -(upper ? lse1 : lse0)));
+        // a padded key's logit is 0, and exp2(-lse) may overflow
+        if (ragged && key0 + 8 * n + c2 + (e & 1) >= S) p = 0.f;
+        acc[n][e] += p * (dp[0][n][e] - (upper ? delta1 : delta0));
+      }
+  }
+
+  float* out = dbias + head;
+  const int r0 = row0 + r, r1 = r0 + 8;
+#pragma unroll
+  for (int n = 0; n < kN; ++n) {
+    const int c = key0 + 8 * n + c2;
+    if (c >= S) continue;  // c + 1 may be S: the row's padding (ldb > S)
+    if (r0 < T) *reinterpret_cast<float2*>(out + r0 * ldb + c) = make_float2(acc[n][0], acc[n][1]);
+    if (r1 < T) *reinterpret_cast<float2*>(out + r1 * ldb + c) = make_float2(acc[n][2], acc[n][3]);
+  }
 }
 
 // ------------------------------------------------------------------- launch
 
 // Shared memory of the forward and the dq kernel (k and v tiles) and of the
-// dk / dv kernel (q and do tiles, and the rows' lse and delta), in bytes
+// dk / dv kernel (q and do tiles, and the rows' lse and delta), in bytes;
+// with kBias a ring of bias tiles of the given pitch besides
 template <int kD, int kR = kRows>
-constexpr size_t ring_bytes(bool rows) {
-  return kStages * (2 * tile_elems<kD, kR>() * sizeof(bf16) + (rows ? 2 * kR * sizeof(float) : 0));
+constexpr size_t ring_bytes(bool rows, int bias_pitch = 0) {
+  return kStages * (2 * tile_elems<kD, kR>() * sizeof(bf16) + (rows ? 2 * kR * sizeof(float) : 0) +
+                    kRows * bias_pitch * sizeof(float));
+}
+
+// ... and of the dbias kernel: a ring of q, do, k, v, lse and delta, and the
+// block's bias tile
+template <int kD>
+constexpr size_t dbias_bytes() {
+  return kStages * (4 * tile_elems<kD>() * sizeof(bf16) + 2 * kRows * sizeof(float)) +
+         kRows * kBiasPitchRows * sizeof(float);
 }
 
 template <typename K>
@@ -728,48 +1045,79 @@ cudaError_t allow_smem(K kernel, size_t bytes) {
 
 Strides strides_at(const long long* s, int i) { return Strides{s[3 * i], s[3 * i + 1], s[3 * i + 2]}; }
 
-template <int kD>
-int launch_fwd(const bf16* q, const bf16* k, const bf16* v, bf16* out, float* lse, int B, int H,
-               int T, int S, int D, float scale, const long long* st, cudaStream_t stream) {
-  const size_t smem = ring_bytes<kD, fwd_keys<kD>()>(false);
-  cudaError_t err = allow_smem(ga_fwd_kernel<kD>, smem);
+// The grid of a kernel whose blocks walk `tiles` tiles of one side per (b,
+// h): (tiles, B H) bias-free, (B, tiles, H) with the bias (block_pos)
+template <bool kBias>
+dim3 grid_of(int tiles, int B, int H) {
+  return kBias ? dim3(B, tiles, H) : dim3(tiles, B * H);
+}
+
+template <int kD, bool kBias>
+int launch_fwd(const bf16* q, const bf16* k, const bf16* v, const float* bias, bf16* out,
+               float* lse, int B, int H, int T, int S, int D, long long ldb, float scale,
+               const long long* st, cudaStream_t stream) {
+  const size_t smem = ring_bytes<kD, fwd_keys<kD, kBias>()>(false, kBias ? kBiasPitchRows : 0);
+  cudaError_t err = allow_smem(ga_fwd_kernel<kD, kBias>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  constexpr int kBlockRows = 16 * fwd_mtiles<kD>() * kWarps;
-  const dim3 grid((T + kBlockRows - 1) / kBlockRows, B * H);
-  ga_fwd_kernel<kD><<<grid, kThreads, smem, stream>>>(
-      q, k, v, out, lse, H, T, S, D, scale * kLog2e, strides_at(st, 0), strides_at(st, 1),
-      strides_at(st, 2), strides_at(st, 3));
+  constexpr int kBlockRows = 16 * fwd_mtiles<kD, kBias>() * kWarps;
+  ga_fwd_kernel<kD, kBias><<<grid_of<kBias>((T + kBlockRows - 1) / kBlockRows, B, H), kThreads,
+                             smem, stream>>>(
+      q, k, v, bias, out, lse, H, T, S, D, ldb, scale * kLog2e, 1.f / scale, strides_at(st, 0),
+      strides_at(st, 1), strides_at(st, 2), strides_at(st, 3));
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int kD>
-int launch_bwd(const bf16* q, const bf16* k, const bf16* v, const bf16* out, const bf16* dout,
-               const float* lse, float* delta, bf16* dq, bf16* dk, bf16* dv, int B, int H, int T,
-               int S, int D, float scale, const long long* st, cudaStream_t stream) {
+template <int kD, bool kBias>
+int launch_bwd(const bf16* q, const bf16* k, const bf16* v, const float* bias, const bf16* out,
+               const bf16* dout, const float* lse, float* delta, bf16* dq, bf16* dk, bf16* dv,
+               float* dbias, int B, int H, int T, int S, int D, long long ldb, float scale,
+               const long long* st, cudaStream_t stream) {
   // strides: q, k, v, out, dout, dq, dk, dv
-  const long long rows = static_cast<long long>(B) * T * H;
-  const unsigned delta_blocks = static_cast<unsigned>((rows * 8 + kDeltaThreads - 1) / kDeltaThreads);
-  ga_bwd_delta_kernel<<<delta_blocks, kDeltaThreads, 0, stream>>>(
-      out, dout, delta, B, H, T, D, strides_at(st, 3), strides_at(st, 4));
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaError_t err = cudaSuccess;
+  if constexpr (!kBias) {
+    const long long rows = static_cast<long long>(B) * T * H;
+    const unsigned delta_blocks =
+        static_cast<unsigned>((rows * 8 + kDeltaThreads - 1) / kDeltaThreads);
+    ga_bwd_delta_kernel<<<delta_blocks, kDeltaThreads, 0, stream>>>(
+        out, dout, delta, B, H, T, D, strides_at(st, 3), strides_at(st, 4));
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const float scale_log2 = scale * kLog2e, inv_scale = 1.f / scale;
+  const int t_tiles = (T + kRows - 1) / kRows, s_tiles = (S + kRows - 1) / kRows;
+  // the bias form's dq kernel forms delta: it runs first
+  auto launch_dq = [&]() {
+    const size_t smem_q = ring_bytes<kD>(false, kBias ? kBiasPitchRows : 0);
+    cudaError_t e = allow_smem(ga_bwd_dq_kernel<kD, kBias>, smem_q);
+    if (e != cudaSuccess) return e;
+    ga_bwd_dq_kernel<kD, kBias><<<grid_of<kBias>(t_tiles, B, H), kThreads, smem_q, stream>>>(
+        q, k, v, dout, bias, lse, delta, dq, H, T, S, D, ldb, scale, scale_log2, inv_scale,
+        strides_at(st, 0), strides_at(st, 1), strides_at(st, 2), strides_at(st, 4),
+        strides_at(st, 5));
+    return cudaGetLastError();
+  };
+  if (kBias && (err = launch_dq()) != cudaSuccess) return static_cast<int>(err);
 
-  const size_t smem_kv = ring_bytes<kD>(true);
-  err = allow_smem(ga_bwd_dkdv_kernel<kD>, smem_kv);
+  const size_t smem_kv = ring_bytes<kD>(true, kBias ? kBiasPitchCols : 0);
+  err = allow_smem(ga_bwd_dkdv_kernel<kD, kBias>, smem_kv);
   if (err != cudaSuccess) return static_cast<int>(err);
-  ga_bwd_dkdv_kernel<kD><<<dim3((S + kRows - 1) / kRows, B * H), kThreads, smem_kv, stream>>>(
-      q, k, v, dout, lse, delta, dk, dv, H, T, S, D, scale, scale * kLog2e, strides_at(st, 0),
-      strides_at(st, 1), strides_at(st, 2), strides_at(st, 4), strides_at(st, 6),
-      strides_at(st, 7));
+  ga_bwd_dkdv_kernel<kD, kBias><<<grid_of<kBias>(s_tiles, B, H), kThreads, smem_kv, stream>>>(
+      q, k, v, dout, bias, lse, delta, dk, dv, H, T, S, D, ldb, scale, scale_log2, inv_scale,
+      strides_at(st, 0), strides_at(st, 1), strides_at(st, 2), strides_at(st, 4),
+      strides_at(st, 6), strides_at(st, 7));
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
+  if (!kBias) return static_cast<int>(launch_dq());
+  if (dbias == nullptr) return static_cast<int>(err);
 
-  const size_t smem_q = ring_bytes<kD>(false);
-  err = allow_smem(ga_bwd_dq_kernel<kD>, smem_q);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  ga_bwd_dq_kernel<kD><<<dim3((T + kRows - 1) / kRows, B * H), kThreads, smem_q, stream>>>(
-      q, k, v, dout, lse, delta, dq, H, T, S, D, scale, scale * kLog2e, strides_at(st, 0),
-      strides_at(st, 1), strides_at(st, 2), strides_at(st, 4), strides_at(st, 5));
+  if constexpr (kBias) {
+    const size_t smem_db = dbias_bytes<kD>();
+    err = allow_smem(ga_bwd_dbias_kernel<kD>, smem_db);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    ga_bwd_dbias_kernel<kD><<<dim3(s_tiles, t_tiles, H), kThreads, smem_db, stream>>>(
+        q, k, v, dout, bias, lse, delta, dbias, B, H, T, S, D, ldb, scale_log2, inv_scale,
+        strides_at(st, 0), strides_at(st, 1), strides_at(st, 2), strides_at(st, 4));
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -780,48 +1128,72 @@ bool shape_ok(int B, int H, int T, int S, int D) {
          static_cast<long long>(B) * H <= 65535;
 }
 
+// the bias's row stride: whole 16-byte pieces, at least S; the grids' second
+// dimension holds the tiles of T
+bool bias_ok(int T, int S, long long ldb) {
+  return ldb >= S && ldb % 4 == 0 && (T + kRows - 1) / kRows <= 65535;
+}
+
 }  // namespace
 
 extern "C" {
 
 // q [B, T, H, D], k and v [B, S, H, D] bf16 through their element strides
 // (strides: 3 per tensor, (b, t, h), for q, k, v, out; the head dim has
-// stride 1; every base and stride 16-byte aligned); out [B, T, H, D] bf16,
-// lse [B, H, T] fp32 (log2 units). 8 <= D <= 128 with D % 8 == 0, B H <=
-// 65535. Returns 0, kBadShape, or the CUDA error of the launch.
-int global_attention_fwd(const void* q, const void* k, const void* v, void* out, float* lse,
-                         int B, int H, int T, int S, int D, float scale, const long long* strides,
-                         void* stream) {
-  if (!shape_ok(B, H, T, S, D)) return kBadShape;
+// stride 1; every base and stride 16-byte aligned); bias null or [H, T, ldb]
+// fp32 (row stride ldb >= S, a multiple of 4; base 16-byte aligned; finite),
+// added to every batch row's logits; out [B, T, H, D] bf16, lse [B, H, T]
+// fp32 (log2 units). 8 <= D <= 128 with D % 8 == 0, B H <= 65535. Returns 0,
+// kBadShape, or the CUDA error of the launch.
+int global_attention_fwd(const void* q, const void* k, const void* v, const float* bias,
+                         void* out, float* lse, int B, int H, int T, int S, int D, long long ldb,
+                         float scale, const long long* strides, void* stream) {
+  if (!shape_ok(B, H, T, S, D) || (bias != nullptr && !bias_ok(T, S, ldb))) return kBadShape;
   auto run = [&](auto launch) {
     return launch(static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-                  static_cast<const bf16*>(v), static_cast<bf16*>(out), lse, B, H, T, S, D, scale,
-                  strides, static_cast<cudaStream_t>(stream));
+                  static_cast<const bf16*>(v), bias, static_cast<bf16*>(out), lse, B, H, T, S, D,
+                  ldb, scale, strides, static_cast<cudaStream_t>(stream));
   };
-  if (D <= 32) return run(launch_fwd<32>);
-  if (D <= 64) return run(launch_fwd<64>);
-  return run(launch_fwd<128>);
+  if (bias != nullptr) {
+    if (D <= 32) return run(launch_fwd<32, true>);
+    if (D <= 64) return run(launch_fwd<64, true>);
+    return run(launch_fwd<128, true>);
+  }
+  if (D <= 32) return run(launch_fwd<32, false>);
+  if (D <= 64) return run(launch_fwd<64, false>);
+  return run(launch_fwd<128, false>);
 }
 
-// The backward of global_attention_fwd: out and lse are its outputs, dout
-// the incoming gradient, delta [B, H, T] fp32 scratch; dq [B, T, H, D], dk
-// and dv [B, S, H, D] bf16 (strides: q, k, v, out, dout, dq, dk, dv). Three
-// launches on the stream: delta, dk and dv, dq.
-int global_attention_bwd(const void* q, const void* k, const void* v, const void* out,
-                         const void* dout, const float* lse, float* delta, void* dq, void* dk,
-                         void* dv, int B, int H, int T, int S, int D, float scale,
-                         const long long* strides, void* stream) {
-  if (!shape_ok(B, H, T, S, D)) return kBadShape;
+// The backward of global_attention_fwd: out and lse are its outputs (with
+// the same bias), dout the incoming gradient, delta [B, H, T] fp32 scratch;
+// dq [B, T, H, D], dk and dv [B, S, H, D] bf16 (strides: q, k, v, out, dout,
+// dq, dk, dv); dbias null (no gradient for the bias, or no bias) or [H, T,
+// ldb] fp32, sum over the batch rows of the logits' gradient, in b order.
+// Launches on the stream: delta, dk and dv, dq without a bias; dq (which
+// forms delta), dk and dv, and dbias where asked with one.
+int global_attention_bwd(const void* q, const void* k, const void* v, const float* bias,
+                         const void* out, const void* dout, const float* lse, float* delta,
+                         void* dq, void* dk, void* dv, float* dbias, int B, int H, int T, int S,
+                         int D, long long ldb, float scale, const long long* strides,
+                         void* stream) {
+  if (!shape_ok(B, H, T, S, D) || (bias != nullptr && !bias_ok(T, S, ldb)) ||
+      (bias == nullptr && dbias != nullptr))
+    return kBadShape;
   auto run = [&](auto launch) {
     return launch(static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-                  static_cast<const bf16*>(v), static_cast<const bf16*>(out),
+                  static_cast<const bf16*>(v), bias, static_cast<const bf16*>(out),
                   static_cast<const bf16*>(dout), lse, delta, static_cast<bf16*>(dq),
-                  static_cast<bf16*>(dk), static_cast<bf16*>(dv), B, H, T, S, D, scale, strides,
-                  static_cast<cudaStream_t>(stream));
+                  static_cast<bf16*>(dk), static_cast<bf16*>(dv), dbias, B, H, T, S, D, ldb,
+                  scale, strides, static_cast<cudaStream_t>(stream));
   };
-  if (D <= 32) return run(launch_bwd<32>);
-  if (D <= 64) return run(launch_bwd<64>);
-  return run(launch_bwd<128>);
+  if (bias != nullptr) {
+    if (D <= 32) return run(launch_bwd<32, true>);
+    if (D <= 64) return run(launch_bwd<64, true>);
+    return run(launch_bwd<128, true>);
+  }
+  if (D <= 32) return run(launch_bwd<32, false>);
+  if (D <= 64) return run(launch_bwd<64, false>);
+  return run(launch_bwd<128, false>);
 }
 
 }  // extern "C"

@@ -9,17 +9,30 @@ Global attention is no Pallas kernel in the JAX package
 one of five routes (:func:`attention_route`). On the card, a call that
 records a gradient takes a hand-written pair whose backward adds in a fixed
 order, so two runs of a train step end bit for bit equal, as in the JAX
-package (cuDNN's and FlashAttention's backwards do not): in bfloat16 (or
-under bf16 autocast) with no bias and no mask and a head dim the kernels
-are built for, the global-attention kernels (:func:`global_kernel_attention`,
-``ops/kernels/global_attention.py``: blocks over query and key tiles, a
-split backward with no atomics; ViT-L's and EVA02-L's blocks, MOAT's
-without its relative bias); with a bias, a mask or in float32, the
-window-attention kernels (:func:`kernel_attention`: one window per batch
-row, the streaming kernels built without a mask, and without a bias where
-there is none); at a shape neither is built for (a head dim above 128, a
-type other than float32 and bfloat16) the plain version in one type
-(:func:`plain_attention`), whose cuBLAS products add in a fixed order too.
+package (cuDNN's and FlashAttention's backwards do not):
+
+========================================================  ==============================
+on the card, recording a gradient                         route
+========================================================  ==============================
+bf16 (or bf16 autocast), no mask, no bias or a bias that  ``"global"``: the global-
+does not vary with the batch row (``[1, H, T, S]``, with  attention kernels
+or without a gradient), a head dim of whole 16-byte       (:func:`global_kernel_attention`;
+pieces up to 128                                          ViT-L, EVA02-L, MOAT with or
+                                                          without its relative bias)
+a mask, a bias that varies with the batch row, or         ``"kernel"``: the streaming
+float32, head dim up to 128                               window-attention kernels
+                                                          (:func:`kernel_attention`)
+a head dim above 128, float16, float64                    ``"fixed"``
+                                                          (:func:`plain_attention`)
+========================================================  ==============================
+
+The global-attention kernels tile queries and keys over blocks and split
+the backward with no atomics (dbias, where the bias records a gradient, is
+summed over the batch rows in increasing order); :func:`kernel_attention`
+lays the call out as one window per batch row for the streaming kernels,
+built without a mask, and without a bias where there is none;
+:func:`plain_attention` is the plain version in one type, whose cuBLAS
+products add in a fixed order too.
 A call that records none (serving, ``torch.export``) is
 ``F.scaled_dot_product_attention``; on the CPU it is the plain version,
 :func:`dot_product_attention_reference` (einsum products, softmax in
@@ -235,21 +248,34 @@ def global_kernel_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                             mask: Optional[torch.Tensor] = None,
                             bias: Optional[torch.Tensor] = None,
                             scale: Optional[float] = None) -> torch.Tensor:
-    """:func:`dot_product_attention_reference`'s function without a bias and
-    a mask through
+    """:func:`dot_product_attention_reference`'s function without a mask
+    through
     :func:`~iseg_tpu_torch.ops.kernels.global_attention.global_attention`
     (the kernels on the card, their plain version on the CPU): q, k, v
     ``[B, T, H, D]`` (k, v ``[B, S, H, D]``) in one type (:func:`_one_dtype`)
     and their own layout, views of a packed projection taken as they are
-    (a copy only where a base or stride is not 16-byte aligned)."""
-    if mask is not None or bias is not None:
-        raise ValueError("global_kernel_attention takes no mask and no bias; "
-                         "kernel_attention does")
+    (a copy only where a base or stride is not 16-byte aligned). ``bias``, a
+    float that broadcasts to ``[1, H, T, S]`` (MOAT's ``relative_bias(...)
+    [None]``), enters as ``[H, T, S]`` in the logits' type (fp32 for bf16; a
+    broadcast view made contiguous once) and takes its gradient where it
+    records one."""
+    if mask is not None:
+        raise ValueError("global_kernel_attention takes no mask; kernel_attention does")
     ct = _one_dtype(q, k, v)
     q, k, v = (x.to(ct) for x in (q, k, v))
+    _, t, h, _ = q.shape
+    s = k.shape[1]
+    if bias is not None:
+        bias4 = _as_4d(bias)
+        if bias4.ndim != 4 or bias4.shape[0] != 1:
+            raise ValueError(f"global_kernel_attention takes a bias that does not vary with "
+                             f"the batch row, got {tuple(bias.shape)}; kernel_attention does")
+        bias = bias4[0].to(_compute_dtype(ct)).expand(h, t, s)  # fp32 on the card
+        if not bias.is_contiguous():
+            bias = bias.contiguous()
     if q.is_cuda:
         q, k, v = (ga.as_aligned(x) for x in (q, k, v))
-    return ga.global_attention(q, k, v, scale)
+    return ga.global_attention(q, k, v, scale, bias)
 
 
 def attention_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -257,8 +283,9 @@ def attention_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     mask: Optional[torch.Tensor] = None) -> str:
     """The route of :func:`dot_product_attention`. On the card, a call that
     records a gradient (of q, k, v or ``bias``) takes ``"global"``
-    (:func:`global_kernel_attention`) where it has no bias and no mask and
-    the global-attention kernels are built for its type and shape
+    (:func:`global_kernel_attention`) where it has no mask, its bias (if
+    any) broadcasts to ``[1, H, T, S]`` (does not vary with the batch row),
+    and the global-attention kernels are built for its type and shape
     (bfloat16, by autocast or by q, k and v; ``D % 8 == 0``, ``D <= 128``:
     ``ga.takes``); else ``"kernel"`` (:func:`kernel_attention`) where the
     streaming window-attention kernels are built for its type and head dim
@@ -272,7 +299,8 @@ def attention_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return "sdpa"
     ct = _one_dtype(q, k, v)
     b, t, h, d = q.shape
-    if bias is None and mask is None and ga.takes(ct, b, h, t, k.shape[1], d):
+    bias_shape = None if bias is None else tuple(bias.shape)
+    if mask is None and ga.takes(ct, b, h, t, k.shape[1], d, bias_shape):
         return "global"
     n = max(t, k.shape[1])
     built = forward_route(ct, n, d, False) == "stream"
@@ -291,7 +319,8 @@ def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           scale: Optional[float] = None) -> torch.Tensor:
     """``[B, N, H, D]`` q, k, v -> ``[B, N, H, D]`` by :func:`attention_route`:
     on the card where a gradient is recorded the global-attention kernels
-    (bf16, no bias, no mask), the window-attention kernels (or, at a shape
+    (bf16, no mask, a bias shared by the batch rows or none), the
+    window-attention kernels (or, at a shape
     neither is built for, :func:`plain_attention`), each with a fixed-order
     backward; :func:`sdpa_attention` on the card otherwise;
     :func:`dot_product_attention_reference` on the CPU; ``guard_numerics``

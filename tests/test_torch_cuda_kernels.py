@@ -21,7 +21,8 @@ TF32 (hi + lo operands, lo hi + hi lo + hi hi products), which keeps them
 within the fp32 tolerance: 1e-4 of max(1, max |plain|) at Swin-L's shapes,
 rtol and atol 2e-5 at the small ones. The global-attention pair (bf16, p
 and ds rounded to bf16 as operands) is held to the same bf16 tolerance,
-1e-2 of max(1, max |plain|), and its two runs to each other bit for bit.
+1e-2 of max(1, max |plain|), its bias form's dbias (fp32, ds unrounded) to
+1e-3 of it, and its two runs to each other bit for bit.
 """
 
 import numpy as np
@@ -1309,10 +1310,10 @@ def test_cuda_dot_product_attention_with_a_gradient_takes_the_kernels(cuda_devic
     if masked:
         assert wa.LAUNCH_COUNTS == {**dict.fromkeys(wa.LAUNCH_COUNTS, 0), "fwd_stream": 1,
                                     "bwd_stream": 1}
-        assert ga.LAUNCH_COUNTS == {"fwd": 0, "bwd": 0}
+        assert not any(ga.LAUNCH_COUNTS.values())
     else:
         assert not any(wa.LAUNCH_COUNTS.values())
-        assert ga.LAUNCH_COUNTS == {"fwd": 1, "bwd": 1}
+        assert ga.LAUNCH_COUNTS == {"fwd": 1, "bwd": 1, "fwd_bias": 0, "bwd_bias": 0}
     _assert_within_wa_tol(runs[0] + [np.zeros(1)], runs[1] + [np.zeros(1)], torch.bfloat16)
     wa.reset_launch_counts()
     ga.reset_launch_counts()
@@ -1346,8 +1347,11 @@ def _ga_inputs(device, shape, seed=0):
     """q, k, v as views of packed projections ([B, T, H, D] each, as ViT's
     block gives them; k and v packed together where S != T) and the incoming
     gradient, bf16."""
-    b, h, t, s, d = GA_SHAPES[shape]
-    rng = np.random.RandomState(seed)
+    return _ga_tensors(device, *GA_SHAPES[shape], np.random.RandomState(seed))
+
+
+def _ga_tensors(device, b, h, t, s, d, rng):
+    """``_ga_inputs``'s tensors at ``(B, H, T, S, D)``, drawn from ``rng``."""
     if s == t:
         q, k, v = torch.tensor(rng.randn(b, t, 3, h, d).astype(np.float32),
                                device=device).to(torch.bfloat16).unbind(2)
@@ -1379,7 +1383,7 @@ def test_cuda_global_attention_kernels_match_plain_version(cuda_device, shape):
     ga.reset_launch_counts()
     wa.reset_launch_counts()
     got = _ga_run(ga.global_attention, q, k, v, dout)
-    assert ga.LAUNCH_COUNTS == {"fwd": 1, "bwd": 1}
+    assert ga.LAUNCH_COUNTS == {"fwd": 1, "bwd": 1, "fwd_bias": 0, "bwd_bias": 0}
     assert not any(wa.LAUNCH_COUNTS.values())
     want = _ga_run(ga.global_attention_reference, q, k, v, dout)
     _assert_within_wa_tol(got + [np.zeros(1)], want + [np.zeros(1)], torch.bfloat16)
@@ -1432,7 +1436,144 @@ def test_cuda_global_attention_kernels_raise_on_what_they_do_not_take(cuda_devic
         ga.global_attention(narrow, k[..., :60], v[..., :60])
     with pytest.raises(ValueError, match="positive"):
         ga.global_attention(q, k, v, scale=-0.125)
-    assert ga.LAUNCH_COUNTS == {"fwd": 0, "bwd": 0}
+    assert not any(ga.LAUNCH_COUNTS.values())
+
+
+# ------------------------------- the global-attention pair's bias form (bf16)
+
+# (B, H, T, S, D): MOAT-4 stage 2 (phase 2's biased row and F1's MOAT-4
+# step), a 1025-token tail at batch 1, T != S both ways at batch 2 and 3, a
+# head dim below its bucket and the D = 128 build
+GA_BIAS_SHAPES = {
+    "moat4_2x32x1024x32": (2, 32, 1024, 1024, 32),
+    "b1_t1025_d64": (1, 4, 1025, 1025, 64),
+    "b3_t130_d32": (3, 2, 130, 130, 32),
+    "b3_t65_d64": (3, 2, 65, 65, 64),
+    "b2_t70_s200_d64": (2, 2, 70, 200, 64),
+    "b3_t200_s70_d32": (3, 2, 200, 70, 32),
+    "b2_t97_s33_d24": (2, 3, 97, 33, 24),
+    "b2_t97_d128": (2, 3, 97, 97, 128),
+}
+
+
+def _ga_bias_inputs(device, shape, seed=0):
+    """q, k, v as views of packed projections and the incoming gradient
+    (bf16, as ``_ga_inputs``) and an fp32 ``[H, T, S]`` bias (0.5 x normal:
+    sharper rows than MOAT's initial table)."""
+    b, h, t, s, d = GA_BIAS_SHAPES[shape]
+    rng = np.random.RandomState(seed)
+    q, k, v, dout = _ga_tensors(device, b, h, t, s, d, rng)
+    bias = torch.tensor((0.5 * rng.randn(h, t, s)).astype(np.float32), device=device)
+    return q, k, v, dout, bias
+
+
+def _ga_bias_run(fn, q, k, v, dout, bias, bias_grad=True):
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    tb = bias.detach().clone().requires_grad_(bias_grad)
+    out = fn(*leaves, bias=tb)
+    grads = torch.autograd.grad(out, leaves + ([tb] if bias_grad else []), dout)
+    torch.cuda.synchronize()
+    return [t.detach().float().cpu().numpy() for t in (out, *grads)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", sorted(GA_BIAS_SHAPES))
+def test_cuda_global_attention_bias_form_matches_plain_version(cuda_device, shape):
+    """The pair's bias form against its plain version (fp32 inside):
+    out, dq, dk and dv within 1e-2 of max(1, max |plain|), dbias (summed
+    over the batch rows) within 1e-3; one forward and one backward of the
+    bias form, none of the bias-free form or the window-attention kernels."""
+    q, k, v, dout, bias = _ga_bias_inputs(cuda_device, shape)
+    ga.reset_launch_counts()
+    wa.reset_launch_counts()
+    got = _ga_bias_run(ga.global_attention, q, k, v, dout, bias)
+    assert ga.LAUNCH_COUNTS == {"fwd": 0, "bwd": 0, "fwd_bias": 1, "bwd_bias": 1}
+    assert not any(wa.LAUNCH_COUNTS.values())
+    want = _ga_bias_run(ga.global_attention_reference, q, k, v, dout, bias)
+    for got_x in got:
+        assert np.isfinite(got_x).all()
+    _assert_within_wa_tol(got, want, torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ["moat4_2x32x1024x32", "b3_t200_s70_d32", "b1_t1025_d64"])
+def test_cuda_global_attention_bias_form_is_bitwise_repeatable(cuda_device, shape):
+    """Two runs of the bias form's forward and backward, dbias included,
+    equal bit for bit (dbias: one block a tile, the batch rows added in
+    increasing order, no atomics)."""
+    q, k, v, dout, bias = _ga_bias_inputs(cuda_device, shape, seed=3)
+    first = _ga_bias_run(ga.global_attention, q, k, v, dout, bias)
+    second = _ga_bias_run(ga.global_attention, q, k, v, dout, bias)
+    for name, a, b in zip(("out", "dq", "dk", "dv", "dbias"), first, second):
+        np.testing.assert_array_equal(a, b, err_msg=name)
+
+
+@pytest.mark.cuda
+def test_cuda_global_attention_bias_without_a_gradient_forms_no_dbias(cuda_device, monkeypatch):
+    """A bias that records no gradient: the backward is asked for no dbias
+    (no dbias kernel, no buffer), and out, dq, dk and dv equal those of the
+    run that forms it bit for bit."""
+    q, k, v, dout, bias = _ga_bias_inputs(cuda_device, "b3_t130_d32", seed=4)
+    asked = []
+    launch_bwd = ga._launch_bwd
+
+    def record(*args, **kwargs):
+        asked.append(kwargs.get("bias_grad"))
+        return launch_bwd(*args, **kwargs)
+
+    monkeypatch.setattr(ga, "_launch_bwd", record)
+    without = _ga_bias_run(ga.global_attention, q, k, v, dout, bias, bias_grad=False)
+    with_grad = _ga_bias_run(ga.global_attention, q, k, v, dout, bias)
+    assert asked == [False, True] and len(without) == 4
+    for name, a, b in zip(("out", "dq", "dk", "dv"), without, with_grad):
+        np.testing.assert_array_equal(a, b, err_msg=name)
+
+
+@pytest.mark.cuda
+def test_cuda_global_attention_raises_on_a_batch_varying_bias_or_a_mask(cuda_device):
+    """A bias that varies with the batch row, or of another shape or type,
+    raises in ``global_attention``; a mask raises in
+    ``global_kernel_attention``; nothing is launched."""
+    from iseg_tpu_torch.nn import attention as tattn
+
+    q, k, v, _, bias = _ga_bias_inputs(cuda_device, "b3_t65_d64")
+    ga.reset_launch_counts()
+    b = q.shape[0]
+    for bad in (bias.expand(b, *bias.shape), bias[:, :, :64], bias.to(torch.bfloat16)):
+        with pytest.raises(ValueError):
+            ga.global_attention(q, k, v, bias=bad)
+    mask = torch.ones(b, 1, 65, 65, dtype=torch.bool, device=cuda_device)
+    with pytest.raises(ValueError, match="no mask"):
+        tattn.global_kernel_attention(q, k, v, mask, bias=bias[None])
+    with pytest.raises(ValueError, match="does not vary with the batch row"):
+        tattn.global_kernel_attention(q, k, v, bias=bias.expand(b, *bias.shape))
+    assert not any(ga.LAUNCH_COUNTS.values())
+
+
+@pytest.mark.cuda
+def test_cuda_dot_product_attention_with_moats_bias_takes_the_bias_form(cuda_device):
+    """``dot_product_attention`` with a gradient and MOAT's ``[1, H, S, S]``
+    bias that records one, in bf16 on the card: one forward and one
+    backward of the pair's bias form (no window-attention launch), within
+    WA_TOL of the plain function on fp32 copies of the same values
+    (``dot_product_attention_reference``; in bf16 it rounds the softmax to
+    bf16 before p v, which the kernels do not), dbias included."""
+    from iseg_tpu_torch.nn import attention as tattn
+
+    q, k, v, dout, bias = _ga_bias_inputs(cuda_device, "b3_t130_d32", seed=6)
+    ga.reset_launch_counts()
+    wa.reset_launch_counts()
+    runs = []
+    for fn, dtype in ((tattn.dot_product_attention, torch.bfloat16),
+                      (tattn.dot_product_attention_reference, torch.float32)):
+        leaves = [t.detach().to(dtype).requires_grad_(True) for t in (q, k, v)]
+        tb = bias[None].detach().clone().requires_grad_(True)
+        out = fn(*leaves, bias=tb)
+        grads = torch.autograd.grad(out, leaves + [tb], dout.to(dtype))
+        runs.append([t.float().cpu().numpy() for t in (out.detach(), *grads)])
+    assert ga.LAUNCH_COUNTS == {"fwd": 0, "bwd": 0, "fwd_bias": 1, "bwd_bias": 1}
+    assert not any(wa.LAUNCH_COUNTS.values())
+    _assert_within_wa_tol(runs[0], runs[1], torch.bfloat16)
 
 
 @pytest.mark.cuda

@@ -8,9 +8,9 @@ Copies ``iseg_tpu_torch`` into ``_checkout/ablate_ga/<variant>/``
 every copy in parallel, then times each copy in a process of its own, twice,
 in turns (the variants in order, then in reverse), with ``chip_smoke.py``'s
 timers: the profiler's device time of the forward and of the backward at
-phase 2's bf16 global rows without a bias (ViT-L, EVA02-L patch-dropped,
-MOAT-4 stage 2), the lesser of the two runs printed, and each variant's
-ptxas report. A variant whose change no longer applies to the source
+phase 2's bf16 global rows (ViT-L, EVA02-L patch-dropped, MOAT-4 stage 2,
+and MOAT-4 stage 2 with its relative bias on the bias form, dbias formed),
+the lesser of the two runs printed, and each variant's ptxas report. A variant whose change no longer applies to the source
 raises. Needs a CUDA card.
 """
 
@@ -56,9 +56,11 @@ VARIANTS = {
                    "  return exp2f(x);"),
     # the forward at D = 64 with 128-key tiles (three blocks an SM), or with
     # two m-tiles a warp (as at D = 32; two blocks an SM)
-    "fwd_k128_m1x3": lambda src: _returns("fwd_min_blocks", "kD == 64 ? 3 : 1")(
-        _returns("fwd_keys", "128")(src)),
-    "fwd_m2": lambda src: _returns("fwd_min_blocks", "1")(_returns("fwd_mtiles", "2")(src)),
+    "fwd_k128_m1x3": lambda src: _returns("fwd_min_blocks",
+                                          "kBias ? (kD <= 64 ? 3 : 1) : (kD == 64 ? 3 : 1)")(
+        _returns("fwd_keys", "kBias ? 64 : 128")(src)),
+    "fwd_m2": lambda src: _returns("fwd_min_blocks", "kBias ? (kD <= 64 ? 3 : 1) : 1")(
+        _returns("fwd_mtiles", "kBias ? 1 : 2")(src)),
     # the reference max moved (and the sums rescaled) whenever a row's max grows
     "fwd_slack0": _swap("constexpr float kRescaleSlack = 8.f;",
                         "constexpr float kRescaleSlack = 0.f;"),
@@ -66,13 +68,18 @@ VARIANTS = {
     "fwd_no_half_tail": _swap("if (S - t * kKeys <= kKeys / 2)", "if (false)"),
     # one backward block an SM asked for (up to 255 registers a thread)
     "bwd_x1": _returns("bwd_min_blocks", "1"),
+    # the bias form: its forward and dbias kernels at two resident blocks
+    # an SM (up to 255 registers a thread), its dk / dv and dq kernels at two
+    "bias_fwd_x2": _returns("fwd_min_blocks", "kBias ? (kD <= 64 ? 2 : 1) : (kD == 64 ? 4 : 1)"),
+    "bias_dbias_x2": _returns("dbias_min_blocks", "kD <= 64 ? 2 : 1"),
 }
 
-# (B, H, T, D): phase 2's bf16 global rows without a bias
+# (B, H, T, D, with MOAT's relative bias): phase 2's bf16 global rows
 ROWS = {
-    "ViT-L": (8, 16, 1025, 64),
-    "EVA02-L patch dropout": (4, 16, 769, 64),
-    "MOAT-4 stage 2": (2, 32, 1024, 32),
+    "ViT-L": (8, 16, 1025, 64, False),
+    "EVA02-L patch dropout": (4, 16, 769, 64, False),
+    "MOAT-4 stage 2": (2, 32, 1024, 32, False),
+    "MOAT-4 stage 2 bias": (2, 32, 1024, 32, True),
 }
 
 CHILD = r'''
@@ -90,25 +97,36 @@ if sys.argv[3] == "build":
 import chip_smoke as cs
 device = torch.device("cuda")
 row = {}
-for name, (b, heads, t, d) in json.loads(sys.argv[4]).items():
+for name, (b, heads, t, d, with_bias) in json.loads(sys.argv[4]).items():
     qh, kh, vh, douth = cs.ga_inputs(device, b, heads, t, d, torch.bfloat16)
     q, k, v, dout = (x.permute(0, 2, 1, 3) for x in (qh, kh, vh, douth))
+    bias = (0.1 * torch.randn((heads, t, t), device=device, generator=torch.Generator(
+        device=device).manual_seed(1))) if with_bias else None
     reps = dict(reps=10, warmup=2)
     with torch.no_grad():
-        row[name + " fwd"] = cs.device_ms(lambda _: ga.global_attention(q, k, v), **reps)
-    row[name + " bwd"] = cs.ga_backward_ms(ga.global_attention, q, k, v, dout,
-                                           timer=cs.device_ms, **reps)
-    del q, k, v, dout, qh, kh, vh, douth
+        row[name + " fwd"] = cs.device_ms(lambda _: ga.global_attention(q, k, v, bias=bias),
+                                          **reps)
+
+    def setup():
+        leaves = [x.detach().requires_grad_(True) for x in (q, k, v)] + (
+            [] if bias is None else [bias.detach().clone().requires_grad_(True)])
+        return leaves, ga.global_attention(*leaves[:3], bias=leaves[3] if leaves[3:] else None)
+
+    row[name + " bwd"] = cs.device_ms(lambda arg: torch.autograd.grad(arg[1], arg[0], dout),
+                                      setup=setup, **reps)
+    del q, k, v, dout, qh, kh, vh, douth, bias
     torch.cuda.empty_cache()
 print(json.dumps(row))
 '''
 
 
 def _registers(log: str) -> str:
-    """'kernel<D>: registers / spill bytes' for each kernel in a ptxas report."""
-    found = re.findall(r"ga_(\w+?)_kernel(?:ILi(\d+)EE)?.*?\n.*?(\d+) bytes spill stores.*?\n"
-                       r".*?Used (\d+) registers", log)
-    return ", ".join(f"{k}<{d or '-'}> {r}r/{s}sp" for k, d, s, r in found)
+    """'kernel<D[, bias]>: registers / spill bytes' for each kernel in a ptxas
+    report."""
+    found = re.findall(r"ga_(\w+?)_kernel(?:ILi(\d+)E(?:Lb(\d)E)?E)?.*?\n.*?(\d+) bytes spill "
+                       r"stores.*?\n.*?Used (\d+) registers", log)
+    return ", ".join(f"{k}<{d or '-'}{', bias' if b == '1' else ''}> {r}r/{s}sp"
+                     for k, d, b, s, r in found)
 
 
 def main(names: list[str]) -> int:
