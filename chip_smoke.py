@@ -47,8 +47,9 @@ attention then on the split-TF32 kernels. BASELINE config #5,
 biases) + ASPP(256), 150 classes, batch 4, trains with AdamW and layerwise
 LR decay; above 64 classes its loss is the unfused resize + CE (phase 12).
 Global attention (no TPU kernel computes it in the JAX package) that records
-a gradient, as in the ViT-L, EVA02-L and MOAT train steps, runs in bf16
-without a mask on the global-attention kernel pair
+a gradient, as in the ViT-L, EVA02-L and MOAT train steps, runs in bf16 (or
+fp32, in split TF32: phase 12.4, F1) without a mask on the global-attention
+kernel pair
 (``csrc/global_attention.cu``: blocks over query and key tiles, a
 split fixed-order backward), with MOAT's relative bias on its bias form
 (dbias summed over the batch rows in a fixed order); where none is
@@ -70,13 +71,13 @@ others autotune.
 
 1. device: require CUDA; print the card, its power limit, the torch and
    CUDA versions; in a clean build directory, start ``window_attention.cu``'s
-   nvcc (the longest build) on a thread of its own, then build the other
-   four kernel sources of ``iseg_tpu_torch/csrc`` (one nvcc each, started
-   together; ``global_attention.cu`` among them) and print their build
-   times and ptxas reports; phases 3-5c, which launch no window-attention
-   or global-attention kernel, run while it builds;
-1b. wait for the ``window_attention.cu`` build and print its time and ptxas
-   report;
+   and ``global_attention.cu``'s nvcc (the longest builds) on a thread of
+   their own, then build the other three kernel sources of
+   ``iseg_tpu_torch/csrc`` (one nvcc each, started together) and print
+   their build times and ptxas reports; phases 3-5c, which launch no
+   window-attention or global-attention kernel, run while those build;
+1b. wait for the ``window_attention.cu`` and ``global_attention.cu`` builds
+   and print their times and ptxas reports;
 2. kernels vs their plain versions at the main paths' shapes, with median
    CUDA-event times (the host's dispatch of a call is in them where the
    device waits for it), each kernel's bound on this card, and for window
@@ -109,20 +110,21 @@ others autotune.
    window 7 with D = 24, each route asserted and each run repeated bit for
    bit, and the CUDA-core forward and backward at heads wider than 128 (D =
    136, N = 49), the shapes they keep (every f32 row bound at the split-TF32
-   rate); the streaming pair built without a bias and a mask, as global
-   attention with a gradient runs it (one window per batch row, q, k, v
-   views of the packed projection), at ViT-L's [8,16,1025,64] in bf16 and
-   f32, EVA02-L's patch-dropped [4,16,769,64] and MOAT-4's stage 2
-   [2,32,1024,32] in bf16, each run repeated bit for bit, SDPA beside each, and SDPA at ViT-L's shape under
+   rate); SDPA at ViT-L's shape under
    ``torch.use_deterministic_algorithms(True)`` (whether its backward runs
    there and repeats bit for bit: a yardstick); the global-attention kernel
-   pair (the route of bf16 global attention with a gradient and without a
-   mask) at the same bf16 rows (ViT-L, EVA02-L patch-dropped, MOAT-4 stage
-   2, and its bias form at MOAT-4 stage 2 with the relative bias, dbias to
-   1e-3, the streaming pair's bias-alone build timed beside it) on [B, T, H,
-   D] views of the packed projection, against its plain version, each run
-   repeated bit for bit, with SDPA and SDPA under deterministic algorithms
-   beside each (device time, yardsticks; the bias as SDPA's additive mask); dense-local sampling forward and all four
+   pair (the route of global attention with a gradient and without a mask)
+   at ViT-L's [8,16,1025,64], EVA02-L's patch-dropped [4,16,769,64] and
+   MOAT-4's stage 2 [2,32,1024,32] in bf16 and in fp32 (its split-TF32
+   form; MOAT-4's fp32 row with the relative bias only), and its bias form
+   at MOAT-4 stage 2 with the relative bias in both types (dbias to 1e-3 in
+   bf16, 1e-4 in fp32), on [B, T, H, D] views of the packed projection,
+   against its plain version, each run repeated bit for bit, with SDPA
+   beside each (in the row's type; the bias as its additive mask), SDPA
+   under deterministic algorithms beside the bf16 rows and, beside the
+   biased and fp32 rows, the streaming window-attention pair (built with
+   both operands, zero ones standing in: where such a call went before;
+   device time, yardsticks); dense-local sampling forward and all four
    gradients at InternImage-T's four stage shapes, in f32 and in the
    autocast type mix (bf16 values on a transposed view, fp32 offsets, bf16
    modulation), with offsets drawn beyond the clamp, and the backward's
@@ -301,7 +303,10 @@ others autotune.
     blocks ``Eva.layer_name_pattern`` names; no fused-loss launch and 24 +
     24 global-attention launches in every step), then one step with
     patch dropout 0.25: 769 of 1025 tokens through the blocks, a finite
-    loss; (3) both models served with their trained weights by
+    loss; (4) the ViT-L step in fp32 (TF32 off, 2 + 3 steps, exactly 1 + 1
+    loss-kernel launches and 24 + 24 of the pair's fp32 form in every
+    step), ms/step, peak memory and a 3-step profile: device ms, the
+    pair's device ms and share, the busy share; (3) both models served with their trained weights by
     ``SegBase.inference`` at batch 2, scales (0.75, 1.0) + flip, bf16: one
     warm-up and 7 timed calls (p50 / min / max ms, host clock, printed in
     ``bench.py``'s JSON schema), 4 model calls a request, finite fp32
@@ -384,12 +389,14 @@ F1. fixed-order resizes and global-attention backwards: under cuDNN's
     deterministic algorithms and PyTorch's deterministic mode, two runs of 3
     steps each of the Swin-L + SemanticFPN, ViT-L + ASPP (batch 8),
     EVA02-L + ASPP (AdamW, 150 classes, the unfused loss, patch dropout
-    0.25), MOAT-4 + ASPP (batch 2, with its relative-position bias) and
+    0.25), MOAT-4 + ASPP (batch 2, with its relative-position bias),
+    ViT-L + ASPP in fp32, MOAT-4 + ASPP in fp32 with its bias and
     MobileNetV2 + SimpleDecoder steps end with equal states and losses bit
     for bit, the global attention's backward on the global-attention pair
     (ViT-L and EVA02-L: 24 + 24 launches a step; MOAT-4 with its bias: 30 +
-    30 of the pair's bias form; none of the streaming pair, no SDPA
-    backend chosen); each step's ms printed. Phase 16.3
+    30 of the pair's bias form; the fp32 steps the same counts of the fp32
+    forms; none of another form or the streaming pair, no SDPA backend
+    chosen); each step's ms printed. Phase 16.3
     runs its pipeline-parallel train step twice the same way: the losses
     and every gradient equal bit for bit.
 16. the language model's distribution, two ranks spawned here on this card
@@ -478,6 +485,11 @@ The last line holds each number of the four processes, OLD's two and this
 tree's two. ``--ab OLD --only f1`` times phase F1's five steps alone (a
 tree without the kernel route for global attention runs EVA02-L on SDPA's
 math backend and ViT-L and MOAT-4 on the default SDPA, as it did).
+``--ab OLD --only vit32`` times phase 12.4's fp32 ViT-L step (2 + 3, then 3
+profiled: ms/step, device time, the global attention's device time and
+share) and fp32 global attention with a gradient at phase 2's fp32 rows
+(``dot_product_attention``'s route: the pair here, the streaming pair in a
+tree from before its fp32 form; profiler device time).
 ``--ab OLD --only stream`` times phase 2's streaming rows (forward and
 backward, SDPA beside each, profiler device time): the D = 36 pair, which a
 tree from before the streaming kernels runs on its CUDA-core kernels, and
@@ -486,7 +498,7 @@ the rows where such a tree raises, which it records as raised.
 The launch counters are set to 0 just before each main path (3, 5b's
 uninterrupted run, 5c's fixed-batch steps, its two train_seg runs together
 and its OHEM run, 6, 6b, 6c, 6d (each step), 7, 8, 9, each request of 10, 11.1, each micro-step
-of 11.2, its resumed run, 11.3 and 11.4, 12.1 and 12.2 (and each of their
+of 11.2, its resumed run, 11.3 and 11.4, 12.1, 12.2 and 12.4 (and each of their
 steps), the patch-dropout step and each serve of 12.3, 13.1, 13.2, 13.4 and
 each model of 13.5, and each of their train steps, 14.3's forward, each train step and
 each serve of 14.4, in each rank of 15.1 each step, in each rank of 16.1 each request,
@@ -619,20 +631,21 @@ WA_STREAM_ROWS = (
 # class they keep (off every main path)
 WA_CUDA_CORE = ("stage2", 200, 2, 25, 7, 136, torch.float32, ("cuda_core", "cuda_core"))
 # global attention with a gradient (the ViT-L, EVA02-L and MOAT train steps),
-# q, k, v views of the packed qkv projection: the streaming pair built
-# without a mask, one window per batch row, at every row; the
-# global-attention pair at the bf16 rows (with its bias form at MOAT's
-# biased row). (title, batch, heads, tokens, head dim, dtype[, with MOAT's
-# relative bias]): ViT-L's 1025 tokens at batch 8 in both types, EVA02-L's
-# 769 after patch dropout 0.25 at batch 4, MOAT-4's stage 2 (32 x 32 tokens,
-# 32 heads of 32) at batch 2 without its relative bias (phase 13.5's) and
-# with it (phase F1's)
+# q, k, v views of the packed qkv projection, on the global-attention pair
+# (its bias form at MOAT's biased rows, its fp32 form at the fp32 rows).
+# (title, batch, heads, tokens, head dim, dtype[, with MOAT's relative
+# bias]): ViT-L's 1025 tokens at batch 8 in both types (phase 12.1 and
+# 12.4), EVA02-L's 769 after patch dropout 0.25 at batch 4 in both types,
+# MOAT-4's stage 2 (32 x 32 tokens, 32 heads of 32) at batch 2 without its
+# relative bias (phase 13.5's) and with it in both types (phase F1's)
 GA_ROWS = (
     ("ViT-L", 8, 16, 1025, 64, torch.bfloat16),
     ("ViT-L", 8, 16, 1025, 64, torch.float32),
     ("EVA02-L patch dropout", 4, 16, 769, 64, torch.bfloat16),
+    ("EVA02-L patch dropout", 4, 16, 769, 64, torch.float32),
     ("MOAT-4 stage 2", 2, 32, 1024, 32, torch.bfloat16),
     ("MOAT-4 stage 2, relative-position bias", 2, 32, 1024, 32, torch.bfloat16, True),
+    ("MOAT-4 stage 2, relative-position bias", 2, 32, 1024, 32, torch.float32, True),
 )
 # phase 6d: Swin-L's widths (192, depths (2, 2, 18, 2), heads (6, 12, 24, 48))
 # at window 16 (N = 256, D = 32) + SemanticFPN(256), the Swin path's batch and
@@ -676,8 +689,11 @@ H_SLIDE_HW, H_SLIDE_WINDOW, H_SLIDE_REPS, H_SLIDE_CALLS = (1024, 2048), 512, 3, 
 V_BATCH, V_CLASSES, V_OS = 8, 19, 16
 V_WARMUP, V_TIMED = 2, 5
 # the global attentions of a ViT-L or EVA02-L step (24 blocks), each one
-# forward and one backward launch of the global-attention kernel pair
+# forward and one backward launch of the global-attention kernel pair (in
+# fp32 of its fp32 form: phase 12.4)
 T_GLOBAL_PER_STEP = {"global_attention_fwd": 24, "global_attention_bwd": 24}
+T_GLOBAL_F32_PER_STEP = {"global_attention_fwd_f32": 24, "global_attention_bwd_f32": 24}
+V_F32_WARMUP, V_F32_TIMED = 2, 3  # phase 12.4
 # EVA path (phase 12.2): BASELINE config #5 as the JAX package's
 # tools/bench_model_mfu.py has it, eva02_large_patch16_512_coco + ASPP(256), 150
 # classes, batch 4 (the fused loss requested; above 64 classes it is the
@@ -1150,13 +1166,15 @@ def phase_device():
         f"device {torch.cuda.get_device_name(0)}, count {torch.cuda.device_count()}")
     shutil.rmtree(_build.BUILD_DIR, ignore_errors=True)
     t0 = time.perf_counter()
-    # the longest build (window_attention.cu, about 100 s) goes on beside
-    # phases 3-5c, which launch none of its kernels; phase 1b waits for it
-    pending = _build.load_later([wa.SOURCE])
-    _build.load_all([uce.SOURCE, dl.SOURCE, cg.SOURCE, ga.SOURCE])
-    log_builds((uce.build(), dl.build(), cg.build(), ga.build()))
-    log(f"four sources built in parallel in {time.perf_counter() - t0:.2f} s; "
-        f"{wa.SOURCE} builds on beside phases 3-5c (their host times share the CPU with nvcc)")
+    # the two longest builds (window_attention.cu and global_attention.cu,
+    # 30-45 s each beside each other) go on beside phases 3-5c, which launch
+    # none of their kernels; phase 1b waits for them
+    pending = _build.load_later([wa.SOURCE, ga.SOURCE])
+    _build.load_all([uce.SOURCE, dl.SOURCE, cg.SOURCE])
+    log_builds((uce.build(), dl.build(), cg.build()))
+    log(f"three sources built in parallel in {time.perf_counter() - t0:.2f} s; {wa.SOURCE} "
+        f"and {ga.SOURCE} build on beside phases 3-5c (their host times share the CPU with "
+        "nvcc)")
     return pending, t0
 
 
@@ -1169,10 +1187,10 @@ def log_builds(builds) -> None:
 
 
 def phase_build_wait(pending, t0: float) -> None:
-    log(f"== phase 1b: wait for the {wa.SOURCE} build")
+    log(f"== phase 1b: wait for the {wa.SOURCE} and {ga.SOURCE} builds")
     t_wait = time.perf_counter()
     pending.result()
-    log_builds([wa.build()])
+    log_builds([wa.build(), ga.build()])
     log(f"waited {time.perf_counter() - t_wait:.2f} s; all sources built "
         f"{time.perf_counter() - t0:.2f} s after the build started")
 
@@ -1503,121 +1521,6 @@ def ga_backward_ms(fn, q, k, v, dout, timer=cuda_median_ms, **reps) -> float:
     return timer(lambda arg: torch.autograd.grad(arg[1], arg[0], dout), setup=setup, **reps)
 
 
-def check_global_attention(device, title, b, heads, t, d, dtype, with_bias=False) -> dict:
-    """Global attention as the train steps run it (one window per batch row,
-    no mask; ``with_bias``: a learned ``[H, T, T]`` fp32 bias, as MOAT's
-    relative-position bias, which takes a gradient): the streaming pair built
-    without a mask (and without a bias where there is none) against its plain
-    version, forward and backward, each run twice bit for bit, with its
-    times, the plain version's, SDPA's (the library call computing the same
-    function, used nowhere on this route) and the bound. With a bias, also
-    the device time of the pair built with both operands on the same call
-    with a zero ``[1, T, T]`` mask: what the stand-in the bias-only form
-    replaced cost."""
-    q, k, v, dout = ga_inputs(device, b, heads, t, d, dtype)
-    bias = None
-    if with_bias:
-        gen = torch.Generator(device=device).manual_seed(1)
-        bias = 0.1 * torch.randn((heads, t, t), generator=gen, device=device)
-    scale = 1.0 / math.sqrt(d)
-    name = (f"{title} [B={b},H={heads},T={t},D={d}] {dtype_name(dtype)} "
-            + ("bias [H,T,T], no mask" if with_bias else "no bias, no mask"))
-    for route in (wa.forward_route(dtype, t, d, False), wa.backward_route(dtype, t, d, False)):
-        if route != "stream":
-            raise AssertionError(f"[{name}] must take the streaming kernels, not {route!r}")
-
-    def kernel(qq, kk, vv, bb=None, mask=None):
-        return wa.window_attention(qq, kk, vv, bb, mask, scale)
-
-    def plain(qq, kk, vv, bb=None):
-        return wa.window_attention_reference(qq, kk, vv, bb, None, scale)
-
-    def library(qq, kk, vv, bb=None):
-        return sdpa_with_bias(qq, kk, vv, bb, scale)
-
-    def leaves():
-        return [x.detach().requires_grad_(True) for x in (q, k, v)] + (
-            [] if bias is None else [bias.detach().clone().requires_grad_(True)])
-
-    def run(fn):
-        args = leaves()
-        out = fn(*args)
-        return [x.detach().float() for x in (out, *torch.autograd.grad(out, args, dout))]
-
-    def backward_ms(fn, timer=cuda_median_ms):
-        def setup():
-            args = leaves()
-            return args, fn(*args)
-
-        return timer(lambda arg: torch.autograd.grad(arg[1], arg[0], dout), setup=setup, **reps)
-
-    keys = ("out", "dq", "dk", "dv") + (("dbias",) if with_bias else ())
-    wa.reset_launch_counts()
-    got = run(kernel)
-    want_counts = {**dict.fromkeys(wa.LAUNCH_COUNTS, 0), "fwd_global": 1, "bwd_global": 1}
-    if wa.LAUNCH_COUNTS != want_counts:
-        raise AssertionError(f"[{name}] launches {wa.LAUNCH_COUNTS}, expected {want_counts}")
-    again = run(kernel)
-    for key, a, c in zip(keys, got, again):
-        if not torch.equal(a, c):
-            raise AssertionError(f"[{name}] kernel {key} differs from run to run")
-    del again
-    want = run(plain)
-    torch.cuda.synchronize()
-    errs = {}
-    for key, a, c in zip(keys, got, want):
-        if not bool(torch.isfinite(a).all()):
-            raise AssertionError(f"[{name}] kernel {key} is not finite")
-        errs[key] = float((a - c).abs().max())
-        tol = WA_TOL[dtype]["dbias" if key == "dbias" else "out"] * max(1.0, float(c.abs().max()))
-        if not errs[key] <= tol:
-            raise AssertionError(f"[{name}] kernel {key} disagrees with the plain version: "
-                                 f"max abs err {errs[key]:.3e} > {tol:.3e}")
-    del got, want
-    reps = dict(reps=10, warmup=2)
-    args = (q, k, v) + (() if bias is None else (bias,))
-    with torch.no_grad():
-        fwd_ms = cuda_median_ms(lambda _: kernel(*args), **reps)
-        fwd_plain = cuda_median_ms(lambda _: plain(*args), **reps)
-        fwd_lib = cuda_median_ms(lambda _: library(*args), **reps)
-        fwd_dev = device_ms(lambda _: kernel(*args), **reps)
-        fwd_lib_dev = device_ms(lambda _: library(*args), **reps)
-        fwd_held = held_ms(lambda _: kernel(*args), **reps)
-    bwd_ms = backward_ms(kernel)
-    bwd_plain = backward_ms(plain)
-    bwd_lib = backward_ms(library)
-    bwd_dev = backward_ms(kernel, timer=device_ms)
-    bwd_lib_dev = backward_ms(library, timer=device_ms)
-    fwd_bound, fwd_by = wa_bound(q, bias, None, backward=False)
-    bwd_bound, bwd_by = wa_bound(q, bias, None, backward=True)
-    bwd_err = max(errs[key] for key in keys[1:])
-    stand_in = ""
-    if with_bias:
-        zero_mask = torch.zeros((1, t, t), dtype=torch.float32, device=device)
-
-        def both(qq, kk, vv, bb):
-            return kernel(qq, kk, vv, bb, zero_mask)
-
-        with torch.no_grad():
-            both_fwd = device_ms(lambda _: both(*args), **reps)
-        both_bwd = backward_ms(both, timer=device_ms)
-        stand_in = (f"; with a zero [1,T,T] mask standing in (both operands) device fwd "
-                    f"{both_fwd:.4f} bwd {both_bwd:.4f}")
-    log(f"  [{name}] max abs err " + " ".join(f"{k} {v:.2e}" for k, v in errs.items())
-        + f"; bitwise repeatable; ms fwd kernel {fwd_ms:.4f} (device {fwd_dev:.4f}, held "
-        f"{fwd_held:.4f}) plain {fwd_plain:.4f} sdpa {fwd_lib:.4f} (device {fwd_lib_dev:.4f}) "
-        f"bound {fwd_bound:.4f} ({fwd_by}); bwd kernel {bwd_ms:.4f} (device {bwd_dev:.4f}) plain "
-        f"{bwd_plain:.4f} sdpa {bwd_lib:.4f} (device {bwd_lib_dev:.4f}) bound {bwd_bound:.4f} "
-        f"({bwd_by})" + stand_in)
-    return {"fwd": dict(shape=name, route="stream", max_abs_err=errs["out"], ms=fwd_ms,
-                        device_ms=fwd_dev, held_ms=fwd_held, plain_ms=fwd_plain,
-                        bound_ms=fwd_bound, bound_by=fwd_by, library_ms=fwd_lib,
-                        library_device_ms=fwd_lib_dev),
-            "bwd": dict(shape=name, route="stream", max_abs_err=bwd_err, ms=bwd_ms,
-                        device_ms=bwd_dev, plain_ms=bwd_plain, bound_ms=bwd_bound,
-                        bound_by=bwd_by, library_ms=bwd_lib, library_device_ms=bwd_lib_dev)}
-
-
 def check_deterministic_sdpa(device) -> None:
     """A yardstick for a later change, used nowhere in the port: SDPA at
     ViT-L's shape (bf16, no mask) under ``torch.use_deterministic_algorithms
@@ -1687,19 +1590,22 @@ def deterministic_sdpa_device_ms(q, k, v, dout, reps, bias=None):
 
 
 def check_global_kernel(device, title, b, heads, t, d, dtype, with_bias=False) -> dict:
-    """Global attention as the bf16 train steps run it without a mask: the
+    """Global attention as the train steps run it without a mask: the
     global-attention kernel pair on ``[B, T, H, D]`` views of the packed
-    projection (``with_bias``: its bias form, with MOAT's ``[H, T, T]`` fp32
-    relative bias, which takes its gradient) against its plain version (fp32
-    inside), forward and backward (dbias to WA_TOL's dbias tolerance), run
-    twice bit for bit, one forward and one backward launch of the pair's
-    form and none of the other form or the window-attention kernels; with
-    its times, the plain version's, SDPA's (the library call computing the
-    same function, with the bias as its additive mask, used nowhere on this
-    route), deterministic SDPA's and the bound (that of the same function on
-    the streaming pair, ``wa_bound``: the bias read once and dbias written
-    once). With a bias also the streaming pair's bias-alone build on the same
-    call (the route it replaces)."""
+    projection (bf16, or its split-TF32 form in fp32; ``with_bias``: its
+    bias form, with MOAT's ``[H, T, T]`` fp32 relative bias, which takes its
+    gradient) against its plain version (fp32 inside), forward and backward
+    (to WA_TOL of the row's type, dbias to its dbias tolerance), run twice
+    bit for bit, one forward and one backward launch of the pair's form and
+    none of another form or the window-attention kernels; with its times,
+    the plain version's, SDPA's in the row's type (the library call
+    computing the same function, with the bias as its additive mask, used
+    nowhere on this route), deterministic SDPA's (bf16 rows) and the bound
+    (``wa_bound``: the bias read once and dbias written once; fp32 at the
+    split-TF32 rate). With a bias or in fp32 also the streaming window-
+    attention pair built with both operands, a zero ``[1, T, T]`` mask (and
+    a zero bias) standing in, on the same call: where such a call went
+    before the pair took it."""
     qh, kh, vh, douth = ga_inputs(device, b, heads, t, d, dtype)  # [B, H, T, D] views
     q, k, v, dout = (x.permute(0, 2, 1, 3) for x in (qh, kh, vh, douth))  # [B, T, H, D]
     bias = None
@@ -1707,6 +1613,7 @@ def check_global_kernel(device, title, b, heads, t, d, dtype, with_bias=False) -
         gen = torch.Generator(device=device).manual_seed(1)
         bias = 0.1 * torch.randn((heads, t, t), generator=gen, device=device)
     scale = 1.0 / math.sqrt(d)
+    f32 = dtype == torch.float32
     name = (f"{title} [B={b},H={heads},T={t},D={d}] {dtype_name(dtype)} "
             + ("bias [H,T,T], no mask" if with_bias else "no bias, no mask"))
     if (not ga.takes(dtype, b, heads, t, t, d, None if bias is None else tuple(bias.shape))
@@ -1743,15 +1650,15 @@ def check_global_kernel(device, title, b, heads, t, d, dtype, with_bias=False) -
         return timer(lambda arg: torch.autograd.grad(arg[1], arg[0], grad), setup=setup, **reps)
 
     keys = ("out", "dq", "dk", "dv") + (("dbias",) if with_bias else ())
-    form = {"fwd": 0, "bwd": 0, "fwd_bias": 0, "bwd_bias": 0,
-            **({"fwd_bias": 1, "bwd_bias": 1} if with_bias else {"fwd": 1, "bwd": 1})}
+    form = ("_bias" if with_bias else "") + ("_f32" if f32 else "")
+    want_counts = {**dict.fromkeys(ga.LAUNCH_COUNTS, 0), f"fwd{form}": 1, f"bwd{form}": 1}
     ga.reset_launch_counts()
     wa.reset_launch_counts()
     got = run(kernel)
-    if ga.LAUNCH_COUNTS != form or any(wa.LAUNCH_COUNTS.values()):
+    if ga.LAUNCH_COUNTS != want_counts or any(wa.LAUNCH_COUNTS.values()):
         raise AssertionError(f"[{name}] launches {ga.LAUNCH_COUNTS} of the pair and "
                              f"{wa.LAUNCH_COUNTS} of the window-attention kernels; expected "
-                             f"{form} of the pair alone")
+                             f"{want_counts} of the pair alone")
     again = run(kernel)
     for key, a, c in zip(keys, got, again):
         if not torch.equal(a, c):
@@ -1783,25 +1690,29 @@ def check_global_kernel(device, title, b, heads, t, d, dtype, with_bias=False) -
     bwd_lib = backward_ms(library, args_h, douth)
     bwd_dev = backward_ms(kernel, args, dout, timer=device_ms)
     bwd_lib_dev = backward_ms(library, args_h, douth, timer=device_ms)
-    det = deterministic_sdpa_device_ms(qh, kh, vh, douth, reps, bias)
+    det = None if f32 else deterministic_sdpa_device_ms(qh, kh, vh, douth, reps, bias)
     det_fwd, det_bwd = det if det is not None else (None, None)
     fwd_bound, fwd_by = wa_bound(qh, bias, None, backward=False)
     bwd_bound, bwd_by = wa_bound(qh, bias, None, backward=True)
-    det_msg = ("deterministic sdpa backward raises" if det is None else
-               f"deterministic sdpa device fwd {det_fwd:.4f} bwd {det_bwd:.4f}")
+    det_msg = ("" if f32 else "; deterministic sdpa backward raises" if det is None else
+               f"; deterministic sdpa device fwd {det_fwd:.4f} bwd {det_bwd:.4f}")
     stream = {}
-    if with_bias:
+    if with_bias or f32:
+        wa.reset_launch_counts()
         with torch.no_grad():
             stream["fwd"] = device_ms(lambda _: streaming(*args_h), **reps)
         stream["bwd"] = backward_ms(streaming, args_h, douth, timer=device_ms)
-        det_msg += (f"; the streaming pair's bias-alone build device fwd {stream['fwd']:.4f} "
-                    f"bwd {stream['bwd']:.4f}")
+        if not (wa.LAUNCH_COUNTS["fwd_stream"] and wa.LAUNCH_COUNTS["bwd_stream"]):
+            raise AssertionError(f"[{name}] the streaming comparison launched "
+                                 f"{wa.LAUNCH_COUNTS}")
+        det_msg += (f"; the streaming pair (both operands, zero stand-ins) device fwd "
+                    f"{stream['fwd']:.4f} bwd {stream['bwd']:.4f}")
     log(f"  [{name}] max abs err " + " ".join(f"{k} {v:.2e}" for k, v in errs.items())
         + f"; bitwise repeatable; ms fwd kernel {fwd_ms:.4f} (device {fwd_dev:.4f}, held "
         f"{fwd_held:.4f}) plain {fwd_plain:.4f} sdpa {fwd_lib:.4f} (device {fwd_lib_dev:.4f}) "
         f"bound {fwd_bound:.4f} ({fwd_by}); bwd kernel {bwd_ms:.4f} (device {bwd_dev:.4f}) plain "
         f"{bwd_plain:.4f} sdpa {bwd_lib:.4f} (device {bwd_lib_dev:.4f}) bound {bwd_bound:.4f} "
-        f"({bwd_by}); {det_msg} ({card_line()})")
+        f"({bwd_by}){det_msg} ({card_line()})")
     more = {d: ({"streaming_device_ms": stream[d]} if stream else {}) for d in ("fwd", "bwd")}
     return {"fwd": dict(shape=name, route="global", max_abs_err=errs["out"], ms=fwd_ms,
                         device_ms=fwd_dev, held_ms=fwd_held, plain_ms=fwd_plain,
@@ -2073,28 +1984,22 @@ def phase_kernels(device) -> list[dict]:
     wa_cuda_core = check_window_attention(device, stage, bnw, heads, nw, True, dtype,
                                           window=window, d=d, routes=routes)
     torch.cuda.empty_cache()
-    log("global attention with a gradient: the streaming pair without a mask (and without a "
-        "bias where there is none), one window per batch row; sdpa is "
-        "F.scaled_dot_product_attention at the same shape, a yardstick only")
-    ga_rows = []
-    for row in GA_ROWS:
-        t0 = time.perf_counter()
-        ga_rows.append(check_global_attention(device, *row))
-        log(f"  ({time.perf_counter() - t0:.1f} s)")
-        torch.cuda.empty_cache()
     check_deterministic_sdpa(device)
     torch.cuda.empty_cache()
-    log("global attention with a gradient in bf16 without a mask: the global-attention "
-        "kernel pair, and its bias form with MOAT's relative bias (the route the ViT-L, "
-        "EVA02-L and MOAT-4 train steps take); sdpa as above (with the bias as its additive "
-        "mask), deterministic sdpa under torch.use_deterministic_algorithms(True)")
-    gk_rows, gk_bias_rows = [], []
+    log("global attention with a gradient without a mask: the global-attention kernel pair "
+        "in bf16 and its split-TF32 form in fp32, and their bias forms with MOAT's relative "
+        "bias (the route the ViT-L, EVA02-L and MOAT-4 train steps take); sdpa is "
+        "F.scaled_dot_product_attention in the row's type (with the bias as its additive "
+        "mask), deterministic sdpa under torch.use_deterministic_algorithms(True), the "
+        "streaming window-attention pair with zero stand-ins where such a call went before: "
+        "yardsticks only")
+    gk_rows = {}  # (bias, f32) -> rows
     for row in GA_ROWS:
-        if row[5] == torch.bfloat16:
-            t0 = time.perf_counter()
-            (gk_bias_rows if row[6:] else gk_rows).append(check_global_kernel(device, *row))
-            log(f"  ({time.perf_counter() - t0:.1f} s)")
-            torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        gk_rows.setdefault((bool(row[6:]), row[5] == torch.float32), []).append(
+            check_global_kernel(device, *row))
+        log(f"  ({time.perf_counter() - t0:.1f} s)")
+        torch.cuda.empty_cache()
     log(f"dense-local sampling (tol of max(1, max |plain|): {DL_TOL}); the backward's max abs "
         "err is over its four gradients; no single PyTorch call computes this function")
     dl_rows = {}
@@ -2178,29 +2083,21 @@ def phase_kernels(device) -> list[dict]:
         entry("window_attention_bwd_tf32x3_large", wa_src,
               "iseg_tpu/ops/pallas/window_attention.py:161", wa_main_f32_w12["bwd"],
               wa_shapes["bwd_tf32x3_large"]),
-        # the streaming entries hold two routes: window 16 and, built without
-        # a mask, global attention with a gradient in f32, or with a mask or a
-        # batch-varying bias (jax.nn.dot_product_attention in the JAX package,
-        # iseg_tpu/nn/attention.py:58: XLA, no Pallas kernel), whose rows
-        # follow
         entry("window_attention_fwd_stream", wa_src,
               "iseg_tpu/ops/pallas/window_attention.py:141", wa_main_stream["fwd"],
-              wa_shapes["fwd_stream"] + [row["fwd"] for row in ga_rows]),
+              wa_shapes["fwd_stream"]),
         entry("window_attention_bwd_stream", wa_src,
               "iseg_tpu/ops/pallas/window_attention.py:161", wa_main_stream["bwd"],
-              wa_shapes["bwd_stream"] + [row["bwd"] for row in ga_rows]),
-        # the global-attention pair that took bf16 global attention without a
-        # mask over from them, bias-free and in its bias form (no Pallas
-        # kernel: XLA's jax.nn.dot_product_attention, iseg_tpu/nn/attention.py:58,
-        # and MOAT's biased einsum, iseg_tpu/backbones/moat.py:69-88)
-        entry("global_attention_fwd", ga_src, "iseg_tpu/nn/attention.py:58", gk_rows[0]["fwd"],
-              [row["fwd"] for row in gk_rows]),
-        entry("global_attention_bwd", ga_src, "iseg_tpu/nn/attention.py:58", gk_rows[0]["bwd"],
-              [row["bwd"] for row in gk_rows]),
-        entry("global_attention_fwd_bias", ga_src, "iseg_tpu/backbones/moat.py:70",
-              gk_bias_rows[0]["fwd"], [row["fwd"] for row in gk_bias_rows]),
-        entry("global_attention_bwd_bias", ga_src, "iseg_tpu/backbones/moat.py:70",
-              gk_bias_rows[0]["bwd"], [row["bwd"] for row in gk_bias_rows]),
+              wa_shapes["bwd_stream"]),
+        # the global-attention pair, which took global attention without a
+        # mask over from the streaming pair: bias-free and in its bias form,
+        # each in bf16 and in fp32 (split TF32) (no Pallas kernel: XLA's
+        # jax.nn.dot_product_attention, iseg_tpu/nn/attention.py:58, and
+        # MOAT's biased einsum, iseg_tpu/backbones/moat.py:69-88)
+        *(entry(f"global_attention_{d}{'_bias' if bias else ''}{'_f32' if f32 else ''}",
+                ga_src, "iseg_tpu/backbones/moat.py:70" if bias else "iseg_tpu/nn/attention.py:58",
+                rows[0][d], [row[d] for row in rows])
+          for (bias, f32), rows in gk_rows.items() for d in ("fwd", "bwd")),
         entry("deform_local_fwd", dl_src, "iseg_tpu/ops/pallas/deform_local.py:116",
               dl_main["fwd"], dl_shapes["fwd"]),
         entry("deform_local_bwd", dl_src, "iseg_tpu/ops/pallas/deform_local.py:146",
@@ -2211,6 +2108,11 @@ def phase_kernels(device) -> list[dict]:
 
 
 # ------------------------------------------------------------ launch counts
+
+# the global-attention pair's launch counts: bias-free and bias forms, bf16 and fp32
+GA_FORMS = ("fwd", "bwd", "fwd_bias", "bwd_bias", "fwd_f32", "bwd_f32", "fwd_bias_f32",
+            "bwd_bias_f32")
+
 
 def reset_launch_counts() -> None:
     uce.reset_launch_counts()
@@ -2231,10 +2133,8 @@ def read_launch_counts() -> dict[str, int]:
             "window_attention_bwd_tf32x3": wa.LAUNCH_COUNTS["bwd_tf32x3"],
             "window_attention_fwd_stream": wa.LAUNCH_COUNTS["fwd_stream"],
             "window_attention_bwd_stream": wa.LAUNCH_COUNTS["bwd_stream"],
-            "window_attention_fwd_global": wa.LAUNCH_COUNTS["fwd_global"],
-            "window_attention_bwd_global": wa.LAUNCH_COUNTS["bwd_global"],
             **{f"global_attention_{key}": ga.LAUNCH_COUNTS.get(key, 0) if ga is not None else 0
-               for key in ("fwd", "bwd", "fwd_bias", "bwd_bias")},
+               for key in GA_FORMS},
             "deform_local_fwd": dl.LAUNCH_COUNTS["fwd"], "deform_local_bwd": dl.LAUNCH_COUNTS["bwd"],
             "cache_gather": cg.LAUNCH_COUNTS["gather"]}
 
@@ -4363,6 +4263,64 @@ def phase_vit_train(env) -> tuple[dict, dict]:
     return launches, trained
 
 
+def vit_f32_steps(device, warmup: int, timed: int,
+                  want_per_step: dict | None = None) -> tuple[dict, dict]:
+    """ViT-L + ASPP (config #4's model) in fp32 with TF32 off: ``warmup`` +
+    ``timed`` steps on a fixed batch (each step's launches held to
+    ``want_per_step`` where given), then 3 profiled; returns the launch
+    counts over the steps and the numbers: ms/step, device ms, the global
+    attention's device ms (the pair, or a tree's streaming pair or SDPA) and
+    share, peak memory, busy share."""
+    env32 = common_env_setup(EnvConfig(random_seed=0, mixed_precision=False, device="cuda"))
+    if (env32.compute_dtype != torch.float32 or torch.backends.cuda.matmul.allow_tf32
+            or torch.backends.cudnn.allow_tf32):
+        raise AssertionError("the fp32 ViT-L step needs fp32 compute with TF32 off")
+    data = synthetic_batch(device, V_BATCH, V_CLASSES)
+    model = build_vit_model(env32, fused=True)
+    if any(t.dtype != torch.float32 for t in model.state_dict().values() if t.is_floating_point()):
+        raise AssertionError("the fp32 ViT-L model holds parameters that are not float32")
+    tx, _ = get_optimizer(param_tree(model), "sgd", learning_rate=0.01, train_steps=1000)
+    state = create_train_state(model, env32.generator, tx)
+    step_fn = make_train_step(model.build_loss_fn(), compute_dtype=torch.float32)
+    if want_per_step is None:
+        state, losses, launches, step_ms = train_steps(state, step_fn, data, warmup, timed,
+                                                       V_BATCH)
+    else:
+        state, losses, launches, step_ms = counted_train_steps(
+            state, step_fn, data, warmup, timed, V_BATCH, want_per_step, "ViT-L fp32 train")
+    peak = torch.cuda.max_memory_allocated()
+    prof = profile_steps(state, step_fn, data, "ViT-L/16 + ASPP fp32 train step", step_ms)
+    classes_of = dict(KERNEL_CLASSES)
+    needles = (classes_of["global-attention kernels"] + classes_of["window attention kernels"]
+               + classes_of["global attention (SDPA: flash / memory-efficient)"])
+    attn = sum(ms for key, ms in prof["kernels"].items() if any(n in key for n in needles))
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"the fp32 ViT-L step gave losses {losses}")
+    return launches, {"vit32 step ms": step_ms, "vit32 step device ms": prof["device_ms"],
+                      "vit32 step attention ms": attn,
+                      "vit32 step attention share": attn / prof["device_ms"],
+                      "vit32 busy share": prof["device_ms"] / step_ms,
+                      "vit32 peak GiB": peak / 2**30, "vit32 losses": losses}
+
+
+def phase_vit_train_f32(device) -> dict:
+    """Phase 12.4: ViT-L + ASPP trained in fp32 (TF32 off), its global
+    attention on the pair's split-TF32 form: exactly 1 + 1 loss-kernel and
+    24 + 24 fp32-form launches in every step; ms/step, device ms, the pair's
+    device ms and share, peak memory, busy share. Returns the launch counts."""
+    log(f"-- 12.4: ViT-L/16 + ASPP(256), {V_CLASSES} classes, {HW}x{HW}, batch {V_BATCH}, fp32 "
+        "(TF32 off), SGD poly, fused loss at os16; global attention on the pair's split-TF32 "
+        "form")
+    want = {"upsample_ce_fwd": 1, "upsample_ce_bwd": 1, **T_GLOBAL_F32_PER_STEP}
+    launches, row = vit_f32_steps(device, V_F32_WARMUP, V_F32_TIMED, want)
+    log(f"ViT-L fp32 train: {row['vit32 step ms']:.2f} ms/step, "
+        f"{V_BATCH * 1e3 / row['vit32 step ms']:.2f} img/s, device {row['vit32 step device ms']:.3f} "
+        f"ms/step, the pair {row['vit32 step attention ms']:.3f} ms/step (share "
+        f"{row['vit32 step attention share']:.4f}), busy {row['vit32 busy share']:.4f}, peak "
+        f"{row['vit32 peak GiB']:.2f} GiB, losses {row['vit32 losses']} ({card_line()})")
+    return launches
+
+
 def eva_optimizer(model, backbone):
     """AdamW (decoupled decay 0.05, BN/norm/bias/pos-embed leaves exempt
     by the weight-decay mask) with the layerwise LR decay of the
@@ -4487,7 +4445,8 @@ def phase_transformer_serve(env, title, build_model, trained, classes) -> dict:
 
 
 def phase_transformers(env) -> dict[str, dict]:
-    """Phase 12: the global-attention transformers of BASELINE configs #4 and #5."""
+    """Phase 12: the global-attention transformers of BASELINE configs #4 and
+    #5 (12.4, ViT-L in fp32, runs before 12.3's serves)."""
     log("== phase 12: ViT-L + ASPP and EVA02-L + ASPP (BASELINE configs #4 and #5): train "
         "and serve")
     t_phase = time.perf_counter()
@@ -4498,6 +4457,9 @@ def phase_transformers(env) -> dict[str, dict]:
     paths["eva_train"], eva_trained = phase_eva_train(env)
     torch.cuda.empty_cache()
     log(f"(12.2 done at {time.perf_counter() - t_phase:.1f} s)")
+    paths["vit32_train"] = phase_vit_train_f32(env.device)
+    torch.cuda.empty_cache()
+    log(f"(12.4 done at {time.perf_counter() - t_phase:.1f} s)")
     log("-- 12.3: serve, batch 2, scales (0.75, 1.0) + flip, bf16 autocast, trained weights")
     serve = {}
     for path, title, build_model, trained, classes in (
@@ -5545,7 +5507,8 @@ def f1_setups(env) -> dict:
     which adds in no fixed order, before fault F4 was: they now record
     their gradient through the global-attention kernels. MOAT-4 runs with
     its relative-position bias (``use_pos_emb``), whose gradient the pair's
-    bias form forms. A tree without that route (``--ab``'s older
+    bias form forms. ViT-L and MOAT-4 also run in fp32 (TF32 off), on the
+    pair's fp32 form. A tree without that route (``--ab``'s older
     one) runs EVA02-L under SDPA's math backend, as it did, and ViT-L and
     MOAT-4 under the default SDPA."""
     from torch.nn.attention import SDPBackend, sdpa_kernel
@@ -5554,12 +5517,12 @@ def f1_setups(env) -> dict:
 
     kernel_route = hasattr(attention_module, "kernel_attention")
 
-    def sgd_setup(build_model):
+    def sgd_setup(build_model, compute_dtype=env.compute_dtype):
         def build():
             model = build_model()
             tx, _ = get_optimizer(param_tree(model), "sgd", learning_rate=0.01, train_steps=1000)
             state = create_train_state(model, torch.Generator().manual_seed(0), tx)
-            return state, make_train_step(model.build_loss_fn(), env.compute_dtype, seed=0)
+            return state, make_train_step(model.build_loss_fn(), compute_dtype, seed=0)
 
         return build
 
@@ -5583,6 +5546,10 @@ def f1_setups(env) -> dict:
             f"{E_PATCH_DROPOUT})": (eva, E_BATCH, E_CLASSES, eva_context),
             "MOAT-4 + ASPP (relative-position bias)": (sgd_setup(moat), Z_BATCH, Z_CLASSES,
                                                        plain),
+            "ViT-L + ASPP fp32": (sgd_setup(lambda: build_vit_model(env, fused=True),
+                                            torch.float32), V_BATCH, V_CLASSES, plain),
+            "MOAT-4 + ASPP fp32 (relative-position bias)": (sgd_setup(moat, torch.float32),
+                                                            Z_BATCH, Z_CLASSES, plain),
             "MobileNetV2 + SimpleDecoder": (sgd_setup(lambda: build_mbv2_model(env, fused=True)),
                                             M_BATCH, M_CLASSES, plain)}
 
@@ -5626,18 +5593,23 @@ def f1_run(build, data, steps: int = F1_STEPS,
 # phase F1's paths whose global attention the launch counts hold: ViT-L and
 # EVA02-L on the global-attention pair (24 blocks a step, two runs), MOAT-4
 # with its relative bias on the pair's bias form (30 blocks a step, two
-# runs). {path name prefix: (paths key, the kernels it launches, how often
-# each (None: at least once), the kernels it must not)}
+# runs), ViT-L and MOAT-4 in fp32 on the same forms' fp32 builds; each
+# launches no other form and none of the streaming window-attention pair.
+# {path name prefix (the longest that matches counts): (paths key, the
+# kernels it launches, how often each)}
 GLOBAL_PAIR = ("global_attention_fwd", "global_attention_bwd")
 GLOBAL_BIAS_PAIR = ("global_attention_fwd_bias", "global_attention_bwd_bias")
-STREAMING_GLOBAL = ("window_attention_fwd_global", "window_attention_bwd_global")
+GLOBAL_F32_PAIR = ("global_attention_fwd_f32", "global_attention_bwd_f32")
+GLOBAL_BIAS_F32_PAIR = ("global_attention_fwd_bias_f32", "global_attention_bwd_bias_f32")
 F1_ATTENTION = {
-    "ViT-L": ("f1_vit_train", GLOBAL_PAIR, 2 * F1_STEPS * 24, STREAMING_GLOBAL + GLOBAL_BIAS_PAIR),
-    "EVA02-L": ("f1_eva_train", GLOBAL_PAIR, 2 * F1_STEPS * 24,
-                STREAMING_GLOBAL + GLOBAL_BIAS_PAIR),
-    "MOAT-4": ("f1_moat_bias_train", GLOBAL_BIAS_PAIR, 2 * F1_STEPS * 30,
-               STREAMING_GLOBAL + GLOBAL_PAIR),
+    "ViT-L": ("f1_vit_train", GLOBAL_PAIR, 2 * F1_STEPS * 24),
+    "EVA02-L": ("f1_eva_train", GLOBAL_PAIR, 2 * F1_STEPS * 24),
+    "MOAT-4": ("f1_moat_bias_train", GLOBAL_BIAS_PAIR, 2 * F1_STEPS * 30),
+    "ViT-L + ASPP fp32": ("f1_vit32_train", GLOBAL_F32_PAIR, 2 * F1_STEPS * 24),
+    "MOAT-4 + ASPP fp32": ("f1_moat32_bias_train", GLOBAL_BIAS_F32_PAIR, 2 * F1_STEPS * 30),
 }
+ATTENTION_KERNELS = tuple(f"global_attention_{key}" for key in GA_FORMS) + (
+    "window_attention_fwd_stream", "window_attention_bwd_stream")
 
 
 def phase_f1_repeat(env) -> dict[str, dict[str, int]]:
@@ -5645,8 +5617,9 @@ def phase_f1_repeat(env) -> dict[str, dict[str, int]]:
     weights and batch end with the same state bit for bit. Returns the
     launch counts of the paths in ``F1_ATTENTION`` (both runs): ViT-L and
     EVA02-L launch the global-attention pair 24 times a step each way,
-    MOAT-4 with its bias the pair's bias form 30 times, and none of them the
-    streaming pair or the other form."""
+    MOAT-4 with its bias the pair's bias form 30 times, the fp32 ViT-L and
+    MOAT-4 the same counts of the fp32 forms, and none of them the
+    streaming pair or another form."""
     log("== phase F1: fixed-order resizes (interpolation matrices, no F.interpolate) and "
         "global-attention backwards (the global-attention kernels, with MOAT-4's bias their "
         f"bias form; no SDPA): two runs of {F1_STEPS} steps each end equal bit for bit")
@@ -5667,15 +5640,14 @@ def phase_f1_repeat(env) -> dict[str, dict[str, int]]:
             if (losses_1 != losses_2 or len(first) != len(second)
                     or not all(torch.equal(a, b) for a, b in zip(first, second))):
                 raise AssertionError(f"F1: two runs of {name} end in different states")
-            for prefix, (path, kernels, times, others) in F1_ATTENTION.items():
-                if not name.startswith(prefix):
-                    continue
+            prefix = max((p for p in F1_ATTENTION if name.startswith(p)), key=len, default=None)
+            if prefix is not None:
+                path, kernels, times = F1_ATTENTION[prefix]
                 paths[path] = counts
-                if (any(counts[key] != times if times else counts[key] <= 0 for key in kernels)
-                        or any(counts[key] for key in others)):
+                want = {key: times if key in kernels else 0 for key in ATTENTION_KERNELS}
+                if {key: counts[key] for key in ATTENTION_KERNELS} != want:
                     raise AssertionError(f"F1 {name}: attention launches {counts}; expected "
-                                         f"{times or 'some'} of each of {kernels} and none of "
-                                         f"{others}")
+                                         f"{want}")
             del data, runs, first, second
             torch.cuda.empty_cache()
     return paths
@@ -5779,6 +5751,50 @@ def ab_wa12_row(device) -> dict:
     return row
 
 
+def ab_vit32_row(device) -> dict:
+    """``--ab OLD --only vit32``: fp32 global attention with a gradient at
+    phase 2's fp32 rows through ``dot_product_attention`` (the pair's fp32
+    form here, the streaming pair in a tree from before it), forward and
+    backward by the profiler's device time with the launch counts; then
+    phase 12.4's fp32 ViT-L step (2 + 3, then 3 profiled)."""
+    from iseg_tpu_torch.nn import attention as attention_module
+
+    reps = dict(reps=10, warmup=2)
+    row = {}
+    for title, b, heads, t, d, dtype, *with_bias in GA_ROWS:
+        if dtype != torch.float32:
+            continue
+        key = f"{title} [B={b},H={heads},T={t},D={d}] f32"
+        qh, kh, vh, douth = ga_inputs(device, b, heads, t, d, dtype)
+        q, k, v, dout = (x.permute(0, 2, 1, 3) for x in (qh, kh, vh, douth))
+        bias = None
+        if with_bias:
+            gen = torch.Generator(device=device).manual_seed(1)
+            bias = 0.1 * torch.randn((1, heads, t, t), generator=gen, device=device)
+        args = (q, k, v) + (() if bias is None else (bias,))
+
+        def attend(qq, kk, vv, bb=None):
+            return attention_module.dot_product_attention(qq, kk, vv, bias=bb)
+
+        def setup():
+            leaves = [x.detach().requires_grad_(True) for x in args]
+            return leaves, attend(*leaves)
+
+        reset_launch_counts()
+        with torch.no_grad():  # SDPA here and in the older tree: the serving route
+            row[f"sdpa_fwd {key} device ms"] = device_ms(lambda _: attend(*args), **reps)
+        row[f"attention_fwd {key} device ms"] = device_ms(lambda _: setup(), **reps)
+        row[f"attention_bwd {key} device ms"] = device_ms(
+            lambda arg: torch.autograd.grad(arg[1], arg[0], dout), setup=setup, **reps)
+        row[f"attention {key} launches"] = {n: c for n, c in read_launch_counts().items() if c}
+        del q, k, v, dout, qh, kh, vh, douth, bias, args
+        torch.cuda.empty_cache()
+    launches, step = vit_f32_steps(device, V_F32_WARMUP, V_F32_TIMED)
+    row.update(step)
+    row["vit32 launches"] = {n: c for n, c in launches.items() if c}
+    return row
+
+
 def ab_stream_row(device) -> dict:
     """``--ab OLD --only stream``: phase 2's streaming rows (WA_STREAM_ROWS:
     the D = 36 pair, which a tree from before the streaming kernels runs on
@@ -5822,11 +5838,10 @@ def ab_stream_row(device) -> dict:
 def ab_child(only: str | None = None) -> dict:
     """One process of ``--ab``: this file's timings of the package first on
     the path. It uses only what the parent commit's package has too."""
-    for key in ("fwd_mma", "bwd_mma", "fwd_tf32x3", "bwd_tf32x3", "fwd_stream", "bwd_stream",
-                "fwd_global", "bwd_global"):
+    for key in ("fwd_mma", "bwd_mma", "fwd_tf32x3", "bwd_tf32x3", "fwd_stream", "bwd_stream"):
         wa.LAUNCH_COUNTS.setdefault(key, 0)  # a package from before a route
     if ga is not None:
-        for key in ("fwd_bias", "bwd_bias"):
+        for key in GA_FORMS:
             ga.LAUNCH_COUNTS.setdefault(key, 0)
     device = torch.device("cuda")
     _build.load_all([uce.SOURCE, wa.SOURCE, dl.SOURCE, cg.SOURCE]
@@ -5838,6 +5853,8 @@ def ab_child(only: str | None = None) -> dict:
         return {**row, **ab_wa12_row(device)}
     if only == "stream":
         return {**row, **ab_stream_row(device)}
+    if only == "vit32":
+        return {**row, **ab_vit32_row(device)}
     reps = dict(reps=10, warmup=2)
     scale = 1.0 / math.sqrt(HEAD_DIM)
     for stage, bnw, heads, nw, _ in WA_STAGES:
@@ -6928,18 +6945,13 @@ def main(argv: list[str]) -> int:
             k["shapes"].append(tp_cache_gather_row)
 
     # the bf16 window-attention entries count two routes each (tensor cores and
-    # CUDA cores), each with its count, and so do the streaming entries (window
-    # 16 and global attention, which no path of this run takes since the
-    # global-attention pair's bias form); the split-TF32 entries one, shared by
+    # CUDA cores), each with its count; the split-TF32 entries one, shared by
     # two kernels each: the N > 64 ones run on phase 6c's path alone, the N <=
     # 64 ones on the others
     routes = {"window_attention_fwd": {"mma": "window_attention_fwd_mma",
                                        "cuda_core": "window_attention_fwd"},
               "window_attention_bwd": {"mma": "window_attention_bwd_mma",
                                        "cuda_core": "window_attention_bwd"},
-              **{f"window_attention_{d}_stream": {"window": f"window_attention_{d}_stream",
-                                                  "global": f"window_attention_{d}_global"}
-                 for d in ("fwd", "bwd")},
               "window_attention_fwd_tf32x3_large": {"cuda": "window_attention_fwd_tf32x3"},
               "window_attention_bwd_tf32x3_large": {"cuda": "window_attention_bwd_tf32x3"}}
     window12 = "swin384_train_f32"
@@ -6966,6 +6978,7 @@ def main(argv: list[str]) -> int:
                "hrnet_accum": loss_kernels,
                "hrnet_train_seg": loss_kernels,
                "vit_train": loss_kernels + global_kernels,
+               "vit32_train": loss_kernels + GLOBAL_F32_PAIR,
                "eva_train": global_kernels,  # 150 classes: the unfused loss (0 launches)
                "vit_serve": (),
                "eva_serve": (),
@@ -6977,6 +6990,8 @@ def main(argv: list[str]) -> int:
                "f1_vit_train": loss_kernels + global_kernels,
                "f1_eva_train": global_kernels,
                "f1_moat_bias_train": loss_kernels + GLOBAL_BIAS_PAIR,
+               "f1_vit32_train": loss_kernels + GLOBAL_F32_PAIR,
+               "f1_moat32_bias_train": loss_kernels + GLOBAL_BIAS_F32_PAIR,
                "swin_train": loss_kernels + ("window_attention_fwd_mma",
                                              "window_attention_bwd_mma"),
                "swin_serve": ("window_attention_fwd_mma",),

@@ -1,7 +1,8 @@
 // Global attention forward and backward for Hopper (sm_90a): softmax(q k^T
-// scale + bias[h]) v over whole sequences, bf16 in and out, fp32
-// accumulators, the bias (if any) an fp32 [H, T, S] shared by every batch
-// row, and in the backward its gradient summed over the batch. Built
+// scale + bias[h]) v over whole sequences, bf16 in and out with fp32
+// accumulators, or fp32 in and out in split TF32 (the fp32 form, below), the
+// bias (if any) an fp32 [H, T, S] shared by every batch row, and in the
+// backward its gradient summed over the batch. Built
 // by iseg_tpu_torch/ops/kernels/_build.py with nvcc into a shared library
 // with a plain C interface, loaded with ctypes.
 //
@@ -112,6 +113,44 @@
 //   dbias, held to 1e-3 of max(1, max |plain|), missed it (2.02e-3 against
 //   1.82e-3 at a [2, 70, 2, 64] call with 200 keys on the H100).
 //
+// The fp32 form (each kernel built with E = float; the bf16 builds keep their
+// code): fp32 q, k, v, out and gradients at fp32's precision, for the fp32
+// train steps (mixed precision off: ViT-L, EVA02-L, MOAT with its bias),
+// which the streaming pair took before, with its occupancy failure (B H
+// blocks each walking every row). Every product, p v and the backward's
+// five included, is split TF32 on mma.sync m16n8k8 (window_attention.cu's
+// tf32x3 kernels' Split and mma_3xtf32, copied): each operand x = hi + lo,
+// hi = tf32(x), lo the TF32 truncation of x - hi, and a b = lo hi + hi lo + hi
+// hi in fp32 accumulators; p and ds, not exact in TF32, are split too. Its
+// answers:
+// * The work's shape is the bf16 pair's (the blocks, the ring, the online
+//   softmax in exp2 units with the slack of 8), with one 16-row m-tile a
+//   warp and 64-key tiles at every D. q stays in registers as raw fp32
+//   fragments (32 registers at D = 64) and is split at each product, once a
+//   head-dim step for all of a tile's keys; k and v arrive raw in the fp32
+//   ring (rows of D + 4 floats: the fragment loads hit 32 distinct banks)
+//   and each value is split where a warp loads it (a split once a tile in
+//   shared memory would double the ring: 64 KB a stage at D = 64).
+// * Registers: the backward's held side (k and v, or q and do) is twice
+//   the bf16 fragments, so it takes half the columns of a streamed tile at
+//   once (32, 16 at D = 128) and two blocks an SM at D = 64 (dk / dv's k, v
+//   and accumulators take 128 registers a thread), three at D <= 32; the
+//   forward four / three / one blocks at D <= 32 / 64 / 128 (three / two
+//   with the bias).
+// * delta = rowsum(do out) from the fp32 out, with the bias too: the bf16
+//   form's extra key walk was needed only for a bf16-rounded out, so the
+//   fp32 bias form's backward runs delta, dk / dv, dq, dbias. Its dbias
+//   kernel's ring (four fp32 tiles a stage) fits a block up to D = 64,
+//   which is the fp32 bias form's widest head dim (MOAT's is 32).
+// Measured on an H100 80GB HBM3 at 700 W (chip_smoke.py phase 2 and --ab;
+// PERF.md section 6, rows 3*f / 4*f): at ViT-L's [8, 16, 1025, 64] the
+// forward 0.70 ms of device time (SDPA in fp32 1.17, the streaming pair
+// 1.67-1.71), the backward 2.50-2.55 (SDPA 2.90, the streaming pair
+// 5.86-5.98), 3.4x / 4.9x the split-TF32 bound; 255 registers at D = 64 in
+// the backward (two blocks an SM: dk / dv spills 20 bytes). Every warp
+// splits each streamed value it loads (four instructions a value); how much
+// of the time that takes is not measured.
+//
 // The split backward recomputes s and dp in both passes (seven products
 // where a backward with atomics has five) in exchange for the fixed order.
 // Measured on an H100 80GB HBM3 at 700 W at ViT-L's shape (chip_smoke.py
@@ -134,12 +173,13 @@
 // padded key's p is set to 0 in the dq pass (its logit is 0, and exp2(-lse)
 // may overflow); padded rows and keys are never stored.
 //
-// The kernels are compiled for head dims up to 32, 64 and 128 (kD); a head
-// dim D that is a multiple of 8 below its bucket is zero-padded to kD in
-// registers and shared memory. q, k, v, do are read and out, dq, dk, dv
-// written through their element strides in the [B, T, H, D] layout (the head
-// dim contiguous, every stride and base 16-byte aligned: the wrapper checks),
-// so q, k and v may be views of a packed qkv projection. The bias and dbias
+// The kernels are compiled for head dims up to 32, 64 and 128 (kD; the fp32
+// bias form up to 32 and 64); a head dim D that is a multiple of 8 below its
+// bucket is zero-padded to kD in registers and shared memory. q, k, v, do
+// are read and out, dq, dk, dv written through their element strides in the
+// [B, T, H, D] layout (the head dim contiguous, every stride and base
+// 16-byte aligned: the wrapper checks), so q, k and v may be views of a
+// packed qkv projection. The bias and dbias
 // are [H, T, ldb] fp32 with a row stride ldb >= S, a multiple of 4 (16-byte
 // rows), the base 16-byte aligned.
 
@@ -154,6 +194,11 @@ namespace {
 
 typedef __nv_bfloat16 bf16;
 
+// The element type of q, k, v, out and the gradients: bf16, or fp32 (the
+// split-TF32 form)
+template <typename E>
+constexpr bool kF32 = std::is_same_v<E, float>;
+
 constexpr int kRows = 64;  // keys (or query rows) of a streamed tile
 constexpr float kLog2e = 1.4426950408889634f;
 
@@ -162,16 +207,18 @@ struct Strides {
   long long b, t, h;
 };
 
-// Row pitch of a shared tile in elements: kD plus 16 bytes, an odd multiple
-// of 16 bytes, so the eight rows of an ldmatrix land on distinct banks
-template <int kD>
+// Row pitch of a shared tile in elements: kD plus 16 bytes. In bf16 an odd
+// multiple of 16 bytes, so the eight rows of an ldmatrix land on distinct
+// banks; in fp32 4 mod 8 floats, so the split-TF32 fragment loads (row g,
+// column t of a quad, or rows 2t and 2t + 1, column g) hit 32 distinct banks
+template <typename E, int kD>
 __host__ __device__ constexpr int tile_ld() {
-  return kD + 8;
+  return kD + 16 / static_cast<int>(sizeof(E));
 }
 
-template <int kD, int kR = kRows>
+template <typename E, int kD, int kR = kRows>
 __host__ __device__ constexpr int tile_elems() {
-  return kR * tile_ld<kD>();
+  return kR * tile_ld<E, kD>();
 }
 
 // Every kernel runs blocks of kWarps warps; a warp owns 16 query rows (or
@@ -189,28 +236,44 @@ constexpr int kStages = 2;
 // tiles, which spread each softmax step's fixed work (row maxima by
 // shuffles, the output's rescale) over more keys. The bias form takes one
 // m-tile and 64 keys at every D and three blocks an SM at D <= 64 (a stage
-// holds the 64 x 64 fp32 bias tile too)
-template <int kD, bool kBias>
+// holds the 64 x 64 fp32 bias tile too). The fp32 form takes one m-tile and
+// 64 keys at every D (its q fragments are twice as wide), and as many blocks
+// an SM as its fp32 ring allows: four (three with the bias) at D <= 32,
+// three (two) at D <= 64
+template <typename E, int kD, bool kBias>
 __host__ __device__ constexpr int fwd_mtiles() {
-  return kD <= 32 && !kBias ? 2 : 1;
+  return kD <= 32 && !kBias && !kF32<E> ? 2 : 1;
 }
-template <int kD, bool kBias>
+template <typename E, int kD, bool kBias>
 __host__ __device__ constexpr int fwd_keys() {
-  return kD <= 32 && !kBias ? 128 : 64;
+  return kD <= 32 && !kBias && !kF32<E> ? 128 : 64;
 }
-template <int kD, bool kBias>
+template <typename E, int kD, bool kBias>
 __host__ __device__ constexpr int fwd_min_blocks() {
+  if constexpr (kF32<E>) return kD <= 32 ? (kBias ? 3 : 4) : kD <= 64 ? (kBias ? 2 : 3) : 1;
   return kBias ? (kD <= 64 ? 3 : 1) : (kD == 64 ? 4 : 1);
 }
-// Resident blocks an SM the backward kernels are compiled for: three at D
-// <= 64 (at most 168 registers a thread)
-template <int kD>
+// Resident blocks an SM the backward kernels are compiled for: in bf16
+// three at D <= 64 (at most 168 registers a thread); in fp32 three at D <=
+// 32 and two at D <= 64, where the dk / dv kernel's k, v and its two
+// accumulators alone take 128 registers a thread
+template <typename E, int kD>
 __host__ __device__ constexpr int bwd_min_blocks() {
+  if constexpr (kF32<E>) return kD <= 32 ? 3 : kD <= 64 ? 2 : 1;
   return kD <= 64 ? 3 : 1;
 }
+// Whether the dq kernel forms delta = rowsum(p dp) by a first walk over the
+// key tiles (and runs first): the bf16 bias form, whose dbias rowsum(do out)
+// from the bf16-rounded out would miss. The fp32 form's out is exact enough
+// for delta = rowsum(do out) with a bias too
+template <typename E, bool kBias>
+__host__ __device__ constexpr bool delta_walk() {
+  return kBias && !kF32<E>;
+}
 // ... and the dbias kernel (its ring holds q, do, k and v of a batch row)
-template <int kD>
+template <typename E, int kD>
 __host__ __device__ constexpr int dbias_min_blocks() {
+  if constexpr (kF32<E>) return kD <= 32 ? 2 : 1;
   return kD <= 32 ? 3 : kD <= 64 ? 2 : 1;
 }
 
@@ -247,10 +310,11 @@ __device__ __forceinline__ BlockPos block_pos(int H) {
 constexpr float kRescaleSlack = 8.f;
 
 // Columns of a streamed tile the backward kernels take at once: 64, or 32
-// at kD = 128, where the accumulators of a whole tile would spill
-template <int kD>
+// at kD = 128, where the accumulators of a whole tile would spill; in fp32
+// half that (its fragments of the held side are twice as wide)
+template <typename E, int kD>
 __host__ __device__ constexpr int sub_cols() {
-  return kD <= 64 ? 64 : 32;
+  return (kD <= 64 ? 64 : 32) / (kF32<E> ? 2 : 1);
 }
 
 // 2^x for the softmax: the special-function unit's approximation (2 ulp,
@@ -292,6 +356,61 @@ __device__ __forceinline__ uint32_t bf16x2(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
+// The split-TF32 products of the fp32 form (window_attention.cu's, copied:
+// the two sources build apart). x rounded to TF32 (10 stored mantissa bits),
+// to nearest, ties away from zero, in two integer instructions; a NaN whose
+// mantissa carries into the sign bit comes out a zero, and Split keeps it in
+// lo
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
+}
+
+// c += a b for one 16 x 8 x 8 tile: a row-major tf32, b column-major tf32, c fp32
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// An fp32 operand fragment split as x = hi + lo: hi = tf32(x), rounded to
+// nearest, and lo = x - hi (exact in fp32) truncated to TF32 by one mask;
+// x - hi - lo is under 2^-21 |x|. A NaN x keeps a NaN lo
+template <int kN>
+struct Split {
+  uint32_t hi[kN], lo[kN];
+  __device__ __forceinline__ void set(int i, float x) {
+    hi[i] = to_tf32(x);
+    lo[i] = __float_as_uint(x - __uint_as_float(hi[i])) & 0xFFFFE000u;
+  }
+};
+
+// c += a b in split TF32 (CUTLASS's 3xTF32): lo hi and hi lo first, then hi
+// hi, all into the fp32 accumulators; only lo lo (under 2^-22 of the
+// product) is dropped
+__device__ __forceinline__ void mma_3xtf32(float (&c)[4], const Split<4>& a, const Split<2>& b) {
+  mma_tf32(c, a.lo, b.hi[0], b.hi[1]);
+  mma_tf32(c, a.hi, b.lo[0], b.lo[1]);
+  mma_tf32(c, a.hi, b.hi[0], b.hi[1]);
+}
+
+// A warp's 16 rows of an operand as the A fragments of a product over the
+// head dim: bf16 pairs of m16n8k16 (a[c] covers columns 16c .. 16c + 15),
+// or in fp32 the raw values of m16n8k8 in its natural order (a[c]: columns
+// 8c + t and 8c + t + 4 of rows g and g + 8, lane (g, t)), split into their
+// TF32 halves where a product takes them
+template <typename E, int kD>
+using frags_t = std::conditional_t<kF32<E>, float[kD / 8][4], uint32_t[kD / 16][4]>;
+
+// kN accumulator tiles (16 x 8 each, fp32) as the A operand of a product
+// over their columns: in bf16 rounded to m16n8k16 fragments (the
+// accumulator layout of two neighbouring tiles is the A layout), in fp32 the
+// accumulators themselves, split where the product takes them (m16n8k8's
+// "paired" order: a lane's slots t and t + 4 are its columns 2t and 2t + 1)
+template <typename E, int kN>
+using pfrags_t = std::conditional_t<kF32<E>, float[kN][4], uint32_t[kN / 2][4]>;
+
 __device__ __forceinline__ void cp_async16_zfill(uint32_t dst, const void* src, int bytes) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
                "r"(bytes));
@@ -323,13 +442,13 @@ __device__ __forceinline__ float quad_sum(float v) {
 // Rows row0 .. row0 + kR - 1 of one (b, h) [N][D] operand into a shared
 // [kR][tile_ld] tile by cp.async, 16 bytes a piece, zeros past N and from D
 // to kD, by the block's threads (the caller commits)
-template <int kD, int kR = kRows>
-__device__ __forceinline__ void copy_tile(const bf16* base, long long st, int row0, int N, int D,
-                                          bf16* dst) {
-  constexpr int kPieces = kD / 8, kLd = tile_ld<kD>();
+template <typename E, int kD, int kR = kRows>
+__device__ __forceinline__ void copy_tile(const E* base, long long st, int row0, int N, int D,
+                                          E* dst) {
+  constexpr int kPiece = 16 / sizeof(E), kPieces = kD / kPiece, kLd = tile_ld<E, kD>();
 #pragma unroll
   for (int e = threadIdx.x; e < kR * kPieces; e += kThreads) {
-    const int row = e / kPieces, col = (e - row * kPieces) * 8, r = row0 + row;
+    const int row = e / kPieces, col = (e - row * kPieces) * kPiece, r = row0 + row;
     const bool in = r < N && col < D;
     cp_async16_zfill(smem_addr(dst + row * kLd + col), in ? base + r * st + col : base,
                      in ? 16 : 0);
@@ -396,120 +515,201 @@ __device__ __forceinline__ void add_bias_cols(const float* bt, float mul, float 
 }
 
 // A warp's 16 rows row0 .. row0 + 15 of a shared [kRows][tile_ld] tile as
-// m16n8k16 A fragments (ldmatrix: lanes 0-15 address the rows' first 8
-// columns of each 16, lanes 16-31 the next 8)
-template <int kD>
-__device__ __forceinline__ void smem_frags(const bf16* tile, int row0, uint32_t (&a)[kD / 16][4]) {
+// A fragments (bf16 by ldmatrix: lanes 0-15 address the rows' first 8
+// columns of each 16, lanes 16-31 the next 8; fp32 one value a load)
+template <typename E, int kD>
+__device__ __forceinline__ void smem_frags(const E* tile, int row0, frags_t<E, kD>& a) {
   const int lane = threadIdx.x & 31;
-  const uint32_t base = smem_addr(tile + (row0 + (lane & 15)) * tile_ld<kD>()) + (lane >> 4) * 16;
+  if constexpr (kF32<E>) {
+    constexpr int kLd = tile_ld<E, kD>();
+    const float* r0 = tile + (row0 + (lane >> 2)) * kLd + (lane & 3);
 #pragma unroll
-  for (int c = 0; c < kD / 16; ++c) ldsm_x4(a[c], base + c * 32);
+    for (int c = 0; c < kD / 8; ++c) {
+      a[c][0] = r0[8 * c];
+      a[c][1] = r0[8 * kLd + 8 * c];
+      a[c][2] = r0[8 * c + 4];
+      a[c][3] = r0[8 * kLd + 8 * c + 4];
+    }
+  } else {
+    const uint32_t base =
+        smem_addr(tile + (row0 + (lane & 15)) * tile_ld<E, kD>()) + (lane >> 4) * 16;
+#pragma unroll
+    for (int c = 0; c < kD / 16; ++c) ldsm_x4(a[c], base + c * 32);
+  }
 }
 
 // A warp's 16 rows m0 .. m0 + 15 of a [N][D] operand (through its token
-// stride) as m16n8k16 A fragments in registers (a[c] covers columns 16c ..
-// 16c + 15), zeros past N and past D
-template <int kD>
-__device__ __forceinline__ void load_frags(const bf16* base, long long st, int m0, int N, int D,
-                                           uint32_t (&a)[kD / 16][4]) {
-  const int lane = threadIdx.x & 31, r0 = m0 + (lane >> 2), r1 = r0 + 8, c2 = (lane & 3) * 2;
-  auto pair = [&](int r, int d) -> uint32_t {
-    return r < N && d < D ? *reinterpret_cast<const uint32_t*>(base + r * st + d) : 0u;
-  };
+// stride) as A fragments in registers, zeros past N and past D
+template <typename E, int kD>
+__device__ __forceinline__ void load_frags(const E* base, long long st, int m0, int N, int D,
+                                           frags_t<E, kD>& a) {
+  const int lane = threadIdx.x & 31, r0 = m0 + (lane >> 2), r1 = r0 + 8;
+  if constexpr (kF32<E>) {
+    const int t = lane & 3;
+    auto x = [&](int r, int d) { return r < N && d < D ? base[r * st + d] : 0.f; };
 #pragma unroll
-  for (int c = 0; c < kD / 16; ++c) {
-    const int d = 16 * c + c2;
-    a[c][0] = pair(r0, d);
-    a[c][1] = pair(r1, d);
-    a[c][2] = pair(r0, d + 8);
-    a[c][3] = pair(r1, d + 8);
+    for (int c = 0; c < kD / 8; ++c) {
+      const int d = 8 * c + t;
+      a[c][0] = x(r0, d);
+      a[c][1] = x(r1, d);
+      a[c][2] = x(r0, d + 4);
+      a[c][3] = x(r1, d + 4);
+    }
+  } else {
+    const int c2 = (lane & 3) * 2;
+    auto pair = [&](int r, int d) -> uint32_t {
+      return r < N && d < D ? *reinterpret_cast<const uint32_t*>(base + r * st + d) : 0u;
+    };
+#pragma unroll
+    for (int c = 0; c < kD / 16; ++c) {
+      const int d = 16 * c + c2;
+      a[c][0] = pair(r0, d);
+      a[c][1] = pair(r1, d);
+      a[c][2] = pair(r0, d + 8);
+      a[c][3] = pair(r1, d + 8);
+    }
   }
 }
 
-// Accumulator tiles 2s and 2s + 1 (16 x 8 each, fp32) as the bf16 A fragment
-// of one 16 x 16 step: the accumulator layout of two neighbouring tiles is
-// the A layout of m16n8k16
-template <int kN>
-__device__ __forceinline__ void acc_to_frags(const float (&x)[kN][4], uint32_t (&a)[kN / 2][4]) {
+// kN accumulator tiles (16 x 8 each, fp32) as the A operand of a product
+// over their columns (pfrags_t)
+template <typename E, int kN>
+__device__ __forceinline__ void acc_to_frags(const float (&x)[kN][4], pfrags_t<E, kN>& a) {
+  if constexpr (kF32<E>) {
 #pragma unroll
-  for (int s = 0; s < kN / 2; ++s) {
-    a[s][0] = bf16x2(x[2 * s][0], x[2 * s][1]);
-    a[s][1] = bf16x2(x[2 * s][2], x[2 * s][3]);
-    a[s][2] = bf16x2(x[2 * s + 1][0], x[2 * s + 1][1]);
-    a[s][3] = bf16x2(x[2 * s + 1][2], x[2 * s + 1][3]);
+    for (int n = 0; n < kN; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) a[n][e] = x[n][e];
+  } else {
+#pragma unroll
+    for (int s = 0; s < kN / 2; ++s) {
+      a[s][0] = bf16x2(x[2 * s][0], x[2 * s][1]);
+      a[s][1] = bf16x2(x[2 * s][2], x[2 * s][3]);
+      a[s][2] = bf16x2(x[2 * s + 1][0], x[2 * s + 1][1]);
+      a[s][3] = bf16x2(x[2 * s + 1][2], x[2 * s + 1][3]);
+    }
   }
 }
 
-// Rows m0 + g and m0 + g + 8 (those < N), columns < D of a [N][D] bf16
-// output (through its token stride), times mul
-template <int kD>
-__device__ __forceinline__ void store_acc(bf16* base, long long st, int m0, int N, int D,
+// Rows m0 + g and m0 + g + 8 (those < N), columns < D of a [N][D] output
+// (through its token stride), times mul
+template <typename E, int kD>
+__device__ __forceinline__ void store_acc(E* base, long long st, int m0, int N, int D,
                                           const float (&acc)[kD / 8][4], float mul0, float mul1) {
   const int lane = threadIdx.x & 31, r0 = m0 + (lane >> 2), r1 = r0 + 8, c2 = (lane & 3) * 2;
+  auto put = [](E* p, float x0, float x1) {
+    if constexpr (kF32<E>) {
+      *reinterpret_cast<float2*>(p) = make_float2(x0, x1);
+    } else {
+      *reinterpret_cast<uint32_t*>(p) = bf16x2(x0, x1);
+    }
+  };
 #pragma unroll
   for (int j = 0; j < kD / 8; ++j) {
     const int d = 8 * j + c2;
     if (d >= D) continue;
-    if (r0 < N)
-      *reinterpret_cast<uint32_t*>(base + r0 * st + d) = bf16x2(acc[j][0] * mul0, acc[j][1] * mul0);
-    if (r1 < N)
-      *reinterpret_cast<uint32_t*>(base + r1 * st + d) = bf16x2(acc[j][2] * mul1, acc[j][3] * mul1);
+    if (r0 < N) put(base + r0 * st + d, acc[j][0] * mul0, acc[j][1] * mul0);
+    if (r1 < N) put(base + r1 * st + d, acc[j][2] * mul1, acc[j][3] * mul1);
   }
 }
 
 // s[m][n] (16 x 8: m-tile m of the warp's rows by tile rows row0 + 8n ..
 // row0 + 8n + 7) = A_m B^T over kD: kM m-tiles of 16 rows as A fragments in
 // registers, B a shared tile of rows of tile_ld whose fragments are loaded
-// once for all of them
-template <int kD, int kM, int kN>
-__device__ __forceinline__ void mtiles_times_tile_t(const uint32_t (&a)[kM][kD / 16][4],
-                                                    const bf16* tile, int row0,
-                                                    float (&s)[kM][kN][4]) {
-  constexpr int kLd = tile_ld<kD>();
+// once for all of them. In fp32 each product is split TF32: an A value is
+// split once a head-dim step for every n, a B value once
+template <typename E, int kD, int kM, int kN>
+__device__ __forceinline__ void mtiles_times_tile_t(const frags_t<E, kD> (&a)[kM], const E* tile,
+                                                    int row0, float (&s)[kM][kN][4]) {
+  constexpr int kLd = tile_ld<E, kD>();
   const int lane = threadIdx.x & 31;
 #pragma unroll
   for (int m = 0; m < kM; ++m)
 #pragma unroll
     for (int n = 0; n < kN; ++n) s[m][n][0] = s[m][n][1] = s[m][n][2] = s[m][n][3] = 0.f;
-  const uint32_t base =
-      smem_addr(tile + (row0 + (lane & 7) + ((lane >> 4) << 3)) * kLd) + ((lane >> 3) & 1) * 16;
+  if constexpr (kF32<E>) {
+    const float* b = tile + (row0 + (lane >> 2)) * kLd + (lane & 3);  // (key g, column t)
 #pragma unroll
-  for (int n = 0; n < kN; n += 2)
+    for (int c = 0; c < kD / 8; ++c) {
+      Split<4> sa[kM];
 #pragma unroll
-    for (int c = 0; c < kD / 16; ++c) {
-      uint32_t b[4];
-      ldsm_x4(b, base + n * 8 * kLd * 2 + c * 32);
+      for (int m = 0; m < kM; ++m)
 #pragma unroll
-      for (int m = 0; m < kM; ++m) {
-        mma_bf16(s[m][n], a[m][c], b[0], b[1]);
-        mma_bf16(s[m][n + 1], a[m][c], b[2], b[3]);
+        for (int i = 0; i < 4; ++i) sa[m].set(i, a[m][c][i]);
+#pragma unroll
+      for (int n = 0; n < kN; ++n) {
+        Split<2> sb;
+        sb.set(0, b[8 * n * kLd + 8 * c]);
+        sb.set(1, b[8 * n * kLd + 8 * c + 4]);
+#pragma unroll
+        for (int m = 0; m < kM; ++m) mma_3xtf32(s[m][n], sa[m], sb);
       }
     }
+  } else {
+    const uint32_t base =
+        smem_addr(tile + (row0 + (lane & 7) + ((lane >> 4) << 3)) * kLd) + ((lane >> 3) & 1) * 16;
+#pragma unroll
+    for (int n = 0; n < kN; n += 2)
+#pragma unroll
+      for (int c = 0; c < kD / 16; ++c) {
+        uint32_t b[4];
+        ldsm_x4(b, base + n * 8 * kLd * 2 + c * 32);
+#pragma unroll
+        for (int m = 0; m < kM; ++m) {
+          mma_bf16(s[m][n], a[m][c], b[0], b[1]);
+          mma_bf16(s[m][n + 1], a[m][c], b[2], b[3]);
+        }
+      }
+  }
 }
 
-// acc[m][j] (16 x 8: m-tile m by columns 8j .. 8j + 7) += A_m B: A_m the
-// 16 x 16 kS bf16 fragments of m-tile m (a[m][s] covers tile rows row0 + 16s
-// .. row0 + 16s + 15), B those rows of a shared tile through
-// ldmatrix.trans, its fragments loaded once for all kM m-tiles
-template <int kD, int kM, int kS>
-__device__ __forceinline__ void mtiles_times_tile(const uint32_t (&a)[kM][kS][4], const bf16* tile,
+// acc[m][j] (16 x 8: m-tile m by columns 8j .. 8j + 7) += A_m B: A_m the kN
+// accumulator tiles of m-tile m as an operand (pfrags_t; their columns name
+// tile rows row0 .. row0 + 8 kN - 1), B those rows of a shared tile (bf16
+// through ldmatrix.trans, its fragments loaded once for all kM m-tiles; in
+// fp32 split TF32 in the paired order, rows 2t and 2t + 1 of each 8)
+template <typename E, int kD, int kM, int kN>
+__device__ __forceinline__ void mtiles_times_tile(const pfrags_t<E, kN> (&a)[kM], const E* tile,
                                                   int row0, float (&acc)[kM][kD / 8][4]) {
-  constexpr int kLd = tile_ld<kD>();
+  constexpr int kLd = tile_ld<E, kD>();
   const int lane = threadIdx.x & 31;
-  const uint32_t base =
-      smem_addr(tile + (row0 + (lane & 7) + ((lane >> 3) & 1) * 8) * kLd) + (lane >> 4) * 16;
+  if constexpr (kF32<E>) {
+    const float* b = tile + (row0 + 2 * (lane & 3)) * kLd + (lane >> 2);  // (row 2t, column g)
 #pragma unroll
-  for (int s = 0; s < kS; ++s)
-#pragma unroll
-    for (int c = 0; c < kD / 16; ++c) {
-      uint32_t b[4];
-      ldsm_x4_trans(b, base + 16 * s * kLd * 2 + c * 32);
+    for (int j = 0; j < kN; ++j) {
+      Split<4> sa[kM];
 #pragma unroll
       for (int m = 0; m < kM; ++m) {
-        mma_bf16(acc[m][2 * c], a[m][s], b[0], b[1]);
-        mma_bf16(acc[m][2 * c + 1], a[m][s], b[2], b[3]);
+        sa[m].set(0, a[m][j][0]);
+        sa[m].set(1, a[m][j][2]);
+        sa[m].set(2, a[m][j][1]);
+        sa[m].set(3, a[m][j][3]);
+      }
+#pragma unroll
+      for (int u = 0; u < kD / 8; ++u) {
+        Split<2> sb;
+        sb.set(0, b[8 * j * kLd + 8 * u]);
+        sb.set(1, b[(8 * j + 1) * kLd + 8 * u]);
+#pragma unroll
+        for (int m = 0; m < kM; ++m) mma_3xtf32(acc[m][u], sa[m], sb);
       }
     }
+  } else {
+    const uint32_t base =
+        smem_addr(tile + (row0 + (lane & 7) + ((lane >> 3) & 1) * 8) * kLd) + (lane >> 4) * 16;
+#pragma unroll
+    for (int s = 0; s < kN / 2; ++s)
+#pragma unroll
+      for (int c = 0; c < kD / 16; ++c) {
+        uint32_t b[4];
+        ldsm_x4_trans(b, base + 16 * s * kLd * 2 + c * 32);
+#pragma unroll
+        for (int m = 0; m < kM; ++m) {
+          mma_bf16(acc[m][2 * c], a[m][s], b[0], b[1]);
+          mma_bf16(acc[m][2 * c + 1], a[m][s], b[2], b[3]);
+        }
+      }
+  }
 }
 
 // ------------------------------------------------------------------ forward
@@ -522,33 +722,34 @@ __device__ __forceinline__ void mtiles_times_tile(const uint32_t (&a)[kM][kS][4]
 // m-tiles. The scale is positive (the wrapper checks), so the row maxima are
 // taken of the unscaled logits and scaled once, and p = exp2(s scale log2(e)
 // - max) is one fused multiply-add and one ex2 a logit.
-template <int kD, bool kBias>
-__global__ void __launch_bounds__(kThreads, fwd_min_blocks<kD, kBias>())
-ga_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-              const bf16* __restrict__ v, const float* __restrict__ bias,
-              bf16* __restrict__ out, float* __restrict__ lse, int H, int T, int S, int D,
+template <typename E, int kD, bool kBias>
+__global__ void __launch_bounds__(kThreads, fwd_min_blocks<E, kD, kBias>())
+ga_fwd_kernel(const E* __restrict__ q, const E* __restrict__ k,
+              const E* __restrict__ v, const float* __restrict__ bias,
+              E* __restrict__ out, float* __restrict__ lse, int H, int T, int S, int D,
               long long ldb, float scale_log2, float inv_scale, Strides sq, Strides sk,
               Strides sv, Strides so) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* ring = reinterpret_cast<bf16*>(smem_raw);  // [kStages][k, v][kRows][tile_ld]
-  constexpr int kKeys = fwd_keys<kD, kBias>(), kN = kKeys / 8, kTile = tile_elems<kD, kKeys>();
-  constexpr int kM = fwd_mtiles<kD, kBias>(), kBiasTile = kRows * kBiasPitchRows;
+  E* ring = reinterpret_cast<E*>(smem_raw);  // [kStages][k, v][kRows][tile_ld]
+  constexpr int kKeys = fwd_keys<E, kD, kBias>(), kN = kKeys / 8;
+  constexpr int kTile = tile_elems<E, kD, kKeys>();
+  constexpr int kM = fwd_mtiles<E, kD, kBias>(), kBiasTile = kRows * kBiasPitchRows;
   float* bias_ring = reinterpret_cast<float*>(ring + kStages * 2 * kTile);  // [kStages][kBiasTile]
   const BlockPos pos = block_pos<kBias>(H);
   const int b = pos.b, h = pos.h, bh = b * H + h;
   const int lane = threadIdx.x & 31, c2 = (lane & 3) * 2, warp = threadIdx.x >> 5;
   const int row0 = pos.tile * kWarps * 16 * kM;  // the block's first query row
   const int m0 = row0 + warp * 16 * kM;
-  const bf16* qb = q + b * sq.b + h * sq.h;
-  const bf16* kb = k + b * sk.b + h * sk.h;
-  const bf16* vb = v + b * sv.b + h * sv.h;
+  const E* qb = q + b * sq.b + h * sq.h;
+  const E* kb = k + b * sk.b + h * sk.h;
+  const E* vb = v + b * sv.b + h * sv.h;
   const float* bias_h = kBias ? bias + static_cast<long long>(h) * T * ldb : nullptr;
   const int tiles = (S + kKeys - 1) / kKeys;
   auto load = [&](int t) {  // key tile t into its stage (nothing past the last), one group
     if (t < tiles) {
-      bf16* stage = ring + (t % kStages) * 2 * kTile;
-      copy_tile<kD, kKeys>(kb, sk.t, t * kKeys, S, D, stage);
-      copy_tile<kD, kKeys>(vb, sv.t, t * kKeys, S, D, stage + kTile);
+      E* stage = ring + (t % kStages) * 2 * kTile;
+      copy_tile<E, kD, kKeys>(kb, sk.t, t * kKeys, S, D, stage);
+      copy_tile<E, kD, kKeys>(vb, sv.t, t * kKeys, S, D, stage + kTile);
       if constexpr (kBias)
         copy_bias_tile<kBiasPitchRows>(bias_h, ldb, row0, t * kKeys, T, S,
                                        bias_ring + (t % kStages) * kBiasTile);
@@ -558,9 +759,9 @@ ga_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
 #pragma unroll
   for (int t = 0; t < kStages - 1; ++t) load(t);
-  uint32_t qa[kM][kD / 16][4];
+  frags_t<E, kD> qa[kM];
 #pragma unroll
-  for (int m = 0; m < kM; ++m) load_frags<kD>(qb, sq.t, m0 + 16 * m, T, D, qa[m]);
+  for (int m = 0; m < kM; ++m) load_frags<E, kD>(qb, sq.t, m0 + 16 * m, T, D, qa[m]);
 
   float o[kM][kD / 8][4];
   float mx[kM][2], l[kM][2];  // rows g, g + 8: reference max (log2 units), this lane's sum
@@ -574,14 +775,14 @@ ga_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   // one softmax step over the first 8 kNT keys of tile t (at stage kt, its
   // bias at bt)
-  auto step = [&](const bf16* kt, const float* bt, int t, auto n_tiles) {
+  auto step = [&](const E* kt, const float* bt, int t, auto n_tiles) {
     constexpr int kNT = decltype(n_tiles)::value;
     float s[kM][kNT][4];
-    mtiles_times_tile_t<kD, kM, kNT>(qa, kt, 0, s);
+    mtiles_times_tile_t<E, kD, kM, kNT>(qa, kt, 0, s);
     if constexpr (kBias)
       add_bias_rows<kNT>(bt + (warp * 16 + (lane >> 2)) * kBiasPitchRows + c2, inv_scale, s[0]);
     const bool ragged = t * kKeys + 8 * kNT > S;
-    uint32_t pa[kM][kNT / 2][4];
+    pfrags_t<E, kNT> pa[kM];
 #pragma unroll
     for (int m = 0; m < kM; ++m) {
       float tm0 = -INFINITY, tm1 = -INFINITY;
@@ -626,16 +827,16 @@ ga_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         l[m][0] += s[m][n][0] + s[m][n][1];
         l[m][1] += s[m][n][2] + s[m][n][3];
       }
-      acc_to_frags<kNT>(s[m], pa[m]);
+      acc_to_frags<E, kNT>(s[m], pa[m]);
     }
-    mtiles_times_tile<kD, kM, kNT / 2>(pa, kt + kTile, 0, o);
+    mtiles_times_tile<E, kD, kM, kNT>(pa, kt + kTile, 0, o);
   };
 
   for (int t = 0; t < tiles; ++t) {
     cp_async_wait<kStages - 2>();  // tile t has arrived
     __syncthreads();  // for every thread, and every warp is done with tile t - 1
     load(t + kStages - 1);  // into tile t - 1's stage
-    const bf16* kt = ring + (t % kStages) * 2 * kTile;
+    const E* kt = ring + (t % kStages) * 2 * kTile;
     const float* bt = bias_ring + (t % kStages) * kBiasTile;  // read with kBias only
     // a last tile that holds no more than half its keys (ViT-L's 1025th)
     // takes the step over half the keys
@@ -649,7 +850,8 @@ ga_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int m = 0; m < kM; ++m) {
     const float l0 = quad_sum(l[m][0]), l1 = quad_sum(l[m][1]);
     const int r0 = m0 + 16 * m + (lane >> 2);
-    store_acc<kD>(out + b * so.b + h * so.h, so.t, m0 + 16 * m, T, D, o[m], 1.f / l0, 1.f / l1);
+    store_acc<E, kD>(out + b * so.b + h * so.h, so.t, m0 + 16 * m, T, D, o[m], 1.f / l0,
+                     1.f / l1);
     if ((lane & 3) == 0) {
       float* row = lse + static_cast<long long>(bh) * T;
       if (r0 < T) row[r0] = mx[m][0] + log2f(l0);
@@ -663,12 +865,14 @@ ga_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 constexpr int kDeltaThreads = 256;
 
 // delta[b, h, t] = sum_d do[b, t, h, d] out[b, t, h, d]: fp32 products and
-// sums of the bf16 values, 8 lanes a row (16 bytes each a step), rows in (b,
-// t, h) order, each sum in one fixed order
+// sums of the bf16 (or fp32) values, 8 lanes a row (16 bytes each a step),
+// rows in (b, t, h) order, each sum in one fixed order
+template <typename E>
 __global__ void __launch_bounds__(kDeltaThreads)
-ga_bwd_delta_kernel(const bf16* __restrict__ out, const bf16* __restrict__ dout,
+ga_bwd_delta_kernel(const E* __restrict__ out, const E* __restrict__ dout,
                     float* __restrict__ delta, int B, int H, int T, int D, Strides so,
                     Strides sd) {
+  constexpr int kPiece = 16 / sizeof(E);
   const long long row = (static_cast<long long>(blockIdx.x) * kDeltaThreads + threadIdx.x) >> 3;
   const int sub = threadIdx.x & 7;
   const bool in = row < static_cast<long long>(B) * T * H;
@@ -677,18 +881,27 @@ ga_bwd_delta_kernel(const bf16* __restrict__ out, const bf16* __restrict__ dout,
   const int t = static_cast<int>(bt % T), b = static_cast<int>(bt / T);
   float sum = 0.f;
   if (in) {
-    const bf16* o = out + b * so.b + t * so.t + h * so.h;
-    const bf16* g = dout + b * sd.b + t * sd.t + h * sd.h;
-    for (int c = sub * 8; c < D; c += 64) {
-      const uint4 x = *reinterpret_cast<const uint4*>(o + c);
-      const uint4 y = *reinterpret_cast<const uint4*>(g + c);
-      const uint32_t xs[4] = {x.x, x.y, x.z, x.w}, ys[4] = {y.x, y.y, y.z, y.w};
+    const E* o = out + b * so.b + t * so.t + h * so.h;
+    const E* g = dout + b * sd.b + t * sd.t + h * sd.h;
+    for (int c = sub * kPiece; c < D; c += 8 * kPiece) {
+      if constexpr (kF32<E>) {
+        const float4 x = *reinterpret_cast<const float4*>(o + c);
+        const float4 y = *reinterpret_cast<const float4*>(g + c);
+        sum = fmaf(x.x, y.x, sum);
+        sum = fmaf(x.y, y.y, sum);
+        sum = fmaf(x.z, y.z, sum);
+        sum = fmaf(x.w, y.w, sum);
+      } else {
+        const uint4 x = *reinterpret_cast<const uint4*>(o + c);
+        const uint4 y = *reinterpret_cast<const uint4*>(g + c);
+        const uint32_t xs[4] = {x.x, x.y, x.z, x.w}, ys[4] = {y.x, y.y, y.z, y.w};
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&xs[i]));
-        const float2 d = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&ys[i]));
-        sum = fmaf(a.x, d.x, sum);
-        sum = fmaf(a.y, d.y, sum);
+        for (int i = 0; i < 4; ++i) {
+          const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&xs[i]));
+          const float2 d = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&ys[i]));
+          sum = fmaf(a.x, d.x, sum);
+          sum = fmaf(a.y, d.y, sum);
+        }
       }
     }
   }
@@ -704,37 +917,37 @@ ga_bwd_delta_kernel(const bf16* __restrict__ out, const bf16* __restrict__ dout,
 // in order, kSub columns at a time: s^T = k q^T (+ bias^T / scale), dp^T = v
 // do^T, p^T = exp2(s^T scale log2(e) - lse), ds^T = p^T (dp^T - delta), dv +=
 // p^T do, dk += ds^T q. dk (times scale) and dv are written once.
-template <int kD, bool kBias>
-__global__ void __launch_bounds__(kThreads, bwd_min_blocks<kD>())
-ga_bwd_dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                   const bf16* __restrict__ v, const bf16* __restrict__ dout,
+template <typename E, int kD, bool kBias>
+__global__ void __launch_bounds__(kThreads, bwd_min_blocks<E, kD>())
+ga_bwd_dkdv_kernel(const E* __restrict__ q, const E* __restrict__ k,
+                   const E* __restrict__ v, const E* __restrict__ dout,
                    const float* __restrict__ bias, const float* __restrict__ lse,
-                   const float* __restrict__ delta, bf16* __restrict__ dk, bf16* __restrict__ dv,
+                   const float* __restrict__ delta, E* __restrict__ dk, E* __restrict__ dv,
                    int H, int T, int S, int D, long long ldb, float scale, float scale_log2,
                    float inv_scale, Strides sq, Strides sk, Strides sv, Strides sd, Strides sdk,
                    Strides sdv) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  constexpr int kTile = tile_elems<kD>(), kSub = sub_cols<kD>(), kN = kSub / 8;
+  constexpr int kTile = tile_elems<E, kD>(), kSub = sub_cols<E, kD>(), kN = kSub / 8;
   constexpr int kBiasTile = kRows * kBiasPitchCols;
-  bf16* ring = reinterpret_cast<bf16*>(smem_raw);  // [kStages][q, do][kRows][tile_ld]
+  E* ring = reinterpret_cast<E*>(smem_raw);  // [kStages][q, do][kRows][tile_ld]
   float* rows = reinterpret_cast<float*>(ring + kStages * 2 * kTile);  // [kStages][lse, delta][kRows]
   float* bias_ring = rows + kStages * 2 * kRows;  // [kStages][kBiasTile] with kBias
   const BlockPos pos = block_pos<kBias>(H);
   const int b = pos.b, h = pos.h, bh = b * H + h;
   const int lane = threadIdx.x & 31, c2 = (lane & 3) * 2, warp = threadIdx.x >> 5;
   const int key0 = pos.tile * kRows, n0 = key0 + warp * 16;
-  const bf16* qb = q + b * sq.b + h * sq.h;
-  const bf16* gb = dout + b * sd.b + h * sd.h;
+  const E* qb = q + b * sq.b + h * sq.h;
+  const E* gb = dout + b * sd.b + h * sd.h;
   const float* lse_bh = lse + static_cast<long long>(bh) * T;
   const float* delta_bh = delta + static_cast<long long>(bh) * T;
   const float* bias_h = kBias ? bias + static_cast<long long>(h) * T * ldb : nullptr;
   const int tiles = (T + kRows - 1) / kRows;
   auto load = [&](int t) {  // query tile t into its stage (nothing past the last), one group
     if (t < tiles) {
-      bf16* stage = ring + (t % kStages) * 2 * kTile;
+      E* stage = ring + (t % kStages) * 2 * kTile;
       float* stage_rows = rows + (t % kStages) * 2 * kRows;
-      copy_tile<kD>(qb, sq.t, t * kRows, T, D, stage);
-      copy_tile<kD>(gb, sd.t, t * kRows, T, D, stage + kTile);
+      copy_tile<E, kD>(qb, sq.t, t * kRows, T, D, stage);
+      copy_tile<E, kD>(gb, sd.t, t * kRows, T, D, stage + kTile);
       copy_rows_f32(lse_bh, delta_bh, t * kRows, T, stage_rows, stage_rows + kRows);
       if constexpr (kBias)
         copy_bias_tile<kBiasPitchCols>(bias_h, ldb, t * kRows, key0, T, S,
@@ -745,9 +958,9 @@ ga_bwd_dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
 #pragma unroll
   for (int t = 0; t < kStages - 1; ++t) load(t);
-  uint32_t ka[1][kD / 16][4], va[1][kD / 16][4];  // one 16-key m-tile a warp
-  load_frags<kD>(k + b * sk.b + h * sk.h, sk.t, n0, S, D, ka[0]);
-  load_frags<kD>(v + b * sv.b + h * sv.h, sv.t, n0, S, D, va[0]);
+  frags_t<E, kD> ka[1], va[1];  // one 16-key m-tile a warp
+  load_frags<E, kD>(k + b * sk.b + h * sk.h, sk.t, n0, S, D, ka[0]);
+  load_frags<E, kD>(v + b * sv.b + h * sv.h, sv.t, n0, S, D, va[0]);
 
   float dk_acc[1][kD / 8][4], dv_acc[1][kD / 8][4];
 #pragma unroll
@@ -760,19 +973,19 @@ ga_bwd_dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     __syncthreads();  // for every thread, and every warp is done with tile t - 1
     load(t + kStages - 1);  // into tile t - 1's stage
     const int stage = t % kStages;
-    const bf16* qt = ring + stage * 2 * kTile;
-    const bf16* gt = qt + kTile;
+    const E* qt = ring + stage * 2 * kTile;
+    const E* gt = qt + kTile;
     const float* lse_t = rows + stage * 2 * kRows;
     const float* delta_t = lse_t + kRows;
     const float* bias_t = bias_ring + stage * kBiasTile;  // read with kBias only
 #pragma unroll
     for (int col0 = 0; col0 < kRows; col0 += kSub) {
       float st[1][kN][4], dpt[1][kN][4];
-      mtiles_times_tile_t<kD, 1, kN>(ka, qt, col0, st);
+      mtiles_times_tile_t<E, kD, 1, kN>(ka, qt, col0, st);
       if constexpr (kBias)
         add_bias_cols<kN>(bias_t + (col0 + c2) * kBiasPitchCols + warp * 16 + (lane >> 2),
                           inv_scale, st[0]);
-      mtiles_times_tile_t<kD, 1, kN>(va, gt, col0, dpt);
+      mtiles_times_tile_t<E, kD, 1, kN>(va, gt, col0, dpt);
 #pragma unroll
       for (int n = 0; n < kN; ++n) {
         const float2 l = *reinterpret_cast<const float2*>(lse_t + col0 + 8 * n + c2);
@@ -784,16 +997,16 @@ ga_bwd_dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
           dpt[0][n][e] = p * (dpt[0][n][e] - ((e & 1) ? dl.y : dl.x));
         }
       }
-      uint32_t pa[1][kN / 2][4], dsa[1][kN / 2][4];
-      acc_to_frags<kN>(st[0], pa[0]);
-      acc_to_frags<kN>(dpt[0], dsa[0]);
-      mtiles_times_tile<kD, 1, kN / 2>(pa, gt, col0, dv_acc);
-      mtiles_times_tile<kD, 1, kN / 2>(dsa, qt, col0, dk_acc);
+      pfrags_t<E, kN> pa[1], dsa[1];
+      acc_to_frags<E, kN>(st[0], pa[0]);
+      acc_to_frags<E, kN>(dpt[0], dsa[0]);
+      mtiles_times_tile<E, kD, 1, kN>(pa, gt, col0, dv_acc);
+      mtiles_times_tile<E, kD, 1, kN>(dsa, qt, col0, dk_acc);
     }
   }
 
-  store_acc<kD>(dk + b * sdk.b + h * sdk.h, sdk.t, n0, S, D, dk_acc[0], scale, scale);
-  store_acc<kD>(dv + b * sdv.b + h * sdv.h, sdv.t, n0, S, D, dv_acc[0], 1.f, 1.f);
+  store_acc<E, kD>(dk + b * sdk.b + h * sdk.h, sdk.t, n0, S, D, dk_acc[0], scale, scale);
+  store_acc<E, kD>(dv + b * sdv.b + h * sdv.h, sdv.t, n0, S, D, dv_acc[0], 1.f, 1.f);
 }
 
 // One block per (64-row query tile, b h): kWarps warps of 16 rows, each holding
@@ -801,35 +1014,35 @@ ga_bwd_dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 // v and with kBias the [query rows][kBiasPitchRows] bias tile through a
 // two-stage ring), in order, kSub keys at a time: s = q k^T (+ bias / scale),
 // dp = do v^T, p = exp2(s scale log2(e) - lse), ds = p (dp - delta), dq += ds
-// k. dq (times scale) is written once. With kBias a first walk over the key
-// tiles forms delta = rowsum(p dp) and writes it (the dk / dv and dbias
-// kernels run after this one).
-template <int kD, bool kBias>
-__global__ void __launch_bounds__(kThreads, bwd_min_blocks<kD>())
-ga_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, const bf16* __restrict__ dout,
+// k. dq (times scale) is written once. Where delta_walk (bf16 with kBias) a
+// first walk over the key tiles forms delta = rowsum(p dp) and writes it (the
+// dk / dv and dbias kernels run after this one).
+template <typename E, int kD, bool kBias>
+__global__ void __launch_bounds__(kThreads, bwd_min_blocks<E, kD>())
+ga_bwd_dq_kernel(const E* __restrict__ q, const E* __restrict__ k,
+                 const E* __restrict__ v, const E* __restrict__ dout,
                  const float* __restrict__ bias, const float* __restrict__ lse,
-                 float* __restrict__ delta, bf16* __restrict__ dq, int H, int T, int S,
+                 float* __restrict__ delta, E* __restrict__ dq, int H, int T, int S,
                  int D, long long ldb, float scale, float scale_log2, float inv_scale,
                  Strides sq, Strides sk, Strides sv, Strides sd, Strides sdq) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  constexpr int kTile = tile_elems<kD>(), kSub = sub_cols<kD>(), kN = kSub / 8;
+  constexpr int kTile = tile_elems<E, kD>(), kSub = sub_cols<E, kD>(), kN = kSub / 8;
   constexpr int kBiasTile = kRows * kBiasPitchRows;
-  bf16* ring = reinterpret_cast<bf16*>(smem_raw);  // [kStages][k, v][kRows][tile_ld]
+  E* ring = reinterpret_cast<E*>(smem_raw);  // [kStages][k, v][kRows][tile_ld]
   float* bias_ring = reinterpret_cast<float*>(ring + kStages * 2 * kTile);  // with kBias
   const BlockPos pos = block_pos<kBias>(H);
   const int b = pos.b, h = pos.h, bh = b * H + h;
   const int lane = threadIdx.x & 31, c2 = (lane & 3) * 2, warp = threadIdx.x >> 5;
   const int row0 = pos.tile * kRows, m0 = row0 + warp * 16;
-  const bf16* kb = k + b * sk.b + h * sk.h;
-  const bf16* vb = v + b * sv.b + h * sv.h;
+  const E* kb = k + b * sk.b + h * sk.h;
+  const E* vb = v + b * sv.b + h * sv.h;
   const float* bias_h = kBias ? bias + static_cast<long long>(h) * T * ldb : nullptr;
   const int tiles = (S + kRows - 1) / kRows;
   auto load = [&](int t) {  // key tile t into its stage (nothing past the last), one group
     if (t < tiles) {
-      bf16* stage = ring + (t % kStages) * 2 * kTile;
-      copy_tile<kD>(kb, sk.t, t * kRows, S, D, stage);
-      copy_tile<kD>(vb, sv.t, t * kRows, S, D, stage + kTile);
+      E* stage = ring + (t % kStages) * 2 * kTile;
+      copy_tile<E, kD>(kb, sk.t, t * kRows, S, D, stage);
+      copy_tile<E, kD>(vb, sv.t, t * kRows, S, D, stage + kTile);
       if constexpr (kBias)
         copy_bias_tile<kBiasPitchRows>(bias_h, ldb, row0, t * kRows, T, S,
                                        bias_ring + (t % kStages) * kBiasTile);
@@ -839,9 +1052,9 @@ ga_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
 #pragma unroll
   for (int t = 0; t < kStages - 1; ++t) load(t);
-  uint32_t qa[1][kD / 16][4], ga[1][kD / 16][4];  // one 16-row m-tile a warp
-  load_frags<kD>(q + b * sq.b + h * sq.h, sq.t, m0, T, D, qa[0]);
-  load_frags<kD>(dout + b * sd.b + h * sd.h, sd.t, m0, T, D, ga[0]);
+  frags_t<E, kD> qa[1], ga[1];  // one 16-row m-tile a warp
+  load_frags<E, kD>(q + b * sq.b + h * sq.h, sq.t, m0, T, D, qa[0]);
+  load_frags<E, kD>(dout + b * sd.b + h * sd.h, sd.t, m0, T, D, ga[0]);
   // a padded row's q and do are zero: its lse and delta may be too
   const int r0 = m0 + (lane >> 2), r1 = r0 + 8;
   const long long row = static_cast<long long>(bh) * T;  // lse and delta [B, H, T]
@@ -859,13 +1072,13 @@ ga_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   };
   // p (in s) and dp of kSub keys from col0 of key tile t; a padded key's p
   // is 0 (its logit is 0, and exp2(-lse) may overflow)
-  auto p_and_dp = [&](int t, const bf16* kt, const float* bt, int col0, float (&s)[1][kN][4],
+  auto p_and_dp = [&](int t, const E* kt, const float* bt, int col0, float (&s)[1][kN][4],
                       float (&dp)[1][kN][4]) {
-    mtiles_times_tile_t<kD, 1, kN>(qa, kt, col0, s);
+    mtiles_times_tile_t<E, kD, 1, kN>(qa, kt, col0, s);
     if constexpr (kBias)
       add_bias_rows<kN>(bt + (warp * 16 + (lane >> 2)) * kBiasPitchRows + col0 + c2, inv_scale,
                         s[0]);
-    mtiles_times_tile_t<kD, 1, kN>(ga, kt + kTile, col0, dp);
+    mtiles_times_tile_t<E, kD, 1, kN>(ga, kt + kTile, col0, dp);
     const bool ragged = (t + 1) * kRows > S;
 #pragma unroll
     for (int n = 0; n < kN; ++n)
@@ -878,11 +1091,11 @@ ga_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   };
 
   float delta0, delta1;
-  if constexpr (kBias) {
+  if constexpr (delta_walk<E, kBias>()) {
     // delta = rowsum(p dp) over the key tiles in order (this lane's columns,
     // then the row's four lanes), written for the dk / dv and dbias passes
     float sum0 = 0.f, sum1 = 0.f;
-    walk([&](int t, const bf16* kt, const float* bt) {
+    walk([&](int t, const E* kt, const float* bt) {
 #pragma unroll
       for (int col0 = 0; col0 < kRows; col0 += kSub) {
         float s[1][kN][4], dp[1][kN][4];
@@ -914,7 +1127,7 @@ ga_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
     for (int e = 0; e < 4; ++e) dq_acc[0][j][e] = 0.f;
 
-  walk([&](int t, const bf16* kt, const float* bt) {
+  walk([&](int t, const E* kt, const float* bt) {
 #pragma unroll
     for (int col0 = 0; col0 < kRows; col0 += kSub) {
       float s[1][kN][4], dp[1][kN][4];
@@ -924,13 +1137,13 @@ ga_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
         for (int e = 0; e < 4; ++e)
           dp[0][n][e] = s[0][n][e] * (dp[0][n][e] - (e >= 2 ? delta1 : delta0));
-      uint32_t dsa[1][kN / 2][4];
-      acc_to_frags<kN>(dp[0], dsa[0]);
-      mtiles_times_tile<kD, 1, kN / 2>(dsa, kt, col0, dq_acc);
+      pfrags_t<E, kN> dsa[1];
+      acc_to_frags<E, kN>(dp[0], dsa[0]);
+      mtiles_times_tile<E, kD, 1, kN>(dsa, kt, col0, dq_acc);
     }
   });
 
-  store_acc<kD>(dq + b * sdq.b + h * sdq.h, sdq.t, m0, T, D, dq_acc[0], scale, scale);
+  store_acc<E, kD>(dq + b * sdq.b + h * sdq.h, sdq.t, m0, T, D, dq_acc[0], scale, scale);
 }
 
 // One block per (64-row query tile, 64-key tile, h): kWarps warps of 16 rows,
@@ -940,17 +1153,17 @@ ga_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 // bias / scale, dp = do v^T, p = exp2(s scale log2(e) - lse), ds = p (dp -
 // delta), dbias += ds. dbias is written once: sum_b ds in the order b = 0, 1,
 // ..., B - 1, whichever block runs when.
-template <int kD>
-__global__ void __launch_bounds__(kThreads, dbias_min_blocks<kD>())
-ga_bwd_dbias_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                    const bf16* __restrict__ v, const bf16* __restrict__ dout,
+template <typename E, int kD>
+__global__ void __launch_bounds__(kThreads, dbias_min_blocks<E, kD>())
+ga_bwd_dbias_kernel(const E* __restrict__ q, const E* __restrict__ k,
+                    const E* __restrict__ v, const E* __restrict__ dout,
                     const float* __restrict__ bias, const float* __restrict__ lse,
                     const float* __restrict__ delta, float* __restrict__ dbias, int B, int H,
                     int T, int S, int D, long long ldb, float scale_log2, float inv_scale,
                     Strides sq, Strides sk, Strides sv, Strides sd) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  constexpr int kTile = tile_elems<kD>(), kN = kRows / 8;
-  bf16* ring = reinterpret_cast<bf16*>(smem_raw);  // [kStages][q, do, k, v][kRows][tile_ld]
+  constexpr int kTile = tile_elems<E, kD>(), kN = kRows / 8;
+  E* ring = reinterpret_cast<E*>(smem_raw);  // [kStages][q, do, k, v][kRows][tile_ld]
   float* rows = reinterpret_cast<float*>(ring + kStages * 4 * kTile);  // [kStages][lse, delta][kRows]
   float* bias_t = rows + kStages * 2 * kRows;  // [kRows][kBiasPitchRows]
   const int key0 = blockIdx.x * kRows, row0 = blockIdx.y * kRows, h = blockIdx.z;
@@ -958,13 +1171,13 @@ ga_bwd_dbias_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const long long head = static_cast<long long>(h) * T * ldb;
   auto load = [&](int bb) {  // batch row bb into its stage (nothing past the last), one group
     if (bb < B) {
-      bf16* stage = ring + (bb % kStages) * 4 * kTile;
+      E* stage = ring + (bb % kStages) * 4 * kTile;
       float* stage_rows = rows + (bb % kStages) * 2 * kRows;
       const long long bh = static_cast<long long>(bb) * H + h;
-      copy_tile<kD>(q + bb * sq.b + h * sq.h, sq.t, row0, T, D, stage);
-      copy_tile<kD>(dout + bb * sd.b + h * sd.h, sd.t, row0, T, D, stage + kTile);
-      copy_tile<kD>(k + bb * sk.b + h * sk.h, sk.t, key0, S, D, stage + 2 * kTile);
-      copy_tile<kD>(v + bb * sv.b + h * sv.h, sv.t, key0, S, D, stage + 3 * kTile);
+      copy_tile<E, kD>(q + bb * sq.b + h * sq.h, sq.t, row0, T, D, stage);
+      copy_tile<E, kD>(dout + bb * sd.b + h * sd.h, sd.t, row0, T, D, stage + kTile);
+      copy_tile<E, kD>(k + bb * sk.b + h * sk.h, sk.t, key0, S, D, stage + 2 * kTile);
+      copy_tile<E, kD>(v + bb * sv.b + h * sv.h, sv.t, key0, S, D, stage + 3 * kTile);
       copy_rows_f32(lse + bh * T, delta + bh * T, row0, T, stage_rows, stage_rows + kRows);
     }
     cp_async_commit();
@@ -983,15 +1196,15 @@ ga_bwd_dbias_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     cp_async_wait<kStages - 2>();  // batch row bb has arrived
     __syncthreads();  // for every thread, and every warp is done with row bb - 1
     load(bb + kStages - 1);  // into row bb - 1's stage
-    const bf16* stage = ring + (bb % kStages) * 4 * kTile;
+    const E* stage = ring + (bb % kStages) * 4 * kTile;
     const float* stage_rows = rows + (bb % kStages) * 2 * kRows;
-    uint32_t qa[1][kD / 16][4], ga[1][kD / 16][4];
-    smem_frags<kD>(stage, warp * 16, qa[0]);
-    smem_frags<kD>(stage + kTile, warp * 16, ga[0]);
+    frags_t<E, kD> qa[1], ga[1];
+    smem_frags<E, kD>(stage, warp * 16, qa[0]);
+    smem_frags<E, kD>(stage + kTile, warp * 16, ga[0]);
     float s[1][kN][4], dp[1][kN][4];
-    mtiles_times_tile_t<kD, 1, kN>(qa, stage + 2 * kTile, 0, s);
+    mtiles_times_tile_t<E, kD, 1, kN>(qa, stage + 2 * kTile, 0, s);
     add_bias_rows<kN>(bias_t + r * kBiasPitchRows + c2, inv_scale, s[0]);
-    mtiles_times_tile_t<kD, 1, kN>(ga, stage + 3 * kTile, 0, dp);
+    mtiles_times_tile_t<E, kD, 1, kN>(ga, stage + 3 * kTile, 0, dp);
     const float lse0 = stage_rows[r], lse1 = stage_rows[r + 8];
     const float delta0 = stage_rows[kRows + r], delta1 = stage_rows[kRows + r + 8];
 #pragma unroll
@@ -1022,19 +1235,24 @@ ga_bwd_dbias_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 // Shared memory of the forward and the dq kernel (k and v tiles) and of the
 // dk / dv kernel (q and do tiles, and the rows' lse and delta), in bytes;
 // with kBias a ring of bias tiles of the given pitch besides
-template <int kD, int kR = kRows>
+template <typename E, int kD, int kR = kRows>
 constexpr size_t ring_bytes(bool rows, int bias_pitch = 0) {
-  return kStages * (2 * tile_elems<kD, kR>() * sizeof(bf16) + (rows ? 2 * kR * sizeof(float) : 0) +
+  return kStages * (2 * tile_elems<E, kD, kR>() * sizeof(E) + (rows ? 2 * kR * sizeof(float) : 0) +
                     kRows * bias_pitch * sizeof(float));
 }
 
 // ... and of the dbias kernel: a ring of q, do, k, v, lse and delta, and the
 // block's bias tile
-template <int kD>
+template <typename E, int kD>
 constexpr size_t dbias_bytes() {
-  return kStages * (4 * tile_elems<kD>() * sizeof(bf16) + 2 * kRows * sizeof(float)) +
+  return kStages * (4 * tile_elems<E, kD>() * sizeof(E) + 2 * kRows * sizeof(float)) +
          kRows * kBiasPitchRows * sizeof(float);
 }
+
+// The widest head dim of the fp32 bias form: the dbias kernel's ring of four
+// fp32 tiles a stage fits a block's 227 KB up to D = 64
+constexpr int kF32BiasMaxD = 64;
+static_assert(dbias_bytes<float, kF32BiasMaxD>() <= 232448, "the fp32 dbias ring fits a block");
 
 template <typename K>
 cudaError_t allow_smem(K kernel, size_t bytes) {
@@ -1052,69 +1270,71 @@ dim3 grid_of(int tiles, int B, int H) {
   return kBias ? dim3(B, tiles, H) : dim3(tiles, B * H);
 }
 
-template <int kD, bool kBias>
-int launch_fwd(const bf16* q, const bf16* k, const bf16* v, const float* bias, bf16* out,
-               float* lse, int B, int H, int T, int S, int D, long long ldb, float scale,
-               const long long* st, cudaStream_t stream) {
-  const size_t smem = ring_bytes<kD, fwd_keys<kD, kBias>()>(false, kBias ? kBiasPitchRows : 0);
-  cudaError_t err = allow_smem(ga_fwd_kernel<kD, kBias>, smem);
+template <typename E, int kD, bool kBias>
+int launch_fwd(const E* q, const E* k, const E* v, const float* bias, E* out, float* lse, int B,
+               int H, int T, int S, int D, long long ldb, float scale, const long long* st,
+               cudaStream_t stream) {
+  const size_t smem =
+      ring_bytes<E, kD, fwd_keys<E, kD, kBias>()>(false, kBias ? kBiasPitchRows : 0);
+  cudaError_t err = allow_smem(ga_fwd_kernel<E, kD, kBias>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  constexpr int kBlockRows = 16 * fwd_mtiles<kD, kBias>() * kWarps;
-  ga_fwd_kernel<kD, kBias><<<grid_of<kBias>((T + kBlockRows - 1) / kBlockRows, B, H), kThreads,
-                             smem, stream>>>(
+  constexpr int kBlockRows = 16 * fwd_mtiles<E, kD, kBias>() * kWarps;
+  ga_fwd_kernel<E, kD, kBias><<<grid_of<kBias>((T + kBlockRows - 1) / kBlockRows, B, H),
+                                kThreads, smem, stream>>>(
       q, k, v, bias, out, lse, H, T, S, D, ldb, scale * kLog2e, 1.f / scale, strides_at(st, 0),
       strides_at(st, 1), strides_at(st, 2), strides_at(st, 3));
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int kD, bool kBias>
-int launch_bwd(const bf16* q, const bf16* k, const bf16* v, const float* bias, const bf16* out,
-               const bf16* dout, const float* lse, float* delta, bf16* dq, bf16* dk, bf16* dv,
-               float* dbias, int B, int H, int T, int S, int D, long long ldb, float scale,
-               const long long* st, cudaStream_t stream) {
+template <typename E, int kD, bool kBias>
+int launch_bwd(const E* q, const E* k, const E* v, const float* bias, const E* out,
+               const E* dout, const float* lse, float* delta, E* dq, E* dk, E* dv, float* dbias,
+               int B, int H, int T, int S, int D, long long ldb, float scale, const long long* st,
+               cudaStream_t stream) {
   // strides: q, k, v, out, dout, dq, dk, dv
+  constexpr bool kWalk = delta_walk<E, kBias>();
   cudaError_t err = cudaSuccess;
-  if constexpr (!kBias) {
+  if constexpr (!kWalk) {
     const long long rows = static_cast<long long>(B) * T * H;
     const unsigned delta_blocks =
         static_cast<unsigned>((rows * 8 + kDeltaThreads - 1) / kDeltaThreads);
-    ga_bwd_delta_kernel<<<delta_blocks, kDeltaThreads, 0, stream>>>(
+    ga_bwd_delta_kernel<E><<<delta_blocks, kDeltaThreads, 0, stream>>>(
         out, dout, delta, B, H, T, D, strides_at(st, 3), strides_at(st, 4));
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   const float scale_log2 = scale * kLog2e, inv_scale = 1.f / scale;
   const int t_tiles = (T + kRows - 1) / kRows, s_tiles = (S + kRows - 1) / kRows;
-  // the bias form's dq kernel forms delta: it runs first
+  // a dq kernel that forms delta (delta_walk) runs first
   auto launch_dq = [&]() {
-    const size_t smem_q = ring_bytes<kD>(false, kBias ? kBiasPitchRows : 0);
-    cudaError_t e = allow_smem(ga_bwd_dq_kernel<kD, kBias>, smem_q);
+    const size_t smem_q = ring_bytes<E, kD>(false, kBias ? kBiasPitchRows : 0);
+    cudaError_t e = allow_smem(ga_bwd_dq_kernel<E, kD, kBias>, smem_q);
     if (e != cudaSuccess) return e;
-    ga_bwd_dq_kernel<kD, kBias><<<grid_of<kBias>(t_tiles, B, H), kThreads, smem_q, stream>>>(
+    ga_bwd_dq_kernel<E, kD, kBias><<<grid_of<kBias>(t_tiles, B, H), kThreads, smem_q, stream>>>(
         q, k, v, dout, bias, lse, delta, dq, H, T, S, D, ldb, scale, scale_log2, inv_scale,
         strides_at(st, 0), strides_at(st, 1), strides_at(st, 2), strides_at(st, 4),
         strides_at(st, 5));
     return cudaGetLastError();
   };
-  if (kBias && (err = launch_dq()) != cudaSuccess) return static_cast<int>(err);
+  if (kWalk && (err = launch_dq()) != cudaSuccess) return static_cast<int>(err);
 
-  const size_t smem_kv = ring_bytes<kD>(true, kBias ? kBiasPitchCols : 0);
-  err = allow_smem(ga_bwd_dkdv_kernel<kD, kBias>, smem_kv);
+  const size_t smem_kv = ring_bytes<E, kD>(true, kBias ? kBiasPitchCols : 0);
+  err = allow_smem(ga_bwd_dkdv_kernel<E, kD, kBias>, smem_kv);
   if (err != cudaSuccess) return static_cast<int>(err);
-  ga_bwd_dkdv_kernel<kD, kBias><<<grid_of<kBias>(s_tiles, B, H), kThreads, smem_kv, stream>>>(
+  ga_bwd_dkdv_kernel<E, kD, kBias><<<grid_of<kBias>(s_tiles, B, H), kThreads, smem_kv, stream>>>(
       q, k, v, dout, bias, lse, delta, dk, dv, H, T, S, D, ldb, scale, scale_log2, inv_scale,
       strides_at(st, 0), strides_at(st, 1), strides_at(st, 2), strides_at(st, 4),
       strides_at(st, 6), strides_at(st, 7));
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (!kBias) return static_cast<int>(launch_dq());
+  if (!kWalk && (err = launch_dq()) != cudaSuccess) return static_cast<int>(err);
   if (dbias == nullptr) return static_cast<int>(err);
 
   if constexpr (kBias) {
-    const size_t smem_db = dbias_bytes<kD>();
-    err = allow_smem(ga_bwd_dbias_kernel<kD>, smem_db);
+    const size_t smem_db = dbias_bytes<E, kD>();
+    err = allow_smem(ga_bwd_dbias_kernel<E, kD>, smem_db);
     if (err != cudaSuccess) return static_cast<int>(err);
-    ga_bwd_dbias_kernel<kD><<<dim3(s_tiles, t_tiles, H), kThreads, smem_db, stream>>>(
+    ga_bwd_dbias_kernel<E, kD><<<dim3(s_tiles, t_tiles, H), kThreads, smem_db, stream>>>(
         q, k, v, dout, bias, lse, delta, dbias, B, H, T, S, D, ldb, scale_log2, inv_scale,
         strides_at(st, 0), strides_at(st, 1), strides_at(st, 2), strides_at(st, 4));
   }
@@ -1122,78 +1342,95 @@ int launch_bwd(const bf16* q, const bf16* k, const bf16* v, const float* bias, c
 }
 
 constexpr int kBadShape = -1;
+constexpr int kF32Code = 0, kBf16Code = 1;  // the dtype codes of the C entry points
 
-bool shape_ok(int B, int H, int T, int S, int D) {
-  return B >= 1 && H >= 1 && T >= 1 && S >= 1 && D >= 8 && D <= 128 && D % 8 == 0 &&
-         static_cast<long long>(B) * H <= 65535;
+bool shape_ok(int dtype, int B, int H, int T, int S, int D) {
+  return (dtype == kF32Code || dtype == kBf16Code) && B >= 1 && H >= 1 && T >= 1 && S >= 1 &&
+         D >= 8 && D <= 128 && D % 8 == 0 && static_cast<long long>(B) * H <= 65535;
 }
 
 // the bias's row stride: whole 16-byte pieces, at least S; the grids' second
-// dimension holds the tiles of T
-bool bias_ok(int T, int S, long long ldb) {
-  return ldb >= S && ldb % 4 == 0 && (T + kRows - 1) / kRows <= 65535;
+// dimension holds the tiles of T; the fp32 bias form up to kF32BiasMaxD
+bool bias_ok(int dtype, int T, int S, int D, long long ldb) {
+  return ldb >= S && ldb % 4 == 0 && (T + kRows - 1) / kRows <= 65535 &&
+         (dtype != kF32Code || D <= kF32BiasMaxD);
+}
+
+template <typename E>
+struct Type {
+  using type = E;
+};
+
+// f(Type<element type>, head-dim bucket, bias): the build for a launch's
+// dtype code, D and bias (the fp32 bias form has no D = 128 bucket)
+template <typename F>
+int dispatch(int dtype, int D, bool bias, F f) {
+  auto by_d = [&](auto e, auto kb) {
+    using E = typename decltype(e)::type;
+    if (D <= 32) return f(e, std::integral_constant<int, 32>(), kb);
+    if constexpr (kF32<E> && decltype(kb)::value) {
+      return f(e, std::integral_constant<int, 64>(), kb);  // D <= kF32BiasMaxD: bias_ok
+    } else {
+      if (D <= 64) return f(e, std::integral_constant<int, 64>(), kb);
+      return f(e, std::integral_constant<int, 128>(), kb);
+    }
+  };
+  auto by_bias = [&](auto e) {
+    return bias ? by_d(e, std::true_type()) : by_d(e, std::false_type());
+  };
+  return dtype == kF32Code ? by_bias(Type<float>()) : by_bias(Type<bf16>());
 }
 
 }  // namespace
 
 extern "C" {
 
-// q [B, T, H, D], k and v [B, S, H, D] bf16 through their element strides
+// q [B, T, H, D], k and v [B, S, H, D] of one type, fp32 (dtype 0: the
+// split-TF32 form) or bf16 (dtype 1), through their element strides
 // (strides: 3 per tensor, (b, t, h), for q, k, v, out; the head dim has
 // stride 1; every base and stride 16-byte aligned); bias null or [H, T, ldb]
-// fp32 (row stride ldb >= S, a multiple of 4; base 16-byte aligned; finite),
-// added to every batch row's logits; out [B, T, H, D] bf16, lse [B, H, T]
-// fp32 (log2 units). 8 <= D <= 128 with D % 8 == 0, B H <= 65535. Returns 0,
-// kBadShape, or the CUDA error of the launch.
+// fp32 (row stride ldb >= S, a multiple of 4; base 16-byte aligned; finite;
+// in fp32 D <= 64), added to every batch row's logits; out [B, T, H, D] of
+// q's type, lse [B, H, T] fp32 (log2 units). 8 <= D <= 128 with D % 8 == 0,
+// B H <= 65535. Returns 0, kBadShape, or the CUDA error of the launch.
 int global_attention_fwd(const void* q, const void* k, const void* v, const float* bias,
-                         void* out, float* lse, int B, int H, int T, int S, int D, long long ldb,
-                         float scale, const long long* strides, void* stream) {
-  if (!shape_ok(B, H, T, S, D) || (bias != nullptr && !bias_ok(T, S, ldb))) return kBadShape;
-  auto run = [&](auto launch) {
-    return launch(static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-                  static_cast<const bf16*>(v), bias, static_cast<bf16*>(out), lse, B, H, T, S, D,
-                  ldb, scale, strides, static_cast<cudaStream_t>(stream));
-  };
-  if (bias != nullptr) {
-    if (D <= 32) return run(launch_fwd<32, true>);
-    if (D <= 64) return run(launch_fwd<64, true>);
-    return run(launch_fwd<128, true>);
-  }
-  if (D <= 32) return run(launch_fwd<32, false>);
-  if (D <= 64) return run(launch_fwd<64, false>);
-  return run(launch_fwd<128, false>);
+                         void* out, float* lse, int dtype, int B, int H, int T, int S, int D,
+                         long long ldb, float scale, const long long* strides, void* stream) {
+  if (!shape_ok(dtype, B, H, T, S, D) || (bias != nullptr && !bias_ok(dtype, T, S, D, ldb)))
+    return kBadShape;
+  return dispatch(dtype, D, bias != nullptr, [&](auto e, auto d, auto kb) {
+    using E = typename decltype(e)::type;
+    return launch_fwd<E, decltype(d)::value, decltype(kb)::value>(
+        static_cast<const E*>(q), static_cast<const E*>(k), static_cast<const E*>(v), bias,
+        static_cast<E*>(out), lse, B, H, T, S, D, ldb, scale, strides,
+        static_cast<cudaStream_t>(stream));
+  });
 }
 
 // The backward of global_attention_fwd: out and lse are its outputs (with
-// the same bias), dout the incoming gradient, delta [B, H, T] fp32 scratch;
-// dq [B, T, H, D], dk and dv [B, S, H, D] bf16 (strides: q, k, v, out, dout,
-// dq, dk, dv); dbias null (no gradient for the bias, or no bias) or [H, T,
-// ldb] fp32, sum over the batch rows of the logits' gradient, in b order.
-// Launches on the stream: delta, dk and dv, dq without a bias; dq (which
-// forms delta), dk and dv, and dbias where asked with one.
+// the same bias and dtype), dout the incoming gradient, delta [B, H, T] fp32
+// scratch; dq [B, T, H, D], dk and dv [B, S, H, D] of q's type (strides: q,
+// k, v, out, dout, dq, dk, dv); dbias null (no gradient for the bias, or no
+// bias) or [H, T, ldb] fp32, sum over the batch rows of the logits'
+// gradient, in b order. Launches on the stream: delta, dk and dv, dq, and
+// with a bias dbias where asked; the bf16 bias form dq (which forms delta),
+// dk and dv, and dbias where asked.
 int global_attention_bwd(const void* q, const void* k, const void* v, const float* bias,
                          const void* out, const void* dout, const float* lse, float* delta,
-                         void* dq, void* dk, void* dv, float* dbias, int B, int H, int T, int S,
-                         int D, long long ldb, float scale, const long long* strides,
-                         void* stream) {
-  if (!shape_ok(B, H, T, S, D) || (bias != nullptr && !bias_ok(T, S, ldb)) ||
+                         void* dq, void* dk, void* dv, float* dbias, int dtype, int B, int H,
+                         int T, int S, int D, long long ldb, float scale,
+                         const long long* strides, void* stream) {
+  if (!shape_ok(dtype, B, H, T, S, D) || (bias != nullptr && !bias_ok(dtype, T, S, D, ldb)) ||
       (bias == nullptr && dbias != nullptr))
     return kBadShape;
-  auto run = [&](auto launch) {
-    return launch(static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-                  static_cast<const bf16*>(v), bias, static_cast<const bf16*>(out),
-                  static_cast<const bf16*>(dout), lse, delta, static_cast<bf16*>(dq),
-                  static_cast<bf16*>(dk), static_cast<bf16*>(dv), dbias, B, H, T, S, D, ldb,
-                  scale, strides, static_cast<cudaStream_t>(stream));
-  };
-  if (bias != nullptr) {
-    if (D <= 32) return run(launch_bwd<32, true>);
-    if (D <= 64) return run(launch_bwd<64, true>);
-    return run(launch_bwd<128, true>);
-  }
-  if (D <= 32) return run(launch_bwd<32, false>);
-  if (D <= 64) return run(launch_bwd<64, false>);
-  return run(launch_bwd<128, false>);
+  return dispatch(dtype, D, bias != nullptr, [&](auto e, auto d, auto kb) {
+    using E = typename decltype(e)::type;
+    return launch_bwd<E, decltype(d)::value, decltype(kb)::value>(
+        static_cast<const E*>(q), static_cast<const E*>(k), static_cast<const E*>(v), bias,
+        static_cast<const E*>(out), static_cast<const E*>(dout), lse, delta, static_cast<E*>(dq),
+        static_cast<E*>(dk), static_cast<E*>(dv), dbias, B, H, T, S, D, ldb, scale, strides,
+        static_cast<cudaStream_t>(stream));
+  });
 }
 
 }  // extern "C"

@@ -1952,13 +1952,14 @@ wa_bwd_tf32x3_large_kernel(const float* __restrict__ q, const float* __restrict_
 // were added so that the port's global-attention backward adds in a fixed
 // order, which cuDNN's and FlashAttention's backwards do not):
 // nn/attention.py lays q, k, v [B, T, H, D] out as one window per batch row
-// (bnw = B, nW = 1). Each kernel takes compile-time flags for the bias and
-// the mask (kBias, kMask) and is built with both, with the bias alone
-// (MOAT's relative-position bias) and with neither: without a bias it reads
-// no [H, N, N] tile and forms no dbias (no partial, no reduction); without a
-// mask it reads none either. A call with a mask alone (a boolean mask) gets
-// a zero bias standing in from the wrapper. At ViT-L's T = 1025 and 16
-// heads a zero bias alone would be 67 MB read at every logit, and the bias
+// (bnw = B, nW = 1). Each kernel reads a bias and a mask: the global-attention
+// pair (global_attention.cu) takes every call without a mask and with a bias
+// shared by the batch rows, or none, in bf16 and fp32, so what comes here
+// without a mask (a bias that varies with the batch row, a head dim that
+// pair does not take) gets a zero [1, N, N] mask standing in from the
+// wrapper, and a call without a bias a zero [H, N, N] bias, whose gradient
+// is dropped. (The forms with the bias alone and with neither, 28 kernels,
+// were built until the pair's fp32 form took their last path.) The bias
 // and mask reads were the largest cost tools/ablate_window_attention.py
 // found in these kernels.
 //
@@ -2383,37 +2384,16 @@ __device__ __forceinline__ void store_acc_rows(T* base, long long sn, int m0, in
 // through the cache, loaded before the group's products. (The head's bias
 // held in shared memory was slower at N = 144: its rows, 144 floats apart,
 // put four lanes on a bank; loading a group ahead cost registers and spills
-// and was slower too.) kBias / kMask: whether the launch has that operand;
-// one it lacks is never read (global attention without either reads nothing)
-template <bool kBias, bool kMask>
+// and was slower too.)
 __device__ __forceinline__ void stream_bias_mask(float (&bm)[2][4], const float* bias_h,
                                                  const float* mask_b, int c0, int r0, int N,
                                                  bool keys) {
-  if constexpr (!kBias && !kMask) {
-#pragma unroll
-    for (int u = 0; u < 2; ++u) bm[u][0] = bm[u][1] = bm[u][2] = bm[u][3] = 0.f;
-    return;
-  }
   auto load2 = [&](int at) {
-    float2 x = make_float2(0.f, 0.f);
-    if constexpr (kBias) {
-      const float2 bv = __ldg(reinterpret_cast<const float2*>(bias_h + at));
-      x.x += bv.x;
-      x.y += bv.y;
-    }
-    if constexpr (kMask) {
-      const float2 mv = __ldg(reinterpret_cast<const float2*>(mask_b + at));
-      x.x += mv.x;
-      x.y += mv.y;
-    }
-    return x;
+    const float2 bv = __ldg(reinterpret_cast<const float2*>(bias_h + at));
+    const float2 mv = __ldg(reinterpret_cast<const float2*>(mask_b + at));
+    return make_float2(bv.x + mv.x, bv.y + mv.y);
   };
-  auto load1 = [&](int at) {
-    float x = 0.f;
-    if constexpr (kBias) x += __ldg(bias_h + at);
-    if constexpr (kMask) x += __ldg(mask_b + at);
-    return x;
-  };
+  auto load1 = [&](int at) { return __ldg(bias_h + at) + __ldg(mask_b + at); };
   const int c = c0 + (threadIdx.x & 3) * 2;
   if (!keys && N % 2 == 0) {  // a lane's two columns of a row: one 8-byte load each
 #pragma unroll
@@ -2453,12 +2433,9 @@ __host__ __device__ constexpr size_t fwd_stream_smem(int D) {
 // One block per (chunk of windows, head), blockDim.x / 32 warps of 16 query
 // rows each; the block's steps run over the chunk's windows, each window's
 // rounds of rows and each round's key tiles, with the next step's k and v
-// tiles on their way by cp.async during this one. kBias / kMask: whether the
-// launch has a bias / a mask (Swin's windows have both; global attention,
-// one window per batch row, may have neither, and then reads no N x N
-// operand at all, or the bias alone; the form with a mask alone is not
-// built, see with_stream_operands)
-template <typename T, int kDMax, bool kBias, bool kMask>
+// tiles on their way by cp.async during this one. It reads a bias and a mask
+// (zero ones stand in for a call that lacks them)
+template <typename T, int kDMax>
 __global__ void __launch_bounds__(32 * stream_max_warps(kDMax), 1)
 wa_fwd_stream_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                      const float* __restrict__ bias, const float* __restrict__ mask,
@@ -2480,7 +2457,7 @@ wa_fwd_stream_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
   const int chunk = blockIdx.x / H, h = blockIdx.x - chunk * H;
   const int b_first = chunk * windows_per_chunk;
   const int steps = max(0, min(bnw, b_first + windows_per_chunk) - b_first) * per_window;
-  const float* bias_h = kBias ? bias + static_cast<int64_t>(h) * N * N : nullptr;
+  const float* bias_h = bias + static_cast<int64_t>(h) * N * N;
 
   auto load = [&](int step) {
     const int b = b_first + step / per_window, row0 = step % key_tiles * tile_rows;
@@ -2514,7 +2491,7 @@ wa_fwd_stream_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
       mx0 = mx1 = -INFINITY;
       l0 = l1 = 0.f;
     }
-    const float* mask_b = kMask ? mask + static_cast<int64_t>(b % nW) * N * N : nullptr;
+    const float* mask_b = mask + static_cast<int64_t>(b % nW) * N * N;
     const auto ks = stage_tile<kPresplit>(tiles + (step & 1) * 2 * tile, split, tile, 0);
     const auto vs = stage_tile<kPresplit>(tiles + (step & 1) * 2 * tile, split, tile, 1);
     const int key0 = kt * tile_rows;
@@ -2527,7 +2504,7 @@ wa_fwd_stream_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
         const bool in = k0 + 16 * gi < tile_rows && key < N;
         float bm[2][4];
         if (in) {
-          stream_bias_mask<kBias, kMask>(bm, bias_h, mask_b, key, r0, N, false);
+          stream_bias_mask(bm, bias_h, mask_b, key, r0, N, false);
           frags_times_tile_t(fq, ks, ld, k0 + 16 * gi, Dp, s[gi]);
         }
 #pragma unroll
@@ -2613,17 +2590,17 @@ __host__ __device__ constexpr size_t bwd_stream_base(int N, int D) {
   return fwd_stream_smem<T>(D) + 2 * 4 * static_cast<size_t>((N + 15) / 16 * 16);
 }
 
-// Whether a launch with a bias keeps its dbias sums in shared memory (one
-// without a bias forms no dbias)
+// Whether a launch keeps its dbias sums in shared memory (else the chunk's
+// partial in device memory)
 template <typename T>
 __host__ __device__ constexpr bool bwd_stream_sums_in_smem(int N, int D) {
   return bwd_stream_base<T>(N, D) + 4 * bwd_stream_sums(N, D) <= kMaxDynamicSmem;
 }
 
 template <typename T>
-__host__ __device__ constexpr size_t bwd_stream_smem(int N, int D, bool bias) {
+__host__ __device__ constexpr size_t bwd_stream_smem(int N, int D) {
   return bwd_stream_base<T>(N, D) +
-         (bias && bwd_stream_sums_in_smem<T>(N, D) ? 4 * bwd_stream_sums(N, D) : 0);
+         (bwd_stream_sums_in_smem<T>(N, D) ? 4 * bwd_stream_sums(N, D) : 0);
 }
 
 // One block per (chunk of windows, head), blockDim.x / 32 warps. Per window,
@@ -2632,9 +2609,7 @@ __host__ __device__ constexpr size_t bwd_stream_smem(int N, int D, bool bias) {
 // keys of that row tile); each step's two tiles arrive by cp.async during
 // the step before. The dbias sums sit in shared memory where they fit
 // (bwd_stream_sums_in_smem), else in the chunk's partial in device memory.
-// kBias / kMask as the forward's: without a bias no dbias is formed, and
-// neither the sums nor the partial are touched.
-template <typename T, int kDMax, bool kBias, bool kMask>
+template <typename T, int kDMax>
 __global__ void __launch_bounds__(32 * stream_max_warps(kDMax), 1)
 wa_bwd_stream_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                      const T* __restrict__ dout, const float* __restrict__ bias,
@@ -2661,13 +2636,13 @@ wa_bwd_stream_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
   uint32_t* split = reinterpret_cast<uint32_t*>(tiles + 4 * tile);  // [2][hi, lo], kPresplit
   float* lse_s = reinterpret_cast<float*>(tiles + (kPresplit ? 8 : 4) * tile);  // [row_tiles * 16]
   float* delta_s = lse_s + row_tiles * 16;                    // [row_tiles * 16]
-  const bool sums_smem = kBias && bwd_stream_sums_in_smem<T>(N, D);
+  const bool sums_smem = bwd_stream_sums_in_smem<T>(N, D);
   float* sums = delta_s + row_tiles * 16;  // [rounds][row_tiles][8][blockDim.x], sums_smem
   const int chunk = blockIdx.x / H, h = blockIdx.x - chunk * H;
   const int b_first = chunk * windows_per_chunk;
   const int steps = max(0, min(bnw, b_first + windows_per_chunk) - b_first) * per_window;
-  const float* bias_h = kBias ? bias + static_cast<int64_t>(h) * N * N : nullptr;
-  float* partial_w = kBias ? partial + (static_cast<int64_t>(chunk) * H + h) * N * N : nullptr;
+  const float* bias_h = bias + static_cast<int64_t>(h) * N * N;
+  float* partial_w = partial + (static_cast<int64_t>(chunk) * H + h) * N * N;
 
   if (sums_smem)
     for (int e = threadIdx.x; e < rounds * row_tiles * 8 * static_cast<int>(blockDim.x);
@@ -2711,7 +2686,7 @@ wa_bwd_stream_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
     const int m0 = (warp + round * warps) * 16;
     if (m0 >= N) continue;  // no rows of this warp in this round
     const int r0 = m0 + (lane >> 2), r1 = r0 + 8, row0 = tt * tile_rows;
-    const float* mask_b = kMask ? mask + static_cast<int64_t>(b % nW) * N * N : nullptr;
+    const float* mask_b = mask + static_cast<int64_t>(b % nW) * N * N;
     // k (rows) or q (keys), and v (rows) or do (keys)
     const auto ts0 = stage_tile<kPresplit>(tiles + (step & 1) * 2 * tile, split, tile, 0);
     const auto ts1 = stage_tile<kPresplit>(tiles + (step & 1) * 2 * tile, split, tile, 1);
@@ -2729,7 +2704,7 @@ wa_bwd_stream_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
         const int key = row0 + 16 * gi;
         if (16 * gi >= tile_rows || key >= N) break;
         float s[2][4], dp[2][4], bm[2][4];
-        stream_bias_mask<kBias, kMask>(bm, bias_h, mask_b, key, r0, N, false);
+        stream_bias_mask(bm, bias_h, mask_b, key, r0, N, false);
         frags_times_tile_t<false>(fa, ts0, ld, 16 * gi, Dp, s);
         frags_times_tile_t<false>(fb, ts1, ld, 16 * gi, Dp, dp);
 #pragma unroll
@@ -2788,7 +2763,7 @@ wa_bwd_stream_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
         const int key = row0 + 16 * gi;
         if (16 * gi >= tile_rows || key >= N) break;
         float s[2][4], dp[2][4], bm[2][4];
-        stream_bias_mask<kBias, kMask>(bm, bias_h, mask_b, key, r0, N, false);
+        stream_bias_mask(bm, bias_h, mask_b, key, r0, N, false);
         frags_times_tile_t<false>(fa, ts0, ld, 16 * gi, Dp, s);
         frags_times_tile_t<false>(fb, ts1, ld, 16 * gi, Dp, dp);
 #pragma unroll
@@ -2823,7 +2798,7 @@ wa_bwd_stream_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
         const int query = row0 + 16 * gi;
         if (16 * gi >= tile_rows || query >= N) break;
         float st[2][4], dpt[2][4], bm[2][4];
-        stream_bias_mask<kBias, kMask>(bm, bias_h, mask_b, query, r0, N, true);
+        stream_bias_mask(bm, bias_h, mask_b, query, r0, N, true);
         frags_times_tile_t<false>(fa, ts0, ld, 16 * gi, Dp, st);
         frags_times_tile_t<false>(fb, ts1, ld, 16 * gi, Dp, dpt);
         float* slot = sums + static_cast<size_t>((round * row_tiles + query / 16) * 8) * blockDim.x +
@@ -2838,7 +2813,7 @@ wa_bwd_stream_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
               const float x = st[u][e] * scale + bm[u][e];
               p = exp2f(fmaf(x, kLog2e, -lse_s[i]));
               ds = p * (dpt[u][e] - delta_s[i]);
-              if (kBias && !sums_smem) {
+              if (!sums_smem) {
                 float* at = partial_w + i * N + j;  // this thread's alone in the launch
                 *at = b == b_first ? ds : *at + ds;
               }
@@ -2857,62 +2832,47 @@ wa_bwd_stream_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
     }
   }
 
-  if constexpr (kBias) {
-    if (!sums_smem) return;
-    for (int round = 0; round < rounds; ++round) {
-      const int m0 = (warp + round * warps) * 16;
-      if (m0 >= N) break;
-      for (int qg = 0; qg < row_tiles; ++qg) {
-        const float* slot =
-            sums + static_cast<size_t>((round * row_tiles + qg) * 8) * blockDim.x + threadIdx.x;
+  if (!sums_smem) return;
+  for (int round = 0; round < rounds; ++round) {
+    const int m0 = (warp + round * warps) * 16;
+    if (m0 >= N) break;
+    for (int qg = 0; qg < row_tiles; ++qg) {
+      const float* slot =
+          sums + static_cast<size_t>((round * row_tiles + qg) * 8) * blockDim.x + threadIdx.x;
 #pragma unroll
-        for (int u = 0; u < 2; ++u)
+      for (int u = 0; u < 2; ++u)
 #pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int i = qg * 16 + 8 * u + 2 * t + (e & 1);
-            const int j = m0 + (lane >> 2) + (e < 2 ? 0 : 8);
-            if (i < N && j < N) partial_w[i * N + j] = slot[(u * 4 + e) * blockDim.x];
-          }
-      }
+        for (int e = 0; e < 4; ++e) {
+          const int i = qg * 16 + 8 * u + 2 * t + (e & 1);
+          const int j = m0 + (lane >> 2) + (e < 2 ? 0 : 8);
+          if (i < N && j < N) partial_w[i * N + j] = slot[(u * 4 + e) * blockDim.x];
+        }
     }
   }
 }
 
 // The streaming kernels are compiled for head dims up to 32, 64 and 128, and
-// in f32 also 40 (D = 36 and the like: the 64 build's registers spill there),
-// each with both a bias and a mask (the windows), with the bias alone and
-// with neither (global attention)
-template <typename T, bool kBias, bool kMask>
+// in f32 also 40 (D = 36 and the like: the 64 build's registers spill there):
+// 14 kernels, each reading a bias and a mask (the wrapper stands a zero one
+// in for an operand a call lacks)
+template <typename T>
 auto fwd_stream_kernel(int D) {
-  auto kernel = D <= 32   ? wa_fwd_stream_kernel<T, 32, kBias, kMask>
-                : D <= 64 ? wa_fwd_stream_kernel<T, 64, kBias, kMask>
-                          : wa_fwd_stream_kernel<T, 128, kBias, kMask>;
+  auto kernel = D <= 32   ? wa_fwd_stream_kernel<T, 32>
+                : D <= 64 ? wa_fwd_stream_kernel<T, 64>
+                          : wa_fwd_stream_kernel<T, 128>;
   if constexpr (sizeof(T) == 4)
-    if (D > 32 && D <= 40) kernel = wa_fwd_stream_kernel<T, 40, kBias, kMask>;
+    if (D > 32 && D <= 40) kernel = wa_fwd_stream_kernel<T, 40>;
   return kernel;
 }
 
-template <typename T, bool kBias, bool kMask>
+template <typename T>
 auto bwd_stream_kernel(int D) {
-  auto kernel = D <= 32   ? wa_bwd_stream_kernel<T, 32, kBias, kMask>
-                : D <= 64 ? wa_bwd_stream_kernel<T, 64, kBias, kMask>
-                          : wa_bwd_stream_kernel<T, 128, kBias, kMask>;
+  auto kernel = D <= 32   ? wa_bwd_stream_kernel<T, 32>
+                : D <= 64 ? wa_bwd_stream_kernel<T, 64>
+                          : wa_bwd_stream_kernel<T, 128>;
   if constexpr (sizeof(T) == 4)
-    if (D > 32 && D <= 40) kernel = wa_bwd_stream_kernel<T, 40, kBias, kMask>;
+    if (D > 32 && D <= 40) kernel = wa_bwd_stream_kernel<T, 40>;
   return kernel;
-}
-
-// f(std::bool_constant<bias>, std::bool_constant<mask>): the streaming
-// kernels' operand flags from the launch's run-time ones. Three of the four
-// forms are built: both operands, the bias alone and neither. Each form is
-// 14 kernels and about a third more of the source's build time; no path
-// sends a mask alone, which gets a zero bias standing in from the wrapper.
-// -1 for the form not built.
-template <typename F>
-int with_stream_operands(bool bias, bool mask, F f) {
-  if (!bias && mask) return -1;
-  if (!bias) return f(std::false_type{}, std::false_type{});
-  return mask ? f(std::true_type{}, std::true_type{}) : f(std::true_type{}, std::false_type{});
 }
 
 bool stream_fits(int N, int D) { return N >= 1 && D >= 1 && D <= 128; }
@@ -3313,71 +3273,57 @@ int window_attention_bwd_tf32x3(const void* q, const void* k, const void* v, con
 // D <= 128 at any N >= 1, through any strides (vec: every base address and
 // window, head and token stride of q, k, v (and do) a multiple of 16 bytes,
 // and D of one 16-byte piece, so the tiles arrive by cp.async; else element
-// by element), else -1. bias and mask are both given, the bias alone or
-// neither (without a bias no dbias either, and dbias and the scratch may be
-// null too); a mask alone gives -1.
-// chunks: the _chunks
-// query of the same name and operands, called on the device before its first
-// launch there. The forward writes each row's lse where lse is not null; the
-// backward reads the forward's out and lse (neither may be null). strides: q,
-// k, v, out (12 values) forward; q, k, v, do, dq, dk, dv, out (24 values)
-// backward; scratch: chunks * H * N * N floats.
-int window_attention_fwd_stream_chunks(int bnw, int H, int N, int D, int dtype, int has_bias,
-                                       int has_mask) {
+// by element), else -1. bias and mask are both given (the wrapper stands a
+// zero one in for an operand the call lacks), else -1. chunks: the _chunks
+// query of the same name, called on the device before its first launch
+// there. The forward writes each row's lse where lse is not null; the
+// backward reads the forward's out and lse (neither may be null). strides:
+// q, k, v, out (12 values) forward; q, k, v, do, dq, dk, dv, out (24
+// values) backward; scratch: chunks * H * N * N floats.
+int window_attention_fwd_stream_chunks(int bnw, int H, int N, int D, int dtype) {
   if (!stream_fits(N, D)) return -1;
   const int threads = 32 * stream_warps(N, D);
-  return with_stream_operands(has_bias, has_mask, [&](auto kb, auto km) {
-    constexpr bool kBias = decltype(kb)::value, kMask = decltype(km)::value;
-    if (dtype == 0)
-      return one_wave_chunks(fwd_stream_kernel<float, kBias, kMask>(D), threads,
-                             fwd_stream_smem<float>(D), bnw, H);
-    if (dtype == 1)
-      return one_wave_chunks(fwd_stream_kernel<__nv_bfloat16, kBias, kMask>(D), threads,
-                             fwd_stream_smem<__nv_bfloat16>(D), bnw, H);
-    return -1;
-  });
+  if (dtype == 0)
+    return one_wave_chunks(fwd_stream_kernel<float>(D), threads, fwd_stream_smem<float>(D), bnw,
+                           H);
+  if (dtype == 1)
+    return one_wave_chunks(fwd_stream_kernel<__nv_bfloat16>(D), threads,
+                           fwd_stream_smem<__nv_bfloat16>(D), bnw, H);
+  return -1;
 }
 
 int window_attention_fwd_stream(const void* q, const void* k, const void* v, const void* bias,
                                 const void* mask, void* out, void* lse, int dtype, int bnw, int H,
                                 int N, int D, int nW, int chunks, float scale,
                                 const long long* strides, int vec, void* stream) {
-  if (!stream_fits(N, D)) return -1;
+  if (!stream_fits(N, D) || bias == nullptr || mask == nullptr) return -1;
   const Strides* s = reinterpret_cast<const Strides*>(strides);
   const float* bp = static_cast<const float*>(bias);
   const float* mp = static_cast<const float*>(mask);
   float* lp = static_cast<float*>(lse);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int threads = 32 * stream_warps(N, D);
-  return with_stream_operands(bp != nullptr, mp != nullptr, [&](auto kb, auto km) {
-    constexpr bool kBias = decltype(kb)::value, kMask = decltype(km)::value;
-    if (dtype == 0)
-      return launch_fwd_chunked<float>(fwd_stream_kernel<float, kBias, kMask>(D), threads,
-                                       fwd_stream_smem<float>(D), q, k, v, bp, mp, out, s, bnw,
-                                       H, N, D, nW, chunks, scale, st, lp, vec);
-    if (dtype == 1)
-      return launch_fwd_chunked<__nv_bfloat16>(
-          fwd_stream_kernel<__nv_bfloat16, kBias, kMask>(D), threads,
-          fwd_stream_smem<__nv_bfloat16>(D), q, k, v, bp, mp, out, s, bnw, H, N, D, nW, chunks,
-          scale, st, lp, vec);
-    return static_cast<int>(cudaErrorInvalidValue);
-  });
+  if (dtype == 0)
+    return launch_fwd_chunked<float>(fwd_stream_kernel<float>(D), threads,
+                                     fwd_stream_smem<float>(D), q, k, v, bp, mp, out, s, bnw, H,
+                                     N, D, nW, chunks, scale, st, lp, vec);
+  if (dtype == 1)
+    return launch_fwd_chunked<__nv_bfloat16>(fwd_stream_kernel<__nv_bfloat16>(D), threads,
+                                             fwd_stream_smem<__nv_bfloat16>(D), q, k, v, bp, mp,
+                                             out, s, bnw, H, N, D, nW, chunks, scale, st, lp, vec);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
-int window_attention_bwd_stream_chunks(int bnw, int H, int N, int D, int dtype, int has_bias,
-                                       int has_mask) {
+int window_attention_bwd_stream_chunks(int bnw, int H, int N, int D, int dtype) {
   if (!stream_fits(N, D)) return -1;
   const int threads = 32 * stream_warps(N, D);
-  return with_stream_operands(has_bias, has_mask, [&](auto kb, auto km) {
-    constexpr bool kBias = decltype(kb)::value, kMask = decltype(km)::value;
-    if (dtype == 0)
-      return one_wave_chunks(bwd_stream_kernel<float, kBias, kMask>(D), threads,
-                             bwd_stream_smem<float>(N, D, kBias), bnw, H);
-    if (dtype == 1)
-      return one_wave_chunks(bwd_stream_kernel<__nv_bfloat16, kBias, kMask>(D), threads,
-                             bwd_stream_smem<__nv_bfloat16>(N, D, kBias), bnw, H);
-    return -1;
-  });
+  if (dtype == 0)
+    return one_wave_chunks(bwd_stream_kernel<float>(D), threads,
+                           bwd_stream_smem<float>(N, D), bnw, H);
+  if (dtype == 1)
+    return one_wave_chunks(bwd_stream_kernel<__nv_bfloat16>(D), threads,
+                           bwd_stream_smem<__nv_bfloat16>(N, D), bnw, H);
+  return -1;
 }
 
 int window_attention_bwd_stream(const void* q, const void* k, const void* v, const void* dout,
@@ -3386,33 +3332,29 @@ int window_attention_bwd_stream(const void* q, const void* k, const void* v, con
                                 void* dbias, int dtype, int bnw, int H, int N, int D, int nW,
                                 int chunks, float scale, const long long* strides, int vec,
                                 void* stream) {
-  if (!stream_fits(N, D)) return -1;
-  if (out == nullptr || lse == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  if (bias != nullptr && (partial == nullptr || dbias == nullptr))
+  if (!stream_fits(N, D) || bias == nullptr || mask == nullptr) return -1;
+  if (out == nullptr || lse == nullptr || partial == nullptr || dbias == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   const Strides* s = reinterpret_cast<const Strides*>(strides);
   const float* bp = static_cast<const float*>(bias);
   const float* mp = static_cast<const float*>(mask);
   const float* lp = static_cast<const float*>(lse);
-  float* pp = bp != nullptr ? static_cast<float*>(partial) : nullptr;
-  float* dbp = bp != nullptr ? static_cast<float*>(dbias) : nullptr;
+  float* pp = static_cast<float*>(partial);
+  float* dbp = static_cast<float*>(dbias);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int threads = 32 * stream_warps(N, D);
-  return with_stream_operands(bp != nullptr, mp != nullptr, [&](auto kb, auto km) {
-    constexpr bool kBias = decltype(kb)::value, kMask = decltype(km)::value;
-    if (dtype == 0)
-      return launch_bwd_chunked<float>(
-          bwd_stream_kernel<float, kBias, kMask>(D), threads, bwd_stream_smem<float>(N, D, kBias),
-          q, k, v, dout, bp, mp, dq, dk, dv, pp, dbp, s, bnw, H, N, D, nW, chunks, scale, st,
-          static_cast<const float*>(out), lp, s[7], vec);
-    if (dtype == 1)
-      return launch_bwd_chunked<__nv_bfloat16>(
-          bwd_stream_kernel<__nv_bfloat16, kBias, kMask>(D), threads,
-          bwd_stream_smem<__nv_bfloat16>(N, D, kBias), q, k, v, dout, bp, mp, dq, dk, dv, pp, dbp,
-          s, bnw, H, N, D, nW, chunks, scale, st, static_cast<const __nv_bfloat16*>(out), lp,
-          s[7], vec);
-    return static_cast<int>(cudaErrorInvalidValue);
-  });
+  if (dtype == 0)
+    return launch_bwd_chunked<float>(
+        bwd_stream_kernel<float>(D), threads, bwd_stream_smem<float>(N, D), q, k, v,
+        dout, bp, mp, dq, dk, dv, pp, dbp, s, bnw, H, N, D, nW, chunks, scale, st,
+        static_cast<const float*>(out), lp, s[7], vec);
+  if (dtype == 1)
+    return launch_bwd_chunked<__nv_bfloat16>(
+        bwd_stream_kernel<__nv_bfloat16>(D), threads,
+        bwd_stream_smem<__nv_bfloat16>(N, D), q, k, v, dout, bp, mp, dq, dk, dv, pp,
+        dbp, s, bnw, H, N, D, nW, chunks, scale, st, static_cast<const __nv_bfloat16*>(out), lp,
+        s[7], vec);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // extern "C"

@@ -14,13 +14,13 @@ package (cuDNN's and FlashAttention's backwards do not):
 ========================================================  ==============================
 on the card, recording a gradient                         route
 ========================================================  ==============================
-bf16 (or bf16 autocast), no mask, no bias or a bias that  ``"global"``: the global-
-does not vary with the batch row (``[1, H, T, S]``, with  attention kernels
-or without a gradient), a head dim of whole 16-byte       (:func:`global_kernel_attention`;
-pieces up to 128                                          ViT-L, EVA02-L, MOAT with or
-                                                          without its relative bias)
-a mask, a bias that varies with the batch row, or         ``"kernel"``: the streaming
-float32, head dim up to 128                               window-attention kernels
+bf16 (or bf16 autocast) or float32, no mask, no bias or   ``"global"``: the global-
+a bias that does not vary with the batch row (``[1, H,    attention kernels
+T, S]``, with or without a gradient), a head dim that is  (:func:`global_kernel_attention`;
+a multiple of 8 up to 128 (float32 with a bias: up to     ViT-L, EVA02-L, MOAT with or
+64)                                                       without its relative bias)
+a mask, a bias that varies with the batch row, or a head  ``"kernel"``: the streaming
+dim up to 128 the global-attention kernels do not take    window-attention kernels
                                                           (:func:`kernel_attention`)
 a head dim above 128, float16, float64                    ``"fixed"``
                                                           (:func:`plain_attention`)
@@ -28,11 +28,12 @@ a head dim above 128, float16, float64                    ``"fixed"``
 
 The global-attention kernels tile queries and keys over blocks and split
 the backward with no atomics (dbias, where the bias records a gradient, is
-summed over the batch rows in increasing order); :func:`kernel_attention`
-lays the call out as one window per batch row for the streaming kernels,
-built without a mask, and without a bias where there is none;
-:func:`plain_attention` is the plain version in one type, whose cuBLAS
-products add in a fixed order too.
+summed over the batch rows in increasing order), in bf16 or, for float32,
+in split TF32 at fp32's precision; :func:`kernel_attention` lays the call
+out as one window per batch row for the streaming kernels, which are built
+with both a bias and a mask (a zero one standing in for a term the call
+lacks); :func:`plain_attention` is the plain version in one type, whose
+cuBLAS products add in a fixed order too.
 A call that records none (serving, ``torch.export``) is
 ``F.scaled_dot_product_attention``; on the CPU it is the plain version,
 :func:`dot_product_attention_reference` (einsum products, softmax in
@@ -286,8 +287,9 @@ def attention_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (:func:`global_kernel_attention`) where it has no mask, its bias (if
     any) broadcasts to ``[1, H, T, S]`` (does not vary with the batch row),
     and the global-attention kernels are built for its type and shape
-    (bfloat16, by autocast or by q, k and v; ``D % 8 == 0``, ``D <= 128``:
-    ``ga.takes``); else ``"kernel"`` (:func:`kernel_attention`) where the
+    (bfloat16, by autocast or by q, k and v, or float32; ``D % 8 == 0``,
+    ``D <= 128``, float32 with a bias ``D <= 64``: ``ga.takes``); else
+    ``"kernel"`` (:func:`kernel_attention`) where the
     streaming window-attention kernels are built for its type and head dim
     (float32 or bfloat16, ``D <= 128``); else ``"fixed"``
     (:func:`plain_attention`). One that records none takes ``"sdpa"``
@@ -319,7 +321,7 @@ def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           scale: Optional[float] = None) -> torch.Tensor:
     """``[B, N, H, D]`` q, k, v -> ``[B, N, H, D]`` by :func:`attention_route`:
     on the card where a gradient is recorded the global-attention kernels
-    (bf16, no mask, a bias shared by the batch rows or none), the
+    (bf16 or fp32, no mask, a bias shared by the batch rows or none), the
     window-attention kernels (or, at a shape
     neither is built for, :func:`plain_attention`), each with a fixed-order
     backward; :func:`sdpa_attention` on the card otherwise;

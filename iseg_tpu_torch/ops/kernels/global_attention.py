@@ -9,10 +9,14 @@ table (``iseg_tpu/backbones/moat.py:69-88``).
 On CUDA tensors the forward and the backward are the hand-written kernels
 of ``iseg_tpu_torch/csrc/global_attention.cu`` (its note says what bounds
 them on the H100 and how the design answers it): bf16 q, k, v, out and
-gradients, fp32 accumulators, head dims that are multiples of 8 up to 128,
-read and written through their strides (the head dim contiguous, every
-base and stride 16-byte aligned), so q, k and v may be views of a packed
-qkv projection. The backward is split, with no atomics: delta = rowsum(do
+gradients with fp32 accumulators, or the fp32 form, fp32 throughout with
+every product in split TF32 (each operand ``hi + lo``, three TF32 products
+summed in fp32: fp32's precision whatever
+``torch.backends.cuda.matmul.allow_tf32`` says); head dims that are
+multiples of 8 up to 128 (64 for the fp32 form with a bias), read and
+written through their strides (the head dim contiguous, every base and
+stride 16-byte aligned), so q, k and v may be views of a packed qkv
+projection. The backward is split, with no atomics: delta = rowsum(do
 out), then dk and dv by key tile, then dq by query tile, each walking the
 other side's tiles in one fixed order, and with a bias that records a
 gradient dbias by (query tile, key tile) summing the batch rows in
@@ -29,12 +33,13 @@ units) and :func:`global_attention_backward_reference` (the three passes
 from lse, in the kernels' tile order, dbias summed over the batch rows in
 their order).
 
-``nn/attention.py`` routes bf16 global attention that records a gradient
-on the card, with no mask and a bias that does not vary with the batch row
-or none, here (``attention_route``'s ``"global"``). ``LAUNCH_COUNTS``
-counts ``"fwd"`` and ``"bwd"`` (bias-free) and ``"fwd_bias"`` and
-``"bwd_bias"`` (the bias form): one per forward launch and one per
-backward, whatever its three or four launches, nowhere else.
+``nn/attention.py`` routes bf16 and fp32 global attention that records a
+gradient on the card, with no mask and a bias that does not vary with the
+batch row or none, here (``attention_route``'s ``"global"``).
+``LAUNCH_COUNTS`` counts ``"fwd"`` and ``"bwd"`` (bias-free) and
+``"fwd_bias"`` and ``"bwd_bias"`` (the bias form) in bf16, and the same
+keys ending in ``"_f32"`` for the fp32 form: one per forward launch and
+one per backward, whatever its three or four launches, nowhere else.
 """
 
 from __future__ import annotations
@@ -45,11 +50,14 @@ from typing import Optional
 
 import torch
 
-LAUNCH_COUNTS = {"fwd": 0, "bwd": 0, "fwd_bias": 0, "bwd_bias": 0}
+LAUNCH_COUNTS = {"fwd": 0, "bwd": 0, "fwd_bias": 0, "bwd_bias": 0,
+                 "fwd_f32": 0, "bwd_f32": 0, "fwd_bias_f32": 0, "bwd_bias_f32": 0}
 
 SOURCE = "global_attention.cu"
 TILE = 64  # query rows (or keys) of a block and of a streamed tile
 MAX_D = 128
+F32_BIAS_MAX_D = 64  # the fp32 bias form's widest head dim: its dbias kernel's ring
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_ROWS = 65535  # B H: the grid's second dimension
 MAX_TILES = 65535  # query tiles of the bias form: its grid's second dimension
 _BAD_SHAPE = -1
@@ -60,17 +68,18 @@ def takes(dtype: torch.dtype, b: int, h: int, t: int, s: int, d: int,
           bias_shape: Optional[tuple] = None) -> bool:
     """Whether the kernels are built for q ``[b, t, h, d]`` and k, v ``[b, s,
     h, d]`` of ``dtype`` and an additive bias of ``bias_shape`` (None: no
-    bias): bfloat16, ``d`` a multiple of 8 up to 128, at least one query and
-    one key, ``b h <= 65535``, ``t`` in at most 65535 tiles where there is a
-    bias, and the bias broadcasting to ``[1, h, t, s]`` (the same for every
-    batch row)."""
-    if not (dtype == torch.bfloat16 and 8 <= d <= MAX_D and d % 8 == 0 and t >= 1 and s >= 1
+    bias): bfloat16 or float32, ``d`` a multiple of 8 up to 128, at least
+    one query and one key, ``b h <= 65535``; where there is a bias, ``t`` in
+    at most 65535 tiles, in float32 ``d <= 64``, and the bias broadcasting to
+    ``[1, h, t, s]`` (the same for every batch row)."""
+    if not (dtype in _DTYPE_CODES and 8 <= d <= MAX_D and d % 8 == 0 and t >= 1 and s >= 1
             and 1 <= b * h <= MAX_HEAD_ROWS):
         return False
     if bias_shape is None:
         return True
     shape = (1,) * (4 - len(bias_shape)) + tuple(bias_shape)
     return (len(shape) == 4 and shape[0] == 1 and -(-t // TILE) <= MAX_TILES
+            and (dtype != torch.float32 or d <= F32_BIAS_MAX_D)
             and all(n in (1, want) for n, want in zip(shape[1:], (h, t, s))))
 
 
@@ -90,9 +99,9 @@ def build():
         ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         strides = ctypes.POINTER(ctypes.c_longlong)
         i64 = ctypes.c_longlong
-        lib.global_attention_fwd.argtypes = [ptr] * 6 + [i32] * 5 + [i64, f32, strides, ptr]
+        lib.global_attention_fwd.argtypes = [ptr] * 6 + [i32] * 6 + [i64, f32, strides, ptr]
         lib.global_attention_fwd.restype = i32
-        lib.global_attention_bwd.argtypes = [ptr] * 12 + [i32] * 5 + [i64, f32, strides, ptr]
+        lib.global_attention_bwd.argtypes = [ptr] * 12 + [i32] * 6 + [i64, f32, strides, ptr]
         lib.global_attention_bwd.restype = i32
         lib._iseg_bound = True
     return built
@@ -127,9 +136,9 @@ def _check_cuda_inputs(q, k, v, **more) -> None:
         if x.device != q.device or q.device.type != "cuda":
             raise ValueError(f"global_attention kernel: {name} on {x.device}; all tensors "
                              "must be on the same CUDA device")
-        if x.dtype != torch.bfloat16:
-            raise TypeError(f"global_attention kernel takes bfloat16 tensors, got {name} "
-                            f"{x.dtype}")
+        if x.dtype != q.dtype or x.dtype not in _DTYPE_CODES:
+            raise TypeError(f"global_attention kernel takes bfloat16 or float32 tensors of "
+                            f"one dtype, got {name} {x.dtype} (q {q.dtype})")
         if not aligned(x):
             raise ValueError(f"global_attention kernel: {name} (shape {tuple(x.shape)}, strides "
                              f"{x.stride()}) must have a contiguous head dim and 16-byte "
@@ -165,7 +174,8 @@ def _check_bias(bias: torch.Tensor, q: torch.Tensor, s: int) -> None:
                          "[H, T, ldb] rows of 16-byte pieces with a 16-byte aligned base "
                          "(bias_operand makes one)")
     if not takes(q.dtype, b, h, t, s, q.shape[3], tuple(bias.shape)):
-        raise ValueError(f"global_attention kernel: no bias form for T={t}")
+        raise ValueError(f"global_attention kernel: no bias form for T={t}, D={q.shape[3]} in "
+                         f"{q.dtype} (float32 up to D = {F32_BIAS_MAX_D})")
 
 
 def _strides(*tensors):
@@ -179,6 +189,13 @@ def _raise_on(err: int, what: str, q: torch.Tensor) -> None:
                          f"{tuple(q.shape)}")
     if err != 0:
         raise RuntimeError(f"global_attention {what} kernel launch failed: CUDA error {err}")
+
+
+def _count(which: str, bias, q: torch.Tensor) -> None:
+    """One launch of ``which`` (``"fwd"`` or ``"bwd"``) of the form the
+    call took: bias-free or bias, bf16 or fp32."""
+    LAUNCH_COUNTS[which + ("" if bias is None else "_bias")
+                  + ("_f32" if q.dtype == torch.float32 else "")] += 1
 
 
 def _launch_fwd(q, k, v, scale: float, bias: Optional[torch.Tensor] = None):
@@ -196,10 +213,11 @@ def _launch_fwd(q, k, v, scale: float, bias: Optional[torch.Tensor] = None):
     lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
     err = build().lib.global_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), None if bias is None else bias.data_ptr(),
-        out.data_ptr(), lse.data_ptr(), b, h, t, s, d, 0 if bias is None else bias.stride(1),
-        float(scale), _strides(q, k, v, out), torch.cuda.current_stream(q.device).cuda_stream)
+        out.data_ptr(), lse.data_ptr(), _DTYPE_CODES[q.dtype], b, h, t, s, d,
+        0 if bias is None else bias.stride(1), float(scale), _strides(q, k, v, out),
+        torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(err, "forward", q)
-    LAUNCH_COUNTS["fwd" if bias is None else "fwd_bias"] += 1
+    _count("fwd", bias, q)
     return out, lse
 
 
@@ -230,11 +248,11 @@ def _launch_bwd(q, k, v, out, lse, dout, scale: float, bias: Optional[torch.Tens
     err = build().lib.global_attention_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), None if bias is None else bias.data_ptr(),
         out.data_ptr(), dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-        dk.data_ptr(), dv.data_ptr(), None if dbias is None else dbias.data_ptr(), b, h, t, s, d,
-        ldb, float(scale), _strides(q, k, v, out, dout, dq, dk, dv),
-        torch.cuda.current_stream(q.device).cuda_stream)
+        dk.data_ptr(), dv.data_ptr(), None if dbias is None else dbias.data_ptr(),
+        _DTYPE_CODES[q.dtype], b, h, t, s, d, ldb, float(scale),
+        _strides(q, k, v, out, dout, dq, dk, dv), torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(err, "backward", q)
-    LAUNCH_COUNTS["bwd" if bias is None else "bwd_bias"] += 1
+    _count("bwd", bias, q)
     return (dq, dk, dv) if dbias is None else (dq, dk, dv, dbias)
 
 
@@ -272,8 +290,8 @@ def _logits(q, k, scale, bias, f):
 def global_attention_reference(q, k, v, scale: Optional[float] = None,
                                bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The plain function: ``softmax(q k^T scale + bias[h]) v`` per (batch
-    row, head), ``bias`` ``[H, T, S]`` or None, fp32 inside (float64 for
-    float64 inputs), the result in q's dtype."""
+    row, head), ``bias`` ``[H, T, S]`` or None, fp32 inside for bf16 and
+    fp32 inputs (float64 for float64), the result in q's dtype."""
     f = torch.promote_types(q.dtype, torch.float32)
     p = torch.softmax(_logits(q, k, scale, bias, f), dim=-1)
     return torch.einsum("bhts,bshd->bthd", p, v.to(f)).to(q.dtype)
@@ -283,7 +301,8 @@ def global_attention_forward_reference(q, k, v, scale: Optional[float] = None,
                                        bias: Optional[torch.Tensor] = None):
     """The forward kernel's function: (out in q's dtype, lse ``[B, H, T]``:
     each row's log2-sum-exp2 of the logits in log2 units, ``(q k^T scale +
-    bias) log2(e)``), fp32 inside (float64 for float64)."""
+    bias) log2(e)``), fp32 inside for bf16 and fp32 inputs (float64 for
+    float64)."""
     f = torch.promote_types(q.dtype, torch.float32)
     logits2 = _logits(q, k, scale, bias, f) * _LOG2E
     lse = torch.logsumexp(logits2 / _LOG2E, dim=-1) * _LOG2E
@@ -296,13 +315,15 @@ def global_attention_backward_reference(q, k, v, out, lse, dout, scale: Optional
                                         bias_grad: bool = False):
     """The backward kernels' passes in PyTorch, in their order: delta =
     rowsum(dout out) (with a bias rowsum(p dp), summed over the key tiles
-    in order, as the dq kernel's first walk forms it); dk and dv by key
+    in order, as the bf16 bias form's dq kernel forms it in a first walk;
+    float32 input keeps rowsum(dout out), as the fp32 form does); dk and dv by key
     tile, each walking the query tiles in order; dq by query tile, each
     walking the key tiles in order; p from ``lse`` (log2 units) and the
     logits with ``bias`` ``[H, T, S]`` added (None: none); with
     ``bias_grad`` dbias ``[H, T, S]`` by (query tile, key tile), the batch
-    rows' ds summed in increasing order. fp32 inside (float64 for float64);
-    (dq, dk, dv) in q's dtype, and dbias in fp32 (float64) after them."""
+    rows' ds summed in increasing order. fp32 inside for bf16 and fp32
+    inputs (float64 for float64); (dq, dk, dv) in q's dtype, and dbias in
+    fp32 (float64) after them."""
     f = torch.promote_types(q.dtype, torch.float32)
     c = _scale(q, scale) * _LOG2E
     qf, kf, vf, gf = (x.to(f) for x in (q, k, v, dout))
@@ -322,7 +343,7 @@ def global_attention_backward_reference(q, k, v, out, lse, dout, scale: Optional
         lse_t = lse[:, :, i:i + n, None] if rows else lse[:, :, None, i:i + n]
         return torch.exp2(x - lse_t)
 
-    if bias is None:
+    if bias is None or q.dtype == torch.float32:
         delta = (gf * out.to(f)).sum(-1).permute(0, 2, 1)  # [B, H, T]
     else:
         delta = torch.zeros_like(lse)
@@ -363,8 +384,9 @@ def global_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Global attention ``softmax(q k^T scale + bias[h]) v``.
 
     Args:
-      q: ``[B, T, H, D]``; k, v: ``[B, S, H, D]``. On the card bfloat16 with
-        ``D % 8 == 0``, ``D <= 128``, the head dim contiguous and bases and
+      q: ``[B, T, H, D]``; k, v: ``[B, S, H, D]``. On the card bfloat16 or
+        float32 (all one dtype) with ``D % 8 == 0``, ``D <= 128`` (float32
+        with a bias ``D <= 64``), the head dim contiguous and bases and
         strides 16-byte aligned (:func:`as_aligned` makes a copy that is).
       scale: the logits' scale, default 1/sqrt(D); positive on the card (the
         forward takes the rows' maxima of the unscaled logits).

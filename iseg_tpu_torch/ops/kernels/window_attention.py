@@ -53,17 +53,16 @@ raises. Every output, dbias included, is bitwise repeatable: dbias is
 summed from fp32 ds over chunks of windows in a fixed order, with no
 atomics.
 
-Global attention (``nn/attention.py``'s route for a call that records a
-gradient on the card) is the same function with one window per batch row,
-and may lack the bias, the mask or both (``bias=None``, ``mask=None``). A
-call without a mask takes the streaming kernels at every ``N`` and ``D <=
-128``, built without the mask and, where the call has none, without the
-bias, so no ``[H, N, N]`` zero bias or ``[1, N, N]`` zero mask is read and
-no dbias is formed without a bias (``dbias`` is None then). A call with a
-mask alone takes the kernels of a call with both, a zero ``[H, N, N]`` bias
-standing in, whose gradient is dropped: the streaming kernels are not built
-for that form, which no path sends (:func:`_stand_in`). Either way the
-backward adds in the same fixed order as the windowed one's.
+Global attention that the global-attention kernels do not take
+(``nn/attention.py``'s ``"kernel"`` route: a mask, a bias that varies with
+the batch row, or a head dim up to 128 that is no multiple of 8) is the
+same function with one window per batch row, and may lack the bias, the
+mask or both (``bias=None``, ``mask=None``). A call without a mask takes
+the streaming kernels at every ``N`` and ``D <= 128``. Those are built with
+both operands only: a zero ``[1, N, N]`` mask stands in for a missing mask
+and a zero ``[H, N, N]`` bias for a missing bias, whose gradient is
+dropped (``dbias`` is None then; :func:`_stand_in`). The backward adds in
+the same fixed order as the windowed one's.
 
 Where no gradient is recorded (serving, ``torch.export``) the forward is
 the operator ``iseg::window_attention_fwd`` (:func:`window_attention_fwd`);
@@ -73,9 +72,7 @@ with a gradient, the autograd Function of the two kernels.
 CUDA-core kernels, ``"fwd_mma"`` and ``"bwd_mma"`` for the bf16
 tensor-core ones, ``"fwd_tf32x3"`` and ``"bwd_tf32x3"`` for the fp32
 tensor-core ones, ``"fwd_stream"`` and ``"bwd_stream"`` for the streaming
-ones with a bias and a mask, ``"fwd_global"`` and ``"bwd_global"`` for the
-streaming ones built without a mask, with a bias or without): one per launch
-of each kernel, nowhere else.
+ones, windowed or global): one per launch of each kernel, nowhere else.
 """
 
 from __future__ import annotations
@@ -86,8 +83,8 @@ from typing import Optional
 
 import torch
 
-LAUNCH_COUNTS = {"fwd": 0, "fwd_mma": 0, "fwd_tf32x3": 0, "fwd_stream": 0, "fwd_global": 0,
-                 "bwd": 0, "bwd_mma": 0, "bwd_tf32x3": 0, "bwd_stream": 0, "bwd_global": 0}
+LAUNCH_COUNTS = {"fwd": 0, "fwd_mma": 0, "fwd_tf32x3": 0, "fwd_stream": 0,
+                 "bwd": 0, "bwd_mma": 0, "bwd_tf32x3": 0, "bwd_stream": 0}
 
 SOURCE = "window_attention.cu"
 _TENSOR_CORE_ROUTES = ("mma", "tf32x3")
@@ -122,9 +119,8 @@ def forward_route(dtype: torch.dtype, n: int, d: int, with_mask: bool = True) ->
     144``, ``D = 64``) would not fit a block's 232,448, so each warp holds its
     q rows in registers, read from device memory, and the block keeps k and
     v (two sets up to ``D = 96``, one above). A call without a mask
-    (``with_mask=False``: global attention, with a bias or without) takes
-    ``"stream"`` at every ``N``, else nothing (``"cuda_core"``, which needs
-    both operands, raises)."""
+    (``with_mask=False``: global attention, with a bias or without, a zero
+    mask standing in) takes ``"stream"`` at every ``N`` up to ``D = 128``."""
     if not 0 < d <= STREAM_MAX_D or dtype not in _DTYPE_CODES:
         return "cuda_core"
     if not with_mask:
@@ -201,7 +197,7 @@ def build():
                 launch.restype = i32
         for which, pointers in (("fwd", 7), ("bwd", 13)):
             chunks = getattr(lib, f"window_attention_{which}_stream_chunks")
-            chunks.argtypes = [i32] * 7
+            chunks.argtypes = [i32] * 5
             chunks.restype = i32
             launch = getattr(lib, f"window_attention_{which}_stream")
             launch.argtypes = [ptr] * pointers + [i32] * 7 + [f32, strides, i32, ptr]
@@ -230,10 +226,6 @@ def _check_cuda_inputs(q, k, v, bias, mask, dout=None) -> None:
         if d > 1 and t.stride(3) != 1:
             raise ValueError(f"window_attention kernel: {name}'s head dim must have "
                              f"stride 1, got strides {t.stride()}")
-    if mask is None and forward_route(q.dtype, n, d, False) != "stream":
-        raise ValueError(f"window_attention kernel: without a mask only the streaming kernels "
-                         f"run (float32 or bfloat16, D <= {STREAM_MAX_D}); got {q.dtype}, "
-                         f"D = {d}")
     for name, t in (("bias", bias), ("mask", mask)):
         if t is None:
             continue
@@ -255,13 +247,15 @@ def _check_cuda_inputs(q, k, v, bias, mask, dout=None) -> None:
 
 
 def _stand_in(q: torch.Tensor, bias, mask):
-    """(bias, mask) with a zero ``[H, N, N]`` bias (fp32, on q's device)
-    standing in where a mask comes alone: the streaming kernels are built
-    with both operands, with the bias alone and with neither."""
-    if bias is not None or mask is None:
-        return bias, mask
+    """(bias, mask) with a zero ``[H, N, N]`` bias and a zero ``[1, N, N]``
+    mask (fp32, on q's device) standing in for the operands the call lacks:
+    every kernel is built with both."""
     n = q.shape[2]
-    return torch.zeros((q.shape[1], n, n), dtype=torch.float32, device=q.device), mask
+    if bias is None:
+        bias = torch.zeros((q.shape[1], n, n), dtype=torch.float32, device=q.device)
+    if mask is None:
+        mask = torch.zeros((1, n, n), dtype=torch.float32, device=q.device)
+    return bias, mask
 
 
 def _token_major_empty(q: torch.Tensor) -> torch.Tensor:
@@ -298,6 +292,7 @@ def keeps_lse(dtype: torch.dtype, n: int, d: int) -> bool:
 def _launch_fwd(q, k, v, bias, mask, scale: float, with_lse: bool = False):
     """(out, lse): lse ``[bnw, H, N]`` fp32 (the rows' log2-sum-exp2 of the
     logits, in log2 units) where ``with_lse``, else None."""
+    windowed = mask is not None  # else global attention: the streaming route
     bias, mask = _stand_in(q, bias, mask)
     _check_cuda_inputs(q, k, v, bias, mask)
     out = _token_major_empty(q)
@@ -307,23 +302,21 @@ def _launch_fwd(q, k, v, bias, mask, scale: float, with_lse: bool = False):
         return out, lse
     lib = build().lib
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    windowed = mask is not None  # and a bias, or one standing in
-    route = forward_route(q.dtype, n, d) if windowed else "stream"  # else checked above
+    route = forward_route(q.dtype, n, d) if windowed else "stream"  # global: any N
     if with_lse and (route == "cuda_core" or (route == "mma" and n <= TF32X3_BWD_SMALL_N)):
         raise ValueError(f"window_attention forward: the {route!r} forward writes no lse at N = {n}")
     lse_ptr = lse.data_ptr() if with_lse else None
     if route == "stream":
         what = "forward (streaming)"
-        chunks = _stream_chunks("fwd", q.device.index, q.dtype, bnw, h, n, d, bias is not None,
-                                mask is not None)
+        chunks = _stream_chunks("fwd", q.device.index, q.dtype, bnw, h, n, d)
         if chunks < 1:
             _raise_on(_DOES_NOT_FIT, what, q)
         err = lib.window_attention_fwd_stream(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias), _ptr(mask), out.data_ptr(),
-            lse_ptr, _DTYPE_CODES[q.dtype], bnw, h, n, d, 1 if mask is None else mask.shape[0],
-            chunks, float(scale), _strides(q, k, v, out), int(_vec16(q, k, v)), stream)
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), mask.data_ptr(),
+            out.data_ptr(), lse_ptr, _DTYPE_CODES[q.dtype], bnw, h, n, d, mask.shape[0], chunks,
+            float(scale), _strides(q, k, v, out), int(_vec16(q, k, v)), stream)
         _raise_on(err, what, q)
-        LAUNCH_COUNTS["fwd_stream" if windowed else "fwd_global"] += 1
+        LAUNCH_COUNTS["fwd_stream"] += 1
         return out, lse
     if route in _TENSOR_CORE_ROUTES:
         what = f"forward (tensor cores, {route})"
@@ -345,11 +338,6 @@ def _launch_fwd(q, k, v, bias, mask, scale: float, with_lse: bool = False):
     _raise_on(err, "forward", q)
     LAUNCH_COUNTS["fwd"] += 1
     return out, lse
-
-
-def _ptr(t: Optional[torch.Tensor]):
-    """``t``'s address, or None (a null pointer) for an absent operand."""
-    return None if t is None else t.data_ptr()
 
 
 def _vec16(*tensors: torch.Tensor) -> bool:
@@ -382,49 +370,45 @@ def _tensor_core_chunks(which: str, device_index: int, bnw: int, h: int, n: int,
 
 @functools.lru_cache(maxsize=256)
 def _stream_chunks(which: str, device_index: int, dtype: torch.dtype, bnw: int, h: int, n: int,
-                   d: int, has_bias: bool, has_mask: bool) -> int:
+                   d: int) -> int:
     """Chunks of windows of a streaming kernel (``which``: ``"fwd"`` or
-    ``"bwd"``; built with or without a bias and a mask), as
-    :func:`_tensor_core_chunks`."""
+    ``"bwd"``), as :func:`_tensor_core_chunks`."""
     return getattr(build().lib, f"window_attention_{which}_stream_chunks")(
-        bnw, h, n, d, _DTYPE_CODES[dtype], int(has_bias), int(has_mask))
+        bnw, h, n, d, _DTYPE_CODES[dtype])
 
 
 def _launch_bwd(q, k, v, bias, mask, dout, scale: float, out=None, lse=None):
     """(dq, dk, dv, dbias) of ``sum(out * dout)``; ``out`` and ``lse`` are
     the forward's (:func:`keeps_lse` shapes need them); dbias None without
     a bias."""
-    given_bias = bias is not None
+    given_bias, windowed = bias is not None, mask is not None
     bias, mask = _stand_in(q, bias, mask)
     _check_cuda_inputs(q, k, v, bias, mask, dout)
     dq, dk, dv = (_token_major_empty(q) for _ in range(3))
     if q.numel() == 0:
         return dq, dk, dv, torch.zeros_like(bias) if given_bias else None
     bnw, h, n, d = q.shape
-    dbias = None if bias is None else torch.empty_like(bias)
+    dbias = torch.empty_like(bias)
     lib = build().lib
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    windowed = mask is not None  # and a bias, or one standing in
-    route = backward_route(q.dtype, n, d) if windowed else "stream"  # else checked above
+    route = backward_route(q.dtype, n, d) if windowed else "stream"
     if (not windowed or keeps_lse(q.dtype, n, d)) and (out is None or lse is None):
         raise ValueError(f"window_attention backward: the {route!r} backward at N = {n}, "
                          f"D = {d} needs the forward's output and lse")
     if route == "stream":
         what = "backward (streaming)"
-        chunks = _stream_chunks("bwd", q.device.index, q.dtype, bnw, h, n, d, bias is not None,
-                                mask is not None)
+        chunks = _stream_chunks("bwd", q.device.index, q.dtype, bnw, h, n, d)
         if chunks < 1:
             _raise_on(_DOES_NOT_FIT, what, q)
-        partial = None if bias is None else torch.empty((chunks, h, n, n), dtype=torch.float32,
-                                                        device=q.device)
+        partial = torch.empty((chunks, h, n, n), dtype=torch.float32, device=q.device)
         err = lib.window_attention_bwd_stream(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), _ptr(bias), _ptr(mask),
-            out.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            _ptr(partial), _ptr(dbias), _DTYPE_CODES[q.dtype], bnw, h, n, d,
-            1 if mask is None else mask.shape[0], chunks, float(scale),
-            _strides(q, k, v, dout, dq, dk, dv, out), int(_vec16(q, k, v, dout)), stream)
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), bias.data_ptr(),
+            mask.data_ptr(), out.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), partial.data_ptr(), dbias.data_ptr(), _DTYPE_CODES[q.dtype], bnw, h, n,
+            d, mask.shape[0], chunks, float(scale), _strides(q, k, v, dout, dq, dk, dv, out),
+            int(_vec16(q, k, v, dout)), stream)
         _raise_on(err, what, q)
-        LAUNCH_COUNTS["bwd_stream" if windowed else "bwd_global"] += 1
+        LAUNCH_COUNTS["bwd_stream"] += 1
         return dq, dk, dv, dbias if given_bias else None
     if route in _TENSOR_CORE_ROUTES:
         what = f"backward (tensor cores, {route})"

@@ -22,7 +22,8 @@ within the fp32 tolerance: 1e-4 of max(1, max |plain|) at Swin-L's shapes,
 rtol and atol 2e-5 at the small ones. The global-attention pair (bf16, p
 and ds rounded to bf16 as operands) is held to the same bf16 tolerance,
 1e-2 of max(1, max |plain|), its bias form's dbias (fp32, ds unrounded) to
-1e-3 of it, and its two runs to each other bit for bit.
+1e-3 of it, its fp32 form (split TF32) to the fp32 tolerance, 1e-4 of it,
+and its two runs to each other bit for bit.
 """
 
 import numpy as np
@@ -1251,11 +1252,12 @@ def _global_inputs(device, shape, seed=0):
 @pytest.mark.parametrize("form", ["no_bias_no_mask", "bias_only", "mask_only"])
 @pytest.mark.parametrize("shape", sorted(GLOBAL_SHAPES))
 def test_cuda_global_attention_streaming_matches_plain_version(cuda_device, shape, form):
-    """The streaming pair built without a bias and a mask and built with
-    the bias alone, one window per batch row, on views of a packed qkv
-    projection, and a call with a mask alone (the kernels of a call with
-    both, a zero bias standing in): forward and backward against the plain
-    version, WA_TOL."""
+    """Global attention on the window-attention kernels, one window per
+    batch row, on views of a packed qkv projection: without a bias and a
+    mask and with the bias alone through the streaming pair built with both
+    operands (zero stand-ins for the missing ones), and a call with a mask
+    alone (the windowed routes, a zero bias standing in): forward and
+    backward against the plain version, WA_TOL."""
     q, k, v, dout, bias, mask, dtype = _global_inputs(cuda_device, shape)
     bias = bias if form == "bias_only" else None
     mask = mask if form == "mask_only" else None
@@ -1265,7 +1267,7 @@ def test_cuda_global_attention_streaming_matches_plain_version(cuda_device, shap
     n, d = q.shape[2:]
     assert wa.LAUNCH_COUNTS == (
         _wa_counts(dtype, n, d) if form == "mask_only" else
-        {**dict.fromkeys(wa.LAUNCH_COUNTS, 0), "fwd_global": 1, "bwd_global": 1})
+        {**dict.fromkeys(wa.LAUNCH_COUNTS, 0), "fwd_stream": 1, "bwd_stream": 1})
     want = _global_run(wa.window_attention_reference, q, k, v, dout, scale, bias, mask)
     if bias is None:  # no dbias: the tolerance check's fifth output
         got.append(np.zeros(1))
@@ -1276,8 +1278,9 @@ def test_cuda_global_attention_streaming_matches_plain_version(cuda_device, shap
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", ["f32_t1025_d64", "bf16_t1025_d64"])
 def test_cuda_global_attention_streaming_is_bitwise_repeatable(cuda_device, shape):
-    """The bias-free pair's forward and backward equal bit for bit from run
-    to run (the fixed order the train steps' exact resume rests on)."""
+    """The streaming pair's forward and backward without a bias and a mask
+    (zero stand-ins for both) equal bit for bit from run to run (the fixed
+    order the train steps' exact resume rests on)."""
     q, k, v, dout, _, _, _ = _global_inputs(cuda_device, shape, seed=7)
     first = _global_run(wa.window_attention, q, k, v, dout, 0.125)
     second = _global_run(wa.window_attention, q, k, v, dout, 0.125)
@@ -1313,7 +1316,7 @@ def test_cuda_dot_product_attention_with_a_gradient_takes_the_kernels(cuda_devic
         assert not any(ga.LAUNCH_COUNTS.values())
     else:
         assert not any(wa.LAUNCH_COUNTS.values())
-        assert ga.LAUNCH_COUNTS == {"fwd": 1, "bwd": 1, "fwd_bias": 0, "bwd_bias": 0}
+        assert ga.LAUNCH_COUNTS == _ga_counts("fwd", "bwd")
     _assert_within_wa_tol(runs[0] + [np.zeros(1)], runs[1] + [np.zeros(1)], torch.bfloat16)
     wa.reset_launch_counts()
     ga.reset_launch_counts()
@@ -1343,6 +1346,12 @@ GA_SHAPES = {
 }
 
 
+def _ga_counts(*forms):
+    """The pair's launch counts with one launch of each of ``forms``
+    (``"fwd"``, ``"bwd_bias_f32"``, ...)."""
+    return {**dict.fromkeys(ga.LAUNCH_COUNTS, 0), **dict.fromkeys(forms, 1)}
+
+
 def _ga_inputs(device, shape, seed=0):
     """q, k, v as views of packed projections ([B, T, H, D] each, as ViT's
     block gives them; k and v packed together where S != T) and the incoming
@@ -1350,18 +1359,19 @@ def _ga_inputs(device, shape, seed=0):
     return _ga_tensors(device, *GA_SHAPES[shape], np.random.RandomState(seed))
 
 
-def _ga_tensors(device, b, h, t, s, d, rng):
-    """``_ga_inputs``'s tensors at ``(B, H, T, S, D)``, drawn from ``rng``."""
+def _ga_tensors(device, b, h, t, s, d, rng, dtype=torch.bfloat16):
+    """``_ga_inputs``'s tensors at ``(B, H, T, S, D)`` in ``dtype``, drawn
+    from ``rng``."""
     if s == t:
         q, k, v = torch.tensor(rng.randn(b, t, 3, h, d).astype(np.float32),
-                               device=device).to(torch.bfloat16).unbind(2)
+                               device=device).to(dtype).unbind(2)
     else:
         q = torch.tensor(rng.randn(b, t, h, d).astype(np.float32), device=device)
         k, v = torch.tensor(rng.randn(b, s, 2, h, d).astype(np.float32),
-                            device=device).to(torch.bfloat16).unbind(2)
-        q = q.to(torch.bfloat16)
+                            device=device).to(dtype).unbind(2)
+        q = q.to(dtype)
     dout = torch.tensor(rng.randn(b, t, h, d).astype(np.float32), device=device)
-    return q, k, v, dout.to(torch.bfloat16)
+    return q, k, v, dout.to(dtype)
 
 
 def _ga_run(fn, q, k, v, dout):
@@ -1383,7 +1393,7 @@ def test_cuda_global_attention_kernels_match_plain_version(cuda_device, shape):
     ga.reset_launch_counts()
     wa.reset_launch_counts()
     got = _ga_run(ga.global_attention, q, k, v, dout)
-    assert ga.LAUNCH_COUNTS == {"fwd": 1, "bwd": 1, "fwd_bias": 0, "bwd_bias": 0}
+    assert ga.LAUNCH_COUNTS == _ga_counts("fwd", "bwd")
     assert not any(wa.LAUNCH_COUNTS.values())
     want = _ga_run(ga.global_attention_reference, q, k, v, dout)
     _assert_within_wa_tol(got + [np.zeros(1)], want + [np.zeros(1)], torch.bfloat16)
@@ -1422,12 +1432,15 @@ def test_cuda_global_attention_kernels_lse_and_passes(cuda_device):
 
 @pytest.mark.cuda
 def test_cuda_global_attention_kernels_raise_on_what_they_do_not_take(cuda_device):
-    """float32, a head dim of no whole 16-byte pieces, a misaligned view, a
-    scale that is not positive: the wrapper raises, and launches nothing."""
+    """float16, mixed types, a head dim of no whole 16-byte pieces, a
+    misaligned view, a scale that is not positive: the wrapper raises, and
+    launches nothing."""
     q, k, v, _ = _ga_inputs(cuda_device, "t65_d64")
     ga.reset_launch_counts()
     with pytest.raises(TypeError):
-        ga.global_attention(q.float(), k.float(), v.float())
+        ga.global_attention(q.half(), k.half(), v.half())
+    with pytest.raises(TypeError):
+        ga.global_attention(q, k.float(), v)
     odd = torch.zeros(q.numel() + 1, dtype=q.dtype, device=cuda_device)[1:].view(q.shape)
     with pytest.raises(ValueError, match="aligned"):
         ga.global_attention(odd, k, v)
@@ -1487,7 +1500,7 @@ def test_cuda_global_attention_bias_form_matches_plain_version(cuda_device, shap
     ga.reset_launch_counts()
     wa.reset_launch_counts()
     got = _ga_bias_run(ga.global_attention, q, k, v, dout, bias)
-    assert ga.LAUNCH_COUNTS == {"fwd": 0, "bwd": 0, "fwd_bias": 1, "bwd_bias": 1}
+    assert ga.LAUNCH_COUNTS == _ga_counts("fwd_bias", "bwd_bias")
     assert not any(wa.LAUNCH_COUNTS.values())
     want = _ga_bias_run(ga.global_attention_reference, q, k, v, dout, bias)
     for got_x in got:
@@ -1571,9 +1584,159 @@ def test_cuda_dot_product_attention_with_moats_bias_takes_the_bias_form(cuda_dev
         out = fn(*leaves, bias=tb)
         grads = torch.autograd.grad(out, leaves + [tb], dout.to(dtype))
         runs.append([t.float().cpu().numpy() for t in (out.detach(), *grads)])
-    assert ga.LAUNCH_COUNTS == {"fwd": 0, "bwd": 0, "fwd_bias": 1, "bwd_bias": 1}
+    assert ga.LAUNCH_COUNTS == _ga_counts("fwd_bias", "bwd_bias")
     assert not any(wa.LAUNCH_COUNTS.values())
     _assert_within_wa_tol(runs[0], runs[1], torch.bfloat16)
+
+
+# ------------------------------ the global-attention pair's fp32 form
+
+# (B, H, T, S, D, with a bias): ViT-L's, EVA02-L's patch-dropped and MOAT-4
+# stage 2's shapes, a 1025-token tail at batch 1, B in {1, 2, 3}, T != S
+# both ways, head dims 32 and 64 (and 24 and 128 without a bias)
+GA_F32_SHAPES = {
+    "vit_l_8x16x1025x64": (8, 16, 1025, 1025, 64, False),
+    "eva02_l_4x16x769x64": (4, 16, 769, 769, 64, False),
+    "moat4_2x32x1024x32_bias": (2, 32, 1024, 1024, 32, True),
+    "b1_t1025_d64": (1, 4, 1025, 1025, 64, False),
+    "b1_t1025_d64_bias": (1, 4, 1025, 1025, 64, True),
+    "b3_t130_d32_bias": (3, 2, 130, 130, 32, True),
+    "b2_t70_s200_d64": (2, 2, 70, 200, 64, False),
+    "b2_t70_s200_d64_bias": (2, 2, 70, 200, 64, True),
+    "b3_t200_s70_d32": (3, 2, 200, 70, 32, False),
+    "b3_t200_s70_d32_bias": (3, 2, 200, 70, 32, True),
+    "b2_t97_d24": (2, 3, 97, 97, 24, False),
+    "b2_t97_d128": (2, 3, 97, 97, 128, False),
+}
+
+
+def _ga_f32_inputs(device, shape, seed=0):
+    """fp32 q, k, v as views of packed projections, the incoming gradient,
+    and an fp32 ``[H, T, S]`` bias (0.5 x normal) or None."""
+    b, h, t, s, d, with_bias = GA_F32_SHAPES[shape]
+    rng = np.random.RandomState(seed)
+    q, k, v, dout = _ga_tensors(device, b, h, t, s, d, rng, torch.float32)
+    bias = (torch.tensor((0.5 * rng.randn(h, t, s)).astype(np.float32), device=device)
+            if with_bias else None)
+    return q, k, v, dout, bias
+
+
+def _ga_f32_run(fn, q, k, v, dout, bias, bias_grad=True):
+    if bias is None:
+        return _ga_run(fn, q, k, v, dout)
+    return _ga_bias_run(fn, q, k, v, dout, bias, bias_grad)
+
+
+def _assert_within_f32_tol(got, want):
+    """1e-4 of max(1, max |plain|) for out, dq, dk, dv (and dbias)."""
+    for name, a, b in zip(("out", "dq", "dk", "dv", "dbias"), got, want):
+        assert np.isfinite(a).all(), name
+        np.testing.assert_allclose(a, b, rtol=0, atol=1e-4 * max(1.0, np.abs(b).max()),
+                                   err_msg=name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", sorted(GA_F32_SHAPES))
+def test_cuda_global_attention_f32_form_matches_plain_version(cuda_device, shape):
+    """The pair's fp32 form (split TF32) against its plain version (fp32):
+    out, dq, dk, dv and dbias within 1e-4 of max(1, max |plain|); one
+    forward and one backward of the fp32 form (with its bias where there is
+    one), none of the bf16 forms or the window-attention kernels."""
+    q, k, v, dout, bias = _ga_f32_inputs(cuda_device, shape)
+    assert not k.is_contiguous()  # views of a packed projection
+    ga.reset_launch_counts()
+    wa.reset_launch_counts()
+    got = _ga_f32_run(ga.global_attention, q, k, v, dout, bias)
+    form = "" if bias is None else "_bias"
+    assert ga.LAUNCH_COUNTS == _ga_counts(f"fwd{form}_f32", f"bwd{form}_f32")
+    assert not any(wa.LAUNCH_COUNTS.values())
+    assert all(x.dtype == np.float32 for x in got)
+    want = _ga_f32_run(ga.global_attention_reference, q, k, v, dout, bias)
+    _assert_within_f32_tol(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ["vit_l_8x16x1025x64", "moat4_2x32x1024x32_bias",
+                                   "b3_t200_s70_d32_bias", "b2_t70_s200_d64"])
+def test_cuda_global_attention_f32_form_is_bitwise_repeatable(cuda_device, shape):
+    """Two runs of the fp32 form's forward and backward, dbias included,
+    equal bit for bit."""
+    q, k, v, dout, bias = _ga_f32_inputs(cuda_device, shape, seed=3)
+    first = _ga_f32_run(ga.global_attention, q, k, v, dout, bias)
+    second = _ga_f32_run(ga.global_attention, q, k, v, dout, bias)
+    for name, a, b in zip(("out", "dq", "dk", "dv", "dbias"), first, second):
+        np.testing.assert_array_equal(a, b, err_msg=name)
+
+
+@pytest.mark.cuda
+def test_cuda_global_attention_f32_bias_without_a_gradient_forms_no_dbias(cuda_device,
+                                                                         monkeypatch):
+    """The fp32 bias form with a bias that records no gradient: no dbias is
+    asked for, and out, dq, dk and dv equal those of the run that forms it
+    bit for bit."""
+    q, k, v, dout, bias = _ga_f32_inputs(cuda_device, "b3_t130_d32_bias", seed=4)
+    asked = []
+    launch_bwd = ga._launch_bwd
+
+    def record(*args, **kwargs):
+        asked.append(kwargs.get("bias_grad"))
+        return launch_bwd(*args, **kwargs)
+
+    monkeypatch.setattr(ga, "_launch_bwd", record)
+    without = _ga_f32_run(ga.global_attention, q, k, v, dout, bias, bias_grad=False)
+    with_grad = _ga_f32_run(ga.global_attention, q, k, v, dout, bias)
+    assert asked == [False, True] and len(without) == 4
+    for name, a, b in zip(("out", "dq", "dk", "dv"), without, with_grad):
+        np.testing.assert_array_equal(a, b, err_msg=name)
+
+
+@pytest.mark.cuda
+def test_cuda_global_attention_f32_raises_where_its_build_does_not_take(cuda_device):
+    """float16, a head dim of no multiple of 8, and an fp32 bias at D = 128
+    (past the fp32 bias form's 64) raise in ``global_attention``; nothing is
+    launched."""
+    q, k, v, _, _ = _ga_f32_inputs(cuda_device, "b2_t97_d128")
+    bias = torch.zeros(q.shape[2], q.shape[1], k.shape[1], device=cuda_device)
+    ga.reset_launch_counts()
+    with pytest.raises(TypeError):
+        ga.global_attention(q.half(), k.half(), v.half())
+    with pytest.raises(ValueError):
+        ga.global_attention(q[..., :100], k[..., :100], v[..., :100])
+    with pytest.raises(ValueError, match="no bias form"):
+        ga.global_attention(q, k, v, bias=bias)
+    assert not any(ga.LAUNCH_COUNTS.values())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_bias", [False, True], ids=["no_bias", "moat_bias"])
+def test_cuda_dot_product_attention_f32_takes_the_f32_form(cuda_device, with_bias):
+    """``dot_product_attention`` with a gradient in fp32 on the card (TF32
+    off or on), with no bias or MOAT's ``[1, H, S, S]`` one: one forward and
+    one backward of the pair's fp32 form and no window-attention launch,
+    within 1e-4 of the plain function; with a mask it takes the
+    window-attention kernels instead."""
+    from iseg_tpu_torch.nn import attention as tattn
+
+    q, k, v, dout, bias = _ga_f32_inputs(
+        cuda_device, "b3_t130_d32_bias" if with_bias else "b2_t97_d24", seed=6)
+    ga.reset_launch_counts()
+    wa.reset_launch_counts()
+    runs = []
+    for fn in (tattn.dot_product_attention, tattn.dot_product_attention_reference):
+        leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        tb = None if bias is None else bias[None].detach().clone().requires_grad_(True)
+        out = fn(*leaves, bias=tb)
+        grads = torch.autograd.grad(out, leaves + ([] if tb is None else [tb]), dout)
+        runs.append([t.float().cpu().numpy() for t in (out.detach(), *grads)])
+    form = "" if bias is None else "_bias"
+    assert ga.LAUNCH_COUNTS == _ga_counts(f"fwd{form}_f32", f"bwd{form}_f32")
+    assert not any(wa.LAUNCH_COUNTS.values())
+    _assert_within_f32_tol(runs[0], runs[1])
+    mask = torch.ones(q.shape[0], 1, q.shape[1], k.shape[1], dtype=torch.bool, device=cuda_device)
+    ga.reset_launch_counts()
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    tattn.dot_product_attention(*leaves, mask).sum().backward()
+    assert not any(ga.LAUNCH_COUNTS.values()) and any(wa.LAUNCH_COUNTS.values())
 
 
 @pytest.mark.cuda

@@ -171,6 +171,48 @@ def _plain_bias_passes(q, k, v, bias, w, dtype):
 BIAS_NAMES = ("out", "dq", "dk", "dv", "dbias", "lse")
 
 
+@pytest.mark.parametrize("with_bias", [False, True], ids=["no_bias", "bias"])
+@pytest.mark.parametrize("t, s", [(65, 17), (17, 130), (130, 67)])
+def test_torch_global_attention_f32_passes_with_other_key_count(t, s, with_bias):
+    """The plain forward and backward fed float32 q, k and v (the fp32
+    form's inputs), T != S both ways with tails past a 64-row tile, with and
+    without an ``[H, T, S]`` bias, against ``jax.nn.dot_product_attention``
+    and its VJP in fp32: the fp32 form's passes keep delta = rowsum(dout
+    out) with a bias too."""
+    q, k, v, w = _inputs(3 * t + 5 * s, t, 32, s)
+    if with_bias:
+        bias = _bias(t + 11 * s, t, s)
+        got = _plain_bias_passes(q, k, v, bias, w, torch.float32)
+        want, names = _jax_ref_bias(q, k, v, bias, w, f64=False), BIAS_NAMES
+    else:
+        got = _plain_passes(q, k, v, w, torch.float32)
+        want, names = _jax_ref(q, k, v, w, f64=False), ("out", "dq", "dk", "dv", "lse")
+    for name, a, b in zip(names, got, want):
+        assert a.dtype == np.float32, name
+        _close(a, b, F32_TOL, name)
+
+
+@pytest.mark.parametrize("with_bias", [False, True], ids=["no_bias", "bias"])
+@pytest.mark.parametrize("t", TOKENS)
+def test_torch_global_attention_f32_function_and_autograd_match_jax(t, with_bias):
+    """``global_attention`` on float32 CPU tensors (the plain function,
+    autograd for its gradients, the bias's too) against JAX's forward and
+    VJP in fp32."""
+    q, k, v, w = _inputs(13 * t, t, 64)
+    ts = [torch.tensor(a, requires_grad=True) for a in (q, k, v)]
+    bias = _bias(17 * t, t, t) if with_bias else None
+    tb = None if bias is None else torch.tensor(bias[0], requires_grad=True)
+    out = ga.global_attention(*ts, bias=tb)
+    out.backward(torch.tensor(w))
+    got = [out.detach()] + [x.grad for x in ts] + ([tb.grad] if with_bias else [])
+    want = (_jax_ref_bias(q, k, v, bias, w, f64=False) if with_bias
+            else _jax_ref(q, k, v, w, f64=False))
+    for name, a, b in zip(BIAS_NAMES, got, want):
+        assert a.dtype == torch.float32, name
+        _close(a.numpy(), b, F32_TOL, name)
+
+
+
 @pytest.mark.parametrize("d", HEAD_DIMS)
 @pytest.mark.parametrize("t", TOKENS)
 def test_torch_global_attention_bias_passes_match_jax_f32(t, d):
@@ -344,9 +386,22 @@ def test_torch_global_attention_takes_bias_shape(bias_shape, want):
     assert ga.takes(torch.bfloat16, 8, 16, 1025, 1025, 64, bias_shape) is want
 
 
+@pytest.mark.parametrize("d, want", [(32, True), (64, True), (72, False), (128, False)])
+def test_torch_global_attention_takes_f32_bias_up_to_d64(d, want):
+    """The fp32 form takes a bias up to D = 64 (its dbias kernel's ring of
+    four fp32 tiles fits a block there; MOAT's head dim is 32), and no bias
+    at any D up to 128."""
+    assert ga.takes(torch.float32, 2, 32, 1024, 1024, d, (1, 32, 1024, 1024)) is want
+    assert ga.takes(torch.float32, 2, 32, 1024, 1024, d)
+
+
 @pytest.mark.parametrize("case, want", [
     (dict(), True),
-    (dict(dtype=torch.float32), False),
+    (dict(dtype=torch.float32), True),  # the fp32 form
+    (dict(dtype=torch.float32, d=32), True),
+    (dict(dtype=torch.float32, d=128), True),
+    (dict(dtype=torch.float32, d=20), False),
+    (dict(dtype=torch.float32, d=136), False),
     (dict(dtype=torch.float16), False),
     (dict(d=24), True),
     (dict(d=128), True),
@@ -357,10 +412,28 @@ def test_torch_global_attention_takes_bias_shape(bias_shape, want):
     (dict(t=0), False),
 ])
 def test_torch_global_attention_takes(case, want):
+    """bf16 and fp32 (the split-TF32 form) at head dims that are multiples
+    of 8 up to 128; nothing else."""
     args = dict(dtype=torch.bfloat16, b=8, h=16, t=1025, s=1025, d=64) | case
     if "t" in case:
         args["s"] = case["t"]
     assert ga.takes(args["dtype"], args["b"], args["h"], args["t"], args["s"], args["d"]) is want
+
+
+@pytest.mark.parametrize("name, count", [("global_attention_fwd", 16),
+                                         ("global_attention_bwd", 22)])
+def test_torch_global_attention_source_defines_the_bound_functions(name, count):
+    """Each C entry point the wrapper binds (``build``: the pointers, the
+    dtype code and the shape, ldb, scale, strides and stream) is defined in
+    the CUDA source with that many arguments (the library is only compiled
+    on the card, so a reshaped entry point would show there first)."""
+    import re
+    from pathlib import Path
+
+    src = (Path(ga.__file__).resolve().parents[2] / "csrc" / ga.SOURCE).read_text()
+    found = re.search(rf"\nint {name}\(([^)]*)\)", src)
+    assert found and len(found.group(1).split(",")) == count
+    assert "int dtype" in found.group(1)
 
 
 def test_torch_global_attention_raises_off_cpu_and_cuda():
@@ -402,12 +475,16 @@ ROUTE_CASES = {
     "eva_fp32_under_autocast": ((torch.float32, 64, None, False, True, True, True), "global"),
     "bf16_d24": ((torch.bfloat16, 24, None, False, True, False, True), "global"),
     "bf16_d128": ((torch.bfloat16, 128, None, False, True, False, True), "global"),
-    "fp32": ((torch.float32, 64, None, False, True, False, True), "kernel"),
+    "fp32": ((torch.float32, 64, None, False, True, False, True), "global"),
     "moat_bias": ((torch.bfloat16, 32, "grad", False, True, False, True), "global"),
     "bias_without_grad": ((torch.bfloat16, 64, "const", False, True, False, True), "global"),
     "moat_bias_under_autocast": ((torch.float32, 32, "grad", False, True, True, True), "global"),
     "batch_bias": ((torch.bfloat16, 32, "batch", False, True, False, True), "kernel"),
-    "fp32_bias": ((torch.float32, 32, "grad", False, True, False, True), "kernel"),
+    "fp32_bias": ((torch.float32, 32, "grad", False, True, False, True), "global"),
+    "fp32_mask": ((torch.float32, 64, None, True, True, False, True), "kernel"),
+    "fp32_batch_bias": ((torch.float32, 32, "batch", False, True, False, True), "kernel"),
+    "fp32_bias_d128": ((torch.float32, 128, "grad", False, True, False, True), "kernel"),
+    "fp32_d20": ((torch.float32, 20, None, False, True, False, True), "kernel"),
     "mask_and_bias": ((torch.bfloat16, 32, "grad", True, True, False, True), "kernel"),
     "mask": ((torch.bfloat16, 64, None, True, True, False, True), "kernel"),
     "bf16_d20": ((torch.bfloat16, 20, None, False, True, False, True), "kernel"),

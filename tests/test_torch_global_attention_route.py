@@ -209,9 +209,11 @@ def test_torch_global_kernel_autocast_takes_one_dtype():
 @pytest.mark.parametrize("on_card", [False, True], ids=["cpu", "card"])
 @pytest.mark.parametrize("grad", ["none", "q", "bias", "no_grad_mode"])
 def test_torch_global_attention_route(on_card, grad):
-    """Card + a recorded gradient -> the window-attention kernels; card and
-    none -> SDPA; the CPU -> the plain version. ``is_cuda`` is mocked: the
-    routes' functions are replaced by recorders, so nothing runs on a card."""
+    """Card + a recorded gradient -> the global-attention kernels (fp32 at
+    D = 16 with a ``[1, H, T, S]`` bias is theirs since their fp32 form);
+    card and none -> SDPA; the CPU -> the plain version. ``is_cuda`` is
+    mocked: the routes' functions are replaced by recorders, so nothing runs
+    on a card."""
     q, k, v, _ = _inputs(7, t=5, s=5)
     qt, kt, vt = (torch.tensor(a) for a in (q, k, v))
     bias = torch.zeros(1, H, 5, 5, requires_grad=grad == "bias")
@@ -219,23 +221,23 @@ def test_torch_global_attention_route(on_card, grad):
         qt.requires_grad_()
     called = []
     routes = {name: (lambda *a, name=name, **kw: called.append(name) or qt)
-              for name in ("kernel", "sdpa", "plain")}
+              for name in ("global", "kernel", "sdpa", "plain")}
     with mock.patch.object(torch.Tensor, "is_cuda", new_callable=mock.PropertyMock,
                            return_value=on_card), \
             mock.patch.dict(tattn._ROUTES, routes), \
             torch.set_grad_enabled(grad != "no_grad_mode"):
         route = tattn.attention_route(qt, kt, vt, bias)
         tattn.dot_product_attention(qt, kt, vt, bias=bias)
-    want = "plain" if not on_card else ("kernel" if grad in ("q", "bias") else "sdpa")
+    want = "plain" if not on_card else ("global" if grad in ("q", "bias") else "sdpa")
     assert route == want and called == [want]
 
 
 def test_torch_global_kernel_route_without_bias_or_mask_is_streaming():
     """The route of a call without a bias and a mask that records a gradient
-    on the card (``is_cuda`` mocked): bf16 with a head dim of whole 16-byte
-    pieces up to 128 takes the global-attention kernels (``"global"``, at
-    ViT-L's T = 1025 and EVA02-L's patch-dropped 769 too); f32, and bf16 at
-    any other head dim up to 128, the streaming window-attention kernels
+    on the card (``is_cuda`` mocked): bf16 and f32 with a head dim that is
+    a multiple of 8 up to 128 take the global-attention kernels
+    (``"global"``, at ViT-L's T = 1025 and EVA02-L's patch-dropped 769 too);
+    any other head dim up to 128 the streaming window-attention kernels
     (``"kernel"``), which take every N at D <= 128 without a mask; nothing
     above."""
     for dtype in (torch.float32, torch.bfloat16):
@@ -253,7 +255,7 @@ def test_torch_global_kernel_route_without_bias_or_mask_is_streaming():
                     route = tattn.attention_route(q, q, q)
                     if d > 128:
                         assert route == "fixed"
-                    elif dtype == torch.bfloat16 and d % 8 == 0:
+                    elif d % 8 == 0:
                         assert route == "global"
                     else:
                         assert route == "kernel"
@@ -299,16 +301,21 @@ def test_torch_eva_block_bf16_within_twice_jax_bf16_noise():
 
 
 def test_torch_global_stand_in_for_a_single_operand():
-    """The streaming kernels are built with both operands, with the bias
-    alone and with neither: a mask alone gets a zero ``[H, N, N]`` bias
-    standing in; a bias alone, neither and both pass as they are."""
+    """The streaming kernels are built with both operands only: a mask
+    alone gets a zero ``[H, N, N]`` bias standing in, a bias alone a zero
+    ``[1, N, N]`` mask, neither both; both pass as they are."""
     q = torch.zeros(2, 3, 5, 8)
     bias, mask = torch.ones(3, 5, 5), torch.ones(2, 5, 5)
+
+    def zero(t, shape):
+        return t.shape == shape and t.dtype == torch.float32 and not t.any()
+
     b, m = twa._stand_in(q, None, mask)
-    assert m is mask and b.shape == (3, 5, 5) and b.dtype == torch.float32 and not b.any()
+    assert m is mask and zero(b, (3, 5, 5))
     b, m = twa._stand_in(q, bias, None)
-    assert b is bias and m is None
-    assert twa._stand_in(q, None, None) == (None, None)
+    assert b is bias and zero(m, (1, 5, 5))
+    b, m = twa._stand_in(q, None, None)
+    assert zero(b, (3, 5, 5)) and zero(m, (1, 5, 5))
     assert twa._stand_in(q, bias, mask) == (bias, mask)
 
 

@@ -285,8 +285,8 @@ def test_torch_window_attention_source_defines_every_bound_function():
              "window_attention_bwd": 20, "window_attention_fwd_mma": 16,
              "window_attention_bwd_mma": 20, "window_attention_fwd_tf32x3": 16,
              "window_attention_bwd_tf32x3": 22, "window_attention_fwd_stream": 18,
-             "window_attention_bwd_stream": 24, "window_attention_fwd_stream_chunks": 7,
-             "window_attention_bwd_stream_chunks": 7}
+             "window_attention_bwd_stream": 24, "window_attention_fwd_stream_chunks": 5,
+             "window_attention_bwd_stream_chunks": 5}
     names.update({f"window_attention_{w}_{r}_chunks": 4 for w in ("fwd", "bwd")
                   for r in ("mma", "tf32x3")})
     for name, count in names.items():

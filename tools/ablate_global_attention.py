@@ -8,10 +8,13 @@ Copies ``iseg_tpu_torch`` into ``_checkout/ablate_ga/<variant>/``
 every copy in parallel, then times each copy in a process of its own, twice,
 in turns (the variants in order, then in reverse), with ``chip_smoke.py``'s
 timers: the profiler's device time of the forward and of the backward at
-phase 2's bf16 global rows (ViT-L, EVA02-L patch-dropped, MOAT-4 stage 2,
-and MOAT-4 stage 2 with its relative bias on the bias form, dbias formed),
-the lesser of the two runs printed, and each variant's ptxas report. A variant whose change no longer applies to the source
-raises. Needs a CUDA card.
+phase 2's global rows (ViT-L, EVA02-L patch-dropped, MOAT-4 stage 2, and
+MOAT-4 stage 2 with its relative bias on the bias form, dbias formed, in
+bf16; ViT-L and the biased MOAT-4 row on the fp32 form), the lesser of the
+two runs printed, and each variant's ptxas report. The variants change the
+bf16 builds' settings (a ``constexpr`` function's last ``return``; the fp32
+form's own line before it stays). A variant whose change no longer applies
+to the source raises. Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -39,9 +42,10 @@ def _swap(old: str, new: str, count: int = 0):
 
 
 def _returns(function: str, value: str):
-    """The constexpr ``function``'s body replaced by ``return value;``."""
+    """The constexpr ``function``'s last ``return`` (its bf16 value, after
+    the fp32 form's ``if constexpr`` line) replaced by ``return value;``."""
     def apply(src: str) -> str:
-        pattern = rf"(constexpr int {function}\(\) {{\n  return )[^;]+;"
+        pattern = rf"(constexpr int {function}\(\) {{\n(?:  if constexpr [^\n]*\n)?  return )[^;]+;"
         out, found = re.subn(pattern, rf"\g<1>{value};", src)
         if found != 1:
             raise ValueError(f"the ablation no longer applies: {function} found {found} times")
@@ -72,14 +76,32 @@ VARIANTS = {
     # an SM (up to 255 registers a thread), its dk / dv and dq kernels at two
     "bias_fwd_x2": _returns("fwd_min_blocks", "kBias ? (kD <= 64 ? 2 : 1) : (kD == 64 ? 4 : 1)"),
     "bias_dbias_x2": _returns("dbias_min_blocks", "kD <= 64 ? 2 : 1"),
+    # the fp32 form: hi by truncation (the operand passed whole: the TF32
+    # product reads only its top 19 bits), lo = x - trunc(x): two
+    # instructions a split where rounding takes four
+    "f32_trunc_split": _swap(
+        "    hi[i] = to_tf32(x);\n"
+        "    lo[i] = __float_as_uint(x - __uint_as_float(hi[i])) & 0xFFFFE000u;",
+        "    hi[i] = __float_as_uint(x);\n"
+        "    lo[i] = __float_as_uint(x - __uint_as_float(hi[i] & 0xFFFFE000u));"),
+    # the fp32 backward at three blocks an SM (168 registers) at D = 64, or
+    # with a whole 64-column sub-step (as bf16)
+    "f32_bwd_x3": _swap("  if constexpr (kF32<E>) return kD <= 32 ? 3 : kD <= 64 ? 2 : 1;",
+                        "  if constexpr (kF32<E>) return kD <= 64 ? 3 : 1;"),
+    "f32_sub_full": _swap("  return (kD <= 64 ? 64 : 32) / (kF32<E> ? 2 : 1);",
+                          "  return kD <= 64 ? 64 : 32;"),
+    # the fp32 forward at two blocks an SM at D = 64 (up to 255 registers)
+    "f32_fwd_x2": _swap("kD <= 64 ? (kBias ? 2 : 3) : 1;", "kD <= 64 ? 2 : 1;"),
 }
 
-# (B, H, T, D, with MOAT's relative bias): phase 2's bf16 global rows
+# (B, H, T, D, with MOAT's relative bias, fp32): phase 2's global rows
 ROWS = {
-    "ViT-L": (8, 16, 1025, 64, False),
-    "EVA02-L patch dropout": (4, 16, 769, 64, False),
-    "MOAT-4 stage 2": (2, 32, 1024, 32, False),
-    "MOAT-4 stage 2 bias": (2, 32, 1024, 32, True),
+    "ViT-L": (8, 16, 1025, 64, False, False),
+    "EVA02-L patch dropout": (4, 16, 769, 64, False, False),
+    "MOAT-4 stage 2": (2, 32, 1024, 32, False, False),
+    "MOAT-4 stage 2 bias": (2, 32, 1024, 32, True, False),
+    "ViT-L f32": (8, 16, 1025, 64, False, True),
+    "MOAT-4 stage 2 bias f32": (2, 32, 1024, 32, True, True),
 }
 
 CHILD = r'''
@@ -97,8 +119,9 @@ if sys.argv[3] == "build":
 import chip_smoke as cs
 device = torch.device("cuda")
 row = {}
-for name, (b, heads, t, d, with_bias) in json.loads(sys.argv[4]).items():
-    qh, kh, vh, douth = cs.ga_inputs(device, b, heads, t, d, torch.bfloat16)
+for name, (b, heads, t, d, with_bias, f32) in json.loads(sys.argv[4]).items():
+    dtype = torch.float32 if f32 else torch.bfloat16
+    qh, kh, vh, douth = cs.ga_inputs(device, b, heads, t, d, dtype)
     q, k, v, dout = (x.permute(0, 2, 1, 3) for x in (qh, kh, vh, douth))
     bias = (0.1 * torch.randn((heads, t, t), device=device, generator=torch.Generator(
         device=device).manual_seed(1))) if with_bias else None
@@ -106,6 +129,9 @@ for name, (b, heads, t, d, with_bias) in json.loads(sys.argv[4]).items():
     with torch.no_grad():
         row[name + " fwd"] = cs.device_ms(lambda _: ga.global_attention(q, k, v, bias=bias),
                                           **reps)
+        want = ga.global_attention_reference(q, k, v, bias=bias).float()
+        err = (ga.global_attention(q, k, v, bias=bias).float() - want).abs().max()
+        row[name + " out err"] = float(err) / max(1.0, float(want.abs().max()))
 
     def setup():
         leaves = [x.detach().requires_grad_(True) for x in (q, k, v)] + (
@@ -123,10 +149,10 @@ print(json.dumps(row))
 def _registers(log: str) -> str:
     """'kernel<D[, bias]>: registers / spill bytes' for each kernel in a ptxas
     report."""
-    found = re.findall(r"ga_(\w+?)_kernel(?:ILi(\d+)E(?:Lb(\d)E)?E)?.*?\n.*?(\d+) bytes spill "
-                       r"stores.*?\n.*?Used (\d+) registers", log)
-    return ", ".join(f"{k}<{d or '-'}{', bias' if b == '1' else ''}> {r}r/{s}sp"
-                     for k, d, b, s, r in found)
+    found = re.findall(r"ga_(\w+?)_kernel(?:I(13__nv_bfloat16|f)(?:Li(\d+)E)?(?:Lb(\d)E)?E)?"
+                       r".*?\n.*?(\d+) bytes spill stores.*?\n.*?Used (\d+) registers", log)
+    return ", ".join(f"{k}<{'f32' if e == 'f' else 'bf16'}, {d or '-'}"
+                     f"{', bias' if b == '1' else ''}> {r}r/{s}sp" for k, e, d, b, s, r in found)
 
 
 def main(names: list[str]) -> int:
@@ -162,9 +188,10 @@ def main(names: list[str]) -> int:
             runs.setdefault(n, []).append(json.loads(res.stdout.strip().splitlines()[-1]))
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True).stdout.strip()
-    print(f"device ms, the lesser of two runs ({card}):")
+    print(f"device ms (and the forward's error, of max(1, max |plain|)), the lesser of two runs "
+          f"({card}):")
     for n, rs in runs.items():
-        print(f"{n:8s}", "  ".join(f"{k}: {min(r[k] for r in rs):.4f}" for k in rs[0]))
+        print(f"{n:8s}", "  ".join(f"{k}: {min(r[k] for r in rs):.4g}" for k in rs[0]))
     return 0
 
 
